@@ -1,0 +1,462 @@
+"""Smoke run of the PyTorch port on one NVIDIA GPU.
+
+    python3 chip_smoke.py
+
+Drives the port's main path (``multi_style_transfer_gan_tpu_torch``) on the
+card, at the full width of the trained c16 EnhancedGenerator shipped in
+``trained/``, and checks every hand-written kernel on the way:
+
+1. build: both CUDA kernels compile from ``csrc/`` with nvcc;
+2. window channel attention, kernel vs plain PyTorch at every shape the
+   generator gives it at canvas 256 and 512 (fp32 with TF32 off, and bf16);
+3. the fused transformer block, kernel vs plain, including a ragged grid;
+4. the uint8 -> uint8 stylize program on the trained weights: fp32 on the
+   card vs the plain path on the CPU, launch counts per forward, and bf16
+   img/s at canvas 256 and 512;
+5. the batch CLI on 24 JPEGs of mixed sizes;
+6. the HTTP server answering 4 requests.
+
+Every phase raises on failure. The last line is the result JSON; the line
+before it lists each kernel with its launches on the main path (phases
+4-6), its largest fp32 deviation from the plain version, and its time
+beside the plain version's. Exits nonzero without a CUDA device.
+"""
+
+from __future__ import annotations
+
+import io
+import json
+import os
+import shutil
+import subprocess
+import sys
+import tempfile
+import threading
+import time
+import urllib.request
+
+import numpy as np
+
+REPO = os.path.dirname(os.path.abspath(__file__))
+TRAINED = os.path.join(REPO, "trained", "G_BA_selected.pth")
+SEED = 0
+BATCH = 8            # kernel-phase batch
+GEN_BATCH = 16       # generator-phase batch
+CANVASES = (256, 512)
+FP32_TOL = 1e-4      # channel attention, fp32: summation order only
+BLOCK_FP32_TOL = 2e-4  # block, fp32: two LayerNorms and a 256-wide MLP
+# bf16: kernel and plain both compute in fp32 from the same bf16 inputs and
+# round once, so they may differ by one bf16 rounding of the output (2^-7
+# relative) on top of fp32 summation order.
+BF16_ATOL, BF16_RTOL = 3e-2, 2 ** -7
+# uint8 fp32 card vs CPU: different conv algorithms move values by ~1e-5,
+# which flips a rounding on a small share of pixels by one level.
+U8_MAX_DIFF, U8_MAX_SHARE = 1, 0.01
+# bf16 vs fp32 program on the card, mean |d| in uint8 levels (a sanity
+# bound: a broken kernel lands far above it).
+BF16_MEAN_LSB = 4.0
+
+
+def log(*a):
+    print(*a, flush=True)
+
+
+def card_line() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60).stdout
+    return out.strip().splitlines()[0]
+
+
+def time_ms(fn, iters=20, warmup=3) -> float:
+    """Mean device time of one call, CUDA events around ``iters`` calls."""
+    import torch
+
+    for _ in range(warmup):
+        fn()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def time_pair(kernel_fn, plain_fn):
+    """Kernel and plain times taken in turns (plain, kernel, kernel, plain)."""
+    p1, k1, k2, p2 = (time_ms(plain_fn), time_ms(kernel_fn),
+                      time_ms(kernel_fn), time_ms(plain_fn))
+    return (k1 + k2) / 2, (p1 + p2) / 2
+
+
+def compare(got, ref, dtype):
+    """max |d| and whether it is inside the dtype's stated tolerance."""
+    import torch
+
+    d = (got.float() - ref.float()).abs()
+    if dtype == torch.float32:
+        return d.max().item(), None
+    ok = bool((d <= BF16_ATOL + BF16_RTOL * ref.float().abs()).all())
+    return d.max().item(), ok
+
+
+# ---------------------------------------------------------------------------
+# phases
+# ---------------------------------------------------------------------------
+
+def phase_build():
+    from multi_style_transfer_gan_tpu_torch.ops.kernels import _build
+
+    for name in ("window_channel_attention", "fused_structural_block"):
+        t0 = time.perf_counter()
+        _build.kernel(name)
+        log(f"[build] {name}: {time.perf_counter() - t0:.2f} s "
+            f"({os.path.relpath(_build.library_path(name), REPO)})")
+
+
+def attention_shapes(canvas):
+    """(name, shape) of the four LocalAttention calls of one c16 forward."""
+    return [("down1", (BATCH, canvas // 2, canvas // 2, 32)),
+            ("down2", (BATCH, canvas // 4, canvas // 4, 64)),
+            ("up1", (BATCH, canvas // 2, canvas // 2, 32)),
+            ("up2", (BATCH, canvas, canvas, 16))]
+
+
+def phase_attention(rng, dev):
+    import torch
+
+    from multi_style_transfer_gan_tpu_torch.ops.kernels import (
+        window_channel_attention, window_channel_attention_plain,
+    )
+
+    worst = 0.0
+    times = {}
+    for canvas in CANVASES:
+        seen = {}
+        for stage, shape in attention_shapes(canvas):
+            if shape in seen:  # up1 has down1's shape
+                times[(canvas, stage)] = seen[shape]
+                continue
+            B, H, W, C = shape
+            x = rng.standard_normal(shape).astype(np.float32)
+            x[0, :4, :4] = 0.0  # one all-zero window: zero-safe normalize
+            ws = [rng.standard_normal((3 * C, C)) * 0.1,
+                  rng.standard_normal(3 * C),
+                  rng.standard_normal((C, C)) * 0.1,
+                  rng.standard_normal(C)]
+            for dtype in (torch.float32, torch.bfloat16):
+                args = [torch.from_numpy(a.astype(np.float32)).to(dev, dtype)
+                        for a in [x] + ws]
+                got = window_channel_attention(*args)
+                ref = window_channel_attention_plain(*args)
+                torch.cuda.synchronize()
+                err, bf16_ok = compare(got, ref, dtype)
+                ok = (err <= FP32_TOL if dtype == torch.float32 else bf16_ok)
+                # the all-zero window: finite, and inside the same tolerance
+                zero_ok = bool(torch.isfinite(got[0, :4, :4]).all())
+                ok = ok and bool(torch.isfinite(got).all()) and zero_ok
+                k_ms, p_ms = time_pair(
+                    lambda: window_channel_attention(*args),
+                    lambda: window_channel_attention_plain(*args))
+                log(f"[attention] canvas {canvas} {stage} {shape} "
+                    f"{str(dtype)[6:]}: max|d| {err:.3e} zero-window "
+                    f"{'ok' if zero_ok else 'BAD'}, kernel {k_ms:.4f} ms, "
+                    f"plain {p_ms:.4f} ms")
+                if not ok:
+                    raise AssertionError(f"window_channel_attention {shape} "
+                                         f"{dtype}: max|d| {err:.3e} outside "
+                                         f"tolerance")
+                if dtype == torch.float32:
+                    worst = max(worst, err)
+                else:
+                    times[(canvas, stage)] = seen[shape] = (k_ms, p_ms)
+    return worst, times
+
+
+def phase_block(rng, dev):
+    import torch
+
+    from multi_style_transfer_gan_tpu_torch.ops.kernels import (
+        fused_structural_block, structural_block_plain,
+    )
+    from multi_style_transfer_gan_tpu_torch.ops.kernels.fused_transformer import (
+        weight_shapes,
+    )
+
+    worst = 0.0
+    times = {}
+    for shape in [(BATCH, 64, 64, 64), (BATCH, 128, 128, 64), (2, 12, 20, 64)]:
+        B, H, W, C = shape
+        host = [rng.standard_normal(shape), rng.standard_normal(shape),
+                rng.standard_normal((B, C)) * 0.1,
+                rng.standard_normal((B, C)) * 0.1]
+        weights = {}
+        for n, s in weight_shapes(C).items():
+            a = rng.standard_normal(s) * (0.1 if len(s) == 2 else 0.05)
+            weights[n] = a + 1.0 if n in ("norm1_w", "norm2_w") else a
+        for dtype in (torch.float32, torch.bfloat16):
+            t = lambda a, dt=dtype: torch.from_numpy(
+                np.asarray(a, np.float32)).to(dev, dt)
+            args = (t(host[0]), t(host[1]), t(host[2], torch.float32),
+                    t(host[3], torch.float32))
+            kw = {n: t(a) for n, a in weights.items()}
+            got = fused_structural_block(*args, **kw)
+            ref = structural_block_plain(*args, **kw)
+            torch.cuda.synchronize()
+            err, bf16_ok = compare(got, ref, dtype)
+            ok = (err <= BLOCK_FP32_TOL if dtype == torch.float32 else bf16_ok)
+            ok = ok and bool(torch.isfinite(got).all())
+            k_ms, p_ms = time_pair(lambda: fused_structural_block(*args, **kw),
+                                   lambda: structural_block_plain(*args, **kw))
+            ragged = " (ragged)" if H % 8 or W % 8 else ""
+            log(f"[block] {shape}{ragged} {str(dtype)[6:]}: max|d| {err:.3e}, "
+                f"kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms")
+            if not ok:
+                raise AssertionError(f"fused_structural_block {shape} {dtype}: "
+                                     f"max|d| {err:.3e} outside tolerance")
+            if dtype == torch.float32:
+                worst = max(worst, err)
+            else:
+                times[shape] = (k_ms, p_ms)
+    return worst, times
+
+
+def smooth_images(rng, n, size):
+    """Seeded photo-like uint8 images: low-frequency colour fields."""
+    from PIL import Image
+
+    out = []
+    for _ in range(n):
+        low = (rng.random((6, 6, 3)) * 255).astype(np.uint8)
+        out.append(np.asarray(Image.fromarray(low).resize(size,
+                                                          Image.BICUBIC)))
+    return out
+
+
+def phase_generator(rng, dev, counts):
+    import torch
+
+    from multi_style_transfer_gan_tpu_torch.ops.kernels import (
+        fused_structural_block, window_channel_attention,
+    )
+    from multi_style_transfer_gan_tpu_torch.pipelines import (
+        load_generator, make_batch_fn,
+    )
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    gpu_model = load_generator(TRAINED, device=dev)
+    cpu_model = load_generator(TRAINED, device="cpu")
+    log(f"[generator] {gpu_model.kind} c{gpu_model.channels} direction "
+        f"{gpu_model.direction}, {sum(p.numel() for p in gpu_model.module.parameters())} "
+        f"parameters")
+    batch = np.stack(smooth_images(rng, GEN_BATCH, (256, 256)))
+
+    fp32 = make_batch_fn(gpu_model, "cyclegan", device=dev)
+    before = counts()
+    got = fp32(batch).cpu().numpy()
+    launched = [a - b for a, b in zip(counts(), before)]
+    ref = make_batch_fn(cpu_model, "cyclegan", device="cpu")(batch).numpy()
+    d = np.abs(got.astype(int) - ref.astype(int))
+    share = float((d > 0).mean())
+    log(f"[generator] fp32 card vs CPU plain, {batch.shape} uint8: max diff "
+        f"{d.max()}, differing share {share:.3e}; launches per forward: "
+        f"attention {launched[0]}, block {launched[1]}")
+    if launched != [4, 1]:
+        raise AssertionError(f"expected 4 attention + 1 block launches per "
+                             f"forward, got {launched}")
+    if got.shape != batch.shape or d.max() > U8_MAX_DIFF or share > U8_MAX_SHARE:
+        raise AssertionError("fp32 program on the card disagrees with the CPU")
+    if np.abs(got.astype(int) - batch.astype(int)).mean() < 2.0:
+        raise AssertionError("output is a passthrough, not a translation")
+
+    rates = {}
+    for canvas in CANVASES:
+        imgs = np.stack(smooth_images(rng, GEN_BATCH, (canvas, canvas)))
+        bf16 = make_batch_fn(gpu_model, "cyclegan",
+                             compute_dtype=torch.bfloat16, device=dev)
+        x = torch.from_numpy(imgs).to(dev)
+        out = bf16(x)
+        ref32 = fp32(x)
+        torch.cuda.synchronize()
+        mean_lsb = (out.float() - ref32.float()).abs().mean().item()
+        iters = 10
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            bf16(x)
+        torch.cuda.synchronize()
+        rate = iters * GEN_BATCH / (time.perf_counter() - t0)
+        rates[canvas] = rate
+        log(f"[generator] bf16 program, batch {GEN_BATCH} at canvas {canvas}: "
+            f"{rate:.1f} img/s (device-resident uint8 in and out); mean |bf16 "
+            f"- fp32| {mean_lsb:.3f} levels")
+        if mean_lsb > BF16_MEAN_LSB:
+            raise AssertionError(f"bf16 program drifts {mean_lsb:.2f} levels "
+                                 f"from fp32")
+    return rates
+
+
+def phase_cli(rng):
+    from PIL import Image
+
+    from multi_style_transfer_gan_tpu_torch.cli.batch_process_images import main
+
+    with tempfile.TemporaryDirectory() as tmp:
+        src = os.path.join(tmp, "in")
+        models = os.path.join(tmp, "models")
+        out = os.path.join(tmp, "out")
+        os.makedirs(src)
+        os.makedirs(models)
+        shutil.copy(TRAINED, os.path.join(models, "cyclegan_epoch_200.pth"))
+        sizes = {}
+        for i in range(24):
+            w, h = int(rng.integers(96, 640)), int(rng.integers(96, 640))
+            name = f"photo_{i:02d}.jpg"
+            Image.fromarray(smooth_images(rng, 1, (w, h))[0]).save(
+                os.path.join(src, name), quality=92)
+            sizes[name] = (w, h)
+        t0 = time.perf_counter()
+        rc = main(["--input_dir", src, "--output_dir", out, "--models_dir",
+                   models, "--mode", "cyclegan", "--direction", "photo2monet",
+                   "--bf16", "--batch_size", "8"])
+        elapsed = time.perf_counter() - t0
+        if rc != 0:
+            raise AssertionError(f"batch CLI exited {rc}")
+        done = 0
+        for name, size in sizes.items():
+            path = os.path.join(out, "cyclegan_photo2monet", name)
+            if os.path.exists(path):
+                with Image.open(path) as img:
+                    done += img.size == size
+        log(f"[cli] {done}/24 outputs at their original sizes; CLI wall "
+            f"{elapsed:.2f} s including model load")
+        if done != 24:
+            raise AssertionError(f"batch CLI wrote {done}/24 correct outputs")
+
+
+def phase_server(rng, dev):
+    import torch
+    from PIL import Image
+
+    from multi_style_transfer_gan_tpu_torch.pipelines import load_generator
+    from multi_style_transfer_gan_tpu_torch.serving import (
+        StyleTransferService, serve,
+    )
+
+    model = load_generator(TRAINED, device=dev)
+    service = StyleTransferService(model, canvas=256, max_batch=8,
+                                   compute_dtype=torch.bfloat16, device=dev)
+    server = serve(service, host="127.0.0.1", port=0)
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    host, port = server.server_address
+    try:
+        sizes = [(320, 200), (200, 320), (256, 256), (500, 375)]
+        replies = [None] * len(sizes)
+
+        def post(i):
+            buf = io.BytesIO()
+            Image.fromarray(smooth_images(np.random.default_rng(SEED + i), 1,
+                                          sizes[i])[0]).save(buf, "JPEG")
+            req = urllib.request.Request(f"http://{host}:{port}/stylize",
+                                         data=buf.getvalue(), method="POST")
+            with urllib.request.urlopen(req, timeout=120) as r:
+                replies[i] = (r.status, r.read())
+
+        workers = [threading.Thread(target=post, args=(i,))
+                   for i in range(len(sizes))]
+        for w in workers:
+            w.start()
+        for w in workers:
+            w.join(180)
+        good = 0
+        for (status, body), size in zip(replies, sizes):
+            with Image.open(io.BytesIO(body)) as img:
+                good += status == 200 and img.format == "PNG" and img.size == size
+        with urllib.request.urlopen(f"http://{host}:{port}/stats",
+                                    timeout=30) as r:
+            stats = json.loads(r.read())
+        log(f"[server] {good}/4 replies 200 with a PNG of the right size; "
+            f"/stats requests {stats['requests']}, batches {stats['batches']}")
+        if good != 4 or stats["requests"] != 4:
+            raise AssertionError("server round trip failed")
+    finally:
+        server.shutdown()
+        server.server_close()
+        service.close()
+        thread.join(10)
+
+
+# ---------------------------------------------------------------------------
+
+def main() -> int:
+    import torch
+
+    if not torch.cuda.is_available():
+        print("error: no CUDA device; chip_smoke.py runs on the GPU",
+              file=sys.stderr)
+        return 1
+    card = card_line()
+    log(card)  # name, power limit as nvidia-smi prints them
+    log(f"torch.cuda.get_device_name(0): {torch.cuda.get_device_name(0)}; "
+        f"torch {torch.__version__}, CUDA {torch.version.cuda}")
+
+    from multi_style_transfer_gan_tpu_torch.ops import kernels as K
+
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(SEED)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+    phase_build()
+    attn_err, attn_times = phase_attention(rng, dev)
+    block_err, block_times = phase_block(rng, dev)
+
+    counts = lambda: [K.window_channel_attention.launches,
+                      K.fused_structural_block.launches]
+    K.reset_launch_counts()   # the main path starts here
+    rates = phase_generator(rng, dev, counts)
+    phase_cli(rng)
+    phase_server(rng, dev)
+    launches = counts()       # ...and ends here
+    log(f"[main path] launches: window_channel_attention {launches[0]}, "
+        f"fused_structural_block {launches[1]}")
+    if min(launches) == 0 or launches[0] != 4 * launches[1]:
+        raise AssertionError(f"main path launches {launches}: expected every "
+                             f"kernel, 4 attention calls per block call")
+
+    # per-forward kernel time at canvas 256, batch 8, bf16 (the four
+    # LocalAttention shapes; the block's one shape)
+    attn_ms = sum(attn_times[(256, s)][0] for s, _ in attention_shapes(256))
+    attn_plain = sum(attn_times[(256, s)][1] for s, _ in attention_shapes(256))
+    blk_ms, blk_plain = block_times[(BATCH, 64, 64, 64)]
+    pkg = "multi_style_transfer_gan_tpu_torch/csrc"
+    tpu = "multi_style_transfer_gan_tpu/ops/pallas"
+    report = {"kernels": [
+        {"name": "window_channel_attention", "route": "cuda",
+         "source": f"{pkg}/window_channel_attention.cu",
+         "replaces": f"{tpu}/window_attention.py:122; "
+                     f"{tpu}/window_attention_grouped.py:148; "
+                     f"{tpu}/window_attention_v3.py:173",
+         "launches": launches[0], "max_abs_err": attn_err,
+         "ms": attn_ms, "plain_ms": attn_plain},
+        {"name": "fused_structural_block", "route": "cuda",
+         "source": f"{pkg}/fused_structural_block.cu",
+         "replaces": f"{tpu}/fused_transformer.py:169",
+         "launches": launches[1], "max_abs_err": block_err,
+         "ms": blk_ms, "plain_ms": blk_plain},
+    ]}
+    log(f"[summary] {card}; bf16 program img/s: canvas 256 {rates[256]:.1f}, "
+        f"canvas 512 {rates[512]:.1f}; kernel ms are per forward at canvas "
+        f"256, batch {BATCH}, bf16")
+    print(json.dumps(report))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,26 @@
+"""multi_style_transfer_gan_tpu_torch — the PyTorch/CUDA port for NVIDIA Hopper.
+
+The JAX package ``multi_style_transfer_gan_tpu`` beside this one is the
+reference; this package mirrors its layout so each counterpart sits under
+the same path:
+
+- ``core``      — instance norm with fp32 statistics, zero-safe L2
+                  normalize, exact-erf GELU.
+- ``ops``       — image-range helpers and the hand-written CUDA kernels
+                  (``ops.kernels``), each beside its plain PyTorch version.
+- ``models``    — the EnhancedGenerator and its StructuralTransformerBlock
+                  as ``nn.Module``s whose ``state_dict()`` keys are exactly
+                  the reference checkpoints' keys.
+- ``weights``   — ``.pth`` sniffing and the converter from JAX parameters.
+- ``pipelines`` — checkpoint loader and the uint8->uint8 batch program with
+                  its host pipeline.
+- ``serving``   — the micro-batching HTTP server.
+- ``cli``       — ``batch_process_images`` and ``serve``.
+
+Nothing here imports ``jax``. Activations are logical NCHW tensors in
+``torch.channels_last`` memory, so the kernels read (B, H, W, C) rows
+without a copy. On a CPU tensor every kernel wrapper runs its plain version;
+on a CUDA tensor it launches its kernel or raises.
+"""
+
+__version__ = "0.1.0"

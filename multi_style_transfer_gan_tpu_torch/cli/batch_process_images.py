@@ -1,0 +1,94 @@
+"""CLI: batch folder processing on the CUDA device (the flags of the JAX
+package's ``cli/batch_process_images.py``).
+
+Model files follow the reference's fixed layout under --models_dir
+(default ./models): cyclegan_epoch_200.pth, G_AB_epoch_200.pth,
+G_BA_epoch_200.pth.
+
+  python -m multi_style_transfer_gan_tpu_torch.cli.batch_process_images \\
+      --input_dir photos --models_dir models --bf16
+"""
+
+import argparse
+import os
+import sys
+
+
+def main(argv=None):
+    p = argparse.ArgumentParser(description="batch style-transfer processing")
+    p.add_argument("--input_dir", type=str, default="test_images")
+    p.add_argument("--output_dir", type=str, default="output/batch")
+    p.add_argument("--mode", choices=["cyclegan", "local_style"],
+                   default="cyclegan")
+    p.add_argument("--direction", choices=["photo2monet", "monet2photo"],
+                   default="photo2monet")
+    p.add_argument("--local_style_mode",
+                   choices=["simple", "enhanced", "advanced"],
+                   default="enhanced")
+    p.add_argument("--strength", type=float, default=0.8)
+    p.add_argument("--detail", type=float, default=0.7)
+    p.add_argument("--enhance_colors", action="store_true", default=True)
+    p.add_argument("--no_enhance_colors", dest="enhance_colors",
+                   action="store_false")
+    p.add_argument("--smooth", action="store_true", default=True)
+    p.add_argument("--no_smooth", dest="smooth", action="store_false")
+    p.add_argument("--models_dir", type=str, default="models")
+    p.add_argument("--batch_size", type=int, default=64)
+    p.add_argument("--bf16", action="store_true",
+                   help="bfloat16 generator compute (torch.bfloat16)")
+    p.add_argument("--fast_attention", action="store_true",
+                   help="accepted for script compatibility: on a CUDA "
+                        "device the hand-written kernels always run")
+    p.add_argument("--engine", choices=["auto", "nhwc", "packed", "int8"],
+                   default="auto",
+                   help="generator engine; auto and nhwc run the NHWC "
+                        "forward, packed and int8 are not ported")
+    p.add_argument("--canvas", type=int, default=256,
+                   help="working resolution (multiple of 32; the reference"
+                        " fixes 256)")
+    p.add_argument("--data_parallel", action="store_true",
+                   help="not ported yet")
+    args = p.parse_args(argv)
+
+    import torch
+
+    if args.data_parallel:
+        print("error: --data_parallel is not ported yet", file=sys.stderr)
+        return 2
+    if not torch.cuda.is_available():
+        print("error: no CUDA device; the port runs on the GPU",
+              file=sys.stderr)
+        return 1
+    from ..pipelines import batch_process, load_generator
+
+    if args.mode == "cyclegan":
+        path = os.path.join(args.models_dir, "cyclegan_epoch_200.pth")
+        prefer = ("G_AB_state_dict" if args.direction == "monet2photo"
+                  else "G_BA_state_dict")
+        if not os.path.exists(path):
+            print(f"error: missing CycleGAN model at {path}")
+            return 1
+        model = load_generator(path, prefer=prefer, device="cuda")
+    else:
+        name = ("G_AB_epoch_200.pth" if args.direction == "monet2photo"
+                else "G_BA_epoch_200.pth")
+        path = os.path.join(args.models_dir, name)
+        if not os.path.exists(path):
+            print(f"error: missing enhanced model at {path}")
+            return 1
+        model = load_generator(path, device="cuda")
+    print(f"loaded {model.kind} generator (channels={model.channels})")
+
+    batch_process(model, args.input_dir, args.output_dir, mode=args.mode,
+                  local_style_mode=args.local_style_mode,
+                  direction=args.direction, strength=args.strength,
+                  detail=args.detail, enhance_colors=args.enhance_colors,
+                  smooth=args.smooth, batch_size=args.batch_size,
+                  compute_dtype=torch.bfloat16 if args.bf16 else None,
+                  engine="nhwc" if args.engine == "auto" else args.engine,
+                  canvas=args.canvas, device="cuda")
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

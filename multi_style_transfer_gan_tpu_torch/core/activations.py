@@ -1,0 +1,11 @@
+"""Activations (PyTorch port of ``core/activations.py``)."""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+
+def gelu(x: torch.Tensor) -> torch.Tensor:
+    """GELU with the exact erf, like ``jax.nn.gelu(approximate=False)``."""
+    return F.gelu(x, approximate="none")

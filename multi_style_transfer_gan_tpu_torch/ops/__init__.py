@@ -1,0 +1,8 @@
+"""Image helpers and the hand-written kernels (``ops.kernels``)."""
+
+from .image import (
+    aspect_crop_bounds, from_model_range, restore_aspect, to_model_range,
+)
+
+__all__ = ["aspect_crop_bounds", "from_model_range", "restore_aspect",
+           "to_model_range"]

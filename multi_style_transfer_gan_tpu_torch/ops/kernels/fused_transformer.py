@@ -1,0 +1,137 @@
+"""StructuralTransformerBlock body: CUDA kernel and plain version.
+
+``fused_structural_block`` replaces ``ops/pallas/fused_transformer.py``;
+its kernel is ``csrc/fused_structural_block.cu``. ``structural_block_plain``
+is the port of ``_block_body_math`` / ``_window_attention``
+(models/structural_transformer.py:97-168), including the key mask of
+ragged windows.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import math
+
+import torch
+import torch.nn.functional as F
+
+from ...core.activations import gelu
+from . import _build
+from ._checks import check_cuda_args, dtype_code
+
+WINDOW = 8
+KERNEL_WIDTHS = (64,)
+
+
+def default_num_heads(dim: int) -> int:
+    """Largest head count <= dim // 32 that divides dim (1 if none), as
+    ``models/structural_transformer.py::default_num_heads``."""
+    h = max(1, dim // 32)
+    while dim % h:
+        h -= 1
+    return h
+
+
+def weight_shapes(C: int) -> dict:
+    """The shape of each block weight at width C, by keyword name."""
+    return {"norm1_w": (C,), "norm1_b": (C,), "qkv_w": (3 * C, C),
+            "qkv_b": (3 * C,), "proj_w": (C, C), "proj_b": (C,),
+            "norm2_w": (C,), "norm2_b": (C,), "fc1_w": (4 * C, C),
+            "fc1_b": (4 * C,), "fc2_w": (C, 4 * C), "fc2_b": (C,)}
+
+
+WEIGHT_NAMES = tuple(weight_shapes(1))  # the order the C entry point takes
+
+
+def _window_mhsa(h, qkv_w, qkv_b):
+    """Windowed multi-head self-attention of (B, H, W, C) fp32 tokens,
+    before the output projection. The grid is zero-padded to window
+    multiples after the qkv product; padded keys are masked out of every
+    softmax and padded queries cropped."""
+    B, H, W, C = h.shape
+    window = WINDOW
+    heads = default_num_heads(C)
+    hd = C // heads
+    qkv = F.linear(h, qkv_w, qkv_b)
+    ph, pw = (-H) % window, (-W) % window
+    qkv = F.pad(qkv, (0, 0, 0, pw, 0, ph))
+    nh, nw = (H + ph) // window, (W + pw) // window
+    t = qkv.reshape(B, nh, window, nw, window, 3 * C).permute(0, 1, 3, 2, 4, 5)
+    t = t.reshape(-1, window * window, 3, heads, hd).permute(2, 0, 3, 1, 4)
+    q, k, v = t[0], t[1], t[2]                     # (Bw, heads, T, hd)
+    attn = (q @ k.transpose(-2, -1)) * (1.0 / math.sqrt(hd))
+    if ph or pw:
+        valid = F.pad(torch.ones(H, W, device=h.device), (0, pw, 0, ph))
+        valid = valid.reshape(nh, window, nw, window).permute(0, 2, 1, 3)
+        valid = valid.reshape(1, nh * nw, 1, 1, window * window) > 0
+        attn = attn.reshape(B, nh * nw, heads, window * window, -1)
+        attn = attn.masked_fill(~valid, float("-inf")).flatten(0, 1)
+    out = torch.softmax(attn, dim=-1) @ v          # (Bw, heads, T, hd)
+    out = out.permute(0, 2, 1, 3).reshape(B, nh, nw, window, window, C)
+    out = out.permute(0, 1, 3, 2, 4, 5).reshape(B, H + ph, W + pw, C)
+    return out[:, :H, :W]
+
+
+def structural_block_plain(x, struct, gamma, beta, *, norm1_w, norm1_b,
+                           qkv_w, qkv_b, proj_w, proj_b, norm2_w, norm2_b,
+                           fc1_w, fc1_b, fc2_w, fc2_b,
+                           eps: float = 1e-5) -> torch.Tensor:
+    """Plain PyTorch version of the block body on (B, H, W, C) tokens.
+
+    gamma, beta: (B, C) FiLM modulation. Weights in the PyTorch Linear
+    (out, in) layout. Computes in fp32 and rounds once to x's type, as the
+    kernel does.
+    """
+    C = x.shape[-1]
+    f = lambda t: t.float()
+    xf = x.float()
+    h = F.layer_norm(xf + f(struct), (C,), f(norm1_w), f(norm1_b), eps)
+    h = h * (1.0 + f(gamma)[:, None, None, :]) + f(beta)[:, None, None, :]
+    xf = xf + F.linear(_window_mhsa(h, f(qkv_w), f(qkv_b)),
+                       f(proj_w), f(proj_b))
+    h = F.layer_norm(xf, (C,), f(norm2_w), f(norm2_b), eps)
+    h = F.linear(gelu(F.linear(h, f(fc1_w), f(fc1_b))), f(fc2_w), f(fc2_b))
+    return (xf + h).to(x.dtype)
+
+
+def fused_structural_block(x, struct, gamma, beta, *, eps: float = 1e-5,
+                           **weights) -> torch.Tensor:
+    """The block body on (B, H, W, C) tokens; weights by the keyword names
+    in ``WEIGHT_NAMES``.
+
+    A CPU tensor takes the plain version. A CUDA tensor launches the kernel
+    (contiguous fp32 or bf16 x and struct, weights of the same type, C = 64,
+    any H and W; 8x8 windows) or raises.
+    """
+    if sorted(weights) != sorted(WEIGHT_NAMES):
+        raise TypeError(f"fused_structural_block takes the weights "
+                        f"{WEIGHT_NAMES}, got {sorted(weights)}")
+    if x.device.type == "cpu":
+        return structural_block_plain(x, struct, gamma, beta, eps=eps,
+                                      **weights)
+    B, H, W, C = x.shape
+    if C not in KERNEL_WIDTHS:
+        raise ValueError(f"fused_structural_block kernel is built for C in "
+                         f"{KERNEL_WIDTHS}, got C={C}")
+    shapes = weight_shapes(C)
+    check_cuda_args("fused_structural_block", x,
+                    {"struct": (struct, x.shape),
+                     **{n: (weights[n], shapes[n]) for n in WEIGHT_NAMES}})
+    gamma = gamma.to(x.device, torch.float32).reshape(B, C).contiguous()
+    beta = beta.to(x.device, torch.float32).reshape(B, C).contiguous()
+    ptrs = (ctypes.c_void_p * len(WEIGHT_NAMES))(
+        *[weights[n].data_ptr() for n in WEIGHT_NAMES])
+    y = torch.empty_like(x, memory_format=torch.contiguous_format)
+    if x.numel():
+        rc = _build.kernel("fused_structural_block")(
+            x.data_ptr(), struct.data_ptr(), gamma.data_ptr(), beta.data_ptr(),
+            ptrs, y.data_ptr(), B, H, W, C, dtype_code(x), eps,
+            x.device.index, torch.cuda.current_stream(x.device).cuda_stream)
+        if rc:
+            raise RuntimeError(f"fused_structural_block launch failed: "
+                               f"CUDA error {rc}")
+        fused_structural_block.launches += 1
+    return y
+
+
+fused_structural_block.launches = 0

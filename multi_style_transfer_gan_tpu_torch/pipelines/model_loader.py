@@ -1,0 +1,86 @@
+"""Checkpoint -> ready-to-run generator (port of
+``pipelines/model_loader.py``).
+
+Sniffs the checkpoint flavor (G_AB, G_BA or raw), the model family and the
+channel width, builds the ``nn.Module`` and loads the weights with
+``strict=True``: the module's keys are the checkpoint's, so nothing is
+converted.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Callable
+
+import torch
+from torch import nn
+
+from ..models import EnhancedGenerator, channels_of, num_transformer_blocks_of
+from ..weights import (
+    detect_channels, detect_model_kind, extract_state_dict, load_pth,
+)
+
+PRECISIONS = ("default", "high", "highest")
+
+
+@dataclass
+class LoadedModel:
+    kind: str                  # "enhanced" (the plain generator is not ported)
+    channels: int
+    direction: str | None      # "AB" | "BA" | None (from the checkpoint key)
+    module: nn.Module          # fp32 weights, eval mode, channels_last
+    apply: Callable            # apply(x: (B, H, W, 3) in [-1, 1]) -> same
+    precision: str = "default"
+
+
+def _sniff_direction(ckpt, prefer: str | None = None) -> str | None:
+    if isinstance(ckpt, dict):
+        # a dual checkpoint holds both generators: report the one asked for
+        if prefer and prefer in ckpt and "state_dict" in prefer:
+            return "BA" if "BA" in prefer else "AB"
+        if "G_AB_state_dict" in ckpt:
+            return "AB"
+        if "G_BA_state_dict" in ckpt:
+            return "BA"
+    return None
+
+
+def load_generator(path, prefer: str | None = None,
+                   precision: str = "default", *,
+                   device) -> LoadedModel:
+    """Load a reference-flavor generator checkpoint onto ``device``.
+
+    precision: "default" and "high" run fp32 convolutions as PyTorch's
+    settings allow (cuDNN may use TF32 on the card); "highest" turns TF32
+    off inside ``apply``, the counterpart of JAX's precision='highest'.
+    """
+    if precision == "int8":
+        raise NotImplementedError(
+            "precision='int8' (the quantized engine) is not ported; "
+            "ROADMAP.md queue 1 item 13 records it as not to be ported")
+    if precision not in PRECISIONS:
+        raise ValueError(f"precision must be one of {PRECISIONS}, "
+                         f"got {precision!r}")
+    ckpt = load_pth(path)
+    direction = _sniff_direction(ckpt, prefer)
+    sd = extract_state_dict(ckpt, prefer=prefer)
+    kind = detect_model_kind(sd)
+    if kind == "plain":
+        raise NotImplementedError(
+            f"{path} holds the plain encoder-decoder generator, which is not "
+            f"ported yet (ROADMAP.md queue 1 item 2)")
+    if kind != "enhanced":
+        raise ValueError(f"checkpoint at {path} is a {kind}, not a generator")
+    module = EnhancedGenerator(channels_of(sd), num_transformer_blocks_of(sd))
+    module.load_state_dict(sd, strict=True)
+    module = module.to(device=device, memory_format=torch.channels_last).eval()
+
+    def apply(x):
+        with torch.inference_mode(), torch.backends.cudnn.flags(
+                enabled=True, allow_tf32=precision != "highest"):
+            y = module(x.permute(0, 3, 1, 2))
+        return y.permute(0, 2, 3, 1)
+
+    return LoadedModel(kind=kind, channels=detect_channels(sd),
+                       direction=direction, module=module, apply=apply,
+                       precision=precision)

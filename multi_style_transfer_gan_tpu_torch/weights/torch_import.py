@@ -1,0 +1,91 @@
+"""``.pth`` checkpoint sniffing (port of ``weights/torch_import.py``).
+
+The port's modules carry the reference's ``state_dict()`` keys and
+layouts, so a checkpoint loads as it is; only the converter from the JAX
+package's parameters (HWIO kernels) transposes anything.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+# Checkpoint container keys, in sniffing order (the reference's
+# convert_model.py:12-29 plus the legacy G_A/G_B pair).
+_STATE_DICT_KEYS = (
+    "G_AB_state_dict", "G_BA_state_dict", "G_A", "G_B",
+    "state_dict", "model_state_dict",
+    "D_A_state_dict", "D_B_state_dict",
+)
+
+# Transposed-conv weights of the EnhancedGenerator (IOHW in PyTorch).
+_ENH_TRANSPOSED = {"up1.0", "up2.0"}
+
+
+def load_pth(path):
+    """Load a ``.pth`` file onto the CPU (tensors and plain containers)."""
+    return torch.load(path, map_location="cpu", weights_only=True)
+
+
+def extract_state_dict(ckpt, prefer: str | None = None) -> dict:
+    """The flat state dict of any reference checkpoint flavor.
+
+    ``prefer`` selects one container key (e.g. ``"G_AB_state_dict"``);
+    otherwise the first present key of the sniffing order wins, and a bare
+    state dict passes through with ``epoch`` / ``G_*`` metadata dropped.
+    """
+    if not isinstance(ckpt, dict):
+        raise ValueError(f"unsupported checkpoint object: {type(ckpt)}")
+    if prefer is not None:
+        if prefer not in ckpt:
+            raise KeyError(f"checkpoint has no '{prefer}' "
+                           f"(keys: {list(ckpt)[:8]})")
+        sd = ckpt[prefer]
+    else:
+        sd = next((ckpt[k] for k in _STATE_DICT_KEYS if k in ckpt), None)
+        if sd is None:
+            sd = {k: v for k, v in ckpt.items()
+                  if k != "epoch" and not k.startswith("G_")
+                  and hasattr(v, "shape")}
+    return {k: torch.as_tensor(v) for k, v in sd.items()}
+
+
+def detect_model_kind(sd) -> str:
+    """'plain' (encoder/decoder Generator), 'enhanced' or 'discriminator'."""
+    if any(k.startswith("encoder.") for k in sd):
+        return "plain"
+    if any(k.startswith("initial.") for k in sd):
+        return "enhanced"
+    if any(k.startswith("main.") for k in sd):
+        return "discriminator"
+    raise ValueError(f"unrecognized state dict (keys: {list(sd)[:8]})")
+
+
+def detect_channels(sd) -> int:
+    """Channel width of the first conv, like the reference's
+    direct_transform.py:25-30."""
+    kind = detect_model_kind(sd)
+    if kind == "plain":
+        return int(sd["encoder.0.weight"].shape[0])
+    if kind == "enhanced":
+        return int(sd["initial.0.weight"].shape[0])
+    key = "main.0.weight_orig" if "main.0.weight_orig" in sd else "main.0.weight"
+    return int(sd[key].shape[0])
+
+
+def state_dict_from_jax_params(params: dict) -> dict:
+    """EnhancedGenerator parameters of the JAX package (HWIO conv kernels,
+    (out, in) linear weights) -> a PyTorch state dict.
+
+    Conv kernels go HWIO -> OIHW; the transposed convs ``up1.0`` and
+    ``up2.0`` go HWIO -> IOHW; everything else keeps its layout.
+    """
+    sd = {}
+    for k, v in params.items():
+        arr = np.asarray(v)
+        if arr.ndim == 4:
+            prefix = k.rsplit(".", 1)[0]
+            perm = (2, 3, 0, 1) if prefix in _ENH_TRANSPOSED else (3, 2, 0, 1)
+            arr = arr.transpose(perm)
+        sd[k] = torch.tensor(np.ascontiguousarray(arr))  # a copy, writable
+    return sd

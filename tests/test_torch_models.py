@@ -1,0 +1,156 @@
+"""The port's generator, converter and loader vs the JAX package."""
+
+import numpy as np
+import pytest
+import torch
+
+import jax
+import jax.numpy as jnp
+
+from multi_style_transfer_gan_tpu.core.conv import conv_transpose2d
+from multi_style_transfer_gan_tpu.data.synthetic import render_photo
+from multi_style_transfer_gan_tpu.models import (
+    enhanced_generator_apply, enhanced_generator_init,
+)
+from multi_style_transfer_gan_tpu.weights.torch_import import (
+    params_to_torch_sd,
+)
+from multi_style_transfer_gan_tpu_torch.models import EnhancedGenerator
+from multi_style_transfer_gan_tpu_torch.ops import (
+    from_model_range, to_model_range,
+)
+from multi_style_transfer_gan_tpu_torch.ops.kernels import (
+    fused_structural_block, reset_launch_counts, window_channel_attention,
+)
+from multi_style_transfer_gan_tpu_torch.pipelines import load_generator
+from multi_style_transfer_gan_tpu_torch.weights import (
+    detect_channels, detect_model_kind, extract_state_dict, load_pth,
+    state_dict_from_jax_params,
+)
+
+TRAINED = "trained/G_BA_selected.pth"
+GOLDEN = "trained/golden_gba_128.npy"
+
+
+@pytest.fixture(scope="module")
+def jax_params():
+    return enhanced_generator_init(jax.random.PRNGKey(0), channels=8,
+                                   num_transformer_blocks=1)
+
+
+def test_converter_matches_params_to_torch_sd(jax_params):
+    ours = state_dict_from_jax_params(jax_params)
+    ref = params_to_torch_sd(jax_params, "enhanced")
+    assert sorted(ours) == sorted(ref)
+    for k, v in ref.items():
+        np.testing.assert_array_equal(ours[k].numpy(), np.asarray(v), err_msg=k)
+
+
+def test_module_keys_are_the_checkpoint_keys():
+    sd = extract_state_dict(load_pth(TRAINED))
+    ours = EnhancedGenerator(16, 1).state_dict()
+    assert {k: tuple(v.shape) for k, v in ours.items()} == \
+        {k: tuple(v.shape) for k, v in sd.items()}
+
+
+def test_generator_matches_jax_random_init(rng, jax_params):
+    x = np.tanh(rng.standard_normal((2, 32, 32, 3))).astype(np.float32)
+    ref = np.asarray(jax.jit(enhanced_generator_apply)(jax_params,
+                                                       jnp.asarray(x)))
+    module = EnhancedGenerator(8, 1).eval()
+    module.load_state_dict(state_dict_from_jax_params(jax_params), strict=True)
+    module = module.to(memory_format=torch.channels_last)
+    with torch.inference_mode():
+        got = module(torch.from_numpy(x).permute(0, 3, 1, 2))
+    np.testing.assert_allclose(got.permute(0, 2, 3, 1).numpy(), ref,
+                               atol=5e-4, rtol=0)
+
+
+def test_conv_transpose_matches_jax_and_doubles_the_grid(rng):
+    x = rng.standard_normal((2, 6, 10, 8)).astype(np.float32)
+    w = rng.standard_normal((4, 4, 8, 4)).astype(np.float32)   # HWIO
+    b = rng.standard_normal(4).astype(np.float32)
+    ref = np.asarray(conv_transpose2d(jnp.asarray(x), jnp.asarray(w),
+                                      jnp.asarray(b), stride=2, padding=1))
+    conv = torch.nn.ConvTranspose2d(8, 4, 4, stride=2, padding=1)
+    sd = state_dict_from_jax_params({"up1.0.weight": w, "up1.0.bias": b})
+    conv.load_state_dict({"weight": sd["up1.0.weight"],
+                          "bias": sd["up1.0.bias"]})
+    with torch.no_grad():
+        got = conv(torch.from_numpy(x).permute(0, 3, 1, 2))
+    assert got.shape[-2:] == (12, 20)
+    np.testing.assert_allclose(got.permute(0, 2, 3, 1).numpy(), ref,
+                               atol=1e-5, rtol=0)
+
+
+def test_trained_checkpoint_matches_golden_natively():
+    """``trained/G_BA_selected.pth`` loads with strict=True, no conversion,
+    and reproduces the CPU-pinned golden (tests/test_trained_checkpoint.py
+    holds the JAX package to the same bar)."""
+    m = load_generator(TRAINED, device="cpu")
+    assert (m.kind, m.channels, m.direction) == ("enhanced", 16, "BA")
+    img = render_photo(900100, size=128)
+    x = to_model_range(torch.from_numpy(np.asarray(img, np.float32)) / 255.0)
+    y = from_model_range(m.apply(x[None]))[0].numpy()
+    golden = np.load(GOLDEN).astype(np.float32)
+    np.testing.assert_allclose(y, golden, atol=5e-3, rtol=0)
+    assert np.abs(y - np.asarray(img, np.float32) / 255.0).mean() > 0.01
+
+
+def test_cpu_forward_launches_no_kernel():
+    reset_launch_counts()
+    m = load_generator(TRAINED, device="cpu")
+    m.apply(torch.zeros(1, 64, 64, 3))
+    assert window_channel_attention.launches == 0
+    assert fused_structural_block.launches == 0
+
+
+@pytest.mark.parametrize("flavor", ["G_AB_state_dict", "G_BA_state_dict",
+                                    "model_state_dict", "G_A", "raw"])
+def test_extract_state_dict_flavors(flavor):
+    sd = extract_state_dict(load_pth(TRAINED))
+    ckpt = dict(sd, epoch=3) if flavor == "raw" else {flavor: sd, "epoch": 3}
+    got = extract_state_dict(ckpt)
+    assert sorted(got) == sorted(sd)
+    assert detect_model_kind(got) == "enhanced" and detect_channels(got) == 16
+
+
+def test_loader_raises_for_what_is_not_ported(tmp_path):
+    from torch_oracle import make_plain_sd
+
+    path = tmp_path / "plain.pth"
+    torch.save({"G_AB_state_dict": make_plain_sd(np.random.default_rng(0),
+                                                 c=8)}, path)
+    with pytest.raises(NotImplementedError, match="plain"):
+        load_generator(path, device="cpu")
+    with pytest.raises(NotImplementedError, match="int8"):
+        load_generator(TRAINED, precision="int8", device="cpu")
+
+
+# ---------------------------------------------------------------------------
+# on the card
+# ---------------------------------------------------------------------------
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: run `python -m pytest tests/ -m gpu` "
+                    "on the card")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    return torch.device("cuda")
+
+
+@pytest.mark.gpu
+def test_trained_generator_on_the_card_matches_cpu(cuda):
+    """fp32 kernel path on the card vs the plain path on the CPU, on the
+    trained weights: 4 attention launches and 1 block launch per forward."""
+    img = np.stack([render_photo(900100 + i, size=128) for i in range(2)])
+    x = to_model_range(torch.from_numpy(img.astype(np.float32)) / 255.0)
+    ref = load_generator(TRAINED, device="cpu").apply(x)
+    m = load_generator(TRAINED, precision="highest", device=cuda)
+    reset_launch_counts()
+    got = m.apply(x.to(cuda)).cpu()
+    assert window_channel_attention.launches == 4
+    assert fused_structural_block.launches == 1
+    np.testing.assert_allclose(got.numpy(), ref.numpy(), atol=1e-3, rtol=0)
