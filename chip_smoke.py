@@ -2,24 +2,33 @@
 
     python3 chip_smoke.py
 
-Drives the port's main path (``multi_style_transfer_gan_tpu_torch``) on the
-card, at the full width of the trained c16 EnhancedGenerator shipped in
-``trained/``, and checks every hand-written kernel on the way:
+Drives the port's two main paths (``multi_style_transfer_gan_tpu_torch``) on
+the card, serving at the full width of the trained c16 EnhancedGenerator
+shipped in ``trained/`` and CycleGAN training at the reference
+configuration, and checks every hand-written kernel on the way:
 
-1. build: both CUDA kernels compile from ``csrc/`` with nvcc;
+1. build: all four CUDA sources compile from ``csrc/`` at once, one nvcc
+   each;
 2. window channel attention, kernel vs plain PyTorch at every shape the
    generator gives it at canvas 256 and 512 (fp32 with TF32 off, and bf16);
 3. the fused transformer block, kernel vs plain, including a ragged grid;
-4. the uint8 -> uint8 stylize program on the trained weights: fp32 on the
-   card vs the plain path on the CPU, launch counts per forward, and bf16
-   img/s at canvas 256 and 512;
-5. the batch CLI on 24 JPEGs of mixed sizes;
-6. the HTTP server answering 4 requests.
+4. the training kernels (channel-attention mid, window-MHSA mid), forward
+   and backward, kernel vs plain at every training shape, one all-zero
+   window each;
+5. serving path: the uint8 -> uint8 stylize program on the trained weights
+   (fp32 on the card vs the plain path on the CPU, launch counts per
+   forward, bf16 img/s at canvas 256 and 512), the batch CLI on 24 JPEGs
+   of mixed sizes, the HTTP server answering 4 requests;
+6. training path: the bf16 train step at c16, 256^2, batch 8 (launches per
+   step, finite losses, moved G, D and u, ms/step), one fp32 step on the
+   card vs the CPU, and the train CLI writing, resuming and producing a
+   generator that stylizes.
 
 Every phase raises on failure. The last line is the result JSON; the line
-before it lists each kernel with its launches on the main path (phases
-4-6), its largest fp32 deviation from the plain version, and its time
-beside the plain version's. Exits nonzero without a CUDA device.
+before it lists each kernel with its launches on the two main paths
+(launch counts are reset just before each path and read just after), its
+largest fp32 deviation from the plain version, and its time beside the
+plain version's. Exits nonzero without a CUDA device.
 """
 
 from __future__ import annotations
@@ -45,6 +54,19 @@ GEN_BATCH = 16       # generator-phase batch
 CANVASES = (256, 512)
 FP32_TOL = 1e-4      # channel attention, fp32: summation order only
 BLOCK_FP32_TOL = 2e-4  # block, fp32: two LayerNorms and a 256-wide MLP
+TRAIN_GRAD_FP32_TOL = 2e-4  # training kernels' backward, fp32
+TRAIN_BATCH = 8
+# launches per bf16 train step with pair batching, remat off: the G phase
+# runs 4 generator forwards with grad (4 LocalAttention + 1 block each, fwd
+# and bwd); the D-phase fakes are 2 forwards under no_grad, which take the
+# inference kernels
+TRAIN_LAUNCHES_PER_STEP = {
+    "window_attention_mid_fwd": 16, "window_attention_mid_bwd": 16,
+    "window_mhsa_fwd": 4, "window_mhsa_bwd": 4,
+    "window_channel_attention": 8, "fused_structural_block": 2}
+# fp32 step card vs CPU: cuDNN and CPU convs sum in other orders, and the
+# adversarial update amplifies that (tests/test_train.py:486-491)
+TRAIN_FP32_RTOL = 1e-3
 # bf16: kernel and plain both compute in fp32 from the same bf16 inputs and
 # round once, so they may differ by one bf16 rounding of the output (2^-7
 # relative) on top of fp32 summation order.
@@ -107,13 +129,18 @@ def compare(got, ref, dtype):
 # ---------------------------------------------------------------------------
 
 def phase_build():
+    """Every source at once, one nvcc each, then each entry point loads."""
     from multi_style_transfer_gan_tpu_torch.ops.kernels import _build
 
-    for name in ("window_channel_attention", "fused_structural_block"):
-        t0 = time.perf_counter()
-        _build.kernel(name)
-        log(f"[build] {name}: {time.perf_counter() - t0:.2f} s "
+    t0 = time.perf_counter()
+    seconds = _build.build_all()
+    for name, dt in seconds.items():
+        log(f"[build] {name}: {dt:.2f} s "
             f"({os.path.relpath(_build.library_path(name), REPO)})")
+    for name in _build.SIGNATURES:
+        _build.kernel(name)
+    log(f"[build] {len(seconds)} sources in {time.perf_counter() - t0:.2f} s "
+        f"wall, {len(_build.SIGNATURES)} entry points loaded")
 
 
 def attention_shapes(canvas):
@@ -220,6 +247,69 @@ def phase_block(rng, dev):
                 worst = max(worst, err)
             else:
                 times[shape] = (k_ms, p_ms)
+    return worst, times
+
+
+def train_kernel_cases():
+    """(kernel, stage, qkv shape) at every shape a bf16 train step at 256^2
+    gives the training kernels, batch TRAIN_BATCH (pair batching doubles it
+    on the main path; the kernels are per window, so the shapes' batch only
+    scales the grid)."""
+    B = TRAIN_BATCH
+    return [("attention", "down1/up1", (B, 128, 128, 96)),
+            ("attention", "down2", (B, 64, 64, 192)),
+            ("attention", "up2", (B, 256, 256, 48)),
+            ("mhsa", "block", (B, 64, 64, 192))]
+
+
+def phase_train_kernels(rng, dev):
+    """Forward and backward of both training kernels vs their plain versions,
+    fp32 (TF32 off) and bf16, one all-zero window in every input."""
+    import torch
+
+    from multi_style_transfer_gan_tpu_torch.ops import kernels as K
+
+    fns = {
+        "attention": (K.window_attention_mid_fwd, K.window_attention_mid_bwd,
+                      K.window_attention_mid_plain,
+                      K.window_attention_mid_backward_plain, ()),
+        "mhsa": (K.window_mhsa_fwd, K.window_mhsa_bwd, K.window_mhsa_plain,
+                 K.window_mhsa_backward_plain, (2,)),
+    }
+    worst = {"attention": 0.0, "mhsa": 0.0}
+    times = {}
+    for name, stage, shape in train_kernel_cases():
+        fwd, bwd, fwd_plain, bwd_plain, extra = fns[name]
+        win = 4 if name == "attention" else 8
+        host = rng.standard_normal(shape).astype(np.float32)
+        host[0, :win, :win] = 0.0      # one all-zero window
+        g_host = rng.standard_normal(shape[:3] + (shape[3] // 3,))
+        for dtype in (torch.float32, torch.bfloat16):
+            qkv = torch.from_numpy(host).to(dev, dtype)
+            d_out = torch.from_numpy(g_host.astype(np.float32)).to(dev, dtype)
+            got = fwd(qkv, *extra)
+            dgot = bwd(qkv, d_out, *extra)
+            ref = fwd_plain(qkv, *extra)
+            dref = bwd_plain(qkv, d_out, *extra)
+            torch.cuda.synchronize()
+            err, ok = compare(got, ref, dtype)
+            derr, dok = compare(dgot, dref, dtype)
+            if dtype == torch.float32:
+                ok, dok = err <= FP32_TOL, derr <= TRAIN_GRAD_FP32_TOL
+                worst[name] = max(worst[name], err, derr)
+            finite = bool(torch.isfinite(got).all() and torch.isfinite(dgot).all())
+            zero_ok = bool(torch.isfinite(dgot[0, :win, :win]).all())
+            k_ms, p_ms = time_pair(
+                lambda: (fwd(qkv, *extra), bwd(qkv, d_out, *extra)),
+                lambda: (fwd_plain(qkv, *extra), bwd_plain(qkv, d_out, *extra)))
+            times[(name, stage, dtype)] = (k_ms, p_ms)
+            log(f"[train kernels] {name} {stage} qkv {shape} {str(dtype)[6:]}: "
+                f"fwd max|d| {err:.3e}, bwd max|d| {derr:.3e}, zero window "
+                f"{'finite' if zero_ok else 'BAD'}; fwd+bwd kernel {k_ms:.4f} ms, "
+                f"plain {p_ms:.4f} ms")
+            if not (ok and dok and finite and zero_ok):
+                raise AssertionError(f"{name} train kernel {shape} {dtype}: "
+                                     f"outside tolerance or not finite")
     return worst, times
 
 
@@ -389,6 +479,154 @@ def phase_server(rng, dev):
         thread.join(10)
 
 
+def uint8_pairs(rng, n, batch, size, dev):
+    """n (A, B) pairs of photo-like uint8 batches on the card."""
+    import torch
+
+    return [tuple(torch.from_numpy(np.stack(smooth_images(rng, batch, (size, size))))
+                  .to(dev) for _ in range(2)) for _ in range(n)]
+
+
+def phase_train_step(rng, dev):
+    """The bf16 CycleGAN step at the reference configuration (c16, one
+    block, 256^2, batch 8, pair batching) from a seeded fresh init: finite
+    losses, G, D and u moved, launches per step, ms/step; then one fp32
+    step on the card against the port on the CPU (c16, 128^2, batch 2)."""
+    import torch
+
+    from multi_style_transfer_gan_tpu_torch.ops import kernels as K
+    from multi_style_transfer_gan_tpu_torch.ops import to_model_range
+    from multi_style_transfer_gan_tpu_torch.train import (
+        cyclegan_init_state, cyclegan_train_step,
+    )
+
+    state = cyclegan_init_state(SEED, 16, 1, device=dev)
+    before = {n: {k: v.clone() for k, v in getattr(state, n).state_dict().items()}
+              for n in ("G_AB", "G_BA", "D_A", "D_B")}
+    pairs = uint8_pairs(rng, 2, TRAIN_BATCH, 256, dev)
+
+    def step(i):
+        a, b = pairs[i % len(pairs)]
+        return cyclegan_train_step(state, to_model_range(a), to_model_range(b),
+                                   compute_dtype=torch.bfloat16,
+                                   pair_batching=True)[1]
+
+    kernels = {"window_attention_mid_fwd": K.window_attention_mid_fwd,
+               "window_attention_mid_bwd": K.window_attention_mid_bwd,
+               "window_mhsa_fwd": K.window_mhsa_fwd,
+               "window_mhsa_bwd": K.window_mhsa_bwd,
+               "window_channel_attention": K.window_channel_attention,
+               "fused_structural_block": K.fused_structural_block}
+    n0 = {n: k.launches for n, k in kernels.items()}
+    losses = step(0)
+    torch.cuda.synchronize()
+    per_step = {n: k.launches - n0[n] for n, k in kernels.items()}
+    log(f"[train step] launches in one step: {per_step}")
+    if per_step != TRAIN_LAUNCHES_PER_STEP:
+        raise AssertionError(f"launches per step {per_step}, predicted "
+                             f"{TRAIN_LAUNCHES_PER_STEP}")
+    for i in range(1, 3):   # warm-up: 3 steps in all
+        step(i)
+    torch.cuda.synchronize()
+    iters = 10
+    t0 = time.perf_counter()
+    for i in range(iters):
+        losses = step(i)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1000 / iters
+    vals = {k: float(v) for k, v in losses.items()}
+    log(f"[train step] bf16 c16 256^2 batch {TRAIN_BATCH}, pair batching: "
+        f"{ms:.2f} ms/step, {TRAIN_BATCH * 1000 / ms:.1f} image pairs/s "
+        f"({card_line()}); losses after {state.step} steps {vals}; peak "
+        f"memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    if not all(np.isfinite(v) for v in vals.values()):
+        raise AssertionError(f"non-finite losses {vals}")
+    for name, sd in before.items():
+        now = getattr(state, name).state_dict()
+        moved = sum(not torch.equal(now[k], v) for k, v in sd.items())
+        if not moved:
+            raise AssertionError(f"{name} did not move")
+        if name[0] == "D" and torch.equal(now["main.2.weight_u"],
+                                          sd["main.2.weight_u"]):
+            raise AssertionError(f"{name} spectral-norm u did not move")
+
+    # one fp32 step on the card vs the same step on the CPU (TF32 off)
+    host = [tuple(to_model_range(t).cpu() for t in pair)
+            for pair in uint8_pairs(rng, 1, 2, 128, dev)]
+    out = {}
+    for device in (dev, torch.device("cpu")):
+        st = cyclegan_init_state(SEED + 1, 16, 1, device=device)
+        a, b = (t.to(device) for t in host[0])
+        out[device.type] = {k: float(v) for k, v in cyclegan_train_step(
+            st, a, b, compute_dtype=torch.float32)[1].items()}
+    rel = {k: abs(out["cuda"][k] - out["cpu"][k]) / abs(out["cpu"][k])
+           for k in out["cpu"]}
+    log(f"[train step] fp32 c16 128^2 batch 2, card vs CPU: {out['cuda']} vs "
+        f"{out['cpu']}; max relative difference {max(rel.values()):.2e}")
+    if max(rel.values()) > TRAIN_FP32_RTOL:
+        raise AssertionError(f"fp32 step on the card disagrees with the CPU: "
+                             f"{rel}")
+    return ms
+
+
+def phase_train_cli(rng, dev):
+    """The train CLI on 16 synthetic JPEGs per domain: 2 epochs with
+    checkpoints every epoch, a rerun to 3 epochs that resumes at epoch 2,
+    and the saved G_AB stylizing a batch through load_generator."""
+    import contextlib
+    import torch
+    from PIL import Image
+
+    from multi_style_transfer_gan_tpu_torch.cli.train import main
+    from multi_style_transfer_gan_tpu_torch.pipelines import (
+        load_generator, make_batch_fn,
+    )
+
+    with tempfile.TemporaryDirectory() as tmp:
+        for domain in ("A", "B"):
+            d = os.path.join(tmp, "data", f"train{domain}")
+            os.makedirs(d)
+            for i in range(16):
+                w, h = int(rng.integers(256, 400)), int(rng.integers(256, 400))
+                Image.fromarray(smooth_images(rng, 1, (w, h))[0]).save(
+                    os.path.join(d, f"{i:02d}.jpg"), quality=92)
+        models = os.path.join(tmp, "models")
+        argv = ["--data_root", os.path.join(tmp, "data"), "--save_dir", models,
+                "--image_size", "256", "--batch_size", "8",
+                "--checkpoint_every", "1", "--log_every", "1", "--seed", "0",
+                "--resume_dir", os.path.join(tmp, "ckpt")]
+        outputs = []
+        for epochs in (2, 3):
+            buf = io.StringIO()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(buf):
+                rc = main(argv + ["--num_epochs", str(epochs)])
+            outputs.append(buf.getvalue())
+            log(f"[train cli] --num_epochs {epochs}: exit {rc}, "
+                f"{time.perf_counter() - t0:.2f} s wall; its output:")
+            for line in buf.getvalue().splitlines():
+                log(f"    {line}")
+            if rc != 0:
+                raise AssertionError(f"train CLI exited {rc}")
+        for epoch in (1, 2, 3):
+            for name in ("G_AB", "G_BA", "discriminators"):
+                path = os.path.join(models, f"{name}_epoch_{epoch}.pth")
+                if not os.path.exists(path):
+                    raise AssertionError(f"train CLI did not write {path}")
+        if "at epoch 2" not in outputs[1] or "epoch 1 step" in outputs[1]:
+            raise AssertionError("the rerun did not resume at epoch 2")
+        model = load_generator(os.path.join(models, "G_AB_epoch_3.pth"),
+                               device=dev)
+        batch = np.stack(smooth_images(rng, 4, (256, 256)))
+        out = make_batch_fn(model, "cyclegan", compute_dtype=torch.bfloat16,
+                            device=dev)(batch).cpu().numpy()
+        log(f"[train cli] saved G_AB (direction {model.direction}) stylized "
+            f"{batch.shape}: output {out.shape} {out.dtype}, mean |out - in| "
+            f"{np.abs(out.astype(int) - batch.astype(int)).mean():.2f} levels")
+        if out.shape != batch.shape or out.dtype != np.uint8 or out.std() == 0:
+            raise AssertionError("the trained G_AB does not stylize")
+
+
 # ---------------------------------------------------------------------------
 
 def main() -> int:
@@ -413,25 +651,51 @@ def main() -> int:
     phase_build()
     attn_err, attn_times = phase_attention(rng, dev)
     block_err, block_times = phase_block(rng, dev)
+    train_err, train_times = phase_train_kernels(rng, dev)
 
-    counts = lambda: [K.window_channel_attention.launches,
-                      K.fused_structural_block.launches]
-    K.reset_launch_counts()   # the main path starts here
-    rates = phase_generator(rng, dev, counts)
+    counted = {"window_channel_attention": K.window_channel_attention,
+               "fused_structural_block": K.fused_structural_block,
+               "window_attention_mid_fwd": K.window_attention_mid_fwd,
+               "window_attention_mid_bwd": K.window_attention_mid_bwd,
+               "window_mhsa_fwd": K.window_mhsa_fwd,
+               "window_mhsa_bwd": K.window_mhsa_bwd}
+    counts = lambda: {n: k.launches for n, k in counted.items()}
+
+    K.reset_launch_counts()   # the serving path starts here
+    rates = phase_generator(rng, dev, lambda: [
+        K.window_channel_attention.launches, K.fused_structural_block.launches])
     phase_cli(rng)
     phase_server(rng, dev)
-    launches = counts()       # ...and ends here
-    log(f"[main path] launches: window_channel_attention {launches[0]}, "
-        f"fused_structural_block {launches[1]}")
-    if min(launches) == 0 or launches[0] != 4 * launches[1]:
-        raise AssertionError(f"main path launches {launches}: expected every "
-                             f"kernel, 4 attention calls per block call")
+    serving = counts()        # ...and ends here
+    log(f"[main path: serving] launches: {serving}")
+    if (min(serving["window_channel_attention"],
+            serving["fused_structural_block"]) == 0
+            or serving["window_channel_attention"]
+            != 4 * serving["fused_structural_block"]):
+        raise AssertionError(f"serving path launches {serving}: expected "
+                             f"every kernel, 4 attention calls per block call")
 
-    # per-forward kernel time at canvas 256, batch 8, bf16 (the four
-    # LocalAttention shapes; the block's one shape)
+    K.reset_launch_counts()   # the training path starts here
+    step_ms = phase_train_step(rng, dev)
+    phase_train_cli(rng, dev)
+    training = counts()       # ...and ends here
+    log(f"[main path: training] launches: {training}")
+    if min(training.values()) == 0:
+        raise AssertionError(f"training path launches {training}: a kernel "
+                             f"of the path never launched")
+    launches = {n: serving[n] + training[n] for n in counted}
+
+    # inference kernels: per forward at canvas 256, batch 8, bf16 (the four
+    # LocalAttention shapes; the block's one shape). Training kernels: fwd +
+    # bwd per generator forward and backward at 256^2, batch 8, bf16.
     attn_ms = sum(attn_times[(256, s)][0] for s, _ in attention_shapes(256))
     attn_plain = sum(attn_times[(256, s)][1] for s, _ in attention_shapes(256))
     blk_ms, blk_plain = block_times[(BATCH, 64, 64, 64)]
+    bf16 = torch.bfloat16
+    per_fwd = {"down1/up1": 2, "down2": 1, "up2": 1}
+    tr_ms = [sum(n * train_times[("attention", st, bf16)][i]
+                 for st, n in per_fwd.items()) for i in (0, 1)]
+    mh_ms = train_times[("mhsa", "block", bf16)]
     pkg = "multi_style_transfer_gan_tpu_torch/csrc"
     tpu = "multi_style_transfer_gan_tpu/ops/pallas"
     report = {"kernels": [
@@ -440,17 +704,37 @@ def main() -> int:
          "replaces": f"{tpu}/window_attention.py:122; "
                      f"{tpu}/window_attention_grouped.py:148; "
                      f"{tpu}/window_attention_v3.py:173",
-         "launches": launches[0], "max_abs_err": attn_err,
-         "ms": attn_ms, "plain_ms": attn_plain},
+         "launches": launches["window_channel_attention"],
+         "max_abs_err": attn_err, "ms": attn_ms, "plain_ms": attn_plain},
         {"name": "fused_structural_block", "route": "cuda",
          "source": f"{pkg}/fused_structural_block.cu",
          "replaces": f"{tpu}/fused_transformer.py:169",
-         "launches": launches[1], "max_abs_err": block_err,
-         "ms": blk_ms, "plain_ms": blk_plain},
+         "launches": launches["fused_structural_block"],
+         "max_abs_err": block_err, "ms": blk_ms, "plain_ms": blk_plain},
+        {"name": "window_attention_train", "route": "cuda",
+         "source": f"{pkg}/window_attention_train.cu",
+         "replaces": f"{tpu}/window_attention_train.py:220",
+         "launches": launches["window_attention_mid_fwd"]
+                     + launches["window_attention_mid_bwd"],
+         "launches_fwd": launches["window_attention_mid_fwd"],
+         "launches_bwd": launches["window_attention_mid_bwd"],
+         "max_abs_err": train_err["attention"], "ms": tr_ms[0],
+         "plain_ms": tr_ms[1]},
+        {"name": "window_mhsa_train", "route": "cuda",
+         "source": f"{pkg}/window_mhsa_train.cu",
+         "replaces": f"{tpu}/window_mhsa_train.py:134",
+         "launches": launches["window_mhsa_fwd"] + launches["window_mhsa_bwd"],
+         "launches_fwd": launches["window_mhsa_fwd"],
+         "launches_bwd": launches["window_mhsa_bwd"],
+         "max_abs_err": train_err["mhsa"], "ms": mh_ms[0],
+         "plain_ms": mh_ms[1]},
     ]}
     log(f"[summary] {card}; bf16 program img/s: canvas 256 {rates[256]:.1f}, "
-        f"canvas 512 {rates[512]:.1f}; kernel ms are per forward at canvas "
-        f"256, batch {BATCH}, bf16")
+        f"canvas 512 {rates[512]:.1f}; bf16 train step c16 256^2 batch "
+        f"{TRAIN_BATCH}: {step_ms:.2f} ms ({TRAIN_BATCH * 1000 / step_ms:.1f} "
+        f"image pairs/s). Inference kernel ms are per forward at canvas 256, "
+        f"batch {BATCH}, bf16; training kernel ms are forward + backward per "
+        f"generator at 256^2, batch {TRAIN_BATCH}, bf16")
     print(json.dumps(report))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -4,18 +4,24 @@ The JAX package ``multi_style_transfer_gan_tpu`` beside this one is the
 reference; this package mirrors its layout so each counterpart sits under
 the same path:
 
-- ``core``      — instance norm with fp32 statistics, zero-safe L2
-                  normalize, exact-erf GELU.
+- ``core``      — instance norm with fp32 statistics (and the fused IN +
+                  activation with a hand-written backward), spectral norm,
+                  zero-safe L2 normalize, exact-erf GELU, and convs and
+                  Linears that cast their weights to the activation's type.
 - ``ops``       — image-range helpers and the hand-written CUDA kernels
                   (``ops.kernels``), each beside its plain PyTorch version.
-- ``models``    — the EnhancedGenerator and its StructuralTransformerBlock
-                  as ``nn.Module``s whose ``state_dict()`` keys are exactly
-                  the reference checkpoints' keys.
-- ``weights``   — ``.pth`` sniffing and the converter from JAX parameters.
+- ``models``    — the EnhancedGenerator, its StructuralTransformerBlock and
+                  the EnhancedDiscriminator as ``nn.Module``s whose
+                  ``state_dict()`` keys are exactly the reference
+                  checkpoints' keys, initialized by the JAX package's laws.
+- ``weights``   — ``.pth`` sniffing and the converters from JAX parameters.
 - ``pipelines`` — checkpoint loader and the uint8->uint8 batch program with
                   its host pipeline.
 - ``serving``   — the micro-batching HTTP server.
-- ``cli``       — ``batch_process_images`` and ``serve``.
+- ``train``     — the CycleGAN step, losses, image pool and checkpoints.
+- ``data``      — image listing, the training folder dataset and prefetch.
+- ``utils``     — the training metrics log.
+- ``cli``       — ``batch_process_images``, ``serve`` and ``train``.
 
 Nothing here imports ``jax``. Activations are logical NCHW tensors in
 ``torch.channels_last`` memory, so the kernels read (B, H, W, C) rows

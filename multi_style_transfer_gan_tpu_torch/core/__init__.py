@@ -1,10 +1,12 @@
-"""Core building blocks with PyTorch-compatible numerics.
+"""Core building blocks with PyTorch-compatible numerics."""
 
-``core/conv.py`` has no counterpart: ``nn.Conv2d`` and ``nn.ConvTranspose2d``
-carry the semantics that the JAX file re-derives.
-"""
+from .activations import gelu, leaky_relu
+from .conv import conv, linear
+from .norm import (
+    InstanceNorm, in_leaky_relu, in_relu, instance_norm, l2_normalize,
+    spectral_normalize,
+)
 
-from .activations import gelu
-from .norm import InstanceNorm, in_relu, instance_norm, l2_normalize
-
-__all__ = ["InstanceNorm", "gelu", "in_relu", "instance_norm", "l2_normalize"]
+__all__ = ["InstanceNorm", "conv", "gelu", "in_leaky_relu", "in_relu",
+           "instance_norm", "l2_normalize", "leaky_relu", "linear",
+           "spectral_normalize"]

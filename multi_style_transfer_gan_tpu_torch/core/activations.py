@@ -9,3 +9,8 @@ import torch.nn.functional as F
 def gelu(x: torch.Tensor) -> torch.Tensor:
     """GELU with the exact erf, like ``jax.nn.gelu(approximate=False)``."""
     return F.gelu(x, approximate="none")
+
+
+def leaky_relu(x: torch.Tensor, negative_slope: float = 0.01) -> torch.Tensor:
+    """``where(x >= 0, x, negative_slope * x)``."""
+    return F.leaky_relu(x, negative_slope)

@@ -24,9 +24,61 @@ def instance_norm(x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
     return ((xf - mean) * torch.rsqrt(var + eps)).to(x.dtype)
 
 
+class _InAct(torch.autograd.Function):
+    """IN -> (leaky-)ReLU with one-pass fp32 statistics and the hand-written
+    backward of ``_in_act`` (core/norm.py:62-101). It saves only xhat, in
+    the input's type, and the (B, C, 1, 1) rstd; the activation mask is
+    recomputed from xhat."""
+
+    @staticmethod
+    def forward(ctx, x, eps: float, slope: float):
+        xf = x.float()
+        mean = xf.mean(dim=(2, 3), keepdim=True)
+        meansq = xf.square().mean(dim=(2, 3), keepdim=True)
+        rstd = torch.rsqrt(torch.clamp_min(meansq - mean.square(), 0.0) + eps)
+        xhat = (xf - mean) * rstd
+        ctx.slope = slope
+        ctx.save_for_backward(xhat.to(x.dtype), rstd)
+        return torch.where(xhat > 0, xhat, slope * xhat).to(x.dtype)
+
+    @staticmethod
+    def backward(ctx, dy):
+        xhat, rstd = ctx.saved_tensors
+        xh = xhat.float()
+        g = dy.float() * torch.where(xh > 0, 1.0, ctx.slope)
+        # d/dx of xhat = (x - mean) * rstd with biased-variance statistics:
+        #   dx = rstd * (g - mean_HW(g) - xhat * mean_HW(g * xhat))
+        gm = g.mean(dim=(2, 3), keepdim=True)
+        gxm = (g * xh).mean(dim=(2, 3), keepdim=True)
+        return (rstd * (g - gm - xh * gxm)).to(xhat.dtype), None, None
+
+
+def _fused(x: torch.Tensor) -> bool:
+    """bf16 under autograd takes ``_InAct``, as the JAX package's bf16 does;
+    fp32 keeps two-pass-accurate statistics under autograd (one-pass
+    statistics drift ~2e-3 over the generator's 13 INs,
+    core/norm.py:127-131). Without autograd the hand-written backward has
+    nothing to do, and the single-read Welford statistics of
+    :func:`instance_norm` are the cheaper forward."""
+    return (x.dtype != torch.float32 and torch.is_grad_enabled()
+            and x.requires_grad)
+
+
 def in_relu(x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
-    """``relu(instance_norm(x))``."""
+    """``relu(instance_norm(x))`` (see :func:`_fused` for the route)."""
+    if _fused(x):
+        return _InAct.apply(x, eps, 0.0)
     return torch.relu(instance_norm(x, eps))
+
+
+def in_leaky_relu(x: torch.Tensor, slope: float = 0.2,
+                  eps: float = 1e-5) -> torch.Tensor:
+    """``leaky_relu(instance_norm(x), slope)``, the discriminator's flavor
+    of :func:`in_relu` (core/norm.py:138-143)."""
+    if _fused(x):
+        return _InAct.apply(x, eps, slope)
+    y = instance_norm(x, eps)
+    return torch.where(y > 0, y, slope * y)
 
 
 def l2_normalize(u: torch.Tensor, eps: float = 1e-12) -> torch.Tensor:
@@ -42,6 +94,39 @@ def l2_normalize(u: torch.Tensor, eps: float = 1e-12) -> torch.Tensor:
     return uf / torch.clamp_min(n, eps)
 
 
+def spectral_normalize(w_orig: torch.Tensor, u: torch.Tensor,
+                       v: torch.Tensor | None = None, *,
+                       n_power_iterations: int = 1, eps: float = 1e-12,
+                       update: bool = True):
+    """Spectral normalization of a conv kernel (core/norm.py:174-220).
+
+    w_orig: (O, I, kh, kw), reshaped to the (O, I*kh*kw) matrix of
+    ``nn.utils.spectral_norm``, so ``u`` (O,) and ``v`` (I*kh*kw,) are in
+    torch's own order. update=True runs ``n_power_iterations`` steps of
+    power iteration from ``u`` (v is recomputed, its input ignored) and
+    returns the new u and v detached; update=False reuses ``v`` (or derives
+    it from u when None). The gradient reaches w_orig through sigma, as in
+    torch's hook. Returns (w_orig / sigma, u, v).
+    """
+    mat = w_orig.reshape(w_orig.shape[0], -1).float()
+
+    def l2n(t):
+        return t / (torch.linalg.vector_norm(t) + eps)
+
+    uu = u.float()
+    if update:
+        with torch.no_grad():
+            for _ in range(n_power_iterations):
+                v = l2n(mat.t() @ uu)
+                uu = l2n(mat @ v)
+    elif v is None:
+        v = l2n(mat.t() @ uu).detach()
+    else:
+        v = v.float()
+    sigma = uu @ (mat @ v)
+    return (w_orig / sigma).to(w_orig.dtype), uu.to(u.dtype), v
+
+
 class InstanceNorm(nn.Module):
     """Parameter-free module form of :func:`instance_norm`; it fills the
     IN slot of the checkpoint's ``nn.Sequential`` layouts."""
@@ -52,3 +137,4 @@ class InstanceNorm(nn.Module):
 
     def forward(self, x):
         return instance_norm(x, self.eps)
+

@@ -1,5 +1,6 @@
 // Shared helpers for the port's hand-written kernels: element-type
-// conversions (fp32 or bf16 storage, fp32 arithmetic) and 4-wide loads.
+// conversions (fp32 or bf16 storage, fp32 arithmetic), 4-wide loads and
+// warp reductions.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -28,6 +29,18 @@ __device__ __forceinline__ float4 load4(const __nv_bfloat16* p) {
   float2 a = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.x));
   float2 b = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.y));
   return make_float4(a.x, a.y, b.x, b.y);
+}
+
+// Sum and max over the 32 lanes of a warp; every lane gets the result.
+__device__ __forceinline__ float warp_sum(float v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
+__device__ __forceinline__ float warp_max(float v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
+  return v;
 }
 
 }  // namespace mstgan

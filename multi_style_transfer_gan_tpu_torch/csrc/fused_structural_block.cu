@@ -63,16 +63,6 @@ struct Layout {
   static constexpr int TOTAL = U + U_SIZE;
 };
 
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
-__device__ __forceinline__ float warp_max(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
-}
 
 // out[t][o] = A[t] . w[o] + b[o] for every token t and output o < N,
 // handed to epi(t, o, value). Each thread keeps a 4 x N/16 tile of sums in

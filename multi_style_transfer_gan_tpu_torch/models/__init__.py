@@ -1,16 +1,19 @@
-"""The EnhancedGenerator and its parts as ``nn.Module``s with the
-reference checkpoints' ``state_dict()`` keys."""
+"""The EnhancedGenerator, its parts and the EnhancedDiscriminator as
+``nn.Module``s with the reference checkpoints' ``state_dict()`` keys."""
 
+from .discriminator import EnhancedDiscriminator, SNConv2d
 from .enhanced_generator import (
     EnhancedGenerator, LocalAttention, MultiScaleBlock, channels_of,
     num_transformer_blocks_of,
 )
+from .init_utils import kaiming_conv, torch_default_conv, torch_default_linear
 from .structural_transformer import (
     StructuralTransformerBlock, default_num_heads,
 )
 
 __all__ = [
-    "EnhancedGenerator", "LocalAttention", "MultiScaleBlock",
-    "StructuralTransformerBlock", "channels_of", "default_num_heads",
-    "num_transformer_blocks_of",
+    "EnhancedDiscriminator", "EnhancedGenerator", "LocalAttention",
+    "MultiScaleBlock", "SNConv2d", "StructuralTransformerBlock",
+    "channels_of", "default_num_heads", "kaiming_conv",
+    "num_transformer_blocks_of", "torch_default_conv", "torch_default_linear",
 ]

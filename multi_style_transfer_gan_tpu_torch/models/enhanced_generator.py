@@ -11,23 +11,40 @@ LocalAttention kernel and the transformer block read their (B, H, W, C)
 view without a copy. The ``nn.Sequential`` indices are the reference
 checkpoint's (``down1.0`` conv, ``down1.3`` attention, ``down1.4``
 multi-scale block), so its ``.pth`` loads with ``strict=True``; indices 1
-and 2 hold the parameter-free InstanceNorm and ReLU.
+and 2 hold the parameter-free InstanceNorm and ReLU, which the forward runs
+as one ``in_relu``.
+
+Precision: every op casts its weights to the activation's type at use
+(``core.conv``), as the JAX ops do, so fp32 parameters train under bf16
+compute and their gradients land in fp32.
+
+Routes: where autograd will need a gradient (grad mode on, and the input or
+a parameter requires grad) LocalAttention runs the 1x1 qkv conv, the
+training kernel of the mid and the 1x1 proj conv, and the transformer block
+its training body; otherwise the inference kernels run (the serving path,
+and the D-phase fakes of a train step, made under ``torch.no_grad()``).
 """
 
 from __future__ import annotations
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
+from ..core.conv import conv, linear
 from ..core.norm import InstanceNorm, in_relu
-from ..ops.kernels import window_channel_attention
+from ..ops.kernels import (
+    window_channel_attention, window_channel_attention_train,
+)
+from ..ops.kernels._checks import grad_needed
+from .init_utils import init_generator_module_
 from .structural_transformer import StructuralTransformerBlock
 
 CHANNELS_LAST = torch.channels_last
 
 
 class LocalAttention(nn.Module):
-    """Windowed channel attention over 4x4 windows; one kernel call."""
+    """Windowed channel attention over 4x4 windows."""
 
     def __init__(self, channels: int):
         super().__init__()
@@ -36,9 +53,17 @@ class LocalAttention(nn.Module):
 
     def forward(self, x):
         x = x.contiguous(memory_format=CHANNELS_LAST)
+        if grad_needed(x, *self.parameters()):
+            # training route (local_attention_apply(fast="train"),
+            # enhanced_generator.py:131-146): convs in autograd around the
+            # hand-written mid
+            qkv = conv(self.qkv, x).permute(0, 2, 3, 1)
+            mid = window_channel_attention_train(qkv)
+            return conv(self.proj, mid.permute(0, 3, 1, 2))
         y = window_channel_attention(
-            x.permute(0, 2, 3, 1), self.qkv.weight, self.qkv.bias,
-            self.proj.weight, self.proj.bias)
+            x.permute(0, 2, 3, 1), self.qkv.weight.to(x.dtype),
+            self.qkv.bias.to(x.dtype), self.proj.weight.to(x.dtype),
+            self.proj.bias.to(x.dtype))
         return y.permute(0, 3, 1, 2)
 
 
@@ -64,24 +89,42 @@ class MultiScaleBlock(nn.Module):
         self.fusion = nn.Sequential(nn.Conv2d(channels, channels, 1))
 
     def forward(self, x):
-        h = torch.cat([getattr(self, name)(x) for name, *_ in _MSB_BRANCHES],
-                      dim=1)
-        return in_relu(self.fusion(in_relu(h))) + x
+        h = torch.cat([conv(getattr(self, name)[0], x)
+                       for name, *_ in _MSB_BRANCHES], dim=1)
+        return in_relu(conv(self.fusion[0], in_relu(h))) + x
 
 
-def _stage(conv: nn.Module, channels: int) -> nn.Sequential:
-    return nn.Sequential(conv, InstanceNorm(), nn.ReLU(),
+class _Stage(nn.Sequential):
+    """conv (or transposed conv) -> IN+ReLU -> LocalAttention ->
+    MultiScaleBlock, at the checkpoint's indices 0-4."""
+
+    def __init__(self, first: nn.Module, channels: int):
+        super().__init__(first, InstanceNorm(), nn.ReLU(),
                          LocalAttention(channels), MultiScaleBlock(channels))
+
+    def forward(self, h):
+        return self[4](self[3](in_relu(conv(self[0], h))))
 
 
 class EnhancedGenerator(nn.Module):
-    def __init__(self, channels: int = 16, num_transformer_blocks: int = 1):
+    """A fresh module follows ``enhanced_generator_init``'s law
+    (:260-295): Kaiming-normal fan_out convs with zero biases, the default
+    law for the Linears, ``style_mod`` zero and unit/zero LayerNorms.
+    ``generator`` is the ``torch.Generator`` it draws from (None: torch's
+    default one). ``remat`` recomputes each stage and transformer block in
+    the backward pass (``torch.utils.checkpoint``, as ``ckpt`` does at
+    :339-395)."""
+
+    def __init__(self, channels: int = 16, num_transformer_blocks: int = 1,
+                 *, generator: torch.Generator | None = None,
+                 remat: bool = False):
         super().__init__()
         c = channels
+        self.remat = remat
         self.initial = nn.Sequential(nn.Conv2d(3, c, 7, padding=3),
                                      InstanceNorm(), nn.ReLU())
-        self.down1 = _stage(nn.Conv2d(c, 2 * c, 4, stride=2, padding=1), 2 * c)
-        self.down2 = _stage(nn.Conv2d(2 * c, 4 * c, 4, stride=2, padding=1),
+        self.down1 = _Stage(nn.Conv2d(c, 2 * c, 4, stride=2, padding=1), 2 * c)
+        self.down2 = _Stage(nn.Conv2d(2 * c, 4 * c, 4, stride=2, padding=1),
                             4 * c)
         self.style_encoder = nn.Sequential(
             nn.AdaptiveAvgPool2d(1), nn.Flatten(), nn.Linear(4 * c, 4 * c),
@@ -89,21 +132,35 @@ class EnhancedGenerator(nn.Module):
         self.transformer_blocks = nn.ModuleList(
             StructuralTransformerBlock(4 * c)
             for _ in range(num_transformer_blocks))
-        self.up1 = _stage(nn.ConvTranspose2d(4 * c, 2 * c, 4, stride=2,
+        self.up1 = _Stage(nn.ConvTranspose2d(4 * c, 2 * c, 4, stride=2,
                                              padding=1), 2 * c)
-        self.up2 = _stage(nn.ConvTranspose2d(2 * c, c, 4, stride=2,
+        self.up2 = _Stage(nn.ConvTranspose2d(2 * c, c, 4, stride=2,
                                              padding=1), c)
         self.output = nn.Sequential(nn.Conv2d(c, 3, 7, padding=3), nn.Tanh())
+        self.reset_parameters(generator)
+
+    @torch.no_grad()
+    def reset_parameters(self, generator: torch.Generator | None = None):
+        for m in self.modules():
+            init_generator_module_(m, generator)
+        for block in self.transformer_blocks:
+            block.style_mod.weight.zero_()  # FiLM starts at identity
+            block.style_mod.bias.zero_()
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         """x: (B, 3, H, W) in [-1, 1], H and W divisible by 16 -> same."""
-        h = self.down2(self.down1(self.initial(x)))
-        style = self.style_encoder(h)
+        if self.remat and torch.is_grad_enabled():
+            run = lambda f, *a: checkpoint(f, *a, use_reentrant=False)
+        else:
+            run = lambda f, *a: f(*a)
+        h = in_relu(conv(self.initial[0], x))
+        h = run(self.down2, run(self.down1, h))
+        style = torch.relu(linear(self.style_encoder[2], h.mean(dim=(2, 3))))
         tokens = h.contiguous(memory_format=CHANNELS_LAST).permute(0, 2, 3, 1)
         for block in self.transformer_blocks:
-            tokens = block(tokens, style, x)
-        h = self.up2(self.up1(tokens.permute(0, 3, 1, 2)))
-        return self.output(h)
+            tokens = run(block, tokens, style, x)
+        h = run(self.up2, run(self.up1, tokens.permute(0, 3, 1, 2)))
+        return torch.tanh(conv(self.output[0], h))
 
 
 def num_transformer_blocks_of(state_dict) -> int:

@@ -2,20 +2,35 @@
 
 The block conditions the bottleneck tokens on structure (two 3x3 stride-2
 convs over the network input, projected) and on style (a FiLM of the
-pre-attention norm), then runs the fused body: window-8 multi-head
-self-attention and a GELU MLP, both pre-norm and residual. The body is one
-call into ``ops.kernels.fused_structural_block``.
+pre-attention norm), then runs the body: window-8 multi-head
+self-attention and a GELU MLP, both pre-norm and residual.
+
+Two routes for the body, as in the JAX package. Where autograd will need a
+gradient, the training body (``_train_block_body``, :183-205): LN1 + FiLM,
+the qkv Linear, the proj Linear, LN2 and the MLP in autograd around the
+window-MHSA mid ``ops.kernels.window_mhsa_train``. Otherwise one call into
+the inference kernel ``ops.kernels.fused_structural_block``.
 """
 
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
-from ..ops.kernels import fused_structural_block
+from ..core.activations import gelu
+from ..core.conv import conv, linear
+from ..ops.kernels import fused_structural_block, window_mhsa_train
+from ..ops.kernels._checks import grad_needed
 from ..ops.kernels.fused_transformer import default_num_heads
 
 __all__ = ["StructuralTransformerBlock", "default_num_heads"]
+
+
+def _layer_norm(x, ln: nn.LayerNorm):
+    """fp32 statistics and affine, one rounding to x's type (:89-94)."""
+    return F.layer_norm(x.float(), ln.normalized_shape, ln.weight.float(),
+                        ln.bias.float(), ln.eps).to(x.dtype)
 
 
 class _Attention(nn.Module):
@@ -35,7 +50,8 @@ class _MLP(nn.Module):
 class StructuralTransformerBlock(nn.Module):
     """One block at width ``dim``; parameter names are the checkpoint's
     (``struct_embed.{0,2}``, ``struct_proj``, ``style_mod``, ``norm{1,2}``,
-    ``attn.{qkv,proj}``, ``mlp.{fc1,fc2}``)."""
+    ``attn.{qkv,proj}``, ``mlp.{fc1,fc2}``). The EnhancedGenerator
+    initializes it by ``structural_transformer_init``'s law."""
 
     def __init__(self, dim: int):
         super().__init__()
@@ -54,7 +70,8 @@ class StructuralTransformerBlock(nn.Module):
         """tokens: (B, H, W, C) grid; style: (B, C); orig: the network
         input, (B, 3, 4H, 4W) in [-1, 1]. Returns (B, H, W, C), contiguous."""
         B, H, W, C = tokens.shape
-        s = self.struct_embed(orig)
+        s = torch.relu(conv(self.struct_embed[0], orig.to(tokens.dtype)))
+        s = torch.relu(conv(self.struct_embed[2], s))
         if s.shape[-2:] != (H, W):
             # The JAX block resizes with jax.image.resize (antialiased
             # bilinear), which F.interpolate does not reproduce; inputs
@@ -63,14 +80,28 @@ class StructuralTransformerBlock(nn.Module):
                 f"struct-embed resize from {tuple(s.shape[-2:])} to {(H, W)} "
                 f"is not ported (input sides must be multiples of 16; "
                 f"ROADMAP.md lists the resize branch)")
-        struct = self.struct_proj(s.permute(0, 2, 3, 1))
-        gamma, beta = self.style_mod(style).chunk(2, dim=-1)
+        struct = linear(self.struct_proj, s.permute(0, 2, 3, 1))
+        gamma, beta = linear(self.style_mod, style).chunk(2, dim=-1)
+        if grad_needed(tokens, style, orig, *self.parameters()):
+            return self._train_body(tokens, struct, gamma, beta)
+        c = lambda t: t.to(tokens.dtype)
         return fused_structural_block(
             tokens.contiguous(), struct.contiguous(), gamma, beta,
             eps=self.norm1.eps,
-            norm1_w=self.norm1.weight, norm1_b=self.norm1.bias,
-            qkv_w=self.attn.qkv.weight, qkv_b=self.attn.qkv.bias,
-            proj_w=self.attn.proj.weight, proj_b=self.attn.proj.bias,
-            norm2_w=self.norm2.weight, norm2_b=self.norm2.bias,
-            fc1_w=self.mlp.fc1.weight, fc1_b=self.mlp.fc1.bias,
-            fc2_w=self.mlp.fc2.weight, fc2_b=self.mlp.fc2.bias)
+            norm1_w=c(self.norm1.weight), norm1_b=c(self.norm1.bias),
+            qkv_w=c(self.attn.qkv.weight), qkv_b=c(self.attn.qkv.bias),
+            proj_w=c(self.attn.proj.weight), proj_b=c(self.attn.proj.bias),
+            norm2_w=c(self.norm2.weight), norm2_b=c(self.norm2.bias),
+            fc1_w=c(self.mlp.fc1.weight), fc1_b=c(self.mlp.fc1.bias),
+            fc2_w=c(self.mlp.fc2.weight), fc2_b=c(self.mlp.fc2.bias))
+
+    def _train_body(self, tokens, struct, gamma, beta):
+        """``_train_block_body``: autograd around the window-MHSA mid."""
+        C = tokens.shape[-1]
+        h = _layer_norm(tokens + struct, self.norm1)
+        h = h * (1.0 + gamma[:, None, None, :]) + beta[:, None, None, :]
+        mid = window_mhsa_train(linear(self.attn.qkv, h),
+                                default_num_heads(C))
+        tokens = tokens + linear(self.attn.proj, mid)
+        h = _layer_norm(tokens, self.norm2)
+        return tokens + linear(self.mlp.fc2, gelu(linear(self.mlp.fc1, h)))

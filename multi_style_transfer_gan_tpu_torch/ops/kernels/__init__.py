@@ -3,15 +3,28 @@
 Every wrapper dispatches on the device of the tensor it is given: a CPU
 tensor runs the plain version, a CUDA tensor launches the kernel or raises.
 Each wrapper carries ``launches``, a plain integer it increments once per
-kernel launch and nowhere else.
+kernel launch and nowhere else. The inference kernels are forward-only and
+raise on a CUDA call that autograd would record; the training kernels come
+in forward/backward pairs behind one ``torch.autograd.Function`` each.
 """
 
 from .fused_transformer import fused_structural_block, structural_block_plain
 from .window_attention import (
     window_channel_attention, window_channel_attention_plain,
 )
+from .window_attention_train import (
+    window_attention_mid_backward_plain, window_attention_mid_bwd,
+    window_attention_mid_fwd, window_attention_mid_plain,
+    window_channel_attention_train,
+)
+from .window_mhsa_train import (
+    window_mhsa_backward_plain, window_mhsa_bwd, window_mhsa_fwd,
+    window_mhsa_plain, window_mhsa_train,
+)
 
-KERNELS = (window_channel_attention, fused_structural_block)
+KERNELS = (window_channel_attention, fused_structural_block,
+           window_attention_mid_fwd, window_attention_mid_bwd,
+           window_mhsa_fwd, window_mhsa_bwd)
 
 
 def reset_launch_counts() -> None:
@@ -21,6 +34,10 @@ def reset_launch_counts() -> None:
 
 __all__ = [
     "KERNELS", "fused_structural_block", "reset_launch_counts",
-    "structural_block_plain", "window_channel_attention",
-    "window_channel_attention_plain",
+    "structural_block_plain", "window_attention_mid_backward_plain",
+    "window_attention_mid_bwd", "window_attention_mid_fwd",
+    "window_attention_mid_plain", "window_channel_attention",
+    "window_channel_attention_plain", "window_channel_attention_train",
+    "window_mhsa_backward_plain", "window_mhsa_bwd", "window_mhsa_fwd",
+    "window_mhsa_plain", "window_mhsa_train",
 ]

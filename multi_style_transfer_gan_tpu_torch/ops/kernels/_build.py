@@ -15,6 +15,8 @@ import os
 import shutil
 import subprocess
 import threading
+import time
+from concurrent.futures import ThreadPoolExecutor
 
 _PKG = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 CSRC = os.path.join(_PKG, "csrc")
@@ -25,18 +27,33 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
-# C signature of each kernel's entry point: (function name, argtypes)
+# Each entry point: (source in csrc/ without ".cu", C symbol, argtypes).
+# A source may hold several entry points (a forward and its backward).
 SIGNATURES = {
     "window_channel_attention": (
-        "window_channel_attention_launch",
+        "window_channel_attention", "window_channel_attention_launch",
         [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I, _P]),
     "fused_structural_block": (
-        "fused_structural_block_launch",
+        "fused_structural_block", "fused_structural_block_launch",
         [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I, _P]),
+    "window_attention_train_fwd": (
+        "window_attention_train", "window_attention_train_fwd_launch",
+        [_P, _P, _I, _I, _I, _I, _I, _F, _I, _P]),
+    "window_attention_train_bwd": (
+        "window_attention_train", "window_attention_train_bwd_launch",
+        [_P, _P, _P, _I, _I, _I, _I, _I, _F, _I, _P]),
+    "window_mhsa_train_fwd": (
+        "window_mhsa_train", "window_mhsa_train_fwd_launch",
+        [_P, _P, _I, _I, _I, _I, _I, _I, _I, _P]),
+    "window_mhsa_train_bwd": (
+        "window_mhsa_train", "window_mhsa_train_bwd_launch",
+        [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P]),
 }
+SOURCES = tuple(dict.fromkeys(src for src, _, _ in SIGNATURES.values()))
 
 _lock = threading.Lock()
-_loaded: dict = {}  # kernel name -> ctypes function
+_loaded: dict = {}  # entry point name -> ctypes function
+_libs: dict = {}    # source name -> ctypes.CDLL
 
 
 def nvcc() -> str:
@@ -65,8 +82,9 @@ def library_path(name: str) -> str:
 
 
 def build(name: str) -> str:
-    """Compile ``csrc/<name>.cu`` unless its hashed library exists; returns
-    the library path. Raises with nvcc's output when compilation fails."""
+    """Compile source ``csrc/<name>.cu`` unless its hashed library exists;
+    returns the library path. Raises with nvcc's output when compilation
+    fails."""
     so = library_path(name)
     if os.path.exists(so):
         return so
@@ -81,13 +99,31 @@ def build(name: str) -> str:
     return so
 
 
+def build_all(names=SOURCES) -> dict:
+    """Build several sources at once, one nvcc process each, all started
+    together; returns {source: seconds it took}. Raises on the first
+    failure after every build has ended."""
+    def timed(name):
+        t0 = time.perf_counter()
+        build(name)
+        return time.perf_counter() - t0
+
+    with ThreadPoolExecutor(max_workers=len(names)) as pool:
+        futures = {name: pool.submit(timed, name) for name in names}
+        return {name: f.result() for name, f in futures.items()}
+
+
 def kernel(name: str):
-    """The ctypes entry point of kernel ``name``, building it on first use."""
+    """The ctypes function of entry point ``name``, building its source on
+    first use."""
     with _lock:
         fn = _loaded.get(name)
         if fn is None:
-            symbol, argtypes = SIGNATURES[name]
-            fn = getattr(ctypes.CDLL(build(name)), symbol)
+            source, symbol, argtypes = SIGNATURES[name]
+            lib = _libs.get(source)
+            if lib is None:
+                lib = _libs[source] = ctypes.CDLL(build(source))
+            fn = getattr(lib, symbol)
             fn.argtypes = argtypes
             fn.restype = ctypes.c_int
             _loaded[name] = fn

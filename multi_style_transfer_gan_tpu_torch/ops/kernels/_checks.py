@@ -13,10 +13,30 @@ def dtype_code(x: torch.Tensor) -> int:
     return _DTYPE_CODES[x.dtype]
 
 
-def check_cuda_args(kernel: str, x: torch.Tensor, operands: dict) -> None:
+def grad_needed(*tensors) -> bool:
+    """True when autograd records ops on any of ``tensors``: grad mode is on
+    and one of them requires grad."""
+    return torch.is_grad_enabled() and any(
+        t is not None and t.requires_grad for t in tensors)
+
+
+def check_no_grad(kernel: str, *tensors) -> None:
+    """An inference kernel writes through raw pointers, so its output has
+    no ``grad_fn``: raise rather than cut the gradient silently."""
+    if grad_needed(*tensors):
+        raise RuntimeError(
+            f"{kernel} is an inference kernel and its output carries no "
+            f"gradient, but an input requires grad while grad is enabled; "
+            f"run it under torch.no_grad() or use the training route "
+            f"(window_channel_attention_train, window_mhsa_train)")
+
+
+def check_cuda_args(kernel: str, x: torch.Tensor, operands: dict,
+                    align: int = 16) -> None:
     """x: the contiguous activation on a CUDA device, fp32 or bf16.
     operands: {name: (tensor, expected shape)}, each on x's device, of x's
-    type, contiguous and 16-byte aligned (the kernels load 4 at a time)."""
+    type, contiguous and ``align``-byte aligned (16 where a kernel loads 4
+    elements at a time)."""
     if x.device.type != "cuda":
         raise ValueError(f"{kernel}: expected a CUDA tensor, got {x.device}")
     if x.dtype not in _DTYPE_CODES:
@@ -32,6 +52,6 @@ def check_cuda_args(kernel: str, x: torch.Tensor, operands: dict) -> None:
         if tuple(t.shape) != tuple(shape):
             raise ValueError(f"{kernel}: {name} has shape {tuple(t.shape)}, "
                              f"expected {tuple(shape)}")
-        if not t.is_contiguous() or t.data_ptr() % 16:
+        if not t.is_contiguous() or t.data_ptr() % align:
             raise ValueError(f"{kernel}: {name} must be contiguous and "
-                             f"16-byte aligned")
+                             f"{align}-byte aligned")

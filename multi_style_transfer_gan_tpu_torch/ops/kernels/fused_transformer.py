@@ -17,7 +17,7 @@ import torch.nn.functional as F
 
 from ...core.activations import gelu
 from . import _build
-from ._checks import check_cuda_args, dtype_code
+from ._checks import check_cuda_args, check_no_grad, dtype_code
 
 WINDOW = 8
 KERNEL_WIDTHS = (64,)
@@ -101,7 +101,9 @@ def fused_structural_block(x, struct, gamma, beta, *, eps: float = 1e-5,
 
     A CPU tensor takes the plain version. A CUDA tensor launches the kernel
     (contiguous fp32 or bf16 x and struct, weights of the same type, C = 64,
-    any H and W; 8x8 windows) or raises.
+    any H and W; 8x8 windows) or raises. The kernel is forward-only: a CUDA
+    call that autograd would record raises (the training route is the block
+    body in autograd around ``window_mhsa_train``).
     """
     if sorted(weights) != sorted(WEIGHT_NAMES):
         raise TypeError(f"fused_structural_block takes the weights "
@@ -109,6 +111,8 @@ def fused_structural_block(x, struct, gamma, beta, *, eps: float = 1e-5,
     if x.device.type == "cpu":
         return structural_block_plain(x, struct, gamma, beta, eps=eps,
                                       **weights)
+    check_no_grad("fused_structural_block", x, struct, gamma, beta,
+                  *weights.values())
     B, H, W, C = x.shape
     if C not in KERNEL_WIDTHS:
         raise ValueError(f"fused_structural_block kernel is built for C in "

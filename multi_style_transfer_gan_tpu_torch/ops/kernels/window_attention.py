@@ -16,7 +16,7 @@ import torch.nn.functional as F
 
 from ...core.norm import l2_normalize
 from . import _build
-from ._checks import check_cuda_args, dtype_code
+from ._checks import check_cuda_args, check_no_grad, dtype_code
 
 WINDOW = 4
 KERNEL_WIDTHS = (16, 32, 64)
@@ -52,7 +52,9 @@ def window_channel_attention(x, wqkv, bqkv, wproj, bproj, *,
 
     A CPU tensor takes the plain version. A CUDA tensor launches the kernel
     (contiguous fp32 or bf16 input, weights of the same type, C in 16/32/64,
-    H % 4 == W % 4 == 0) or raises.
+    H % 4 == W % 4 == 0) or raises. The kernel is forward-only: a CUDA call
+    that autograd would record raises (the training route is
+    ``window_channel_attention_train`` between the two 1x1 convs).
     """
     B, H, W, C = x.shape
     if H % WINDOW or W % WINDOW:
@@ -61,6 +63,7 @@ def window_channel_attention(x, wqkv, bqkv, wproj, bproj, *,
     if x.device.type == "cpu":
         return window_channel_attention_plain(x, wqkv, bqkv, wproj, bproj,
                                               eps=eps)
+    check_no_grad("window_channel_attention", x, wqkv, bqkv, wproj, bproj)
     if C not in KERNEL_WIDTHS:
         raise ValueError(f"window_channel_attention kernel is built for C in "
                          f"{KERNEL_WIDTHS}, got C={C}")

@@ -1,8 +1,9 @@
 """``.pth`` checkpoint sniffing (port of ``weights/torch_import.py``).
 
 The port's modules carry the reference's ``state_dict()`` keys and
-layouts, so a checkpoint loads as it is; only the converter from the JAX
-package's parameters (HWIO kernels) transposes anything.
+layouts, so a checkpoint loads as it is; only the converters from the JAX
+package's parameters (HWIO kernels, spectral-norm v in (kh, kw, I) order)
+transpose anything.
 """
 
 from __future__ import annotations
@@ -88,4 +89,31 @@ def state_dict_from_jax_params(params: dict) -> dict:
             perm = (2, 3, 0, 1) if prefix in _ENH_TRANSPOSED else (3, 2, 0, 1)
             arr = arr.transpose(perm)
         sd[k] = torch.tensor(np.ascontiguousarray(arr))  # a copy, writable
+    return sd
+
+
+def discriminator_state_dict_from_jax(params: dict, sn_state: dict) -> dict:
+    """EnhancedDiscriminator parameters and ``sn_state`` of the JAX package
+    -> the port's (and torch's) state dict.
+
+    ``weight_orig`` goes HWIO -> OIHW. ``weight_u`` is taken as it is.
+    ``weight_v`` goes from the JAX flat (kh, kw, I) order back to torch's
+    (I, kh, kw), the inverse of ``_convert_weight_v``
+    (weights/torch_import.py:138-143). A v of None (before the first power
+    iteration) is synthesized as v = normalize(W^T u), as the JAX
+    ``save_models`` does (train/cyclegan.py:300-307).
+    """
+    sd = state_dict_from_jax_params(params)
+    for name, st in sn_state.items():
+        w = np.asarray(params[f"{name}.weight_orig"], np.float32)  # HWIO
+        kh, kw, i, _ = w.shape
+        u = np.asarray(st["u"], np.float32)
+        if st.get("v") is not None:
+            v = np.asarray(st["v"], np.float32).reshape(kh, kw, i)
+        else:
+            v_flat = w.reshape(-1, w.shape[-1]) @ u
+            v = (v_flat / max(np.linalg.norm(v_flat), 1e-12)).reshape(kh, kw, i)
+        sd[f"{name}.weight_u"] = torch.tensor(u)
+        sd[f"{name}.weight_v"] = torch.tensor(
+            np.ascontiguousarray(v.transpose(2, 0, 1).reshape(-1)))
     return sd
