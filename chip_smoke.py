@@ -4,22 +4,28 @@
 
 Drives the port's two main paths (``multi_style_transfer_gan_tpu_torch``) on
 the card, serving at the full width of the trained c16 EnhancedGenerator
-shipped in ``trained/`` and CycleGAN training at the reference
-configuration, and checks every hand-written kernel on the way:
+shipped in ``trained/`` with both engines (NHWC and packed space-to-depth)
+and CycleGAN training at the reference configuration, and checks every
+hand-written kernel on the way:
 
-1. build: all four CUDA sources compile from ``csrc/`` at once, one nvcc
+1. build: all five CUDA sources compile from ``csrc/`` at once, one nvcc
    each;
 2. window channel attention, kernel vs plain PyTorch at every shape the
    generator gives it at canvas 256 and 512 (fp32 with TF32 off, and bf16);
-3. the fused transformer block, kernel vs plain, including a ragged grid;
-4. the training kernels (channel-attention mid, window-MHSA mid), forward
+3. the same op on packed rows (the packed engine's layout), kernel vs
+   plain at every packed-engine shape, beside the NHWC kernel's time at the
+   same windows; the window relayout, kernel vs plain, bit-exact;
+4. the fused transformer block, kernel vs plain, including a ragged grid;
+5. the training kernels (channel-attention mid, window-MHSA mid), forward
    and backward, kernel vs plain at every training shape, one all-zero
    window each;
-5. serving path: the uint8 -> uint8 stylize program on the trained weights
-   (fp32 on the card vs the plain path on the CPU, launch counts per
-   forward, bf16 img/s at canvas 256 and 512), the batch CLI on 24 JPEGs
-   of mixed sizes, the HTTP server answering 4 requests;
-6. training path: the bf16 train step at c16, 256^2, batch 8 (launches per
+6. serving path: the uint8 -> uint8 stylize program on the trained weights
+   with each engine (fp32 on the card vs the plain path on the CPU, packed
+   vs NHWC on the card, launch counts per forward, bf16 img/s of both
+   engines at canvas 256 and 512, batch 16 and 64), the batch CLI on 24
+   JPEGs of mixed sizes with ``--engine packed``, ``auto`` and ``nhwc``,
+   the HTTP server answering 4 requests with each engine;
+7. training path: the bf16 train step at c16, 256^2, batch 8 (launches per
    step, finite losses, moved G, D and u, ms/step), one fp32 step on the
    card vs the CPU, and the train CLI writing, resuming and producing a
    generator that stylizes.
@@ -51,11 +57,17 @@ TRAINED = os.path.join(REPO, "trained", "G_BA_selected.pth")
 SEED = 0
 BATCH = 8            # kernel-phase batch
 GEN_BATCH = 16       # generator-phase batch
+RATE_BATCHES = (16, 64)  # img/s of both engines at these batches
+ENGINES = ("nhwc", "packed")
 CANVASES = (256, 512)
 FP32_TOL = 1e-4      # channel attention, fp32: summation order only
 BLOCK_FP32_TOL = 2e-4  # block, fp32: two LayerNorms and a 256-wide MLP
 TRAIN_GRAD_FP32_TOL = 2e-4  # training kernels' backward, fp32
 TRAIN_BATCH = 8
+# launches per generator forward: NHWC attention, block, packed attention,
+# relayout (s2d of the input; d2s of tokens and struct, s2d of the block's
+# output; d2s of the result)
+FORWARD_LAUNCHES = {"nhwc": [4, 1, 0, 0], "packed": [0, 1, 4, 5]}
 # launches per bf16 train step with pair batching, remat off: the G phase
 # runs 4 generator forwards with grad (4 LocalAttention + 1 block each, fwd
 # and bwd); the D-phase fakes are 2 forwards under no_grad, which take the
@@ -71,8 +83,10 @@ TRAIN_FP32_RTOL = 1e-3
 # round once, so they may differ by one bf16 rounding of the output (2^-7
 # relative) on top of fp32 summation order.
 BF16_ATOL, BF16_RTOL = 3e-2, 2 ** -7
-# uint8 fp32 card vs CPU: different conv algorithms move values by ~1e-5,
-# which flips a rounding on a small share of pixels by one level.
+# uint8 fp32 card vs CPU, and packed vs NHWC engine on the card: different
+# conv algorithms (and, packed, the repacked convs' extra zero taps) move
+# values by ~1e-5, which flips a rounding on a small share of pixels by one
+# level.
 U8_MAX_DIFF, U8_MAX_SHARE = 1, 0.01
 # bf16 vs fp32 program on the card, mean |d| in uint8 levels (a sanity
 # bound: a broken kernel lands far above it).
@@ -202,6 +216,124 @@ def phase_attention(rng, dev):
     return worst, times
 
 
+def packed_attention_shapes(canvas):
+    """(name, packed shape) of the four LocalAttention calls of one c16
+    packed forward: (B, H/4, W/4, 16 C) at each stage's NHWC grid."""
+    return [(stage, (B, H // 4, W // 4, 16 * C))
+            for stage, (B, H, W, C) in attention_shapes(canvas)]
+
+
+def phase_packed_attention(rng, dev):
+    """Packed-row attention kernel vs plain at every packed-engine shape,
+    one all-zero window each, and the NHWC kernel's time at the same
+    windows (the same op, one relayout away)."""
+    import torch
+
+    from multi_style_transfer_gan_tpu_torch.ops.kernels import (
+        depth_to_space_plain, packed_window_channel_attention,
+        packed_window_channel_attention_plain, window_channel_attention,
+    )
+
+    worst = 0.0
+    times = {}
+    for canvas in CANVASES:
+        seen = {}
+        for stage, shape in packed_attention_shapes(canvas):
+            if shape in seen:  # up1 has down1's shape
+                times[(canvas, stage)] = seen[shape]
+                continue
+            C = shape[-1] // 16
+            x = rng.standard_normal(shape).astype(np.float32)
+            x[0, 0, 0] = 0.0  # one all-zero window: zero-safe normalize
+            ws = [rng.standard_normal((3 * C, C)) * 0.1,
+                  rng.standard_normal(3 * C),
+                  rng.standard_normal((C, C)) * 0.1,
+                  rng.standard_normal(C)]
+            for dtype in (torch.float32, torch.bfloat16):
+                args = [torch.from_numpy(a.astype(np.float32)).to(dev, dtype)
+                        for a in [x] + ws]
+                got = packed_window_channel_attention(*args)
+                ref = packed_window_channel_attention_plain(*args)
+                torch.cuda.synchronize()
+                err, bf16_ok = compare(got, ref, dtype)
+                ok = (err <= FP32_TOL if dtype == torch.float32 else bf16_ok)
+                zero_ok = bool(torch.isfinite(got[0, 0, 0]).all())
+                ok = ok and bool(torch.isfinite(got).all()) and zero_ok
+                k_ms, p_ms = time_pair(
+                    lambda: packed_window_channel_attention(*args),
+                    lambda: packed_window_channel_attention_plain(*args))
+                nhwc = [depth_to_space_plain(args[0], 4).contiguous()] + args[1:]
+                n_ms = time_ms(lambda: window_channel_attention(*nhwc))
+                log(f"[packed attention] canvas {canvas} {stage} {shape} "
+                    f"{str(dtype)[6:]}: max|d| {err:.3e} zero-window "
+                    f"{'ok' if zero_ok else 'BAD'}, kernel {k_ms:.4f} ms, "
+                    f"plain {p_ms:.4f} ms, NHWC kernel {n_ms:.4f} ms")
+                if not ok:
+                    raise AssertionError(f"packed_window_channel_attention "
+                                         f"{shape} {dtype}: max|d| {err:.3e} "
+                                         f"outside tolerance")
+                if dtype == torch.float32:
+                    worst = max(worst, err)
+                else:
+                    times[(canvas, stage)] = seen[shape] = (k_ms, p_ms, n_ms)
+    return worst, times
+
+
+def relayout_cases(canvas):
+    """(name, NHWC shape, direction) of the five relayouts of one packed
+    forward at BATCH: the input and output (C = 3) and the bottleneck
+    tokens, struct and block output (C = 64)."""
+    full, bottleneck = (BATCH, canvas, canvas, 3), (BATCH, canvas // 4,
+                                                    canvas // 4, 64)
+    return [("s2d input", full, "s2d"), ("d2s tokens", bottleneck, "d2s"),
+            ("d2s struct", bottleneck, "d2s"), ("s2d block", bottleneck, "s2d"),
+            ("d2s output", full, "d2s")]
+
+
+def phase_relayout(rng, dev):
+    """The relayout kernel vs the plain reshape + permute, both directions,
+    bit-exact; returns the largest |d| (0) and the ms of the five relayouts
+    of one forward at the first canvas (kernel, plain), bf16."""
+    import torch
+
+    from multi_style_transfer_gan_tpu_torch.ops.kernels import (
+        depth_to_space_plain, space_to_depth_plain, window_relayout,
+    )
+
+    worst = 0.0
+    case_ms = {}
+    cases = relayout_cases(CANVASES[0])
+    for shape in sorted({s for _, s, _ in cases}):
+        host = rng.standard_normal(shape).astype(np.float32)
+        for dtype in (torch.float32, torch.bfloat16):
+            x = torch.from_numpy(host).to(dev, dtype)
+            rows = space_to_depth_plain(x, 4).contiguous()
+            for direction, src, plain in (
+                    ("s2d", x, lambda t: space_to_depth_plain(t, 4).contiguous()),
+                    ("d2s", rows, lambda t: depth_to_space_plain(t, 4).contiguous())):
+                inverse = direction == "d2s"
+                got = window_relayout(src, inverse=inverse)
+                ref = plain(src)
+                torch.cuda.synchronize()
+                err = (got.float() - ref.float()).abs().max().item()
+                exact = torch.equal(got, ref)
+                k_ms, p_ms = time_pair(
+                    lambda: window_relayout(src, inverse=inverse),
+                    lambda: plain(src))
+                log(f"[relayout] {direction} {shape} {str(dtype)[6:]}: "
+                    f"{'bit-exact' if exact else f'DIFFERS max|d| {err:.3e}'}, "
+                    f"kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms")
+                if not exact:
+                    raise AssertionError(f"window_relayout {direction} {shape} "
+                                         f"{dtype} is not bit-exact")
+                worst = max(worst, err)
+                if dtype == torch.bfloat16:
+                    case_ms[(shape, direction)] = (k_ms, p_ms)
+    per_fwd = [sum(case_ms[(shape, d)][i] for _, shape, d in cases)
+               for i in (0, 1)]
+    return worst, tuple(per_fwd)
+
+
 def phase_block(rng, dev):
     import torch
 
@@ -325,12 +457,33 @@ def smooth_images(rng, n, size):
     return out
 
 
-def phase_generator(rng, dev, counts):
+def program_rate(fn, x, iters=10, warmup=2) -> float:
+    """img/s of the uint8 program ``fn`` on the device-resident batch x
+    (host clock around work ending in a synchronize)."""
     import torch
 
-    from multi_style_transfer_gan_tpu_torch.ops.kernels import (
-        fused_structural_block, window_channel_attention,
-    )
+    for _ in range(warmup):
+        fn(x)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn(x)
+    torch.cuda.synchronize()
+    return iters * x.shape[0] / (time.perf_counter() - t0)
+
+
+def u8_diff(got, ref):
+    """max |d| and the share of values that differ, in uint8 levels."""
+    d = np.abs(got.astype(int) - ref.astype(int))
+    return int(d.max()), float((d > 0).mean())
+
+
+def phase_generator(rng, dev, counts):
+    """The uint8 program with each engine: fp32 on the card vs the CPU plain
+    path and packed vs NHWC on the card (launches per forward checked), then
+    bf16 img/s of both engines in turns at every canvas and batch."""
+    import torch
+
     from multi_style_transfer_gan_tpu_torch.pipelines import (
         load_generator, make_batch_fn,
     )
@@ -344,51 +497,67 @@ def phase_generator(rng, dev, counts):
         f"parameters")
     batch = np.stack(smooth_images(rng, GEN_BATCH, (256, 256)))
 
-    fp32 = make_batch_fn(gpu_model, "cyclegan", device=dev)
-    before = counts()
-    got = fp32(batch).cpu().numpy()
-    launched = [a - b for a, b in zip(counts(), before)]
-    ref = make_batch_fn(cpu_model, "cyclegan", device="cpu")(batch).numpy()
-    d = np.abs(got.astype(int) - ref.astype(int))
-    share = float((d > 0).mean())
-    log(f"[generator] fp32 card vs CPU plain, {batch.shape} uint8: max diff "
-        f"{d.max()}, differing share {share:.3e}; launches per forward: "
-        f"attention {launched[0]}, block {launched[1]}")
-    if launched != [4, 1]:
-        raise AssertionError(f"expected 4 attention + 1 block launches per "
-                             f"forward, got {launched}")
-    if got.shape != batch.shape or d.max() > U8_MAX_DIFF or share > U8_MAX_SHARE:
-        raise AssertionError("fp32 program on the card disagrees with the CPU")
-    if np.abs(got.astype(int) - batch.astype(int)).mean() < 2.0:
-        raise AssertionError("output is a passthrough, not a translation")
+    fp32, bf16, outs = {}, {}, {}
+    for engine in ENGINES:
+        fp32[engine] = make_batch_fn(gpu_model, "cyclegan", engine=engine,
+                                     device=dev)
+        bf16[engine] = make_batch_fn(gpu_model, "cyclegan", engine=engine,
+                                     compute_dtype=torch.bfloat16, device=dev)
+        before = counts()
+        got = outs[engine] = fp32[engine](batch).cpu().numpy()
+        launched = [a - b for a, b in zip(counts(), before)]
+        ref = make_batch_fn(cpu_model, "cyclegan", engine=engine,
+                            device="cpu")(batch).numpy()
+        dmax, share = u8_diff(got, ref)
+        log(f"[generator] {engine} fp32 card vs CPU plain, {batch.shape} "
+            f"uint8: max diff {dmax}, differing share {share:.3e}; launches "
+            f"per forward (NHWC attention, block, packed attention, "
+            f"relayout): {launched}")
+        if launched != FORWARD_LAUNCHES[engine]:
+            raise AssertionError(f"{engine}: expected launches per forward "
+                                 f"{FORWARD_LAUNCHES[engine]}, got {launched}")
+        if got.shape != batch.shape or dmax > U8_MAX_DIFF or share > U8_MAX_SHARE:
+            raise AssertionError(f"{engine} fp32 program on the card "
+                                 f"disagrees with the CPU")
+        if np.abs(got.astype(int) - batch.astype(int)).mean() < 2.0:
+            raise AssertionError("output is a passthrough, not a translation")
+    dmax, share = u8_diff(outs["packed"], outs["nhwc"])
+    log(f"[generator] fp32 packed vs NHWC engine on the card: max diff {dmax}, "
+        f"differing share {share:.3e}")
+    if dmax > U8_MAX_DIFF or share > U8_MAX_SHARE:
+        raise AssertionError("packed and NHWC engines disagree on the card")
 
     rates = {}
     for canvas in CANVASES:
-        imgs = np.stack(smooth_images(rng, GEN_BATCH, (canvas, canvas)))
-        bf16 = make_batch_fn(gpu_model, "cyclegan",
-                             compute_dtype=torch.bfloat16, device=dev)
-        x = torch.from_numpy(imgs).to(dev)
-        out = bf16(x)
-        ref32 = fp32(x)
-        torch.cuda.synchronize()
-        mean_lsb = (out.float() - ref32.float()).abs().mean().item()
-        iters = 10
-        t0 = time.perf_counter()
-        for _ in range(iters):
-            bf16(x)
-        torch.cuda.synchronize()
-        rate = iters * GEN_BATCH / (time.perf_counter() - t0)
-        rates[canvas] = rate
-        log(f"[generator] bf16 program, batch {GEN_BATCH} at canvas {canvas}: "
-            f"{rate:.1f} img/s (device-resident uint8 in and out); mean |bf16 "
-            f"- fp32| {mean_lsb:.3f} levels")
-        if mean_lsb > BF16_MEAN_LSB:
-            raise AssertionError(f"bf16 program drifts {mean_lsb:.2f} levels "
-                                 f"from fp32")
+        for n in RATE_BATCHES:
+            x = torch.from_numpy(np.stack(smooth_images(
+                rng, n, (canvas, canvas)))).to(dev)
+            if n == GEN_BATCH:
+                for engine in ENGINES:
+                    mean_lsb = (bf16[engine](x).float()
+                                - fp32[engine](x).float()).abs().mean().item()
+                    log(f"[generator] {engine} bf16 vs fp32 at canvas "
+                        f"{canvas}: mean |d| {mean_lsb:.3f} levels")
+                    if mean_lsb > BF16_MEAN_LSB:
+                        raise AssertionError(f"{engine} bf16 program drifts "
+                                             f"{mean_lsb:.2f} levels from fp32")
+            turns = {engine: [] for engine in ENGINES}
+            for engine in ENGINES + ENGINES[::-1]:   # nhwc, packed, packed, nhwc
+                turns[engine].append(program_rate(bf16[engine], x))
+            rate = rates[(canvas, n)] = {e: sum(r) / len(r)
+                                         for e, r in turns.items()}
+            log(f"[generator] bf16 program, batch {n} at canvas {canvas} "
+                f"(device-resident uint8 in and out): NHWC {rate['nhwc']:.1f} "
+                f"img/s, packed {rate['packed']:.1f} img/s (packed/NHWC "
+                f"{rate['packed'] / rate['nhwc']:.3f}); turns {turns}")
     return rates
 
 
 def phase_cli(rng):
+    """The batch CLI on 24 JPEGs of mixed sizes at --batch_size 8, once per
+    engine flag; auto must resolve to packed at batch 8."""
+    import contextlib
+
     from PIL import Image
 
     from multi_style_transfer_gan_tpu_torch.cli.batch_process_images import main
@@ -396,7 +565,6 @@ def phase_cli(rng):
     with tempfile.TemporaryDirectory() as tmp:
         src = os.path.join(tmp, "in")
         models = os.path.join(tmp, "models")
-        out = os.path.join(tmp, "out")
         os.makedirs(src)
         os.makedirs(models)
         shutil.copy(TRAINED, os.path.join(models, "cyclegan_epoch_200.pth"))
@@ -407,26 +575,39 @@ def phase_cli(rng):
             Image.fromarray(smooth_images(rng, 1, (w, h))[0]).save(
                 os.path.join(src, name), quality=92)
             sizes[name] = (w, h)
-        t0 = time.perf_counter()
-        rc = main(["--input_dir", src, "--output_dir", out, "--models_dir",
-                   models, "--mode", "cyclegan", "--direction", "photo2monet",
-                   "--bf16", "--batch_size", "8"])
-        elapsed = time.perf_counter() - t0
-        if rc != 0:
-            raise AssertionError(f"batch CLI exited {rc}")
-        done = 0
-        for name, size in sizes.items():
-            path = os.path.join(out, "cyclegan_photo2monet", name)
-            if os.path.exists(path):
-                with Image.open(path) as img:
-                    done += img.size == size
-        log(f"[cli] {done}/24 outputs at their original sizes; CLI wall "
-            f"{elapsed:.2f} s including model load")
-        if done != 24:
-            raise AssertionError(f"batch CLI wrote {done}/24 correct outputs")
+        for engine in ("packed", "auto", "nhwc"):
+            out = os.path.join(tmp, f"out_{engine}")
+            buf = io.StringIO()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(buf):
+                rc = main(["--input_dir", src, "--output_dir", out,
+                           "--models_dir", models, "--mode", "cyclegan",
+                           "--direction", "photo2monet", "--bf16",
+                           "--batch_size", "8", "--engine", engine])
+            elapsed = time.perf_counter() - t0
+            for line in buf.getvalue().splitlines():
+                log(f"    {line}")
+            if rc != 0:
+                raise AssertionError(f"batch CLI --engine {engine} exited {rc}")
+            if engine == "auto" and "engine=auto -> packed (batch 8" not in \
+                    buf.getvalue():
+                raise AssertionError("--engine auto did not take the packed "
+                                     "engine at batch 8")
+            done = 0
+            for name, size in sizes.items():
+                path = os.path.join(out, "cyclegan_photo2monet", name)
+                if os.path.exists(path):
+                    with Image.open(path) as img:
+                        done += img.size == size
+            log(f"[cli] --engine {engine}: {done}/24 outputs at their "
+                f"original sizes; CLI wall {elapsed:.2f} s including model "
+                f"load")
+            if done != 24:
+                raise AssertionError(f"batch CLI --engine {engine} wrote "
+                                     f"{done}/24 correct outputs")
 
 
-def phase_server(rng, dev):
+def phase_server(rng, dev, engine):
     import torch
     from PIL import Image
 
@@ -437,7 +618,8 @@ def phase_server(rng, dev):
 
     model = load_generator(TRAINED, device=dev)
     service = StyleTransferService(model, canvas=256, max_batch=8,
-                                   compute_dtype=torch.bfloat16, device=dev)
+                                   compute_dtype=torch.bfloat16, engine=engine,
+                                   device=dev)
     server = serve(service, host="127.0.0.1", port=0)
     thread = threading.Thread(target=server.serve_forever, daemon=True)
     thread.start()
@@ -468,10 +650,11 @@ def phase_server(rng, dev):
         with urllib.request.urlopen(f"http://{host}:{port}/stats",
                                     timeout=30) as r:
             stats = json.loads(r.read())
-        log(f"[server] {good}/4 replies 200 with a PNG of the right size; "
-            f"/stats requests {stats['requests']}, batches {stats['batches']}")
+        log(f"[server] engine {engine}: {good}/4 replies 200 with a PNG of "
+            f"the right size; /stats requests {stats['requests']}, batches "
+            f"{stats['batches']}")
         if good != 4 or stats["requests"] != 4:
-            raise AssertionError("server round trip failed")
+            raise AssertionError(f"server round trip failed (engine {engine})")
     finally:
         server.shutdown()
         server.server_close()
@@ -650,46 +833,60 @@ def main() -> int:
 
     phase_build()
     attn_err, attn_times = phase_attention(rng, dev)
+    packed_err, packed_times = phase_packed_attention(rng, dev)
+    relayout_err, relayout_ms = phase_relayout(rng, dev)
     block_err, block_times = phase_block(rng, dev)
     train_err, train_times = phase_train_kernels(rng, dev)
 
     counted = {"window_channel_attention": K.window_channel_attention,
                "fused_structural_block": K.fused_structural_block,
+               "packed_window_channel_attention":
+                   K.packed_window_channel_attention,
+               "window_relayout": K.window_relayout,
                "window_attention_mid_fwd": K.window_attention_mid_fwd,
                "window_attention_mid_bwd": K.window_attention_mid_bwd,
                "window_mhsa_fwd": K.window_mhsa_fwd,
                "window_mhsa_bwd": K.window_mhsa_bwd}
     counts = lambda: {n: k.launches for n, k in counted.items()}
+    serving_kernels = list(counted)[:4]   # the order of FORWARD_LAUNCHES
 
     K.reset_launch_counts()   # the serving path starts here
     rates = phase_generator(rng, dev, lambda: [
-        K.window_channel_attention.launches, K.fused_structural_block.launches])
+        counted[n].launches for n in serving_kernels])
     phase_cli(rng)
-    phase_server(rng, dev)
+    for engine in ENGINES:
+        phase_server(rng, dev, engine)
     serving = counts()        # ...and ends here
     log(f"[main path: serving] launches: {serving}")
-    if (min(serving["window_channel_attention"],
-            serving["fused_structural_block"]) == 0
-            or serving["window_channel_attention"]
-            != 4 * serving["fused_structural_block"]):
+    attention_calls = (serving["window_channel_attention"]
+                       + serving["packed_window_channel_attention"])
+    if (min(serving[n] for n in serving_kernels) == 0
+            or attention_calls != 4 * serving["fused_structural_block"]):
         raise AssertionError(f"serving path launches {serving}: expected "
-                             f"every kernel, 4 attention calls per block call")
+                             f"every kernel, 4 attention calls (NHWC + "
+                             f"packed) per block call")
 
     K.reset_launch_counts()   # the training path starts here
     step_ms = phase_train_step(rng, dev)
     phase_train_cli(rng, dev)
     training = counts()       # ...and ends here
     log(f"[main path: training] launches: {training}")
-    if min(training.values()) == 0:
+    if min(training[n] for n in TRAIN_LAUNCHES_PER_STEP) == 0:
         raise AssertionError(f"training path launches {training}: a kernel "
                              f"of the path never launched")
     launches = {n: serving[n] + training[n] for n in counted}
 
     # inference kernels: per forward at canvas 256, batch 8, bf16 (the four
-    # LocalAttention shapes; the block's one shape). Training kernels: fwd +
-    # bwd per generator forward and backward at 256^2, batch 8, bf16.
-    attn_ms = sum(attn_times[(256, s)][0] for s, _ in attention_shapes(256))
-    attn_plain = sum(attn_times[(256, s)][1] for s, _ in attention_shapes(256))
+    # LocalAttention shapes, NHWC or packed; the block's one shape; the five
+    # relayouts of a packed forward). Training kernels: fwd + bwd per
+    # generator forward and backward at 256^2, batch 8, bf16.
+    canvas = CANVASES[0]
+    attn_ms, attn_plain = (sum(attn_times[(canvas, s)][i]
+                               for s, _ in attention_shapes(canvas))
+                           for i in (0, 1))
+    pk_ms, pk_plain, pk_nhwc = (sum(packed_times[(canvas, s)][i]
+                                    for s, _ in attention_shapes(canvas))
+                                for i in (0, 1, 2))
     blk_ms, blk_plain = block_times[(BATCH, 64, 64, 64)]
     bf16 = torch.bfloat16
     per_fwd = {"down1/up1": 2, "down2": 1, "up2": 1}
@@ -703,9 +900,28 @@ def main() -> int:
          "source": f"{pkg}/window_channel_attention.cu",
          "replaces": f"{tpu}/window_attention.py:122; "
                      f"{tpu}/window_attention_grouped.py:148; "
-                     f"{tpu}/window_attention_v3.py:173",
+                     f"{tpu}/window_attention_v3.py:173; "
+                     f"{tpu}/window_attention_v4.py:101; "
+                     f"{tpu}/window_relayout.py:165; "
+                     f"scripts/ab_v6_attention.py:117",
          "launches": launches["window_channel_attention"],
          "max_abs_err": attn_err, "ms": attn_ms, "plain_ms": attn_plain},
+        {"name": "packed_window_channel_attention", "route": "cuda",
+         "source": f"{pkg}/window_channel_attention.cu",
+         "replaces": f"{tpu}/window_attention_grouped.py:148 "
+                     f"(packed_grouped_window_attention :168); "
+                     f"{tpu}/window_attention_v3.py:173 "
+                     f"(packed_window_attention_v3 :227); "
+                     f"{tpu}/packed_attention.py:138",
+         "launches": launches["packed_window_channel_attention"],
+         "max_abs_err": packed_err, "ms": pk_ms, "plain_ms": pk_plain},
+        {"name": "window_relayout", "route": "cuda",
+         "source": f"{pkg}/window_relayout.cu",
+         "replaces": f"{tpu}/window_relayout.py:81 (s2d_rows); "
+                     f"{tpu}/window_relayout.py:102 (d2s_rows)",
+         "launches": launches["window_relayout"],
+         "max_abs_err": relayout_err, "ms": relayout_ms[0],
+         "plain_ms": relayout_ms[1]},
         {"name": "fused_structural_block", "route": "cuda",
          "source": f"{pkg}/fused_structural_block.cu",
          "replaces": f"{tpu}/fused_transformer.py:169",
@@ -729,12 +945,16 @@ def main() -> int:
          "max_abs_err": train_err["mhsa"], "ms": mh_ms[0],
          "plain_ms": mh_ms[1]},
     ]}
-    log(f"[summary] {card}; bf16 program img/s: canvas 256 {rates[256]:.1f}, "
-        f"canvas 512 {rates[512]:.1f}; bf16 train step c16 256^2 batch "
-        f"{TRAIN_BATCH}: {step_ms:.2f} ms ({TRAIN_BATCH * 1000 / step_ms:.1f} "
-        f"image pairs/s). Inference kernel ms are per forward at canvas 256, "
-        f"batch {BATCH}, bf16; training kernel ms are forward + backward per "
-        f"generator at 256^2, batch {TRAIN_BATCH}, bf16")
+    rate_text = "; ".join(
+        f"canvas {c} batch {n} NHWC {r['nhwc']:.1f} packed {r['packed']:.1f}"
+        for (c, n), r in rates.items())
+    log(f"[summary] {card}; bf16 program img/s: {rate_text}; bf16 train step "
+        f"c16 256^2 batch {TRAIN_BATCH}: {step_ms:.2f} ms "
+        f"({TRAIN_BATCH * 1000 / step_ms:.1f} image pairs/s). Inference "
+        f"kernel ms are per forward at canvas {canvas}, batch {BATCH}, bf16 (the "
+        f"NHWC kernel at the packed attention's windows: {pk_nhwc:.4f} ms); "
+        f"training kernel ms are forward + backward per generator at 256^2, "
+        f"batch {TRAIN_BATCH}, bf16")
     print(json.dumps(report))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

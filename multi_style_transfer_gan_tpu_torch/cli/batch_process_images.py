@@ -41,8 +41,11 @@ def main(argv=None):
                         "device the hand-written kernels always run")
     p.add_argument("--engine", choices=["auto", "nhwc", "packed", "int8"],
                    default="auto",
-                   help="generator engine; auto and nhwc run the NHWC "
-                        "forward, packed and int8 are not ported")
+                   help="generator engine: nhwc, or packed (the "
+                        "space-to-depth engine, same math, canvas a multiple "
+                        "of 32); auto takes packed at a batch of 32 or less "
+                        "(after the small-folder shrink) and nhwc above; "
+                        "int8 is not ported")
     p.add_argument("--canvas", type=int, default=256,
                    help="working resolution (multiple of 32; the reference"
                         " fixes 256)")
@@ -85,7 +88,7 @@ def main(argv=None):
                   detail=args.detail, enhance_colors=args.enhance_colors,
                   smooth=args.smooth, batch_size=args.batch_size,
                   compute_dtype=torch.bfloat16 if args.bf16 else None,
-                  engine="nhwc" if args.engine == "auto" else args.engine,
+                  engine=args.engine,
                   canvas=args.canvas, device="cuda")
     return 0
 

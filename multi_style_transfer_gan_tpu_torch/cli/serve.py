@@ -42,7 +42,10 @@ def main(argv=None):
                    help="accepted for script compatibility: on a CUDA "
                         "device the hand-written kernels always run")
     p.add_argument("--engine", choices=["nhwc", "packed", "int8"],
-                   default="nhwc", help="packed and int8 are not ported")
+                   default="nhwc",
+                   help="generator engine: nhwc, or packed (the "
+                        "space-to-depth engine, same math, canvas a multiple "
+                        "of 32); int8 is not ported")
     p.add_argument("--precision", choices=["default", "high", "highest"],
                    default="default")
     args = p.parse_args(argv)

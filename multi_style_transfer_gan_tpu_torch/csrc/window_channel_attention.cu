@@ -1,11 +1,23 @@
 // Windowed channel attention (the EnhancedGenerator's LocalAttention),
-// inference forward, for Hopper (sm_90a).
+// inference forward, for Hopper (sm_90a), on two layouts of one op.
 //
-// Replaces the three TPU layouts of this one operation in the JAX package:
+// NHWC (window_channel_attention_launch) replaces the three TPU layouts of
+// the op on unpacked activations in the JAX package:
 //   ops/pallas/window_attention.py::fused_window_channel_attention (v1),
 //   ops/pallas/window_attention_grouped.py::grouped_window_channel_attention,
 //   ops/pallas/window_attention_v3.py::window_attention_v3.
-// Per 4x4 window of a (B, H, W, C) tensor, with P = 16 positions:
+// Packed rows (packed_window_channel_attention_launch) replace the three
+// kernels of the packed (space-to-depth) engine, whose activations hold one
+// 4x4 window per packed pixel, position major (lane p*C + c, p = 4*pi + pj):
+//   ops/pallas/window_attention_grouped.py::packed_grouped_window_attention,
+//   ops/pallas/window_attention_v3.py::packed_window_attention_v3,
+//   ops/pallas/packed_attention.py::packed_window_attention_pallas.
+// The two layouts differ only in where position p of window w lives
+// (`pixel_offset` below), so one kernel body serves both; the TPU kernels'
+// expanded block-diagonal weights, 0/1 rep/tile matrices and lane-stacked
+// groups were answers to 128-lane tiles and have no counterpart here.
+//
+// Per 4x4 window, with P = 16 positions:
 //   qkv   = x @ Wqkv^T + bqkv                       (P x 3C)
 //   qn,kn = zero-safe L2 normalize of q, k over C   (0 -> 0, else u / max(|u|, eps))
 //   A     = softmax_rows(qn^T kn)                   (C x C, max-subtracted)
@@ -62,18 +74,26 @@ struct Layout {
   static constexpr int TOTAL = G + NW * C * GS;
 };
 
-// Element offset of pixel `p` (0..15, row-major in the window) of window
-// `win`, windows numbered (b, window row, window column) row-major.
+// Row (in units of C elements) of position `p` (0..15, row-major in the
+// window) of window `win`, windows numbered (b, window row, window column)
+// row-major. NHWC: a pixel of a (B, H, W, C) tensor. Packed: the packed
+// tensor (B, H/4, W/4, 16*C) holds window `win` as one contiguous row of 16
+// positions, so the tile of a block is one contiguous span.
+template <bool kPacked>
 __device__ __forceinline__ long long pixel_offset(long long win, int p, int H, int W) {
-  const int nw = W / kWs, nh = H / kWs;
-  const long long b = win / ((long long)nh * nw);
-  const int rem = (int)(win - b * nh * nw);
-  const int row = (rem / nw) * kWs + p / kWs;
-  const int col = (rem % nw) * kWs + p % kWs;
-  return (b * H + row) * (long long)W + col;
+  if constexpr (kPacked) {
+    return win * kP + p;
+  } else {
+    const int nw = W / kWs, nh = H / kWs;
+    const long long b = win / ((long long)nh * nw);
+    const int rem = (int)(win - b * nh * nw);
+    const int row = (rem / nw) * kWs + p / kWs;
+    const int col = (rem % nw) * kWs + p % kWs;
+    return (b * H + row) * (long long)W + col;
+  }
 }
 
-template <typename T, int C>
+template <typename T, int C, bool kPacked>
 __global__ void __launch_bounds__(kThreads)
 window_channel_attention_kernel(const T* __restrict__ x, const T* __restrict__ wqkv,
                                 const T* __restrict__ bqkv, const T* __restrict__ wproj,
@@ -115,7 +135,7 @@ window_channel_attention_kernel(const T* __restrict__ x, const T* __restrict__ w
     for (int e = tid; e < L::ROWS * C; e += kThreads) {
       const int r = e / C, c = e % C;
       const long long win = win0 + r / kP;
-      sX[e] = win < n_windows ? to_f(x[pixel_offset(win, r % kP, H, W) * C + c]) : 0.f;
+      sX[e] = win < n_windows ? to_f(x[pixel_offset<kPacked>(win, r % kP, H, W) * C + c]) : 0.f;
     }
     __syncthreads();
 
@@ -216,21 +236,21 @@ window_channel_attention_kernel(const T* __restrict__ x, const T* __restrict__ w
         const int r = rg + RG * j;
         const long long win = win0 + r / kP;
         if (win < n_windows)
-          y[pixel_offset(win, r % kP, H, W) * C + og] = from_f<T>(acc[j] + sBp[og]);
+          y[pixel_offset<kPacked>(win, r % kP, H, W) * C + og] = from_f<T>(acc[j] + sBp[og]);
       }
     }
   }
 }
 
-template <typename T, int C>
+template <typename T, int C, bool kPacked>
 int launch(const void* x, const void* wqkv, const void* bqkv, const void* wproj,
-           const void* bproj, void* y, int B, int H, int W, float eps, cudaStream_t stream) {
+           const void* bproj, void* y, int H, int W, long long n_windows, float eps,
+           cudaStream_t stream) {
   using L = Layout<C>;
   const int smem = L::TOTAL * (int)sizeof(float);
-  auto kernel = window_channel_attention_kernel<T, C>;
+  auto kernel = window_channel_attention_kernel<T, C, kPacked>;
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
-  const long long n_windows = (long long)B * (H / kWs) * (W / kWs);
   const long long n_tiles = (n_windows + L::NW - 1) / L::NW;
   long long grid = (n_tiles + kTilesPerBlock - 1) / kTilesPerBlock;
   if (grid > INT_MAX) grid = INT_MAX;
@@ -241,36 +261,60 @@ int launch(const void* x, const void* wqkv, const void* bqkv, const void* wproj,
   return (int)cudaGetLastError();
 }
 
-template <typename T>
+template <bool kPacked, typename T>
 int launch_c(const void* x, const void* wqkv, const void* bqkv, const void* wproj,
-             const void* bproj, void* y, int B, int H, int W, int C, float eps,
-             cudaStream_t stream) {
+             const void* bproj, void* y, int H, int W, long long n_windows, int C,
+             float eps, cudaStream_t stream) {
   switch (C) {
-    case 16: return launch<T, 16>(x, wqkv, bqkv, wproj, bproj, y, B, H, W, eps, stream);
-    case 32: return launch<T, 32>(x, wqkv, bqkv, wproj, bproj, y, B, H, W, eps, stream);
-    case 64: return launch<T, 64>(x, wqkv, bqkv, wproj, bproj, y, B, H, W, eps, stream);
+    case 16: return launch<T, 16, kPacked>(x, wqkv, bqkv, wproj, bproj, y, H, W, n_windows, eps, stream);
+    case 32: return launch<T, 32, kPacked>(x, wqkv, bqkv, wproj, bproj, y, H, W, n_windows, eps, stream);
+    case 64: return launch<T, 64, kPacked>(x, wqkv, bqkv, wproj, bproj, y, H, W, n_windows, eps, stream);
     default: return (int)cudaErrorInvalidValue;
   }
+}
+
+template <bool kPacked>
+int launch_dtype(const void* x, const void* wqkv, const void* bqkv, const void* wproj,
+                 const void* bproj, void* y, int H, int W, long long n_windows, int C,
+                 int dtype, float eps, int device, void* stream) {
+  if (n_windows <= 0) return 0;
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == kF32)
+    return launch_c<kPacked, float>(x, wqkv, bqkv, wproj, bproj, y, H, W, n_windows, C, eps, s);
+  if (dtype == kBF16)
+    return launch_c<kPacked, __nv_bfloat16>(x, wqkv, bqkv, wproj, bproj, y, H, W, n_windows, C,
+                                            eps, s);
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
 }  // namespace mstgan
 
-// Plain C entry point (loaded with ctypes). x and y are (B, H, W, C)
-// contiguous with H % 4 == W % 4 == 0; wqkv (3C, C), bqkv (3C), wproj (C, C),
-// bproj (C), all of one type: dtype 0 = fp32, 1 = bf16. Launches on
-// `stream` and returns cudaGetLastError() (0 on success).
+// Plain C entry points (loaded with ctypes). Weights: wqkv (3C, C), bqkv
+// (3C), wproj (C, C), bproj (C), in the input's type: dtype 0 = fp32,
+// 1 = bf16; C in {16, 32, 64}. Each launches on `stream` and returns
+// cudaGetLastError() (0 on success).
+//
+// x and y (B, H, W, C) contiguous, H % 4 == W % 4 == 0.
 extern "C" int window_channel_attention_launch(const void* x, const void* wqkv,
                                                const void* bqkv, const void* wproj,
                                                const void* bproj, void* y, int B, int H,
                                                int W, int C, int dtype, float eps,
                                                int device, void* stream) {
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return (int)err;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == mstgan::kF32)
-    return mstgan::launch_c<float>(x, wqkv, bqkv, wproj, bproj, y, B, H, W, C, eps, s);
-  if (dtype == mstgan::kBF16)
-    return mstgan::launch_c<__nv_bfloat16>(x, wqkv, bqkv, wproj, bproj, y, B, H, W, C, eps, s);
-  return (int)cudaErrorInvalidValue;
+  const long long n_windows = (long long)B * (H / mstgan::kWs) * (W / mstgan::kWs);
+  return mstgan::launch_dtype<false>(x, wqkv, bqkv, wproj, bproj, y, H, W, n_windows, C, dtype,
+                                     eps, device, stream);
+}
+
+// x and y packed (B, Hp, Wp, 16*C) contiguous: one window per packed pixel.
+extern "C" int packed_window_channel_attention_launch(const void* x, const void* wqkv,
+                                                      const void* bqkv, const void* wproj,
+                                                      const void* bproj, void* y, int B,
+                                                      int Hp, int Wp, int C, int dtype,
+                                                      float eps, int device, void* stream) {
+  const long long n_windows = (long long)B * Hp * Wp;
+  return mstgan::launch_dtype<true>(x, wqkv, bqkv, wproj, bproj, y, Hp * mstgan::kWs,
+                                    Wp * mstgan::kWs, n_windows, C, dtype, eps, device, stream);
 }

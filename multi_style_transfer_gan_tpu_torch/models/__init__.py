@@ -7,13 +7,19 @@ from .enhanced_generator import (
     num_transformer_blocks_of,
 )
 from .init_utils import kaiming_conv, torch_default_conv, torch_default_linear
+from .packed_generator import (
+    PackedEnhancedGenerator, pack_enhanced_generator_params,
+    packed_enhanced_generator_apply,
+)
 from .structural_transformer import (
     StructuralTransformerBlock, default_num_heads,
 )
 
 __all__ = [
     "EnhancedDiscriminator", "EnhancedGenerator", "LocalAttention",
-    "MultiScaleBlock", "SNConv2d", "StructuralTransformerBlock",
-    "channels_of", "default_num_heads", "kaiming_conv",
-    "num_transformer_blocks_of", "torch_default_conv", "torch_default_linear",
+    "MultiScaleBlock", "PackedEnhancedGenerator", "SNConv2d",
+    "StructuralTransformerBlock", "channels_of", "default_num_heads",
+    "kaiming_conv", "num_transformer_blocks_of", "pack_enhanced_generator_params",
+    "packed_enhanced_generator_apply", "torch_default_conv",
+    "torch_default_linear",
 ]

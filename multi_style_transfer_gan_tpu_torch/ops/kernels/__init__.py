@@ -9,6 +9,9 @@ in forward/backward pairs behind one ``torch.autograd.Function`` each.
 """
 
 from .fused_transformer import fused_structural_block, structural_block_plain
+from .packed_window_attention import (
+    packed_window_channel_attention, packed_window_channel_attention_plain,
+)
 from .window_attention import (
     window_channel_attention, window_channel_attention_plain,
 )
@@ -21,8 +24,12 @@ from .window_mhsa_train import (
     window_mhsa_backward_plain, window_mhsa_bwd, window_mhsa_fwd,
     window_mhsa_plain, window_mhsa_train,
 )
+from .window_relayout import (
+    depth_to_space_plain, space_to_depth_plain, window_relayout,
+)
 
 KERNELS = (window_channel_attention, fused_structural_block,
+           packed_window_channel_attention, window_relayout,
            window_attention_mid_fwd, window_attention_mid_bwd,
            window_mhsa_fwd, window_mhsa_bwd)
 
@@ -33,11 +40,12 @@ def reset_launch_counts() -> None:
 
 
 __all__ = [
-    "KERNELS", "fused_structural_block", "reset_launch_counts",
-    "structural_block_plain", "window_attention_mid_backward_plain",
-    "window_attention_mid_bwd", "window_attention_mid_fwd",
+    "KERNELS", "depth_to_space_plain", "fused_structural_block",
+    "packed_window_channel_attention", "packed_window_channel_attention_plain",
+    "reset_launch_counts", "space_to_depth_plain", "structural_block_plain",
+    "window_attention_mid_backward_plain", "window_attention_mid_bwd", "window_attention_mid_fwd",
     "window_attention_mid_plain", "window_channel_attention",
     "window_channel_attention_plain", "window_channel_attention_train",
     "window_mhsa_backward_plain", "window_mhsa_bwd", "window_mhsa_fwd",
-    "window_mhsa_plain", "window_mhsa_train",
+    "window_mhsa_plain", "window_mhsa_train", "window_relayout",
 ]

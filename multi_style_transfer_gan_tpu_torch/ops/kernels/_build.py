@@ -33,6 +33,12 @@ SIGNATURES = {
     "window_channel_attention": (
         "window_channel_attention", "window_channel_attention_launch",
         [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I, _P]),
+    "packed_window_channel_attention": (
+        "window_channel_attention", "packed_window_channel_attention_launch",
+        [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I, _P]),
+    "window_relayout": (
+        "window_relayout", "window_relayout_launch",
+        [_P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P]),
     "fused_structural_block": (
         "fused_structural_block", "fused_structural_block_launch",
         [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I, _P]),

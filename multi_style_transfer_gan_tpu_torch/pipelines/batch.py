@@ -5,7 +5,10 @@
   ``multi_style_transfer_gan_tpu.native`` (framework-free ctypes) where it
   is built, PIL LANCZOS (the reference recipe) otherwise.
 - One uint8 -> uint8 program per configuration runs normalize ->
-  generator -> ``from_model_range`` -> round and clip on the device.
+  generator -> ``from_model_range`` -> round and clip on the device, with
+  one of two engines of the same math: the NHWC ``EnhancedGenerator`` or
+  the packed (space-to-depth) ``PackedEnhancedGenerator``; ``auto`` picks
+  one by ``select_engine``, as the JAX package does.
 - A bounded prefetch thread decodes and copies the next batches to the
   device while the current one runs; a one-worker fetch pool copies
   results back in order and a save pool encodes them.
@@ -33,6 +36,7 @@ from multi_style_transfer_gan_tpu import native as _native
 
 from ..data import list_images
 from ..ops import from_model_range, restore_aspect, to_model_range
+from ..models import PackedEnhancedGenerator
 from .model_loader import LoadedModel
 
 CANVAS = 256
@@ -102,6 +106,9 @@ def _decode_batch(paths, canvas, num_threads):
 # device side: the uint8 -> uint8 program
 # ---------------------------------------------------------------------------
 
+ENGINES = ("nhwc", "packed")
+
+
 def make_batch_fn(model: LoadedModel, mode: str = "cyclegan",
                   local_style_mode: str = "enhanced", strength: float = 0.8,
                   detail: float = 0.7, enhance_colors: bool = True,
@@ -115,13 +122,19 @@ def make_batch_fn(model: LoadedModel, mode: str = "cyclegan",
 
     compute_dtype: generator dtype (``torch.bfloat16`` is the fast path;
     None = fp32). The program runs its own copy of the module in that
-    dtype. ``detail``, ``enhance_colors`` and ``smooth`` belong to the
+    dtype. engine: 'nhwc' runs the ``EnhancedGenerator`` as it is; 'packed'
+    the space-to-depth engine (``PackedEnhancedGenerator``, the same math,
+    H and W multiples of 32), repacked from the model's weights here.
+    ``detail``, ``enhance_colors`` and ``smooth`` belong to the
     enhanced/advanced post chains, which are not ported.
     """
-    if engine != "nhwc":
+    if engine == "int8":
         raise NotImplementedError(
-            f"engine={engine!r} is not ported; only 'nhwc' runs (ROADMAP.md "
-            f"queue 1 item 13)")
+            "engine='int8' (the quantized engine) is not ported (ROADMAP.md "
+            "queue 1 item 13)")
+    if engine not in ENGINES:
+        raise ValueError(f"engine must be one of {ENGINES}, got {engine!r} "
+                         f"(batch_process resolves 'auto' with select_engine)")
     if mode not in MODES:
         raise ValueError(f"mode must be one of {MODES}, got {mode!r}")
     if mode == "local_style" and local_style_mode != "simple":
@@ -134,7 +147,11 @@ def make_batch_fn(model: LoadedModel, mode: str = "cyclegan",
             f"queue 1 item 4)")
     device = torch.device(device)
     dtype = compute_dtype or torch.float32
-    module = copy.deepcopy(model.module).to(device=device, dtype=dtype)
+    if engine == "packed":
+        module = PackedEnhancedGenerator(model.module)
+    else:
+        module = copy.deepcopy(model.module)
+    module = module.to(device=device, dtype=dtype)
 
     @torch.inference_mode()
     def run(batch_u8):
@@ -150,6 +167,26 @@ def make_batch_fn(model: LoadedModel, mode: str = "cyclegan",
 
 
 # ---------------------------------------------------------------------------
+# engine dispatch
+# ---------------------------------------------------------------------------
+
+def select_engine(batch_size: int, canvas: int,
+                  kind: str = "enhanced") -> str:
+    """(batch, canvas, model kind) -> engine, the JAX package's rule as it
+    stands (``pipelines/batch.py::select_engine``): the enhanced generator
+    at a batch of 32 or less takes the packed engine, every other case
+    NHWC; the plain generator has one engine. ``canvas`` does not enter
+    the rule yet: the rule was measured on another device, and ROADMAP.md
+    queues its refit from H100 measurements. Dispatch only: both engines
+    compute the same math."""
+    if kind != "enhanced":
+        return "nhwc"
+    if batch_size <= 32:
+        return "packed"
+    return "nhwc"
+
+
+# ---------------------------------------------------------------------------
 # orchestration
 # ---------------------------------------------------------------------------
 
@@ -159,20 +196,21 @@ def batch_process(model: LoadedModel, input_dir, output_dir, *,
                   detail: float = 0.7, enhance_colors: bool = True,
                   smooth: bool = True, batch_size: int = 64,
                   decode_workers: int = 8, compute_dtype=None,
-                  engine: str = "nhwc", canvas: int = CANVAS,
+                  engine: str = "auto", canvas: int = CANVAS,
                   device) -> dict:
     """Process every image in ``input_dir`` on ``device``; returns a stats
     dict.
 
     Outputs go to ``{output_dir}/cyclegan_{direction}/name`` or
     ``{output_dir}/local_style_{mode}_{direction}/name``, as the reference
-    lays them out. canvas: working resolution, a multiple of 32.
+    lays them out. canvas: working resolution, a multiple of 32. engine:
+    'auto' (the default, as in the JAX package) resolves through
+    :func:`select_engine` on the final batch size, after the small-folder
+    shrink; 'nhwc' or 'packed' force one (see make_batch_fn). A build or
+    launch failure of either raises: there is no fallback engine.
     """
     if canvas % 32:
         raise ValueError(f"canvas must be a multiple of 32, got {canvas}")
-    run_fn = make_batch_fn(model, mode, local_style_mode, strength, detail,
-                           enhance_colors, smooth, compute_dtype=compute_dtype,
-                           engine=engine, device=device)
     files = list_images(input_dir)
     if not files:
         print(f"error: no images found in {input_dir}")
@@ -190,6 +228,13 @@ def batch_process(model: LoadedModel, input_dir, output_dir, *,
     while pow2 < min(batch_size, len(files)):
         pow2 *= 2
     batch_size = min(batch_size, pow2)
+    if engine == "auto":
+        engine = select_engine(batch_size, canvas, model.kind)
+        print(f"engine=auto -> {engine} (batch {batch_size}, "
+              f"canvas {canvas})")
+    run_fn = make_batch_fn(model, mode, local_style_mode, strength, detail,
+                           enhance_colors, smooth, compute_dtype=compute_dtype,
+                           engine=engine, device=device)
     device = torch.device(device)
     use_native = _native.available()
     n_failed = 0

@@ -55,7 +55,6 @@ def test_batch_fn_matches_jax_uint8(model, mode, local_style_mode):
 @pytest.mark.parametrize("kwargs,match", [
     (dict(mode="local_style", local_style_mode="enhanced"), "post chain"),
     (dict(mode="local_style", local_style_mode="advanced"), "post chain"),
-    (dict(engine="packed"), "not ported"),
     (dict(engine="int8"), "not ported"),
 ])
 def test_batch_fn_raises_for_what_is_not_ported(model, kwargs, match):
