@@ -19,22 +19,40 @@ hand-written kernel on the way:
 5. the training kernels (channel-attention mid, window-MHSA mid), forward
    and backward, kernel vs plain at every training shape, one all-zero
    window each;
-6. serving path: the uint8 -> uint8 stylize program on the trained weights
+6. the stage kernels of the channel attention (copy, qkv, norm, logits,
+   softmax, full), each vs its plain version at the three canvas-256
+   attention shapes (fp32 with TF32 off, and bf16) and on the ablation
+   tool's own bf16 inputs at each shape the ablation path gives them,
+   ``full`` bit-equal to the production kernel;
+7. serving path: the uint8 -> uint8 stylize program on the trained weights
    with each engine (fp32 on the card vs the plain path on the CPU, packed
    vs NHWC on the card, launch counts per forward, bf16 img/s of both
    engines at canvas 256 and 512, batch 16 and 64), the batch CLI on 24
    JPEGs of mixed sizes with ``--engine packed``, ``auto`` and ``nhwc``,
    the HTTP server answering 4 requests with each engine;
-7. training path: the bf16 train step at c16, 256^2, batch 8 (launches per
+8. training path: the bf16 train step at c16, 256^2, batch 8 (launches per
    step, finite losses, moved G, D and u, ms/step), one fp32 step on the
    card vs the CPU, and the train CLI writing, resuming and producing a
-   generator that stylizes.
+   generator that stylizes;
+9. ablation path: the stage-ablation tool
+   (``python -m multi_style_transfer_gan_tpu_torch.tools.attention_ablation``)
+   at the TPU script's default shape (96 x 512^2, C = 16) and at the
+   canvas-256 batch-64 shapes of C = 32 and 64, its tables printed.
 
 Every phase raises on failure. The last line is the result JSON; the line
-before it lists each kernel with its launches on the two main paths
-(launch counts are reset just before each path and read just after), its
-largest fp32 deviation from the plain version, and its time beside the
-plain version's. Exits nonzero without a CUDA device.
+before it lists each kernel with its launches on the three paths (launch
+counts are reset just before each path and read just after), its largest
+fp32 deviation from the plain version, its time beside the plain
+version's, its bound (the larger of its bytes over the card's memory rate
+and its bf16 matrix-product flops over the tensor-core peak) and, where
+one PyTorch call computes the same function, that call's time
+(``library_ms``, else null; for the channel-attention rows also
+``sdpa_mid_ms``, the Gram -> softmax -> apply part alone through
+``scaled_dot_product_attention``, for information). Every library time is
+taken in turns with its kernel (CUDA events); for the two rows with a
+library call, kernel and library are also read in ``torch.profiler``
+device time, in turns (``device_ms``, ``library_device_ms``). Exits
+nonzero without a CUDA device.
 """
 
 from __future__ import annotations
@@ -91,6 +109,16 @@ U8_MAX_DIFF, U8_MAX_SHARE = 1, 0.01
 # bf16 vs fp32 program on the card, mean |d| in uint8 levels (a sanity
 # bound: a broken kernel lands far above it).
 BF16_MEAN_LSB = 4.0
+# published H100 SXM peaks (NVIDIA's data sheet): device memory rate and the
+# dense bf16 tensor-core rate. A kernel's bound is the larger of its bytes
+# (each input read once, each output written once) over the first and its
+# matrix-product flops over the second.
+HBM_BYTES_PER_S = 3.35e12
+BF16_FLOPS_PER_S = 989e12
+BF16_BYTES = 2
+# the ablation path: the tool's runs at (batch, hw, C): the TPU script's
+# default shape, then the canvas-256 batch-64 shapes of C = 32 and 64
+ABLATION_SHAPES = ((96, 512, 16), (64, 128, 32), (64, 64, 64))
 
 
 def log(*a):
@@ -120,11 +148,130 @@ def time_ms(fn, iters=20, warmup=3) -> float:
     return start.elapsed_time(end) / iters
 
 
+def time_turns(*fns, timer=time_ms):
+    """The mean ``timer`` time of each of ``fns``, taken in turns: in order,
+    then in reverse (a, b, c, c, b, a), so that a drift of the card or the
+    host falls on each alike."""
+    order = list(fns) + list(fns)[::-1]
+    ms = [timer(fn) for fn in order]
+    return [(ms[i] + ms[-1 - i]) / 2 for i in range(len(fns))]
+
+
 def time_pair(kernel_fn, plain_fn):
     """Kernel and plain times taken in turns (plain, kernel, kernel, plain)."""
-    p1, k1, k2, p2 = (time_ms(plain_fn), time_ms(kernel_fn),
-                      time_ms(kernel_fn), time_ms(plain_fn))
-    return (k1 + k2) / 2, (p1 + p2) / 2
+    p_ms, k_ms = time_turns(plain_fn, kernel_fn)
+    return k_ms, p_ms
+
+
+def device_ms(fn, iters=20, warmup=3) -> float:
+    """Device time of one call: the device events' own time in
+    ``torch.profiler`` (``self_device_time_total`` of the CUDA entries of
+    ``key_averages()``) over ``iters`` calls, so that host gaps between
+    launches drop out."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(e.self_device_time_total for e in prof.key_averages()
+             if e.device_type == DeviceType.CUDA
+             and not getattr(e, "is_user_annotation", False))
+    if us <= 0:
+        raise AssertionError("torch.profiler recorded no device time")
+    return us / iters / 1e3
+
+
+def bound(moved: float, flops: float):
+    """(bound_ms, bound_by) of work that moves ``moved`` bytes and does
+    ``flops`` bf16 matrix-product flops."""
+    t_bytes, t_ops = moved / HBM_BYTES_PER_S, flops / BF16_FLOPS_PER_S
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
+                                       else "operations")
+
+
+def attention_work(shapes):
+    """Bytes and flops of the channel attention on NHWC ``shapes`` in bf16:
+    x read and y written once, the four weights read once; 12 C^2 flops of
+    products per pixel (qkv 6, Gram 2, apply 2, proj 2)."""
+    moved = flops = 0
+    for B, H, W, C in shapes:
+        px = B * H * W
+        moved += BF16_BYTES * (2 * px * C + 4 * C * C + 4 * C)
+        flops += 12 * C * C * px
+    return moved, flops
+
+
+def block_work(shape):
+    """Bytes and flops of the fused block on a (B, H, W, C) grid in bf16:
+    x and struct read, y written, FiLM gamma and beta (fp32) and the
+    weights read once; per token 24 C^2 flops of products (qkv 6, proj 2,
+    MLP 16) and 4 * 64 * C in the 8x8-window scores and their apply."""
+    from multi_style_transfer_gan_tpu_torch.ops.kernels.fused_transformer import (
+        weight_shapes,
+    )
+
+    B, H, W, C = shape
+    tokens = B * H * W
+    weights = sum(int(np.prod(s)) for s in weight_shapes(C).values())
+    moved = BF16_BYTES * (3 * tokens * C + weights) + 4 * 2 * B * C
+    return moved, tokens * (24 * C * C + 4 * 64 * C)
+
+
+def train_mid_work(shapes):
+    """Bytes and flops of the channel-attention mid, forward + backward, on
+    qkv grids (B, H, W, 3C) in bf16: the forward reads qkv and writes out
+    (4C per pixel), the backward reads qkv and d_out and writes d_qkv (7C);
+    products 4 C^2 (Gram, apply) + 10 C^2 (Gram again, dA, dv, dqn, dkn)."""
+    moved = flops = 0
+    for B, H, W, C3 in shapes:
+        px, C = B * H * W, C3 // 3
+        moved += BF16_BYTES * 11 * C * px
+        flops += 14 * C * C * px
+    return moved, flops
+
+
+def mhsa_work(shape, heads=2, window=8):
+    """The same for the window-MHSA mid on a (B, H, W, 3C) qkv grid: 11C
+    values per pixel; per token 4 * 64 * C flops forward (scores, apply),
+    10 * 64 * C backward (scores again, dP, dV, dQ, dK)."""
+    B, H, W, C3 = shape
+    px, C = B * H * W, C3 // 3
+    return BF16_BYTES * 11 * C * px, 14 * window * window * C * px
+
+
+def sdpa_call(shape, scale, dev, backward=False):
+    """A no-argument call of ``scaled_dot_product_attention`` on bf16 (N,
+    heads, L, E) = ``shape`` at ``scale``, with ``backward`` forward +
+    gradient; the library yardstick, timed here and never called by the
+    port."""
+    import torch
+    import torch.nn.functional as F
+
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    q, k, v, d_out = (torch.randn(shape, generator=gen, device=dev,
+                                  dtype=torch.bfloat16) for _ in range(4))
+    if not backward:
+        return lambda: F.scaled_dot_product_attention(q, k, v, scale=scale)
+    for t in (q, k, v):
+        t.requires_grad_(True)
+    return lambda: torch.autograd.grad(
+        F.scaled_dot_product_attention(q, k, v, scale=scale), (q, k, v),
+        d_out)
+
+
+def sdpa_mid_call(shape, dev, backward=False):
+    """SDPA on the channel-attention mid of the NHWC (B, H, W, C) ``shape``:
+    per window (C tokens of 16 positions) Gram -> softmax -> apply at scale
+    1.0, without the normalize and the two 1x1 products, so a part of the
+    op and no yardstick of the whole."""
+    B, H, W, C = shape
+    return sdpa_call((B * H * W // 16, 1, C, 16), 1.0, dev, backward)
 
 
 def compare(got, ref, dtype):
@@ -198,13 +345,17 @@ def phase_attention(rng, dev):
                 # the all-zero window: finite, and inside the same tolerance
                 zero_ok = bool(torch.isfinite(got[0, :4, :4]).all())
                 ok = ok and bool(torch.isfinite(got).all()) and zero_ok
-                k_ms, p_ms = time_pair(
+                # bf16: the SDPA mid in turns with kernel and plain
+                k_ms, p_ms, *s_ms = time_turns(
                     lambda: window_channel_attention(*args),
-                    lambda: window_channel_attention_plain(*args))
+                    lambda: window_channel_attention_plain(*args),
+                    *([sdpa_mid_call(shape, dev)] if dtype == torch.bfloat16
+                      else []))
                 log(f"[attention] canvas {canvas} {stage} {shape} "
                     f"{str(dtype)[6:]}: max|d| {err:.3e} zero-window "
                     f"{'ok' if zero_ok else 'BAD'}, kernel {k_ms:.4f} ms, "
-                    f"plain {p_ms:.4f} ms")
+                    f"plain {p_ms:.4f} ms"
+                    + "".join(f", SDPA mid {t:.4f} ms" for t in s_ms))
                 if not ok:
                     raise AssertionError(f"window_channel_attention {shape} "
                                          f"{dtype}: max|d| {err:.3e} outside "
@@ -212,7 +363,8 @@ def phase_attention(rng, dev):
                 if dtype == torch.float32:
                     worst = max(worst, err)
                 else:
-                    times[(canvas, stage)] = seen[shape] = (k_ms, p_ms)
+                    times[(canvas, stage)] = seen[shape] = (k_ms, p_ms,
+                                                            s_ms[0])
     return worst, times
 
 
@@ -293,7 +445,9 @@ def relayout_cases(canvas):
 def phase_relayout(rng, dev):
     """The relayout kernel vs the plain reshape + permute, both directions,
     bit-exact; returns the largest |d| (0) and the ms of the five relayouts
-    of one forward at the first canvas (kernel, plain), bf16."""
+    of one forward at the first canvas, bf16: kernel, plain and library
+    (``.contiguous()`` of the permuted window view) in CUDA-event time taken
+    in turns, then kernel and library in profiler device time in turns."""
     import torch
 
     from multi_style_transfer_gan_tpu_torch.ops.kernels import (
@@ -304,34 +458,41 @@ def phase_relayout(rng, dev):
     case_ms = {}
     cases = relayout_cases(CANVASES[0])
     for shape in sorted({s for _, s, _ in cases}):
+        B, H, W, C = shape
         host = rng.standard_normal(shape).astype(np.float32)
         for dtype in (torch.float32, torch.bfloat16):
             x = torch.from_numpy(host).to(dev, dtype)
             rows = space_to_depth_plain(x, 4).contiguous()
-            for direction, src, plain in (
-                    ("s2d", x, lambda t: space_to_depth_plain(t, 4).contiguous()),
-                    ("d2s", rows, lambda t: depth_to_space_plain(t, 4).contiguous())):
+            for direction, src, plain, view in (
+                    ("s2d", x, lambda t: space_to_depth_plain(t, 4).contiguous(),
+                     x.reshape(B, H // 4, 4, W // 4, 4, C)),
+                    ("d2s", rows, lambda t: depth_to_space_plain(t, 4).contiguous(),
+                     rows.reshape(B, H // 4, W // 4, 4, 4, C))):
                 inverse = direction == "d2s"
                 got = window_relayout(src, inverse=inverse)
                 ref = plain(src)
                 torch.cuda.synchronize()
                 err = (got.float() - ref.float()).abs().max().item()
                 exact = torch.equal(got, ref)
-                k_ms, p_ms = time_pair(
-                    lambda: window_relayout(src, inverse=inverse),
-                    lambda: plain(src))
+                kernel = lambda: window_relayout(src, inverse=inverse)
+                library = view.permute(0, 1, 3, 2, 4, 5).contiguous
+                if dtype == torch.bfloat16:
+                    ms = time_turns(kernel, lambda: plain(src), library)
+                    ms += time_turns(kernel, library, timer=device_ms)
+                    case_ms[(shape, direction)] = ms
+                else:
+                    ms = time_pair(kernel, lambda: plain(src))
                 log(f"[relayout] {direction} {shape} {str(dtype)[6:]}: "
                     f"{'bit-exact' if exact else f'DIFFERS max|d| {err:.3e}'}, "
-                    f"kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms")
+                    + ", ".join(f"{n} {t:.4f} ms" for n, t in zip(
+                        ("kernel", "plain", "library", "kernel device",
+                         "library device"), ms)))
                 if not exact:
                     raise AssertionError(f"window_relayout {direction} {shape} "
                                          f"{dtype} is not bit-exact")
                 worst = max(worst, err)
-                if dtype == torch.bfloat16:
-                    case_ms[(shape, direction)] = (k_ms, p_ms)
-    per_fwd = [sum(case_ms[(shape, d)][i] for _, shape, d in cases)
-               for i in (0, 1)]
-    return worst, tuple(per_fwd)
+    return worst, [sum(case_ms[(shape, d)][i] for _, shape, d in cases)
+                   for i in range(5)]
 
 
 def phase_block(rng, dev):
@@ -396,7 +557,11 @@ def train_kernel_cases():
 
 def phase_train_kernels(rng, dev):
     """Forward and backward of both training kernels vs their plain versions,
-    fp32 (TF32 off) and bf16, one all-zero window in every input."""
+    fp32 (TF32 off) and bf16, one all-zero window in every input. In bf16
+    the SDPA yardstick (fwd + bwd) is timed in turns with kernel and plain:
+    the channel-attention mid on (windows, 1, C, 16), information only; the
+    window-MHSA mid's library call on (windows, 2 heads, 64, C/2), in CUDA
+    events and then, with the kernel in turns, in profiler device time."""
     import torch
 
     from multi_style_transfer_gan_tpu_torch.ops import kernels as K
@@ -431,18 +596,162 @@ def phase_train_kernels(rng, dev):
                 worst[name] = max(worst[name], err, derr)
             finite = bool(torch.isfinite(got).all() and torch.isfinite(dgot).all())
             zero_ok = bool(torch.isfinite(dgot[0, :win, :win]).all())
-            k_ms, p_ms = time_pair(
-                lambda: (fwd(qkv, *extra), bwd(qkv, d_out, *extra)),
-                lambda: (fwd_plain(qkv, *extra), bwd_plain(qkv, d_out, *extra)))
-            times[(name, stage, dtype)] = (k_ms, p_ms)
+            kernel = lambda: (fwd(qkv, *extra), bwd(qkv, d_out, *extra))
+            plain = lambda: (fwd_plain(qkv, *extra),
+                             bwd_plain(qkv, d_out, *extra))
+            if dtype == torch.float32:
+                ms = time_pair(kernel, plain)
+            else:
+                B, H, W, C3 = shape
+                if name == "attention":
+                    sdpa = sdpa_mid_call((B, H, W, C3 // 3), dev, backward=True)
+                else:
+                    hd = C3 // 3 // 2
+                    sdpa = sdpa_call((B * (H // 8) * (W // 8), 2, 64, hd),
+                                     hd ** -0.5, dev, backward=True)
+                ms = time_turns(kernel, plain, sdpa)
+                if name == "mhsa":
+                    ms += time_turns(kernel, sdpa, timer=device_ms)
+            times[(name, stage, dtype)] = ms
             log(f"[train kernels] {name} {stage} qkv {shape} {str(dtype)[6:]}: "
                 f"fwd max|d| {err:.3e}, bwd max|d| {derr:.3e}, zero window "
-                f"{'finite' if zero_ok else 'BAD'}; fwd+bwd kernel {k_ms:.4f} ms, "
-                f"plain {p_ms:.4f} ms")
+                f"{'finite' if zero_ok else 'BAD'}; fwd+bwd "
+                + ", ".join(f"{n} {t:.4f} ms" for n, t in zip(
+                    ("kernel", "plain", "SDPA", "kernel device",
+                     "SDPA device"), ms)))
             if not (ok and dok and finite and zero_ok):
                 raise AssertionError(f"{name} train kernel {shape} {dtype}: "
                                      f"outside tolerance or not finite")
     return worst, times
+
+
+def phase_stages(rng, dev):
+    """Each stage kernel of the channel attention vs its plain version at
+    the three distinct canvas-256 attention shapes, fp32 (TF32 off) and
+    bf16, one all-zero window each; ``full`` bit-equal to
+    ``window_channel_attention`` on the same inputs. Returns the largest
+    fp32 |d| and {(shape, stage): bf16 kernel ms}, with the plain full's
+    ms under (shape, "full plain")."""
+    import torch
+
+    from multi_style_transfer_gan_tpu_torch.ops.kernels import (
+        STAGES, window_channel_attention, window_channel_attention_stage,
+        window_channel_attention_stage_plain,
+    )
+
+    worst = 0.0
+    times = {}
+    for shape in dict.fromkeys(s for _, s in attention_shapes(CANVASES[0])):
+        C = shape[-1]
+        x = rng.standard_normal(shape).astype(np.float32)
+        x[0, :4, :4] = 0.0  # one all-zero window: zero-safe normalize
+        ws = [rng.standard_normal((3 * C, C)) * 0.1,
+              rng.standard_normal(3 * C),
+              rng.standard_normal((C, C)) * 0.1,
+              rng.standard_normal(C)]
+        for dtype in (torch.float32, torch.bfloat16):
+            args = [torch.from_numpy(a.astype(np.float32)).to(dev, dtype)
+                    for a in [x] + ws]
+            for stage in STAGES:
+                got = window_channel_attention_stage(*args, stage=stage)
+                ref = window_channel_attention_stage_plain(*args, stage=stage)
+                torch.cuda.synchronize()
+                err, bf16_ok = compare(got, ref, dtype)
+                ok = (err <= FP32_TOL if dtype == torch.float32 else bf16_ok)
+                ok = ok and bool(torch.isfinite(got).all())
+                line = (f"[stages] {shape} {str(dtype)[6:]} {stage}: max|d| "
+                        f"{err:.3e}")
+                if stage == "full":
+                    exact = torch.equal(got, window_channel_attention(*args))
+                    ok = ok and exact
+                    line += (", bit-equal to window_channel_attention" if exact
+                             else ", DIFFERS from window_channel_attention")
+                if dtype == torch.bfloat16:
+                    times[(shape, stage)] = time_ms(
+                        lambda: window_channel_attention_stage(*args,
+                                                               stage=stage))
+                    line += f", kernel {times[(shape, stage)]:.4f} ms"
+                log(line)
+                if not ok:
+                    raise AssertionError(f"stage {stage} {shape} {dtype}: "
+                                         f"max|d| {err:.3e} outside tolerance, "
+                                         f"not finite or not bit-equal")
+                if dtype == torch.float32:
+                    worst = max(worst, err)
+            if dtype == torch.bfloat16:
+                times[(shape, "full plain")] = time_ms(
+                    lambda: window_channel_attention_stage_plain(
+                        *args, stage="full"))
+    return worst, times
+
+
+def phase_ablation_inputs(dev):
+    """Each stage kernel vs its plain version on the ablation tool's own
+    inputs (``ablation_inputs``, bf16) at every ABLATION_SHAPES entry, the
+    shapes the ablation path gives it; ``full`` bit-equal to
+    ``window_channel_attention``. Returns the largest |d|."""
+    import torch
+
+    from multi_style_transfer_gan_tpu_torch.ops.kernels import (
+        STAGES, window_channel_attention, window_channel_attention_stage,
+        window_channel_attention_stage_plain,
+    )
+    from multi_style_transfer_gan_tpu_torch.tools.attention_ablation import (
+        ablation_inputs,
+    )
+
+    worst = 0.0
+    with torch.inference_mode():
+        for B, HW, C in ABLATION_SHAPES:
+            x, weights = ablation_inputs(B, HW, C, dev)
+            for stage in STAGES:
+                got = window_channel_attention_stage(x, *weights, stage=stage)
+                ref = window_channel_attention_stage_plain(x, *weights,
+                                                           stage=stage)
+                torch.cuda.synchronize()
+                err, ok = compare(got, ref, torch.bfloat16)
+                ok = ok and bool(torch.isfinite(got).all())
+                line = (f"[ablation inputs] {B}x{HW}^2 C={C} bf16 {stage}: "
+                        f"max|d| {err:.3e}")
+                if stage == "full":
+                    exact = torch.equal(got, window_channel_attention(
+                        x, *weights))
+                    ok = ok and exact
+                    line += (", bit-equal to window_channel_attention" if exact
+                             else ", DIFFERS from window_channel_attention")
+                log(line)
+                if not ok:
+                    raise AssertionError(f"stage {stage} at {B}x{HW}^2 C={C}: "
+                                         f"max|d| {err:.3e} outside tolerance, "
+                                         f"not finite or not bit-equal")
+                worst = max(worst, err)
+                del got, ref
+            del x
+    torch.cuda.empty_cache()
+    return worst
+
+
+def phase_ablation():
+    """The stage-ablation tool as a user runs it, once per ABLATION_SHAPES
+    entry; its tables are printed."""
+    import contextlib
+
+    from multi_style_transfer_gan_tpu_torch.tools.attention_ablation import (
+        main,
+    )
+
+    for B, HW, C in ABLATION_SHAPES:
+        argv = ["--batch", str(B), "--hw", str(HW), "--c", str(C)]
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            rc = main(argv)
+        log(f"[ablation] {' '.join(argv)}: exit {rc}, "
+            f"{time.perf_counter() - t0:.2f} s wall; its output:")
+        for line in buf.getvalue().splitlines():
+            log(f"    {line}")
+        if rc != 0 or "  full " not in buf.getvalue():
+            raise AssertionError(f"the ablation tool failed on {argv}")
 
 
 def smooth_images(rng, n, size):
@@ -837,6 +1146,8 @@ def main() -> int:
     relayout_err, relayout_ms = phase_relayout(rng, dev)
     block_err, block_times = phase_block(rng, dev)
     train_err, train_times = phase_train_kernels(rng, dev)
+    stages_err, stage_times = phase_stages(rng, dev)
+    ablation_err = phase_ablation_inputs(dev)
 
     counted = {"window_channel_attention": K.window_channel_attention,
                "fused_structural_block": K.fused_structural_block,
@@ -846,7 +1157,9 @@ def main() -> int:
                "window_attention_mid_fwd": K.window_attention_mid_fwd,
                "window_attention_mid_bwd": K.window_attention_mid_bwd,
                "window_mhsa_fwd": K.window_mhsa_fwd,
-               "window_mhsa_bwd": K.window_mhsa_bwd}
+               "window_mhsa_bwd": K.window_mhsa_bwd,
+               "window_channel_attention_stage":
+                   K.window_channel_attention_stage}
     counts = lambda: {n: k.launches for n, k in counted.items()}
     serving_kernels = list(counted)[:4]   # the order of FORWARD_LAUNCHES
 
@@ -874,25 +1187,59 @@ def main() -> int:
     if min(training[n] for n in TRAIN_LAUNCHES_PER_STEP) == 0:
         raise AssertionError(f"training path launches {training}: a kernel "
                              f"of the path never launched")
-    launches = {n: serving[n] + training[n] for n in counted}
+
+    K.reset_launch_counts()   # the ablation path starts here
+    phase_ablation()
+    ablation = counts()       # ...and ends here
+    log(f"[ablation path] launches: {ablation}")
+    if ablation["window_channel_attention_stage"] == 0:
+        raise AssertionError(f"ablation path launches {ablation}: the stage "
+                             f"kernel never launched")
+    launches = {n: serving[n] + training[n] + ablation[n] for n in counted}
 
     # inference kernels: per forward at canvas 256, batch 8, bf16 (the four
     # LocalAttention shapes, NHWC or packed; the block's one shape; the five
-    # relayouts of a packed forward). Training kernels: fwd + bwd per
-    # generator forward and backward at 256^2, batch 8, bf16.
+    # relayouts of a packed forward; the stage kernel's full stage at the
+    # LocalAttention shapes). Training kernels: fwd + bwd per generator
+    # forward and backward at 256^2, batch 8, bf16.
     canvas = CANVASES[0]
-    attn_ms, attn_plain = (sum(attn_times[(canvas, s)][i]
-                               for s, _ in attention_shapes(canvas))
-                           for i in (0, 1))
+    fwd_shapes = [shape for _, shape in attention_shapes(canvas)]
+    attn_ms, attn_plain, sdpa_fwd = (sum(attn_times[(canvas, s)][i]
+                                         for s, _ in attention_shapes(canvas))
+                                     for i in (0, 1, 2))
     pk_ms, pk_plain, pk_nhwc = (sum(packed_times[(canvas, s)][i]
                                     for s, _ in attention_shapes(canvas))
                                 for i in (0, 1, 2))
-    blk_ms, blk_plain = block_times[(BATCH, 64, 64, 64)]
+    st_ms, st_plain = (sum(stage_times[(shape, key)] for shape in fwd_shapes)
+                       for key in ("full", "full plain"))
+    blk_shape = (BATCH, 64, 64, 64)
+    blk_ms, blk_plain = block_times[blk_shape]
     bf16 = torch.bfloat16
     per_fwd = {"down1/up1": 2, "down2": 1, "up2": 1}
     tr_ms = [sum(n * train_times[("attention", st, bf16)][i]
-                 for st, n in per_fwd.items()) for i in (0, 1)]
+                 for st, n in per_fwd.items()) for i in (0, 1, 2)]
     mh_ms = train_times[("mhsa", "block", bf16)]
+    train_qkv = [shape for name, st, shape in train_kernel_cases()
+                 if name == "attention" for _ in range(per_fwd[st])]
+    mh_qkv = next(shape for name, _, shape in train_kernel_cases()
+                  if name == "mhsa")
+
+    # bounds from this run's shapes; the library yardsticks were timed in
+    # turns with their kernels in the phases above
+    attn_bound = bound(*attention_work(fwd_shapes))
+    relayout_bytes = sum(2 * BF16_BYTES * int(np.prod(shape))
+                         for _, shape, _ in relayout_cases(canvas))
+    yardsticks = {
+        "window_channel_attention": (attn_bound, None, sdpa_fwd),
+        "packed_window_channel_attention": (attn_bound, None, sdpa_fwd),
+        "window_relayout": (bound(relayout_bytes, 0), relayout_ms[2], None),
+        "fused_structural_block": (bound(*block_work(blk_shape)), None, None),
+        "window_attention_train": (bound(*train_mid_work(train_qkv)), None,
+                                   tr_ms[2]),
+        "window_mhsa_train": (bound(*mhsa_work(mh_qkv)), mh_ms[2], None),
+        "window_channel_attention_stages": (attn_bound, None, sdpa_fwd),
+    }
+
     pkg = "multi_style_transfer_gan_tpu_torch/csrc"
     tpu = "multi_style_transfer_gan_tpu/ops/pallas"
     report = {"kernels": [
@@ -921,7 +1268,8 @@ def main() -> int:
                      f"{tpu}/window_relayout.py:102 (d2s_rows)",
          "launches": launches["window_relayout"],
          "max_abs_err": relayout_err, "ms": relayout_ms[0],
-         "plain_ms": relayout_ms[1]},
+         "plain_ms": relayout_ms[1], "device_ms": relayout_ms[3],
+         "library_device_ms": relayout_ms[4]},
         {"name": "fused_structural_block", "route": "cuda",
          "source": f"{pkg}/fused_structural_block.cu",
          "replaces": f"{tpu}/fused_transformer.py:169",
@@ -943,8 +1291,25 @@ def main() -> int:
          "launches_fwd": launches["window_mhsa_fwd"],
          "launches_bwd": launches["window_mhsa_bwd"],
          "max_abs_err": train_err["mhsa"], "ms": mh_ms[0],
-         "plain_ms": mh_ms[1]},
+         "plain_ms": mh_ms[1], "device_ms": mh_ms[3],
+         "library_device_ms": mh_ms[4]},
+        {"name": "window_channel_attention_stages", "route": "cuda",
+         "source": f"{pkg}/window_attention_stages.cu",
+         "replaces": "scripts/ab_v3_ablation.py:121",
+         "launches": launches["window_channel_attention_stage"],
+         "max_abs_err": stages_err, "ms": st_ms, "plain_ms": st_plain,
+         "max_abs_err_ablation_bf16": ablation_err},
     ]}
+    for entry in report["kernels"]:
+        (b_ms, b_by), library, sdpa_mid = yardsticks[entry["name"]]
+        entry.update(bound_ms=b_ms, bound_by=b_by, library_ms=library)
+        if sdpa_mid is not None:
+            entry["sdpa_mid_ms"] = sdpa_mid
+        log(f"[yardsticks] {entry['name']}: kernel {entry['ms']:.4f} ms, "
+            f"bound {b_ms:.6f} ms ({b_by}; {b_ms / entry['ms']:.1%} of the "
+            f"kernel's time), library "
+            f"{'none' if library is None else f'{library:.4f} ms'}"
+            + ("" if sdpa_mid is None else f", SDPA mid {sdpa_mid:.4f} ms"))
     rate_text = "; ".join(
         f"canvas {c} batch {n} NHWC {r['nhwc']:.1f} packed {r['packed']:.1f}"
         for (c, n), r in rates.items())

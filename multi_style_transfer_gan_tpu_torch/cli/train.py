@@ -126,8 +126,10 @@ def main(argv=None):
     dtype = torch.float32 if args.fp32 else torch.bfloat16
     pools = None
     if args.pool_size > 0:
-        pools = ((pool_init(args.pool_size, args.image_size, dtype, device),
-                  pool_init(args.pool_size, args.image_size, dtype, device)),
+        pools = ((pool_init(args.pool_size, args.image_size, dtype,
+                            device=device),
+                  pool_init(args.pool_size, args.image_size, dtype,
+                            device=device)),
                  torch.Generator().manual_seed(args.seed + 1))
         print(f"image pool: {args.pool_size} per direction, on the device")
 

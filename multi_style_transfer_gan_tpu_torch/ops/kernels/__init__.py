@@ -13,7 +13,8 @@ from .packed_window_attention import (
     packed_window_channel_attention, packed_window_channel_attention_plain,
 )
 from .window_attention import (
-    window_channel_attention, window_channel_attention_plain,
+    STAGES, window_channel_attention, window_channel_attention_plain,
+    window_channel_attention_stage, window_channel_attention_stage_plain,
 )
 from .window_attention_train import (
     window_attention_mid_backward_plain, window_attention_mid_bwd,
@@ -31,7 +32,7 @@ from .window_relayout import (
 KERNELS = (window_channel_attention, fused_structural_block,
            packed_window_channel_attention, window_relayout,
            window_attention_mid_fwd, window_attention_mid_bwd,
-           window_mhsa_fwd, window_mhsa_bwd)
+           window_mhsa_fwd, window_mhsa_bwd, window_channel_attention_stage)
 
 
 def reset_launch_counts() -> None:
@@ -40,12 +41,13 @@ def reset_launch_counts() -> None:
 
 
 __all__ = [
-    "KERNELS", "depth_to_space_plain", "fused_structural_block",
+    "KERNELS", "STAGES", "depth_to_space_plain", "fused_structural_block",
     "packed_window_channel_attention", "packed_window_channel_attention_plain",
     "reset_launch_counts", "space_to_depth_plain", "structural_block_plain",
     "window_attention_mid_backward_plain", "window_attention_mid_bwd", "window_attention_mid_fwd",
     "window_attention_mid_plain", "window_channel_attention",
-    "window_channel_attention_plain", "window_channel_attention_train",
+    "window_channel_attention_plain", "window_channel_attention_stage",
+    "window_channel_attention_stage_plain", "window_channel_attention_train",
     "window_mhsa_backward_plain", "window_mhsa_bwd", "window_mhsa_fwd",
     "window_mhsa_plain", "window_mhsa_train", "window_relayout",
 ]

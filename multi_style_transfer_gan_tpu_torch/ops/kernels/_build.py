@@ -36,6 +36,9 @@ SIGNATURES = {
     "packed_window_channel_attention": (
         "window_channel_attention", "packed_window_channel_attention_launch",
         [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I, _P]),
+    "window_channel_attention_stage": (
+        "window_attention_stages", "window_channel_attention_stage_launch",
+        [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _I, _P]),
     "window_relayout": (
         "window_relayout", "window_relayout_launch",
         [_P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P]),

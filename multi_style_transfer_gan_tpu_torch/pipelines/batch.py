@@ -1,9 +1,9 @@
 """Batch folder processing — the throughput path (port of
 ``pipelines/batch.py``).
 
-- Decode + canvas paste on the host: the native libjpeg-turbo loader of
-  ``multi_style_transfer_gan_tpu.native`` (framework-free ctypes) where it
-  is built, PIL LANCZOS (the reference recipe) otherwise.
+- Decode + canvas paste on the host: the native libjpeg-turbo loader
+  (``native/``, bound by the port's ``native`` module) where it is built,
+  PIL LANCZOS (the reference recipe) otherwise.
 - One uint8 -> uint8 program per configuration runs normalize ->
   generator -> ``from_model_range`` -> round and clip on the device, with
   one of two engines of the same math: the NHWC ``EnhancedGenerator`` or
@@ -32,8 +32,7 @@ import numpy as np
 import torch
 from PIL import Image
 
-from multi_style_transfer_gan_tpu import native as _native
-
+from .. import native as _native
 from ..data import list_images
 from ..ops import from_model_range, restore_aspect, to_model_range
 from ..models import PackedEnhancedGenerator
@@ -74,9 +73,7 @@ def _restore_and_save(out_u8, orig_wh, out_path, canvas=CANVAS):
 def _decode_batch(paths, canvas, num_threads):
     """Decode ``paths`` into one (N, canvas, canvas, 3) uint8 array.
 
-    Calls the native library directly: ``native.decode_canvas_batch``
-    falls back through the JAX package's pipeline, which the port must not
-    import.
+    Calls the native library's batch decode directly.
 
     Returns (batch, sizes, ok). The native decoder takes what it can; the
     rest go through PIL, and files neither can read stay ok=False (skipped,

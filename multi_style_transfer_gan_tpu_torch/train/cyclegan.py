@@ -109,10 +109,10 @@ def cyclegan_init_state(seed: int = 0, channels: int = 16,
                         pretrained_params=None, g_lr: float = G_LR,
                         d_lr: float = D_LR, decay_steps: int | None = None,
                         decay_start: int | None = None,
-                        device="cpu") -> CycleGANState:
-    """Fresh G/D (drawn from a ``torch.Generator`` seeded with ``seed``),
-    optionally warm-starting both generators non-strictly from
-    ``pretrained_params`` (a state dict): only keys present in the
+                        device) -> CycleGANState:
+    """Fresh G/D on ``device`` (drawn from a ``torch.Generator`` seeded
+    with ``seed``), optionally warm-starting both generators non-strictly
+    from ``pretrained_params`` (a state dict): only keys present in the
     generator with matching shapes are copied, and the count is printed."""
     gen = torch.Generator().manual_seed(seed)
     g_ab = EnhancedGenerator(channels, num_transformer_blocks, generator=gen)

@@ -24,9 +24,9 @@ class ImagePool:
     n: int                 # filled count
 
 
-def pool_init(pool_size: int, image_size: int, dtype=torch.float32,
-              device="cpu") -> ImagePool:
-    """An empty pool; ``dtype`` is the step's compute type."""
+def pool_init(pool_size: int, image_size: int, dtype=torch.float32, *,
+              device) -> ImagePool:
+    """An empty pool on ``device``; ``dtype`` is the step's compute type."""
     if pool_size <= 0:
         raise ValueError("pool_size must be positive; a zero-capacity pool "
                          "means 'no pool': pass pools=None instead")

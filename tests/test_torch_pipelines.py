@@ -222,17 +222,49 @@ def test_batch_cli_data_parallel_is_not_ported(capsys):
 
 
 def test_port_never_imports_jax():
-    """Importing the port and every submodule leaves jax out of
-    sys.modules (a fresh interpreter, since the tests themselves use JAX)."""
+    """Importing the port and every submodule leaves jax and the JAX
+    package out of sys.modules (a fresh interpreter, since the tests
+    themselves use JAX)."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import multi_style_transfer_gan_tpu_torch as pkg\n"
         "for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + '.'):\n"
         "    importlib.import_module(m.name)\n"
-        "bad = sorted(k for k in sys.modules if k == 'jax' or k.startswith('jax.'))\n"
+        "bad = sorted(k for k in sys.modules if k.split('.')[0] in\n"
+        "             ('jax', 'multi_style_transfer_gan_tpu'))\n"
         "assert not bad, bad\n"
         "print('ok', len([k for k in sys.modules if k.startswith(pkg.__name__)]))\n")
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
     assert proc.stdout.startswith("ok")
+
+
+def _imported_roots(path):
+    """The top-level package of every import statement in ``path``
+    (relative imports give '')."""
+    import ast
+
+    with open(path) as f:
+        tree = ast.parse(f.read(), path)
+    roots = set()
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            roots.update(a.name.split(".")[0] for a in node.names)
+        elif isinstance(node, ast.ImportFrom):
+            roots.add("" if node.level else node.module.split(".")[0])
+    return roots
+
+
+def test_port_and_chip_smoke_import_nothing_of_jax():
+    """No import statement in the package or in chip_smoke.py names jax or
+    the JAX package, wherever it stands (inside functions too)."""
+    pkg = os.path.join(REPO, "multi_style_transfer_gan_tpu_torch")
+    paths = [os.path.join(REPO, "chip_smoke.py")]
+    for root, _, files in os.walk(pkg):
+        paths += [os.path.join(root, f) for f in files if f.endswith(".py")]
+    assert len(paths) > 40
+    bad = {os.path.relpath(p, REPO): sorted(r) for p in paths
+           if (r := _imported_roots(p) & {"jax", "jaxlib",
+                                          "multi_style_transfer_gan_tpu"})}
+    assert not bad, bad

@@ -69,7 +69,7 @@ def test_cyclegan_step_matches_jax(rng):
         _, sn[name] = discriminator_from_sd({k: v.numpy() for k, v in sd.items()})
     js = js._replace(sn_state=jax.tree.map(jnp.asarray, sn))
 
-    ts = cyclegan_init_state(0, 4)
+    ts = cyclegan_init_state(0, 4, device="cpu")
     for name in ("G_AB", "G_BA"):
         getattr(ts, name).load_state_dict(
             state_dict_from_jax_params(js.g_params[name]), strict=True)
@@ -103,11 +103,11 @@ def test_cyclegan_step_matches_jax(rng):
 @pytest.fixture(scope="module")
 def fresh_sd():
     """A c4 state, as a state dict, every step test starts from."""
-    return cyclegan_init_state(7, 4).state_dict()
+    return cyclegan_init_state(7, 4, device="cpu").state_dict()
 
 
 def _state(sd, **kw):
-    s = cyclegan_init_state(1, 4, **kw)
+    s = cyclegan_init_state(1, 4, device="cpu", **kw)
     s.load_state_dict(sd)
     return s
 
@@ -204,7 +204,7 @@ def test_resume_is_bit_exact(rng, fresh_sd, tmp_path):
     s1, one = _run(fresh_sd, xa[:1], xb[:1])
     save_train_state(s1, tmp_path, 1)
     assert latest_step(tmp_path) == 1
-    resumed = cyclegan_init_state(99, 4)
+    resumed = cyclegan_init_state(99, 4, device="cpu")
     resumed, step = restore_train_state(tmp_path, None, resumed)
     assert step == 1 and resumed.step == 1
     _, last = cyclegan_train_step(resumed, torch.from_numpy(xa[1]),
@@ -217,16 +217,18 @@ def test_resume_is_bit_exact(rng, fresh_sd, tmp_path):
 
 
 def test_checkpoint_carries_pools_and_schedule(rng, tmp_path):
-    s = cyclegan_init_state(0, 4, decay_steps=4)
-    pools = ((pool_init(3, 32), pool_init(3, 32)),
+    s = cyclegan_init_state(0, 4, decay_steps=4, device="cpu")
+    pools = ((pool_init(3, 32, device="cpu"),
+              pool_init(3, 32, device="cpu")),
              torch.Generator().manual_seed(5))
     a, b = _batches(rng, 1, batch=2)[0], _batches(rng, 1, batch=2)[0]
     s, _, pools = cyclegan_train_step(s, torch.from_numpy(a),
                                       torch.from_numpy(b), pools=pools)
     assert pools[0][0].n == 2 and pools[0][1].n == 2
     save_train_state(s, tmp_path, 4, pools)
-    r = cyclegan_init_state(1, 4, decay_steps=4)
-    rp = ((pool_init(3, 32), pool_init(3, 32)), torch.Generator())
+    r = cyclegan_init_state(1, 4, decay_steps=4, device="cpu")
+    rp = ((pool_init(3, 32, device="cpu"), pool_init(3, 32, device="cpu")),
+          torch.Generator())
     (r, rp), step = restore_train_state(tmp_path, None, r, rp)
     assert step == 4
     for p, q in zip(pools[0], rp[0]):
@@ -274,7 +276,7 @@ def test_image_pool_law():
         return torch.stack([torch.full((H, H, 3), float(v)) for v in vals])
 
     gen = torch.Generator().manual_seed(0)
-    pool = pool_init(P, H)
+    pool = pool_init(P, H, device="cpu")
     first = batch([1, 2, 3, 4])
     pool, out = pool_sample(pool, first, gen)
     assert torch.equal(out, first) and torch.equal(pool.images, first)
@@ -296,7 +298,7 @@ def test_image_pool_law():
         v += 4
     assert 0.3 < hist / total < 0.7, hist / total
     with pytest.raises(ValueError, match="positive"):
-        pool_init(0, H)
+        pool_init(0, H, device="cpu")
 
 
 # ---------------------------------------------------------------------------
@@ -399,13 +401,22 @@ def test_warm_start_transfers_matching_tensors(capsys):
 
     src = EnhancedGenerator(4, 1, generator=torch.Generator().manual_seed(9))
     src = src.state_dict()
-    s = cyclegan_init_state(0, 4, pretrained_params=src)
+    s = cyclegan_init_state(0, 4, device="cpu", pretrained_params=src)
     assert f"warm start: {2 * len(src)} tensors transferred" in \
         capsys.readouterr().out
     for g in (s.G_AB, s.G_BA):
         for k, v in g.state_dict().items():
             assert torch.equal(v, src[k]), k
-    cyclegan_init_state(0, 4, pretrained_params={
+    cyclegan_init_state(0, 4, device="cpu", pretrained_params={
         "encoder.0.weight": torch.zeros(8, 3, 7, 7)})
     assert "0 tensors transferred (the reference's plain->enhanced" in \
         capsys.readouterr().out
+
+
+def test_init_entry_points_need_a_device():
+    """The state and the pool take ``device`` as a required keyword, like
+    every other entry point of the port: nothing defaults to the CPU."""
+    with pytest.raises(TypeError, match="device"):
+        cyclegan_init_state()
+    with pytest.raises(TypeError, match="device"):
+        pool_init(3, 32)
