@@ -8,7 +8,7 @@ shipped in ``trained/`` with both engines (NHWC and packed space-to-depth)
 and CycleGAN training at the reference configuration, and checks every
 hand-written kernel on the way:
 
-1. build: all five CUDA sources compile from ``csrc/`` at once, one nvcc
+1. build: all six CUDA sources compile from ``csrc/`` at once, one nvcc
    each;
 2. window channel attention, kernel vs plain PyTorch at every shape the
    generator gives it at canvas 256 and 512 (fp32 with TF32 off, and bf16);
@@ -17,8 +17,9 @@ hand-written kernel on the way:
    same windows; the window relayout, kernel vs plain, bit-exact;
 4. the fused transformer block, kernel vs plain, including a ragged grid;
 5. the training kernels (channel-attention mid, window-MHSA mid), forward
-   and backward, kernel vs plain at every training shape, one all-zero
-   window each;
+   and backward, kernel vs plain at every training shape on three inputs
+   (random, a saturated softmax, a window whose q and k have norms ~1e-3),
+   each with one all-zero window;
 6. the stage kernels of the channel attention (copy, qkv, norm, logits,
    softmax, full), each vs its plain version at the three canvas-256
    attention shapes (fp32 with TF32 off, and bf16) and on the ablation
@@ -51,8 +52,9 @@ one PyTorch call computes the same function, that call's time
 ``scaled_dot_product_attention``, for information). Every library time is
 taken in turns with its kernel (CUDA events); for the two rows with a
 library call, kernel and library are also read in ``torch.profiler``
-device time, in turns (``device_ms``, ``library_device_ms``). Exits
-nonzero without a CUDA device.
+device time, in turns (``device_ms``, ``library_device_ms``), and so are
+the channel-attention mid and its SDPA mid (``device_ms``,
+``sdpa_mid_device_ms``). Exits nonzero without a CUDA device.
 """
 
 from __future__ import annotations
@@ -97,9 +99,15 @@ TRAIN_LAUNCHES_PER_STEP = {
 # fp32 step card vs CPU: cuDNN and CPU convs sum in other orders, and the
 # adversarial update amplifies that (tests/test_train.py:486-491)
 TRAIN_FP32_RTOL = 1e-3
-# bf16: kernel and plain both compute in fp32 from the same bf16 inputs and
-# round once, so they may differ by one bf16 rounding of the output (2^-7
-# relative) on top of fp32 summation order.
+# bf16: the plain versions compute in fp32 from the bf16 inputs and round
+# once at the output. The inference kernels and the fp32-FMA bodies do the
+# same, so they differ by one bf16 rounding of the output (2^-7 relative) on
+# top of fp32 summation order. The two training kernels (tensor cores) also
+# round operands they form inside to bf16 for their matrix products: S and
+# p as one bf16 term (out = v S^T, dv = dO S; dv = p^T dO), and qn, kn, dL
+# (the Gram, dqn, dkn), the exponentials of o = p v, and ds (dq, dk) as hi +
+# lo bf16 pairs, ~2^-16 relative; sums stay fp32. The bound is unchanged;
+# the stress inputs of ``train_kernel_inputs`` hold the kernels to it.
 BF16_ATOL, BF16_RTOL = 3e-2, 2 ** -7
 # uint8 fp32 card vs CPU, and packed vs NHWC engine on the card: different
 # conv algorithms (and, packed, the repacked convs' extra zero taps) move
@@ -555,13 +563,33 @@ def train_kernel_cases():
             ("mhsa", "block", (B, 64, 64, 192))]
 
 
+def train_kernel_inputs(rng, name, shape):
+    """[(label, qkv, d_out)] host arrays for a training kernel at ``shape``:
+    random with one all-zero window; the same with qkv x 8 in batch entry 1
+    (a saturated softmax); the same with the q and k of the window below the
+    zero window scaled to norms ~1e-3 (small, but above eps: the normalize
+    backward multiplies by ~1e3)."""
+    win = 4 if name == "attention" else 8
+    C = shape[3] // 3
+    qkv = rng.standard_normal(shape).astype(np.float32)
+    qkv[0, :win, :win] = 0.0      # one all-zero window
+    d_out = rng.standard_normal(shape[:3] + (C,)).astype(np.float32)
+    saturated, small = qkv.copy(), qkv.copy()
+    saturated[1] *= 8.0
+    small[0, win:2 * win, :win, :2 * C] *= 1e-3 / np.sqrt(C)
+    return [("random", qkv, d_out), ("saturated", saturated, d_out),
+            ("small q, k", small, d_out)]
+
+
 def phase_train_kernels(rng, dev):
     """Forward and backward of both training kernels vs their plain versions,
-    fp32 (TF32 off) and bf16, one all-zero window in every input. In bf16
-    the SDPA yardstick (fwd + bwd) is timed in turns with kernel and plain:
-    the channel-attention mid on (windows, 1, C, 16), information only; the
-    window-MHSA mid's library call on (windows, 2 heads, 64, C/2), in CUDA
-    events and then, with the kernel in turns, in profiler device time."""
+    fp32 (TF32 off) and bf16, on the three inputs of
+    ``train_kernel_inputs`` (each with one all-zero window). On the random
+    input the kernel is timed in turns with its plain version and, in bf16,
+    with the SDPA yardstick (fwd + bwd): the channel-attention mid on
+    (windows, 1, C, 16), information only; the window-MHSA mid's library
+    call on (windows, 2 heads, 64, C/2); in CUDA events and then, kernel and
+    SDPA in turns, in profiler device time."""
     import torch
 
     from multi_style_transfer_gan_tpu_torch.ops import kernels as K
@@ -578,51 +606,63 @@ def phase_train_kernels(rng, dev):
     for name, stage, shape in train_kernel_cases():
         fwd, bwd, fwd_plain, bwd_plain, extra = fns[name]
         win = 4 if name == "attention" else 8
-        host = rng.standard_normal(shape).astype(np.float32)
-        host[0, :win, :win] = 0.0      # one all-zero window
-        g_host = rng.standard_normal(shape[:3] + (shape[3] // 3,))
-        for dtype in (torch.float32, torch.bfloat16):
-            qkv = torch.from_numpy(host).to(dev, dtype)
-            d_out = torch.from_numpy(g_host.astype(np.float32)).to(dev, dtype)
-            got = fwd(qkv, *extra)
-            dgot = bwd(qkv, d_out, *extra)
-            ref = fwd_plain(qkv, *extra)
-            dref = bwd_plain(qkv, d_out, *extra)
-            torch.cuda.synchronize()
-            err, ok = compare(got, ref, dtype)
-            derr, dok = compare(dgot, dref, dtype)
-            if dtype == torch.float32:
-                ok, dok = err <= FP32_TOL, derr <= TRAIN_GRAD_FP32_TOL
-                worst[name] = max(worst[name], err, derr)
-            finite = bool(torch.isfinite(got).all() and torch.isfinite(dgot).all())
-            zero_ok = bool(torch.isfinite(dgot[0, :win, :win]).all())
-            kernel = lambda: (fwd(qkv, *extra), bwd(qkv, d_out, *extra))
-            plain = lambda: (fwd_plain(qkv, *extra),
-                             bwd_plain(qkv, d_out, *extra))
-            if dtype == torch.float32:
-                ms = time_pair(kernel, plain)
-            else:
-                B, H, W, C3 = shape
-                if name == "attention":
-                    sdpa = sdpa_mid_call((B, H, W, C3 // 3), dev, backward=True)
-                else:
-                    hd = C3 // 3 // 2
-                    sdpa = sdpa_call((B * (H // 8) * (W // 8), 2, 64, hd),
-                                     hd ** -0.5, dev, backward=True)
-                ms = time_turns(kernel, plain, sdpa)
-                if name == "mhsa":
-                    ms += time_turns(kernel, sdpa, timer=device_ms)
-            times[(name, stage, dtype)] = ms
-            log(f"[train kernels] {name} {stage} qkv {shape} {str(dtype)[6:]}: "
-                f"fwd max|d| {err:.3e}, bwd max|d| {derr:.3e}, zero window "
-                f"{'finite' if zero_ok else 'BAD'}; fwd+bwd "
-                + ", ".join(f"{n} {t:.4f} ms" for n, t in zip(
-                    ("kernel", "plain", "SDPA", "kernel device",
-                     "SDPA device"), ms)))
-            if not (ok and dok and finite and zero_ok):
-                raise AssertionError(f"{name} train kernel {shape} {dtype}: "
-                                     f"outside tolerance or not finite")
+        for label, host, g_host in train_kernel_inputs(rng, name, shape):
+            for dtype in (torch.float32, torch.bfloat16):
+                qkv = torch.from_numpy(host).to(dev, dtype)
+                d_out = torch.from_numpy(g_host).to(dev, dtype)
+                got = fwd(qkv, *extra)
+                dgot = bwd(qkv, d_out, *extra)
+                ref = fwd_plain(qkv, *extra)
+                dref = bwd_plain(qkv, d_out, *extra)
+                torch.cuda.synchronize()
+                err, ok = compare(got, ref, dtype)
+                derr, dok = compare(dgot, dref, dtype)
+                if dtype == torch.float32:
+                    ok, dok = err <= FP32_TOL, derr <= TRAIN_GRAD_FP32_TOL
+                    worst[name] = max(worst[name], err, derr)
+                finite = bool(torch.isfinite(got).all()
+                              and torch.isfinite(dgot).all())
+                zero_ok = bool(torch.isfinite(dgot[0, :win, :win]).all())
+                ms = ()
+                if label == "random":
+                    ms = time_train_kernel(name, shape, dtype, dev, (
+                        lambda: (fwd(qkv, *extra), bwd(qkv, d_out, *extra)),
+                        lambda: (fwd_plain(qkv, *extra),
+                                 bwd_plain(qkv, d_out, *extra))))
+                    times[(name, stage, dtype)] = ms
+                log(f"[train kernels] {name} {stage} qkv {shape} {label} "
+                    f"{str(dtype)[6:]}: fwd max|d| {err:.3e}, bwd max|d| "
+                    f"{derr:.3e}, zero window "
+                    f"{'finite' if zero_ok else 'BAD'}"
+                    + "".join(f"; fwd+bwd {n} {t:.4f} ms" for n, t in zip(
+                        ("kernel", "plain", "SDPA", "kernel device",
+                         "SDPA device"), ms)))
+                if not (ok and dok and finite and zero_ok):
+                    raise AssertionError(
+                        f"{name} train kernel {shape} {label} {dtype}: "
+                        f"outside tolerance or not finite")
     return worst, times
+
+
+def time_train_kernel(name, shape, dtype, dev, calls):
+    """fwd + bwd ms of a training kernel and its plain version, in turns; in
+    bf16 with the SDPA yardstick in CUDA events, then kernel and SDPA in
+    turns in profiler device time: (kernel, plain[, SDPA, kernel device,
+    SDPA device])."""
+    import torch
+
+    kernel, plain = calls
+    if dtype == torch.float32:
+        return time_pair(kernel, plain)
+    B, H, W, C3 = shape
+    if name == "attention":
+        sdpa = sdpa_mid_call((B, H, W, C3 // 3), dev, backward=True)
+    else:
+        hd = C3 // 3 // 2
+        sdpa = sdpa_call((B * (H // 8) * (W // 8), 2, 64, hd), hd ** -0.5,
+                         dev, backward=True)
+    return (time_turns(kernel, plain, sdpa)
+            + time_turns(kernel, sdpa, timer=device_ms))
 
 
 def phase_stages(rng, dev):
@@ -1217,7 +1257,7 @@ def main() -> int:
     bf16 = torch.bfloat16
     per_fwd = {"down1/up1": 2, "down2": 1, "up2": 1}
     tr_ms = [sum(n * train_times[("attention", st, bf16)][i]
-                 for st, n in per_fwd.items()) for i in (0, 1, 2)]
+                 for st, n in per_fwd.items()) for i in range(5)]
     mh_ms = train_times[("mhsa", "block", bf16)]
     train_qkv = [shape for name, st, shape in train_kernel_cases()
                  if name == "attention" for _ in range(per_fwd[st])]
@@ -1283,7 +1323,8 @@ def main() -> int:
          "launches_fwd": launches["window_attention_mid_fwd"],
          "launches_bwd": launches["window_attention_mid_bwd"],
          "max_abs_err": train_err["attention"], "ms": tr_ms[0],
-         "plain_ms": tr_ms[1]},
+         "plain_ms": tr_ms[1], "device_ms": tr_ms[3],
+         "sdpa_mid_device_ms": tr_ms[4]},
         {"name": "window_mhsa_train", "route": "cuda",
          "source": f"{pkg}/window_mhsa_train.cu",
          "replaces": f"{tpu}/window_mhsa_train.py:134",

@@ -15,29 +15,61 @@
 //        |q| is 0 or not above eps, so an all-zero window stays finite)
 // The TPU's grouped lane-stacked layout and its block-diagonal mask exist
 // for the 128-lane MXU and are not ported: here one window is one C x C
-// Gram in shared memory.
+// Gram.
 //
-// What bounds it. Per position the forward reads 3C values and writes C;
-// its arithmetic is about 4*C flops per value moved (two C x C x 16
-// products per window), so against the card's bf16 ridge (~295 flop/B) it
-// is bytes-bound; the backward does five such products for 4C values
-// read and 3C written, still under the ridge. Both therefore keep every
-// intermediate in shared memory: one read of the inputs, one write of the
+// What bounds it. Per position the forward reads 3C values and writes C,
+// the backward reads 4C and writes 3C, with 14 C^2 flops of products per
+// position in all: ~0.6 C flop per byte in bf16, far under the card's bf16
+// tensor-core ridge (~295 flop/B). So the bound is the bytes: 0.124 ms for
+// forward + backward of one generator's four calls at 256^2, batch 8. Every
+// intermediate stays on the chip: one read of the inputs, one write of the
 // outputs, the softmax recomputed in the backward rather than saved, as the
-// Pallas backward does. This first version does its products with fp32 FMAs
-// on the CUDA cores, whose ridge is ~20 flop/B, so for now its arithmetic
-// and shared-memory traffic bound it; tensor-core tiles are later work.
+// Pallas backward does.
 //
-// Design. One block of 256 threads per tile of NW = 64 / C windows (1024
-// values of q at every C). Every intermediate is fp32 in shared memory;
-// softmax and every sum are fp32, and bf16 inputs are rounded once at each
-// output. Row strides are odd so column walks fall in distinct banks; the
-// softmax rows and the softmax-backward row sums are one warp per row.
-// Windows past the end of the last tile compute on zeros and are not stored.
+// The first design (kept as the fp32 instantiation below) did its products
+// as fp32 FMAs with both operands read from shared memory, two wavefronts
+// per warp FMA against one wavefront per SM and clock: the 7.5 GFLOP of one
+// generator's forward + backward are ~117 M warp FMAs and ~235 M
+// wavefronts, ~1.0 ms of its measured 2.024; scalar 2-byte staging loads,
+// norm loops with half the threads idle, softmax rows with half the lanes
+// idle at C = 16 and six to eight block barriers per tile made the rest.
+//
+// bf16 design. Every product is mma.sync.m16n8k16 (bf16 in, fp32 sums;
+// csrc/mma.cuh); the Gram's depth is a window's 16 positions, exactly one
+// k-step. A block of 8 warps takes NWR = 128 / C windows per round (8, 4,
+// 2) and 4, 2, 1 rounds, so every warp handles 4 windows at C = 16 and 2 at
+// C = 32, and one 16-row m-tile of a window's Gram at every C (C / 16 warps
+// per window). qkv (and dO) are staged as bf16 with 16-byte cp.async into
+// rows padded by 16 bytes (conflict-free ldmatrix). All 256 threads then
+// normalize, 16 channels each with the partial sums joined by shuffles;
+// |u|, inv and sel are fp32 and the zero-vector guard is the one above.
+// Each warp forms its m-tile of the Gram, takes the softmax on the
+// accumulator fragments (quad shuffles), and in the forward applies it to v
+// straight from registers: out = v S^T takes S's C fragments as its B
+// fragments. The backward adds dS = dO^T v on the same fragments, dL, and
+// dqn = kn dL^T from registers; S and dL go through shared memory as bf16
+// because dv = dO S and dkn = qn dL read them transposed (ldmatrix.trans).
+// The norm backward du = (dun - un <un, dun> sel) inv is fp32, from dqn and
+// dkn kept in fp32 shared memory; outputs are staged for 16-byte stores.
+// Operands rounded to bf16 inside the kernel: qn, kn and dL enter their
+// products (the Gram, dqn, dkn) as hi + lo bf16 pairs (three products:
+// hi hi, hi lo, lo hi; ~2^-16 relative), because a window whose q and k
+// have norms ~1e-3 multiplies the error of dqn and dkn by inv ~ 1e3: with
+// single bf16 terms the backward misses the bf16 bound by 8.8-30x, with
+// only dL split by 6.2-13x, with the three split it stays at 0.65-0.84 of
+// it (devtools/train_kernel_rounding.py). S enters out = v S^T and dv =
+// dO S as one bf16 term. v and dO are the bf16 inputs themselves.
+//
+// fp32 stays exact fp32: the fp32 instantiation keeps the first design's FMA
+// bodies unchanged (no tensor cores, no TF32): one block of 256 threads per
+// tile of NW = 64 / C windows, every intermediate fp32 in shared memory with
+// odd row strides, a warp per softmax row. Windows past the end of the last
+// tile compute on zeros and are not stored (both designs).
 #include <climits>
 #include <cmath>
 
 #include "common.cuh"
+#include "mma.cuh"
 
 namespace mstgan {
 namespace {
@@ -83,6 +115,10 @@ __device__ __forceinline__ long long pixel_offset(long long win, int p, int H, i
   const int col = (rem % nw) * kWs + p % kWs;
   return (b * H + row) * (long long)W + col;
 }
+
+// ---------------------------------------------------------------------------
+// fp32: the FMA bodies
+// ---------------------------------------------------------------------------
 
 // Loads the tile's q, k, v as fp32 and normalizes q and k in place.
 // inv[s][r] = 1 / max(|u|, eps), or 1 / eps for a zero vector; sel[s][r]
@@ -273,55 +309,534 @@ mid_bwd_kernel(const T* __restrict__ qkv, const T* __restrict__ dout, T* __restr
   }
 }
 
-template <typename T, int C>
-int launch_fwd(const void* qkv, void* out, int B, int H, int W, float eps, cudaStream_t stream) {
+// ---------------------------------------------------------------------------
+// bf16: warp MMA
+// ---------------------------------------------------------------------------
+
+using bf16 = __nv_bfloat16;
+
+template <int C>
+struct MmaLayout {
+  static constexpr int WPW = C / 16;                    // warps per window
+  static constexpr int NWR = kWarps / WPW;              // windows per round
+  static constexpr int ROUNDS = C == 16 ? 4 : C == 32 ? 2 : 1;
+  static constexpr int NWB = NWR * ROUNDS;              // windows per block
+  static constexpr int NT = C / 8;                      // n-tiles of a Gram row strip
+  static constexpr int XS = 3 * C + 8;                  // qkv row (qn hi, kn hi, v)
+  static constexpr int LS = 2 * C + 8;                  // qn lo, kn lo row
+  static constexpr int DS = C + 8;                      // dO / out row; C x C rows
+  static constexpr int FS = 2 * C + 4;                  // fp32 dqn, dkn row
+  // per window, in elements
+  static constexpr int X = kP * XS, LO = kP * LS, D = kP * DS, SQ = C * DS, F = kP * FS;
+  static constexpr int F_BYTES = NWR * (X + LO + D) * (int)sizeof(bf16);
+  static constexpr int B_BF16 = NWR * (X + LO + D + 3 * SQ);
+  static constexpr int B_BYTES = B_BF16 * (int)sizeof(bf16) + NWR * F * (int)sizeof(float);
+};
+
+// Stages the round's windows win0.. with 16-byte cp.async: each position's
+// `width` values of `src` (row stride = width) into dst + window * per_win
+// + p * ld; windows at or past n_windows read as zeros.
+__device__ __forceinline__ void stage_windows(const bf16* __restrict__ src, int width, bf16* dst,
+                                              int per_win, int ld, int nwr, long long win0,
+                                              long long n_windows, int H, int W) {
+  const int chunks = width / 8, per = kP * chunks;
+  for (int e = threadIdx.x; e < nwr * per; e += kThreads) {
+    const int wl = e / per, p = (e % per) / chunks, c = e % chunks;
+    const long long win = win0 + wl;
+    const bool valid = win < n_windows;
+    cp_async16(dst + wl * per_win + p * ld + c * 8,
+               valid ? src + pixel_offset(win, p, H, W) * width + c * 8 : src, valid);
+  }
+}
+
+// The inverse, 16-byte stores of `width` values per position; windows at or
+// past n_windows are not stored.
+__device__ __forceinline__ void store_windows(bf16* __restrict__ dst, int width, const bf16* src,
+                                              int per_win, int ld, int nwr, long long win0,
+                                              long long n_windows, int H, int W) {
+  const int chunks = width / 8, per = kP * chunks;
+  for (int e = threadIdx.x; e < nwr * per; e += kThreads) {
+    const int wl = e / per, p = (e % per) / chunks, c = e % chunks;
+    const long long win = win0 + wl;
+    if (win < n_windows)
+      *reinterpret_cast<uint4*>(dst + pixel_offset(win, p, H, W) * width + c * 8) =
+          *reinterpret_cast<const uint4*>(src + wl * per_win + p * ld + c * 8);
+  }
+}
+
+// The thread's share of the L2 normalize and its backward: 16 channels
+// (part j of C / 16) of vector s (0 q, 1 k) at position p of window wl.
+template <int C>
+struct NormSlot {
+  int wl, p, s, j;
+  __device__ NormSlot() {
+    const int vid = threadIdx.x / MmaLayout<C>::WPW;
+    j = threadIdx.x % MmaLayout<C>::WPW;
+    wl = vid / 32;
+    s = (vid / 16) & 1;
+    p = vid & 15;
+  }
+  // column of the share in a row holding q then k
+  __device__ int col() const { return s * C + 16 * j; }
+};
+
+// Sum over the C / 16 neighbouring lanes that share a vector.
+template <int C>
+__device__ __forceinline__ float slot_sum(float v) {
+#pragma unroll
+  for (int o = 1; o < MmaLayout<C>::WPW; o <<= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
+
+// 8 bf16 values (16 bytes) of shared memory as fp32.
+__device__ __forceinline__ void load8(const bf16* p, float* u) {
+  const uint4 r = *reinterpret_cast<const uint4*>(p);
+  const uint32_t w[4] = {r.x, r.y, r.z, r.w};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float2 f = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&w[i]));
+    u[2 * i] = f.x;
+    u[2 * i + 1] = f.y;
+  }
+}
+
+__device__ __forceinline__ void load16(const bf16* p, float (&u)[16]) {
+  load8(p, u);
+  load8(p + 8, u + 8);
+}
+
+// 8 channels of the normalize backward's operands: un = hi + lo, and dun.
+__device__ __forceinline__ void norm_bwd_load(const bf16* hi, const bf16* lo, const float* g,
+                                              float (&un)[8], float (&dun)[8]) {
+  float ul[8];
+  load8(hi, un);
+  load8(lo, ul);
+  const float4 a = *reinterpret_cast<const float4*>(g);
+  const float4 b = *reinterpret_cast<const float4*>(g + 4);
+  const float d[8] = {a.x, a.y, a.z, a.w, b.x, b.y, b.z, b.w};
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    un[i] += ul[i];
+    dun[i] = d[i];
+  }
+}
+
+// Normalizes the thread's share in place: un = u inv as hi (over u in the
+// qkv row) + lo (into the lo row); returns inv and sel of the vector.
+template <int C>
+__device__ __forceinline__ void normalize_slot(bf16* x, bf16* lo, float eps, float& inv,
+                                               float& sel) {
+  float u[16], ss = 0.f;
+  load16(x, u);
+#pragma unroll
+  for (int i = 0; i < 16; ++i) ss = fmaf(u[i], u[i], ss);
+  ss = slot_sum<C>(ss);
+  const bool nz = ss > 0.f;
+  const float n = sqrtf(nz ? ss : 1.f);
+  inv = 1.f / (nz ? fmaxf(n, eps) : eps);
+  sel = (nz && n > eps) ? 1.f : 0.f;
+  uint32_t hi[8], lw[8];
+#pragma unroll
+  for (int i = 0; i < 8; ++i) pack_bf16_split(u[2 * i] * inv, u[2 * i + 1] * inv, hi[i], lw[i]);
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    *reinterpret_cast<uint4*>(x + 8 * h) = make_uint4(hi[4 * h], hi[4 * h + 1], hi[4 * h + 2], hi[4 * h + 3]);
+    *reinterpret_cast<uint4*>(lo + 8 * h) = make_uint4(lw[4 * h], lw[4 * h + 1], lw[4 * h + 2], lw[4 * h + 3]);
+  }
+}
+
+// g = rows 16 mt.. of the window's Gram qn^T kn (16 x C, C fragments), qn
+// and kn as hi + lo: hi hi + hi lo + lo hi.
+template <int C>
+__device__ __forceinline__ void gram_strip(float (&g)[C / 8][4], const bf16* x, const bf16* lo,
+                                           int mt, int lane) {
+  using L = MmaLayout<C>;
+#pragma unroll
+  for (int j = 0; j < L::NT; ++j) g[j][0] = g[j][1] = g[j][2] = g[j][3] = 0.f;
+  // A[c1][p] = qn[p][c1]: the [p][c] rows through ldmatrix.trans
+  const int ar = (lane & 7) + (lane >> 4) * 8, ac = mt * 16 + ((lane >> 3) & 1) * 8;
+  uint32_t ah[4], al[4];
+  ldmatrix_x4_trans(ah, x + ar * L::XS + ac);
+  ldmatrix_x4_trans(al, lo + ar * L::LS + ac);
+  const int br = (lane & 7) + ((lane >> 3) & 1) * 8;
+#pragma unroll
+  for (int nb = 0; nb < C / 16; ++nb) {
+    const int bc = C + nb * 16 + (lane >> 4) * 8;
+    uint32_t bh[4], bl[4];
+    ldmatrix_x4_trans(bh, x + br * L::XS + bc);
+    ldmatrix_x4_trans(bl, lo + br * L::LS + bc);
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      float (&acc)[4] = g[2 * nb + h];
+      mma_bf16(acc, ah, bh[2 * h], bh[2 * h + 1]);
+      mma_bf16(acc, ah, bl[2 * h], bl[2 * h + 1]);
+      mma_bf16(acc, al, bh[2 * h], bh[2 * h + 1]);
+    }
+  }
+}
+
+// Row softmax, max-subtracted, of a 16-row strip of C fragments in place.
+template <int NT>
+__device__ __forceinline__ void softmax_strip(float (&s)[NT][4]) {
+  float m0 = -INFINITY, m1 = -INFINITY;
+#pragma unroll
+  for (int j = 0; j < NT; ++j) {
+    m0 = fmaxf(m0, fmaxf(s[j][0], s[j][1]));
+    m1 = fmaxf(m1, fmaxf(s[j][2], s[j][3]));
+  }
+  m0 = quad_max(m0);
+  m1 = quad_max(m1);
+  float l0 = 0.f, l1 = 0.f;
+#pragma unroll
+  for (int j = 0; j < NT; ++j) {
+    s[j][0] = expf(s[j][0] - m0);
+    s[j][1] = expf(s[j][1] - m0);
+    s[j][2] = expf(s[j][2] - m1);
+    s[j][3] = expf(s[j][3] - m1);
+    l0 += s[j][0] + s[j][1];
+    l1 += s[j][2] + s[j][3];
+  }
+  l0 = 1.f / quad_sum(l0);
+  l1 = 1.f / quad_sum(l1);
+#pragma unroll
+  for (int j = 0; j < NT; ++j) {
+    s[j][0] *= l0;
+    s[j][1] *= l0;
+    s[j][2] *= l1;
+    s[j][3] *= l1;
+  }
+}
+
+// acc (16 positions x the 16 columns 16 mt.., two n-tiles) += a m^T, where a
+// is [p][c] bf16 rows (hi at a + col0, and lo when al) and m^T's B
+// fragments come straight from the C fragments of m's rows 16 mt.. (B[k][n]
+// = m[n][k] is the C layout), as hi (+ lo when kSplit).
+template <int C, bool kSplit>
+__device__ __forceinline__ void rows_times_strip_t(float (&acc)[2][4], const bf16* a, int lda,
+                                                   const bf16* al, int ldl,
+                                                   const float (&m)[C / 8][4], int lane) {
+#pragma unroll
+  for (int kk = 0; kk < C / 16; ++kk) {
+    uint32_t ah[4], aw[4];
+    ldmatrix_x4(ah, a + (lane & 15) * lda + kk * 16 + (lane >> 4) * 8);
+    if (kSplit) ldmatrix_x4(aw, al + (lane & 15) * ldl + kk * 16 + (lane >> 4) * 8);
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      uint32_t b0, b1, w0, w1;
+      if (kSplit) {
+        pack_bf16_split(m[2 * kk][2 * h], m[2 * kk][2 * h + 1], b0, w0);
+        pack_bf16_split(m[2 * kk + 1][2 * h], m[2 * kk + 1][2 * h + 1], b1, w1);
+      } else {
+        b0 = pack_bf16(m[2 * kk][2 * h], m[2 * kk][2 * h + 1]);
+        b1 = pack_bf16(m[2 * kk + 1][2 * h], m[2 * kk + 1][2 * h + 1]);
+      }
+      mma_bf16(acc[h], ah, b0, b1);
+      if (kSplit) {
+        mma_bf16(acc[h], ah, w0, w1);
+        mma_bf16(acc[h], aw, b0, b1);
+      }
+    }
+  }
+}
+
+// acc (16 positions x the 16 columns 16 mt..) += a m, a as [p][c] bf16 rows
+// (hi, and lo when kSplit), m a C x C [k][n] bf16 array (hi, and lo when
+// kSplit) read through ldmatrix.trans.
+template <int C, bool kSplit>
+__device__ __forceinline__ void rows_times_square(float (&acc)[2][4], const bf16* a, int lda,
+                                                  const bf16* al, int ldl, const bf16* mh,
+                                                  const bf16* ml, int mt, int lane) {
+  using L = MmaLayout<C>;
+#pragma unroll
+  for (int kk = 0; kk < C / 16; ++kk) {
+    uint32_t ah[4], aw[4], bh[4], bl[4];
+    ldmatrix_x4(ah, a + (lane & 15) * lda + kk * 16 + (lane >> 4) * 8);
+    const int off = (kk * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * L::DS + mt * 16 +
+                    (lane >> 4) * 8;
+    ldmatrix_x4_trans(bh, mh + off);
+    if (kSplit) {
+      ldmatrix_x4(aw, al + (lane & 15) * ldl + kk * 16 + (lane >> 4) * 8);
+      ldmatrix_x4_trans(bl, ml + off);
+    }
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      mma_bf16(acc[h], ah, bh[2 * h], bh[2 * h + 1]);
+      if (kSplit) {
+        mma_bf16(acc[h], ah, bl[2 * h], bl[2 * h + 1]);
+        mma_bf16(acc[h], aw, bh[2 * h], bh[2 * h + 1]);
+      }
+    }
+  }
+}
+
+// Two n-tiles of C fragments as fp32 at columns c0.. of rows 0..15.
+__device__ __forceinline__ void put_strip_f32(float* dst, int ld, int c0, const float (&x)[2][4],
+                                              int lane) {
+  const int g = lane >> 2, t = lane & 3;
+#pragma unroll
+  for (int j = 0; j < 2; ++j)
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+      *reinterpret_cast<float2*>(dst + (g + 8 * h) * ld + c0 + j * 8 + 2 * t) =
+          make_float2(x[j][2 * h], x[j][2 * h + 1]);
+}
+
+template <int C>
+__global__ void __launch_bounds__(kThreads)
+mid_fwd_mma_kernel(const bf16* __restrict__ qkv, bf16* __restrict__ out, int H, int W,
+                   long long n_windows, float eps) {
+  using L = MmaLayout<C>;
+  extern __shared__ __align__(16) unsigned char smem_mma[];
+  bf16* sX = reinterpret_cast<bf16*>(smem_mma);   // [NWR][16][XS]
+  bf16* sLO = sX + L::NWR * L::X;                 // [NWR][16][LS]
+  bf16* sOut = sLO + L::NWR * L::LO;              // [NWR][16][DS]
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int wl = warp / L::WPW, mt = warp % L::WPW;
+  const NormSlot<C> slot;
+  bf16* x = sX + wl * L::X;
+  bf16* lo = sLO + wl * L::LO;
+  for (int round = 0; round < L::ROUNDS; ++round) {
+    const long long win0 = (long long)blockIdx.x * L::NWB + round * L::NWR;
+    stage_windows(qkv, 3 * C, sX, L::X, L::XS, L::NWR, win0, n_windows, H, W);
+    cp_async_commit();
+    cp_async_wait<0>();
+    __syncthreads();
+    float inv, sel;
+    normalize_slot<C>(sX + slot.wl * L::X + slot.p * L::XS + slot.col(),
+                      sLO + slot.wl * L::LO + slot.p * L::LS + slot.col(), eps, inv, sel);
+    __syncthreads();
+    float s[L::NT][4];
+    gram_strip<C>(s, x, lo, mt, lane);
+    softmax_strip(s);
+    // out[p][c1], c1 in 16 mt.. = sum_c2 v[p][c2] S[c1][c2]
+    float o[2][4] = {};
+    rows_times_strip_t<C, false>(o, x + 2 * C, L::XS, nullptr, 0, s, lane);
+    store_frags<2>(sOut + wl * L::D, nullptr, L::DS, 0, mt * 16, o, 1.f, lane);
+    __syncthreads();
+    store_windows(out, C, sOut, L::D, L::DS, L::NWR, win0, n_windows, H, W);
+    __syncthreads();
+  }
+}
+
+// At least 3 blocks per SM, as many as the shared memory of C = 16 lets in
+// (67.6 KB a block; 2 at C = 32 and 64): without that minimum, ptxas held
+// the C = 16 instantiation to 64 registers and spilled.
+template <int C>
+__global__ void __launch_bounds__(kThreads, 3)
+mid_bwd_mma_kernel(const bf16* __restrict__ qkv, const bf16* __restrict__ dout,
+                   bf16* __restrict__ dqkv, int H, int W, long long n_windows, float eps) {
+  using L = MmaLayout<C>;
+  extern __shared__ __align__(16) unsigned char smem_mma[];
+  bf16* sX = reinterpret_cast<bf16*>(smem_mma);   // [NWR][16][XS]: qn hi, kn hi, v; then dq, dk, dv
+  bf16* sLO = sX + L::NWR * L::X;                 // [NWR][16][LS]: qn lo, kn lo
+  bf16* sDO = sLO + L::NWR * L::LO;               // [NWR][16][DS]
+  bf16* sS = sDO + L::NWR * L::D;                 // [NWR][C][DS]: S, dL hi, dL lo
+  bf16* sDLH = sS + L::NWR * L::SQ;
+  bf16* sDLL = sDLH + L::NWR * L::SQ;
+  float* sF = reinterpret_cast<float*>(sX + L::B_BF16);   // [NWR][16][FS]: dqn, dkn
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int wl = warp / L::WPW, mt = warp % L::WPW;
+  const NormSlot<C> slot;
+  bf16* x = sX + wl * L::X;
+  bf16* lo = sLO + wl * L::LO;
+  bf16* dO = sDO + wl * L::D;
+  bf16* S = sS + wl * L::SQ;
+  bf16* dlh = sDLH + wl * L::SQ;
+  bf16* dll = sDLL + wl * L::SQ;
+  float* f = sF + wl * L::F;
+  for (int round = 0; round < L::ROUNDS; ++round) {
+    const long long win0 = (long long)blockIdx.x * L::NWB + round * L::NWR;
+    stage_windows(qkv, 3 * C, sX, L::X, L::XS, L::NWR, win0, n_windows, H, W);
+    stage_windows(dout, C, sDO, L::D, L::DS, L::NWR, win0, n_windows, H, W);
+    cp_async_commit();
+    cp_async_wait<0>();
+    __syncthreads();
+    bf16* sx = sX + slot.wl * L::X + slot.p * L::XS + slot.col();
+    bf16* slo = sLO + slot.wl * L::LO + slot.p * L::LS + slot.col();
+    float inv, sel;
+    normalize_slot<C>(sx, slo, eps, inv, sel);
+    __syncthreads();
+
+    // the warp's rows 16 mt.. of S (recomputed), dS = dO^T v and dL
+    float s[L::NT][4], d[L::NT][4];
+    gram_strip<C>(s, x, lo, mt, lane);
+    softmax_strip(s);
+#pragma unroll
+    for (int j = 0; j < L::NT; ++j) d[j][0] = d[j][1] = d[j][2] = d[j][3] = 0.f;
+    {
+      uint32_t a[4];   // A[c1][p] = dO[p][c1] through ldmatrix.trans
+      ldmatrix_x4_trans(a, dO + ((lane & 7) + (lane >> 4) * 8) * L::DS + mt * 16 +
+                               ((lane >> 3) & 1) * 8);
+      const int br = (lane & 7) + ((lane >> 3) & 1) * 8;
+#pragma unroll
+      for (int nb = 0; nb < C / 16; ++nb) {
+        uint32_t b[4];
+        ldmatrix_x4_trans(b, x + br * L::XS + 2 * C + nb * 16 + (lane >> 4) * 8);
+        mma_bf16(d[2 * nb], a, b[0], b[1]);
+        mma_bf16(d[2 * nb + 1], a, b[2], b[3]);
+      }
+    }
+    float rs0 = 0.f, rs1 = 0.f;
+#pragma unroll
+    for (int j = 0; j < L::NT; ++j) {
+      rs0 += s[j][0] * d[j][0] + s[j][1] * d[j][1];
+      rs1 += s[j][2] * d[j][2] + s[j][3] * d[j][3];
+    }
+    rs0 = quad_sum(rs0);
+    rs1 = quad_sum(rs1);
+#pragma unroll
+    for (int j = 0; j < L::NT; ++j) {
+      d[j][0] = s[j][0] * (d[j][0] - rs0);
+      d[j][1] = s[j][1] * (d[j][1] - rs0);
+      d[j][2] = s[j][2] * (d[j][2] - rs1);
+      d[j][3] = s[j][3] * (d[j][3] - rs1);
+    }
+    store_frags<L::NT>(S, nullptr, L::DS, mt * 16, 0, s, 1.f, lane);
+    store_frags<L::NT>(dlh, dll, L::DS, mt * 16, 0, d, 1.f, lane);
+    // dqn[p][c1], c1 in 16 mt.. = sum_c2 kn[p][c2] dL[c1][c2], from registers
+    float acc[2][4] = {};
+    rows_times_strip_t<C, true>(acc, x + C, L::XS, lo + C, L::LS, d, lane);
+    put_strip_f32(f, L::FS, mt * 16, acc, lane);
+    __syncthreads();
+
+    // dv[p][c2] = sum_c1 dO[p][c1] S[c1][c2] and dkn[p][c2] = sum_c1
+    // qn[p][c1] dL[c1][c2], c2 in 16 mt..; dv over the v columns (read
+    // before the barrier above)
+    float dv[2][4] = {};
+    rows_times_square<C, false>(dv, dO, L::DS, nullptr, 0, S, nullptr, mt, lane);
+    store_frags<2>(x, nullptr, L::XS, 0, 2 * C + mt * 16, dv, 1.f, lane);
+#pragma unroll
+    for (int h = 0; h < 2; ++h) acc[h][0] = acc[h][1] = acc[h][2] = acc[h][3] = 0.f;
+    rows_times_square<C, true>(acc, x, L::XS, lo, L::LS, dlh, dll, mt, lane);
+    put_strip_f32(f, L::FS, C + mt * 16, acc, lane);
+    __syncthreads();
+
+    // L2-normalize backward, fp32: du = (dun - un <un, dun> sel) inv, un =
+    // hi + lo; over the thread's own share of the qn / kn row, 8 channels
+    // at a time (the dot, then du over the same values read again)
+    {
+      const float* g = sF + slot.wl * L::F + slot.p * L::FS + slot.col();
+      float un[8], dun[8], dot = 0.f;
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        norm_bwd_load(sx + 8 * h, slo + 8 * h, g + 8 * h, un, dun);
+#pragma unroll
+        for (int i = 0; i < 8; ++i) dot = fmaf(un[i], dun[i], dot);
+      }
+      dot = slot_sum<C>(dot) * sel;
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        norm_bwd_load(sx + 8 * h, slo + 8 * h, g + 8 * h, un, dun);
+        uint32_t du[4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+          du[i] = pack_bf16((dun[2 * i] - un[2 * i] * dot) * inv,
+                            (dun[2 * i + 1] - un[2 * i + 1] * dot) * inv);
+        *reinterpret_cast<uint4*>(sx + 8 * h) = make_uint4(du[0], du[1], du[2], du[3]);
+      }
+    }
+    __syncthreads();
+    store_windows(dqkv, 3 * C, sX, L::X, L::XS, L::NWR, win0, n_windows, H, W);
+    __syncthreads();
+  }
+}
+
+// ---------------------------------------------------------------------------
+
+long long window_count(int B, int H, int W) { return (long long)B * (H / kWs) * (W / kWs); }
+
+template <int C>
+int launch_fwd_f32(const void* qkv, void* out, int B, int H, int W, float eps,
+                   cudaStream_t stream) {
   using L = Layout<C>;
   const int smem = L::F_TOTAL * (int)sizeof(float);
-  auto kernel = mid_fwd_kernel<T, C>;
+  auto kernel = mid_fwd_kernel<float, C>;
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
-  const long long n_windows = (long long)B * (H / kWs) * (W / kWs);
+  const long long n_windows = window_count(B, H, W);
   const long long grid = (n_windows + L::NW - 1) / L::NW;
   if (grid > INT_MAX) return (int)cudaErrorInvalidConfiguration;
-  kernel<<<(unsigned)grid, kThreads, smem, stream>>>(static_cast<const T*>(qkv),
-                                                     static_cast<T*>(out), H, W, n_windows, eps);
+  kernel<<<(unsigned)grid, kThreads, smem, stream>>>(static_cast<const float*>(qkv),
+                                                     static_cast<float*>(out), H, W, n_windows, eps);
   return (int)cudaGetLastError();
 }
 
-template <typename T, int C>
-int launch_bwd(const void* qkv, const void* dout, void* dqkv, int B, int H, int W, float eps,
-               cudaStream_t stream) {
+template <int C>
+int launch_bwd_f32(const void* qkv, const void* dout, void* dqkv, int B, int H, int W, float eps,
+                   cudaStream_t stream) {
   using L = Layout<C>;
   const int smem = L::B_TOTAL * (int)sizeof(float);
-  auto kernel = mid_bwd_kernel<T, C>;
+  auto kernel = mid_bwd_kernel<float, C>;
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
-  const long long n_windows = (long long)B * (H / kWs) * (W / kWs);
+  const long long n_windows = window_count(B, H, W);
   const long long grid = (n_windows + L::NW - 1) / L::NW;
   if (grid > INT_MAX) return (int)cudaErrorInvalidConfiguration;
   kernel<<<(unsigned)grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(qkv), static_cast<const T*>(dout), static_cast<T*>(dqkv), H, W,
-      n_windows, eps);
+      static_cast<const float*>(qkv), static_cast<const float*>(dout), static_cast<float*>(dqkv),
+      H, W, n_windows, eps);
   return (int)cudaGetLastError();
 }
 
-template <typename T>
-int fwd_c(const void* qkv, void* out, int B, int H, int W, int C, float eps, cudaStream_t s) {
+template <int C>
+int launch_fwd_bf16(const void* qkv, void* out, int B, int H, int W, float eps,
+                    cudaStream_t stream) {
+  using L = MmaLayout<C>;
+  auto kernel = mid_fwd_mma_kernel<C>;
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, L::F_BYTES);
+  if (err != cudaSuccess) return (int)err;
+  const long long n_windows = window_count(B, H, W);
+  const long long grid = (n_windows + L::NWB - 1) / L::NWB;
+  if (grid > INT_MAX) return (int)cudaErrorInvalidConfiguration;
+  kernel<<<(unsigned)grid, kThreads, L::F_BYTES, stream>>>(
+      static_cast<const bf16*>(qkv), static_cast<bf16*>(out), H, W, n_windows, eps);
+  return (int)cudaGetLastError();
+}
+
+template <int C>
+int launch_bwd_bf16(const void* qkv, const void* dout, void* dqkv, int B, int H, int W, float eps,
+                    cudaStream_t stream) {
+  using L = MmaLayout<C>;
+  auto kernel = mid_bwd_mma_kernel<C>;
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, L::B_BYTES);
+  if (err != cudaSuccess) return (int)err;
+  const long long n_windows = window_count(B, H, W);
+  const long long grid = (n_windows + L::NWB - 1) / L::NWB;
+  if (grid > INT_MAX) return (int)cudaErrorInvalidConfiguration;
+  kernel<<<(unsigned)grid, kThreads, L::B_BYTES, stream>>>(
+      static_cast<const bf16*>(qkv), static_cast<const bf16*>(dout), static_cast<bf16*>(dqkv), H,
+      W, n_windows, eps);
+  return (int)cudaGetLastError();
+}
+
+int fwd_c(const void* qkv, void* out, int B, int H, int W, int C, int dtype, float eps,
+          cudaStream_t s) {
+  const bool f32 = dtype == kF32;
+  if (!f32 && dtype != kBF16) return (int)cudaErrorInvalidValue;
   switch (C) {
-    case 16: return launch_fwd<T, 16>(qkv, out, B, H, W, eps, s);
-    case 32: return launch_fwd<T, 32>(qkv, out, B, H, W, eps, s);
-    case 64: return launch_fwd<T, 64>(qkv, out, B, H, W, eps, s);
+    case 16: return f32 ? launch_fwd_f32<16>(qkv, out, B, H, W, eps, s)
+                        : launch_fwd_bf16<16>(qkv, out, B, H, W, eps, s);
+    case 32: return f32 ? launch_fwd_f32<32>(qkv, out, B, H, W, eps, s)
+                        : launch_fwd_bf16<32>(qkv, out, B, H, W, eps, s);
+    case 64: return f32 ? launch_fwd_f32<64>(qkv, out, B, H, W, eps, s)
+                        : launch_fwd_bf16<64>(qkv, out, B, H, W, eps, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }
 
-template <typename T>
-int bwd_c(const void* qkv, const void* dout, void* dqkv, int B, int H, int W, int C, float eps,
-          cudaStream_t s) {
+int bwd_c(const void* qkv, const void* dout, void* dqkv, int B, int H, int W, int C, int dtype,
+          float eps, cudaStream_t s) {
+  const bool f32 = dtype == kF32;
+  if (!f32 && dtype != kBF16) return (int)cudaErrorInvalidValue;
   switch (C) {
-    case 16: return launch_bwd<T, 16>(qkv, dout, dqkv, B, H, W, eps, s);
-    case 32: return launch_bwd<T, 32>(qkv, dout, dqkv, B, H, W, eps, s);
-    case 64: return launch_bwd<T, 64>(qkv, dout, dqkv, B, H, W, eps, s);
+    case 16: return f32 ? launch_bwd_f32<16>(qkv, dout, dqkv, B, H, W, eps, s)
+                        : launch_bwd_bf16<16>(qkv, dout, dqkv, B, H, W, eps, s);
+    case 32: return f32 ? launch_bwd_f32<32>(qkv, dout, dqkv, B, H, W, eps, s)
+                        : launch_bwd_bf16<32>(qkv, dout, dqkv, B, H, W, eps, s);
+    case 64: return f32 ? launch_bwd_f32<64>(qkv, dout, dqkv, B, H, W, eps, s)
+                        : launch_bwd_bf16<64>(qkv, dout, dqkv, B, H, W, eps, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -330,18 +845,16 @@ int bwd_c(const void* qkv, const void* dout, void* dqkv, int B, int H, int W, in
 }  // namespace mstgan
 
 // Plain C entry points (loaded with ctypes). qkv and dqkv are (B, H, W, 3C),
-// out and dout (B, H, W, C), all contiguous, of one type (dtype 0 = fp32,
-// 1 = bf16), with H % 4 == W % 4 == 0 and C in {16, 32, 64}. Each launches
-// on `stream` and returns cudaGetLastError() (0 on success).
+// out and dout (B, H, W, C), all contiguous and 16-byte aligned, of one type
+// (dtype 0 = fp32, 1 = bf16), with H % 4 == W % 4 == 0 and C in {16, 32,
+// 64}. Each launches on `stream` and returns cudaGetLastError() (0 on
+// success).
 extern "C" int window_attention_train_fwd_launch(const void* qkv, void* out, int B, int H,
                                                  int W, int C, int dtype, float eps,
                                                  int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == mstgan::kF32) return mstgan::fwd_c<float>(qkv, out, B, H, W, C, eps, s);
-  if (dtype == mstgan::kBF16) return mstgan::fwd_c<__nv_bfloat16>(qkv, out, B, H, W, C, eps, s);
-  return (int)cudaErrorInvalidValue;
+  return mstgan::fwd_c(qkv, out, B, H, W, C, dtype, eps, static_cast<cudaStream_t>(stream));
 }
 
 extern "C" int window_attention_train_bwd_launch(const void* qkv, const void* dout,
@@ -350,10 +863,6 @@ extern "C" int window_attention_train_bwd_launch(const void* qkv, const void* do
                                                  void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == mstgan::kF32)
-    return mstgan::bwd_c<float>(qkv, dout, dqkv, B, H, W, C, eps, s);
-  if (dtype == mstgan::kBF16)
-    return mstgan::bwd_c<__nv_bfloat16>(qkv, dout, dqkv, B, H, W, C, eps, s);
-  return (int)cudaErrorInvalidValue;
+  return mstgan::bwd_c(qkv, dout, dqkv, B, H, W, C, dtype, eps,
+                       static_cast<cudaStream_t>(stream));
 }

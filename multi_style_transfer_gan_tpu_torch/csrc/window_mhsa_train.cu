@@ -11,25 +11,49 @@
 //   dq = ds k scale ;  dk = ds^T q scale
 //
 // What bounds it. Per token and head the forward reads 96 values and writes
-// 32 while doing 2 x 64 x 32 x 2 = 8 kflop: about 32 flop per byte in bf16,
-// under the card's bf16 ridge (~295 flop/B) but above the fp32 CUDA-core
-// ridge (~20 flop/B); the backward does 2.5x the work for 128 values read and
-// 96 written. This first version computes with fp32 FMAs from shared memory,
-// so its arithmetic and shared-memory loads bound it; tensor-core tiles are
-// later work. What the design secures is the traffic: the window partition
-// and merge are address arithmetic, each of qkv and dO is read once, the
-// 64 x 64 probabilities live only in shared memory and are recomputed in the
-// backward, not saved.
+// 32 while doing 2 x 64 x 32 x 2 = 8 kflop, the backward 2.5x the work for
+// 128 values read and 96 written: ~32 flop per byte in bf16, far under the
+// card's bf16 tensor-core ridge (~295 flop/B), so the bound is the bytes:
+// 0.0138 ms for forward + backward at qkv (8, 64, 64, 192) (the matrix
+// products alone would take 0.0019 ms at 989 TFLOP/s). Each of qkv and dO
+// is read once, the window partition and merge are address arithmetic, and
+// the 64 x 64 probabilities never leave the chip: the backward recomputes
+// them.
 //
-// Design. One block of 256 threads per (window, head). q, k, v (and dO) are
-// staged as fp32 rows of 32 with an odd stride; the 64 x 64 score tile has
-// an odd stride too, so row and column walks fall in distinct banks. Each
-// row softmax (and its backward row sum) is one warp. Softmax and every sum
-// are fp32; bf16 inputs are rounded once at each output.
+// The first design (kept as the fp32 instantiation below) did every product
+// as fp32 FMAs with both operands read from shared memory, two wavefronts
+// per warp FMA against one wavefront per SM and clock: 0.94 G FMAs per
+// forward + backward at batch 8 are ~59 M wavefronts, ~0.25 ms at ~1.75
+// GHz over 132 SMs, ~90% of its measured 0.284 ms.
+//
+// bf16 design. One block of 4 warps per (window, head); each warp owns 16
+// query rows, FlashAttention-2 style, and every product is
+// mma.sync.m16n8k16 (bf16 in, fp32 sums; csrc/mma.cuh). q, k, v (and dO)
+// are staged as bf16 with 16-byte cp.async into rows padded to 80 bytes, so
+// ldmatrix is free of bank conflicts. Forward: the 16 x 64 score strip in
+// registers, row max and sum by quad shuffles, the exponentials repacked
+// from accumulators into A fragments, o = p v with v through ldmatrix.trans,
+// o staged in shared memory for 16-byte stores. Backward: scores and p
+// recomputed, dp = dO v^T, the row term and ds in registers, dq = ds k from
+// register fragments; p and ds then go to shared memory once (bf16), and
+// each warp forms 16 key rows of dk = ds^T q and dv = p^T dO through
+// ldmatrix.trans. Softmax and every sum are fp32, outputs rounded once.
+// Operands rounded to bf16 inside the kernel: the exponentials in o = p v
+// and ds in dq, dk are split as hi + lo bf16 (two products, ~2^-16
+// relative): on a saturated softmax (qkv x 8) one bf16 term takes dq and
+// dk to 4.8x the bf16 bound and o to 0.74 of it, the split to 0.65 and
+// 0.49 (devtools/train_kernel_rounding.py). p in dv = p^T dO is one bf16
+// term. q, k, v and dO are the bf16 inputs themselves.
+//
+// fp32 stays exact fp32: the fp32 instantiation keeps the first design's FMA
+// bodies unchanged (no tensor cores, no TF32). Its blocks of 256 threads
+// stage fp32 rows of 32 with an odd stride and a 64 x 64 score tile with an
+// odd stride; each row softmax (and its backward row sum) is one warp.
 #include <climits>
 #include <cmath>
 
 #include "common.cuh"
+#include "mma.cuh"
 
 namespace mstgan {
 namespace {
@@ -58,6 +82,10 @@ __device__ __forceinline__ long long token_offset(long long win, int t, int H, i
   const int col = (rem % nw) * kWin + t % kWin;
   return (b * H + row) * (long long)W + col;
 }
+
+// ---------------------------------------------------------------------------
+// fp32: the FMA bodies
+// ---------------------------------------------------------------------------
 
 // Stages rows of 32 channels starting at `first` of a (.., stride) tensor.
 template <typename T>
@@ -172,31 +200,300 @@ mhsa_bwd_kernel(const T* __restrict__ qkv, const T* __restrict__ dout, T* __rest
   }
 }
 
-template <typename T>
-int launch_fwd(const void* qkv, void* out, int B, int H, int W, cudaStream_t stream) {
+// ---------------------------------------------------------------------------
+// bf16: warp MMA
+// ---------------------------------------------------------------------------
+
+using bf16 = __nv_bfloat16;
+constexpr int kMmaThreads = 128;          // 4 warps x 16 query rows
+constexpr int RS = kHd + 8;               // staged token row: 80 bytes
+constexpr int QS = kTok + 8;              // 64-wide p / ds row: 144 bytes
+constexpr int TILE = kTok * RS;           // one staged 64 x 32 tile
+constexpr int SQUARE = kTok * QS;         // one 64 x 64 tile
+constexpr int MMA_F_BYTES = 3 * TILE * (int)sizeof(bf16);                 // q, k, v
+constexpr int MMA_B_BYTES = (4 * TILE + 3 * SQUARE) * (int)sizeof(bf16);  // + dO, p, ds hi, lo
+
+// Stages n 64 x 32 tiles of the window with 16-byte cp.async: tile i holds
+// channels first + i * kC .. +31 of each token's row of `src` (row stride
+// `stride` values) and lands at dst + i * TILE.
+__device__ void stage_tiles(const bf16* __restrict__ src, int stride, int first, int n,
+                            bf16* dst, long long win, int H, int W) {
+  for (int e = threadIdx.x; e < kTok * n * 4; e += kMmaThreads) {
+    const int t = e / (n * 4), i = (e / 4) % n, part = e % 4;
+    cp_async16(dst + i * TILE + t * RS + part * 8,
+               src + token_offset(win, t, H, W) * stride + first + i * kC + part * 8);
+  }
+}
+
+// The inverse for the 16 token rows t0.. of one warp: staged tile i goes to
+// channels first + i * kC of each token's row of `dst`.
+__device__ void store_tiles(bf16* __restrict__ dst, int stride, int first, int n,
+                            const bf16* src, int t0, long long win, int H, int W, int lane) {
+  for (int e = lane; e < 16 * n * 4; e += 32) {
+    const int t = t0 + e / (n * 4), i = (e / 4) % n, part = e % 4;
+    *reinterpret_cast<uint4*>(dst + token_offset(win, t, H, W) * stride + first + i * kC +
+                              part * 8) =
+        *reinterpret_cast<const uint4*>(src + i * TILE + t * RS + part * 8);
+  }
+}
+
+// A fragments (two k-steps) of rows r0..r0+15 of a staged tile.
+__device__ __forceinline__ void load_a(uint32_t (&a)[2][4], const bf16* tile, int r0, int lane) {
+#pragma unroll
+  for (int kk = 0; kk < 2; ++kk)
+    ldmatrix_x4(a[kk], tile + (r0 + (lane & 15)) * RS + kk * 16 + (lane >> 4) * 8);
+}
+
+// acc (16 x 64, 8 n-tiles) = a (16 x 32) y^T, y a staged [token][d] tile.
+__device__ __forceinline__ void times_tile_t(float (&acc)[8][4], const uint32_t (&a)[2][4],
+                                             const bf16* y, int lane) {
+#pragma unroll
+  for (int j = 0; j < 8; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
+#pragma unroll
+  for (int kk = 0; kk < 2; ++kk)
+#pragma unroll
+    for (int nb = 0; nb < 4; ++nb) {
+      uint32_t b[4];
+      ldmatrix_x4(b, y + (nb * 16 + (lane & 7) + (lane >> 4) * 8) * RS + kk * 16 +
+                         ((lane >> 3) & 1) * 8);
+      mma_bf16(acc[2 * nb], a[kk], b[0], b[1]);
+      mma_bf16(acc[2 * nb + 1], a[kk], b[2], b[3]);
+    }
+}
+
+// acc (16 x 32, 4 n-tiles) += x (16 x 64, C fragments) y, y a staged
+// [token][d] tile read through ldmatrix.trans; x repacked as A fragments,
+// as hi + lo bf16 when kSplit.
+template <bool kSplit>
+__device__ __forceinline__ void strip_times_tile(float (&acc)[4][4], const float (&x)[8][4],
+                                                 const bf16* y, int lane) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {
+    uint32_t hi[4], lo[4];
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {   // a0..a3: (n-tile 2kk, row g), (2kk, g+8), (2kk+1, g), ...
+      const float c0 = x[2 * kk + r / 2][(r % 2) * 2], c1 = x[2 * kk + r / 2][(r % 2) * 2 + 1];
+      if (kSplit) pack_bf16_split(c0, c1, hi[r], lo[r]);
+      else hi[r] = pack_bf16(c0, c1);
+    }
+#pragma unroll
+    for (int dp = 0; dp < 2; ++dp) {
+      uint32_t b[4];
+      ldmatrix_x4_trans(b, y + (kk * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * RS + dp * 16 +
+                               (lane >> 4) * 8);
+      mma_bf16(acc[2 * dp], hi, b[0], b[1]);
+      mma_bf16(acc[2 * dp + 1], hi, b[2], b[3]);
+      if (kSplit) {
+        mma_bf16(acc[2 * dp], lo, b[0], b[1]);
+        mma_bf16(acc[2 * dp + 1], lo, b[2], b[3]);
+      }
+    }
+  }
+}
+
+// acc (16 x 32: key rows k0..k0+15) += x^T y, x a [query][key] 64 x 64 tile
+// in shared memory (hi, and lo when kSplit), y a staged [query][d] tile.
+template <bool kSplit>
+__device__ __forceinline__ void square_t_times_tile(float (&acc)[4][4], const bf16* xh,
+                                                    const bf16* xl, const bf16* y, int k0,
+                                                    int lane) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {
+    uint32_t hi[4], lo[4];
+    const int off = (kk * 16 + (lane & 7) + (lane >> 4) * 8) * QS + k0 + ((lane >> 3) & 1) * 8;
+    ldmatrix_x4_trans(hi, xh + off);
+    if (kSplit) ldmatrix_x4_trans(lo, xl + off);
+#pragma unroll
+    for (int dp = 0; dp < 2; ++dp) {
+      uint32_t b[4];
+      ldmatrix_x4_trans(b, y + (kk * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * RS + dp * 16 +
+                               (lane >> 4) * 8);
+      mma_bf16(acc[2 * dp], hi, b[0], b[1]);
+      mma_bf16(acc[2 * dp + 1], hi, b[2], b[3]);
+      if (kSplit) {
+        mma_bf16(acc[2 * dp], lo, b[0], b[1]);
+        mma_bf16(acc[2 * dp + 1], lo, b[2], b[3]);
+      }
+    }
+  }
+}
+
+// exp((s - row max) scale) in place on a 16 x 64 strip of C fragments, and
+// the sums of the lane's two rows (g and g + 8).
+__device__ __forceinline__ void exp_rows(float (&s)[8][4], float scale, float& l0, float& l1) {
+  float m0 = -INFINITY, m1 = -INFINITY;
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    m0 = fmaxf(m0, fmaxf(s[j][0], s[j][1]));
+    m1 = fmaxf(m1, fmaxf(s[j][2], s[j][3]));
+  }
+  m0 = quad_max(m0);
+  m1 = quad_max(m1);
+  l0 = l1 = 0.f;
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    s[j][0] = expf((s[j][0] - m0) * scale);
+    s[j][1] = expf((s[j][1] - m0) * scale);
+    s[j][2] = expf((s[j][2] - m1) * scale);
+    s[j][3] = expf((s[j][3] - m1) * scale);
+    l0 += s[j][0] + s[j][1];
+    l1 += s[j][2] + s[j][3];
+  }
+  l0 = quad_sum(l0);
+  l1 = quad_sum(l1);
+}
+
+__global__ void __launch_bounds__(kMmaThreads)
+mhsa_fwd_mma_kernel(const bf16* __restrict__ qkv, bf16* __restrict__ out, int H, int W,
+                    float scale) {
+  extern __shared__ __align__(16) unsigned char smem_mma[];
+  bf16* sQ = reinterpret_cast<bf16*>(smem_mma);   // q, k, v tiles back to back
+  bf16* sK = sQ + TILE;
+  bf16* sV = sK + TILE;
+  const long long win = blockIdx.x / kHeads;
+  const int head = blockIdx.x % kHeads;
+  const int lane = threadIdx.x % 32, r0 = (threadIdx.x / 32) * 16;
+  stage_tiles(qkv, 3 * kC, head * kHd, 3, sQ, win, H, W);
+  cp_async_commit();
+  cp_async_wait<0>();
+  __syncthreads();
+
+  uint32_t qa[2][4];
+  load_a(qa, sQ, r0, lane);
+  float s[8][4];
+  times_tile_t(s, qa, sK, lane);
+  float l0, l1;
+  exp_rows(s, scale, l0, l1);
+  float o[4][4] = {};
+  strip_times_tile<true>(o, s, sV, lane);
+  l0 = 1.f / l0;
+  l1 = 1.f / l1;
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    o[j][0] *= l0;
+    o[j][1] *= l0;
+    o[j][2] *= l1;
+    o[j][3] *= l1;
+  }
+  // o through the warp's own q rows (read by no other warp) to 16-byte stores
+  __syncwarp();
+  store_frags<4>(sQ, nullptr, RS, r0, 0, o, 1.f, lane);
+  __syncwarp();
+  store_tiles(out, kC, head * kHd, 1, sQ, r0, win, H, W, lane);
+}
+
+__global__ void __launch_bounds__(kMmaThreads)
+mhsa_bwd_mma_kernel(const bf16* __restrict__ qkv, const bf16* __restrict__ dout,
+                    bf16* __restrict__ dqkv, int H, int W, float scale) {
+  extern __shared__ __align__(16) unsigned char smem_mma[];
+  bf16* sQ = reinterpret_cast<bf16*>(smem_mma);   // q, k, v, dO tiles back to back
+  bf16* sK = sQ + TILE;
+  bf16* sV = sK + TILE;
+  bf16* sDO = sV + TILE;
+  bf16* sP = sDO + TILE;                          // [query][key]: p, ds hi, ds lo
+  bf16* sDH = sP + SQUARE;
+  bf16* sDL = sDH + SQUARE;
+  const long long win = blockIdx.x / kHeads;
+  const int head = blockIdx.x % kHeads;
+  const int lane = threadIdx.x % 32, r0 = (threadIdx.x / 32) * 16;
+  stage_tiles(qkv, 3 * kC, head * kHd, 3, sQ, win, H, W);
+  stage_tiles(dout, kC, head * kHd, 1, sDO, win, H, W);
+  cp_async_commit();
+  cp_async_wait<0>();
+  __syncthreads();
+
+  // the warp's 16 query rows: p recomputed, dp = dO v^T, ds, dq = ds k
+  uint32_t a[2][4];
+  load_a(a, sQ, r0, lane);
+  float p[8][4];
+  times_tile_t(p, a, sK, lane);
+  float l0, l1;
+  exp_rows(p, scale, l0, l1);
+  l0 = 1.f / l0;
+  l1 = 1.f / l1;
+  load_a(a, sDO, r0, lane);
+  float ds[8][4];
+  times_tile_t(ds, a, sV, lane);
+  float rs0 = 0.f, rs1 = 0.f;
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    p[j][0] *= l0;
+    p[j][1] *= l0;
+    p[j][2] *= l1;
+    p[j][3] *= l1;
+    rs0 += p[j][0] * ds[j][0] + p[j][1] * ds[j][1];
+    rs1 += p[j][2] * ds[j][2] + p[j][3] * ds[j][3];
+  }
+  rs0 = quad_sum(rs0);
+  rs1 = quad_sum(rs1);
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    ds[j][0] = p[j][0] * (ds[j][0] - rs0);
+    ds[j][1] = p[j][1] * (ds[j][1] - rs0);
+    ds[j][2] = p[j][2] * (ds[j][2] - rs1);
+    ds[j][3] = p[j][3] * (ds[j][3] - rs1);
+  }
+  float dq[4][4] = {};
+  strip_times_tile<true>(dq, ds, sK, lane);
+  store_frags<8>(sP, nullptr, QS, r0, 0, p, 1.f, lane);
+  store_frags<8>(sDH, sDL, QS, r0, 0, ds, 1.f, lane);
+  __syncthreads();
+
+  // the warp's 16 key rows: dk = ds^T q, dv = p^T dO
+  float dk[4][4] = {}, dv[4][4] = {};
+  square_t_times_tile<true>(dk, sDH, sDL, sQ, r0, lane);
+  square_t_times_tile<false>(dv, sP, nullptr, sDO, r0, lane);
+  __syncthreads();
+  store_frags<4>(sQ, nullptr, RS, r0, 0, dq, scale, lane);
+  store_frags<4>(sK, nullptr, RS, r0, 0, dk, scale, lane);
+  store_frags<4>(sV, nullptr, RS, r0, 0, dv, 1.f, lane);
+  __syncwarp();
+  store_tiles(dqkv, 3 * kC, head * kHd, 3, sQ, r0, win, H, W, lane);
+}
+
+// ---------------------------------------------------------------------------
+
+int launch_fwd_f32(const void* qkv, void* out, long long grid, int H, int W, float scale,
+                   cudaStream_t stream) {
   const int smem = F_TOTAL * (int)sizeof(float);
-  auto kernel = mhsa_fwd_kernel<T>;
+  auto kernel = mhsa_fwd_kernel<float>;
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
-  const long long grid = (long long)B * (H / kWin) * (W / kWin) * kHeads;
-  if (grid > INT_MAX) return (int)cudaErrorInvalidConfiguration;
-  kernel<<<(unsigned)grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(qkv), static_cast<T*>(out), H, W, 1.f / sqrtf((float)kHd));
+  kernel<<<(unsigned)grid, kThreads, smem, stream>>>(static_cast<const float*>(qkv),
+                                                     static_cast<float*>(out), H, W, scale);
   return (int)cudaGetLastError();
 }
 
-template <typename T>
-int launch_bwd(const void* qkv, const void* dout, void* dqkv, int B, int H, int W,
-               cudaStream_t stream) {
+int launch_bwd_f32(const void* qkv, const void* dout, void* dqkv, long long grid, int H, int W,
+                   float scale, cudaStream_t stream) {
   const int smem = B_TOTAL * (int)sizeof(float);
-  auto kernel = mhsa_bwd_kernel<T>;
+  auto kernel = mhsa_bwd_kernel<float>;
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
-  const long long grid = (long long)B * (H / kWin) * (W / kWin) * kHeads;
-  if (grid > INT_MAX) return (int)cudaErrorInvalidConfiguration;
   kernel<<<(unsigned)grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(qkv), static_cast<const T*>(dout), static_cast<T*>(dqkv), H, W,
-      1.f / sqrtf((float)kHd));
+      static_cast<const float*>(qkv), static_cast<const float*>(dout),
+      static_cast<float*>(dqkv), H, W, scale);
+  return (int)cudaGetLastError();
+}
+
+int launch_fwd_bf16(const void* qkv, void* out, long long grid, int H, int W, float scale,
+                    cudaStream_t stream) {
+  cudaError_t err = cudaFuncSetAttribute(
+      mhsa_fwd_mma_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, MMA_F_BYTES);
+  if (err != cudaSuccess) return (int)err;
+  mhsa_fwd_mma_kernel<<<(unsigned)grid, kMmaThreads, MMA_F_BYTES, stream>>>(
+      static_cast<const bf16*>(qkv), static_cast<bf16*>(out), H, W, scale);
+  return (int)cudaGetLastError();
+}
+
+int launch_bwd_bf16(const void* qkv, const void* dout, void* dqkv, long long grid, int H, int W,
+                    float scale, cudaStream_t stream) {
+  cudaError_t err = cudaFuncSetAttribute(
+      mhsa_bwd_mma_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, MMA_B_BYTES);
+  if (err != cudaSuccess) return (int)err;
+  mhsa_bwd_mma_kernel<<<(unsigned)grid, kMmaThreads, MMA_B_BYTES, stream>>>(
+      static_cast<const bf16*>(qkv), static_cast<const bf16*>(dout), static_cast<bf16*>(dqkv),
+      H, W, scale);
   return (int)cudaGetLastError();
 }
 
@@ -204,22 +501,31 @@ bool supported(int H, int W, int C, int heads) {
   return C == kC && heads == kHeads && H % kWin == 0 && W % kWin == 0;
 }
 
+// One block per (window, head).
+long long grid_size(int B, int H, int W) {
+  return (long long)B * (H / kWin) * (W / kWin) * kHeads;
+}
+
 }  // namespace
 }  // namespace mstgan
 
 // Plain C entry points (loaded with ctypes). qkv and dqkv are (B, H, W, 3C),
-// out and dout (B, H, W, C), all contiguous, of one type (dtype 0 = fp32,
-// 1 = bf16), with C = 64 in 2 heads and H % 8 == W % 8 == 0. Each launches
-// on `stream` and returns cudaGetLastError() (0 on success).
+// out and dout (B, H, W, C), all contiguous and 16-byte aligned, of one type
+// (dtype 0 = fp32, 1 = bf16), with C = 64 in 2 heads and H % 8 == W % 8 ==
+// 0. Each launches on `stream` and returns cudaGetLastError() (0 on
+// success).
 extern "C" int window_mhsa_train_fwd_launch(const void* qkv, void* out, int B, int H, int W,
                                             int C, int heads, int dtype, int device,
                                             void* stream) {
   if (!mstgan::supported(H, W, C, heads)) return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
+  const long long grid = mstgan::grid_size(B, H, W);
+  if (grid > INT_MAX) return (int)cudaErrorInvalidConfiguration;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == mstgan::kF32) return mstgan::launch_fwd<float>(qkv, out, B, H, W, s);
-  if (dtype == mstgan::kBF16) return mstgan::launch_fwd<__nv_bfloat16>(qkv, out, B, H, W, s);
+  const float scale = 1.f / sqrtf((float)mstgan::kHd);
+  if (dtype == mstgan::kF32) return mstgan::launch_fwd_f32(qkv, out, grid, H, W, scale, s);
+  if (dtype == mstgan::kBF16) return mstgan::launch_fwd_bf16(qkv, out, grid, H, W, scale, s);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -229,9 +535,13 @@ extern "C" int window_mhsa_train_bwd_launch(const void* qkv, const void* dout, v
   if (!mstgan::supported(H, W, C, heads)) return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
+  const long long grid = mstgan::grid_size(B, H, W);
+  if (grid > INT_MAX) return (int)cudaErrorInvalidConfiguration;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == mstgan::kF32) return mstgan::launch_bwd<float>(qkv, dout, dqkv, B, H, W, s);
+  const float scale = 1.f / sqrtf((float)mstgan::kHd);
+  if (dtype == mstgan::kF32)
+    return mstgan::launch_bwd_f32(qkv, dout, dqkv, grid, H, W, scale, s);
   if (dtype == mstgan::kBF16)
-    return mstgan::launch_bwd<__nv_bfloat16>(qkv, dout, dqkv, B, H, W, s);
+    return mstgan::launch_bwd_bf16(qkv, dout, dqkv, grid, H, W, scale, s);
   return (int)cudaErrorInvalidValue;
 }

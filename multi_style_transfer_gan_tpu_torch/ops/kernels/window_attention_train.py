@@ -112,12 +112,13 @@ def _check(qkv: torch.Tensor):
 
 def window_attention_mid_fwd(qkv: torch.Tensor, eps: float = 1e-12):
     """Forward of the mid. A CPU tensor takes the plain version; a CUDA
-    tensor (contiguous fp32 or bf16, C in 16/32/64) launches the kernel or
-    raises."""
+    tensor (contiguous, 16-byte aligned, fp32 or bf16, C in 16/32/64)
+    launches the kernel or raises."""
     _check(qkv)
     if qkv.device.type == "cpu":
         return window_attention_mid_plain(qkv, eps)
-    check_cuda_args("window_attention_mid_fwd", qkv, {})
+    # the bf16 kernels stage with 16-byte copies
+    check_cuda_args("window_attention_mid_fwd", qkv, {"qkv": (qkv, qkv.shape)})
     B, H, W, C3 = qkv.shape
     out = torch.empty((B, H, W, C3 // 3), device=qkv.device, dtype=qkv.dtype)
     if out.numel():
@@ -141,7 +142,8 @@ def window_attention_mid_bwd(qkv: torch.Tensor, d_out: torch.Tensor,
         return window_attention_mid_backward_plain(qkv, d_out, eps)
     B, H, W, C3 = qkv.shape
     check_cuda_args("window_attention_mid_bwd", qkv,
-                    {"d_out": (d_out, (B, H, W, C3 // 3))}, align=1)
+                    {"qkv": (qkv, qkv.shape),
+                     "d_out": (d_out, (B, H, W, C3 // 3))})
     dqkv = torch.empty_like(qkv, memory_format=torch.contiguous_format)
     if dqkv.numel():
         rc = _build.kernel("window_attention_train_bwd")(

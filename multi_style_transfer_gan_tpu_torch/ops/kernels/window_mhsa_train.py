@@ -98,12 +98,13 @@ def _check(qkv: torch.Tensor, heads: int):
 
 def window_mhsa_fwd(qkv: torch.Tensor, heads: int) -> torch.Tensor:
     """Forward of the mid. A CPU tensor takes the plain version; a CUDA
-    tensor (contiguous fp32 or bf16, C = 64 in 2 heads, H % 8 == W % 8 ==
-    0) launches the kernel or raises."""
+    tensor (contiguous, 16-byte aligned, fp32 or bf16, C = 64 in 2 heads,
+    H % 8 == W % 8 == 0) launches the kernel or raises."""
     _check(qkv, heads)
     if qkv.device.type == "cpu":
         return window_mhsa_plain(qkv, heads)
-    check_cuda_args("window_mhsa_fwd", qkv, {})
+    # the bf16 kernels stage with 16-byte copies
+    check_cuda_args("window_mhsa_fwd", qkv, {"qkv": (qkv, qkv.shape)})
     B, H, W, C3 = qkv.shape
     out = torch.empty((B, H, W, C3 // 3), device=qkv.device, dtype=qkv.dtype)
     if out.numel():
@@ -127,7 +128,8 @@ def window_mhsa_bwd(qkv: torch.Tensor, d_out: torch.Tensor,
         return window_mhsa_backward_plain(qkv, d_out, heads)
     B, H, W, C3 = qkv.shape
     check_cuda_args("window_mhsa_bwd", qkv,
-                    {"d_out": (d_out, (B, H, W, C3 // 3))}, align=1)
+                    {"qkv": (qkv, qkv.shape),
+                     "d_out": (d_out, (B, H, W, C3 // 3))})
     dqkv = torch.empty_like(qkv, memory_format=torch.contiguous_format)
     if dqkv.numel():
         rc = _build.kernel("window_mhsa_train_bwd")(

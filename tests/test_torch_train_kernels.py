@@ -61,6 +61,20 @@ def _attn_case(rng, shape, zero_window):
     return x, w
 
 
+def _stress(qkv, stress, win):
+    """The training kernels' stress inputs on a (B, H, W, 3C) array, in
+    place: "saturated" scales the last batch entry by 8 (a saturated
+    softmax in the MHSA), "small" scales the q and k of the window below
+    [0, :win, :win] to norms ~1e-3 (above eps; the normalize backward
+    multiplies by ~1e3)."""
+    C = qkv.shape[-1] // 3
+    if stress == "saturated":
+        qkv[-1] *= 8.0
+    elif stress == "small":
+        qkv[0, win:2 * win, :win, :2 * C] *= 1e-3 / np.sqrt(C)
+    return qkv
+
+
 def _local_attention(w):
     """A LocalAttention module holding the JAX-layout weights ``w``."""
     C = w["proj.bias"].shape[0]
@@ -77,17 +91,27 @@ def _local_attention(w):
 # row 11: the channel-attention mid, against the JAX package
 # ---------------------------------------------------------------------------
 
-@pytest.mark.parametrize("shape,zero_window", [
-    ((2, 16, 12, 16), False),
-    ((1, 16, 16, 64), False),
-    ((1, 8, 32, 16), True),
+@pytest.mark.parametrize("shape,zero_window,stress", [
+    pytest.param((2, 16, 12, 16), False, None, id="shape0-False"),
+    pytest.param((1, 16, 16, 64), False, None, id="shape1-False"),
+    pytest.param((1, 8, 32, 16), True, None, id="shape2-True"),
+    pytest.param((2, 8, 16, 32), False, "saturated", id="saturated"),
+    pytest.param((1, 16, 8, 32), False, "small", id="small-q-k"),
 ])
-def test_local_attention_train_route_matches_jax(rng, shape, zero_window):
+def test_local_attention_train_route_matches_jax(rng, shape, zero_window,
+                                                 stress):
     """The module's training route (1x1 convs in autograd around the mid's
     Function) == JAX window_channel_attention_train (Pallas, interpret
     mode) and == _attention_math under jax.grad: the forward and all five
-    gradients of a quadratic loss."""
+    gradients of a quadratic loss. The stress cases scale x (x 8 in the
+    last batch entry; x 1e-3 in the window below the first, with the q and
+    k bias zero so that window's q and k have norms ~1e-3)."""
     x, w = _attn_case(rng, shape, zero_window)
+    if stress == "saturated":
+        x[-1] *= 8.0
+    elif stress == "small":
+        x[0, 4:8, :4] *= 1e-3
+        w["qkv.bias"][:2 * shape[-1]] = 0.0
     jargs = (jnp.asarray(x), *(jnp.asarray(w[k]) for k in
                                ("qkv.weight", "qkv.bias", "proj.weight",
                                 "proj.bias")))
@@ -121,18 +145,28 @@ def test_local_attention_train_route_matches_jax(rng, shape, zero_window):
 # row 12: the window-MHSA mid, against the JAX package
 # ---------------------------------------------------------------------------
 
-@pytest.mark.parametrize("shape,heads", [((2, 16, 16, 48), 1),
-                                         ((1, 8, 16, 192), 2)])
-def test_window_mhsa_train_matches_jax(rng, shape, heads):
-    qkv = rng.standard_normal(shape).astype(np.float32)
+@pytest.mark.parametrize("shape,heads,stress", [
+    pytest.param((2, 16, 16, 48), 1, None, id="shape0-1"),
+    pytest.param((1, 8, 16, 192), 2, None, id="shape1-2"),
+    pytest.param((2, 8, 16, 192), 2, "saturated", id="saturated"),
+    pytest.param((1, 16, 8, 192), 2, "small", id="small-q-k"),
+])
+def test_window_mhsa_train_matches_jax(rng, shape, heads, stress):
+    qkv = _stress(rng.standard_normal(shape).astype(np.float32), stress, 8)
     ref = jax_mhsa_train(jnp.asarray(qkv), 8, heads, True)
     ref_g = jax.grad(lambda t: jnp.sum(jax_mhsa_train(t, 8, heads, True) ** 2))(
         jnp.asarray(qkv))
     t = torch.from_numpy(qkv).requires_grad_(True)
     out = window_mhsa_train(t, heads)
     (out ** 2).sum().backward()
-    np.testing.assert_allclose(out.detach().numpy(), np.asarray(ref), **FWD_TOL)
-    np.testing.assert_allclose(t.grad.numpy(), np.asarray(ref_g), **GRAD_TOL)
+    for got, want, tol in ((out.detach().numpy(), np.asarray(ref), FWD_TOL),
+                           (t.grad.numpy(), np.asarray(ref_g), GRAD_TOL)):
+        if stress == "saturated":
+            # scores 64x larger: fp32 rounding of them moves every output by
+            # ~1e-7 of the array's largest value, so the absolute part of the
+            # tolerance is taken relative to that value
+            tol = dict(tol, atol=tol["atol"] * np.abs(want).max())
+        np.testing.assert_allclose(got, want, **tol)
 
 
 # ---------------------------------------------------------------------------
@@ -258,8 +292,11 @@ def cuda():
     return torch.device("cuda")
 
 
-# bf16: both sides compute in fp32 from the same bf16 inputs and round once,
-# so they may differ by one bf16 rounding of each output plus fp32 order.
+# bf16: the plain versions compute in fp32 from the bf16 inputs and round
+# once; the tensor-core kernels also round operands they form (S, p as one
+# bf16 term; qn, kn, dL, the exponentials, ds as hi + lo pairs), with fp32
+# sums. The bound is the same as for one rounding of each output plus fp32
+# order (chip_smoke.py's BF16_ATOL, BF16_RTOL).
 BF16_TOL = dict(atol=3e-2, rtol=2 ** -7)
 
 _KERNELS = {
@@ -272,15 +309,27 @@ _KERNELS = {
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("stress", [None, "saturated", "small"])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("name,shape", [("attention", (2, 16, 16, 48)),
-                                        ("attention", (1, 16, 32, 96)),
-                                        ("attention", (3, 8, 12, 192)),
-                                        ("mhsa", (2, 16, 24, 192))])
-def test_train_kernel_matches_plain(rng, cuda, name, shape, dtype):
+@pytest.mark.parametrize("name,shape", [
+    ("attention", (2, 16, 16, 48)),
+    ("attention", (1, 16, 32, 96)),
+    ("attention", (3, 8, 12, 192)),
+    ("mhsa", (2, 16, 24, 192)),
+    # the shapes of a bf16 train step at 256^2, batch 8
+    ("attention", (8, 128, 128, 96)),
+    ("attention", (8, 64, 64, 192)),
+    ("attention", (8, 256, 256, 48)),
+    ("mhsa", (8, 64, 64, 192)),
+])
+def test_train_kernel_matches_plain(rng, cuda, name, shape, dtype, stress):
+    """Kernel vs plain, forward and backward, one all-zero window in every
+    input; each call must launch its kernel once (a case cannot pass on the
+    plain version)."""
     fwd, bwd, fwd_plain, bwd_plain, extra, win = _KERNELS[name]
     qkv = rng.standard_normal(shape).astype(np.float32)
     qkv[0, :win, :win] = 0.0
+    qkv = _stress(qkv, stress, win)
     g = rng.standard_normal(shape[:3] + (shape[3] // 3,)).astype(np.float32)
     qkv = torch.from_numpy(qkv).to(cuda, dtype)
     g = torch.from_numpy(g).to(cuda, dtype)
@@ -291,6 +340,12 @@ def test_train_kernel_matches_plain(rng, cuda, name, shape, dtype):
     assert torch.isfinite(out).all() and torch.isfinite(dqkv).all()
     fwd_tol = dict(atol=1e-4, rtol=0) if dtype == torch.float32 else BF16_TOL
     bwd_tol = dict(atol=2e-4, rtol=0) if dtype == torch.float32 else BF16_TOL
+    if dtype == torch.float32 and stress == "small":
+        # the small window's gradients are ~1e3 (inv ~ 1e3): there fp32
+        # itself is good to ~3e-7 relative (the plain version misses a
+        # float64 evaluation by 3.5e-4 on 1.3e3 at (2, 16, 16, 48)), so the
+        # absolute 2e-4 gains a relative term of a few fp32 ulps
+        bwd_tol = dict(atol=2e-4, rtol=2 ** -20)
     torch.testing.assert_close(out.float(), fwd_plain(qkv, *extra).float(),
                                **fwd_tol)
     torch.testing.assert_close(dqkv.float(),
