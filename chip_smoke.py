@@ -11,11 +11,17 @@ hand-written kernel on the way:
 1. build: all six CUDA sources compile from ``csrc/`` at once, one nvcc
    each;
 2. window channel attention, kernel vs plain PyTorch at every shape the
-   generator gives it at canvas 256 and 512 (fp32 with TF32 off, and bf16);
+   generator gives it at canvas 256 and 512 (fp32 with TF32 off, and bf16),
+   on three inputs each (random, a flat window with a saturated softmax, a
+   window whose q and k have norms ~1e-3 under zero q and k biases), every
+   one with an all-zero window;
 3. the same op on packed rows (the packed engine's layout), kernel vs
-   plain at every packed-engine shape, beside the NHWC kernel's time at the
-   same windows; the window relayout, kernel vs plain, bit-exact;
-4. the fused transformer block, kernel vs plain, including a ragged grid;
+   plain at every packed-engine shape on the same three inputs, beside the
+   NHWC kernel's time at the same windows; the window relayout, kernel vs
+   plain, bit-exact;
+4. the fused transformer block, kernel vs plain, including a ragged grid,
+   on a random input and on one with 16-fold scores (a saturated softmax),
+   each with an all-zero window;
 5. the training kernels (channel-attention mid, window-MHSA mid), forward
    and backward, kernel vs plain at every training shape on three inputs
    (random, a saturated softmax, a window whose q and k have norms ~1e-3),
@@ -54,7 +60,8 @@ taken in turns with its kernel (CUDA events); for the two rows with a
 library call, kernel and library are also read in ``torch.profiler``
 device time, in turns (``device_ms``, ``library_device_ms``), and so are
 the channel-attention mid and its SDPA mid (``device_ms``,
-``sdpa_mid_device_ms``). Exits nonzero without a CUDA device.
+``sdpa_mid_device_ms``); the serving attention (both layouts) and the block
+carry their own ``device_ms`` too. Exits nonzero without a CUDA device.
 """
 
 from __future__ import annotations
@@ -100,14 +107,17 @@ TRAIN_LAUNCHES_PER_STEP = {
 # adversarial update amplifies that (tests/test_train.py:486-491)
 TRAIN_FP32_RTOL = 1e-3
 # bf16: the plain versions compute in fp32 from the bf16 inputs and round
-# once at the output. The inference kernels and the fp32-FMA bodies do the
-# same, so they differ by one bf16 rounding of the output (2^-7 relative) on
-# top of fp32 summation order. The two training kernels (tensor cores) also
-# round operands they form inside to bf16 for their matrix products: S and
-# p as one bf16 term (out = v S^T, dv = dO S; dv = p^T dO), and qn, kn, dL
-# (the Gram, dqn, dkn), the exponentials of o = p v, and ds (dq, dk) as hi +
-# lo bf16 pairs, ~2^-16 relative; sums stay fp32. The bound is unchanged;
-# the stress inputs of ``train_kernel_inputs`` hold the kernels to it.
+# once at the output; the fp32-FMA bodies and the relayout do the same. The
+# tensor-core kernels also round operands they form inside to bf16 for
+# their matrix products, sums staying fp32. Training: S and p as one bf16
+# term (out = v S^T, dv = dO S; dv = p^T dO), and qn, kn, dL (the Gram,
+# dqn, dkn), the exponentials of o = p v, and ds (dq, dk) as hi + lo bf16
+# pairs, ~2^-16 relative. Serving: the channel attention takes qn and kn as
+# pairs and v, the softmax and its output as one term; the block takes
+# LN1's output (for q and k) and q, k (the scores) as pairs and the rest as
+# one term. The bound is unchanged; the stress inputs of
+# ``train_kernel_inputs``, ``attention_stress_inputs`` and
+# ``block_stress_inputs`` hold the kernels to it.
 BF16_ATOL, BF16_RTOL = 3e-2, 2 ** -7
 # uint8 fp32 card vs CPU, and packed vs NHWC engine on the card: different
 # conv algorithms (and, packed, the repacked convs' extra zero taps) move
@@ -182,17 +192,18 @@ def device_ms(fn, iters=20, warmup=3) -> float:
 
     for _ in range(warmup):
         fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
+    for _ in range(3):   # a profile now and then comes back empty: ask again
         torch.cuda.synchronize()
-    us = sum(e.self_device_time_total for e in prof.key_averages()
-             if e.device_type == DeviceType.CUDA
-             and not getattr(e, "is_user_annotation", False))
-    if us <= 0:
-        raise AssertionError("torch.profiler recorded no device time")
-    return us / iters / 1e3
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        us = sum(e.self_device_time_total for e in prof.key_averages()
+                 if e.device_type == DeviceType.CUDA
+                 and not getattr(e, "is_user_annotation", False))
+        if us > 0:
+            return us / iters / 1e3
+    raise AssertionError("torch.profiler recorded no device time")
 
 
 def bound(moved: float, flops: float):
@@ -320,7 +331,75 @@ def attention_shapes(canvas):
             ("up2", (BATCH, canvas, canvas, 16))]
 
 
+def attention_stress_inputs(rng, shape, packed=False):
+    """[(label, x, [wqkv, bqkv, wproj, bproj])] host arrays for the channel
+    attention on the NHWC ``shape`` (B, H, W, C), x laid out NHWC or, with
+    ``packed``, as packed rows (B, H/4, W/4, 16 C). Window (0, 0, 0) is all
+    zeros in each. "random": standard normal x and biases. "saturated":
+    batch entry 1 (0 at batch 1) is constant inside every window (a flat
+    image region) and the biases make one q channel and two k channels
+    dominant (16, 8 and 8 against 0.05), so the Gram's 16 terms add up
+    coherently to logits near its maximum with two keys competing, and the
+    v rows of the qkv weight are 8 times larger: the input on which bf16
+    rounding of qn and kn costs the most. "small q, k": the q and k biases
+    are zero, so the zero window meets the zero-safe normalize with q = k =
+    0, and the window below it is scaled by 1e-3 (|q|, |k| ~ 1e-3)."""
+    B, H, W, C = shape
+    t = rng.standard_normal((B, H // 4, W // 4, 16, C)).astype(np.float32)
+    t[0, 0, 0] = 0.0
+    ws = [rng.standard_normal((3 * C, C)) * 0.1, rng.standard_normal(3 * C),
+          rng.standard_normal((C, C)) * 0.1, rng.standard_normal(C)]
+    flat, small = t.copy(), t.copy()
+    flat[min(1, B - 1)] = flat[min(1, B - 1), :, :, :1]
+    sharp = [ws[0].copy(), ws[1].copy(), ws[2], ws[3]]
+    sharp[0][2 * C:] *= 8.0
+    sharp[1][:2 * C] *= 0.05
+    sharp[1][[0, C + 1, C + 2]] = 16.0, 8.0, 8.0
+    small[0, 1, 0] *= 1e-3
+    no_qk_bias = [ws[0], ws[1].copy(), ws[2], ws[3]]
+    no_qk_bias[1][:2 * C] = 0.0
+
+    def lay(rows):
+        if packed:
+            return rows.reshape(B, H // 4, W // 4, 16 * C)
+        rows = rows.reshape(B, H // 4, W // 4, 4, 4, C)
+        return np.ascontiguousarray(
+            rows.transpose(0, 1, 3, 2, 4, 5)).reshape(B, H, W, C)
+
+    return [("random", lay(t), ws), ("saturated", lay(flat), sharp),
+            ("small q, k", lay(small), no_qk_bias)]
+
+
+def block_stress_inputs(rng, shape):
+    """[(label, [x, struct, gamma, beta], {weight: array})] host arrays for
+    the fused block on the (B, H, W, C) grid ``shape``; x and struct are
+    zero on the first 8x8 window. "random": as the block phase always had.
+    "saturated": the q and k rows of the qkv weight times 4, so the scores
+    grow 16-fold and every softmax row sits on a few keys."""
+    from multi_style_transfer_gan_tpu_torch.ops.kernels.fused_transformer import (
+        weight_shapes,
+    )
+
+    B, H, W, C = shape
+    host = [rng.standard_normal(shape), rng.standard_normal(shape),
+            rng.standard_normal((B, C)) * 0.1,
+            rng.standard_normal((B, C)) * 0.1]
+    host[0][0, :8, :8] = 0.0
+    host[1][0, :8, :8] = 0.0
+    weights = {}
+    for n, s in weight_shapes(C).items():
+        a = rng.standard_normal(s) * (0.1 if len(s) == 2 else 0.05)
+        weights[n] = a + 1.0 if n in ("norm1_w", "norm2_w") else a
+    sharp = dict(weights, qkv_w=weights["qkv_w"].copy())
+    sharp["qkv_w"][:2 * C] *= 4.0
+    return [("random", host, weights), ("saturated", host, sharp)]
+
+
 def phase_attention(rng, dev):
+    """The NHWC attention kernel vs plain at every shape of a forward at each
+    canvas, fp32 (TF32 off) and bf16, on the three inputs of
+    ``attention_stress_inputs`` (each with one all-zero window); timed on
+    the random input, in bf16 in turns with the SDPA mid."""
     import torch
 
     from multi_style_transfer_gan_tpu_torch.ops.kernels import (
@@ -335,57 +414,52 @@ def phase_attention(rng, dev):
             if shape in seen:  # up1 has down1's shape
                 times[(canvas, stage)] = seen[shape]
                 continue
-            B, H, W, C = shape
-            x = rng.standard_normal(shape).astype(np.float32)
-            x[0, :4, :4] = 0.0  # one all-zero window: zero-safe normalize
-            ws = [rng.standard_normal((3 * C, C)) * 0.1,
-                  rng.standard_normal(3 * C),
-                  rng.standard_normal((C, C)) * 0.1,
-                  rng.standard_normal(C)]
-            for dtype in (torch.float32, torch.bfloat16):
-                args = [torch.from_numpy(a.astype(np.float32)).to(dev, dtype)
-                        for a in [x] + ws]
-                got = window_channel_attention(*args)
-                ref = window_channel_attention_plain(*args)
-                torch.cuda.synchronize()
-                err, bf16_ok = compare(got, ref, dtype)
-                ok = (err <= FP32_TOL if dtype == torch.float32 else bf16_ok)
-                # the all-zero window: finite, and inside the same tolerance
-                zero_ok = bool(torch.isfinite(got[0, :4, :4]).all())
-                ok = ok and bool(torch.isfinite(got).all()) and zero_ok
-                # bf16: the SDPA mid in turns with kernel and plain
-                k_ms, p_ms, *s_ms = time_turns(
-                    lambda: window_channel_attention(*args),
-                    lambda: window_channel_attention_plain(*args),
-                    *([sdpa_mid_call(shape, dev)] if dtype == torch.bfloat16
-                      else []))
-                log(f"[attention] canvas {canvas} {stage} {shape} "
-                    f"{str(dtype)[6:]}: max|d| {err:.3e} zero-window "
-                    f"{'ok' if zero_ok else 'BAD'}, kernel {k_ms:.4f} ms, "
-                    f"plain {p_ms:.4f} ms"
-                    + "".join(f", SDPA mid {t:.4f} ms" for t in s_ms))
-                if not ok:
-                    raise AssertionError(f"window_channel_attention {shape} "
-                                         f"{dtype}: max|d| {err:.3e} outside "
-                                         f"tolerance")
-                if dtype == torch.float32:
-                    worst = max(worst, err)
-                else:
-                    times[(canvas, stage)] = seen[shape] = (k_ms, p_ms,
-                                                            s_ms[0])
+            for label, x, ws in attention_stress_inputs(rng, shape):
+                for dtype in (torch.float32, torch.bfloat16):
+                    args = [torch.from_numpy(np.asarray(a, np.float32))
+                            .to(dev, dtype) for a in [x] + ws]
+                    got = window_channel_attention(*args)
+                    ref = window_channel_attention_plain(*args)
+                    torch.cuda.synchronize()
+                    err, bf16_ok = compare(got, ref, dtype)
+                    ok = (err <= FP32_TOL if dtype == torch.float32
+                          else bf16_ok)
+                    # the all-zero window: finite, inside the same tolerance
+                    zero_ok = bool(torch.isfinite(got[0, :4, :4]).all())
+                    ok = ok and bool(torch.isfinite(got).all()) and zero_ok
+                    line = (f"[attention] canvas {canvas} {stage} {shape} "
+                            f"{label} {str(dtype)[6:]}: max|d| {err:.3e} "
+                            f"zero-window {'ok' if zero_ok else 'BAD'}")
+                    if label == "random":
+                        # bf16: the SDPA mid in turns with kernel and plain
+                        k_ms, p_ms, *s_ms = time_turns(
+                            lambda: window_channel_attention(*args),
+                            lambda: window_channel_attention_plain(*args),
+                            *([sdpa_mid_call(shape, dev)]
+                              if dtype == torch.bfloat16 else []))
+                        line += (f", kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms"
+                                 + "".join(f", SDPA mid {t:.4f} ms"
+                                           for t in s_ms))
+                        if dtype == torch.bfloat16:
+                            d_ms = device_ms(
+                                lambda: window_channel_attention(*args))
+                            line += f", kernel device {d_ms:.4f} ms"
+                            times[(canvas, stage)] = seen[shape] = (
+                                k_ms, p_ms, s_ms[0], d_ms)
+                    log(line)
+                    if not ok:
+                        raise AssertionError(
+                            f"window_channel_attention {shape} {label} "
+                            f"{dtype}: max|d| {err:.3e} outside tolerance")
+                    if dtype == torch.float32:
+                        worst = max(worst, err)
     return worst, times
 
 
-def packed_attention_shapes(canvas):
-    """(name, packed shape) of the four LocalAttention calls of one c16
-    packed forward: (B, H/4, W/4, 16 C) at each stage's NHWC grid."""
-    return [(stage, (B, H // 4, W // 4, 16 * C))
-            for stage, (B, H, W, C) in attention_shapes(canvas)]
-
-
 def phase_packed_attention(rng, dev):
-    """Packed-row attention kernel vs plain at every packed-engine shape,
-    one all-zero window each, and the NHWC kernel's time at the same
+    """Packed-row attention kernel vs plain at every packed-engine shape on
+    the three inputs of ``attention_stress_inputs`` (one all-zero window
+    each), and, on the random input, the NHWC kernel's time at the same
     windows (the same op, one relayout away)."""
     import torch
 
@@ -398,44 +472,52 @@ def phase_packed_attention(rng, dev):
     times = {}
     for canvas in CANVASES:
         seen = {}
-        for stage, shape in packed_attention_shapes(canvas):
+        for stage, nhwc_shape in attention_shapes(canvas):
+            B, H, W, C = nhwc_shape
+            shape = (B, H // 4, W // 4, 16 * C)
             if shape in seen:  # up1 has down1's shape
                 times[(canvas, stage)] = seen[shape]
                 continue
-            C = shape[-1] // 16
-            x = rng.standard_normal(shape).astype(np.float32)
-            x[0, 0, 0] = 0.0  # one all-zero window: zero-safe normalize
-            ws = [rng.standard_normal((3 * C, C)) * 0.1,
-                  rng.standard_normal(3 * C),
-                  rng.standard_normal((C, C)) * 0.1,
-                  rng.standard_normal(C)]
-            for dtype in (torch.float32, torch.bfloat16):
-                args = [torch.from_numpy(a.astype(np.float32)).to(dev, dtype)
-                        for a in [x] + ws]
-                got = packed_window_channel_attention(*args)
-                ref = packed_window_channel_attention_plain(*args)
-                torch.cuda.synchronize()
-                err, bf16_ok = compare(got, ref, dtype)
-                ok = (err <= FP32_TOL if dtype == torch.float32 else bf16_ok)
-                zero_ok = bool(torch.isfinite(got[0, 0, 0]).all())
-                ok = ok and bool(torch.isfinite(got).all()) and zero_ok
-                k_ms, p_ms = time_pair(
-                    lambda: packed_window_channel_attention(*args),
-                    lambda: packed_window_channel_attention_plain(*args))
-                nhwc = [depth_to_space_plain(args[0], 4).contiguous()] + args[1:]
-                n_ms = time_ms(lambda: window_channel_attention(*nhwc))
-                log(f"[packed attention] canvas {canvas} {stage} {shape} "
-                    f"{str(dtype)[6:]}: max|d| {err:.3e} zero-window "
-                    f"{'ok' if zero_ok else 'BAD'}, kernel {k_ms:.4f} ms, "
-                    f"plain {p_ms:.4f} ms, NHWC kernel {n_ms:.4f} ms")
-                if not ok:
-                    raise AssertionError(f"packed_window_channel_attention "
-                                         f"{shape} {dtype}: max|d| {err:.3e} "
-                                         f"outside tolerance")
-                if dtype == torch.float32:
-                    worst = max(worst, err)
-                else:
-                    times[(canvas, stage)] = seen[shape] = (k_ms, p_ms, n_ms)
+            for label, x, ws in attention_stress_inputs(rng, nhwc_shape,
+                                                        packed=True):
+                for dtype in (torch.float32, torch.bfloat16):
+                    args = [torch.from_numpy(np.asarray(a, np.float32))
+                            .to(dev, dtype) for a in [x] + ws]
+                    got = packed_window_channel_attention(*args)
+                    ref = packed_window_channel_attention_plain(*args)
+                    torch.cuda.synchronize()
+                    err, bf16_ok = compare(got, ref, dtype)
+                    ok = (err <= FP32_TOL if dtype == torch.float32
+                          else bf16_ok)
+                    zero_ok = bool(torch.isfinite(got[0, 0, 0]).all())
+                    ok = ok and bool(torch.isfinite(got).all()) and zero_ok
+                    line = (f"[packed attention] canvas {canvas} {stage} "
+                            f"{shape} {label} {str(dtype)[6:]}: max|d| "
+                            f"{err:.3e} zero-window "
+                            f"{'ok' if zero_ok else 'BAD'}")
+                    if label == "random":
+                        k_ms, p_ms = time_pair(
+                            lambda: packed_window_channel_attention(*args),
+                            lambda: packed_window_channel_attention_plain(
+                                *args))
+                        nhwc = ([depth_to_space_plain(args[0], 4).contiguous()]
+                                + args[1:])
+                        n_ms = time_ms(lambda: window_channel_attention(*nhwc))
+                        line += (f", kernel {k_ms:.4f} ms, plain {p_ms:.4f} "
+                                 f"ms, NHWC kernel {n_ms:.4f} ms")
+                        if dtype == torch.bfloat16:
+                            d_ms = device_ms(
+                                lambda: packed_window_channel_attention(*args))
+                            line += f", kernel device {d_ms:.4f} ms"
+                            times[(canvas, stage)] = seen[shape] = (
+                                k_ms, p_ms, n_ms, d_ms)
+                    log(line)
+                    if not ok:
+                        raise AssertionError(
+                            f"packed_window_channel_attention {shape} {label} "
+                            f"{dtype}: max|d| {err:.3e} outside tolerance")
+                    if dtype == torch.float32:
+                        worst = max(worst, err)
     return worst, times
 
 
@@ -504,50 +586,54 @@ def phase_relayout(rng, dev):
 
 
 def phase_block(rng, dev):
+    """The fused block kernel vs plain at its shapes of a forward at each
+    canvas and on a ragged grid, fp32 (TF32 off) and bf16, on the inputs of
+    ``block_stress_inputs`` (one all-zero window each); timed on the random
+    input."""
     import torch
 
     from multi_style_transfer_gan_tpu_torch.ops.kernels import (
         fused_structural_block, structural_block_plain,
-    )
-    from multi_style_transfer_gan_tpu_torch.ops.kernels.fused_transformer import (
-        weight_shapes,
     )
 
     worst = 0.0
     times = {}
     for shape in [(BATCH, 64, 64, 64), (BATCH, 128, 128, 64), (2, 12, 20, 64)]:
         B, H, W, C = shape
-        host = [rng.standard_normal(shape), rng.standard_normal(shape),
-                rng.standard_normal((B, C)) * 0.1,
-                rng.standard_normal((B, C)) * 0.1]
-        weights = {}
-        for n, s in weight_shapes(C).items():
-            a = rng.standard_normal(s) * (0.1 if len(s) == 2 else 0.05)
-            weights[n] = a + 1.0 if n in ("norm1_w", "norm2_w") else a
-        for dtype in (torch.float32, torch.bfloat16):
-            t = lambda a, dt=dtype: torch.from_numpy(
-                np.asarray(a, np.float32)).to(dev, dt)
-            args = (t(host[0]), t(host[1]), t(host[2], torch.float32),
-                    t(host[3], torch.float32))
-            kw = {n: t(a) for n, a in weights.items()}
-            got = fused_structural_block(*args, **kw)
-            ref = structural_block_plain(*args, **kw)
-            torch.cuda.synchronize()
-            err, bf16_ok = compare(got, ref, dtype)
-            ok = (err <= BLOCK_FP32_TOL if dtype == torch.float32 else bf16_ok)
-            ok = ok and bool(torch.isfinite(got).all())
-            k_ms, p_ms = time_pair(lambda: fused_structural_block(*args, **kw),
-                                   lambda: structural_block_plain(*args, **kw))
-            ragged = " (ragged)" if H % 8 or W % 8 else ""
-            log(f"[block] {shape}{ragged} {str(dtype)[6:]}: max|d| {err:.3e}, "
-                f"kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms")
-            if not ok:
-                raise AssertionError(f"fused_structural_block {shape} {dtype}: "
-                                     f"max|d| {err:.3e} outside tolerance")
-            if dtype == torch.float32:
-                worst = max(worst, err)
-            else:
-                times[shape] = (k_ms, p_ms)
+        for label, host, weights in block_stress_inputs(rng, shape):
+            for dtype in (torch.float32, torch.bfloat16):
+                t = lambda a, dt=dtype: torch.from_numpy(
+                    np.asarray(a, np.float32)).to(dev, dt)
+                args = (t(host[0]), t(host[1]), t(host[2], torch.float32),
+                        t(host[3], torch.float32))
+                kw = {n: t(a) for n, a in weights.items()}
+                got = fused_structural_block(*args, **kw)
+                ref = structural_block_plain(*args, **kw)
+                torch.cuda.synchronize()
+                err, bf16_ok = compare(got, ref, dtype)
+                ok = (err <= BLOCK_FP32_TOL if dtype == torch.float32
+                      else bf16_ok)
+                ok = ok and bool(torch.isfinite(got).all())
+                ragged = " (ragged)" if H % 8 or W % 8 else ""
+                line = (f"[block] {shape}{ragged} {label} {str(dtype)[6:]}: "
+                        f"max|d| {err:.3e}")
+                if label == "random":
+                    k_ms, p_ms = time_pair(
+                        lambda: fused_structural_block(*args, **kw),
+                        lambda: structural_block_plain(*args, **kw))
+                    line += f", kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms"
+                    if dtype == torch.bfloat16:
+                        d_ms = device_ms(
+                            lambda: fused_structural_block(*args, **kw))
+                        line += f", kernel device {d_ms:.4f} ms"
+                        times[shape] = (k_ms, p_ms, d_ms)
+                log(line)
+                if not ok:
+                    raise AssertionError(
+                        f"fused_structural_block {shape} {label} {dtype}: "
+                        f"max|d| {err:.3e} outside tolerance")
+                if dtype == torch.float32:
+                    worst = max(worst, err)
     return worst, times
 
 
@@ -1244,16 +1330,16 @@ def main() -> int:
     # forward and backward at 256^2, batch 8, bf16.
     canvas = CANVASES[0]
     fwd_shapes = [shape for _, shape in attention_shapes(canvas)]
-    attn_ms, attn_plain, sdpa_fwd = (sum(attn_times[(canvas, s)][i]
-                                         for s, _ in attention_shapes(canvas))
-                                     for i in (0, 1, 2))
-    pk_ms, pk_plain, pk_nhwc = (sum(packed_times[(canvas, s)][i]
-                                    for s, _ in attention_shapes(canvas))
-                                for i in (0, 1, 2))
+    attn_ms, attn_plain, sdpa_fwd, attn_dev = (
+        sum(attn_times[(canvas, s)][i] for s, _ in attention_shapes(canvas))
+        for i in range(4))
+    pk_ms, pk_plain, pk_nhwc, pk_dev = (
+        sum(packed_times[(canvas, s)][i] for s, _ in attention_shapes(canvas))
+        for i in range(4))
     st_ms, st_plain = (sum(stage_times[(shape, key)] for shape in fwd_shapes)
                        for key in ("full", "full plain"))
     blk_shape = (BATCH, 64, 64, 64)
-    blk_ms, blk_plain = block_times[blk_shape]
+    blk_ms, blk_plain, blk_dev = block_times[blk_shape]
     bf16 = torch.bfloat16
     per_fwd = {"down1/up1": 2, "down2": 1, "up2": 1}
     tr_ms = [sum(n * train_times[("attention", st, bf16)][i]
@@ -1292,7 +1378,8 @@ def main() -> int:
                      f"{tpu}/window_relayout.py:165; "
                      f"scripts/ab_v6_attention.py:117",
          "launches": launches["window_channel_attention"],
-         "max_abs_err": attn_err, "ms": attn_ms, "plain_ms": attn_plain},
+         "max_abs_err": attn_err, "ms": attn_ms, "plain_ms": attn_plain,
+         "device_ms": attn_dev},
         {"name": "packed_window_channel_attention", "route": "cuda",
          "source": f"{pkg}/window_channel_attention.cu",
          "replaces": f"{tpu}/window_attention_grouped.py:148 "
@@ -1301,7 +1388,8 @@ def main() -> int:
                      f"(packed_window_attention_v3 :227); "
                      f"{tpu}/packed_attention.py:138",
          "launches": launches["packed_window_channel_attention"],
-         "max_abs_err": packed_err, "ms": pk_ms, "plain_ms": pk_plain},
+         "max_abs_err": packed_err, "ms": pk_ms, "plain_ms": pk_plain,
+         "device_ms": pk_dev},
         {"name": "window_relayout", "route": "cuda",
          "source": f"{pkg}/window_relayout.cu",
          "replaces": f"{tpu}/window_relayout.py:81 (s2d_rows); "
@@ -1314,7 +1402,8 @@ def main() -> int:
          "source": f"{pkg}/fused_structural_block.cu",
          "replaces": f"{tpu}/fused_transformer.py:169",
          "launches": launches["fused_structural_block"],
-         "max_abs_err": block_err, "ms": blk_ms, "plain_ms": blk_plain},
+         "max_abs_err": block_err, "ms": blk_ms, "plain_ms": blk_plain,
+         "device_ms": blk_dev},
         {"name": "window_attention_train", "route": "cuda",
          "source": f"{pkg}/window_attention_train.cu",
          "replaces": f"{tpu}/window_attention_train.py:220",
@@ -1346,8 +1435,11 @@ def main() -> int:
         entry.update(bound_ms=b_ms, bound_by=b_by, library_ms=library)
         if sdpa_mid is not None:
             entry["sdpa_mid_ms"] = sdpa_mid
-        log(f"[yardsticks] {entry['name']}: kernel {entry['ms']:.4f} ms, "
-            f"bound {b_ms:.6f} ms ({b_by}; {b_ms / entry['ms']:.1%} of the "
+        dev_ms = entry.get("device_ms")
+        log(f"[yardsticks] {entry['name']}: kernel {entry['ms']:.4f} ms"
+            + ("" if dev_ms is None else f" ({dev_ms:.4f} ms device, of "
+               f"which the bound is {b_ms / dev_ms:.1%})")
+            + f", bound {b_ms:.6f} ms ({b_by}; {b_ms / entry['ms']:.1%} of the "
             f"kernel's time), library "
             f"{'none' if library is None else f'{library:.4f} ms'}"
             + ("" if sdpa_mid is None else f", SDPA mid {sdpa_mid:.4f} ms"))

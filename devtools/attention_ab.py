@@ -1,20 +1,28 @@
-"""A/B of the channel-attention kernel against an earlier copy of its source,
-on the card.
+"""A/B of the two serving kernels (the windowed channel attention and the
+fused structural block) against an earlier copy of their sources, on the
+card.
 
     git archive <commit> multi_style_transfer_gan_tpu_torch/csrc | tar -x -C _dev/old
     PYTHONPATH=. python3 devtools/attention_ab.py \\
         _dev/old/multi_style_transfer_gan_tpu_torch/csrc
 
-Builds ``window_channel_attention.cu`` from the given directory ("old") and
-from this tree ("new") with the port's nvcc flags plus ``-Xptxas -v``, and
-prints ptxas's registers, stack and spills of every kernel of both builds.
-Then, swapping each build in under the port's wrappers, at the four
-LocalAttention shapes of one c16 forward at canvas 256, batch 8
+Builds ``window_channel_attention.cu`` and ``fused_structural_block.cu``
+(and the two training sources) from the given directory ("old") and from
+this tree ("new") with the port's nvcc flags plus ``-Xptxas -v``, and prints
+for every kernel of both builds ptxas's registers, stack and spills and the
+number of HMMA (tensor-core) instructions in its SASS (``cuobjdump -sass``),
+and the new kernels' shared memory per block. Then, swapping each build in
+under the port's wrappers: the attention at the four LocalAttention shapes
+of one c16 forward at canvas 256 and 512, batch 8
 (``chip_smoke.attention_shapes``), on the NHWC and the packed-row entry
-points: both builds must give bit-equal outputs in fp32 and bf16, and they
-are timed in bf16 in turns (old, new, new, old; three rounds; CUDA events,
-``chip_smoke.time_ms``). Raises on any build, launch, equality or ptxas
-difference; exits 1 without a CUDA device.
+points, and the block at its shapes of the same forwards and a ragged grid,
+in fp32 and bf16. Both builds must agree with the plain version inside
+``chip_smoke.py``'s tolerances, and they are timed in turns (old, new, new,
+old): CUDA events (``chip_smoke.time_ms``, three rounds) and profiler
+device time (``chip_smoke.device_ms``). The two training sources, which
+share headers with them, are built from both directories too, and their
+forward and backward must give the same bits at every train shape. Raises
+on any build, launch or tolerance failure; exits 1 without a CUDA device.
 """
 
 from __future__ import annotations
@@ -26,35 +34,89 @@ import subprocess
 import sys
 import tempfile
 
+import numpy as np
+
 import chip_smoke as smoke
 
-SOURCE = "window_channel_attention.cu"
+SOURCES = {"window_channel_attention": ("window_channel_attention",
+                                        "packed_window_channel_attention"),
+           "fused_structural_block": ("fused_structural_block",),
+           # not redesigned, but they share headers with the two above:
+           # their old and new builds must give the same bits
+           "window_attention_train": ("window_attention_train_fwd",
+                                      "window_attention_train_bwd"),
+           "window_mhsa_train": ("window_mhsa_train_fwd",
+                                 "window_mhsa_train_bwd")}
 ROUNDS = 3
+BLOCK_SHAPES = ((smoke.BATCH, 64, 64, 64), (smoke.BATCH, 128, 128, 64),
+                (2, 12, 20, 64))
+
+
+def demangle(text: str) -> str:
+    try:
+        return subprocess.run(["c++filt"], input=text, capture_output=True,
+                              text=True, check=True).stdout
+    except (OSError, subprocess.CalledProcessError):
+        return text
+
+
+def short(name: str) -> str:
+    """A kernel's demangled name without namespaces and arguments."""
+    name = name.split("(anonymous namespace)::")[-1]
+    return re.sub(r"\(.*", "", name).replace("mstgan::", "")
 
 
 def build(csrc: str, out_dir: str, tag: str):
-    """({entry: ctypes function}, {kernel: ptxas resource lines}) of
-    ``csrc/SOURCE``."""
+    """({entry: ctypes function}, {kernel: [ptxas lines, HMMA count]}) of
+    the sources in ``csrc``, all compiled at once."""
     from multi_style_transfer_gan_tpu_torch.ops.kernels import _build
 
-    so = os.path.join(out_dir, f"{tag}.so")
-    cmd = [_build.nvcc(), *_build.NVCC_FLAGS, "-Xptxas", "-v", "-I", csrc,
-           "-o", so, os.path.join(csrc, SOURCE)]
-    proc = subprocess.run(cmd, capture_output=True, text=True, check=True)
-    usage, name = {}, None
-    for line in (proc.stdout + proc.stderr).splitlines():
-        m = re.search(r"Compiling entry function '(\S+)'", line)
-        if m:
-            name = m.group(1)
-        elif name and ("Used" in line or "spill" in line):
-            usage.setdefault(name, []).append(line.split(":", 1)[-1].strip())
-    lib = ctypes.CDLL(so)
-    entries = {}
-    for entry in ("window_channel_attention", "packed_window_channel_attention"):
-        _, symbol, argtypes = _build.SIGNATURES[entry]
-        fn = entries[entry] = getattr(lib, symbol)
-        fn.argtypes, fn.restype = argtypes, ctypes.c_int
+    procs = {}
+    for source in SOURCES:
+        so = os.path.join(out_dir, f"{tag}-{source}.so")
+        cmd = [_build.nvcc(), *_build.NVCC_FLAGS, "-Xptxas", "-v", "-I", csrc,
+               "-o", so, os.path.join(csrc, f"{source}.cu")]
+        procs[source] = (so, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    entries, usage = {}, {}
+    for source, (so, proc) in procs.items():
+        out = proc.communicate()[0]
+        if proc.returncode:
+            raise RuntimeError(f"nvcc failed for {tag} {source}:\n{out}")
+        name = None
+        for line in demangle(out).splitlines():
+            m = re.search(r"Compiling entry function '(.+)' for", line)
+            if m:
+                name = short(m.group(1))
+            elif name and ("Used" in line or "spill" in line):
+                usage.setdefault(name, [[], 0])[0].append(
+                    line.split(":", 1)[-1].strip())
+        sass = subprocess.run(["cuobjdump", "-sass", so], capture_output=True,
+                              text=True, check=True).stdout
+        name = None
+        for line in demangle(sass).splitlines():
+            m = re.search(r"Function : (.+)", line)
+            if m:
+                name = short(m.group(1))
+            elif name in usage and "HMMA" in line:
+                usage[name][1] += 1
+        lib = ctypes.CDLL(so)
+        for entry in SOURCES[source]:
+            _, symbol, argtypes = _build.SIGNATURES[entry]
+            fn = entries[entry] = getattr(lib, symbol)
+            fn.argtypes, fn.restype = argtypes, ctypes.c_int
     return entries, usage
+
+
+def check(got, ref, dtype, tol, what):
+    import torch
+
+    err, ok = smoke.compare(got, ref, dtype)
+    if dtype == torch.float32:
+        ok = err <= tol
+    if not (ok and bool(torch.isfinite(got).all())):
+        raise AssertionError(f"{what}: max|d| {err:.3e} outside tolerance")
+    return err
 
 
 def main(argv=None) -> int:
@@ -72,64 +134,115 @@ def main(argv=None) -> int:
     from multi_style_transfer_gan_tpu_torch.ops.kernels import _build
 
     print(smoke.card_line(), flush=True)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
     with tempfile.TemporaryDirectory() as tmp:
-        builds = dict(zip(("old", "new"), (
-            build(os.path.abspath(argv[0]), tmp, "old"),
-            build(_build.CSRC, tmp, "new"))))
+        builds = {"old": build(os.path.abspath(argv[0]), tmp, "old"),
+                  "new": build(_build.CSRC, tmp, "new")}
     for tag, (_, usage) in builds.items():
-        for name, lines in sorted(usage.items()):
-            print(f"[ptxas {tag}] {name}: {'; '.join(lines)}")
-    old_usage, new_usage = builds["old"][1], builds["new"][1]
-    same = sorted(map(tuple, old_usage.values())) == sorted(
-        map(tuple, new_usage.values()))
-    print(f"[ptxas] {len(old_usage)} old and {len(new_usage)} new kernels; "
-          f"same registers, stack and spills: {'yes' if same else 'NO'}",
+        for name, (lines, hmma) in sorted(usage.items()):
+            print(f"[ptxas {tag}] {name}: {'; '.join(lines)}; HMMA in SASS "
+                  f"{hmma}")
+
+    from multi_style_transfer_gan_tpu_torch.ops.kernels.fused_transformer import (
+        block_launch_shape,
+    )
+    from multi_style_transfer_gan_tpu_torch.ops.kernels.window_attention import (
+        attention_launch_shape,
+    )
+    for C in (16, 32, 64):
+        print(f"[smem new] attention C={C}: bf16 "
+              f"{attention_launch_shape(1, C, True)[1]} B a block, fp32 "
+              f"{attention_launch_shape(1, C, False)[1]} B")
+    print(f"[smem new] block bf16: {block_launch_shape(1, 8, 8)[1]} B a block",
           flush=True)
 
-    def run(tag, wrapper, x, weights):
+    def run(tag, wrapper, *args, **kw):
         """A no-argument call of ``wrapper`` through build ``tag``."""
         def call():
             _build._loaded[wrapper.__name__] = builds[tag][0][wrapper.__name__]
-            return wrapper(x, *weights)
+            return wrapper(*args, **kw)
         return call
 
-    shapes = [s for _, s in smoke.attention_shapes(256)]
-    gen = torch.Generator(device="cuda").manual_seed(smoke.SEED)
-    totals = {}
-    for wrapper in (K.window_channel_attention,
-                    K.packed_window_channel_attention):
-        for shape in dict.fromkeys(shapes):
-            B, H, W, C = shape
+    def ab(label, old, new, dtype):
+        """Times old/new/new/old; returns (events old, new, device old, new)."""
+        turns = [smoke.time_turns(old, new) for _ in range(ROUNDS)]
+        ev = [sum(t[i] for t in turns) / ROUNDS for i in (0, 1)]
+        dv = smoke.time_turns(old, new, timer=smoke.device_ms)
+        print(f"[A/B] {label} {str(dtype)[6:]}: events old {ev[0]:.4f} -> new "
+              f"{ev[1]:.4f} ms (x{ev[0] / ev[1]:.2f}); device old {dv[0]:.4f} "
+              f"-> new {dv[1]:.4f} ms (x{dv[0] / dv[1]:.2f})", flush=True)
+        return ev + dv
+
+    rng = np.random.default_rng(smoke.SEED)
+    train = {"attention": (K.window_attention_mid_fwd,
+                           K.window_attention_mid_bwd, (),
+                           ("window_attention_train_fwd",
+                            "window_attention_train_bwd")),
+             "mhsa": (K.window_mhsa_fwd, K.window_mhsa_bwd, (2,),
+                      ("window_mhsa_train_fwd", "window_mhsa_train_bwd"))}
+    for name, stage, shape in smoke.train_kernel_cases():
+        fwd, bwd, extra, entries = train[name]
+        for label, host, g_host in smoke.train_kernel_inputs(rng, name, shape):
             for dtype in (torch.float32, torch.bfloat16):
-                rand = lambda *s, scale=1.0: (torch.randn(
-                    s, generator=gen, device="cuda") * scale).to(dtype)
-                x = rand(*shape)
-                if wrapper is K.packed_window_channel_attention:
-                    x = x.reshape(B, H // 4, W // 4, 16 * C)
-                weights = [rand(3 * C, C, scale=0.1), rand(3 * C),
-                           rand(C, C, scale=0.1), rand(C)]
-                old, new = (run(t, wrapper, x, weights) for t in ("old", "new"))
-                if not torch.equal(old(), new()):
-                    raise AssertionError(f"{wrapper.__name__} {shape} {dtype}: "
-                                         f"old and new builds differ")
-                if dtype == torch.float32:
-                    continue
-                turns = [smoke.time_turns(old, new) for _ in range(ROUNDS)]
-                mean = [sum(t[i] for t in turns) / ROUNDS for i in (0, 1)]
-                n = shapes.count(shape)
-                for tag, ms in zip(("old", "new"), mean):
-                    key = (wrapper.__name__, tag)
-                    totals[key] = totals.get(key, 0.0) + n * ms
-                print(f"[A/B] {wrapper.__name__} {shape} bf16: bit-equal (fp32 "
-                      f"and bf16); old {mean[0]:.4f} ms, new {mean[1]:.4f} ms "
-                      f"(new/old {mean[1] / mean[0]:.4f}); (old, new) per "
-                      f"round {turns}", flush=True)
-    for (name, tag), ms in sorted(totals.items()):
-        print(f"[A/B] {name}, the four calls of a forward at canvas 256, "
-              f"batch {smoke.BATCH}, bf16: {tag} {ms:.4f} ms", flush=True)
-    if not same:
-        raise AssertionError("the old and new builds use different registers, "
-                             "stack or spills")
+                qkv = torch.from_numpy(host).to("cuda", dtype)
+                d_out = torch.from_numpy(g_host).to("cuda", dtype)
+                outs = {}
+                for tag in ("old", "new"):
+                    for entry in entries:
+                        _build._loaded[entry] = builds[tag][0][entry]
+                    outs[tag] = (fwd(qkv, *extra), bwd(qkv, d_out, *extra))
+                if not all(torch.equal(a, b) for a, b in zip(*outs.values())):
+                    raise AssertionError(f"{name} train kernel {shape} {label} "
+                                         f"{dtype}: old and new builds differ")
+        print(f"[A/B] {name} train kernels {stage} {shape}: old and new builds "
+              f"bit-equal, forward and backward, fp32 and bf16, on 3 inputs",
+              flush=True)
+    totals = {}
+    for canvas in smoke.CANVASES:
+        shapes = [s for _, s in smoke.attention_shapes(canvas)]
+        for packed, wrapper, plain in (
+                (False, K.window_channel_attention,
+                 K.window_channel_attention_plain),
+                (True, K.packed_window_channel_attention,
+                 K.packed_window_channel_attention_plain)):
+            for shape in dict.fromkeys(shapes):
+                _, x, ws = smoke.attention_stress_inputs(rng, shape, packed)[0]
+                for dtype in (torch.float32, torch.bfloat16):
+                    args = [torch.from_numpy(np.asarray(a, np.float32))
+                            .to("cuda", dtype) for a in [x] + ws]
+                    old, new = (run(t, wrapper, *args) for t in ("old", "new"))
+                    ref = plain(*args)
+                    for tag, call in (("old", old), ("new", new)):
+                        check(call(), ref, dtype, smoke.FP32_TOL,
+                              f"{tag} {wrapper.__name__} {shape} {dtype}")
+                    ms = ab(f"{wrapper.__name__} canvas {canvas} {shape}", old,
+                            new, dtype)
+                    key = (wrapper.__name__, canvas, dtype)
+                    n = shapes.count(shape)
+                    totals[key] = [a + n * b for a, b in zip(
+                        totals.get(key, [0.0] * 4), ms)]
+    for (name, canvas, dtype), ms in totals.items():
+        print(f"[A/B] {name}, the four calls of a forward at canvas {canvas}, "
+              f"batch {smoke.BATCH}, {str(dtype)[6:]}: events old {ms[0]:.4f} "
+              f"-> new {ms[1]:.4f} ms; device old {ms[2]:.4f} -> new "
+              f"{ms[3]:.4f} ms (x{ms[2] / ms[3]:.2f})", flush=True)
+
+    for shape in BLOCK_SHAPES:
+        _, host, weights = smoke.block_stress_inputs(rng, shape)[0]
+        for dtype in (torch.float32, torch.bfloat16):
+            t = lambda a, dt=dtype: torch.from_numpy(
+                np.asarray(a, np.float32)).to("cuda", dt)
+            args = (t(host[0]), t(host[1]), t(host[2], torch.float32),
+                    t(host[3], torch.float32))
+            kw = {n: t(a) for n, a in weights.items()}
+            old, new = (run(tag, K.fused_structural_block, *args, **kw)
+                        for tag in ("old", "new"))
+            ref = K.structural_block_plain(*args, **kw)
+            for tag, call in (("old", old), ("new", new)):
+                check(call(), ref, dtype, smoke.BLOCK_FP32_TOL,
+                      f"{tag} fused_structural_block {shape} {dtype}")
+            ab(f"fused_structural_block {shape}", old, new, dtype)
     return 0
 
 

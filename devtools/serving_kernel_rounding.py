@@ -1,0 +1,173 @@
+"""Where the serving kernels may round to bf16: an emulation on the CPU.
+
+    PYTHONPATH=. python3 devtools/serving_kernel_rounding.py
+
+The tensor-core instantiations of the windowed channel attention
+(``csrc/window_channel_attention.cuh``) and of the fused structural block
+(``csrc/fused_structural_block.cu``) feed operands they form themselves to
+bf16 matrix products with fp32 sums: qn, kn, v, the softmax S and the
+attention output in the first; the LayerNorm outputs, q, k, v, the
+exponentials, the MHSA output and the GELU output in the second. This
+script repeats their arithmetic in PyTorch with each such operand rounded
+to bf16, either as one term or as a hi + lo pair (hi = bf16(x), lo =
+bf16(x - hi); products hi hi + hi lo + lo hi), and holds the result
+against the plain versions at ``chip_smoke.py``'s bound (``BF16_ATOL``,
+``BF16_RTOL``) on ``chip_smoke.attention_stress_inputs`` and
+``chip_smoke.block_stress_inputs`` at the serving shapes. For each rounding
+plan it prints the largest |d| and its ratio to the bound ("x1.000" is at
+the bound); ``kernel`` is the plan the kernels use. Takes about a minute.
+"""
+
+from __future__ import annotations
+
+import math
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+import chip_smoke as smoke
+from devtools.train_kernel_rounding import BF16, mm, ratio
+from multi_style_transfer_gan_tpu_torch.ops.kernels.fused_transformer import (
+    WINDOW, default_num_heads, structural_block_plain,
+)
+from multi_style_transfer_gan_tpu_torch.ops.kernels.window_attention import (
+    window_rows_attention_plain,
+)
+
+# operand -> split into hi + lo (True) or one bf16 term (False)
+ATTENTION_PLANS = {
+    "all one term": dict(qk=False, v=False, S=False, out=False),
+    "kernel": dict(qk=True, v=False, S=False, out=False),
+}
+BLOCK_PLANS = {
+    "all one term": dict(h_qk=False, h_v=False, qk=False, p=False, o=False,
+                         h2=False, a=False),
+    "h split": dict(h_qk=True, h_v=False, qk=False, p=False, o=False,
+                    h2=False, a=False),
+    "q, k split": dict(h_qk=False, h_v=False, qk=True, p=False, o=False,
+                       h2=False, a=False),
+    "kernel": dict(h_qk=True, h_v=False, qk=True, p=False, o=False, h2=False,
+                   a=False),
+}
+
+
+def attention_chain(t, wqkv, bqkv, wproj, bproj, plan, eps=1e-12):
+    """The attention kernel's arithmetic on (R, 16, C) bf16 windows: the
+    qkv product is exact (bf16 inputs, fp32 sums); qn and kn enter the Gram,
+    v and S the apply, the attention output the proj."""
+    C = t.shape[-1]
+    f = lambda a: a.float()
+    qkv = F.linear(f(t), f(wqkv).reshape(3 * C, C), f(bqkv))
+    q, k, v = qkv.split(C, dim=-1)
+    inv = lambda u: 1.0 / torch.clamp_min(
+        u.square().sum(-1, keepdim=True).sqrt(), eps)
+    qn, kn = q * inv(q), k * inv(k)
+    s = torch.softmax(mm(qn.transpose(1, 2), kn, plan["qk"], plan["qk"]), -1)
+    out = mm(v, s.transpose(1, 2), plan["v"], plan["S"])
+    y = mm(out, f(wproj).reshape(C, C).t(), plan["out"], False) + f(bproj)
+    return y.to(t.dtype)
+
+
+def _windows(x):
+    """(B, H, W, C) with H, W multiples of 8 -> (B nh nw, 64, C)."""
+    B, H, W, C = x.shape
+    nh, nw = H // WINDOW, W // WINDOW
+    t = x.reshape(B, nh, WINDOW, nw, WINDOW, C).permute(0, 1, 3, 2, 4, 5)
+    return t.reshape(-1, WINDOW * WINDOW, C)
+
+
+def _unwindows(t, B, H, W):
+    nh, nw = H // WINDOW, W // WINDOW
+    t = t.reshape(B, nh, nw, WINDOW, WINDOW, -1).permute(0, 1, 3, 2, 4, 5)
+    return t.reshape(B, H, W, -1)
+
+
+def block_chain(x, struct, gamma, beta, plan, *, norm1_w, norm1_b, qkv_w,
+                qkv_b, proj_w, proj_b, norm2_w, norm2_b, fc1_w, fc1_b, fc2_w,
+                fc2_b, eps=1e-5):
+    """The block kernel's arithmetic on (B, H, W, C) bf16 tokens: LayerNorm
+    statistics, the softmax and the GELU are fp32; the LN outputs h and h2,
+    q and k (the scores), the exponentials and v (the apply), the MHSA
+    output o (the proj) and the GELU output a (fc2) are rounded to bf16."""
+    B, H, W, C = x.shape
+    f = lambda a: a.float()
+    heads = default_num_heads(C)
+    hd = C // heads
+    xf = f(x)
+    h = F.layer_norm(xf + f(struct), (C,), f(norm1_w), f(norm1_b), eps)
+    h = h * (1.0 + f(gamma)[:, None, None, :]) + f(beta)[:, None, None, :]
+    w = f(qkv_w).t()
+    qkv = torch.cat([mm(h, w[:, :2 * C], plan["h_qk"], False),
+                     mm(h, w[:, 2 * C:], plan["h_v"], False)], -1) + f(qkv_b)
+    ph, pw = (-H) % WINDOW, (-W) % WINDOW
+    qkv = F.pad(qkv, (0, 0, 0, pw, 0, ph))
+    Hp, Wp = H + ph, W + pw
+    t = _windows(qkv).reshape(-1, WINDOW * WINDOW, 3, heads, hd)
+    q, k, v = t.permute(2, 0, 3, 1, 4)                  # (Bw, heads, T, hd)
+    s = mm(q, k.transpose(-2, -1), plan["qk"], plan["qk"])
+    valid = _windows(F.pad(torch.ones(1, H, W, 1), (0, 0, 0, pw, 0, ph)))
+    valid = valid.reshape(1, -1, 1, 1, WINDOW * WINDOW) > 0
+    s = s.reshape(B, -1, heads, WINDOW * WINDOW, WINDOW * WINDOW)
+    s = s.masked_fill(~valid, float("-inf")).flatten(0, 1)
+    e = torch.exp((s - s.amax(-1, keepdim=True)) * (1.0 / math.sqrt(hd)))
+    o = mm(e, v, plan["p"], False) / e.sum(-1, keepdim=True)
+    o = _unwindows(o.permute(0, 2, 1, 3).reshape(-1, WINDOW * WINDOW, C),
+                   B, Hp, Wp)[:, :H, :W]
+    xf = xf + mm(o, f(proj_w).t(), plan["o"], False) + f(proj_b)
+    h2 = F.layer_norm(xf, (C,), f(norm2_w), f(norm2_b), eps)
+    a = F.gelu(mm(h2, f(fc1_w).t(), plan["h2"], False) + f(fc1_b))
+    return (xf + mm(a, f(fc2_w).t(), plan["a"], False) + f(fc2_b)).to(x.dtype)
+
+
+def attention_ratios(shapes=None):
+    """{(shape, label, plan): (max |d|, ratio to the bound)} of the
+    attention chain on the packed-row stress inputs (the op is per window,
+    so the packed rows stand for both layouts)."""
+    rng = np.random.default_rng(smoke.SEED)
+    out = {}
+    shapes = shapes or list(dict.fromkeys(
+        s for _, s in smoke.attention_shapes(smoke.CANVASES[0])))
+    for shape in shapes:
+        C = shape[-1]
+        for label, x, ws in smoke.attention_stress_inputs(rng, shape,
+                                                             packed=True):
+            t = torch.from_numpy(x).to(BF16).reshape(-1, 16, C)
+            ws = [torch.from_numpy(w.astype(np.float32)).to(BF16) for w in ws]
+            ref = window_rows_attention_plain(t, *ws).to(BF16)
+            for name, plan in ATTENTION_PLANS.items():
+                out[(shape, label, name)] = ratio(
+                    attention_chain(t, *ws, plan), ref)
+    return out
+
+
+def block_ratios(shapes=((smoke.BATCH, 64, 64, 64), (2, 12, 20, 64))):
+    """The same for the block chain on ``chip_smoke.block_stress_inputs``."""
+    rng = np.random.default_rng(smoke.SEED)
+    out = {}
+    for shape in shapes:
+        for label, host, weights in smoke.block_stress_inputs(rng, shape):
+            t = lambda a, dt=BF16: torch.from_numpy(
+                np.asarray(a, np.float32)).to(dt)
+            args = (t(host[0]), t(host[1]), t(host[2], torch.float32),
+                    t(host[3], torch.float32))
+            kw = {n: t(a) for n, a in weights.items()}
+            ref = structural_block_plain(*args, **kw)
+            for name, plan in BLOCK_PLANS.items():
+                out[(shape, label, name)] = ratio(
+                    block_chain(*args, plan, **kw), ref)
+    return out
+
+
+def main() -> int:
+    torch.set_num_threads(4)
+    for kernel, ratios in (("attention", attention_ratios()),
+                           ("block", block_ratios())):
+        for (shape, label, plan), (d, r) in ratios.items():
+            print(f"{kernel} {shape} {label}, {plan}: max|d| {d:.3e} "
+                  f"(x{r:.3f} of the bound)", flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

@@ -1,6 +1,6 @@
 // Shared helpers for the port's hand-written kernels: element-type
-// conversions (fp32 or bf16 storage, fp32 arithmetic), 4-wide loads and
-// warp reductions.
+// conversions (fp32 or bf16 storage, fp32 arithmetic), 4-wide loads, warp
+// reductions and the grid size of the persistent kernels.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -41,6 +41,31 @@ __device__ __forceinline__ float warp_max(float v) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
   return v;
+}
+
+// The grid of a persistent kernel whose blocks stride over `n_units` units
+// of work: one block per unit until the card is full, `blocks_per_sm`
+// resident blocks on each of `sms` SMs; never less than one block.
+inline int persistent_grid(long long n_units, int sms, int blocks_per_sm) {
+  const long long cap = (long long)sms * blocks_per_sm;
+  const long long grid = n_units < cap ? n_units : cap;
+  return grid < 1 ? 1 : (int)grid;
+}
+
+// What persistent_grid needs to know of the current device for `kernel`
+// launched with `threads` threads and `smem` bytes of dynamic shared memory:
+// its SM count and the resident blocks per SM the runtime reports. Returns
+// a CUDA error code, 0 on success.
+template <typename K>
+int residency(K kernel, int threads, int smem, int* sms, int* blocks_per_sm) {
+  int device = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount, device);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks_per_sm, kernel, threads, smem);
+  if (err == cudaSuccess && *blocks_per_sm < 1) err = cudaErrorLaunchOutOfResources;
+  if (err != cudaSuccess) *sms = 0;   // a caller that keeps the answer asks again
+  return (int)err;
 }
 
 }  // namespace mstgan

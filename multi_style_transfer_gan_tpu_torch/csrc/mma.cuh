@@ -1,7 +1,9 @@
 // Warp-level tensor-core helpers for Hopper (sm_90a) as inline PTX: the
 // bf16 m16n8k16 product with fp32 sums, ldmatrix, 16-byte cp.async, and
 // packing fp32 values into bf16x2 operand registers; with them, the quad
-// reductions and the bf16 store of accumulator fragments.
+// reductions, the bf16 store of accumulator fragments, and the two steps
+// the channel-attention kernels (inference and training) share: a 16-row
+// strip of a window's Gram from hi + lo operands, and its row softmax.
 //
 // Fragment layouts of mma.sync.m16n8k16 (lane = 4 g + t, g = lane / 4,
 // t = lane % 4), each register two bf16, the lower column in the low half:
@@ -23,6 +25,7 @@
 // the eight rows of each 8 x 8 matrix in distinct banks.
 #pragma once
 
+#include <cmath>
 #include <cstdint>
 #include <cuda_bf16.h>
 
@@ -127,6 +130,92 @@ __device__ __forceinline__ void store_frags(__nv_bfloat16* dst, __nv_bfloat16* l
       else
         *reinterpret_cast<uint32_t*>(dst + off) = pack_bf16(a, b);
     }
+}
+
+// The C fragments of two neighbouring n-tiles (columns 16 kk .. 16 kk + 15)
+// as the A fragment of k-step kk: one bf16 term, or hi + lo.
+__device__ __forceinline__ void frags_to_a(uint32_t (&a)[4], const float (&x0)[4],
+                                           const float (&x1)[4]) {
+  a[0] = pack_bf16(x0[0], x0[1]);
+  a[1] = pack_bf16(x0[2], x0[3]);
+  a[2] = pack_bf16(x1[0], x1[1]);
+  a[3] = pack_bf16(x1[2], x1[3]);
+}
+__device__ __forceinline__ void frags_to_a_split(uint32_t (&hi)[4], uint32_t (&lo)[4],
+                                                 const float (&x0)[4], const float (&x1)[4]) {
+  pack_bf16_split(x0[0], x0[1], hi[0], lo[0]);
+  pack_bf16_split(x0[2], x0[3], hi[1], lo[1]);
+  pack_bf16_split(x1[0], x1[1], hi[2], lo[2]);
+  pack_bf16_split(x1[2], x1[3], hi[3], lo[3]);
+}
+
+// g = rows 16 mt.. of a window's Gram qn^T kn (16 x C, C fragments). qn and
+// kn are [p][c] rows of 16 positions, qn at column 0 and kn at column C of
+// x (hi, row stride xs) and of lo (row stride ls): hi hi + hi lo + lo hi.
+template <int C>
+__device__ __forceinline__ void gram_strip(float (&g)[C / 8][4], const __nv_bfloat16* x, int xs,
+                                           const __nv_bfloat16* lo, int ls, int mt, int lane) {
+#pragma unroll
+  for (int j = 0; j < C / 8; ++j) g[j][0] = g[j][1] = g[j][2] = g[j][3] = 0.f;
+  // A[c1][p] = qn[p][c1]: the [p][c] rows through ldmatrix.trans
+  const int ar = (lane & 7) + (lane >> 4) * 8, ac = mt * 16 + ((lane >> 3) & 1) * 8;
+  uint32_t ah[4], al[4];
+  ldmatrix_x4_trans(ah, x + ar * xs + ac);
+  ldmatrix_x4_trans(al, lo + ar * ls + ac);
+  const int br = (lane & 7) + ((lane >> 3) & 1) * 8;
+#pragma unroll
+  for (int nb = 0; nb < C / 16; ++nb) {
+    const int bc = C + nb * 16 + (lane >> 4) * 8;
+    uint32_t bh[4], bl[4];
+    ldmatrix_x4_trans(bh, x + br * xs + bc);
+    ldmatrix_x4_trans(bl, lo + br * ls + bc);
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      float (&acc)[4] = g[2 * nb + h];
+      mma_bf16(acc, ah, bh[2 * h], bh[2 * h + 1]);
+      mma_bf16(acc, ah, bl[2 * h], bl[2 * h + 1]);
+      mma_bf16(acc, al, bh[2 * h], bh[2 * h + 1]);
+    }
+  }
+}
+
+// exp(x) for x <= 0: expf, or with kFast the two-instruction __expf
+// (relative error ~1e-7 |x|), for kernels whose result is rounded to bf16.
+template <bool kFast>
+__device__ __forceinline__ float exp_neg(float x) {
+  return kFast ? __expf(x) : expf(x);
+}
+
+// Row softmax, max-subtracted, of a 16-row strip of C fragments in place.
+template <int NT, bool kFast = false>
+__device__ __forceinline__ void softmax_strip(float (&s)[NT][4]) {
+  float m0 = -INFINITY, m1 = -INFINITY;
+#pragma unroll
+  for (int j = 0; j < NT; ++j) {
+    m0 = fmaxf(m0, fmaxf(s[j][0], s[j][1]));
+    m1 = fmaxf(m1, fmaxf(s[j][2], s[j][3]));
+  }
+  m0 = quad_max(m0);
+  m1 = quad_max(m1);
+  float l0 = 0.f, l1 = 0.f;
+#pragma unroll
+  for (int j = 0; j < NT; ++j) {
+    s[j][0] = exp_neg<kFast>(s[j][0] - m0);
+    s[j][1] = exp_neg<kFast>(s[j][1] - m0);
+    s[j][2] = exp_neg<kFast>(s[j][2] - m1);
+    s[j][3] = exp_neg<kFast>(s[j][3] - m1);
+    l0 += s[j][0] + s[j][1];
+    l1 += s[j][2] + s[j][3];
+  }
+  l0 = 1.f / quad_sum(l0);
+  l1 = 1.f / quad_sum(l1);
+#pragma unroll
+  for (int j = 0; j < NT; ++j) {
+    s[j][0] *= l0;
+    s[j][1] *= l0;
+    s[j][2] *= l1;
+    s[j][3] *= l1;
+  }
 }
 
 }  // namespace mstgan

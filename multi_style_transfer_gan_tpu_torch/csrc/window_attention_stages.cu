@@ -16,8 +16,8 @@
 // more for the Gram of logits and softmax, 12*C^2 for full. At C <= 64 that is
 // under the tensor-core ridge, so bytes bound every stage on the card
 // (copy's time is the kernel's floor); the deltas between stages show what
-// each step of the chain costs this kernel, which does its products with
-// fp32 FMAs on the CUDA cores.
+// each step of the chain costs this kernel (bf16: warp MMA; fp32: FMAs on
+// the CUDA cores).
 #include "window_channel_attention.cuh"
 
 namespace mstgan {

@@ -445,68 +445,6 @@ __device__ __forceinline__ void normalize_slot(bf16* x, bf16* lo, float eps, flo
   }
 }
 
-// g = rows 16 mt.. of the window's Gram qn^T kn (16 x C, C fragments), qn
-// and kn as hi + lo: hi hi + hi lo + lo hi.
-template <int C>
-__device__ __forceinline__ void gram_strip(float (&g)[C / 8][4], const bf16* x, const bf16* lo,
-                                           int mt, int lane) {
-  using L = MmaLayout<C>;
-#pragma unroll
-  for (int j = 0; j < L::NT; ++j) g[j][0] = g[j][1] = g[j][2] = g[j][3] = 0.f;
-  // A[c1][p] = qn[p][c1]: the [p][c] rows through ldmatrix.trans
-  const int ar = (lane & 7) + (lane >> 4) * 8, ac = mt * 16 + ((lane >> 3) & 1) * 8;
-  uint32_t ah[4], al[4];
-  ldmatrix_x4_trans(ah, x + ar * L::XS + ac);
-  ldmatrix_x4_trans(al, lo + ar * L::LS + ac);
-  const int br = (lane & 7) + ((lane >> 3) & 1) * 8;
-#pragma unroll
-  for (int nb = 0; nb < C / 16; ++nb) {
-    const int bc = C + nb * 16 + (lane >> 4) * 8;
-    uint32_t bh[4], bl[4];
-    ldmatrix_x4_trans(bh, x + br * L::XS + bc);
-    ldmatrix_x4_trans(bl, lo + br * L::LS + bc);
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      float (&acc)[4] = g[2 * nb + h];
-      mma_bf16(acc, ah, bh[2 * h], bh[2 * h + 1]);
-      mma_bf16(acc, ah, bl[2 * h], bl[2 * h + 1]);
-      mma_bf16(acc, al, bh[2 * h], bh[2 * h + 1]);
-    }
-  }
-}
-
-// Row softmax, max-subtracted, of a 16-row strip of C fragments in place.
-template <int NT>
-__device__ __forceinline__ void softmax_strip(float (&s)[NT][4]) {
-  float m0 = -INFINITY, m1 = -INFINITY;
-#pragma unroll
-  for (int j = 0; j < NT; ++j) {
-    m0 = fmaxf(m0, fmaxf(s[j][0], s[j][1]));
-    m1 = fmaxf(m1, fmaxf(s[j][2], s[j][3]));
-  }
-  m0 = quad_max(m0);
-  m1 = quad_max(m1);
-  float l0 = 0.f, l1 = 0.f;
-#pragma unroll
-  for (int j = 0; j < NT; ++j) {
-    s[j][0] = expf(s[j][0] - m0);
-    s[j][1] = expf(s[j][1] - m0);
-    s[j][2] = expf(s[j][2] - m1);
-    s[j][3] = expf(s[j][3] - m1);
-    l0 += s[j][0] + s[j][1];
-    l1 += s[j][2] + s[j][3];
-  }
-  l0 = 1.f / quad_sum(l0);
-  l1 = 1.f / quad_sum(l1);
-#pragma unroll
-  for (int j = 0; j < NT; ++j) {
-    s[j][0] *= l0;
-    s[j][1] *= l0;
-    s[j][2] *= l1;
-    s[j][3] *= l1;
-  }
-}
-
 // acc (16 positions x the 16 columns 16 mt.., two n-tiles) += a m^T, where a
 // is [p][c] bf16 rows (hi at a + col0, and lo when al) and m^T's B
 // fragments come straight from the C fragments of m's rows 16 mt.. (B[k][n]
@@ -606,7 +544,7 @@ mid_fwd_mma_kernel(const bf16* __restrict__ qkv, bf16* __restrict__ out, int H, 
                       sLO + slot.wl * L::LO + slot.p * L::LS + slot.col(), eps, inv, sel);
     __syncthreads();
     float s[L::NT][4];
-    gram_strip<C>(s, x, lo, mt, lane);
+    gram_strip<C>(s, x, L::XS, lo, L::LS, mt, lane);
     softmax_strip(s);
     // out[p][c1], c1 in 16 mt.. = sum_c2 v[p][c2] S[c1][c2]
     float o[2][4] = {};
@@ -659,7 +597,7 @@ mid_bwd_mma_kernel(const bf16* __restrict__ qkv, const bf16* __restrict__ dout,
 
     // the warp's rows 16 mt.. of S (recomputed), dS = dO^T v and dL
     float s[L::NT][4], d[L::NT][4];
-    gram_strip<C>(s, x, lo, mt, lane);
+    gram_strip<C>(s, x, L::XS, lo, L::LS, mt, lane);
     softmax_strip(s);
 #pragma unroll
     for (int j = 0; j < L::NT; ++j) d[j][0] = d[j][1] = d[j][2] = d[j][3] = 0.f;

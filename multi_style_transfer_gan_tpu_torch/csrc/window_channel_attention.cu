@@ -13,7 +13,8 @@
 //   ops/pallas/window_attention_v3.py::packed_window_attention_v3,
 //   ops/pallas/packed_attention.py::packed_window_attention_pallas.
 // The two layouts differ only in where position p of window w lives
-// (`pixel_offset` in the header), so one kernel body serves both; the TPU kernels'
+// (`window_base` and `position_offset` in the header), so one kernel body
+// serves both; the TPU kernels'
 // expanded block-diagonal weights, 0/1 rep/tile matrices and lane-stacked
 // groups were answers to 128-lane tiles and have no counterpart here.
 //

@@ -16,23 +16,46 @@
 // in bf16 (read x once, write y once): about 3*C flop per byte, 48-192 at
 // C = 16..64. Against the tensor-core ridge (~295 flop/B in bf16) that is
 // bytes-bound at every C, which is why the whole chain stays in one pass
-// and no intermediate touches device memory. This first kernel does its
-// products with fp32 FMAs on the CUDA cores, whose ridge is ~20 flop/B, so
-// for now its arithmetic and shared-memory traffic bound it; moving the
-// qkv/proj products onto mma/wgmma is later work.
+// and no intermediate touches device memory.
 //
-// Design. One block of 256 threads stages Wqkv^T, Wproj^T and the biases in
-// shared memory once (fp32; 48 KB + 16 KB at C = 64), then walks tiles of
-// NW = 64 / C windows (1024 activations per tile at every C). Each tile is
-// loaded once, every intermediate lives in shared memory in fp32, and the
-// result is written once in the input's type. In the qkv, apply and proj
-// products each thread owns one output channel at 4 positions, so one
-// shared-memory load feeds 3-4 FMAs. Row strides of qkv and the Gram are
-// padded to an odd number of floats so column walks hit distinct banks.
-// Windows past the end of the last tile compute on zeros and are not
-// stored.
+// bf16 design (window_channel_attention_mma_kernel). Persistent blocks of 8
+// warps: the grid is one block per 8 windows until the card is full
+// (persistent_grid; four times that at C = 16, whose weights cost less
+// than the imbalance), and every block stages Wqkv, Wproj (bf16, as
+// stored, rows padded by 16 bytes) and the biases (fp32) once with 16-byte
+// cp.async, then strides over the windows. One warp owns one window, a
+// 16-position m-tile, through the whole chain, so the only block barrier is
+// the one after the weights; the warp's next window is fetched with
+// cp.async into a second buffer while this one is computed. Every product
+// is mma.sync.m16n8k16 (bf16 in, fp32 sums; csrc/mma.cuh). For y = x W^T
+// the B operand is W as stored, [n][k] rows through ldmatrix; q, k and v
+// arrive as accumulator fragments. The L2 norm of a position is a quad
+// reduction over its fragments (fp32; 1 / max(|u|, eps), which sends a zero
+// vector to zero). qn and kn go to shared memory as hi + lo bf16 pairs and
+// come back transposed (ldmatrix.trans) for the Gram, 16 rows of it at a
+// time (gram_strip, three products hi hi + hi lo + lo hi); the softmax runs
+// on those fragments (quad shuffles); out = v A^T takes v's fragments as A
+// and the softmax's as B straight from registers, and each 16-column strip
+// of out is at once one k-step of the proj, so only x, qn and kn ever touch
+// shared memory. y leaves through the window's own x buffer as 16-byte
+// stores.
+// Operands rounded to bf16 inside the kernel: qn and kn as hi + lo pairs
+// (with one term each a flat window whose q and k sit on a few channels
+// misses the bf16 bound by 1.05-1.35x, with the pairs it stays at 0.41-0.66
+// of it; devtools/serving_kernel_rounding.py); v, A and out as one term.
 //
-// Stages. kStage < kFull ends each tile early and stores a result folded
+// fp32 stays exact fp32 (window_channel_attention_f32_kernel): FMAs on the
+// CUDA cores, no tensor cores, no TF32. One block of 256 threads walks
+// tiles of NW = 64 / C windows over the same persistent grid; Wqkv^T,
+// Wproj^T and the biases are staged once per block in fp32, with row
+// strides of 3C + 1 and C + 1 floats so that the transposing stores, like
+// the column walks of qkv and the Gram (strides 3C + 1, C + 1), fall in
+// distinct banks. Every intermediate lives in shared memory; each thread
+// owns one output channel at 4 positions in the qkv, apply and proj
+// products. Windows past the end of the last tile compute on zeros and are
+// not stored.
+//
+// Stages. kStage < kFull ends each window early and stores a result folded
 // from everything that stage computed (so no work is dead code), rounded
 // once to the input's type, at position p, channel c of each window:
 //   kCopy    x
@@ -40,14 +63,17 @@
 //   kNorm    qn + kn + v
 //   kLogits  v + (p < min(C, 16) ? sum_c2 G[p, c2] : 0),  G = qn^T kn
 //   kSoftmax the same fold over A = softmax_rows(G)
-// The row sums go to the pad slot of each Gram row (GS = C + 1). kFull is
-// the op, and its instantiation compiles exactly the code above.
+// The row sums of every Gram row are written to shared memory (fp32: the
+// pad slot of each Gram row; bf16: a per-warp array) and the first 16 read
+// back. kFull is the op, and its instantiation compiles exactly the code
+// above.
 #pragma once
 
 #include <climits>
 #include <cmath>
 
 #include "common.cuh"
+#include "mma.cuh"
 
 namespace mstgan {
 namespace {
@@ -55,20 +81,54 @@ namespace {
 constexpr int kWs = 4;
 constexpr int kP = kWs * kWs;
 constexpr int kThreads = 256;
-constexpr int kTilesPerBlock = 4;
+constexpr int kWarps = kThreads / 32;
 
 enum Stage : int { kCopy = 0, kQkv = 1, kNorm = 2, kLogits = 3, kSoftmax = 4, kFull = 5 };
+
+// Offset, in units of C elements, of position 0 of window `win`, windows
+// numbered (b, window row, window column) row-major. NHWC: a pixel of a (B,
+// H, W, C) tensor. Packed: the packed tensor (B, H/4, W/4, 16*C) holds
+// window `win` as one contiguous row of 16 positions. The index type I is
+// int where the caller knows the windows fit (32-bit divisions), else long
+// long.
+template <bool kPacked, typename I>
+__device__ __forceinline__ long long window_base(I win, int H, int W) {
+  if constexpr (kPacked) {
+    return (long long)win * kP;
+  } else {
+    const int nw = W / kWs;
+    const I per_image = (I)(H / kWs) * nw;
+    const I b = win / per_image;
+    const int rem = (int)(win - b * per_image);
+    return ((long long)b * H + (rem / nw) * kWs) * W + (rem % nw) * kWs;
+  }
+}
+
+// Offset of position p (0..15, row-major in the window) from window_base.
+template <bool kPacked>
+__device__ __forceinline__ int position_offset(int p, int W) {
+  return kPacked ? p : (p / kWs) * W + p % kWs;
+}
+
+template <bool kPacked>
+__device__ __forceinline__ long long pixel_offset(long long win, int p, int H, int W) {
+  return window_base<kPacked, long long>(win, H, W) + position_offset<kPacked>(p, W);
+}
+
+// ---------------------------------------------------------------------------
+// fp32: the FMA body
+// ---------------------------------------------------------------------------
 
 template <int C>
 struct Layout {
   static constexpr int NW = 64 / C;      // windows per tile
   static constexpr int ROWS = NW * kP;   // positions per tile
-  static constexpr int QS = 3 * C + 1;   // padded qkv row stride
-  static constexpr int GS = C + 1;       // padded Gram row stride
-  static constexpr int W_QKV = 0;                  // [C][3C], (in, out)
-  static constexpr int B_QKV = W_QKV + C * 3 * C;  // [3C]
-  static constexpr int W_PROJ = B_QKV + 3 * C;     // [C][C], (in, out)
-  static constexpr int B_PROJ = W_PROJ + C * C;    // [C]
+  static constexpr int QS = 3 * C + 1;   // padded qkv row stride; also Wqkv^T's
+  static constexpr int GS = C + 1;       // padded Gram row stride; also Wproj^T's
+  static constexpr int W_QKV = 0;                  // [C][QS], (in, out)
+  static constexpr int B_QKV = W_QKV + C * QS;     // [3C]
+  static constexpr int W_PROJ = B_QKV + 3 * C;     // [C][GS], (in, out)
+  static constexpr int B_PROJ = W_PROJ + C * GS;   // [C]
   static constexpr int X = B_PROJ + C;             // [ROWS][C]; later the attention output
   static constexpr int QKV = X + ROWS * C;         // [ROWS][QS]
   static constexpr int DEN = QKV + ROWS * QS;      // [2][ROWS] normalize denominators
@@ -76,45 +136,28 @@ struct Layout {
   static constexpr int TOTAL = G + NW * C * GS;
 };
 
-// Row (in units of C elements) of position `p` (0..15, row-major in the
-// window) of window `win`, windows numbered (b, window row, window column)
-// row-major. NHWC: a pixel of a (B, H, W, C) tensor. Packed: the packed
-// tensor (B, H/4, W/4, 16*C) holds window `win` as one contiguous row of 16
-// positions, so the tile of a block is one contiguous span.
-template <bool kPacked>
-__device__ __forceinline__ long long pixel_offset(long long win, int p, int H, int W) {
-  if constexpr (kPacked) {
-    return win * kP + p;
-  } else {
-    const int nw = W / kWs, nh = H / kWs;
-    const long long b = win / ((long long)nh * nw);
-    const int rem = (int)(win - b * nh * nw);
-    const int row = (rem / nw) * kWs + p / kWs;
-    const int col = (rem % nw) * kWs + p % kWs;
-    return (b * H + row) * (long long)W + col;
-  }
-}
-
 // An early stage's store: f(r) at channel og of the thread's 4 positions
 // r = rg + RG * j of the tile, as the proj store lays them out.
-template <typename T, int C, bool kPacked, typename F>
-__device__ __forceinline__ void store_stage(T* __restrict__ y, long long win0, long long n_windows,
-                                            int H, int W, int og, int rg, F f) {
+template <int C, bool kPacked, typename F>
+__device__ __forceinline__ void store_stage(float* __restrict__ y, long long win0,
+                                            long long n_windows, int H, int W, int og, int rg,
+                                            F f) {
   constexpr int RG = kThreads / C;
 #pragma unroll
   for (int j = 0; j < 4; ++j) {
     const int r = rg + RG * j;
     const long long win = win0 + r / kP;
-    if (win < n_windows) y[pixel_offset<kPacked>(win, r % kP, H, W) * C + og] = from_f<T>(f(r));
+    if (win < n_windows) y[pixel_offset<kPacked>(win, r % kP, H, W) * C + og] = f(r);
   }
 }
 
-template <typename T, int C, bool kPacked, int kStage>
+template <int C, bool kPacked, int kStage>
 __global__ void __launch_bounds__(kThreads)
-window_channel_attention_kernel(const T* __restrict__ x, const T* __restrict__ wqkv,
-                                const T* __restrict__ bqkv, const T* __restrict__ wproj,
-                                const T* __restrict__ bproj, T* __restrict__ y,
-                                int H, int W, long long n_windows, float eps) {
+window_channel_attention_f32_kernel(const float* __restrict__ x, const float* __restrict__ wqkv,
+                                    const float* __restrict__ bqkv,
+                                    const float* __restrict__ wproj,
+                                    const float* __restrict__ bproj, float* __restrict__ y,
+                                    int H, int W, long long n_windows, float eps) {
   using L = Layout<C>;
   extern __shared__ float smem[];
   float* sWq = smem + L::W_QKV;
@@ -137,16 +180,12 @@ window_channel_attention_kernel(const T* __restrict__ x, const T* __restrict__ w
     return u[0] + u[C] + u[2 * C];
   };
 
-  for (int e = tid; e < 3 * C * C; e += kThreads) {
-    const int o = e / C, i = e % C;
-    sWq[i * 3 * C + o] = to_f(wqkv[e]);
-  }
-  for (int e = tid; e < 3 * C; e += kThreads) sBq[e] = to_f(bqkv[e]);
-  for (int e = tid; e < C * C; e += kThreads) {
-    const int o = e / C, i = e % C;
-    sWp[i * C + o] = to_f(wproj[e]);
-  }
-  for (int e = tid; e < C; e += kThreads) sBp[e] = to_f(bproj[e]);
+  // the weights, transposed to (in, out): consecutive threads read
+  // consecutive `in` and store QS (GS) floats apart, an odd stride
+  for (int e = tid; e < 3 * C * C; e += kThreads) sWq[(e % C) * L::QS + e / C] = wqkv[e];
+  for (int e = tid; e < 3 * C; e += kThreads) sBq[e] = bqkv[e];
+  for (int e = tid; e < C * C; e += kThreads) sWp[(e % C) * L::GS + e / C] = wproj[e];
+  for (int e = tid; e < C; e += kThreads) sBp[e] = bproj[e];
 
   const long long n_tiles = (n_windows + L::NW - 1) / L::NW;
   for (long long tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
@@ -156,12 +195,12 @@ window_channel_attention_kernel(const T* __restrict__ x, const T* __restrict__ w
     for (int e = tid; e < L::ROWS * C; e += kThreads) {
       const int r = e / C, c = e % C;
       const long long win = win0 + r / kP;
-      sX[e] = win < n_windows ? to_f(x[pixel_offset<kPacked>(win, r % kP, H, W) * C + c]) : 0.f;
+      sX[e] = win < n_windows ? x[pixel_offset<kPacked>(win, r % kP, H, W) * C + c] : 0.f;
     }
     __syncthreads();
     if constexpr (kStage == kCopy) {
-      store_stage<T, C, kPacked>(y, win0, n_windows, H, W, og, rg,
-                                 [&](int r) { return sX[r * C + og]; });
+      store_stage<C, kPacked>(y, win0, n_windows, H, W, og, rg,
+                              [&](int r) { return sX[r * C + og]; });
       continue;
     }
 
@@ -175,7 +214,7 @@ window_channel_attention_kernel(const T* __restrict__ x, const T* __restrict__ w
 #pragma unroll
         for (int j = 0; j < 4; ++j) a[j] = sX[(rg + RG * j) * C + i];
 #pragma unroll
-        for (int k = 0; k < 3; ++k) w[k] = sWq[i * 3 * C + og + C * k];
+        for (int k = 0; k < 3; ++k) w[k] = sWq[i * L::QS + og + C * k];
 #pragma unroll
         for (int j = 0; j < 4; ++j)
 #pragma unroll
@@ -189,7 +228,7 @@ window_channel_attention_kernel(const T* __restrict__ x, const T* __restrict__ w
     }
     __syncthreads();
     if constexpr (kStage == kQkv) {
-      store_stage<T, C, kPacked>(y, win0, n_windows, H, W, og, rg, qkv_sum);
+      store_stage<C, kPacked>(y, win0, n_windows, H, W, og, rg, qkv_sum);
       continue;
     }
 
@@ -209,7 +248,7 @@ window_channel_attention_kernel(const T* __restrict__ x, const T* __restrict__ w
     }
     __syncthreads();
     if constexpr (kStage == kNorm) {
-      store_stage<T, C, kPacked>(y, win0, n_windows, H, W, og, rg, qkv_sum);
+      store_stage<C, kPacked>(y, win0, n_windows, H, W, og, rg, qkv_sum);
       continue;
     }
 
@@ -251,7 +290,7 @@ window_channel_attention_kernel(const T* __restrict__ x, const T* __restrict__ w
     __syncthreads();
     if constexpr (kStage == kLogits || kStage == kSoftmax) {
       // v + the sum of Gram row p at position p < min(C, 16)
-      store_stage<T, C, kPacked>(y, win0, n_windows, H, W, og, rg, [&](int r) {
+      store_stage<C, kPacked>(y, win0, n_windows, H, W, og, rg, [&](int r) {
         const int p = r % kP;
         const float fold = p < (C < kP ? C : kP) ? sG[((r / kP) * C + p) * L::GS + C] : 0.f;
         return sQKV[r * L::QS + 2 * C + og] + fold;
@@ -281,7 +320,7 @@ window_channel_attention_kernel(const T* __restrict__ x, const T* __restrict__ w
       float acc[4] = {};
 #pragma unroll 4
       for (int i = 0; i < C; ++i) {
-        const float w = sWp[i * C + og];
+        const float w = sWp[i * L::GS + og];
 #pragma unroll
         for (int j = 0; j < 4; ++j) acc[j] = fmaf(sX[(rg + RG * j) * C + i], w, acc[j]);
       }
@@ -290,24 +329,292 @@ window_channel_attention_kernel(const T* __restrict__ x, const T* __restrict__ w
         const int r = rg + RG * j;
         const long long win = win0 + r / kP;
         if (win < n_windows)
-          y[pixel_offset<kPacked>(win, r % kP, H, W) * C + og] = from_f<T>(acc[j] + sBp[og]);
+          y[pixel_offset<kPacked>(win, r % kP, H, W) * C + og] = acc[j] + sBp[og];
       }
     }
   }
 }
 
+// ---------------------------------------------------------------------------
+// bf16: warp MMA
+// ---------------------------------------------------------------------------
+
+using bf16 = __nv_bfloat16;
+
+template <int C>
+struct MmaLayout {
+  static constexpr int NT = C / 8;          // n-tiles of a C-wide strip
+  static constexpr int KT = C / 16;         // k-steps over C; m-tiles of the Gram
+  static constexpr int CH = C / 8;          // 16-byte chunks of a C-wide row
+  static constexpr int XS = C + 8;          // x / y row
+  static constexpr int QS = 2 * C + 8;      // qn | kn row, hi and lo alike
+  static constexpr int WS = C + 8;          // weight row: [4C][WS], Wqkv then Wproj
+  static constexpr int X = kP * XS;         // one x buffer of a warp (it has two)
+  static constexpr int Q = kP * QS;         // qn | kn of a warp, hi or lo
+  static constexpr int WARP = 2 * X + 2 * Q;
+  static constexpr int W_ELEMS = 4 * C * WS;
+  // bf16: weights, the warps' buffers; fp32: 4C biases, C row sums a warp
+  static constexpr int BYTES = (W_ELEMS + kWarps * WARP) * (int)sizeof(bf16) +
+                               (4 * C + kWarps * C) * (int)sizeof(float);
+};
+
+// acc (16 positions x C outputs) = a w^T + bias: a as A fragments (C / 16
+// k-steps), w as C rows [n][k] of stride WS (B fragments through ldmatrix).
+template <int C>
+__device__ __forceinline__ void linear_strip(float (&acc)[C / 8][4],
+                                             const uint32_t (&a)[C / 16][4], const bf16* w,
+                                             const float* bias, int lane) {
+  using L = MmaLayout<C>;
+  const int t = lane & 3;
+#pragma unroll
+  for (int j = 0; j < L::NT; ++j) {
+    const float2 b = *reinterpret_cast<const float2*>(bias + j * 8 + 2 * t);
+    acc[j][0] = acc[j][2] = b.x;
+    acc[j][1] = acc[j][3] = b.y;
+  }
+#pragma unroll
+  for (int kk = 0; kk < L::KT; ++kk)
+#pragma unroll
+    for (int nb = 0; nb < L::KT; ++nb) {
+      uint32_t b[4];
+      ldmatrix_x4(b, w + (nb * 16 + (lane & 7) + (lane >> 4) * 8) * L::WS + kk * 16 +
+                         ((lane >> 3) & 1) * 8);
+      mma_bf16(acc[2 * nb], a[kk], b[0], b[1]);
+      mma_bf16(acc[2 * nb + 1], a[kk], b[2], b[3]);
+    }
+}
+
+// Zero-safe L2 normalize over C of the strip's two rows per lane, in place:
+// u / max(|u|, eps); a zero vector stays zero (0 times the finite 1 / eps).
+template <int NT>
+__device__ __forceinline__ void normalize_strip(float (&u)[NT][4], float eps) {
+  float s0 = 0.f, s1 = 0.f;
+#pragma unroll
+  for (int j = 0; j < NT; ++j) {
+    s0 = fmaf(u[j][0], u[j][0], fmaf(u[j][1], u[j][1], s0));
+    s1 = fmaf(u[j][2], u[j][2], fmaf(u[j][3], u[j][3], s1));
+  }
+  const float i0 = 1.f / fmaxf(sqrtf(quad_sum(s0)), eps);
+  const float i1 = 1.f / fmaxf(sqrtf(quad_sum(s1)), eps);
+#pragma unroll
+  for (int j = 0; j < NT; ++j) {
+    u[j][0] *= i0;
+    u[j][1] *= i0;
+    u[j][2] *= i1;
+    u[j][3] *= i1;
+  }
+}
+
+template <int NT>
+__device__ __forceinline__ void add_strip(float (&acc)[NT][4], const float (&x)[NT][4]) {
+#pragma unroll
+  for (int j = 0; j < NT; ++j)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) acc[j][i] += x[j][i];
+}
+
+template <int C, bool kPacked, int kStage>
+__global__ void __launch_bounds__(kThreads)
+window_channel_attention_mma_kernel(const bf16* __restrict__ x, const bf16* __restrict__ wqkv,
+                                    const bf16* __restrict__ bqkv,
+                                    const bf16* __restrict__ wproj,
+                                    const bf16* __restrict__ bproj, bf16* __restrict__ y, int H,
+                                    int W, long long n_windows, float eps) {
+  using L = MmaLayout<C>;
+  extern __shared__ __align__(16) unsigned char smem_mma[];
+  bf16* sW = reinterpret_cast<bf16*>(smem_mma);                   // [4C][WS]
+  bf16* sWarps = sW + L::W_ELEMS;
+  float* sBias = reinterpret_cast<float*>(sWarps + kWarps * L::WARP);   // bqkv, bproj
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  bf16* sX = sWarps + warp * L::WARP;     // [2][16][XS]
+  bf16* sQK = sX + 2 * L::X;              // [16][QS]: qn, kn hi
+  bf16* sLO = sQK + L::Q;                 // [16][QS]: qn, kn lo
+  [[maybe_unused]] float* sRow = sBias + 4 * C + warp * C;   // Gram row sums (stages)
+
+  // the window at `base` (window_base): x into a buffer of the warp, 16
+  // bytes a copy
+  auto stage = [&](long long base, bf16* dst) {
+    const bf16* src = x + base * C;
+#pragma unroll
+    for (int e = lane; e < kP * L::CH; e += 32) {
+      const int p = e / L::CH, c = e % L::CH;
+      cp_async16(dst + p * L::XS + c * 8, src + position_offset<kPacked>(p, W) * C + c * 8);
+    }
+  };
+  // fragments (16 positions x C) through the buffer to the window in y
+  auto store = [&](long long base, bf16* buf, const float (&frags)[L::NT][4]) {
+    if constexpr (kStage != kCopy) {
+      store_frags<L::NT>(buf, nullptr, L::XS, 0, 0, frags, 1.f, lane);
+      __syncwarp();
+    }
+    bf16* dst = y + base * C;
+#pragma unroll
+    for (int e = lane; e < kP * L::CH; e += 32) {
+      const int p = e / L::CH, c = e % L::CH;
+      *reinterpret_cast<uint4*>(dst + position_offset<kPacked>(p, W) * C + c * 8) =
+          *reinterpret_cast<const uint4*>(buf + p * L::XS + c * 8);
+    }
+  };
+
+  for (int e = tid; e < 4 * C * L::CH; e += kThreads) {
+    const int r = e / L::CH, c = e % L::CH;
+    cp_async16(sW + r * L::WS + c * 8,
+               r < 3 * C ? wqkv + r * C + c * 8 : wproj + (r - 3 * C) * C + c * 8);
+  }
+  for (int e = tid; e < 4 * C; e += kThreads)
+    sBias[e] = to_f(e < 3 * C ? bqkv[e] : bproj[e - 3 * C]);
+
+  // windows as int: the launcher refuses more than INT_MAX of them
+  const int n = (int)n_windows, stride = (int)gridDim.x * kWarps;
+  int win = (int)blockIdx.x * kWarps + warp;
+  long long base = 0, next_base = 0;
+  if (win < n) stage(base = window_base<kPacked, int>(win, H, W), sX);
+  cp_async_commit();
+  cp_async_wait<0>();
+  __syncthreads();   // the weights; the only block barrier
+
+  for (int cur = 0; win < n; win += stride, cur ^= 1, base = next_base) {
+    bf16* xs = sX + cur * L::X;
+    if (win < n - stride)
+      stage(next_base = window_base<kPacked, int>(win + stride, H, W),
+            sX + (cur ^ 1) * L::X);
+    cp_async_commit();
+    cp_async_wait<1>();   // all but the copy just started: this window is in
+    __syncwarp();
+    float u[L::NT][4];    // q, then k, then the folds and y
+    if constexpr (kStage == kCopy) {
+      store(base, xs, u);
+      __syncwarp();
+      continue;
+    }
+    uint32_t xa[L::KT][4];
+#pragma unroll
+    for (int kk = 0; kk < L::KT; ++kk)
+      ldmatrix_x4(xa[kk], xs + (lane & 15) * L::XS + kk * 16 + (lane >> 4) * 8);
+
+    // q and k: normalized, to shared memory as hi + lo
+    [[maybe_unused]] float fold[L::NT][4] = {};
+#pragma unroll
+    for (int s = 0; s < 2; ++s) {
+      linear_strip<C>(u, xa, sW + s * C * L::WS, sBias + s * C, lane);
+      if constexpr (kStage > kQkv) {
+        normalize_strip(u, eps);
+        store_frags<L::NT>(sQK, sLO, L::QS, 0, s * C, u, 1.f, lane);
+      }
+      if constexpr (kStage <= kNorm) add_strip(fold, u);
+    }
+    float v[L::NT][4];
+    linear_strip<C>(v, xa, sW + 2 * C * L::WS, sBias + 2 * C, lane);
+    if constexpr (kStage <= kNorm) {
+      add_strip(fold, v);
+      store(base, xs, fold);
+      __syncwarp();
+      continue;
+    }
+    __syncwarp();   // qn, kn are in
+
+    uint32_t va[L::KT][4];
+#pragma unroll
+    for (int kk = 0; kk < L::KT; ++kk) frags_to_a(va[kk], v[2 * kk], v[2 * kk + 1]);
+    {   // y starts from the proj bias
+      const int t = lane & 3;
+#pragma unroll
+      for (int j = 0; j < L::NT; ++j) {
+        const float2 b = *reinterpret_cast<const float2*>(sBias + 3 * C + j * 8 + 2 * t);
+        u[j][0] = u[j][2] = b.x;
+        u[j][1] = u[j][3] = b.y;
+      }
+    }
+#pragma unroll
+    for (int mt = 0; mt < L::KT; ++mt) {
+      // rows 16 mt.. of the Gram and of its softmax
+      float a[L::NT][4];
+      gram_strip<C>(a, sQK, L::QS, sLO, L::QS, mt, lane);
+      if constexpr (kStage != kLogits) softmax_strip<L::NT, true>(a);   // __expf: y is bf16
+      if constexpr (kStage != kFull) {   // every row's sum, to shared memory
+        float r0 = 0.f, r1 = 0.f;
+#pragma unroll
+        for (int j = 0; j < L::NT; ++j) {
+          r0 += a[j][0] + a[j][1];
+          r1 += a[j][2] + a[j][3];
+        }
+        r0 = quad_sum(r0);
+        r1 = quad_sum(r1);
+        if ((lane & 3) == 0) {
+          sRow[mt * 16 + (lane >> 2)] = r0;
+          sRow[mt * 16 + (lane >> 2) + 8] = r1;
+        }
+        continue;
+      }
+      // out[p][c1], c1 in 16 mt.. = sum_c2 v[p][c2] A[c1][c2]: A's C
+      // fragments are the B fragments (B[k][n] = A[n][k])
+      float o[2][4] = {};
+#pragma unroll
+      for (int kk = 0; kk < L::KT; ++kk)
+#pragma unroll
+        for (int h = 0; h < 2; ++h)
+          mma_bf16(o[h], va[kk], pack_bf16(a[2 * kk][2 * h], a[2 * kk][2 * h + 1]),
+                   pack_bf16(a[2 * kk + 1][2 * h], a[2 * kk + 1][2 * h + 1]));
+      // ... which is k-step mt of y = out Wproj^T
+      uint32_t oa[4];
+      frags_to_a(oa, o[0], o[1]);
+#pragma unroll
+      for (int nb = 0; nb < L::KT; ++nb) {
+        uint32_t b[4];
+        ldmatrix_x4(b, sW + (3 * C + nb * 16 + (lane & 7) + (lane >> 4) * 8) * L::WS + mt * 16 +
+                           ((lane >> 3) & 1) * 8);
+        mma_bf16(u[2 * nb], oa, b[0], b[1]);
+        mma_bf16(u[2 * nb + 1], oa, b[2], b[3]);
+      }
+    }
+    if constexpr (kStage != kFull) {
+      // v + the sum of Gram row p at position p (C >= 16: every position)
+      __syncwarp();
+      const float f0 = sRow[lane >> 2], f1 = sRow[(lane >> 2) + 8];
+#pragma unroll
+      for (int j = 0; j < L::NT; ++j) {
+        v[j][0] += f0;
+        v[j][1] += f0;
+        v[j][2] += f1;
+        v[j][3] += f1;
+      }
+      store(base, xs, v);
+    } else {
+      store(base, xs, u);
+    }
+    __syncwarp();   // the buffer is free for the copy after next
+  }
+}
+
+// ---------------------------------------------------------------------------
+
 template <typename T, int C, bool kPacked, int kStage>
 int launch(const void* x, const void* wqkv, const void* bqkv, const void* wproj,
            const void* bproj, void* y, int H, int W, long long n_windows, float eps,
            cudaStream_t stream) {
-  using L = Layout<C>;
-  const int smem = L::TOTAL * (int)sizeof(float);
-  auto kernel = window_channel_attention_kernel<T, C, kPacked, kStage>;
+  constexpr bool kFloat = sizeof(T) == sizeof(float);
+  auto kernel = [] {
+    if constexpr (kFloat) return window_channel_attention_f32_kernel<C, kPacked, kStage>;
+    else return window_channel_attention_mma_kernel<C, kPacked, kStage>;
+  }();
+  // units of work a block strides over: tiles of NW windows (fp32), rounds
+  // of one window per warp (bf16)
+  constexpr int smem = kFloat ? Layout<C>::TOTAL * (int)sizeof(float) : MmaLayout<C>::BYTES;
+  constexpr int per_unit = kFloat ? Layout<C>::NW : kWarps;
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
-  const long long n_tiles = (n_windows + L::NW - 1) / L::NW;
-  long long grid = (n_tiles + kTilesPerBlock - 1) / kTilesPerBlock;
-  if (grid > INT_MAX) grid = INT_MAX;
+  if (!kFloat && n_windows > INT_MAX - (1 << 20)) return (int)cudaErrorInvalidValue;
+  static int sms = 0, blocks_per_sm = 0;   // asked once per instantiation
+  if (sms == 0) {
+    const int rc = residency(kernel, kThreads, smem, &sms, &blocks_per_sm);
+    if (rc != 0) return rc;
+  }
+  // At C = 16 the weights are 3-4 KB, cheaper to stage four times than a
+  // static share of the work is to balance: four blocks per resident slot
+  // there (5-8% faster at batch 64 and at canvas 512), one elsewhere.
+  constexpr int kWaves = C == 16 ? 4 : 1;
+  const int grid = persistent_grid((n_windows + per_unit - 1) / per_unit, sms,
+                                   blocks_per_sm * kWaves);
   kernel<<<(unsigned)grid, kThreads, smem, stream>>>(
       static_cast<const T*>(x), static_cast<const T*>(wqkv), static_cast<const T*>(bqkv),
       static_cast<const T*>(wproj), static_cast<const T*>(bproj), static_cast<T*>(y),

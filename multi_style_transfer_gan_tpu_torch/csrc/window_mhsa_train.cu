@@ -54,15 +54,16 @@
 
 #include "common.cuh"
 #include "mma.cuh"
+#include "window_mhsa_mma.cuh"
 
 namespace mstgan {
 namespace {
 
-constexpr int kWin = 8;
-constexpr int kTok = kWin * kWin;
+using namespace mhsa;   // kWin, kTok, kHd, RS, TILE and the forward's MMA steps
+
 constexpr int kC = 64;
 constexpr int kHeads = 2;
-constexpr int kHd = kC / kHeads;
+static_assert(kHd == kC / kHeads, "two heads of 32 channels");
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 constexpr int TS = kHd + 1;    // token row stride (q, k, v, dO)
@@ -204,11 +205,8 @@ mhsa_bwd_kernel(const T* __restrict__ qkv, const T* __restrict__ dout, T* __rest
 // bf16: warp MMA
 // ---------------------------------------------------------------------------
 
-using bf16 = __nv_bfloat16;
 constexpr int kMmaThreads = 128;          // 4 warps x 16 query rows
-constexpr int RS = kHd + 8;               // staged token row: 80 bytes
 constexpr int QS = kTok + 8;              // 64-wide p / ds row: 144 bytes
-constexpr int TILE = kTok * RS;           // one staged 64 x 32 tile
 constexpr int SQUARE = kTok * QS;         // one 64 x 64 tile
 constexpr int MMA_F_BYTES = 3 * TILE * (int)sizeof(bf16);                 // q, k, v
 constexpr int MMA_B_BYTES = (4 * TILE + 3 * SQUARE) * (int)sizeof(bf16);  // + dO, p, ds hi, lo
@@ -237,60 +235,6 @@ __device__ void store_tiles(bf16* __restrict__ dst, int stride, int first, int n
   }
 }
 
-// A fragments (two k-steps) of rows r0..r0+15 of a staged tile.
-__device__ __forceinline__ void load_a(uint32_t (&a)[2][4], const bf16* tile, int r0, int lane) {
-#pragma unroll
-  for (int kk = 0; kk < 2; ++kk)
-    ldmatrix_x4(a[kk], tile + (r0 + (lane & 15)) * RS + kk * 16 + (lane >> 4) * 8);
-}
-
-// acc (16 x 64, 8 n-tiles) = a (16 x 32) y^T, y a staged [token][d] tile.
-__device__ __forceinline__ void times_tile_t(float (&acc)[8][4], const uint32_t (&a)[2][4],
-                                             const bf16* y, int lane) {
-#pragma unroll
-  for (int j = 0; j < 8; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
-#pragma unroll
-  for (int kk = 0; kk < 2; ++kk)
-#pragma unroll
-    for (int nb = 0; nb < 4; ++nb) {
-      uint32_t b[4];
-      ldmatrix_x4(b, y + (nb * 16 + (lane & 7) + (lane >> 4) * 8) * RS + kk * 16 +
-                         ((lane >> 3) & 1) * 8);
-      mma_bf16(acc[2 * nb], a[kk], b[0], b[1]);
-      mma_bf16(acc[2 * nb + 1], a[kk], b[2], b[3]);
-    }
-}
-
-// acc (16 x 32, 4 n-tiles) += x (16 x 64, C fragments) y, y a staged
-// [token][d] tile read through ldmatrix.trans; x repacked as A fragments,
-// as hi + lo bf16 when kSplit.
-template <bool kSplit>
-__device__ __forceinline__ void strip_times_tile(float (&acc)[4][4], const float (&x)[8][4],
-                                                 const bf16* y, int lane) {
-#pragma unroll
-  for (int kk = 0; kk < 4; ++kk) {
-    uint32_t hi[4], lo[4];
-#pragma unroll
-    for (int r = 0; r < 4; ++r) {   // a0..a3: (n-tile 2kk, row g), (2kk, g+8), (2kk+1, g), ...
-      const float c0 = x[2 * kk + r / 2][(r % 2) * 2], c1 = x[2 * kk + r / 2][(r % 2) * 2 + 1];
-      if (kSplit) pack_bf16_split(c0, c1, hi[r], lo[r]);
-      else hi[r] = pack_bf16(c0, c1);
-    }
-#pragma unroll
-    for (int dp = 0; dp < 2; ++dp) {
-      uint32_t b[4];
-      ldmatrix_x4_trans(b, y + (kk * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * RS + dp * 16 +
-                               (lane >> 4) * 8);
-      mma_bf16(acc[2 * dp], hi, b[0], b[1]);
-      mma_bf16(acc[2 * dp + 1], hi, b[2], b[3]);
-      if (kSplit) {
-        mma_bf16(acc[2 * dp], lo, b[0], b[1]);
-        mma_bf16(acc[2 * dp + 1], lo, b[2], b[3]);
-      }
-    }
-  }
-}
-
 // acc (16 x 32: key rows k0..k0+15) += x^T y, x a [query][key] 64 x 64 tile
 // in shared memory (hi, and lo when kSplit), y a staged [query][d] tile.
 template <bool kSplit>
@@ -316,31 +260,6 @@ __device__ __forceinline__ void square_t_times_tile(float (&acc)[4][4], const bf
       }
     }
   }
-}
-
-// exp((s - row max) scale) in place on a 16 x 64 strip of C fragments, and
-// the sums of the lane's two rows (g and g + 8).
-__device__ __forceinline__ void exp_rows(float (&s)[8][4], float scale, float& l0, float& l1) {
-  float m0 = -INFINITY, m1 = -INFINITY;
-#pragma unroll
-  for (int j = 0; j < 8; ++j) {
-    m0 = fmaxf(m0, fmaxf(s[j][0], s[j][1]));
-    m1 = fmaxf(m1, fmaxf(s[j][2], s[j][3]));
-  }
-  m0 = quad_max(m0);
-  m1 = quad_max(m1);
-  l0 = l1 = 0.f;
-#pragma unroll
-  for (int j = 0; j < 8; ++j) {
-    s[j][0] = expf((s[j][0] - m0) * scale);
-    s[j][1] = expf((s[j][1] - m0) * scale);
-    s[j][2] = expf((s[j][2] - m1) * scale);
-    s[j][3] = expf((s[j][3] - m1) * scale);
-    l0 += s[j][0] + s[j][1];
-    l1 += s[j][2] + s[j][3];
-  }
-  l0 = quad_sum(l0);
-  l1 = quad_sum(l1);
 }
 
 __global__ void __launch_bounds__(kMmaThreads)

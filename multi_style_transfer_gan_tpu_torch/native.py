@@ -16,7 +16,9 @@ from __future__ import annotations
 
 import ctypes
 import os
+import shutil
 import subprocess
+import tempfile
 import threading
 
 import numpy as np
@@ -29,10 +31,18 @@ _SO_PATH = os.path.join(_NATIVE_DIR, "libmstgan_native.so")
 
 
 def _build() -> bool:
-    """``make -C native``; False when make is missing, fails or hangs."""
+    """Build the library with ``native/Makefile`` in a scratch copy of its
+    directory and move the result into place with ``os.replace``, so that a
+    process loading the library while another builds it never maps half a
+    file. False when make is missing, fails or hangs."""
     try:
-        subprocess.run(["make", "-C", _NATIVE_DIR, "-s"], check=True,
-                       capture_output=True, timeout=120)
+        with tempfile.TemporaryDirectory(dir=_NATIVE_DIR,
+                                         prefix=".build-") as tmp:
+            for name in ("Makefile", "mstgan_native.cpp"):
+                shutil.copy(os.path.join(_NATIVE_DIR, name), tmp)
+            subprocess.run(["make", "-C", tmp, "-s"], check=True,
+                           capture_output=True, timeout=120)
+            os.replace(os.path.join(tmp, os.path.basename(_SO_PATH)), _SO_PATH)
     except (OSError, subprocess.SubprocessError):
         return False
     return os.path.exists(_SO_PATH)

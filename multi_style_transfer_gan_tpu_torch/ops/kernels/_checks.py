@@ -33,7 +33,8 @@ def check_no_grad(kernel: str, *tensors) -> None:
 
 def check_cuda_args(kernel: str, x: torch.Tensor, operands: dict,
                     align: int = 16) -> None:
-    """x: the contiguous activation on a CUDA device, fp32 or bf16.
+    """x: the contiguous, ``align``-byte aligned activation on a CUDA
+    device, fp32 or bf16 (the kernels move it 16 bytes at a time).
     operands: {name: (tensor, expected shape)}, each on x's device, of x's
     type, contiguous and ``align``-byte aligned (16 where a kernel loads 4
     elements at a time)."""
@@ -42,9 +43,10 @@ def check_cuda_args(kernel: str, x: torch.Tensor, operands: dict,
     if x.dtype not in _DTYPE_CODES:
         raise TypeError(f"{kernel}: dtype {x.dtype} not supported "
                         f"(float32 or bfloat16)")
-    if not x.is_contiguous():
+    if not x.is_contiguous() or x.data_ptr() % align:
         raise ValueError(f"{kernel}: input must be a contiguous (B, H, W, C) "
-                         f"tensor (channels_last memory for NCHW)")
+                         f"tensor (channels_last memory for NCHW), "
+                         f"{align}-byte aligned")
     for name, (t, shape) in operands.items():
         if t.device != x.device or t.dtype != x.dtype:
             raise TypeError(f"{kernel}: {name} is {t.dtype} on {t.device}, "

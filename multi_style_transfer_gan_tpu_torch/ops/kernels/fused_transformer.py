@@ -43,6 +43,20 @@ def weight_shapes(C: int) -> dict:
 WEIGHT_NAMES = tuple(weight_shapes(1))  # the order the C entry point takes
 
 
+def block_launch_shape(B: int, H: int, W: int, C: int = 64) -> tuple:
+    """(units of work, dynamic shared memory in bytes) of one bf16 launch
+    of the block kernel, as ``csrc/fused_structural_block.cu`` lays it out:
+    a persistent block takes two 8x8 windows at a time (ragged edges count
+    as whole windows); it holds the four weights as bf16 in rows padded by
+    8 values, per window x, struct and the k (hi, lo) and v tiles of both
+    heads (64 rows of 40), then the biases and LayerNorm parameters as
+    fp32. The grid is ``persistent_grid(units, SMs, 1)``."""
+    windows = B * -(-H // WINDOW) * -(-W // WINDOW)
+    weights = 8 * C * (C + 8) + C * (4 * C + 8)
+    group = 2 * 64 * (C + 8) + 3 * default_num_heads(C) * 64 * 40
+    return -(-windows // 2), 2 * (weights + 2 * group) + 4 * 13 * C
+
+
 def _window_mhsa(h, qkv_w, qkv_b):
     """Windowed multi-head self-attention of (B, H, W, C) fp32 tokens,
     before the output projection. The grid is zero-padded to window

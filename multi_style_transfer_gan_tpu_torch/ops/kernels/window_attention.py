@@ -31,6 +31,33 @@ KERNEL_WIDTHS = (16, 32, 64)
 STAGES = ("copy", "qkv", "norm", "logits", "softmax", "full")
 
 
+def persistent_grid(n_units: int, sms: int, blocks_per_sm: int) -> int:
+    """The grid of a persistent kernel whose blocks stride over ``n_units``
+    units of work, as ``csrc/common.cuh::persistent_grid`` computes it: one
+    block per unit until the card is full (``blocks_per_sm`` resident
+    blocks on each of ``sms`` SMs), never less than one block."""
+    return max(1, min(n_units, sms * blocks_per_sm))
+
+
+def attention_launch_shape(n_windows: int, C: int, bf16: bool) -> tuple:
+    """(units of work, dynamic shared memory in bytes) of one launch of the
+    attention kernel at width C, as ``csrc/window_channel_attention.cuh``
+    lays it out. bf16 (warp MMA): a unit is one window per warp of the
+    block's 8; the block holds the bf16 weights in rows of C + 8, per warp
+    two x buffers (16 x (C + 8)) and qn | kn as hi and lo (16 x (2C + 8)
+    each), then 4C fp32 biases and C fp32 row sums a warp. fp32 (FMA): a
+    unit is a tile of 64 / C windows; everything is fp32."""
+    if bf16:
+        warp = 2 * 16 * (C + 8) + 2 * 16 * (2 * C + 8)
+        smem = 2 * (4 * C * (C + 8) + 8 * warp) + 4 * (4 * C + 8 * C)
+        return -(-n_windows // 8), smem
+    nw = 64 // C
+    rows, qs, gs = nw * 16, 3 * C + 1, C + 1
+    floats = (C * qs + 3 * C + C * gs + C + rows * C + rows * qs + 2 * rows
+              + nw * C * gs)
+    return -(-n_windows // nw), 4 * floats
+
+
 def window_rows_attention_plain(t, wqkv, bqkv, wproj, bproj, *,
                                 eps: float = 1e-12) -> torch.Tensor:
     """The op on (R, 16, C) windows, 16 positions each, in fp32: qkv,

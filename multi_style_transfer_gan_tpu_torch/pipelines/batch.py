@@ -127,8 +127,8 @@ def make_batch_fn(model: LoadedModel, mode: str = "cyclegan",
     """
     if engine == "int8":
         raise NotImplementedError(
-            "engine='int8' (the quantized engine) is not ported (ROADMAP.md "
-            "queue 1 item 13)")
+            "engine='int8' (the int8 engine) is not ported and not to be "
+            "ported (ROADMAP.md, queue 1)")
     if engine not in ENGINES:
         raise ValueError(f"engine must be one of {ENGINES}, got {engine!r} "
                          f"(batch_process resolves 'auto' with select_engine)")
@@ -139,9 +139,9 @@ def make_batch_fn(model: LoadedModel, mode: str = "cyclegan",
             raise ValueError(f"local_style_mode must be one of "
                              f"{LOCAL_STYLE_MODES}, got {local_style_mode!r}")
         raise NotImplementedError(
-            f"local_style_mode={local_style_mode!r} needs the post chain "
-            f"(ops/filters.py, ops/color.py), not ported yet (ROADMAP.md "
-            f"queue 1 item 4)")
+            f"local_style_mode={local_style_mode!r} needs the local-style "
+            f"post chain (ops/filters.py, ops/color.py), not ported yet "
+            f"(ROADMAP.md, queue 1)")
     device = torch.device(device)
     dtype = compute_dtype or torch.float32
     if engine == "packed":

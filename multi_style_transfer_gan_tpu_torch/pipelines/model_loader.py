@@ -56,8 +56,8 @@ def load_generator(path, prefer: str | None = None,
     """
     if precision == "int8":
         raise NotImplementedError(
-            "precision='int8' (the quantized engine) is not ported; "
-            "ROADMAP.md queue 1 item 13 records it as not to be ported")
+            "precision='int8' (the int8 engine) is not ported and not to be "
+            "ported (ROADMAP.md, queue 1)")
     if precision not in PRECISIONS:
         raise ValueError(f"precision must be one of {PRECISIONS}, "
                          f"got {precision!r}")
@@ -67,8 +67,8 @@ def load_generator(path, prefer: str | None = None,
     kind = detect_model_kind(sd)
     if kind == "plain":
         raise NotImplementedError(
-            f"{path} holds the plain encoder-decoder generator, which is not "
-            f"ported yet (ROADMAP.md queue 1 item 2)")
+            f"{path} holds the plain generator (the encoder-decoder without "
+            f"attention), which is not ported yet (ROADMAP.md, queue 1)")
     if kind != "enhanced":
         raise ValueError(f"checkpoint at {path} is a {kind}, not a generator")
     module = EnhancedGenerator(channels_of(sd), num_transformer_blocks_of(sd))
