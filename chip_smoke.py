@@ -2,10 +2,12 @@
 
     python3 chip_smoke.py
 
-Drives the port's two main paths (``multi_style_transfer_gan_tpu_torch``) on
-the card, serving at the full width of the trained c16 EnhancedGenerator
-shipped in ``trained/`` with both engines (NHWC and packed space-to-depth)
-and CycleGAN training at the reference configuration, and checks every
+Drives the port's main paths (``multi_style_transfer_gan_tpu_torch``) on the
+card, serving at the full width of the trained c16 EnhancedGenerator shipped
+in ``trained/`` with both engines (NHWC and packed space-to-depth) and every
+mode of the uint8 program (``cyclegan``, and ``local_style`` with the
+enhanced and advanced post chains), the single-image pipelines, and
+CycleGAN training at the reference configuration, and checks every
 hand-written kernel on the way:
 
 1. build: all six CUDA sources compile from ``csrc/`` at once, one nvcc
@@ -31,23 +33,36 @@ hand-written kernel on the way:
    attention shapes (fp32 with TF32 off, and bf16) and on the ablation
    tool's own bf16 inputs at each shape the ablation path gives them,
    ``full`` bit-equal to the production kernel;
-7. serving path: the uint8 -> uint8 stylize program on the trained weights
+7. the local-style post chains alone (no kernel of their own: plain
+   PyTorch in fp32), card vs CPU on the same canvas and styled arrays: the
+   sky mask, the detail mask and Canny, then every mode with colour boost
+   and smoothing on and off, on a batch with an image that trips the
+   has-sky gate and one whose Canny map is dense; each chain's CUDA-event
+   ms, device ms and device operations per batch at the rate cells;
+8. serving path: the uint8 -> uint8 stylize program on the trained weights
    with each engine (fp32 on the card vs the plain path on the CPU, packed
-   vs NHWC on the card, launch counts per forward, bf16 img/s of both
-   engines at canvas 256 and 512, batch 16 and 64), the batch CLI on 24
-   JPEGs of mixed sizes with ``--engine packed``, ``auto`` and ``nhwc``,
-   the HTTP server answering 4 requests with each engine;
-8. training path: the bf16 train step at c16, 256^2, batch 8 (launches per
-   step, finite losses, moved G, D and u, ms/step), one fp32 step on the
-   card vs the CPU, and the train CLI writing, resuming and producing a
-   generator that stylizes;
-9. ablation path: the stage-ablation tool
-   (``python -m multi_style_transfer_gan_tpu_torch.tools.attention_ablation``)
-   at the TPU script's default shape (96 x 512^2, C = 16) and at the
-   canvas-256 batch-64 shapes of C = 32 and 64, its tables printed.
+   vs NHWC on the card, launch counts per forward, the enhanced and
+   advanced programs card vs CPU, bf16 img/s of both engines at canvas 256
+   and 512, batch 16 and 64, and of the enhanced and advanced programs at
+   ``MODE_CELLS``), the batch CLI on 24 JPEGs of mixed sizes with
+   ``--engine packed``, ``auto`` and ``nhwc`` and with ``--mode
+   local_style`` in both post chains, the HTTP server answering 4 requests
+   with each engine and one in ``local_style`` ``enhanced``;
+9. single-image path: the ``direct_transform``, ``enhanced_local_style``
+   and ``improved_smooth`` CLIs and the five advanced variants, each card
+   vs CPU (``phase_single_image`` says which paths draw figures and are not
+   driven here);
+10. training path: the bf16 train step at c16, 256^2, batch 8 (launches
+    per step, finite losses, moved G, D and u, ms/step), one fp32 step on
+    the card vs the CPU, and the train CLI writing, resuming and producing
+    a generator that stylizes;
+11. ablation path: the stage-ablation tool
+    (``python -m multi_style_transfer_gan_tpu_torch.tools.attention_ablation``)
+    at the TPU script's default shape (96 x 512^2, C = 16) and at the
+    canvas-256 batch-64 shapes of C = 32 and 64, its tables printed.
 
 Every phase raises on failure. The last line is the result JSON; the line
-before it lists each kernel with its launches on the three paths (launch
+before it lists each kernel with its launches on the four paths (launch
 counts are reset just before each path and read just after), its largest
 fp32 deviation from the plain version, its time beside the plain
 version's, its bound (the larger of its bytes over the card's memory rate
@@ -137,6 +152,20 @@ BF16_BYTES = 2
 # the ablation path: the tool's runs at (batch, hw, C): the TPU script's
 # default shape, then the canvas-256 batch-64 shapes of C = 32 and 64
 ABLATION_SHAPES = ((96, 512, 16), (64, 128, 32), (64, 64, 64))
+# the local-style post chains of the uint8 program (--mode local_style)
+POST_MODES = ("enhanced", "advanced")
+CHAIN_BATCH = 8
+CHAIN_CASES = (("simple", True, True), ("enhanced", True, True),
+               ("enhanced", False, False), ("enhanced", True, False),
+               ("enhanced", False, True), ("advanced", True, True))
+# the chain thresholds masks and rounds at the end, so card vs CPU (and the
+# port vs JAX in the CPU tests) is held to: more than 1 level apart on at
+# most 0.1% of values, mean |d| at most 0.05 levels; the masks themselves
+# equal on at least 99.9% of pixels
+CHAIN_LEVEL_SHARE, CHAIN_MEAN_LEVELS = 1e-3, 0.05
+MASK_SHARE = 0.999
+# (canvas, batch) cells of the per-mode program rates and chain times
+MODE_CELLS = ((256, 16), (256, 64), (512, 16))
 
 
 def log(*a):
@@ -186,6 +215,12 @@ def device_ms(fn, iters=20, warmup=3) -> float:
     ``torch.profiler`` (``self_device_time_total`` of the CUDA entries of
     ``key_averages()``) over ``iters`` calls, so that host gaps between
     launches drop out."""
+    return device_profile(fn, iters, warmup)[0]
+
+
+def device_profile(fn, iters=20, warmup=3):
+    """(device ms, device operations launched) per call of ``fn``, from
+    ``torch.profiler`` as in :func:`device_ms`."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -198,11 +233,12 @@ def device_ms(fn, iters=20, warmup=3) -> float:
             for _ in range(iters):
                 fn()
             torch.cuda.synchronize()
-        us = sum(e.self_device_time_total for e in prof.key_averages()
-                 if e.device_type == DeviceType.CUDA
-                 and not getattr(e, "is_user_annotation", False))
+        rows = [e for e in prof.key_averages()
+                if e.device_type == DeviceType.CUDA
+                and not getattr(e, "is_user_annotation", False)]
+        us = sum(e.self_device_time_total for e in rows)
         if us > 0:
-            return us / iters / 1e3
+            return us / iters / 1e3, sum(e.count for e in rows) / iters
     raise AssertionError("torch.profiler recorded no device time")
 
 
@@ -913,10 +949,96 @@ def u8_diff(got, ref):
     return int(d.max()), float((d > 0).mean())
 
 
+def chain_images(rng, n, size):
+    """n uint8 (size, size, 3) images for the post chains: photo-like colour
+    fields, then a pale overcast sky (it trips the has-sky gate) and seeded
+    noise (a dense Canny map)."""
+    sky = np.empty((size, size, 3), np.float32)
+    sky[...] = [196.0, 206.0, 222.0]
+    sky = np.clip(np.round(sky + rng.normal(0, 3, sky.shape)), 0, 255)
+    noise = rng.integers(0, 256, (size, size, 3))
+    return smooth_images(rng, n - 2, (size, size)) + [sky.astype(np.uint8),
+                                                      noise.astype(np.uint8)]
+
+
+def level_stats(got, ref):
+    """(share of values more than 1 level apart, mean |d| in levels)."""
+    d = np.abs(np.asarray(got, np.float64) - np.asarray(ref, np.float64))
+    return float((d > 1).mean()), float(d.mean())
+
+
+def check_levels(what, got, ref):
+    share, mean = level_stats(got, ref)
+    log(f"    {what}: > 1 level on {share:.3e} of values, mean |d| "
+        f"{mean:.4f} levels")
+    if share > CHAIN_LEVEL_SHARE or mean > CHAIN_MEAN_LEVELS:
+        raise AssertionError(f"{what}: card and CPU disagree ({share:.3e} of "
+                             f"values > 1 level, mean {mean:.4f})")
+
+
+def phase_post_chain(rng, dev):
+    """The local-style post chains (``pipelines/batch.py::_postprocess``) on
+    the card against the port on the CPU, on the same canvas and styled
+    arrays: the masks, then every mode with colour boost and smoothing on
+    and off. Then each chain alone at the rate cells: CUDA-event ms, device
+    ms and device operations per batch (``chain`` in the returned dict)."""
+    import torch
+
+    from multi_style_transfer_gan_tpu_torch.ops.color import rgb_to_gray
+    from multi_style_transfer_gan_tpu_torch.ops.filters import canny
+    from multi_style_transfer_gan_tpu_torch.pipelines import batch as B
+
+    canvas = np.stack(chain_images(rng, CHAIN_BATCH, 256)).astype(np.float32)
+    styled = rng.integers(0, 256, canvas.shape).astype(np.float32)
+    c_cpu, s_cpu = torch.from_numpy(canvas), torch.from_numpy(styled)
+    c_dev, s_dev = c_cpu.to(dev), s_cpu.to(dev)
+    masks = {"sky mask": lambda c: B._sky_mask(c)[0],
+             "detail mask": B._detail_mask,
+             "canny": lambda c: canny(rgb_to_gray(c))}
+    log(f"[post chain] {canvas.shape} canvas, card vs CPU")
+    for name, fn in masks.items():
+        share = float((fn(c_dev).cpu() == fn(c_cpu)).float().mean())
+        log(f"    {name}: equal on {share:.6f} of pixels")
+        if share < MASK_SHARE:
+            raise AssertionError(f"{name}: card and CPU agree on {share:.6f} "
+                                 f"of pixels")
+    has_sky = B._sky_mask(c_dev)[1].cpu().tolist()
+    dense = float(B._detail_mask(c_dev)[-1].float().mean())
+    log(f"    has-sky gate per image {has_sky}; detail mask of the noise "
+        f"image covers {dense:.3f}")
+    if has_sky != B._sky_mask(c_cpu)[1].tolist() or not has_sky[-2] \
+            or any(has_sky[:-2]) or dense < 0.5:
+        raise AssertionError("the sky gate or the dense detail mask is off")
+    for mode, ec, sm in CHAIN_CASES:
+        got, ref = (torch.clamp(torch.round(B._postprocess(
+            c, s, mode, 0.8, 0.7, ec, sm)), 0, 255).cpu().numpy()
+            for c, s in ((c_dev, s_dev), (c_cpu, s_cpu)))
+        check_levels(f"_postprocess {mode}, enhance_colors={ec}, "
+                     f"smooth={sm}", got, ref)
+
+    chain = {}
+    for canvas_px, n in MODE_CELLS:
+        c = torch.from_numpy(np.stack(smooth_images(
+            rng, n, (canvas_px, canvas_px)))).to(dev).float()
+        st = torch.from_numpy(np.stack(smooth_images(
+            rng, n, (canvas_px, canvas_px)))).to(dev).float()
+        for mode in POST_MODES:
+            fn = lambda: B._postprocess(c, st, mode, 0.8, 0.7, True, True)
+            ev_ms = time_ms(fn, iters=10, warmup=2)
+            dev_ms, ops = device_profile(fn, iters=5, warmup=1)
+            chain[(canvas_px, n, mode)] = (ev_ms, dev_ms, ops)
+            log(f"[post chain] {mode} alone, canvas {canvas_px} batch {n}: "
+                f"{ev_ms:.3f} ms events, {dev_ms:.3f} ms device, "
+                f"{ops:.0f} device operations per batch")
+    return chain
+
+
 def phase_generator(rng, dev, counts):
     """The uint8 program with each engine: fp32 on the card vs the CPU plain
-    path and packed vs NHWC on the card (launches per forward checked), then
-    bf16 img/s of both engines in turns at every canvas and batch."""
+    path and packed vs NHWC on the card (launches per forward checked), the
+    enhanced and advanced post chains in the program card vs CPU, then bf16
+    img/s of both engines in turns at every canvas and batch, with the two
+    post-chain modes beside ``cyclegan`` at ``MODE_CELLS``."""
     import torch
 
     from multi_style_transfer_gan_tpu_torch.pipelines import (
@@ -962,6 +1084,24 @@ def phase_generator(rng, dev, counts):
     if dmax > U8_MAX_DIFF or share > U8_MAX_SHARE:
         raise AssertionError("packed and NHWC engines disagree on the card")
 
+    # the post chains inside the program: fp32 card vs CPU, each engine
+    mode_batch = np.stack(chain_images(rng, 4, 256))
+    for mode in POST_MODES:
+        for engine in ENGINES:
+            got, ref = (make_batch_fn(m, "local_style", mode, engine=engine,
+                                      device=d)(mode_batch).cpu().numpy()
+                        for m, d in ((gpu_model, dev), (cpu_model, "cpu")))
+            if got.shape != mode_batch.shape:
+                raise AssertionError(f"{mode} program gave {got.shape}")
+            check_levels(f"[generator] {engine} fp32 program, local_style "
+                         f"{mode}, card vs CPU", got, ref)
+
+    programs = {("cyclegan", e): bf16[e] for e in ENGINES}
+    for mode in POST_MODES:
+        for engine in ENGINES:
+            programs[(mode, engine)] = make_batch_fn(
+                gpu_model, "local_style", mode, engine=engine,
+                compute_dtype=torch.bfloat16, device=dev)
     rates = {}
     for canvas in CANVASES:
         for n in RATE_BATCHES:
@@ -976,21 +1116,28 @@ def phase_generator(rng, dev, counts):
                     if mean_lsb > BF16_MEAN_LSB:
                         raise AssertionError(f"{engine} bf16 program drifts "
                                              f"{mean_lsb:.2f} levels from fp32")
-            turns = {engine: [] for engine in ENGINES}
-            for engine in ENGINES + ENGINES[::-1]:   # nhwc, packed, packed, nhwc
-                turns[engine].append(program_rate(bf16[engine], x))
-            rate = rates[(canvas, n)] = {e: sum(r) / len(r)
-                                         for e, r in turns.items()}
-            log(f"[generator] bf16 program, batch {n} at canvas {canvas} "
-                f"(device-resident uint8 in and out): NHWC {rate['nhwc']:.1f} "
-                f"img/s, packed {rate['packed']:.1f} img/s (packed/NHWC "
-                f"{rate['packed'] / rate['nhwc']:.3f}); turns {turns}")
+            modes = ("cyclegan",) + (POST_MODES if (canvas, n) in MODE_CELLS
+                                     else ())
+            keys = [(m, e) for m in modes for e in ENGINES]
+            turns = {k: [] for k in keys}
+            for k in keys + keys[::-1]:   # in order, then in reverse
+                turns[k].append(program_rate(programs[k], x))
+            rate = rates[(canvas, n)] = {k: sum(r) / len(r)
+                                         for k, r in turns.items()}
+            for m in modes:
+                log(f"[generator] bf16 program {m}, batch {n} at canvas "
+                    f"{canvas} (device-resident uint8 in and out): NHWC "
+                    f"{rate[(m, 'nhwc')]:.1f} img/s, packed "
+                    f"{rate[(m, 'packed')]:.1f} img/s (packed/NHWC "
+                    f"{rate[(m, 'packed')] / rate[(m, 'nhwc')]:.3f}); turns "
+                    f"{turns[(m, 'nhwc')]}, {turns[(m, 'packed')]}")
     return rates
 
 
 def phase_cli(rng):
     """The batch CLI on 24 JPEGs of mixed sizes at --batch_size 8, once per
-    engine flag; auto must resolve to packed at batch 8."""
+    engine flag (auto must resolve to packed at batch 8), then with --mode
+    local_style in the enhanced and the advanced post chain."""
     import contextlib
 
     from PIL import Image
@@ -1003,6 +1150,7 @@ def phase_cli(rng):
         os.makedirs(src)
         os.makedirs(models)
         shutil.copy(TRAINED, os.path.join(models, "cyclegan_epoch_200.pth"))
+        shutil.copy(TRAINED, os.path.join(models, "G_BA_epoch_200.pth"))
         sizes = {}
         for i in range(24):
             w, h = int(rng.integers(96, 640)), int(rng.integers(96, 640))
@@ -1010,39 +1158,45 @@ def phase_cli(rng):
             Image.fromarray(smooth_images(rng, 1, (w, h))[0]).save(
                 os.path.join(src, name), quality=92)
             sizes[name] = (w, h)
-        for engine in ("packed", "auto", "nhwc"):
-            out = os.path.join(tmp, f"out_{engine}")
+        runs = [(engine, ["--mode", "cyclegan"], "cyclegan_photo2monet")
+                for engine in ("packed", "auto", "nhwc")]
+        runs += [("auto", ["--mode", "local_style", "--local_style_mode", m],
+                  f"local_style_{m}_photo2monet") for m in POST_MODES]
+        for engine, mode_flags, sub in runs:
+            out = os.path.join(tmp, f"out_{engine}_{sub}")
             buf = io.StringIO()
             t0 = time.perf_counter()
             with contextlib.redirect_stdout(buf):
                 rc = main(["--input_dir", src, "--output_dir", out,
-                           "--models_dir", models, "--mode", "cyclegan",
+                           "--models_dir", models, *mode_flags,
                            "--direction", "photo2monet", "--bf16",
                            "--batch_size", "8", "--engine", engine])
             elapsed = time.perf_counter() - t0
             for line in buf.getvalue().splitlines():
                 log(f"    {line}")
+            what = f"{' '.join(mode_flags)} --engine {engine}"
             if rc != 0:
-                raise AssertionError(f"batch CLI --engine {engine} exited {rc}")
+                raise AssertionError(f"batch CLI {what} exited {rc}")
             if engine == "auto" and "engine=auto -> packed (batch 8" not in \
                     buf.getvalue():
                 raise AssertionError("--engine auto did not take the packed "
                                      "engine at batch 8")
             done = 0
             for name, size in sizes.items():
-                path = os.path.join(out, "cyclegan_photo2monet", name)
+                path = os.path.join(out, sub, name)
                 if os.path.exists(path):
                     with Image.open(path) as img:
                         done += img.size == size
-            log(f"[cli] --engine {engine}: {done}/24 outputs at their "
-                f"original sizes; CLI wall {elapsed:.2f} s including model "
-                f"load")
+            log(f"[cli] {what}: {done}/24 outputs at their original sizes; "
+                f"CLI wall {elapsed:.2f} s including model load")
             if done != 24:
-                raise AssertionError(f"batch CLI --engine {engine} wrote "
-                                     f"{done}/24 correct outputs")
+                raise AssertionError(f"batch CLI {what} wrote {done}/24 "
+                                     f"correct outputs")
 
 
-def phase_server(rng, dev, engine):
+def phase_server(rng, dev, engine, local_style_mode=None):
+    """The HTTP server with ``engine``: four concurrent requests in
+    ``cyclegan`` mode, or one in ``local_style`` with ``local_style_mode``."""
     import torch
     from PIL import Image
 
@@ -1052,15 +1206,21 @@ def phase_server(rng, dev, engine):
     )
 
     model = load_generator(TRAINED, device=dev)
+    mode = {} if local_style_mode is None else dict(
+        mode="local_style", local_style_mode=local_style_mode)
     service = StyleTransferService(model, canvas=256, max_batch=8,
                                    compute_dtype=torch.bfloat16, engine=engine,
-                                   device=dev)
+                                   device=dev, **mode)
     server = serve(service, host="127.0.0.1", port=0)
     thread = threading.Thread(target=server.serve_forever, daemon=True)
     thread.start()
     host, port = server.server_address
+    what = f"engine {engine}" + ("" if local_style_mode is None
+                                 else f", local_style {local_style_mode}")
     try:
         sizes = [(320, 200), (200, 320), (256, 256), (500, 375)]
+        if local_style_mode is not None:
+            sizes = sizes[:1]
         replies = [None] * len(sizes)
 
         def post(i):
@@ -1085,16 +1245,142 @@ def phase_server(rng, dev, engine):
         with urllib.request.urlopen(f"http://{host}:{port}/stats",
                                     timeout=30) as r:
             stats = json.loads(r.read())
-        log(f"[server] engine {engine}: {good}/4 replies 200 with a PNG of "
-            f"the right size; /stats requests {stats['requests']}, batches "
-            f"{stats['batches']}")
-        if good != 4 or stats["requests"] != 4:
-            raise AssertionError(f"server round trip failed (engine {engine})")
+        log(f"[server] {what}: {good}/{len(sizes)} replies 200 with a PNG "
+            f"of the right size; /stats requests {stats['requests']}, "
+            f"batches {stats['batches']}")
+        if good != len(sizes) or stats["requests"] != len(sizes):
+            raise AssertionError(f"server round trip failed ({what})")
     finally:
         server.shutdown()
         server.server_close()
         service.close()
         thread.join(10)
+
+
+def phase_single_image(rng, dev):
+    """The single-image pipelines on a generated 400 x 300 photo, each on the
+    card against the same code on the CPU. First the ``direct_transform``,
+    ``enhanced_local_style`` (without its figure) and ``improved_smooth``
+    CLIs as a user runs them; then, with TF32 off in the generator,
+    ``transform_image`` (at most 1 level apart, as the program),
+    ``enhanced_local_style_transfer`` and the five advanced variants
+    through ``render_variants``, the module function that
+    ``generate_with_different_settings`` calls before it draws its grid
+    (the post chain's limits). The
+    card's machine has no matplotlib, so the paths that draw a figure (the
+    size sweep, the skip blends, the advanced CLI, the local-style figure,
+    ``compare_models``) are held against the JAX package by the CPU tests
+    only, and not driven here."""
+    import contextlib
+
+    from PIL import Image
+
+    from multi_style_transfer_gan_tpu_torch.cli import (
+        direct_transform, enhanced_local_style, improved_smooth,
+    )
+    from multi_style_transfer_gan_tpu_torch.pipelines import (
+        load_generator, transform_image,
+    )
+    from multi_style_transfer_gan_tpu_torch.pipelines.advanced import (
+        VARIANTS, render_variants,
+    )
+    from multi_style_transfer_gan_tpu_torch.pipelines.local_style import (
+        enhanced_local_style_transfer,
+    )
+
+    def run_cli(cli, argv, out, device):
+        """The CLI's main with its DEVICE set to ``device``; the image it
+        wrote."""
+        buf = io.StringIO()
+        saved, cli.DEVICE = cli.DEVICE, device
+        t0 = time.perf_counter()
+        try:
+            with contextlib.redirect_stdout(buf):
+                rc = cli.main(argv + [out])
+        finally:
+            cli.DEVICE = saved
+        name = cli.__name__.rsplit(".", 1)[-1]
+        log(f"[single image] {name} on {device}: exit {rc}, wall "
+            f"{time.perf_counter() - t0:.2f} s including model load; "
+            + " | ".join(buf.getvalue().splitlines()))
+        if rc != 0 or not os.path.exists(out):
+            raise AssertionError(f"{name} on {device} exited {rc}")
+        with Image.open(out) as img:
+            return np.asarray(img.convert("RGB"))
+
+    with tempfile.TemporaryDirectory() as tmp:
+        photo = os.path.join(tmp, "photo.png")
+        Image.fromarray(smooth_images(rng, 1, (400, 300))[0]).save(photo)
+        outs = {}
+        for where, device in (("card", dev.type), ("cpu", "cpu")):
+            d = os.path.join(tmp, where)
+            os.makedirs(d)
+            direct = os.path.join(d, "direct.png")
+            outs[where] = {
+                "direct_transform": run_cli(
+                    direct_transform, ["--image", photo, "--model", TRAINED,
+                                       "--output"], direct, device),
+                "enhanced_local_style": run_cli(
+                    enhanced_local_style, ["--image", photo, "--model",
+                                           TRAINED, "--no_comparison",
+                                           "--output"],
+                    os.path.join(d, "local.png"), device),
+                # both devices repair the card's direct output
+                "improved_smooth": run_cli(
+                    improved_smooth, ["--input", os.path.join(
+                        tmp, "card", "direct.png"), "--original", photo,
+                                      "--output"],
+                    os.path.join(d, "smooth.png"), device),
+            }
+            if os.path.exists(os.path.join(d, "comparison.jpg")):
+                raise AssertionError("--no_comparison drew the figure")
+        # the CLIs run the generator at load_generator's default precision,
+        # where cuDNN may take TF32 on the card: a sanity bound on the two
+        # that run it (a broken path lands far above), the post chain's
+        # limits on the repair, which runs no generator
+        got, ref = outs["card"], outs["cpu"]
+        for name in got:
+            if got[name].shape != ref[name].shape:
+                raise AssertionError(f"{name}: {got[name].shape} vs "
+                                     f"{ref[name].shape}")
+        for name in ("direct_transform", "enhanced_local_style"):
+            mean = level_stats(got[name], ref[name])[1]
+            log(f"    {name} CLI {got[name].shape}, TF32 allowed: mean |d| "
+                f"{mean:.4f} levels")
+            if mean > BF16_MEAN_LSB:
+                raise AssertionError(f"{name} CLI drifts {mean:.2f} levels")
+        check_levels(f"improved_smooth CLI {got['improved_smooth'].shape}",
+                     got["improved_smooth"], ref["improved_smooth"])
+
+        # the same pipelines with TF32 off (precision 'highest'), card vs CPU
+        models = {"card": load_generator(TRAINED, precision="highest",
+                                         device=dev),
+                  "cpu": load_generator(TRAINED, device="cpu")}
+        direct = {w: np.clip(np.round(transform_image(m, photo) * 255), 0, 255)
+                  for w, m in models.items()}
+        dmax, share = u8_diff(direct["card"], direct["cpu"])
+        log(f"    transform_image {direct['card'].shape}: max diff {dmax}, "
+            f"differing share {share:.3e}")
+        if direct["card"].shape != (256, 256, 3) or dmax > U8_MAX_DIFF \
+                or share > U8_MAX_SHARE:
+            raise AssertionError("transform_image: card and CPU disagree")
+        local = {}
+        for where, m in models.items():
+            path = os.path.join(tmp, where, "local_highest.png")
+            local[where] = np.asarray(enhanced_local_style_transfer(
+                m, photo, path, make_comparison=False))
+        check_levels(f"enhanced_local_style_transfer {local['card'].shape}",
+                     local["card"], local["cpu"])
+        t0 = time.perf_counter()
+        _, got_v = render_variants(models["card"], photo)
+        wall = time.perf_counter() - t0
+        _, ref_v = render_variants(models["cpu"], photo)
+        log(f"[single image] advanced variants on the card: {wall:.2f} s")
+        if list(got_v) != list(VARIANTS):
+            raise AssertionError(f"advanced variants: {list(got_v)}")
+        for name in VARIANTS:
+            check_levels(f"advanced {name}", got_v[name].cpu().numpy(),
+                         ref_v[name].numpy())
 
 
 def uint8_pairs(rng, n, batch, size, dev):
@@ -1289,12 +1575,15 @@ def main() -> int:
     counts = lambda: {n: k.launches for n, k in counted.items()}
     serving_kernels = list(counted)[:4]   # the order of FORWARD_LAUNCHES
 
+    chain = phase_post_chain(rng, dev)
+
     K.reset_launch_counts()   # the serving path starts here
     rates = phase_generator(rng, dev, lambda: [
         counted[n].launches for n in serving_kernels])
     phase_cli(rng)
     for engine in ENGINES:
         phase_server(rng, dev, engine)
+    phase_server(rng, dev, "nhwc", local_style_mode="enhanced")
     serving = counts()        # ...and ends here
     log(f"[main path: serving] launches: {serving}")
     attention_calls = (serving["window_channel_attention"]
@@ -1304,6 +1593,15 @@ def main() -> int:
         raise AssertionError(f"serving path launches {serving}: expected "
                              f"every kernel, 4 attention calls (NHWC + "
                              f"packed) per block call")
+
+    K.reset_launch_counts()   # the single-image path starts here
+    phase_single_image(rng, dev)
+    single = counts()         # ...and ends here
+    log(f"[single-image path] launches: {single}")
+    if min(single[n] for n in ("window_channel_attention",
+                               "fused_structural_block")) == 0:
+        raise AssertionError(f"single-image path launches {single}: the "
+                             f"NHWC attention or the block never launched")
 
     K.reset_launch_counts()   # the training path starts here
     step_ms = phase_train_step(rng, dev)
@@ -1321,7 +1619,8 @@ def main() -> int:
     if ablation["window_channel_attention_stage"] == 0:
         raise AssertionError(f"ablation path launches {ablation}: the stage "
                              f"kernel never launched")
-    launches = {n: serving[n] + training[n] + ablation[n] for n in counted}
+    launches = {n: serving[n] + single[n] + training[n] + ablation[n]
+                for n in counted}
 
     # inference kernels: per forward at canvas 256, batch 8, bf16 (the four
     # LocalAttention shapes, NHWC or packed; the block's one shape; the five
@@ -1444,8 +1743,13 @@ def main() -> int:
             f"{'none' if library is None else f'{library:.4f} ms'}"
             + ("" if sdpa_mid is None else f", SDPA mid {sdpa_mid:.4f} ms"))
     rate_text = "; ".join(
-        f"canvas {c} batch {n} NHWC {r['nhwc']:.1f} packed {r['packed']:.1f}"
-        for (c, n), r in rates.items())
+        f"{m} canvas {c} batch {n} NHWC {r[(m, 'nhwc')]:.1f} packed "
+        f"{r[(m, 'packed')]:.1f}"
+        for (c, n), r in rates.items() for m in dict.fromkeys(k[0] for k in r))
+    chain_text = "; ".join(
+        f"{m} canvas {c} batch {n} {ev:.3f} ms events, {dv:.3f} ms device, "
+        f"{ops:.0f} operations" for (c, n, m), (ev, dv, ops) in chain.items())
+    log(f"[summary] {card}; post chain alone per batch: {chain_text}")
     log(f"[summary] {card}; bf16 program img/s: {rate_text}; bf16 train step "
         f"c16 256^2 batch {TRAIN_BATCH}: {step_ms:.2f} ms "
         f"({TRAIN_BATCH * 1000 / step_ms:.1f} image pairs/s). Inference "

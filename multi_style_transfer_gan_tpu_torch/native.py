@@ -10,6 +10,8 @@ uses, so that it imports nothing of the JAX package.
 - ``available()``: whether it loaded.
 - ``save_canvas_batch(...)``: aspect crop, resize back and encode of many
   stylized canvases.
+- ``felzenszwalb_native(...)``: the union-find loop of the felzenszwalb
+  segmentation (``ops/segmentation.py``).
 """
 
 from __future__ import annotations
@@ -69,6 +71,11 @@ def load_library():
             ctypes.POINTER(ctypes.c_int), ctypes.POINTER(ctypes.c_uint8),
             ctypes.c_int,
         ]
+        lib.mstgan_felzenszwalb.restype = ctypes.c_int
+        lib.mstgan_felzenszwalb.argtypes = [
+            ctypes.POINTER(ctypes.c_float), ctypes.c_int, ctypes.c_int,
+            ctypes.c_float, ctypes.c_int, ctypes.POINTER(ctypes.c_int32),
+        ]
         lib.mstgan_save_canvas_batch.restype = ctypes.c_int
         lib.mstgan_save_canvas_batch.argtypes = [
             ctypes.POINTER(ctypes.c_uint8), ctypes.c_int, ctypes.c_int,
@@ -106,3 +113,20 @@ def save_canvas_batch(batch: np.ndarray, sizes, paths, quality: int = 95,
         whs.ctypes.data_as(ctypes.POINTER(ctypes.c_int)), arr, quality,
         ok.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8)), num_threads)
     return ok.astype(bool)
+
+
+def felzenszwalb_native(img_smoothed01: np.ndarray, scale: float = 100.0,
+                        min_size: int = 50):
+    """Native union-find segmentation over a pre-smoothed [0, 1] RGB image.
+    Returns int32 labels, or None if the library is unavailable."""
+    lib = load_library()
+    if lib is None:
+        return None
+    h, w = img_smoothed01.shape[:2]
+    img = np.ascontiguousarray(img_smoothed01, np.float32)
+    labels = np.empty((h, w), np.int32)
+    lib.mstgan_felzenszwalb(
+        img.ctypes.data_as(ctypes.POINTER(ctypes.c_float)), h, w,
+        ctypes.c_float(scale), min_size,
+        labels.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)))
+    return labels

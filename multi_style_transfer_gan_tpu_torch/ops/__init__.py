@@ -1,8 +1,11 @@
-"""Image helpers and the hand-written kernels (``ops.kernels``)."""
+"""Image helpers, the classical-CV toolbox (``color``, ``filters``,
+``clahe``, ``smooth``, ``segmentation``) and the hand-written kernels
+(``ops.kernels``)."""
 
 from .image import (
-    aspect_crop_bounds, from_model_range, restore_aspect, to_model_range,
+    aspect_crop_bounds, from_model_range, resize, restore_aspect,
+    to_model_range,
 )
 
-__all__ = ["aspect_crop_bounds", "from_model_range", "restore_aspect",
-           "to_model_range"]
+__all__ = ["aspect_crop_bounds", "from_model_range", "resize",
+           "restore_aspect", "to_model_range"]

@@ -1,10 +1,58 @@
-"""Image range helpers and the aspect restore (port of ``ops/image.py``)."""
+"""Image range helpers, the Lanczos resize and the aspect restore (port of
+``ops/image.py``)."""
 
 from __future__ import annotations
 
 import numpy as np
 import torch
 from PIL import Image
+
+
+def _lanczos3(x: np.ndarray) -> np.ndarray:
+    with np.errstate(divide="ignore", invalid="ignore"):
+        y = 3.0 * np.sin(np.pi * x) * np.sin(np.pi * x / 3.0)
+        out = np.where(x > 1e-3, y / np.where(x != 0, np.pi ** 2 * x ** 2, 1),
+                       1.0)
+    return np.where(x > 3.0, 0.0, out).astype(np.float32)
+
+
+def _weight_mat(n_in: int, n_out: int) -> np.ndarray:
+    """The (n_in, n_out) Lanczos-3 weights of an antialiased resize along one
+    axis, as ``jax.image.resize`` builds them (``compute_weight_mat`` in
+    ``jax/_src/image/scale.py``, in fp32): the kernel widened by the
+    downsampling factor, each output's weights normalised to sum 1, and
+    zero columns where the sample falls outside the input."""
+    f32 = np.float32
+    inv_scale = f32(1.0) / f32(n_out / n_in)
+    kernel_scale = max(inv_scale, f32(1.0))
+    sample = ((np.arange(n_out, dtype=f32) + f32(0.5)) * inv_scale
+              - f32(0.5))
+    x = np.abs(sample[None, :] - np.arange(n_in, dtype=f32)[:, None]) \
+        / kernel_scale
+    w = _lanczos3(x)
+    total = w.sum(axis=0, keepdims=True, dtype=f32)
+    w = np.where(np.abs(total) > 1000.0 * float(np.finfo(f32).eps),
+                 w / np.where(total != 0, total, f32(1.0)), f32(0.0))
+    inside = (sample >= -0.5) & (sample <= n_in - 0.5)
+    return np.where(inside[None, :], w, f32(0.0)).astype(f32)
+
+
+def resize(img: torch.Tensor, size_hw) -> torch.Tensor:
+    """Antialiased Lanczos-3 resize of (B, H, W, C) or (H, W, C) to
+    ``size_hw``, the JAX package's ``ops.image.resize``
+    (``jax.image.resize(..., 'lanczos3', antialias=True)``): one weight
+    matrix per axis, applied as two products. The products run in fp64 and
+    round to fp32 once, so no TF32 switch of the caller enters them."""
+    x = img.double()
+    for axis, n_out in ((-3, size_hw[0]), (-2, size_hw[1])):
+        n_in = x.shape[axis]
+        if n_in == n_out:
+            continue
+        w = torch.as_tensor(_weight_mat(n_in, n_out), dtype=torch.float64,
+                            device=x.device)
+        x = torch.movedim(torch.tensordot(torch.movedim(x, axis, -1), w,
+                                          dims=1), -1, axis)
+    return x.float()
 
 
 def to_model_range(x: torch.Tensor) -> torch.Tensor:

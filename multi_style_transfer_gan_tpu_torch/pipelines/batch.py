@@ -13,8 +13,14 @@
   device while the current one runs; a one-worker fetch pool copies
   results back in order and a save pool encodes them.
 
-Of the JAX pipeline's modes, ``cyclegan`` and the ``simple`` local-style
-blend are ported; the ``enhanced`` and ``advanced`` post chains are not yet.
+Every mode of the JAX pipeline is ported: ``cyclegan``, and
+``local_style`` with the ``simple`` blend or the ``enhanced`` and
+``advanced`` post chains (sky and detail masks, per-pixel weight blend,
+colour boost and transition smoothing, or YUV equalize and guided filter),
+which run in fp32 on the device inside the same program, whatever the
+generator's dtype. As in the JAX package, 'advanced' omits the reference's
+unused mean-shift segmentation and its "sharpening", which blends the
+image with itself (addWeighted(x, 1.5, x, -0.5) == x).
 A kernel that fails to build or launch raises: there is no degraded path.
 """
 
@@ -35,6 +41,11 @@ from PIL import Image
 from .. import native as _native
 from ..data import list_images
 from ..ops import from_model_range, restore_aspect, to_model_range
+from ..ops.color import rgb_to_gray, rgb_to_hsv, rgb_to_yuv, yuv_to_rgb
+from ..ops.filters import (
+    canny, convert_scale_abs, dilate, equalize_hist, erode, gaussian_blur,
+    gaussian_filter, guided_filter,
+)
 from ..models import PackedEnhancedGenerator
 from .model_loader import LoadedModel
 
@@ -100,6 +111,68 @@ def _decode_batch(paths, canvas, num_threads):
 
 
 # ---------------------------------------------------------------------------
+# device side: the local-style post chains (fp32, uint8 scale)
+# ---------------------------------------------------------------------------
+
+def _sky_mask(canvas_f):
+    """detect_sky (reference :126-150): V > 150 and S < 100; an image 'has
+    sky' when that holds on more than 0.7 of its pixels."""
+    hsv = rgb_to_hsv(canvas_f)
+    mask = (hsv[..., 2] > 150) & (hsv[..., 1] < 100)
+    frac = mask.float().mean(dim=(1, 2))
+    return mask, frac > 0.7
+
+
+def _detail_mask(canvas_f):
+    """Canny(50, 150), blurred at sigma 2, thresholded at 0.1 (:321-327)."""
+    edges = canny(rgb_to_gray(canvas_f), 50.0, 150.0) > 0
+    return gaussian_filter(edges.float(), 2.0) > 0.1
+
+
+def _smooth_transitions(img_f, mask, radius=3, iterations=2):
+    """smooth_transitions (:152-174): a Gaussian half-blend on the band
+    between the mask's dilation and its erosion."""
+    m = mask.float()
+    boundary = (dilate(m, 5, iterations) - erode(m, 5, iterations)) > 0
+    blurred = gaussian_blur(img_f, radius * 2 + 1)
+    return torch.where(boundary[..., None], img_f * 0.5 + blurred * 0.5,
+                       img_f)
+
+
+def _postprocess(canvas_u8f, styled_u8f, mode, strength, detail,
+                 enhance_colors, smooth):
+    """The mode branch of the reference's process_local_style (:304-406) on
+    (B, H, W, 3) fp32 batches in uint8 scale."""
+    if mode == "simple":
+        out = canvas_u8f * (1 - strength) + styled_u8f * strength
+        return torch.clamp(out, 0, 255)
+
+    sky, has_sky = _sky_mask(canvas_u8f)
+    detail_mask = _detail_mask(canvas_u8f)
+    weight = torch.full(canvas_u8f.shape[:-1], strength, dtype=torch.float32,
+                        device=canvas_u8f.device)
+    sky_w = min(strength + 0.2, 1.0)
+    weight = torch.where(has_sky[:, None, None] & sky, sky_w, weight)
+    detail_factor = 0.3 if mode == "enhanced" else 0.4
+    detail_w = max(strength - detail_factor * detail, 0.0)
+    weight = torch.where(detail_mask, detail_w, weight)
+    out = (canvas_u8f * (1 - weight[..., None])
+           + styled_u8f * weight[..., None])
+
+    if mode == "enhanced":
+        if enhance_colors:
+            out = convert_scale_abs(out, alpha=1.1, beta=5)
+        if smooth:
+            out = _smooth_transitions(out, detail_mask, radius=3)
+    else:  # advanced (:355-406)
+        yuv = rgb_to_yuv(torch.clamp(out, 0, 255))
+        yeq = equalize_hist(yuv[..., 0])
+        out = yuv_to_rgb(torch.stack([yeq, yuv[..., 1], yuv[..., 2]], -1))
+        out = guided_filter(out, out, radius=4, eps=1e-4)
+    return torch.clamp(out, 0, 255)
+
+
+# ---------------------------------------------------------------------------
 # device side: the uint8 -> uint8 program
 # ---------------------------------------------------------------------------
 
@@ -122,8 +195,10 @@ def make_batch_fn(model: LoadedModel, mode: str = "cyclegan",
     dtype. engine: 'nhwc' runs the ``EnhancedGenerator`` as it is; 'packed'
     the space-to-depth engine (``PackedEnhancedGenerator``, the same math,
     H and W multiples of 32), repacked from the model's weights here.
-    ``detail``, ``enhance_colors`` and ``smooth`` belong to the
-    enhanced/advanced post chains, which are not ported.
+    local_style_mode: 'simple', 'enhanced' or 'advanced' (mode
+    'local_style' only); ``strength``, ``detail``, ``enhance_colors`` and
+    ``smooth`` as in the JAX package. The post chain runs in fp32 on
+    ``device`` in the same call as the generator.
     """
     if engine == "int8":
         raise NotImplementedError(
@@ -134,14 +209,9 @@ def make_batch_fn(model: LoadedModel, mode: str = "cyclegan",
                          f"(batch_process resolves 'auto' with select_engine)")
     if mode not in MODES:
         raise ValueError(f"mode must be one of {MODES}, got {mode!r}")
-    if mode == "local_style" and local_style_mode != "simple":
-        if local_style_mode not in LOCAL_STYLE_MODES:
-            raise ValueError(f"local_style_mode must be one of "
-                             f"{LOCAL_STYLE_MODES}, got {local_style_mode!r}")
-        raise NotImplementedError(
-            f"local_style_mode={local_style_mode!r} needs the local-style "
-            f"post chain (ops/filters.py, ops/color.py), not ported yet "
-            f"(ROADMAP.md, queue 1)")
+    if mode == "local_style" and local_style_mode not in LOCAL_STYLE_MODES:
+        raise ValueError(f"local_style_mode must be one of "
+                         f"{LOCAL_STYLE_MODES}, got {local_style_mode!r}")
     device = torch.device(device)
     dtype = compute_dtype or torch.float32
     if engine == "packed":
@@ -155,9 +225,9 @@ def make_batch_fn(model: LoadedModel, mode: str = "cyclegan",
         x = torch.as_tensor(batch_u8).to(device)
         y = module(to_model_range(x).to(dtype).permute(0, 3, 1, 2))
         out = from_model_range(y.float().permute(0, 2, 3, 1)) * 255.0
-        if mode == "local_style":  # the 'simple' blend
-            out = torch.clamp(x.float() * (1 - strength) + out * strength,
-                              0, 255)
+        if mode == "local_style":
+            out = _postprocess(x.float(), out, local_style_mode, strength,
+                               detail, enhance_colors, smooth)
         return torch.clamp(torch.round(out), 0, 255).to(torch.uint8).contiguous()
 
     return run

@@ -32,6 +32,11 @@ class LoadedModel:
     apply: Callable            # apply(x: (B, H, W, 3) in [-1, 1]) -> same
     precision: str = "default"
 
+    @property
+    def device(self) -> torch.device:
+        """The device the weights live on, where ``apply`` takes its input."""
+        return next(self.module.parameters()).device
+
 
 def _sniff_direction(ckpt, prefer: str | None = None) -> str | None:
     if isinstance(ckpt, dict):

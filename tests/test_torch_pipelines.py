@@ -38,10 +38,23 @@ def model():
     return load_generator(TRAINED, device="cpu")
 
 
+# the post chains threshold masks and round at the end: more than 1 level
+# apart on at most 0.1% of values, mean |d| at most 0.05 levels
+LEVEL_SHARE, MEAN_LEVELS = 1e-3, 0.05
+
+
+def _assert_levels(ref, got):
+    d = np.abs(got.astype(np.float64) - ref.astype(np.float64))
+    assert (d > 1).mean() <= LEVEL_SHARE and d.mean() <= MEAN_LEVELS
+
+
 @pytest.mark.parametrize("mode,local_style_mode", [("cyclegan", "enhanced"),
-                                                   ("local_style", "simple")])
+                                                   ("local_style", "simple"),
+                                                   ("local_style", "enhanced"),
+                                                   ("local_style", "advanced")])
 def test_batch_fn_matches_jax_uint8(model, mode, local_style_mode):
-    """uint8 -> uint8 on the same trained weights: at most 1 LSB apart."""
+    """uint8 -> uint8 on the same trained weights: at most 1 LSB apart, and
+    within the post chains' limits where a chain runs."""
     batch = np.stack([render_photo(900100 + i, size=64) for i in range(2)])
     batch = batch.astype(np.uint8)
     ref = np.asarray(jax_make_batch_fn(
@@ -49,12 +62,59 @@ def test_batch_fn_matches_jax_uint8(model, mode, local_style_mode):
         True)(batch))
     got = make_batch_fn(model, mode, local_style_mode, 0.8, device="cpu")(batch)
     assert got.dtype == torch.uint8 and got.shape == batch.shape
-    assert np.abs(got.numpy().astype(int) - ref.astype(int)).max() <= 1
+    if mode == "local_style" and local_style_mode != "simple":
+        _assert_levels(ref, got.numpy())
+    else:
+        assert np.abs(got.numpy().astype(int) - ref.astype(int)).max() <= 1
+
+
+@pytest.fixture(scope="module")
+def chain_batch():
+    """A landscape and a pale overcast sky (it trips the has-sky gate)."""
+    sky = np.empty((64, 64, 3), np.float32)
+    sky[...] = [196.0, 206.0, 222.0]
+    sky += np.random.default_rng(7).normal(0, 3, sky.shape)
+    return np.stack([render_photo(900150, size=64),
+                     np.clip(np.round(sky), 0, 255)]).astype(np.uint8)
+
+
+@pytest.fixture(scope="module")
+def jax_chain_outputs(chain_batch):
+    """The JAX program's outputs per (mode, enhance_colors, smooth), built
+    once for both engines' cases."""
+    jax_model = jax_load_generator(TRAINED)
+    cache = {}
+
+    def get(local_style_mode, enhance_colors, smooth):
+        key = (local_style_mode, enhance_colors, smooth)
+        if key not in cache:
+            cache[key] = np.asarray(jax_make_batch_fn(
+                jax_model, "local_style", local_style_mode, 0.8, 0.7,
+                enhance_colors, smooth)(chain_batch))
+        return cache[key]
+
+    return get
+
+
+@pytest.mark.parametrize("engine", ["nhwc", "packed"])
+@pytest.mark.parametrize("local_style_mode,enhance_colors,smooth", [
+    ("enhanced", True, True), ("enhanced", False, False),
+    ("enhanced", True, False), ("enhanced", False, True),
+    ("advanced", True, True)])
+def test_post_chain_program_matches_jax(model, chain_batch, jax_chain_outputs,
+                                        engine, local_style_mode,
+                                        enhance_colors, smooth):
+    """The whole uint8 program with each post chain, each engine, colour
+    boost and smoothing on and off, against the JAX program."""
+    got = make_batch_fn(model, "local_style", local_style_mode, 0.8, 0.7,
+                        enhance_colors, smooth, engine=engine,
+                        device="cpu")(chain_batch)
+    assert got.dtype == torch.uint8 and got.shape == chain_batch.shape
+    _assert_levels(jax_chain_outputs(local_style_mode, enhance_colors, smooth),
+                   got.numpy())
 
 
 @pytest.mark.parametrize("kwargs,match", [
-    (dict(mode="local_style", local_style_mode="enhanced"), "post chain"),
-    (dict(mode="local_style", local_style_mode="advanced"), "post chain"),
     (dict(engine="int8"), "not ported"),
 ])
 def test_batch_fn_raises_for_what_is_not_ported(model, kwargs, match):
@@ -84,6 +144,23 @@ def test_batch_process_writes_every_image_at_its_size(model, tmp_path):
     assert stats["processed"] == 3
     for name, size in zip(names, sizes):
         with Image.open(out / "cyclegan_photo2monet" / name) as img:
+            assert img.size == size
+
+
+@pytest.mark.parametrize("local_style_mode", ["enhanced", "advanced"])
+def test_batch_process_local_style_writes_every_image(model, tmp_path,
+                                                      local_style_mode):
+    src, out = tmp_path / "in", tmp_path / "out"
+    src.mkdir()
+    sizes = [(80, 50), (64, 64)]
+    names = _write_images(src, sizes)
+    stats = batch_process(model, src, out, mode="local_style",
+                          local_style_mode=local_style_mode, batch_size=2,
+                          canvas=64, decode_workers=2, device="cpu")
+    assert stats["processed"] == 2
+    for name, size in zip(names, sizes):
+        path = out / f"local_style_{local_style_mode}_photo2monet" / name
+        with Image.open(path) as img:
             assert img.size == size
 
 
@@ -130,6 +207,18 @@ def test_server_round_trip(model):
     finally:
         server.shutdown()
         server.server_close()
+        service.close()
+
+
+def test_server_local_style_enhanced_request(model):
+    service = StyleTransferService(model, canvas=64, max_batch=2,
+                                   max_wait_ms=1.0, mode="local_style",
+                                   local_style_mode="enhanced", device="cpu")
+    try:
+        body = service.stylize_bytes(_png_bytes(50, 40, seed=5))
+        assert Image.open(io.BytesIO(body)).size == (50, 40)
+        assert service.stats()["requests"] == 1
+    finally:
         service.close()
 
 
@@ -203,6 +292,11 @@ def test_microbatcher_propagates_errors():
 @pytest.mark.parametrize("cli,argv", [
     ("batch_process_images", ["--input_dir", "nowhere"]),
     ("serve", ["--model", TRAINED]),
+    ("direct_transform", ["--image", "x.png", "--model", TRAINED]),
+    ("advanced_transform", ["--image", "x.png", "--model", TRAINED]),
+    ("enhanced_local_style", ["--image", "x.png", "--model", TRAINED]),
+    ("improved_smooth", ["--input", "x.png", "--original", "y.png",
+                         "--output", "z.png"]),
 ])
 def test_clis_exit_nonzero_without_cuda(monkeypatch, capsys, cli, argv):
     import importlib
