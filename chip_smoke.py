@@ -6,8 +6,9 @@ Drives the port's main paths (``multi_style_transfer_gan_tpu_torch``) on the
 card, serving at the full width of the trained c16 EnhancedGenerator shipped
 in ``trained/`` with both engines (NHWC and packed space-to-depth) and every
 mode of the uint8 program (``cyclegan``, and ``local_style`` with the
-enhanced and advanced post chains), the single-image pipelines, and
-CycleGAN training at the reference configuration, and checks every
+enhanced and advanced post chains), the single-image pipelines, CycleGAN
+training at the reference configuration, the plain generator and
+masked-inpainting pretraining at the reference's width, and checks every
 hand-written kernel on the way:
 
 1. build: all six CUDA sources compile from ``csrc/`` at once, one nvcc
@@ -56,13 +57,21 @@ hand-written kernel on the way:
     per step, finite losses, moved G, D and u, ms/step), one fp32 step on
     the card vs the CPU, and the train CLI writing, resuming and producing
     a generator that stylizes;
-11. ablation path: the stage-ablation tool
+11. pretraining path: the plain generator at the reference's width (c64)
+    from a legacy checkpoint (fp32 forward and uint8 program card vs CPU,
+    bf16 img/s at canvas 256, batch 16 and 64), masked-inpainting
+    pretraining (the plain bf16 step at c64, 256^2, batch 16 with ms/step
+    and the device idle share; two fp32 steps card vs CPU; the enhanced
+    bf16 step at c16, 256^2, batch 8 with its launches per step), and the
+    pretrain CLI writing, resuming and serving its checkpoint through the
+    batch CLI;
+12. ablation path: the stage-ablation tool
     (``python -m multi_style_transfer_gan_tpu_torch.tools.attention_ablation``)
     at the TPU script's default shape (96 x 512^2, C = 16) and at the
     canvas-256 batch-64 shapes of C = 32 and 64, its tables printed.
 
 Every phase raises on failure. The last line is the result JSON; the line
-before it lists each kernel with its launches on the four paths (launch
+before it lists each kernel with its launches on the five paths (launch
 counts are reset just before each path and read just after), its largest
 fp32 deviation from the plain version, its time beside the plain
 version's, its bound (the larger of its bytes over the card's memory rate
@@ -149,6 +158,24 @@ BF16_MEAN_LSB = 4.0
 HBM_BYTES_PER_S = 3.35e12
 BF16_FLOPS_PER_S = 989e12
 BF16_BYTES = 2
+# the pretraining path: the plain generator at the reference's width
+# (Generator(64)), pretrained at batch 16; the enhanced generator at c16,
+# batch TRAIN_BATCH
+PLAIN_CHANNELS = 64
+PLAIN_FWD_BATCH = 2
+PRETRAIN_BATCH = 16
+# fp32 plain forward card vs CPU (TF32 off): cuDNN and the CPU sum the
+# convs in other orders, and the eight layers and four BatchNorms carry it
+PLAIN_FP32_ATOL = 1e-3
+# two fp32 pretrain steps card vs CPU: the loss, relative
+PRETRAIN_FP32_RTOL = 1e-3
+# launches per enhanced bf16 pretrain step: one generator forward and
+# backward with grad (4 LocalAttention mids and 1 block), nothing under
+# no_grad, so no inference kernel
+PRETRAIN_LAUNCHES_PER_STEP = {
+    "window_attention_mid_fwd": 4, "window_attention_mid_bwd": 4,
+    "window_mhsa_fwd": 1, "window_mhsa_bwd": 1,
+    "window_channel_attention": 0, "fused_structural_block": 0}
 # the ablation path: the tool's runs at (batch, hw, C): the TPU script's
 # default shape, then the canvas-256 batch-64 shapes of C = 32 and 64
 ABLATION_SHAPES = ((96, 512, 16), (64, 128, 32), (64, 64, 64))
@@ -1532,6 +1559,299 @@ def phase_train_cli(rng, dev):
 
 
 # ---------------------------------------------------------------------------
+# the pretraining path: the plain generator served, masked-inpainting
+# pretraining (plain at the reference's c64, enhanced at c16) and its CLI
+
+def plain_checkpoint(path, channels):
+    """A random-init plain ``Generator(channels)`` from SEED, with seeded
+    BatchNorm affines and running statistics (so eval mode normalizes for
+    real), saved in the reference's legacy CycleGAN flavor
+    (``G_BA_state_dict``)."""
+    import torch
+
+    from multi_style_transfer_gan_tpu_torch.models import PlainGenerator
+
+    m = PlainGenerator(channels, generator=torch.Generator().manual_seed(SEED))
+    g = np.random.default_rng(SEED)
+    with torch.no_grad():
+        for mod in m.modules():
+            if isinstance(mod, torch.nn.BatchNorm2d):
+                n = mod.num_features
+                for t, lo, hi in ((mod.weight, 0.5, 1.5), (mod.bias, -0.1, 0.1),
+                                  (mod.running_mean, -0.1, 0.1),
+                                  (mod.running_var, 0.5, 1.5)):
+                    t.copy_(torch.from_numpy(g.uniform(lo, hi, n)
+                                             .astype(np.float32)))
+    torch.save({"G_BA_state_dict": m.state_dict(), "epoch": 0}, path)
+
+
+def phase_plain_serving(rng, dev):
+    """The plain generator at the reference's width (c64) from a legacy
+    checkpoint: the fp32 forward on the card against the CPU (TF32 off),
+    the uint8 program fp32 card vs CPU under both engine flags, bf16 vs
+    fp32, and its bf16 img/s at canvas 256, batches 16 and 64. Returns
+    {batch: img/s}."""
+    import torch
+
+    from multi_style_transfer_gan_tpu_torch.ops import to_model_range
+    from multi_style_transfer_gan_tpu_torch.pipelines import (
+        load_generator, make_batch_fn,
+    )
+
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "plain.pth")
+        plain_checkpoint(path, PLAIN_CHANNELS)
+        gpu = load_generator(path, precision="highest", device=dev)
+        cpu = load_generator(path, device="cpu")
+    log(f"[plain] {gpu.kind} c{gpu.channels} direction {gpu.direction}, "
+        f"{sum(p.numel() for p in gpu.module.parameters())} parameters")
+    batch = np.stack(smooth_images(rng, PLAIN_FWD_BATCH, (256, 256)))
+    x = to_model_range(torch.from_numpy(batch))
+    got, ref = gpu.apply(x.to(dev)).cpu(), cpu.apply(x)
+    err = (got - ref).abs().max().item()
+    log(f"[plain] fp32 forward c{PLAIN_CHANNELS} {tuple(x.shape)}, card vs "
+        f"CPU: max |d| {err:.3e} (limit {PLAIN_FP32_ATOL}); output std "
+        f"{got.std().item():.3f}")
+    if got.shape != x.shape or not torch.isfinite(got).all() \
+            or err > PLAIN_FP32_ATOL or got.std().item() < 1e-3:
+        raise AssertionError("plain fp32 forward: card and CPU disagree")
+
+    fp32 = make_batch_fn(gpu, "cyclegan", device=dev)
+    for engine in ENGINES:   # a plain model has one engine whatever is asked
+        out = make_batch_fn(gpu, "cyclegan", engine=engine,
+                            device=dev)(batch).cpu().numpy()
+        want = make_batch_fn(cpu, "cyclegan", engine=engine,
+                             device="cpu")(batch).numpy()
+        dmax, share = u8_diff(out, want)
+        log(f"[plain] uint8 program --engine {engine}, fp32 card vs CPU: "
+            f"max diff {dmax}, differing share {share:.3e}")
+        if out.shape != batch.shape or dmax > U8_MAX_DIFF \
+                or share > U8_MAX_SHARE:
+            raise AssertionError("plain uint8 program: card and CPU disagree")
+    bf16 = make_batch_fn(gpu, "cyclegan", compute_dtype=torch.bfloat16,
+                         device=dev)
+    bn = {t.dtype for m in bf16.module.modules()
+          if isinstance(m, torch.nn.BatchNorm2d)
+          for t in (m.weight, m.bias, m.running_mean, m.running_var)}
+    if bn != {torch.float32}:
+        raise AssertionError(f"bf16 program's BatchNorms are {bn}, not fp32")
+    rates = {}
+    for n in RATE_BATCHES:
+        xb = torch.from_numpy(np.stack(smooth_images(rng, n, (256, 256)))).to(dev)
+        if n == RATE_BATCHES[0]:
+            mean_lsb = (bf16(xb).float() - fp32(xb).float()).abs().mean().item()
+            log(f"[plain] bf16 vs fp32 program at canvas 256: mean |d| "
+                f"{mean_lsb:.3f} levels")
+            if mean_lsb > BF16_MEAN_LSB:
+                raise AssertionError(f"plain bf16 program drifts "
+                                     f"{mean_lsb:.2f} levels")
+        turns = [program_rate(bf16, xb) for _ in range(2)]
+        rates[n] = sum(turns) / len(turns)
+        log(f"[plain] bf16 program, batch {n} at canvas 256 "
+            f"(device-resident uint8 in and out): {rates[n]:.1f} img/s "
+            f"({card_line()}); runs {turns}")
+    return rates
+
+
+def pretrain_steps(state, batches, masks, dtype):
+    """A function that runs one pretrain step on the next batch and mask."""
+    from multi_style_transfer_gan_tpu_torch.ops import to_model_range
+    from multi_style_transfer_gan_tpu_torch.train import pretrain_train_step
+
+    it = {"i": 0}
+
+    def step():
+        i = it["i"] = it["i"] + 1
+        return pretrain_train_step(state, to_model_range(
+            batches[i % len(batches)]), masks[i % len(masks)],
+            compute_dtype=dtype)[1]
+    return step
+
+
+def time_pretrain(step, what, batch):
+    """3 warm-up and 10 timed steps on the host clock, then the profiled
+    device time of 5 steps: (ms/step, device ms/step, idle share)."""
+    import torch
+
+    for _ in range(3):
+        step()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(10):
+        loss = step()
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1000 / 10
+    dev_ms = device_ms(step, iters=5, warmup=0)
+    idle = max(0.0, 1.0 - dev_ms / ms)
+    log(f"[pretrain] {what}: {ms:.2f} ms/step, {batch * 1000 / ms:.1f} "
+        f"images/s, device {dev_ms:.2f} ms/step (torch.profiler), device "
+        f"idle share {idle:.1%} ({card_line()}); loss {float(loss):.4f}")
+    if not np.isfinite(float(loss)):
+        raise AssertionError(f"{what}: non-finite loss {float(loss)}")
+    return ms, dev_ms, idle
+
+
+def phase_pretrain_step(rng, dev):
+    """Masked-inpainting pretraining from seeded fresh inits: the plain bf16
+    step at c64, 256^2, batch 16 (finite loss, parameters and running
+    statistics moved, ms/step, images/s, device idle share), two fp32 plain
+    steps on the card against the CPU on the same masks (c64, 128^2, batch
+    2), then the enhanced bf16 step at c16, 256^2, batch 8 (its launches
+    per step, ms/step). Returns {name: (ms, device ms, idle share)}."""
+    import torch
+
+    from multi_style_transfer_gan_tpu_torch.data import random_patch_mask
+    from multi_style_transfer_gan_tpu_torch.ops import kernels as K
+    from multi_style_transfer_gan_tpu_torch.ops import to_model_range
+    from multi_style_transfer_gan_tpu_torch.train import (
+        pretrain_init_state, pretrain_train_step,
+    )
+
+    gen = torch.Generator().manual_seed(SEED + 1)
+
+    def data(batch, size, n=2):
+        imgs = [torch.from_numpy(np.stack(smooth_images(rng, batch,
+                                                        (size, size)))).to(dev)
+                for _ in range(n)]
+        return imgs, [random_patch_mask(batch, size, generator=gen, device=dev)
+                      for _ in range(n)]
+
+    out = {}
+    torch.cuda.reset_peak_memory_stats()
+    state = pretrain_init_state(SEED, PLAIN_CHANNELS, device=dev)
+    before = {k: v.clone() for k, v in state.model.state_dict().items()}
+    step = pretrain_steps(state, *data(PRETRAIN_BATCH, 256),
+                          torch.bfloat16)
+    out["plain"] = time_pretrain(step, f"plain bf16 c{PLAIN_CHANNELS} 256^2 "
+                                 f"batch {PRETRAIN_BATCH}", PRETRAIN_BATCH)
+    now = state.model.state_dict()
+    still = [k for k, v in before.items() if torch.equal(now[k], v)]
+    log(f"[pretrain] plain: {len(before) - len(still)}/{len(before)} state "
+        f"tensors moved after {state.step} steps; peak memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    if any(k.endswith(("weight", "running_mean", "running_var"))
+           for k in still):
+        raise AssertionError(f"plain pretraining left {still} unmoved")
+    del state, step
+
+    # two fp32 steps on the card vs the same steps on the CPU (TF32 off)
+    imgs = [torch.from_numpy(np.stack(smooth_images(rng, 2, (128, 128))))
+            for _ in range(2)]
+    masks = [random_patch_mask(2, 128, generator=gen, device="cpu")
+             for _ in range(2)]
+    losses = []
+    for device in (dev, torch.device("cpu")):
+        st = pretrain_init_state(SEED + 1, PLAIN_CHANNELS, device=device)
+        losses.append([float(pretrain_train_step(
+            st, to_model_range(x.to(device)), m.to(device))[1])
+            for x, m in zip(imgs, masks)])
+    rel = max(abs(a - b) / abs(b) for a, b in zip(*losses))
+    log(f"[pretrain] plain fp32 c{PLAIN_CHANNELS} 128^2 batch 2, two steps "
+        f"card vs CPU: {losses[0]} vs {losses[1]}; max relative difference "
+        f"{rel:.2e} (limit {PRETRAIN_FP32_RTOL})")
+    if rel > PRETRAIN_FP32_RTOL:
+        raise AssertionError("fp32 pretrain steps: card and CPU disagree")
+
+    state = pretrain_init_state(SEED, 16, model="enhanced", device=dev)
+    step = pretrain_steps(state, *data(TRAIN_BATCH, 256), torch.bfloat16)
+    kernels = {n: getattr(K, n) for n in PRETRAIN_LAUNCHES_PER_STEP}
+    n0 = {n: k.launches for n, k in kernels.items()}
+    step()
+    torch.cuda.synchronize()
+    per_step = {n: k.launches - n0[n] for n, k in kernels.items()}
+    log(f"[pretrain] enhanced: launches in one step: {per_step}")
+    if per_step != PRETRAIN_LAUNCHES_PER_STEP:
+        raise AssertionError(f"enhanced pretrain launches per step "
+                             f"{per_step}, predicted "
+                             f"{PRETRAIN_LAUNCHES_PER_STEP}")
+    out["enhanced"] = time_pretrain(step, f"enhanced bf16 c16 256^2 batch "
+                                    f"{TRAIN_BATCH}", TRAIN_BATCH)
+    return out
+
+
+def phase_pretrain_cli(rng, dev):
+    """The pretrain CLI (plain c64, the reference's recipe at --batch_size
+    4) on a small ``write_domains`` folder: 2 epochs with a checkpoint each,
+    a rerun to 3 that resumes at epoch 2; the checkpoint then stylizes
+    through the batch CLI with --engine auto, as the plain generator of a
+    legacy CycleGAN file (--mode cyclegan) and as it is (--mode
+    local_style)."""
+    import contextlib
+
+    import torch
+    from PIL import Image
+
+    from multi_style_transfer_gan_tpu_torch.cli.batch_process_images import (
+        main as batch_main,
+    )
+    from multi_style_transfer_gan_tpu_torch.cli.pretrain import main
+    from multi_style_transfer_gan_tpu_torch.data import list_images, write_domains
+
+    def run(fn, argv, what):
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            rc = fn(argv)
+        log(f"[pretrain cli] {what}: exit {rc}, "
+            f"{time.perf_counter() - t0:.2f} s wall; its output:")
+        for line in buf.getvalue().splitlines():
+            log(f"    {line}")
+        if rc != 0:
+            raise AssertionError(f"{what} exited {rc}")
+        return buf.getvalue()
+
+    with tempfile.TemporaryDirectory() as tmp:
+        data = os.path.join(tmp, "data")
+        write_domains(data, n_train=8, n_test=4, size=256, seed=SEED)
+        models = os.path.join(tmp, "models")
+        argv = ["--data_root", data, "--save_dir", models, "--batch_size",
+                "4", "--channels", str(PLAIN_CHANNELS), "--checkpoint_every",
+                "1", "--log_every", "2", "--seed", "0"]
+        run(main, argv + ["--num_epochs", "2"], "pretrain --num_epochs 2")
+        ck2 = os.path.join(models, "generator_pretrain_epoch_2.pth")
+        second = run(main, argv + ["--num_epochs", "3", "--resume", ck2],
+                     "pretrain --num_epochs 3 --resume epoch 2")
+        if "at epoch 2" not in second or "epoch 1 [" in second:
+            raise AssertionError("the rerun did not resume at epoch 2")
+        ck3 = os.path.join(models, "generator_pretrain_epoch_3.pth")
+        ck = torch.load(ck3, map_location="cpu", weights_only=True)
+        nbt = int(ck["model_state_dict"]["encoder.3.num_batches_tracked"])
+        if ck["epoch"] != 2 or nbt != 12:
+            raise AssertionError(f"checkpoint epoch {ck['epoch']}, "
+                                 f"num_batches_tracked {nbt}")
+
+        serve = os.path.join(tmp, "serve")
+        os.makedirs(serve)
+        torch.save({"G_BA_state_dict": ck["model_state_dict"]},
+                   os.path.join(serve, "cyclegan_epoch_200.pth"))
+        shutil.copy(ck3, os.path.join(serve, "G_BA_epoch_200.pth"))
+        src = os.path.join(data, "testB")
+        for mode, sub in ((["--mode", "cyclegan"], "cyclegan_photo2monet"),
+                          (["--mode", "local_style"],
+                           "local_style_enhanced_photo2monet")):
+            out = os.path.join(tmp, "out")
+            text = run(batch_main, ["--input_dir", src, "--output_dir", out,
+                                    "--models_dir", serve, *mode,
+                                    "--direction", "photo2monet", "--bf16",
+                                    "--batch_size", "8", "--engine", "auto"],
+                       f"batch CLI {' '.join(mode)} --engine auto")
+            if f"loaded plain generator (channels={PLAIN_CHANNELS})" \
+                    not in text or \
+                    "engine=auto -> nhwc" not in text:
+                raise AssertionError("the batch CLI did not serve the plain "
+                                     "checkpoint with the NHWC engine")
+            done = 0
+            for path in list_images(src):
+                got = os.path.join(out, sub, os.path.basename(path))
+                if os.path.exists(got):
+                    with Image.open(got) as img:
+                        done += img.size == (256, 256) and \
+                            np.asarray(img).std() > 0
+            if done != 4:
+                raise AssertionError(f"batch CLI {mode} wrote {done}/4")
+
+
+# ---------------------------------------------------------------------------
 
 def main() -> int:
     import torch
@@ -1540,6 +1860,7 @@ def main() -> int:
         print("error: no CUDA device; chip_smoke.py runs on the GPU",
               file=sys.stderr)
         return 1
+    t_start = time.perf_counter()
     card = card_line()
     log(card)  # name, power limit as nvidia-smi prints them
     log(f"torch.cuda.get_device_name(0): {torch.cuda.get_device_name(0)}; "
@@ -1612,6 +1933,17 @@ def main() -> int:
         raise AssertionError(f"training path launches {training}: a kernel "
                              f"of the path never launched")
 
+    K.reset_launch_counts()   # the pretraining path starts here
+    plain_rates = phase_plain_serving(rng, dev)
+    pretrain = phase_pretrain_step(rng, dev)
+    phase_pretrain_cli(rng, dev)
+    pretraining = counts()    # ...and ends here
+    log(f"[pretraining path] launches: {pretraining}")
+    if min(pretraining[n] for n in PRETRAIN_LAUNCHES_PER_STEP
+           if PRETRAIN_LAUNCHES_PER_STEP[n]) == 0:
+        raise AssertionError(f"pretraining path launches {pretraining}: a "
+                             f"kernel of the path never launched")
+
     K.reset_launch_counts()   # the ablation path starts here
     phase_ablation()
     ablation = counts()       # ...and ends here
@@ -1619,8 +1951,8 @@ def main() -> int:
     if ablation["window_channel_attention_stage"] == 0:
         raise AssertionError(f"ablation path launches {ablation}: the stage "
                              f"kernel never launched")
-    launches = {n: serving[n] + single[n] + training[n] + ablation[n]
-                for n in counted}
+    launches = {n: serving[n] + single[n] + training[n] + pretraining[n]
+                + ablation[n] for n in counted}
 
     # inference kernels: per forward at canvas 256, batch 8, bf16 (the four
     # LocalAttention shapes, NHWC or packed; the block's one shape; the five
@@ -1757,6 +2089,15 @@ def main() -> int:
         f"NHWC kernel at the packed attention's windows: {pk_nhwc:.4f} ms); "
         f"training kernel ms are forward + backward per generator at 256^2, "
         f"batch {TRAIN_BATCH}, bf16")
+    pre_text = "; ".join(
+        f"{k} {ms:.2f} ms/step ({dev_ms:.2f} ms device, idle {idle:.1%})"
+        for k, (ms, dev_ms, idle) in pretrain.items())
+    log(f"[summary] {card}; plain c{PLAIN_CHANNELS} bf16 program img/s at "
+        f"canvas 256: "
+        + ", ".join(f"batch {n} {r:.1f}" for n, r in plain_rates.items())
+        + f"; pretrain step bf16 256^2 (plain c{PLAIN_CHANNELS} batch "
+        f"{PRETRAIN_BATCH}, enhanced c16 batch {TRAIN_BATCH}): {pre_text}; "
+        f"whole run {time.perf_counter() - t_start:.1f} s")
     print(json.dumps(report))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -3,10 +3,10 @@
 from .activations import gelu, leaky_relu
 from .conv import conv, linear
 from .norm import (
-    InstanceNorm, in_leaky_relu, in_relu, instance_norm, l2_normalize,
+    InstanceNorm, batch_norm, in_leaky_relu, in_relu, instance_norm, l2_normalize,
     spectral_normalize,
 )
 
-__all__ = ["InstanceNorm", "conv", "gelu", "in_leaky_relu", "in_relu",
+__all__ = ["InstanceNorm", "batch_norm", "conv", "gelu", "in_leaky_relu", "in_relu",
            "instance_norm", "l2_normalize", "leaky_relu", "linear",
            "spectral_normalize"]

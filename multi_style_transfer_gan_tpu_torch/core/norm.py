@@ -6,6 +6,7 @@ Statistics are always taken in fp32, whatever the activation dtype.
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 
@@ -79,6 +80,23 @@ def in_leaky_relu(x: torch.Tensor, slope: float = 0.2,
         return _InAct.apply(x, eps, slope)
     y = instance_norm(x, eps)
     return torch.where(y > 0, y, slope * y)
+
+
+def batch_norm(x: torch.Tensor, running_mean: torch.Tensor,
+               running_var: torch.Tensor, weight: torch.Tensor,
+               bias: torch.Tensor, *, training: bool = False,
+               momentum: float = 0.1, eps: float = 1e-5) -> torch.Tensor:
+    """``BatchNorm2d`` over the B, H, W axes of a (B, C, H, W) tensor
+    (core/norm.py:146-171): statistics and affine in fp32 whatever x's
+    type, one rounding back to it.
+
+    Eval mode normalizes with the running statistics. Training mode
+    normalizes with the biased batch variance and updates the fp32 running
+    buffers IN PLACE (the JAX function returns them), the variance's with
+    the unbiased estimate, as PyTorch does.
+    """
+    return F.batch_norm(x.float(), running_mean, running_var, weight.float(),
+                        bias.float(), training, momentum, eps).to(x.dtype)
 
 
 def l2_normalize(u: torch.Tensor, eps: float = 1e-12) -> torch.Tensor:

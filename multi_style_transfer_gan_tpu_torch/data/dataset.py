@@ -1,4 +1,5 @@
-"""Host side of the input pipeline (port of ``data/dataset.py``).
+"""Host side of the input pipeline, and the inpainting mask (port of
+``data/dataset.py``).
 
 ``ImageFolderDataset`` decodes the reference's ``{split}{domain}`` folders
 (monet2photo layout) to uint8 on the host; ``prefetch_to_device`` moves the
@@ -91,6 +92,26 @@ class ImageFolderDataset:
             out = np.pad(out, ((0, s - out.shape[0]), (0, s - out.shape[1]),
                                (0, 0)), mode="edge")
         return out
+
+
+def random_patch_mask(batch_size: int, img_size: int = 256, grid: int = 8,
+                      p: float = 0.4, width: int | None = None, *,
+                      generator: torch.Generator | None = None,
+                      device) -> torch.Tensor:
+    """The reference's inpainting mask (pretrain.py:47-56), batched
+    (data/dataset.py:131-150): a (B, img_size, width or img_size, 1) float
+    mask on ``device``, 1 = keep, 0 = a dropped patch, each cell of the
+    ``grid`` x ``grid`` grid dropped i.i.d. with probability ``p``. The
+    draws come from ``generator`` (a CPU ``torch.Generator``; None: torch's
+    default one), and only the (B, grid, grid) cells cross to the device."""
+    w = width if width is not None else img_size
+    if img_size % grid or w % grid:
+        raise ValueError(f"mask size {img_size}x{w} not divisible by the "
+                         f"{grid}x{grid} patch grid")
+    keep = (torch.rand((batch_size, grid, grid), generator=generator)
+            < 1.0 - p).float().to(device)
+    mask = keep.repeat_interleave(img_size // grid, dim=1)
+    return mask.repeat_interleave(w // grid, dim=2)[..., None]
 
 
 def prefetch_to_device(iterator, device, buffer_size: int = 2):

@@ -1,5 +1,6 @@
-"""The EnhancedGenerator, its parts and the EnhancedDiscriminator as
-``nn.Module``s with the reference checkpoints' ``state_dict()`` keys."""
+"""The EnhancedGenerator, its parts, the plain encoder-decoder Generator and
+the EnhancedDiscriminator as ``nn.Module``s with the reference checkpoints'
+``state_dict()`` keys."""
 
 from .discriminator import EnhancedDiscriminator, SNConv2d
 from .enhanced_generator import (
@@ -7,6 +8,7 @@ from .enhanced_generator import (
     num_transformer_blocks_of,
 )
 from .init_utils import kaiming_conv, torch_default_conv, torch_default_linear
+from .plain_generator import PlainGenerator
 from .packed_generator import (
     PackedEnhancedGenerator, pack_enhanced_generator_params,
     packed_enhanced_generator_apply,
@@ -17,7 +19,7 @@ from .structural_transformer import (
 
 __all__ = [
     "EnhancedDiscriminator", "EnhancedGenerator", "LocalAttention",
-    "MultiScaleBlock", "PackedEnhancedGenerator", "SNConv2d",
+    "MultiScaleBlock", "PackedEnhancedGenerator", "PlainGenerator", "SNConv2d",
     "StructuralTransformerBlock", "channels_of", "default_num_heads",
     "kaiming_conv", "num_transformer_blocks_of", "pack_enhanced_generator_params",
     "packed_enhanced_generator_apply", "torch_default_conv",

@@ -20,6 +20,7 @@ from torch import nn
 
 from ..core.activations import gelu
 from ..core.conv import conv, linear
+from ..ops.image import resize
 from ..ops.kernels import fused_structural_block, window_mhsa_train
 from ..ops.kernels._checks import grad_needed
 from ..ops.kernels.fused_transformer import default_num_heads
@@ -72,15 +73,12 @@ class StructuralTransformerBlock(nn.Module):
         B, H, W, C = tokens.shape
         s = torch.relu(conv(self.struct_embed[0], orig.to(tokens.dtype)))
         s = torch.relu(conv(self.struct_embed[2], s))
-        if s.shape[-2:] != (H, W):
-            # The JAX block resizes with jax.image.resize (antialiased
-            # bilinear), which F.interpolate does not reproduce; inputs
-            # whose sides divide by 16 never reach it.
-            raise NotImplementedError(
-                f"struct-embed resize from {tuple(s.shape[-2:])} to {(H, W)} "
-                f"is not ported (input sides must be multiples of 16; "
-                f"ROADMAP.md lists the resize branch)")
-        struct = linear(self.struct_proj, s.permute(0, 2, 3, 1))
+        s = s.permute(0, 2, 3, 1)
+        if s.shape[1:3] != (H, W):
+            # antialiased bilinear, as jax.image.resize (:237-238); an input
+            # whose sides divide by 4 never reaches it
+            s = resize(s, (H, W), method="bilinear").to(tokens.dtype)
+        struct = linear(self.struct_proj, s)
         gamma, beta = linear(self.style_mod, style).chunk(2, dim=-1)
         if grad_needed(tokens, style, orig, *self.parameters()):
             return self._train_body(tokens, struct, gamma, beta)

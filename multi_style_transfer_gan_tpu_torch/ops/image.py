@@ -16,9 +16,16 @@ def _lanczos3(x: np.ndarray) -> np.ndarray:
     return np.where(x > 3.0, 0.0, out).astype(np.float32)
 
 
-def _weight_mat(n_in: int, n_out: int) -> np.ndarray:
-    """The (n_in, n_out) Lanczos-3 weights of an antialiased resize along one
-    axis, as ``jax.image.resize`` builds them (``compute_weight_mat`` in
+def _triangle(x: np.ndarray) -> np.ndarray:
+    return np.maximum(0.0, 1.0 - np.abs(x)).astype(np.float32)
+
+
+_KERNELS = {"lanczos3": _lanczos3, "bilinear": _triangle}
+
+
+def _weight_mat(n_in: int, n_out: int, kernel=_lanczos3) -> np.ndarray:
+    """The (n_in, n_out) weights of an antialiased resize along one axis, as
+    ``jax.image.resize`` builds them (``compute_weight_mat`` in
     ``jax/_src/image/scale.py``, in fp32): the kernel widened by the
     downsampling factor, each output's weights normalised to sum 1, and
     zero columns where the sample falls outside the input."""
@@ -29,7 +36,7 @@ def _weight_mat(n_in: int, n_out: int) -> np.ndarray:
               - f32(0.5))
     x = np.abs(sample[None, :] - np.arange(n_in, dtype=f32)[:, None]) \
         / kernel_scale
-    w = _lanczos3(x)
+    w = kernel(x)
     total = w.sum(axis=0, keepdims=True, dtype=f32)
     w = np.where(np.abs(total) > 1000.0 * float(np.finfo(f32).eps),
                  w / np.where(total != 0, total, f32(1.0)), f32(0.0))
@@ -37,19 +44,21 @@ def _weight_mat(n_in: int, n_out: int) -> np.ndarray:
     return np.where(inside[None, :], w, f32(0.0)).astype(f32)
 
 
-def resize(img: torch.Tensor, size_hw) -> torch.Tensor:
-    """Antialiased Lanczos-3 resize of (B, H, W, C) or (H, W, C) to
-    ``size_hw``, the JAX package's ``ops.image.resize``
-    (``jax.image.resize(..., 'lanczos3', antialias=True)``): one weight
+def resize(img: torch.Tensor, size_hw, method: str = "lanczos3") -> torch.Tensor:
+    """Antialiased resize of (B, H, W, C) or (H, W, C) to ``size_hw``, the
+    JAX package's ``ops.image.resize`` (``jax.image.resize(..., 'lanczos3',
+    antialias=True)``) or, with method 'bilinear', ``jax.image.resize(...,
+    'bilinear')`` (a triangle kernel, antialiased the same way): one weight
     matrix per axis, applied as two products. The products run in fp64 and
     round to fp32 once, so no TF32 switch of the caller enters them."""
+    kernel = _KERNELS[method]
     x = img.double()
     for axis, n_out in ((-3, size_hw[0]), (-2, size_hw[1])):
         n_in = x.shape[axis]
         if n_in == n_out:
             continue
-        w = torch.as_tensor(_weight_mat(n_in, n_out), dtype=torch.float64,
-                            device=x.device)
+        w = torch.as_tensor(_weight_mat(n_in, n_out, kernel),
+                            dtype=torch.float64, device=x.device)
         x = torch.movedim(torch.tensordot(torch.movedim(x, axis, -1), w,
                                           dims=1), -1, axis)
     return x.float()

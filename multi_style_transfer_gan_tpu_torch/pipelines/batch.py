@@ -8,7 +8,8 @@
   generator -> ``from_model_range`` -> round and clip on the device, with
   one of two engines of the same math: the NHWC ``EnhancedGenerator`` or
   the packed (space-to-depth) ``PackedEnhancedGenerator``; ``auto`` picks
-  one by ``select_engine``, as the JAX package does.
+  one by ``select_engine``, as the JAX package does. A plain generator
+  checkpoint runs its own forward (``PlainGenerator``) under either.
 - A bounded prefetch thread decodes and copies the next batches to the
   device while the current one runs; a one-worker fetch pool copies
   results back in order and a save pool encodes them.
@@ -194,7 +195,8 @@ def make_batch_fn(model: LoadedModel, mode: str = "cyclegan",
     None = fp32). The program runs its own copy of the module in that
     dtype. engine: 'nhwc' runs the ``EnhancedGenerator`` as it is; 'packed'
     the space-to-depth engine (``PackedEnhancedGenerator``, the same math,
-    H and W multiples of 32), repacked from the model's weights here.
+    H and W multiples of 32), repacked from the model's weights here. A
+    plain model has one engine, its own forward, whichever is asked for.
     local_style_mode: 'simple', 'enhanced' or 'advanced' (mode
     'local_style' only); ``strength``, ``detail``, ``enhance_colors`` and
     ``smooth`` as in the JAX package. The post chain runs in fp32 on
@@ -214,11 +216,15 @@ def make_batch_fn(model: LoadedModel, mode: str = "cyclegan",
                          f"{LOCAL_STYLE_MODES}, got {local_style_mode!r}")
     device = torch.device(device)
     dtype = compute_dtype or torch.float32
-    if engine == "packed":
-        module = PackedEnhancedGenerator(model.module)
+    if model.kind == "plain":
+        # one engine whatever ``engine`` says, as the JAX package's
+        # pipelines/batch.py:173-174; its BatchNorms stay fp32 in bf16
+        module = copy.deepcopy(model.module).to(device).cast_convs_(dtype)
+    elif engine == "packed":
+        module = PackedEnhancedGenerator(model.module).to(device=device,
+                                                          dtype=dtype)
     else:
-        module = copy.deepcopy(model.module)
-    module = module.to(device=device, dtype=dtype)
+        module = copy.deepcopy(model.module).to(device=device, dtype=dtype)
 
     @torch.inference_mode()
     def run(batch_u8):
@@ -230,6 +236,7 @@ def make_batch_fn(model: LoadedModel, mode: str = "cyclegan",
                                detail, enhance_colors, smooth)
         return torch.clamp(torch.round(out), 0, 255).to(torch.uint8).contiguous()
 
+    run.module = module   # the program's own copy, in compute_dtype
     return run
 
 

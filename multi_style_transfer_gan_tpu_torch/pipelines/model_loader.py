@@ -15,7 +15,9 @@ from typing import Callable
 import torch
 from torch import nn
 
-from ..models import EnhancedGenerator, channels_of, num_transformer_blocks_of
+from ..models import (
+    EnhancedGenerator, PlainGenerator, channels_of, num_transformer_blocks_of,
+)
 from ..weights import (
     detect_channels, detect_model_kind, extract_state_dict, load_pth,
 )
@@ -25,7 +27,7 @@ PRECISIONS = ("default", "high", "highest")
 
 @dataclass
 class LoadedModel:
-    kind: str                  # "enhanced" (the plain generator is not ported)
+    kind: str                  # "plain" | "enhanced"
     channels: int
     direction: str | None      # "AB" | "BA" | None (from the checkpoint key)
     module: nn.Module          # fp32 weights, eval mode, channels_last
@@ -71,12 +73,12 @@ def load_generator(path, prefer: str | None = None,
     sd = extract_state_dict(ckpt, prefer=prefer)
     kind = detect_model_kind(sd)
     if kind == "plain":
-        raise NotImplementedError(
-            f"{path} holds the plain generator (the encoder-decoder without "
-            f"attention), which is not ported yet (ROADMAP.md, queue 1)")
-    if kind != "enhanced":
+        module = PlainGenerator(detect_channels(sd))
+    elif kind == "enhanced":
+        module = EnhancedGenerator(channels_of(sd),
+                                   num_transformer_blocks_of(sd))
+    else:
         raise ValueError(f"checkpoint at {path} is a {kind}, not a generator")
-    module = EnhancedGenerator(channels_of(sd), num_transformer_blocks_of(sd))
     module.load_state_dict(sd, strict=True)
     module = module.to(device=device, memory_format=torch.channels_last).eval()
 

@@ -1,18 +1,24 @@
-"""CycleGAN training: losses, the train step, the image pool and full-state
-checkpoints (port of the JAX package's ``train``; masked-inpainting
-pretraining and the perceptual loss are not ported)."""
+"""Training: CycleGAN (losses, the train step, the image pool, full-state
+checkpoints) and masked-inpainting pretraining (port of the JAX package's
+``train``; the perceptual loss is not ported)."""
 
 from .checkpoint import latest_step, restore_train_state, save_train_state
 from .cyclegan import (
     CycleGANState, cyclegan_init_state, cyclegan_train_step, make_optimizers,
     save_models,
 )
-from .losses import l1_loss, lsgan_loss, mse_loss
+from .losses import l1_loss, lsgan_loss, masked_l1, mse_loss
 from .pool import ImagePool, pool_init, pool_sample
+from .pretrain import (
+    PretrainState, learning_rate, pretrain_init_state, pretrain_train_step,
+    restore_pretrain_state, save_pretrain_checkpoint,
+)
 
 __all__ = [
-    "CycleGANState", "ImagePool", "cyclegan_init_state",
-    "cyclegan_train_step", "l1_loss", "latest_step", "lsgan_loss",
-    "make_optimizers", "mse_loss", "pool_init", "pool_sample",
-    "restore_train_state", "save_models", "save_train_state",
+    "CycleGANState", "ImagePool", "PretrainState", "cyclegan_init_state",
+    "cyclegan_train_step", "l1_loss", "latest_step", "learning_rate",
+    "lsgan_loss", "make_optimizers", "masked_l1", "mse_loss", "pool_init",
+    "pool_sample", "pretrain_init_state", "pretrain_train_step",
+    "restore_pretrain_state", "restore_train_state", "save_models",
+    "save_pretrain_checkpoint", "save_train_state",
 ]

@@ -19,8 +19,10 @@ _STATE_DICT_KEYS = (
     "D_A_state_dict", "D_B_state_dict",
 )
 
-# Transposed-conv weights of the EnhancedGenerator (IOHW in PyTorch).
+# Transposed-conv weights (IOHW in PyTorch), per model family.
+_PLAIN_TRANSPOSED = {"decoder.0", "decoder.3", "decoder.6", "decoder.9"}
 _ENH_TRANSPOSED = {"up1.0", "up2.0"}
+_TRANSPOSED = {"plain": _PLAIN_TRANSPOSED, "enhanced": _ENH_TRANSPOSED}
 
 
 def load_pth(path):
@@ -74,21 +76,29 @@ def detect_channels(sd) -> int:
     return int(sd[key].shape[0])
 
 
-def state_dict_from_jax_params(params: dict) -> dict:
-    """EnhancedGenerator parameters of the JAX package (HWIO conv kernels,
-    (out, in) linear weights) -> a PyTorch state dict.
+def state_dict_from_jax_params(params: dict, kind: str = "enhanced") -> dict:
+    """Generator parameters of the JAX package (HWIO conv kernels, (out, in)
+    linear weights) -> a PyTorch state dict; ``kind`` is "enhanced" or
+    "plain" (the discriminator's converter passes "discriminator", which
+    has no transposed conv).
 
-    Conv kernels go HWIO -> OIHW; the transposed convs ``up1.0`` and
-    ``up2.0`` go HWIO -> IOHW; everything else keeps its layout.
+    Conv kernels go HWIO -> OIHW, the family's transposed convs (``up1.0``
+    and ``up2.0``; ``decoder.{0,3,6,9}``) HWIO -> IOHW, everything else
+    keeps its layout. Every BatchNorm gets the ``num_batches_tracked`` the
+    JAX parameters do not carry (0), so a strict load takes the result.
     """
+    transposed = _TRANSPOSED.get(kind, set())
     sd = {}
     for k, v in params.items():
         arr = np.asarray(v)
         if arr.ndim == 4:
             prefix = k.rsplit(".", 1)[0]
-            perm = (2, 3, 0, 1) if prefix in _ENH_TRANSPOSED else (3, 2, 0, 1)
+            perm = (2, 3, 0, 1) if prefix in transposed else (3, 2, 0, 1)
             arr = arr.transpose(perm)
         sd[k] = torch.tensor(np.ascontiguousarray(arr))  # a copy, writable
+        if k.endswith(".running_var"):
+            sd[k[:-len("running_var")] + "num_batches_tracked"] = \
+                torch.tensor(0, dtype=torch.int64)
     return sd
 
 
@@ -103,7 +113,7 @@ def discriminator_state_dict_from_jax(params: dict, sn_state: dict) -> dict:
     iteration) is synthesized as v = normalize(W^T u), as the JAX
     ``save_models`` does (train/cyclegan.py:300-307).
     """
-    sd = state_dict_from_jax_params(params)
+    sd = state_dict_from_jax_params(params, "discriminator")
     for name, st in sn_state.items():
         w = np.asarray(params[f"{name}.weight_orig"], np.float32)  # HWIO
         kh, kw, i, _ = w.shape

@@ -162,10 +162,28 @@ def test_structural_block_matches_jax(rng, hw):
 
 
 def test_struct_resize_branch_is_not_ported(rng):
-    block = StructuralTransformerBlock(64).eval()
-    with pytest.raises(NotImplementedError, match="resize"):
-        block(torch.zeros(1, 4, 4, 64), torch.zeros(1, 64),
-              torch.zeros(1, 3, 20, 20))
+    """The struct-embed resize branch: a 36 x 44 input gives the embed a
+    9 x 11 grid against the block's 8 x 8, so the embed is resized
+    (antialiased bilinear, jax.image.resize) before the block == the JAX
+    block."""
+    B, dim, (H, W), (H0, W0) = 2, 64, (8, 8), (36, 44)
+    params = _block_params(rng, dim)
+    tokens = rng.standard_normal((B, H * W, dim)).astype(np.float32)
+    style = rng.standard_normal((B, dim)).astype(np.float32)
+    orig = rng.standard_normal((B, H0, W0, 3)).astype(np.float32)
+    apply = jax.jit(lambda *a: structural_transformer_apply(*a, (H, W)))
+    ref = np.asarray(apply({k: jnp.asarray(v) for k, v in params.items()},
+                           jnp.asarray(tokens), jnp.asarray(style),
+                           jnp.asarray(orig)))
+
+    block = StructuralTransformerBlock(dim).eval()
+    block.load_state_dict(state_dict_from_jax_params(params), strict=True)
+    with torch.inference_mode():
+        got = block(torch.from_numpy(tokens).reshape(B, H, W, dim),
+                    torch.from_numpy(style),
+                    torch.from_numpy(orig).permute(0, 3, 1, 2))
+    np.testing.assert_allclose(got.reshape(B, H * W, dim).numpy(), ref,
+                               atol=2e-4, rtol=2e-4)
 
 
 # ---------------------------------------------------------------------------

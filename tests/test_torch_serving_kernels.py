@@ -236,8 +236,12 @@ def test_not_ported_messages_name_the_work(call, tmp_path):
         path = tmp_path / "plain.pth"
         torch.save({"G_AB_state_dict": make_plain_sd(
             np.random.default_rng(0), c=8)}, path)
-        fn = lambda: load_generator(path, device="cpu")
-        words = "plain generator"
+        # ported since: the plain generator loads and runs, so there is no
+        # message left to check
+        model = load_generator(path, device="cpu")
+        out = model.apply(torch.zeros(1, 32, 32, 3))
+        assert model.kind == "plain" and out.shape == (1, 32, 32, 3)
+        return
     else:
         model = load_generator(TRAINED, device="cpu")
         kw = (dict(engine="int8") if call == "program int8"
