@@ -8,8 +8,9 @@ in ``trained/`` with both engines (NHWC and packed space-to-depth) and every
 mode of the uint8 program (``cyclegan``, and ``local_style`` with the
 enhanced and advanced post chains), the single-image pipelines, CycleGAN
 training at the reference configuration, the plain generator and
-masked-inpainting pretraining at the reference's width, and checks every
-hand-written kernel on the way:
+masked-inpainting pretraining at the reference's width, the evaluation
+path (metrics, folder comparisons, FID on a full-width InceptionV3), and
+checks every hand-written kernel on the way:
 
 1. build: all six CUDA sources compile from ``csrc/`` at once, one nvcc
    each;
@@ -65,13 +66,24 @@ hand-written kernel on the way:
     bf16 step at c16, 256^2, batch 8 with its launches per step), and the
     pretrain CLI writing, resuming and serving its checkpoint through the
     batch CLI;
-12. ablation path: the stage-ablation tool
+12. evaluation path: the metrics card vs CPU (``check_metrics_device``'s
+    probe; random and smooth pairs at 256^2 and 512^2 with every TF32
+    switch on; SSIM(x, x)) and ``compare_pair`` pairs/s; m_test's FID
+    harness with the trained G_AB and G_BA on a ``write_domains`` test
+    tree, InceptionV3 features from a seeded random full-width ``.pth``
+    and the fallback features, card vs CPU, each run's launches (4 + 1 a
+    generator forward), both timed at 100 images a direction with their
+    host split and device busy share; ``compare_folder_pair`` on the batch
+    CLI's folders card vs CPU, and the ``improved_image_compare`` and
+    ``prepare_comparison_folders`` CLIs (``phase_folders`` says which
+    entry points draw figures and are not driven here);
+13. ablation path: the stage-ablation tool
     (``python -m multi_style_transfer_gan_tpu_torch.tools.attention_ablation``)
     at the TPU script's default shape (96 x 512^2, C = 16) and at the
     canvas-256 batch-64 shapes of C = 32 and 64, its tables printed.
 
 Every phase raises on failure. The last line is the result JSON; the line
-before it lists each kernel with its launches on the five paths (launch
+before it lists each kernel with its launches on the six paths (launch
 counts are reset just before each path and read just after), its largest
 fp32 deviation from the plain version, its time beside the plain
 version's, its bound (the larger of its bytes over the card's memory rate
@@ -193,6 +205,18 @@ CHAIN_LEVEL_SHARE, CHAIN_MEAN_LEVELS = 1e-3, 0.05
 MASK_SHARE = 0.999
 # (canvas, batch) cells of the per-mode program rates and chain times
 MODE_CELLS = ((256, 16), (256, 64), (512, 16))
+# the evaluation path: m_test's --max_images default and run_fid_eval's
+# batch; the card-vs-CPU FID runs at EVAL_CPU_IMAGES a direction
+EVAL_IMAGES, EVAL_CPU_IMAGES, EVAL_BATCH = 100, 32, 16
+# metrics card vs CPU: SSIM absolute per image, PSNR in dB, MSE relative;
+# SSIM(x, x) on the card; FID per direction and mean, relative
+SSIM_ATOL, PSNR_ATOL, MSE_RTOL, SSIM_IDENT_ATOL = 1e-4, 1e-3, 1e-5, 1e-6
+FID_RTOL = 1e-3
+METRIC_SIZES, METRIC_PAIRS, METRIC_RATE_BATCHES = (256, 512), 16, (16, 64)
+# launches per generator forward on the evaluation path (LoadedModel.apply,
+# the NHWC engine): row 1 and row 4
+EVAL_LAUNCHES_PER_FORWARD = {"window_channel_attention": 4,
+                             "fused_structural_block": 1}
 
 
 def log(*a):
@@ -1161,64 +1185,65 @@ def phase_generator(rng, dev, counts):
     return rates
 
 
-def phase_cli(rng):
+def phase_cli(rng, tmp):
     """The batch CLI on 24 JPEGs of mixed sizes at --batch_size 8, once per
     engine flag (auto must resolve to packed at batch 8), then with --mode
-    local_style in the enhanced and the advanced post chain."""
+    local_style in the enhanced and the advanced post chain, in ``tmp``:
+    the inputs in ``in/``, each run's outputs in ``out_<engine>_<sub>/``
+    (the evaluation path compares them)."""
     import contextlib
 
     from PIL import Image
 
     from multi_style_transfer_gan_tpu_torch.cli.batch_process_images import main
 
-    with tempfile.TemporaryDirectory() as tmp:
-        src = os.path.join(tmp, "in")
-        models = os.path.join(tmp, "models")
-        os.makedirs(src)
-        os.makedirs(models)
-        shutil.copy(TRAINED, os.path.join(models, "cyclegan_epoch_200.pth"))
-        shutil.copy(TRAINED, os.path.join(models, "G_BA_epoch_200.pth"))
-        sizes = {}
-        for i in range(24):
-            w, h = int(rng.integers(96, 640)), int(rng.integers(96, 640))
-            name = f"photo_{i:02d}.jpg"
-            Image.fromarray(smooth_images(rng, 1, (w, h))[0]).save(
-                os.path.join(src, name), quality=92)
-            sizes[name] = (w, h)
-        runs = [(engine, ["--mode", "cyclegan"], "cyclegan_photo2monet")
-                for engine in ("packed", "auto", "nhwc")]
-        runs += [("auto", ["--mode", "local_style", "--local_style_mode", m],
-                  f"local_style_{m}_photo2monet") for m in POST_MODES]
-        for engine, mode_flags, sub in runs:
-            out = os.path.join(tmp, f"out_{engine}_{sub}")
-            buf = io.StringIO()
-            t0 = time.perf_counter()
-            with contextlib.redirect_stdout(buf):
-                rc = main(["--input_dir", src, "--output_dir", out,
-                           "--models_dir", models, *mode_flags,
-                           "--direction", "photo2monet", "--bf16",
-                           "--batch_size", "8", "--engine", engine])
-            elapsed = time.perf_counter() - t0
-            for line in buf.getvalue().splitlines():
-                log(f"    {line}")
-            what = f"{' '.join(mode_flags)} --engine {engine}"
-            if rc != 0:
-                raise AssertionError(f"batch CLI {what} exited {rc}")
-            if engine == "auto" and "engine=auto -> packed (batch 8" not in \
-                    buf.getvalue():
-                raise AssertionError("--engine auto did not take the packed "
-                                     "engine at batch 8")
-            done = 0
-            for name, size in sizes.items():
-                path = os.path.join(out, sub, name)
-                if os.path.exists(path):
-                    with Image.open(path) as img:
-                        done += img.size == size
-            log(f"[cli] {what}: {done}/24 outputs at their original sizes; "
-                f"CLI wall {elapsed:.2f} s including model load")
-            if done != 24:
-                raise AssertionError(f"batch CLI {what} wrote {done}/24 "
-                                     f"correct outputs")
+    src = os.path.join(tmp, "in")
+    models = os.path.join(tmp, "models")
+    os.makedirs(src)
+    os.makedirs(models)
+    shutil.copy(TRAINED, os.path.join(models, "cyclegan_epoch_200.pth"))
+    shutil.copy(TRAINED, os.path.join(models, "G_BA_epoch_200.pth"))
+    sizes = {}
+    for i in range(24):
+        w, h = int(rng.integers(96, 640)), int(rng.integers(96, 640))
+        name = f"photo_{i:02d}.jpg"
+        Image.fromarray(smooth_images(rng, 1, (w, h))[0]).save(
+            os.path.join(src, name), quality=92)
+        sizes[name] = (w, h)
+    runs = [(engine, ["--mode", "cyclegan"], "cyclegan_photo2monet")
+            for engine in ("packed", "auto", "nhwc")]
+    runs += [("auto", ["--mode", "local_style", "--local_style_mode", m],
+              f"local_style_{m}_photo2monet") for m in POST_MODES]
+    for engine, mode_flags, sub in runs:
+        out = os.path.join(tmp, f"out_{engine}_{sub}")
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            rc = main(["--input_dir", src, "--output_dir", out,
+                       "--models_dir", models, *mode_flags,
+                       "--direction", "photo2monet", "--bf16",
+                       "--batch_size", "8", "--engine", engine])
+        elapsed = time.perf_counter() - t0
+        for line in buf.getvalue().splitlines():
+            log(f"    {line}")
+        what = f"{' '.join(mode_flags)} --engine {engine}"
+        if rc != 0:
+            raise AssertionError(f"batch CLI {what} exited {rc}")
+        if engine == "auto" and "engine=auto -> packed (batch 8" not in \
+                buf.getvalue():
+            raise AssertionError("--engine auto did not take the packed "
+                                 "engine at batch 8")
+        done = 0
+        for name, size in sizes.items():
+            path = os.path.join(out, sub, name)
+            if os.path.exists(path):
+                with Image.open(path) as img:
+                    done += img.size == size
+        log(f"[cli] {what}: {done}/24 outputs at their original sizes; "
+            f"CLI wall {elapsed:.2f} s including model load")
+        if done != 24:
+            raise AssertionError(f"batch CLI {what} wrote {done}/24 "
+                                 f"correct outputs")
 
 
 def phase_server(rng, dev, engine, local_style_mode=None):
@@ -1851,9 +1876,321 @@ def phase_pretrain_cli(rng, dev):
                 raise AssertionError(f"batch CLI {mode} wrote {done}/4")
 
 
+def metric_pairs(rng, n, size, kind):
+    """n fp32 (a, b) image pairs in [0, 1] at size^2: independent noise, or
+    a photo-like colour field and a copy with noise of sigma 0.02."""
+    if kind == "random":
+        a, b = rng.random((n, size, size, 3)), rng.random((n, size, size, 3))
+    else:
+        a = np.stack(smooth_images(rng, n, (size, size))) / 255.0
+        b = np.clip(a + rng.normal(0, 0.02, a.shape), 0, 1)
+    return a.astype(np.float32), b.astype(np.float32)
+
+
+def phase_metrics(rng, dev):
+    """The metrics alone: ``check_metrics_device``'s probe pair on the card;
+    METRIC_PAIRS random and smooth pairs at each of METRIC_SIZES through
+    ``compare_pair`` on the card against the CPU, with every TF32 switch
+    on (the box filter is an average pool, which no switch reaches), and
+    SSIM(x, x) on the card; then ``compare_pair`` pairs/s at 256^2 for
+    METRIC_RATE_BATCHES (CUDA events, pairs already on the card). Returns
+    the largest deviations and the rates."""
+    import torch
+
+    from multi_style_transfer_gan_tpu_torch.metrics import quality
+
+    a, b = quality._probe_pair()
+    probe = [float(quality.ssim(a.to(d), b.to(d))) for d in (dev, "cpu")]
+    quality.check_metrics_device(dev)
+    log(f"[metrics] check_metrics_device probe: SSIM {probe[0]!r} on the "
+        f"card, {probe[1]!r} on the CPU")
+
+    worst = dict.fromkeys(("ssim", "psnr", "mse", "ssim_ident"), 0.0)
+    saved = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        with torch.backends.cudnn.flags(enabled=True, allow_tf32=True):
+            for size in METRIC_SIZES:
+                for kind in ("random", "smooth"):
+                    a, b = (torch.from_numpy(x) for x in
+                            metric_pairs(rng, METRIC_PAIRS, size, kind))
+                    want = quality.compare_pair(a, b)
+                    got = {k: v.cpu() for k, v in quality.compare_pair(
+                        a.to(dev), b.to(dev)).items()}
+                    d = {"ssim": (got["ssim"] - want["ssim"]).abs().max(),
+                         "psnr": (got["psnr"] - want["psnr"]).abs().max(),
+                         "mse": ((got["mse"] - want["mse"]).abs()
+                                 / want["mse"]).max(),
+                         "ssim_ident": (quality.ssim(a.to(dev), a.to(dev))
+                                        - 1.0).abs().max()}
+                    d = {k: float(v) for k, v in d.items()}
+                    log(f"[metrics] {METRIC_PAIRS} {kind} pairs at {size}^2, "
+                        f"card vs CPU: SSIM max |d| {d['ssim']:.3e}, PSNR "
+                        f"{d['psnr']:.3e} dB, MSE relative {d['mse']:.3e}; "
+                        f"card SSIM(x, x) - 1 {d['ssim_ident']:.3e}; mean "
+                        f"SSIM {want['ssim'].mean().item():.4f}")
+                    for k in worst:
+                        worst[k] = max(worst[k], d[k])
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = saved
+    limits = {"ssim": SSIM_ATOL, "psnr": PSNR_ATOL, "mse": MSE_RTOL,
+              "ssim_ident": SSIM_IDENT_ATOL}
+    if any(worst[k] > limits[k] for k in worst):
+        raise AssertionError(f"metrics on the card disagree with the CPU: "
+                             f"{worst} against {limits}")
+
+    rates = {}
+    for n in METRIC_RATE_BATCHES:
+        a, b = (torch.from_numpy(x).to(dev) for x in
+                metric_pairs(rng, n, 256, "smooth"))
+        rates[n] = n * 1000.0 / time_ms(lambda: quality.compare_pair(a, b))
+        log(f"[metrics] compare_pair at 256^2, batch {n}: {rates[n]:.1f} "
+            f"pairs/s")
+    return worst, rates
+
+
+def random_inception_pth(path):
+    """A seeded random InceptionV3 state dict at full width with
+    torchvision's keys, its ``num_batches_tracked`` counters and the
+    ``AuxLogits``/``fc`` head the importer drops, saved as ``.pth``: the
+    route a user's torchvision file takes. Conv weights He-normal, the
+    BatchNorms near identity (tests/feature_oracle.py's law)."""
+    import torch
+
+    from multi_style_transfer_gan_tpu_torch.metrics.inception import (
+        InceptionV3,
+    )
+
+    gen = torch.Generator().manual_seed(SEED)
+    sd = {}
+    for k, v in InceptionV3().state_dict().items():
+        if k.endswith("conv.weight"):
+            sd[k] = torch.randn(v.shape, generator=gen) * (2.0 / v[0].numel()) ** 0.5
+        elif k.endswith("bn.weight"):
+            sd[k] = 0.8 + 0.4 * torch.rand(v.shape, generator=gen)
+        elif k.endswith("bn.bias"):
+            sd[k] = 0.05 * torch.randn(v.shape, generator=gen)
+        elif k.endswith("bn.running_mean"):
+            sd[k] = 0.1 * torch.randn(v.shape, generator=gen)
+        else:
+            sd[k] = 0.5 + torch.rand(v.shape, generator=gen)
+            sd[k.replace("running_var", "num_batches_tracked")] = torch.tensor(0)
+    sd["AuxLogits.conv0.conv.weight"] = torch.zeros(128, 768, 1, 1)
+    sd["fc.weight"] = torch.zeros(1000, 2048)
+    sd["fc.bias"] = torch.zeros(1000)
+    torch.save(sd, path)
+
+
+def phase_fid(dev, counts, tmp):
+    """m_test's path: a ``write_domains`` test tree of EVAL_IMAGES images a
+    domain, the trained G_AB and G_BA at precision 'highest', and features
+    from a seeded random full-width InceptionV3 ``.pth``
+    (``make_inception_feature_fn``) or the fallback features. Each
+    ``run_fid_eval`` on the card (panels off) checks its launches: 4 of row
+    1 and 1 of row 4 per generator forward, ceil(n / EVAL_BATCH) forwards
+    a direction. Card vs CPU at EVAL_CPU_IMAGES a direction, both feature
+    kinds (FID relative FID_RTOL); then each kind timed on the card at
+    EVAL_IMAGES, its host-clock split (decode, generator with a
+    synchronize, features, the statistic, the rest) and, from one more run
+    under ``torch.profiler``, its device time. Returns the numbers."""
+    import contextlib
+    import dataclasses
+    import math
+
+    import torch
+
+    from multi_style_transfer_gan_tpu_torch.data import (
+        ImageFolderDataset, write_domains,
+    )
+    from multi_style_transfer_gan_tpu_torch.metrics import fid_harness
+    from multi_style_transfer_gan_tpu_torch.metrics.inception import (
+        make_inception_feature_fn,
+    )
+    from multi_style_transfer_gan_tpu_torch.pipelines import load_generator
+
+    data = os.path.join(tmp, "fid_data")
+    t0 = time.perf_counter()
+    write_domains(data, n_train=0, n_test=EVAL_IMAGES, size=256, seed=SEED)
+    weights = os.path.join(tmp, "inception_v3.pth")
+    random_inception_pth(weights)
+    log(f"[fid] test tree of {EVAL_IMAGES} images a domain and a random "
+        f"InceptionV3 .pth ({os.path.getsize(weights) / 2 ** 20:.1f} MiB) "
+        f"written in {time.perf_counter() - t0:.1f} s")
+    devices = {"card": dev, "cpu": torch.device("cpu")}
+    gens = {w: [load_generator(os.path.join(REPO, "trained",
+                                            f"G_{d}_selected.pth"),
+                               precision="highest", device=devices[w])
+                for d in ("AB", "BA")] for w in devices}
+    features = {(w, "inception"): make_inception_feature_fn(weights,
+                                                            device=d)
+                for w, d in devices.items()}
+    features.update({(w, "fallback"): None for w in devices})
+
+    def run(where, kind, n, generators=None):
+        before = counts()
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            out = fid_harness.run_fid_eval(
+                *(generators or gens[where]), data,
+                os.path.join(tmp, f"fid_{where}_{kind}"), max_images=n,
+                feature_fn=features[(where, kind)], batch=EVAL_BATCH,
+                save_panels=False)
+        if list(out) != ["monet2photo", "photo2monet", "mean"] or not all(
+                math.isfinite(v) and v > 0 for v in out.values()):
+            raise AssertionError(f"run_fid_eval on {where}, {kind}: {out}; "
+                                 f"{buf.getvalue()}")
+        if where == "card":
+            forwards = 2 * math.ceil(n / EVAL_BATCH)
+            launched = {k: v - before[k] for k, v in counts().items()}
+            want = {k: EVAL_LAUNCHES_PER_FORWARD.get(k, 0) * forwards
+                    for k in launched}
+            if launched != want:
+                raise AssertionError(f"run_fid_eval at {n} images a "
+                                     f"direction launched {launched}, "
+                                     f"expected {want}")
+        return out
+
+    fids, worst = {}, 0.0
+    for kind in ("inception", "fallback"):
+        got, want = (run(w, kind, EVAL_CPU_IMAGES) for w in ("card", "cpu"))
+        rel = {k: abs(got[k] - want[k]) / abs(want[k]) for k in want}
+        worst = max(worst, *rel.values())
+        fids[kind] = got
+        log(f"[fid] {kind} features, {EVAL_CPU_IMAGES} images a direction: "
+            f"card {got}, CPU {want}; relative |d| "
+            + ", ".join(f"{k} {v:.3e}" for k, v in rel.items()))
+        if max(rel.values()) > FID_RTOL:
+            raise AssertionError(f"FID with {kind} features: card and CPU "
+                                 f"differ by {rel}")
+
+    spent = {}
+
+    def clocked(key, fn, sync=False):
+        def call(*args):
+            t = time.perf_counter()
+            out = fn(*args)
+            if sync:
+                torch.cuda.synchronize()
+            spent[key] += time.perf_counter() - t
+            return out
+        return call
+
+    class TimedDataset(ImageFolderDataset):
+        load = clocked("decode", ImageFolderDataset.load)
+
+    timed_gens = [dataclasses.replace(g, apply=clocked("generator", g.apply,
+                                                       sync=True))
+                  for g in gens["card"]]
+    statistic = fid_harness.fid_from_features
+    timing = {}
+    for kind in ("inception", "fallback"):
+        spent.update(dict.fromkeys(("decode", "generator", "features",
+                                    "statistic"), 0.0))
+        feature_fn = features[("card", kind)] or \
+            fid_harness.default_feature_fn
+        features[("card", kind)] = clocked("features", feature_fn)
+        fid_harness.ImageFolderDataset = TimedDataset
+        fid_harness.fid_from_features = clocked("statistic", statistic)
+        try:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = run("card", kind, EVAL_IMAGES, timed_gens)
+            wall = time.perf_counter() - t0
+        finally:
+            fid_harness.ImageFolderDataset = ImageFolderDataset
+            fid_harness.fid_from_features = statistic
+            features[("card", kind)] = feature_fn
+        split = dict(spent, other=wall - sum(spent.values()))
+        dev_ms = device_ms(lambda: run("card", kind, EVAL_IMAGES), iters=1,
+                           warmup=0)
+        images = 4 * EVAL_IMAGES   # generated and real, both directions
+        timing[kind] = (images / wall, wall, split, dev_ms / 1e3 / wall, out)
+        log(f"[fid] {kind} features on the card, {EVAL_IMAGES} images a "
+            f"direction: {out}; {images} images in {wall:.3f} s, "
+            f"{images / wall:.1f} images/s; split "
+            + ", ".join(f"{k} {v:.3f} s ({v / wall:.1%})"
+                        for k, v in split.items())
+            + f"; device time {dev_ms:.1f} ms under the profiler, busy "
+            f"{dev_ms / 1e3 / wall:.1%} of the unprofiled wall")
+    return worst, fids, timing
+
+
+def phase_folders(dev, work):
+    """The folder comparison on the card: ``compare_folder_pair`` between
+    the batch CLI's inputs and its NHWC ``cyclegan`` outputs (24 images of
+    24 sizes, one bucket each), card vs CPU per image; then the
+    ``improved_image_compare`` CLI (the cyclegan outputs against the
+    local-style enhanced ones) and the ``prepare_comparison_folders`` CLI
+    through ``main(argv)``. The entry points that draw a figure
+    (``compare_image_quality``, ``complete_comparison`` and
+    ``image_quality_comparison`` always draw bar charts, and m_test's
+    panels) need matplotlib, which the card's machine does not have: the
+    CPU tests hold them against the JAX package, and they are not driven
+    here."""
+    import contextlib
+
+    from multi_style_transfer_gan_tpu_torch.cli import (
+        improved_image_compare, prepare_comparison_folders,
+    )
+    from multi_style_transfer_gan_tpu_torch.metrics.evaluation import (
+        compare_folder_pair,
+    )
+
+    src = os.path.join(work, "in")
+    styled = os.path.join(work, "out_nhwc_cyclegan_photo2monet",
+                          "cyclegan_photo2monet")
+    local = os.path.join(work, "out_auto_local_style_enhanced_photo2monet",
+                         "local_style_enhanced_photo2monet")
+    t0 = time.perf_counter()
+    got = compare_folder_pair(src, styled, device=dev)
+    wall = time.perf_counter() - t0
+    want = compare_folder_pair(src, styled, device="cpu")
+    if len(got["per_image"]) != 24 or got["skipped"] or \
+            list(got["per_image"]) != list(want["per_image"]):
+        raise AssertionError(f"compare_folder_pair: {len(got['per_image'])} "
+                             f"images, skipped {got['skipped']}")
+    d = {k: max(abs(got["per_image"][n][k] - m[k]) / (m[k] if k == "mse"
+                                                        else 1.0)
+                for n, m in want["per_image"].items())
+         for k in ("ssim", "psnr", "mse")}
+    log(f"[folders] compare_folder_pair on the card, 24 images: "
+        f"{wall:.2f} s; average {got['average']}; card vs CPU per image: "
+        f"SSIM max |d| {d['ssim']:.3e}, PSNR {d['psnr']:.3e} dB, MSE "
+        f"relative {d['mse']:.3e}")
+    if d["ssim"] > SSIM_ATOL or d["psnr"] > PSNR_ATOL or d["mse"] > MSE_RTOL:
+        raise AssertionError(f"compare_folder_pair: card vs CPU {d}")
+
+    prep = os.path.join(work, "prepare")
+    shutil.copytree(styled, prep)
+    for cli, argv, expect in (
+            (improved_image_compare,
+             ["--original_dir", src, "--folder_a", styled, "--folder_b",
+              local], "=== Summary over 24 images ==="),
+            (prepare_comparison_folders,
+             ["--src_dir", prep, "--prefix", "photo_0"],
+             "prepared 10 files")):
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            rc = cli.main(argv)
+        text = buf.getvalue()
+        name = cli.__name__.rsplit(".", 1)[-1]
+        tail = " | ".join(text.strip().splitlines()[-5:])
+        log(f"[folders] {name} CLI: exit {rc}; {tail}")
+        if rc != 0 or expect not in text:
+            raise AssertionError(f"{name} CLI: exit {rc}, {text[-500:]}")
+    return d
+
+
 # ---------------------------------------------------------------------------
 
 def main() -> int:
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as work:
+        return run(work)
+
+
+def run(work) -> int:
+    """Every path and check, in order; ``work`` holds the files the paths
+    share (the batch CLI's folders, which the evaluation path compares)."""
     import torch
 
     if not torch.cuda.is_available():
@@ -1901,7 +2238,7 @@ def main() -> int:
     K.reset_launch_counts()   # the serving path starts here
     rates = phase_generator(rng, dev, lambda: [
         counted[n].launches for n in serving_kernels])
-    phase_cli(rng)
+    phase_cli(rng, work)
     for engine in ENGINES:
         phase_server(rng, dev, engine)
     phase_server(rng, dev, "nhwc", local_style_mode="enhanced")
@@ -1944,6 +2281,19 @@ def main() -> int:
         raise AssertionError(f"pretraining path launches {pretraining}: a "
                              f"kernel of the path never launched")
 
+    K.reset_launch_counts()   # the evaluation path starts here
+    metric_err, pair_rates = phase_metrics(rng, dev)
+    fid_err, fids, fid_timing = phase_fid(dev, counts, work)
+    folder_err = phase_folders(dev, work)
+    evaluation = counts()     # ...and ends here
+    log(f"[evaluation path] launches: {evaluation}")
+    if evaluation["window_channel_attention"] == 0 or any(
+            evaluation[n] != EVAL_LAUNCHES_PER_FORWARD.get(n, 0)
+            * evaluation["fused_structural_block"] for n in evaluation):
+        raise AssertionError(f"evaluation path launches {evaluation}: "
+                             f"expected 4 NHWC attention calls per block "
+                             f"call and no other kernel")
+
     K.reset_launch_counts()   # the ablation path starts here
     phase_ablation()
     ablation = counts()       # ...and ends here
@@ -1952,7 +2302,7 @@ def main() -> int:
         raise AssertionError(f"ablation path launches {ablation}: the stage "
                              f"kernel never launched")
     launches = {n: serving[n] + single[n] + training[n] + pretraining[n]
-                + ablation[n] for n in counted}
+                + evaluation[n] + ablation[n] for n in counted}
 
     # inference kernels: per forward at canvas 256, batch 8, bf16 (the four
     # LocalAttention shapes, NHWC or packed; the block's one shape; the five
@@ -2096,8 +2446,22 @@ def main() -> int:
         f"canvas 256: "
         + ", ".join(f"batch {n} {r:.1f}" for n, r in plain_rates.items())
         + f"; pretrain step bf16 256^2 (plain c{PLAIN_CHANNELS} batch "
-        f"{PRETRAIN_BATCH}, enhanced c16 batch {TRAIN_BATCH}): {pre_text}; "
-        f"whole run {time.perf_counter() - t_start:.1f} s")
+        f"{PRETRAIN_BATCH}, enhanced c16 batch {TRAIN_BATCH}): {pre_text}")
+    fid_text = "; ".join(
+        f"{kind} features {rate:.1f} images/s ({4 * EVAL_IMAGES} images in "
+        f"{wall:.2f} s: " + ", ".join(f"{k} {v:.2f} s" for k, v in
+                                     split.items())
+        + f"; device busy {busy:.1%})"
+        for kind, (rate, wall, split, busy, _) in fid_timing.items())
+    log(f"[summary] {card}; evaluation: compare_pair pairs/s at 256^2 "
+        + ", ".join(f"batch {n} {r:.1f}" for n, r in pair_rates.items())
+        + f"; metrics card vs CPU max SSIM {metric_err['ssim']:.3e}, PSNR "
+        f"{metric_err['psnr']:.3e} dB, MSE relative {metric_err['mse']:.3e}, "
+        f"SSIM(x, x) - 1 {metric_err['ssim_ident']:.3e}, folder pairs SSIM "
+        f"{folder_err['ssim']:.3e}; FID card vs CPU at {EVAL_CPU_IMAGES} "
+        f"images a direction relative {fid_err:.3e}; m_test path at "
+        f"{EVAL_IMAGES} images a direction, fp32: {fid_text}; whole run "
+        f"{time.perf_counter() - t_start:.1f} s")
     print(json.dumps(report))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
