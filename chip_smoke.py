@@ -9,8 +9,9 @@ mode of the uint8 program (``cyclegan``, and ``local_style`` with the
 enhanced and advanced post chains), the single-image pipelines, CycleGAN
 training at the reference configuration, the plain generator and
 masked-inpainting pretraining at the reference's width, the evaluation
-path (metrics, folder comparisons, FID on a full-width InceptionV3), and
-checks every hand-written kernel on the way:
+path (metrics, folder comparisons, FID on a full-width InceptionV3), the
+GUI's tab workers and the checkpoint tools, the VGG16 perceptual + Gram
+loss in the train step, and checks every hand-written kernel on the way:
 
 1. build: all six CUDA sources compile from ``csrc/`` at once, one nvcc
    each;
@@ -25,7 +26,9 @@ checks every hand-written kernel on the way:
    plain, bit-exact;
 4. the fused transformer block, kernel vs plain, including a ragged grid,
    on a random input and on one with 16-fold scores (a saturated softmax),
-   each with an all-zero window;
+   each with an all-zero window; then the attention and the block at the
+   shapes ``generate_new_image`` gives them on a 1000 x 760 photo (992 x
+   752: a 188 x 248 token grid, ragged), fp32 and bf16;
 5. the training kernels (channel-attention mid, window-MHSA mid), forward
    and backward, kernel vs plain at every training shape on three inputs
    (random, a saturated softmax, a window whose q and k have norms ~1e-3),
@@ -77,13 +80,28 @@ checks every hand-written kernel on the way:
     CLI's folders card vs CPU, and the ``improved_image_compare`` and
     ``prepare_comparison_folders`` CLIs (``phase_folders`` says which
     entry points draw figures and are not driven here);
-13. ablation path: the stage-ablation tool
+13. GUI and tools path: the GUI's ModelManager loads its four fixed files
+    (the trained pair, a seeded plain c64 pair) on the card and the CPU;
+    every tab worker (standard, local style in three modes with its
+    toggles, cyclegan) on three photos card vs CPU, the GUI's masks, each
+    tab's wall per image and launches; the ``pth_info`` and
+    ``convert_model`` CLIs (the converted file serves the same bits),
+    ``debug_model`` and its two-variant forward, and
+    ``generate_new_image``'s transform of a 1000 x 760 photo card vs CPU
+    (``phase_gui`` says what draws a figure and is not driven here);
+14. perceptual training path: the bf16 train step at c16, 256^2, batch 8
+    with the VGG16 perceptual + Gram loss (a seeded random full-width
+    VGG16) as its ``extra_g_loss`` (launches per step, finite losses,
+    moved G, D and u, ms/step with and without the hook in turns, the
+    trunk's device share), one fp32 hooked step and the loss alone card vs
+    CPU;
+15. ablation path: the stage-ablation tool
     (``python -m multi_style_transfer_gan_tpu_torch.tools.attention_ablation``)
     at the TPU script's default shape (96 x 512^2, C = 16) and at the
     canvas-256 batch-64 shapes of C = 32 and 64, its tables printed.
 
 Every phase raises on failure. The last line is the result JSON; the line
-before it lists each kernel with its launches on the six paths (launch
+before it lists each kernel with its launches on the eight paths (launch
 counts are reset just before each path and read just after), its largest
 fp32 deviation from the plain version, its time beside the plain
 version's, its bound (the larger of its bytes over the card's memory rate
@@ -217,6 +235,8 @@ METRIC_SIZES, METRIC_PAIRS, METRIC_RATE_BATCHES = (256, 512), 16, (16, 64)
 # the NHWC engine): row 1 and row 4
 EVAL_LAUNCHES_PER_FORWARD = {"window_channel_attention": 4,
                              "fused_structural_block": 1}
+# the perceptual loss alone, fp32 card vs CPU (TF32 off): relative
+PERCEPTUAL_RTOL = 1e-4
 
 
 def log(*a):
@@ -2183,6 +2203,476 @@ def phase_folders(dev, work):
 
 # ---------------------------------------------------------------------------
 
+# ---------------------------------------------------------------------------
+# the GUI and tools path: the tab workers and their model manager, the
+# checkpoint CLIs, debug_model and generate_new_image
+
+def gui_photos(tmp):
+    """Three photos for the tab workers: a landscape over the canvas, a
+    portrait, and a landscape whose upper half is a blue sky (the GUI's
+    blue-sky mask trips on it). Returns their paths."""
+    from PIL import Image
+
+    from multi_style_transfer_gan_tpu_torch.data.synthetic import render_photo
+
+    sky = render_photo(SEED + 3, size=320)[:240, :320].copy()
+    sky[:100] = np.clip(sky[:100] * 0.3 + np.float32([60, 120, 220]) * 0.7,
+                        0, 255).astype(np.uint8)
+    paths = []
+    for name, img in (("landscape", render_photo(SEED + 1, size=400)[:300]),
+                      ("portrait", render_photo(SEED + 2, size=320)[:, :240]),
+                      ("sky", sky)):
+        paths.append(os.path.join(tmp, f"{name}.png"))
+        Image.fromarray(np.ascontiguousarray(img)).save(paths[-1])
+    return paths
+
+
+def gui_models_dir(tmp):
+    """The GUI's fixed files: the trained pair as ``G_{AB,BA}_epoch_200.pth``
+    and a seeded plain c64 pair, both generators in one
+    ``cyclegan_epoch_200.pth``."""
+    import torch
+
+    d = os.path.join(tmp, "models")
+    os.makedirs(d)
+    for ab in ("AB", "BA"):
+        shutil.copy(os.path.join(REPO, "trained", f"G_{ab}_selected.pth"),
+                    os.path.join(d, f"G_{ab}_epoch_200.pth"))
+    path = os.path.join(d, "cyclegan_epoch_200.pth")
+    plain_checkpoint(path, PLAIN_CHANNELS)
+    ck = torch.load(path, map_location="cpu", weights_only=True)
+    ck["G_AB_state_dict"] = ck["G_BA_state_dict"]
+    torch.save(ck, path)
+    return d
+
+
+def run_quiet(fn, *args):
+    """(return value, printed lines) of ``fn(*args)``."""
+    import contextlib
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        out = fn(*args)
+    return out, buf.getvalue().splitlines()
+
+
+def phase_gui(rng, dev, counts):
+    """The GUI's workers and tools on the card against the CPU (fp32, TF32
+    off). The model manager loads the four fixed files; every tab worker
+    runs on the three ``gui_photos`` (standard at its defaults, with fix
+    blocks, and monet2photo without extras; local style simple, enhanced
+    with its toggles on and off, advanced; cyclegan) and is held to the
+    post chain's limits, its masks equal on >= 99.9% of pixels; then each
+    tab's wall per image on the card. The ``pth_info`` and
+    ``convert_model`` CLIs run, and the converted file serves with the same
+    bits; ``debug_model`` prints, and its two-variant forward and
+    ``generate_new_image``'s transform of a 1000 x 760 photo run card vs
+    CPU. Returns ({tab: ms per image on the card}, {part: ms} of a
+    standard-tab image)."""
+    import torch
+    from PIL import Image
+
+    from multi_style_transfer_gan_tpu_torch.cli import (
+        convert_model, debug_model, generate_new_image, pth_info,
+    )
+    from multi_style_transfer_gan_tpu_torch.data.synthetic import render_photo
+    from multi_style_transfer_gan_tpu_torch.gui import app
+    from multi_style_transfer_gan_tpu_torch.ops.gui_effects import (
+        blue_sky_mask, edge_weight_mask,
+    )
+    from multi_style_transfer_gan_tpu_torch.pipelines import load_generator
+    from multi_style_transfer_gan_tpu_torch.pipelines.batch import (
+        _decode_canvas,
+    )
+
+    log("[gui] not driven on the card (no display, no matplotlib there; "
+        "the CPU tests hold them against the JAX package): the Tk shell, "
+        "the compare tab and the enhanced_segmentation mode (both draw a "
+        "figure), debug_model --image and generate_new_image's plot")
+    tmp = tempfile.mkdtemp(prefix="gui_")
+    try:
+        photos = gui_photos(tmp)
+        models_dir = gui_models_dir(tmp)
+        managers = {"card": app.ModelManager(models_dir, "highest",
+                                             device=dev),
+                    "cpu": app.ModelManager(models_dir, device="cpu")}
+        for where, m in managers.items():
+            msgs = []
+            t0 = time.perf_counter()
+            m.load(log=msgs.append)
+            log(f"[gui] ModelManager on {where}: {m.loaded()}/4 loaded in "
+                f"{time.perf_counter() - t0:.2f} s: " + " | ".join(msgs))
+            if m.loaded() != 4:
+                raise AssertionError(f"ModelManager on {where} loaded "
+                                     f"{m.loaded()} of 4")
+        info = app.model_info_text(managers["card"])
+        if info != app.model_info_text(managers["cpu"]):
+            raise AssertionError("model_info_text differs card vs CPU")
+        log("[gui] model_info_text (equal on both):\n" + info)
+
+        for path in photos:
+            canvas = torch.from_numpy(np.array(_decode_canvas(path)[0])) \
+                .float()[None]
+            for name, fn in (("blue sky mask", blue_sky_mask),
+                             ("edge weight mask", edge_weight_mask)):
+                got, ref = fn(canvas.to(dev)).cpu(), fn(canvas)
+                share = float((got == ref).float().mean())
+                log(f"    {os.path.basename(path)} {name}: mean "
+                    f"{float(ref.mean()):.4f}, equal on {share:.6f} of pixels")
+                if share < MASK_SHARE:
+                    raise AssertionError(f"{name}: card and CPU agree on "
+                                         f"{share:.6f} of pixels")
+        if float(blue_sky_mask(canvas).mean()) < 0.05:
+            raise AssertionError("the sky photo does not trip the sky mask")
+
+        cases = [
+            ("standard", "_process_standard", "enhanced", {}),
+            ("standard", "_process_standard", "enhanced",
+             {"fix_blocks": True, "blend_original": 0.3}),
+            ("standard", "_process_standard", "enhanced",
+             {"direction": "monet2photo", "strength": 0.5, "smooth": 0,
+              "fix_blocks": False}),
+            ("local", "_process_local", "enhanced", {"mode": "simple"}),
+            ("local", "_process_local", "enhanced", {"mode": "enhanced"}),
+            ("local", "_process_local", "enhanced",
+             {"mode": "enhanced", "sky_handling": False,
+              "enhance_colors": False, "smooth_transitions": False}),
+            ("local", "_process_local", "enhanced", {"mode": "advanced"}),
+            ("cyclegan", "_process_cyclegan", "cyclegan", {}),
+        ]
+        for tab, worker, family, kw in cases:
+            for path in photos:
+                outs = {}
+                for where, m in managers.items():
+                    model = m.pick(family, kw.get("direction", "photo2monet"))
+                    out = os.path.join(tmp, where, f"{tab}.png")
+                    getattr(app, worker)(model, path, out, **kw)
+                    with Image.open(out) as img:
+                        outs[where] = np.asarray(img.convert("RGB"))
+                check_levels(f"{tab} {kw} {os.path.basename(path)} "
+                             f"{outs['card'].shape}", outs["card"],
+                             outs["cpu"])
+
+        # each tab's wall per image on the card, after one warm-up call;
+        # the cyclegan tab's plain generator launches no kernel
+        walls = {}
+        for tab, worker, family, kw in (cases[0], cases[4], cases[7]):
+            model = managers["card"].pick(family, "photo2monet")
+            out = os.path.join(tmp, "card", "wall.png")
+            getattr(app, worker)(model, photos[0], out, **kw)
+            before = counts()
+            t0 = time.perf_counter()
+            for path in photos:
+                getattr(app, worker)(model, path, out, **kw)
+            torch.cuda.synchronize()
+            walls[tab] = (time.perf_counter() - t0) * 1000 / len(photos)
+            launched = {n: v - before[n] for n, v in counts().items()
+                        if v != before[n]}
+            log(f"[gui] {tab} tab on the card: {walls[tab]:.2f} ms per image "
+                f"(decode, generator, post chain, restore and PNG save; "
+                f"{card_line()}); launches over {len(photos)} images "
+                f"{launched}")
+            expected = ({} if family == "cyclegan" else
+                        {n: len(photos) * k
+                         for n, k in EVAL_LAUNCHES_PER_FORWARD.items()})
+            if launched != expected:
+                raise AssertionError(f"{tab} tab launched {launched}, "
+                                     f"expected {expected}")
+        # where a standard-tab image's wall goes: host decode and canvas
+        # paste, the generator (synchronized; ``_styled_canvas`` decodes
+        # again, which is taken off), the post chain and the restore and
+        # save
+        split = {"decode": 0.0, "generator": 0.0, "chain": 0.0, "save": 0.0}
+        model = managers["card"].pick("enhanced", "photo2monet")
+        for path in photos:
+            t0 = time.perf_counter()
+            _decode_canvas(path)
+            t1 = time.perf_counter()
+            canvas_f, styled, (w, h) = app._styled_canvas(model, path)
+            torch.cuda.synchronize()
+            t2 = time.perf_counter()
+            res = app._boost_colors(canvas_f * 0.2 + styled * 0.8,
+                                    "photo2monet")
+            torch.cuda.synchronize()
+            t3 = time.perf_counter()
+            app._finish_and_save(res, w, h, os.path.join(tmp, "split.png"))
+            t4 = time.perf_counter()
+            for k, dt in zip(split, (t1 - t0, t2 - t1 - (t1 - t0), t3 - t2,
+                                     t4 - t3)):
+                split[k] += dt * 1000 / len(photos)
+        log("[gui] standard tab split per image on the card: "
+            + ", ".join(f"{k} {v:.2f} ms" for k, v in split.items())
+            + " (the chain without its Gaussian)")
+
+        # the checkpoint tools, as a user runs them
+        ckpt = os.path.join(models_dir, "cyclegan_epoch_200.pth")
+        _, lines = run_quiet(pth_info.main, [ckpt])
+        log(f"[gui] pth_info {os.path.basename(ckpt)}: {len(lines)} "
+            f"tensors; first {lines[0]}")
+        flat = os.path.join(tmp, "flat.pth")
+        src = os.path.join(models_dir, "G_BA_epoch_200.pth")
+        rc, lines = run_quiet(convert_model.main,
+                              ["--input", src, "--output", flat])
+        log(f"[gui] convert_model: exit {rc}; " + " | ".join(lines))
+        # the converted file serves the same weights, bit for bit; the two
+        # forwards agree as far as the card's fp32 forward repeats itself
+        # (its transposed convolutions are not bit-stable, ~3e-5)
+        orig = managers["card"].enhanced_ba
+        conv = load_generator(flat, precision="highest", device=dev)
+        same = all(torch.equal(v, conv.module.state_dict()[k])
+                   for k, v in orig.module.state_dict().items())
+        x = torch.from_numpy(np.stack(smooth_images(rng, 2, (256, 256)))) \
+            .to(dev).float() / 127.5 - 1.0
+        fwd = float((orig.apply(x) - conv.apply(x)).abs().max())
+        log(f"    converted file: weights bit-equal {same}, forward max |d| "
+            f"{fwd:.2e}")
+        if rc != 0 or not same or fwd > 1e-4:
+            raise AssertionError(f"convert_model exit {rc}; the converted "
+                                 f"file's weights equal {same}, forward "
+                                 f"max |d| {fwd:.2e}")
+
+        rc, lines = run_quiet(debug_model.main, ["--model", src])
+        log(f"[gui] debug_model: exit {rc}; {lines[0]} | {lines[1]}")
+        if rc != 0 or len(lines) < 10:
+            raise AssertionError(f"debug_model exited {rc}")
+        img01 = torch.from_numpy(np.asarray(
+            Image.open(photos[0]).convert("RGB"), np.float32) / 255.0)
+        variants = {where: debug_model.preprocess_variants(
+            m.enhanced_ba, img01) for where, m in managers.items()}
+        for name, (x_card, y_card) in variants["card"].items():
+            x_cpu, y_cpu = variants["cpu"][name]
+            x_err = float((x_card.cpu() - x_cpu).abs().max())
+            got, ref = (np.clip(np.round(y.cpu().numpy() * 255), 0, 255)
+                        for y in (y_card, y_cpu))
+            dmax, share = u8_diff(got, ref)
+            log(f"    debug_model {name} {tuple(x_card.shape)}: input max "
+                f"|d| {x_err:.2e}, output max diff {dmax}, differing share "
+                f"{share:.3e}")
+            if x_err > 1e-5 or dmax > U8_MAX_DIFF or share > U8_MAX_SHARE:
+                raise AssertionError(f"debug_model {name}: card and CPU "
+                                     f"disagree")
+
+        photo = render_photo(SEED + 4, size=1000)[:760]
+        before = counts()
+        t0 = time.perf_counter()
+        got = generate_new_image.transform_full_size(
+            managers["card"].enhanced_ba, photo)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        photo_launches = {n: v - before[n] for n, v in counts().items()
+                          if v != before[n]}
+        ref = generate_new_image.transform_full_size(
+            managers["cpu"].enhanced_ba, photo)
+        dmax, share = u8_diff(got[1], ref[1])
+        log(f"[gui] generate_new_image on a 1000 x 760 photo: "
+            f"{got[0].shape} -> {got[1].shape}, {wall * 1000:.1f} ms on the "
+            f"card (first call at this size), launches {photo_launches}; "
+            f"card vs CPU max diff {dmax}, differing share {share:.3e}")
+        if got[1].shape != (752, 992, 3) or dmax > U8_MAX_DIFF \
+                or share > U8_MAX_SHARE:
+            raise AssertionError("generate_new_image: card and CPU disagree")
+        if photo_launches != EVAL_LAUNCHES_PER_FORWARD:
+            raise AssertionError(f"the 992 x 752 forward launched "
+                                 f"{photo_launches}")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return walls, split
+
+
+def photo_shapes():
+    """The shapes ``generate_new_image`` gives rows 1 and 4 on a 1000 x 760
+    photo (992 x 752 after the crop): the four LocalAttention calls, and
+    the block's 188 x 248 token grid (188 is not a multiple of the
+    8-window, so the kernel takes its key-mask path)."""
+    return ([(1, 376, 496, 32), (1, 188, 248, 64), (1, 752, 992, 16)],
+            (1, 188, 248, 64))
+
+
+def phase_photo_kernels(rng, dev):
+    """Rows 1 and 4 vs their plain versions at ``photo_shapes``, fp32 (TF32
+    off) and bf16, on the stress inputs of ``attention_stress_inputs`` and
+    ``block_stress_inputs``. Returns the largest fp32 |d| of each."""
+    import torch
+
+    from multi_style_transfer_gan_tpu_torch.ops.kernels import (
+        fused_structural_block, structural_block_plain,
+        window_channel_attention, window_channel_attention_plain,
+    )
+
+    attn_shapes, blk_shape = photo_shapes()
+    worst = {"attention": 0.0, "block": 0.0}
+    for shape in attn_shapes:
+        for label, x, ws in attention_stress_inputs(rng, shape):
+            for dtype in (torch.float32, torch.bfloat16):
+                args = [torch.from_numpy(np.asarray(a, np.float32))
+                        .to(dev, dtype) for a in [x] + ws]
+                got = window_channel_attention(*args)
+                ref = window_channel_attention_plain(*args)
+                err, bf16_ok = compare(got, ref, dtype)
+                ok = (err <= FP32_TOL if dtype == torch.float32 else bf16_ok)
+                ok = ok and bool(torch.isfinite(got).all())
+                log(f"[photo kernels] attention {shape} {label} "
+                    f"{str(dtype)[6:]}: max|d| {err:.3e}")
+                if not ok:
+                    raise AssertionError(f"window_channel_attention {shape} "
+                                         f"{label} {dtype}: outside tolerance")
+                if dtype == torch.float32:
+                    worst["attention"] = max(worst["attention"], err)
+    for label, host, weights in block_stress_inputs(rng, blk_shape):
+        for dtype in (torch.float32, torch.bfloat16):
+            t = lambda a, dt=dtype: torch.from_numpy(
+                np.asarray(a, np.float32)).to(dev, dt)
+            args = (t(host[0]), t(host[1]), t(host[2], torch.float32),
+                    t(host[3], torch.float32))
+            kw = {n: t(a) for n, a in weights.items()}
+            got = fused_structural_block(*args, **kw)
+            ref = structural_block_plain(*args, **kw)
+            err, bf16_ok = compare(got, ref, dtype)
+            ok = (err <= BLOCK_FP32_TOL if dtype == torch.float32 else bf16_ok)
+            ok = ok and bool(torch.isfinite(got).all())
+            log(f"[photo kernels] block {blk_shape} (ragged) {label} "
+                f"{str(dtype)[6:]}: max|d| {err:.3e}")
+            if not ok:
+                raise AssertionError(f"fused_structural_block {blk_shape} "
+                                     f"{label} {dtype}: outside tolerance")
+            if dtype == torch.float32:
+                worst["block"] = max(worst["block"], err)
+    return worst
+
+
+# ---------------------------------------------------------------------------
+# the perceptual training path: the VGG16 perceptual + Gram loss through the
+# train step's extra_g_loss hook
+
+def random_vgg16_sd():
+    """A seeded random torchvision-format ``vgg16`` state dict, conv1_1 to
+    conv4_3 at full width (He-normal weights, small biases): no trained
+    VGG16 is in the repository."""
+    import torch
+
+    from multi_style_transfer_gan_tpu_torch.train.perceptual import (
+        _VGG16_CONVS,
+    )
+
+    gen = torch.Generator().manual_seed(SEED)
+    sd = {}
+    for idx, cin, cout in _VGG16_CONVS:
+        sd[f"features.{idx}.weight"] = torch.randn(
+            (cout, cin, 3, 3), generator=gen) * (2.0 / (cin * 9)) ** 0.5
+        sd[f"features.{idx}.bias"] = 0.05 * torch.randn(cout, generator=gen)
+    return sd
+
+
+def phase_perceptual(rng, dev, counts):
+    """The bf16 train step at the reference configuration (c16, 256^2,
+    batch 8, pair batching) with ``extra_g_loss=make_extra_g_loss(vgg)``
+    on a seeded random full-width VGG16: launches per step (the hook's
+    trunk is cuDNN and matmul, so they equal the hookless step's), finite
+    losses, G, D and u moved; ms/step with and without the hook in turns,
+    and the trunk's share of the hooked step's device time; one fp32
+    hooked step card vs CPU (c16, 128^2, batch 2), and
+    ``perceptual_gram_loss`` alone card vs CPU. Returns (ms with the hook,
+    ms without, device share of the trunk)."""
+    import torch
+
+    from multi_style_transfer_gan_tpu_torch.ops import to_model_range
+    from multi_style_transfer_gan_tpu_torch.train import (
+        cyclegan_init_state, cyclegan_train_step,
+    )
+    from multi_style_transfer_gan_tpu_torch.train.perceptual import (
+        make_extra_g_loss, perceptual_gram_loss, vgg16_from_torchvision_sd,
+    )
+
+    sd = random_vgg16_sd()
+    vgg = vgg16_from_torchvision_sd(sd, device=dev)
+    log(f"[perceptual] VGG16 conv1_1..conv4_3, {len(sd) // 2} convolutions, "
+        f"{sum(v.numel() for v in sd.values()):,} parameters (seeded random)")
+    hook = make_extra_g_loss(vgg)
+    state = cyclegan_init_state(SEED + 2, 16, 1, device=dev)
+    before = {n: {k: v.clone() for k, v in getattr(state, n).state_dict().items()}
+              for n in ("G_AB", "G_BA", "D_A", "D_B")}
+    pairs = uint8_pairs(rng, 2, TRAIN_BATCH, 256, dev)
+    i = [0]
+
+    def step(extra):
+        a, b = pairs[i[0] % len(pairs)]
+        i[0] += 1
+        return cyclegan_train_step(state, to_model_range(a), to_model_range(b),
+                                   compute_dtype=torch.bfloat16,
+                                   pair_batching=True, extra_g_loss=extra)[1]
+
+    n0 = counts()
+    losses = step(hook)
+    torch.cuda.synchronize()
+    n1 = counts()
+    per_step = {n: n1[n] - n0[n] for n in TRAIN_LAUNCHES_PER_STEP}
+    log(f"[perceptual] launches in one hooked step: {per_step}")
+    if per_step != TRAIN_LAUNCHES_PER_STEP:
+        raise AssertionError(f"hooked step launches {per_step}, expected the "
+                             f"hookless step's {TRAIN_LAUNCHES_PER_STEP}")
+    vals = {k: float(v) for k, v in losses.items()}
+    if not all(np.isfinite(v) for v in vals.values()):
+        raise AssertionError(f"non-finite losses {vals}")
+    for name, sd_before in before.items():
+        now = getattr(state, name).state_dict()
+        if not any(not torch.equal(now[k], v) for k, v in sd_before.items()):
+            raise AssertionError(f"{name} did not move")
+        if name[0] == "D" and torch.equal(now["main.2.weight_u"],
+                                          sd_before["main.2.weight_u"]):
+            raise AssertionError(f"{name} spectral-norm u did not move")
+
+    for extra in (None, hook):   # warm-up: 3 steps each
+        for _ in range(3):
+            step(extra)
+    times = []   # 10 timed steps each, in turns: without, with, with, without
+    for extra in (None, hook, hook, None):
+        t0 = time.perf_counter()
+        for _ in range(5):
+            step(extra)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1000 / 5)
+    ms = {"without": (times[0] + times[3]) / 2,
+          "with": (times[1] + times[2]) / 2}
+    dev_with = device_ms(lambda: step(hook), iters=2, warmup=0)
+    dev_without = device_ms(lambda: step(None), iters=2, warmup=0)
+    share = (dev_with - dev_without) / dev_with
+    log(f"[perceptual] bf16 c16 256^2 batch {TRAIN_BATCH}, pair batching "
+        f"({card_line()}): with the hook {ms['with']:.2f} ms/step, without "
+        f"{ms['without']:.2f} (in turns of 5 steps: "
+        + ", ".join(f"{t:.2f}" for t in times)
+        + f"); device {dev_with:.2f} vs {dev_without:.2f} ms/step, the VGG "
+        f"trunk's share {share:.1%}; losses {vals}; peak memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+
+    # one fp32 hooked step on the card vs the CPU (TF32 off)
+    host = [to_model_range(t).cpu() for t in uint8_pairs(rng, 1, 2, 128,
+                                                         dev)[0]]
+    out = {}
+    for where, device in (("card", dev), ("cpu", torch.device("cpu"))):
+        st = cyclegan_init_state(SEED + 3, 16, 1, device=device)
+        a, b = (t.to(device) for t in host)
+        dhook = make_extra_g_loss(vgg16_from_torchvision_sd(sd, device=device))
+        out[where] = {k: float(v) for k, v in cyclegan_train_step(
+            st, a, b, compute_dtype=torch.float32,
+            extra_g_loss=dhook)[1].items()}
+    rel = {k: abs(out["card"][k] - out["cpu"][k]) / abs(out["cpu"][k])
+           for k in out["cpu"]}
+    log(f"[perceptual] fp32 hooked step c16 128^2 batch 2, card vs CPU: "
+        f"max relative difference {max(rel.values()):.2e}")
+    if max(rel.values()) > TRAIN_FP32_RTOL:
+        raise AssertionError(f"fp32 hooked step: card and CPU disagree {rel}")
+    imgs = [torch.tanh(torch.from_numpy(rng.standard_normal(
+        (2, 128, 128, 3)).astype(np.float32))) for _ in range(3)]
+    got = float(perceptual_gram_loss(vgg, *(t.to(dev) for t in imgs)))
+    ref = float(perceptual_gram_loss(
+        vgg16_from_torchvision_sd(sd, device="cpu"), *imgs))
+    log(f"[perceptual] perceptual_gram_loss fp32 card vs CPU: {got:.8f} vs "
+        f"{ref:.8f}, relative {abs(got - ref) / abs(ref):.2e}")
+    if abs(got - ref) > PERCEPTUAL_RTOL * abs(ref):
+        raise AssertionError("perceptual_gram_loss: card and CPU disagree")
+    return ms["with"], ms["without"], share
+
+
 def main() -> int:
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as work:
         return run(work)
@@ -2215,6 +2705,9 @@ def run(work) -> int:
     packed_err, packed_times = phase_packed_attention(rng, dev)
     relayout_err, relayout_ms = phase_relayout(rng, dev)
     block_err, block_times = phase_block(rng, dev)
+    photo_err = phase_photo_kernels(rng, dev)
+    attn_err = max(attn_err, photo_err["attention"])
+    block_err = max(block_err, photo_err["block"])
     train_err, train_times = phase_train_kernels(rng, dev)
     stages_err, stage_times = phase_stages(rng, dev)
     ablation_err = phase_ablation_inputs(dev)
@@ -2294,6 +2787,26 @@ def run(work) -> int:
                              f"expected 4 NHWC attention calls per block "
                              f"call and no other kernel")
 
+    K.reset_launch_counts()   # the GUI and tools path starts here
+    gui_walls, gui_split = phase_gui(rng, dev, counts)
+    gui = counts()            # ...and ends here
+    log(f"[GUI and tools path] launches: {gui}")
+    if gui["window_channel_attention"] == 0 or any(
+            gui[n] != EVAL_LAUNCHES_PER_FORWARD.get(n, 0)
+            * gui["fused_structural_block"] for n in gui):
+        raise AssertionError(f"GUI and tools path launches {gui}: expected "
+                             f"4 NHWC attention calls per block call and no "
+                             f"other kernel")
+
+    K.reset_launch_counts()   # the perceptual training path starts here
+    perceptual_ms = phase_perceptual(rng, dev, counts)
+    perceptual = counts()     # ...and ends here
+    log(f"[perceptual training path] launches: {perceptual}")
+    if min(perceptual[n] for n in TRAIN_LAUNCHES_PER_STEP) == 0:
+        raise AssertionError(f"perceptual training path launches "
+                             f"{perceptual}: a kernel of the path never "
+                             f"launched")
+
     K.reset_launch_counts()   # the ablation path starts here
     phase_ablation()
     ablation = counts()       # ...and ends here
@@ -2302,7 +2815,8 @@ def run(work) -> int:
         raise AssertionError(f"ablation path launches {ablation}: the stage "
                              f"kernel never launched")
     launches = {n: serving[n] + single[n] + training[n] + pretraining[n]
-                + evaluation[n] + ablation[n] for n in counted}
+                + evaluation[n] + gui[n] + perceptual[n] + ablation[n]
+                for n in counted}
 
     # inference kernels: per forward at canvas 256, batch 8, bf16 (the four
     # LocalAttention shapes, NHWC or packed; the block's one shape; the five
@@ -2462,6 +2976,16 @@ def run(work) -> int:
         f"images a direction relative {fid_err:.3e}; m_test path at "
         f"{EVAL_IMAGES} images a direction, fp32: {fid_text}; whole run "
         f"{time.perf_counter() - t_start:.1f} s")
+    p_with, p_without, vgg_share = perceptual_ms
+    log(f"[summary] {card}; GUI tab wall per image on the card (decode, "
+        f"generator, post chain, restore and save; 3 photos after a warm-up): "
+        + ", ".join(f"{tab} {ms:.2f} ms" for tab, ms in gui_walls.items())
+        + " (standard: " + ", ".join(f"{k} {v:.2f} ms"
+                                     for k, v in gui_split.items())
+        + f"); perceptual train step bf16 c16 256^2 batch {TRAIN_BATCH} with "
+        f"the VGG16 hook {p_with:.2f} ms/step, without {p_without:.2f} "
+        f"ms/step (in turns), the trunk {vgg_share:.1%} of the hooked "
+        f"step's device time")
     print(json.dumps(report))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

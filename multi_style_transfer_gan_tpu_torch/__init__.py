@@ -8,20 +8,26 @@ the same path:
                   activation with a hand-written backward), spectral norm,
                   zero-safe L2 normalize, exact-erf GELU, and convs and
                   Linears that cast their weights to the activation's type.
-- ``ops``       — image-range helpers and the hand-written CUDA kernels
+- ``ops``       — image-range helpers, the classical-CV toolbox, the GUI's
+                  blend effects and the hand-written CUDA kernels
                   (``ops.kernels``), each beside its plain PyTorch version.
 - ``models``    — the EnhancedGenerator, its StructuralTransformerBlock and
                   the EnhancedDiscriminator as ``nn.Module``s whose
                   ``state_dict()`` keys are exactly the reference
                   checkpoints' keys, initialized by the JAX package's laws.
-- ``weights``   — ``.pth`` sniffing and the converters from JAX parameters.
+- ``weights``   — ``.pth`` sniffing, conversion and inspection, and the
+                  converters from JAX parameters.
 - ``pipelines`` — checkpoint loader and the uint8->uint8 batch program with
                   its host pipeline.
 - ``serving``   — the micro-batching HTTP server.
-- ``train``     — the CycleGAN step, losses, image pool and checkpoints.
+- ``train``     — the CycleGAN step, losses, image pool and checkpoints,
+                  pretraining, and the VGG16 perceptual + Gram loss.
 - ``data``      — image listing, the training folder dataset and prefetch.
 - ``utils``     — the training metrics log.
-- ``cli``       — ``batch_process_images``, ``serve`` and ``train``.
+- ``gui``       — the desktop GUI: login, the four tabs and their model
+                  manager.
+- ``cli``       — every command-line entry point of the JAX package but
+                  the multi-device ones.
 
 Nothing here imports ``jax``. Activations are logical NCHW tensors in
 ``torch.channels_last`` memory, so the kernels read (B, H, W, C) rows

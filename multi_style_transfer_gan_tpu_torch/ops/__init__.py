@@ -3,9 +3,9 @@
 (``ops.kernels``)."""
 
 from .image import (
-    aspect_crop_bounds, from_model_range, resize, restore_aspect,
-    to_model_range,
+    aspect_crop_bounds, from_model_range, resize, resize_center_crop,
+    restore_aspect, to_model_range,
 )
 
 __all__ = ["aspect_crop_bounds", "from_model_range", "resize",
-           "restore_aspect", "to_model_range"]
+           "resize_center_crop", "restore_aspect", "to_model_range"]

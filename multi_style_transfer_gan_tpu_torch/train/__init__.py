@@ -1,6 +1,7 @@
 """Training: CycleGAN (losses, the train step, the image pool, full-state
-checkpoints) and masked-inpainting pretraining (port of the JAX package's
-``train``; the perceptual loss is not ported)."""
+checkpoints), masked-inpainting pretraining, and the VGG16 perceptual +
+Gram loss for the train step's ``extra_g_loss`` hook (``train.perceptual``)
+(port of the JAX package's ``train``)."""
 
 from .checkpoint import latest_step, restore_train_state, save_train_state
 from .cyclegan import (

@@ -1,4 +1,5 @@
-"""``.pth`` checkpoint sniffing (port of ``weights/torch_import.py``).
+"""``.pth`` checkpoint sniffing, conversion and inspection (port of
+``weights/torch_import.py``).
 
 The port's modules carry the reference's ``state_dict()`` keys and
 layouts, so a checkpoint loads as it is; only the converters from the JAX
@@ -7,6 +8,8 @@ transpose anything.
 """
 
 from __future__ import annotations
+
+import os
 
 import numpy as np
 import torch
@@ -127,3 +130,56 @@ def discriminator_state_dict_from_jax(params: dict, sn_state: dict) -> dict:
         sd[f"{name}.weight_v"] = torch.tensor(
             np.ascontiguousarray(v.transpose(2, 0, 1).reshape(-1)))
     return sd
+
+
+def vgg16_state_dict_from_jax(params: dict) -> dict:
+    """The JAX package's VGG16 trunk parameters (``conv{idx}.weight`` HWIO,
+    ``conv{idx}.bias``; ``train/perceptual.py``) -> a torchvision-format
+    ``vgg16`` state dict (``features.{idx}.weight`` OIHW), which
+    ``train.perceptual.vgg16_from_torchvision_sd`` takes."""
+    sd = {}
+    for k, v in params.items():
+        idx, name = k[len("conv"):].split(".")
+        arr = np.asarray(v)
+        if arr.ndim == 4:
+            arr = arr.transpose(3, 2, 0, 1)
+        sd[f"features.{idx}.{name}"] = torch.tensor(np.ascontiguousarray(arr))
+    return sd
+
+
+def save_pth(obj, path):
+    """``torch.save`` of ``obj`` with numpy arrays (at any depth of nested
+    dicts) turned into tensors; creates the file's directory."""
+    def conv(v):
+        if isinstance(v, dict):
+            return {k: conv(x) for k, x in v.items()}
+        if isinstance(v, np.ndarray):
+            return torch.tensor(np.ascontiguousarray(v))   # a writable copy
+        return v
+
+    os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+    torch.save(conv(obj), path)
+
+
+def convert_model(input_path, output_path) -> bool:
+    """CLI parity with the reference's convert_model.py: any checkpoint
+    flavor -> a flat state-dict ``.pth``. Prints what it did; a failure is
+    printed and returned as False, as the reference's tolerant CLI does."""
+    try:
+        sd = extract_state_dict(load_pth(input_path))
+        save_pth(sd, output_path)
+        print(f"model converted and saved to {output_path}")
+        return True
+    except Exception as e:  # mirror the reference's tolerant CLI behavior
+        print(f"conversion failed: {e}")
+        return False
+
+
+def pth_info(path) -> list[str]:
+    """Print ``name: shape`` for every tensor of the checkpoint's state dict
+    (the reference's pth_info.py); returns the lines."""
+    sd = extract_state_dict(load_pth(path))
+    lines = [f"{k}: {tuple(v.shape)}" for k, v in sd.items()]
+    for line in lines:
+        print(line)
+    return lines
