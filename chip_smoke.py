@@ -11,7 +11,8 @@ training at the reference configuration, the plain generator and
 masked-inpainting pretraining at the reference's width, the evaluation
 path (metrics, folder comparisons, FID on a full-width InceptionV3), the
 GUI's tab workers and the checkpoint tools, the VGG16 perceptual + Gram
-loss in the train step, and checks every hand-written kernel on the way:
+loss in the train step, the c8 and c32 EnhancedGenerators on the serving
+kernels' other widths, and checks every hand-written kernel on the way:
 
 1. build: all six CUDA sources compile from ``csrc/`` at once, one nvcc
    each;
@@ -98,13 +99,27 @@ loss in the train step, and checks every hand-written kernel on the way:
 15. ablation path: the stage-ablation tool
     (``python -m multi_style_transfer_gan_tpu_torch.tools.attention_ablation``)
     at the TPU script's default shape (96 x 512^2, C = 16) and at the
-    canvas-256 batch-64 shapes of C = 32 and 64, its tables printed.
+    canvas-256 batch-64 shapes of C = 32 and 64, its tables printed;
+16. widths (``phase_width_kernels``, after step 4, and the width serving
+    path after the serving path): the attention (NHWC and packed), the
+    relayout and the block at the shapes of a canvas-256 forward of seeded
+    c8 and c32 generators (attention at C = 8 and 128, blocks of 32 and 128
+    channels with 1 and 4 heads), kernel vs plain on the stress inputs in
+    fp32 and bf16 with event and device time and the bound; then each
+    generator written to a ``.pth`` and served through ``load_generator``:
+    the fp32 program at 'highest' card vs CPU on both engines with 4 + 1
+    launches a forward (and 5 relayouts packed), packed vs NHWC, the bf16
+    program's img/s at canvas 256, batch 16 and 64, and ``batch_process``
+    on a small folder at c32; a c4 and a c64 checkpoint raise at
+    ``load_generator`` on the card, and the train CLI at ``--channels 32``
+    raises before its first step.
 
 Every phase raises on failure. The last line is the result JSON; the line
-before it lists each kernel with its launches on the eight paths (launch
+before it lists each kernel with its launches on the nine paths (launch
 counts are reset just before each path and read just after), its largest
 fp32 deviation from the plain version, its time beside the plain
-version's, its bound (the larger of its bytes over the card's memory rate
+version's (the serving rows also per generator width, ``widths``), its
+bound (the larger of its bytes over the card's memory rate
 and its bf16 matrix-product flops over the tensor-core peak) and, where
 one PyTorch call computes the same function, that call's time
 (``library_ms``, else null; for the channel-attention rows also
@@ -237,6 +252,16 @@ EVAL_LAUNCHES_PER_FORWARD = {"window_channel_attention": 4,
                              "fused_structural_block": 1}
 # the perceptual loss alone, fp32 card vs CPU (TF32 off): relative
 PERCEPTUAL_RTOL = 1e-4
+# generator widths the serving kernels are built for; the c8 and c32 ones
+# (random weights at the JAX init law, seeded) drive the width path:
+# LocalAttention at C = 8 and 128 and the block at 32 and 128 channels (1
+# and 4 heads) beside c16's widths. Its fp32 card-vs-CPU program runs on
+# WIDTH_CPU_BATCH images, its folder through batch_process holds
+# WIDTH_FOLDER_IMAGES.
+GENERATOR_CHANNELS = (8, 16, 32)
+WIDTH_CHANNELS = (8, 32)
+WIDTH_CPU_BATCH = 4
+WIDTH_FOLDER_IMAGES = 6
 
 
 def log(*a):
@@ -430,12 +455,14 @@ def phase_build():
         f"wall, {len(_build.SIGNATURES)} entry points loaded")
 
 
-def attention_shapes(canvas):
-    """(name, shape) of the four LocalAttention calls of one c16 forward."""
-    return [("down1", (BATCH, canvas // 2, canvas // 2, 32)),
-            ("down2", (BATCH, canvas // 4, canvas // 4, 64)),
-            ("up1", (BATCH, canvas // 2, canvas // 2, 32)),
-            ("up2", (BATCH, canvas, canvas, 16))]
+def attention_shapes(canvas, channels=16):
+    """(name, shape) of the four LocalAttention calls of one forward of the
+    generator of width ``channels`` (c16 by default)."""
+    c = channels
+    return [("down1", (BATCH, canvas // 2, canvas // 2, 2 * c)),
+            ("down2", (BATCH, canvas // 4, canvas // 4, 4 * c)),
+            ("up1", (BATCH, canvas // 2, canvas // 2, 2 * c)),
+            ("up2", (BATCH, canvas, canvas, c))]
 
 
 def attention_stress_inputs(rng, shape, packed=False):
@@ -628,23 +655,24 @@ def phase_packed_attention(rng, dev):
     return worst, times
 
 
-def relayout_cases(canvas):
+def relayout_cases(canvas, channels=16):
     """(name, NHWC shape, direction) of the five relayouts of one packed
     forward at BATCH: the input and output (C = 3) and the bottleneck
-    tokens, struct and block output (C = 64)."""
+    tokens, struct and block output (C = 4 ``channels``, 64 at c16)."""
     full, bottleneck = (BATCH, canvas, canvas, 3), (BATCH, canvas // 4,
-                                                    canvas // 4, 64)
+                                                    canvas // 4, 4 * channels)
     return [("s2d input", full, "s2d"), ("d2s tokens", bottleneck, "d2s"),
             ("d2s struct", bottleneck, "d2s"), ("s2d block", bottleneck, "s2d"),
             ("d2s output", full, "d2s")]
 
 
-def phase_relayout(rng, dev):
+def phase_relayout(rng, dev, cases=None, tag="[relayout]"):
     """The relayout kernel vs the plain reshape + permute, both directions,
     bit-exact; returns the largest |d| (0) and the ms of the five relayouts
-    of one forward at the first canvas, bf16: kernel, plain and library
-    (``.contiguous()`` of the permuted window view) in CUDA-event time taken
-    in turns, then kernel and library in profiler device time in turns."""
+    of one forward (``cases``; by default c16's at the first canvas), bf16:
+    kernel, plain and library (``.contiguous()`` of the permuted window
+    view) in CUDA-event time taken in turns, then kernel and library in
+    profiler device time in turns."""
     import torch
 
     from multi_style_transfer_gan_tpu_torch.ops.kernels import (
@@ -653,7 +681,7 @@ def phase_relayout(rng, dev):
 
     worst = 0.0
     case_ms = {}
-    cases = relayout_cases(CANVASES[0])
+    cases = cases or relayout_cases(CANVASES[0])
     for shape in sorted({s for _, s, _ in cases}):
         B, H, W, C = shape
         host = rng.standard_normal(shape).astype(np.float32)
@@ -679,7 +707,7 @@ def phase_relayout(rng, dev):
                     case_ms[(shape, direction)] = ms
                 else:
                     ms = time_pair(kernel, lambda: plain(src))
-                log(f"[relayout] {direction} {shape} {str(dtype)[6:]}: "
+                log(f"{tag} {direction} {shape} {str(dtype)[6:]}: "
                     f"{'bit-exact' if exact else f'DIFFERS max|d| {err:.3e}'}, "
                     + ", ".join(f"{n} {t:.4f} ms" for n, t in zip(
                         ("kernel", "plain", "library", "kernel device",
@@ -2673,6 +2701,293 @@ def phase_perceptual(rng, dev, counts):
     return ms["with"], ms["without"], share
 
 
+# ---------------------------------------------------------------------------
+# the c8 and c32 generators' widths
+# ---------------------------------------------------------------------------
+
+def width_checkpoint(path, channels):
+    """A seeded EnhancedGenerator of width ``channels`` with one transformer
+    block, drawn by the port's module at ``enhanced_generator_init``'s law,
+    written as a G_AB ``.pth``; returns its parameter count."""
+    import torch
+
+    from multi_style_transfer_gan_tpu_torch.models import EnhancedGenerator
+
+    module = EnhancedGenerator(
+        channels, 1, generator=torch.Generator().manual_seed(SEED + channels))
+    torch.save({"G_AB_state_dict": module.state_dict()}, path)
+    return sum(p.numel() for p in module.parameters())
+
+
+def phase_width_kernels(rng, dev):
+    """Rows 1-7 (the attention, NHWC and packed), 9 (the relayout) and 4 (the
+    block) at the shapes of one canvas-256 forward of each of the c8 and c32
+    generators: the attention and the block kernel vs plain, fp32 (TF32 off)
+    and bf16, on the stress inputs of ``attention_stress_inputs`` and
+    ``block_stress_inputs`` (one all-zero window each; the block also on a
+    ragged 12 x 20 grid); on the random input, bf16 kernel and plain in
+    CUDA-event time in turns and the kernel in profiler device time; the
+    relayout as ``phase_relayout`` does at the width's bottleneck. Returns
+    {channels: {kernel: record}}, a record per forward at batch BATCH: ms,
+    device_ms, plain_ms (bf16), max_abs_err (fp32), max_abs_err_bf16,
+    bound_ms, bound_by and the shapes."""
+    import torch
+
+    from multi_style_transfer_gan_tpu_torch.ops.kernels import (
+        fused_structural_block, packed_window_channel_attention,
+        packed_window_channel_attention_plain, structural_block_plain,
+        window_channel_attention, window_channel_attention_plain,
+    )
+
+    canvas = CANVASES[0]
+    out = {}
+    for channels in WIDTH_CHANNELS:
+        rec = out[channels] = {}
+        shapes = [s for _, s in attention_shapes(canvas, channels)]
+        for name, fn, plain, packed in (
+                ("window_channel_attention", window_channel_attention,
+                 window_channel_attention_plain, False),
+                ("packed_window_channel_attention",
+                 packed_window_channel_attention,
+                 packed_window_channel_attention_plain, True)):
+            times, worst = {}, {torch.float32: 0.0, torch.bfloat16: 0.0}
+            for shape in dict.fromkeys(shapes):
+                for label, x, ws in attention_stress_inputs(rng, shape,
+                                                            packed=packed):
+                    for dtype in (torch.float32, torch.bfloat16):
+                        args = [torch.from_numpy(np.asarray(a, np.float32))
+                                .to(dev, dtype) for a in [x] + ws]
+                        got = fn(*args)
+                        ref = plain(*args)
+                        torch.cuda.synchronize()
+                        err, bf16_ok = compare(got, ref, dtype)
+                        zero = got[0, 0, 0] if packed else got[0, :4, :4]
+                        ok = ((err <= FP32_TOL if dtype == torch.float32
+                               else bf16_ok)
+                              and bool(torch.isfinite(got).all())
+                              and bool(torch.isfinite(zero).all()))
+                        line = (f"[widths] c{channels} {name} {shape} {label} "
+                                f"{str(dtype)[6:]}: max|d| {err:.3e}")
+                        if label == "random" and dtype == torch.bfloat16:
+                            k_ms, p_ms = time_pair(lambda: fn(*args),
+                                                   lambda: plain(*args))
+                            d_ms = device_ms(lambda: fn(*args))
+                            times[shape] = (k_ms, p_ms, d_ms)
+                            line += (f", kernel {k_ms:.4f} ms, plain "
+                                     f"{p_ms:.4f} ms, kernel device "
+                                     f"{d_ms:.4f} ms")
+                        log(line)
+                        if not ok:
+                            raise AssertionError(
+                                f"{name} c{channels} {shape} {label} {dtype}:"
+                                f" max|d| {err:.3e} outside tolerance")
+                        worst[dtype] = max(worst[dtype], err)
+            k_ms, p_ms, d_ms = (sum(times[s][i] for s in shapes)
+                                for i in range(3))
+            b_ms, b_by = bound(*attention_work(shapes))
+            rec[name] = dict(ms=k_ms, device_ms=d_ms, plain_ms=p_ms,
+                             max_abs_err=worst[torch.float32],
+                             max_abs_err_bf16=worst[torch.bfloat16],
+                             bound_ms=b_ms, bound_by=b_by, shapes=shapes)
+
+        blk_shape = (BATCH, canvas // 4, canvas // 4, 4 * channels)
+        worst = {torch.float32: 0.0, torch.bfloat16: 0.0}
+        for grid in (blk_shape, (2, 12, 20, 4 * channels)):
+            for label, host, weights in block_stress_inputs(rng, grid):
+                for dtype in (torch.float32, torch.bfloat16):
+                    t = lambda a, dt=dtype: torch.from_numpy(
+                        np.asarray(a, np.float32)).to(dev, dt)
+                    args = (t(host[0]), t(host[1]), t(host[2], torch.float32),
+                            t(host[3], torch.float32))
+                    kw = {n: t(a) for n, a in weights.items()}
+                    got = fused_structural_block(*args, **kw)
+                    ref = structural_block_plain(*args, **kw)
+                    torch.cuda.synchronize()
+                    err, bf16_ok = compare(got, ref, dtype)
+                    ok = ((err <= BLOCK_FP32_TOL if dtype == torch.float32
+                           else bf16_ok) and bool(torch.isfinite(got).all()))
+                    line = (f"[widths] c{channels} fused_structural_block "
+                            f"{grid} {label} {str(dtype)[6:]}: max|d| "
+                            f"{err:.3e}")
+                    if (grid == blk_shape and label == "random"
+                            and dtype == torch.bfloat16):
+                        k_ms, p_ms = time_pair(
+                            lambda: fused_structural_block(*args, **kw),
+                            lambda: structural_block_plain(*args, **kw))
+                        d_ms = device_ms(
+                            lambda: fused_structural_block(*args, **kw))
+                        line += (f", kernel {k_ms:.4f} ms, plain {p_ms:.4f} "
+                                 f"ms, kernel device {d_ms:.4f} ms")
+                        b_ms, b_by = bound(*block_work(blk_shape))
+                        rec["fused_structural_block"] = dict(
+                            ms=k_ms, device_ms=d_ms, plain_ms=p_ms,
+                            bound_ms=b_ms, bound_by=b_by, shapes=[blk_shape])
+                    log(line)
+                    if not ok:
+                        raise AssertionError(
+                            f"fused_structural_block c{channels} {grid} "
+                            f"{label} {dtype}: max|d| {err:.3e} outside "
+                            f"tolerance")
+                    worst[dtype] = max(worst[dtype], err)
+        rec["fused_structural_block"].update(
+            max_abs_err=worst[torch.float32],
+            max_abs_err_bf16=worst[torch.bfloat16])
+
+        cases = relayout_cases(canvas, channels)
+        err, ms = phase_relayout(rng, dev, cases, tag=f"[widths] c{channels} "
+                                                      f"relayout")
+        moved = sum(2 * BF16_BYTES * int(np.prod(shape))
+                    for _, shape, _ in cases)
+        b_ms, b_by = bound(moved, 0)
+        rec["window_relayout"] = dict(
+            ms=ms[0], plain_ms=ms[1], library_ms=ms[2], device_ms=ms[3],
+            library_device_ms=ms[4], max_abs_err=err, bound_ms=b_ms,
+            bound_by=b_by, shapes=[shape for _, shape, _ in cases])
+    return out
+
+
+def phase_width_serving(rng, dev, counts, work):
+    """The c8 and c32 generators through the entry points: each written to
+    a ``.pth`` (``width_checkpoint``) and loaded by ``load_generator`` on
+    the card and on the CPU at precision 'highest'; the fp32 uint8 program
+    card vs CPU on both engines (``WIDTH_CPU_BATCH`` images at canvas 256;
+    launches per forward: 4 attention calls and 1 block, and 5 relayouts
+    on the packed engine), packed vs NHWC on the card; the bf16 program's
+    img/s of both engines at canvas 256, batch ``RATE_BATCHES``, in turns;
+    ``batch_process`` at c32 on a folder of ``WIDTH_FOLDER_IMAGES`` JPEGs
+    of mixed sizes. Then the widths the kernels are not built for: a c4
+    and a c64 checkpoint raise at ``load_generator`` on the card, and the
+    train CLI at ``--channels 32`` raises before its first step. Returns
+    {channels: {"parameters", "rates", "launches"}}, launches the counts
+    this generator's part of the path made."""
+    import contextlib
+
+    import torch
+    from PIL import Image
+
+    from multi_style_transfer_gan_tpu_torch.cli import train as train_cli
+    from multi_style_transfer_gan_tpu_torch.pipelines import (
+        batch_process, load_generator, make_batch_fn,
+    )
+
+    names = ("window_channel_attention", "fused_structural_block",
+             "packed_window_channel_attention", "window_relayout")
+    canvas = CANVASES[0]
+    out = {}
+    for channels in WIDTH_CHANNELS:
+        start = counts()
+        path = os.path.join(work, f"enhanced_c{channels}.pth")
+        n_params = width_checkpoint(path, channels)
+        gpu = load_generator(path, precision="highest", device=dev)
+        cpu = load_generator(path, precision="highest", device="cpu")
+        log(f"[width serving] c{channels}: {gpu.kind} c{gpu.channels}, "
+            f"{n_params} parameters, {path}")
+        batch = np.stack(smooth_images(rng, WIDTH_CPU_BATCH, (canvas, canvas)))
+        outs = {}
+        for engine in ENGINES:
+            before = counts()
+            got = outs[engine] = make_batch_fn(
+                gpu, "cyclegan", engine=engine, device=dev)(batch).cpu().numpy()
+            launched = [counts()[n] - before[n] for n in names]
+            ref = make_batch_fn(cpu, "cyclegan", engine=engine,
+                                device="cpu")(batch).numpy()
+            dmax, share = u8_diff(got, ref)
+            log(f"[width serving] c{channels} {engine} fp32 card vs CPU, "
+                f"{batch.shape} uint8: max diff {dmax}, differing share "
+                f"{share:.3e}; launches per forward (NHWC attention, block, "
+                f"packed attention, relayout): {launched}")
+            if launched != FORWARD_LAUNCHES[engine]:
+                raise AssertionError(f"c{channels} {engine}: expected "
+                                     f"launches {FORWARD_LAUNCHES[engine]}, "
+                                     f"got {launched}")
+            if (got.shape != batch.shape or dmax > U8_MAX_DIFF
+                    or share > U8_MAX_SHARE):
+                raise AssertionError(f"c{channels} {engine} fp32 program on "
+                                     f"the card disagrees with the CPU")
+        dmax, share = u8_diff(outs["packed"], outs["nhwc"])
+        log(f"[width serving] c{channels} fp32 packed vs NHWC engine on the "
+            f"card: max diff {dmax}, differing share {share:.3e}")
+        if dmax > U8_MAX_DIFF or share > U8_MAX_SHARE:
+            raise AssertionError(f"c{channels}: packed and NHWC engines "
+                                 f"disagree on the card")
+
+        bf16 = {e: make_batch_fn(gpu, "cyclegan", engine=e,
+                                 compute_dtype=torch.bfloat16, device=dev)
+                for e in ENGINES}
+        rates = {}
+        for n in RATE_BATCHES:
+            x = torch.from_numpy(np.stack(smooth_images(
+                rng, n, (canvas, canvas)))).to(dev)
+            turns = {e: [] for e in ENGINES}
+            for e in ENGINES + ENGINES[::-1]:
+                turns[e].append(program_rate(bf16[e], x))
+            for e in ENGINES:
+                rates[(n, e)] = sum(turns[e]) / len(turns[e])
+            log(f"[width serving] c{channels} bf16 program, batch {n} at "
+                f"canvas {canvas} (device-resident uint8 in and out): NHWC "
+                f"{rates[(n, 'nhwc')]:.1f} img/s, packed "
+                f"{rates[(n, 'packed')]:.1f} img/s; turns {turns['nhwc']}, "
+                f"{turns['packed']}")
+
+        if channels == max(WIDTH_CHANNELS):
+            src = os.path.join(work, f"widths_in_c{channels}")
+            dst = os.path.join(work, f"widths_out_c{channels}")
+            os.makedirs(src)
+            sizes = {}
+            for i in range(WIDTH_FOLDER_IMAGES):
+                w, h = int(rng.integers(96, 480)), int(rng.integers(96, 480))
+                name = f"photo_{i:02d}.jpg"
+                Image.fromarray(smooth_images(rng, 1, (w, h))[0]).save(
+                    os.path.join(src, name), quality=92)
+                sizes[name] = (w, h)
+            buf = io.StringIO()
+            with contextlib.redirect_stdout(buf):
+                stats = batch_process(gpu, src, dst, batch_size=4,
+                                      compute_dtype=torch.bfloat16,
+                                      device=dev)
+            done = 0
+            for name, size in sizes.items():
+                target = os.path.join(dst, "cyclegan_photo2monet", name)
+                if os.path.exists(target):
+                    with Image.open(target) as img:
+                        done += img.size == size
+            log(f"[width serving] c{channels} batch_process: {done}/"
+                f"{len(sizes)} outputs at their original sizes; stats "
+                f"{stats}")
+            if done != len(sizes):
+                raise AssertionError(f"batch_process at c{channels} wrote "
+                                     f"{done}/{len(sizes)} correct outputs")
+        end = counts()
+        out[channels] = {"parameters": n_params, "rates": rates,
+                         "launches": {n: end[n] - start[n] for n in end}}
+
+    # no fallback: what the kernels are not built for raises up front
+    for channels in (4, 64):
+        path = os.path.join(work, f"enhanced_c{channels}.pth")
+        width_checkpoint(path, channels)
+        try:
+            load_generator(path, device=dev)
+        except ValueError as e:
+            log(f"[width serving] c{channels} on the card: {e}")
+        else:
+            raise AssertionError(f"a c{channels} checkpoint loaded on the "
+                                 f"card")
+    data = os.path.join(work, "widths_train_data")
+    os.makedirs(os.path.join(data, "trainA"))
+    os.makedirs(os.path.join(data, "trainB"))
+    before = counts()
+    try:
+        train_cli.main(["--data_root", data, "--channels", "32",
+                        "--save_dir", os.path.join(work, "widths_models")])
+    except ValueError as e:
+        log(f"[width serving] train --channels 32 on the card: {e}")
+    else:
+        raise AssertionError("train --channels 32 did not raise")
+    if counts() != before:
+        raise AssertionError("train --channels 32 launched a kernel")
+    return out
+
+
 def main() -> int:
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as work:
         return run(work)
@@ -2708,6 +3023,10 @@ def run(work) -> int:
     photo_err = phase_photo_kernels(rng, dev)
     attn_err = max(attn_err, photo_err["attention"])
     block_err = max(block_err, photo_err["block"])
+    # the width phases draw from their own generator, so that every other
+    # phase keeps the inputs it had before them
+    width_rng = np.random.default_rng(SEED)
+    width_kernels = phase_width_kernels(width_rng, dev)
     train_err, train_times = phase_train_kernels(rng, dev)
     stages_err, stage_times = phase_stages(rng, dev)
     ablation_err = phase_ablation_inputs(dev)
@@ -2744,6 +3063,18 @@ def run(work) -> int:
         raise AssertionError(f"serving path launches {serving}: expected "
                              f"every kernel, 4 attention calls (NHWC + "
                              f"packed) per block call")
+
+    K.reset_launch_counts()   # the c8 and c32 serving path starts here
+    width_serving = phase_width_serving(width_rng, dev, counts, work)
+    widths = counts()         # ...and ends here
+    log(f"[width serving path] launches: {widths}")
+    attention_calls = (widths["window_channel_attention"]
+                       + widths["packed_window_channel_attention"])
+    if (min(widths[n] for n in serving_kernels) == 0
+            or attention_calls != 4 * widths["fused_structural_block"]):
+        raise AssertionError(f"width serving path launches {widths}: "
+                             f"expected every serving kernel, 4 attention "
+                             f"calls per block call")
 
     K.reset_launch_counts()   # the single-image path starts here
     phase_single_image(rng, dev)
@@ -2814,9 +3145,9 @@ def run(work) -> int:
     if ablation["window_channel_attention_stage"] == 0:
         raise AssertionError(f"ablation path launches {ablation}: the stage "
                              f"kernel never launched")
-    launches = {n: serving[n] + single[n] + training[n] + pretraining[n]
-                + evaluation[n] + gui[n] + perceptual[n] + ablation[n]
-                for n in counted}
+    launches = {n: serving[n] + widths[n] + single[n] + training[n]
+                + pretraining[n] + evaluation[n] + gui[n] + perceptual[n]
+                + ablation[n] for n in counted}
 
     # inference kernels: per forward at canvas 256, batch 8, bf16 (the four
     # LocalAttention shapes, NHWC or packed; the block's one shape; the five
@@ -2925,9 +3256,27 @@ def run(work) -> int:
          "max_abs_err": stages_err, "ms": st_ms, "plain_ms": st_plain,
          "max_abs_err_ablation_bf16": ablation_err},
     ]}
+    # per generator width: the serving kernels at c16 (this entry's own
+    # numbers, launches of every path but the width path) and at c8 and c32
+    # (phase_width_kernels at their canvas-256 forward, launches of the
+    # width path)
+    width_keys = ("ms", "device_ms", "plain_ms", "library_ms", "bound_ms",
+                  "bound_by", "max_abs_err")
     for entry in report["kernels"]:
         (b_ms, b_by), library, sdpa_mid = yardsticks[entry["name"]]
         entry.update(bound_ms=b_ms, bound_by=b_by, library_ms=library)
+        if entry["name"] in width_kernels[WIDTH_CHANNELS[0]]:
+            name = entry["name"]
+            entry["widths"] = {"c16": {
+                **{k: entry.get(k) for k in width_keys},
+                "launches": entry["launches"] - widths[name]}}
+            for c in WIDTH_CHANNELS:
+                rec = width_kernels[c][name]
+                entry["widths"][f"c{c}"] = {
+                    **{k: rec.get(k) for k in width_keys},
+                    "max_abs_err_bf16": rec.get("max_abs_err_bf16"),
+                    "launches": width_serving[c]["launches"][name],
+                    "shapes": rec["shapes"]}
         if sdpa_mid is not None:
             entry["sdpa_mid_ms"] = sdpa_mid
         dev_ms = entry.get("device_ms")
@@ -2976,6 +3325,18 @@ def run(work) -> int:
         f"images a direction relative {fid_err:.3e}; m_test path at "
         f"{EVAL_IMAGES} images a direction, fp32: {fid_text}; whole run "
         f"{time.perf_counter() - t_start:.1f} s")
+    for c in WIDTH_CHANNELS:
+        log(f"[summary] {card}; c{c} generator "
+            f"({width_serving[c]['parameters']} parameters) bf16 program "
+            f"img/s at canvas 256: "
+            + ", ".join(f"batch {n} {e} {r:.1f}"
+                        for (n, e), r in width_serving[c]["rates"].items())
+            + "; kernels per forward at canvas 256, batch "
+            f"{BATCH}, bf16: "
+            + "; ".join(f"{n} {r['ms']:.4f} ms ({r['device_ms']:.4f} ms "
+                        f"device, plain {r['plain_ms']:.4f} ms, bound "
+                        f"{r['bound_ms']:.6f} ms by {r['bound_by']})"
+                        for n, r in width_kernels[c].items()))
     p_with, p_without, vgg_share = perceptual_ms
     log(f"[summary] {card}; GUI tab wall per image on the card (decode, "
         f"generator, post chain, restore and save; 3 photos after a warm-up): "

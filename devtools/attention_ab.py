@@ -150,12 +150,13 @@ def main(argv=None) -> int:
     from multi_style_transfer_gan_tpu_torch.ops.kernels.window_attention import (
         attention_launch_shape,
     )
-    for C in (16, 32, 64):
+    for C in K.window_attention.KERNEL_WIDTHS:
         print(f"[smem new] attention C={C}: bf16 "
               f"{attention_launch_shape(1, C, True)[1]} B a block, fp32 "
               f"{attention_launch_shape(1, C, False)[1]} B")
-    print(f"[smem new] block bf16: {block_launch_shape(1, 8, 8)[1]} B a block",
-          flush=True)
+    for C in K.fused_transformer.KERNEL_WIDTHS:
+        print(f"[smem new] block bf16 C={C}: "
+              f"{block_launch_shape(1, 8, 8, C)[1]} B a block", flush=True)
 
     def run(tag, wrapper, *args, **kw):
         """A no-argument call of ``wrapper`` through build ``tag``."""

@@ -13,9 +13,11 @@ to bf16, either as one term or as a hi + lo pair (hi = bf16(x), lo =
 bf16(x - hi); products hi hi + hi lo + lo hi), and holds the result
 against the plain versions at ``chip_smoke.py``'s bound (``BF16_ATOL``,
 ``BF16_RTOL``) on ``chip_smoke.attention_stress_inputs`` and
-``chip_smoke.block_stress_inputs`` at the serving shapes. For each rounding
-plan it prints the largest |d| and its ratio to the bound ("x1.000" is at
-the bound); ``kernel`` is the plan the kernels use. Takes about a minute.
+``chip_smoke.block_stress_inputs`` at the serving shapes of the c8, c16
+and c32 generators at canvas 256. For each rounding plan it prints the
+largest |d| and its ratio to the bound ("x1.000" is at the bound);
+``kernel`` is the plan the kernels use at that width
+(``attention_kernel_plan``, ``block_kernel_plan``). Takes about a minute.
 """
 
 from __future__ import annotations
@@ -35,10 +37,29 @@ from multi_style_transfer_gan_tpu_torch.ops.kernels.window_attention import (
     window_rows_attention_plain,
 )
 
-# operand -> split into hi + lo (True) or one bf16 term (False)
+
+def attention_kernel_plan(C: int) -> dict:
+    """The attention kernel's plan at width C: qn and kn as pairs; at C >=
+    64 also the softmax S (the apply's B operand) and the apply's output
+    (the proj's A operand)."""
+    return dict(qk=True, v=False, S=C >= 64, out=C >= 64)
+
+
+def block_kernel_plan(C: int) -> dict:
+    """The block kernel's plan at width C: LN1's output for q and k, and q
+    and k, as pairs; at C = 128 also LN1's output for v, LN2's output and
+    the GELU output."""
+    wide = C > 64
+    return dict(h_qk=True, h_v=wide, qk=True, p=False, o=False, h2=wide,
+                a=wide)
+
+
+# operand -> split into hi + lo (True) or one bf16 term (False); None: the
+# kernel's own plan at the shape's width
 ATTENTION_PLANS = {
     "all one term": dict(qk=False, v=False, S=False, out=False),
-    "kernel": dict(qk=True, v=False, S=False, out=False),
+    "qn, kn pairs only": attention_kernel_plan(16),
+    "kernel": None,
 }
 BLOCK_PLANS = {
     "all one term": dict(h_qk=False, h_v=False, qk=False, p=False, o=False,
@@ -47,8 +68,8 @@ BLOCK_PLANS = {
                     h2=False, a=False),
     "q, k split": dict(h_qk=False, h_v=False, qk=True, p=False, o=False,
                        h2=False, a=False),
-    "kernel": dict(h_qk=True, h_v=False, qk=True, p=False, o=False, h2=False,
-                   a=False),
+    "h, q, k pairs only": block_kernel_plan(64),
+    "kernel": None,
 }
 
 
@@ -123,7 +144,8 @@ def block_chain(x, struct, gamma, beta, plan, *, norm1_w, norm1_b, qkv_w,
 def attention_ratios(shapes=None):
     """{(shape, label, plan): (max |d|, ratio to the bound)} of the
     attention chain on the packed-row stress inputs (the op is per window,
-    so the packed rows stand for both layouts)."""
+    so the packed rows stand for both layouts); by default at the c16
+    generator's canvas-256 shapes."""
     rng = np.random.default_rng(smoke.SEED)
     out = {}
     shapes = shapes or list(dict.fromkeys(
@@ -136,6 +158,7 @@ def attention_ratios(shapes=None):
             ws = [torch.from_numpy(w.astype(np.float32)).to(BF16) for w in ws]
             ref = window_rows_attention_plain(t, *ws).to(BF16)
             for name, plan in ATTENTION_PLANS.items():
+                plan = plan or attention_kernel_plan(C)
                 out[(shape, label, name)] = ratio(
                     attention_chain(t, *ws, plan), ref)
     return out
@@ -154,6 +177,7 @@ def block_ratios(shapes=((smoke.BATCH, 64, 64, 64), (2, 12, 20, 64))):
             kw = {n: t(a) for n, a in weights.items()}
             ref = structural_block_plain(*args, **kw)
             for name, plan in BLOCK_PLANS.items():
+                plan = plan or block_kernel_plan(shape[-1])
                 out[(shape, label, name)] = ratio(
                     block_chain(*args, plan, **kw), ref)
     return out
@@ -161,8 +185,15 @@ def block_ratios(shapes=((smoke.BATCH, 64, 64, 64), (2, 12, 20, 64))):
 
 def main() -> int:
     torch.set_num_threads(4)
-    for kernel, ratios in (("attention", attention_ratios()),
-                           ("block", block_ratios())):
+    canvas = smoke.CANVASES[0]
+    attention = list(dict.fromkeys(
+        s for c in smoke.GENERATOR_CHANNELS
+        for _, s in smoke.attention_shapes(canvas, c)))
+    block = [s for c in smoke.GENERATOR_CHANNELS
+             for s in ((smoke.BATCH, canvas // 4, canvas // 4, 4 * c),
+                       (2, 12, 20, 4 * c))]
+    for kernel, ratios in (("attention", attention_ratios(attention)),
+                           ("block", block_ratios(block))):
         for (shape, label, plan), (d, r) in ratios.items():
             print(f"{kernel} {shape} {label}, {plan}: max|d| {d:.3e} "
                   f"(x{r:.3f} of the bound)", flush=True)

@@ -94,13 +94,16 @@ def main(argv=None):
     from ..data import ImageFolderDataset, prefetch_to_device
     from ..ops import to_model_range
     from ..train import (
-        cyclegan_init_state, cyclegan_train_step, latest_step, pool_init,
-        restore_train_state, save_models, save_train_state,
+        check_kernel_width, cyclegan_init_state, cyclegan_train_step,
+        latest_step, pool_init, restore_train_state, save_models,
+        save_train_state,
     )
     from ..utils import MetricsLogger
     from ..weights import extract_state_dict, load_pth
 
     device = torch.device(DEVICE)
+    if device.type == "cuda":   # before any data is read
+        check_kernel_width(args.channels, "CycleGAN training")
     pre = None
     if args.pretrained:
         print(f"warm-starting generators from {args.pretrained}")

@@ -20,12 +20,12 @@
 //
 // The kernel body (the op, what bounds it, the design) is in
 // window_channel_attention.cuh; this source instantiates its kFull stage
-// only.
+// only, at every width a generator of the repo gives it (C = 8 .. 128).
 #include "window_channel_attention.cuh"
 
 // Plain C entry points (loaded with ctypes). Weights: wqkv (3C, C), bqkv
 // (3C), wproj (C, C), bproj (C), in the input's type: dtype 0 = fp32,
-// 1 = bf16; C in {16, 32, 64}. Each launches on `stream` and returns
+// 1 = bf16; C in {8, 16, 32, 64, 128}. Each launches on `stream` and returns
 // cudaGetLastError() (0 on success).
 //
 // x and y (B, H, W, C) contiguous, H % 4 == W % 4 == 0.
@@ -35,7 +35,7 @@ extern "C" int window_channel_attention_launch(const void* x, const void* wqkv,
                                                int W, int C, int dtype, float eps,
                                                int device, void* stream) {
   const long long n_windows = (long long)B * (H / mstgan::kWs) * (W / mstgan::kWs);
-  return mstgan::launch_dtype<false, mstgan::kFull>(x, wqkv, bqkv, wproj, bproj, y, H, W,
+  return mstgan::launch_dtype<false, mstgan::kFull, true>(x, wqkv, bqkv, wproj, bproj, y, H, W,
                                                     n_windows, C, dtype, eps, device, stream);
 }
 
@@ -46,7 +46,7 @@ extern "C" int packed_window_channel_attention_launch(const void* x, const void*
                                                       int Hp, int Wp, int C, int dtype,
                                                       float eps, int device, void* stream) {
   const long long n_windows = (long long)B * Hp * Wp;
-  return mstgan::launch_dtype<true, mstgan::kFull>(x, wqkv, bqkv, wproj, bproj, y,
+  return mstgan::launch_dtype<true, mstgan::kFull, true>(x, wqkv, bqkv, wproj, bproj, y,
                                                    Hp * mstgan::kWs, Wp * mstgan::kWs, n_windows,
                                                    C, dtype, eps, device, stream);
 }

@@ -13,10 +13,12 @@
 // Weights come in the PyTorch (out, in) layout of the 1x1 convs.
 //
 // What bounds it. Per pixel the op does 12*C^2 flops and moves 4*C bytes
-// in bf16 (read x once, write y once): about 3*C flop per byte, 48-192 at
-// C = 16..64. Against the tensor-core ridge (~295 flop/B in bf16) that is
-// bytes-bound at every C, which is why the whole chain stays in one pass
-// and no intermediate touches device memory.
+// in bf16 (read x once, write y once): about 3*C flop per byte, 24-192 at
+// C = 8..64. Against the tensor-core ridge (~295 flop/B in bf16) that is
+// bytes-bound at those widths, which is why the whole chain stays in one
+// pass and no intermediate touches device memory. At C = 128 (the c32
+// generator's down2) it is 384 flop/B, past the ridge: operations bound it
+// there, and the hi + lo pairs below add to them.
 //
 // bf16 design (window_channel_attention_mma_kernel). Persistent blocks of 8
 // warps: the grid is one block per 8 windows until the card is full
@@ -42,18 +44,29 @@
 // Operands rounded to bf16 inside the kernel: qn and kn as hi + lo pairs
 // (with one term each a flat window whose q and k sit on a few channels
 // misses the bf16 bound by 1.05-1.35x, with the pairs it stays at 0.41-0.66
-// of it; devtools/serving_kernel_rounding.py); v, A and out as one term.
+// of it; devtools/serving_kernel_rounding.py); v, A and out as one term,
+// except at C >= 64, where A and out are pairs too (one such window at
+// C = 64 on a 128^2 grid reaches 1.13 of the bound with one term each, the
+// 128-key softmax at C = 128 0.97; with the pairs both stay at 0.68).
+//
+// Widths. C = 16, 32, 64 (the c16 generator) and 8, 128 (c8 and c32).
+// C = 8 runs padded to 16 channels inside: zeros in the pad columns of x,
+// the weights and the biases, and -inf on the pad keys of the Gram, so the
+// pads never reach y (MmaLayout). C = 128 keeps the design with 3 warps a
+// block, as the 139 KB of resident weights leave room for no more.
 //
 // fp32 stays exact fp32 (window_channel_attention_f32_kernel): FMAs on the
 // CUDA cores, no tensor cores, no TF32. One block of 256 threads walks
-// tiles of NW = 64 / C windows over the same persistent grid; Wqkv^T,
-// Wproj^T and the biases are staged once per block in fp32, with row
-// strides of 3C + 1 and C + 1 floats so that the transposing stores, like
-// the column walks of qkv and the Gram (strides 3C + 1, C + 1), fall in
-// distinct banks. Every intermediate lives in shared memory; each thread
-// owns one output channel at 4 positions in the qkv, apply and proj
-// products. Windows past the end of the last tile compute on zeros and are
-// not stored.
+// tiles of NW = 64 / C windows (one at C = 128) over the same persistent
+// grid; Wqkv^T, Wproj^T and the biases are staged once per block in fp32,
+// with row strides of 3C + 1 and C + 1 floats so that the transposing
+// stores, like the column walks of qkv and the Gram (strides 3C + 1,
+// C + 1), fall in distinct banks. At C = 128 the weights (~263 KB) stay in
+// device memory and are read through L2 and the read-only cache, 16 bytes a
+// load. Every intermediate lives in shared memory; each thread owns one
+// output channel at PJ positions (4; 8 at C = 128) in the qkv, apply and
+// proj products. Windows past the end of the last tile compute on zeros and
+// are not stored.
 //
 // Stages. kStage < kFull ends each window early and stores a result folded
 // from everything that stage computed (so no work is dead code), rounded
@@ -121,14 +134,20 @@ __device__ __forceinline__ long long pixel_offset(long long win, int p, int H, i
 
 template <int C>
 struct Layout {
-  static constexpr int NW = 64 / C;      // windows per tile
+  // weights staged in shared memory up to C = 64; at C = 128 the transposed
+  // fp32 weights alone (~263 KB) outgrow it, and the products read them
+  // through L2 and the read-only cache, 16 bytes a load
+  static constexpr bool RESIDENT = C <= 64;
+  static constexpr int NW = C <= 64 ? 64 / C : 1;   // windows per tile
   static constexpr int ROWS = NW * kP;   // positions per tile
+  static constexpr int RG = kThreads / C;           // thread rows of the products
+  static constexpr int PJ = ROWS / RG;              // positions per thread
   static constexpr int QS = 3 * C + 1;   // padded qkv row stride; also Wqkv^T's
   static constexpr int GS = C + 1;       // padded Gram row stride; also Wproj^T's
   static constexpr int W_QKV = 0;                  // [C][QS], (in, out)
-  static constexpr int B_QKV = W_QKV + C * QS;     // [3C]
+  static constexpr int B_QKV = W_QKV + (RESIDENT ? C * QS : 0);   // [3C]
   static constexpr int W_PROJ = B_QKV + 3 * C;     // [C][GS], (in, out)
-  static constexpr int B_PROJ = W_PROJ + C * GS;   // [C]
+  static constexpr int B_PROJ = W_PROJ + (RESIDENT ? C * GS : 0);  // [C]
   static constexpr int X = B_PROJ + C;             // [ROWS][C]; later the attention output
   static constexpr int QKV = X + ROWS * C;         // [ROWS][QS]
   static constexpr int DEN = QKV + ROWS * QS;      // [2][ROWS] normalize denominators
@@ -136,16 +155,16 @@ struct Layout {
   static constexpr int TOTAL = G + NW * C * GS;
 };
 
-// An early stage's store: f(r) at channel og of the thread's 4 positions
+// An early stage's store: f(r) at channel og of the thread's PJ positions
 // r = rg + RG * j of the tile, as the proj store lays them out.
 template <int C, bool kPacked, typename F>
 __device__ __forceinline__ void store_stage(float* __restrict__ y, long long win0,
                                             long long n_windows, int H, int W, int og, int rg,
                                             F f) {
-  constexpr int RG = kThreads / C;
+  using L = Layout<C>;
 #pragma unroll
-  for (int j = 0; j < 4; ++j) {
-    const int r = rg + RG * j;
+  for (int j = 0; j < L::PJ; ++j) {
+    const int r = rg + L::RG * j;
     const long long win = win0 + r / kP;
     if (win < n_windows) y[pixel_offset<kPacked>(win, r % kP, H, W) * C + og] = f(r);
   }
@@ -169,10 +188,11 @@ window_channel_attention_f32_kernel(const float* __restrict__ x, const float* __
   float* sDen = smem + L::DEN;
   float* sG = smem + L::G;
   const int tid = threadIdx.x;
-  // qkv, apply and proj: thread (og, rg) owns output channel og at 4
-  // positions, so one shared-memory load feeds 3-4 FMAs
-  constexpr int RG = kThreads / C;
-  static_assert(L::ROWS == 4 * RG && kP % 4 == 0, "4 positions per thread");
+  // qkv, apply and proj: thread (og, rg) owns output channel og at PJ
+  // positions (4, and 8 at C = 128), so one shared-memory load feeds 3-4
+  // FMAs
+  constexpr int RG = L::RG, PJ = L::PJ;
+  static_assert(L::ROWS == PJ * RG && kP % PJ == 0, "PJ positions of one window per thread");
   const int og = tid % C, rg = tid / C;
   // the qkv and norm stages' fold: q + k + v (normalized or not) at (r, og)
   [[maybe_unused]] auto qkv_sum = [&](int r) {
@@ -182,9 +202,11 @@ window_channel_attention_f32_kernel(const float* __restrict__ x, const float* __
 
   // the weights, transposed to (in, out): consecutive threads read
   // consecutive `in` and store QS (GS) floats apart, an odd stride
-  for (int e = tid; e < 3 * C * C; e += kThreads) sWq[(e % C) * L::QS + e / C] = wqkv[e];
+  if constexpr (L::RESIDENT) {
+    for (int e = tid; e < 3 * C * C; e += kThreads) sWq[(e % C) * L::QS + e / C] = wqkv[e];
+    for (int e = tid; e < C * C; e += kThreads) sWp[(e % C) * L::GS + e / C] = wproj[e];
+  }
   for (int e = tid; e < 3 * C; e += kThreads) sBq[e] = bqkv[e];
-  for (int e = tid; e < C * C; e += kThreads) sWp[(e % C) * L::GS + e / C] = wproj[e];
   for (int e = tid; e < C; e += kThreads) sBp[e] = bproj[e];
 
   const long long n_tiles = (n_windows + L::NW - 1) / L::NW;
@@ -205,23 +227,40 @@ window_channel_attention_f32_kernel(const float* __restrict__ x, const float* __
     }
 
     // qkv = x @ Wqkv^T + b; each thread sums q, k and v of channel og
-    // at 4 positions in registers
+    // at PJ positions in registers
     {
-      float acc[4][3] = {};
+      float acc[PJ][3] = {};
+      if constexpr (L::RESIDENT) {
 #pragma unroll 4
-      for (int i = 0; i < C; ++i) {
-        float a[4], w[3];
+        for (int i = 0; i < C; ++i) {
+          float a[PJ], w[3];
 #pragma unroll
-        for (int j = 0; j < 4; ++j) a[j] = sX[(rg + RG * j) * C + i];
+          for (int j = 0; j < PJ; ++j) a[j] = sX[(rg + RG * j) * C + i];
 #pragma unroll
-        for (int k = 0; k < 3; ++k) w[k] = sWq[i * L::QS + og + C * k];
+          for (int k = 0; k < 3; ++k) w[k] = sWq[i * L::QS + og + C * k];
 #pragma unroll
-        for (int j = 0; j < 4; ++j)
+          for (int j = 0; j < PJ; ++j)
 #pragma unroll
-          for (int k = 0; k < 3; ++k) acc[j][k] = fmaf(a[j], w[k], acc[j][k]);
+            for (int k = 0; k < 3; ++k) acc[j][k] = fmaf(a[j], w[k], acc[j][k]);
+        }
+      } else {   // Wqkv rows og + C k, 4 inputs a load
+#pragma unroll 1
+        for (int i = 0; i < C; i += 4) {
+          float4 w[3];
+#pragma unroll
+          for (int k = 0; k < 3; ++k) w[k] = load4(wqkv + (og + C * k) * C + i);
+#pragma unroll
+          for (int j = 0; j < PJ; ++j) {
+            const float4 a = *reinterpret_cast<const float4*>(sX + (rg + RG * j) * C + i);
+#pragma unroll
+            for (int k = 0; k < 3; ++k)
+              acc[j][k] = fmaf(a.w, w[k].w, fmaf(a.z, w[k].z, fmaf(a.y, w[k].y,
+                                                                   fmaf(a.x, w[k].x, acc[j][k]))));
+          }
+        }
       }
 #pragma unroll
-      for (int j = 0; j < 4; ++j)
+      for (int j = 0; j < PJ; ++j)
 #pragma unroll
         for (int k = 0; k < 3; ++k)
           sQKV[(rg + RG * j) * L::QS + og + C * k] = acc[j][k] + sBq[og + C * k];
@@ -299,33 +338,45 @@ window_channel_attention_f32_kernel(const float* __restrict__ x, const float* __
     }
 
     // out[r, c1] = sum_c2 A[c1, c2] v[r, c2], into sX; each thread takes
-    // channel og at 4 consecutive positions of one window
+    // channel og at PJ consecutive positions of one window
     {
-      const float* a = sG + ((rg * 4 / kP) * C + og) * L::GS;
-      float acc[4] = {};
+      const float* a = sG + ((rg * PJ / kP) * C + og) * L::GS;
+      float acc[PJ] = {};
 #pragma unroll 4
       for (int c2 = 0; c2 < C; ++c2) {
         const float g = a[c2];
 #pragma unroll
-        for (int j = 0; j < 4; ++j)
-          acc[j] = fmaf(g, sQKV[(rg * 4 + j) * L::QS + 2 * C + c2], acc[j]);
+        for (int j = 0; j < PJ; ++j)
+          acc[j] = fmaf(g, sQKV[(rg * PJ + j) * L::QS + 2 * C + c2], acc[j]);
       }
 #pragma unroll
-      for (int j = 0; j < 4; ++j) sX[(rg * 4 + j) * C + og] = acc[j];
+      for (int j = 0; j < PJ; ++j) sX[(rg * PJ + j) * C + og] = acc[j];
     }
     __syncthreads();
 
     // y = out @ Wproj^T + b, stored once
     {
-      float acc[4] = {};
+      float acc[PJ] = {};
+      if constexpr (L::RESIDENT) {
 #pragma unroll 4
-      for (int i = 0; i < C; ++i) {
-        const float w = sWp[i * L::GS + og];
+        for (int i = 0; i < C; ++i) {
+          const float w = sWp[i * L::GS + og];
 #pragma unroll
-        for (int j = 0; j < 4; ++j) acc[j] = fmaf(sX[(rg + RG * j) * C + i], w, acc[j]);
+          for (int j = 0; j < PJ; ++j) acc[j] = fmaf(sX[(rg + RG * j) * C + i], w, acc[j]);
+        }
+      } else {   // Wproj row og, 4 inputs a load
+#pragma unroll 1
+        for (int i = 0; i < C; i += 4) {
+          const float4 w = load4(wproj + og * C + i);
+#pragma unroll
+          for (int j = 0; j < PJ; ++j) {
+            const float4 a = *reinterpret_cast<const float4*>(sX + (rg + RG * j) * C + i);
+            acc[j] = fmaf(a.w, w.w, fmaf(a.z, w.z, fmaf(a.y, w.y, fmaf(a.x, w.x, acc[j]))));
+          }
+        }
       }
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
+      for (int j = 0; j < PJ; ++j) {
         const int r = rg + RG * j;
         const long long win = win0 + r / kP;
         if (win < n_windows)
@@ -343,27 +394,44 @@ using bf16 = __nv_bfloat16;
 
 template <int C>
 struct MmaLayout {
-  static constexpr int NT = C / 8;          // n-tiles of a C-wide strip
-  static constexpr int KT = C / 16;         // k-steps over C; m-tiles of the Gram
-  static constexpr int CH = C / 8;          // 16-byte chunks of a C-wide row
-  static constexpr int XS = C + 8;          // x / y row
-  static constexpr int QS = 2 * C + 8;      // qn | kn row, hi and lo alike
-  static constexpr int WS = C + 8;          // weight row: [4C][WS], Wqkv then Wproj
+  // C = 8 runs padded to 16 channels inside (m16n8k16 takes 16-deep
+  // k-steps): the pad columns of x, the weights and the biases are zeros,
+  // so q, k, v and y are zero there; the pad keys of the Gram are set to
+  // -inf before the softmax, and the pad rows of A meet zero columns of
+  // Wproj, so neither reaches y
+  static constexpr int CP = C < 16 ? 16 : C;   // channels inside
+  static constexpr int NT = CP / 8;         // n-tiles of a CP-wide strip
+  static constexpr int KT = CP / 16;        // k-steps over CP; m-tiles of the Gram
+  static constexpr int CH = C / 8;          // 16-byte chunks of a position in x and y
+  static constexpr int CHP = CP / 8;        // ... of a row in shared memory
+  static constexpr int XS = CP + 8;         // x / y row
+  static constexpr int QS = 2 * CP + 8;     // qn | kn row, hi and lo alike
+  static constexpr int WS = CP + 8;         // weight row: [4CP][WS], Wqkv then Wproj
   static constexpr int X = kP * XS;         // one x buffer of a warp (it has two)
   static constexpr int Q = kP * QS;         // qn | kn of a warp, hi or lo
   static constexpr int WARP = 2 * X + 2 * Q;
-  static constexpr int W_ELEMS = 4 * C * WS;
-  // bf16: weights, the warps' buffers; fp32: 4C biases, C row sums a warp
-  static constexpr int BYTES = (W_ELEMS + kWarps * WARP) * (int)sizeof(bf16) +
-                               (4 * C + kWarps * C) * (int)sizeof(float);
+  static constexpr int W_ELEMS = 4 * CP * WS;
+  // warps a block: at C = 128 the weights take 139 KB and each warp 25.6
+  // KB of the 227, so 3 warps; 8 elsewhere
+  static constexpr int WARPS = C > 64 ? 3 : kWarps;
+  static constexpr int THREADS = 32 * WARPS;
+  // at C >= 64 the softmax S enters the apply and the apply's output the
+  // proj as hi + lo pairs too: with one term each a saturated window at
+  // C = 64 on 128^2 (c16's down2 at canvas 512, c32's down1) reaches 1.13
+  // of the bf16 bound and at C = 128 0.97, with the pairs 0.68
+  // (devtools/serving_kernel_rounding.py)
+  static constexpr bool SPLIT_APPLY = C >= 64;
+  // bf16: weights, the warps' buffers; fp32: 4CP biases, CP row sums a warp
+  static constexpr int BYTES = (W_ELEMS + WARPS * WARP) * (int)sizeof(bf16) +
+                               (4 * CP + WARPS * CP) * (int)sizeof(float);
 };
 
-// acc (16 positions x C outputs) = a w^T + bias: a as A fragments (C / 16
-// k-steps), w as C rows [n][k] of stride WS (B fragments through ldmatrix).
+// acc (16 positions x CP outputs) = a w^T + bias: a as A fragments (CP / 16
+// k-steps), w as CP rows [n][k] of stride WS (B fragments through ldmatrix).
 template <int C>
-__device__ __forceinline__ void linear_strip(float (&acc)[C / 8][4],
-                                             const uint32_t (&a)[C / 16][4], const bf16* w,
-                                             const float* bias, int lane) {
+__device__ __forceinline__ void linear_strip(float (&acc)[MmaLayout<C>::NT][4],
+                                             const uint32_t (&a)[MmaLayout<C>::KT][4],
+                                             const bf16* w, const float* bias, int lane) {
   using L = MmaLayout<C>;
   const int t = lane & 3;
 #pragma unroll
@@ -414,31 +482,34 @@ __device__ __forceinline__ void add_strip(float (&acc)[NT][4], const float (&x)[
 }
 
 template <int C, bool kPacked, int kStage>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(MmaLayout<C>::THREADS)
 window_channel_attention_mma_kernel(const bf16* __restrict__ x, const bf16* __restrict__ wqkv,
                                     const bf16* __restrict__ bqkv,
                                     const bf16* __restrict__ wproj,
                                     const bf16* __restrict__ bproj, bf16* __restrict__ y, int H,
                                     int W, long long n_windows, float eps) {
   using L = MmaLayout<C>;
+  constexpr int CP = L::CP, WARPS = L::WARPS;
   extern __shared__ __align__(16) unsigned char smem_mma[];
-  bf16* sW = reinterpret_cast<bf16*>(smem_mma);                   // [4C][WS]
+  bf16* sW = reinterpret_cast<bf16*>(smem_mma);                   // [4CP][WS]
   bf16* sWarps = sW + L::W_ELEMS;
-  float* sBias = reinterpret_cast<float*>(sWarps + kWarps * L::WARP);   // bqkv, bproj
+  float* sBias = reinterpret_cast<float*>(sWarps + WARPS * L::WARP);   // bqkv, bproj
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   bf16* sX = sWarps + warp * L::WARP;     // [2][16][XS]
   bf16* sQK = sX + 2 * L::X;              // [16][QS]: qn, kn hi
   bf16* sLO = sQK + L::Q;                 // [16][QS]: qn, kn lo
-  [[maybe_unused]] float* sRow = sBias + 4 * C + warp * C;   // Gram row sums (stages)
+  [[maybe_unused]] float* sRow = sBias + 4 * CP + warp * CP;   // Gram row sums (stages)
 
   // the window at `base` (window_base): x into a buffer of the warp, 16
-  // bytes a copy
+  // bytes a copy; the pad columns (C = 8) as zeros
   auto stage = [&](long long base, bf16* dst) {
     const bf16* src = x + base * C;
 #pragma unroll
-    for (int e = lane; e < kP * L::CH; e += 32) {
-      const int p = e / L::CH, c = e % L::CH;
-      cp_async16(dst + p * L::XS + c * 8, src + position_offset<kPacked>(p, W) * C + c * 8);
+    for (int e = lane; e < kP * L::CHP; e += 32) {
+      const int p = e / L::CHP, c = e % L::CHP;
+      const bool real = L::CH == L::CHP || c < L::CH;
+      cp_async16(dst + p * L::XS + c * 8,
+                 src + position_offset<kPacked>(p, W) * C + (real ? c * 8 : 0), real);
     }
   };
   // fragments (16 positions x C) through the buffer to the window in y
@@ -456,17 +527,22 @@ window_channel_attention_mma_kernel(const bf16* __restrict__ x, const bf16* __re
     }
   };
 
-  for (int e = tid; e < 4 * C * L::CH; e += kThreads) {
-    const int r = e / L::CH, c = e % L::CH;
-    cp_async16(sW + r * L::WS + c * 8,
-               r < 3 * C ? wqkv + r * C + c * 8 : wproj + (r - 3 * C) * C + c * 8);
+  // the weights: row i of each CP-row block (q, k, v, proj), column chunk
+  // c; zeros in the pads (C = 8)
+  for (int e = tid; e < 4 * CP * L::CHP; e += L::THREADS) {
+    const int r = e / L::CHP, c = e % L::CHP, blk = r / CP, i = r % CP;
+    const bool real = i < C && c < L::CH;
+    const bf16* src = blk < 3 ? wqkv + (blk * C + i) * C : wproj + i * C;
+    cp_async16(sW + r * L::WS + c * 8, real ? src + c * 8 : wqkv, real);
   }
-  for (int e = tid; e < 4 * C; e += kThreads)
-    sBias[e] = to_f(e < 3 * C ? bqkv[e] : bproj[e - 3 * C]);
+  for (int e = tid; e < 4 * CP; e += L::THREADS) {
+    const int blk = e / CP, i = e % CP;
+    sBias[e] = i < C ? to_f(blk < 3 ? bqkv[blk * C + i] : bproj[i]) : 0.f;
+  }
 
   // windows as int: the launcher refuses more than INT_MAX of them
-  const int n = (int)n_windows, stride = (int)gridDim.x * kWarps;
-  int win = (int)blockIdx.x * kWarps + warp;
+  const int n = (int)n_windows, stride = (int)gridDim.x * WARPS;
+  int win = (int)blockIdx.x * WARPS + warp;
   long long base = 0, next_base = 0;
   if (win < n) stage(base = window_base<kPacked, int>(win, H, W), sX);
   cp_async_commit();
@@ -496,15 +572,15 @@ window_channel_attention_mma_kernel(const bf16* __restrict__ x, const bf16* __re
     [[maybe_unused]] float fold[L::NT][4] = {};
 #pragma unroll
     for (int s = 0; s < 2; ++s) {
-      linear_strip<C>(u, xa, sW + s * C * L::WS, sBias + s * C, lane);
+      linear_strip<C>(u, xa, sW + s * CP * L::WS, sBias + s * CP, lane);
       if constexpr (kStage > kQkv) {
         normalize_strip(u, eps);
-        store_frags<L::NT>(sQK, sLO, L::QS, 0, s * C, u, 1.f, lane);
+        store_frags<L::NT>(sQK, sLO, L::QS, 0, s * CP, u, 1.f, lane);
       }
       if constexpr (kStage <= kNorm) add_strip(fold, u);
     }
     float v[L::NT][4];
-    linear_strip<C>(v, xa, sW + 2 * C * L::WS, sBias + 2 * C, lane);
+    linear_strip<C>(v, xa, sW + 2 * CP * L::WS, sBias + 2 * CP, lane);
     if constexpr (kStage <= kNorm) {
       add_strip(fold, v);
       store(base, xs, fold);
@@ -520,7 +596,7 @@ window_channel_attention_mma_kernel(const bf16* __restrict__ x, const bf16* __re
       const int t = lane & 3;
 #pragma unroll
       for (int j = 0; j < L::NT; ++j) {
-        const float2 b = *reinterpret_cast<const float2*>(sBias + 3 * C + j * 8 + 2 * t);
+        const float2 b = *reinterpret_cast<const float2*>(sBias + 3 * CP + j * 8 + 2 * t);
         u[j][0] = u[j][2] = b.x;
         u[j][1] = u[j][3] = b.y;
       }
@@ -529,7 +605,11 @@ window_channel_attention_mma_kernel(const bf16* __restrict__ x, const bf16* __re
     for (int mt = 0; mt < L::KT; ++mt) {
       // rows 16 mt.. of the Gram and of its softmax
       float a[L::NT][4];
-      gram_strip<C>(a, sQK, L::QS, sLO, L::QS, mt, lane);
+      gram_strip<CP>(a, sQK, L::QS, sLO, L::QS, mt, lane);
+      if constexpr (CP != C) {   // the pad keys drop out of the softmax
+#pragma unroll
+        for (int j = L::CH; j < L::NT; ++j) a[j][0] = a[j][1] = a[j][2] = a[j][3] = -INFINITY;
+      }
       if constexpr (kStage != kLogits) softmax_strip<L::NT, true>(a);   // __expf: y is bf16
       if constexpr (kStage != kFull) {   // every row's sum, to shared memory
         float r0 = 0.f, r1 = 0.f;
@@ -552,19 +632,34 @@ window_channel_attention_mma_kernel(const bf16* __restrict__ x, const bf16* __re
 #pragma unroll
       for (int kk = 0; kk < L::KT; ++kk)
 #pragma unroll
-        for (int h = 0; h < 2; ++h)
-          mma_bf16(o[h], va[kk], pack_bf16(a[2 * kk][2 * h], a[2 * kk][2 * h + 1]),
-                   pack_bf16(a[2 * kk + 1][2 * h], a[2 * kk + 1][2 * h + 1]));
+        for (int h = 0; h < 2; ++h) {
+          if constexpr (L::SPLIT_APPLY) {
+            uint32_t h0, l0, h1, l1;
+            pack_bf16_split(a[2 * kk][2 * h], a[2 * kk][2 * h + 1], h0, l0);
+            pack_bf16_split(a[2 * kk + 1][2 * h], a[2 * kk + 1][2 * h + 1], h1, l1);
+            mma_bf16(o[h], va[kk], h0, h1);
+            mma_bf16(o[h], va[kk], l0, l1);
+          } else {
+            mma_bf16(o[h], va[kk], pack_bf16(a[2 * kk][2 * h], a[2 * kk][2 * h + 1]),
+                     pack_bf16(a[2 * kk + 1][2 * h], a[2 * kk + 1][2 * h + 1]));
+          }
+        }
       // ... which is k-step mt of y = out Wproj^T
       uint32_t oa[4];
-      frags_to_a(oa, o[0], o[1]);
+      [[maybe_unused]] uint32_t ol[4];
+      if constexpr (L::SPLIT_APPLY) frags_to_a_split(oa, ol, o[0], o[1]);
+      else frags_to_a(oa, o[0], o[1]);
 #pragma unroll
       for (int nb = 0; nb < L::KT; ++nb) {
         uint32_t b[4];
-        ldmatrix_x4(b, sW + (3 * C + nb * 16 + (lane & 7) + (lane >> 4) * 8) * L::WS + mt * 16 +
+        ldmatrix_x4(b, sW + (3 * CP + nb * 16 + (lane & 7) + (lane >> 4) * 8) * L::WS + mt * 16 +
                            ((lane >> 3) & 1) * 8);
         mma_bf16(u[2 * nb], oa, b[0], b[1]);
         mma_bf16(u[2 * nb + 1], oa, b[2], b[3]);
+        if constexpr (L::SPLIT_APPLY) {
+          mma_bf16(u[2 * nb], ol, b[0], b[1]);
+          mma_bf16(u[2 * nb + 1], ol, b[2], b[3]);
+        }
       }
     }
     if constexpr (kStage != kFull) {
@@ -600,32 +695,40 @@ int launch(const void* x, const void* wqkv, const void* bqkv, const void* wproj,
   // units of work a block strides over: tiles of NW windows (fp32), rounds
   // of one window per warp (bf16)
   constexpr int smem = kFloat ? Layout<C>::TOTAL * (int)sizeof(float) : MmaLayout<C>::BYTES;
-  constexpr int per_unit = kFloat ? Layout<C>::NW : kWarps;
+  constexpr int per_unit = kFloat ? Layout<C>::NW : MmaLayout<C>::WARPS;
+  constexpr int threads = kFloat ? kThreads : MmaLayout<C>::THREADS;
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
   if (!kFloat && n_windows > INT_MAX - (1 << 20)) return (int)cudaErrorInvalidValue;
   static int sms = 0, blocks_per_sm = 0;   // asked once per instantiation
   if (sms == 0) {
-    const int rc = residency(kernel, kThreads, smem, &sms, &blocks_per_sm);
+    const int rc = residency(kernel, threads, smem, &sms, &blocks_per_sm);
     if (rc != 0) return rc;
   }
-  // At C = 16 the weights are 3-4 KB, cheaper to stage four times than a
-  // static share of the work is to balance: four blocks per resident slot
-  // there (5-8% faster at batch 64 and at canvas 512), one elsewhere.
-  constexpr int kWaves = C == 16 ? 4 : 1;
+  // At C = 16 (and 8, padded to 16) the weights are 3-4 KB, cheaper to
+  // stage four times than a static share of the work is to balance: four
+  // blocks per resident slot there (5-8% faster at batch 64 and at canvas
+  // 512), one elsewhere.
+  constexpr int kWaves = C <= 16 ? 4 : 1;
   const int grid = persistent_grid((n_windows + per_unit - 1) / per_unit, sms,
                                    blocks_per_sm * kWaves);
-  kernel<<<(unsigned)grid, kThreads, smem, stream>>>(
+  kernel<<<(unsigned)grid, threads, smem, stream>>>(
       static_cast<const T*>(x), static_cast<const T*>(wqkv), static_cast<const T*>(bqkv),
       static_cast<const T*>(wproj), static_cast<const T*>(bproj), static_cast<T*>(y),
       H, W, n_windows, eps);
   return (int)cudaGetLastError();
 }
 
-template <bool kPacked, int kStage, typename T>
+// C in {16, 32, 64}, the c16 generator's widths; with kAllWidths (the
+// production entry points) also 8 and 128, those of c8 and c32.
+template <bool kPacked, int kStage, bool kAllWidths, typename T>
 int launch_c(const void* x, const void* wqkv, const void* bqkv, const void* wproj,
              const void* bproj, void* y, int H, int W, long long n_windows, int C,
              float eps, cudaStream_t stream) {
+  if constexpr (kAllWidths) {
+    if (C == 8) return launch<T, 8, kPacked, kStage>(x, wqkv, bqkv, wproj, bproj, y, H, W, n_windows, eps, stream);
+    if (C == 128) return launch<T, 128, kPacked, kStage>(x, wqkv, bqkv, wproj, bproj, y, H, W, n_windows, eps, stream);
+  }
   switch (C) {
     case 16: return launch<T, 16, kPacked, kStage>(x, wqkv, bqkv, wproj, bproj, y, H, W, n_windows, eps, stream);
     case 32: return launch<T, 32, kPacked, kStage>(x, wqkv, bqkv, wproj, bproj, y, H, W, n_windows, eps, stream);
@@ -634,7 +737,7 @@ int launch_c(const void* x, const void* wqkv, const void* bqkv, const void* wpro
   }
 }
 
-template <bool kPacked, int kStage>
+template <bool kPacked, int kStage, bool kAllWidths = false>
 int launch_dtype(const void* x, const void* wqkv, const void* bqkv, const void* wproj,
                  const void* bproj, void* y, int H, int W, long long n_windows, int C,
                  int dtype, float eps, int device, void* stream) {
@@ -643,11 +746,11 @@ int launch_dtype(const void* x, const void* wqkv, const void* bqkv, const void* 
   if (err != cudaSuccess) return (int)err;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == kF32)
-    return launch_c<kPacked, kStage, float>(x, wqkv, bqkv, wproj, bproj, y, H, W, n_windows, C,
-                                            eps, s);
+    return launch_c<kPacked, kStage, kAllWidths, float>(x, wqkv, bqkv, wproj, bproj, y, H, W,
+                                                        n_windows, C, eps, s);
   if (dtype == kBF16)
-    return launch_c<kPacked, kStage, __nv_bfloat16>(x, wqkv, bqkv, wproj, bproj, y, H, W,
-                                                    n_windows, C, eps, s);
+    return launch_c<kPacked, kStage, kAllWidths, __nv_bfloat16>(x, wqkv, bqkv, wproj, bproj, y,
+                                                                H, W, n_windows, C, eps, s);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -1,8 +1,10 @@
 """StructuralTransformerBlock body: CUDA kernel and plain version.
 
 ``fused_structural_block`` replaces ``ops/pallas/fused_transformer.py``;
-its kernel is ``csrc/fused_structural_block.cu``. ``structural_block_plain``
-is the port of ``_block_body_math`` / ``_window_attention``
+its kernel is ``csrc/fused_structural_block.cu``, built at the block widths
+of the c8, c16 and c32 generators (dim 32, 64, 128 with dim / 32 heads).
+``structural_block_plain`` is the port of ``_block_body_math`` /
+``_window_attention``
 (models/structural_transformer.py:97-168), including the key mask of
 ragged windows.
 """
@@ -20,7 +22,7 @@ from . import _build
 from ._checks import check_cuda_args, check_no_grad, dtype_code
 
 WINDOW = 8
-KERNEL_WIDTHS = (64,)
+KERNEL_WIDTHS = (32, 64, 128)   # each with default_num_heads(C) = C / 32 heads
 
 
 def default_num_heads(dim: int) -> int:
@@ -45,16 +47,24 @@ WEIGHT_NAMES = tuple(weight_shapes(1))  # the order the C entry point takes
 
 def block_launch_shape(B: int, H: int, W: int, C: int = 64) -> tuple:
     """(units of work, dynamic shared memory in bytes) of one bf16 launch
-    of the block kernel, as ``csrc/fused_structural_block.cu`` lays it out:
-    a persistent block takes two 8x8 windows at a time (ragged edges count
-    as whole windows); it holds the four weights as bf16 in rows padded by
-    8 values, per window x, struct and the k (hi, lo) and v tiles of both
-    heads (64 rows of 40), then the biases and LayerNorm parameters as
-    fp32. The grid is ``persistent_grid(units, SMs, 1)``."""
+    of the block kernel, as ``csrc/fused_structural_block.cu`` lays it out
+    (ragged edges count as whole windows). C = 32 and 64: a persistent block
+    takes two 8x8 windows at a time; it holds the four weights as bf16 in
+    rows padded by 8 values, per window x, struct and the k (hi, lo) and v
+    tiles of every head (64 rows of 40), then the biases and LayerNorm
+    parameters as fp32. C = 128: a block takes one window; qkv and proj
+    are resident, fc1 and fc2 pass through two buffers of 16 hidden columns
+    (fc1 rows of C + 8, fc2 rows of 24), then x and one head's three tiles.
+    The grid is ``persistent_grid(units, SMs, blocks per SM)``."""
     windows = B * -(-H // WINDOW) * -(-W // WINDOW)
+    params = 4 * 13 * C
+    if C > 64:
+        chunk = 16 * (C + 8) + C * 24
+        elems = 4 * C * (C + 8) + 2 * chunk + 64 * (C + 8) + 3 * 64 * 40
+        return windows, 2 * elems + params
     weights = 8 * C * (C + 8) + C * (4 * C + 8)
     group = 2 * 64 * (C + 8) + 3 * default_num_heads(C) * 64 * 40
-    return -(-windows // 2), 2 * (weights + 2 * group) + 4 * 13 * C
+    return -(-windows // 2), 2 * (weights + 2 * group) + params
 
 
 def _window_mhsa(h, qkv_w, qkv_b):
@@ -114,10 +124,11 @@ def fused_structural_block(x, struct, gamma, beta, *, eps: float = 1e-5,
     in ``WEIGHT_NAMES``.
 
     A CPU tensor takes the plain version. A CUDA tensor launches the kernel
-    (contiguous fp32 or bf16 x and struct, weights of the same type, C = 64,
-    any H and W; 8x8 windows) or raises. The kernel is forward-only: a CUDA
-    call that autograd would record raises (the training route is the block
-    body in autograd around ``window_mhsa_train``).
+    (contiguous fp32 or bf16 x and struct, weights of the same type, C in
+    ``KERNEL_WIDTHS``, any H and W; 8x8 windows) or raises. The kernel is
+    forward-only: a CUDA call that autograd would record raises (the
+    training route is the block body in autograd around
+    ``window_mhsa_train``).
     """
     if sorted(weights) != sorted(WEIGHT_NAMES):
         raise TypeError(f"fused_structural_block takes the weights "

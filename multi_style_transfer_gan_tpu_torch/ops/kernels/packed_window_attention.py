@@ -7,8 +7,8 @@ kernels (``packed_grouped_window_attention``, ``packed_window_attention_v3``,
 ``packed_window_attention_pallas``); on Hopper
 ``packed_window_channel_attention`` launches one kernel, the packed-row
 entry point of ``csrc/window_channel_attention.cu``, at every width the
-generator has (C = 16, 32, 64). ``packed_window_channel_attention_plain``
-is the port of ``ops/packed.py::packed_window_channel_attention``.
+generators have (C = 8 to 128: 128 to 2048 lanes).
+``packed_window_channel_attention_plain`` is the port of ``ops/packed.py::packed_window_channel_attention``.
 """
 
 from __future__ import annotations
@@ -49,8 +49,8 @@ def packed_window_channel_attention(x, wqkv, bqkv, wproj, bproj, *,
 
     A CPU tensor takes the plain version. A CUDA tensor launches the kernel
     (contiguous fp32 or bf16 input, weights of the same type, C in
-    16/32/64) or raises. The kernel is forward-only: a CUDA call that
-    autograd would record raises.
+    ``window_attention.KERNEL_WIDTHS``) or raises. The kernel is
+    forward-only: a CUDA call that autograd would record raises.
     """
     C = _width(x, wqkv)
     if x.device.type == "cpu":

@@ -5,8 +5,9 @@ Pallas layouts (v1, grouped, v3, dispatched by
 ``ops/pallas/attention_dispatch.py``) and three more forms of the same
 math (``window_attention_v4``, ``window_attention_v3_fused_io`` and the A/B
 script's ``window_attention_v6``); on Hopper one kernel,
-``csrc/window_channel_attention.cu``, serves every width the generator has
-(C = 16, 32, 64). ``window_channel_attention_plain`` is the port of
+``csrc/window_channel_attention.cu``, serves every width the generators
+have: C = 16, 32, 64 (c16), 8 (c8's up2) and 128 (c32's down2).
+``window_channel_attention_plain`` is the port of
 ``_attention_math`` / ``_attention_windows``
 (models/enhanced_generator.py:168-205).
 
@@ -27,7 +28,8 @@ from . import _build
 from ._checks import check_cuda_args, check_no_grad, dtype_code
 
 WINDOW = 4
-KERNEL_WIDTHS = (16, 32, 64)
+KERNEL_WIDTHS = (8, 16, 32, 64, 128)   # the c8, c16 and c32 generators'
+STAGE_WIDTHS = (16, 32, 64)            # the stage ablation's (c16's)
 STAGES = ("copy", "qkv", "norm", "logits", "softmax", "full")
 
 
@@ -42,18 +44,23 @@ def persistent_grid(n_units: int, sms: int, blocks_per_sm: int) -> int:
 def attention_launch_shape(n_windows: int, C: int, bf16: bool) -> tuple:
     """(units of work, dynamic shared memory in bytes) of one launch of the
     attention kernel at width C, as ``csrc/window_channel_attention.cuh``
-    lays it out. bf16 (warp MMA): a unit is one window per warp of the
-    block's 8; the block holds the bf16 weights in rows of C + 8, per warp
-    two x buffers (16 x (C + 8)) and qn | kn as hi and lo (16 x (2C + 8)
-    each), then 4C fp32 biases and C fp32 row sums a warp. fp32 (FMA): a
-    unit is a tile of 64 / C windows; everything is fp32."""
+    lays it out. bf16 (warp MMA): C = 8 runs padded to CP = 16 channels; a
+    unit is one window per warp of the block's 8 (3 at C = 128); the block
+    holds the bf16 weights in rows of CP + 8, per warp two x buffers
+    (16 x (CP + 8)) and qn | kn as hi and lo (16 x (2CP + 8) each), then
+    4CP fp32 biases and CP fp32 row sums a warp. fp32 (FMA): a unit is a
+    tile of 64 / C windows (one at C = 128); everything is fp32, and the
+    weights are staged too up to C = 64."""
     if bf16:
-        warp = 2 * 16 * (C + 8) + 2 * 16 * (2 * C + 8)
-        smem = 2 * (4 * C * (C + 8) + 8 * warp) + 4 * (4 * C + 8 * C)
-        return -(-n_windows // 8), smem
-    nw = 64 // C
+        cp = max(C, 16)
+        warps = 3 if C > 64 else 8
+        warp = 2 * 16 * (cp + 8) + 2 * 16 * (2 * cp + 8)
+        smem = 2 * (4 * cp * (cp + 8) + warps * warp) + 4 * (4 * cp + warps * cp)
+        return -(-n_windows // warps), smem
+    nw = max(1, 64 // C)
     rows, qs, gs = nw * 16, 3 * C + 1, C + 1
-    floats = (C * qs + 3 * C + C * gs + C + rows * C + rows * qs + 2 * rows
+    weights = C * qs + C * gs if C <= 64 else 0
+    floats = (weights + 3 * C + C + rows * C + rows * qs + 2 * rows
               + nw * C * gs)
     return -(-n_windows // nw), 4 * floats
 
@@ -143,15 +150,15 @@ def window_channel_attention_stage_plain(x, wqkv, bqkv, wproj, bproj, *,
 
 
 def launch_attention(wrapper, x, wqkv, bqkv, wproj, bproj, C, dims, eps,
-                     extra=()):
-    """The CUDA path of the attention wrappers at width C: checks, the
-    launch of entry point ``wrapper.__name__`` with its grid ``dims`` (B,
-    H, W of the NHWC tensor or of the packed one) and the ``extra`` ints
-    that follow C, and ``wrapper.launches``."""
+                     extra=(), widths=KERNEL_WIDTHS):
+    """The CUDA path of the attention wrappers at width C: checks (C in
+    ``widths``), the launch of entry point ``wrapper.__name__`` with its
+    grid ``dims`` (B, H, W of the NHWC tensor or of the packed one) and the
+    ``extra`` ints that follow C, and ``wrapper.launches``."""
     entry = wrapper.__name__
     check_no_grad(entry, x, wqkv, bqkv, wproj, bproj)
-    if C not in KERNEL_WIDTHS:
-        raise ValueError(f"{entry} kernel is built for C in {KERNEL_WIDTHS}, "
+    if C not in widths:
+        raise ValueError(f"{entry} kernel is built for C in {widths}, "
                          f"got C={C}")
     wqkv = wqkv.reshape(3 * C, C)
     wproj = wproj.reshape(C, C)
@@ -181,10 +188,11 @@ def window_channel_attention(x, wqkv, bqkv, wproj, bproj, *,
     """LocalAttention forward on a (B, H, W, C) tensor, 4x4 windows.
 
     A CPU tensor takes the plain version. A CUDA tensor launches the kernel
-    (contiguous fp32 or bf16 input, weights of the same type, C in 16/32/64,
-    H % 4 == W % 4 == 0) or raises. The kernel is forward-only: a CUDA call
-    that autograd would record raises (the training route is
-    ``window_channel_attention_train`` between the two 1x1 convs).
+    (contiguous fp32 or bf16 input, weights of the same type, C in
+    ``KERNEL_WIDTHS``, H % 4 == W % 4 == 0) or raises. The kernel is
+    forward-only: a CUDA call that autograd would record raises (the
+    training route is ``window_channel_attention_train`` between the two
+    1x1 convs).
     """
     B, H, W, C = x.shape
     _check_grid(H, W)
@@ -202,7 +210,8 @@ def window_channel_attention_stage(x, wqkv, bqkv, wproj, bproj, *,
                                    stage: str,
                                    eps: float = 1e-12) -> torch.Tensor:
     """Stage ``stage`` (one of ``STAGES``) of the LocalAttention kernel on a
-    (B, H, W, C) tensor, C in 16/32/64: the stage-ablation instrument.
+    (B, H, W, C) tensor, C in ``STAGE_WIDTHS``: the stage-ablation
+    instrument.
 
     A CPU tensor takes the plain version; a CUDA tensor launches the stage
     kernel (``csrc/window_attention_stages.cu``) or raises, with the checks
@@ -212,16 +221,16 @@ def window_channel_attention_stage(x, wqkv, bqkv, wproj, bproj, *,
     if stage not in STAGES:
         raise ValueError(f"stage must be one of {STAGES}, got {stage!r}")
     B, H, W, C = x.shape
-    if C not in KERNEL_WIDTHS:
+    if C not in STAGE_WIDTHS:
         raise ValueError(f"window_channel_attention_stage kernel is built "
-                         f"for C in {KERNEL_WIDTHS}, got C={C}")
+                         f"for C in {STAGE_WIDTHS}, got C={C}")
     _check_grid(H, W)
     if x.device.type == "cpu":
         return window_channel_attention_stage_plain(
             x, wqkv, bqkv, wproj, bproj, stage=stage, eps=eps)
     return launch_attention(window_channel_attention_stage, x, wqkv, bqkv,
                             wproj, bproj, C, (B, H, W), eps,
-                            extra=(STAGES.index(stage),))
+                            extra=(STAGES.index(stage),), widths=STAGE_WIDTHS)
 
 
 window_channel_attention_stage.launches = 0

@@ -4,7 +4,8 @@
 Sniffs the checkpoint flavor (G_AB, G_BA or raw), the model family and the
 channel width, builds the ``nn.Module`` and loads the weights with
 ``strict=True``: the module's keys are the checkpoint's, so nothing is
-converted.
+converted. An enhanced checkpoint bound for the card is held to the serving
+kernels' widths first (``check_serving_width``).
 """
 
 from __future__ import annotations
@@ -18,11 +19,38 @@ from torch import nn
 from ..models import (
     EnhancedGenerator, PlainGenerator, channels_of, num_transformer_blocks_of,
 )
+from ..ops.kernels import fused_transformer, window_attention
 from ..weights import (
     detect_channels, detect_model_kind, extract_state_dict, load_pth,
 )
 
 PRECISIONS = ("default", "high", "highest")
+
+
+def _served(channels: int) -> bool:
+    """The serving kernels take an EnhancedGenerator of ``channels``: the
+    LocalAttention kernel at C, 2C and 4C (both engines run it at those
+    widths), and the block kernel at 4C with its default_num_heads."""
+    dim = 4 * channels
+    return ({channels, 2 * channels, dim} <= set(window_attention.KERNEL_WIDTHS)
+            and dim in fused_transformer.KERNEL_WIDTHS
+            and fused_transformer.default_num_heads(dim) == dim // 32)
+
+
+SERVED_CHANNELS = tuple(c for c in range(1, 257) if _served(c))   # (8, 16, 32)
+
+
+def check_serving_width(channels: int) -> None:
+    """Raises ValueError when an EnhancedGenerator of ``channels`` has a
+    width the serving kernels are not built for: on the card its first
+    forward would raise, and there is no plain fallback there."""
+    if not _served(channels):
+        raise ValueError(
+            f"enhanced generator at channels={channels} is not served on the "
+            f"card: the serving kernels are built for LocalAttention widths "
+            f"{window_attention.KERNEL_WIDTHS} and transformer blocks of "
+            f"{fused_transformer.KERNEL_WIDTHS} channels (dim / 32 heads), "
+            f"i.e. channels in {SERVED_CHANNELS}")
 
 
 @dataclass
@@ -60,6 +88,8 @@ def load_generator(path, prefer: str | None = None,
     precision: "default" and "high" run fp32 convolutions as PyTorch's
     settings allow (cuDNN may use TF32 on the card); "highest" turns TF32
     off inside ``apply``, the counterpart of JAX's precision='highest'.
+    An enhanced checkpoint on a CUDA device raises ValueError before the
+    module is built when its width is not served (``check_serving_width``).
     """
     if precision == "int8":
         raise NotImplementedError(
@@ -75,6 +105,8 @@ def load_generator(path, prefer: str | None = None,
     if kind == "plain":
         module = PlainGenerator(detect_channels(sd))
     elif kind == "enhanced":
+        if torch.device(device).type == "cuda":
+            check_serving_width(channels_of(sd))
         module = EnhancedGenerator(channels_of(sd),
                                    num_transformer_blocks_of(sd))
     else:

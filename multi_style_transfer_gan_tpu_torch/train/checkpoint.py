@@ -59,13 +59,18 @@ def restore_train_state(directory, step: int | None, state, pools=None):
     """Load checkpoint ``step`` (None: the latest) into ``state`` and
     ``pools`` in place. Returns ``(state, step)``, or ``((state, pools),
     step)`` when pools are given. A checkpoint written without pools leaves
-    the given pools empty, and says so."""
+    the given pools empty, and says so; one written with pools raises when
+    none are given (the JAX CLI fails at that resume too) rather than drop
+    them silently."""
     if step is None:
         step = latest_step(directory)
         if step is None:
             raise FileNotFoundError(f"no checkpoints under {directory}")
     path = os.path.join(directory, f"step_{step}", _FILE)
     blob = torch.load(path, map_location="cpu", weights_only=True)
+    if pools is None and "pools" in blob:
+        raise ValueError("checkpoint contains image-pool state; pass "
+                         "--pool_size <N> to resume it")
     state.load_state_dict(blob["state"])
     if pools is None:
         return state, step

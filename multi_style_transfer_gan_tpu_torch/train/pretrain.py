@@ -63,19 +63,21 @@ def learning_rate(step: int, num_epochs: int, steps_per_epoch: int,
     return ETA_MIN + (lr - ETA_MIN) * cos
 
 
-def check_kernel_width(channels: int) -> None:
+def check_kernel_width(channels: int,
+                       what: str = "enhanced pretraining") -> None:
     """The EnhancedGenerator at ``channels`` trains through the card's
     kernels only where they are built for its widths: LocalAttention at C,
     2C and 4C, the transformer block at 4C. Raises otherwise: there is no
-    plain fallback on the card."""
+    plain fallback on the card. ``what`` names the caller in the message.
+    The widths are the training kernels' own, not the serving kernels'."""
     widths = {channels, 2 * channels, 4 * channels}
     dim = 4 * channels
     if (not widths <= set(KERNEL_WIDTHS) or dim != KERNEL_WIDTH
             or default_num_heads(dim) != KERNEL_HEADS):
         raise ValueError(
-            f"enhanced pretraining at channels={channels} is not served on "
-            f"the card: the training kernels are built for LocalAttention "
-            f"widths {KERNEL_WIDTHS} and a {KERNEL_WIDTH}-wide block of "
+            f"{what} at channels={channels} is not served on the card: the "
+            f"training kernels are built for LocalAttention widths "
+            f"{KERNEL_WIDTHS} and a {KERNEL_WIDTH}-wide block of "
             f"{KERNEL_HEADS} heads, i.e. channels=16")
 
 
