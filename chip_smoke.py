@@ -12,7 +12,8 @@ masked-inpainting pretraining at the reference's width, the evaluation
 path (metrics, folder comparisons, FID on a full-width InceptionV3), the
 GUI's tab workers and the checkpoint tools, the VGG16 perceptual + Gram
 loss in the train step, the c8 and c32 EnhancedGenerators on the serving
-kernels' other widths, and checks every hand-written kernel on the way:
+kernels' other widths and trained (CycleGAN and enhanced pretraining), and
+checks every hand-written kernel on the way:
 
 1. build: all six CUDA sources compile from ``csrc/`` at once, one nvcc
    each;
@@ -111,14 +112,32 @@ kernels' other widths, and checks every hand-written kernel on the way:
     launches a forward (and 5 relayouts packed), packed vs NHWC, the bf16
     program's img/s at canvas 256, batch 16 and 64, and ``batch_process``
     on a small folder at c32; a c4 and a c64 checkpoint raise at
-    ``load_generator`` on the card, and the train CLI at ``--channels 32``
-    raises before its first step.
+    ``load_generator`` on the card, and the train CLI at ``--channels 64``
+    raises before its first step;
+17. width training (``phase_width_train_kernels`` and ``phase_fast_vjp``
+    after step 5, the width training path after the training path): the
+    training kernels at the shapes of a bf16 train step of the c8 and c32
+    generators (row 11 at C = 8, 16, 32 and 32, 64; row 12 at 1 and 4
+    heads), kernel vs plain in fp32 and bf16 on the three inputs of step 5
+    (row 11's fp32 backward also on more draws of the small-q, k input),
+    timed against plain and SDPA; c32's down2 under grad (C = 128, no
+    training kernel) through ``window_channel_attention_fast_vjp``, card vs
+    CPU in fp32 and bf16 and timed against the plain formulation; then for
+    each width the bf16 CycleGAN step (launches per step, ms/step), one
+    fp32 step card vs CPU, the enhanced bf16 pretrain step (launches,
+    ms/step, idle share) and two fp32 pretrain steps card vs CPU; a hooked
+    c8 step; the train CLI at ``--channels 32`` and the pretrain CLI at
+    ``--model enhanced --channels 8``; one ``fast_attention=False`` step
+    (``--no_fast_attention``) card vs CPU with no kernel launch; c4 and c64
+    refused.
 
 Every phase raises on failure. The last line is the result JSON; the line
-before it lists each kernel with its launches on the nine paths (launch
+before it lists each kernel with its launches on the ten paths (launch
 counts are reset just before each path and read just after), its largest
 fp32 deviation from the plain version, its time beside the plain
-version's (the serving rows also per generator width, ``widths``), its
+version's (the serving and training rows also per generator width,
+``widths``; the channel-attention row also the C = 128 training route,
+``fast_vjp_c128``), its
 bound (the larger of its bytes over the card's memory rate
 and its bf16 matrix-product flops over the tensor-core peak) and, where
 one PyTorch call computes the same function, that call's time
@@ -262,6 +281,28 @@ GENERATOR_CHANNELS = (8, 16, 32)
 WIDTH_CHANNELS = (8, 32)
 WIDTH_CPU_BATCH = 4
 WIDTH_FOLDER_IMAGES = 6
+# the c8 and c32 generators trained: launches per bf16 CycleGAN step (pair
+# batching, remat off; 4 generator forwards with grad, 2 under no_grad) and
+# per enhanced pretrain step (1 forward with grad). c8 trains LocalAttention
+# at C = 8, 16, 32 through row 11, as c16 does; c32 at C = 32, 64, 64
+# through row 11 and its down2 at C = 128 through the fast-VJP route, whose
+# forward is row 1's kernel under grad (4 a step beside the D phase's 8)
+WIDTH_TRAIN_LAUNCHES_PER_STEP = {
+    8: TRAIN_LAUNCHES_PER_STEP,
+    32: {"window_attention_mid_fwd": 12, "window_attention_mid_bwd": 12,
+         "window_mhsa_fwd": 4, "window_mhsa_bwd": 4,
+         "window_channel_attention": 12, "fused_structural_block": 2}}
+WIDTH_PRETRAIN_LAUNCHES_PER_STEP = {
+    8: PRETRAIN_LAUNCHES_PER_STEP,
+    32: {"window_attention_mid_fwd": 3, "window_attention_mid_bwd": 3,
+         "window_mhsa_fwd": 1, "window_mhsa_bwd": 1,
+         "window_channel_attention": 1, "fused_structural_block": 0}}
+# c32's down2 under grad: the fast-VJP route at its 256^2, batch-8 shape;
+# the fp32 backward of the channel-attention mid on more draws of the small
+# q, k input at each width's shapes
+FAST_VJP_SHAPE = (TRAIN_BATCH, 64, 64, 128)
+SMALL_QK_DRAWS = 3
+WIDTH_TRAIN_SIZE = 256   # the bf16 steps' images
 
 
 def log(*a):
@@ -784,6 +825,24 @@ def train_kernel_cases():
             ("mhsa", "block", (B, 64, 64, 192))]
 
 
+def width_train_kernel_cases(channels):
+    """(kernel, stage, qkv shape, heads) at every shape a bf16 train step at
+    256^2, batch TRAIN_BATCH gives the training kernels of the generator of
+    width ``channels``: the channel-attention mid at C, 2C and 4C where
+    row 11 is built (C <= 64; c32's down2 at C = 128 takes the fast-VJP
+    route), the window-MHSA mid at dim 4C in 4C / 32 heads."""
+    from multi_style_transfer_gan_tpu_torch.ops.kernels.window_attention_train import (
+        KERNEL_WIDTHS,
+    )
+
+    B, c = TRAIN_BATCH, channels
+    cases = [("attention", stage, (B, hw, hw, 3 * w), None)
+             for stage, hw, w in (("up2", 256, c), ("down1/up1", 128, 2 * c),
+                                  ("down2", 64, 4 * c))
+             if w in KERNEL_WIDTHS]
+    return cases + [("mhsa", "block", (B, 64, 64, 12 * c), 4 * c // 32)]
+
+
 def train_kernel_inputs(rng, name, shape):
     """[(label, qkv, d_out)] host arrays for a training kernel at ``shape``:
     random with one all-zero window; the same with qkv x 8 in batch entry 1
@@ -802,6 +861,61 @@ def train_kernel_inputs(rng, name, shape):
             ("small q, k", small, d_out)]
 
 
+def train_kernel_fns(name, heads=2):
+    """(fwd, bwd, plain fwd, plain bwd, extra args, window) of a training
+    kernel; the window-MHSA mid takes ``heads``."""
+    from multi_style_transfer_gan_tpu_torch.ops import kernels as K
+
+    if name == "attention":
+        return (K.window_attention_mid_fwd, K.window_attention_mid_bwd,
+                K.window_attention_mid_plain,
+                K.window_attention_mid_backward_plain, (), 4)
+    return (K.window_mhsa_fwd, K.window_mhsa_bwd, K.window_mhsa_plain,
+            K.window_mhsa_backward_plain, (heads,), 8)
+
+
+def check_train_kernel(tag, name, stage, shape, heads, label, host, g_host,
+                       dtype, dev, timed=True):
+    """Forward and backward of a training kernel vs its plain version on one
+    input (``train_kernel_inputs``): fp32 at FP32_TOL and
+    TRAIN_GRAD_FP32_TOL, bf16 at the bound, every value finite, the zero
+    window's gradient too. On the random input (when ``timed``) the
+    ``time_train_kernel`` times. Raises outside tolerance; returns (fwd
+    max|d|, bwd max|d|, times)."""
+    import torch
+
+    fwd, bwd, fwd_plain, bwd_plain, extra, win = train_kernel_fns(name, heads)
+    qkv = torch.from_numpy(host).to(dev, dtype)
+    d_out = torch.from_numpy(g_host).to(dev, dtype)
+    got = fwd(qkv, *extra)
+    dgot = bwd(qkv, d_out, *extra)
+    ref = fwd_plain(qkv, *extra)
+    dref = bwd_plain(qkv, d_out, *extra)
+    torch.cuda.synchronize()
+    err, ok = compare(got, ref, dtype)
+    derr, dok = compare(dgot, dref, dtype)
+    if dtype == torch.float32:
+        ok, dok = err <= FP32_TOL, derr <= TRAIN_GRAD_FP32_TOL
+    finite = bool(torch.isfinite(got).all() and torch.isfinite(dgot).all())
+    zero_ok = bool(torch.isfinite(dgot[0, :win, :win]).all())
+    ms = ()
+    if label == "random" and timed:
+        ms = time_train_kernel(name, shape, dtype, dev, (
+            lambda: (fwd(qkv, *extra), bwd(qkv, d_out, *extra)),
+            lambda: (fwd_plain(qkv, *extra), bwd_plain(qkv, d_out, *extra))),
+            heads)
+    log(f"{tag} {name} {stage} qkv {shape}"
+        + ("" if name == "attention" else f" {heads} heads")
+        + f" {label} {str(dtype)[6:]}: fwd max|d| {err:.3e}, bwd max|d| "
+        f"{derr:.3e}, zero window {'finite' if zero_ok else 'BAD'}"
+        + "".join(f"; fwd+bwd {n} {t:.4f} ms" for n, t in zip(
+            ("kernel", "plain", "SDPA", "kernel device", "SDPA device"), ms)))
+    if not (ok and dok and finite and zero_ok):
+        raise AssertionError(f"{name} train kernel {shape} {label} {dtype}: "
+                             f"outside tolerance or not finite")
+    return err, derr, ms
+
+
 def phase_train_kernels(rng, dev):
     """Forward and backward of both training kernels vs their plain versions,
     fp32 (TF32 off) and bf16, on the three inputs of
@@ -813,59 +927,22 @@ def phase_train_kernels(rng, dev):
     SDPA in turns, in profiler device time."""
     import torch
 
-    from multi_style_transfer_gan_tpu_torch.ops import kernels as K
-
-    fns = {
-        "attention": (K.window_attention_mid_fwd, K.window_attention_mid_bwd,
-                      K.window_attention_mid_plain,
-                      K.window_attention_mid_backward_plain, ()),
-        "mhsa": (K.window_mhsa_fwd, K.window_mhsa_bwd, K.window_mhsa_plain,
-                 K.window_mhsa_backward_plain, (2,)),
-    }
     worst = {"attention": 0.0, "mhsa": 0.0}
     times = {}
     for name, stage, shape in train_kernel_cases():
-        fwd, bwd, fwd_plain, bwd_plain, extra = fns[name]
-        win = 4 if name == "attention" else 8
         for label, host, g_host in train_kernel_inputs(rng, name, shape):
             for dtype in (torch.float32, torch.bfloat16):
-                qkv = torch.from_numpy(host).to(dev, dtype)
-                d_out = torch.from_numpy(g_host).to(dev, dtype)
-                got = fwd(qkv, *extra)
-                dgot = bwd(qkv, d_out, *extra)
-                ref = fwd_plain(qkv, *extra)
-                dref = bwd_plain(qkv, d_out, *extra)
-                torch.cuda.synchronize()
-                err, ok = compare(got, ref, dtype)
-                derr, dok = compare(dgot, dref, dtype)
+                err, derr, ms = check_train_kernel(
+                    "[train kernels]", name, stage, shape, 2, label, host,
+                    g_host, dtype, dev)
                 if dtype == torch.float32:
-                    ok, dok = err <= FP32_TOL, derr <= TRAIN_GRAD_FP32_TOL
                     worst[name] = max(worst[name], err, derr)
-                finite = bool(torch.isfinite(got).all()
-                              and torch.isfinite(dgot).all())
-                zero_ok = bool(torch.isfinite(dgot[0, :win, :win]).all())
-                ms = ()
-                if label == "random":
-                    ms = time_train_kernel(name, shape, dtype, dev, (
-                        lambda: (fwd(qkv, *extra), bwd(qkv, d_out, *extra)),
-                        lambda: (fwd_plain(qkv, *extra),
-                                 bwd_plain(qkv, d_out, *extra))))
+                if ms:
                     times[(name, stage, dtype)] = ms
-                log(f"[train kernels] {name} {stage} qkv {shape} {label} "
-                    f"{str(dtype)[6:]}: fwd max|d| {err:.3e}, bwd max|d| "
-                    f"{derr:.3e}, zero window "
-                    f"{'finite' if zero_ok else 'BAD'}"
-                    + "".join(f"; fwd+bwd {n} {t:.4f} ms" for n, t in zip(
-                        ("kernel", "plain", "SDPA", "kernel device",
-                         "SDPA device"), ms)))
-                if not (ok and dok and finite and zero_ok):
-                    raise AssertionError(
-                        f"{name} train kernel {shape} {label} {dtype}: "
-                        f"outside tolerance or not finite")
     return worst, times
 
 
-def time_train_kernel(name, shape, dtype, dev, calls):
+def time_train_kernel(name, shape, dtype, dev, calls, heads=2):
     """fwd + bwd ms of a training kernel and its plain version, in turns; in
     bf16 with the SDPA yardstick in CUDA events, then kernel and SDPA in
     turns in profiler device time: (kernel, plain[, SDPA, kernel device,
@@ -879,8 +956,8 @@ def time_train_kernel(name, shape, dtype, dev, calls):
     if name == "attention":
         sdpa = sdpa_mid_call((B, H, W, C3 // 3), dev, backward=True)
     else:
-        hd = C3 // 3 // 2
-        sdpa = sdpa_call((B * (H // 8) * (W // 8), 2, 64, hd), hd ** -0.5,
+        hd = C3 // 3 // heads
+        sdpa = sdpa_call((B * (H // 8) * (W // 8), heads, 64, hd), hd ** -0.5,
                          dev, backward=True)
     return (time_turns(kernel, plain, sdpa)
             + time_turns(kernel, sdpa, timer=device_ms))
@@ -1499,43 +1576,22 @@ def phase_train_step(rng, dev):
     import torch
 
     from multi_style_transfer_gan_tpu_torch.ops import kernels as K
-    from multi_style_transfer_gan_tpu_torch.ops import to_model_range
-    from multi_style_transfer_gan_tpu_torch.train import (
-        cyclegan_init_state, cyclegan_train_step,
-    )
+    from multi_style_transfer_gan_tpu_torch.train import cyclegan_init_state
 
     state = cyclegan_init_state(SEED, 16, 1, device=dev)
     before = {n: {k: v.clone() for k, v in getattr(state, n).state_dict().items()}
               for n in ("G_AB", "G_BA", "D_A", "D_B")}
-    pairs = uint8_pairs(rng, 2, TRAIN_BATCH, 256, dev)
-
-    def step(i):
-        a, b = pairs[i % len(pairs)]
-        return cyclegan_train_step(state, to_model_range(a), to_model_range(b),
-                                   compute_dtype=torch.bfloat16,
-                                   pair_batching=True)[1]
-
-    kernels = {"window_attention_mid_fwd": K.window_attention_mid_fwd,
-               "window_attention_mid_bwd": K.window_attention_mid_bwd,
-               "window_mhsa_fwd": K.window_mhsa_fwd,
-               "window_mhsa_bwd": K.window_mhsa_bwd,
-               "window_channel_attention": K.window_channel_attention,
-               "fused_structural_block": K.fused_structural_block}
-    n0 = {n: k.launches for n, k in kernels.items()}
-    losses = step(0)
-    torch.cuda.synchronize()
-    per_step = {n: k.launches - n0[n] for n, k in kernels.items()}
-    log(f"[train step] launches in one step: {per_step}")
-    if per_step != TRAIN_LAUNCHES_PER_STEP:
-        raise AssertionError(f"launches per step {per_step}, predicted "
-                             f"{TRAIN_LAUNCHES_PER_STEP}")
-    for i in range(1, 3):   # warm-up: 3 steps in all
-        step(i)
+    step = train_step_runner(state, uint8_pairs(rng, 2, TRAIN_BATCH, 256, dev),
+                             pair_batching=True)
+    counts = lambda: {n: getattr(K, n).launches for n in TRAIN_LAUNCHES_PER_STEP}
+    losses = launches_of(step, counts, TRAIN_LAUNCHES_PER_STEP, "[train step]")
+    for _ in range(2):   # warm-up: 3 steps in all
+        step()
     torch.cuda.synchronize()
     iters = 10
     t0 = time.perf_counter()
-    for i in range(iters):
-        losses = step(i)
+    for _ in range(iters):
+        losses = step()
     torch.cuda.synchronize()
     ms = (time.perf_counter() - t0) * 1000 / iters
     vals = {k: float(v) for k, v in losses.items()}
@@ -1555,21 +1611,8 @@ def phase_train_step(rng, dev):
             raise AssertionError(f"{name} spectral-norm u did not move")
 
     # one fp32 step on the card vs the same step on the CPU (TF32 off)
-    host = [tuple(to_model_range(t).cpu() for t in pair)
-            for pair in uint8_pairs(rng, 1, 2, 128, dev)]
-    out = {}
-    for device in (dev, torch.device("cpu")):
-        st = cyclegan_init_state(SEED + 1, 16, 1, device=device)
-        a, b = (t.to(device) for t in host[0])
-        out[device.type] = {k: float(v) for k, v in cyclegan_train_step(
-            st, a, b, compute_dtype=torch.float32)[1].items()}
-    rel = {k: abs(out["cuda"][k] - out["cpu"][k]) / abs(out["cpu"][k])
-           for k in out["cpu"]}
-    log(f"[train step] fp32 c16 128^2 batch 2, card vs CPU: {out['cuda']} vs "
-        f"{out['cpu']}; max relative difference {max(rel.values()):.2e}")
-    if max(rel.values()) > TRAIN_FP32_RTOL:
-        raise AssertionError(f"fp32 step on the card disagrees with the CPU: "
-                             f"{rel}")
+    host = [t.cpu() for t in uint8_pairs(rng, 1, 2, 128, dev)[0]]
+    fp32_step_card_vs_cpu(dev, 16, "[train step]", host=host)
     return ms
 
 
@@ -1827,16 +1870,9 @@ def phase_pretrain_step(rng, dev):
 
     state = pretrain_init_state(SEED, 16, model="enhanced", device=dev)
     step = pretrain_steps(state, *data(TRAIN_BATCH, 256), torch.bfloat16)
-    kernels = {n: getattr(K, n) for n in PRETRAIN_LAUNCHES_PER_STEP}
-    n0 = {n: k.launches for n, k in kernels.items()}
-    step()
-    torch.cuda.synchronize()
-    per_step = {n: k.launches - n0[n] for n, k in kernels.items()}
-    log(f"[pretrain] enhanced: launches in one step: {per_step}")
-    if per_step != PRETRAIN_LAUNCHES_PER_STEP:
-        raise AssertionError(f"enhanced pretrain launches per step "
-                             f"{per_step}, predicted "
-                             f"{PRETRAIN_LAUNCHES_PER_STEP}")
+    launches_of(step, lambda: {n: getattr(K, n).launches
+                               for n in PRETRAIN_LAUNCHES_PER_STEP},
+                PRETRAIN_LAUNCHES_PER_STEP, "[pretrain] enhanced")
     out["enhanced"] = time_pretrain(step, f"enhanced bf16 c16 256^2 batch "
                                     f"{TRAIN_BATCH}", TRAIN_BATCH)
     return out
@@ -2857,7 +2893,7 @@ def phase_width_serving(rng, dev, counts, work):
     ``batch_process`` at c32 on a folder of ``WIDTH_FOLDER_IMAGES`` JPEGs
     of mixed sizes. Then the widths the kernels are not built for: a c4
     and a c64 checkpoint raise at ``load_generator`` on the card, and the
-    train CLI at ``--channels 32`` raises before its first step. Returns
+    train CLI at ``--channels 64`` raises before its first step. Returns
     {channels: {"parameters", "rates", "launches"}}, launches the counts
     this generator's part of the path made."""
     import contextlib
@@ -2977,14 +3013,408 @@ def phase_width_serving(rng, dev, counts, work):
     os.makedirs(os.path.join(data, "trainB"))
     before = counts()
     try:
-        train_cli.main(["--data_root", data, "--channels", "32",
+        train_cli.main(["--data_root", data, "--channels", "64",
                         "--save_dir", os.path.join(work, "widths_models")])
     except ValueError as e:
-        log(f"[width serving] train --channels 32 on the card: {e}")
+        log(f"[width serving] train --channels 64 on the card: {e}")
     else:
-        raise AssertionError("train --channels 32 did not raise")
+        raise AssertionError("train --channels 64 did not raise")
     if counts() != before:
-        raise AssertionError("train --channels 32 launched a kernel")
+        raise AssertionError("train --channels 64 launched a kernel")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# the c8 and c32 generators trained
+# ---------------------------------------------------------------------------
+
+def phase_width_train_kernels(rng, dev):
+    """Rows 11 and 12 at the shapes of a bf16 train step of the c8 and c32
+    generators (``width_train_kernel_cases``): forward and backward kernel
+    vs plain, fp32 (TF32 off) and bf16, on the three inputs of
+    ``train_kernel_inputs`` (one all-zero window each), plus the fp32
+    backward of row 11 on SMALL_QK_DRAWS more draws of the small-q, k input
+    at every shape; on the random input kernel, plain and the SDPA
+    yardstick timed in turns (events, then kernel and SDPA in device time).
+    Returns {channels: {kernel: record}}, a record per generator forward
+    and backward at batch TRAIN_BATCH: ms, device_ms, plain_ms, library_ms
+    (row 12: SDPA fwd + bwd) or sdpa_mid_ms (row 11), bound_ms, bound_by,
+    max_abs_err (fp32), max_abs_err_bf16, shapes."""
+    import torch
+
+    per_fwd = {"up2": 1, "down1/up1": 2, "down2": 1}
+    out = {}
+    for channels in WIDTH_CHANNELS:
+        rec = out[channels] = {}
+        worst = {n: {torch.float32: 0.0, torch.bfloat16: 0.0}
+                 for n in ("attention", "mhsa")}
+        times = {}
+        for name, stage, shape, heads in width_train_kernel_cases(channels):
+            for label, host, g_host in train_kernel_inputs(rng, name, shape):
+                for dtype in (torch.float32, torch.bfloat16):
+                    err, derr, ms = check_train_kernel(
+                        f"[width train kernels] c{channels}", name, stage,
+                        shape, heads, label, host, g_host, dtype, dev)
+                    worst[name][dtype] = max(worst[name][dtype], err, derr)
+                    if ms and dtype == torch.bfloat16:
+                        times[(name, stage)] = ms
+            if name == "attention":
+                for draw in range(SMALL_QK_DRAWS):
+                    _, host, g_host = train_kernel_inputs(rng, name, shape)[2]
+                    _, derr, _ = check_train_kernel(
+                        f"[width train kernels] c{channels} draw {draw + 2}",
+                        name, stage, shape, heads, "small q, k", host, g_host,
+                        torch.float32, dev)
+                    worst[name][torch.float32] = max(
+                        worst[name][torch.float32], derr)
+        cases = width_train_kernel_cases(channels)
+        att = [(st, shape) for n, st, shape, _ in cases if n == "attention"]
+        ms = [sum(per_fwd[st] * times[("attention", st)][i] for st, _ in att)
+              for i in range(5)]
+        shapes = [shape for st, shape in att for _ in range(per_fwd[st])]
+        b_ms, b_by = bound(*train_mid_work(shapes))
+        rec["window_attention_train"] = dict(
+            ms=ms[0], plain_ms=ms[1], sdpa_mid_ms=ms[2], device_ms=ms[3],
+            library_ms=None, bound_ms=b_ms, bound_by=b_by,
+            max_abs_err=worst["attention"][torch.float32],
+            max_abs_err_bf16=worst["attention"][torch.bfloat16], shapes=shapes)
+        _, _, shape, heads = cases[-1]
+        mh = times[("mhsa", "block")]
+        b_ms, b_by = bound(*mhsa_work(shape, heads))
+        rec["window_mhsa_train"] = dict(
+            ms=mh[0], plain_ms=mh[1], library_ms=mh[2], device_ms=mh[3],
+            library_device_ms=mh[4], bound_ms=b_ms, bound_by=b_by,
+            max_abs_err=worst["mhsa"][torch.float32],
+            max_abs_err_bf16=worst["mhsa"][torch.bfloat16], shapes=[shape],
+            heads=heads)
+    return out
+
+
+def phase_fast_vjp(rng, dev):
+    """c32's down2 under grad (LocalAttention at C = 128, no training
+    kernel): ``window_channel_attention_fast_vjp`` at FAST_VJP_SHAPE on the
+    three inputs of ``attention_stress_inputs`` (one all-zero window; small
+    q and k), fp32 (TF32 off) and bf16, the forward and the five gradients
+    of <y, g> on the card against the same Function on the CPU: the forward
+    at FP32_TOL and at the bf16 bound; the gradients, which sum over the
+    B H W positions (the weights') or over 3C and C channels (x's), at
+    TRAIN_GRAD_FP32_TOL in fp32 and BF16_RTOL in bf16, each relative to the
+    largest of its tensor (at least 1). Then, bf16 on the random input,
+    forward + backward of the route against the plain formulation
+    (``window_channel_attention_plain`` in autograd) in turns, and the route
+    in device time.
+    Returns {ms, plain_ms, device_ms, max_abs_err, max_rel_grad_err,
+    max_rel_grad_err_bf16, shape}."""
+    import torch
+
+    from multi_style_transfer_gan_tpu_torch.ops.kernels import (
+        window_channel_attention_fast_vjp, window_channel_attention_plain,
+    )
+
+    shape = FAST_VJP_SHAPE
+    names = ("y", "dx", "dwqkv", "dbqkv", "dwproj", "dbproj")
+    rec = {"shape": shape, "max_abs_err": 0.0, "max_rel_grad_err": 0.0,
+           "max_rel_grad_err_bf16": 0.0}
+    for label, x, ws in attention_stress_inputs(rng, shape):
+        g = rng.standard_normal(shape).astype(np.float32)
+        for dtype in (torch.float32, torch.bfloat16):
+            outs = {}
+            for key, device in (("card", dev), ("cpu", torch.device("cpu"))):
+                args = [torch.from_numpy(np.asarray(a, np.float32)).to(
+                    device, dtype).requires_grad_(True) for a in [x] + ws]
+                y = window_channel_attention_fast_vjp(*args)
+                grads = torch.autograd.grad(
+                    y, args, torch.from_numpy(g).to(device, dtype))
+                outs[key] = [t.detach().float().cpu() for t in (y, *grads)]
+            card, cpu = outs["card"], outs["cpu"]
+            err, bf16_ok = compare(card[0], cpu[0], dtype)
+            fp32 = dtype == torch.float32
+            ok = err <= FP32_TOL if fp32 else bf16_ok
+            rel = [((a - b).abs().max() / max(1.0, b.abs().max().item())).item()
+                   for a, b in zip(card[1:], cpu[1:])]
+            ok = ok and max(rel) <= (TRAIN_GRAD_FP32_TOL if fp32 else BF16_RTOL)
+            ok = ok and all(bool(torch.isfinite(t).all()) for t in card)
+            log(f"[fast vjp] C = 128 route {shape} {label} {str(dtype)[6:]}, "
+                f"card vs CPU: y max|d| {err:.3e}; gradients max|d| relative "
+                f"to their largest " + ", ".join(
+                    f"{n} {r:.3e}" for n, r in zip(names[1:], rel)))
+            if not ok:
+                raise AssertionError(f"fast-VJP route {label} {dtype}: card "
+                                     f"and CPU disagree")
+            if fp32:
+                rec["max_abs_err"] = max(rec["max_abs_err"], err)
+                rec["max_rel_grad_err"] = max(rec["max_rel_grad_err"], max(rel))
+            else:
+                rec["max_rel_grad_err_bf16"] = max(
+                    rec["max_rel_grad_err_bf16"], max(rel))
+
+    x, ws = attention_stress_inputs(rng, shape)[0][1:]
+    args = [torch.from_numpy(np.asarray(a, np.float32)).to(
+        dev, torch.bfloat16).requires_grad_(True) for a in [x] + ws]
+    g = torch.randn(shape, device=dev, dtype=torch.bfloat16)
+
+    def run(fn):
+        return lambda: torch.autograd.grad(fn(*args), args, g)
+
+    rec["ms"], rec["plain_ms"] = time_pair(
+        run(window_channel_attention_fast_vjp),
+        run(window_channel_attention_plain))
+    rec["device_ms"] = device_ms(run(window_channel_attention_fast_vjp))
+    log(f"[fast vjp] bf16 {shape} forward + backward: route {rec['ms']:.4f} ms "
+        f"({rec['device_ms']:.4f} ms device), plain formulation "
+        f"{rec['plain_ms']:.4f} ms ({card_line()})")
+    return rec
+
+
+def train_step_runner(state, pairs, **kw):
+    """A function that runs one bf16 CycleGAN step on the next pair."""
+    import torch
+
+    from multi_style_transfer_gan_tpu_torch.ops import to_model_range
+    from multi_style_transfer_gan_tpu_torch.train import cyclegan_train_step
+
+    it = {"i": 0}
+
+    def step():
+        a, b = pairs[it["i"] % len(pairs)]
+        it["i"] += 1
+        return cyclegan_train_step(state, to_model_range(a), to_model_range(b),
+                                   compute_dtype=torch.bfloat16, **kw)[1]
+    return step
+
+
+def launches_of(step, counts, expected, what):
+    """Runs ``step`` once and checks its launches against ``expected``."""
+    import torch
+
+    n0 = counts()
+    out = step()
+    torch.cuda.synchronize()
+    per_step = {n: counts()[n] - n0[n] for n in expected}
+    log(f"{what}: launches in one step: {per_step}")
+    if per_step != expected:
+        raise AssertionError(f"{what}: launches per step {per_step}, "
+                             f"predicted {expected}")
+    return out
+
+
+def fp32_step_card_vs_cpu(dev, channels, what, host=None, **kw):
+    """One fp32 CycleGAN step at ``channels`` (128^2, batch 2) on the card
+    and on the CPU from the same init and uint8 images (``host``, an (A, B)
+    pair on the CPU; by default drawn from a generator of this width's
+    own): the five losses, relative, at TRAIN_FP32_RTOL. Returns the card's
+    launches."""
+    import torch
+
+    from multi_style_transfer_gan_tpu_torch.ops import kernels as K
+    from multi_style_transfer_gan_tpu_torch.ops import to_model_range
+    from multi_style_transfer_gan_tpu_torch.train import (
+        cyclegan_init_state, cyclegan_train_step,
+    )
+
+    if host is None:
+        rng = np.random.default_rng(SEED + channels)
+        host = [torch.from_numpy(np.stack(smooth_images(rng, 2, (128, 128))))
+                for _ in range(2)]
+    out, launched = {}, None
+    for key, device in (("card", dev), ("cpu", torch.device("cpu"))):
+        st = cyclegan_init_state(SEED + 1, channels, 1, device=device)
+        a, b = (to_model_range(t.to(device)) for t in host)
+        n0 = sum(k.launches for k in K.KERNELS)
+        out[key] = {k: float(v) for k, v in cyclegan_train_step(
+            st, a, b, compute_dtype=torch.float32, **kw)[1].items()}
+        if key == "card":
+            launched = sum(k.launches for k in K.KERNELS) - n0
+    rel = {k: abs(out["card"][k] - out["cpu"][k]) / abs(out["cpu"][k])
+           for k in out["cpu"]}
+    log(f"{what} fp32 c{channels} 128^2 batch 2, card vs CPU: {out['card']} "
+        f"vs {out['cpu']}; max relative difference {max(rel.values()):.2e}; "
+        f"{launched} kernel launches on the card")
+    if max(rel.values()) > TRAIN_FP32_RTOL:
+        raise AssertionError(f"{what}: fp32 step on the card disagrees with "
+                             f"the CPU: {rel}")
+    return launched
+
+
+def phase_width_train(rng, dev, counts, work):
+    """The c8 and c32 generators trained through the entry points. For each
+    width: the bf16 CycleGAN step at 256^2, batch TRAIN_BATCH, pair
+    batching, from a seeded fresh init (launches per step against
+    WIDTH_TRAIN_LAUNCHES_PER_STEP, finite losses, G, D and u moved, ms/step
+    over 10 steps after 3 warm-up); one fp32 step card vs CPU (128^2, batch
+    2) and the step's profiler device time over 5 more; the enhanced bf16
+    pretrain step at 256^2, batch TRAIN_BATCH
+    (launches per step against WIDTH_PRETRAIN_LAUNCHES_PER_STEP, ms/step,
+    device idle share) and two fp32 pretrain steps card vs CPU (128^2,
+    batch 2). Then at c8 one bf16 step with the VGG16 perceptual hook
+    (launches equal to the hookless step's); the train CLI at --channels 32
+    and the pretrain CLI at --model enhanced --channels 8, one epoch each on
+    a small folder; one fp32 step with ``fast_attention=False`` (the CLI's
+    --no_fast_attention) card vs CPU at c8 with no kernel launch; c4 and
+    c64 refused before any work. Returns {channels: {"step_ms",
+    "step_device_ms", "step_idle", "pretrain": (ms, device ms, idle),
+    "launches"}}."""
+    import contextlib
+
+    import torch
+    from PIL import Image
+
+    from multi_style_transfer_gan_tpu_torch.cli import pretrain as pretrain_cli
+    from multi_style_transfer_gan_tpu_torch.cli import train as train_cli
+    from multi_style_transfer_gan_tpu_torch.data import random_patch_mask
+    from multi_style_transfer_gan_tpu_torch.ops import to_model_range
+    from multi_style_transfer_gan_tpu_torch.train import (
+        check_kernel_width, cyclegan_init_state, pretrain_init_state,
+        pretrain_train_step,
+    )
+    from multi_style_transfer_gan_tpu_torch.train.perceptual import (
+        make_extra_g_loss, vgg16_from_torchvision_sd,
+    )
+
+    out = {}
+    gen = torch.Generator().manual_seed(SEED + 3)
+    for channels in WIDTH_CHANNELS:
+        start = counts()
+        tag = f"[width train] c{channels}"
+        state = cyclegan_init_state(SEED, channels, 1, device=dev)
+        before = {n: {k: v.clone() for k, v in getattr(state, n)
+                      .state_dict().items()}
+                  for n in ("G_AB", "G_BA", "D_A", "D_B")}
+        step = train_step_runner(state, uint8_pairs(
+            rng, 2, TRAIN_BATCH, WIDTH_TRAIN_SIZE, dev))
+        launches_of(step, counts, WIDTH_TRAIN_LAUNCHES_PER_STEP[channels],
+                    f"{tag} bf16 step")
+        for _ in range(2):   # warm-up: 3 steps in all
+            step()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(10):
+            losses = step()
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1000 / 10
+        step_dev = device_ms(step, iters=5, warmup=0)
+        idle = max(0.0, 1.0 - step_dev / ms)
+        vals = {k: float(v) for k, v in losses.items()}
+        log(f"{tag} bf16 {WIDTH_TRAIN_SIZE}^2 batch {TRAIN_BATCH}, pair "
+            f"batching: {ms:.2f} ms/step, {TRAIN_BATCH * 1000 / ms:.1f} image "
+            f"pairs/s, device {step_dev:.2f} ms/step (torch.profiler), device "
+            f"idle share {idle:.1%} ({card_line()}); losses after "
+            f"{state.step} steps {vals}; peak memory "
+            f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+        if not all(np.isfinite(v) for v in vals.values()):
+            raise AssertionError(f"{tag}: non-finite losses {vals}")
+        for name, sd in before.items():
+            now = getattr(state, name).state_dict()
+            if not any(not torch.equal(now[k], v) for k, v in sd.items()):
+                raise AssertionError(f"{tag}: {name} did not move")
+            if name[0] == "D" and torch.equal(now["main.2.weight_u"],
+                                              sd["main.2.weight_u"]):
+                raise AssertionError(f"{tag}: {name} spectral-norm u did not "
+                                     f"move")
+        if channels == min(WIDTH_CHANNELS):
+            vgg = vgg16_from_torchvision_sd(random_vgg16_sd(), device=dev)
+            hooked = train_step_runner(
+                state, uint8_pairs(rng, 1, TRAIN_BATCH, WIDTH_TRAIN_SIZE, dev),
+                extra_g_loss=make_extra_g_loss(vgg))
+            vals = {k: float(v) for k, v in launches_of(
+                hooked, counts, WIDTH_TRAIN_LAUNCHES_PER_STEP[channels],
+                f"{tag} bf16 step with the VGG16 hook").items()}
+            if not all(np.isfinite(v) for v in vals.values()):
+                raise AssertionError(f"{tag}: non-finite hooked losses {vals}")
+            del vgg, hooked
+        del state, step
+        fp32_step_card_vs_cpu(dev, channels, f"{tag} train step")
+
+        state = pretrain_init_state(SEED, channels, model="enhanced",
+                                    device=dev)
+        size = WIDTH_TRAIN_SIZE
+        imgs = [torch.from_numpy(np.stack(smooth_images(
+            rng, TRAIN_BATCH, (size, size)))).to(dev) for _ in range(2)]
+        masks = [random_patch_mask(TRAIN_BATCH, size, generator=gen,
+                                   device=dev) for _ in range(2)]
+        pstep = pretrain_steps(state, imgs, masks, torch.bfloat16)
+        launches_of(pstep, counts, WIDTH_PRETRAIN_LAUNCHES_PER_STEP[channels],
+                    f"{tag} enhanced pretrain bf16 step")
+        pre = time_pretrain(pstep, f"c{channels} enhanced bf16 {size}^2 "
+                            f"batch {TRAIN_BATCH}", TRAIN_BATCH)
+        del state, pstep
+        host = [torch.from_numpy(np.stack(smooth_images(rng, 2, (128, 128))))
+                for _ in range(2)]
+        hmasks = [random_patch_mask(2, 128, generator=gen, device="cpu")
+                  for _ in range(2)]
+        losses = []
+        for device in (dev, torch.device("cpu")):
+            st = pretrain_init_state(SEED + 1, channels, model="enhanced",
+                                     device=device)
+            losses.append([float(pretrain_train_step(
+                st, to_model_range(x.to(device)), m.to(device))[1])
+                for x, m in zip(host, hmasks)])
+        rel = max(abs(a - b) / abs(b) for a, b in zip(*losses))
+        log(f"{tag} enhanced pretrain fp32 128^2 batch 2, two steps card vs "
+            f"CPU: {losses[0]} vs {losses[1]}; max relative difference "
+            f"{rel:.2e} (limit {PRETRAIN_FP32_RTOL})")
+        if rel > PRETRAIN_FP32_RTOL:
+            raise AssertionError(f"{tag}: fp32 pretrain steps, card and CPU "
+                                 f"disagree")
+        end = counts()
+        out[channels] = {"step_ms": ms, "step_device_ms": step_dev,
+                         "step_idle": idle, "pretrain": pre,
+                         "launches": {n: end[n] - start[n] for n in end}}
+
+    # the entry points at the new widths: one epoch each on a small folder
+    def run(fn, argv, what):
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            rc = fn(argv)
+        log(f"[width train] {what}: exit {rc}, {time.perf_counter() - t0:.2f} "
+            f"s wall; its output:")
+        for line in buf.getvalue().splitlines():
+            log(f"    {line}")
+        if rc != 0:
+            raise AssertionError(f"{what} exited {rc}")
+
+    data = os.path.join(work, "width_train_data")
+    for domain in ("A", "B"):
+        d = os.path.join(data, f"train{domain}")
+        os.makedirs(d)
+        for i in range(8):
+            Image.fromarray(smooth_images(rng, 1, (256, 256))[0]).save(
+                os.path.join(d, f"{i:02d}.jpg"), quality=92)
+    models = os.path.join(work, "width_train_models")
+    run(train_cli.main, ["--data_root", data, "--save_dir", models,
+                         "--channels", str(max(WIDTH_CHANNELS)),
+                         "--num_epochs", "1", "--batch_size", "4",
+                         "--checkpoint_every", "1", "--log_every", "1"],
+        f"train --channels {max(WIDTH_CHANNELS)}")
+    run(pretrain_cli.main, ["--data_root", data, "--save_dir", models,
+                            "--model", "enhanced",
+                            "--channels", str(min(WIDTH_CHANNELS)),
+                            "--num_epochs", "1", "--batch_size", "4",
+                            "--checkpoint_every", "1", "--log_every", "1"],
+        f"pretrain --model enhanced --channels {min(WIDTH_CHANNELS)}")
+    for name in ("G_AB_epoch_1.pth", "discriminators_epoch_1.pth",
+                 "generator_pretrain_epoch_1.pth"):
+        if not os.path.exists(os.path.join(models, name)):
+            raise AssertionError(f"the width CLIs did not write {name}")
+
+    launched = fp32_step_card_vs_cpu(dev, min(WIDTH_CHANNELS),
+                                     "[width train] --no_fast_attention step",
+                                     fast_attention=False)
+    if launched:
+        raise AssertionError(f"the fast_attention=False step launched "
+                             f"{launched} kernels")
+    for channels in (4, 64):
+        before = counts()
+        try:
+            check_kernel_width(channels, "CycleGAN training")
+            cyclegan_init_state(SEED, channels, 1, device=dev)
+        except ValueError as e:
+            log(f"[width train] c{channels} on the card: {e}")
+        else:
+            raise AssertionError(f"c{channels} training was not refused")
+        if counts() != before:
+            raise AssertionError(f"the c{channels} refusal launched a kernel")
     return out
 
 
@@ -3028,6 +3458,10 @@ def run(work) -> int:
     width_rng = np.random.default_rng(SEED)
     width_kernels = phase_width_kernels(width_rng, dev)
     train_err, train_times = phase_train_kernels(rng, dev)
+    # the c8 and c32 training phases draw from their own generator too
+    width_train_rng = np.random.default_rng(SEED + 12)
+    width_train_kernels = phase_width_train_kernels(width_train_rng, dev)
+    fast_vjp = phase_fast_vjp(width_train_rng, dev)
     stages_err, stage_times = phase_stages(rng, dev)
     ablation_err = phase_ablation_inputs(dev)
 
@@ -3094,6 +3528,15 @@ def run(work) -> int:
         raise AssertionError(f"training path launches {training}: a kernel "
                              f"of the path never launched")
 
+    K.reset_launch_counts()   # the c8 and c32 training path starts here
+    width_train = phase_width_train(width_train_rng, dev, counts, work)
+    width_training = counts()  # ...and ends here
+    log(f"[width training path] launches: {width_training}")
+    if min(width_training[n] for n in TRAIN_LAUNCHES_PER_STEP) == 0:
+        raise AssertionError(f"width training path launches "
+                             f"{width_training}: a kernel of the path never "
+                             f"launched")
+
     K.reset_launch_counts()   # the pretraining path starts here
     plain_rates = phase_plain_serving(rng, dev)
     pretrain = phase_pretrain_step(rng, dev)
@@ -3146,8 +3589,8 @@ def run(work) -> int:
         raise AssertionError(f"ablation path launches {ablation}: the stage "
                              f"kernel never launched")
     launches = {n: serving[n] + widths[n] + single[n] + training[n]
-                + pretraining[n] + evaluation[n] + gui[n] + perceptual[n]
-                + ablation[n] for n in counted}
+                + width_training[n] + pretraining[n] + evaluation[n] + gui[n]
+                + perceptual[n] + ablation[n] for n in counted}
 
     # inference kernels: per forward at canvas 256, batch 8, bf16 (the four
     # LocalAttention shapes, NHWC or packed; the block's one shape; the five
@@ -3257,26 +3700,49 @@ def run(work) -> int:
          "max_abs_err_ablation_bf16": ablation_err},
     ]}
     # per generator width: the serving kernels at c16 (this entry's own
-    # numbers, launches of every path but the width path) and at c8 and c32
-    # (phase_width_kernels at their canvas-256 forward, launches of the
-    # width path)
+    # numbers, launches of every path but the two width paths) and at c8
+    # and c32 (phase_width_kernels at their canvas-256 forward, launches of
+    # the width serving path, and of the width training path beside them);
+    # the training kernels alike (phase_width_train_kernels per generator
+    # forward and backward at 256^2, launches of the width training path)
     width_keys = ("ms", "device_ms", "plain_ms", "library_ms", "bound_ms",
                   "bound_by", "max_abs_err")
+    train_rows = {"window_attention_train": ("window_attention_mid_fwd",
+                                             "window_attention_mid_bwd"),
+                  "window_mhsa_train": ("window_mhsa_fwd", "window_mhsa_bwd")}
     for entry in report["kernels"]:
         (b_ms, b_by), library, sdpa_mid = yardsticks[entry["name"]]
         entry.update(bound_ms=b_ms, bound_by=b_by, library_ms=library)
-        if entry["name"] in width_kernels[WIDTH_CHANNELS[0]]:
-            name = entry["name"]
+        name = entry["name"]
+        if name in width_kernels[WIDTH_CHANNELS[0]]:
             entry["widths"] = {"c16": {
                 **{k: entry.get(k) for k in width_keys},
-                "launches": entry["launches"] - widths[name]}}
+                "launches": entry["launches"] - widths[name]
+                - width_training.get(name, 0)}}
             for c in WIDTH_CHANNELS:
                 rec = width_kernels[c][name]
                 entry["widths"][f"c{c}"] = {
                     **{k: rec.get(k) for k in width_keys},
                     "max_abs_err_bf16": rec.get("max_abs_err_bf16"),
                     "launches": width_serving[c]["launches"][name],
+                    "training_launches": width_train[c]["launches"].get(name, 0),
                     "shapes": rec["shapes"]}
+        if name in train_rows:
+            ran = lambda launched: sum(launched[n] for n in train_rows[name])
+            entry["widths"] = {"c16": {
+                **{k: entry.get(k) for k in width_keys},
+                "launches": entry["launches"] - ran(width_training)}}
+            for c in WIDTH_CHANNELS:
+                rec = width_train_kernels[c][name]
+                entry["widths"][f"c{c}"] = {
+                    **{k: rec.get(k) for k in width_keys + (
+                        "max_abs_err_bf16", "sdpa_mid_ms", "heads", "shapes")
+                       if k in rec},
+                    "launches": ran(width_train[c]["launches"])}
+        if name == "window_channel_attention":
+            # c32's down2 under grad: this kernel forward, the backward
+            # recomputed through the plain version (fwd + bwd at batch 8)
+            entry["fast_vjp_c128"] = fast_vjp
         if sdpa_mid is not None:
             entry["sdpa_mid_ms"] = sdpa_mid
         dev_ms = entry.get("device_ms")
@@ -3337,6 +3803,31 @@ def run(work) -> int:
                         f"device, plain {r['plain_ms']:.4f} ms, bound "
                         f"{r['bound_ms']:.6f} ms by {r['bound_by']})"
                         for n, r in width_kernels[c].items()))
+    for c in WIDTH_CHANNELS:
+        t = width_train[c]
+        rows = width_train_kernels[c]
+        log(f"[summary] {card}; c{c} training: bf16 CycleGAN step 256^2 batch "
+            f"{TRAIN_BATCH} {t['step_ms']:.2f} ms/step "
+            f"({TRAIN_BATCH * 1000 / t['step_ms']:.1f} image pairs/s; "
+            f"{t['step_device_ms']:.2f} ms device, idle {t['step_idle']:.1%}); "
+            f"enhanced "
+            f"pretrain step bf16 256^2 batch {TRAIN_BATCH} "
+            f"{t['pretrain'][0]:.2f} ms/step ({t['pretrain'][1]:.2f} ms device, "
+            f"idle {t['pretrain'][2]:.1%}); training kernels fwd + bwd per "
+            f"generator at batch {TRAIN_BATCH}, bf16: "
+            + "; ".join(f"{n} {r['ms']:.4f} ms ({r['device_ms']:.4f} ms device, "
+                        f"plain {r['plain_ms']:.4f} ms, bound "
+                        f"{r['bound_ms']:.6f} ms by {r['bound_by']})"
+                        for n, r in rows.items()))
+    c32 = width_train[max(WIDTH_CHANNELS)]
+    share = 6 * fast_vjp["ms"] / c32["step_ms"]
+    dev_share = 6 * fast_vjp["device_ms"] / c32["step_device_ms"]
+    log(f"[summary] {card}; c32's down2 under grad (C = 128 fast-VJP route) "
+        f"fwd + bwd at {fast_vjp['shape']}, bf16: {fast_vjp['ms']:.4f} ms "
+        f"({fast_vjp['device_ms']:.4f} ms device; plain formulation "
+        f"{fast_vjp['plain_ms']:.4f} ms); 6 batch-8 calls a step (4 forwards "
+        f"with grad, 2 of them pair-batched) are ~{share:.1%} of the c32 "
+        f"step's host clock and ~{dev_share:.1%} of its device time")
     p_with, p_without, vgg_share = perceptual_ms
     log(f"[summary] {card}; GUI tab wall per image on the card (decode, "
         f"generator, post chain, restore and save; 3 photos after a warm-up): "

@@ -42,12 +42,14 @@ def main(argv=None):
     p.add_argument("--fp32", action="store_true",
                    help="full fp32 compute (overrides the bf16 default)")
     p.add_argument("--fast_attention", action="store_true", default=True,
-                   help="accepted for script compatibility: on the CUDA "
-                        "device the hand-written training kernels always "
-                        "run, with pair-batched G/D calls")
+                   help="the hand-written training kernels (the default), "
+                        "with pair-batched G/D calls")
     p.add_argument("--no_fast_attention", action="store_true",
-                   help="not ported: the port has no path that skips its "
-                        "kernels on the card; exits nonzero")
+                   help="train through the plain PyTorch formulation of the "
+                        "attention and the transformer block instead (the "
+                        "JAX package's XLA path), without pair batching; no "
+                        "kernel launches (overrides the fast-attention "
+                        "default)")
     p.add_argument("--remat", action="store_true",
                    help="recompute generator stages and blocks in the "
                         "backward (torch.utils.checkpoint); off by default")
@@ -70,10 +72,6 @@ def main(argv=None):
                         "rerun resumes from the latest")
     args = p.parse_args(argv)
 
-    if args.no_fast_attention:
-        print("error: --no_fast_attention is not ported: on the card the "
-              "port always trains through its kernels", file=sys.stderr)
-        return 2
     if args.image_size % 32:
         # the 1/4-scale token grid must divide the transformer's window of 8
         print(f"error: --image_size must be a multiple of 32, got "
@@ -127,6 +125,7 @@ def main(argv=None):
                                 pretrained_params=pre,
                                 decay_steps=decay_steps, device=device)
     dtype = torch.float32 if args.fp32 else torch.bfloat16
+    fast = args.fast_attention and not args.no_fast_attention
     pools = None
     if args.pool_size > 0:
         pools = ((pool_init(args.pool_size, args.image_size, dtype,
@@ -159,7 +158,8 @@ def main(argv=None):
                 # uint8 crosses to the card; the model range is made there
                 out = cyclegan_train_step(
                     state, to_model_range(a), to_model_range(b),
-                    compute_dtype=dtype, remat=args.remat, pools=pools)
+                    compute_dtype=dtype, remat=args.remat,
+                    fast_attention=fast, pools=pools)
                 state, losses = out[:2]
                 if pools is not None:
                     pools = out[2]

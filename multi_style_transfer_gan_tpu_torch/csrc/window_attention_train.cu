@@ -57,14 +57,33 @@
 // have norms ~1e-3 multiplies the error of dqn and dkn by inv ~ 1e3: with
 // single bf16 terms the backward misses the bf16 bound by 8.8-30x, with
 // only dL split by 6.2-13x, with the three split it stays at 0.65-0.84 of
-// it (devtools/train_kernel_rounding.py). S enters out = v S^T and dv =
-// dO S as one bf16 term. v and dO are the bf16 inputs themselves.
+// it (devtools/train_kernel_rounding.py). S enters dv = dO S as one bf16
+// term, and out = v S^T as one term too but at C = 8, where a softmax over
+// 8 keys puts ~1/8 on each and one term takes the saturated input (qkv x 8)
+// to 1.08 of the bound at (8, 256, 256, 24) (emulated); there S enters as a
+// pair. v and dO are the bf16 inputs themselves.
 //
-// fp32 stays exact fp32: the fp32 instantiation keeps the first design's FMA
-// bodies unchanged (no tensor cores, no TF32): one block of 256 threads per
-// tile of NW = 64 / C windows, every intermediate fp32 in shared memory with
-// odd row strides, a warp per softmax row. Windows past the end of the last
-// tile compute on zeros and are not stored (both designs).
+// Widths. C = 16, 32, 64 (the c16 generator; c32's down1, up1, up2) and 8
+// (the c8 generator's up2). In bf16, C = 8 runs padded to 16 channels
+// inside (MmaLayout); the fp32 bodies take it as it is. c32's down2 (C =
+// 128) has no training kernel here, as it has none in the JAX package
+// (_group_geometry takes C <= 64): its gradient goes the JAX package's way,
+// ops/kernels/window_attention_fast_vjp.py.
+//
+// fp32 stays exact fp32 in the forward: the fp32 instantiation keeps the
+// first design's FMA bodies (no tensor cores, no TF32): one block of 256
+// threads per tile of NW = 64 / C windows, every intermediate in shared
+// memory with odd row strides, a warp per softmax row. The fp32 backward
+// runs the same bodies with every intermediate in double and rounds once
+// at the store. A window whose q and k have norms ~1e-3 has gradients ~4e3
+// at C = 8 (~1.2e3 at 16), where one fp32 ulp is 4.9e-4: two fp32
+// evaluations in different orders (this body against cuBLAS in the plain
+// version) then differ by more than the 2e-4 they are held to, and the
+// plain version alone missed a float64 evaluation by 5.1e-4 at C = 8 and
+// 2.4e-4 at C = 16 (devtools/train_kernel_rounding.py --fp32). Both now
+// carry the sums in double, and agree to the last fp32 rounding. Windows
+// past the end of the last tile compute on zeros and are not stored (both
+// designs).
 #include <climits>
 #include <cmath>
 
@@ -120,33 +139,57 @@ __device__ __forceinline__ long long pixel_offset(long long win, int p, int H, i
 // fp32: the FMA bodies
 // ---------------------------------------------------------------------------
 
-// Loads the tile's q, k, v as fp32 and normalizes q and k in place.
+// The sums of the FMA bodies are taken in A: float in the forward, double in
+// the backward (see the header: the small-norm windows' gradients).
+__device__ __forceinline__ float fma_a(float a, float b, float c) { return fmaf(a, b, c); }
+__device__ __forceinline__ double fma_a(double a, double b, double c) { return fma(a, b, c); }
+__device__ __forceinline__ float exp_a(float x) { return expf(x); }
+__device__ __forceinline__ double exp_a(double x) { return exp(x); }
+__device__ __forceinline__ float sqrt_a(float x) { return sqrtf(x); }
+__device__ __forceinline__ double sqrt_a(double x) { return sqrt(x); }
+
+template <typename A>
+__device__ __forceinline__ A warp_sum_a(A v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
+template <typename A>
+__device__ __forceinline__ A warp_max_a(A v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) {
+    const A w = __shfl_xor_sync(0xffffffffu, v, o);
+    v = w > v ? w : v;
+  }
+  return v;
+}
+
+// Loads the tile's q, k, v as A and normalizes q and k in place.
 // inv[s][r] = 1 / max(|u|, eps), or 1 / eps for a zero vector; sel[s][r]
 // = 1 where u is nonzero and |u| > eps (s = 0 for q, 1 for k). Ends with
 // the block synchronized.
-template <typename T, int C>
-__device__ void load_normalize(const T* __restrict__ qkv, float* sQKV, float* sInv,
-                               float* sSel, long long win0, long long n_windows, int H,
-                               int W, float eps) {
+template <typename T, typename A, int C>
+__device__ void load_normalize(const T* __restrict__ qkv, A* sQKV, A* sInv, A* sSel,
+                               long long win0, long long n_windows, int H, int W, float eps) {
   using L = Layout<C>;
   const int tid = threadIdx.x;
   for (int e = tid; e < L::ROWS * 3 * C; e += kThreads) {
     const int r = e / (3 * C), c = e % (3 * C);
     const long long win = win0 + r / kP;
     sQKV[r * L::QS + c] =
-        win < n_windows ? to_f(qkv[pixel_offset(win, r % kP, H, W) * 3 * C + c]) : 0.f;
+        win < n_windows ? (A)to_f(qkv[pixel_offset(win, r % kP, H, W) * 3 * C + c]) : (A)0;
   }
   __syncthreads();
   for (int e = tid; e < 2 * L::ROWS; e += kThreads) {
     const int s = e / L::ROWS, r = e % L::ROWS;
-    const float* u = sQKV + r * L::QS + s * C;
-    float ss = 0.f;
+    const A* u = sQKV + r * L::QS + s * C;
+    A ss = 0;
 #pragma unroll 16
-    for (int c = 0; c < C; ++c) ss = fmaf(u[c], u[c], ss);
-    const bool nz = ss > 0.f;
-    const float n = sqrtf(nz ? ss : 1.f);
-    sInv[e] = 1.f / (nz ? fmaxf(n, eps) : eps);
-    if (sSel) sSel[e] = (nz && n > eps) ? 1.f : 0.f;
+    for (int c = 0; c < C; ++c) ss = fma_a(u[c], u[c], ss);
+    const bool nz = ss > (A)0;
+    const A n = sqrt_a(nz ? ss : (A)1);
+    sInv[e] = (A)1 / (nz ? (n > (A)eps ? n : (A)eps) : (A)eps);
+    if (sSel) sSel[e] = (nz && n > (A)eps) ? (A)1 : (A)0;
   }
   __syncthreads();
   for (int e = tid; e < L::ROWS * 2 * C; e += kThreads) {
@@ -158,32 +201,32 @@ __device__ void load_normalize(const T* __restrict__ qkv, float* sQKV, float* sI
 
 // S[n][c1][c2] = softmax over c2 of sum_t qn[t][c1] kn[t][c2], per window
 // n of the tile, max-subtracted. Ends with the block synchronized.
-template <int C>
-__device__ void gram_softmax(const float* sQKV, float* sS) {
+template <typename A, int C>
+__device__ void gram_softmax(const A* sQKV, A* sS) {
   using L = Layout<C>;
   const int tid = threadIdx.x;
   for (int e = tid; e < L::NW * C * C; e += kThreads) {
     const int n = e / (C * C), c1 = (e / C) % C, c2 = e % C;
-    const float* base = sQKV + n * kP * L::QS;
-    float acc = 0.f;
+    const A* base = sQKV + n * kP * L::QS;
+    A acc = 0;
 #pragma unroll
-    for (int t = 0; t < kP; ++t) acc = fmaf(base[t * L::QS + c1], base[t * L::QS + C + c2], acc);
+    for (int t = 0; t < kP; ++t) acc = fma_a(base[t * L::QS + c1], base[t * L::QS + C + c2], acc);
     sS[(n * C + c1) * L::GS + c2] = acc;
   }
   __syncthreads();
   const int warp = tid / 32, lane = tid % 32;
   for (int row = warp; row < L::NW * C; row += kWarps) {
-    float* g = sS + row * L::GS;
-    float m = -INFINITY;
-    for (int c = lane; c < C; c += 32) m = fmaxf(m, g[c]);
-    m = warp_max(m);
-    float sum = 0.f;
+    A* g = sS + row * L::GS;
+    A m = (A)-INFINITY;
+    for (int c = lane; c < C; c += 32) m = g[c] > m ? g[c] : m;
+    m = warp_max_a(m);
+    A sum = 0;
     for (int c = lane; c < C; c += 32) {
-      const float ev = expf(g[c] - m);
+      const A ev = exp_a(g[c] - m);
       g[c] = ev;
       sum += ev;
     }
-    sum = warp_sum(sum);
+    sum = warp_sum_a(sum);
     for (int c = lane; c < C; c += 32) g[c] = g[c] / sum;
   }
   __syncthreads();
@@ -198,8 +241,8 @@ mid_fwd_kernel(const T* __restrict__ qkv, T* __restrict__ out, int H, int W,
   float* sQKV = smem + L::F_QKV;
   float* sS = smem + L::F_S;
   const long long win0 = (long long)blockIdx.x * L::NW;
-  load_normalize<T, C>(qkv, sQKV, smem + L::F_INV, nullptr, win0, n_windows, H, W, eps);
-  gram_softmax<C>(sQKV, sS);
+  load_normalize<T, float, C>(qkv, sQKV, smem + L::F_INV, nullptr, win0, n_windows, H, W, eps);
+  gram_softmax<float, C>(sQKV, sS);
   // out[t][c1] = sum_c2 S[c1][c2] v[t][c2]
   for (int e = threadIdx.x; e < L::ROWS * C; e += kThreads) {
     const int r = e / C, c1 = e % C;
@@ -214,20 +257,23 @@ mid_fwd_kernel(const T* __restrict__ qkv, T* __restrict__ out, int H, int W,
   }
 }
 
+// Every intermediate in double (the fp32 instantiation): rounded once, at
+// the store of d(qkv).
 template <typename T, int C>
 __global__ void __launch_bounds__(kThreads)
 mid_bwd_kernel(const T* __restrict__ qkv, const T* __restrict__ dout, T* __restrict__ dqkv,
                int H, int W, long long n_windows, float eps) {
   using L = Layout<C>;
-  extern __shared__ float smem[];
-  float* sQKV = smem + L::B_QKV;
-  float* sDO = smem + L::B_DO;
-  float* sInv = smem + L::B_INV;
-  float* sSel = smem + L::B_SEL;
-  float* sDot = smem + L::B_DOT;
-  float* sS = smem + L::B_S;
-  float* sD = smem + L::B_D;
-  float* sDQK = smem + L::B_DQK;
+  using A = double;
+  extern __shared__ double smem_d[];
+  A* sQKV = smem_d + L::B_QKV;
+  A* sDO = smem_d + L::B_DO;
+  A* sInv = smem_d + L::B_INV;
+  A* sSel = smem_d + L::B_SEL;
+  A* sDot = smem_d + L::B_DOT;
+  A* sS = smem_d + L::B_S;
+  A* sD = smem_d + L::B_D;
+  A* sDQK = smem_d + L::B_DQK;
   const int tid = threadIdx.x;
   const long long win0 = (long long)blockIdx.x * L::NW;
 
@@ -235,19 +281,19 @@ mid_bwd_kernel(const T* __restrict__ qkv, const T* __restrict__ dout, T* __restr
     const int r = e / C, c = e % C;
     const long long win = win0 + r / kP;
     sDO[r * L::DS + c] =
-        win < n_windows ? to_f(dout[pixel_offset(win, r % kP, H, W) * C + c]) : 0.f;
+        win < n_windows ? (A)to_f(dout[pixel_offset(win, r % kP, H, W) * C + c]) : (A)0;
   }
-  load_normalize<T, C>(qkv, sQKV, sInv, sSel, win0, n_windows, H, W, eps);
-  gram_softmax<C>(sQKV, sS);  // the forward's S, recomputed
+  load_normalize<T, A, C>(qkv, sQKV, sInv, sSel, win0, n_windows, H, W, eps);
+  gram_softmax<A, C>(sQKV, sS);  // the forward's S, recomputed
 
   // dS[n][c1][c2] = sum_t dO[t][c1] v[t][c2]
   for (int e = tid; e < L::NW * C * C; e += kThreads) {
     const int n = e / (C * C), c1 = (e / C) % C, c2 = e % C;
-    float acc = 0.f;
+    A acc = 0;
 #pragma unroll
     for (int t = 0; t < kP; ++t) {
       const int r = n * kP + t;
-      acc = fmaf(sDO[r * L::DS + c1], sQKV[r * L::QS + 2 * C + c2], acc);
+      acc = fma(sDO[r * L::DS + c1], sQKV[r * L::QS + 2 * C + c2], acc);
     }
     sD[(n * C + c1) * L::GS + c2] = acc;
   }
@@ -256,11 +302,11 @@ mid_bwd_kernel(const T* __restrict__ qkv, const T* __restrict__ dout, T* __restr
   // softmax backward: dL = S (.) (dS - rowsum(S (.) dS)), one warp per row
   const int warp = tid / 32, lane = tid % 32;
   for (int row = warp; row < L::NW * C; row += kWarps) {
-    const float* s = sS + row * L::GS;
-    float* d = sD + row * L::GS;
-    float rs = 0.f;
-    for (int c = lane; c < C; c += 32) rs = fmaf(s[c], d[c], rs);
-    rs = warp_sum(rs);
+    const A* s = sS + row * L::GS;
+    A* d = sD + row * L::GS;
+    A rs = 0;
+    for (int c = lane; c < C; c += 32) rs = fma(s[c], d[c], rs);
+    rs = warp_sum_a(rs);
     for (int c = lane; c < C; c += 32) d[c] = s[c] * (d[c] - rs);
   }
   __syncthreads();
@@ -270,32 +316,33 @@ mid_bwd_kernel(const T* __restrict__ qkv, const T* __restrict__ dout, T* __restr
   // backward
   for (int e = tid; e < L::ROWS * C; e += kThreads) {
     const int r = e / C, c = e % C, n = r / kP;
-    const float* s = sS + n * C * L::GS;
-    const float* dl = sD + n * C * L::GS;
-    const float* u = sQKV + r * L::QS;
-    const float* g = sDO + r * L::DS;
-    float dv = 0.f, dq = 0.f, dk = 0.f;
+    const A* s = sS + n * C * L::GS;
+    const A* dl = sD + n * C * L::GS;
+    const A* u = sQKV + r * L::QS;
+    const A* g = sDO + r * L::DS;
+    A dv = 0, dq = 0, dk = 0;
 #pragma unroll 8
     for (int j = 0; j < C; ++j) {
-      dv = fmaf(s[j * L::GS + c], g[j], dv);
-      dq = fmaf(dl[c * L::GS + j], u[C + j], dq);
-      dk = fmaf(dl[j * L::GS + c], u[j], dk);
+      dv = fma(s[j * L::GS + c], g[j], dv);
+      dq = fma(dl[c * L::GS + j], u[C + j], dq);
+      dk = fma(dl[j * L::GS + c], u[j], dk);
     }
     sDQK[r * L::KS + c] = dq;
     sDQK[r * L::KS + C + c] = dk;
     const long long win = win0 + n;
-    if (win < n_windows) dqkv[pixel_offset(win, r % kP, H, W) * 3 * C + 2 * C + c] = from_f<T>(dv);
+    if (win < n_windows)
+      dqkv[pixel_offset(win, r % kP, H, W) * 3 * C + 2 * C + c] = from_f<T>((float)dv);
   }
   __syncthreads();
 
   // L2-normalize backward: du = (dun - un <un, dun> sel) * inv
   for (int e = tid; e < 2 * L::ROWS; e += kThreads) {
     const int s = e / L::ROWS, r = e % L::ROWS;
-    const float* un = sQKV + r * L::QS + s * C;
-    const float* dun = sDQK + r * L::KS + s * C;
-    float dot = 0.f;
+    const A* un = sQKV + r * L::QS + s * C;
+    const A* dun = sDQK + r * L::KS + s * C;
+    A dot = 0;
 #pragma unroll 16
-    for (int c = 0; c < C; ++c) dot = fmaf(un[c], dun[c], dot);
+    for (int c = 0; c < C; ++c) dot = fma(un[c], dun[c], dot);
     sDot[e] = dot * sSel[e];
   }
   __syncthreads();
@@ -303,9 +350,9 @@ mid_bwd_kernel(const T* __restrict__ qkv, const T* __restrict__ dout, T* __restr
     const int r = e / (2 * C), c = e % (2 * C), s = c / C;
     const long long win = win0 + r / kP;
     if (win >= n_windows) continue;
-    const float du = (sDQK[r * L::KS + c] - sQKV[r * L::QS + c] * sDot[s * L::ROWS + r]) *
-                     sInv[s * L::ROWS + r];
-    dqkv[pixel_offset(win, r % kP, H, W) * 3 * C + c] = from_f<T>(du);
+    const A du = (sDQK[r * L::KS + c] - sQKV[r * L::QS + c] * sDot[s * L::ROWS + r]) *
+                 sInv[s * L::ROWS + r];
+    dqkv[pixel_offset(win, r % kP, H, W) * 3 * C + c] = from_f<T>((float)du);
   }
 }
 
@@ -315,52 +362,68 @@ mid_bwd_kernel(const T* __restrict__ qkv, const T* __restrict__ dout, T* __restr
 
 using bf16 = __nv_bfloat16;
 
+// C = 8 runs padded to CP = 16 channels inside (m16n8k16 takes 16-deep
+// k-steps, and a Gram strip is 16 rows): the pad columns of q, k, v and dO
+// are staged as zeros, so qn, kn and the pad rows and columns of dS are 0;
+// the pad keys of the Gram are -inf before the softmax, so S is 0 there and
+// dL is 0 on the pad keys; the pad rows of S (uniform over the real keys)
+// meet zero columns of dO in dv = dO S, and the pad columns of out and
+// d(qkv) are never stored.
 template <int C>
 struct MmaLayout {
-  static constexpr int WPW = C / 16;                    // warps per window
+  static constexpr int CP = C < 16 ? 16 : C;            // channels inside
+  static constexpr int WPW = CP / 16;                   // warps per window
   static constexpr int NWR = kWarps / WPW;              // windows per round
-  static constexpr int ROUNDS = C == 16 ? 4 : C == 32 ? 2 : 1;
+  static constexpr int ROUNDS = CP == 16 ? 4 : CP == 32 ? 2 : 1;
   static constexpr int NWB = NWR * ROUNDS;              // windows per block
-  static constexpr int NT = C / 8;                      // n-tiles of a Gram row strip
-  static constexpr int XS = 3 * C + 8;                  // qkv row (qn hi, kn hi, v)
-  static constexpr int LS = 2 * C + 8;                  // qn lo, kn lo row
-  static constexpr int DS = C + 8;                      // dO / out row; C x C rows
-  static constexpr int FS = 2 * C + 4;                  // fp32 dqn, dkn row
+  static constexpr int NT = CP / 8;                     // n-tiles of a Gram row strip
+  static constexpr int XS = 3 * CP + 8;                 // qkv row (qn hi, kn hi, v)
+  static constexpr int LS = 2 * CP + 8;                 // qn lo, kn lo row
+  static constexpr int DS = CP + 8;                     // dO / out row; CP x CP rows
+  static constexpr int FS = 2 * CP + 4;                 // fp32 dqn, dkn row
   // per window, in elements
-  static constexpr int X = kP * XS, LO = kP * LS, D = kP * DS, SQ = C * DS, F = kP * FS;
+  static constexpr int X = kP * XS, LO = kP * LS, D = kP * DS, SQ = CP * DS, F = kP * FS;
   static constexpr int F_BYTES = NWR * (X + LO + D) * (int)sizeof(bf16);
   static constexpr int B_BF16 = NWR * (X + LO + D + 3 * SQ);
   static constexpr int B_BYTES = B_BF16 * (int)sizeof(bf16) + NWR * F * (int)sizeof(float);
 };
 
 // Stages the round's windows win0.. with 16-byte cp.async: each position's
-// `width` values of `src` (row stride = width) into dst + window * per_win
-// + p * ld; windows at or past n_windows read as zeros.
-__device__ __forceinline__ void stage_windows(const bf16* __restrict__ src, int width, bf16* dst,
+// `parts` x C values of `src` (row stride parts * C) into dst + window *
+// per_win + p * ld, part i at column i * CP; the pad chunks of a part (C <
+// CP) and windows at or past n_windows read as zeros.
+template <int C, int CP>
+__device__ __forceinline__ void stage_windows(const bf16* __restrict__ src, int parts, bf16* dst,
                                               int per_win, int ld, int nwr, long long win0,
                                               long long n_windows, int H, int W) {
-  const int chunks = width / 8, per = kP * chunks;
+  constexpr int PC = CP / 8;                     // 16-byte chunks of a part inside
+  const int chunks = parts * PC, per = kP * chunks;
   for (int e = threadIdx.x; e < nwr * per; e += kThreads) {
     const int wl = e / per, p = (e % per) / chunks, c = e % chunks;
+    const int part = c / PC, j = c % PC;
     const long long win = win0 + wl;
-    const bool valid = win < n_windows;
+    const bool valid = win < n_windows && j < C / 8;
     cp_async16(dst + wl * per_win + p * ld + c * 8,
-               valid ? src + pixel_offset(win, p, H, W) * width + c * 8 : src, valid);
+               valid ? src + pixel_offset(win, p, H, W) * parts * C + part * C + j * 8 : src,
+               valid);
   }
 }
 
-// The inverse, 16-byte stores of `width` values per position; windows at or
-// past n_windows are not stored.
-__device__ __forceinline__ void store_windows(bf16* __restrict__ dst, int width, const bf16* src,
+// The inverse, 16-byte stores of the C real values of each part per
+// position; windows at or past n_windows are not stored.
+template <int C, int CP>
+__device__ __forceinline__ void store_windows(bf16* __restrict__ dst, int parts, const bf16* src,
                                               int per_win, int ld, int nwr, long long win0,
                                               long long n_windows, int H, int W) {
-  const int chunks = width / 8, per = kP * chunks;
+  constexpr int PC = C / 8;                      // real 16-byte chunks of a part
+  const int chunks = parts * PC, per = kP * chunks;
   for (int e = threadIdx.x; e < nwr * per; e += kThreads) {
     const int wl = e / per, p = (e % per) / chunks, c = e % chunks;
+    const int part = c / PC, j = c % PC;
     const long long win = win0 + wl;
     if (win < n_windows)
-      *reinterpret_cast<uint4*>(dst + pixel_offset(win, p, H, W) * width + c * 8) =
-          *reinterpret_cast<const uint4*>(src + wl * per_win + p * ld + c * 8);
+      *reinterpret_cast<uint4*>(dst + pixel_offset(win, p, H, W) * parts * C + part * C + j * 8) =
+          *reinterpret_cast<const uint4*>(src + wl * per_win + p * ld + part * CP + j * 8);
   }
 }
 
@@ -446,10 +509,10 @@ __device__ __forceinline__ void normalize_slot(bf16* x, bf16* lo, float eps, flo
 }
 
 // acc (16 positions x the 16 columns 16 mt.., two n-tiles) += a m^T, where a
-// is [p][c] bf16 rows (hi at a + col0, and lo when al) and m^T's B
-// fragments come straight from the C fragments of m's rows 16 mt.. (B[k][n]
-// = m[n][k] is the C layout), as hi (+ lo when kSplit).
-template <int C, bool kSplit>
+// is [p][c] bf16 rows (hi at a + col0, and lo at al when kSplitA) and m^T's
+// B fragments come straight from the C fragments of m's rows 16 mt.. (B[k][n]
+// = m[n][k] is the C layout), as hi (+ lo when kSplitB).
+template <int C, bool kSplitA, bool kSplitB>
 __device__ __forceinline__ void rows_times_strip_t(float (&acc)[2][4], const bf16* a, int lda,
                                                    const bf16* al, int ldl,
                                                    const float (&m)[C / 8][4], int lane) {
@@ -457,11 +520,11 @@ __device__ __forceinline__ void rows_times_strip_t(float (&acc)[2][4], const bf1
   for (int kk = 0; kk < C / 16; ++kk) {
     uint32_t ah[4], aw[4];
     ldmatrix_x4(ah, a + (lane & 15) * lda + kk * 16 + (lane >> 4) * 8);
-    if (kSplit) ldmatrix_x4(aw, al + (lane & 15) * ldl + kk * 16 + (lane >> 4) * 8);
+    if (kSplitA) ldmatrix_x4(aw, al + (lane & 15) * ldl + kk * 16 + (lane >> 4) * 8);
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
       uint32_t b0, b1, w0, w1;
-      if (kSplit) {
+      if (kSplitB) {
         pack_bf16_split(m[2 * kk][2 * h], m[2 * kk][2 * h + 1], b0, w0);
         pack_bf16_split(m[2 * kk + 1][2 * h], m[2 * kk + 1][2 * h + 1], b1, w1);
       } else {
@@ -469,10 +532,8 @@ __device__ __forceinline__ void rows_times_strip_t(float (&acc)[2][4], const bf1
         b1 = pack_bf16(m[2 * kk + 1][2 * h], m[2 * kk + 1][2 * h + 1]);
       }
       mma_bf16(acc[h], ah, b0, b1);
-      if (kSplit) {
-        mma_bf16(acc[h], ah, w0, w1);
-        mma_bf16(acc[h], aw, b0, b1);
-      }
+      if (kSplitB) mma_bf16(acc[h], ah, w0, w1);
+      if (kSplitA) mma_bf16(acc[h], aw, b0, b1);
     }
   }
 }
@@ -519,62 +580,75 @@ __device__ __forceinline__ void put_strip_f32(float* dst, int ld, int c0, const 
           make_float2(x[j][2 * h], x[j][2 * h + 1]);
 }
 
+// The pad keys (C = 8 inside CP = 16) drop out of the softmax: -inf on the
+// n-tiles past C of a Gram row strip.
+template <int C, int NT>
+__device__ __forceinline__ void mask_pad_keys(float (&s)[NT][4]) {
+#pragma unroll
+  for (int j = C / 8; j < NT; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = -INFINITY;
+}
+
 template <int C>
 __global__ void __launch_bounds__(kThreads)
 mid_fwd_mma_kernel(const bf16* __restrict__ qkv, bf16* __restrict__ out, int H, int W,
                    long long n_windows, float eps) {
   using L = MmaLayout<C>;
+  constexpr int CP = L::CP;
   extern __shared__ __align__(16) unsigned char smem_mma[];
   bf16* sX = reinterpret_cast<bf16*>(smem_mma);   // [NWR][16][XS]
   bf16* sLO = sX + L::NWR * L::X;                 // [NWR][16][LS]
   bf16* sOut = sLO + L::NWR * L::LO;              // [NWR][16][DS]
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int wl = warp / L::WPW, mt = warp % L::WPW;
-  const NormSlot<C> slot;
+  const NormSlot<CP> slot;
   bf16* x = sX + wl * L::X;
   bf16* lo = sLO + wl * L::LO;
   for (int round = 0; round < L::ROUNDS; ++round) {
     const long long win0 = (long long)blockIdx.x * L::NWB + round * L::NWR;
-    stage_windows(qkv, 3 * C, sX, L::X, L::XS, L::NWR, win0, n_windows, H, W);
+    stage_windows<C, CP>(qkv, 3, sX, L::X, L::XS, L::NWR, win0, n_windows, H, W);
     cp_async_commit();
     cp_async_wait<0>();
     __syncthreads();
     float inv, sel;
-    normalize_slot<C>(sX + slot.wl * L::X + slot.p * L::XS + slot.col(),
-                      sLO + slot.wl * L::LO + slot.p * L::LS + slot.col(), eps, inv, sel);
+    normalize_slot<CP>(sX + slot.wl * L::X + slot.p * L::XS + slot.col(),
+                       sLO + slot.wl * L::LO + slot.p * L::LS + slot.col(), eps, inv, sel);
     __syncthreads();
     float s[L::NT][4];
-    gram_strip<C>(s, x, L::XS, lo, L::LS, mt, lane);
+    gram_strip<CP>(s, x, L::XS, lo, L::LS, mt, lane);
+    mask_pad_keys<C>(s);
     softmax_strip(s);
-    // out[p][c1], c1 in 16 mt.. = sum_c2 v[p][c2] S[c1][c2]
+    // out[p][c1], c1 in 16 mt.. = sum_c2 v[p][c2] S[c1][c2]; S as hi + lo
+    // at C = 8 (see the header)
     float o[2][4] = {};
-    rows_times_strip_t<C, false>(o, x + 2 * C, L::XS, nullptr, 0, s, lane);
+    rows_times_strip_t<CP, false, (C < 16)>(o, x + 2 * CP, L::XS, nullptr, 0, s, lane);
     store_frags<2>(sOut + wl * L::D, nullptr, L::DS, 0, mt * 16, o, 1.f, lane);
     __syncthreads();
-    store_windows(out, C, sOut, L::D, L::DS, L::NWR, win0, n_windows, H, W);
+    store_windows<C, CP>(out, 1, sOut, L::D, L::DS, L::NWR, win0, n_windows, H, W);
     __syncthreads();
   }
 }
 
 // At least 3 blocks per SM, as many as the shared memory of C = 16 lets in
-// (67.6 KB a block; 2 at C = 32 and 64): without that minimum, ptxas held
-// the C = 16 instantiation to 64 registers and spilled.
+// (67.6 KB a block, and at C = 8, padded to 16; 2 at C = 32 and 64):
+// without that minimum, ptxas held the C = 16 instantiation to 64
+// registers and spilled.
 template <int C>
 __global__ void __launch_bounds__(kThreads, 3)
 mid_bwd_mma_kernel(const bf16* __restrict__ qkv, const bf16* __restrict__ dout,
                    bf16* __restrict__ dqkv, int H, int W, long long n_windows, float eps) {
   using L = MmaLayout<C>;
+  constexpr int CP = L::CP;
   extern __shared__ __align__(16) unsigned char smem_mma[];
   bf16* sX = reinterpret_cast<bf16*>(smem_mma);   // [NWR][16][XS]: qn hi, kn hi, v; then dq, dk, dv
   bf16* sLO = sX + L::NWR * L::X;                 // [NWR][16][LS]: qn lo, kn lo
   bf16* sDO = sLO + L::NWR * L::LO;               // [NWR][16][DS]
-  bf16* sS = sDO + L::NWR * L::D;                 // [NWR][C][DS]: S, dL hi, dL lo
+  bf16* sS = sDO + L::NWR * L::D;                 // [NWR][CP][DS]: S, dL hi, dL lo
   bf16* sDLH = sS + L::NWR * L::SQ;
   bf16* sDLL = sDLH + L::NWR * L::SQ;
   float* sF = reinterpret_cast<float*>(sX + L::B_BF16);   // [NWR][16][FS]: dqn, dkn
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int wl = warp / L::WPW, mt = warp % L::WPW;
-  const NormSlot<C> slot;
+  const NormSlot<CP> slot;
   bf16* x = sX + wl * L::X;
   bf16* lo = sLO + wl * L::LO;
   bf16* dO = sDO + wl * L::D;
@@ -584,20 +658,21 @@ mid_bwd_mma_kernel(const bf16* __restrict__ qkv, const bf16* __restrict__ dout,
   float* f = sF + wl * L::F;
   for (int round = 0; round < L::ROUNDS; ++round) {
     const long long win0 = (long long)blockIdx.x * L::NWB + round * L::NWR;
-    stage_windows(qkv, 3 * C, sX, L::X, L::XS, L::NWR, win0, n_windows, H, W);
-    stage_windows(dout, C, sDO, L::D, L::DS, L::NWR, win0, n_windows, H, W);
+    stage_windows<C, CP>(qkv, 3, sX, L::X, L::XS, L::NWR, win0, n_windows, H, W);
+    stage_windows<C, CP>(dout, 1, sDO, L::D, L::DS, L::NWR, win0, n_windows, H, W);
     cp_async_commit();
     cp_async_wait<0>();
     __syncthreads();
     bf16* sx = sX + slot.wl * L::X + slot.p * L::XS + slot.col();
     bf16* slo = sLO + slot.wl * L::LO + slot.p * L::LS + slot.col();
     float inv, sel;
-    normalize_slot<C>(sx, slo, eps, inv, sel);
+    normalize_slot<CP>(sx, slo, eps, inv, sel);
     __syncthreads();
 
     // the warp's rows 16 mt.. of S (recomputed), dS = dO^T v and dL
     float s[L::NT][4], d[L::NT][4];
-    gram_strip<C>(s, x, L::XS, lo, L::LS, mt, lane);
+    gram_strip<CP>(s, x, L::XS, lo, L::LS, mt, lane);
+    mask_pad_keys<C>(s);
     softmax_strip(s);
 #pragma unroll
     for (int j = 0; j < L::NT; ++j) d[j][0] = d[j][1] = d[j][2] = d[j][3] = 0.f;
@@ -607,9 +682,9 @@ mid_bwd_mma_kernel(const bf16* __restrict__ qkv, const bf16* __restrict__ dout,
                                ((lane >> 3) & 1) * 8);
       const int br = (lane & 7) + ((lane >> 3) & 1) * 8;
 #pragma unroll
-      for (int nb = 0; nb < C / 16; ++nb) {
+      for (int nb = 0; nb < CP / 16; ++nb) {
         uint32_t b[4];
-        ldmatrix_x4_trans(b, x + br * L::XS + 2 * C + nb * 16 + (lane >> 4) * 8);
+        ldmatrix_x4_trans(b, x + br * L::XS + 2 * CP + nb * 16 + (lane >> 4) * 8);
         mma_bf16(d[2 * nb], a, b[0], b[1]);
         mma_bf16(d[2 * nb + 1], a, b[2], b[3]);
       }
@@ -633,7 +708,7 @@ mid_bwd_mma_kernel(const bf16* __restrict__ qkv, const bf16* __restrict__ dout,
     store_frags<L::NT>(dlh, dll, L::DS, mt * 16, 0, d, 1.f, lane);
     // dqn[p][c1], c1 in 16 mt.. = sum_c2 kn[p][c2] dL[c1][c2], from registers
     float acc[2][4] = {};
-    rows_times_strip_t<C, true>(acc, x + C, L::XS, lo + C, L::LS, d, lane);
+    rows_times_strip_t<CP, true, true>(acc, x + CP, L::XS, lo + CP, L::LS, d, lane);
     put_strip_f32(f, L::FS, mt * 16, acc, lane);
     __syncthreads();
 
@@ -641,12 +716,12 @@ mid_bwd_mma_kernel(const bf16* __restrict__ qkv, const bf16* __restrict__ dout,
     // qn[p][c1] dL[c1][c2], c2 in 16 mt..; dv over the v columns (read
     // before the barrier above)
     float dv[2][4] = {};
-    rows_times_square<C, false>(dv, dO, L::DS, nullptr, 0, S, nullptr, mt, lane);
-    store_frags<2>(x, nullptr, L::XS, 0, 2 * C + mt * 16, dv, 1.f, lane);
+    rows_times_square<CP, false>(dv, dO, L::DS, nullptr, 0, S, nullptr, mt, lane);
+    store_frags<2>(x, nullptr, L::XS, 0, 2 * CP + mt * 16, dv, 1.f, lane);
 #pragma unroll
     for (int h = 0; h < 2; ++h) acc[h][0] = acc[h][1] = acc[h][2] = acc[h][3] = 0.f;
-    rows_times_square<C, true>(acc, x, L::XS, lo, L::LS, dlh, dll, mt, lane);
-    put_strip_f32(f, L::FS, C + mt * 16, acc, lane);
+    rows_times_square<CP, true>(acc, x, L::XS, lo, L::LS, dlh, dll, mt, lane);
+    put_strip_f32(f, L::FS, CP + mt * 16, acc, lane);
     __syncthreads();
 
     // L2-normalize backward, fp32: du = (dun - un <un, dun> sel) inv, un =
@@ -661,7 +736,7 @@ mid_bwd_mma_kernel(const bf16* __restrict__ qkv, const bf16* __restrict__ dout,
 #pragma unroll
         for (int i = 0; i < 8; ++i) dot = fmaf(un[i], dun[i], dot);
       }
-      dot = slot_sum<C>(dot) * sel;
+      dot = slot_sum<CP>(dot) * sel;
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
         norm_bwd_load(sx + 8 * h, slo + 8 * h, g + 8 * h, un, dun);
@@ -674,7 +749,7 @@ mid_bwd_mma_kernel(const bf16* __restrict__ qkv, const bf16* __restrict__ dout,
       }
     }
     __syncthreads();
-    store_windows(dqkv, 3 * C, sX, L::X, L::XS, L::NWR, win0, n_windows, H, W);
+    store_windows<C, CP>(dqkv, 3, sX, L::X, L::XS, L::NWR, win0, n_windows, H, W);
     __syncthreads();
   }
 }
@@ -703,7 +778,7 @@ template <int C>
 int launch_bwd_f32(const void* qkv, const void* dout, void* dqkv, int B, int H, int W, float eps,
                    cudaStream_t stream) {
   using L = Layout<C>;
-  const int smem = L::B_TOTAL * (int)sizeof(float);
+  const int smem = L::B_TOTAL * (int)sizeof(double);
   auto kernel = mid_bwd_kernel<float, C>;
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
@@ -754,6 +829,8 @@ int fwd_c(const void* qkv, void* out, int B, int H, int W, int C, int dtype, flo
   const bool f32 = dtype == kF32;
   if (!f32 && dtype != kBF16) return (int)cudaErrorInvalidValue;
   switch (C) {
+    case 8: return f32 ? launch_fwd_f32<8>(qkv, out, B, H, W, eps, s)
+                       : launch_fwd_bf16<8>(qkv, out, B, H, W, eps, s);
     case 16: return f32 ? launch_fwd_f32<16>(qkv, out, B, H, W, eps, s)
                         : launch_fwd_bf16<16>(qkv, out, B, H, W, eps, s);
     case 32: return f32 ? launch_fwd_f32<32>(qkv, out, B, H, W, eps, s)
@@ -769,6 +846,8 @@ int bwd_c(const void* qkv, const void* dout, void* dqkv, int B, int H, int W, in
   const bool f32 = dtype == kF32;
   if (!f32 && dtype != kBF16) return (int)cudaErrorInvalidValue;
   switch (C) {
+    case 8: return f32 ? launch_bwd_f32<8>(qkv, dout, dqkv, B, H, W, eps, s)
+                       : launch_bwd_bf16<8>(qkv, dout, dqkv, B, H, W, eps, s);
     case 16: return f32 ? launch_bwd_f32<16>(qkv, dout, dqkv, B, H, W, eps, s)
                         : launch_bwd_bf16<16>(qkv, dout, dqkv, B, H, W, eps, s);
     case 32: return f32 ? launch_bwd_f32<32>(qkv, dout, dqkv, B, H, W, eps, s)
@@ -784,8 +863,8 @@ int bwd_c(const void* qkv, const void* dout, void* dqkv, int B, int H, int W, in
 
 // Plain C entry points (loaded with ctypes). qkv and dqkv are (B, H, W, 3C),
 // out and dout (B, H, W, C), all contiguous and 16-byte aligned, of one type
-// (dtype 0 = fp32, 1 = bf16), with H % 4 == W % 4 == 0 and C in {16, 32,
-// 64}. Each launches on `stream` and returns cudaGetLastError() (0 on
+// (dtype 0 = fp32, 1 = bf16), with H % 4 == W % 4 == 0 and C in {8, 16,
+// 32, 64}. Each launches on `stream` and returns cudaGetLastError() (0 on
 // success).
 extern "C" int window_attention_train_fwd_launch(const void* qkv, void* out, int B, int H,
                                                  int W, int C, int dtype, float eps,

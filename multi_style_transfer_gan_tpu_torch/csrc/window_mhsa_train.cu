@@ -3,8 +3,9 @@
 //
 // Replaces ops/pallas/window_mhsa_train.py::window_mhsa_train of the JAX
 // package (its _fwd_kernel and hand-written _bwd_kernel). On a (B, H, W, 3C)
-// qkv grid with C = 64 in 2 heads of 32, per 8x8 window of 64 tokens and
-// per head, scale = 32^-0.5:
+// qkv grid with C = 32 HEADS in HEADS heads of 32 (the blocks of the c8,
+// c16 and c32 generators: C = 32, 64, 128 in 1, 2, 4 heads), per 8x8
+// window of 64 tokens and per head, scale = 32^-0.5:
 //   s  = q k^T scale, minus its row max ;  p = softmax(s) ;  o = p v
 // and, given dO = d(o):
 //   dv = p^T dO ;  dp = dO v^T ;  ds = p (.) (dp - rowsum(p (.) dp))
@@ -49,6 +50,13 @@
 // bodies unchanged (no tensor cores, no TF32). Its blocks of 256 threads
 // stage fp32 rows of 32 with an odd stride and a 64 x 64 score tile with an
 // odd stride; each row softmax (and its backward row sum) is one warp.
+//
+// Heads. Both designs give a block one (window, head): it stages that
+// head's 32 channels of q, k, v (and dO) alone, so the shared memory of a
+// block does not grow with the width. At dim 128 a window's qkv and dO are
+// 64 x 512 values, 128 KB in fp32, and a block still holds one head's 64 x
+// 128 of them. The kernels are instantiated per head count (HEADS = C /
+// 32: 1, 2, 4); supported() refuses any other (C, heads).
 #include <climits>
 #include <cmath>
 
@@ -61,9 +69,6 @@ namespace {
 
 using namespace mhsa;   // kWin, kTok, kHd, RS, TILE and the forward's MMA steps
 
-constexpr int kC = 64;
-constexpr int kHeads = 2;
-static_assert(kHd == kC / kHeads, "two heads of 32 channels");
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 constexpr int TS = kHd + 1;    // token row stride (q, k, v, dO)
@@ -122,16 +127,17 @@ __device__ void softmax_rows(float* p) {
   }
 }
 
-template <typename T>
+template <typename T, int HEADS>
 __global__ void __launch_bounds__(kThreads)
 mhsa_fwd_kernel(const T* __restrict__ qkv, T* __restrict__ out, int H, int W, float scale) {
+  constexpr int kC = HEADS * kHd;
   extern __shared__ float smem[];
   float* sQ = smem;
   float* sK = sQ + ROWS;
   float* sV = sK + ROWS;
   float* sP = sV + ROWS;
-  const long long win = blockIdx.x / kHeads;
-  const int head = blockIdx.x % kHeads;
+  const long long win = blockIdx.x / HEADS;
+  const int head = blockIdx.x % HEADS;
   load_rows(qkv, 3 * kC, head * kHd, sQ, win, H, W);
   load_rows(qkv, 3 * kC, kC + head * kHd, sK, win, H, W);
   load_rows(qkv, 3 * kC, 2 * kC + head * kHd, sV, win, H, W);
@@ -150,10 +156,11 @@ mhsa_fwd_kernel(const T* __restrict__ qkv, T* __restrict__ out, int H, int W, fl
   }
 }
 
-template <typename T>
+template <typename T, int HEADS>
 __global__ void __launch_bounds__(kThreads)
 mhsa_bwd_kernel(const T* __restrict__ qkv, const T* __restrict__ dout, T* __restrict__ dqkv,
                 int H, int W, float scale) {
+  constexpr int kC = HEADS * kHd;
   extern __shared__ float smem[];
   float* sQ = smem;
   float* sK = sQ + ROWS;
@@ -161,8 +168,8 @@ mhsa_bwd_kernel(const T* __restrict__ qkv, const T* __restrict__ dout, T* __rest
   float* sDO = sV + ROWS;
   float* sP = sDO + ROWS;
   float* sDP = sP + SCORES;
-  const long long win = blockIdx.x / kHeads;
-  const int head = blockIdx.x % kHeads;
+  const long long win = blockIdx.x / HEADS;
+  const int head = blockIdx.x % HEADS;
   load_rows(qkv, 3 * kC, head * kHd, sQ, win, H, W);
   load_rows(qkv, 3 * kC, kC + head * kHd, sK, win, H, W);
   load_rows(qkv, 3 * kC, 2 * kC + head * kHd, sV, win, H, W);
@@ -212,24 +219,24 @@ constexpr int MMA_F_BYTES = 3 * TILE * (int)sizeof(bf16);                 // q, 
 constexpr int MMA_B_BYTES = (4 * TILE + 3 * SQUARE) * (int)sizeof(bf16);  // + dO, p, ds hi, lo
 
 // Stages n 64 x 32 tiles of the window with 16-byte cp.async: tile i holds
-// channels first + i * kC .. +31 of each token's row of `src` (row stride
+// channels first + i * gap .. +31 of each token's row of `src` (row stride
 // `stride` values) and lands at dst + i * TILE.
-__device__ void stage_tiles(const bf16* __restrict__ src, int stride, int first, int n,
+__device__ void stage_tiles(const bf16* __restrict__ src, int stride, int first, int gap, int n,
                             bf16* dst, long long win, int H, int W) {
   for (int e = threadIdx.x; e < kTok * n * 4; e += kMmaThreads) {
     const int t = e / (n * 4), i = (e / 4) % n, part = e % 4;
     cp_async16(dst + i * TILE + t * RS + part * 8,
-               src + token_offset(win, t, H, W) * stride + first + i * kC + part * 8);
+               src + token_offset(win, t, H, W) * stride + first + i * gap + part * 8);
   }
 }
 
 // The inverse for the 16 token rows t0.. of one warp: staged tile i goes to
-// channels first + i * kC of each token's row of `dst`.
-__device__ void store_tiles(bf16* __restrict__ dst, int stride, int first, int n,
+// channels first + i * gap of each token's row of `dst`.
+__device__ void store_tiles(bf16* __restrict__ dst, int stride, int first, int gap, int n,
                             const bf16* src, int t0, long long win, int H, int W, int lane) {
   for (int e = lane; e < 16 * n * 4; e += 32) {
     const int t = t0 + e / (n * 4), i = (e / 4) % n, part = e % 4;
-    *reinterpret_cast<uint4*>(dst + token_offset(win, t, H, W) * stride + first + i * kC +
+    *reinterpret_cast<uint4*>(dst + token_offset(win, t, H, W) * stride + first + i * gap +
                               part * 8) =
         *reinterpret_cast<const uint4*>(src + i * TILE + t * RS + part * 8);
   }
@@ -262,17 +269,19 @@ __device__ __forceinline__ void square_t_times_tile(float (&acc)[4][4], const bf
   }
 }
 
+template <int HEADS>
 __global__ void __launch_bounds__(kMmaThreads)
 mhsa_fwd_mma_kernel(const bf16* __restrict__ qkv, bf16* __restrict__ out, int H, int W,
                     float scale) {
+  constexpr int kC = HEADS * kHd;
   extern __shared__ __align__(16) unsigned char smem_mma[];
   bf16* sQ = reinterpret_cast<bf16*>(smem_mma);   // q, k, v tiles back to back
   bf16* sK = sQ + TILE;
   bf16* sV = sK + TILE;
-  const long long win = blockIdx.x / kHeads;
-  const int head = blockIdx.x % kHeads;
+  const long long win = blockIdx.x / HEADS;
+  const int head = blockIdx.x % HEADS;
   const int lane = threadIdx.x % 32, r0 = (threadIdx.x / 32) * 16;
-  stage_tiles(qkv, 3 * kC, head * kHd, 3, sQ, win, H, W);
+  stage_tiles(qkv, 3 * kC, head * kHd, kC, 3, sQ, win, H, W);
   cp_async_commit();
   cp_async_wait<0>();
   __syncthreads();
@@ -298,12 +307,14 @@ mhsa_fwd_mma_kernel(const bf16* __restrict__ qkv, bf16* __restrict__ out, int H,
   __syncwarp();
   store_frags<4>(sQ, nullptr, RS, r0, 0, o, 1.f, lane);
   __syncwarp();
-  store_tiles(out, kC, head * kHd, 1, sQ, r0, win, H, W, lane);
+  store_tiles(out, kC, head * kHd, kC, 1, sQ, r0, win, H, W, lane);
 }
 
+template <int HEADS>
 __global__ void __launch_bounds__(kMmaThreads)
 mhsa_bwd_mma_kernel(const bf16* __restrict__ qkv, const bf16* __restrict__ dout,
                     bf16* __restrict__ dqkv, int H, int W, float scale) {
+  constexpr int kC = HEADS * kHd;
   extern __shared__ __align__(16) unsigned char smem_mma[];
   bf16* sQ = reinterpret_cast<bf16*>(smem_mma);   // q, k, v, dO tiles back to back
   bf16* sK = sQ + TILE;
@@ -312,11 +323,11 @@ mhsa_bwd_mma_kernel(const bf16* __restrict__ qkv, const bf16* __restrict__ dout,
   bf16* sP = sDO + TILE;                          // [query][key]: p, ds hi, ds lo
   bf16* sDH = sP + SQUARE;
   bf16* sDL = sDH + SQUARE;
-  const long long win = blockIdx.x / kHeads;
-  const int head = blockIdx.x % kHeads;
+  const long long win = blockIdx.x / HEADS;
+  const int head = blockIdx.x % HEADS;
   const int lane = threadIdx.x % 32, r0 = (threadIdx.x / 32) * 16;
-  stage_tiles(qkv, 3 * kC, head * kHd, 3, sQ, win, H, W);
-  stage_tiles(dout, kC, head * kHd, 1, sDO, win, H, W);
+  stage_tiles(qkv, 3 * kC, head * kHd, kC, 3, sQ, win, H, W);
+  stage_tiles(dout, kC, head * kHd, kC, 1, sDO, win, H, W);
   cp_async_commit();
   cp_async_wait<0>();
   __syncthreads();
@@ -367,15 +378,16 @@ mhsa_bwd_mma_kernel(const bf16* __restrict__ qkv, const bf16* __restrict__ dout,
   store_frags<4>(sK, nullptr, RS, r0, 0, dk, scale, lane);
   store_frags<4>(sV, nullptr, RS, r0, 0, dv, 1.f, lane);
   __syncwarp();
-  store_tiles(dqkv, 3 * kC, head * kHd, 3, sQ, r0, win, H, W, lane);
+  store_tiles(dqkv, 3 * kC, head * kHd, kC, 3, sQ, r0, win, H, W, lane);
 }
 
 // ---------------------------------------------------------------------------
 
+template <int HEADS>
 int launch_fwd_f32(const void* qkv, void* out, long long grid, int H, int W, float scale,
                    cudaStream_t stream) {
   const int smem = F_TOTAL * (int)sizeof(float);
-  auto kernel = mhsa_fwd_kernel<float>;
+  auto kernel = mhsa_fwd_kernel<float, HEADS>;
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
   kernel<<<(unsigned)grid, kThreads, smem, stream>>>(static_cast<const float*>(qkv),
@@ -383,10 +395,11 @@ int launch_fwd_f32(const void* qkv, void* out, long long grid, int H, int W, flo
   return (int)cudaGetLastError();
 }
 
+template <int HEADS>
 int launch_bwd_f32(const void* qkv, const void* dout, void* dqkv, long long grid, int H, int W,
                    float scale, cudaStream_t stream) {
   const int smem = B_TOTAL * (int)sizeof(float);
-  auto kernel = mhsa_bwd_kernel<float>;
+  auto kernel = mhsa_bwd_kernel<float, HEADS>;
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
   kernel<<<(unsigned)grid, kThreads, smem, stream>>>(
@@ -395,34 +408,72 @@ int launch_bwd_f32(const void* qkv, const void* dout, void* dqkv, long long grid
   return (int)cudaGetLastError();
 }
 
+template <int HEADS>
 int launch_fwd_bf16(const void* qkv, void* out, long long grid, int H, int W, float scale,
                     cudaStream_t stream) {
-  cudaError_t err = cudaFuncSetAttribute(
-      mhsa_fwd_mma_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, MMA_F_BYTES);
+  auto kernel = mhsa_fwd_mma_kernel<HEADS>;
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, MMA_F_BYTES);
   if (err != cudaSuccess) return (int)err;
-  mhsa_fwd_mma_kernel<<<(unsigned)grid, kMmaThreads, MMA_F_BYTES, stream>>>(
+  kernel<<<(unsigned)grid, kMmaThreads, MMA_F_BYTES, stream>>>(
       static_cast<const bf16*>(qkv), static_cast<bf16*>(out), H, W, scale);
   return (int)cudaGetLastError();
 }
 
+template <int HEADS>
 int launch_bwd_bf16(const void* qkv, const void* dout, void* dqkv, long long grid, int H, int W,
                     float scale, cudaStream_t stream) {
-  cudaError_t err = cudaFuncSetAttribute(
-      mhsa_bwd_mma_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, MMA_B_BYTES);
+  auto kernel = mhsa_bwd_mma_kernel<HEADS>;
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, MMA_B_BYTES);
   if (err != cudaSuccess) return (int)err;
-  mhsa_bwd_mma_kernel<<<(unsigned)grid, kMmaThreads, MMA_B_BYTES, stream>>>(
+  kernel<<<(unsigned)grid, kMmaThreads, MMA_B_BYTES, stream>>>(
       static_cast<const bf16*>(qkv), static_cast<const bf16*>(dout), static_cast<bf16*>(dqkv),
       H, W, scale);
   return (int)cudaGetLastError();
 }
 
+// The blocks of the c8, c16 and c32 generators: C = 32 heads, heads of 32.
 bool supported(int H, int W, int C, int heads) {
-  return C == kC && heads == kHeads && H % kWin == 0 && W % kWin == 0;
+  return (heads == 1 || heads == 2 || heads == 4) && C == heads * kHd && H % kWin == 0 &&
+         W % kWin == 0;
 }
 
 // One block per (window, head).
-long long grid_size(int B, int H, int W) {
-  return (long long)B * (H / kWin) * (W / kWin) * kHeads;
+long long grid_size(int B, int H, int W, int heads) {
+  return (long long)B * (H / kWin) * (W / kWin) * heads;
+}
+
+int fwd(const void* qkv, void* out, long long grid, int H, int W, int heads, int dtype,
+        cudaStream_t s) {
+  const float scale = 1.f / sqrtf((float)kHd);
+  const bool f32 = dtype == kF32;
+  if (!f32 && dtype != kBF16) return (int)cudaErrorInvalidValue;
+  switch (heads) {
+    case 1: return f32 ? launch_fwd_f32<1>(qkv, out, grid, H, W, scale, s)
+                       : launch_fwd_bf16<1>(qkv, out, grid, H, W, scale, s);
+    case 2: return f32 ? launch_fwd_f32<2>(qkv, out, grid, H, W, scale, s)
+                       : launch_fwd_bf16<2>(qkv, out, grid, H, W, scale, s);
+    case 4: return f32 ? launch_fwd_f32<4>(qkv, out, grid, H, W, scale, s)
+                       : launch_fwd_bf16<4>(qkv, out, grid, H, W, scale, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+int bwd(const void* qkv, const void* dout, void* dqkv, long long grid, int H, int W, int heads,
+        int dtype, cudaStream_t s) {
+  const float scale = 1.f / sqrtf((float)kHd);
+  const bool f32 = dtype == kF32;
+  if (!f32 && dtype != kBF16) return (int)cudaErrorInvalidValue;
+  switch (heads) {
+    case 1: return f32 ? launch_bwd_f32<1>(qkv, dout, dqkv, grid, H, W, scale, s)
+                       : launch_bwd_bf16<1>(qkv, dout, dqkv, grid, H, W, scale, s);
+    case 2: return f32 ? launch_bwd_f32<2>(qkv, dout, dqkv, grid, H, W, scale, s)
+                       : launch_bwd_bf16<2>(qkv, dout, dqkv, grid, H, W, scale, s);
+    case 4: return f32 ? launch_bwd_f32<4>(qkv, dout, dqkv, grid, H, W, scale, s)
+                       : launch_bwd_bf16<4>(qkv, dout, dqkv, grid, H, W, scale, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace
@@ -430,22 +481,18 @@ long long grid_size(int B, int H, int W) {
 
 // Plain C entry points (loaded with ctypes). qkv and dqkv are (B, H, W, 3C),
 // out and dout (B, H, W, C), all contiguous and 16-byte aligned, of one type
-// (dtype 0 = fp32, 1 = bf16), with C = 64 in 2 heads and H % 8 == W % 8 ==
-// 0. Each launches on `stream` and returns cudaGetLastError() (0 on
-// success).
+// (dtype 0 = fp32, 1 = bf16), with C = 32 heads in 1, 2 or 4 heads and H % 8
+// == W % 8 == 0. Each launches on `stream` and returns cudaGetLastError()
+// (0 on success); another (C, heads) returns cudaErrorInvalidValue.
 extern "C" int window_mhsa_train_fwd_launch(const void* qkv, void* out, int B, int H, int W,
                                             int C, int heads, int dtype, int device,
                                             void* stream) {
   if (!mstgan::supported(H, W, C, heads)) return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  const long long grid = mstgan::grid_size(B, H, W);
+  const long long grid = mstgan::grid_size(B, H, W, heads);
   if (grid > INT_MAX) return (int)cudaErrorInvalidConfiguration;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const float scale = 1.f / sqrtf((float)mstgan::kHd);
-  if (dtype == mstgan::kF32) return mstgan::launch_fwd_f32(qkv, out, grid, H, W, scale, s);
-  if (dtype == mstgan::kBF16) return mstgan::launch_fwd_bf16(qkv, out, grid, H, W, scale, s);
-  return (int)cudaErrorInvalidValue;
+  return mstgan::fwd(qkv, out, grid, H, W, heads, dtype, static_cast<cudaStream_t>(stream));
 }
 
 extern "C" int window_mhsa_train_bwd_launch(const void* qkv, const void* dout, void* dqkv,
@@ -454,13 +501,8 @@ extern "C" int window_mhsa_train_bwd_launch(const void* qkv, const void* dout, v
   if (!mstgan::supported(H, W, C, heads)) return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  const long long grid = mstgan::grid_size(B, H, W);
+  const long long grid = mstgan::grid_size(B, H, W, heads);
   if (grid > INT_MAX) return (int)cudaErrorInvalidConfiguration;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const float scale = 1.f / sqrtf((float)mstgan::kHd);
-  if (dtype == mstgan::kF32)
-    return mstgan::launch_bwd_f32(qkv, dout, dqkv, grid, H, W, scale, s);
-  if (dtype == mstgan::kBF16)
-    return mstgan::launch_bwd_bf16(qkv, dout, dqkv, grid, H, W, scale, s);
-  return (int)cudaErrorInvalidValue;
+  return mstgan::bwd(qkv, dout, dqkv, grid, H, W, heads, dtype,
+                     static_cast<cudaStream_t>(stream));
 }

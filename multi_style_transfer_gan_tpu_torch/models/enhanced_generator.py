@@ -20,9 +20,20 @@ compute and their gradients land in fp32.
 
 Routes: where autograd will need a gradient (grad mode on, and the input or
 a parameter requires grad) LocalAttention runs the 1x1 qkv conv, the
-training kernel of the mid and the 1x1 proj conv, and the transformer block
-its training body; otherwise the inference kernels run (the serving path,
-and the D-phase fakes of a train step, made under ``torch.no_grad()``).
+training kernel of the mid and the 1x1 proj conv (on the card at the
+kernel's widths, ``window_attention_train.KERNEL_WIDTHS``; at C = 128 the
+JAX package's route instead, ``window_channel_attention_fast_vjp``: the
+inference kernel forward, the backward recomputed through the XLA
+formulation; any other width raises), and the transformer block its
+training body; otherwise the inference kernels run (the serving path, and
+the D-phase fakes of a train step, made under ``torch.no_grad()``). On the
+CPU every width takes the plain versions.
+
+``fast_attention = False`` (the train CLI's ``--no_fast_attention``, JAX's
+``fast_attention=False``) runs every LocalAttention and every block through
+its plain version in autograd (the ports of ``_attention_math`` and
+``_block_body_math``) on any device, with or without grad: no kernel
+launches.
 """
 
 from __future__ import annotations
@@ -34,8 +45,11 @@ from torch.utils.checkpoint import checkpoint
 from ..core.conv import conv, linear
 from ..core.norm import InstanceNorm, in_relu
 from ..ops.kernels import (
-    window_channel_attention, window_channel_attention_train,
+    FAST_VJP_WIDTHS, window_channel_attention,
+    window_channel_attention_fast_vjp, window_channel_attention_plain,
+    window_channel_attention_train,
 )
+from ..ops.kernels.window_attention_train import KERNEL_WIDTHS as TRAIN_WIDTHS
 from ..ops.kernels._checks import grad_needed
 from .init_utils import init_generator_module_
 from .structural_transformer import StructuralTransformerBlock
@@ -50,21 +64,34 @@ class LocalAttention(nn.Module):
         super().__init__()
         self.qkv = nn.Conv2d(channels, 3 * channels, 1)
         self.proj = nn.Conv2d(channels, channels, 1)
+        self.fast = True   # False: the plain version (_attention_math)
 
     def forward(self, x):
         x = x.contiguous(memory_format=CHANNELS_LAST)
-        if grad_needed(x, *self.parameters()):
-            # training route (local_attention_apply(fast="train"),
-            # enhanced_generator.py:131-146): convs in autograd around the
-            # hand-written mid
+        nhwc = x.permute(0, 2, 3, 1)
+        C = x.shape[1]
+        weights = [w.to(x.dtype) for w in (self.qkv.weight, self.qkv.bias,
+                                           self.proj.weight, self.proj.bias)]
+        if not self.fast:
+            return window_channel_attention_plain(
+                nhwc, *weights).permute(0, 3, 1, 2)
+        if not grad_needed(x, *self.parameters()):
+            return window_channel_attention(nhwc, *weights).permute(0, 3, 1, 2)
+        # training routes (local_attention_apply(fast="train"),
+        # enhanced_generator.py:131-146)
+        if x.device.type == "cpu" or C in TRAIN_WIDTHS:
+            # convs in autograd around the hand-written mid
             qkv = conv(self.qkv, x).permute(0, 2, 3, 1)
             mid = window_channel_attention_train(qkv)
             return conv(self.proj, mid.permute(0, 3, 1, 2))
-        y = window_channel_attention(
-            x.permute(0, 2, 3, 1), self.qkv.weight.to(x.dtype),
-            self.qkv.bias.to(x.dtype), self.proj.weight.to(x.dtype),
-            self.proj.bias.to(x.dtype))
-        return y.permute(0, 3, 1, 2)
+        if C in FAST_VJP_WIDTHS:
+            # no training kernel at this width, in JAX either
+            return window_channel_attention_fast_vjp(
+                nhwc, *weights).permute(0, 3, 1, 2)
+        raise ValueError(
+            f"LocalAttention at C={C} does not train on the card: the "
+            f"training kernel is built for C in {TRAIN_WIDTHS} and the "
+            f"inference-kernel route for C in {FAST_VJP_WIDTHS}")
 
 
 _MSB_BRANCHES = (  # (name, kernel, padding, dilation)
@@ -138,6 +165,20 @@ class EnhancedGenerator(nn.Module):
                                              padding=1), c)
         self.output = nn.Sequential(nn.Conv2d(c, 3, 7, padding=3), nn.Tanh())
         self.reset_parameters(generator)
+        self.fast_attention = True
+
+    @property
+    def fast_attention(self) -> bool:
+        """True: the kernel routes. False: the plain versions of the
+        attention and the block everywhere (``--no_fast_attention``)."""
+        return self._fast_attention
+
+    @fast_attention.setter
+    def fast_attention(self, on: bool) -> None:
+        self._fast_attention = bool(on)
+        for m in self.modules():
+            if isinstance(m, (LocalAttention, StructuralTransformerBlock)):
+                m.fast = self._fast_attention
 
     @torch.no_grad()
     def reset_parameters(self, generator: torch.Generator | None = None):

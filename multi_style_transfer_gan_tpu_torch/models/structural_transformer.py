@@ -9,7 +9,10 @@ Two routes for the body, as in the JAX package. Where autograd will need a
 gradient, the training body (``_train_block_body``, :183-205): LN1 + FiLM,
 the qkv Linear, the proj Linear, LN2 and the MLP in autograd around the
 window-MHSA mid ``ops.kernels.window_mhsa_train``. Otherwise one call into
-the inference kernel ``ops.kernels.fused_structural_block``.
+the inference kernel ``ops.kernels.fused_structural_block``. With ``fast``
+off (the train CLI's ``--no_fast_attention``) the body is its plain version,
+``structural_block_plain`` (the port of ``_block_body_math``), in autograd,
+on any device.
 """
 
 from __future__ import annotations
@@ -21,7 +24,9 @@ from torch import nn
 from ..core.activations import gelu
 from ..core.conv import conv, linear
 from ..ops.image import resize
-from ..ops.kernels import fused_structural_block, window_mhsa_train
+from ..ops.kernels import (
+    fused_structural_block, structural_block_plain, window_mhsa_train,
+)
 from ..ops.kernels._checks import grad_needed
 from ..ops.kernels.fused_transformer import default_num_heads
 
@@ -65,6 +70,7 @@ class StructuralTransformerBlock(nn.Module):
         self.norm2 = nn.LayerNorm(dim)
         self.attn = _Attention(dim)
         self.mlp = _MLP(dim)
+        self.fast = True   # False: the plain body (_block_body_math)
 
     def forward(self, tokens: torch.Tensor, style: torch.Tensor,
                 orig: torch.Tensor) -> torch.Tensor:
@@ -80,10 +86,11 @@ class StructuralTransformerBlock(nn.Module):
             s = resize(s, (H, W), method="bilinear").to(tokens.dtype)
         struct = linear(self.struct_proj, s)
         gamma, beta = linear(self.style_mod, style).chunk(2, dim=-1)
-        if grad_needed(tokens, style, orig, *self.parameters()):
+        if self.fast and grad_needed(tokens, style, orig, *self.parameters()):
             return self._train_body(tokens, struct, gamma, beta)
         c = lambda t: t.to(tokens.dtype)
-        return fused_structural_block(
+        body = fused_structural_block if self.fast else structural_block_plain
+        return body(
             tokens.contiguous(), struct.contiguous(), gamma, beta,
             eps=self.norm1.eps,
             norm1_w=c(self.norm1.weight), norm1_b=c(self.norm1.bias),

@@ -6,6 +6,9 @@ Each wrapper carries ``launches``, a plain integer it increments once per
 kernel launch and nowhere else. The inference kernels are forward-only and
 raise on a CUDA call that autograd would record; the training kernels come
 in forward/backward pairs behind one ``torch.autograd.Function`` each.
+``window_channel_attention_fast_vjp`` is the JAX package's route for the
+LocalAttention widths no training kernel takes (C = 128): the inference
+kernel forward, the backward recomputed through the plain version.
 """
 
 from .fused_transformer import fused_structural_block, structural_block_plain
@@ -15,6 +18,9 @@ from .packed_window_attention import (
 from .window_attention import (
     STAGES, window_channel_attention, window_channel_attention_plain,
     window_channel_attention_stage, window_channel_attention_stage_plain,
+)
+from .window_attention_fast_vjp import (
+    FAST_VJP_WIDTHS, window_channel_attention_fast_vjp,
 )
 from .window_attention_train import (
     window_attention_mid_backward_plain, window_attention_mid_bwd,
@@ -41,12 +47,14 @@ def reset_launch_counts() -> None:
 
 
 __all__ = [
-    "KERNELS", "STAGES", "depth_to_space_plain", "fused_structural_block",
+    "FAST_VJP_WIDTHS", "KERNELS", "STAGES", "depth_to_space_plain",
+    "fused_structural_block",
     "packed_window_channel_attention", "packed_window_channel_attention_plain",
     "reset_launch_counts", "space_to_depth_plain", "structural_block_plain",
     "window_attention_mid_backward_plain", "window_attention_mid_bwd", "window_attention_mid_fwd",
     "window_attention_mid_plain", "window_channel_attention",
-    "window_channel_attention_plain", "window_channel_attention_stage",
+    "window_channel_attention_fast_vjp", "window_channel_attention_plain",
+    "window_channel_attention_stage",
     "window_channel_attention_stage_plain", "window_channel_attention_train",
     "window_mhsa_backward_plain", "window_mhsa_bwd", "window_mhsa_fwd",
     "window_mhsa_plain", "window_mhsa_train", "window_relayout",

@@ -20,7 +20,15 @@ cotangent:
 
 where sel is 0 for a vector whose norm is 0 or under eps, so an all-zero
 window gives finite gradients. The plain backward writes these formulas
-out; it is not autograd of the plain forward.
+out; it is not autograd of the plain forward. It carries them in float64,
+as the fp32 kernel's backward does: where |q| ~ 1e-3 the gradients reach
+~4e3, past the reach of two fp32 evaluations in different orders
+(``csrc/window_attention_train.cu``).
+
+The kernels take C = 8, 16, 32 and 64 (``KERNEL_WIDTHS``), the
+LocalAttention widths of the c8, c16 and c32 generators but c32's C = 128,
+which has no training kernel in the JAX package either:
+``window_attention_fast_vjp`` is its route.
 """
 
 from __future__ import annotations
@@ -31,7 +39,7 @@ from . import _build
 from ._checks import check_cuda_args, dtype_code
 
 WINDOW = 4
-KERNEL_WIDTHS = (16, 32, 64)
+KERNEL_WIDTHS = (8, 16, 32, 64)
 
 
 def window_partition(t: torch.Tensor, ws: int) -> torch.Tensor:
@@ -56,13 +64,13 @@ def _normalize(u: torch.Tensor, eps: float):
     nz = ss > 0
     n = torch.sqrt(torch.where(nz, ss, 1.0))
     inv = 1.0 / torch.where(nz, torch.clamp_min(n, eps), eps)
-    sel = (nz & (n > eps)).float()
+    sel = (nz & (n > eps)).to(u.dtype)
     return u * inv, inv, sel
 
 
-def _split_windows(qkv: torch.Tensor, eps: float):
+def _split_windows(qkv: torch.Tensor, eps: float, dtype=torch.float32):
     C = qkv.shape[-1] // 3
-    q, k, v = window_partition(qkv.float(), WINDOW).split(C, dim=-1)
+    q, k, v = window_partition(qkv.to(dtype), WINDOW).split(C, dim=-1)
     qn, inv_q, sel_q = _normalize(q, eps)
     kn, inv_k, sel_k = _normalize(k, eps)
     # S[c1, c2] = softmax_c2(sum_p qn[p, c1] kn[p, c2]), max-subtracted
@@ -82,10 +90,12 @@ def window_attention_mid_plain(qkv: torch.Tensor, eps: float = 1e-12):
 def window_attention_mid_backward_plain(qkv: torch.Tensor, d_out: torch.Tensor,
                                         eps: float = 1e-12):
     """Plain backward: d(qkv) (B, H, W, 3C) from qkv and d(mid), by the
-    formulas in the module docstring."""
+    formulas in the module docstring, float64 inside and one rounding to
+    qkv's type at the end, as the kernels do in fp32."""
     B, H, W, _ = qkv.shape
-    qn, kn, v, s, (inv_q, sel_q, inv_k, sel_k) = _split_windows(qkv, eps)
-    do = window_partition(d_out.float(), WINDOW)
+    qn, kn, v, s, (inv_q, sel_q, inv_k, sel_k) = _split_windows(
+        qkv, eps, torch.float64)
+    do = window_partition(d_out.to(torch.float64), WINDOW)
     ds = do.transpose(1, 2) @ v                       # dS[c1, c2]
     dl = s * (ds - (s * ds).sum(dim=-1, keepdim=True))
     dv = do @ s                                       # dv[p, c2]
@@ -112,8 +122,8 @@ def _check(qkv: torch.Tensor):
 
 def window_attention_mid_fwd(qkv: torch.Tensor, eps: float = 1e-12):
     """Forward of the mid. A CPU tensor takes the plain version; a CUDA
-    tensor (contiguous, 16-byte aligned, fp32 or bf16, C in 16/32/64)
-    launches the kernel or raises."""
+    tensor (contiguous, 16-byte aligned, fp32 or bf16, C in
+    ``KERNEL_WIDTHS``) launches the kernel or raises."""
     _check(qkv)
     if qkv.device.type == "cpu":
         return window_attention_mid_plain(qkv, eps)

@@ -16,6 +16,9 @@ Per window and head (window_mhsa_train.py:21-28), scale = hd^-0.5:
 
 The plain backward writes these formulas out; it is not autograd of the
 plain forward.
+
+The kernels take the blocks of the c8, c16 and c32 generators: C = 32, 64
+and 128 (``KERNEL_WIDTHS``) in C / 32 heads of 32 (``kernel_heads``).
 """
 
 from __future__ import annotations
@@ -27,8 +30,12 @@ from ._checks import check_cuda_args, dtype_code
 from .window_attention_train import window_merge, window_partition
 
 WINDOW = 8
-KERNEL_WIDTH = 64
-KERNEL_HEADS = 2
+KERNEL_WIDTHS = (32, 64, 128)   # each in kernel_heads(C) = C / 32 heads
+
+
+def kernel_heads(C: int) -> int:
+    """The head count the kernels take at width C: heads of 32 channels."""
+    return C // 32
 
 
 def _split_heads(t: torch.Tensor, heads: int) -> torch.Tensor:
@@ -89,17 +96,19 @@ def _check(qkv: torch.Tensor, heads: int):
     if H % WINDOW or W % WINDOW:
         raise ValueError(f"window MHSA needs H and W divisible by {WINDOW}, "
                          f"got {H}x{W}")
-    if qkv.device.type != "cpu" and (C3 // 3 != KERNEL_WIDTH
-                                     or heads != KERNEL_HEADS):
-        raise ValueError(f"window_mhsa_train kernel is built for C = "
-                         f"{KERNEL_WIDTH} in {KERNEL_HEADS} heads, got C="
-                         f"{C3 // 3} in {heads}")
+    C = C3 // 3
+    if qkv.device.type != "cpu" and (C not in KERNEL_WIDTHS
+                                     or heads != kernel_heads(C)):
+        raise ValueError(f"window_mhsa_train kernel is built for C in "
+                         f"{KERNEL_WIDTHS} in C / 32 heads, got C={C} in "
+                         f"{heads}")
 
 
 def window_mhsa_fwd(qkv: torch.Tensor, heads: int) -> torch.Tensor:
     """Forward of the mid. A CPU tensor takes the plain version; a CUDA
-    tensor (contiguous, 16-byte aligned, fp32 or bf16, C = 64 in 2 heads,
-    H % 8 == W % 8 == 0) launches the kernel or raises."""
+    tensor (contiguous, 16-byte aligned, fp32 or bf16, C in
+    ``KERNEL_WIDTHS`` in C / 32 heads, H % 8 == W % 8 == 0) launches the
+    kernel or raises."""
     _check(qkv, heads)
     if qkv.device.type == "cpu":
         return window_mhsa_plain(qkv, heads)

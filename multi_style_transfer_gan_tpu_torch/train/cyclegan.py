@@ -173,16 +173,21 @@ def _nhwc(x):
 
 def cyclegan_train_step(state: CycleGANState, real_A, real_B, *,
                         compute_dtype=torch.float32, remat: bool = False,
-                        pair_batching: bool = True, extra_g_loss=None,
+                        fast_attention: bool = True,
+                        pair_batching: bool | None = None, extra_g_loss=None,
                         pools=None):
     """One full CycleGAN step. real_A, real_B: (B, H, W, 3) in [-1, 1], on
     the state's device, H and W multiples of 32.
 
     Returns (state, losses) with the reference's five loss keys (detached
     scalar tensors). remat recomputes each generator stage and block in the
-    backward. pair_batching runs the (fake, identity) generator pair and the
-    (real, fake) discriminator pair as single 2x-batch calls (the same math:
-    every op is per sample, sigma depends only on weights). extra_g_loss:
+    backward. fast_attention=False runs the generators' attention and
+    blocks through their plain formulation (JAX's XLA path; no kernel
+    launches), True through the kernels. pair_batching runs the (fake,
+    identity) generator pair and the (real, fake) discriminator pair as
+    single 2x-batch calls (the same math: every op is per sample, sigma
+    depends only on weights); None (the default) follows fast_attention, as
+    in the JAX step. extra_g_loss:
     optional ``f(fake_A, fake_B, real_A, real_B) -> scalar`` (NHWC) added to
     the G loss. pools: optional ``((pool_A, pool_B), generator)`` replay
     buffers; the D phase then scores pool-sampled fakes and the return is
@@ -190,8 +195,11 @@ def cyclegan_train_step(state: CycleGANState, real_A, real_B, *,
     """
     xa = _nchw(real_A.to(compute_dtype))
     xb = _nchw(real_B.to(compute_dtype))
+    if pair_batching is None:
+        pair_batching = bool(fast_attention)
     for g in (state.G_AB, state.G_BA):
         g.remat = remat
+        g.fast_attention = fast_attention
 
     def paired(gen, first, second):
         if pair_batching:

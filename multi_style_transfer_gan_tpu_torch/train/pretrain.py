@@ -9,8 +9,9 @@ checkpoints holding the model, optimizer, scheduler and epoch.
 CycleGAN trainer's ``--pretrained`` warm start transfers every tensor (the
 reference's plain -> enhanced warm start matches no key). Under autograd
 the EnhancedGenerator runs the hand-written training kernels on the card
-(``ops.kernels.window_channel_attention_train``, ``window_mhsa_train``),
-which are built for its width 16 only.
+(``ops.kernels.window_channel_attention_train``, ``window_mhsa_train``;
+at C = 128 the JAX package's route, ``window_channel_attention_fast_vjp``),
+which take the c8, c16 and c32 widths (``check_kernel_width``).
 
 Precision follows the JAX dtype policy: parameters and Adam stay fp32, the
 generator runs in ``compute_dtype`` with its weights cast at use, BatchNorm
@@ -28,9 +29,12 @@ import torch
 from torch import nn
 
 from ..models import EnhancedGenerator, PlainGenerator
+from ..ops.kernels import FAST_VJP_WIDTHS
 from ..ops.kernels.fused_transformer import default_num_heads
 from ..ops.kernels.window_attention_train import KERNEL_WIDTHS
-from ..ops.kernels.window_mhsa_train import KERNEL_HEADS, KERNEL_WIDTH
+from ..ops.kernels.window_mhsa_train import (
+    KERNEL_WIDTHS as BLOCK_WIDTHS, kernel_heads,
+)
 from .losses import masked_l1
 
 LR = 2e-4             # pretrain.py:99
@@ -65,20 +69,26 @@ def learning_rate(step: int, num_epochs: int, steps_per_epoch: int,
 
 def check_kernel_width(channels: int,
                        what: str = "enhanced pretraining") -> None:
-    """The EnhancedGenerator at ``channels`` trains through the card's
-    kernels only where they are built for its widths: LocalAttention at C,
-    2C and 4C, the transformer block at 4C. Raises otherwise: there is no
-    plain fallback on the card. ``what`` names the caller in the message.
-    The widths are the training kernels' own, not the serving kernels'."""
-    widths = {channels, 2 * channels, 4 * channels}
+    """The EnhancedGenerator at ``channels`` trains on the card only where
+    its widths are built: LocalAttention at C, 2C and 4C each in the
+    training kernel's widths or on the inference-kernel route
+    (``FAST_VJP_WIDTHS``), and the transformer block at 4C with
+    ``default_num_heads(4C)`` heads in the window-MHSA kernel's. So c8, c16
+    and c32 train. Raises otherwise: there is no plain fallback on the
+    card. ``what`` names the caller in the message. The widths are the
+    training routes' own, not the serving kernels'."""
+    attention = set(KERNEL_WIDTHS) | set(FAST_VJP_WIDTHS)
     dim = 4 * channels
-    if (not widths <= set(KERNEL_WIDTHS) or dim != KERNEL_WIDTH
-            or default_num_heads(dim) != KERNEL_HEADS):
+    if (not {channels, 2 * channels, dim} <= attention
+            or dim not in BLOCK_WIDTHS
+            or default_num_heads(dim) != kernel_heads(dim)):
+        built = [c for c in range(1, max(attention) + 1)
+                 if {c, 2 * c, 4 * c} <= attention and 4 * c in BLOCK_WIDTHS]
         raise ValueError(
-            f"{what} at channels={channels} is not served on the card: the "
-            f"training kernels are built for LocalAttention widths "
-            f"{KERNEL_WIDTHS} and a {KERNEL_WIDTH}-wide block of "
-            f"{KERNEL_HEADS} heads, i.e. channels=16")
+            f"{what} at channels={channels} is not served on the card: "
+            f"LocalAttention trains at C in {tuple(sorted(attention))} and "
+            f"the block at dim in {BLOCK_WIDTHS} (C / 32 heads), i.e. "
+            f"channels in {tuple(built)}")
 
 
 def pretrain_init_state(seed: int = 0, channels: int = 64, *,

@@ -316,13 +316,14 @@ def test_clip_matches_optax(rng, scale):
 def test_init_needs_a_device_and_a_served_width():
     with pytest.raises(TypeError, match="device"):
         pretrain_init_state()
-    check_kernel_width(16)
-    for c in (8, 32):
-        with pytest.raises(ValueError, match="channels=16"):
+    for c in (8, 16, 32):
+        check_kernel_width(c)
+    for c in (4, 64):
+        with pytest.raises(ValueError, match=r"channels in \(8, 16, 32\)"):
             check_kernel_width(c)
     # the check comes before anything touches the card
     with pytest.raises(ValueError, match="not served on the card"):
-        pretrain_init_state(0, 8, model="enhanced", device="cuda")
+        pretrain_init_state(0, 64, model="enhanced", device="cuda")
     with pytest.raises(ValueError, match="model must be"):
         pretrain_init_state(0, 8, model="int8", device="cpu")
 

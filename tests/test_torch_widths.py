@@ -458,15 +458,18 @@ def test_loader_refuses_widths_not_built_on_the_card(tmp_path, channels):
     assert model.apply(torch.zeros(1, 32, 32, 3)).shape == (1, 32, 32, 3)
 
 
-@pytest.mark.parametrize("channels", [8, 32])
+@pytest.mark.parametrize("channels", [4, 64])
 def test_training_checks_read_the_training_kernels(channels):
-    """The serving kernels take c8 and c32; the training kernels do not
-    yet, and CycleGAN training says so before it builds anything."""
-    check_serving_width(channels)
+    """c8, c16 and c32 train on the card, as they serve; a width whose
+    LocalAttention or block the training routes do not take (c4, c64) is
+    refused, and CycleGAN training says so before it builds anything."""
+    for built in (8, 16, 32):
+        check_serving_width(built)
+        check_kernel_width(built, "CycleGAN training")
     with pytest.raises(ValueError, match="CycleGAN training at channels="
                                          f"{channels} is not served"):
         check_kernel_width(channels, "CycleGAN training")
-    with pytest.raises(ValueError, match="training kernels are built for"):
+    with pytest.raises(ValueError, match=r"channels in \(8, 16, 32\)"):
         cyclegan_init_state(0, channels, device="cuda")
 
 
@@ -482,9 +485,9 @@ def test_train_cli_refuses_a_width_before_its_first_step(monkeypatch,
     monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
     assert cli.DEVICE == "cuda"
     K.reset_launch_counts()
-    with pytest.raises(ValueError, match="channels=32 is not served"):
+    with pytest.raises(ValueError, match="channels=64 is not served"):
         cli.main(["--data_root", str(tmp_path / "no_data"), "--channels",
-                  "32", "--save_dir", str(tmp_path / "models")])
+                  "64", "--save_dir", str(tmp_path / "models")])
     assert not (tmp_path / "models").exists()
     assert all(k.launches == 0 for k in K.KERNELS)
 
