@@ -11,9 +11,10 @@ training at the reference configuration, the plain generator and
 masked-inpainting pretraining at the reference's width, the evaluation
 path (metrics, folder comparisons, FID on a full-width InceptionV3), the
 GUI's tab workers and the checkpoint tools, the VGG16 perceptual + Gram
-loss in the train step, the c8 and c32 EnhancedGenerators on the serving
-kernels' other widths and trained (CycleGAN and enhanced pretraining), and
-checks every hand-written kernel on the way:
+loss in the train step, the c8, c32 and c64 EnhancedGenerators on the
+serving kernels' other widths and trained (CycleGAN and enhanced
+pretraining, c64 also through the pretrain CLI's defaults), and checks
+every hand-written kernel on the way:
 
 1. build: all six CUDA sources compile from ``csrc/`` at once, one nvcc
    each;
@@ -111,8 +112,8 @@ checks every hand-written kernel on the way:
     the fp32 program at 'highest' card vs CPU on both engines with 4 + 1
     launches a forward (and 5 relayouts packed), packed vs NHWC, the bf16
     program's img/s at canvas 256, batch 16 and 64, and ``batch_process``
-    on a small folder at c32; a c4 and a c64 checkpoint raise at
-    ``load_generator`` on the card, and the train CLI at ``--channels 64``
+    on a small folder at c32; a c4 and a c12 checkpoint raise at
+    ``load_generator`` on the card, and the train CLI at ``--channels 12``
     raises before its first step;
 17. width training (``phase_width_train_kernels`` and ``phase_fast_vjp``
     after step 5, the width training path after the training path): the
@@ -128,16 +129,34 @@ checks every hand-written kernel on the way:
     ms/step, idle share) and two fp32 pretrain steps card vs CPU; a hooked
     c8 step; the train CLI at ``--channels 32`` and the pretrain CLI at
     ``--model enhanced --channels 8``; one ``fast_attention=False`` step
-    (``--no_fast_attention``) card vs CPU with no kernel launch; c4 and c64
-    refused.
+    (``--no_fast_attention``) card vs CPU with no kernel launch; c4 and c12
+    refused;
+18. c64, the JAX pretrain CLI's default width (``phase_width_kernels`` and
+    ``phase_width_train_kernels`` with ``C64_CHANNELS`` and ``phase_fast_vjp``
+    at ``C64_FAST_VJP_SHAPES`` beside the other width phases, the c64
+    serving path after the width serving path, the c64 training path after
+    the width training path, each on its own rng): the attention at C = 256
+    (both layouts) and 128 on 128^2, the block at 256 channels in 8 heads
+    (and on the ragged grid), the relayout at the 256-channel bottleneck,
+    row 11 at up2's C = 64 on 256^2, row 12 at 8 heads, kernel vs plain as
+    for the other widths; the route under grad at C = 256 card vs CPU and
+    timed with its peak memory, and at C = 128 on 128^2 timed; the c64
+    generator served as c8 and c32 are (its fp32 CPU half at one image),
+    and through the batch CLI, the server and ``direct_transform``; the
+    bf16 CycleGAN step (also with the VGG16 hook), the enhanced pretrain
+    step at batch 16, the fp32 steps card vs CPU, their launches per step;
+    the CLI chain ``pretrain --model enhanced`` (no ``--channels``),
+    ``train --channels 64`` fresh and ``--pretrained`` on that checkpoint,
+    and ``batch_process`` on the trained G_AB; the route's share of a c64
+    step.
 
 Every phase raises on failure. The last line is the result JSON; the line
-before it lists each kernel with its launches on the ten paths (launch
+before it lists each kernel with its launches on the twelve paths (launch
 counts are reset just before each path and read just after), its largest
 fp32 deviation from the plain version, its time beside the plain
 version's (the serving and training rows also per generator width,
 ``widths``; the channel-attention row also the C = 128 training route,
-``fast_vjp_c128``), its
+``fast_vjp_c128``, and c64's at C = 256 and 128, ``fast_vjp_c64``), its
 bound (the larger of its bytes over the card's memory rate
 and its bf16 matrix-product flops over the tensor-core peak) and, where
 one PyTorch call computes the same function, that call's time
@@ -274,35 +293,52 @@ PERCEPTUAL_RTOL = 1e-4
 # generator widths the serving kernels are built for; the c8 and c32 ones
 # (random weights at the JAX init law, seeded) drive the width path:
 # LocalAttention at C = 8 and 128 and the block at 32 and 128 channels (1
-# and 4 heads) beside c16's widths. Its fp32 card-vs-CPU program runs on
-# WIDTH_CPU_BATCH images, its folder through batch_process holds
-# WIDTH_FOLDER_IMAGES.
-GENERATOR_CHANNELS = (8, 16, 32)
+# and 4 heads) beside c16's widths; the c64 one (the JAX pretrain CLI's
+# default width) its own path: LocalAttention at C = 256 and the block at
+# 256 channels in 8 heads. The fp32 card-vs-CPU program runs on
+# WIDTH_CPU_BATCH images of the width (the c64 packed engine's repacked
+# weights are 2.37 GB in fp32 on the CPU), the folder through
+# batch_process holds WIDTH_FOLDER_IMAGES.
+GENERATOR_CHANNELS = (8, 16, 32, 64)
 WIDTH_CHANNELS = (8, 32)
-WIDTH_CPU_BATCH = 4
+C64_CHANNELS = (64,)
+WIDTH_CPU_BATCH = {8: 4, 32: 4, 64: 1}
 WIDTH_FOLDER_IMAGES = 6
-# the c8 and c32 generators trained: launches per bf16 CycleGAN step (pair
+# the c8, c32 and c64 generators trained: launches per bf16 CycleGAN step (pair
 # batching, remat off; 4 generator forwards with grad, 2 under no_grad) and
 # per enhanced pretrain step (1 forward with grad). c8 trains LocalAttention
 # at C = 8, 16, 32 through row 11, as c16 does; c32 at C = 32, 64, 64
 # through row 11 and its down2 at C = 128 through the fast-VJP route, whose
-# forward is row 1's kernel under grad (4 a step beside the D phase's 8)
+# forward is row 1's kernel under grad (4 a step beside the D phase's 8);
+# c64 trains only its up2 (C = 64) through row 11 and down1, down2 and up1
+# (C = 128, 256, 128) through the route (12 a step beside the D phase's 8)
 WIDTH_TRAIN_LAUNCHES_PER_STEP = {
     8: TRAIN_LAUNCHES_PER_STEP,
     32: {"window_attention_mid_fwd": 12, "window_attention_mid_bwd": 12,
          "window_mhsa_fwd": 4, "window_mhsa_bwd": 4,
-         "window_channel_attention": 12, "fused_structural_block": 2}}
+         "window_channel_attention": 12, "fused_structural_block": 2},
+    64: {"window_attention_mid_fwd": 4, "window_attention_mid_bwd": 4,
+         "window_mhsa_fwd": 4, "window_mhsa_bwd": 4,
+         "window_channel_attention": 20, "fused_structural_block": 2}}
 WIDTH_PRETRAIN_LAUNCHES_PER_STEP = {
     8: PRETRAIN_LAUNCHES_PER_STEP,
     32: {"window_attention_mid_fwd": 3, "window_attention_mid_bwd": 3,
          "window_mhsa_fwd": 1, "window_mhsa_bwd": 1,
-         "window_channel_attention": 1, "fused_structural_block": 0}}
+         "window_channel_attention": 1, "fused_structural_block": 0},
+    64: {"window_attention_mid_fwd": 1, "window_attention_mid_bwd": 1,
+         "window_mhsa_fwd": 1, "window_mhsa_bwd": 1,
+         "window_channel_attention": 3, "fused_structural_block": 0}}
 # c32's down2 under grad: the fast-VJP route at its 256^2, batch-8 shape;
-# the fp32 backward of the channel-attention mid on more draws of the small
-# q, k input at each width's shapes
+# c64's down2 (C = 256, checked card vs CPU and timed) and down1 and up1
+# (C = 128 on 128^2, timed); the fp32 backward of the channel-attention mid
+# on more draws of the small q, k input at each width's shapes
 FAST_VJP_SHAPE = (TRAIN_BATCH, 64, 64, 128)
+C64_FAST_VJP_SHAPES = ((TRAIN_BATCH, 64, 64, 256), (TRAIN_BATCH, 128, 128, 128))
 SMALL_QK_DRAWS = 3
 WIDTH_TRAIN_SIZE = 256   # the bf16 steps' images
+
+
+PROFILE_ATTEMPTS = 10    # torch.profiler sessions asked for one device time
 
 
 def log(*a):
@@ -364,7 +400,13 @@ def device_profile(fn, iters=20, warmup=3):
 
     for _ in range(warmup):
         fn()
-    for _ in range(3):   # a profile now and then comes back empty: ask again
+    # a profile now and then comes back empty, at times several in a row:
+    # ask again, letting the tracer settle a little longer each time
+    for attempt in range(PROFILE_ATTEMPTS):
+        if attempt:
+            log(f"[profiler] empty session, asking again ({attempt + 1} of "
+                f"{PROFILE_ATTEMPTS})")
+            time.sleep(0.2 * attempt)
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             for _ in range(iters):
@@ -1371,8 +1413,9 @@ def phase_cli(rng, tmp):
                                  f"correct outputs")
 
 
-def phase_server(rng, dev, engine, local_style_mode=None):
-    """The HTTP server with ``engine``: four concurrent requests in
+def phase_server(rng, dev, engine, local_style_mode=None, model_path=TRAINED):
+    """The HTTP server with ``engine`` on the generator at ``model_path``
+    (the trained c16 one by default): four concurrent requests in
     ``cyclegan`` mode, or one in ``local_style`` with ``local_style_mode``."""
     import torch
     from PIL import Image
@@ -1382,7 +1425,7 @@ def phase_server(rng, dev, engine, local_style_mode=None):
         StyleTransferService, serve,
     )
 
-    model = load_generator(TRAINED, device=dev)
+    model = load_generator(model_path, device=dev)
     mode = {} if local_style_mode is None else dict(
         mode="local_style", local_style_mode=local_style_mode)
     service = StyleTransferService(model, canvas=256, max_batch=8,
@@ -1392,8 +1435,9 @@ def phase_server(rng, dev, engine, local_style_mode=None):
     thread = threading.Thread(target=server.serve_forever, daemon=True)
     thread.start()
     host, port = server.server_address
-    what = f"engine {engine}" + ("" if local_style_mode is None
-                                 else f", local_style {local_style_mode}")
+    what = (f"c{model.channels} engine {engine}"
+            + ("" if local_style_mode is None
+               else f", local_style {local_style_mode}"))
     try:
         sizes = [(320, 200), (200, 320), (256, 256), (500, 375)]
         if local_style_mode is not None:
@@ -2755,10 +2799,11 @@ def width_checkpoint(path, channels):
     return sum(p.numel() for p in module.parameters())
 
 
-def phase_width_kernels(rng, dev):
+def phase_width_kernels(rng, dev, widths=WIDTH_CHANNELS):
     """Rows 1-7 (the attention, NHWC and packed), 9 (the relayout) and 4 (the
-    block) at the shapes of one canvas-256 forward of each of the c8 and c32
-    generators: the attention and the block kernel vs plain, fp32 (TF32 off)
+    block) at the shapes of one canvas-256 forward of each generator of
+    ``widths`` (c8 and c32; c64 on its own path): the attention and the
+    block kernel vs plain, fp32 (TF32 off)
     and bf16, on the stress inputs of ``attention_stress_inputs`` and
     ``block_stress_inputs`` (one all-zero window each; the block also on a
     ragged 12 x 20 grid); on the random input, bf16 kernel and plain in
@@ -2777,7 +2822,7 @@ def phase_width_kernels(rng, dev):
 
     canvas = CANVASES[0]
     out = {}
-    for channels in WIDTH_CHANNELS:
+    for channels in widths:
         rec = out[channels] = {}
         shapes = [s for _, s in attention_shapes(canvas, channels)]
         for name, fn, plain, packed in (
@@ -2882,20 +2927,25 @@ def phase_width_kernels(rng, dev):
     return out
 
 
-def phase_width_serving(rng, dev, counts, work):
-    """The c8 and c32 generators through the entry points: each written to
-    a ``.pth`` (``width_checkpoint``) and loaded by ``load_generator`` on
-    the card and on the CPU at precision 'highest'; the fp32 uint8 program
-    card vs CPU on both engines (``WIDTH_CPU_BATCH`` images at canvas 256;
-    launches per forward: 4 attention calls and 1 block, and 5 relayouts
-    on the packed engine), packed vs NHWC on the card; the bf16 program's
-    img/s of both engines at canvas 256, batch ``RATE_BATCHES``, in turns;
-    ``batch_process`` at c32 on a folder of ``WIDTH_FOLDER_IMAGES`` JPEGs
-    of mixed sizes. Then the widths the kernels are not built for: a c4
-    and a c64 checkpoint raise at ``load_generator`` on the card, and the
-    train CLI at ``--channels 64`` raises before its first step. Returns
-    {channels: {"parameters", "rates", "launches"}}, launches the counts
-    this generator's part of the path made."""
+def phase_width_serving(rng, dev, counts, work, widths=WIDTH_CHANNELS,
+                        refuse=True):
+    """The generators of ``widths`` (c8 and c32; c64 on its own path)
+    through the entry points: each written to a ``.pth``
+    (``width_checkpoint``) and loaded by ``load_generator`` on the card and
+    on the CPU at precision 'highest'; the fp32 uint8 program card vs CPU
+    on both engines (``WIDTH_CPU_BATCH`` images at canvas 256; launches per
+    forward: 4 attention calls and 1 block, and 5 relayouts on the packed
+    engine), packed vs NHWC on the card; the bf16 program's img/s of both
+    engines at canvas 256, batch ``RATE_BATCHES``, in turns;
+    ``batch_process`` at the widest on a folder of ``WIDTH_FOLDER_IMAGES``
+    JPEGs of mixed sizes, and at c64 the batch CLI, the server and
+    ``direct_transform`` too (``serve_entry_points``). Then, with
+    ``refuse``, the widths the kernels are
+    not built for: a c4 and a c12 checkpoint raise at ``load_generator``
+    on the card, and the train CLI at ``--channels 12`` raises before its
+    first step. Returns {channels: {"parameters", "rates", "weights_gib",
+    "launches"}}: weights_gib the device memory of each bf16 engine's
+    weights, launches the counts this generator's part of the path made."""
     import contextlib
 
     import torch
@@ -2910,7 +2960,7 @@ def phase_width_serving(rng, dev, counts, work):
              "packed_window_channel_attention", "window_relayout")
     canvas = CANVASES[0]
     out = {}
-    for channels in WIDTH_CHANNELS:
+    for channels in widths:
         start = counts()
         path = os.path.join(work, f"enhanced_c{channels}.pth")
         n_params = width_checkpoint(path, channels)
@@ -2918,7 +2968,8 @@ def phase_width_serving(rng, dev, counts, work):
         cpu = load_generator(path, precision="highest", device="cpu")
         log(f"[width serving] c{channels}: {gpu.kind} c{gpu.channels}, "
             f"{n_params} parameters, {path}")
-        batch = np.stack(smooth_images(rng, WIDTH_CPU_BATCH, (canvas, canvas)))
+        batch = np.stack(smooth_images(rng, WIDTH_CPU_BATCH[channels],
+                                       (canvas, canvas)))
         outs = {}
         for engine in ENGINES:
             before = counts()
@@ -2947,9 +2998,15 @@ def phase_width_serving(rng, dev, counts, work):
             raise AssertionError(f"c{channels}: packed and NHWC engines "
                                  f"disagree on the card")
 
-        bf16 = {e: make_batch_fn(gpu, "cyclegan", engine=e,
-                                 compute_dtype=torch.bfloat16, device=dev)
-                for e in ENGINES}
+        bf16, held = {}, {}
+        for e in ENGINES:   # the device memory each engine's weights take
+            m0 = torch.cuda.memory_allocated()
+            bf16[e] = make_batch_fn(gpu, "cyclegan", engine=e,
+                                    compute_dtype=torch.bfloat16, device=dev)
+            held[e] = (torch.cuda.memory_allocated() - m0) / 2 ** 30
+        log(f"[width serving] c{channels} bf16 weights on the card: NHWC "
+            f"{held['nhwc']:.3f} GiB, packed (repacked) {held['packed']:.3f} "
+            f"GiB")
         rates = {}
         for n in RATE_BATCHES:
             x = torch.from_numpy(np.stack(smooth_images(
@@ -2965,7 +3022,7 @@ def phase_width_serving(rng, dev, counts, work):
                 f"{rates[(n, 'packed')]:.1f} img/s; turns {turns['nhwc']}, "
                 f"{turns['packed']}")
 
-        if channels == max(WIDTH_CHANNELS):
+        if channels == max(widths):
             src = os.path.join(work, f"widths_in_c{channels}")
             dst = os.path.join(work, f"widths_out_c{channels}")
             os.makedirs(src)
@@ -2993,12 +3050,18 @@ def phase_width_serving(rng, dev, counts, work):
             if done != len(sizes):
                 raise AssertionError(f"batch_process at c{channels} wrote "
                                      f"{done}/{len(sizes)} correct outputs")
+            if channels in C64_CHANNELS:
+                serve_entry_points(rng, dev, path, src, sizes, work)
         end = counts()
         out[channels] = {"parameters": n_params, "rates": rates,
+                         "weights_gib": held,
                          "launches": {n: end[n] - start[n] for n in end}}
+        del gpu, cpu, bf16
+    if not refuse:
+        return out
 
     # no fallback: what the kernels are not built for raises up front
-    for channels in (4, 64):
+    for channels in (4, 12):
         path = os.path.join(work, f"enhanced_c{channels}.pth")
         width_checkpoint(path, channels)
         try:
@@ -3013,24 +3076,86 @@ def phase_width_serving(rng, dev, counts, work):
     os.makedirs(os.path.join(data, "trainB"))
     before = counts()
     try:
-        train_cli.main(["--data_root", data, "--channels", "64",
+        train_cli.main(["--data_root", data, "--channels", "12",
                         "--save_dir", os.path.join(work, "widths_models")])
     except ValueError as e:
-        log(f"[width serving] train --channels 64 on the card: {e}")
+        log(f"[width serving] train --channels 12 on the card: {e}")
     else:
-        raise AssertionError("train --channels 64 did not raise")
+        raise AssertionError("train --channels 12 did not raise")
     if counts() != before:
-        raise AssertionError("train --channels 64 launched a kernel")
+        raise AssertionError("train --channels 12 launched a kernel")
     return out
+
+
+def serve_entry_points(rng, dev, path, src, sizes, work):
+    """The generator at ``path`` through the user's serving entry points on
+    the card: the batch CLI (``--engine auto``, bf16, batch 4) on the folder
+    ``src`` (its images' ``sizes``), the HTTP server (NHWC engine) answering
+    four requests, and the ``direct_transform`` CLI on one photo (at its
+    default --size, 256); each writes images of the right size."""
+    import contextlib
+
+    import torch
+    from PIL import Image
+
+    from multi_style_transfer_gan_tpu_torch.cli import (
+        batch_process_images, direct_transform,
+    )
+
+    sd = torch.load(path, map_location="cpu", weights_only=True)[
+        "G_AB_state_dict"]
+    models = os.path.join(work, "entry_models")
+    os.makedirs(models)
+    torch.save({"G_AB_state_dict": sd, "G_BA_state_dict": sd},
+               os.path.join(models, "cyclegan_epoch_200.pth"))
+    out = os.path.join(work, "entry_out")
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = batch_process_images.main([
+            "--input_dir", src, "--output_dir", out, "--models_dir", models,
+            "--direction", "photo2monet", "--bf16", "--batch_size", "4",
+            "--engine", "auto"])
+    done = 0
+    for name, size in sizes.items():
+        target = os.path.join(out, "cyclegan_photo2monet", name)
+        if os.path.exists(target):
+            with Image.open(target) as img:
+                done += img.size == size
+    log(f"[entry points] batch CLI: exit {rc}, {done}/{len(sizes)} outputs "
+        f"at their original sizes; " + " | ".join(buf.getvalue().splitlines()))
+    if rc != 0 or done != len(sizes):
+        raise AssertionError(f"the batch CLI exited {rc} with {done}/"
+                             f"{len(sizes)} correct outputs")
+    phase_server(rng, dev, "nhwc", model_path=path)
+    photo = os.path.join(work, "entry_photo.png")
+    result = os.path.join(work, "entry_direct.png")
+    Image.fromarray(smooth_images(rng, 1, (400, 300))[0]).save(photo)
+    buf = io.StringIO()
+    saved, direct_transform.DEVICE = direct_transform.DEVICE, dev.type
+    try:
+        with contextlib.redirect_stdout(buf):
+            rc = direct_transform.main(["--image", photo, "--model", path,
+                                        "--output", result])
+    finally:
+        direct_transform.DEVICE = saved
+    size = None
+    if os.path.exists(result):
+        with Image.open(result) as img:
+            size = img.size
+    log(f"[entry points] direct_transform: exit {rc}, output size {size}; "
+        + " | ".join(buf.getvalue().splitlines()))
+    if rc != 0 or size != (256, 256):   # its --size default
+        raise AssertionError(f"direct_transform exited {rc}, wrote {size}")
 
 
 # ---------------------------------------------------------------------------
 # the c8 and c32 generators trained
 # ---------------------------------------------------------------------------
 
-def phase_width_train_kernels(rng, dev):
-    """Rows 11 and 12 at the shapes of a bf16 train step of the c8 and c32
-    generators (``width_train_kernel_cases``): forward and backward kernel
+def phase_width_train_kernels(rng, dev, widths=WIDTH_CHANNELS):
+    """Rows 11 and 12 at the shapes of a bf16 train step of the generators
+    of ``widths`` (c8 and c32; c64 on its own path;
+    ``width_train_kernel_cases``): forward and backward kernel
     vs plain, fp32 (TF32 off) and bf16, on the three inputs of
     ``train_kernel_inputs`` (one all-zero window each), plus the fp32
     backward of row 11 on SMALL_QK_DRAWS more draws of the small-q, k input
@@ -3044,7 +3169,7 @@ def phase_width_train_kernels(rng, dev):
 
     per_fwd = {"up2": 1, "down1/up1": 2, "down2": 1}
     out = {}
-    for channels in WIDTH_CHANNELS:
+    for channels in widths:
         rec = out[channels] = {}
         worst = {n: {torch.float32: 0.0, torch.bfloat16: 0.0}
                  for n in ("attention", "mhsa")}
@@ -3090,10 +3215,11 @@ def phase_width_train_kernels(rng, dev):
     return out
 
 
-def phase_fast_vjp(rng, dev):
-    """c32's down2 under grad (LocalAttention at C = 128, no training
-    kernel): ``window_channel_attention_fast_vjp`` at FAST_VJP_SHAPE on the
-    three inputs of ``attention_stress_inputs`` (one all-zero window; small
+def phase_fast_vjp(rng, dev, shape=FAST_VJP_SHAPE, check=True):
+    """LocalAttention under grad where no training kernel is built (C = 128:
+    c32's down2, c64's down1 and up1; C = 256: c64's down2):
+    ``window_channel_attention_fast_vjp`` at ``shape``; with ``check``, on
+    the three inputs of ``attention_stress_inputs`` (one all-zero window; small
     q and k), fp32 (TF32 off) and bf16, the forward and the five gradients
     of <y, g> on the card against the same Function on the CPU: the forward
     at FP32_TOL and at the bf16 bound; the gradients, which sum over the
@@ -3101,21 +3227,21 @@ def phase_fast_vjp(rng, dev):
     TRAIN_GRAD_FP32_TOL in fp32 and BF16_RTOL in bf16, each relative to the
     largest of its tensor (at least 1). Then, bf16 on the random input,
     forward + backward of the route against the plain formulation
-    (``window_channel_attention_plain`` in autograd) in turns, and the route
-    in device time.
-    Returns {ms, plain_ms, device_ms, max_abs_err, max_rel_grad_err,
-    max_rel_grad_err_bf16, shape}."""
+    (``window_channel_attention_plain`` in autograd) in turns, the route in
+    device time and its peak memory.
+    Returns {ms, plain_ms, device_ms, peak_gib, max_abs_err,
+    max_rel_grad_err, max_rel_grad_err_bf16, shape}."""
     import torch
 
     from multi_style_transfer_gan_tpu_torch.ops.kernels import (
         window_channel_attention_fast_vjp, window_channel_attention_plain,
     )
 
-    shape = FAST_VJP_SHAPE
     names = ("y", "dx", "dwqkv", "dbqkv", "dwproj", "dbproj")
     rec = {"shape": shape, "max_abs_err": 0.0, "max_rel_grad_err": 0.0,
            "max_rel_grad_err_bf16": 0.0}
-    for label, x, ws in attention_stress_inputs(rng, shape):
+    C = shape[-1]
+    for label, x, ws in attention_stress_inputs(rng, shape) if check else ():
         g = rng.standard_normal(shape).astype(np.float32)
         for dtype in (torch.float32, torch.bfloat16):
             outs = {}
@@ -3134,7 +3260,7 @@ def phase_fast_vjp(rng, dev):
                    for a, b in zip(card[1:], cpu[1:])]
             ok = ok and max(rel) <= (TRAIN_GRAD_FP32_TOL if fp32 else BF16_RTOL)
             ok = ok and all(bool(torch.isfinite(t).all()) for t in card)
-            log(f"[fast vjp] C = 128 route {shape} {label} {str(dtype)[6:]}, "
+            log(f"[fast vjp] C = {C} route {shape} {label} {str(dtype)[6:]}, "
                 f"card vs CPU: y max|d| {err:.3e}; gradients max|d| relative "
                 f"to their largest " + ", ".join(
                     f"{n} {r:.3e}" for n, r in zip(names[1:], rel)))
@@ -3160,8 +3286,13 @@ def phase_fast_vjp(rng, dev):
         run(window_channel_attention_fast_vjp),
         run(window_channel_attention_plain))
     rec["device_ms"] = device_ms(run(window_channel_attention_fast_vjp))
+    torch.cuda.reset_peak_memory_stats()
+    run(window_channel_attention_fast_vjp)()
+    torch.cuda.synchronize()
+    rec["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
     log(f"[fast vjp] bf16 {shape} forward + backward: route {rec['ms']:.4f} ms "
-        f"({rec['device_ms']:.4f} ms device), plain formulation "
+        f"({rec['device_ms']:.4f} ms device, peak memory "
+        f"{rec['peak_gib']:.2f} GiB), plain formulation "
         f"{rec['plain_ms']:.4f} ms ({card_line()})")
     return rec
 
@@ -3236,163 +3367,182 @@ def fp32_step_card_vs_cpu(dev, channels, what, host=None, **kw):
     return launched
 
 
-def phase_width_train(rng, dev, counts, work):
-    """The c8 and c32 generators trained through the entry points. For each
-    width: the bf16 CycleGAN step at 256^2, batch TRAIN_BATCH, pair
-    batching, from a seeded fresh init (launches per step against
+def train_width(rng, dev, counts, channels, gen, pretrain_batch=TRAIN_BATCH):
+    """The generator of width ``channels`` trained through the entry points:
+    the bf16 CycleGAN step at 256^2, batch TRAIN_BATCH, pair batching, from
+    a seeded fresh init (launches per step against
     WIDTH_TRAIN_LAUNCHES_PER_STEP, finite losses, G, D and u moved, ms/step
-    over 10 steps after 3 warm-up); one fp32 step card vs CPU (128^2, batch
-    2) and the step's profiler device time over 5 more; the enhanced bf16
-    pretrain step at 256^2, batch TRAIN_BATCH
-    (launches per step against WIDTH_PRETRAIN_LAUNCHES_PER_STEP, ms/step,
-    device idle share) and two fp32 pretrain steps card vs CPU (128^2,
-    batch 2). Then at c8 one bf16 step with the VGG16 perceptual hook
-    (launches equal to the hookless step's); the train CLI at --channels 32
-    and the pretrain CLI at --model enhanced --channels 8, one epoch each on
-    a small folder; one fp32 step with ``fast_attention=False`` (the CLI's
-    --no_fast_attention) card vs CPU at c8 with no kernel launch; c4 and
-    c64 refused before any work. Returns {channels: {"step_ms",
-    "step_device_ms", "step_idle", "pretrain": (ms, device ms, idle),
-    "launches"}}."""
-    import contextlib
-
+    over 10 steps after 3 warm-up, the step's profiler device time over 5
+    more and the peak memory); at c8 and c64 one bf16 step with the VGG16
+    perceptual hook (launches equal to the hookless step's); one fp32 step
+    card vs CPU (128^2, batch 2); the enhanced bf16 pretrain step at 256^2,
+    batch ``pretrain_batch`` (launches per step against
+    WIDTH_PRETRAIN_LAUNCHES_PER_STEP, ms/step, device idle share) and two
+    fp32 pretrain steps card vs CPU (128^2, batch 2). Returns {"step_ms",
+    "step_device_ms", "step_idle", "step_peak_gib", "pretrain": (ms, device
+    ms, idle), "launches"}."""
     import torch
-    from PIL import Image
 
-    from multi_style_transfer_gan_tpu_torch.cli import pretrain as pretrain_cli
-    from multi_style_transfer_gan_tpu_torch.cli import train as train_cli
     from multi_style_transfer_gan_tpu_torch.data import random_patch_mask
     from multi_style_transfer_gan_tpu_torch.ops import to_model_range
     from multi_style_transfer_gan_tpu_torch.train import (
-        check_kernel_width, cyclegan_init_state, pretrain_init_state,
-        pretrain_train_step,
+        cyclegan_init_state, pretrain_init_state, pretrain_train_step,
     )
     from multi_style_transfer_gan_tpu_torch.train.perceptual import (
         make_extra_g_loss, vgg16_from_torchvision_sd,
     )
 
-    out = {}
-    gen = torch.Generator().manual_seed(SEED + 3)
-    for channels in WIDTH_CHANNELS:
-        start = counts()
-        tag = f"[width train] c{channels}"
-        state = cyclegan_init_state(SEED, channels, 1, device=dev)
-        before = {n: {k: v.clone() for k, v in getattr(state, n)
-                      .state_dict().items()}
-                  for n in ("G_AB", "G_BA", "D_A", "D_B")}
-        step = train_step_runner(state, uint8_pairs(
-            rng, 2, TRAIN_BATCH, WIDTH_TRAIN_SIZE, dev))
-        launches_of(step, counts, WIDTH_TRAIN_LAUNCHES_PER_STEP[channels],
-                    f"{tag} bf16 step")
-        for _ in range(2):   # warm-up: 3 steps in all
-            step()
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        for _ in range(10):
-            losses = step()
-        torch.cuda.synchronize()
-        ms = (time.perf_counter() - t0) * 1000 / 10
-        step_dev = device_ms(step, iters=5, warmup=0)
-        idle = max(0.0, 1.0 - step_dev / ms)
-        vals = {k: float(v) for k, v in losses.items()}
-        log(f"{tag} bf16 {WIDTH_TRAIN_SIZE}^2 batch {TRAIN_BATCH}, pair "
-            f"batching: {ms:.2f} ms/step, {TRAIN_BATCH * 1000 / ms:.1f} image "
-            f"pairs/s, device {step_dev:.2f} ms/step (torch.profiler), device "
-            f"idle share {idle:.1%} ({card_line()}); losses after "
-            f"{state.step} steps {vals}; peak memory "
-            f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    start = counts()
+    tag = f"[width train] c{channels}"
+    state = cyclegan_init_state(SEED, channels, 1, device=dev)
+    before = {n: {k: v.clone() for k, v in getattr(state, n)
+                  .state_dict().items()}
+              for n in ("G_AB", "G_BA", "D_A", "D_B")}
+    step = train_step_runner(state, uint8_pairs(
+        rng, 2, TRAIN_BATCH, WIDTH_TRAIN_SIZE, dev))
+    torch.cuda.reset_peak_memory_stats()
+    launches_of(step, counts, WIDTH_TRAIN_LAUNCHES_PER_STEP[channels],
+                f"{tag} bf16 step")
+    for _ in range(2):   # warm-up: 3 steps in all
+        step()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(10):
+        losses = step()
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1000 / 10
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    step_dev = device_ms(step, iters=5, warmup=0)
+    idle = max(0.0, 1.0 - step_dev / ms)
+    vals = {k: float(v) for k, v in losses.items()}
+    log(f"{tag} bf16 {WIDTH_TRAIN_SIZE}^2 batch {TRAIN_BATCH}, pair "
+        f"batching: {ms:.2f} ms/step, {TRAIN_BATCH * 1000 / ms:.1f} image "
+        f"pairs/s, device {step_dev:.2f} ms/step (torch.profiler), device "
+        f"idle share {idle:.1%} ({card_line()}); losses after "
+        f"{state.step} steps {vals}; peak memory {peak:.2f} GiB")
+    if not all(np.isfinite(v) for v in vals.values()):
+        raise AssertionError(f"{tag}: non-finite losses {vals}")
+    for name, sd in before.items():
+        now = getattr(state, name).state_dict()
+        if not any(not torch.equal(now[k], v) for k, v in sd.items()):
+            raise AssertionError(f"{tag}: {name} did not move")
+        if name[0] == "D" and torch.equal(now["main.2.weight_u"],
+                                          sd["main.2.weight_u"]):
+            raise AssertionError(f"{tag}: {name} spectral-norm u did not "
+                                 f"move")
+    if channels in (min(WIDTH_CHANNELS),) + C64_CHANNELS:
+        vgg = vgg16_from_torchvision_sd(random_vgg16_sd(), device=dev)
+        hooked = train_step_runner(
+            state, uint8_pairs(rng, 1, TRAIN_BATCH, WIDTH_TRAIN_SIZE, dev),
+            extra_g_loss=make_extra_g_loss(vgg))
+        vals = {k: float(v) for k, v in launches_of(
+            hooked, counts, WIDTH_TRAIN_LAUNCHES_PER_STEP[channels],
+            f"{tag} bf16 step with the VGG16 hook").items()}
         if not all(np.isfinite(v) for v in vals.values()):
-            raise AssertionError(f"{tag}: non-finite losses {vals}")
-        for name, sd in before.items():
-            now = getattr(state, name).state_dict()
-            if not any(not torch.equal(now[k], v) for k, v in sd.items()):
-                raise AssertionError(f"{tag}: {name} did not move")
-            if name[0] == "D" and torch.equal(now["main.2.weight_u"],
-                                              sd["main.2.weight_u"]):
-                raise AssertionError(f"{tag}: {name} spectral-norm u did not "
-                                     f"move")
-        if channels == min(WIDTH_CHANNELS):
-            vgg = vgg16_from_torchvision_sd(random_vgg16_sd(), device=dev)
-            hooked = train_step_runner(
-                state, uint8_pairs(rng, 1, TRAIN_BATCH, WIDTH_TRAIN_SIZE, dev),
-                extra_g_loss=make_extra_g_loss(vgg))
-            vals = {k: float(v) for k, v in launches_of(
-                hooked, counts, WIDTH_TRAIN_LAUNCHES_PER_STEP[channels],
-                f"{tag} bf16 step with the VGG16 hook").items()}
-            if not all(np.isfinite(v) for v in vals.values()):
-                raise AssertionError(f"{tag}: non-finite hooked losses {vals}")
-            del vgg, hooked
-        del state, step
-        fp32_step_card_vs_cpu(dev, channels, f"{tag} train step")
+            raise AssertionError(f"{tag}: non-finite hooked losses {vals}")
+        del vgg, hooked
+    del state, step
+    fp32_step_card_vs_cpu(dev, channels, f"{tag} train step")
 
-        state = pretrain_init_state(SEED, channels, model="enhanced",
-                                    device=dev)
-        size = WIDTH_TRAIN_SIZE
-        imgs = [torch.from_numpy(np.stack(smooth_images(
-            rng, TRAIN_BATCH, (size, size)))).to(dev) for _ in range(2)]
-        masks = [random_patch_mask(TRAIN_BATCH, size, generator=gen,
-                                   device=dev) for _ in range(2)]
-        pstep = pretrain_steps(state, imgs, masks, torch.bfloat16)
-        launches_of(pstep, counts, WIDTH_PRETRAIN_LAUNCHES_PER_STEP[channels],
-                    f"{tag} enhanced pretrain bf16 step")
-        pre = time_pretrain(pstep, f"c{channels} enhanced bf16 {size}^2 "
-                            f"batch {TRAIN_BATCH}", TRAIN_BATCH)
-        del state, pstep
-        host = [torch.from_numpy(np.stack(smooth_images(rng, 2, (128, 128))))
-                for _ in range(2)]
-        hmasks = [random_patch_mask(2, 128, generator=gen, device="cpu")
-                  for _ in range(2)]
-        losses = []
-        for device in (dev, torch.device("cpu")):
-            st = pretrain_init_state(SEED + 1, channels, model="enhanced",
-                                     device=device)
-            losses.append([float(pretrain_train_step(
-                st, to_model_range(x.to(device)), m.to(device))[1])
-                for x, m in zip(host, hmasks)])
-        rel = max(abs(a - b) / abs(b) for a, b in zip(*losses))
-        log(f"{tag} enhanced pretrain fp32 128^2 batch 2, two steps card vs "
-            f"CPU: {losses[0]} vs {losses[1]}; max relative difference "
-            f"{rel:.2e} (limit {PRETRAIN_FP32_RTOL})")
-        if rel > PRETRAIN_FP32_RTOL:
-            raise AssertionError(f"{tag}: fp32 pretrain steps, card and CPU "
-                                 f"disagree")
-        end = counts()
-        out[channels] = {"step_ms": ms, "step_device_ms": step_dev,
-                         "step_idle": idle, "pretrain": pre,
-                         "launches": {n: end[n] - start[n] for n in end}}
+    state = pretrain_init_state(SEED, channels, model="enhanced", device=dev)
+    size = WIDTH_TRAIN_SIZE
+    imgs = [torch.from_numpy(np.stack(smooth_images(
+        rng, pretrain_batch, (size, size)))).to(dev) for _ in range(2)]
+    masks = [random_patch_mask(pretrain_batch, size, generator=gen,
+                               device=dev) for _ in range(2)]
+    pstep = pretrain_steps(state, imgs, masks, torch.bfloat16)
+    launches_of(pstep, counts, WIDTH_PRETRAIN_LAUNCHES_PER_STEP[channels],
+                f"{tag} enhanced pretrain bf16 step")
+    pre = time_pretrain(pstep, f"c{channels} enhanced bf16 {size}^2 "
+                        f"batch {pretrain_batch}", pretrain_batch)
+    del state, pstep
+    host = [torch.from_numpy(np.stack(smooth_images(rng, 2, (128, 128))))
+            for _ in range(2)]
+    hmasks = [random_patch_mask(2, 128, generator=gen, device="cpu")
+              for _ in range(2)]
+    losses = []
+    for device in (dev, torch.device("cpu")):
+        st = pretrain_init_state(SEED + 1, channels, model="enhanced",
+                                 device=device)
+        losses.append([float(pretrain_train_step(
+            st, to_model_range(x.to(device)), m.to(device))[1])
+            for x, m in zip(host, hmasks)])
+    rel = max(abs(a - b) / abs(b) for a, b in zip(*losses))
+    log(f"{tag} enhanced pretrain fp32 128^2 batch 2, two steps card vs "
+        f"CPU: {losses[0]} vs {losses[1]}; max relative difference "
+        f"{rel:.2e} (limit {PRETRAIN_FP32_RTOL})")
+    if rel > PRETRAIN_FP32_RTOL:
+        raise AssertionError(f"{tag}: fp32 pretrain steps, card and CPU "
+                             f"disagree")
+    end = counts()
+    return {"step_ms": ms, "step_device_ms": step_dev, "step_idle": idle,
+            "step_peak_gib": peak, "pretrain": pre,
+            "launches": {n: end[n] - start[n] for n in end}}
+
+
+def run_cli(fn, argv, what):
+    """One CLI's main(argv), its output logged; raises unless it exits 0."""
+    import contextlib
+
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = fn(argv)
+    log(f"[width train] {what}: exit {rc}, {time.perf_counter() - t0:.2f} "
+        f"s wall; its output:")
+    for line in buf.getvalue().splitlines():
+        log(f"    {line}")
+    if rc != 0:
+        raise AssertionError(f"{what} exited {rc}")
+    return buf.getvalue()
+
+
+def train_folder(rng, path, n=8, size=256):
+    """A trainA / trainB folder of ``n`` smooth JPEGs a domain at ``path``."""
+    from PIL import Image
+
+    for domain in ("A", "B"):
+        d = os.path.join(path, f"train{domain}")
+        os.makedirs(d)
+        for i in range(n):
+            Image.fromarray(smooth_images(rng, 1, (size, size))[0]).save(
+                os.path.join(d, f"{i:02d}.jpg"), quality=92)
+
+
+def phase_width_train(rng, dev, counts, work):
+    """The c8 and c32 generators trained through the entry points
+    (``train_width`` for each); the train CLI at --channels 32 and the
+    pretrain CLI at --model enhanced --channels 8, one epoch each on a small
+    folder; one fp32 step with ``fast_attention=False`` (the CLI's
+    --no_fast_attention) card vs CPU at c8 with no kernel launch; c4 and
+    c12 refused before any work. Returns {channels: train_width's
+    record}."""
+    import torch
+
+    from multi_style_transfer_gan_tpu_torch.cli import pretrain as pretrain_cli
+    from multi_style_transfer_gan_tpu_torch.cli import train as train_cli
+    from multi_style_transfer_gan_tpu_torch.train import (
+        check_kernel_width, cyclegan_init_state,
+    )
+
+    gen = torch.Generator().manual_seed(SEED + 3)
+    out = {channels: train_width(rng, dev, counts, channels, gen)
+           for channels in WIDTH_CHANNELS}
 
     # the entry points at the new widths: one epoch each on a small folder
-    def run(fn, argv, what):
-        buf = io.StringIO()
-        t0 = time.perf_counter()
-        with contextlib.redirect_stdout(buf):
-            rc = fn(argv)
-        log(f"[width train] {what}: exit {rc}, {time.perf_counter() - t0:.2f} "
-            f"s wall; its output:")
-        for line in buf.getvalue().splitlines():
-            log(f"    {line}")
-        if rc != 0:
-            raise AssertionError(f"{what} exited {rc}")
-
     data = os.path.join(work, "width_train_data")
-    for domain in ("A", "B"):
-        d = os.path.join(data, f"train{domain}")
-        os.makedirs(d)
-        for i in range(8):
-            Image.fromarray(smooth_images(rng, 1, (256, 256))[0]).save(
-                os.path.join(d, f"{i:02d}.jpg"), quality=92)
+    train_folder(rng, data)
     models = os.path.join(work, "width_train_models")
-    run(train_cli.main, ["--data_root", data, "--save_dir", models,
-                         "--channels", str(max(WIDTH_CHANNELS)),
-                         "--num_epochs", "1", "--batch_size", "4",
-                         "--checkpoint_every", "1", "--log_every", "1"],
-        f"train --channels {max(WIDTH_CHANNELS)}")
-    run(pretrain_cli.main, ["--data_root", data, "--save_dir", models,
-                            "--model", "enhanced",
-                            "--channels", str(min(WIDTH_CHANNELS)),
-                            "--num_epochs", "1", "--batch_size", "4",
-                            "--checkpoint_every", "1", "--log_every", "1"],
-        f"pretrain --model enhanced --channels {min(WIDTH_CHANNELS)}")
+    one_epoch = ["--num_epochs", "1", "--batch_size", "4",
+                 "--checkpoint_every", "1", "--log_every", "1"]
+    run_cli(train_cli.main, ["--data_root", data, "--save_dir", models,
+                             "--channels", str(max(WIDTH_CHANNELS))]
+            + one_epoch, f"train --channels {max(WIDTH_CHANNELS)}")
+    run_cli(pretrain_cli.main, ["--data_root", data, "--save_dir", models,
+                                "--model", "enhanced",
+                                "--channels", str(min(WIDTH_CHANNELS))]
+            + one_epoch,
+            f"pretrain --model enhanced --channels {min(WIDTH_CHANNELS)}")
     for name in ("G_AB_epoch_1.pth", "discriminators_epoch_1.pth",
                  "generator_pretrain_epoch_1.pth"):
         if not os.path.exists(os.path.join(models, name)):
@@ -3404,7 +3554,7 @@ def phase_width_train(rng, dev, counts, work):
     if launched:
         raise AssertionError(f"the fast_attention=False step launched "
                              f"{launched} kernels")
-    for channels in (4, 64):
+    for channels in (4, 12):
         before = counts()
         try:
             check_kernel_width(channels, "CycleGAN training")
@@ -3415,6 +3565,92 @@ def phase_width_train(rng, dev, counts, work):
             raise AssertionError(f"c{channels} training was not refused")
         if counts() != before:
             raise AssertionError(f"the c{channels} refusal launched a kernel")
+    return out
+
+
+def phase_c64_train(rng, dev, counts, work):
+    """The c64 generator (the JAX pretrain CLI's default width) trained
+    through the entry points: ``train_width`` at c64, its enhanced pretrain
+    step at PRETRAIN_BATCH (16, the pretrain CLI's default batch); then the
+    chain a user runs at the CLIs' defaults, one epoch each on a small
+    folder: ``cli.pretrain --model enhanced`` with no --channels (so c64),
+    ``cli.train --channels 64`` from scratch and with ``--pretrained`` on
+    that checkpoint (every tensor of both generators warm-started), and
+    ``batch_process`` with the trained G_AB through ``load_generator``
+    (``--engine auto``, bf16). Returns train_width's record."""
+    import contextlib
+
+    import torch
+    from PIL import Image
+
+    from multi_style_transfer_gan_tpu_torch.cli import pretrain as pretrain_cli
+    from multi_style_transfer_gan_tpu_torch.cli import train as train_cli
+    from multi_style_transfer_gan_tpu_torch.models import EnhancedGenerator
+    from multi_style_transfer_gan_tpu_torch.pipelines import (
+        batch_process, load_generator,
+    )
+
+    channels = C64_CHANNELS[0]
+    gen = torch.Generator().manual_seed(SEED + channels)
+    out = train_width(rng, dev, counts, channels, gen,
+                      pretrain_batch=PRETRAIN_BATCH)
+
+    data = os.path.join(work, "c64_train_data")
+    train_folder(rng, data)
+    models = os.path.join(work, "c64_models")
+    one_epoch = ["--num_epochs", "1", "--batch_size", "4",
+                 "--checkpoint_every", "1", "--log_every", "1"]
+    run_cli(pretrain_cli.main, ["--data_root", data, "--save_dir", models,
+                                "--model", "enhanced"] + one_epoch,
+            "pretrain --model enhanced (no --channels)")
+    ckpt = os.path.join(models, "generator_pretrain_epoch_1.pth")
+    pre = load_generator(ckpt, device="cpu")
+    if (pre.kind, pre.channels) != ("enhanced", channels):
+        raise AssertionError(f"the pretrain CLI's default wrote "
+                             f"{pre.kind} c{pre.channels}")
+    fresh = os.path.join(work, "c64_fresh_models")
+    text = run_cli(train_cli.main, ["--data_root", data, "--save_dir", fresh,
+                                    "--channels", str(channels)] + one_epoch,
+                   f"train --channels {channels}")
+    if ("warm start" in text
+            or not os.path.exists(os.path.join(fresh, "G_AB_epoch_1.pth"))):
+        raise AssertionError("train --channels 64 warm-started or wrote no "
+                             "checkpoint")
+    text = run_cli(train_cli.main, ["--data_root", data, "--save_dir", models,
+                                    "--channels", str(channels),
+                                    "--pretrained", ckpt] + one_epoch,
+                   f"train --channels {channels} --pretrained <that checkpoint>")
+    tensors = 2 * len(EnhancedGenerator(channels, 1).state_dict())
+    if f"warm start: {tensors} tensors transferred" not in text:
+        raise AssertionError(f"the warm start did not transfer all {tensors} "
+                             f"tensors")
+    model = load_generator(os.path.join(models, "G_AB_epoch_1.pth"),
+                           device=dev)
+    src = os.path.join(work, "c64_in")
+    dst = os.path.join(work, "c64_out")
+    os.makedirs(src)
+    sizes = {}
+    for i in range(WIDTH_FOLDER_IMAGES):
+        w, h = int(rng.integers(96, 480)), int(rng.integers(96, 480))
+        name = f"photo_{i:02d}.jpg"
+        Image.fromarray(smooth_images(rng, 1, (w, h))[0]).save(
+            os.path.join(src, name), quality=92)
+        sizes[name] = (w, h)
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        stats = batch_process(model, src, dst, batch_size=4,
+                              compute_dtype=torch.bfloat16, device=dev)
+    done = 0
+    for name, size in sizes.items():
+        target = os.path.join(dst, "cyclegan_photo2monet", name)
+        if os.path.exists(target):
+            with Image.open(target) as img:
+                done += img.size == size
+    log(f"[c64 train] batch_process with the trained c{model.channels} G_AB: "
+        f"{done}/{len(sizes)} outputs at their original sizes; stats {stats}")
+    if model.channels != channels or done != len(sizes):
+        raise AssertionError(f"batch_process with the trained c64 G_AB wrote "
+                             f"{done}/{len(sizes)} correct outputs")
     return out
 
 
@@ -3457,11 +3693,20 @@ def run(work) -> int:
     # phase keeps the inputs it had before them
     width_rng = np.random.default_rng(SEED)
     width_kernels = phase_width_kernels(width_rng, dev)
+    # and so do the c64 phases, serving and training
+    c64_rng = np.random.default_rng(SEED + 64)
+    width_kernels.update(phase_width_kernels(c64_rng, dev, C64_CHANNELS))
     train_err, train_times = phase_train_kernels(rng, dev)
     # the c8 and c32 training phases draw from their own generator too
     width_train_rng = np.random.default_rng(SEED + 12)
     width_train_kernels = phase_width_train_kernels(width_train_rng, dev)
     fast_vjp = phase_fast_vjp(width_train_rng, dev)
+    c64_train_rng = np.random.default_rng(SEED + 65)
+    width_train_kernels.update(
+        phase_width_train_kernels(c64_train_rng, dev, C64_CHANNELS))
+    c64_fast_vjp = [phase_fast_vjp(c64_train_rng, dev, shape,
+                                   check=shape[-1] == 256)
+                    for shape in C64_FAST_VJP_SHAPES]
     stages_err, stage_times = phase_stages(rng, dev)
     ablation_err = phase_ablation_inputs(dev)
 
@@ -3510,6 +3755,19 @@ def run(work) -> int:
                              f"expected every serving kernel, 4 attention "
                              f"calls per block call")
 
+    K.reset_launch_counts()   # the c64 serving path starts here
+    width_serving.update(phase_width_serving(c64_rng, dev, counts, work,
+                                             C64_CHANNELS, refuse=False))
+    c64_serving = counts()    # ...and ends here
+    log(f"[c64 serving path] launches: {c64_serving}")
+    attention_calls = (c64_serving["window_channel_attention"]
+                       + c64_serving["packed_window_channel_attention"])
+    if (min(c64_serving[n] for n in serving_kernels) == 0
+            or attention_calls != 4 * c64_serving["fused_structural_block"]):
+        raise AssertionError(f"c64 serving path launches {c64_serving}: "
+                             f"expected every serving kernel, 4 attention "
+                             f"calls per block call")
+
     K.reset_launch_counts()   # the single-image path starts here
     phase_single_image(rng, dev)
     single = counts()         # ...and ends here
@@ -3536,6 +3794,15 @@ def run(work) -> int:
         raise AssertionError(f"width training path launches "
                              f"{width_training}: a kernel of the path never "
                              f"launched")
+
+    K.reset_launch_counts()   # the c64 training path starts here
+    width_train[C64_CHANNELS[0]] = phase_c64_train(c64_train_rng, dev, counts,
+                                                   work)
+    c64_training = counts()   # ...and ends here
+    log(f"[c64 training path] launches: {c64_training}")
+    if min(c64_training[n] for n in TRAIN_LAUNCHES_PER_STEP) == 0:
+        raise AssertionError(f"c64 training path launches {c64_training}: a "
+                             f"kernel of the path never launched")
 
     K.reset_launch_counts()   # the pretraining path starts here
     plain_rates = phase_plain_serving(rng, dev)
@@ -3588,9 +3855,10 @@ def run(work) -> int:
     if ablation["window_channel_attention_stage"] == 0:
         raise AssertionError(f"ablation path launches {ablation}: the stage "
                              f"kernel never launched")
-    launches = {n: serving[n] + widths[n] + single[n] + training[n]
-                + width_training[n] + pretraining[n] + evaluation[n] + gui[n]
-                + perceptual[n] + ablation[n] for n in counted}
+    launches = {n: serving[n] + widths[n] + c64_serving[n] + single[n]
+                + training[n] + width_training[n] + c64_training[n]
+                + pretraining[n] + evaluation[n] + gui[n] + perceptual[n]
+                + ablation[n] for n in counted}
 
     # inference kernels: per forward at canvas 256, batch 8, bf16 (the four
     # LocalAttention shapes, NHWC or packed; the block's one shape; the five
@@ -3700,11 +3968,15 @@ def run(work) -> int:
          "max_abs_err_ablation_bf16": ablation_err},
     ]}
     # per generator width: the serving kernels at c16 (this entry's own
-    # numbers, launches of every path but the two width paths) and at c8
-    # and c32 (phase_width_kernels at their canvas-256 forward, launches of
-    # the width serving path, and of the width training path beside them);
-    # the training kernels alike (phase_width_train_kernels per generator
-    # forward and backward at 256^2, launches of the width training path)
+    # numbers, launches of every path but the four width paths) and at c8,
+    # c32 and c64 (phase_width_kernels at their canvas-256 forward, launches
+    # of the width or c64 serving path, and of the width or c64 training
+    # path beside them); the training kernels alike
+    # (phase_width_train_kernels per generator forward and backward at
+    # 256^2, launches of the width or c64 training path)
+    width_paths = {n: widths[n] + c64_serving[n] for n in counted}
+    width_train_paths = {n: width_training[n] + c64_training[n]
+                         for n in counted}
     width_keys = ("ms", "device_ms", "plain_ms", "library_ms", "bound_ms",
                   "bound_by", "max_abs_err")
     train_rows = {"window_attention_train": ("window_attention_mid_fwd",
@@ -3717,9 +3989,9 @@ def run(work) -> int:
         if name in width_kernels[WIDTH_CHANNELS[0]]:
             entry["widths"] = {"c16": {
                 **{k: entry.get(k) for k in width_keys},
-                "launches": entry["launches"] - widths[name]
-                - width_training.get(name, 0)}}
-            for c in WIDTH_CHANNELS:
+                "launches": entry["launches"] - width_paths[name]
+                - width_train_paths[name]}}
+            for c in WIDTH_CHANNELS + C64_CHANNELS:
                 rec = width_kernels[c][name]
                 entry["widths"][f"c{c}"] = {
                     **{k: rec.get(k) for k in width_keys},
@@ -3731,8 +4003,8 @@ def run(work) -> int:
             ran = lambda launched: sum(launched[n] for n in train_rows[name])
             entry["widths"] = {"c16": {
                 **{k: entry.get(k) for k in width_keys},
-                "launches": entry["launches"] - ran(width_training)}}
-            for c in WIDTH_CHANNELS:
+                "launches": entry["launches"] - ran(width_train_paths)}}
+            for c in WIDTH_CHANNELS + C64_CHANNELS:
                 rec = width_train_kernels[c][name]
                 entry["widths"][f"c{c}"] = {
                     **{k: rec.get(k) for k in width_keys + (
@@ -3741,8 +4013,10 @@ def run(work) -> int:
                     "launches": ran(width_train[c]["launches"])}
         if name == "window_channel_attention":
             # c32's down2 under grad: this kernel forward, the backward
-            # recomputed through the plain version (fwd + bwd at batch 8)
+            # recomputed through the plain version (fwd + bwd at batch 8);
+            # c64's down2 (C = 256) and down1 / up1 (C = 128 on 128^2)
             entry["fast_vjp_c128"] = fast_vjp
+            entry["fast_vjp_c64"] = c64_fast_vjp
         if sdpa_mid is not None:
             entry["sdpa_mid_ms"] = sdpa_mid
         dev_ms = entry.get("device_ms")
@@ -3791,10 +4065,12 @@ def run(work) -> int:
         f"images a direction relative {fid_err:.3e}; m_test path at "
         f"{EVAL_IMAGES} images a direction, fp32: {fid_text}; whole run "
         f"{time.perf_counter() - t_start:.1f} s")
-    for c in WIDTH_CHANNELS:
+    for c in WIDTH_CHANNELS + C64_CHANNELS:
         log(f"[summary] {card}; c{c} generator "
-            f"({width_serving[c]['parameters']} parameters) bf16 program "
-            f"img/s at canvas 256: "
+            f"({width_serving[c]['parameters']} parameters; bf16 weights "
+            f"NHWC {width_serving[c]['weights_gib']['nhwc']:.3f} GiB, packed "
+            f"{width_serving[c]['weights_gib']['packed']:.3f} GiB) bf16 "
+            f"program img/s at canvas 256: "
             + ", ".join(f"batch {n} {e} {r:.1f}"
                         for (n, e), r in width_serving[c]["rates"].items())
             + "; kernels per forward at canvas 256, batch "
@@ -3803,15 +4079,16 @@ def run(work) -> int:
                         f"device, plain {r['plain_ms']:.4f} ms, bound "
                         f"{r['bound_ms']:.6f} ms by {r['bound_by']})"
                         for n, r in width_kernels[c].items()))
-    for c in WIDTH_CHANNELS:
+    for c in WIDTH_CHANNELS + C64_CHANNELS:
         t = width_train[c]
         rows = width_train_kernels[c]
         log(f"[summary] {card}; c{c} training: bf16 CycleGAN step 256^2 batch "
             f"{TRAIN_BATCH} {t['step_ms']:.2f} ms/step "
             f"({TRAIN_BATCH * 1000 / t['step_ms']:.1f} image pairs/s; "
-            f"{t['step_device_ms']:.2f} ms device, idle {t['step_idle']:.1%}); "
-            f"enhanced "
-            f"pretrain step bf16 256^2 batch {TRAIN_BATCH} "
+            f"{t['step_device_ms']:.2f} ms device, idle {t['step_idle']:.1%}, "
+            f"peak memory {t['step_peak_gib']:.2f} GiB); enhanced "
+            f"pretrain step bf16 256^2 batch "
+            f"{PRETRAIN_BATCH if c in C64_CHANNELS else TRAIN_BATCH} "
             f"{t['pretrain'][0]:.2f} ms/step ({t['pretrain'][1]:.2f} ms device, "
             f"idle {t['pretrain'][2]:.1%}); training kernels fwd + bwd per "
             f"generator at batch {TRAIN_BATCH}, bf16: "
@@ -3828,6 +4105,23 @@ def run(work) -> int:
         f"{fast_vjp['plain_ms']:.4f} ms); 6 batch-8 calls a step (4 forwards "
         f"with grad, 2 of them pair-batched) are ~{share:.1%} of the c32 "
         f"step's host clock and ~{dev_share:.1%} of its device time")
+    c64 = width_train[C64_CHANNELS[0]]
+    fwd_ms = c64_fast_vjp[0]["ms"] + 2 * c64_fast_vjp[1]["ms"]
+    fwd_dev = c64_fast_vjp[0]["device_ms"] + 2 * c64_fast_vjp[1]["device_ms"]
+    log(f"[summary] {card}; c64's route under grad, fwd + bwd at batch 8, "
+        f"bf16: down2 C = 256 {c64_fast_vjp[0]['ms']:.4f} ms "
+        f"({c64_fast_vjp[0]['device_ms']:.4f} ms device, plain formulation "
+        f"{c64_fast_vjp[0]['plain_ms']:.4f} ms, peak "
+        f"{c64_fast_vjp[0]['peak_gib']:.2f} GiB), down1 / up1 C = 128 on "
+        f"128^2 {c64_fast_vjp[1]['ms']:.4f} ms "
+        f"({c64_fast_vjp[1]['device_ms']:.4f} ms device, plain "
+        f"{c64_fast_vjp[1]['plain_ms']:.4f} ms, peak "
+        f"{c64_fast_vjp[1]['peak_gib']:.2f} GiB); 6 batch-8 generator "
+        f"forwards a CycleGAN step are ~{6 * fwd_ms / c64['step_ms']:.1%} of "
+        f"its host clock and ~{6 * fwd_dev / c64['step_device_ms']:.1%} of "
+        f"its device time; the pretrain step's one batch-16 forward "
+        f"~{2 * fwd_ms / c64['pretrain'][0]:.1%} and "
+        f"~{2 * fwd_dev / c64['pretrain'][1]:.1%}")
     p_with, p_without, vgg_share = perceptual_ms
     log(f"[summary] {card}; GUI tab wall per image on the card (decode, "
         f"generator, post chain, restore and save; 3 photos after a warm-up): "

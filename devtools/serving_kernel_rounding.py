@@ -13,11 +13,20 @@ to bf16, either as one term or as a hi + lo pair (hi = bf16(x), lo =
 bf16(x - hi); products hi hi + hi lo + lo hi), and holds the result
 against the plain versions at ``chip_smoke.py``'s bound (``BF16_ATOL``,
 ``BF16_RTOL``) on ``chip_smoke.attention_stress_inputs`` and
-``chip_smoke.block_stress_inputs`` at the serving shapes of the c8, c16
-and c32 generators at canvas 256. For each rounding plan it prints the
+``chip_smoke.block_stress_inputs`` at the serving shapes of the c8, c16,
+c32 and c64 generators at canvas 256. For each rounding plan it prints the
 largest |d| and its ratio to the bound ("x1.000" is at the bound);
 ``kernel`` is the plan the kernels use at that width
-(``attention_kernel_plan``, ``block_kernel_plan``). Takes about a minute.
+(``attention_kernel_plan``, ``block_kernel_plan``). Takes a few minutes
+(the c64 shapes most of it); windows are emulated in chunks of
+``ROWS_CHUNK``, so memory stays near a gigabyte.
+
+    PYTHONPATH=. python3 devtools/serving_kernel_rounding.py --fp32
+
+asks the fp32 question of the block instead (``fp32_block_question``, ~1
+minute): at dim 128 and 256 on the stress inputs, how far an fp32
+evaluation lies from a float64 one with the qkv product, the scores and
+the softmax in fp32 or in float64.
 """
 
 from __future__ import annotations
@@ -29,7 +38,7 @@ import torch
 import torch.nn.functional as F
 
 import chip_smoke as smoke
-from devtools.train_kernel_rounding import BF16, mm, ratio
+from devtools.train_kernel_rounding import BF16, _parts, mm, ratio
 from multi_style_transfer_gan_tpu_torch.ops.kernels.fused_transformer import (
     WINDOW, default_num_heads, structural_block_plain,
 )
@@ -41,17 +50,27 @@ from multi_style_transfer_gan_tpu_torch.ops.kernels.window_attention import (
 def attention_kernel_plan(C: int) -> dict:
     """The attention kernel's plan at width C: qn and kn as pairs; at C >=
     64 also the softmax S (the apply's B operand) and the apply's output
-    (the proj's A operand)."""
-    return dict(qk=True, v=False, S=C >= 64, out=C >= 64)
+    (the proj's A operand). At C = 256 (``wide``) the kernel stores q and k
+    as hi + lo pairs of their raw values and normalizes from those, takes
+    the exponentials at the fixed shift 16 (every logit of unit vectors
+    over 16 positions lies in [-16, 16]) and divides the apply's output by
+    the row sums afterwards; v enters the apply as a pair too (one term: a
+    saturated window on the 64^2 grid at 0.83 of the bound, the pair 0.67)."""
+    wide = C > 128
+    return dict(qk=True, v=wide, S=C >= 64, out=C >= 64, wide=wide)
 
 
 def block_kernel_plan(C: int) -> dict:
     """The block kernel's plan at width C: LN1's output for q and k, and q
     and k, as pairs; at C = 128 also LN1's output for v, LN2's output and
-    the GELU output."""
-    wide = C > 64
-    return dict(h_qk=True, h_v=wide, qk=True, p=False, o=False, h2=wide,
-                a=wide)
+    the GELU output; at C = 256 every operand the kernel forms: also the
+    exponentials and v (the apply) and the MHSA output (the proj). With
+    the dim-128 plan a random block at dim 256 misses the bound by 1.35x;
+    with o, p and v as pairs it stays at 0.68 (saturated 0.81, a one-ulp
+    flip of the output rounding)."""
+    wide, widest = C > 64, C > 128
+    return dict(h_qk=True, h_v=wide, qk=True, p=widest, v=widest, o=widest,
+                h2=wide, a=wide)
 
 
 # operand -> split into hi + lo (True) or one bf16 term (False); None: the
@@ -59,16 +78,19 @@ def block_kernel_plan(C: int) -> dict:
 ATTENTION_PLANS = {
     "all one term": dict(qk=False, v=False, S=False, out=False),
     "qn, kn pairs only": attention_kernel_plan(16),
+    "wide, S and out one term": dict(qk=True, v=False, S=False, out=False,
+                                     wide=True),
     "kernel": None,
 }
 BLOCK_PLANS = {
-    "all one term": dict(h_qk=False, h_v=False, qk=False, p=False, o=False,
-                         h2=False, a=False),
-    "h split": dict(h_qk=True, h_v=False, qk=False, p=False, o=False,
-                    h2=False, a=False),
-    "q, k split": dict(h_qk=False, h_v=False, qk=True, p=False, o=False,
-                       h2=False, a=False),
+    "all one term": dict(h_qk=False, h_v=False, qk=False, p=False, v=False,
+                         o=False, h2=False, a=False),
+    "h split": dict(h_qk=True, h_v=False, qk=False, p=False, v=False,
+                    o=False, h2=False, a=False),
+    "q, k split": dict(h_qk=False, h_v=False, qk=True, p=False, v=False,
+                       o=False, h2=False, a=False),
     "h, q, k pairs only": block_kernel_plan(64),
+    "dim-128 pairs": block_kernel_plan(128),
     "kernel": None,
 }
 
@@ -81,11 +103,20 @@ def attention_chain(t, wqkv, bqkv, wproj, bproj, plan, eps=1e-12):
     f = lambda a: a.float()
     qkv = F.linear(f(t), f(wqkv).reshape(3 * C, C), f(bqkv))
     q, k, v = qkv.split(C, dim=-1)
+    wide = plan.get("wide", False)
+    if wide:   # raw q and k through shared memory as hi + lo
+        q, k = (sum(_parts(u, True)) for u in (q, k))
     inv = lambda u: 1.0 / torch.clamp_min(
         u.square().sum(-1, keepdim=True).sqrt(), eps)
     qn, kn = q * inv(q), k * inv(k)
-    s = torch.softmax(mm(qn.transpose(1, 2), kn, plan["qk"], plan["qk"]), -1)
-    out = mm(v, s.transpose(1, 2), plan["v"], plan["S"])
+    g = mm(qn.transpose(1, 2), kn, plan["qk"], plan["qk"])
+    if wide:
+        e = torch.exp(g - 16.0)
+        out = (mm(v, e.transpose(1, 2), plan["v"], plan["S"])
+               / e.sum(-1).unsqueeze(1))
+    else:
+        out = mm(v, torch.softmax(g, -1).transpose(1, 2), plan["v"],
+                 plan["S"])
     y = mm(out, f(wproj).reshape(C, C).t(), plan["out"], False) + f(bproj)
     return y.to(t.dtype)
 
@@ -132,7 +163,7 @@ def block_chain(x, struct, gamma, beta, plan, *, norm1_w, norm1_b, qkv_w,
     s = s.reshape(B, -1, heads, WINDOW * WINDOW, WINDOW * WINDOW)
     s = s.masked_fill(~valid, float("-inf")).flatten(0, 1)
     e = torch.exp((s - s.amax(-1, keepdim=True)) * (1.0 / math.sqrt(hd)))
-    o = mm(e, v, plan["p"], False) / e.sum(-1, keepdim=True)
+    o = mm(e, v, plan["p"], plan["v"]) / e.sum(-1, keepdim=True)
     o = _unwindows(o.permute(0, 2, 1, 3).reshape(-1, WINDOW * WINDOW, C),
                    B, Hp, Wp)[:, :H, :W]
     xf = xf + mm(o, f(proj_w).t(), plan["o"], False) + f(proj_b)
@@ -141,11 +172,15 @@ def block_chain(x, struct, gamma, beta, plan, *, norm1_w, norm1_b, qkv_w,
     return (xf + mm(a, f(fc2_w).t(), plan["a"], False) + f(fc2_b)).to(x.dtype)
 
 
-def attention_ratios(shapes=None):
+ROWS_CHUNK = 512   # windows emulated at a time
+
+
+def attention_ratios(shapes=None, plans=None):
     """{(shape, label, plan): (max |d|, ratio to the bound)} of the
     attention chain on the packed-row stress inputs (the op is per window,
     so the packed rows stand for both layouts); by default at the c16
-    generator's canvas-256 shapes."""
+    generator's canvas-256 shapes, for every plan of ATTENTION_PLANS (or
+    those named in ``plans``)."""
     rng = np.random.default_rng(smoke.SEED)
     out = {}
     shapes = shapes or list(dict.fromkeys(
@@ -154,17 +189,21 @@ def attention_ratios(shapes=None):
         C = shape[-1]
         for label, x, ws in smoke.attention_stress_inputs(rng, shape,
                                                              packed=True):
-            t = torch.from_numpy(x).to(BF16).reshape(-1, 16, C)
+            rows = torch.from_numpy(x).to(BF16).reshape(-1, 16, C)
             ws = [torch.from_numpy(w.astype(np.float32)).to(BF16) for w in ws]
-            ref = window_rows_attention_plain(t, *ws).to(BF16)
-            for name, plan in ATTENTION_PLANS.items():
-                plan = plan or attention_kernel_plan(C)
-                out[(shape, label, name)] = ratio(
-                    attention_chain(t, *ws, plan), ref)
+            for i in range(0, rows.shape[0], ROWS_CHUNK):
+                t = rows[i:i + ROWS_CHUNK]
+                ref = window_rows_attention_plain(t, *ws).to(BF16)
+                for name in plans or ATTENTION_PLANS:
+                    plan = ATTENTION_PLANS[name] or attention_kernel_plan(C)
+                    d, r = ratio(attention_chain(t, *ws, plan), ref)
+                    pd, pr = out.get((shape, label, name), (0.0, 0.0))
+                    out[(shape, label, name)] = (max(d, pd), max(r, pr))
     return out
 
 
-def block_ratios(shapes=((smoke.BATCH, 64, 64, 64), (2, 12, 20, 64))):
+def block_ratios(shapes=((smoke.BATCH, 64, 64, 64), (2, 12, 20, 64)),
+                 plans=None):
     """The same for the block chain on ``chip_smoke.block_stress_inputs``."""
     rng = np.random.default_rng(smoke.SEED)
     out = {}
@@ -176,15 +215,67 @@ def block_ratios(shapes=((smoke.BATCH, 64, 64, 64), (2, 12, 20, 64))):
                     t(host[3], torch.float32))
             kw = {n: t(a) for n, a in weights.items()}
             ref = structural_block_plain(*args, **kw)
-            for name, plan in BLOCK_PLANS.items():
-                plan = plan or block_kernel_plan(shape[-1])
+            for name in plans or BLOCK_PLANS:
+                plan = BLOCK_PLANS[name] or block_kernel_plan(shape[-1])
                 out[(shape, label, name)] = ratio(
                     block_chain(*args, plan, **kw), ref)
     return out
 
 
-def main() -> int:
+def block_exactness(x, struct, gamma, beta, dtype, scores, *, norm1_w,
+                    norm1_b, qkv_w, qkv_b, proj_w, proj_b, norm2_w, norm2_b,
+                    fc1_w, fc1_b, fc2_w, fc2_b, eps=1e-5):
+    """The block body on an 8x8-multiple grid carried in ``dtype``, with
+    the qkv product, the scores and the softmax in ``scores`` (the fp32
+    question: where fp32 loses what float64 keeps); returns float64."""
+    B, H, W, C = x.shape
+    heads = default_num_heads(C)
+    hd = C // heads
+    f = lambda a, dt=dtype: a.to(dt)
+    xf = f(x)
+    h = F.layer_norm(xf + f(struct), (C,), f(norm1_w), f(norm1_b), eps)
+    h = h * (1.0 + f(gamma)[:, None, None, :]) + f(beta)[:, None, None, :]
+    qkv = F.linear(f(h, scores), f(qkv_w, scores), f(qkv_b, scores))
+    t = _windows(qkv).reshape(-1, WINDOW * WINDOW, 3, heads, hd)
+    q, k, v = t.permute(2, 0, 3, 1, 4)
+    p = torch.softmax((q @ k.transpose(-2, -1)) / math.sqrt(hd), -1)
+    o = _unwindows((f(p) @ f(v)).permute(0, 2, 1, 3).reshape(
+        -1, WINDOW * WINDOW, C), B, H, W)
+    xf = xf + F.linear(o, f(proj_w), f(proj_b))
+    h2 = F.layer_norm(xf, (C,), f(norm2_w), f(norm2_b), eps)
+    a = F.gelu(F.linear(h2, f(fc1_w), f(fc1_b)))
+    return (xf + F.linear(a, f(fc2_w), f(fc2_b))).double()
+
+
+def fp32_block_question() -> int:
+    """How far an fp32 evaluation of the block lies from a float64 one on
+    ``chip_smoke.block_stress_inputs``, with the qkv product, scores and
+    softmax in fp32 and in float64 (as the plain version and the fp32
+    dim-256 kernel carry them), against the fp32 tolerance
+    ``BLOCK_FP32_TOL``."""
+    rng = np.random.default_rng(smoke.SEED)
+    f32, f64 = torch.float32, torch.float64
+    for shape in ((smoke.BATCH, 64, 64, 128), (smoke.BATCH, 64, 64, 256)):
+        for label, host, weights in smoke.block_stress_inputs(rng, shape):
+            t = lambda a: torch.from_numpy(np.asarray(a, np.float64))
+            args = [t(a) for a in host]
+            kw = {n: t(a) for n, a in weights.items()}
+            exact = block_exactness(*args, f64, f64, **kw)
+            for scores in (f32, f64):
+                d = (block_exactness(*args, f32, scores, **kw) - exact).abs()
+                print(f"block fp32 {shape} {label}, qkv and scores in "
+                      f"{str(scores)[6:]}: max|d| from float64 "
+                      f"{d.max().item():.3e} (x{d.max().item() / smoke.BLOCK_FP32_TOL:.2f}"
+                      f" of the fp32 tolerance)", flush=True)
+    return 0
+
+
+def main(argv=None) -> int:
+    import sys
+
     torch.set_num_threads(4)
+    if "--fp32" in (sys.argv[1:] if argv is None else argv):
+        return fp32_block_question()
     canvas = smoke.CANVASES[0]
     attention = list(dict.fromkeys(
         s for c in smoke.GENERATOR_CHANNELS

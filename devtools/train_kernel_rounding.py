@@ -15,10 +15,12 @@ against the plain versions at ``chip_smoke.py``'s bound (``BF16_ATOL``,
 (random, saturated softmax, small q and k). For each rounding plan it
 prints the largest |d| and its ratio to the bound ("x1.000" is at the
 bound); ``kernel`` is the plan the kernels use. Takes about a minute.
-``--widths`` runs the shapes of the c8 and c32 generators instead
+``--widths`` runs the shapes of the c8, c32 and c64 generators instead
 (``chip_smoke.width_train_kernel_cases``: the mid at C = 8 to 64, the MHSA
-at 1 and 4 heads; C = 8 runs padded to 16 in the kernel, whose pads add
-exact zeros to every sum, so it is emulated as it is); a few minutes.
+at 1, 4 and 8 heads; C = 8 runs padded to 16 in the kernel, whose pads add
+exact zeros to every sum, so it is emulated as it is); a few minutes. At 8
+heads, (8, 64, 64, 768), the kernel plan holds the saturated input at 0.57
+(forward) and 0.85 (backward) of the bound.
 
 ``--fp32`` asks the fp32 question instead: on the "small q, k" input of
 the channel-attention mid, how far an fp32 evaluation of the backward (the
@@ -189,7 +191,7 @@ def main(argv=None) -> int:
                            WA.window_attention_mid_backward_plain),
              "mhsa": (WM.window_mhsa_plain, WM.window_mhsa_backward_plain)}
     if args.widths:
-        cases = [case for c in smoke.WIDTH_CHANNELS
+        cases = [case for c in smoke.WIDTH_CHANNELS + smoke.C64_CHANNELS
                  for case in smoke.width_train_kernel_cases(c)]
     else:
         cases = [(name, stage, shape, 2 if name == "mhsa" else None)

@@ -40,7 +40,7 @@ def main(argv=None):
                         "so cli.train's --pretrained warm start actually "
                         "transfers (the reference's plain->enhanced "
                         "non-strict load shares zero keys); on the card its "
-                        "training kernels serve --channels 16 only")
+                        "training kernels take --channels 8, 16, 32 and 64")
     p.add_argument("--num_transformer_blocks", type=int, default=1,
                    help="enhanced model only")
     p.add_argument("--seed", type=int, default=42)

@@ -14,17 +14,18 @@
 // zero-pad-and-mask formulation (models/structural_transformer.py:113-150)
 // computes. So every grid shape runs here; none is sent elsewhere.
 //
-// Widths: C = 32, 64 and 128 with C / 32 heads of 32 (default_num_heads),
-// the blocks of the c8, c16 and c32 generators.
+// Widths: C = 32, 64, 128 and 256 with C / 32 heads of 32
+// (default_num_heads), the blocks of the c8, c16, c32 and c64 generators.
 //
 // What bounds it. About 24 C^2 + 256 C flop per token against 6 C bytes of
 // bf16 traffic (read x and struct, write out): ~300 flop/B at C = 64, at the
 // tensor-core ridge (0.0038 ms of matrix products at (8, 64, 64, 64) against
 // 0.0032 ms of bytes); at C = 32 about half that, bytes-bound; at C = 128
-// about 570 flop/B, bound by operations.
+// about 570 flop/B and at C = 256 about 1100, bound by operations.
 //
 // bf16 design (fused_structural_block_mma_kernel, C = 32 and 64; C = 128
-// in fused_structural_block_wide_kernel below). Persistent blocks: each
+// and 256 in fused_structural_block_wide_kernel and _widest_kernel below).
+// Persistent blocks: each
 // stages the four weight matrices once (bf16 as stored, (out, in) rows
 // padded by 16 bytes: 105 KB at C = 64) and the biases and LayerNorm
 // parameters (fp32) with 16-byte cp.async, then strides over the windows,
@@ -55,7 +56,9 @@
 // fp32 stays exact fp32 (fused_structural_block_f32_kernel): FMAs on the
 // CUDA cores, no tensor cores, no TF32. One block of 256 threads per window
 // of 64 tokens; activations live in dynamic shared memory in fp32 (about
-// 97 KB at C = 64, 193 KB at C = 128, buffers reused between phases); weights are read through L2 and
+// 97 KB at C = 64, 193 KB at C = 128, buffers reused between phases; C = 256
+// in fused_structural_block_f32_wide_kernel, a head and a hidden chunk at a
+// time); weights are read through L2 and
 // the read-only cache, four at a time. In the four Linear products each
 // thread keeps a 4-token by N/16-output tile of sums in registers;
 // activation rows have an odd stride so a warp's reads fall in distinct
@@ -100,20 +103,25 @@ struct Layout {
 };
 
 
-// out[t][o] = A[t] . w[o] + b[o] for every token t and output o < N,
-// handed to epi(t, o, value). Each thread keeps a 4 x N/16 tile of sums in
-// registers (tokens tg + 16j, outputs og + 16r, with tg = tid % 16 and
-// og = tid / 16), so every 4-deep step loads 16 activations from shared
-// memory and N/16 weight quads for 4 * N/4 FMAs. A warp reads 16 activation
-// rows (odd stride: distinct banks) and two weight rows.
-template <int K, int N, int AS, typename T, typename Epi>
-__device__ __forceinline__ void linear_rows(const float* A, const T* __restrict__ w,
-                                            const T* __restrict__ b, Epi epi) {
+// out[t][o] = A[t] . row(o) + bias(o) for every token t and output o < N,
+// handed to epi(t, o, value); row(o) points to the K weights of output o.
+// Each thread keeps a 4 x N/16 tile of sums in registers (tokens tg + 16j,
+// outputs og + 16r, with tg = tid % 16 and og = tid / 16), so every 4-deep
+// step loads 16 activations from shared memory and N/16 weight quads for
+// 4 * N/4 FMAs. A warp reads 16 activation rows (odd stride: distinct
+// banks) and two weight rows.
+__device__ __forceinline__ float fma_acc(float a, float b, float c) { return fmaf(a, b, c); }
+__device__ __forceinline__ double fma_acc(double a, double b, double c) { return fma(a, b, c); }
+
+// The sums are carried in Acc (float, or double where the caller needs
+// them exact to fp32 rounding of their inputs).
+template <int K, int N, int AS, typename Acc = float, typename Row, typename Bias, typename Epi>
+__device__ __forceinline__ void linear_rows_mapped(const float* A, Row row, Bias bias, Epi epi) {
   static_assert(kThreads == 256 && kTok == 64 && N % 16 == 0 && K % 4 == 0,
                 "a 16 x 16 grid of threads over 64 tokens and N outputs");
   constexpr int TM = kTok / 16, TN = N / 16;
   const int tg = threadIdx.x % 16, og = threadIdx.x / 16;
-  float acc[TM][TN] = {};
+  Acc acc[TM][TN] = {};
 #pragma unroll 1
   for (int i = 0; i < K; i += 4) {
     float a[TM][4];
@@ -123,13 +131,13 @@ __device__ __forceinline__ void linear_rows(const float* A, const T* __restrict_
       for (int q = 0; q < 4; ++q) a[j][q] = A[(tg + 16 * j) * AS + i + q];
 #pragma unroll
     for (int r = 0; r < TN; ++r) {
-      const float4 wv = load4(w + (long long)(og + 16 * r) * K + i);
+      const float4 wv = load4(row(og + 16 * r) + i);
 #pragma unroll
       for (int j = 0; j < TM; ++j) {
-        acc[j][r] = fmaf(a[j][0], wv.x, acc[j][r]);
-        acc[j][r] = fmaf(a[j][1], wv.y, acc[j][r]);
-        acc[j][r] = fmaf(a[j][2], wv.z, acc[j][r]);
-        acc[j][r] = fmaf(a[j][3], wv.w, acc[j][r]);
+        acc[j][r] = fma_acc((Acc)a[j][0], (Acc)wv.x, acc[j][r]);
+        acc[j][r] = fma_acc((Acc)a[j][1], (Acc)wv.y, acc[j][r]);
+        acc[j][r] = fma_acc((Acc)a[j][2], (Acc)wv.z, acc[j][r]);
+        acc[j][r] = fma_acc((Acc)a[j][3], (Acc)wv.w, acc[j][r]);
       }
     }
   }
@@ -138,8 +146,16 @@ __device__ __forceinline__ void linear_rows(const float* A, const T* __restrict_
 #pragma unroll
     for (int r = 0; r < TN; ++r) {
       const int o = og + 16 * r;
-      epi(tg + 16 * j, o, acc[j][r] + to_f(b[o]));
+      epi(tg + 16 * j, o, acc[j][r] + (Acc)bias(o));
     }
+}
+
+// The same with w the (N, K) weight in rows and b its N biases.
+template <int K, int N, int AS, typename T, typename Epi>
+__device__ __forceinline__ void linear_rows(const float* A, const T* __restrict__ w,
+                                            const T* __restrict__ b, Epi epi) {
+  linear_rows_mapped<K, N, AS>(
+      A, [&](int o) { return w + (long long)o * K; }, [&](int o) { return to_f(b[o]); }, epi);
 }
 
 // LayerNorm over C of each token row (one warp per row), optionally
@@ -268,6 +284,163 @@ fused_structural_block_f32_kernel(const T* __restrict__ x, const T* __restrict__
   for (int e = tid; e < kTok * C; e += kThreads) {
     const int t = e / C, c = e % C;
     if (valid(t)) y[offset(t) + c] = from_f<T>(sH[t * L::XS + c]);
+  }
+}
+
+// fp32 at C = 256 (the c64 generator's block, 8 heads): Layout<256> would
+// need ~394 KB. The MHSA runs a head at a time and adds that head's share of
+// the proj, o_h Wproj[:, head]^T, onto the residual stream at once; the MLP
+// runs in chunks of 128 hidden columns, each chunk's fc2 share added onto
+// the residual stream, so no product's register tile grows past 4 x 16 and
+// no intermediate past 64 x 257 floats (214 KB in all). A head's q and k,
+// its scores and their softmax are carried in double, as the plain version
+// carries them in float64: where a block's scores are 16 times larger
+// (chip_smoke.py's saturated input) fp32 scores at dim 256 leave the block
+// 2.6e-4 from a float64 evaluation, past the 2e-4 the two are held to, and
+// float64 ones 8.6e-5 (devtools/serving_kernel_rounding.py --fp32). The
+// softmax meets v in fp32.
+struct F32WideLayout {
+  static constexpr int C = 256, HEADS = 8, HD = C / HEADS, HC = 128;
+  static constexpr int XS = C + 1;          // token rows of width C
+  static constexpr int KS = 2 * HD + 1;     // one head's q | k rows (double)
+  static constexpr int SS = kTok + 1;       // score rows (double)
+  static constexpr int VS = HD + 1;         // one head's v rows, then its output
+  static constexpr int AS = HC + 1;         // a chunk of the MLP's hidden rows
+  static constexpr int X = 0;                 // [kTok][XS] residual stream
+  static constexpr int H = X + kTok * XS;     // [kTok][XS] LN1 out, then LN2 out
+  static constexpr int U = H + kTok * XS;     // union: one head, later a hidden chunk
+  static constexpr int QK = U;                // [kTok][KS] doubles
+  static constexpr int S = QK + 2 * kTok * KS;   // [kTok][SS] doubles
+  static constexpr int V = S + 2 * kTok * SS;    // [kTok][VS]
+  static constexpr int O = V + kTok * VS;        // [kTok][VS]
+  static constexpr int A1 = U;
+  static constexpr int HEAD = 2 * kTok * (KS + SS) + 2 * kTok * VS;
+  static constexpr int U_SIZE = HEAD > kTok * AS ? HEAD : kTok * AS;
+  static constexpr int TOTAL = U + U_SIZE;
+  static_assert(U % 2 == 0, "the double arrays are 8-byte aligned");
+};
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+fused_structural_block_f32_wide_kernel(const T* __restrict__ x, const T* __restrict__ st,
+                                       const float* __restrict__ gamma,
+                                       const float* __restrict__ beta, const T* __restrict__ n1w,
+                                       const T* __restrict__ n1b, const T* __restrict__ qkvw,
+                                       const T* __restrict__ qkvb, const T* __restrict__ projw,
+                                       const T* __restrict__ projb, const T* __restrict__ n2w,
+                                       const T* __restrict__ n2b, const T* __restrict__ f1w,
+                                       const T* __restrict__ f1b, const T* __restrict__ f2w,
+                                       const T* __restrict__ f2b, T* __restrict__ y, int H, int W,
+                                       float eps) {
+  using L = F32WideLayout;
+  constexpr int C = L::C, HD = L::HD, HC = L::HC;
+  extern __shared__ float smem[];
+  float* sX = smem + L::X;
+  float* sH = smem + L::H;
+  double* sQK = reinterpret_cast<double*>(smem + L::QK);
+  double* sS = reinterpret_cast<double*>(smem + L::S);
+  float* sV = smem + L::V;
+  float* sO = smem + L::O;
+  float* sA1 = smem + L::A1;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int b = blockIdx.z, row0 = blockIdx.y * kWin, col0 = blockIdx.x * kWin;
+  auto valid = [&](int t) { return row0 + t / kWin < H && col0 + t % kWin < W; };
+  auto offset = [&](int t) {
+    return (((long long)b * H + row0 + t / kWin) * W + col0 + t % kWin) * C;
+  };
+
+  // x (residual) and x + struct; tokens outside the grid load as zeros
+  for (int e = tid; e < kTok * C; e += kThreads) {
+    const int t = e / C, c = e % C;
+    float xv = 0.f, sv = 0.f;
+    if (valid(t)) {
+      xv = to_f(x[offset(t) + c]);
+      sv = to_f(st[offset(t) + c]);
+    }
+    sX[t * L::XS + c] = xv;
+    sH[t * L::XS + c] = xv + sv;
+  }
+  __syncthreads();
+  layer_norm_rows<C>(sH, sH, n1w, n1b, eps, gamma + (long long)b * C, beta + (long long)b * C);
+  __syncthreads();
+
+  const double scale = 1.0 / sqrt((double)HD);
+#pragma unroll 1
+  for (int hh = 0; hh < L::HEADS; ++hh) {
+    // this head's q, k (double) and v: rows hh HD.. of each third of Wqkv
+    linear_rows_mapped<C, 3 * HD, L::XS, double>(
+        sH, [&](int o) { return qkvw + (long long)((o / HD) * C + hh * HD + o % HD) * C; },
+        [&](int o) { return to_f(qkvb[(o / HD) * C + hh * HD + o % HD]); },
+        [&](int t, int o, double v) {
+          if (o < 2 * HD) sQK[t * L::KS + o] = v;
+          else sV[t * L::VS + o - 2 * HD] = (float)v;
+        });
+    __syncthreads();
+    for (int e = tid; e < kTok * kTok; e += kThreads) {
+      const int s = e % kTok, t = e / kTok;
+      double acc = -INFINITY;  // keys outside the grid drop out of the softmax
+      if (valid(s)) {
+        const double* q = sQK + t * L::KS;
+        const double* k = sQK + s * L::KS + HD;
+        acc = 0.0;
+#pragma unroll 8
+        for (int d = 0; d < HD; ++d) acc = fma(q[d], k[d], acc);
+        acc *= scale;
+      }
+      sS[t * L::SS + s] = acc;
+    }
+    __syncthreads();
+    for (int t = warp; t < kTok; t += kWarps) {  // token 0 of a window is always a valid key
+      double* r = sS + t * L::SS;
+      double m = fmax(r[lane], r[lane + 32]);
+#pragma unroll
+      for (int o = 16; o > 0; o >>= 1) m = fmax(m, __shfl_xor_sync(0xffffffffu, m, o));
+      const double e0 = exp(r[lane] - m), e1 = exp(r[lane + 32] - m);
+      double sum = e0 + e1;
+#pragma unroll
+      for (int o = 16; o > 0; o >>= 1) sum += __shfl_xor_sync(0xffffffffu, sum, o);
+      r[lane] = e0 / sum;
+      r[lane + 32] = e1 / sum;
+    }
+    __syncthreads();
+    for (int e = tid; e < kTok * HD; e += kThreads) {
+      const int d = e % HD, t = e / HD;
+      const double* p = sS + t * L::SS;
+      const float* v = sV + d;
+      float acc = 0.f;
+#pragma unroll 8
+      for (int s = 0; s < kTok; ++s) acc = fmaf((float)p[s], v[s * L::VS], acc);
+      sO[t * L::VS + d] = acc;
+    }
+    __syncthreads();
+    // the head's share of the proj (and, once, its bias) onto the residual
+    linear_rows_mapped<HD, C, L::VS>(
+        sO, [&](int o) { return projw + (long long)o * C + hh * HD; },
+        [&](int o) { return hh == 0 ? to_f(projb[o]) : 0.f; },
+        [&](int t, int o, float v) { sX[t * L::XS + o] += v; });
+    __syncthreads();
+  }
+
+  layer_norm_rows<C>(sX, sH, n2w, n2b, eps, nullptr, nullptr);
+  __syncthreads();
+#pragma unroll 1
+  for (int hc = 0; hc < 4 * C / HC; ++hc) {
+    linear_rows_mapped<C, HC, L::XS>(
+        sH, [&](int o) { return f1w + (long long)(hc * HC + o) * C; },
+        [&](int o) { return to_f(f1b[hc * HC + o]); }, [&](int t, int o, float v) {
+          sA1[t * L::AS + o] = 0.5f * v * (1.f + erff(v * 0.70710678118654752f));
+        });
+    __syncthreads();
+    linear_rows_mapped<HC, C, L::AS>(
+        sA1, [&](int o) { return f2w + (long long)o * 4 * C + hc * HC; },
+        [&](int o) { return hc == 0 ? to_f(f2b[o]) : 0.f; },
+        [&](int t, int o, float v) { sX[t * L::XS + o] += v; });
+    __syncthreads();
+  }
+
+  for (int e = tid; e < kTok * C; e += kThreads) {
+    const int t = e / C, c = e % C;
+    if (valid(t)) y[offset(t) + c] = from_f<T>(sX[t * L::XS + c]);
   }
 }
 
@@ -865,16 +1038,429 @@ fused_structural_block_wide_kernel(const bf16* __restrict__ x, const bf16* __res
   }
 }
 
+// C = 256 (the c64 generator, 8 heads): the four weights are ~1.6 MB with
+// padding and all of them stream, and a warp that owned 16 token rows of
+// the window's width would hold 128 fp32 values a thread for the residual
+// stream alone. A block is 8 warps on one window: warp w owns token rows
+// 16 (w % 4).. and, of every 64 output columns, the 32 at 32 (w / 4)..
+// (128 columns in all), so the residual stream is 64 values a thread in
+// registers. The weights pass through shared memory in tiles
+// (double-buffered 16-byte cp.async, one block barrier a tile, the next
+// window's first tile copied during the last):
+//   heads  per pair of heads, a tile of 64 q rows, one of k rows and one of
+//          v rows of Wqkv: warp w forms q (kept as A fragments), k and v of
+//          head 2 pair + w / 4 for its 16 tokens; k and v of both heads go to
+//          shared memory; the MHSA of window_mhsa_mma.cuh runs per warp and
+//          head (keys outside a ragged grid at -inf); the pair's output (64 x
+//          64) goes to shared memory, and two tiles of Wproj (128 output
+//          rows x the pair's 64 columns) add its share of the proj onto the
+//          residual stream, which starts as x + the proj bias;
+//   LN2    over the residual stream, its row sums exchanged between the two
+//          warps of a row through shared memory;
+//   MLP    8 chunks of 128 hidden columns: two tiles of fc1 rows (GELU on
+//          the accumulators, the chunk to shared memory), then four tiles of
+//          fc2 (64 output rows x the chunk's 128 columns) onto the stream.
+// Operands rounded to bf16 inside: every one the kernel forms is a hi + lo
+// pair (LN1's and LN2's outputs, q, k, v, the exponentials, the MHSA output,
+// the GELU output): with the dim-128 kernel's pairs a random block at dim
+// 256 misses the bf16 bound by 1.35x, with these it stays at 0.68 (0.81 on
+// the saturated one, a one-ulp flip of the output rounding;
+// devtools/serving_kernel_rounding.py).
+struct WidestLayout {
+  static constexpr int C = 256, HEADS = C / mhsa::kHd, KT = C / 16;
+  static constexpr int HC = 128;                // hidden columns a chunk
+  static constexpr int WS = C + 8;              // rows of C values: 528 bytes
+  static constexpr int PS = 64 + 8;             // proj tile rows, a pair's output: 144 bytes
+  static constexpr int FS = HC + 8;             // fc2 tile rows, the hidden chunk: 272 bytes
+  static constexpr int TILE = 64 * WS;          // the largest tile (128 x PS fits too)
+  static constexpr int TILES_HEADS = HEADS / 2 * 5, TILES = TILES_HEADS + 4 * C / HC * 6;
+  static constexpr int W = 0;                             // [2][TILE]
+  static constexpr int HH = W + 2 * TILE;                 // [64][WS] LN1 out, then LN2 out, hi
+  static constexpr int HL = HH + kTok * WS;               //   ... lo
+  static constexpr int U = HL + kTok * WS;                // union:
+  static constexpr int KV = U;                            //   [2 heads][kh, kl, vh, vl] tiles
+  static constexpr int OH = KV + 2 * 4 * mhsa::TILE;      //   [64][PS] the pair's output hi
+  static constexpr int OL = OH + kTok * PS;               //   ... lo
+  static constexpr int AH = U;                            //   [64][FS] the hidden chunk hi
+  static constexpr int AL = AH + kTok * FS;               //   ... lo
+  static constexpr int ELEMS = (OL + kTok * PS > AL + kTok * FS ? OL + kTok * PS : AL + kTok * FS);
+  static constexpr int N1W = 0, N1B = C, N2W = 2 * C, N2B = 3 * C;
+  static constexpr int QKV_B = 4 * C, PROJ_B = QKV_B + 3 * C, FC1_B = PROJ_B + C,
+                       FC2_B = FC1_B + 4 * C, STAT = FC2_B + C;   // + [2][2][64] row sums
+  static constexpr int PARAMS = STAT + 4 * kTok;
+  static constexpr int BYTES = ELEMS * (int)sizeof(bf16) + PARAMS * (int)sizeof(float);
+};
+
+// acc (16 rows x 32 outputs, 4 n-tiles) += a w^T: a 16 rows of KS k-steps
+// at ah (and lo at al when kSplit), row stride lda; w 32 rows [n][k] of
+// stride ldw.
+template <int KS, bool kSplit>
+__device__ __forceinline__ void rows_times_w(float (&acc)[4][4], const bf16* ah, const bf16* al,
+                                             int lda, const bf16* w, int ldw, int lane) {
+#pragma unroll 4
+  for (int kk = 0; kk < KS; ++kk) {
+    const int aoff = (lane & 15) * lda + kk * 16 + (lane >> 4) * 8;
+    uint32_t a[4], b[2][4];
+    ldmatrix_x4(a, ah + aoff);
+#pragma unroll
+    for (int nb = 0; nb < 2; ++nb) {
+      ldmatrix_x4(b[nb], w + (nb * 16 + (lane & 7) + (lane >> 4) * 8) * ldw + kk * 16 +
+                             ((lane >> 3) & 1) * 8);
+      mma_bf16(acc[2 * nb], a, b[nb][0], b[nb][1]);
+      mma_bf16(acc[2 * nb + 1], a, b[nb][2], b[nb][3]);
+    }
+    if constexpr (kSplit) {
+      ldmatrix_x4(a, al + aoff);
+#pragma unroll
+      for (int nb = 0; nb < 2; ++nb) {
+        mma_bf16(acc[2 * nb], a, b[nb][0], b[nb][1]);
+        mma_bf16(acc[2 * nb + 1], a, b[nb][2], b[nb][3]);
+      }
+    }
+  }
+}
+
+// acc (4 n-tiles) = the 32 biases at `bias` (fp32), columns of the lane.
+__device__ __forceinline__ void bias_frags(float (&acc)[4][4], const float* bias, int lane) {
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const float2 b = *reinterpret_cast<const float2*>(bias + j * 8 + 2 * (lane & 3));
+    acc[j][0] = acc[j][2] = b.x;
+    acc[j][1] = acc[j][3] = b.y;
+  }
+}
+
+__global__ void __launch_bounds__(kMmaThreads, 1)
+fused_structural_block_widest_kernel(const bf16* __restrict__ x, const bf16* __restrict__ st,
+                                     const float* __restrict__ gamma,
+                                     const float* __restrict__ beta, const bf16* __restrict__ n1w,
+                                     const bf16* __restrict__ n1b, const bf16* __restrict__ qkvw,
+                                     const bf16* __restrict__ qkvb, const bf16* __restrict__ projw,
+                                     const bf16* __restrict__ projb, const bf16* __restrict__ n2w,
+                                     const bf16* __restrict__ n2b, const bf16* __restrict__ f1w,
+                                     const bf16* __restrict__ f1b, const bf16* __restrict__ f2w,
+                                     const bf16* __restrict__ f2b, bf16* __restrict__ y, int B,
+                                     int H, int W, float eps) {
+  using L = WidestLayout;
+  constexpr int C = L::C, WS = L::WS, PS = L::PS, FS = L::FS, HC = L::HC;
+  extern __shared__ __align__(16) unsigned char smem_mma[];
+  bf16* sW = reinterpret_cast<bf16*>(smem_mma);
+  bf16* sHH = sW + L::HH;
+  bf16* sHL = sW + L::HL;
+  bf16* sKV = sW + L::KV;
+  bf16* sOH = sW + L::OH;
+  bf16* sOL = sW + L::OL;
+  bf16* sAH = sW + L::AH;
+  bf16* sAL = sW + L::AL;
+  float* sP = reinterpret_cast<float*>(sW + L::ELEMS);
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int r0 = (warp & 3) * 16, half = warp >> 2, g = lane >> 2, tq = lane & 3;
+
+  // tile t into buffer t & 1, 16 bytes a copy by the whole block: per pair
+  // of heads q, k, v (64 rows of Wqkv) and the two proj tiles (128 rows of
+  // Wproj x the pair's 64 columns); per hidden chunk two fc1 tiles (64 rows)
+  // and four fc2 tiles (64 rows x the chunk's 128 columns)
+  auto load_tile = [&](int t) {
+    const bf16* src;
+    int rows, chunks, ld, lds;
+    if (t < L::TILES_HEADS) {
+      const int hp = t / 5, part = t % 5;
+      if (part < 3) {
+        src = qkvw + (long long)(part * C + hp * 64) * C;
+        rows = 64, chunks = C / 8, ld = C, lds = WS;
+      } else {
+        src = projw + (long long)(part - 3) * 128 * C + hp * 64;
+        rows = 128, chunks = 8, ld = C, lds = PS;
+      }
+    } else {
+      const int hc = (t - L::TILES_HEADS) / 6, part = (t - L::TILES_HEADS) % 6;
+      if (part < 2) {
+        src = f1w + (long long)(hc * HC + part * 64) * C;
+        rows = 64, chunks = C / 8, ld = C, lds = WS;
+      } else {
+        src = f2w + (long long)(part - 2) * 64 * 4 * C + hc * HC;
+        rows = 64, chunks = HC / 8, ld = 4 * C, lds = FS;
+      }
+    }
+    bf16* dst = sW + (t & 1) * L::TILE;
+    for (int e = tid; e < rows * chunks; e += kMmaThreads) {
+      const int r = e / chunks, c = e % chunks;
+      cp_async16(dst + r * lds + c * 8, src + (long long)r * ld + c * 8);
+    }
+  };
+
+  for (int e = tid; e < C; e += kMmaThreads) {
+    sP[L::N1W + e] = to_f(n1w[e]);
+    sP[L::N1B + e] = to_f(n1b[e]);
+    sP[L::N2W + e] = to_f(n2w[e]);
+    sP[L::N2B + e] = to_f(n2b[e]);
+    sP[L::PROJ_B + e] = to_f(projb[e]);
+    sP[L::FC2_B + e] = to_f(f2b[e]);
+  }
+  for (int e = tid; e < 3 * C; e += kMmaThreads) sP[L::QKV_B + e] = to_f(qkvb[e]);
+  for (int e = tid; e < 4 * C; e += kMmaThreads) sP[L::FC1_B + e] = to_f(f1b[e]);
+
+  const int nwx = (W + kWin - 1) / kWin, nwy = (H + kWin - 1) / kWin;
+  const long long n_windows = (long long)B * nwy * nwx;
+  if ((long long)blockIdx.x < n_windows) load_tile(0);
+  cp_async_commit();
+#pragma unroll 1
+  for (long long win = blockIdx.x; win < n_windows; win += gridDim.x) {
+    const int b = (int)(win / (nwy * nwx)), rem = (int)(win - (long long)b * nwy * nwx);
+    const int row0 = (rem / nwx) * kWin, col0 = (rem % nwx) * kWin;
+    const bool ragged = row0 + kWin > H || col0 + kWin > W;
+    auto valid = [&](int tok) { return row0 + tok / kWin < H && col0 + tok % kWin < W; };
+    auto offset = [&](int tok) {
+      return (((long long)b * H + row0 + tok / kWin) * W + col0 + tok % kWin) * C;
+    };
+    const bool more = win + gridDim.x < n_windows;
+    int t = 0;
+    // the next tile: wait for it, and copy the one after while it is used
+    auto next_tile = [&]() {
+      cp_async_wait<0>();
+      __syncthreads();   // tile t is in; every warp is done with tile t - 1
+      if (t + 1 < L::TILES) load_tile(t + 1);
+      else if (more) load_tile(0);
+      cp_async_commit();
+      return static_cast<const bf16*>(sW + (t++ & 1) * L::TILE);
+    };
+
+    __syncthreads();   // the previous window is done with LN2's output
+    // LN1 + FiLM, a warp a token, 8 channels a lane; tokens outside the grid
+    // as zeros; hi + lo to shared memory
+    for (int tok = warp; tok < kTok; tok += kMmaThreads / 32) {
+      float u[8] = {};
+      if (valid(tok)) {
+        const uint4 xv = __ldg(reinterpret_cast<const uint4*>(x + offset(tok) + lane * 8));
+        const uint4 sv = __ldg(reinterpret_cast<const uint4*>(st + offset(tok) + lane * 8));
+        const bf16* xp = reinterpret_cast<const bf16*>(&xv);
+        const bf16* sp = reinterpret_cast<const bf16*>(&sv);
+#pragma unroll
+        for (int i = 0; i < 8; ++i) u[i] = __bfloat162float(xp[i]) + __bfloat162float(sp[i]);
+      }
+      float sum = 0.f;
+#pragma unroll
+      for (int i = 0; i < 8; ++i) sum += u[i];
+      const float mean = warp_sum(sum) / C;
+      float var = 0.f;
+#pragma unroll
+      for (int i = 0; i < 8; ++i) var = fmaf(u[i] - mean, u[i] - mean, var);
+      const float rstd = 1.f / sqrtf(warp_sum(var) / C + eps);
+      uint4 hi, lo;
+      uint32_t* hp = reinterpret_cast<uint32_t*>(&hi);
+      uint32_t* lp = reinterpret_cast<uint32_t*>(&lo);
+#pragma unroll
+      for (int i = 0; i < 8; i += 2) {
+        float v[2];
+#pragma unroll
+        for (int j = 0; j < 2; ++j) {
+          const int c = lane * 8 + i + j;
+          v[j] = (u[i + j] - mean) * rstd * sP[L::N1W + c] + sP[L::N1B + c];
+          v[j] = v[j] * (1.f + __ldg(gamma + (long long)b * C + c)) +
+                 __ldg(beta + (long long)b * C + c);
+        }
+        pack_bf16_split(v[0], v[1], hp[i / 2], lp[i / 2]);
+      }
+      *reinterpret_cast<uint4*>(sHH + tok * WS + lane * 8) = hi;
+      *reinterpret_cast<uint4*>(sHL + tok * WS + lane * 8) = lo;
+    }
+
+    // the residual stream: x + the proj bias at the warp's rows and columns
+    // (of 64-column block j, the 32 at 32 half + 8 n + 2 tq)
+    float xr[4][4][4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int n = 0; n < 4; ++n) {
+        const int c = j * 64 + half * 32 + n * 8 + 2 * tq;
+#pragma unroll
+        for (int hh = 0; hh < 2; ++hh) {
+          const int tok = r0 + g + 8 * hh;
+          float2 xv = make_float2(0.f, 0.f);
+          if (valid(tok))
+            xv = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(x + offset(tok) + c));
+          xr[j][n][2 * hh] = xv.x + sP[L::PROJ_B + c];
+          xr[j][n][2 * hh + 1] = xv.y + sP[L::PROJ_B + c + 1];
+        }
+      }
+
+    // the heads, a pair at a time; warp w takes head 2 hp + half
+#pragma unroll 1
+    for (int hp = 0; hp < L::HEADS / 2; ++hp) {
+      const int hd = 2 * hp + half;
+      bf16* kv = sKV + half * 4 * mhsa::TILE;   // k hi, k lo, v hi, v lo
+      uint32_t qh[2][4], ql[2][4];
+#pragma unroll
+      for (int part = 0; part < 3; ++part) {
+        const bf16* tile = next_tile();
+        float acc[4][4];
+        bias_frags(acc, sP + L::QKV_B + part * C + hd * mhsa::kHd, lane);
+        rows_times_w<L::KT, true>(acc, sHH + r0 * WS, sHL + r0 * WS, WS,
+                                  tile + half * mhsa::kHd * WS, WS, lane);
+        if (part == 0) {
+#pragma unroll
+          for (int kk = 0; kk < 2; ++kk)
+            frags_to_a_split(qh[kk], ql[kk], acc[2 * kk], acc[2 * kk + 1]);
+        } else {
+          bf16* dst = kv + (part - 1) * 2 * mhsa::TILE;
+          store_frags<4>(dst, dst + mhsa::TILE, mhsa::RS, r0, 0, acc, 1.f, lane);
+        }
+      }
+      __syncthreads();   // k and v of both heads are in
+      {
+        float s[8][4];
+        mhsa::times_tile_t_split(s, qh, ql, kv, kv + mhsa::TILE, lane);
+        if (ragged) {   // keys outside the grid drop out of the softmax
+#pragma unroll
+          for (int j = 0; j < 8; ++j) {
+            if (!valid(j * 8 + 2 * tq)) s[j][0] = s[j][2] = -INFINITY;
+            if (!valid(j * 8 + 2 * tq + 1)) s[j][1] = s[j][3] = -INFINITY;
+          }
+        }
+        float l0, l1;   // token 0 of a window is always a valid key
+        mhsa::exp_rows<true>(s, 1.f / sqrtf((float)mhsa::kHd), l0, l1);   // __expf: y is bf16
+        float o[4][4] = {};
+        mhsa::strip_times_tile<true>(o, s, kv + 2 * mhsa::TILE, lane);    // e (hi + lo) v hi
+        mhsa::strip_times_tile<false>(o, s, kv + 3 * mhsa::TILE, lane);   // e hi v lo
+        l0 = 1.f / l0;
+        l1 = 1.f / l1;
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          o[j][0] *= l0;
+          o[j][1] *= l0;
+          o[j][2] *= l1;
+          o[j][3] *= l1;
+        }
+        store_frags<4>(sOH, sOL, PS, r0, half * mhsa::kHd, o, 1.f, lane);
+      }
+      // the pair's share of the proj: output rows 128 i.. of Wproj x the
+      // pair's 64 columns; the warp's 64-column blocks 2 i and 2 i + 1
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        const bf16* tile = next_tile();
+#pragma unroll
+        for (int j = 0; j < 2; ++j)
+          rows_times_w<4, true>(xr[2 * i + j], sOH + r0 * PS, sOL + r0 * PS, PS,
+                                tile + (j * 64 + half * 32) * PS, PS, lane);
+      }
+    }
+
+    // LN2 over the stream: the row sums of the warp's 128 columns, then the
+    // partner warp's (w ^ 4) through shared memory
+    {
+      float* stat = sP + L::STAT;   // [sum, squares][half][64 rows]
+      float s0 = 0.f, s1 = 0.f;
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+#pragma unroll
+        for (int n = 0; n < 4; ++n) {
+          s0 += xr[j][n][0] + xr[j][n][1];
+          s1 += xr[j][n][2] + xr[j][n][3];
+        }
+      s0 = quad_sum(s0);
+      s1 = quad_sum(s1);
+      if (tq == 0) {
+        stat[half * kTok + r0 + g] = s0;
+        stat[half * kTok + r0 + g + 8] = s1;
+      }
+      __syncthreads();
+      const float m0 = (stat[r0 + g] + stat[kTok + r0 + g]) / C;
+      const float m1 = (stat[r0 + g + 8] + stat[kTok + r0 + g + 8]) / C;
+      float v0 = 0.f, v1 = 0.f;
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+#pragma unroll
+        for (int n = 0; n < 4; ++n) {
+          v0 = fmaf(xr[j][n][0] - m0, xr[j][n][0] - m0, fmaf(xr[j][n][1] - m0, xr[j][n][1] - m0, v0));
+          v1 = fmaf(xr[j][n][2] - m1, xr[j][n][2] - m1, fmaf(xr[j][n][3] - m1, xr[j][n][3] - m1, v1));
+        }
+      v0 = quad_sum(v0);
+      v1 = quad_sum(v1);
+      if (tq == 0) {
+        stat[2 * kTok + half * kTok + r0 + g] = v0;
+        stat[2 * kTok + half * kTok + r0 + g + 8] = v1;
+      }
+      __syncthreads();
+      const float i0 = 1.f / sqrtf((stat[2 * kTok + r0 + g] + stat[3 * kTok + r0 + g]) / C + eps);
+      const float i1 =
+          1.f / sqrtf((stat[2 * kTok + r0 + g + 8] + stat[3 * kTok + r0 + g + 8]) / C + eps);
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        float h[4][4];
+#pragma unroll
+        for (int n = 0; n < 4; ++n) {
+          const int c = j * 64 + half * 32 + n * 8 + 2 * tq;
+          const float w0 = sP[L::N2W + c], w1 = sP[L::N2W + c + 1];
+          const float b0 = sP[L::N2B + c], b1 = sP[L::N2B + c + 1];
+          h[n][0] = (xr[j][n][0] - m0) * i0 * w0 + b0;
+          h[n][1] = (xr[j][n][1] - m0) * i0 * w1 + b1;
+          h[n][2] = (xr[j][n][2] - m1) * i1 * w0 + b0;
+          h[n][3] = (xr[j][n][3] - m1) * i1 * w1 + b1;
+          xr[j][n][0] += sP[L::FC2_B + c];   // the stream now collects fc2
+          xr[j][n][1] += sP[L::FC2_B + c + 1];
+          xr[j][n][2] += sP[L::FC2_B + c];
+          xr[j][n][3] += sP[L::FC2_B + c + 1];
+        }
+        store_frags<4>(sHH, sHL, WS, r0, j * 64 + half * 32, h, 1.f, lane);
+      }
+    }
+
+    // the MLP, 128 hidden columns at a time
+#pragma unroll 1
+    for (int hc = 0; hc < 4 * C / HC; ++hc) {
+#pragma unroll
+      for (int part = 0; part < 2; ++part) {   // fc1, GELU: hidden columns 64 part + 32 half..
+        const bf16* tile = next_tile();
+        float f[4][4];
+        bias_frags(f, sP + L::FC1_B + hc * HC + part * 64 + half * 32, lane);
+        rows_times_w<L::KT, true>(f, sHH + r0 * WS, sHL + r0 * WS, WS, tile + half * 32 * WS, WS,
+                                  lane);
+#pragma unroll
+        for (int n = 0; n < 4; ++n)
+#pragma unroll
+          for (int i = 0; i < 4; ++i)
+            f[n][i] = 0.5f * f[n][i] * (1.f + erff(f[n][i] * 0.70710678118654752f));
+        store_frags<4>(sAH, sAL, FS, r0, part * 64 + half * 32, f, 1.f, lane);
+      }
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {   // fc2: output rows 64 j.., the chunk's columns
+        const bf16* tile = next_tile();
+        rows_times_w<HC / 16, true>(xr[j], sAH + r0 * FS, sAL + r0 * FS, FS,
+                                    tile + half * 32 * FS, FS, lane);
+      }
+    }
+
+    // y, where the token exists
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      const int tok = r0 + g + 8 * hh;
+      if (!valid(tok)) continue;
+      bf16* row = y + offset(tok);
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+#pragma unroll
+        for (int n = 0; n < 4; ++n)
+          *reinterpret_cast<uint32_t*>(row + j * 64 + half * 32 + n * 8 + 2 * tq) =
+              pack_bf16(xr[j][n][2 * hh], xr[j][n][2 * hh + 1]);
+    }
+  }
+  cp_async_wait<0>();
+}
+
 // ---------------------------------------------------------------------------
 
 template <int C>
 int launch_f32(const void* x, const void* st, const void* gamma, const void* beta,
                const void* const* w, void* y, int B, int H, int W, float eps,
                cudaStream_t stream) {
-  using L = Layout<C>;
-  static_assert(L::HD % 4 == 0 && C % 4 == 0, "4-wide weight loads");
-  const int smem = L::TOTAL * (int)sizeof(float);
-  auto kernel = fused_structural_block_f32_kernel<float, C>;
+  constexpr bool kWide = C > 128;
+  const int smem = (kWide ? F32WideLayout::TOTAL : Layout<C>::TOTAL) * (int)sizeof(float);
+  auto kernel = [] {
+    if constexpr (kWide) return fused_structural_block_f32_wide_kernel<float>;
+    else return fused_structural_block_f32_kernel<float, C>;
+  }();
+  static_assert(kWide ? C == F32WideLayout::C : Layout<C>::HD % 4 == 0 && C % 4 == 0,
+                "4-wide weight loads");
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid((W + kWin - 1) / kWin, (H + kWin - 1) / kWin, B);
@@ -890,12 +1476,13 @@ template <int C>
 int launch_bf16(const void* x, const void* st, const void* gamma, const void* beta,
                 const void* const* w, void* y, int B, int H, int W, float eps,
                 cudaStream_t stream) {
-  constexpr bool kWide = C > 64;
+  constexpr bool kWide = C == WideLayout::C, kWidest = C == WidestLayout::C;
   constexpr int threads = kWide ? kGroupThreads : kMmaThreads;
-  constexpr int per_block = kWide ? 1 : kGroups;   // windows in flight
-  constexpr int smem = kWide ? WideLayout::BYTES : MmaLayout<C>::BYTES;
+  constexpr int per_block = kWide || kWidest ? 1 : kGroups;   // windows in flight
+  constexpr int smem = kWide ? WideLayout::BYTES : kWidest ? WidestLayout::BYTES : MmaLayout<C>::BYTES;
   auto kernel = [] {
     if constexpr (kWide) return fused_structural_block_wide_kernel;
+    else if constexpr (kWidest) return fused_structural_block_widest_kernel;
     else return fused_structural_block_mma_kernel<C>;
   }();
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
@@ -931,8 +1518,8 @@ int launch_width(const void* x, const void* st, const void* gamma, const void* b
 // Plain C entry point (loaded with ctypes). x, struct and y are (B, H, W, C)
 // contiguous; gamma and beta (B, C) fp32; `weights` points to 12 pointers in
 // the order norm1 w/b, qkv w/b, proj w/b, norm2 w/b, fc1 w/b, fc2 w/b, of
-// the same type as x (dtype 0 = fp32, 1 = bf16). C in {32, 64, 128}, with
-// C / 32 heads (the c8, c16 and c32 generators' blocks). Launches on
+// the same type as x (dtype 0 = fp32, 1 = bf16). C in {32, 64, 128, 256},
+// with C / 32 heads (the c8, c16, c32 and c64 generators' blocks). Launches on
 // `stream` and returns cudaGetLastError() (0 on success).
 extern "C" int fused_structural_block_launch(const void* x, const void* st, const void* gamma,
                                              const void* beta, const void* const* weights,
@@ -945,6 +1532,7 @@ extern "C" int fused_structural_block_launch(const void* x, const void* st, cons
     case 32: return mstgan::launch_width<32>(x, st, gamma, beta, weights, y, B, H, W, dtype, eps, s);
     case 64: return mstgan::launch_width<64>(x, st, gamma, beta, weights, y, B, H, W, dtype, eps, s);
     case 128: return mstgan::launch_width<128>(x, st, gamma, beta, weights, y, B, H, W, dtype, eps, s);
+    case 256: return mstgan::launch_width<256>(x, st, gamma, beta, weights, y, B, H, W, dtype, eps, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }

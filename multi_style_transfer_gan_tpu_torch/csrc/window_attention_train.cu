@@ -63,11 +63,12 @@
 // to 1.08 of the bound at (8, 256, 256, 24) (emulated); there S enters as a
 // pair. v and dO are the bf16 inputs themselves.
 //
-// Widths. C = 16, 32, 64 (the c16 generator; c32's down1, up1, up2) and 8
-// (the c8 generator's up2). In bf16, C = 8 runs padded to 16 channels
-// inside (MmaLayout); the fp32 bodies take it as it is. c32's down2 (C =
-// 128) has no training kernel here, as it has none in the JAX package
-// (_group_geometry takes C <= 64): its gradient goes the JAX package's way,
+// Widths. C = 16, 32, 64 (the c16 generator; c32's down1, up1, up2; c64's
+// up2) and 8 (the c8 generator's up2). In bf16, C = 8 runs padded to 16
+// channels inside (MmaLayout); the fp32 bodies take it as it is. C = 128
+// (c32's down2, c64's down1 and up1) and 256 (c64's down2) have no training
+// kernel here, as they have none in the JAX package (_group_geometry takes
+// C <= 64): their gradient goes the JAX package's way,
 // ops/kernels/window_attention_fast_vjp.py.
 //
 // fp32 stays exact fp32 in the forward: the fp32 instantiation keeps the

@@ -20,12 +20,12 @@
 //
 // The kernel body (the op, what bounds it, the design) is in
 // window_channel_attention.cuh; this source instantiates its kFull stage
-// only, at every width a generator of the repo gives it (C = 8 .. 128).
+// only, at every width a generator of the repo gives it (C = 8 .. 256).
 #include "window_channel_attention.cuh"
 
 // Plain C entry points (loaded with ctypes). Weights: wqkv (3C, C), bqkv
 // (3C), wproj (C, C), bproj (C), in the input's type: dtype 0 = fp32,
-// 1 = bf16; C in {8, 16, 32, 64, 128}. Each launches on `stream` and returns
+// 1 = bf16; C in {8, 16, 32, 64, 128, 256}. Each launches on `stream` and returns
 // cudaGetLastError() (0 on success).
 //
 // x and y (B, H, W, C) contiguous, H % 4 == W % 4 == 0.

@@ -17,8 +17,9 @@
 // C = 8..64. Against the tensor-core ridge (~295 flop/B in bf16) that is
 // bytes-bound at those widths, which is why the whole chain stays in one
 // pass and no intermediate touches device memory. At C = 128 (the c32
-// generator's down2) it is 384 flop/B, past the ridge: operations bound it
-// there, and the hi + lo pairs below add to them.
+// generator's down2) it is 384 flop/B, at C = 256 (c64's down2) 768, past
+// the ridge: operations bound it there, and the hi + lo pairs below add to
+// them.
 //
 // bf16 design (window_channel_attention_mma_kernel). Persistent blocks of 8
 // warps: the grid is one block per 8 windows until the card is full
@@ -49,11 +50,13 @@
 // C = 64 on a 128^2 grid reaches 1.13 of the bound with one term each, the
 // 128-key softmax at C = 128 0.97; with the pairs both stay at 0.68).
 //
-// Widths. C = 16, 32, 64 (the c16 generator) and 8, 128 (c8 and c32).
-// C = 8 runs padded to 16 channels inside: zeros in the pad columns of x,
-// the weights and the biases, and -inf on the pad keys of the Gram, so the
-// pads never reach y (MmaLayout). C = 128 keeps the design with 3 warps a
-// block, as the 139 KB of resident weights leave room for no more.
+// Widths. C = 16, 32, 64 (the c16 generator), 8, 128 (c8 and c32) and 256
+// (c64). C = 8 runs padded to 16 channels inside: zeros in the pad columns
+// of x, the weights and the biases, and -inf on the pad keys of the Gram,
+// so the pads never reach y (MmaLayout). C = 128 keeps the design with 3
+// warps a block, as the 139 KB of resident weights leave room for no more.
+// C = 256 has a kernel of its own (window_channel_attention_wide_kernel,
+// below): its weights (541 KB) stream through shared memory.
 //
 // fp32 stays exact fp32 (window_channel_attention_f32_kernel): FMAs on the
 // CUDA cores, no tensor cores, no TF32. One block of 256 threads walks
@@ -64,9 +67,11 @@
 // C + 1), fall in distinct banks. At C = 128 the weights (~263 KB) stay in
 // device memory and are read through L2 and the read-only cache, 16 bytes a
 // load. Every intermediate lives in shared memory; each thread owns one
-// output channel at PJ positions (4; 8 at C = 128) in the qkv, apply and
-// proj products. Windows past the end of the last tile compute on zeros and
-// are not stored.
+// output channel at PJ positions (4; 8 at C = 128, 16 at C = 256) in the
+// qkv and proj products. The Gram, its softmax and the apply run on SR
+// rows of the Gram at a time: all C up to C = 128, strips of 64 at C = 256,
+// whose whole Gram (263 KB) would outgrow shared memory. Windows past the
+// end of the last tile compute on zeros and are not stored.
 //
 // Stages. kStage < kFull ends each window early and stores a result folded
 // from everything that stage computed (so no work is dead code), rounded
@@ -139,6 +144,7 @@ struct Layout {
   // through L2 and the read-only cache, 16 bytes a load
   static constexpr bool RESIDENT = C <= 64;
   static constexpr int NW = C <= 64 ? 64 / C : 1;   // windows per tile
+  static constexpr int SR = C > 128 ? 64 : C;       // Gram rows at a time
   static constexpr int ROWS = NW * kP;   // positions per tile
   static constexpr int RG = kThreads / C;           // thread rows of the products
   static constexpr int PJ = ROWS / RG;              // positions per thread
@@ -151,8 +157,8 @@ struct Layout {
   static constexpr int X = B_PROJ + C;             // [ROWS][C]; later the attention output
   static constexpr int QKV = X + ROWS * C;         // [ROWS][QS]
   static constexpr int DEN = QKV + ROWS * QS;      // [2][ROWS] normalize denominators
-  static constexpr int G = DEN + 2 * ROWS;         // [NW][C][GS]
-  static constexpr int TOTAL = G + NW * C * GS;
+  static constexpr int G = DEN + 2 * ROWS;         // [NW][SR][GS]
+  static constexpr int TOTAL = G + NW * SR * GS;
 };
 
 // An early stage's store: f(r) at channel og of the thread's PJ positions
@@ -291,68 +297,73 @@ window_channel_attention_f32_kernel(const float* __restrict__ x, const float* __
       continue;
     }
 
-    // Gram qn^T kn per window, over its 16 positions
-    for (int e = tid; e < L::NW * C * C; e += kThreads) {
-      const int n = e / (C * C), c1 = (e / C) % C, c2 = e % C;
-      const float* base = sQKV + n * kP * L::QS;
-      float acc = 0.f;
+    // per SR rows of the Gram qn^T kn (each window's, over its 16
+    // positions): the rows, their softmax (max-subtracted) and the apply
+    // out[r, c1] = sum_c2 A[c1, c2] v[r, c2] of those c1, into sX; each
+    // thread takes channel oc at PJS consecutive positions of one window
+    constexpr int SR = L::SR, PJS = L::ROWS * SR / kThreads;
+    static_assert(SR == C || (kStage == kFull && C % SR == 0), "strips only in the op");
+    const int oc = tid % SR, rgs = tid / SR;
+    for (int s0 = 0; s0 < C; s0 += SR) {
+      for (int e = tid; e < L::NW * SR * C; e += kThreads) {
+        const int n = e / (SR * C), c1 = (e / C) % SR, c2 = e % C;
+        const float* base = sQKV + n * kP * L::QS;
+        float acc = 0.f;
 #pragma unroll
-      for (int t = 0; t < kP; ++t) acc = fmaf(base[t * L::QS + c1], base[t * L::QS + C + c2], acc);
-      sG[(n * C + c1) * L::GS + c2] = acc;
-    }
-    __syncthreads();
+        for (int t = 0; t < kP; ++t)
+          acc = fmaf(base[t * L::QS + s0 + c1], base[t * L::QS + C + c2], acc);
+        sG[(n * SR + c1) * L::GS + c2] = acc;
+      }
+      __syncthreads();
 
-    // row softmax, max-subtracted
-    for (int row = tid; row < L::NW * C; row += kThreads) {
-      float* g = sG + row * L::GS;
-      if constexpr (kStage == kLogits) {  // the raw row's sum, into its pad slot
-        float rs = 0.f;
-        for (int c = 0; c < C; ++c) rs += g[c];
-        g[C] = rs;
-        continue;
+      for (int row = tid; row < L::NW * SR; row += kThreads) {
+        float* g = sG + row * L::GS;
+        if constexpr (kStage == kLogits) {  // the raw row's sum, into its pad slot
+          float rs = 0.f;
+          for (int c = 0; c < C; ++c) rs += g[c];
+          g[C] = rs;
+          continue;
+        }
+        float m = -INFINITY;
+        for (int c = 0; c < C; ++c) m = fmaxf(m, g[c]);
+        float sum = 0.f;
+        for (int c = 0; c < C; ++c) {
+          const float ev = expf(g[c] - m);
+          g[c] = ev;
+          sum += ev;
+        }
+        for (int c = 0; c < C; ++c) g[c] = g[c] / sum;
+        if constexpr (kStage == kSoftmax) {  // the softmax row's sum, into its pad slot
+          float rs = 0.f;
+          for (int c = 0; c < C; ++c) rs += g[c];
+          g[C] = rs;
+        }
       }
-      float m = -INFINITY;
-      for (int c = 0; c < C; ++c) m = fmaxf(m, g[c]);
-      float sum = 0.f;
-      for (int c = 0; c < C; ++c) {
-        const float ev = expf(g[c] - m);
-        g[c] = ev;
-        sum += ev;
+      __syncthreads();
+      if constexpr (kStage == kLogits || kStage == kSoftmax) {
+        // v + the sum of Gram row p at position p < min(C, 16)
+        store_stage<C, kPacked>(y, win0, n_windows, H, W, og, rg, [&](int r) {
+          const int p = r % kP;
+          const float fold = p < (C < kP ? C : kP) ? sG[((r / kP) * C + p) * L::GS + C] : 0.f;
+          return sQKV[r * L::QS + 2 * C + og] + fold;
+        });
+        break;
       }
-      for (int c = 0; c < C; ++c) g[c] = g[c] / sum;
-      if constexpr (kStage == kSoftmax) {  // the softmax row's sum, into its pad slot
-        float rs = 0.f;
-        for (int c = 0; c < C; ++c) rs += g[c];
-        g[C] = rs;
-      }
-    }
-    __syncthreads();
-    if constexpr (kStage == kLogits || kStage == kSoftmax) {
-      // v + the sum of Gram row p at position p < min(C, 16)
-      store_stage<C, kPacked>(y, win0, n_windows, H, W, og, rg, [&](int r) {
-        const int p = r % kP;
-        const float fold = p < (C < kP ? C : kP) ? sG[((r / kP) * C + p) * L::GS + C] : 0.f;
-        return sQKV[r * L::QS + 2 * C + og] + fold;
-      });
-      continue;
-    }
 
-    // out[r, c1] = sum_c2 A[c1, c2] v[r, c2], into sX; each thread takes
-    // channel og at PJ consecutive positions of one window
-    {
-      const float* a = sG + ((rg * PJ / kP) * C + og) * L::GS;
-      float acc[PJ] = {};
+      const float* a = sG + (((rgs * PJS) / kP) * SR + oc) * L::GS;
+      float acc[PJS] = {};
 #pragma unroll 4
       for (int c2 = 0; c2 < C; ++c2) {
         const float g = a[c2];
 #pragma unroll
-        for (int j = 0; j < PJ; ++j)
-          acc[j] = fmaf(g, sQKV[(rg * PJ + j) * L::QS + 2 * C + c2], acc[j]);
+        for (int j = 0; j < PJS; ++j)
+          acc[j] = fmaf(g, sQKV[(rgs * PJS + j) * L::QS + 2 * C + c2], acc[j]);
       }
 #pragma unroll
-      for (int j = 0; j < PJ; ++j) sX[(rg * PJ + j) * C + og] = acc[j];
+      for (int j = 0; j < PJS; ++j) sX[(rgs * PJS + j) * C + s0 + oc] = acc[j];
+      __syncthreads();   // the strip's rows are applied; sX holds them
     }
-    __syncthreads();
+    if constexpr (kStage == kLogits || kStage == kSoftmax) continue;
 
     // y = out @ Wproj^T + b, stored once
     {
@@ -682,21 +693,293 @@ window_channel_attention_mma_kernel(const bf16* __restrict__ x, const bf16* __re
 }
 
 // ---------------------------------------------------------------------------
+// bf16 at C = 256: the weights streamed
+// ---------------------------------------------------------------------------
+//
+// C = 256 (the c64 generator's down2). Wqkv and Wproj as bf16 rows are 4C x
+// (C + 8) = 541 KB, past the 227 KB a block may hold, and a warp that owned a
+// window's 16 x C strips (q, k, v, the proj's sums, a Gram strip) would hold
+// 128 fp32 values a thread in each. So a block of 8 warps takes two windows
+// at a time (32 positions, two m-tiles) through three phases, every
+// intermediate in shared memory, and the weights pass through it in tiles of
+// 64 rows (double-buffered 16-byte cp.async, one block barrier a tile, each
+// tile used by both windows; the first tile of the next pair is copied while
+// the last is used):
+//   qkv   12 tiles of Wqkv. Warp w computes 16 positions (window w / 4) x 16
+//         outputs (16 (w % 4)..) of a tile, k-steps from the staged x. q and
+//         k go to shared memory raw as hi + lo pairs and are normalized from
+//         those pairs afterwards (a warp a row: 1 / max(|u|, eps), so a zero
+//         vector stays zero) and split again; v is a pair too.
+//   Gram  each window's 16 strips of 16 query channels, 4 a warp, keys in 4
+//         chunks of 64: the scores (hi hi + hi lo + lo hi), their
+//         exponentials and at once the apply out[p][c1] += sum_c2 v[p][c2]
+//         e[c1][c2] (v and e both as pairs: three products). The
+//         exponentials are taken at the fixed shift 16 instead of the row
+//         max: qn and kn are unit vectors (or zero) at each of 16 positions,
+//         so every logit lies in [-16, 16], exp(g - 16) >= exp(-32) stays a
+//         normal fp32 value, and no running max or rescale is needed. The
+//         row sums (quad sums) divide the strip of out at the end (a shuffle
+//         brings row c1's sum to the lanes that hold column c1), and it goes
+//         to shared memory as hi + lo.
+//   proj  4 tiles of Wproj on out (hi + lo); y + bias leaves as bf16 pairs.
+// Operands rounded to bf16 inside: every one the kernel forms is a hi + lo
+// pair (q, k, qn, kn, v, the exponentials, out). With v as one term a
+// saturated window on the 64^2 grid reaches 0.83 of the bf16 bound, with the
+// pair 0.67 (devtools/serving_kernel_rounding.py).
+struct WideLayout {
+  static constexpr int C = 256;
+  static constexpr int WINDOWS = 2;             // windows a block takes at a time
+  static constexpr int ROWS = WINDOWS * kP;     // positions: two m-tiles
+  static constexpr int KT = C / 16;             // k-steps over C
+  static constexpr int TILE_ROWS = 64;          // weight rows a tile
+  static constexpr int TILES_QKV = 3 * C / TILE_ROWS, TILES = 4 * C / TILE_ROWS;
+  static constexpr int XS = C + 8;              // rows of C values: 528 bytes
+  static constexpr int QS = 2 * C + 8;          // q | k rows: 1040 bytes
+  static constexpr int CH = C / 8;              // 16-byte chunks of a row
+  static constexpr int TILE = TILE_ROWS * XS;
+  static constexpr int W = 0;                   // [2][64][XS] weight tiles
+  static constexpr int X = W + 2 * TILE;        // [32][XS] x; later out hi
+  static constexpr int OL = X + ROWS * XS;      // [32][XS] out lo
+  static constexpr int QH = OL + ROWS * XS;     // [32][QS] q | k hi
+  static constexpr int QL = QH + ROWS * QS;     // [32][QS] q | k lo
+  static constexpr int VH = QL + ROWS * QS;     // [32][XS] v hi
+  static constexpr int VL = VH + ROWS * XS;     // [32][XS] v lo
+  static constexpr int ELEMS = VL + ROWS * XS;
+  static constexpr int BYTES = ELEMS * (int)sizeof(bf16) + 4 * C * (int)sizeof(float);
+};
+
+template <bool kPacked>
+__global__ void __launch_bounds__(kThreads, 1)
+window_channel_attention_wide_kernel(const bf16* __restrict__ x, const bf16* __restrict__ wqkv,
+                                     const bf16* __restrict__ bqkv,
+                                     const bf16* __restrict__ wproj,
+                                     const bf16* __restrict__ bproj, bf16* __restrict__ y, int H,
+                                     int W, long long n_windows, float eps) {
+  using L = WideLayout;
+  constexpr int C = L::C, XS = L::XS, QS = L::QS;
+  extern __shared__ __align__(16) unsigned char smem_mma[];
+  bf16* sW = reinterpret_cast<bf16*>(smem_mma) + L::W;
+  bf16* sX = reinterpret_cast<bf16*>(smem_mma) + L::X;    // x, then out hi
+  bf16* sOL = reinterpret_cast<bf16*>(smem_mma) + L::OL;
+  bf16* sQH = reinterpret_cast<bf16*>(smem_mma) + L::QH;
+  bf16* sQL = reinterpret_cast<bf16*>(smem_mma) + L::QL;
+  bf16* sVH = reinterpret_cast<bf16*>(smem_mma) + L::VH;
+  bf16* sVL = reinterpret_cast<bf16*>(smem_mma) + L::VL;
+  float* sBias = reinterpret_cast<float*>(reinterpret_cast<bf16*>(smem_mma) + L::ELEMS);
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int g = lane >> 2, tq = lane & 3;
+  const int mt = warp >> 2, np = warp & 3;   // the products: m-tile, 16 outputs of a tile
+
+  // weight tile t into buffer t & 1: rows 64 t.. of Wqkv, then of Wproj
+  auto load_tile = [&](int t) {
+    const bf16* src = t < L::TILES_QKV ? wqkv + (long long)t * L::TILE_ROWS * C
+                                       : wproj + (long long)(t - L::TILES_QKV) * L::TILE_ROWS * C;
+    bf16* dst = sW + (t & 1) * L::TILE;
+    for (int e = tid; e < L::TILE_ROWS * L::CH; e += kThreads) {
+      const int r = e / L::CH, c = e % L::CH;
+      cp_async16(dst + r * XS + c * 8, src + r * C + c * 8);
+    }
+  };
+  for (int e = tid; e < 4 * C; e += kThreads)
+    sBias[e] = to_f(e < 3 * C ? bqkv[e] : bproj[e - 3 * C]);
+
+  const long long n_pairs = (n_windows + L::WINDOWS - 1) / L::WINDOWS;
+  if ((long long)blockIdx.x < n_pairs) load_tile(0);
+  cp_async_commit();
+  for (long long pair = blockIdx.x; pair < n_pairs; pair += gridDim.x) {
+    const long long win0 = pair * L::WINDOWS;
+    __syncthreads();   // the previous pair is done with sX (its out hi)
+    // the two windows' x, 16 bytes a copy; a window past the end as zeros
+    for (int e = tid; e < L::ROWS * L::CH; e += kThreads) {
+      const int r = e / L::CH, c = e % L::CH;
+      const long long win = win0 + r / kP;
+      const bool ok = win < n_windows;
+      cp_async16(sX + r * XS + c * 8,
+                 x + (ok ? pixel_offset<kPacked>(win, r % kP, H, W) * C + c * 8 : 0), ok);
+    }
+    cp_async_commit();
+
+#pragma unroll 1
+    for (int t = 0; t < L::TILES; ++t) {
+      cp_async_wait<0>();
+      __syncthreads();   // tile t (and x) are in; every warp is done with tile t - 1
+      if (t + 1 < L::TILES) load_tile(t + 1);
+      else if (pair + gridDim.x < n_pairs) load_tile(0);
+      cp_async_commit();
+      const bf16* tile = sW + (t & 1) * L::TILE;
+      const bool proj = t >= L::TILES_QKV;
+      // 16 positions x 16 outputs of this tile: bias, then the k-steps
+      const int o0 = (proj ? t - L::TILES_QKV : t) * L::TILE_ROWS + np * 16;
+      const float* bias = sBias + (proj ? 3 * C : 0) + o0;
+      float acc[2][4];
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        const float2 b = *reinterpret_cast<const float2*>(bias + j * 8 + 2 * tq);
+        acc[j][0] = acc[j][2] = b.x;
+        acc[j][1] = acc[j][3] = b.y;
+      }
+#pragma unroll 4
+      for (int kk = 0; kk < L::KT; ++kk) {
+        uint32_t b[4], a[4];
+        ldmatrix_x4(b, tile + (np * 16 + (lane & 7) + (lane >> 4) * 8) * XS + kk * 16 +
+                           ((lane >> 3) & 1) * 8);
+        const int aoff = (mt * 16 + (lane & 15)) * XS + kk * 16 + (lane >> 4) * 8;
+        ldmatrix_x4(a, sX + aoff);
+        mma_bf16(acc[0], a, b[0], b[1]);
+        mma_bf16(acc[1], a, b[2], b[3]);
+        if (proj) {   // out's lo part
+          ldmatrix_x4(a, sOL + aoff);
+          mma_bf16(acc[0], a, b[0], b[1]);
+          mma_bf16(acc[1], a, b[2], b[3]);
+        }
+      }
+
+      if (proj) {   // y, where the window exists
+        const long long win = win0 + mt;
+        if (win < n_windows) {
+#pragma unroll
+          for (int hh = 0; hh < 2; ++hh) {
+            bf16* row = y + pixel_offset<kPacked>(win, g + 8 * hh, H, W) * C + o0 + 2 * tq;
+#pragma unroll
+            for (int j = 0; j < 2; ++j)
+              *reinterpret_cast<uint32_t*>(row + j * 8) =
+                  pack_bf16(acc[j][2 * hh], acc[j][2 * hh + 1]);
+          }
+        }
+        continue;
+      }
+      // q and k raw into q | k, v into v, all as hi + lo
+      if (t < 2 * L::TILES_QKV / 3)
+        store_frags<2>(sQH, sQL, QS, mt * 16, o0, acc, 1.f, lane);
+      else
+        store_frags<2>(sVH, sVL, XS, mt * 16, o0 - 2 * C, acc, 1.f, lane);
+      if (t + 1 < L::TILES_QKV) continue;
+
+      // the last qkv tile: normalize every q and k row from its pair, a
+      // warp a row, 8 channels a lane, and split it again
+      __syncthreads();
+      for (int v = warp; v < 2 * L::ROWS; v += kWarps) {
+        const int off = (v >> 1) * QS + (v & 1) * C + lane * 8;
+        uint4 hu = *reinterpret_cast<const uint4*>(sQH + off);
+        uint4 lu = *reinterpret_cast<const uint4*>(sQL + off);
+        const bf16* hp = reinterpret_cast<const bf16*>(&hu);
+        const bf16* lp = reinterpret_cast<const bf16*>(&lu);
+        float u[8], ss = 0.f;
+#pragma unroll
+        for (int i = 0; i < 8; ++i) {
+          u[i] = __bfloat162float(hp[i]) + __bfloat162float(lp[i]);
+          ss = fmaf(u[i], u[i], ss);
+        }
+        const float inv = 1.f / fmaxf(sqrtf(warp_sum(ss)), eps);
+        uint32_t* ho = reinterpret_cast<uint32_t*>(&hu);
+        uint32_t* lo = reinterpret_cast<uint32_t*>(&lu);
+#pragma unroll
+        for (int i = 0; i < 4; ++i) pack_bf16_split(u[2 * i] * inv, u[2 * i + 1] * inv, ho[i], lo[i]);
+        *reinterpret_cast<uint4*>(sQH + off) = hu;
+        *reinterpret_cast<uint4*>(sQL + off) = lu;
+      }
+      __syncthreads();
+
+      // the Gram strips of window mt: 16 query channels c1 = 16 s.. each
+      const bf16* qh = sQH + mt * kP * QS;
+      const bf16* ql = sQL + mt * kP * QS;
+      const bf16* vh = sVH + mt * kP * XS;
+      const bf16* vl = sVL + mt * kP * XS;
+#pragma unroll 1
+      for (int s = np; s < C / 16; s += 4) {
+        // A[c1][p] = qn[p][c1] through ldmatrix.trans
+        uint32_t ah[4], al[4];
+        const int aoff = ((lane & 7) + (lane >> 4) * 8) * QS + s * 16 + ((lane >> 3) & 1) * 8;
+        ldmatrix_x4_trans(ah, qh + aoff);
+        ldmatrix_x4_trans(al, ql + aoff);
+        float o[2][4] = {};
+        float l0 = 0.f, l1 = 0.f;   // the row sums of rows g and g + 8
+#pragma unroll 1
+        for (int kc = 0; kc < C / 64; ++kc) {
+          float e[8][4];
+#pragma unroll
+          for (int j = 0; j < 8; ++j) e[j][0] = e[j][1] = e[j][2] = e[j][3] = 0.f;
+#pragma unroll
+          for (int nb = 0; nb < 4; ++nb) {
+            const int boff = ((lane & 7) + ((lane >> 3) & 1) * 8) * QS + C + kc * 64 + nb * 16 +
+                             (lane >> 4) * 8;
+            uint32_t bh[4], bl[4];
+            ldmatrix_x4_trans(bh, qh + boff);
+            ldmatrix_x4_trans(bl, ql + boff);
+#pragma unroll
+            for (int h = 0; h < 2; ++h) {
+              mma_bf16(e[2 * nb + h], ah, bh[2 * h], bh[2 * h + 1]);
+              mma_bf16(e[2 * nb + h], ah, bl[2 * h], bl[2 * h + 1]);
+              mma_bf16(e[2 * nb + h], al, bh[2 * h], bh[2 * h + 1]);
+            }
+          }
+#pragma unroll
+          for (int j = 0; j < 8; ++j) {
+#pragma unroll
+            for (int i = 0; i < 4; ++i) e[j][i] = __expf(e[j][i] - 16.f);   // y is bf16
+            l0 += e[j][0] + e[j][1];
+            l1 += e[j][2] + e[j][3];
+          }
+          // out[p][c1] += v[p][c2] e[c1][c2] over the chunk's 64 keys: e's C
+          // fragments are the B fragments (B[k][n] = e[n][k])
+#pragma unroll
+          for (int kk = 0; kk < 4; ++kk) {
+            uint32_t va[4], vb[4];
+            const int voff = (lane & 15) * XS + kc * 64 + kk * 16 + (lane >> 4) * 8;
+            ldmatrix_x4(va, vh + voff);
+            ldmatrix_x4(vb, vl + voff);
+#pragma unroll
+            for (int h = 0; h < 2; ++h) {
+              uint32_t h0, q0, h1, q1;
+              pack_bf16_split(e[2 * kk][2 * h], e[2 * kk][2 * h + 1], h0, q0);
+              pack_bf16_split(e[2 * kk + 1][2 * h], e[2 * kk + 1][2 * h + 1], h1, q1);
+              mma_bf16(o[h], va, h0, h1);
+              mma_bf16(o[h], va, q0, q1);
+              mma_bf16(o[h], vb, h0, h1);
+            }
+          }
+        }
+        // column c1 = 8 h + 2 tq + i of o is row c1 of the strip, whose sum
+        // lanes 4 (2 tq + i) hold (l0 for h = 0, l1 for h = 1)
+        l0 = quad_sum(l0);
+        l1 = quad_sum(l1);
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          const float r0 = 1.f / __shfl_sync(0xffffffffu, l0, 4 * (2 * tq + i));
+          const float r1 = 1.f / __shfl_sync(0xffffffffu, l1, 4 * (2 * tq + i));
+          o[0][i] *= r0;
+          o[0][i + 2] *= r0;
+          o[1][i] *= r1;
+          o[1][i + 2] *= r1;
+        }
+        store_frags<2>(sX, sOL, XS, mt * 16, s * 16, o, 1.f, lane);
+      }
+    }
+  }
+  cp_async_wait<0>();
+}
+
+// ---------------------------------------------------------------------------
 
 template <typename T, int C, bool kPacked, int kStage>
 int launch(const void* x, const void* wqkv, const void* bqkv, const void* wproj,
            const void* bproj, void* y, int H, int W, long long n_windows, float eps,
            cudaStream_t stream) {
   constexpr bool kFloat = sizeof(T) == sizeof(float);
+  constexpr bool kWide = !kFloat && C > 128;
+  static_assert(!kWide || (C == WideLayout::C && kStage == kFull), "C = 256: the op only");
   auto kernel = [] {
     if constexpr (kFloat) return window_channel_attention_f32_kernel<C, kPacked, kStage>;
+    else if constexpr (kWide) return window_channel_attention_wide_kernel<kPacked>;
     else return window_channel_attention_mma_kernel<C, kPacked, kStage>;
   }();
   // units of work a block strides over: tiles of NW windows (fp32), rounds
-  // of one window per warp (bf16)
-  constexpr int smem = kFloat ? Layout<C>::TOTAL * (int)sizeof(float) : MmaLayout<C>::BYTES;
-  constexpr int per_unit = kFloat ? Layout<C>::NW : MmaLayout<C>::WARPS;
-  constexpr int threads = kFloat ? kThreads : MmaLayout<C>::THREADS;
+  // of one window per warp (bf16), pairs of windows (bf16, C = 256)
+  constexpr int smem = kFloat  ? Layout<C>::TOTAL * (int)sizeof(float)
+                       : kWide ? WideLayout::BYTES
+                               : MmaLayout<C>::BYTES;
+  constexpr int per_unit = kFloat ? Layout<C>::NW : kWide ? WideLayout::WINDOWS : MmaLayout<C>::WARPS;
+  constexpr int threads = kFloat || kWide ? kThreads : MmaLayout<C>::THREADS;
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
   if (!kFloat && n_windows > INT_MAX - (1 << 20)) return (int)cudaErrorInvalidValue;
@@ -720,7 +1003,7 @@ int launch(const void* x, const void* wqkv, const void* bqkv, const void* wproj,
 }
 
 // C in {16, 32, 64}, the c16 generator's widths; with kAllWidths (the
-// production entry points) also 8 and 128, those of c8 and c32.
+// production entry points) also 8, 128 and 256, those of c8, c32 and c64.
 template <bool kPacked, int kStage, bool kAllWidths, typename T>
 int launch_c(const void* x, const void* wqkv, const void* bqkv, const void* wproj,
              const void* bproj, void* y, int H, int W, long long n_windows, int C,
@@ -728,6 +1011,7 @@ int launch_c(const void* x, const void* wqkv, const void* bqkv, const void* wpro
   if constexpr (kAllWidths) {
     if (C == 8) return launch<T, 8, kPacked, kStage>(x, wqkv, bqkv, wproj, bproj, y, H, W, n_windows, eps, stream);
     if (C == 128) return launch<T, 128, kPacked, kStage>(x, wqkv, bqkv, wproj, bproj, y, H, W, n_windows, eps, stream);
+    if (C == 256) return launch<T, 256, kPacked, kStage>(x, wqkv, bqkv, wproj, bproj, y, H, W, n_windows, eps, stream);
   }
   switch (C) {
     case 16: return launch<T, 16, kPacked, kStage>(x, wqkv, bqkv, wproj, bproj, y, H, W, n_windows, eps, stream);

@@ -4,7 +4,7 @@
 // Replaces ops/pallas/window_mhsa_train.py::window_mhsa_train of the JAX
 // package (its _fwd_kernel and hand-written _bwd_kernel). On a (B, H, W, 3C)
 // qkv grid with C = 32 HEADS in HEADS heads of 32 (the blocks of the c8,
-// c16 and c32 generators: C = 32, 64, 128 in 1, 2, 4 heads), per 8x8
+// c16, c32 and c64 generators: C = 32, 64, 128, 256 in 1, 2, 4, 8 heads), per 8x8
 // window of 64 tokens and per head, scale = 32^-0.5:
 //   s  = q k^T scale, minus its row max ;  p = softmax(s) ;  o = p v
 // and, given dO = d(o):
@@ -53,10 +53,10 @@
 //
 // Heads. Both designs give a block one (window, head): it stages that
 // head's 32 channels of q, k, v (and dO) alone, so the shared memory of a
-// block does not grow with the width. At dim 128 a window's qkv and dO are
-// 64 x 512 values, 128 KB in fp32, and a block still holds one head's 64 x
+// block does not grow with the width. At dim 256 a window's qkv and dO are
+// 64 x 1024 values, 256 KB in fp32, and a block still holds one head's 64 x
 // 128 of them. The kernels are instantiated per head count (HEADS = C /
-// 32: 1, 2, 4); supported() refuses any other (C, heads).
+// 32: 1, 2, 4, 8); supported() refuses any other (C, heads).
 #include <climits>
 #include <cmath>
 
@@ -433,10 +433,11 @@ int launch_bwd_bf16(const void* qkv, const void* dout, void* dqkv, long long gri
   return (int)cudaGetLastError();
 }
 
-// The blocks of the c8, c16 and c32 generators: C = 32 heads, heads of 32.
+// The blocks of the c8, c16, c32 and c64 generators: C = 32 heads, heads
+// of 32.
 bool supported(int H, int W, int C, int heads) {
-  return (heads == 1 || heads == 2 || heads == 4) && C == heads * kHd && H % kWin == 0 &&
-         W % kWin == 0;
+  return (heads == 1 || heads == 2 || heads == 4 || heads == 8) && C == heads * kHd &&
+         H % kWin == 0 && W % kWin == 0;
 }
 
 // One block per (window, head).
@@ -456,6 +457,8 @@ int fwd(const void* qkv, void* out, long long grid, int H, int W, int heads, int
                        : launch_fwd_bf16<2>(qkv, out, grid, H, W, scale, s);
     case 4: return f32 ? launch_fwd_f32<4>(qkv, out, grid, H, W, scale, s)
                        : launch_fwd_bf16<4>(qkv, out, grid, H, W, scale, s);
+    case 8: return f32 ? launch_fwd_f32<8>(qkv, out, grid, H, W, scale, s)
+                       : launch_fwd_bf16<8>(qkv, out, grid, H, W, scale, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -472,6 +475,8 @@ int bwd(const void* qkv, const void* dout, void* dqkv, long long grid, int H, in
                        : launch_bwd_bf16<2>(qkv, dout, dqkv, grid, H, W, scale, s);
     case 4: return f32 ? launch_bwd_f32<4>(qkv, dout, dqkv, grid, H, W, scale, s)
                        : launch_bwd_bf16<4>(qkv, dout, dqkv, grid, H, W, scale, s);
+    case 8: return f32 ? launch_bwd_f32<8>(qkv, dout, dqkv, grid, H, W, scale, s)
+                       : launch_bwd_bf16<8>(qkv, dout, dqkv, grid, H, W, scale, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -481,7 +486,7 @@ int bwd(const void* qkv, const void* dout, void* dqkv, long long grid, int H, in
 
 // Plain C entry points (loaded with ctypes). qkv and dqkv are (B, H, W, 3C),
 // out and dout (B, H, W, C), all contiguous and 16-byte aligned, of one type
-// (dtype 0 = fp32, 1 = bf16), with C = 32 heads in 1, 2 or 4 heads and H % 8
+// (dtype 0 = fp32, 1 = bf16), with C = 32 heads in 1, 2, 4 or 8 heads and H % 8
 // == W % 8 == 0. Each launches on `stream` and returns cudaGetLastError()
 // (0 on success); another (C, heads) returns cudaErrorInvalidValue.
 extern "C" int window_mhsa_train_fwd_launch(const void* qkv, void* out, int B, int H, int W,

@@ -21,10 +21,11 @@ compute and their gradients land in fp32.
 Routes: where autograd will need a gradient (grad mode on, and the input or
 a parameter requires grad) LocalAttention runs the 1x1 qkv conv, the
 training kernel of the mid and the 1x1 proj conv (on the card at the
-kernel's widths, ``window_attention_train.KERNEL_WIDTHS``; at C = 128 the
-JAX package's route instead, ``window_channel_attention_fast_vjp``: the
-inference kernel forward, the backward recomputed through the XLA
-formulation; any other width raises), and the transformer block its
+kernel's widths, ``window_attention_train.KERNEL_WIDTHS``, C = 8 to 64; at
+C = 128 and 256 the JAX package's route instead,
+``window_channel_attention_fast_vjp``: the inference kernel forward, the
+backward recomputed through the XLA formulation; any other width raises),
+and the transformer block its
 training body; otherwise the inference kernels run (the serving path, and
 the D-phase fakes of a train step, made under ``torch.no_grad()``). On the
 CPU every width takes the plain versions.

@@ -7,7 +7,7 @@ kernels (``packed_grouped_window_attention``, ``packed_window_attention_v3``,
 ``packed_window_attention_pallas``); on Hopper
 ``packed_window_channel_attention`` launches one kernel, the packed-row
 entry point of ``csrc/window_channel_attention.cu``, at every width the
-generators have (C = 8 to 128: 128 to 2048 lanes).
+generators have (C = 8 to 256: 128 to 4096 lanes).
 ``packed_window_channel_attention_plain`` is the port of ``ops/packed.py::packed_window_channel_attention``.
 """
 

@@ -6,7 +6,8 @@ Pallas layouts (v1, grouped, v3, dispatched by
 math (``window_attention_v4``, ``window_attention_v3_fused_io`` and the A/B
 script's ``window_attention_v6``); on Hopper one kernel,
 ``csrc/window_channel_attention.cu``, serves every width the generators
-have: C = 16, 32, 64 (c16), 8 (c8's up2) and 128 (c32's down2).
+have: C = 16, 32, 64 (c16), 8 (c8's up2), 128 (c32's down2) and 256
+(c64's down2).
 ``window_channel_attention_plain`` is the port of
 ``_attention_math`` / ``_attention_windows``
 (models/enhanced_generator.py:168-205).
@@ -28,7 +29,7 @@ from . import _build
 from ._checks import check_cuda_args, check_no_grad, dtype_code
 
 WINDOW = 4
-KERNEL_WIDTHS = (8, 16, 32, 64, 128)   # the c8, c16 and c32 generators'
+KERNEL_WIDTHS = (8, 16, 32, 64, 128, 256)   # the c8, c16, c32 and c64 generators'
 STAGE_WIDTHS = (16, 32, 64)            # the stage ablation's (c16's)
 STAGES = ("copy", "qkv", "norm", "logits", "softmax", "full")
 
@@ -48,9 +49,17 @@ def attention_launch_shape(n_windows: int, C: int, bf16: bool) -> tuple:
     unit is one window per warp of the block's 8 (3 at C = 128); the block
     holds the bf16 weights in rows of CP + 8, per warp two x buffers
     (16 x (CP + 8)) and qn | kn as hi and lo (16 x (2CP + 8) each), then
-    4CP fp32 biases and CP fp32 row sums a warp. fp32 (FMA): a unit is a
-    tile of 64 / C windows (one at C = 128); everything is fp32, and the
-    weights are staged too up to C = 64."""
+    4CP fp32 biases and CP fp32 row sums a warp. C = 256 (bf16): a unit is
+    two windows; the block holds two weight tiles of 64 rows of C + 8, the
+    two windows' x (later out hi), out lo, q | k hi and lo (rows of 2C +
+    8) and v hi and lo, then 4C fp32 biases. fp32 (FMA): a unit is a tile
+    of 64 / C windows (one at C >= 128); everything is fp32, the weights
+    are staged too up to C = 64, and the Gram is held 64 rows at a time at
+    C = 256."""
+    if bf16 and C > 128:
+        rows, xs = 32, C + 8
+        elems = 2 * 64 * xs + 4 * rows * xs + 2 * rows * (2 * C + 8)
+        return -(-n_windows // 2), 2 * elems + 4 * 4 * C
     if bf16:
         cp = max(C, 16)
         warps = 3 if C > 64 else 8
@@ -60,8 +69,9 @@ def attention_launch_shape(n_windows: int, C: int, bf16: bool) -> tuple:
     nw = max(1, 64 // C)
     rows, qs, gs = nw * 16, 3 * C + 1, C + 1
     weights = C * qs + C * gs if C <= 64 else 0
+    strip = 64 if C > 128 else C
     floats = (weights + 3 * C + C + rows * C + rows * qs + 2 * rows
-              + nw * C * gs)
+              + nw * strip * gs)
     return -(-n_windows // nw), 4 * floats
 
 

@@ -4,13 +4,15 @@ package's ``_attention_fast_vjp`` (models/enhanced_generator.py:87-112).
 JAX trains the channel attention through its hand-written kernel pair
 (``window_channel_attention_train``) only at C <= 64
 (ops/pallas/window_attention_train.py:55-64). At any other width, the c32
-generator's down2 at C = 128 among them, ``local_attention_apply(fast=
-"train")`` takes ``_attention_fast_vjp`` (:131-146): the forward is the
-inference kernel, and the backward is XLA's VJP of ``_attention_math``
-(:168-205), recomputed from the saved inputs. The port does the same:
+generator's down2 at C = 128 and the c64 generator's down1, up1 (C = 128)
+and down2 (C = 256) among them, ``local_attention_apply(fast="train")``
+takes ``_attention_fast_vjp`` (:131-146): the forward is the inference
+kernel, and the backward is XLA's VJP of ``_attention_math`` (:168-205),
+recomputed from the saved inputs. The port does the same:
 
 - the forward launches row 1's kernel, ``window_channel_attention``
-  (``csrc/window_channel_attention.cu``, built at C = 128 for serving);
+  (``csrc/window_channel_attention.cu``, built at C = 128 and 256 for
+  serving);
 - the backward recomputes ``window_channel_attention_plain``, the port of
   ``_attention_math`` (the qkv 1x1 product, the window partition, the
   zero-safe L2 normalize, the Gram, its softmax, the apply and the proj,
@@ -30,7 +32,7 @@ from .window_attention import (
     window_channel_attention, window_channel_attention_plain,
 )
 
-FAST_VJP_WIDTHS = (128,)   # LocalAttention widths that train through this route
+FAST_VJP_WIDTHS = (128, 256)   # LocalAttention widths that train through this route
 
 
 class _FastVJP(torch.autograd.Function):

@@ -26,9 +26,10 @@ as the fp32 kernel's backward does: where |q| ~ 1e-3 the gradients reach
 (``csrc/window_attention_train.cu``).
 
 The kernels take C = 8, 16, 32 and 64 (``KERNEL_WIDTHS``), the
-LocalAttention widths of the c8, c16 and c32 generators but c32's C = 128,
-which has no training kernel in the JAX package either:
-``window_attention_fast_vjp`` is its route.
+LocalAttention widths of the c8, c16, c32 and c64 generators but C = 128
+(c32's down2, c64's down1 and up1) and 256 (c64's down2), which have no
+training kernel in the JAX package either: ``window_attention_fast_vjp``
+is their route.
 """
 
 from __future__ import annotations

@@ -17,8 +17,9 @@ Per window and head (window_mhsa_train.py:21-28), scale = hd^-0.5:
 The plain backward writes these formulas out; it is not autograd of the
 plain forward.
 
-The kernels take the blocks of the c8, c16 and c32 generators: C = 32, 64
-and 128 (``KERNEL_WIDTHS``) in C / 32 heads of 32 (``kernel_heads``).
+The kernels take the blocks of the c8, c16, c32 and c64 generators: C =
+32, 64, 128 and 256 (``KERNEL_WIDTHS``) in C / 32 heads of 32
+(``kernel_heads``).
 """
 
 from __future__ import annotations
@@ -30,7 +31,7 @@ from ._checks import check_cuda_args, dtype_code
 from .window_attention_train import window_merge, window_partition
 
 WINDOW = 8
-KERNEL_WIDTHS = (32, 64, 128)   # each in kernel_heads(C) = C / 32 heads
+KERNEL_WIDTHS = (32, 64, 128, 256)   # each in kernel_heads(C) = C / 32 heads
 
 
 def kernel_heads(C: int) -> int:

@@ -37,7 +37,7 @@ def _served(channels: int) -> bool:
             and fused_transformer.default_num_heads(dim) == dim // 32)
 
 
-SERVED_CHANNELS = tuple(c for c in range(1, 257) if _served(c))   # (8, 16, 32)
+SERVED_CHANNELS = tuple(c for c in range(1, 257) if _served(c))   # (8, 16, 32, 64)
 
 
 def check_serving_width(channels: int) -> None:

@@ -10,8 +10,9 @@ CycleGAN trainer's ``--pretrained`` warm start transfers every tensor (the
 reference's plain -> enhanced warm start matches no key). Under autograd
 the EnhancedGenerator runs the hand-written training kernels on the card
 (``ops.kernels.window_channel_attention_train``, ``window_mhsa_train``;
-at C = 128 the JAX package's route, ``window_channel_attention_fast_vjp``),
-which take the c8, c16 and c32 widths (``check_kernel_width``).
+at C = 128 and 256 the JAX package's route,
+``window_channel_attention_fast_vjp``), which take the c8, c16, c32 and
+c64 widths (``check_kernel_width``): c64 is the pretrain CLI's default.
 
 Precision follows the JAX dtype policy: parameters and Adam stay fp32, the
 generator runs in ``compute_dtype`` with its weights cast at use, BatchNorm
@@ -73,8 +74,8 @@ def check_kernel_width(channels: int,
     its widths are built: LocalAttention at C, 2C and 4C each in the
     training kernel's widths or on the inference-kernel route
     (``FAST_VJP_WIDTHS``), and the transformer block at 4C with
-    ``default_num_heads(4C)`` heads in the window-MHSA kernel's. So c8, c16
-    and c32 train. Raises otherwise: there is no plain fallback on the
+    ``default_num_heads(4C)`` heads in the window-MHSA kernel's. So c8, c16,
+    c32 and c64 train. Raises otherwise: there is no plain fallback on the
     card. ``what`` names the caller in the message. The widths are the
     training routes' own, not the serving kernels'."""
     attention = set(KERNEL_WIDTHS) | set(FAST_VJP_WIDTHS)

@@ -250,11 +250,11 @@ def fakes(monkeypatch):
 
 @pytest.mark.parametrize("C,route", [(8, "train"), (16, "train"),
                                      (64, "train"), (128, "fast_vjp"),
-                                     (12, None), (256, None)])
+                                     (12, None), (256, "fast_vjp")])
 def test_local_attention_routes_by_width_off_the_cpu(fakes, C, route):
     """Under grad on a tensor off the CPU (meta: the wrappers' own device
-    checks never run), C in row 11's widths takes its mid, C = 128 the
-    fast-VJP Function, any other width raises before a launch."""
+    checks never run), C in row 11's widths takes its mid, C = 128 and 256
+    the fast-VJP Function, any other width raises before a launch."""
     m = LocalAttention(C).to("meta")
     x = torch.zeros(1, C, 8, 8, device="meta", requires_grad=True)
     if route is None:
