@@ -13,8 +13,9 @@ path (metrics, folder comparisons, FID on a full-width InceptionV3), the
 GUI's tab workers and the checkpoint tools, the VGG16 perceptual + Gram
 loss in the train step, the c8, c32 and c64 EnhancedGenerators on the
 serving kernels' other widths and trained (CycleGAN and enhanced
-pretraining, c64 also through the pretrain CLI's defaults), and checks
-every hand-written kernel on the way:
+pretraining, c64 also through the pretrain CLI's defaults), the c24, c40,
+c48 and c56 ones, which run padded inside the kernels, and checks every
+hand-written kernel on the way:
 
 1. build: all six CUDA sources compile from ``csrc/`` at once, one nvcc
    each;
@@ -148,10 +149,30 @@ every hand-written kernel on the way:
     the CLI chain ``pretrain --model enhanced`` (no ``--channels``),
     ``train --channels 64`` fresh and ``--pretrained`` on that checkpoint,
     and ``batch_process`` on the trained G_AB; the route's share of a c64
-    step.
+    step;
+19. the widths that run padded (``GRID_CHANNELS``: c24, c40, c48, c56;
+    their kernel phases beside the other width phases, the grid serving
+    path after the c64 serving path, the grid training path after the c64
+    training path, on their own rngs): the attention (both layouts, C = 24
+    .. 224 inside the layouts of 32, 64, 128 and 256 channels), the block
+    at dims 96, 160, 192 and 224 (3, 5, 6, 7 heads), the relayout, and row
+    12 at 3, 5, 6 and 7 heads, kernel vs plain at each width's canvas-256
+    shapes on the stress inputs (the attention also at its canvas-512
+    down2, the largest window count at its widest C); the fast-VJP route,
+    which takes all four LocalAttention calls of these generators under
+    grad, at c24's and c48's shapes (card vs CPU at their down2, timed at
+    all); c24 and c48 at full width as c8 and c32 are (served on both
+    engines, fp32 card vs CPU, bf16 img/s, ``batch_process``; the bf16
+    CycleGAN step with its launches, ms/step, idle share and peak memory,
+    the fp32 step card vs CPU, the enhanced pretrain step), c48 also
+    through the batch CLI, the server, ``direct_transform`` and ``train
+    --channels 48``, c24 through ``pretrain --model enhanced``; c40 and
+    c56 small (the fp32 program at 64^2 on both engines, one fp32 CycleGAN
+    step and two fp32 pretrain steps at 128^2, card vs CPU); c4, c12 and
+    c72 refused; the route's share of the c24 and c48 steps.
 
 Every phase raises on failure. The last line is the result JSON; the line
-before it lists each kernel with its launches on the twelve paths (launch
+before it lists each kernel with its launches on the fourteen paths (launch
 counts are reset just before each path and read just after), its largest
 fp32 deviation from the plain version, its time beside the plain
 version's (the serving and training rows also per generator width,
@@ -297,12 +318,22 @@ PERCEPTUAL_RTOL = 1e-4
 # default width) its own path: LocalAttention at C = 256 and the block at
 # 256 channels in 8 heads. The fp32 card-vs-CPU program runs on
 # WIDTH_CPU_BATCH images of the width (the c64 packed engine's repacked
-# weights are 2.37 GB in fp32 on the CPU), the folder through
+# weights are 2.37 GB in fp32 on the CPU; c8 and c32 on 2 images, which
+# keeps the whole run near half its time limit), the folder through
 # batch_process holds WIDTH_FOLDER_IMAGES.
-GENERATOR_CHANNELS = (8, 16, 32, 64)
+GENERATOR_CHANNELS = (8, 16, 24, 32, 40, 48, 56, 64)
 WIDTH_CHANNELS = (8, 32)
 C64_CHANNELS = (64,)
-WIDTH_CPU_BATCH = {8: 4, 32: 4, 64: 1}
+# the widths that run padded inside the kernels (the attention at C, 2C, 4C
+# in the next power-of-two layout, the block at 4C in the dim-128 or dim-256
+# design): c24 and c48 at full width, c40 and c56 small (GRID_SMALL_SIZE)
+GRID_CHANNELS = (24, 40, 48, 56)
+GRID_FULL_CHANNELS = (24, 48)
+GRID_SMALL_CHANNELS = (40, 56)
+GRID_SMALL_SIZE = 64
+ENTRY_CHANNELS = (48, 64)     # also through the batch CLI, server, direct_transform
+REFUSED_CHANNELS = (4, 12, 72)
+WIDTH_CPU_BATCH = {8: 2, 32: 2, 64: 1, 24: 2, 48: 1, 40: 2, 56: 2}
 WIDTH_FOLDER_IMAGES = 6
 # the c8, c32 and c64 generators trained: launches per bf16 CycleGAN step (pair
 # batching, remat off; 4 generator forwards with grad, 2 under no_grad) and
@@ -320,6 +351,13 @@ WIDTH_TRAIN_LAUNCHES_PER_STEP = {
     64: {"window_attention_mid_fwd": 4, "window_attention_mid_bwd": 4,
          "window_mhsa_fwd": 4, "window_mhsa_bwd": 4,
          "window_channel_attention": 20, "fused_structural_block": 2}}
+# c24 .. c56 train every LocalAttention call (C, 2C, 4C: none in row 11's
+# widths) through the route: 16 a step beside the D phase's 8, no row 11
+for _c in GRID_CHANNELS:
+    WIDTH_TRAIN_LAUNCHES_PER_STEP[_c] = {
+        "window_attention_mid_fwd": 0, "window_attention_mid_bwd": 0,
+        "window_mhsa_fwd": 4, "window_mhsa_bwd": 4,
+        "window_channel_attention": 24, "fused_structural_block": 2}
 WIDTH_PRETRAIN_LAUNCHES_PER_STEP = {
     8: PRETRAIN_LAUNCHES_PER_STEP,
     32: {"window_attention_mid_fwd": 3, "window_attention_mid_bwd": 3,
@@ -328,12 +366,23 @@ WIDTH_PRETRAIN_LAUNCHES_PER_STEP = {
     64: {"window_attention_mid_fwd": 1, "window_attention_mid_bwd": 1,
          "window_mhsa_fwd": 1, "window_mhsa_bwd": 1,
          "window_channel_attention": 3, "fused_structural_block": 0}}
+for _c in GRID_CHANNELS:
+    WIDTH_PRETRAIN_LAUNCHES_PER_STEP[_c] = {
+        "window_attention_mid_fwd": 0, "window_attention_mid_bwd": 0,
+        "window_mhsa_fwd": 1, "window_mhsa_bwd": 1,
+        "window_channel_attention": 4, "fused_structural_block": 0}
 # c32's down2 under grad: the fast-VJP route at its 256^2, batch-8 shape;
 # c64's down2 (C = 256, checked card vs CPU and timed) and down1 and up1
 # (C = 128 on 128^2, timed); the fp32 backward of the channel-attention mid
 # on more draws of the small q, k input at each width's shapes
 FAST_VJP_SHAPE = (TRAIN_BATCH, 64, 64, 128)
 C64_FAST_VJP_SHAPES = ((TRAIN_BATCH, 64, 64, 256), (TRAIN_BATCH, 128, 128, 128))
+# c24's and c48's LocalAttention shapes under grad, all on the route: up2,
+# down1 / up1, down2 (checked card vs CPU at down2)
+GRID_FAST_VJP_SHAPES = {c: ((TRAIN_BATCH, 256, 256, c),
+                            (TRAIN_BATCH, 128, 128, 2 * c),
+                            (TRAIN_BATCH, 64, 64, 4 * c))
+                        for c in GRID_FULL_CHANNELS}
 SMALL_QK_DRAWS = 3
 WIDTH_TRAIN_SIZE = 256   # the bf16 steps' images
 
@@ -2802,7 +2851,8 @@ def width_checkpoint(path, channels):
 def phase_width_kernels(rng, dev, widths=WIDTH_CHANNELS):
     """Rows 1-7 (the attention, NHWC and packed), 9 (the relayout) and 4 (the
     block) at the shapes of one canvas-256 forward of each generator of
-    ``widths`` (c8 and c32; c64 on its own path): the attention and the
+    ``widths`` (c8 and c32; c64 and the padded ``GRID_CHANNELS`` on their
+    own paths, the latter also at their canvas-512 down2): the attention and the
     block kernel vs plain, fp32 (TF32 off)
     and bf16, on the stress inputs of ``attention_stress_inputs`` and
     ``block_stress_inputs`` (one all-zero window each; the block also on a
@@ -2825,6 +2875,10 @@ def phase_width_kernels(rng, dev, widths=WIDTH_CHANNELS):
     for channels in widths:
         rec = out[channels] = {}
         shapes = [s for _, s in attention_shapes(canvas, channels)]
+        # a width that runs padded is also checked at its canvas-512 down2,
+        # the largest window count at its widest C
+        checked = shapes + ([dict(attention_shapes(CANVASES[1], channels))[
+            "down2"]] if channels in GRID_CHANNELS else [])
         for name, fn, plain, packed in (
                 ("window_channel_attention", window_channel_attention,
                  window_channel_attention_plain, False),
@@ -2832,7 +2886,7 @@ def phase_width_kernels(rng, dev, widths=WIDTH_CHANNELS):
                  packed_window_channel_attention,
                  packed_window_channel_attention_plain, True)):
             times, worst = {}, {torch.float32: 0.0, torch.bfloat16: 0.0}
-            for shape in dict.fromkeys(shapes):
+            for shape in dict.fromkeys(checked):
                 for label, x, ws in attention_stress_inputs(rng, shape,
                                                             packed=packed):
                     for dtype in (torch.float32, torch.bfloat16):
@@ -2849,7 +2903,8 @@ def phase_width_kernels(rng, dev, widths=WIDTH_CHANNELS):
                               and bool(torch.isfinite(zero).all()))
                         line = (f"[widths] c{channels} {name} {shape} {label} "
                                 f"{str(dtype)[6:]}: max|d| {err:.3e}")
-                        if label == "random" and dtype == torch.bfloat16:
+                        if (label == "random" and dtype == torch.bfloat16
+                                and shape in shapes):
                             k_ms, p_ms = time_pair(lambda: fn(*args),
                                                    lambda: plain(*args))
                             d_ms = device_ms(lambda: fn(*args))
@@ -2927,6 +2982,77 @@ def phase_width_kernels(rng, dev, widths=WIDTH_CHANNELS):
     return out
 
 
+def program_card_vs_cpu(tag, gpu, cpu, batch, counts, dev):
+    """The fp32 uint8 program of the loaded generators ``gpu`` (on the card)
+    and ``cpu`` on ``batch`` with each engine: at most U8_MAX_DIFF levels
+    on U8_MAX_SHARE of the values, FORWARD_LAUNCHES per forward. Returns
+    {engine: the card's output}."""
+    from multi_style_transfer_gan_tpu_torch.pipelines import make_batch_fn
+
+    names = ("window_channel_attention", "fused_structural_block",
+             "packed_window_channel_attention", "window_relayout")
+    outs = {}
+    for engine in ENGINES:
+        before = counts()
+        got = outs[engine] = make_batch_fn(
+            gpu, "cyclegan", engine=engine, device=dev)(batch).cpu().numpy()
+        launched = [counts()[n] - before[n] for n in names]
+        ref = make_batch_fn(cpu, "cyclegan", engine=engine,
+                            device="cpu")(batch).numpy()
+        dmax, share = u8_diff(got, ref)
+        log(f"{tag} {engine} fp32 card vs CPU, {batch.shape} uint8: max diff "
+            f"{dmax}, differing share {share:.3e}; launches per forward (NHWC "
+            f"attention, block, packed attention, relayout): {launched}")
+        if launched != FORWARD_LAUNCHES[engine]:
+            raise AssertionError(f"{tag} {engine}: expected launches "
+                                 f"{FORWARD_LAUNCHES[engine]}, got {launched}")
+        if (got.shape != batch.shape or dmax > U8_MAX_DIFF
+                or share > U8_MAX_SHARE):
+            raise AssertionError(f"{tag} {engine} fp32 program on the card "
+                                 f"disagrees with the CPU")
+    return outs
+
+
+def stylize_folder(rng, model, dev, work, name, tag):
+    """``batch_process`` (bf16, batch 4) with ``model`` on a folder of
+    WIDTH_FOLDER_IMAGES JPEGs of mixed sizes under ``work``; every output
+    must come back at its image's size. Returns (the folder, {file:
+    size})."""
+    import contextlib
+
+    import torch
+    from PIL import Image
+
+    from multi_style_transfer_gan_tpu_torch.pipelines import batch_process
+
+    src = os.path.join(work, f"{name}_in")
+    dst = os.path.join(work, f"{name}_out")
+    os.makedirs(src)
+    sizes = {}
+    for i in range(WIDTH_FOLDER_IMAGES):
+        w, h = int(rng.integers(96, 480)), int(rng.integers(96, 480))
+        file = f"photo_{i:02d}.jpg"
+        Image.fromarray(smooth_images(rng, 1, (w, h))[0]).save(
+            os.path.join(src, file), quality=92)
+        sizes[file] = (w, h)
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        stats = batch_process(model, src, dst, batch_size=4,
+                              compute_dtype=torch.bfloat16, device=dev)
+    done = 0
+    for file, size in sizes.items():
+        target = os.path.join(dst, "cyclegan_photo2monet", file)
+        if os.path.exists(target):
+            with Image.open(target) as img:
+                done += img.size == size
+    log(f"{tag} batch_process: {done}/{len(sizes)} outputs at their original "
+        f"sizes; stats {stats}")
+    if done != len(sizes):
+        raise AssertionError(f"{tag} batch_process wrote {done}/{len(sizes)} "
+                             f"correct outputs")
+    return src, sizes
+
+
 def phase_width_serving(rng, dev, counts, work, widths=WIDTH_CHANNELS,
                         refuse=True):
     """The generators of ``widths`` (c8 and c32; c64 on its own path)
@@ -2938,22 +3064,19 @@ def phase_width_serving(rng, dev, counts, work, widths=WIDTH_CHANNELS,
     engine), packed vs NHWC on the card; the bf16 program's img/s of both
     engines at canvas 256, batch ``RATE_BATCHES``, in turns;
     ``batch_process`` at the widest on a folder of ``WIDTH_FOLDER_IMAGES``
-    JPEGs of mixed sizes, and at c64 the batch CLI, the server and
-    ``direct_transform`` too (``serve_entry_points``). Then, with
-    ``refuse``, the widths the kernels are
-    not built for: a c4 and a c12 checkpoint raise at ``load_generator``
-    on the card, and the train CLI at ``--channels 12`` raises before its
-    first step. Returns {channels: {"parameters", "rates", "weights_gib",
-    "launches"}}: weights_gib the device memory of each bf16 engine's
-    weights, launches the counts this generator's part of the path made."""
-    import contextlib
-
+    JPEGs of mixed sizes, and at ``ENTRY_CHANNELS`` (c48, c64) the batch
+    CLI, the server and ``direct_transform`` too (``serve_entry_points``).
+    Then, with ``refuse``, the widths the kernels are not built for: a c4, a
+    c12 and a c72 checkpoint raise at ``load_generator`` on the card, and
+    the train CLI at ``--channels 12`` raises before its first step.
+    Returns {channels: {"parameters", "rates", "weights_gib", "launches"}}:
+    weights_gib the device memory of each bf16 engine's weights, launches
+    the counts this generator's part of the path made."""
     import torch
-    from PIL import Image
 
     from multi_style_transfer_gan_tpu_torch.cli import train as train_cli
     from multi_style_transfer_gan_tpu_torch.pipelines import (
-        batch_process, load_generator, make_batch_fn,
+        load_generator, make_batch_fn,
     )
 
     names = ("window_channel_attention", "fused_structural_block",
@@ -2970,27 +3093,8 @@ def phase_width_serving(rng, dev, counts, work, widths=WIDTH_CHANNELS,
             f"{n_params} parameters, {path}")
         batch = np.stack(smooth_images(rng, WIDTH_CPU_BATCH[channels],
                                        (canvas, canvas)))
-        outs = {}
-        for engine in ENGINES:
-            before = counts()
-            got = outs[engine] = make_batch_fn(
-                gpu, "cyclegan", engine=engine, device=dev)(batch).cpu().numpy()
-            launched = [counts()[n] - before[n] for n in names]
-            ref = make_batch_fn(cpu, "cyclegan", engine=engine,
-                                device="cpu")(batch).numpy()
-            dmax, share = u8_diff(got, ref)
-            log(f"[width serving] c{channels} {engine} fp32 card vs CPU, "
-                f"{batch.shape} uint8: max diff {dmax}, differing share "
-                f"{share:.3e}; launches per forward (NHWC attention, block, "
-                f"packed attention, relayout): {launched}")
-            if launched != FORWARD_LAUNCHES[engine]:
-                raise AssertionError(f"c{channels} {engine}: expected "
-                                     f"launches {FORWARD_LAUNCHES[engine]}, "
-                                     f"got {launched}")
-            if (got.shape != batch.shape or dmax > U8_MAX_DIFF
-                    or share > U8_MAX_SHARE):
-                raise AssertionError(f"c{channels} {engine} fp32 program on "
-                                     f"the card disagrees with the CPU")
+        outs = program_card_vs_cpu(f"[width serving] c{channels}", gpu, cpu,
+                                   batch, counts, dev)
         dmax, share = u8_diff(outs["packed"], outs["nhwc"])
         log(f"[width serving] c{channels} fp32 packed vs NHWC engine on the "
             f"card: max diff {dmax}, differing share {share:.3e}")
@@ -3023,35 +3127,11 @@ def phase_width_serving(rng, dev, counts, work, widths=WIDTH_CHANNELS,
                 f"{turns['packed']}")
 
         if channels == max(widths):
-            src = os.path.join(work, f"widths_in_c{channels}")
-            dst = os.path.join(work, f"widths_out_c{channels}")
-            os.makedirs(src)
-            sizes = {}
-            for i in range(WIDTH_FOLDER_IMAGES):
-                w, h = int(rng.integers(96, 480)), int(rng.integers(96, 480))
-                name = f"photo_{i:02d}.jpg"
-                Image.fromarray(smooth_images(rng, 1, (w, h))[0]).save(
-                    os.path.join(src, name), quality=92)
-                sizes[name] = (w, h)
-            buf = io.StringIO()
-            with contextlib.redirect_stdout(buf):
-                stats = batch_process(gpu, src, dst, batch_size=4,
-                                      compute_dtype=torch.bfloat16,
-                                      device=dev)
-            done = 0
-            for name, size in sizes.items():
-                target = os.path.join(dst, "cyclegan_photo2monet", name)
-                if os.path.exists(target):
-                    with Image.open(target) as img:
-                        done += img.size == size
-            log(f"[width serving] c{channels} batch_process: {done}/"
-                f"{len(sizes)} outputs at their original sizes; stats "
-                f"{stats}")
-            if done != len(sizes):
-                raise AssertionError(f"batch_process at c{channels} wrote "
-                                     f"{done}/{len(sizes)} correct outputs")
-            if channels in C64_CHANNELS:
-                serve_entry_points(rng, dev, path, src, sizes, work)
+            src, sizes = stylize_folder(rng, gpu, dev, work,
+                                        f"widths_c{channels}",
+                                        f"[width serving] c{channels}")
+            if channels in ENTRY_CHANNELS:
+                serve_entry_points(rng, dev, path, src, sizes, work, channels)
         end = counts()
         out[channels] = {"parameters": n_params, "rates": rates,
                          "weights_gib": held,
@@ -3061,7 +3141,7 @@ def phase_width_serving(rng, dev, counts, work, widths=WIDTH_CHANNELS,
         return out
 
     # no fallback: what the kernels are not built for raises up front
-    for channels in (4, 12):
+    for channels in REFUSED_CHANNELS:
         path = os.path.join(work, f"enhanced_c{channels}.pth")
         width_checkpoint(path, channels)
         try:
@@ -3087,7 +3167,7 @@ def phase_width_serving(rng, dev, counts, work, widths=WIDTH_CHANNELS,
     return out
 
 
-def serve_entry_points(rng, dev, path, src, sizes, work):
+def serve_entry_points(rng, dev, path, src, sizes, work, channels):
     """The generator at ``path`` through the user's serving entry points on
     the card: the batch CLI (``--engine auto``, bf16, batch 4) on the folder
     ``src`` (its images' ``sizes``), the HTTP server (NHWC engine) answering
@@ -3104,11 +3184,11 @@ def serve_entry_points(rng, dev, path, src, sizes, work):
 
     sd = torch.load(path, map_location="cpu", weights_only=True)[
         "G_AB_state_dict"]
-    models = os.path.join(work, "entry_models")
+    models = os.path.join(work, f"entry_models_c{channels}")
     os.makedirs(models)
     torch.save({"G_AB_state_dict": sd, "G_BA_state_dict": sd},
                os.path.join(models, "cyclegan_epoch_200.pth"))
-    out = os.path.join(work, "entry_out")
+    out = os.path.join(work, f"entry_out_c{channels}")
     buf = io.StringIO()
     with contextlib.redirect_stdout(buf):
         rc = batch_process_images.main([
@@ -3121,14 +3201,15 @@ def serve_entry_points(rng, dev, path, src, sizes, work):
         if os.path.exists(target):
             with Image.open(target) as img:
                 done += img.size == size
-    log(f"[entry points] batch CLI: exit {rc}, {done}/{len(sizes)} outputs "
-        f"at their original sizes; " + " | ".join(buf.getvalue().splitlines()))
+    log(f"[entry points] c{channels} batch CLI: exit {rc}, {done}/{len(sizes)} "
+        f"outputs at their original sizes; "
+        + " | ".join(buf.getvalue().splitlines()))
     if rc != 0 or done != len(sizes):
         raise AssertionError(f"the batch CLI exited {rc} with {done}/"
                              f"{len(sizes)} correct outputs")
     phase_server(rng, dev, "nhwc", model_path=path)
-    photo = os.path.join(work, "entry_photo.png")
-    result = os.path.join(work, "entry_direct.png")
+    photo = os.path.join(work, f"entry_photo_c{channels}.png")
+    result = os.path.join(work, f"entry_direct_c{channels}.png")
     Image.fromarray(smooth_images(rng, 1, (400, 300))[0]).save(photo)
     buf = io.StringIO()
     saved, direct_transform.DEVICE = direct_transform.DEVICE, dev.type
@@ -3142,7 +3223,7 @@ def serve_entry_points(rng, dev, path, src, sizes, work):
     if os.path.exists(result):
         with Image.open(result) as img:
             size = img.size
-    log(f"[entry points] direct_transform: exit {rc}, output size {size}; "
+    log(f"[entry points] c{channels} direct_transform: exit {rc}, output size {size}; "
         + " | ".join(buf.getvalue().splitlines()))
     if rc != 0 or size != (256, 256):   # its --size default
         raise AssertionError(f"direct_transform exited {rc}, wrote {size}")
@@ -3154,8 +3235,8 @@ def serve_entry_points(rng, dev, path, src, sizes, work):
 
 def phase_width_train_kernels(rng, dev, widths=WIDTH_CHANNELS):
     """Rows 11 and 12 at the shapes of a bf16 train step of the generators
-    of ``widths`` (c8 and c32; c64 on its own path;
-    ``width_train_kernel_cases``): forward and backward kernel
+    of ``widths`` (c8 and c32; c64 and the padded widths on their own paths,
+    the latter row 12 only; ``width_train_kernel_cases``): forward and backward kernel
     vs plain, fp32 (TF32 off) and bf16, on the three inputs of
     ``train_kernel_inputs`` (one all-zero window each), plus the fp32
     backward of row 11 on SMALL_QK_DRAWS more draws of the small-q, k input
@@ -3194,15 +3275,17 @@ def phase_width_train_kernels(rng, dev, widths=WIDTH_CHANNELS):
                         worst[name][torch.float32], derr)
         cases = width_train_kernel_cases(channels)
         att = [(st, shape) for n, st, shape, _ in cases if n == "attention"]
-        ms = [sum(per_fwd[st] * times[("attention", st)][i] for st, _ in att)
-              for i in range(5)]
-        shapes = [shape for st, shape in att for _ in range(per_fwd[st])]
-        b_ms, b_by = bound(*train_mid_work(shapes))
-        rec["window_attention_train"] = dict(
-            ms=ms[0], plain_ms=ms[1], sdpa_mid_ms=ms[2], device_ms=ms[3],
-            library_ms=None, bound_ms=b_ms, bound_by=b_by,
-            max_abs_err=worst["attention"][torch.float32],
-            max_abs_err_bf16=worst["attention"][torch.bfloat16], shapes=shapes)
+        if att:   # none at the padded widths: their attention takes the route
+            ms = [sum(per_fwd[st] * times[("attention", st)][i]
+                      for st, _ in att) for i in range(5)]
+            shapes = [shape for st, shape in att for _ in range(per_fwd[st])]
+            b_ms, b_by = bound(*train_mid_work(shapes))
+            rec["window_attention_train"] = dict(
+                ms=ms[0], plain_ms=ms[1], sdpa_mid_ms=ms[2], device_ms=ms[3],
+                library_ms=None, bound_ms=b_ms, bound_by=b_by,
+                max_abs_err=worst["attention"][torch.float32],
+                max_abs_err_bf16=worst["attention"][torch.bfloat16],
+                shapes=shapes)
         _, _, shape, heads = cases[-1]
         mh = times[("mhsa", "block")]
         b_ms, b_by = bound(*mhsa_work(shape, heads))
@@ -3384,9 +3467,8 @@ def train_width(rng, dev, counts, channels, gen, pretrain_batch=TRAIN_BATCH):
     import torch
 
     from multi_style_transfer_gan_tpu_torch.data import random_patch_mask
-    from multi_style_transfer_gan_tpu_torch.ops import to_model_range
     from multi_style_transfer_gan_tpu_torch.train import (
-        cyclegan_init_state, pretrain_init_state, pretrain_train_step,
+        cyclegan_init_state, pretrain_init_state,
     )
     from multi_style_transfer_gan_tpu_torch.train.perceptual import (
         make_extra_g_loss, vgg16_from_torchvision_sd,
@@ -3456,6 +3538,25 @@ def train_width(rng, dev, counts, channels, gen, pretrain_batch=TRAIN_BATCH):
     pre = time_pretrain(pstep, f"c{channels} enhanced bf16 {size}^2 "
                         f"batch {pretrain_batch}", pretrain_batch)
     del state, pstep
+    fp32_pretrain_card_vs_cpu(rng, dev, channels, gen, tag)
+    end = counts()
+    return {"step_ms": ms, "step_device_ms": step_dev, "step_idle": idle,
+            "step_peak_gib": peak, "pretrain": pre,
+            "launches": {n: end[n] - start[n] for n in end}}
+
+
+def fp32_pretrain_card_vs_cpu(rng, dev, channels, gen, tag):
+    """Two fp32 enhanced pretrain steps at ``channels`` (128^2, batch 2) on
+    the card and on the CPU from the same init, images and masks: the
+    losses, relative, at PRETRAIN_FP32_RTOL."""
+    import torch
+
+    from multi_style_transfer_gan_tpu_torch.data import random_patch_mask
+    from multi_style_transfer_gan_tpu_torch.ops import to_model_range
+    from multi_style_transfer_gan_tpu_torch.train import (
+        pretrain_init_state, pretrain_train_step,
+    )
+
     host = [torch.from_numpy(np.stack(smooth_images(rng, 2, (128, 128))))
             for _ in range(2)]
     hmasks = [random_patch_mask(2, 128, generator=gen, device="cpu")
@@ -3474,10 +3575,6 @@ def train_width(rng, dev, counts, channels, gen, pretrain_batch=TRAIN_BATCH):
     if rel > PRETRAIN_FP32_RTOL:
         raise AssertionError(f"{tag}: fp32 pretrain steps, card and CPU "
                              f"disagree")
-    end = counts()
-    return {"step_ms": ms, "step_device_ms": step_dev, "step_idle": idle,
-            "step_peak_gib": peak, "pretrain": pre,
-            "launches": {n: end[n] - start[n] for n in end}}
 
 
 def run_cli(fn, argv, what):
@@ -3514,8 +3611,8 @@ def phase_width_train(rng, dev, counts, work):
     (``train_width`` for each); the train CLI at --channels 32 and the
     pretrain CLI at --model enhanced --channels 8, one epoch each on a small
     folder; one fp32 step with ``fast_attention=False`` (the CLI's
-    --no_fast_attention) card vs CPU at c8 with no kernel launch; c4 and
-    c12 refused before any work. Returns {channels: train_width's
+    --no_fast_attention) card vs CPU at c8 with no kernel launch; c4, c12
+    and c72 refused before any work. Returns {channels: train_width's
     record}."""
     import torch
 
@@ -3554,7 +3651,7 @@ def phase_width_train(rng, dev, counts, work):
     if launched:
         raise AssertionError(f"the fast_attention=False step launched "
                              f"{launched} kernels")
-    for channels in (4, 12):
+    for channels in REFUSED_CHANNELS:
         before = counts()
         try:
             check_kernel_width(channels, "CycleGAN training")
@@ -3578,17 +3675,12 @@ def phase_c64_train(rng, dev, counts, work):
     that checkpoint (every tensor of both generators warm-started), and
     ``batch_process`` with the trained G_AB through ``load_generator``
     (``--engine auto``, bf16). Returns train_width's record."""
-    import contextlib
-
     import torch
-    from PIL import Image
 
     from multi_style_transfer_gan_tpu_torch.cli import pretrain as pretrain_cli
     from multi_style_transfer_gan_tpu_torch.cli import train as train_cli
     from multi_style_transfer_gan_tpu_torch.models import EnhancedGenerator
-    from multi_style_transfer_gan_tpu_torch.pipelines import (
-        batch_process, load_generator,
-    )
+    from multi_style_transfer_gan_tpu_torch.pipelines import load_generator
 
     channels = C64_CHANNELS[0]
     gen = torch.Generator().manual_seed(SEED + channels)
@@ -3626,31 +3718,92 @@ def phase_c64_train(rng, dev, counts, work):
                              f"tensors")
     model = load_generator(os.path.join(models, "G_AB_epoch_1.pth"),
                            device=dev)
-    src = os.path.join(work, "c64_in")
-    dst = os.path.join(work, "c64_out")
-    os.makedirs(src)
-    sizes = {}
-    for i in range(WIDTH_FOLDER_IMAGES):
-        w, h = int(rng.integers(96, 480)), int(rng.integers(96, 480))
-        name = f"photo_{i:02d}.jpg"
-        Image.fromarray(smooth_images(rng, 1, (w, h))[0]).save(
-            os.path.join(src, name), quality=92)
-        sizes[name] = (w, h)
-    buf = io.StringIO()
-    with contextlib.redirect_stdout(buf):
-        stats = batch_process(model, src, dst, batch_size=4,
-                              compute_dtype=torch.bfloat16, device=dev)
-    done = 0
-    for name, size in sizes.items():
-        target = os.path.join(dst, "cyclegan_photo2monet", name)
-        if os.path.exists(target):
-            with Image.open(target) as img:
-                done += img.size == size
-    log(f"[c64 train] batch_process with the trained c{model.channels} G_AB: "
-        f"{done}/{len(sizes)} outputs at their original sizes; stats {stats}")
-    if model.channels != channels or done != len(sizes):
-        raise AssertionError(f"batch_process with the trained c64 G_AB wrote "
-                             f"{done}/{len(sizes)} correct outputs")
+    if model.channels != channels:
+        raise AssertionError(f"the train CLI wrote a c{model.channels} G_AB")
+    stylize_folder(rng, model, dev, work, "c64",
+                   f"[c64 train] the trained c{channels} G_AB:")
+    return out
+
+
+def phase_grid_small_serving(rng, dev, counts, work):
+    """c40 and c56 (``GRID_SMALL_CHANNELS``) served at a small size: each
+    written to a ``.pth`` (``width_checkpoint``) and loaded by
+    ``load_generator`` on the card and on the CPU at precision 'highest';
+    the fp32 uint8 program card vs CPU on both engines at GRID_SMALL_SIZE^2
+    (``WIDTH_CPU_BATCH`` images; 4 attention calls and 1 block a forward, 5
+    relayouts on the packed engine). Returns {channels: {"parameters",
+    "launches"}}."""
+    from multi_style_transfer_gan_tpu_torch.pipelines import load_generator
+
+    size = GRID_SMALL_SIZE
+    out = {}
+    for channels in GRID_SMALL_CHANNELS:
+        start = counts()
+        path = os.path.join(work, f"enhanced_c{channels}.pth")
+        n_params = width_checkpoint(path, channels)
+        gpu = load_generator(path, precision="highest", device=dev)
+        cpu = load_generator(path, precision="highest", device="cpu")
+        batch = np.stack(smooth_images(rng, WIDTH_CPU_BATCH[channels],
+                                       (size, size)))
+        program_card_vs_cpu(f"[grid serving] c{channels}", gpu, cpu, batch,
+                            counts, dev)
+        end = counts()
+        out[channels] = {"parameters": n_params,
+                         "launches": {n: end[n] - start[n] for n in end}}
+    return out
+
+
+def phase_grid_train(rng, dev, counts, work):
+    """The padded widths trained through the entry points: c24 and c48
+    (``GRID_FULL_CHANNELS``) at full width (``train_width``: the bf16
+    CycleGAN step with its launches per step, every LocalAttention call on
+    the fast-VJP route, the fp32 step card vs CPU, the enhanced pretrain
+    step), then ``train --channels 48`` for one epoch on a small folder,
+    whose G_AB stylizes through ``batch_process``, and ``pretrain --model
+    enhanced --channels 24`` for one epoch; c40 and c56
+    (``GRID_SMALL_CHANNELS``) small: one fp32 CycleGAN step and two fp32
+    enhanced pretrain steps at 128^2, batch 2, card vs CPU. Returns
+    {channels: record}: train_width's for c24 and c48, {"launches"} for c40
+    and c56."""
+    import torch
+
+    from multi_style_transfer_gan_tpu_torch.cli import pretrain as pretrain_cli
+    from multi_style_transfer_gan_tpu_torch.cli import train as train_cli
+    from multi_style_transfer_gan_tpu_torch.pipelines import load_generator
+
+    gen = torch.Generator().manual_seed(SEED + 24)
+    out = {c: train_width(rng, dev, counts, c, gen) for c in GRID_FULL_CHANNELS}
+
+    channels = max(GRID_FULL_CHANNELS)
+    data = os.path.join(work, "grid_train_data")
+    train_folder(rng, data)
+    models = os.path.join(work, "grid_models")
+    one_epoch = ["--num_epochs", "1", "--batch_size", "4",
+                 "--checkpoint_every", "1", "--log_every", "1"]
+    run_cli(train_cli.main, ["--data_root", data, "--save_dir", models,
+                             "--channels", str(channels)] + one_epoch,
+            f"train --channels {channels}")
+    low = min(GRID_FULL_CHANNELS)
+    run_cli(pretrain_cli.main, ["--data_root", data, "--save_dir", models,
+                                "--model", "enhanced", "--channels", str(low)]
+            + one_epoch, f"pretrain --model enhanced --channels {low}")
+    if not os.path.exists(os.path.join(models,
+                                       "generator_pretrain_epoch_1.pth")):
+        raise AssertionError("the pretrain CLI wrote no checkpoint")
+    model = load_generator(os.path.join(models, "G_AB_epoch_1.pth"),
+                           device=dev)
+    if model.channels != channels:
+        raise AssertionError(f"the train CLI wrote a c{model.channels} G_AB")
+    stylize_folder(rng, model, dev, work, "grid",
+                   f"[grid train] the trained c{channels} G_AB:")
+
+    for channels in GRID_SMALL_CHANNELS:
+        start = counts()
+        tag = f"[grid train] c{channels}"
+        fp32_step_card_vs_cpu(dev, channels, f"{tag} train step")
+        fp32_pretrain_card_vs_cpu(rng, dev, channels, gen, tag)
+        end = counts()
+        out[channels] = {"launches": {n: end[n] - start[n] for n in end}}
     return out
 
 
@@ -3669,6 +3822,10 @@ def run(work) -> int:
               file=sys.stderr)
         return 1
     t_start = time.perf_counter()
+
+    def mark(what):   # the run's clock at each phase boundary
+        log(f"[clock] {what}: {time.perf_counter() - t_start:.1f} s")
+
     card = card_line()
     log(card)  # name, power limit as nvidia-smi prints them
     log(f"torch.cuda.get_device_name(0): {torch.cuda.get_device_name(0)}; "
@@ -3696,6 +3853,10 @@ def run(work) -> int:
     # and so do the c64 phases, serving and training
     c64_rng = np.random.default_rng(SEED + 64)
     width_kernels.update(phase_width_kernels(c64_rng, dev, C64_CHANNELS))
+    # and so do the padded widths' phases
+    grid_rng = np.random.default_rng(SEED + 24)
+    width_kernels.update(phase_width_kernels(grid_rng, dev, GRID_CHANNELS))
+    mark("serving kernels")
     train_err, train_times = phase_train_kernels(rng, dev)
     # the c8 and c32 training phases draw from their own generator too
     width_train_rng = np.random.default_rng(SEED + 12)
@@ -3707,6 +3868,14 @@ def run(work) -> int:
     c64_fast_vjp = [phase_fast_vjp(c64_train_rng, dev, shape,
                                    check=shape[-1] == 256)
                     for shape in C64_FAST_VJP_SHAPES]
+    grid_train_rng = np.random.default_rng(SEED + 25)
+    width_train_kernels.update(
+        phase_width_train_kernels(grid_train_rng, dev, GRID_CHANNELS))
+    grid_fast_vjp = {c: [phase_fast_vjp(grid_train_rng, dev, shape,
+                                        check=shape == shapes[-1])
+                         for shape in shapes]
+                     for c, shapes in GRID_FAST_VJP_SHAPES.items()}
+    mark("training kernels")
     stages_err, stage_times = phase_stages(rng, dev)
     ablation_err = phase_ablation_inputs(dev)
 
@@ -3768,6 +3937,21 @@ def run(work) -> int:
                              f"expected every serving kernel, 4 attention "
                              f"calls per block call")
 
+    K.reset_launch_counts()   # the grid serving path starts here
+    width_serving.update(phase_width_serving(grid_rng, dev, counts, work,
+                                             GRID_FULL_CHANNELS, refuse=False))
+    width_serving.update(phase_grid_small_serving(grid_rng, dev, counts, work))
+    grid_serving = counts()   # ...and ends here
+    log(f"[grid serving path] launches: {grid_serving}")
+    attention_calls = (grid_serving["window_channel_attention"]
+                       + grid_serving["packed_window_channel_attention"])
+    if (min(grid_serving[n] for n in serving_kernels) == 0
+            or attention_calls != 4 * grid_serving["fused_structural_block"]):
+        raise AssertionError(f"grid serving path launches {grid_serving}: "
+                             f"expected every serving kernel, 4 attention "
+                             f"calls per block call")
+    mark("serving paths")
+
     K.reset_launch_counts()   # the single-image path starts here
     phase_single_image(rng, dev)
     single = counts()         # ...and ends here
@@ -3803,6 +3987,18 @@ def run(work) -> int:
     if min(c64_training[n] for n in TRAIN_LAUNCHES_PER_STEP) == 0:
         raise AssertionError(f"c64 training path launches {c64_training}: a "
                              f"kernel of the path never launched")
+
+    K.reset_launch_counts()   # the grid training path starts here
+    width_train.update(phase_grid_train(grid_train_rng, dev, counts, work))
+    grid_training = counts()  # ...and ends here
+    log(f"[grid training path] launches: {grid_training}")
+    grid_step = WIDTH_TRAIN_LAUNCHES_PER_STEP[GRID_FULL_CHANNELS[0]]
+    if (min(grid_training[n] for n, k in grid_step.items() if k) == 0
+            or grid_training["window_attention_mid_fwd"]):
+        raise AssertionError(f"grid training path launches {grid_training}: "
+                             f"a kernel of the path never launched, or row "
+                             f"11 took a width of the route")
+    mark("training paths")
 
     K.reset_launch_counts()   # the pretraining path starts here
     plain_rates = phase_plain_serving(rng, dev)
@@ -3855,10 +4051,12 @@ def run(work) -> int:
     if ablation["window_channel_attention_stage"] == 0:
         raise AssertionError(f"ablation path launches {ablation}: the stage "
                              f"kernel never launched")
-    launches = {n: serving[n] + widths[n] + c64_serving[n] + single[n]
-                + training[n] + width_training[n] + c64_training[n]
-                + pretraining[n] + evaluation[n] + gui[n] + perceptual[n]
-                + ablation[n] for n in counted}
+    launches = {n: serving[n] + widths[n] + c64_serving[n] + grid_serving[n]
+                + single[n] + training[n] + width_training[n]
+                + c64_training[n] + grid_training[n] + pretraining[n]
+                + evaluation[n] + gui[n] + perceptual[n] + ablation[n]
+                for n in counted}
+    mark("all paths")
 
     # inference kernels: per forward at canvas 256, batch 8, bf16 (the four
     # LocalAttention shapes, NHWC or packed; the block's one shape; the five
@@ -3974,9 +4172,11 @@ def run(work) -> int:
     # path beside them); the training kernels alike
     # (phase_width_train_kernels per generator forward and backward at
     # 256^2, launches of the width or c64 training path)
-    width_paths = {n: widths[n] + c64_serving[n] for n in counted}
+    width_paths = {n: widths[n] + c64_serving[n] + grid_serving[n]
+                   for n in counted}
     width_train_paths = {n: width_training[n] + c64_training[n]
-                         for n in counted}
+                         + grid_training[n] for n in counted}
+    all_widths = WIDTH_CHANNELS + C64_CHANNELS + GRID_CHANNELS
     width_keys = ("ms", "device_ms", "plain_ms", "library_ms", "bound_ms",
                   "bound_by", "max_abs_err")
     train_rows = {"window_attention_train": ("window_attention_mid_fwd",
@@ -3991,7 +4191,7 @@ def run(work) -> int:
                 **{k: entry.get(k) for k in width_keys},
                 "launches": entry["launches"] - width_paths[name]
                 - width_train_paths[name]}}
-            for c in WIDTH_CHANNELS + C64_CHANNELS:
+            for c in all_widths:
                 rec = width_kernels[c][name]
                 entry["widths"][f"c{c}"] = {
                     **{k: rec.get(k) for k in width_keys},
@@ -4004,7 +4204,9 @@ def run(work) -> int:
             entry["widths"] = {"c16": {
                 **{k: entry.get(k) for k in width_keys},
                 "launches": entry["launches"] - ran(width_train_paths)}}
-            for c in WIDTH_CHANNELS + C64_CHANNELS:
+            for c in all_widths:
+                if name not in width_train_kernels[c]:   # the route's widths
+                    continue
                 rec = width_train_kernels[c][name]
                 entry["widths"][f"c{c}"] = {
                     **{k: rec.get(k) for k in width_keys + (
@@ -4017,6 +4219,8 @@ def run(work) -> int:
             # c64's down2 (C = 256) and down1 / up1 (C = 128 on 128^2)
             entry["fast_vjp_c128"] = fast_vjp
             entry["fast_vjp_c64"] = c64_fast_vjp
+            entry["fast_vjp_grid"] = {f"c{c}": recs
+                                      for c, recs in grid_fast_vjp.items()}
         if sdpa_mid is not None:
             entry["sdpa_mid_ms"] = sdpa_mid
         dev_ms = entry.get("device_ms")
@@ -4065,7 +4269,7 @@ def run(work) -> int:
         f"images a direction relative {fid_err:.3e}; m_test path at "
         f"{EVAL_IMAGES} images a direction, fp32: {fid_text}; whole run "
         f"{time.perf_counter() - t_start:.1f} s")
-    for c in WIDTH_CHANNELS + C64_CHANNELS:
+    for c in WIDTH_CHANNELS + C64_CHANNELS + GRID_FULL_CHANNELS:
         log(f"[summary] {card}; c{c} generator "
             f"({width_serving[c]['parameters']} parameters; bf16 weights "
             f"NHWC {width_serving[c]['weights_gib']['nhwc']:.3f} GiB, packed "
@@ -4079,7 +4283,7 @@ def run(work) -> int:
                         f"device, plain {r['plain_ms']:.4f} ms, bound "
                         f"{r['bound_ms']:.6f} ms by {r['bound_by']})"
                         for n, r in width_kernels[c].items()))
-    for c in WIDTH_CHANNELS + C64_CHANNELS:
+    for c in WIDTH_CHANNELS + C64_CHANNELS + GRID_FULL_CHANNELS:
         t = width_train[c]
         rows = width_train_kernels[c]
         log(f"[summary] {card}; c{c} training: bf16 CycleGAN step 256^2 batch "
@@ -4122,6 +4326,23 @@ def run(work) -> int:
         f"its device time; the pretrain step's one batch-16 forward "
         f"~{2 * fwd_ms / c64['pretrain'][0]:.1%} and "
         f"~{2 * fwd_dev / c64['pretrain'][1]:.1%}")
+    for c, recs in grid_fast_vjp.items():
+        t = width_train[c]
+        # a generator forward: up2 (C), down1 and up1 (2C), down2 (4C)
+        fwd_ms, fwd_dev = (recs[0][k] + 2 * recs[1][k] + recs[2][k]
+                           for k in ("ms", "device_ms"))
+        log(f"[summary] {card}; c{c}'s route under grad (every LocalAttention "
+            f"call of the generator), fwd + bwd at batch {TRAIN_BATCH}, bf16: "
+            + ", ".join(f"C = {r['shape'][-1]} on {r['shape'][1]}^2 "
+                        f"{r['ms']:.4f} ms ({r['device_ms']:.4f} ms device, "
+                        f"plain formulation {r['plain_ms']:.4f} ms, peak "
+                        f"{r['peak_gib']:.2f} GiB)" for r in recs)
+            + f"; 6 batch-8 generator forwards a CycleGAN step are "
+            f"~{6 * fwd_ms / t['step_ms']:.1%} of its host clock and "
+            f"~{6 * fwd_dev / t['step_device_ms']:.1%} of its device time; "
+            f"the pretrain step's one batch-8 forward "
+            f"~{fwd_ms / t['pretrain'][0]:.1%} and "
+            f"~{fwd_dev / t['pretrain'][1]:.1%}")
     p_with, p_without, vgg_share = perceptual_ms
     log(f"[summary] {card}; GUI tab wall per image on the card (decode, "
         f"generator, post chain, restore and save; 3 photos after a warm-up): "

@@ -19,10 +19,15 @@ points, and the block at its shapes of the same forwards and a ragged grid,
 in fp32 and bf16. Both builds must agree with the plain version inside
 ``chip_smoke.py``'s tolerances, and they are timed in turns (old, new, new,
 old): CUDA events (``chip_smoke.time_ms``, three rounds) and profiler
-device time (``chip_smoke.device_ms``). The two training sources, which
-share headers with them, are built from both directories too, and their
-forward and backward must give the same bits at every train shape. Raises
-on any build, launch or tolerance failure; exits 1 without a CUDA device.
+device time (``chip_smoke.device_ms``). Then, bf16, each layout's own
+width of the attention (``LAYOUT_SHAPES``) and of the block
+(``BLOCK_DIM_SHAPES``), where a build that takes the widths in between
+must give the old bits at the old speed, are timed the same way and
+compared bit for bit. The two training sources, which share headers with
+them, are built from both directories too, and their forward and backward
+must give the same bits at every train shape and, for the window-MHSA mid,
+at 1, 2, 4 and 8 heads. Raises on any build, launch or tolerance failure;
+exits 1 without a CUDA device.
 """
 
 from __future__ import annotations
@@ -50,6 +55,13 @@ SOURCES = {"window_channel_attention": ("window_channel_attention",
 ROUNDS = 3
 BLOCK_SHAPES = ((smoke.BATCH, 64, 64, 64), (smoke.BATCH, 128, 128, 64),
                 (2, 12, 20, 64))
+# one shape per attention layout (CP = 16 .. 256) and per block design, at
+# the generators' canvas-256 grids; C = 8 runs in the CP = 16 layout
+B = smoke.BATCH
+LAYOUT_SHAPES = ((B, 256, 256, 8), (B, 256, 256, 16), (B, 256, 256, 32),
+                 (B, 128, 128, 64), (B, 64, 64, 128), (B, 64, 64, 256))
+BLOCK_DIM_SHAPES = tuple((B, 64, 64, d) for d in (32, 64, 128, 256)) + (
+    (2, 12, 20, 128), (2, 12, 20, 256))
 
 
 def demangle(text: str) -> str:
@@ -150,11 +162,11 @@ def main(argv=None) -> int:
     from multi_style_transfer_gan_tpu_torch.ops.kernels.window_attention import (
         attention_launch_shape,
     )
-    for C in K.window_attention.KERNEL_WIDTHS:
+    for C in (8, 16, 32, 64, 128, 256):   # one width per built layout
         print(f"[smem new] attention C={C}: bf16 "
               f"{attention_launch_shape(1, C, True)[1]} B a block, fp32 "
               f"{attention_launch_shape(1, C, False)[1]} B")
-    for C in K.fused_transformer.KERNEL_WIDTHS:
+    for C in (32, 64, 128, 256):
         print(f"[smem new] block bf16 C={C}: "
               f"{block_launch_shape(1, 8, 8, C)[1]} B a block", flush=True)
 
@@ -244,6 +256,52 @@ def main(argv=None) -> int:
                 check(call(), ref, dtype, smoke.BLOCK_FP32_TOL,
                       f"{tag} fused_structural_block {shape} {dtype}")
             ab(f"fused_structural_block {shape}", old, new, dtype)
+
+    bf16 = torch.bfloat16
+    for shape in LAYOUT_SHAPES:
+        for packed, wrapper in ((False, K.window_channel_attention),
+                                (True, K.packed_window_channel_attention)):
+            _, x, ws = smoke.attention_stress_inputs(rng, shape, packed)[0]
+            args = [torch.from_numpy(np.asarray(a, np.float32)).to("cuda", bf16)
+                    for a in [x] + ws]
+            old, new = (run(t, wrapper, *args) for t in ("old", "new"))
+            same = torch.equal(old(), new())
+            ab(f"{wrapper.__name__} {shape}, bit-equal {same}", old, new, bf16)
+            if not same:
+                raise AssertionError(f"{wrapper.__name__} {shape}: the builds "
+                                     f"differ")
+    for shape in BLOCK_DIM_SHAPES:
+        _, host, weights = smoke.block_stress_inputs(rng, shape)[0]
+        t = lambda a, dt=bf16: torch.from_numpy(
+            np.asarray(a, np.float32)).to("cuda", dt)
+        args = (t(host[0]), t(host[1]), t(host[2], torch.float32),
+                t(host[3], torch.float32))
+        kw = {n: t(a) for n, a in weights.items()}
+        old, new = (run(tag, K.fused_structural_block, *args, **kw)
+                    for tag in ("old", "new"))
+        same = torch.equal(old(), new())
+        ab(f"fused_structural_block {shape}, bit-equal {same}", old, new, bf16)
+        if not same:
+            raise AssertionError(f"fused_structural_block {shape}: the builds "
+                                 f"differ")
+    fwd, bwd, _, entries = train["mhsa"]
+    for heads in (1, 2, 4, 8):
+        shape = (smoke.BATCH, 64, 64, 96 * heads)
+        _, host, g_host = smoke.train_kernel_inputs(rng, "mhsa", shape)[1]
+        for dtype in (torch.float32, bf16):
+            qkv = torch.from_numpy(host).to("cuda", dtype)
+            d_out = torch.from_numpy(g_host).to("cuda", dtype)
+            outs = {}
+            for tag in ("old", "new"):
+                for entry in entries:
+                    _build._loaded[entry] = builds[tag][0][entry]
+                outs[tag] = (fwd(qkv, heads), bwd(qkv, d_out, heads))
+            if not all(torch.equal(a, b) for a, b in zip(*outs.values())):
+                raise AssertionError(f"window-MHSA mid at {heads} heads "
+                                     f"{dtype}: old and new builds differ")
+        print(f"[A/B] window-MHSA mid at {heads} heads {shape}: old and new "
+              f"builds bit-equal, forward and backward, fp32 and bf16",
+              flush=True)
     return 0
 
 

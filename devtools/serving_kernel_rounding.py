@@ -21,6 +21,17 @@ largest |d| and its ratio to the bound ("x1.000" is at the bound);
 (the c64 shapes most of it); windows are emulated in chunks of
 ``ROWS_CHUNK``, so memory stays near a gigabyte.
 
+    PYTHONPATH=. python3 devtools/serving_kernel_rounding.py --grid
+
+runs the c24, c40, c48 and c56 generators' shapes instead
+(``chip_smoke.GRID_CHANNELS``: canvas 256, and each width's down2 at canvas
+512, the largest window count at its widest C), the kernel plan only (~10
+minutes). Those widths run padded inside the kernels (the attention in the
+layout of the next power of two, the block in the dim-128 or dim-256
+design); a pad channel adds exact zeros to every sum and a pad key is out
+of the softmax, so the padded arithmetic is emulated at the real width with
+the plan of the layout it runs in.
+
     PYTHONPATH=. python3 devtools/serving_kernel_rounding.py --fp32
 
 asks the fp32 question of the block instead (``fp32_block_question``, ~1
@@ -43,27 +54,30 @@ from multi_style_transfer_gan_tpu_torch.ops.kernels.fused_transformer import (
     WINDOW, default_num_heads, structural_block_plain,
 )
 from multi_style_transfer_gan_tpu_torch.ops.kernels.window_attention import (
-    window_rows_attention_plain,
+    layout_width, window_rows_attention_plain,
 )
 
 
 def attention_kernel_plan(C: int) -> dict:
-    """The attention kernel's plan at width C: qn and kn as pairs; at C >=
+    """The attention kernel's plan at width C, that of the layout it runs
+    in (CP = ``layout_width(C, bf16=True)``): qn and kn as pairs; at CP >=
     64 also the softmax S (the apply's B operand) and the apply's output
-    (the proj's A operand). At C = 256 (``wide``) the kernel stores q and k
+    (the proj's A operand). At CP = 256 (``wide``) the kernel stores q and k
     as hi + lo pairs of their raw values and normalizes from those, takes
     the exponentials at the fixed shift 16 (every logit of unit vectors
     over 16 positions lies in [-16, 16]) and divides the apply's output by
     the row sums afterwards; v enters the apply as a pair too (one term: a
     saturated window on the 64^2 grid at 0.83 of the bound, the pair 0.67)."""
-    wide = C > 128
-    return dict(qk=True, v=wide, S=C >= 64, out=C >= 64, wide=wide)
+    cp = layout_width(C, bf16=True)
+    wide = cp > 128
+    return dict(qk=True, v=wide, S=cp >= 64, out=cp >= 64, wide=wide)
 
 
 def block_kernel_plan(C: int) -> dict:
-    """The block kernel's plan at width C: LN1's output for q and k, and q
-    and k, as pairs; at C = 128 also LN1's output for v, LN2's output and
-    the GELU output; at C = 256 every operand the kernel forms: also the
+    """The block kernel's plan at width C, that of its design: LN1's output
+    for q and k, and q and k, as pairs; in the dim-128 design (C = 96, 128)
+    also LN1's output for v, LN2's output and the GELU output; in the
+    dim-256 design (C = 160 .. 256) every operand the kernel forms: also the
     exponentials and v (the apply) and the MHSA output (the proj). With
     the dim-128 plan a random block at dim 256 misses the bound by 1.35x;
     with o, p and v as pairs it stays at 0.68 (saturated 0.81, a one-ulp
@@ -277,14 +291,22 @@ def main(argv=None) -> int:
     if "--fp32" in (sys.argv[1:] if argv is None else argv):
         return fp32_block_question()
     canvas = smoke.CANVASES[0]
+    grid = "--grid" in (sys.argv[1:] if argv is None else argv)
+    widths = smoke.GRID_CHANNELS if grid else smoke.GENERATOR_CHANNELS
     attention = list(dict.fromkeys(
-        s for c in smoke.GENERATOR_CHANNELS
-        for _, s in smoke.attention_shapes(canvas, c)))
-    block = [s for c in smoke.GENERATOR_CHANNELS
+        s for c in widths for _, s in smoke.attention_shapes(canvas, c)))
+    block = [s for c in widths
              for s in ((smoke.BATCH, canvas // 4, canvas // 4, 4 * c),
                        (2, 12, 20, 4 * c))]
-    for kernel, ratios in (("attention", attention_ratios(attention)),
-                           ("block", block_ratios(block))):
+    plans = None
+    if grid:   # and each width's down2 at canvas 512
+        attention += [dict(smoke.attention_shapes(smoke.CANVASES[1], c))[
+            "down2"] for c in widths]
+        block += [(smoke.BATCH, smoke.CANVASES[1] // 4,
+                   smoke.CANVASES[1] // 4, 4 * c) for c in widths]
+        plans = ["kernel"]
+    for kernel, ratios in (("attention", attention_ratios(attention, plans)),
+                           ("block", block_ratios(block, plans))):
         for (shape, label, plan), (d, r) in ratios.items():
             print(f"{kernel} {shape} {label}, {plan}: max|d| {d:.3e} "
                   f"(x{r:.3f} of the bound)", flush=True)

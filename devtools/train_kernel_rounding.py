@@ -20,7 +20,10 @@ bound); ``kernel`` is the plan the kernels use. Takes about a minute.
 at 1, 4 and 8 heads; C = 8 runs padded to 16 in the kernel, whose pads add
 exact zeros to every sum, so it is emulated as it is); a few minutes. At 8
 heads, (8, 64, 64, 768), the kernel plan holds the saturated input at 0.57
-(forward) and 0.85 (backward) of the bound.
+(forward) and 0.85 (backward) of the bound. ``--grid`` runs the c24, c40,
+c48 and c56 generators' (``chip_smoke.GRID_CHANNELS``: the MHSA at 3, 5, 6
+and 7 heads; their LocalAttention widths train through the fast-VJP route,
+not these kernels).
 
 ``--fp32`` asks the fp32 question instead: on the "small q, k" input of
 the channel-attention mid, how far an fp32 evaluation of the backward (the
@@ -179,6 +182,7 @@ def main(argv=None) -> int:
 
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--widths", action="store_true")
+    p.add_argument("--grid", action="store_true")
     p.add_argument("--fp32", action="store_true")
     p.add_argument("--draws", type=int, default=8)
     args = p.parse_args(argv)
@@ -190,8 +194,10 @@ def main(argv=None) -> int:
     plain = {"attention": (WA.window_attention_mid_plain,
                            WA.window_attention_mid_backward_plain),
              "mhsa": (WM.window_mhsa_plain, WM.window_mhsa_backward_plain)}
-    if args.widths:
-        cases = [case for c in smoke.WIDTH_CHANNELS + smoke.C64_CHANNELS
+    if args.widths or args.grid:
+        widths = (smoke.GRID_CHANNELS if args.grid
+                  else smoke.WIDTH_CHANNELS + smoke.C64_CHANNELS)
+        cases = [case for c in widths
                  for case in smoke.width_train_kernel_cases(c)]
     else:
         cases = [(name, stage, shape, 2 if name == "mhsa" else None)

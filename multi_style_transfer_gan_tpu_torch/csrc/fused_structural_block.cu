@@ -14,8 +14,21 @@
 // zero-pad-and-mask formulation (models/structural_transformer.py:113-150)
 // computes. So every grid shape runs here; none is sent elsewhere.
 //
-// Widths: C = 32, 64, 128 and 256 with C / 32 heads of 32
-// (default_num_heads), the blocks of the c8, c16, c32 and c64 generators.
+// Widths: any C % 32 == 0 from 32 to 256 with C / 32 heads of 32
+// (default_num_heads), the blocks of every generator width that is a
+// multiple of 8 up to 64 (c8 .. c64: dims 32, 64, .., 256). In bf16, dims
+// 32 and 64 have a kernel each; dim 96 runs padded in the dim-128 design and
+// dims 160, 192 and 224 in the dim-256 design, one instantiation per dim
+// with the dim and the head count folded in. Padding is exact: the
+// residual stream's channels from C to the layout's DP are zero, every
+// weight row and column and every bias, norm and FiLM entry past C is a
+// staged zero, so a pad channel stays zero through every product, and both
+// LayerNorms take their mean and variance over the C real channels only
+// (over DP each pad channel would add (0 - mean)^2 to the variance). A head slot past the real heads
+// is skipped in the dim-128 design; in the dim-256 design, which takes heads
+// in pairs, the second head of an odd count's last pair runs on zeros (q = k
+// = v = 0: a uniform softmax over zero v, dropped by zero proj columns).
+// The scale stays 1/sqrt(32). fp32 has an instantiation at each dim.
 //
 // What bounds it. About 24 C^2 + 256 C flop per token against 6 C bytes of
 // bf16 traffic (read x and struct, write out): ~300 flop/B at C = 64, at the
@@ -23,8 +36,9 @@
 // 0.0032 ms of bytes); at C = 32 about half that, bytes-bound; at C = 128
 // about 570 flop/B and at C = 256 about 1100, bound by operations.
 //
-// bf16 design (fused_structural_block_mma_kernel, C = 32 and 64; C = 128
-// and 256 in fused_structural_block_wide_kernel and _widest_kernel below).
+// bf16 design (fused_structural_block_mma_kernel, C = 32 and 64; C = 96-128
+// and 160-256 in fused_structural_block_wide_kernel and _widest_kernel
+// below).
 // Persistent blocks: each
 // stages the four weight matrices once (bf16 as stored, (out, in) rows
 // padded by 16 bytes: 105 KB at C = 64) and the biases and LayerNorm
@@ -56,9 +70,9 @@
 // fp32 stays exact fp32 (fused_structural_block_f32_kernel): FMAs on the
 // CUDA cores, no tensor cores, no TF32. One block of 256 threads per window
 // of 64 tokens; activations live in dynamic shared memory in fp32 (about
-// 97 KB at C = 64, 193 KB at C = 128, buffers reused between phases; C = 256
-// in fused_structural_block_f32_wide_kernel, a head and a hidden chunk at a
-// time); weights are read through L2 and
+// 97 KB at C = 64, 193 KB at C = 128, buffers reused between phases; C =
+// 160-256 in fused_structural_block_f32_wide_kernel, a head and a hidden
+// chunk at a time); weights are read through L2 and
 // the read-only cache, four at a time. In the four Linear products each
 // thread keeps a 4-token by N/16-output tile of sums in registers;
 // activation rows have an odd stride so a warp's reads fall in distinct
@@ -287,20 +301,21 @@ fused_structural_block_f32_kernel(const T* __restrict__ x, const T* __restrict__
   }
 }
 
-// fp32 at C = 256 (the c64 generator's block, 8 heads): Layout<256> would
-// need ~394 KB. The MHSA runs a head at a time and adds that head's share of
-// the proj, o_h Wproj[:, head]^T, onto the residual stream at once; the MLP
-// runs in chunks of 128 hidden columns, each chunk's fc2 share added onto
-// the residual stream, so no product's register tile grows past 4 x 16 and
-// no intermediate past 64 x 257 floats (214 KB in all). A head's q and k,
-// its scores and their softmax are carried in double, as the plain version
-// carries them in float64: where a block's scores are 16 times larger
-// (chip_smoke.py's saturated input) fp32 scores at dim 256 leave the block
-// 2.6e-4 from a float64 evaluation, past the 2e-4 the two are held to, and
-// float64 ones 8.6e-5 (devtools/serving_kernel_rounding.py --fp32). The
-// softmax meets v in fp32.
+// fp32 at C = 160-256 (the c40 .. c64 generators' blocks, 5-8 heads):
+// Layout<256> would need ~394 KB. The MHSA runs a head at a time and adds
+// that head's share of the proj, o_h Wproj[:, head]^T, onto the residual
+// stream at once; the MLP runs in chunks of 128 hidden columns, each chunk's
+// fc2 share added onto the residual stream, so no product's register tile
+// grows past 4 x 16 and no intermediate past 64 x (C + 1) floats (214 KB in
+// all at C = 256). A head's q and k, its scores and their softmax are
+// carried in double, as the plain version carries them in float64: where a
+// block's scores are 16 times larger (chip_smoke.py's saturated input) fp32
+// scores at dim 256 leave the block 2.6e-4 from a float64 evaluation, past
+// the 2e-4 the two are held to, and float64 ones 8.6e-5
+// (devtools/serving_kernel_rounding.py --fp32). The softmax meets v in fp32.
+template <int C_>
 struct F32WideLayout {
-  static constexpr int C = 256, HEADS = 8, HD = C / HEADS, HC = 128;
+  static constexpr int C = C_, HEADS = C / 32, HD = C / HEADS, HC = 128;
   static constexpr int XS = C + 1;          // token rows of width C
   static constexpr int KS = 2 * HD + 1;     // one head's q | k rows (double)
   static constexpr int SS = kTok + 1;       // score rows (double)
@@ -318,9 +333,10 @@ struct F32WideLayout {
   static constexpr int U_SIZE = HEAD > kTok * AS ? HEAD : kTok * AS;
   static constexpr int TOTAL = U + U_SIZE;
   static_assert(U % 2 == 0, "the double arrays are 8-byte aligned");
+  static_assert(C % 32 == 0 && 4 * C % HC == 0, "heads of 32; whole hidden chunks");
 };
 
-template <typename T>
+template <typename T, int C_>
 __global__ void __launch_bounds__(kThreads)
 fused_structural_block_f32_wide_kernel(const T* __restrict__ x, const T* __restrict__ st,
                                        const float* __restrict__ gamma,
@@ -332,7 +348,7 @@ fused_structural_block_f32_wide_kernel(const T* __restrict__ x, const T* __restr
                                        const T* __restrict__ f1b, const T* __restrict__ f2w,
                                        const T* __restrict__ f2b, T* __restrict__ y, int H, int W,
                                        float eps) {
-  using L = F32WideLayout;
+  using L = F32WideLayout<C_>;
   constexpr int C = L::C, HD = L::HD, HC = L::HC;
   extern __shared__ float smem[];
   float* sX = smem + L::X;
@@ -513,29 +529,33 @@ __device__ __forceinline__ void linear_frags(float (&acc)[NT][4], const uint32_t
     }
 }
 
-// LayerNorm over the C channels of the lane's two token rows (g and g + 8
-// of the strip), in place on C fragments; w and b are fp32 in shared memory.
-template <int C>
-__device__ __forceinline__ void layer_norm_frags(float (&h)[C / 8][4], const float* w,
-                                                 const float* b, float eps, int lane) {
+// LayerNorm over the C real channels of the lane's two token rows (g and
+// g + 8 of the strip), in place on DP / 8 fragments whose channels from C
+// on are zero; w and b are fp32 in shared memory (zero past C, so the pads
+// stay zero). The mean and the variance count the real channels only.
+template <int DP>
+__device__ __forceinline__ void layer_norm_frags(float (&h)[DP / 8][4], const float* w,
+                                                 const float* b, float eps, int lane,
+                                                 int C = DP) {
   const int t = lane & 3;
   float s0 = 0.f, s1 = 0.f;
 #pragma unroll
-  for (int j = 0; j < C / 8; ++j) {
+  for (int j = 0; j < DP / 8; ++j) {
     s0 += h[j][0] + h[j][1];
     s1 += h[j][2] + h[j][3];
   }
   const float m0 = quad_sum(s0) / C, m1 = quad_sum(s1) / C;
   float v0 = 0.f, v1 = 0.f;
 #pragma unroll
-  for (int j = 0; j < C / 8; ++j) {
+  for (int j = 0; j < DP / 8; ++j) {
+    if (j * 8 >= C) break;
     v0 = fmaf(h[j][0] - m0, h[j][0] - m0, fmaf(h[j][1] - m0, h[j][1] - m0, v0));
     v1 = fmaf(h[j][2] - m1, h[j][2] - m1, fmaf(h[j][3] - m1, h[j][3] - m1, v1));
   }
   const float r0 = 1.f / sqrtf(quad_sum(v0) / C + eps);
   const float r1 = 1.f / sqrtf(quad_sum(v1) / C + eps);
 #pragma unroll
-  for (int j = 0; j < C / 8; ++j) {
+  for (int j = 0; j < DP / 8; ++j) {
     const float2 wv = *reinterpret_cast<const float2*>(w + j * 8 + 2 * t);
     const float2 bv = *reinterpret_cast<const float2*>(b + j * 8 + 2 * t);
     h[j][0] = (h[j][0] - m0) * r0 * wv.x + bv.x;
@@ -545,14 +565,16 @@ __device__ __forceinline__ void layer_norm_frags(float (&h)[C / 8][4], const flo
   }
 }
 
-// FiLM of the LN1 output on C fragments: h (1 + gamma) + beta, gamma and
-// beta the batch entry's rows (fp32, read through the read-only cache).
-template <int C>
-__device__ __forceinline__ void film_frags(float (&h)[C / 8][4], const float* gamma,
-                                           const float* beta, int lane) {
+// FiLM of the LN1 output on DP / 8 fragments: h (1 + gamma) + beta, gamma
+// and beta the batch entry's rows of C (fp32, read through the read-only
+// cache); the pad channels (zero) are left as they are.
+template <int DP>
+__device__ __forceinline__ void film_frags(float (&h)[DP / 8][4], const float* gamma,
+                                           const float* beta, int lane, int C = DP) {
   const int t = lane & 3;
 #pragma unroll
-  for (int j = 0; j < C / 8; ++j) {
+  for (int j = 0; j < DP / 8; ++j) {
+    if (j * 8 >= C) break;
     const float2 ga = __ldg(reinterpret_cast<const float2*>(gamma + j * 8 + 2 * t));
     const float2 be = __ldg(reinterpret_cast<const float2*>(beta + j * 8 + 2 * t));
     h[j][0] = h[j][0] * (1.f + ga.x) + be.x;
@@ -800,37 +822,69 @@ fused_structural_block_mma_kernel(const bf16* __restrict__ x, const bf16* __rest
   }
 }
 
-// C = 128 (the c32 generator): the four weights are ~400 KB with padding,
-// past the 227 KB a block may hold. qkv and proj stay resident (139 KB);
-// fc1's rows and fc2's columns stream through shared memory in chunks of
-// 16 hidden columns (double-buffered cp.async, one block barrier a chunk),
-// which is the grain the MLP consumes anyway. A block is one group of 4
-// warps on one window; k and v are staged one head at a time. LN1's
-// output enters q, k and v as hi + lo pairs, LN2's output fc1 and the GELU
-// output fc2 as pairs too: with the c16 kernel's pairs alone a saturated
-// block at dim 128 reaches 1.01-1.09 of the bf16 bound, with these 0.67-0.72
-// (devtools/serving_kernel_rounding.py).
+// DP = 128 (the c32 generator's dim 128, and c24's dim 96 padded): the four
+// weights are ~400 KB with padding, past the 227 KB a block may hold. qkv
+// and proj stay resident (139 KB); fc1's rows and fc2's columns stream
+// through shared memory in chunks of 16 hidden columns (double-buffered
+// cp.async, one block barrier a chunk), which is the grain the MLP consumes
+// anyway; only the 4C / 16 chunks of the real hidden columns pass. A block
+// is one group of 4 warps on one window; k and v are staged one head at a
+// time, for the C / 32 real heads. LN1's output enters q, k and v as hi +
+// lo pairs, LN2's output fc1 and the GELU output fc2 as pairs too: with the
+// c16 kernel's pairs alone a saturated block at dim 128 reaches 1.01-1.09
+// of the bf16 bound, with these 0.67-0.72 (devtools/serving_kernel_rounding.py).
 struct WideLayout {
-  static constexpr int C = 128, HEADS = C / mhsa::kHd, KT = C / 16, NT = C / 8, CH = C / 8;
-  static constexpr int WS = C + 8;              // rows of C values: 272 bytes
+  static constexpr int DP = 128, HEADS = DP / mhsa::kHd, KT = DP / 16, NT = DP / 8, CH = DP / 8;
+  static constexpr int WS = DP + 8;             // rows of DP values: 272 bytes
   static constexpr int CS = 16 + 8;             // an fc2 chunk row: 16 values, 48 bytes
-  static constexpr int CHUNKS = 4 * C / 16;
-  static constexpr int W_QKV = 0;                        // [3C][WS]
-  static constexpr int W_PROJ = W_QKV + 3 * C * WS;      // [C][WS]
-  static constexpr int FC = W_PROJ + C * WS;             // [2] chunks:
-  static constexpr int FC1 = 0, FC2 = 16 * WS;           //   fc1 rows [16][WS], fc2 [C][CS]
-  static constexpr int CHUNK = FC2 + C * CS;
+  static constexpr int W_QKV = 0;                        // [3DP][WS]
+  static constexpr int W_PROJ = W_QKV + 3 * DP * WS;     // [DP][WS]
+  static constexpr int FC = W_PROJ + DP * WS;            // [2] chunks:
+  static constexpr int FC1 = 0, FC2 = 16 * WS;           //   fc1 rows [16][WS], fc2 [DP][CS]
+  static constexpr int CHUNK = FC2 + DP * CS;
   static constexpr int X = FC + 2 * CHUNK;               // [64][WS]; later y
   static constexpr int KH = X + kTok * WS;               // one head: k hi, k lo, v [64][RS]
   static constexpr int KL = KH + mhsa::TILE;
   static constexpr int V = KL + mhsa::TILE;
   static constexpr int ELEMS = V + mhsa::TILE;
-  static constexpr int N1W = 0, N1B = C, N2W = 2 * C, N2B = 3 * C;
-  static constexpr int QKV_B = 4 * C, PROJ_B = QKV_B + 3 * C, FC1_B = PROJ_B + C,
-                       FC2_B = FC1_B + 4 * C, PARAMS = FC2_B + C;
+  static constexpr int N1W = 0, N1B = DP, N2W = 2 * DP, N2B = 3 * DP;
+  static constexpr int QKV_B = 4 * DP, PROJ_B = QKV_B + 3 * DP, FC1_B = PROJ_B + DP,
+                       FC2_B = FC1_B + 4 * DP, PARAMS = FC2_B + DP;
   static constexpr int BYTES = ELEMS * (int)sizeof(bf16) + PARAMS * (int)sizeof(float);
 };
 
+// The fp32 parameters of a padded design into sP at the offsets of layout
+// L: norms, proj and fc2 biases (DP each), qkv's (3 DP: q, k, v at 0, DP,
+// 2 DP) and fc1's (4 DP); zeros past the real C (4C for fc1).
+template <typename L>
+__device__ __forceinline__ void stage_params(float* sP, const bf16* __restrict__ n1w,
+                                             const bf16* __restrict__ n1b,
+                                             const bf16* __restrict__ qkvb,
+                                             const bf16* __restrict__ projb,
+                                             const bf16* __restrict__ n2w,
+                                             const bf16* __restrict__ n2b,
+                                             const bf16* __restrict__ f1b,
+                                             const bf16* __restrict__ f2b, int C, int tid,
+                                             int threads) {
+  constexpr int DP = L::DP;
+  for (int e = tid; e < DP; e += threads) {
+    const bool real = e < C;
+    sP[L::N1W + e] = real ? to_f(n1w[e]) : 0.f;
+    sP[L::N1B + e] = real ? to_f(n1b[e]) : 0.f;
+    sP[L::N2W + e] = real ? to_f(n2w[e]) : 0.f;
+    sP[L::N2B + e] = real ? to_f(n2b[e]) : 0.f;
+    sP[L::PROJ_B + e] = real ? to_f(projb[e]) : 0.f;
+    sP[L::FC2_B + e] = real ? to_f(f2b[e]) : 0.f;
+  }
+  for (int e = tid; e < 3 * DP; e += threads) {
+    const int blk = e / DP, i = e % DP;
+    sP[L::QKV_B + e] = i < C ? to_f(qkvb[blk * C + i]) : 0.f;
+  }
+  for (int e = tid; e < 4 * DP; e += threads) sP[L::FC1_B + e] = e < 4 * C ? to_f(f1b[e]) : 0.f;
+}
+
+// C: the real dim (96 or 128), a compile-time constant.
+template <int C>
 __global__ void __launch_bounds__(kGroupThreads, 1)
 fused_structural_block_wide_kernel(const bf16* __restrict__ x, const bf16* __restrict__ st,
                                    const float* __restrict__ gamma,
@@ -843,7 +897,8 @@ fused_structural_block_wide_kernel(const bf16* __restrict__ x, const bf16* __res
                                    const bf16* __restrict__ f2b, bf16* __restrict__ y, int B,
                                    int H, int W, float eps) {
   using L = WideLayout;
-  constexpr int C = L::C, KT = L::KT, NT = L::NT, WS = L::WS, CH = L::CH;
+  constexpr int DP = L::DP, KT = L::KT, NT = L::NT, WS = L::WS;
+  static_assert(C % mhsa::kHd == 0 && C > 64 && C <= DP, "dims 96 and 128");
   extern __shared__ __align__(16) unsigned char smem_mma[];
   bf16* sW = reinterpret_cast<bf16*>(smem_mma);
   bf16* sFC = sW + L::FC;
@@ -854,35 +909,33 @@ fused_structural_block_wide_kernel(const bf16* __restrict__ x, const bf16* __res
   float* sP = reinterpret_cast<float*>(sW + L::ELEMS);
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const int r0 = warp * 16, g = lane >> 2, t = lane & 3;
+  constexpr int CH = C / 8, heads = C / mhsa::kHd, chunks = 4 * C / 16;
 
   // chunk hc of the MLP into buffer dst: fc1 rows 16 hc.., fc2 columns
-  // 16 hc.. of every row, 16 bytes a copy by the whole block
+  // 16 hc.. of every row, 16 bytes a copy by the whole block; zeros past C
   auto load_chunk = [&](int hc, bf16* dst) {
-    for (int e = tid; e < 16 * CH + 2 * C; e += kGroupThreads) {
-      if (e < 16 * CH) {
-        const int r = e / CH, c = e % CH;
-        cp_async16(dst + L::FC1 + r * WS + c * 8, f1w + (hc * 16 + r) * C + c * 8);
+    for (int e = tid; e < 16 * L::CH + 2 * DP; e += kGroupThreads) {
+      if (e < 16 * L::CH) {
+        const int r = e / L::CH, c = e % L::CH;
+        const bool real = c < CH;
+        cp_async16(dst + L::FC1 + r * WS + c * 8,
+                   real ? f1w + (long long)(hc * 16 + r) * C + c * 8 : f1w, real);
       } else {
-        const int r = (e - 16 * CH) / 2, c = (e - 16 * CH) % 2;
-        cp_async16(dst + L::FC2 + r * L::CS + c * 8, f2w + r * 4 * C + hc * 16 + c * 8);
+        const int r = (e - 16 * L::CH) / 2, c = (e - 16 * L::CH) % 2;
+        const bool real = r < C;
+        cp_async16(dst + L::FC2 + r * L::CS + c * 8,
+                   real ? f2w + (long long)r * 4 * C + hc * 16 + c * 8 : f2w, real);
       }
     }
   };
 
-  for (int e = tid; e < 4 * C * CH; e += kGroupThreads) {   // qkv and proj: 4C rows
-    const int r = e / CH, c = e % CH;
-    cp_async16(sW + r * WS + c * 8, (r < 3 * C ? qkvw + r * C : projw + (r - 3 * C) * C) + c * 8);
+  for (int e = tid; e < 4 * DP * L::CH; e += kGroupThreads) {   // qkv and proj: 4DP rows
+    const int r = e / L::CH, c = e % L::CH, blk = r / DP, i = r % DP;
+    const bool real = i < C && c < CH;
+    const bf16* src = blk < 3 ? qkvw + (long long)(blk * C + i) * C : projw + (long long)i * C;
+    cp_async16(sW + r * WS + c * 8, real ? src + c * 8 : qkvw, real);
   }
-  for (int e = tid; e < C; e += kGroupThreads) {
-    sP[L::N1W + e] = to_f(n1w[e]);
-    sP[L::N1B + e] = to_f(n1b[e]);
-    sP[L::N2W + e] = to_f(n2w[e]);
-    sP[L::N2B + e] = to_f(n2b[e]);
-    sP[L::PROJ_B + e] = to_f(projb[e]);
-    sP[L::FC2_B + e] = to_f(f2b[e]);
-  }
-  for (int e = tid; e < 3 * C; e += kGroupThreads) sP[L::QKV_B + e] = to_f(qkvb[e]);
-  for (int e = tid; e < 4 * C; e += kGroupThreads) sP[L::FC1_B + e] = to_f(f1b[e]);
+  stage_params<L>(sP, n1w, n1b, qkvb, projb, n2w, n2b, f1b, f2b, C, tid, kGroupThreads);
   cp_async_commit();
   cp_async_wait<0>();
   __syncthreads();
@@ -898,13 +951,14 @@ fused_structural_block_wide_kernel(const bf16* __restrict__ x, const bf16* __res
       return (((long long)b * H + row0 + tok / kWin) * W + col0 + tok % kWin) * C;
     };
 
-    // the warp's 16 token rows of x (tokens outside the grid as zeros),
-    // then chunk 0 of the MLP into buffer 0: every warp is past the
-    // barrier of the previous window's last chunk, which used buffer 1
+    // the warp's 16 token rows of x (tokens outside the grid and the pad
+    // channels as zeros), then chunk 0 of the MLP into buffer 0: every warp
+    // is past the barrier of the previous window's last chunk, which used
+    // buffer 1 (the chunk count is even)
 #pragma unroll
-    for (int e = lane; e < 16 * CH; e += 32) {
-      const int tok = r0 + e / CH, c = e % CH;
-      const bool ok = valid(tok);
+    for (int e = lane; e < 16 * L::CH; e += 32) {
+      const int tok = r0 + e / L::CH, c = e % L::CH;
+      const bool ok = valid(tok) && c < CH;
       cp_async16(sX + tok * WS + c * 8, x + (ok ? offset(tok) + c * 8 : 0), ok);
     }
     cp_async_commit();
@@ -924,7 +978,7 @@ fused_structural_block_wide_kernel(const bf16* __restrict__ x, const bf16* __res
         const float2 xv = __bfloat1622float2(
             *reinterpret_cast<const __nv_bfloat162*>(sX + tok * WS + j * 8 + 2 * t));
         float2 sv = make_float2(0.f, 0.f);
-        if (ok) {
+        if (ok && j * 8 < C) {
           const unsigned int u = __ldg(reinterpret_cast<const unsigned int*>(srow + j * 8 + 2 * t));
           sv = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u));
         }
@@ -932,22 +986,23 @@ fused_structural_block_wide_kernel(const bf16* __restrict__ x, const bf16* __res
         h[j][2 * hh + 1] = xv.y + sv.y;
       }
     }
-    layer_norm_frags<C>(h, sP + L::N1W, sP + L::N1B, eps, lane);
-    film_frags<C>(h, gamma + b * C, beta + b * C, lane);
+    layer_norm_frags<DP>(h, sP + L::N1W, sP + L::N1B, eps, lane, C);
+    film_frags<DP>(h, gamma + (long long)b * C, beta + (long long)b * C, lane, C);
     uint32_t ah[KT][4], al[KT][4];
 #pragma unroll
     for (int kk = 0; kk < KT; ++kk) frags_to_a_split(ah[kk], al[kk], h[2 * kk], h[2 * kk + 1]);
 
     // head by head: q in registers, k and v through the block's tiles,
-    // the head's output two k-steps of the proj
-    uint32_t oa[KT][4];
+    // the head's output two k-steps of the proj (zero for a head slot past
+    // the real heads, whose proj columns are zero too)
+    uint32_t oa[KT][4] = {};
 #pragma unroll 1
-    for (int hd = 0; hd < L::HEADS; ++hd) {
+    for (int hd = 0; hd < heads; ++hd) {
       uint32_t qh[2][4], ql[2][4];
       {
         float acc[4][4];
-        linear_frags<C, 4, true>(acc, ah, al, sW + L::W_QKV + hd * mhsa::kHd * WS,
-                                 sP + L::QKV_B + hd * mhsa::kHd, lane);
+        linear_frags<DP, 4, true>(acc, ah, al, sW + L::W_QKV + hd * mhsa::kHd * WS,
+                                  sP + L::QKV_B + hd * mhsa::kHd, lane);
 #pragma unroll
         for (int kk = 0; kk < 2; ++kk)
           frags_to_a_split(qh[kk], ql[kk], acc[2 * kk], acc[2 * kk + 1]);
@@ -955,11 +1010,11 @@ fused_structural_block_wide_kernel(const bf16* __restrict__ x, const bf16* __res
       __syncthreads();   // every warp is done with the previous head's k and v
       {
         float acc[4][4];
-        linear_frags<C, 4, true>(acc, ah, al, sW + L::W_QKV + (C + hd * mhsa::kHd) * WS,
-                                 sP + L::QKV_B + C + hd * mhsa::kHd, lane);
+        linear_frags<DP, 4, true>(acc, ah, al, sW + L::W_QKV + (DP + hd * mhsa::kHd) * WS,
+                                  sP + L::QKV_B + DP + hd * mhsa::kHd, lane);
         store_frags<4>(sKh, sKl, mhsa::RS, r0, 0, acc, 1.f, lane);
-        linear_frags<C, 4, true>(acc, ah, al, sW + L::W_QKV + (2 * C + hd * mhsa::kHd) * WS,
-                                 sP + L::QKV_B + 2 * C + hd * mhsa::kHd, lane);
+        linear_frags<DP, 4, true>(acc, ah, al, sW + L::W_QKV + (2 * DP + hd * mhsa::kHd) * WS,
+                                  sP + L::QKV_B + 2 * DP + hd * mhsa::kHd, lane);
         store_frags<4>(sV, nullptr, mhsa::RS, r0, 0, acc, 1.f, lane);
       }
       __syncthreads();   // this head's k and v are in
@@ -977,7 +1032,7 @@ fused_structural_block_wide_kernel(const bf16* __restrict__ x, const bf16* __res
 
     // proj and the residual, LN2 (as hi + lo)
     float xr[NT][4];
-    linear_frags<C, NT, false>(xr, oa, oa, sW + L::W_PROJ, sP + L::PROJ_B, lane);
+    linear_frags<DP, NT, false>(xr, oa, oa, sW + L::W_PROJ, sP + L::PROJ_B, lane);
 #pragma unroll
     for (int j = 0; j < NT; ++j)
 #pragma unroll
@@ -987,7 +1042,7 @@ fused_structural_block_wide_kernel(const bf16* __restrict__ x, const bf16* __res
         h[j][2 * hh] = xr[j][2 * hh] += xv.x;
         h[j][2 * hh + 1] = xr[j][2 * hh + 1] += xv.y;
       }
-    layer_norm_frags<C>(h, sP + L::N2W, sP + L::N2B, eps, lane);
+    layer_norm_frags<DP>(h, sP + L::N2W, sP + L::N2B, eps, lane, C);
 #pragma unroll
     for (int kk = 0; kk < KT; ++kk) frags_to_a_split(ah[kk], al[kk], h[2 * kk], h[2 * kk + 1]);
 #pragma unroll
@@ -1001,14 +1056,14 @@ fused_structural_block_wide_kernel(const bf16* __restrict__ x, const bf16* __res
 
     // the MLP, chunk by chunk: chunk hc + 1 is copied while hc is used
 #pragma unroll 1
-    for (int hc = 0; hc < L::CHUNKS; ++hc) {
+    for (int hc = 0; hc < chunks; ++hc) {
       cp_async_wait<0>();
       __syncthreads();   // chunk hc is in; every warp is done with chunk hc - 1
-      if (hc + 1 < L::CHUNKS) load_chunk(hc + 1, sFC + ((hc + 1) & 1) * L::CHUNK);
+      if (hc + 1 < chunks) load_chunk(hc + 1, sFC + ((hc + 1) & 1) * L::CHUNK);
       cp_async_commit();
       const bf16* chunk = sFC + (hc & 1) * L::CHUNK;
       float f[2][4];
-      linear_frags<C, 2, true>(f, ah, al, chunk + L::FC1, sP + L::FC1_B + hc * 16, lane);
+      linear_frags<DP, 2, true>(f, ah, al, chunk + L::FC1, sP + L::FC1_B + hc * 16, lane);
       gelu_frags(f);
       uint32_t fa[4], fl[4];
       frags_to_a_split(fa, fl, f[0], f[1]);
@@ -1024,10 +1079,9 @@ fused_structural_block_wide_kernel(const bf16* __restrict__ x, const bf16* __res
       }
     }
 
-    // y through the warp's own x rows to 16-byte stores
+    // y through the warp's own x rows to 16-byte stores, the C real channels
     store_frags<NT>(sX, nullptr, WS, r0, 0, xr, 1.f, lane);
     __syncwarp();
-#pragma unroll
     for (int e = lane; e < 16 * CH; e += 32) {
       const int tok = r0 + e / CH, c = e % CH;
       if (valid(tok))
@@ -1038,28 +1092,31 @@ fused_structural_block_wide_kernel(const bf16* __restrict__ x, const bf16* __res
   }
 }
 
-// C = 256 (the c64 generator, 8 heads): the four weights are ~1.6 MB with
-// padding and all of them stream, and a warp that owned 16 token rows of
-// the window's width would hold 128 fp32 values a thread for the residual
-// stream alone. A block is 8 warps on one window: warp w owns token rows
-// 16 (w % 4).. and, of every 64 output columns, the 32 at 32 (w / 4)..
-// (128 columns in all), so the residual stream is 64 values a thread in
-// registers. The weights pass through shared memory in tiles
-// (double-buffered 16-byte cp.async, one block barrier a tile, the next
-// window's first tile copied during the last):
-//   heads  per pair of heads, a tile of 64 q rows, one of k rows and one of
-//          v rows of Wqkv: warp w forms q (kept as A fragments), k and v of
-//          head 2 pair + w / 4 for its 16 tokens; k and v of both heads go to
-//          shared memory; the MHSA of window_mhsa_mma.cuh runs per warp and
-//          head (keys outside a ragged grid at -inf); the pair's output (64 x
-//          64) goes to shared memory, and two tiles of Wproj (128 output
-//          rows x the pair's 64 columns) add its share of the proj onto the
-//          residual stream, which starts as x + the proj bias;
-//   LN2    over the residual stream, its row sums exchanged between the two
-//          warps of a row through shared memory;
-//   MLP    8 chunks of 128 hidden columns: two tiles of fc1 rows (GELU on
-//          the accumulators, the chunk to shared memory), then four tiles of
-//          fc2 (64 output rows x the chunk's 128 columns) onto the stream.
+// DP = 256 (the c64 generator's dim 256 in 8 heads, and c40's, c48's and
+// c56's dims 160, 192 and 224 in 5, 6 and 7 heads, padded): the four
+// weights are ~1.6 MB with padding and all of them stream, and a warp that
+// owned 16 token rows of the window's width would hold 128 fp32 values a
+// thread for the residual stream alone. A block is 8 warps on one window:
+// warp w owns token rows 16 (w % 4).. and, of every 64 output columns, the
+// 32 at 32 (w / 4).. (128 columns in all), so the residual stream is 64
+// values a thread in registers. The weights pass through shared memory in
+// tiles (double-buffered 16-byte cp.async, one block barrier a tile, the
+// next window's first tile copied during the last), zero-filled past C:
+//   heads  per pair of heads (ceil(heads / 2) pairs), a tile of 64 q rows,
+//          one of k rows and one of v rows of Wqkv: warp w forms q (kept as A
+//          fragments), k and v of head 2 pair + w / 4 for its 16 tokens; k
+//          and v of both heads go to shared memory; the MHSA of
+//          window_mhsa_mma.cuh runs per warp and head (keys outside a ragged
+//          grid at -inf); the pair's output (64 x 64) goes to shared memory,
+//          and two tiles of Wproj (128 output rows x the pair's 64 columns)
+//          add its share of the proj onto the residual stream, which starts
+//          as x + the proj bias;
+//   LN2    over the residual stream's C real columns, its row sums exchanged
+//          between the two warps of a row through shared memory;
+//   MLP    4C / 128 chunks of 128 hidden columns: two tiles of fc1 rows
+//          (GELU on the accumulators, the chunk to shared memory), then four
+//          tiles of fc2 (64 output rows x the chunk's 128 columns) onto the
+//          stream.
 // Operands rounded to bf16 inside: every one the kernel forms is a hi + lo
 // pair (LN1's and LN2's outputs, q, k, v, the exponentials, the MHSA output,
 // the GELU output): with the dim-128 kernel's pairs a random block at dim
@@ -1067,13 +1124,12 @@ fused_structural_block_wide_kernel(const bf16* __restrict__ x, const bf16* __res
 // the saturated one, a one-ulp flip of the output rounding;
 // devtools/serving_kernel_rounding.py).
 struct WidestLayout {
-  static constexpr int C = 256, HEADS = C / mhsa::kHd, KT = C / 16;
+  static constexpr int DP = 256, KT = DP / 16;
   static constexpr int HC = 128;                // hidden columns a chunk
-  static constexpr int WS = C + 8;              // rows of C values: 528 bytes
+  static constexpr int WS = DP + 8;             // rows of DP values: 528 bytes
   static constexpr int PS = 64 + 8;             // proj tile rows, a pair's output: 144 bytes
   static constexpr int FS = HC + 8;             // fc2 tile rows, the hidden chunk: 272 bytes
   static constexpr int TILE = 64 * WS;          // the largest tile (128 x PS fits too)
-  static constexpr int TILES_HEADS = HEADS / 2 * 5, TILES = TILES_HEADS + 4 * C / HC * 6;
   static constexpr int W = 0;                             // [2][TILE]
   static constexpr int HH = W + 2 * TILE;                 // [64][WS] LN1 out, then LN2 out, hi
   static constexpr int HL = HH + kTok * WS;               //   ... lo
@@ -1084,9 +1140,9 @@ struct WidestLayout {
   static constexpr int AH = U;                            //   [64][FS] the hidden chunk hi
   static constexpr int AL = AH + kTok * FS;               //   ... lo
   static constexpr int ELEMS = (OL + kTok * PS > AL + kTok * FS ? OL + kTok * PS : AL + kTok * FS);
-  static constexpr int N1W = 0, N1B = C, N2W = 2 * C, N2B = 3 * C;
-  static constexpr int QKV_B = 4 * C, PROJ_B = QKV_B + 3 * C, FC1_B = PROJ_B + C,
-                       FC2_B = FC1_B + 4 * C, STAT = FC2_B + C;   // + [2][2][64] row sums
+  static constexpr int N1W = 0, N1B = DP, N2W = 2 * DP, N2B = 3 * DP;
+  static constexpr int QKV_B = 4 * DP, PROJ_B = QKV_B + 3 * DP, FC1_B = PROJ_B + DP,
+                       FC2_B = FC1_B + 4 * DP, STAT = FC2_B + DP;   // + [2][2][64] row sums
   static constexpr int PARAMS = STAT + 4 * kTok;
   static constexpr int BYTES = ELEMS * (int)sizeof(bf16) + PARAMS * (int)sizeof(float);
 };
@@ -1130,6 +1186,8 @@ __device__ __forceinline__ void bias_frags(float (&acc)[4][4], const float* bias
   }
 }
 
+// C: the real dim (160, 192, 224 or 256), a compile-time constant.
+template <int C>
 __global__ void __launch_bounds__(kMmaThreads, 1)
 fused_structural_block_widest_kernel(const bf16* __restrict__ x, const bf16* __restrict__ st,
                                      const float* __restrict__ gamma,
@@ -1142,7 +1200,8 @@ fused_structural_block_widest_kernel(const bf16* __restrict__ x, const bf16* __r
                                      const bf16* __restrict__ f2b, bf16* __restrict__ y, int B,
                                      int H, int W, float eps) {
   using L = WidestLayout;
-  constexpr int C = L::C, WS = L::WS, PS = L::PS, FS = L::FS, HC = L::HC;
+  constexpr int DP = L::DP, WS = L::WS, PS = L::PS, FS = L::FS, HC = L::HC;
+  static_assert(C % mhsa::kHd == 0 && C > WideLayout::DP && C <= DP, "dims 160 .. 256");
   extern __shared__ __align__(16) unsigned char smem_mma[];
   bf16* sW = reinterpret_cast<bf16*>(smem_mma);
   bf16* sHH = sW + L::HH;
@@ -1155,50 +1214,49 @@ fused_structural_block_widest_kernel(const bf16* __restrict__ x, const bf16* __r
   float* sP = reinterpret_cast<float*>(sW + L::ELEMS);
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const int r0 = (warp & 3) * 16, half = warp >> 2, g = lane >> 2, tq = lane & 3;
+  constexpr int pairs = (C / mhsa::kHd + 1) / 2;   // head pairs, the last one half zeros when odd
+  constexpr int tiles_heads = pairs * 5, tiles = tiles_heads + 4 * C / HC * 6;
 
   // tile t into buffer t & 1, 16 bytes a copy by the whole block: per pair
   // of heads q, k, v (64 rows of Wqkv) and the two proj tiles (128 rows of
   // Wproj x the pair's 64 columns); per hidden chunk two fc1 tiles (64 rows)
-  // and four fc2 tiles (64 rows x the chunk's 128 columns)
+  // and four fc2 tiles (64 rows x the chunk's 128 columns). Rows and columns
+  // past the real ones are zero-filled.
   auto load_tile = [&](int t) {
     const bf16* src;
-    int rows, chunks, ld, lds;
-    if (t < L::TILES_HEADS) {
+    int rows, chunks, ld, lds, rows_real, cols_real;
+    if (t < tiles_heads) {
       const int hp = t / 5, part = t % 5;
       if (part < 3) {
         src = qkvw + (long long)(part * C + hp * 64) * C;
-        rows = 64, chunks = C / 8, ld = C, lds = WS;
+        rows = 64, chunks = DP / 8, ld = C, lds = WS;
+        rows_real = C - hp * 64, cols_real = C;
       } else {
         src = projw + (long long)(part - 3) * 128 * C + hp * 64;
         rows = 128, chunks = 8, ld = C, lds = PS;
+        rows_real = C - (part - 3) * 128, cols_real = C - hp * 64;
       }
     } else {
-      const int hc = (t - L::TILES_HEADS) / 6, part = (t - L::TILES_HEADS) % 6;
+      const int hc = (t - tiles_heads) / 6, part = (t - tiles_heads) % 6;
       if (part < 2) {
         src = f1w + (long long)(hc * HC + part * 64) * C;
-        rows = 64, chunks = C / 8, ld = C, lds = WS;
+        rows = 64, chunks = DP / 8, ld = C, lds = WS;
+        rows_real = 64, cols_real = C;
       } else {
         src = f2w + (long long)(part - 2) * 64 * 4 * C + hc * HC;
         rows = 64, chunks = HC / 8, ld = 4 * C, lds = FS;
+        rows_real = C - (part - 2) * 64, cols_real = HC;
       }
     }
     bf16* dst = sW + (t & 1) * L::TILE;
     for (int e = tid; e < rows * chunks; e += kMmaThreads) {
       const int r = e / chunks, c = e % chunks;
-      cp_async16(dst + r * lds + c * 8, src + (long long)r * ld + c * 8);
+      const bool real = C == DP || (r < rows_real && c * 8 < cols_real);
+      cp_async16(dst + r * lds + c * 8, real ? src + (long long)r * ld + c * 8 : qkvw, real);
     }
   };
 
-  for (int e = tid; e < C; e += kMmaThreads) {
-    sP[L::N1W + e] = to_f(n1w[e]);
-    sP[L::N1B + e] = to_f(n1b[e]);
-    sP[L::N2W + e] = to_f(n2w[e]);
-    sP[L::N2B + e] = to_f(n2b[e]);
-    sP[L::PROJ_B + e] = to_f(projb[e]);
-    sP[L::FC2_B + e] = to_f(f2b[e]);
-  }
-  for (int e = tid; e < 3 * C; e += kMmaThreads) sP[L::QKV_B + e] = to_f(qkvb[e]);
-  for (int e = tid; e < 4 * C; e += kMmaThreads) sP[L::FC1_B + e] = to_f(f1b[e]);
+  stage_params<L>(sP, n1w, n1b, qkvb, projb, n2w, n2b, f1b, f2b, C, tid, kMmaThreads);
 
   const int nwx = (W + kWin - 1) / kWin, nwy = (H + kWin - 1) / kWin;
   const long long n_windows = (long long)B * nwy * nwx;
@@ -1219,18 +1277,20 @@ fused_structural_block_widest_kernel(const bf16* __restrict__ x, const bf16* __r
     auto next_tile = [&]() {
       cp_async_wait<0>();
       __syncthreads();   // tile t is in; every warp is done with tile t - 1
-      if (t + 1 < L::TILES) load_tile(t + 1);
+      if (t + 1 < tiles) load_tile(t + 1);
       else if (more) load_tile(0);
       cp_async_commit();
       return static_cast<const bf16*>(sW + (t++ & 1) * L::TILE);
     };
 
     __syncthreads();   // the previous window is done with LN2's output
-    // LN1 + FiLM, a warp a token, 8 channels a lane; tokens outside the grid
-    // as zeros; hi + lo to shared memory
+    // LN1 + FiLM over the C real channels, a warp a token, 8 channels a
+    // lane; tokens outside the grid and the pad channels as zeros; hi + lo
+    // to shared memory
+    const bool live = lane * 8 < C;
     for (int tok = warp; tok < kTok; tok += kMmaThreads / 32) {
       float u[8] = {};
-      if (valid(tok)) {
+      if (valid(tok) && live) {
         const uint4 xv = __ldg(reinterpret_cast<const uint4*>(x + offset(tok) + lane * 8));
         const uint4 sv = __ldg(reinterpret_cast<const uint4*>(st + offset(tok) + lane * 8));
         const bf16* xp = reinterpret_cast<const bf16*>(&xv);
@@ -1243,30 +1303,34 @@ fused_structural_block_widest_kernel(const bf16* __restrict__ x, const bf16* __r
       for (int i = 0; i < 8; ++i) sum += u[i];
       const float mean = warp_sum(sum) / C;
       float var = 0.f;
+      if (live) {
 #pragma unroll
-      for (int i = 0; i < 8; ++i) var = fmaf(u[i] - mean, u[i] - mean, var);
+        for (int i = 0; i < 8; ++i) var = fmaf(u[i] - mean, u[i] - mean, var);
+      }
       const float rstd = 1.f / sqrtf(warp_sum(var) / C + eps);
-      uint4 hi, lo;
-      uint32_t* hp = reinterpret_cast<uint32_t*>(&hi);
-      uint32_t* lp = reinterpret_cast<uint32_t*>(&lo);
+      uint4 hi = make_uint4(0u, 0u, 0u, 0u), lo = hi;
+      if (live) {
+        uint32_t* hp = reinterpret_cast<uint32_t*>(&hi);
+        uint32_t* lp = reinterpret_cast<uint32_t*>(&lo);
 #pragma unroll
-      for (int i = 0; i < 8; i += 2) {
-        float v[2];
+        for (int i = 0; i < 8; i += 2) {
+          float v[2];
 #pragma unroll
-        for (int j = 0; j < 2; ++j) {
-          const int c = lane * 8 + i + j;
-          v[j] = (u[i + j] - mean) * rstd * sP[L::N1W + c] + sP[L::N1B + c];
-          v[j] = v[j] * (1.f + __ldg(gamma + (long long)b * C + c)) +
-                 __ldg(beta + (long long)b * C + c);
+          for (int j = 0; j < 2; ++j) {
+            const int c = lane * 8 + i + j;
+            v[j] = (u[i + j] - mean) * rstd * sP[L::N1W + c] + sP[L::N1B + c];
+            v[j] = v[j] * (1.f + __ldg(gamma + (long long)b * C + c)) +
+                   __ldg(beta + (long long)b * C + c);
+          }
+          pack_bf16_split(v[0], v[1], hp[i / 2], lp[i / 2]);
         }
-        pack_bf16_split(v[0], v[1], hp[i / 2], lp[i / 2]);
       }
       *reinterpret_cast<uint4*>(sHH + tok * WS + lane * 8) = hi;
       *reinterpret_cast<uint4*>(sHL + tok * WS + lane * 8) = lo;
     }
 
     // the residual stream: x + the proj bias at the warp's rows and columns
-    // (of 64-column block j, the 32 at 32 half + 8 n + 2 tq)
+    // (of 64-column block j, the 32 at 32 half + 8 n + 2 tq); zero past C
     float xr[4][4][4];
 #pragma unroll
     for (int j = 0; j < 4; ++j)
@@ -1277,7 +1341,7 @@ fused_structural_block_widest_kernel(const bf16* __restrict__ x, const bf16* __r
         for (int hh = 0; hh < 2; ++hh) {
           const int tok = r0 + g + 8 * hh;
           float2 xv = make_float2(0.f, 0.f);
-          if (valid(tok))
+          if (valid(tok) && c < C)
             xv = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(x + offset(tok) + c));
           xr[j][n][2 * hh] = xv.x + sP[L::PROJ_B + c];
           xr[j][n][2 * hh + 1] = xv.y + sP[L::PROJ_B + c + 1];
@@ -1286,7 +1350,7 @@ fused_structural_block_widest_kernel(const bf16* __restrict__ x, const bf16* __r
 
     // the heads, a pair at a time; warp w takes head 2 hp + half
 #pragma unroll 1
-    for (int hp = 0; hp < L::HEADS / 2; ++hp) {
+    for (int hp = 0; hp < pairs; ++hp) {
       const int hd = 2 * hp + half;
       bf16* kv = sKV + half * 4 * mhsa::TILE;   // k hi, k lo, v hi, v lo
       uint32_t qh[2][4], ql[2][4];
@@ -1294,7 +1358,7 @@ fused_structural_block_widest_kernel(const bf16* __restrict__ x, const bf16* __r
       for (int part = 0; part < 3; ++part) {
         const bf16* tile = next_tile();
         float acc[4][4];
-        bias_frags(acc, sP + L::QKV_B + part * C + hd * mhsa::kHd, lane);
+        bias_frags(acc, sP + L::QKV_B + part * DP + hd * mhsa::kHd, lane);
         rows_times_w<L::KT, true>(acc, sHH + r0 * WS, sHL + r0 * WS, WS,
                                   tile + half * mhsa::kHd * WS, WS, lane);
         if (part == 0) {
@@ -1345,8 +1409,9 @@ fused_structural_block_widest_kernel(const bf16* __restrict__ x, const bf16* __r
       }
     }
 
-    // LN2 over the stream: the row sums of the warp's 128 columns, then the
-    // partner warp's (w ^ 4) through shared memory
+    // LN2 over the stream's C real columns: the row sums of the warp's
+    // columns (the pads are zero), then the partner warp's (w ^ 4) through
+    // shared memory
     {
       float* stat = sP + L::STAT;   // [sum, squares][half][64 rows]
       float s0 = 0.f, s1 = 0.f;
@@ -1368,12 +1433,14 @@ fused_structural_block_widest_kernel(const bf16* __restrict__ x, const bf16* __r
       const float m1 = (stat[r0 + g + 8] + stat[kTok + r0 + g + 8]) / C;
       float v0 = 0.f, v1 = 0.f;
 #pragma unroll
-      for (int j = 0; j < 4; ++j)
+      for (int j = 0; j < 4; ++j) {
+        if (j * 64 + half * 32 >= C) continue;   // 32 pad columns
 #pragma unroll
         for (int n = 0; n < 4; ++n) {
           v0 = fmaf(xr[j][n][0] - m0, xr[j][n][0] - m0, fmaf(xr[j][n][1] - m0, xr[j][n][1] - m0, v0));
           v1 = fmaf(xr[j][n][2] - m1, xr[j][n][2] - m1, fmaf(xr[j][n][3] - m1, xr[j][n][3] - m1, v1));
         }
+      }
       v0 = quad_sum(v0);
       v1 = quad_sum(v1);
       if (tq == 0) {
@@ -1430,18 +1497,20 @@ fused_structural_block_widest_kernel(const bf16* __restrict__ x, const bf16* __r
       }
     }
 
-    // y, where the token exists
+    // y, where the token and the column exist
 #pragma unroll
     for (int hh = 0; hh < 2; ++hh) {
       const int tok = r0 + g + 8 * hh;
       if (!valid(tok)) continue;
       bf16* row = y + offset(tok);
 #pragma unroll
-      for (int j = 0; j < 4; ++j)
+      for (int j = 0; j < 4; ++j) {
+        if (j * 64 + half * 32 >= C) continue;
 #pragma unroll
         for (int n = 0; n < 4; ++n)
           *reinterpret_cast<uint32_t*>(row + j * 64 + half * 32 + n * 8 + 2 * tq) =
               pack_bf16(xr[j][n][2 * hh], xr[j][n][2 * hh + 1]);
+      }
     }
   }
   cp_async_wait<0>();
@@ -1454,13 +1523,12 @@ int launch_f32(const void* x, const void* st, const void* gamma, const void* bet
                const void* const* w, void* y, int B, int H, int W, float eps,
                cudaStream_t stream) {
   constexpr bool kWide = C > 128;
-  const int smem = (kWide ? F32WideLayout::TOTAL : Layout<C>::TOTAL) * (int)sizeof(float);
+  const int smem = (kWide ? F32WideLayout<C>::TOTAL : Layout<C>::TOTAL) * (int)sizeof(float);
   auto kernel = [] {
-    if constexpr (kWide) return fused_structural_block_f32_wide_kernel<float>;
+    if constexpr (kWide) return fused_structural_block_f32_wide_kernel<float, C>;
     else return fused_structural_block_f32_kernel<float, C>;
   }();
-  static_assert(kWide ? C == F32WideLayout::C : Layout<C>::HD % 4 == 0 && C % 4 == 0,
-                "4-wide weight loads");
+  static_assert(Layout<C>::HD % 4 == 0 && C % 4 == 0, "4-wide weight loads");
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid((W + kWin - 1) / kWin, (H + kWin - 1) / kWin, B);
@@ -1472,17 +1540,20 @@ int launch_f32(const void* x, const void* st, const void* gamma, const void* bet
   return (int)cudaGetLastError();
 }
 
+// bf16 at dim C: its own kernel at 32 and 64, the dim-128 design at 96 and
+// 128, the dim-256 design at 160 .. 256.
 template <int C>
 int launch_bf16(const void* x, const void* st, const void* gamma, const void* beta,
                 const void* const* w, void* y, int B, int H, int W, float eps,
                 cudaStream_t stream) {
-  constexpr bool kWide = C == WideLayout::C, kWidest = C == WidestLayout::C;
+  constexpr bool kWide = C > 64 && C <= WideLayout::DP, kWidest = C > WideLayout::DP;
+  static_assert(C <= WidestLayout::DP && C % mhsa::kHd == 0, "heads of 32 up to dim 256");
   constexpr int threads = kWide ? kGroupThreads : kMmaThreads;
   constexpr int per_block = kWide || kWidest ? 1 : kGroups;   // windows in flight
   constexpr int smem = kWide ? WideLayout::BYTES : kWidest ? WidestLayout::BYTES : MmaLayout<C>::BYTES;
-  auto kernel = [] {
-    if constexpr (kWide) return fused_structural_block_wide_kernel;
-    else if constexpr (kWidest) return fused_structural_block_widest_kernel;
+  auto kernel = [] {   // one instantiation per dim, its dim folded in
+    if constexpr (kWide) return fused_structural_block_wide_kernel<C>;
+    else if constexpr (kWidest) return fused_structural_block_widest_kernel<C>;
     else return fused_structural_block_mma_kernel<C>;
   }();
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
@@ -1518,8 +1589,8 @@ int launch_width(const void* x, const void* st, const void* gamma, const void* b
 // Plain C entry point (loaded with ctypes). x, struct and y are (B, H, W, C)
 // contiguous; gamma and beta (B, C) fp32; `weights` points to 12 pointers in
 // the order norm1 w/b, qkv w/b, proj w/b, norm2 w/b, fc1 w/b, fc2 w/b, of
-// the same type as x (dtype 0 = fp32, 1 = bf16). C in {32, 64, 128, 256},
-// with C / 32 heads (the c8, c16, c32 and c64 generators' blocks). Launches on
+// the same type as x (dtype 0 = fp32, 1 = bf16). C % 32 == 0 from 32 to 256,
+// with C / 32 heads (the blocks of the c8 .. c64 generators). Launches on
 // `stream` and returns cudaGetLastError() (0 on success).
 extern "C" int fused_structural_block_launch(const void* x, const void* st, const void* gamma,
                                              const void* beta, const void* const* weights,
@@ -1531,7 +1602,11 @@ extern "C" int fused_structural_block_launch(const void* x, const void* st, cons
   switch (C) {
     case 32: return mstgan::launch_width<32>(x, st, gamma, beta, weights, y, B, H, W, dtype, eps, s);
     case 64: return mstgan::launch_width<64>(x, st, gamma, beta, weights, y, B, H, W, dtype, eps, s);
+    case 96: return mstgan::launch_width<96>(x, st, gamma, beta, weights, y, B, H, W, dtype, eps, s);
     case 128: return mstgan::launch_width<128>(x, st, gamma, beta, weights, y, B, H, W, dtype, eps, s);
+    case 160: return mstgan::launch_width<160>(x, st, gamma, beta, weights, y, B, H, W, dtype, eps, s);
+    case 192: return mstgan::launch_width<192>(x, st, gamma, beta, weights, y, B, H, W, dtype, eps, s);
+    case 224: return mstgan::launch_width<224>(x, st, gamma, beta, weights, y, B, H, W, dtype, eps, s);
     case 256: return mstgan::launch_width<256>(x, st, gamma, beta, weights, y, B, H, W, dtype, eps, s);
     default: return (int)cudaErrorInvalidValue;
   }

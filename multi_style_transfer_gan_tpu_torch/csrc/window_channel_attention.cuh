@@ -50,28 +50,39 @@
 // C = 64 on a 128^2 grid reaches 1.13 of the bound with one term each, the
 // 128-key softmax at C = 128 0.97; with the pairs both stay at 0.68).
 //
-// Widths. C = 16, 32, 64 (the c16 generator), 8, 128 (c8 and c32) and 256
-// (c64). C = 8 runs padded to 16 channels inside: zeros in the pad columns
-// of x, the weights and the biases, and -inf on the pad keys of the Gram,
-// so the pads never reach y (MmaLayout). C = 128 keeps the design with 3
-// warps a block, as the 139 KB of resident weights leave room for no more.
-// C = 256 has a kernel of its own (window_channel_attention_wide_kernel,
-// below): its weights (541 KB) stream through shared memory.
+// Widths. C is a runtime argument: any C % 8 == 0 from 8 to 256 (the
+// LocalAttention widths C, 2C and 4C of every generator width that is a
+// multiple of 8 up to 64). Each C runs inside a built layout of CP >= C
+// channels (a template parameter): bf16 CP = 16 (C <= 16), 32, 64, 128 and
+// 256; fp32 the next power of two from 8. x and y are read and written at
+// their real row stride C (16-byte moves, as C % 8 == 0) and the channels
+// C..CP are zeros in shared memory or registers: zeros in the pad columns of
+// x, the weights and the biases, so q, k, v and y are zero there; the pad
+// keys of the Gram are set to -inf (bf16; the fp32 softmax and apply run
+// over the C real keys) before the softmax, and the pad rows of A meet zero
+// columns of Wproj, so neither reaches y. Gram strips made only of pad rows
+// are skipped. C = 8 runs in the C = 16 layout (m16n8k16 takes 16-deep
+// k-steps), C = 24 in C = 32's, 40-56 in 64's, 72-128 in the 128 layout with
+// 3 warps a block (the 139 KB of resident weights leave room for no more),
+// and 136-256 in the C = 256 kernel (window_channel_attention_wide_kernel,
+// below), whose weights (541 KB) stream through shared memory. Padding to
+// the next layout costs up to (256 / 160)^2 = 2.6x the Gram work at C = 160.
 //
 // fp32 stays exact fp32 (window_channel_attention_f32_kernel): FMAs on the
 // CUDA cores, no tensor cores, no TF32. One block of 256 threads walks
-// tiles of NW = 64 / C windows (one at C = 128) over the same persistent
+// tiles of NW = 64 / CP windows (one at CP >= 128) over the same persistent
 // grid; Wqkv^T, Wproj^T and the biases are staged once per block in fp32,
-// with row strides of 3C + 1 and C + 1 floats so that the transposing
-// stores, like the column walks of qkv and the Gram (strides 3C + 1,
-// C + 1), fall in distinct banks. At C = 128 the weights (~263 KB) stay in
-// device memory and are read through L2 and the read-only cache, 16 bytes a
-// load. Every intermediate lives in shared memory; each thread owns one
-// output channel at PJ positions (4; 8 at C = 128, 16 at C = 256) in the
-// qkv and proj products. The Gram, its softmax and the apply run on SR
-// rows of the Gram at a time: all C up to C = 128, strips of 64 at C = 256,
-// whose whole Gram (263 KB) would outgrow shared memory. Windows past the
-// end of the last tile compute on zeros and are not stored.
+// with row strides of 3CP + 1 and CP + 1 floats so that the transposing
+// stores, like the column walks of qkv and the Gram (strides 3CP + 1,
+// CP + 1), fall in distinct banks. At CP >= 128 the weights (~263 KB at
+// 128) stay in device memory and are read through L2 and the read-only
+// cache, 16 bytes a load, over the C real inputs. Every intermediate lives
+// in shared memory; each thread owns one output channel of the layout at PJ
+// positions (4; 8 at CP = 128, 16 at CP = 256) in the qkv and proj
+// products. The Gram, its softmax and the apply run on SR rows of the Gram
+// at a time: all CP up to CP = 128, strips of 64 at CP = 256, whose whole
+// Gram (263 KB) would outgrow shared memory. Windows past the end of the
+// last tile compute on zeros and are not stored.
 //
 // Stages. kStage < kFull ends each window early and stores a result folded
 // from everything that stage computed (so no work is dead code), rounded
@@ -83,12 +94,13 @@
 //   kSoftmax the same fold over A = softmax_rows(G)
 // The row sums of every Gram row are written to shared memory (fp32: the
 // pad slot of each Gram row; bf16: a per-warp array) and the first 16 read
-// back. kFull is the op, and its instantiation compiles exactly the code
-// above.
+// back. The stage kernels run at C = CP only (16, 32, 64). kFull is the
+// op, and its instantiation compiles exactly the code above.
 #pragma once
 
 #include <climits>
 #include <cmath>
+#include <type_traits>
 
 #include "common.cuh"
 #include "mma.cuh"
@@ -137,53 +149,54 @@ __device__ __forceinline__ long long pixel_offset(long long win, int p, int H, i
 // fp32: the FMA body
 // ---------------------------------------------------------------------------
 
-template <int C>
+template <int CP>
 struct Layout {
-  // weights staged in shared memory up to C = 64; at C = 128 the transposed
-  // fp32 weights alone (~263 KB) outgrow it, and the products read them
-  // through L2 and the read-only cache, 16 bytes a load
-  static constexpr bool RESIDENT = C <= 64;
-  static constexpr int NW = C <= 64 ? 64 / C : 1;   // windows per tile
-  static constexpr int SR = C > 128 ? 64 : C;       // Gram rows at a time
+  // weights staged in shared memory up to CP = 64; at CP = 128 the
+  // transposed fp32 weights alone (~263 KB) outgrow it, and the products read
+  // them through L2 and the read-only cache, 16 bytes a load
+  static constexpr bool RESIDENT = CP <= 64;
+  static constexpr int NW = CP <= 64 ? 64 / CP : 1;   // windows per tile
+  static constexpr int SR = CP > 128 ? 64 : CP;       // Gram rows at a time
   static constexpr int ROWS = NW * kP;   // positions per tile
-  static constexpr int RG = kThreads / C;           // thread rows of the products
-  static constexpr int PJ = ROWS / RG;              // positions per thread
-  static constexpr int QS = 3 * C + 1;   // padded qkv row stride; also Wqkv^T's
-  static constexpr int GS = C + 1;       // padded Gram row stride; also Wproj^T's
-  static constexpr int W_QKV = 0;                  // [C][QS], (in, out)
-  static constexpr int B_QKV = W_QKV + (RESIDENT ? C * QS : 0);   // [3C]
-  static constexpr int W_PROJ = B_QKV + 3 * C;     // [C][GS], (in, out)
-  static constexpr int B_PROJ = W_PROJ + (RESIDENT ? C * GS : 0);  // [C]
-  static constexpr int X = B_PROJ + C;             // [ROWS][C]; later the attention output
-  static constexpr int QKV = X + ROWS * C;         // [ROWS][QS]
+  static constexpr int RG = kThreads / CP;            // thread rows of the products
+  static constexpr int PJ = ROWS / RG;                // positions per thread
+  static constexpr int QS = 3 * CP + 1;  // padded qkv row stride; also Wqkv^T's
+  static constexpr int GS = CP + 1;      // padded Gram row stride; also Wproj^T's
+  static constexpr int W_QKV = 0;                  // [CP][QS], (in, out)
+  static constexpr int B_QKV = W_QKV + (RESIDENT ? CP * QS : 0);   // [3CP]
+  static constexpr int W_PROJ = B_QKV + 3 * CP;    // [CP][GS], (in, out)
+  static constexpr int B_PROJ = W_PROJ + (RESIDENT ? CP * GS : 0);  // [CP]
+  static constexpr int X = B_PROJ + CP;            // [ROWS][CP]; later the attention output
+  static constexpr int QKV = X + ROWS * CP;        // [ROWS][QS]
   static constexpr int DEN = QKV + ROWS * QS;      // [2][ROWS] normalize denominators
   static constexpr int G = DEN + 2 * ROWS;         // [NW][SR][GS]
   static constexpr int TOTAL = G + NW * SR * GS;
 };
 
 // An early stage's store: f(r) at channel og of the thread's PJ positions
-// r = rg + RG * j of the tile, as the proj store lays them out.
-template <int C, bool kPacked, typename F>
+// r = rg + RG * j of the tile, as the proj store lays them out (C = CP).
+template <int CP, bool kPacked, typename F>
 __device__ __forceinline__ void store_stage(float* __restrict__ y, long long win0,
                                             long long n_windows, int H, int W, int og, int rg,
                                             F f) {
-  using L = Layout<C>;
+  using L = Layout<CP>;
 #pragma unroll
   for (int j = 0; j < L::PJ; ++j) {
     const int r = rg + L::RG * j;
     const long long win = win0 + r / kP;
-    if (win < n_windows) y[pixel_offset<kPacked>(win, r % kP, H, W) * C + og] = f(r);
+    if (win < n_windows) y[pixel_offset<kPacked>(win, r % kP, H, W) * CP + og] = f(r);
   }
 }
 
-template <int C, bool kPacked, int kStage>
+// The layout's channels are CP; the tensors' are C <= CP (C % 8 == 0).
+template <int CP, bool kPacked, int kStage>
 __global__ void __launch_bounds__(kThreads)
 window_channel_attention_f32_kernel(const float* __restrict__ x, const float* __restrict__ wqkv,
                                     const float* __restrict__ bqkv,
                                     const float* __restrict__ wproj,
                                     const float* __restrict__ bproj, float* __restrict__ y,
-                                    int H, int W, long long n_windows, float eps) {
-  using L = Layout<C>;
+                                    int H, int W, long long n_windows, int C, float eps) {
+  using L = Layout<CP>;
   extern __shared__ float smem[];
   float* sWq = smem + L::W_QKV;
   float* sBq = smem + L::B_QKV;
@@ -195,40 +208,51 @@ window_channel_attention_f32_kernel(const float* __restrict__ x, const float* __
   float* sG = smem + L::G;
   const int tid = threadIdx.x;
   // qkv, apply and proj: thread (og, rg) owns output channel og at PJ
-  // positions (4, and 8 at C = 128), so one shared-memory load feeds 3-4
+  // positions (4, and 8 at CP = 128), so one shared-memory load feeds 3-4
   // FMAs
   constexpr int RG = L::RG, PJ = L::PJ;
   static_assert(L::ROWS == PJ * RG && kP % PJ == 0, "PJ positions of one window per thread");
-  const int og = tid % C, rg = tid / C;
+  const int og = tid % CP, rg = tid / CP;
   // the qkv and norm stages' fold: q + k + v (normalized or not) at (r, og)
   [[maybe_unused]] auto qkv_sum = [&](int r) {
     const float* u = sQKV + r * L::QS + og;
-    return u[0] + u[C] + u[2 * C];
+    return u[0] + u[CP] + u[2 * CP];
   };
 
   // the weights, transposed to (in, out): consecutive threads read
-  // consecutive `in` and store QS (GS) floats apart, an odd stride
+  // consecutive `in` and store QS (GS) floats apart, an odd stride; zeros
+  // in the pad rows and columns
   if constexpr (L::RESIDENT) {
-    for (int e = tid; e < 3 * C * C; e += kThreads) sWq[(e % C) * L::QS + e / C] = wqkv[e];
-    for (int e = tid; e < C * C; e += kThreads) sWp[(e % C) * L::GS + e / C] = wproj[e];
+    for (int e = tid; e < 3 * CP * CP; e += kThreads) {
+      const int o = e / CP, i = e % CP, blk = o / CP, oi = o % CP;
+      sWq[i * L::QS + o] = i < C && oi < C ? wqkv[(blk * C + oi) * C + i] : 0.f;
+    }
+    for (int e = tid; e < CP * CP; e += kThreads) {
+      const int o = e / CP, i = e % CP;
+      sWp[i * L::GS + o] = i < C && o < C ? wproj[o * C + i] : 0.f;
+    }
   }
-  for (int e = tid; e < 3 * C; e += kThreads) sBq[e] = bqkv[e];
-  for (int e = tid; e < C; e += kThreads) sBp[e] = bproj[e];
+  for (int e = tid; e < 3 * CP; e += kThreads) {
+    const int blk = e / CP, i = e % CP;
+    sBq[e] = i < C ? bqkv[blk * C + i] : 0.f;
+  }
+  for (int e = tid; e < CP; e += kThreads) sBp[e] = e < C ? bproj[e] : 0.f;
 
   const long long n_tiles = (n_windows + L::NW - 1) / L::NW;
   for (long long tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
     const long long win0 = tile * L::NW;
     __syncthreads();  // weights staged; the previous tile is done with sX
 
-    for (int e = tid; e < L::ROWS * C; e += kThreads) {
-      const int r = e / C, c = e % C;
+    for (int e = tid; e < L::ROWS * CP; e += kThreads) {
+      const int r = e / CP, c = e % CP;
       const long long win = win0 + r / kP;
-      sX[e] = win < n_windows ? x[pixel_offset<kPacked>(win, r % kP, H, W) * C + c] : 0.f;
+      sX[e] = win < n_windows && c < C ? x[pixel_offset<kPacked>(win, r % kP, H, W) * C + c]
+                                       : 0.f;
     }
     __syncthreads();
     if constexpr (kStage == kCopy) {
-      store_stage<C, kPacked>(y, win0, n_windows, H, W, og, rg,
-                              [&](int r) { return sX[r * C + og]; });
+      store_stage<CP, kPacked>(y, win0, n_windows, H, W, og, rg,
+                               [&](int r) { return sX[r * CP + og]; });
       continue;
     }
 
@@ -238,26 +262,26 @@ window_channel_attention_f32_kernel(const float* __restrict__ x, const float* __
       float acc[PJ][3] = {};
       if constexpr (L::RESIDENT) {
 #pragma unroll 4
-        for (int i = 0; i < C; ++i) {
+        for (int i = 0; i < CP; ++i) {
           float a[PJ], w[3];
 #pragma unroll
-          for (int j = 0; j < PJ; ++j) a[j] = sX[(rg + RG * j) * C + i];
+          for (int j = 0; j < PJ; ++j) a[j] = sX[(rg + RG * j) * CP + i];
 #pragma unroll
-          for (int k = 0; k < 3; ++k) w[k] = sWq[i * L::QS + og + C * k];
+          for (int k = 0; k < 3; ++k) w[k] = sWq[i * L::QS + og + CP * k];
 #pragma unroll
           for (int j = 0; j < PJ; ++j)
 #pragma unroll
             for (int k = 0; k < 3; ++k) acc[j][k] = fmaf(a[j], w[k], acc[j][k]);
         }
-      } else {   // Wqkv rows og + C k, 4 inputs a load
+      } else if (og < C) {   // Wqkv rows og + C k, 4 of the C inputs a load
 #pragma unroll 1
         for (int i = 0; i < C; i += 4) {
           float4 w[3];
 #pragma unroll
-          for (int k = 0; k < 3; ++k) w[k] = load4(wqkv + (og + C * k) * C + i);
+          for (int k = 0; k < 3; ++k) w[k] = load4(wqkv + (long long)(og + C * k) * C + i);
 #pragma unroll
           for (int j = 0; j < PJ; ++j) {
-            const float4 a = *reinterpret_cast<const float4*>(sX + (rg + RG * j) * C + i);
+            const float4 a = *reinterpret_cast<const float4*>(sX + (rg + RG * j) * CP + i);
 #pragma unroll
             for (int k = 0; k < 3; ++k)
               acc[j][k] = fmaf(a.w, w[k].w, fmaf(a.z, w[k].z, fmaf(a.y, w[k].y,
@@ -269,49 +293,51 @@ window_channel_attention_f32_kernel(const float* __restrict__ x, const float* __
       for (int j = 0; j < PJ; ++j)
 #pragma unroll
         for (int k = 0; k < 3; ++k)
-          sQKV[(rg + RG * j) * L::QS + og + C * k] = acc[j][k] + sBq[og + C * k];
+          sQKV[(rg + RG * j) * L::QS + og + CP * k] = acc[j][k] + sBq[og + CP * k];
     }
     __syncthreads();
     if constexpr (kStage == kQkv) {
-      store_stage<C, kPacked>(y, win0, n_windows, H, W, og, rg, qkv_sum);
+      store_stage<CP, kPacked>(y, win0, n_windows, H, W, og, rg, qkv_sum);
       continue;
     }
 
     // zero-safe L2 normalize of q and k at each position
     for (int e = tid; e < 2 * L::ROWS; e += kThreads) {
       const int s = e / L::ROWS, r = e % L::ROWS;
-      const float* u = sQKV + r * L::QS + s * C;
+      const float* u = sQKV + r * L::QS + s * CP;
       float ss = 0.f;
 #pragma unroll 16
-      for (int c = 0; c < C; ++c) ss = fmaf(u[c], u[c], ss);
+      for (int c = 0; c < CP; ++c) ss = fmaf(u[c], u[c], ss);
       sDen[e] = fmaxf(ss == 0.f ? 0.f : sqrtf(ss), eps);
     }
     __syncthreads();
-    for (int e = tid; e < L::ROWS * 2 * C; e += kThreads) {
-      const int r = e / (2 * C), c = e % (2 * C);
-      sQKV[r * L::QS + c] /= sDen[(c / C) * L::ROWS + r];
+    for (int e = tid; e < L::ROWS * 2 * CP; e += kThreads) {
+      const int r = e / (2 * CP), c = e % (2 * CP);
+      sQKV[r * L::QS + c] /= sDen[(c / CP) * L::ROWS + r];
     }
     __syncthreads();
     if constexpr (kStage == kNorm) {
-      store_stage<C, kPacked>(y, win0, n_windows, H, W, og, rg, qkv_sum);
+      store_stage<CP, kPacked>(y, win0, n_windows, H, W, og, rg, qkv_sum);
       continue;
     }
 
     // per SR rows of the Gram qn^T kn (each window's, over its 16
-    // positions): the rows, their softmax (max-subtracted) and the apply
-    // out[r, c1] = sum_c2 A[c1, c2] v[r, c2] of those c1, into sX; each
-    // thread takes channel oc at PJS consecutive positions of one window
+    // positions): the rows, their softmax over the C real keys
+    // (max-subtracted) and the apply out[r, c1] = sum_c2 A[c1, c2] v[r, c2]
+    // of those c1, into sX; each thread takes channel oc at PJS consecutive
+    // positions of one window. A strip of pad rows only is skipped: its
+    // columns of sX keep x's zeros, and Wproj is zero there.
     constexpr int SR = L::SR, PJS = L::ROWS * SR / kThreads;
-    static_assert(SR == C || (kStage == kFull && C % SR == 0), "strips only in the op");
+    static_assert(SR == CP || (kStage == kFull && CP % SR == 0), "strips only in the op");
     const int oc = tid % SR, rgs = tid / SR;
     for (int s0 = 0; s0 < C; s0 += SR) {
-      for (int e = tid; e < L::NW * SR * C; e += kThreads) {
-        const int n = e / (SR * C), c1 = (e / C) % SR, c2 = e % C;
+      for (int e = tid; e < L::NW * SR * CP; e += kThreads) {
+        const int n = e / (SR * CP), c1 = (e / CP) % SR, c2 = e % CP;
         const float* base = sQKV + n * kP * L::QS;
         float acc = 0.f;
 #pragma unroll
         for (int t = 0; t < kP; ++t)
-          acc = fmaf(base[t * L::QS + s0 + c1], base[t * L::QS + C + c2], acc);
+          acc = fmaf(base[t * L::QS + s0 + c1], base[t * L::QS + CP + c2], acc);
         sG[(n * SR + c1) * L::GS + c2] = acc;
       }
       __syncthreads();
@@ -321,7 +347,7 @@ window_channel_attention_f32_kernel(const float* __restrict__ x, const float* __
         if constexpr (kStage == kLogits) {  // the raw row's sum, into its pad slot
           float rs = 0.f;
           for (int c = 0; c < C; ++c) rs += g[c];
-          g[C] = rs;
+          g[CP] = rs;
           continue;
         }
         float m = -INFINITY;
@@ -336,16 +362,16 @@ window_channel_attention_f32_kernel(const float* __restrict__ x, const float* __
         if constexpr (kStage == kSoftmax) {  // the softmax row's sum, into its pad slot
           float rs = 0.f;
           for (int c = 0; c < C; ++c) rs += g[c];
-          g[C] = rs;
+          g[CP] = rs;
         }
       }
       __syncthreads();
       if constexpr (kStage == kLogits || kStage == kSoftmax) {
         // v + the sum of Gram row p at position p < min(C, 16)
-        store_stage<C, kPacked>(y, win0, n_windows, H, W, og, rg, [&](int r) {
+        store_stage<CP, kPacked>(y, win0, n_windows, H, W, og, rg, [&](int r) {
           const int p = r % kP;
-          const float fold = p < (C < kP ? C : kP) ? sG[((r / kP) * C + p) * L::GS + C] : 0.f;
-          return sQKV[r * L::QS + 2 * C + og] + fold;
+          const float fold = p < (CP < kP ? CP : kP) ? sG[((r / kP) * CP + p) * L::GS + CP] : 0.f;
+          return sQKV[r * L::QS + 2 * CP + og] + fold;
         });
         break;
       }
@@ -357,41 +383,43 @@ window_channel_attention_f32_kernel(const float* __restrict__ x, const float* __
         const float g = a[c2];
 #pragma unroll
         for (int j = 0; j < PJS; ++j)
-          acc[j] = fmaf(g, sQKV[(rgs * PJS + j) * L::QS + 2 * C + c2], acc[j]);
+          acc[j] = fmaf(g, sQKV[(rgs * PJS + j) * L::QS + 2 * CP + c2], acc[j]);
       }
 #pragma unroll
-      for (int j = 0; j < PJS; ++j) sX[(rgs * PJS + j) * C + s0 + oc] = acc[j];
+      for (int j = 0; j < PJS; ++j) sX[(rgs * PJS + j) * CP + s0 + oc] = acc[j];
       __syncthreads();   // the strip's rows are applied; sX holds them
     }
     if constexpr (kStage == kLogits || kStage == kSoftmax) continue;
 
-    // y = out @ Wproj^T + b, stored once
+    // y = out @ Wproj^T + b, stored once at the C real channels
     {
       float acc[PJ] = {};
       if constexpr (L::RESIDENT) {
 #pragma unroll 4
-        for (int i = 0; i < C; ++i) {
+        for (int i = 0; i < CP; ++i) {
           const float w = sWp[i * L::GS + og];
 #pragma unroll
-          for (int j = 0; j < PJ; ++j) acc[j] = fmaf(sX[(rg + RG * j) * C + i], w, acc[j]);
+          for (int j = 0; j < PJ; ++j) acc[j] = fmaf(sX[(rg + RG * j) * CP + i], w, acc[j]);
         }
-      } else {   // Wproj row og, 4 inputs a load
+      } else if (og < C) {   // Wproj row og, 4 of the C inputs a load
 #pragma unroll 1
         for (int i = 0; i < C; i += 4) {
-          const float4 w = load4(wproj + og * C + i);
+          const float4 w = load4(wproj + (long long)og * C + i);
 #pragma unroll
           for (int j = 0; j < PJ; ++j) {
-            const float4 a = *reinterpret_cast<const float4*>(sX + (rg + RG * j) * C + i);
+            const float4 a = *reinterpret_cast<const float4*>(sX + (rg + RG * j) * CP + i);
             acc[j] = fmaf(a.w, w.w, fmaf(a.z, w.z, fmaf(a.y, w.y, fmaf(a.x, w.x, acc[j]))));
           }
         }
       }
+      if (og < C) {
 #pragma unroll
-      for (int j = 0; j < PJ; ++j) {
-        const int r = rg + RG * j;
-        const long long win = win0 + r / kP;
-        if (win < n_windows)
-          y[pixel_offset<kPacked>(win, r % kP, H, W) * C + og] = acc[j] + sBp[og];
+        for (int j = 0; j < PJ; ++j) {
+          const int r = rg + RG * j;
+          const long long win = win0 + r / kP;
+          if (win < n_windows)
+            y[pixel_offset<kPacked>(win, r % kP, H, W) * C + og] = acc[j] + sBp[og];
+        }
       }
     }
   }
@@ -403,18 +431,17 @@ window_channel_attention_f32_kernel(const float* __restrict__ x, const float* __
 
 using bf16 = __nv_bfloat16;
 
-template <int C>
+template <int CP_>
 struct MmaLayout {
-  // C = 8 runs padded to 16 channels inside (m16n8k16 takes 16-deep
-  // k-steps): the pad columns of x, the weights and the biases are zeros,
-  // so q, k, v and y are zero there; the pad keys of the Gram are set to
-  // -inf before the softmax, and the pad rows of A meet zero columns of
-  // Wproj, so neither reaches y
-  static constexpr int CP = C < 16 ? 16 : C;   // channels inside
+  // CP channels inside (16, 32, 64 or 128; m16n8k16 takes 16-deep
+  // k-steps); a tensor of C < CP channels runs with zeros in the pad
+  // columns of x, the weights and the biases, so q, k, v and y are zero
+  // there; the pad keys of the Gram are set to -inf before the softmax, and
+  // the pad rows of A meet zero columns of Wproj, so neither reaches y
+  static constexpr int CP = CP_;
   static constexpr int NT = CP / 8;         // n-tiles of a CP-wide strip
   static constexpr int KT = CP / 16;        // k-steps over CP; m-tiles of the Gram
-  static constexpr int CH = C / 8;          // 16-byte chunks of a position in x and y
-  static constexpr int CHP = CP / 8;        // ... of a row in shared memory
+  static constexpr int CHP = CP / 8;        // 16-byte chunks of a row in shared memory
   static constexpr int XS = CP + 8;         // x / y row
   static constexpr int QS = 2 * CP + 8;     // qn | kn row, hi and lo alike
   static constexpr int WS = CP + 8;         // weight row: [4CP][WS], Wqkv then Wproj
@@ -422,16 +449,16 @@ struct MmaLayout {
   static constexpr int Q = kP * QS;         // qn | kn of a warp, hi or lo
   static constexpr int WARP = 2 * X + 2 * Q;
   static constexpr int W_ELEMS = 4 * CP * WS;
-  // warps a block: at C = 128 the weights take 139 KB and each warp 25.6
+  // warps a block: at CP = 128 the weights take 139 KB and each warp 25.6
   // KB of the 227, so 3 warps; 8 elsewhere
-  static constexpr int WARPS = C > 64 ? 3 : kWarps;
+  static constexpr int WARPS = CP > 64 ? 3 : kWarps;
   static constexpr int THREADS = 32 * WARPS;
-  // at C >= 64 the softmax S enters the apply and the apply's output the
+  // at CP >= 64 the softmax S enters the apply and the apply's output the
   // proj as hi + lo pairs too: with one term each a saturated window at
   // C = 64 on 128^2 (c16's down2 at canvas 512, c32's down1) reaches 1.13
   // of the bf16 bound and at C = 128 0.97, with the pairs 0.68
   // (devtools/serving_kernel_rounding.py)
-  static constexpr bool SPLIT_APPLY = C >= 64;
+  static constexpr bool SPLIT_APPLY = CP >= 64;
   // bf16: weights, the warps' buffers; fp32: 4CP biases, CP row sums a warp
   static constexpr int BYTES = (W_ELEMS + WARPS * WARP) * (int)sizeof(bf16) +
                                (4 * CP + WARPS * CP) * (int)sizeof(float);
@@ -439,11 +466,11 @@ struct MmaLayout {
 
 // acc (16 positions x CP outputs) = a w^T + bias: a as A fragments (CP / 16
 // k-steps), w as CP rows [n][k] of stride WS (B fragments through ldmatrix).
-template <int C>
-__device__ __forceinline__ void linear_strip(float (&acc)[MmaLayout<C>::NT][4],
-                                             const uint32_t (&a)[MmaLayout<C>::KT][4],
+template <int CP>
+__device__ __forceinline__ void linear_strip(float (&acc)[MmaLayout<CP>::NT][4],
+                                             const uint32_t (&a)[MmaLayout<CP>::KT][4],
                                              const bf16* w, const float* bias, int lane) {
-  using L = MmaLayout<C>;
+  using L = MmaLayout<CP>;
   const int t = lane & 3;
 #pragma unroll
   for (int j = 0; j < L::NT; ++j) {
@@ -492,15 +519,18 @@ __device__ __forceinline__ void add_strip(float (&acc)[NT][4], const float (&x)[
     for (int i = 0; i < 4; ++i) acc[j][i] += x[j][i];
 }
 
-template <int C, bool kPacked, int kStage>
-__global__ void __launch_bounds__(MmaLayout<C>::THREADS)
+// The tensors' C: kC at compile time, or `width` at run time where kC is 0.
+template <int CP, bool kPacked, int kStage, int kC>
+__global__ void __launch_bounds__(MmaLayout<CP>::THREADS)
 window_channel_attention_mma_kernel(const bf16* __restrict__ x, const bf16* __restrict__ wqkv,
                                     const bf16* __restrict__ bqkv,
                                     const bf16* __restrict__ wproj,
                                     const bf16* __restrict__ bproj, bf16* __restrict__ y, int H,
-                                    int W, long long n_windows, float eps) {
-  using L = MmaLayout<C>;
-  constexpr int CP = L::CP, WARPS = L::WARPS;
+                                    int W, long long n_windows, int width, float eps) {
+  using L = MmaLayout<CP>;
+  constexpr int WARPS = L::WARPS;
+  const int C = kC ? kC : width;
+  const int CH = C / 8;   // 16-byte chunks of a position in x and y
   extern __shared__ __align__(16) unsigned char smem_mma[];
   bf16* sW = reinterpret_cast<bf16*>(smem_mma);                   // [4CP][WS]
   bf16* sWarps = sW + L::W_ELEMS;
@@ -512,13 +542,13 @@ window_channel_attention_mma_kernel(const bf16* __restrict__ x, const bf16* __re
   [[maybe_unused]] float* sRow = sBias + 4 * CP + warp * CP;   // Gram row sums (stages)
 
   // the window at `base` (window_base): x into a buffer of the warp, 16
-  // bytes a copy; the pad columns (C = 8) as zeros
+  // bytes a copy from rows of C; the pad columns as zeros
   auto stage = [&](long long base, bf16* dst) {
     const bf16* src = x + base * C;
 #pragma unroll
     for (int e = lane; e < kP * L::CHP; e += 32) {
       const int p = e / L::CHP, c = e % L::CHP;
-      const bool real = L::CH == L::CHP || c < L::CH;
+      const bool real = c < CH;
       cp_async16(dst + p * L::XS + c * 8,
                  src + position_offset<kPacked>(p, W) * C + (real ? c * 8 : 0), real);
     }
@@ -530,19 +560,18 @@ window_channel_attention_mma_kernel(const bf16* __restrict__ x, const bf16* __re
       __syncwarp();
     }
     bf16* dst = y + base * C;
-#pragma unroll
-    for (int e = lane; e < kP * L::CH; e += 32) {
-      const int p = e / L::CH, c = e % L::CH;
+    for (int e = lane; e < kP * CH; e += 32) {
+      const int p = e / CH, c = e % CH;
       *reinterpret_cast<uint4*>(dst + position_offset<kPacked>(p, W) * C + c * 8) =
           *reinterpret_cast<const uint4*>(buf + p * L::XS + c * 8);
     }
   };
 
   // the weights: row i of each CP-row block (q, k, v, proj), column chunk
-  // c; zeros in the pads (C = 8)
+  // c; zeros in the pads
   for (int e = tid; e < 4 * CP * L::CHP; e += L::THREADS) {
     const int r = e / L::CHP, c = e % L::CHP, blk = r / CP, i = r % CP;
-    const bool real = i < C && c < L::CH;
+    const bool real = i < C && c < CH;
     const bf16* src = blk < 3 ? wqkv + (blk * C + i) * C : wproj + i * C;
     cp_async16(sW + r * L::WS + c * 8, real ? src + c * 8 : wqkv, real);
   }
@@ -583,7 +612,7 @@ window_channel_attention_mma_kernel(const bf16* __restrict__ x, const bf16* __re
     [[maybe_unused]] float fold[L::NT][4] = {};
 #pragma unroll
     for (int s = 0; s < 2; ++s) {
-      linear_strip<C>(u, xa, sW + s * CP * L::WS, sBias + s * CP, lane);
+      linear_strip<CP>(u, xa, sW + s * CP * L::WS, sBias + s * CP, lane);
       if constexpr (kStage > kQkv) {
         normalize_strip(u, eps);
         store_frags<L::NT>(sQK, sLO, L::QS, 0, s * CP, u, 1.f, lane);
@@ -591,7 +620,7 @@ window_channel_attention_mma_kernel(const bf16* __restrict__ x, const bf16* __re
       if constexpr (kStage <= kNorm) add_strip(fold, u);
     }
     float v[L::NT][4];
-    linear_strip<C>(v, xa, sW + 2 * CP * L::WS, sBias + 2 * CP, lane);
+    linear_strip<CP>(v, xa, sW + 2 * CP * L::WS, sBias + 2 * CP, lane);
     if constexpr (kStage <= kNorm) {
       add_strip(fold, v);
       store(base, xs, fold);
@@ -614,12 +643,15 @@ window_channel_attention_mma_kernel(const bf16* __restrict__ x, const bf16* __re
     }
 #pragma unroll
     for (int mt = 0; mt < L::KT; ++mt) {
-      // rows 16 mt.. of the Gram and of its softmax
+      // rows 16 mt.. of the Gram and of its softmax; a strip of pad rows
+      // only adds nothing to y (Wproj is zero there) and is skipped
+      if (mt * 16 >= C) break;
       float a[L::NT][4];
       gram_strip<CP>(a, sQK, L::QS, sLO, L::QS, mt, lane);
-      if constexpr (CP != C) {   // the pad keys drop out of the softmax
+      if (CH < L::NT) {   // the pad keys drop out of the softmax
 #pragma unroll
-        for (int j = L::CH; j < L::NT; ++j) a[j][0] = a[j][1] = a[j][2] = a[j][3] = -INFINITY;
+        for (int j = 0; j < L::NT; ++j)
+          if (j >= CH) a[j][0] = a[j][1] = a[j][2] = a[j][3] = -INFINITY;
       }
       if constexpr (kStage != kLogits) softmax_strip<L::NT, true>(a);   // __expf: y is bf16
       if constexpr (kStage != kFull) {   // every row's sum, to shared memory
@@ -693,49 +725,53 @@ window_channel_attention_mma_kernel(const bf16* __restrict__ x, const bf16* __re
 }
 
 // ---------------------------------------------------------------------------
-// bf16 at C = 256: the weights streamed
+// bf16 at C = 136 .. 256: the weights streamed
 // ---------------------------------------------------------------------------
 //
-// C = 256 (the c64 generator's down2). Wqkv and Wproj as bf16 rows are 4C x
-// (C + 8) = 541 KB, past the 227 KB a block may hold, and a warp that owned a
-// window's 16 x C strips (q, k, v, the proj's sums, a Gram strip) would hold
-// 128 fp32 values a thread in each. So a block of 8 warps takes two windows
-// at a time (32 positions, two m-tiles) through three phases, every
-// intermediate in shared memory, and the weights pass through it in tiles of
-// 64 rows (double-buffered 16-byte cp.async, one block barrier a tile, each
-// tile used by both windows; the first tile of the next pair is copied while
-// the last is used):
-//   qkv   12 tiles of Wqkv. Warp w computes 16 positions (window w / 4) x 16
-//         outputs (16 (w % 4)..) of a tile, k-steps from the staged x. q and
-//         k go to shared memory raw as hi + lo pairs and are normalized from
-//         those pairs afterwards (a warp a row: 1 / max(|u|, eps), so a zero
-//         vector stays zero) and split again; v is a pair too.
-//   Gram  each window's 16 strips of 16 query channels, 4 a warp, keys in 4
-//         chunks of 64: the scores (hi hi + hi lo + lo hi), their
+// The layout of CP = 256 channels (the c64 generator's down2; C = 160, 192
+// and 224 of the c40, c48 and c56 generators run in it, padded). Wqkv and
+// Wproj as bf16 rows are 4CP x (CP + 8) = 541 KB, past the 227 KB a block may
+// hold, and a warp that owned a window's 16 x CP strips (q, k, v, the proj's
+// sums, a Gram strip) would hold 128 fp32 values a thread in each. So a block
+// of 8 warps takes two windows at a time (32 positions, two m-tiles) through
+// three phases, every intermediate in shared memory, and the weights pass
+// through it in tiles of 64 rows (double-buffered 16-byte cp.async, one
+// block barrier a tile, each tile used by both windows; the first tile of
+// the next pair is copied while the last is used). Of each of q, k, v and
+// proj only the ceil(C / 64) tiles that hold a real row pass (zero-filled
+// past C), and the products take ceil(C / 16) k-steps:
+//   qkv   3 ceil(C / 64) tiles of Wqkv (12 at C = 256). Warp w computes 16
+//         positions (window w / 4) x 16 outputs (16 (w % 4)..) of a tile,
+//         k-steps from the staged x. q and k go to shared memory raw as hi
+//         + lo pairs and are normalized from those pairs afterwards (a warp
+//         a row: 1 / max(|u|, eps), so a zero vector stays zero) and split
+//         again; v is a pair too.
+//   Gram  each window's ceil(C / 16) strips of 16 query channels, 4 a warp,
+//         keys in chunks of 64: the scores (hi hi + hi lo + lo hi), their
 //         exponentials and at once the apply out[p][c1] += sum_c2 v[p][c2]
 //         e[c1][c2] (v and e both as pairs: three products). The
 //         exponentials are taken at the fixed shift 16 instead of the row
 //         max: qn and kn are unit vectors (or zero) at each of 16 positions,
 //         so every logit lies in [-16, 16], exp(g - 16) >= exp(-32) stays a
-//         normal fp32 value, and no running max or rescale is needed. The
-//         row sums (quad sums) divide the strip of out at the end (a shuffle
-//         brings row c1's sum to the lanes that hold column c1), and it goes
-//         to shared memory as hi + lo.
-//   proj  4 tiles of Wproj on out (hi + lo); y + bias leaves as bf16 pairs.
+//         normal fp32 value, and no running max or rescale is needed; a pad
+//         key's exponential is 0 (its logit -inf). The row sums (quad sums)
+//         divide the strip of out at the end (a shuffle brings row c1's sum
+//         to the lanes that hold column c1), and it goes to shared memory as
+//         hi + lo.
+//   proj  ceil(C / 64) tiles of Wproj on out (hi + lo); y + bias leaves as
+//         bf16 pairs at the C real columns.
 // Operands rounded to bf16 inside: every one the kernel forms is a hi + lo
 // pair (q, k, qn, kn, v, the exponentials, out). With v as one term a
 // saturated window on the 64^2 grid reaches 0.83 of the bf16 bound, with the
 // pair 0.67 (devtools/serving_kernel_rounding.py).
 struct WideLayout {
-  static constexpr int C = 256;
+  static constexpr int CP = 256;
   static constexpr int WINDOWS = 2;             // windows a block takes at a time
   static constexpr int ROWS = WINDOWS * kP;     // positions: two m-tiles
-  static constexpr int KT = C / 16;             // k-steps over C
   static constexpr int TILE_ROWS = 64;          // weight rows a tile
-  static constexpr int TILES_QKV = 3 * C / TILE_ROWS, TILES = 4 * C / TILE_ROWS;
-  static constexpr int XS = C + 8;              // rows of C values: 528 bytes
-  static constexpr int QS = 2 * C + 8;          // q | k rows: 1040 bytes
-  static constexpr int CH = C / 8;              // 16-byte chunks of a row
+  static constexpr int XS = CP + 8;             // rows of CP values: 528 bytes
+  static constexpr int QS = 2 * CP + 8;         // q | k rows: 1040 bytes
+  static constexpr int CH = CP / 8;             // 16-byte chunks of a row
   static constexpr int TILE = TILE_ROWS * XS;
   static constexpr int W = 0;                   // [2][64][XS] weight tiles
   static constexpr int X = W + 2 * TILE;        // [32][XS] x; later out hi
@@ -745,18 +781,20 @@ struct WideLayout {
   static constexpr int VH = QL + ROWS * QS;     // [32][XS] v hi
   static constexpr int VL = VH + ROWS * XS;     // [32][XS] v lo
   static constexpr int ELEMS = VL + ROWS * XS;
-  static constexpr int BYTES = ELEMS * (int)sizeof(bf16) + 4 * C * (int)sizeof(float);
+  static constexpr int BYTES = ELEMS * (int)sizeof(bf16) + 4 * CP * (int)sizeof(float);
 };
 
-template <bool kPacked>
+// The tensors' C: kC at compile time, or `width` at run time where kC is 0.
+template <bool kPacked, int kC>
 __global__ void __launch_bounds__(kThreads, 1)
 window_channel_attention_wide_kernel(const bf16* __restrict__ x, const bf16* __restrict__ wqkv,
                                      const bf16* __restrict__ bqkv,
                                      const bf16* __restrict__ wproj,
                                      const bf16* __restrict__ bproj, bf16* __restrict__ y, int H,
-                                     int W, long long n_windows, float eps) {
+                                     int W, long long n_windows, int width, float eps) {
   using L = WideLayout;
-  constexpr int C = L::C, XS = L::XS, QS = L::QS;
+  constexpr int CP = L::CP, XS = L::XS, QS = L::QS;
+  const int C = kC ? kC : width;
   extern __shared__ __align__(16) unsigned char smem_mma[];
   bf16* sW = reinterpret_cast<bf16*>(smem_mma) + L::W;
   bf16* sX = reinterpret_cast<bf16*>(smem_mma) + L::X;    // x, then out hi
@@ -769,19 +807,27 @@ window_channel_attention_wide_kernel(const bf16* __restrict__ x, const bf16* __r
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const int g = lane >> 2, tq = lane & 3;
   const int mt = warp >> 2, np = warp & 3;   // the products: m-tile, 16 outputs of a tile
+  const int CH = C / 8;                                   // real 16-byte chunks of a row
+  const int tpb = (C + L::TILE_ROWS - 1) / L::TILE_ROWS;  // tiles of q, k, v or proj
+  const int tiles_qkv = 3 * tpb, tiles = 4 * tpb;
+  const int kt = (C + 15) / 16;                           // k-steps; query strips
 
-  // weight tile t into buffer t & 1: rows 64 t.. of Wqkv, then of Wproj
+  // weight tile t into buffer t & 1: rows 64 (t % tpb).. of block t / tpb
+  // (q, k, v of Wqkv, then Wproj); zeros past C
   auto load_tile = [&](int t) {
-    const bf16* src = t < L::TILES_QKV ? wqkv + (long long)t * L::TILE_ROWS * C
-                                       : wproj + (long long)(t - L::TILES_QKV) * L::TILE_ROWS * C;
+    const int blk = t / tpb, i0 = (t % tpb) * L::TILE_ROWS;
     bf16* dst = sW + (t & 1) * L::TILE;
     for (int e = tid; e < L::TILE_ROWS * L::CH; e += kThreads) {
-      const int r = e / L::CH, c = e % L::CH;
-      cp_async16(dst + r * XS + c * 8, src + r * C + c * 8);
+      const int r = e / L::CH, c = e % L::CH, i = i0 + r;
+      const bool real = kC == CP || (i < C && c < CH);
+      const bf16* src = blk < 3 ? wqkv + (long long)(blk * C + i) * C : wproj + (long long)i * C;
+      cp_async16(dst + r * XS + c * 8, real ? src + c * 8 : wqkv, real);
     }
   };
-  for (int e = tid; e < 4 * C; e += kThreads)
-    sBias[e] = to_f(e < 3 * C ? bqkv[e] : bproj[e - 3 * C]);
+  for (int e = tid; e < 4 * CP; e += kThreads) {
+    const int blk = e / CP, i = e % CP;
+    sBias[e] = i < C ? to_f(blk < 3 ? bqkv[blk * C + i] : bproj[i]) : 0.f;
+  }
 
   const long long n_pairs = (n_windows + L::WINDOWS - 1) / L::WINDOWS;
   if ((long long)blockIdx.x < n_pairs) load_tile(0);
@@ -789,28 +835,30 @@ window_channel_attention_wide_kernel(const bf16* __restrict__ x, const bf16* __r
   for (long long pair = blockIdx.x; pair < n_pairs; pair += gridDim.x) {
     const long long win0 = pair * L::WINDOWS;
     __syncthreads();   // the previous pair is done with sX (its out hi)
-    // the two windows' x, 16 bytes a copy; a window past the end as zeros
+    // the two windows' x, 16 bytes a copy from rows of C; pads and a window
+    // past the end as zeros
     for (int e = tid; e < L::ROWS * L::CH; e += kThreads) {
       const int r = e / L::CH, c = e % L::CH;
       const long long win = win0 + r / kP;
-      const bool ok = win < n_windows;
+      const bool ok = win < n_windows && c < CH;
       cp_async16(sX + r * XS + c * 8,
                  x + (ok ? pixel_offset<kPacked>(win, r % kP, H, W) * C + c * 8 : 0), ok);
     }
     cp_async_commit();
 
 #pragma unroll 1
-    for (int t = 0; t < L::TILES; ++t) {
+    for (int t = 0; t < tiles; ++t) {
       cp_async_wait<0>();
       __syncthreads();   // tile t (and x) are in; every warp is done with tile t - 1
-      if (t + 1 < L::TILES) load_tile(t + 1);
+      if (t + 1 < tiles) load_tile(t + 1);
       else if (pair + gridDim.x < n_pairs) load_tile(0);
       cp_async_commit();
       const bf16* tile = sW + (t & 1) * L::TILE;
-      const bool proj = t >= L::TILES_QKV;
+      const int blk = t / tpb;   // 0 q, 1 k, 2 v, 3 proj
+      const bool proj = blk == 3;
       // 16 positions x 16 outputs of this tile: bias, then the k-steps
-      const int o0 = (proj ? t - L::TILES_QKV : t) * L::TILE_ROWS + np * 16;
-      const float* bias = sBias + (proj ? 3 * C : 0) + o0;
+      const int o0 = (t % tpb) * L::TILE_ROWS + np * 16;
+      const float* bias = sBias + blk * CP + o0;
       float acc[2][4];
 #pragma unroll
       for (int j = 0; j < 2; ++j) {
@@ -819,7 +867,7 @@ window_channel_attention_wide_kernel(const bf16* __restrict__ x, const bf16* __r
         acc[j][1] = acc[j][3] = b.y;
       }
 #pragma unroll 4
-      for (int kk = 0; kk < L::KT; ++kk) {
+      for (int kk = 0; kk < kt; ++kk) {
         uint32_t b[4], a[4];
         ldmatrix_x4(b, tile + (np * 16 + (lane & 7) + (lane >> 4) * 8) * XS + kk * 16 +
                            ((lane >> 3) & 1) * 8);
@@ -834,7 +882,7 @@ window_channel_attention_wide_kernel(const bf16* __restrict__ x, const bf16* __r
         }
       }
 
-      if (proj) {   // y, where the window exists
+      if (proj) {   // y, where the window and the column exist
         const long long win = win0 + mt;
         if (win < n_windows) {
 #pragma unroll
@@ -842,26 +890,32 @@ window_channel_attention_wide_kernel(const bf16* __restrict__ x, const bf16* __r
             bf16* row = y + pixel_offset<kPacked>(win, g + 8 * hh, H, W) * C + o0 + 2 * tq;
 #pragma unroll
             for (int j = 0; j < 2; ++j)
-              *reinterpret_cast<uint32_t*>(row + j * 8) =
-                  pack_bf16(acc[j][2 * hh], acc[j][2 * hh + 1]);
+              if (o0 + j * 8 < C)
+                *reinterpret_cast<uint32_t*>(row + j * 8) =
+                    pack_bf16(acc[j][2 * hh], acc[j][2 * hh + 1]);
           }
         }
         continue;
       }
       // q and k raw into q | k, v into v, all as hi + lo
-      if (t < 2 * L::TILES_QKV / 3)
-        store_frags<2>(sQH, sQL, QS, mt * 16, o0, acc, 1.f, lane);
+      if (blk < 2)
+        store_frags<2>(sQH, sQL, QS, mt * 16, blk * CP + o0, acc, 1.f, lane);
       else
-        store_frags<2>(sVH, sVL, XS, mt * 16, o0 - 2 * C, acc, 1.f, lane);
-      if (t + 1 < L::TILES_QKV) continue;
+        store_frags<2>(sVH, sVL, XS, mt * 16, o0, acc, 1.f, lane);
+      if (t + 1 < tiles_qkv) continue;
 
       // the last qkv tile: normalize every q and k row from its pair, a
-      // warp a row, 8 channels a lane, and split it again
+      // warp a row, 8 channels a lane (the real ones; the tiles wrote the
+      // rest of the first 64 ceil(C / 64) as zeros), and split it again
       __syncthreads();
+      const bool live = lane * 8 < C;
       for (int v = warp; v < 2 * L::ROWS; v += kWarps) {
-        const int off = (v >> 1) * QS + (v & 1) * C + lane * 8;
-        uint4 hu = *reinterpret_cast<const uint4*>(sQH + off);
-        uint4 lu = *reinterpret_cast<const uint4*>(sQL + off);
+        const int off = (v >> 1) * QS + (v & 1) * CP + lane * 8;
+        uint4 hu = make_uint4(0u, 0u, 0u, 0u), lu = hu;
+        if (live) {
+          hu = *reinterpret_cast<const uint4*>(sQH + off);
+          lu = *reinterpret_cast<const uint4*>(sQL + off);
+        }
         const bf16* hp = reinterpret_cast<const bf16*>(&hu);
         const bf16* lp = reinterpret_cast<const bf16*>(&lu);
         float u[8], ss = 0.f;
@@ -875,8 +929,10 @@ window_channel_attention_wide_kernel(const bf16* __restrict__ x, const bf16* __r
         uint32_t* lo = reinterpret_cast<uint32_t*>(&lu);
 #pragma unroll
         for (int i = 0; i < 4; ++i) pack_bf16_split(u[2 * i] * inv, u[2 * i + 1] * inv, ho[i], lo[i]);
-        *reinterpret_cast<uint4*>(sQH + off) = hu;
-        *reinterpret_cast<uint4*>(sQL + off) = lu;
+        if (live) {
+          *reinterpret_cast<uint4*>(sQH + off) = hu;
+          *reinterpret_cast<uint4*>(sQL + off) = lu;
+        }
       }
       __syncthreads();
 
@@ -886,7 +942,7 @@ window_channel_attention_wide_kernel(const bf16* __restrict__ x, const bf16* __r
       const bf16* vh = sVH + mt * kP * XS;
       const bf16* vl = sVL + mt * kP * XS;
 #pragma unroll 1
-      for (int s = np; s < C / 16; s += 4) {
+      for (int s = np; s < kt; s += 4) {
         // A[c1][p] = qn[p][c1] through ldmatrix.trans
         uint32_t ah[4], al[4];
         const int aoff = ((lane & 7) + (lane >> 4) * 8) * QS + s * 16 + ((lane >> 3) & 1) * 8;
@@ -895,13 +951,13 @@ window_channel_attention_wide_kernel(const bf16* __restrict__ x, const bf16* __r
         float o[2][4] = {};
         float l0 = 0.f, l1 = 0.f;   // the row sums of rows g and g + 8
 #pragma unroll 1
-        for (int kc = 0; kc < C / 64; ++kc) {
+        for (int kc = 0; kc < tpb; ++kc) {
           float e[8][4];
 #pragma unroll
           for (int j = 0; j < 8; ++j) e[j][0] = e[j][1] = e[j][2] = e[j][3] = 0.f;
 #pragma unroll
           for (int nb = 0; nb < 4; ++nb) {
-            const int boff = ((lane & 7) + ((lane >> 3) & 1) * 8) * QS + C + kc * 64 + nb * 16 +
+            const int boff = ((lane & 7) + ((lane >> 3) & 1) * 8) * QS + CP + kc * 64 + nb * 16 +
                              (lane >> 4) * 8;
             uint32_t bh[4], bl[4];
             ldmatrix_x4_trans(bh, qh + boff);
@@ -915,8 +971,9 @@ window_channel_attention_wide_kernel(const bf16* __restrict__ x, const bf16* __r
           }
 #pragma unroll
           for (int j = 0; j < 8; ++j) {
+            const bool key = kc * 64 + j * 8 < C;   // a pad key's exponential is 0
 #pragma unroll
-            for (int i = 0; i < 4; ++i) e[j][i] = __expf(e[j][i] - 16.f);   // y is bf16
+            for (int i = 0; i < 4; ++i) e[j][i] = key ? __expf(e[j][i] - 16.f) : 0.f;   // y is bf16
             l0 += e[j][0] + e[j][1];
             l1 += e[j][2] + e[j][3];
           }
@@ -961,25 +1018,32 @@ window_channel_attention_wide_kernel(const bf16* __restrict__ x, const bf16* __r
 
 // ---------------------------------------------------------------------------
 
-template <typename T, int C, bool kPacked, int kStage>
+// One launch in the layout of CP channels for a tensor of C <= CP. Each bf16
+// kernel is built twice per layout: with C folded in at compile time (kC =
+// C: the widths the layout was made for, as fast as before C was a runtime
+// value, and C = 8 in the CP = 16 layout, its only other width) and with the
+// runtime C (kC = 0) for the widths in between. fp32 (a checking path)
+// takes C at run time only.
+template <typename T, int CP, bool kPacked, int kStage, int kC>
 int launch(const void* x, const void* wqkv, const void* bqkv, const void* wproj,
-           const void* bproj, void* y, int H, int W, long long n_windows, float eps,
+           const void* bproj, void* y, int H, int W, long long n_windows, int C, float eps,
            cudaStream_t stream) {
   constexpr bool kFloat = sizeof(T) == sizeof(float);
-  constexpr bool kWide = !kFloat && C > 128;
-  static_assert(!kWide || (C == WideLayout::C && kStage == kFull), "C = 256: the op only");
+  constexpr bool kWide = !kFloat && CP > 128;
+  static_assert(kFloat || CP >= 16, "bf16 layouts start at 16 channels");
+  static_assert(!kWide || (CP == WideLayout::CP && kStage == kFull), "CP = 256: the op only");
   auto kernel = [] {
-    if constexpr (kFloat) return window_channel_attention_f32_kernel<C, kPacked, kStage>;
-    else if constexpr (kWide) return window_channel_attention_wide_kernel<kPacked>;
-    else return window_channel_attention_mma_kernel<C, kPacked, kStage>;
+    if constexpr (kFloat) return window_channel_attention_f32_kernel<CP, kPacked, kStage>;
+    else if constexpr (kWide) return window_channel_attention_wide_kernel<kPacked, kC>;
+    else return window_channel_attention_mma_kernel<CP, kPacked, kStage, kC>;
   }();
   // units of work a block strides over: tiles of NW windows (fp32), rounds
-  // of one window per warp (bf16), pairs of windows (bf16, C = 256)
-  constexpr int smem = kFloat  ? Layout<C>::TOTAL * (int)sizeof(float)
+  // of one window per warp (bf16), pairs of windows (bf16, CP = 256)
+  constexpr int smem = kFloat  ? Layout<CP>::TOTAL * (int)sizeof(float)
                        : kWide ? WideLayout::BYTES
-                               : MmaLayout<C>::BYTES;
-  constexpr int per_unit = kFloat ? Layout<C>::NW : kWide ? WideLayout::WINDOWS : MmaLayout<C>::WARPS;
-  constexpr int threads = kFloat || kWide ? kThreads : MmaLayout<C>::THREADS;
+                               : MmaLayout<CP>::BYTES;
+  constexpr int per_unit = kFloat ? Layout<CP>::NW : kWide ? WideLayout::WINDOWS : MmaLayout<CP>::WARPS;
+  constexpr int threads = kFloat || kWide ? kThreads : MmaLayout<CP>::THREADS;
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
   if (!kFloat && n_windows > INT_MAX - (1 << 20)) return (int)cudaErrorInvalidValue;
@@ -988,36 +1052,60 @@ int launch(const void* x, const void* wqkv, const void* bqkv, const void* wproj,
     const int rc = residency(kernel, threads, smem, &sms, &blocks_per_sm);
     if (rc != 0) return rc;
   }
-  // At C = 16 (and 8, padded to 16) the weights are 3-4 KB, cheaper to
-  // stage four times than a static share of the work is to balance: four
-  // blocks per resident slot there (5-8% faster at batch 64 and at canvas
-  // 512), one elsewhere.
-  constexpr int kWaves = C <= 16 ? 4 : 1;
+  // At CP = 16 (C = 8 and 16) the weights are 3-4 KB, cheaper to stage four
+  // times than a static share of the work is to balance: four blocks per
+  // resident slot there (5-8% faster at batch 64 and at canvas 512), one
+  // elsewhere.
+  constexpr int kWaves = CP <= 16 ? 4 : 1;
   const int grid = persistent_grid((n_windows + per_unit - 1) / per_unit, sms,
                                    blocks_per_sm * kWaves);
   kernel<<<(unsigned)grid, threads, smem, stream>>>(
       static_cast<const T*>(x), static_cast<const T*>(wqkv), static_cast<const T*>(bqkv),
       static_cast<const T*>(wproj), static_cast<const T*>(bproj), static_cast<T*>(y),
-      H, W, n_windows, eps);
+      H, W, n_windows, C, eps);
   return (int)cudaGetLastError();
 }
 
-// C in {16, 32, 64}, the c16 generator's widths; with kAllWidths (the
-// production entry points) also 8, 128 and 256, those of c8, c32 and c64.
+// With kAllWidths (the production entry points) any C % 8 == 0 from 8 to 256,
+// in the layout of the next power of two from 8 (fp32) or 16 (bf16);
+// without (the stage kernels) C = 16, 32 and 64, unpadded.
 template <bool kPacked, int kStage, bool kAllWidths, typename T>
 int launch_c(const void* x, const void* wqkv, const void* bqkv, const void* wproj,
              const void* bproj, void* y, int H, int W, long long n_windows, int C,
              float eps, cudaStream_t stream) {
-  if constexpr (kAllWidths) {
-    if (C == 8) return launch<T, 8, kPacked, kStage>(x, wqkv, bqkv, wproj, bproj, y, H, W, n_windows, eps, stream);
-    if (C == 128) return launch<T, 128, kPacked, kStage>(x, wqkv, bqkv, wproj, bproj, y, H, W, n_windows, eps, stream);
-    if (C == 256) return launch<T, 256, kPacked, kStage>(x, wqkv, bqkv, wproj, bproj, y, H, W, n_windows, eps, stream);
-  }
-  switch (C) {
-    case 16: return launch<T, 16, kPacked, kStage>(x, wqkv, bqkv, wproj, bproj, y, H, W, n_windows, eps, stream);
-    case 32: return launch<T, 32, kPacked, kStage>(x, wqkv, bqkv, wproj, bproj, y, H, W, n_windows, eps, stream);
-    case 64: return launch<T, 64, kPacked, kStage>(x, wqkv, bqkv, wproj, bproj, y, H, W, n_windows, eps, stream);
-    default: return (int)cudaErrorInvalidValue;
+  auto go = [&](auto cp) {
+    constexpr int CP = decltype(cp)::value;
+    auto with = [&](auto kc) {   // kc: C folded in, or 0 (C at run time)
+      return launch<T, CP, kPacked, kStage, decltype(kc)::value>(
+          x, wqkv, bqkv, wproj, bproj, y, H, W, n_windows, C, eps, stream);
+    };
+    if constexpr (sizeof(T) == sizeof(float)) return with(std::integral_constant<int, 0>{});
+    else if constexpr (!kAllWidths) return with(std::integral_constant<int, CP>{});
+    else {
+      if (C == CP) return with(std::integral_constant<int, CP>{});
+      // below CP: C = 8 in the CP = 16 layout, or a width between two
+      // layouts of 32 .. 256
+      if constexpr (CP > 16) return with(std::integral_constant<int, 0>{});
+      else return with(std::integral_constant<int, 8>{});
+    }
+  };
+  using std::integral_constant;
+  if constexpr (!kAllWidths) {
+    switch (C) {
+      case 16: return go(integral_constant<int, 16>{});
+      case 32: return go(integral_constant<int, 32>{});
+      case 64: return go(integral_constant<int, 64>{});
+      default: return (int)cudaErrorInvalidValue;
+    }
+  } else {
+    if (C < 8 || C > 256 || C % 8) return (int)cudaErrorInvalidValue;
+    if constexpr (sizeof(T) == sizeof(float))
+      if (C <= 8) return go(integral_constant<int, 8>{});
+    if (C <= 16) return go(integral_constant<int, 16>{});
+    if (C <= 32) return go(integral_constant<int, 32>{});
+    if (C <= 64) return go(integral_constant<int, 64>{});
+    if (C <= 128) return go(integral_constant<int, 128>{});
+    return go(integral_constant<int, 256>{});
   }
 }
 

@@ -3,9 +3,9 @@
 //
 // Replaces ops/pallas/window_mhsa_train.py::window_mhsa_train of the JAX
 // package (its _fwd_kernel and hand-written _bwd_kernel). On a (B, H, W, 3C)
-// qkv grid with C = 32 HEADS in HEADS heads of 32 (the blocks of the c8,
-// c16, c32 and c64 generators: C = 32, 64, 128, 256 in 1, 2, 4, 8 heads), per 8x8
-// window of 64 tokens and per head, scale = 32^-0.5:
+// qkv grid with C = 32 heads in `heads` heads of 32 (the blocks of every
+// generator width that is a multiple of 8 up to 64: C = 32, 64, .., 256 in
+// 1 .. 8 heads), per 8x8 window of 64 tokens and per head, scale = 32^-0.5:
 //   s  = q k^T scale, minus its row max ;  p = softmax(s) ;  o = p v
 // and, given dO = d(o):
 //   dv = p^T dO ;  dp = dO v^T ;  ds = p (.) (dp - rowsum(p (.) dp))
@@ -55,8 +55,9 @@
 // head's 32 channels of q, k, v (and dO) alone, so the shared memory of a
 // block does not grow with the width. At dim 256 a window's qkv and dO are
 // 64 x 1024 values, 256 KB in fp32, and a block still holds one head's 64 x
-// 128 of them. The kernels are instantiated per head count (HEADS = C /
-// 32: 1, 2, 4, 8); supported() refuses any other (C, heads).
+// 128 of them. The head count is a runtime argument (1 to 8, C = 32
+// heads; head h of q, k and v at column 32 h of each third of the 3C row);
+// supported() refuses any other (C, heads).
 #include <climits>
 #include <cmath>
 
@@ -127,20 +128,21 @@ __device__ void softmax_rows(float* p) {
   }
 }
 
-template <typename T, int HEADS>
+template <typename T>
 __global__ void __launch_bounds__(kThreads)
-mhsa_fwd_kernel(const T* __restrict__ qkv, T* __restrict__ out, int H, int W, float scale) {
-  constexpr int kC = HEADS * kHd;
+mhsa_fwd_kernel(const T* __restrict__ qkv, T* __restrict__ out, int H, int W, int heads,
+                float scale) {
+  const int C = heads * kHd;
   extern __shared__ float smem[];
   float* sQ = smem;
   float* sK = sQ + ROWS;
   float* sV = sK + ROWS;
   float* sP = sV + ROWS;
-  const long long win = blockIdx.x / HEADS;
-  const int head = blockIdx.x % HEADS;
-  load_rows(qkv, 3 * kC, head * kHd, sQ, win, H, W);
-  load_rows(qkv, 3 * kC, kC + head * kHd, sK, win, H, W);
-  load_rows(qkv, 3 * kC, 2 * kC + head * kHd, sV, win, H, W);
+  const long long win = blockIdx.x / heads;
+  const int head = blockIdx.x % heads;
+  load_rows(qkv, 3 * C, head * kHd, sQ, win, H, W);
+  load_rows(qkv, 3 * C, C + head * kHd, sK, win, H, W);
+  load_rows(qkv, 3 * C, 2 * C + head * kHd, sV, win, H, W);
   __syncthreads();
   scores(sQ, sK, sP, scale);
   __syncthreads();
@@ -152,15 +154,15 @@ mhsa_fwd_kernel(const T* __restrict__ qkv, T* __restrict__ out, int H, int W, fl
     float acc = 0.f;
 #pragma unroll 8
     for (int s = 0; s < kTok; ++s) acc = fmaf(sP[t * PS + s], sV[s * TS + d], acc);
-    out[token_offset(win, t, H, W) * kC + head * kHd + d] = from_f<T>(acc);
+    out[token_offset(win, t, H, W) * C + head * kHd + d] = from_f<T>(acc);
   }
 }
 
-template <typename T, int HEADS>
+template <typename T>
 __global__ void __launch_bounds__(kThreads)
 mhsa_bwd_kernel(const T* __restrict__ qkv, const T* __restrict__ dout, T* __restrict__ dqkv,
-                int H, int W, float scale) {
-  constexpr int kC = HEADS * kHd;
+                int H, int W, int heads, float scale) {
+  const int C = heads * kHd;
   extern __shared__ float smem[];
   float* sQ = smem;
   float* sK = sQ + ROWS;
@@ -168,12 +170,12 @@ mhsa_bwd_kernel(const T* __restrict__ qkv, const T* __restrict__ dout, T* __rest
   float* sDO = sV + ROWS;
   float* sP = sDO + ROWS;
   float* sDP = sP + SCORES;
-  const long long win = blockIdx.x / HEADS;
-  const int head = blockIdx.x % HEADS;
-  load_rows(qkv, 3 * kC, head * kHd, sQ, win, H, W);
-  load_rows(qkv, 3 * kC, kC + head * kHd, sK, win, H, W);
-  load_rows(qkv, 3 * kC, 2 * kC + head * kHd, sV, win, H, W);
-  load_rows(dout, kC, head * kHd, sDO, win, H, W);
+  const long long win = blockIdx.x / heads;
+  const int head = blockIdx.x % heads;
+  load_rows(qkv, 3 * C, head * kHd, sQ, win, H, W);
+  load_rows(qkv, 3 * C, C + head * kHd, sK, win, H, W);
+  load_rows(qkv, 3 * C, 2 * C + head * kHd, sV, win, H, W);
+  load_rows(dout, C, head * kHd, sDO, win, H, W);
   __syncthreads();
   scores(sQ, sK, sP, scale);    // the forward's p, recomputed
   scores(sDO, sV, sDP, 1.f);    // dp[t][s] = sum_d dO[t][d] v[s][d]
@@ -201,10 +203,10 @@ mhsa_bwd_kernel(const T* __restrict__ qkv, const T* __restrict__ dout, T* __rest
       dk = fmaf(sDP[j * PS + i], sQ[j * TS + d], dk);
       dv = fmaf(sP[j * PS + i], sDO[j * TS + d], dv);
     }
-    T* row = dqkv + token_offset(win, i, H, W) * 3 * kC + head * kHd + d;
+    T* row = dqkv + token_offset(win, i, H, W) * 3 * C + head * kHd + d;
     row[0] = from_f<T>(dq * scale);
-    row[kC] = from_f<T>(dk * scale);
-    row[2 * kC] = from_f<T>(dv);
+    row[C] = from_f<T>(dk * scale);
+    row[2 * C] = from_f<T>(dv);
   }
 }
 
@@ -269,19 +271,18 @@ __device__ __forceinline__ void square_t_times_tile(float (&acc)[4][4], const bf
   }
 }
 
-template <int HEADS>
 __global__ void __launch_bounds__(kMmaThreads)
 mhsa_fwd_mma_kernel(const bf16* __restrict__ qkv, bf16* __restrict__ out, int H, int W,
-                    float scale) {
-  constexpr int kC = HEADS * kHd;
+                    int heads, float scale) {
+  const int C = heads * kHd;
   extern __shared__ __align__(16) unsigned char smem_mma[];
   bf16* sQ = reinterpret_cast<bf16*>(smem_mma);   // q, k, v tiles back to back
   bf16* sK = sQ + TILE;
   bf16* sV = sK + TILE;
-  const long long win = blockIdx.x / HEADS;
-  const int head = blockIdx.x % HEADS;
+  const long long win = blockIdx.x / heads;
+  const int head = blockIdx.x % heads;
   const int lane = threadIdx.x % 32, r0 = (threadIdx.x / 32) * 16;
-  stage_tiles(qkv, 3 * kC, head * kHd, kC, 3, sQ, win, H, W);
+  stage_tiles(qkv, 3 * C, head * kHd, C, 3, sQ, win, H, W);
   cp_async_commit();
   cp_async_wait<0>();
   __syncthreads();
@@ -307,14 +308,13 @@ mhsa_fwd_mma_kernel(const bf16* __restrict__ qkv, bf16* __restrict__ out, int H,
   __syncwarp();
   store_frags<4>(sQ, nullptr, RS, r0, 0, o, 1.f, lane);
   __syncwarp();
-  store_tiles(out, kC, head * kHd, kC, 1, sQ, r0, win, H, W, lane);
+  store_tiles(out, C, head * kHd, C, 1, sQ, r0, win, H, W, lane);
 }
 
-template <int HEADS>
 __global__ void __launch_bounds__(kMmaThreads)
 mhsa_bwd_mma_kernel(const bf16* __restrict__ qkv, const bf16* __restrict__ dout,
-                    bf16* __restrict__ dqkv, int H, int W, float scale) {
-  constexpr int kC = HEADS * kHd;
+                    bf16* __restrict__ dqkv, int H, int W, int heads, float scale) {
+  const int C = heads * kHd;
   extern __shared__ __align__(16) unsigned char smem_mma[];
   bf16* sQ = reinterpret_cast<bf16*>(smem_mma);   // q, k, v, dO tiles back to back
   bf16* sK = sQ + TILE;
@@ -323,11 +323,11 @@ mhsa_bwd_mma_kernel(const bf16* __restrict__ qkv, const bf16* __restrict__ dout,
   bf16* sP = sDO + TILE;                          // [query][key]: p, ds hi, ds lo
   bf16* sDH = sP + SQUARE;
   bf16* sDL = sDH + SQUARE;
-  const long long win = blockIdx.x / HEADS;
-  const int head = blockIdx.x % HEADS;
+  const long long win = blockIdx.x / heads;
+  const int head = blockIdx.x % heads;
   const int lane = threadIdx.x % 32, r0 = (threadIdx.x / 32) * 16;
-  stage_tiles(qkv, 3 * kC, head * kHd, kC, 3, sQ, win, H, W);
-  stage_tiles(dout, kC, head * kHd, kC, 1, sDO, win, H, W);
+  stage_tiles(qkv, 3 * C, head * kHd, C, 3, sQ, win, H, W);
+  stage_tiles(dout, C, head * kHd, C, 1, sDO, win, H, W);
   cp_async_commit();
   cp_async_wait<0>();
   __syncthreads();
@@ -378,66 +378,63 @@ mhsa_bwd_mma_kernel(const bf16* __restrict__ qkv, const bf16* __restrict__ dout,
   store_frags<4>(sK, nullptr, RS, r0, 0, dk, scale, lane);
   store_frags<4>(sV, nullptr, RS, r0, 0, dv, 1.f, lane);
   __syncwarp();
-  store_tiles(dqkv, 3 * kC, head * kHd, kC, 3, sQ, r0, win, H, W, lane);
+  store_tiles(dqkv, 3 * C, head * kHd, C, 3, sQ, r0, win, H, W, lane);
 }
 
 // ---------------------------------------------------------------------------
 
-template <int HEADS>
-int launch_fwd_f32(const void* qkv, void* out, long long grid, int H, int W, float scale,
-                   cudaStream_t stream) {
-  const int smem = F_TOTAL * (int)sizeof(float);
-  auto kernel = mhsa_fwd_kernel<float, HEADS>;
-  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return (int)err;
-  kernel<<<(unsigned)grid, kThreads, smem, stream>>>(static_cast<const float*>(qkv),
-                                                     static_cast<float*>(out), H, W, scale);
+// One block per (window, head); fp32 kernels on 256 threads, bf16 on 128.
+int fwd(const void* qkv, void* out, long long grid, int H, int W, int heads, int dtype,
+        cudaStream_t s) {
+  const float scale = 1.f / sqrtf((float)kHd);
+  if (dtype == kF32) {
+    const int smem = F_TOTAL * (int)sizeof(float);
+    auto kernel = mhsa_fwd_kernel<float>;
+    cudaError_t err =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return (int)err;
+    kernel<<<(unsigned)grid, kThreads, smem, s>>>(static_cast<const float*>(qkv),
+                                                  static_cast<float*>(out), H, W, heads, scale);
+  } else if (dtype == kBF16) {
+    cudaError_t err = cudaFuncSetAttribute(
+        mhsa_fwd_mma_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, MMA_F_BYTES);
+    if (err != cudaSuccess) return (int)err;
+    mhsa_fwd_mma_kernel<<<(unsigned)grid, kMmaThreads, MMA_F_BYTES, s>>>(
+        static_cast<const bf16*>(qkv), static_cast<bf16*>(out), H, W, heads, scale);
+  } else {
+    return (int)cudaErrorInvalidValue;
+  }
   return (int)cudaGetLastError();
 }
 
-template <int HEADS>
-int launch_bwd_f32(const void* qkv, const void* dout, void* dqkv, long long grid, int H, int W,
-                   float scale, cudaStream_t stream) {
-  const int smem = B_TOTAL * (int)sizeof(float);
-  auto kernel = mhsa_bwd_kernel<float, HEADS>;
-  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return (int)err;
-  kernel<<<(unsigned)grid, kThreads, smem, stream>>>(
-      static_cast<const float*>(qkv), static_cast<const float*>(dout),
-      static_cast<float*>(dqkv), H, W, scale);
+int bwd(const void* qkv, const void* dout, void* dqkv, long long grid, int H, int W, int heads,
+        int dtype, cudaStream_t s) {
+  const float scale = 1.f / sqrtf((float)kHd);
+  if (dtype == kF32) {
+    const int smem = B_TOTAL * (int)sizeof(float);
+    auto kernel = mhsa_bwd_kernel<float>;
+    cudaError_t err =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return (int)err;
+    kernel<<<(unsigned)grid, kThreads, smem, s>>>(
+        static_cast<const float*>(qkv), static_cast<const float*>(dout),
+        static_cast<float*>(dqkv), H, W, heads, scale);
+  } else if (dtype == kBF16) {
+    cudaError_t err = cudaFuncSetAttribute(
+        mhsa_bwd_mma_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, MMA_B_BYTES);
+    if (err != cudaSuccess) return (int)err;
+    mhsa_bwd_mma_kernel<<<(unsigned)grid, kMmaThreads, MMA_B_BYTES, s>>>(
+        static_cast<const bf16*>(qkv), static_cast<const bf16*>(dout), static_cast<bf16*>(dqkv),
+        H, W, heads, scale);
+  } else {
+    return (int)cudaErrorInvalidValue;
+  }
   return (int)cudaGetLastError();
 }
 
-template <int HEADS>
-int launch_fwd_bf16(const void* qkv, void* out, long long grid, int H, int W, float scale,
-                    cudaStream_t stream) {
-  auto kernel = mhsa_fwd_mma_kernel<HEADS>;
-  cudaError_t err =
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, MMA_F_BYTES);
-  if (err != cudaSuccess) return (int)err;
-  kernel<<<(unsigned)grid, kMmaThreads, MMA_F_BYTES, stream>>>(
-      static_cast<const bf16*>(qkv), static_cast<bf16*>(out), H, W, scale);
-  return (int)cudaGetLastError();
-}
-
-template <int HEADS>
-int launch_bwd_bf16(const void* qkv, const void* dout, void* dqkv, long long grid, int H, int W,
-                    float scale, cudaStream_t stream) {
-  auto kernel = mhsa_bwd_mma_kernel<HEADS>;
-  cudaError_t err =
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, MMA_B_BYTES);
-  if (err != cudaSuccess) return (int)err;
-  kernel<<<(unsigned)grid, kMmaThreads, MMA_B_BYTES, stream>>>(
-      static_cast<const bf16*>(qkv), static_cast<const bf16*>(dout), static_cast<bf16*>(dqkv),
-      H, W, scale);
-  return (int)cudaGetLastError();
-}
-
-// The blocks of the c8, c16, c32 and c64 generators: C = 32 heads, heads
-// of 32.
+// The blocks of the c8 .. c64 generators: C = 32 heads, 1 to 8 heads of 32.
 bool supported(int H, int W, int C, int heads) {
-  return (heads == 1 || heads == 2 || heads == 4 || heads == 8) && C == heads * kHd &&
-         H % kWin == 0 && W % kWin == 0;
+  return heads >= 1 && heads <= 8 && C == heads * kHd && H % kWin == 0 && W % kWin == 0;
 }
 
 // One block per (window, head).
@@ -445,48 +442,12 @@ long long grid_size(int B, int H, int W, int heads) {
   return (long long)B * (H / kWin) * (W / kWin) * heads;
 }
 
-int fwd(const void* qkv, void* out, long long grid, int H, int W, int heads, int dtype,
-        cudaStream_t s) {
-  const float scale = 1.f / sqrtf((float)kHd);
-  const bool f32 = dtype == kF32;
-  if (!f32 && dtype != kBF16) return (int)cudaErrorInvalidValue;
-  switch (heads) {
-    case 1: return f32 ? launch_fwd_f32<1>(qkv, out, grid, H, W, scale, s)
-                       : launch_fwd_bf16<1>(qkv, out, grid, H, W, scale, s);
-    case 2: return f32 ? launch_fwd_f32<2>(qkv, out, grid, H, W, scale, s)
-                       : launch_fwd_bf16<2>(qkv, out, grid, H, W, scale, s);
-    case 4: return f32 ? launch_fwd_f32<4>(qkv, out, grid, H, W, scale, s)
-                       : launch_fwd_bf16<4>(qkv, out, grid, H, W, scale, s);
-    case 8: return f32 ? launch_fwd_f32<8>(qkv, out, grid, H, W, scale, s)
-                       : launch_fwd_bf16<8>(qkv, out, grid, H, W, scale, s);
-    default: return (int)cudaErrorInvalidValue;
-  }
-}
-
-int bwd(const void* qkv, const void* dout, void* dqkv, long long grid, int H, int W, int heads,
-        int dtype, cudaStream_t s) {
-  const float scale = 1.f / sqrtf((float)kHd);
-  const bool f32 = dtype == kF32;
-  if (!f32 && dtype != kBF16) return (int)cudaErrorInvalidValue;
-  switch (heads) {
-    case 1: return f32 ? launch_bwd_f32<1>(qkv, dout, dqkv, grid, H, W, scale, s)
-                       : launch_bwd_bf16<1>(qkv, dout, dqkv, grid, H, W, scale, s);
-    case 2: return f32 ? launch_bwd_f32<2>(qkv, dout, dqkv, grid, H, W, scale, s)
-                       : launch_bwd_bf16<2>(qkv, dout, dqkv, grid, H, W, scale, s);
-    case 4: return f32 ? launch_bwd_f32<4>(qkv, dout, dqkv, grid, H, W, scale, s)
-                       : launch_bwd_bf16<4>(qkv, dout, dqkv, grid, H, W, scale, s);
-    case 8: return f32 ? launch_bwd_f32<8>(qkv, dout, dqkv, grid, H, W, scale, s)
-                       : launch_bwd_bf16<8>(qkv, dout, dqkv, grid, H, W, scale, s);
-    default: return (int)cudaErrorInvalidValue;
-  }
-}
-
 }  // namespace
 }  // namespace mstgan
 
 // Plain C entry points (loaded with ctypes). qkv and dqkv are (B, H, W, 3C),
 // out and dout (B, H, W, C), all contiguous and 16-byte aligned, of one type
-// (dtype 0 = fp32, 1 = bf16), with C = 32 heads in 1, 2, 4 or 8 heads and H % 8
+// (dtype 0 = fp32, 1 = bf16), with C = 32 heads in 1 to 8 heads and H % 8
 // == W % 8 == 0. Each launches on `stream` and returns cudaGetLastError()
 // (0 on success); another (C, heads) returns cudaErrorInvalidValue.
 extern "C" int window_mhsa_train_fwd_launch(const void* qkv, void* out, int B, int H, int W,

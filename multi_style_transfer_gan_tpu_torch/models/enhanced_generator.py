@@ -21,11 +21,11 @@ compute and their gradients land in fp32.
 Routes: where autograd will need a gradient (grad mode on, and the input or
 a parameter requires grad) LocalAttention runs the 1x1 qkv conv, the
 training kernel of the mid and the 1x1 proj conv (on the card at the
-kernel's widths, ``window_attention_train.KERNEL_WIDTHS``, C = 8 to 64; at
-C = 128 and 256 the JAX package's route instead,
+kernel's widths, ``window_attention_train.KERNEL_WIDTHS``, C = 8, 16, 32,
+64; at every other C % 8 == 0 up to 256 the JAX package's route instead,
 ``window_channel_attention_fast_vjp``: the inference kernel forward, the
-backward recomputed through the XLA formulation; any other width raises),
-and the transformer block its
+backward recomputed through the XLA formulation; ``train_route`` chooses,
+and any other width raises), and the transformer block its
 training body; otherwise the inference kernels run (the serving path, and
 the D-phase fakes of a train step, made under ``torch.no_grad()``). On the
 CPU every width takes the plain versions.
@@ -46,11 +46,9 @@ from torch.utils.checkpoint import checkpoint
 from ..core.conv import conv, linear
 from ..core.norm import InstanceNorm, in_relu
 from ..ops.kernels import (
-    FAST_VJP_WIDTHS, window_channel_attention,
-    window_channel_attention_fast_vjp, window_channel_attention_plain,
-    window_channel_attention_train,
+    train_route, window_channel_attention, window_channel_attention_fast_vjp,
+    window_channel_attention_plain, window_channel_attention_train,
 )
-from ..ops.kernels.window_attention_train import KERNEL_WIDTHS as TRAIN_WIDTHS
 from ..ops.kernels._checks import grad_needed
 from .init_utils import init_generator_module_
 from .structural_transformer import StructuralTransformerBlock
@@ -80,19 +78,20 @@ class LocalAttention(nn.Module):
             return window_channel_attention(nhwc, *weights).permute(0, 3, 1, 2)
         # training routes (local_attention_apply(fast="train"),
         # enhanced_generator.py:131-146)
-        if x.device.type == "cpu" or C in TRAIN_WIDTHS:
+        route = train_route(C)
+        if x.device.type == "cpu" or route == "kernel":
             # convs in autograd around the hand-written mid
             qkv = conv(self.qkv, x).permute(0, 2, 3, 1)
             mid = window_channel_attention_train(qkv)
             return conv(self.proj, mid.permute(0, 3, 1, 2))
-        if C in FAST_VJP_WIDTHS:
+        if route == "fast_vjp":
             # no training kernel at this width, in JAX either
             return window_channel_attention_fast_vjp(
                 nhwc, *weights).permute(0, 3, 1, 2)
         raise ValueError(
             f"LocalAttention at C={C} does not train on the card: the "
-            f"training kernel is built for C in {TRAIN_WIDTHS} and the "
-            f"inference-kernel route for C in {FAST_VJP_WIDTHS}")
+            f"training kernel is built for C in (8, 16, 32, 64) and the "
+            f"inference-kernel route for the other C % 8 == 0 up to 256")
 
 
 _MSB_BRANCHES = (  # (name, kernel, padding, dilation)

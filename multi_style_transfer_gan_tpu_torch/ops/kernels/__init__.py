@@ -7,7 +7,8 @@ kernel launch and nowhere else. The inference kernels are forward-only and
 raise on a CUDA call that autograd would record; the training kernels come
 in forward/backward pairs behind one ``torch.autograd.Function`` each.
 ``window_channel_attention_fast_vjp`` is the JAX package's route for the
-LocalAttention widths no training kernel takes (C = 128 and 256): the
+LocalAttention widths no training kernel takes (C = 24, 40, 48, 56 and
+every other C % 8 == 0 up to 256 but 8, 16, 32, 64; ``train_route``): the
 inference kernel forward, the backward recomputed through the plain
 version.
 """
@@ -21,7 +22,7 @@ from .window_attention import (
     window_channel_attention_stage, window_channel_attention_stage_plain,
 )
 from .window_attention_fast_vjp import (
-    FAST_VJP_WIDTHS, window_channel_attention_fast_vjp,
+    train_route, window_channel_attention_fast_vjp,
 )
 from .window_attention_train import (
     window_attention_mid_backward_plain, window_attention_mid_bwd,
@@ -48,11 +49,12 @@ def reset_launch_counts() -> None:
 
 
 __all__ = [
-    "FAST_VJP_WIDTHS", "KERNELS", "STAGES", "depth_to_space_plain",
+    "KERNELS", "STAGES", "depth_to_space_plain",
     "fused_structural_block",
     "packed_window_channel_attention", "packed_window_channel_attention_plain",
     "reset_launch_counts", "space_to_depth_plain", "structural_block_plain",
-    "window_attention_mid_backward_plain", "window_attention_mid_bwd", "window_attention_mid_fwd",
+    "train_route", "window_attention_mid_backward_plain",
+    "window_attention_mid_bwd", "window_attention_mid_fwd",
     "window_attention_mid_plain", "window_channel_attention",
     "window_channel_attention_fast_vjp", "window_channel_attention_plain",
     "window_channel_attention_stage",

@@ -1,9 +1,10 @@
 """StructuralTransformerBlock body: CUDA kernel and plain version.
 
 ``fused_structural_block`` replaces ``ops/pallas/fused_transformer.py``;
-its kernel is ``csrc/fused_structural_block.cu``, built at the block widths
-of the c8, c16, c32 and c64 generators (dim 32, 64, 128, 256 with dim / 32
-heads).
+its kernel is ``csrc/fused_structural_block.cu``, which takes any dim % 32
+== 0 from 32 to 256 with dim / 32 heads (``kernel_takes``): the blocks of
+every generator width that is a multiple of 8 up to 64. In bf16 dim 96 runs
+padded in the dim-128 design and dims 160-224 in the dim-256 design.
 ``structural_block_plain`` is the port of ``_block_body_math`` /
 ``_window_attention``
 (models/structural_transformer.py:97-168), including the key mask of
@@ -23,7 +24,13 @@ from . import _build
 from ._checks import check_cuda_args, check_no_grad, dtype_code
 
 WINDOW = 8
-KERNEL_WIDTHS = (32, 64, 128, 256)   # each with default_num_heads(C) = C / 32 heads
+KERNEL_RULE = "C % 32 == 0 from 32 to 256 (C / 32 heads)"
+
+
+def kernel_takes(C: int) -> bool:
+    """The block kernel's widths: any C % 32 == 0 from 32 to 256, where
+    ``default_num_heads(C)`` is C / 32 heads of 32."""
+    return C % 32 == 0 and 32 <= C <= 256
 
 
 def default_num_heads(dim: int) -> int:
@@ -53,28 +60,30 @@ def block_launch_shape(B: int, H: int, W: int, C: int = 64) -> tuple:
     takes two 8x8 windows at a time; it holds the four weights as bf16 in
     rows padded by 8 values, per window x, struct and the k (hi, lo) and v
     tiles of every head (64 rows of 40), then the biases and LayerNorm
-    parameters as fp32. C = 128: a block takes one window; qkv and proj
-    are resident, fc1 and fc2 pass through two buffers of 16 hidden columns
-    (fc1 rows of C + 8, fc2 rows of 24), then x and one head's three tiles.
-    C = 256: a block takes one window; every weight passes through two
-    tiles of 64 rows of C + 8; LN1's (then LN2's) output as hi and lo, then
-    either the k and v tiles (hi and lo) of two heads beside the pair's
-    output (hi and lo, rows of 72) or the hidden chunk (hi and lo, rows of
-    136); the fp32 parameters and 256 row sums of LN2.
+    parameters as fp32. C = 96 and 128, in the layout of DP = 128: a block
+    takes one window; qkv and proj are resident, fc1 and fc2 pass through
+    two buffers of 16 hidden columns (fc1 rows of DP + 8, fc2 rows of 24),
+    then x and one head's three tiles. C = 160 to 256, in the layout of DP =
+    256: a block takes one window; every weight passes through two tiles of
+    64 rows of DP + 8; LN1's (then LN2's) output as hi and lo, then either
+    the k and v tiles (hi and lo) of two heads beside the pair's output (hi
+    and lo, rows of 72) or the hidden chunk (hi and lo, rows of 136); the
+    fp32 parameters and 256 row sums of LN2.
     The grid is ``persistent_grid(units, SMs, blocks per SM)``."""
     windows = B * -(-H // WINDOW) * -(-W // WINDOW)
-    params = 4 * 13 * C
     if C > 128:
+        dp = 256
         heads = 2 * 4 * 64 * 40 + 2 * 64 * 72
-        elems = 2 * 64 * (C + 8) + 2 * 64 * (C + 8) + max(heads, 2 * 64 * 136)
-        return windows, 2 * elems + params + 4 * 256
+        elems = 2 * 64 * (dp + 8) + 2 * 64 * (dp + 8) + max(heads, 2 * 64 * 136)
+        return windows, 2 * elems + 4 * 13 * dp + 4 * 256
     if C > 64:
-        chunk = 16 * (C + 8) + C * 24
-        elems = 4 * C * (C + 8) + 2 * chunk + 64 * (C + 8) + 3 * 64 * 40
-        return windows, 2 * elems + params
+        dp = 128
+        chunk = 16 * (dp + 8) + dp * 24
+        elems = 4 * dp * (dp + 8) + 2 * chunk + 64 * (dp + 8) + 3 * 64 * 40
+        return windows, 2 * elems + 4 * 13 * dp
     weights = 8 * C * (C + 8) + C * (4 * C + 8)
     group = 2 * 64 * (C + 8) + 3 * default_num_heads(C) * 64 * 40
-    return -(-windows // 2), 2 * (weights + 2 * group) + params
+    return -(-windows // 2), 2 * (weights + 2 * group) + 4 * 13 * C
 
 
 def _window_mhsa(h, qkv_w, qkv_b):
@@ -140,8 +149,8 @@ def fused_structural_block(x, struct, gamma, beta, *, eps: float = 1e-5,
     in ``WEIGHT_NAMES``.
 
     A CPU tensor takes the plain version. A CUDA tensor launches the kernel
-    (contiguous fp32 or bf16 x and struct, weights of the same type, C in
-    ``KERNEL_WIDTHS``, any H and W; 8x8 windows) or raises. The kernel is
+    (contiguous fp32 or bf16 x and struct, weights of the same type,
+    ``kernel_takes(C)``, any H and W; 8x8 windows) or raises. The kernel is
     forward-only: a CUDA call that autograd would record raises (the
     training route is the block body in autograd around
     ``window_mhsa_train``).
@@ -155,9 +164,9 @@ def fused_structural_block(x, struct, gamma, beta, *, eps: float = 1e-5,
     check_no_grad("fused_structural_block", x, struct, gamma, beta,
                   *weights.values())
     B, H, W, C = x.shape
-    if C not in KERNEL_WIDTHS:
-        raise ValueError(f"fused_structural_block kernel is built for C in "
-                         f"{KERNEL_WIDTHS}, got C={C}")
+    if not kernel_takes(C):
+        raise ValueError(f"fused_structural_block kernel is built for "
+                         f"{KERNEL_RULE}, got C={C}")
     shapes = weight_shapes(C)
     check_cuda_args("fused_structural_block", x,
                     {"struct": (struct, x.shape),

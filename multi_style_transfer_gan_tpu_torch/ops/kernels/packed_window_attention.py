@@ -6,8 +6,8 @@ one packed pixel: (B, Hp, Wp, 16 * C), position major (lane ``p * C + c``,
 kernels (``packed_grouped_window_attention``, ``packed_window_attention_v3``,
 ``packed_window_attention_pallas``); on Hopper
 ``packed_window_channel_attention`` launches one kernel, the packed-row
-entry point of ``csrc/window_channel_attention.cu``, at every width the
-generators have (C = 8 to 256: 128 to 4096 lanes).
+entry point of ``csrc/window_channel_attention.cu``, at any C % 8 == 0 from
+8 to 256 (128 to 4096 lanes; ``window_attention.kernel_takes``).
 ``packed_window_channel_attention_plain`` is the port of ``ops/packed.py::packed_window_channel_attention``.
 """
 
@@ -48,8 +48,8 @@ def packed_window_channel_attention(x, wqkv, bqkv, wproj, bproj, *,
     """LocalAttention forward on a packed (B, Hp, Wp, 16C) tensor.
 
     A CPU tensor takes the plain version. A CUDA tensor launches the kernel
-    (contiguous fp32 or bf16 input, weights of the same type, C in
-    ``window_attention.KERNEL_WIDTHS``) or raises. The kernel is
+    (contiguous fp32 or bf16 input, weights of the same type,
+    ``window_attention.kernel_takes(C)``) or raises. The kernel is
     forward-only: a CUDA call that autograd would record raises.
     """
     C = _width(x, wqkv)

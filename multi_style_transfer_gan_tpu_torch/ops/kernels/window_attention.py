@@ -5,9 +5,10 @@ Pallas layouts (v1, grouped, v3, dispatched by
 ``ops/pallas/attention_dispatch.py``) and three more forms of the same
 math (``window_attention_v4``, ``window_attention_v3_fused_io`` and the A/B
 script's ``window_attention_v6``); on Hopper one kernel,
-``csrc/window_channel_attention.cu``, serves every width the generators
-have: C = 16, 32, 64 (c16), 8 (c8's up2), 128 (c32's down2) and 256
-(c64's down2).
+``csrc/window_channel_attention.cu``, takes any C % 8 == 0 from 8 to 256
+(``kernel_takes``): the LocalAttention widths C, 2C and 4C of every
+generator width that is a multiple of 8 up to 64, each run inside the
+built layout of the next power of two (``layout_width``).
 ``window_channel_attention_plain`` is the port of
 ``_attention_math`` / ``_attention_windows``
 (models/enhanced_generator.py:168-205).
@@ -29,9 +30,25 @@ from . import _build
 from ._checks import check_cuda_args, check_no_grad, dtype_code
 
 WINDOW = 4
-KERNEL_WIDTHS = (8, 16, 32, 64, 128, 256)   # the c8, c16, c32 and c64 generators'
 STAGE_WIDTHS = (16, 32, 64)            # the stage ablation's (c16's)
 STAGES = ("copy", "qkv", "norm", "logits", "softmax", "full")
+KERNEL_RULE = "C % 8 == 0 from 8 to 256"
+
+
+def kernel_takes(C: int) -> bool:
+    """The attention kernel's widths: any C % 8 == 0 from 8 to 256, so
+    that a bf16 row keeps its 16-byte moves."""
+    return C % 8 == 0 and 8 <= C <= 256
+
+
+def layout_width(C: int, bf16: bool) -> int:
+    """CP, the channels of the built layout a tensor of C channels runs in
+    (zeros in the channels C..CP): the next power of two from 16 in bf16
+    (m16n8k16 takes 16-deep k-steps), from 8 in fp32."""
+    cp = 16 if bf16 else 8
+    while cp < C:
+        cp *= 2
+    return cp
 
 
 def persistent_grid(n_units: int, sms: int, blocks_per_sm: int) -> int:
@@ -45,32 +62,32 @@ def persistent_grid(n_units: int, sms: int, blocks_per_sm: int) -> int:
 def attention_launch_shape(n_windows: int, C: int, bf16: bool) -> tuple:
     """(units of work, dynamic shared memory in bytes) of one launch of the
     attention kernel at width C, as ``csrc/window_channel_attention.cuh``
-    lays it out. bf16 (warp MMA): C = 8 runs padded to CP = 16 channels; a
-    unit is one window per warp of the block's 8 (3 at C = 128); the block
-    holds the bf16 weights in rows of CP + 8, per warp two x buffers
-    (16 x (CP + 8)) and qn | kn as hi and lo (16 x (2CP + 8) each), then
-    4CP fp32 biases and CP fp32 row sums a warp. C = 256 (bf16): a unit is
-    two windows; the block holds two weight tiles of 64 rows of C + 8, the
-    two windows' x (later out hi), out lo, q | k hi and lo (rows of 2C +
-    8) and v hi and lo, then 4C fp32 biases. fp32 (FMA): a unit is a tile
-    of 64 / C windows (one at C >= 128); everything is fp32, the weights
-    are staged too up to C = 64, and the Gram is held 64 rows at a time at
-    C = 256."""
-    if bf16 and C > 128:
-        rows, xs = 32, C + 8
-        elems = 2 * 64 * xs + 4 * rows * xs + 2 * rows * (2 * C + 8)
-        return -(-n_windows // 2), 2 * elems + 4 * 4 * C
+    lays it out in the layout of CP = ``layout_width(C, bf16)`` channels.
+    bf16 (warp MMA): a unit is one window per warp of the block's 8 (3 at
+    CP = 128); the block holds the bf16 weights in rows of CP + 8, per warp
+    two x buffers (16 x (CP + 8)) and qn | kn as hi and lo (16 x (2CP + 8)
+    each), then 4CP fp32 biases and CP fp32 row sums a warp. CP = 256
+    (bf16): a unit is two windows; the block holds two weight tiles of 64
+    rows of CP + 8, the two windows' x (later out hi), out lo, q | k hi and
+    lo (rows of 2CP + 8) and v hi and lo, then 4CP fp32 biases. fp32 (FMA):
+    a unit is a tile of 64 / CP windows (one at CP >= 128); everything is
+    fp32, the weights are staged too up to CP = 64, and the Gram is held 64
+    rows at a time at CP = 256."""
+    cp = layout_width(C, bf16)
+    if bf16 and cp > 128:
+        rows, xs = 32, cp + 8
+        elems = 2 * 64 * xs + 4 * rows * xs + 2 * rows * (2 * cp + 8)
+        return -(-n_windows // 2), 2 * elems + 4 * 4 * cp
     if bf16:
-        cp = max(C, 16)
-        warps = 3 if C > 64 else 8
+        warps = 3 if cp > 64 else 8
         warp = 2 * 16 * (cp + 8) + 2 * 16 * (2 * cp + 8)
         smem = 2 * (4 * cp * (cp + 8) + warps * warp) + 4 * (4 * cp + warps * cp)
         return -(-n_windows // warps), smem
-    nw = max(1, 64 // C)
-    rows, qs, gs = nw * 16, 3 * C + 1, C + 1
-    weights = C * qs + C * gs if C <= 64 else 0
-    strip = 64 if C > 128 else C
-    floats = (weights + 3 * C + C + rows * C + rows * qs + 2 * rows
+    nw = max(1, 64 // cp)
+    rows, qs, gs = nw * 16, 3 * cp + 1, cp + 1
+    weights = cp * qs + cp * gs if cp <= 64 else 0
+    strip = 64 if cp > 128 else cp
+    floats = (weights + 3 * cp + cp + rows * cp + rows * qs + 2 * rows
               + nw * strip * gs)
     return -(-n_windows // nw), 4 * floats
 
@@ -160,16 +177,16 @@ def window_channel_attention_stage_plain(x, wqkv, bqkv, wproj, bproj, *,
 
 
 def launch_attention(wrapper, x, wqkv, bqkv, wproj, bproj, C, dims, eps,
-                     extra=(), widths=KERNEL_WIDTHS):
-    """The CUDA path of the attention wrappers at width C: checks (C in
-    ``widths``), the launch of entry point ``wrapper.__name__`` with its
-    grid ``dims`` (B, H, W of the NHWC tensor or of the packed one) and the
-    ``extra`` ints that follow C, and ``wrapper.launches``."""
+                     extra=(), takes=kernel_takes, built=KERNEL_RULE):
+    """The CUDA path of the attention wrappers at width C: checks (C taken
+    by ``takes``, described by ``built``), the launch of entry point
+    ``wrapper.__name__`` with its grid ``dims`` (B, H, W of the NHWC tensor
+    or of the packed one) and the ``extra`` ints that follow C, and
+    ``wrapper.launches``."""
     entry = wrapper.__name__
     check_no_grad(entry, x, wqkv, bqkv, wproj, bproj)
-    if C not in widths:
-        raise ValueError(f"{entry} kernel is built for C in {widths}, "
-                         f"got C={C}")
+    if not takes(C):
+        raise ValueError(f"{entry} kernel is built for {built}, got C={C}")
     wqkv = wqkv.reshape(3 * C, C)
     wproj = wproj.reshape(C, C)
     check_cuda_args(entry, x,
@@ -198,8 +215,8 @@ def window_channel_attention(x, wqkv, bqkv, wproj, bproj, *,
     """LocalAttention forward on a (B, H, W, C) tensor, 4x4 windows.
 
     A CPU tensor takes the plain version. A CUDA tensor launches the kernel
-    (contiguous fp32 or bf16 input, weights of the same type, C in
-    ``KERNEL_WIDTHS``, H % 4 == W % 4 == 0) or raises. The kernel is
+    (contiguous fp32 or bf16 input, weights of the same type,
+    ``kernel_takes(C)``, H % 4 == W % 4 == 0) or raises. The kernel is
     forward-only: a CUDA call that autograd would record raises (the
     training route is ``window_channel_attention_train`` between the two
     1x1 convs).
@@ -240,7 +257,9 @@ def window_channel_attention_stage(x, wqkv, bqkv, wproj, bproj, *,
             x, wqkv, bqkv, wproj, bproj, stage=stage, eps=eps)
     return launch_attention(window_channel_attention_stage, x, wqkv, bqkv,
                             wproj, bproj, C, (B, H, W), eps,
-                            extra=(STAGES.index(stage),), widths=STAGE_WIDTHS)
+                            extra=(STAGES.index(stage),),
+                            takes=STAGE_WIDTHS.__contains__,
+                            built=f"C in {STAGE_WIDTHS}")
 
 
 window_channel_attention_stage.launches = 0

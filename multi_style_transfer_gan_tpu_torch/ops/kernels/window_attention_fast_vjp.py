@@ -2,17 +2,18 @@
 package's ``_attention_fast_vjp`` (models/enhanced_generator.py:87-112).
 
 JAX trains the channel attention through its hand-written kernel pair
-(``window_channel_attention_train``) only at C <= 64
-(ops/pallas/window_attention_train.py:55-64). At any other width, the c32
-generator's down2 at C = 128 and the c64 generator's down1, up1 (C = 128)
-and down2 (C = 256) among them, ``local_attention_apply(fast="train")``
-takes ``_attention_fast_vjp`` (:131-146): the forward is the inference
-kernel, and the backward is XLA's VJP of ``_attention_math`` (:168-205),
-recomputed from the saved inputs. The port does the same:
+(``window_channel_attention_train``) only where ``supports_train_kernel``
+holds (ops/pallas/window_attention_train.py:55-64, 274-277: 128 % C == 0
+and C <= 64). At any other width, the c24 .. c56 generators' LocalAttention
+(C = 24, 40, 48, 56 and their doubles and quadruples), c32's down2 at C =
+128 and c64's down1, up1 (C = 128) and down2 (C = 256) among them,
+``local_attention_apply(fast="train")`` takes ``_attention_fast_vjp``
+(:131-146): the forward is the inference kernel, and the backward is XLA's
+VJP of ``_attention_math`` (:168-205), recomputed from the saved inputs.
+The port does the same (``train_route`` is the choice, as a function of C):
 
 - the forward launches row 1's kernel, ``window_channel_attention``
-  (``csrc/window_channel_attention.cu``, built at C = 128 and 256 for
-  serving);
+  (``csrc/window_channel_attention.cu``, any C % 8 == 0 up to 256);
 - the backward recomputes ``window_channel_attention_plain``, the port of
   ``_attention_math`` (the qkv 1x1 product, the window partition, the
   zero-safe L2 normalize, the Gram, its softmax, the apply and the proj,
@@ -29,10 +30,19 @@ from __future__ import annotations
 import torch
 
 from .window_attention import (
-    window_channel_attention, window_channel_attention_plain,
+    kernel_takes, window_channel_attention, window_channel_attention_plain,
 )
+from .window_attention_train import KERNEL_WIDTHS as TRAIN_KERNEL_WIDTHS
 
-FAST_VJP_WIDTHS = (128, 256)   # LocalAttention widths that train through this route
+
+def train_route(C: int) -> str | None:
+    """How LocalAttention at width C trains on the card: "kernel" (the
+    hand-written pair, ``window_channel_attention_train``, where JAX's
+    ``supports_train_kernel`` holds: C = 8, 16, 32, 64), "fast_vjp" (this
+    route: any other C the inference kernel takes) or None (no route)."""
+    if C in TRAIN_KERNEL_WIDTHS:
+        return "kernel"
+    return "fast_vjp" if kernel_takes(C) else None
 
 
 class _FastVJP(torch.autograd.Function):

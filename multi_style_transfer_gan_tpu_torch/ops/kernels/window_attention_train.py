@@ -25,11 +25,11 @@ as the fp32 kernel's backward does: where |q| ~ 1e-3 the gradients reach
 ~4e3, past the reach of two fp32 evaluations in different orders
 (``csrc/window_attention_train.cu``).
 
-The kernels take C = 8, 16, 32 and 64 (``KERNEL_WIDTHS``), the
-LocalAttention widths of the c8, c16, c32 and c64 generators but C = 128
-(c32's down2, c64's down1 and up1) and 256 (c64's down2), which have no
+The kernels take C = 8, 16, 32 and 64 (``KERNEL_WIDTHS``), where JAX's
+``supports_train_kernel`` holds (128 % C == 0, C <= 64); every other
+LocalAttention width of a generator (C = 24, 40, 48, .., 256) has no
 training kernel in the JAX package either: ``window_attention_fast_vjp``
-is their route.
+is its route (``window_attention_fast_vjp.train_route``).
 """
 
 from __future__ import annotations

@@ -17,9 +17,9 @@ Per window and head (window_mhsa_train.py:21-28), scale = hd^-0.5:
 The plain backward writes these formulas out; it is not autograd of the
 plain forward.
 
-The kernels take the blocks of the c8, c16, c32 and c64 generators: C =
-32, 64, 128 and 256 (``KERNEL_WIDTHS``) in C / 32 heads of 32
-(``kernel_heads``).
+The kernels take the blocks of every generator width that is a multiple
+of 8 up to 64: any C % 32 == 0 from 32 to 256 (``kernel_takes``) in C / 32
+heads of 32 (``kernel_heads``), the head count a runtime argument.
 """
 
 from __future__ import annotations
@@ -31,7 +31,11 @@ from ._checks import check_cuda_args, dtype_code
 from .window_attention_train import window_merge, window_partition
 
 WINDOW = 8
-KERNEL_WIDTHS = (32, 64, 128, 256)   # each in kernel_heads(C) = C / 32 heads
+
+
+def kernel_takes(C: int) -> bool:
+    """The kernels' widths: any C % 32 == 0 from 32 to 256."""
+    return C % 32 == 0 and 32 <= C <= 256
 
 
 def kernel_heads(C: int) -> int:
@@ -98,18 +102,17 @@ def _check(qkv: torch.Tensor, heads: int):
         raise ValueError(f"window MHSA needs H and W divisible by {WINDOW}, "
                          f"got {H}x{W}")
     C = C3 // 3
-    if qkv.device.type != "cpu" and (C not in KERNEL_WIDTHS
+    if qkv.device.type != "cpu" and (not kernel_takes(C)
                                      or heads != kernel_heads(C)):
-        raise ValueError(f"window_mhsa_train kernel is built for C in "
-                         f"{KERNEL_WIDTHS} in C / 32 heads, got C={C} in "
+        raise ValueError(f"window_mhsa_train kernel is built for C % 32 == 0 "
+                         f"from 32 to 256 in C / 32 heads, got C={C} in "
                          f"{heads}")
 
 
 def window_mhsa_fwd(qkv: torch.Tensor, heads: int) -> torch.Tensor:
     """Forward of the mid. A CPU tensor takes the plain version; a CUDA
-    tensor (contiguous, 16-byte aligned, fp32 or bf16, C in
-    ``KERNEL_WIDTHS`` in C / 32 heads, H % 8 == W % 8 == 0) launches the
-    kernel or raises."""
+    tensor (contiguous, 16-byte aligned, fp32 or bf16, ``kernel_takes(C)``
+    in C / 32 heads, H % 8 == W % 8 == 0) launches the kernel or raises."""
     _check(qkv, heads)
     if qkv.device.type == "cpu":
         return window_mhsa_plain(qkv, heads)

@@ -32,12 +32,14 @@ def _served(channels: int) -> bool:
     LocalAttention kernel at C, 2C and 4C (both engines run it at those
     widths), and the block kernel at 4C with its default_num_heads."""
     dim = 4 * channels
-    return ({channels, 2 * channels, dim} <= set(window_attention.KERNEL_WIDTHS)
-            and dim in fused_transformer.KERNEL_WIDTHS
+    return (all(window_attention.kernel_takes(c)
+                for c in (channels, 2 * channels, dim))
+            and fused_transformer.kernel_takes(dim)
             and fused_transformer.default_num_heads(dim) == dim // 32)
 
 
-SERVED_CHANNELS = tuple(c for c in range(1, 257) if _served(c))   # (8, 16, 32, 64)
+# (8, 16, 24, 32, 40, 48, 56, 64)
+SERVED_CHANNELS = tuple(c for c in range(1, 257) if _served(c))
 
 
 def check_serving_width(channels: int) -> None:
@@ -48,9 +50,9 @@ def check_serving_width(channels: int) -> None:
         raise ValueError(
             f"enhanced generator at channels={channels} is not served on the "
             f"card: the serving kernels are built for LocalAttention widths "
-            f"{window_attention.KERNEL_WIDTHS} and transformer blocks of "
-            f"{fused_transformer.KERNEL_WIDTHS} channels (dim / 32 heads), "
-            f"i.e. channels in {SERVED_CHANNELS}")
+            f"{window_attention.KERNEL_RULE} and transformer blocks of "
+            f"{fused_transformer.KERNEL_RULE}, i.e. channels in "
+            f"{SERVED_CHANNELS}")
 
 
 @dataclass

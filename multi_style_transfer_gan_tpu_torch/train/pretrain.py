@@ -10,9 +10,10 @@ CycleGAN trainer's ``--pretrained`` warm start transfers every tensor (the
 reference's plain -> enhanced warm start matches no key). Under autograd
 the EnhancedGenerator runs the hand-written training kernels on the card
 (``ops.kernels.window_channel_attention_train``, ``window_mhsa_train``;
-at C = 128 and 256 the JAX package's route,
-``window_channel_attention_fast_vjp``), which take the c8, c16, c32 and
-c64 widths (``check_kernel_width``): c64 is the pretrain CLI's default.
+at every other LocalAttention width the JAX package's route,
+``window_channel_attention_fast_vjp``), which take every width that is a
+multiple of 8 up to 64 (``check_kernel_width``): c64 is the pretrain CLI's
+default.
 
 Precision follows the JAX dtype policy: parameters and Adam stay fp32, the
 generator runs in ``compute_dtype`` with its weights cast at use, BatchNorm
@@ -30,12 +31,9 @@ import torch
 from torch import nn
 
 from ..models import EnhancedGenerator, PlainGenerator
-from ..ops.kernels import FAST_VJP_WIDTHS
+from ..ops.kernels import train_route
 from ..ops.kernels.fused_transformer import default_num_heads
-from ..ops.kernels.window_attention_train import KERNEL_WIDTHS
-from ..ops.kernels.window_mhsa_train import (
-    KERNEL_WIDTHS as BLOCK_WIDTHS, kernel_heads,
-)
+from ..ops.kernels.window_mhsa_train import kernel_heads, kernel_takes
 from .losses import masked_l1
 
 LR = 2e-4             # pretrain.py:99
@@ -68,28 +66,33 @@ def learning_rate(step: int, num_epochs: int, steps_per_epoch: int,
     return ETA_MIN + (lr - ETA_MIN) * cos
 
 
+def _trains(channels: int) -> bool:
+    dim = 4 * channels
+    return (all(train_route(c) for c in (channels, 2 * channels, dim))
+            and kernel_takes(dim) and default_num_heads(dim) == kernel_heads(dim))
+
+
+# (8, 16, 24, 32, 40, 48, 56, 64)
+TRAINED_CHANNELS = tuple(c for c in range(1, 257) if _trains(c))
+
+
 def check_kernel_width(channels: int,
                        what: str = "enhanced pretraining") -> None:
     """The EnhancedGenerator at ``channels`` trains on the card only where
-    its widths are built: LocalAttention at C, 2C and 4C each in the
-    training kernel's widths or on the inference-kernel route
-    (``FAST_VJP_WIDTHS``), and the transformer block at 4C with
-    ``default_num_heads(4C)`` heads in the window-MHSA kernel's. So c8, c16,
-    c32 and c64 train. Raises otherwise: there is no plain fallback on the
-    card. ``what`` names the caller in the message. The widths are the
-    training routes' own, not the serving kernels'."""
-    attention = set(KERNEL_WIDTHS) | set(FAST_VJP_WIDTHS)
-    dim = 4 * channels
-    if (not {channels, 2 * channels, dim} <= attention
-            or dim not in BLOCK_WIDTHS
-            or default_num_heads(dim) != kernel_heads(dim)):
-        built = [c for c in range(1, max(attention) + 1)
-                 if {c, 2 * c, 4 * c} <= attention and 4 * c in BLOCK_WIDTHS]
+    its widths are built: LocalAttention at C, 2C and 4C each on a training
+    route (``train_route``: the training kernel at C = 8, 16, 32, 64, the
+    inference-kernel route at the other C % 8 == 0 up to 256), and the
+    transformer block at 4C with ``default_num_heads(4C)`` heads in the
+    window-MHSA kernel's. So every width that is a multiple of 8 up to 64
+    trains. Raises otherwise: there is no plain fallback on the card.
+    ``what`` names the caller in the message. The widths are the training
+    routes' own, not the serving kernels'."""
+    if not _trains(channels):
         raise ValueError(
             f"{what} at channels={channels} is not served on the card: "
-            f"LocalAttention trains at C in {tuple(sorted(attention))} and "
-            f"the block at dim in {BLOCK_WIDTHS} (C / 32 heads), i.e. "
-            f"channels in {tuple(built)}")
+            f"LocalAttention trains at C % 8 == 0 from 8 to 256 and the "
+            f"block at dim % 32 == 0 from 32 to 256 (dim / 32 heads), i.e. "
+            f"channels in {TRAINED_CHANNELS}")
 
 
 def pretrain_init_state(seed: int = 0, channels: int = 64, *,

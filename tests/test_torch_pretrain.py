@@ -316,10 +316,11 @@ def test_clip_matches_optax(rng, scale):
 def test_init_needs_a_device_and_a_served_width():
     with pytest.raises(TypeError, match="device"):
         pretrain_init_state()
-    for c in (8, 16, 32, 64):
+    for c in (8, 16, 24, 32, 40, 48, 56, 64):
         check_kernel_width(c)
-    for c in (4, 12):
-        with pytest.raises(ValueError, match=r"channels in \(8, 16, 32, 64\)"):
+    for c in (4, 12, 72):
+        with pytest.raises(ValueError, match=r"channels in \(8, 16, 24, 32, "
+                                             r"40, 48, 56, 64\)"):
             check_kernel_width(c)
     # the check comes before anything touches the card
     with pytest.raises(ValueError, match="not served on the card"):

@@ -440,36 +440,39 @@ def test_block_emulation_at_dim_128_needs_the_wider_pairs():
 # ---------------------------------------------------------------------------
 
 def test_served_channels_are_those_of_the_built_kernels():
-    assert SERVED_CHANNELS == (8, 16, 32, 64)
+    assert SERVED_CHANNELS == (8, 16, 24, 32, 40, 48, 56, 64)
     for c in SERVED_CHANNELS:
         check_serving_width(c)
 
 
-@pytest.mark.parametrize("channels", [4, 12, 48])
+@pytest.mark.parametrize("channels", [4, 12, 72])
 def test_loader_refuses_widths_not_built_on_the_card(tmp_path, channels):
     path = tmp_path / f"enhanced_c{channels}.pth"
     torch.save({"G_BA_state_dict": EnhancedGenerator(channels, 1)
                 .state_dict()}, path)
     with pytest.raises(ValueError, match=r"channels=%d is not served on the "
-                                         r"card.*\(8, 16, 32, 64\)" % channels):
+                                         r"card.*\(8, 16, 24, 32, 40, 48, 56, "
+                                         r"64\)" % channels):
         load_generator(path, device="cuda")
     # every width still runs on the CPU, through the plain versions
     model = load_generator(path, device="cpu")
     assert model.apply(torch.zeros(1, 32, 32, 3)).shape == (1, 32, 32, 3)
 
 
-@pytest.mark.parametrize("channels", [4, 12])
+@pytest.mark.parametrize("channels", [4, 12, 72])
 def test_training_checks_read_the_training_kernels(channels):
-    """c8, c16, c32 and c64 train on the card, as they serve; a width whose
-    LocalAttention or block the training routes do not take (c4, c12) is
-    refused, and CycleGAN training says so before it builds anything."""
-    for built in (8, 16, 32, 64):
+    """Every width that is a multiple of 8 up to 64 trains on the card, as
+    it serves; a width whose LocalAttention or block the training routes do
+    not take (c4, c12; c72, whose block would be 288 wide) is refused, and
+    CycleGAN training says so before it builds anything."""
+    for built in (8, 16, 24, 32, 40, 48, 56, 64):
         check_serving_width(built)
         check_kernel_width(built, "CycleGAN training")
     with pytest.raises(ValueError, match="CycleGAN training at channels="
                                          f"{channels} is not served"):
         check_kernel_width(channels, "CycleGAN training")
-    with pytest.raises(ValueError, match=r"channels in \(8, 16, 32, 64\)"):
+    with pytest.raises(ValueError, match=r"channels in \(8, 16, 24, 32, 40, "
+                                         r"48, 56, 64\)"):
         cyclegan_init_state(0, channels, device="cuda")
 
 
