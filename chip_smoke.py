@@ -14,7 +14,8 @@ GUI's tab workers and the checkpoint tools, the VGG16 perceptual + Gram
 loss in the train step, the c8, c32 and c64 EnhancedGenerators on the
 serving kernels' other widths and trained (CycleGAN and enhanced
 pretraining, c64 also through the pretrain CLI's defaults), the c24, c40,
-c48 and c56 ones, which run padded inside the kernels, and checks every
+c48 and c56 ones, which run padded inside the kernels, the c4, c12, .., c60
+ones (the widths that are not multiples of 8), and checks every
 hand-written kernel on the way:
 
 1. build: all six CUDA sources compile from ``csrc/`` at once, one nvcc
@@ -113,8 +114,8 @@ hand-written kernel on the way:
     the fp32 program at 'highest' card vs CPU on both engines with 4 + 1
     launches a forward (and 5 relayouts packed), packed vs NHWC, the bf16
     program's img/s at canvas 256, batch 16 and 64, and ``batch_process``
-    on a small folder at c32; a c4 and a c12 checkpoint raise at
-    ``load_generator`` on the card, and the train CLI at ``--channels 12``
+    on a small folder at c32; a c65, a c72 and a c128 checkpoint raise at
+    ``load_generator`` on the card, and the train CLI at ``--channels 72``
     raises before its first step;
 17. width training (``phase_width_train_kernels`` and ``phase_fast_vjp``
     after step 5, the width training path after the training path): the
@@ -160,19 +161,39 @@ hand-written kernel on the way:
     shapes on the stress inputs (the attention also at its canvas-512
     down2, the largest window count at its widest C); the fast-VJP route,
     which takes all four LocalAttention calls of these generators under
-    grad, at c24's and c48's shapes (card vs CPU at their down2, timed at
-    all); c24 and c48 at full width as c8 and c32 are (served on both
-    engines, fp32 card vs CPU, bf16 img/s, ``batch_process``; the bf16
-    CycleGAN step with its launches, ms/step, idle share and peak memory,
-    the fp32 step card vs CPU, the enhanced pretrain step), c48 also
-    through the batch CLI, the server, ``direct_transform`` and ``train
-    --channels 48``, c24 through ``pretrain --model enhanced``; c40 and
-    c56 small (the fp32 program at 64^2 on both engines, one fp32 CycleGAN
-    step and two fp32 pretrain steps at 128^2, card vs CPU); c4, c12 and
-    c72 refused; the route's share of the c24 and c48 steps.
+    grad, at c48's shapes (card vs CPU at its down2, timed at all); c48
+    at full width as c8 and c32 are (served on both engines, fp32 card vs
+    CPU, bf16 img/s, ``batch_process``; the bf16 CycleGAN step with its
+    launches, ms/step, idle share and peak memory, the fp32 step card vs
+    CPU, the enhanced pretrain step), also through the batch CLI, the
+    server, ``direct_transform`` and ``train --channels 48``, c24 through
+    ``pretrain --model enhanced``; c24, c40 and c56 small (the fp32
+    program at 64^2 on both engines, one fp32 CycleGAN step and two fp32
+    pretrain steps at 128^2, card vs CPU); c65, c72 and c128 refused; the
+    route's share of the c48 step;
+20. the widths that are not multiples of 8 (c4, c12, c20, c28, c36, c44,
+    c52, c60: every generator width from 1 to 64 that is not a multiple of
+    8, as the EnhancedGenerator exists at c % 4 == 0 only; on
+    their own rngs, the kernel phases beside the others, the serving and
+    training paths after the grid's): every new kernel variant against its
+    plain version in fp32 and bf16 (``phase_any_kernels``: the attention,
+    both layouts, at C = 1 .. 8 and every LocalAttention width of those
+    generators and of c1, c2, c3, c63 on the stress inputs; the block at
+    the dims, the head-slot kernel and the FMA bodies, a ragged grid too;
+    row 12 in head slots of 16 .. 64 at the same dims; row 11 at C = 1, 2,
+    4); c4 and c60 at full width as c48 is (kernel phases at their
+    canvas-256 shapes, served on
+    both engines with fp32 card vs CPU and bf16 img/s, c60 also through
+    the batch CLI, the server and ``direct_transform``; the bf16 CycleGAN
+    step with its launches (c4 through row 11, c60 through the route), the
+    fp32 step card vs CPU, the enhanced pretrain step, ``train --channels
+    4`` and ``pretrain --model enhanced --channels 60``; c60's down2 under
+    grad card vs CPU); c12, c20, c28 and c44 small (the fp32 program at
+    64^2 on both engines, one fp32 CycleGAN step and two fp32 pretrain
+    steps at 64^2, card vs CPU).
 
 Every phase raises on failure. The last line is the result JSON; the line
-before it lists each kernel with its launches on the fourteen paths (launch
+before it lists each kernel with its launches on the sixteen paths (launch
 counts are reset just before each path and read just after), its largest
 fp32 deviation from the plain version, its time beside the plain
 version's (the serving and training rows also per generator width,
@@ -326,14 +347,46 @@ WIDTH_CHANNELS = (8, 32)
 C64_CHANNELS = (64,)
 # the widths that run padded inside the kernels (the attention at C, 2C, 4C
 # in the next power-of-two layout, the block at 4C in the dim-128 or dim-256
-# design): c24 and c48 at full width, c40 and c56 small (GRID_SMALL_SIZE)
+# design): c48 at full width, c24, c40 and c56 small (GRID_SMALL_SIZE, so
+# that the run keeps near its time with every width's paths); the kernels
+# of all four at their full shapes
 GRID_CHANNELS = (24, 40, 48, 56)
-GRID_FULL_CHANNELS = (24, 48)
-GRID_SMALL_CHANNELS = (40, 56)
+GRID_FULL_CHANNELS = (48,)
+GRID_SMALL_CHANNELS = (24, 40, 56)
 GRID_SMALL_SIZE = 64
-ENTRY_CHANNELS = (48, 64)     # also through the batch CLI, server, direct_transform
-REFUSED_CHANNELS = (4, 12, 72)
-WIDTH_CPU_BATCH = {8: 2, 32: 2, 64: 1, 24: 2, 48: 1, 40: 2, 56: 2}
+# every other width from 1 to 64: the attention at C % 8 != 0 (and below 8)
+# in the runtime-C variant of its layout, the block's heads of 4 .. 62
+# channels in the FMA bodies, row 12's in slots of 16 .. 64 channels, row 11
+# at C = 1, 2 and 4. The EnhancedGenerator itself exists at c % 4 == 0 only
+# (its multi-scale block splits c into four branches of c // 4 channels, in
+# the JAX package as in the port), so the generators that are not multiples
+# of 8 are c4, c12, .., c60: c4 (row 11 at C = 4, 8, 16) and c60 (6 heads
+# of 40 in slots of 48, the widest slots under 256; the attention at C = 60,
+# 120, 240) at full width, c12, c20, c28 and c44 at ANY_SMALL_SIZE (c36 and
+# c52 have the heads of c12 .. c44's kinds: 4 of 36 and 4 of 52 in slots
+# of 48 and 64, checked in the kernel phase)
+ANY_FULL_CHANNELS = (4, 60)
+ANY_SMALL_CHANNELS = (12, 20, 28, 44)
+ANY_CHANNELS = ANY_FULL_CHANNELS + ANY_SMALL_CHANNELS
+ANY_SMALL_SIZE = 64
+# the new kernel variants against their plain versions, at the widths of
+# ANY_CHANNELS, c36 and c52, and those of c1, c2, c3 and c63 (widths no
+# generator has, which the kernels take all the same): the attention at every
+# LocalAttention width and C = 5, 7 (all of CP = 16's runtime-C range),
+# the block and row 12 at the dims, row 11 at C = 1, 2, 4, on a grid of
+# ANY_KERNEL_GRID (and the block on a ragged one too)
+ANY_KERNEL_CHANNELS = (1, 2, 3) + ANY_CHANNELS + (36, 52, 63)
+# block and row 12 dims off every generator: C % 4 != 0 (dim 6) and heads
+# of an odd width (dim 244, 4 heads of 61), which the block runs in its FMA
+# bodies in bf16 too and row 12 stages a value at a time
+ANY_ODD_DIMS = (6, 244)
+ANY_ATTENTION_WIDTHS = tuple(sorted(
+    {w for c in ANY_KERNEL_CHANNELS for w in (c, 2 * c, 4 * c)} | {5, 7}))
+ANY_KERNEL_GRID = (2, 32, 32)
+ENTRY_CHANNELS = (48, 60, 64)   # also through the batch CLI, server, direct_transform
+REFUSED_CHANNELS = (65, 72, 128)
+WIDTH_CPU_BATCH = {8: 2, 32: 2, 64: 1, 24: 2, 48: 1, 40: 2, 56: 2, 4: 2,
+                   60: 1, **{c: 2 for c in ANY_SMALL_CHANNELS}}
 WIDTH_FOLDER_IMAGES = 6
 # the c8, c32 and c64 generators trained: launches per bf16 CycleGAN step (pair
 # batching, remat off; 4 generator forwards with grad, 2 under no_grad) and
@@ -358,6 +411,10 @@ for _c in GRID_CHANNELS:
         "window_attention_mid_fwd": 0, "window_attention_mid_bwd": 0,
         "window_mhsa_fwd": 4, "window_mhsa_bwd": 4,
         "window_channel_attention": 24, "fused_structural_block": 2}
+# c4 trains LocalAttention at C = 4, 8, 16, all through row 11, as c16
+# does; c60 at C = 60, 120, 240, all through the route, as c24 .. c56 do
+WIDTH_TRAIN_LAUNCHES_PER_STEP[4] = TRAIN_LAUNCHES_PER_STEP
+WIDTH_TRAIN_LAUNCHES_PER_STEP[60] = WIDTH_TRAIN_LAUNCHES_PER_STEP[24]
 WIDTH_PRETRAIN_LAUNCHES_PER_STEP = {
     8: PRETRAIN_LAUNCHES_PER_STEP,
     32: {"window_attention_mid_fwd": 3, "window_attention_mid_bwd": 3,
@@ -371,18 +428,22 @@ for _c in GRID_CHANNELS:
         "window_attention_mid_fwd": 0, "window_attention_mid_bwd": 0,
         "window_mhsa_fwd": 1, "window_mhsa_bwd": 1,
         "window_channel_attention": 4, "fused_structural_block": 0}
+WIDTH_PRETRAIN_LAUNCHES_PER_STEP[4] = PRETRAIN_LAUNCHES_PER_STEP
+WIDTH_PRETRAIN_LAUNCHES_PER_STEP[60] = WIDTH_PRETRAIN_LAUNCHES_PER_STEP[24]
 # c32's down2 under grad: the fast-VJP route at its 256^2, batch-8 shape;
 # c64's down2 (C = 256, checked card vs CPU and timed) and down1 and up1
 # (C = 128 on 128^2, timed); the fp32 backward of the channel-attention mid
 # on more draws of the small q, k input at each width's shapes
 FAST_VJP_SHAPE = (TRAIN_BATCH, 64, 64, 128)
 C64_FAST_VJP_SHAPES = ((TRAIN_BATCH, 64, 64, 256), (TRAIN_BATCH, 128, 128, 128))
-# c24's and c48's LocalAttention shapes under grad, all on the route: up2,
-# down1 / up1, down2 (checked card vs CPU at down2)
+# c48's LocalAttention shapes under grad, all on the route: up2, down1 /
+# up1, down2 (checked card vs CPU at down2)
 GRID_FAST_VJP_SHAPES = {c: ((TRAIN_BATCH, 256, 256, c),
                             (TRAIN_BATCH, 128, 128, 2 * c),
                             (TRAIN_BATCH, 64, 64, 4 * c))
                         for c in GRID_FULL_CHANNELS}
+# c60's down2 under grad: the route at C = 240 (checked card vs CPU, timed)
+ANY_FAST_VJP_SHAPE = (TRAIN_BATCH, 64, 64, 240)
 SMALL_QK_DRAWS = 3
 WIDTH_TRAIN_SIZE = 256   # the bf16 steps' images
 
@@ -604,7 +665,8 @@ def attention_stress_inputs(rng, shape, packed=False):
     zeros in each. "random": standard normal x and biases. "saturated":
     batch entry 1 (0 at batch 1) is constant inside every window (a flat
     image region) and the biases make one q channel and two k channels
-    dominant (16, 8 and 8 against 0.05), so the Gram's 16 terms add up
+    dominant (16, 8 and 8 against 0.05; at C < 3 the k channels there are),
+    so the Gram's 16 terms add up
     coherently to logits near its maximum with two keys competing, and the
     v rows of the qkv weight are 8 times larger: the input on which bf16
     rounding of qn and kn costs the most. "small q, k": the q and k biases
@@ -620,7 +682,7 @@ def attention_stress_inputs(rng, shape, packed=False):
     sharp = [ws[0].copy(), ws[1].copy(), ws[2], ws[3]]
     sharp[0][2 * C:] *= 8.0
     sharp[1][:2 * C] *= 0.05
-    sharp[1][[0, C + 1, C + 2]] = 16.0, 8.0, 8.0
+    sharp[1][[0, C + 1 % C, C + 2 % C]] = 16.0, 8.0, 8.0   # C < 3: fewer k
     small[0, 1, 0] *= 1e-3
     no_qk_bias = [ws[0], ws[1].copy(), ws[2], ws[3]]
     no_qk_bias[1][:2 * C] = 0.0
@@ -921,7 +983,10 @@ def width_train_kernel_cases(channels):
     256^2, batch TRAIN_BATCH gives the training kernels of the generator of
     width ``channels``: the channel-attention mid at C, 2C and 4C where
     row 11 is built (C <= 64; c32's down2 at C = 128 takes the fast-VJP
-    route), the window-MHSA mid at dim 4C in 4C / 32 heads."""
+    route), the window-MHSA mid at dim 4C in default_num_heads(4C) heads."""
+    from multi_style_transfer_gan_tpu_torch.ops.kernels.fused_transformer import (
+        default_num_heads,
+    )
     from multi_style_transfer_gan_tpu_torch.ops.kernels.window_attention_train import (
         KERNEL_WIDTHS,
     )
@@ -931,7 +996,8 @@ def width_train_kernel_cases(channels):
              for stage, hw, w in (("up2", 256, c), ("down1/up1", 128, 2 * c),
                                   ("down2", 64, 4 * c))
              if w in KERNEL_WIDTHS]
-    return cases + [("mhsa", "block", (B, 64, 64, 12 * c), 4 * c // 32)]
+    return cases + [("mhsa", "block", (B, 64, 64, 12 * c),
+                     default_num_heads(4 * c))]
 
 
 def train_kernel_inputs(rng, name, shape):
@@ -3064,11 +3130,12 @@ def phase_width_serving(rng, dev, counts, work, widths=WIDTH_CHANNELS,
     engine), packed vs NHWC on the card; the bf16 program's img/s of both
     engines at canvas 256, batch ``RATE_BATCHES``, in turns;
     ``batch_process`` at the widest on a folder of ``WIDTH_FOLDER_IMAGES``
-    JPEGs of mixed sizes, and at ``ENTRY_CHANNELS`` (c48, c64) the batch
+    JPEGs of mixed sizes, and at ``ENTRY_CHANNELS`` (c48, c60, c64) the batch
     CLI, the server and ``direct_transform`` too (``serve_entry_points``).
-    Then, with ``refuse``, the widths the kernels are not built for: a c4, a
-    c12 and a c72 checkpoint raise at ``load_generator`` on the card, and
-    the train CLI at ``--channels 12`` raises before its first step.
+    Then, with ``refuse``, the widths the kernels are not built for
+    (``REFUSED_CHANNELS``: a c65, a c72 and a c128 checkpoint) raise at
+    ``load_generator`` on the card, and the train CLI at ``--channels 72``
+    raises before its first step.
     Returns {channels: {"parameters", "rates", "weights_gib", "launches"}}:
     weights_gib the device memory of each bf16 engine's weights, launches
     the counts this generator's part of the path made."""
@@ -3156,14 +3223,14 @@ def phase_width_serving(rng, dev, counts, work, widths=WIDTH_CHANNELS,
     os.makedirs(os.path.join(data, "trainB"))
     before = counts()
     try:
-        train_cli.main(["--data_root", data, "--channels", "12",
+        train_cli.main(["--data_root", data, "--channels", "72",
                         "--save_dir", os.path.join(work, "widths_models")])
     except ValueError as e:
-        log(f"[width serving] train --channels 12 on the card: {e}")
+        log(f"[width serving] train --channels 72 on the card: {e}")
     else:
-        raise AssertionError("train --channels 12 did not raise")
+        raise AssertionError("train --channels 72 did not raise")
     if counts() != before:
-        raise AssertionError("train --channels 12 launched a kernel")
+        raise AssertionError("train --channels 72 launched a kernel")
     return out
 
 
@@ -3412,12 +3479,12 @@ def launches_of(step, counts, expected, what):
     return out
 
 
-def fp32_step_card_vs_cpu(dev, channels, what, host=None, **kw):
-    """One fp32 CycleGAN step at ``channels`` (128^2, batch 2) on the card
-    and on the CPU from the same init and uint8 images (``host``, an (A, B)
-    pair on the CPU; by default drawn from a generator of this width's
-    own): the five losses, relative, at TRAIN_FP32_RTOL. Returns the card's
-    launches."""
+def fp32_step_card_vs_cpu(dev, channels, what, host=None, size=128, **kw):
+    """One fp32 CycleGAN step at ``channels`` (``size``^2, batch 2) on the
+    card and on the CPU from the same init and uint8 images (``host``, an
+    (A, B) pair on the CPU; by default drawn from a generator of this
+    width's own): the five losses, relative, at TRAIN_FP32_RTOL. Returns the
+    card's launches."""
     import torch
 
     from multi_style_transfer_gan_tpu_torch.ops import kernels as K
@@ -3428,7 +3495,7 @@ def fp32_step_card_vs_cpu(dev, channels, what, host=None, **kw):
 
     if host is None:
         rng = np.random.default_rng(SEED + channels)
-        host = [torch.from_numpy(np.stack(smooth_images(rng, 2, (128, 128))))
+        host = [torch.from_numpy(np.stack(smooth_images(rng, 2, (size, size))))
                 for _ in range(2)]
     out, launched = {}, None
     for key, device in (("card", dev), ("cpu", torch.device("cpu"))):
@@ -3441,7 +3508,8 @@ def fp32_step_card_vs_cpu(dev, channels, what, host=None, **kw):
             launched = sum(k.launches for k in K.KERNELS) - n0
     rel = {k: abs(out["card"][k] - out["cpu"][k]) / abs(out["cpu"][k])
            for k in out["cpu"]}
-    log(f"{what} fp32 c{channels} 128^2 batch 2, card vs CPU: {out['card']} "
+    log(f"{what} fp32 c{channels} {host[0].shape[1]}^2 batch 2, card vs CPU: "
+        f"{out['card']} "
         f"vs {out['cpu']}; max relative difference {max(rel.values()):.2e}; "
         f"{launched} kernel launches on the card")
     if max(rel.values()) > TRAIN_FP32_RTOL:
@@ -3545,9 +3613,9 @@ def train_width(rng, dev, counts, channels, gen, pretrain_batch=TRAIN_BATCH):
             "launches": {n: end[n] - start[n] for n in end}}
 
 
-def fp32_pretrain_card_vs_cpu(rng, dev, channels, gen, tag):
-    """Two fp32 enhanced pretrain steps at ``channels`` (128^2, batch 2) on
-    the card and on the CPU from the same init, images and masks: the
+def fp32_pretrain_card_vs_cpu(rng, dev, channels, gen, tag, size=128):
+    """Two fp32 enhanced pretrain steps at ``channels`` (``size``^2, batch
+    2) on the card and on the CPU from the same init, images and masks: the
     losses, relative, at PRETRAIN_FP32_RTOL."""
     import torch
 
@@ -3557,9 +3625,9 @@ def fp32_pretrain_card_vs_cpu(rng, dev, channels, gen, tag):
         pretrain_init_state, pretrain_train_step,
     )
 
-    host = [torch.from_numpy(np.stack(smooth_images(rng, 2, (128, 128))))
+    host = [torch.from_numpy(np.stack(smooth_images(rng, 2, (size, size))))
             for _ in range(2)]
-    hmasks = [random_patch_mask(2, 128, generator=gen, device="cpu")
+    hmasks = [random_patch_mask(2, size, generator=gen, device="cpu")
               for _ in range(2)]
     losses = []
     for device in (dev, torch.device("cpu")):
@@ -3569,7 +3637,7 @@ def fp32_pretrain_card_vs_cpu(rng, dev, channels, gen, tag):
             st, to_model_range(x.to(device)), m.to(device))[1])
             for x, m in zip(host, hmasks)])
     rel = max(abs(a - b) / abs(b) for a, b in zip(*losses))
-    log(f"{tag} enhanced pretrain fp32 128^2 batch 2, two steps card vs "
+    log(f"{tag} enhanced pretrain fp32 {size}^2 batch 2, two steps card vs "
         f"CPU: {losses[0]} vs {losses[1]}; max relative difference "
         f"{rel:.2e} (limit {PRETRAIN_FP32_RTOL})")
     if rel > PRETRAIN_FP32_RTOL:
@@ -3726,7 +3794,7 @@ def phase_c64_train(rng, dev, counts, work):
 
 
 def phase_grid_small_serving(rng, dev, counts, work):
-    """c40 and c56 (``GRID_SMALL_CHANNELS``) served at a small size: each
+    """c24, c40 and c56 (``GRID_SMALL_CHANNELS``) served at a small size: each
     written to a ``.pth`` (``width_checkpoint``) and loaded by
     ``load_generator`` on the card and on the CPU at precision 'highest';
     the fp32 uint8 program card vs CPU on both engines at GRID_SMALL_SIZE^2
@@ -3754,17 +3822,17 @@ def phase_grid_small_serving(rng, dev, counts, work):
 
 
 def phase_grid_train(rng, dev, counts, work):
-    """The padded widths trained through the entry points: c24 and c48
+    """The padded widths trained through the entry points: c48
     (``GRID_FULL_CHANNELS``) at full width (``train_width``: the bf16
     CycleGAN step with its launches per step, every LocalAttention call on
     the fast-VJP route, the fp32 step card vs CPU, the enhanced pretrain
     step), then ``train --channels 48`` for one epoch on a small folder,
     whose G_AB stylizes through ``batch_process``, and ``pretrain --model
-    enhanced --channels 24`` for one epoch; c40 and c56
+    enhanced --channels 24`` for one epoch; c24, c40 and c56
     (``GRID_SMALL_CHANNELS``) small: one fp32 CycleGAN step and two fp32
     enhanced pretrain steps at 128^2, batch 2, card vs CPU. Returns
-    {channels: record}: train_width's for c24 and c48, {"launches"} for c40
-    and c56."""
+    {channels: record}: train_width's for c48, {"launches"} for the
+    others."""
     import torch
 
     from multi_style_transfer_gan_tpu_torch.cli import pretrain as pretrain_cli
@@ -3783,7 +3851,7 @@ def phase_grid_train(rng, dev, counts, work):
     run_cli(train_cli.main, ["--data_root", data, "--save_dir", models,
                              "--channels", str(channels)] + one_epoch,
             f"train --channels {channels}")
-    low = min(GRID_FULL_CHANNELS)
+    low = min(GRID_CHANNELS)
     run_cli(pretrain_cli.main, ["--data_root", data, "--save_dir", models,
                                 "--model", "enhanced", "--channels", str(low)]
             + one_epoch, f"pretrain --model enhanced --channels {low}")
@@ -3802,6 +3870,204 @@ def phase_grid_train(rng, dev, counts, work):
         tag = f"[grid train] c{channels}"
         fp32_step_card_vs_cpu(dev, channels, f"{tag} train step")
         fp32_pretrain_card_vs_cpu(rng, dev, channels, gen, tag)
+        end = counts()
+        out[channels] = {"launches": {n: end[n] - start[n] for n in end}}
+    return out
+
+
+def phase_any_kernels(rng, dev):
+    """The kernel variants of the widths that are not multiples of 8, each
+    against its plain version in fp32 (TF32 off) and bf16, one launch a
+    call: row 1 (NHWC and packed) at every C of ``ANY_ATTENTION_WIDTHS`` on
+    ``attention_stress_inputs`` (C % 8 != 0 and C < 8 in the runtime-C
+    variant of their layouts, CP = 16 .. 256); row 4 at the dims 4c (from
+    48 on, heads in slots of 16 .. 64: the slot kernel in bf16, the FMA
+    bodies in fp32; below, and at ``ANY_ODD_DIMS``, the FMA bodies in both) on
+    ``block_stress_inputs``, a ragged 12 x 20 grid too; row 12 at the same
+    dims in their default_num_heads (slots of 16 .. 64) and row 11 at C = 1,
+    2, 4 (padded to 16 in bf16) on ``train_kernel_inputs``, forward and
+    backward; the widths are those of ``ANY_KERNEL_CHANNELS``. The grids are ``ANY_KERNEL_GRID``; c4's and c60's full shapes
+    are ``phase_width_kernels``'s and ``phase_width_train_kernels``'s.
+    Returns {kernel: {width: (fp32 max|d|, bf16 max|d|)}}."""
+    import torch
+
+    from multi_style_transfer_gan_tpu_torch.ops import kernels as K
+    from multi_style_transfer_gan_tpu_torch.ops.kernels.fused_transformer import (
+        default_num_heads,
+    )
+
+    dtypes = (torch.float32, torch.bfloat16)
+    out = {n: {} for n in ("window_channel_attention",
+                           "packed_window_channel_attention",
+                           "fused_structural_block", "window_mhsa_train",
+                           "window_attention_train")}
+    for C in ANY_ATTENTION_WIDTHS:
+        shape = ANY_KERNEL_GRID + (C,)
+        for name, fn, plain, packed in (
+                ("window_channel_attention", K.window_channel_attention,
+                 K.window_channel_attention_plain, False),
+                ("packed_window_channel_attention",
+                 K.packed_window_channel_attention,
+                 K.packed_window_channel_attention_plain, True)):
+            worst = {dt: 0.0 for dt in dtypes}
+            for label, x, ws in attention_stress_inputs(rng, shape,
+                                                        packed=packed):
+                for dtype in dtypes:
+                    args = [torch.from_numpy(np.asarray(a, np.float32))
+                            .to(dev, dtype) for a in [x] + ws]
+                    n0 = fn.launches
+                    got = fn(*args)
+                    ref = plain(*args)
+                    torch.cuda.synchronize()
+                    err, bf16_ok = compare(got, ref, dtype)
+                    ok = ((err <= FP32_TOL if dtype == torch.float32
+                           else bf16_ok) and fn.launches == n0 + 1
+                          and bool(torch.isfinite(got).all()))
+                    if not ok:
+                        raise AssertionError(
+                            f"[any widths] {name} C = {C} {label} {dtype}: "
+                            f"max|d| {err:.3e} outside tolerance, not finite "
+                            f"or not launched")
+                    worst[dtype] = max(worst[dtype], err)
+            out[name][C] = tuple(worst[dt] for dt in dtypes)
+            log(f"[any widths] {name} {shape}: fp32 max|d| "
+                f"{worst[torch.float32]:.3e}, bf16 max|d| "
+                f"{worst[torch.bfloat16]:.3e} (stress inputs)")
+
+    for dim in [4 * c for c in ANY_KERNEL_CHANNELS] + list(ANY_ODD_DIMS):
+        heads = default_num_heads(dim)
+        worst = {dt: 0.0 for dt in dtypes}
+        for grid in (ANY_KERNEL_GRID + (dim,), (1, 12, 20, dim)):
+            for label, host, weights in block_stress_inputs(rng, grid):
+                for dtype in dtypes:
+                    t = lambda a, dt=dtype: torch.from_numpy(
+                        np.asarray(a, np.float32)).to(dev, dt)
+                    args = (t(host[0]), t(host[1]), t(host[2], torch.float32),
+                            t(host[3], torch.float32))
+                    kw = {n: t(a) for n, a in weights.items()}
+                    n0 = K.fused_structural_block.launches
+                    got = K.fused_structural_block(*args, **kw)
+                    ref = K.structural_block_plain(*args, **kw)
+                    torch.cuda.synchronize()
+                    err, bf16_ok = compare(got, ref, dtype)
+                    ok = ((err <= BLOCK_FP32_TOL if dtype == torch.float32
+                           else bf16_ok)
+                          and K.fused_structural_block.launches == n0 + 1
+                          and bool(torch.isfinite(got).all()))
+                    if not ok:
+                        raise AssertionError(
+                            f"[any widths] fused_structural_block {grid} "
+                            f"{label} {dtype}: max|d| {err:.3e} outside "
+                            f"tolerance, not finite or not launched")
+                    worst[dtype] = max(worst[dtype], err)
+        out["fused_structural_block"][dim] = tuple(worst[dt] for dt in dtypes)
+        log(f"[any widths] fused_structural_block dim {dim} ({heads} heads of "
+            f"{dim // heads}): fp32 max|d| {worst[torch.float32]:.3e}, bf16 "
+            f"max|d| {worst[torch.bfloat16]:.3e} (stress inputs, a ragged "
+            f"grid too)")
+
+        shape = ANY_KERNEL_GRID + (3 * dim,)
+        worst = {dt: 0.0 for dt in dtypes}
+        for label, host, g in train_kernel_inputs(rng, "mhsa", shape):
+            for dtype in dtypes:
+                err, derr, _ = check_train_kernel(
+                    "[any widths]", "mhsa", "block", shape, heads, label, host,
+                    g, dtype, dev, timed=False)
+                worst[dtype] = max(worst[dtype], err, derr)
+        out["window_mhsa_train"][dim] = tuple(worst[dt] for dt in dtypes)
+
+    for C in (1, 2, 4):
+        shape = ANY_KERNEL_GRID + (3 * C,)
+        worst = {dt: 0.0 for dt in dtypes}
+        for label, host, g in train_kernel_inputs(rng, "attention", shape):
+            for dtype in dtypes:
+                err, derr, _ = check_train_kernel(
+                    "[any widths]", "attention", "mid", shape, None, label,
+                    host, g, dtype, dev, timed=False)
+                worst[dtype] = max(worst[dtype], err, derr)
+        out["window_attention_train"][C] = tuple(worst[dt] for dt in dtypes)
+    return out
+
+
+def phase_any_small_serving(rng, dev, counts, work):
+    """The widths of ``ANY_SMALL_CHANNELS`` (c12, c20, c28, c36, c44, c52)
+    served at ANY_SMALL_SIZE^2 through ``load_generator`` on the card
+    and on the CPU at precision 'highest': the fp32 uint8 program card vs
+    CPU on both engines (``WIDTH_CPU_BATCH`` images; 4 attention calls and 1
+    block a forward, 5 relayouts on the packed engine). Returns {channels:
+    {"parameters", "launches"}}."""
+    from multi_style_transfer_gan_tpu_torch.pipelines import load_generator
+
+    size = ANY_SMALL_SIZE
+    out = {}
+    for channels in ANY_SMALL_CHANNELS:
+        start = counts()
+        path = os.path.join(work, f"enhanced_c{channels}.pth")
+        n_params = width_checkpoint(path, channels)
+        gpu = load_generator(path, precision="highest", device=dev)
+        cpu = load_generator(path, precision="highest", device="cpu")
+        batch = np.stack(smooth_images(rng, WIDTH_CPU_BATCH[channels],
+                                       (size, size)))
+        program_card_vs_cpu(f"[any serving] c{channels}", gpu, cpu, batch,
+                            counts, dev)
+        end = counts()
+        out[channels] = {"parameters": n_params,
+                         "launches": {n: end[n] - start[n] for n in end}}
+    return out
+
+
+def phase_any_train(rng, dev, counts, work):
+    """The widths that are not multiples of 8 trained through the entry
+    points: c4 and c60 (``ANY_FULL_CHANNELS``) at full width
+    (``train_width``: the bf16 CycleGAN step with its launches per step, c4
+    through row 11 at C = 4, 8, 16, c60 through the route at 60, 120, 240,
+    both with row 12; the fp32 step card vs CPU; the enhanced pretrain
+    step), then ``train --channels 4`` for one epoch on a small folder,
+    whose G_AB stylizes through ``batch_process``, and ``pretrain --model
+    enhanced --channels 60`` for one epoch; the widths of
+    ``ANY_SMALL_CHANNELS`` small: one fp32 CycleGAN step and two fp32
+    enhanced pretrain steps at ANY_SMALL_SIZE^2, batch 2, card vs CPU. Returns
+    {channels: record}: train_width's for c4 and c60, {"launches"} for the
+    rest."""
+    import torch
+
+    from multi_style_transfer_gan_tpu_torch.cli import pretrain as pretrain_cli
+    from multi_style_transfer_gan_tpu_torch.cli import train as train_cli
+    from multi_style_transfer_gan_tpu_torch.pipelines import load_generator
+
+    gen = torch.Generator().manual_seed(SEED + 1)
+    out = {c: train_width(rng, dev, counts, c, gen) for c in ANY_FULL_CHANNELS}
+
+    channels = min(ANY_FULL_CHANNELS)
+    data = os.path.join(work, "any_train_data")
+    train_folder(rng, data)
+    models = os.path.join(work, "any_models")
+    one_epoch = ["--num_epochs", "1", "--batch_size", "4",
+                 "--checkpoint_every", "1", "--log_every", "1"]
+    run_cli(train_cli.main, ["--data_root", data, "--save_dir", models,
+                             "--channels", str(channels)] + one_epoch,
+            f"train --channels {channels}")
+    high = max(ANY_FULL_CHANNELS)
+    run_cli(pretrain_cli.main, ["--data_root", data, "--save_dir", models,
+                                "--model", "enhanced", "--channels", str(high)]
+            + one_epoch, f"pretrain --model enhanced --channels {high}")
+    if not os.path.exists(os.path.join(models,
+                                       "generator_pretrain_epoch_1.pth")):
+        raise AssertionError("the pretrain CLI wrote no checkpoint")
+    model = load_generator(os.path.join(models, "G_AB_epoch_1.pth"),
+                           device=dev)
+    if model.channels != channels:
+        raise AssertionError(f"the train CLI wrote a c{model.channels} G_AB")
+    stylize_folder(rng, model, dev, work, "any",
+                   f"[any train] the trained c{channels} G_AB:")
+
+    for channels in ANY_SMALL_CHANNELS:
+        start = counts()
+        tag = f"[any train] c{channels}"
+        fp32_step_card_vs_cpu(dev, channels, f"{tag} train step",
+                              size=ANY_SMALL_SIZE)
+        fp32_pretrain_card_vs_cpu(rng, dev, channels, gen, tag,
+                                  size=ANY_SMALL_SIZE)
         end = counts()
         out[channels] = {"launches": {n: end[n] - start[n] for n in end}}
     return out
@@ -3856,6 +4122,10 @@ def run(work) -> int:
     # and so do the padded widths' phases
     grid_rng = np.random.default_rng(SEED + 24)
     width_kernels.update(phase_width_kernels(grid_rng, dev, GRID_CHANNELS))
+    # and so do the widths that are not multiples of 8
+    any_rng = np.random.default_rng(SEED + 4)
+    any_kernels = phase_any_kernels(any_rng, dev)
+    width_kernels.update(phase_width_kernels(any_rng, dev, ANY_FULL_CHANNELS))
     mark("serving kernels")
     train_err, train_times = phase_train_kernels(rng, dev)
     # the c8 and c32 training phases draw from their own generator too
@@ -3875,6 +4145,11 @@ def run(work) -> int:
                                         check=shape == shapes[-1])
                          for shape in shapes]
                      for c, shapes in GRID_FAST_VJP_SHAPES.items()}
+    any_train_rng = np.random.default_rng(SEED + 5)
+    width_train_kernels.update(
+        phase_width_train_kernels(any_train_rng, dev, ANY_FULL_CHANNELS))
+    # c60's down2 under grad, the route at C = 240
+    any_fast_vjp = phase_fast_vjp(any_train_rng, dev, ANY_FAST_VJP_SHAPE)
     mark("training kernels")
     stages_err, stage_times = phase_stages(rng, dev)
     ablation_err = phase_ablation_inputs(dev)
@@ -3950,6 +4225,20 @@ def run(work) -> int:
         raise AssertionError(f"grid serving path launches {grid_serving}: "
                              f"expected every serving kernel, 4 attention "
                              f"calls per block call")
+
+    K.reset_launch_counts()   # the any-width serving path starts here
+    width_serving.update(phase_width_serving(any_rng, dev, counts, work,
+                                             ANY_FULL_CHANNELS, refuse=False))
+    width_serving.update(phase_any_small_serving(any_rng, dev, counts, work))
+    any_serving = counts()    # ...and ends here
+    log(f"[any-width serving path] launches: {any_serving}")
+    attention_calls = (any_serving["window_channel_attention"]
+                       + any_serving["packed_window_channel_attention"])
+    if (min(any_serving[n] for n in serving_kernels) == 0
+            or attention_calls != 4 * any_serving["fused_structural_block"]):
+        raise AssertionError(f"any-width serving path launches "
+                             f"{any_serving}: expected every serving kernel, "
+                             f"4 attention calls per block call")
     mark("serving paths")
 
     K.reset_launch_counts()   # the single-image path starts here
@@ -3998,6 +4287,15 @@ def run(work) -> int:
         raise AssertionError(f"grid training path launches {grid_training}: "
                              f"a kernel of the path never launched, or row "
                              f"11 took a width of the route")
+
+    K.reset_launch_counts()   # the any-width training path starts here
+    width_train.update(phase_any_train(any_train_rng, dev, counts, work))
+    any_training = counts()   # ...and ends here
+    log(f"[any-width training path] launches: {any_training}")
+    if min(any_training[n] for n in TRAIN_LAUNCHES_PER_STEP) == 0:
+        raise AssertionError(f"any-width training path launches "
+                             f"{any_training}: a kernel of the path never "
+                             f"launched")
     mark("training paths")
 
     K.reset_launch_counts()   # the pretraining path starts here
@@ -4052,9 +4350,10 @@ def run(work) -> int:
         raise AssertionError(f"ablation path launches {ablation}: the stage "
                              f"kernel never launched")
     launches = {n: serving[n] + widths[n] + c64_serving[n] + grid_serving[n]
-                + single[n] + training[n] + width_training[n]
-                + c64_training[n] + grid_training[n] + pretraining[n]
-                + evaluation[n] + gui[n] + perceptual[n] + ablation[n]
+                + any_serving[n] + single[n] + training[n]
+                + width_training[n] + c64_training[n] + grid_training[n]
+                + any_training[n] + pretraining[n] + evaluation[n] + gui[n]
+                + perceptual[n] + ablation[n]
                 for n in counted}
     mark("all paths")
 
@@ -4173,10 +4472,18 @@ def run(work) -> int:
     # (phase_width_train_kernels per generator forward and backward at
     # 256^2, launches of the width or c64 training path)
     width_paths = {n: widths[n] + c64_serving[n] + grid_serving[n]
-                   for n in counted}
+                   + any_serving[n] for n in counted}
     width_train_paths = {n: width_training[n] + c64_training[n]
-                         + grid_training[n] for n in counted}
-    all_widths = WIDTH_CHANNELS + C64_CHANNELS + GRID_CHANNELS
+                         + grid_training[n] + any_training[n]
+                         for n in counted}
+    all_widths = (WIDTH_CHANNELS + C64_CHANNELS + GRID_CHANNELS
+                  + ANY_FULL_CHANNELS)
+    any_rows = {"window_channel_attention": "window_channel_attention",
+                "packed_window_channel_attention":
+                    "packed_window_channel_attention",
+                "fused_structural_block": "fused_structural_block",
+                "window_attention_train": "window_attention_train",
+                "window_mhsa_train": "window_mhsa_train"}
     width_keys = ("ms", "device_ms", "plain_ms", "library_ms", "bound_ms",
                   "bound_by", "max_abs_err")
     train_rows = {"window_attention_train": ("window_attention_mid_fwd",
@@ -4213,6 +4520,21 @@ def run(work) -> int:
                         "max_abs_err_bf16", "sdpa_mid_ms", "heads", "shapes")
                        if k in rec},
                     "launches": ran(width_train[c]["launches"])}
+        if name in any_rows:
+            # the variants of the widths that are not multiples of 8
+            # (phase_any_kernels): fp32 and bf16 max|d| by width, and the
+            # launches of c4, c12, .., c60 on their serving and training
+            # paths (c12 .. c52 at ANY_SMALL_SIZE)
+            entry["any_widths"] = {
+                str(w): {"max_abs_err": e32, "max_abs_err_bf16": e16}
+                for w, (e32, e16) in any_kernels[any_rows[name]].items()}
+            ran = train_rows.get(name, (name,))
+            for c in ANY_SMALL_CHANNELS:
+                entry["widths"][f"c{c}"] = {
+                    "launches": sum(width_serving[c]["launches"][n]
+                                    for n in ran),
+                    "training_launches": sum(width_train[c]["launches"][n]
+                                             for n in ran)}
         if name == "window_channel_attention":
             # c32's down2 under grad: this kernel forward, the backward
             # recomputed through the plain version (fwd + bwd at batch 8);
@@ -4221,6 +4543,7 @@ def run(work) -> int:
             entry["fast_vjp_c64"] = c64_fast_vjp
             entry["fast_vjp_grid"] = {f"c{c}": recs
                                       for c, recs in grid_fast_vjp.items()}
+            entry["fast_vjp_c60"] = any_fast_vjp
         if sdpa_mid is not None:
             entry["sdpa_mid_ms"] = sdpa_mid
         dev_ms = entry.get("device_ms")
@@ -4269,7 +4592,8 @@ def run(work) -> int:
         f"images a direction relative {fid_err:.3e}; m_test path at "
         f"{EVAL_IMAGES} images a direction, fp32: {fid_text}; whole run "
         f"{time.perf_counter() - t_start:.1f} s")
-    for c in WIDTH_CHANNELS + C64_CHANNELS + GRID_FULL_CHANNELS:
+    for c in (WIDTH_CHANNELS + C64_CHANNELS + GRID_FULL_CHANNELS
+              + ANY_FULL_CHANNELS):
         log(f"[summary] {card}; c{c} generator "
             f"({width_serving[c]['parameters']} parameters; bf16 weights "
             f"NHWC {width_serving[c]['weights_gib']['nhwc']:.3f} GiB, packed "
@@ -4283,7 +4607,8 @@ def run(work) -> int:
                         f"device, plain {r['plain_ms']:.4f} ms, bound "
                         f"{r['bound_ms']:.6f} ms by {r['bound_by']})"
                         for n, r in width_kernels[c].items()))
-    for c in WIDTH_CHANNELS + C64_CHANNELS + GRID_FULL_CHANNELS:
+    for c in (WIDTH_CHANNELS + C64_CHANNELS + GRID_FULL_CHANNELS
+              + ANY_FULL_CHANNELS):
         t = width_train[c]
         rows = width_train_kernels[c]
         log(f"[summary] {card}; c{c} training: bf16 CycleGAN step 256^2 batch "

@@ -26,7 +26,10 @@ must give the old bits at the old speed, are timed the same way and
 compared bit for bit. The two training sources, which share headers with
 them, are built from both directories too, and their forward and backward
 must give the same bits at every train shape and, for the window-MHSA mid,
-at 1, 2, 4 and 8 heads. Raises on any build, launch or tolerance failure;
+at 1, 2, 4 and 8 heads (the window-MHSA mid in bf16 only: its fp32 bodies
+carry double since the head slots came, and are held to the plain version
+at the fp32 tolerances, the old build's distance printed beside). Raises
+on any build, launch or tolerance failure;
 exits 1 without a CUDA device.
 """
 
@@ -187,6 +190,26 @@ def main(argv=None) -> int:
               f"-> new {dv[1]:.4f} ms (x{dv[0] / dv[1]:.2f})", flush=True)
         return ev + dv
 
+    def hold_train_bits(name, dtype, outs, label):
+        """The old and new builds' outputs are the same bits; but the
+        window-MHSA mid in fp32, whose sums the new build carries in double
+        (as its plain version does; ``csrc/window_mhsa_train.cu``), is held
+        to its plain version at the fp32 tolerances instead, and the old
+        build's distance from it is printed beside."""
+        ref = outs.pop("plain", None)
+        if not (name == "mhsa" and dtype == torch.float32):
+            if not all(torch.equal(a, b) for a, b in zip(outs["old"], outs["new"])):
+                raise AssertionError(f"{label} {dtype}: old and new builds differ")
+            return
+        d = {tag: [(a.float() - r.float()).abs().max().item()
+                   for a, r in zip(o, ref)] for tag, o in outs.items()}
+        print(f"[A/B] {label} fp32: fwd / bwd max|d| from the plain version "
+              f"(float64 inside): old {d['old'][0]:.3e} / {d['old'][1]:.3e}, new "
+              f"{d['new'][0]:.3e} / {d['new'][1]:.3e}", flush=True)
+        if d["new"][0] > smoke.FP32_TOL or d["new"][1] > smoke.TRAIN_GRAD_FP32_TOL:
+            raise AssertionError(f"{label} fp32: the new build is outside the "
+                                 f"fp32 tolerances")
+
     rng = np.random.default_rng(smoke.SEED)
     train = {"attention": (K.window_attention_mid_fwd,
                            K.window_attention_mid_bwd, (),
@@ -205,11 +228,14 @@ def main(argv=None) -> int:
                     for entry in entries:
                         _build._loaded[entry] = builds[tag][0][entry]
                     outs[tag] = (fwd(qkv, *extra), bwd(qkv, d_out, *extra))
-                if not all(torch.equal(a, b) for a, b in zip(*outs.values())):
-                    raise AssertionError(f"{name} train kernel {shape} {label} "
-                                         f"{dtype}: old and new builds differ")
+                if name == "mhsa":
+                    outs["plain"] = (K.window_mhsa_plain(qkv, *extra),
+                                     K.window_mhsa_backward_plain(qkv, d_out,
+                                                                  *extra))
+                hold_train_bits(name, dtype, outs, f"{name} train kernel {shape} {label}")
         print(f"[A/B] {name} train kernels {stage} {shape}: old and new builds "
-              f"bit-equal, forward and backward, fp32 and bf16, on 3 inputs",
+              f"bit-equal, forward and backward, "
+              f"{'bf16' if name == 'mhsa' else 'fp32 and bf16'}, on 3 inputs",
               flush=True)
     totals = {}
     for canvas in smoke.CANVASES:
@@ -296,12 +322,11 @@ def main(argv=None) -> int:
                 for entry in entries:
                     _build._loaded[entry] = builds[tag][0][entry]
                 outs[tag] = (fwd(qkv, heads), bwd(qkv, d_out, heads))
-            if not all(torch.equal(a, b) for a, b in zip(*outs.values())):
-                raise AssertionError(f"window-MHSA mid at {heads} heads "
-                                     f"{dtype}: old and new builds differ")
+            outs["plain"] = (K.window_mhsa_plain(qkv, heads),
+                             K.window_mhsa_backward_plain(qkv, d_out, heads))
+            hold_train_bits("mhsa", dtype, outs, f"window-MHSA mid at {heads} heads")
         print(f"[A/B] window-MHSA mid at {heads} heads {shape}: old and new "
-              f"builds bit-equal, forward and backward, fp32 and bf16",
-              flush=True)
+              f"builds bit-equal, forward and backward, bf16", flush=True)
     return 0
 
 

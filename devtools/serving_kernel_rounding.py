@@ -32,6 +32,21 @@ design); a pad channel adds exact zeros to every sum and a pad key is out
 of the softmax, so the padded arithmetic is emulated at the real width with
 the plan of the layout it runs in.
 
+    PYTHONPATH=. python3 devtools/serving_kernel_rounding.py --any
+
+runs the attention at the LocalAttention widths of
+``chip_smoke.ANY_KERNEL_CHANNELS`` (c4, c12, .., c60 and the widths of c1,
+c2, c3 and c63, which no generator has but the kernel takes: C = 1 .. 252,
+most of them not multiples of 8) at the same shapes, the kernel plan only.
+They run in the runtime-C variant of their layout (C = 1 .. 15 in CP = 16,
+where one-term S and out are the plan); the pads add exact zeros and the
+pad keys are out of the softmax, so the arithmetic is emulated at the real
+width. So does the block at those widths' dims from 48 on (not multiples
+of 32), which runs in bf16 in the head-slot kernel with every operand a
+pair (the slots' pad rows and columns add exact zeros: emulated at the
+real head width and its scale); the dims up to 32 run in FMA bodies that
+round nothing inside.
+
     PYTHONPATH=. python3 devtools/serving_kernel_rounding.py --fp32
 
 asks the fp32 question of the block instead (``fp32_block_question``, ~1
@@ -81,8 +96,11 @@ def block_kernel_plan(C: int) -> dict:
     exponentials and v (the apply) and the MHSA output (the proj). With
     the dim-128 plan a random block at dim 256 misses the bound by 1.35x;
     with o, p and v as pairs it stays at 0.68 (saturated 0.81, a one-ulp
-    flip of the output rounding)."""
-    wide, widest = C > 64, C > 128
+    flip of the output rounding). A dim that is not a multiple of 32 runs in
+    the head-slot kernel (bf16), which takes the dim-256 design's plan:
+    every operand a pair."""
+    slot = C % 32 != 0
+    wide, widest = C > 64 or slot, C > 128 or slot
     return dict(h_qk=True, h_v=wide, qk=True, p=widest, v=widest, o=widest,
                 h2=wide, a=wide)
 
@@ -291,8 +309,10 @@ def main(argv=None) -> int:
     if "--fp32" in (sys.argv[1:] if argv is None else argv):
         return fp32_block_question()
     canvas = smoke.CANVASES[0]
-    grid = "--grid" in (sys.argv[1:] if argv is None else argv)
-    widths = smoke.GRID_CHANNELS if grid else smoke.GENERATOR_CHANNELS
+    args = sys.argv[1:] if argv is None else argv
+    grid = "--grid" in args or "--any" in args
+    widths = (smoke.ANY_KERNEL_CHANNELS if "--any" in args
+              else smoke.GRID_CHANNELS if grid else smoke.GENERATOR_CHANNELS)
     attention = list(dict.fromkeys(
         s for c in widths for _, s in smoke.attention_shapes(canvas, c)))
     block = [s for c in widths
@@ -305,6 +325,9 @@ def main(argv=None) -> int:
         block += [(smoke.BATCH, smoke.CANVASES[1] // 4,
                    smoke.CANVASES[1] // 4, 4 * c) for c in widths]
         plans = ["kernel"]
+    if "--any" in args:   # dims up to 32 run in the FMA bodies: no pairs
+        block = [b for b in block if b[-1] > 32]
+
     for kernel, ratios in (("attention", attention_ratios(attention, plans)),
                            ("block", block_ratios(block, plans))):
         for (shape, label, plan), (d, r) in ratios.items():

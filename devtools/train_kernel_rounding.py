@@ -25,6 +25,12 @@ c48 and c56 generators' (``chip_smoke.GRID_CHANNELS``: the MHSA at 3, 5, 6
 and 7 heads; their LocalAttention widths train through the fast-VJP route,
 not these kernels).
 
+``--any`` runs the widths of ``chip_smoke.ANY_KERNEL_CHANNELS`` (the mid
+at C = 1, 2, 4, padded to 16 in the kernel; the MHSA at the heads of 4 ..
+62 channels of dims 4 .. 252, each in a slot of its width rounded up to
+16, whose pads add exact zeros, so it is emulated at the real width and
+scale).
+
 ``--fp32`` asks the fp32 question instead: on the "small q, k" input of
 the channel-attention mid, how far an fp32 evaluation of the backward (the
 formulas in fp32, in PyTorch's order) lies from a float64 one, against
@@ -183,6 +189,7 @@ def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--widths", action="store_true")
     p.add_argument("--grid", action="store_true")
+    p.add_argument("--any", action="store_true")
     p.add_argument("--fp32", action="store_true")
     p.add_argument("--draws", type=int, default=8)
     args = p.parse_args(argv)
@@ -194,8 +201,9 @@ def main(argv=None) -> int:
     plain = {"attention": (WA.window_attention_mid_plain,
                            WA.window_attention_mid_backward_plain),
              "mhsa": (WM.window_mhsa_plain, WM.window_mhsa_backward_plain)}
-    if args.widths or args.grid:
-        widths = (smoke.GRID_CHANNELS if args.grid
+    if args.widths or args.grid or args.any:
+        widths = (smoke.ANY_KERNEL_CHANNELS if args.any
+                  else smoke.GRID_CHANNELS if args.grid
                   else smoke.WIDTH_CHANNELS + smoke.C64_CHANNELS)
         cases = [case for c in widths
                  for case in smoke.width_train_kernel_cases(c)]

@@ -14,9 +14,12 @@
 // zero-pad-and-mask formulation (models/structural_transformer.py:113-150)
 // computes. So every grid shape runs here; none is sent elsewhere.
 //
-// Widths: any C % 32 == 0 from 32 to 256 with C / 32 heads of 32
-// (default_num_heads), the blocks of every generator width that is a
-// multiple of 8 up to 64 (c8 .. c64: dims 32, 64, .., 256). In bf16, dims
+// Widths: any C from 1 to 256 with default_num_heads(C) heads of at most
+// 64 channels (the blocks of every generator width up to 64). Below, the
+// designs of C % 32 == 0 with C / 32 heads of 32 (c8 .. c64 at multiples
+// of 8: dims 32, 64, .., 256); after them the head-slot kernel (bf16, the
+// other generator dims from 48 on) and the FMA bodies (fp32 at every
+// other dim; bf16 at dim 16 and the dims no generator has). In bf16, dims
 // 32 and 64 have a kernel each; dim 96 runs padded in the dim-128 design and
 // dims 160, 192 and 224 in the dim-256 design, one instantiation per dim
 // with the dim and the head count folded in. Padding is exact: the
@@ -78,6 +81,7 @@
 // activation rows have an odd stride so a warp's reads fall in distinct
 // banks.
 #include <cmath>
+#include <type_traits>
 
 #include "common.cuh"
 #include "mma.cuh"
@@ -1517,6 +1521,845 @@ fused_structural_block_widest_kernel(const bf16* __restrict__ x, const bf16* __r
 }
 
 // ---------------------------------------------------------------------------
+// bf16 at the dims of heads other than 32: head slots
+// ---------------------------------------------------------------------------
+//
+// The generators' dims that are not multiples of 32 (4c: 16, 48, 80, ..,
+// 240) have default_num_heads(C) heads of hd = 16 .. 56 channels, hd % 4 ==
+// 0 (C = 16 k; 1, 2, 4, 6 heads). From dim 48 on,
+// fused_structural_block_slot_kernel<S>
+// runs them in the dim-256 design's frame (8 warps on one window, every
+// weight streamed through two shared-memory tiles, the residual stream 64
+// fp32 a thread split over two warps a row, every operand a hi + lo pair)
+// with C and the head count at run time and each head in a slot of S = hd
+// rounded up to 16 channels (S = 16, 32, 48, 64): the head's q, k and v
+// weight rows sit at the start of the slot, its proj columns too, and the
+// pad rows and columns are staged as zeros, so the scores and the real
+// outputs are the head's; the scale is 1/sqrt(hd), a runtime value. The
+// slot width and the residual width are separate quantities (c60's 6
+// heads of 40 take 6 x 48 = 288 slot channels against a residual of 240),
+// so the heads pass one at a time, with all 8 warps:
+//   q, k, v  a tile of S rows of Wqkv each (K = the C real inputs,
+//            ceil(C / 16) k-steps): warp w forms, for its 16 tokens, its
+//            share of the slot's 16-column groups (half w / 4 of them),
+//            into shared memory as hi + lo;
+//   MHSA     each warp the scores of its 16 queries over the 64 keys (the
+//            two warps of a row both form them), keys outside a ragged
+//            grid at -inf, the exponentials at the scale 1/sqrt(hd) and,
+//            for its share of the slot's columns, the exponentials (hi +
+//            lo) times v (hi, then lo); divided by the row sums, into
+//            shared memory as hi + lo;
+//   proj     two tiles of 128 output rows x the slot's S columns of Wproj
+//            onto the residual stream (which starts as x + the proj bias).
+// LN1, LN2 and the MLP are the dim-256 design's, over the C real channels
+// (a 32-column block of the stream may hold real and pad columns here, so
+// LN2's variance and y's stores go column by column). Rows of C % 4 == 0
+// values move 8 bytes at a time (cp.async). The dims of the FMA bodies'
+// that are not a generator's (C % 4 != 0, or hd % 4 != 0) and fp32 stay
+// in those bodies, and so does dim 16 (c4), where they are faster.
+constexpr int kSlotMaxHeads = 8;
+
+template <int S>
+struct SlotLayout {
+  static constexpr int DP = 256, HC = 128;
+  static constexpr int WS = DP + 8;             // rows of DP values: 528 bytes
+  static constexpr int RS = S + 8;              // a slot's rows (q, k, v, o; proj tiles)
+  static constexpr int FS = HC + 8;             // fc2 tile rows, the hidden chunk
+  static constexpr int TILE = 64 * WS;          // the largest tile (S x WS, 128 x RS fit)
+  static constexpr int HEAD = kTok * RS;        // one head tile
+  static constexpr int W = 0;                   // [2][TILE]
+  static constexpr int HH = W + 2 * TILE;       // [64][WS] LN1 out, then LN2 out, hi
+  static constexpr int HL = HH + kTok * WS;     //   ... lo
+  static constexpr int U = HL + kTok * WS;      // union:
+  static constexpr int QH = U;                  //   q, k, v, o, each hi and lo: [8][HEAD]
+  static constexpr int AH = U;                  //   [64][FS] the hidden chunk hi
+  static constexpr int AL = AH + kTok * FS;     //   ... lo
+  static constexpr int ELEMS = (QH + 8 * HEAD > AL + kTok * FS ? QH + 8 * HEAD : AL + kTok * FS);
+  static constexpr int N1W = 0, N1B = DP, N2W = 2 * DP, N2B = 3 * DP;
+  static constexpr int QKV_B = 4 * DP;                          // [3][heads][S], slot layout
+  static constexpr int PROJ_B = QKV_B + 3 * kSlotMaxHeads * 64, FC1_B = PROJ_B + DP,
+                       FC2_B = FC1_B + 4 * DP, STAT = FC2_B + DP;   // + [2][2][64] row sums
+  static constexpr int PARAMS = STAT + 4 * kTok;
+  static constexpr int BYTES = ELEMS * (int)sizeof(bf16) + PARAMS * (int)sizeof(float);
+  static_assert(S % 16 == 0 && S <= 64 && 128 * RS <= TILE, "slots of 16 .. 64");
+};
+
+// acc (16 rows x 16 outputs, 2 n-tiles) += a w^T over `ks` k-steps: a 16
+// rows at ah (and lo at al when kSplit) of stride lda, w 16 rows [n][k] of
+// stride ldw.
+template <bool kSplit>
+__device__ __forceinline__ void rows_times_w16(float (&acc)[2][4], const bf16* ah, const bf16* al,
+                                               int lda, const bf16* w, int ldw, int ks,
+                                               int lane) {
+#pragma unroll 4
+  for (int kk = 0; kk < ks; ++kk) {
+    const int aoff = (lane & 15) * lda + kk * 16 + (lane >> 4) * 8;
+    uint32_t a[4], b[4];
+    ldmatrix_x4(a, ah + aoff);
+    ldmatrix_x4(b, w + ((lane & 7) + (lane >> 4) * 8) * ldw + kk * 16 + ((lane >> 3) & 1) * 8);
+    mma_bf16(acc[0], a, b[0], b[1]);
+    mma_bf16(acc[1], a, b[2], b[3]);
+    if constexpr (kSplit) {
+      ldmatrix_x4(a, al + aoff);
+      mma_bf16(acc[0], a, b[0], b[1]);
+      mma_bf16(acc[1], a, b[2], b[3]);
+    }
+  }
+}
+
+// acc (16 x 16: columns c0.. of y) += x (16 x 64, C fragments) y, y a
+// [token][d] tile of stride ldy through ldmatrix.trans; x as A fragments,
+// hi + lo when kSplit.
+template <bool kSplit>
+__device__ __forceinline__ void probs_times_cols(float (&acc)[2][4], const float (&x)[8][4],
+                                                 const bf16* y, int ldy, int c0, int lane) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {
+    uint32_t hi[4], lo[4];
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      const float a0 = x[2 * kk + r / 2][(r % 2) * 2], a1 = x[2 * kk + r / 2][(r % 2) * 2 + 1];
+      if (kSplit) pack_bf16_split(a0, a1, hi[r], lo[r]);
+      else hi[r] = pack_bf16(a0, a1);
+    }
+    uint32_t b[4];
+    ldmatrix_x4_trans(b, y + (kk * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * ldy + c0 +
+                             (lane >> 4) * 8);
+    mma_bf16(acc[0], hi, b[0], b[1]);
+    mma_bf16(acc[1], hi, b[2], b[3]);
+    if (kSplit) {
+      mma_bf16(acc[0], lo, b[0], b[1]);
+      mma_bf16(acc[1], lo, b[2], b[3]);
+    }
+  }
+}
+
+template <int S>
+__global__ void __launch_bounds__(kMmaThreads, 1)
+fused_structural_block_slot_kernel(const bf16* __restrict__ x, const bf16* __restrict__ st,
+                                   const float* __restrict__ gamma,
+                                   const float* __restrict__ beta, const bf16* __restrict__ n1w,
+                                   const bf16* __restrict__ n1b, const bf16* __restrict__ qkvw,
+                                   const bf16* __restrict__ qkvb, const bf16* __restrict__ projw,
+                                   const bf16* __restrict__ projb, const bf16* __restrict__ n2w,
+                                   const bf16* __restrict__ n2b, const bf16* __restrict__ f1w,
+                                   const bf16* __restrict__ f1b, const bf16* __restrict__ f2w,
+                                   const bf16* __restrict__ f2b, bf16* __restrict__ y, int B,
+                                   int H, int W, int C, int heads, float scale, float eps) {
+  using L = SlotLayout<S>;
+  constexpr int DP = L::DP, WS = L::WS, RS = L::RS, FS = L::FS, HC = L::HC;
+  constexpr int G = S / 16;                   // 16-column groups of a slot
+  constexpr int GW = (G + 1) / 2;             // groups of a warp at most (half 0 takes GW)
+  extern __shared__ __align__(16) unsigned char smem_mma[];
+  bf16* sW = reinterpret_cast<bf16*>(smem_mma);
+  bf16* sHH = sW + L::HH;
+  bf16* sHL = sW + L::HL;
+  bf16* sQH = sW + L::QH;                     // q hi, q lo, k hi, k lo, v hi, v lo, o hi, o lo
+  bf16* sAH = sW + L::AH;
+  bf16* sAL = sW + L::AL;
+  float* sP = reinterpret_cast<float*>(sW + L::ELEMS);
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int r0 = (warp & 3) * 16, half = warp >> 2, g = lane >> 2, tq = lane & 3;
+  const int hd = C / heads;
+  const int g0 = half * GW, gn = half ? G - GW : GW;   // this warp's slot column groups
+  const int ks = (C + 15) / 16;                         // k-steps over the C inputs
+  const int chunks = (4 * C + HC - 1) / HC;
+  const int tiles_heads = 5 * heads, tiles = tiles_heads + 6 * chunks;
+  auto tile_of = [&](int i) { return sQH + i * L::HEAD; };
+
+  // tile t into buffer t & 1, 8 bytes a copy by the whole block, zeros past
+  // the real rows and columns: per head q, k, v (S slot rows of Wqkv, the C
+  // inputs) and two proj tiles (128 output rows x the head's S slot
+  // columns); per hidden chunk two fc1 tiles (64 rows) and four fc2 tiles
+  // (64 output rows x the chunk's 128 columns)
+  auto load_tile = [&](int t) {
+    bf16* dst = sW + (t & 1) * L::TILE;
+    if (t < tiles_heads) {
+      const int h = t / 5, part = t % 5;
+      if (part < 3) {
+        for (int e = tid; e < S * (DP / 4); e += kMmaThreads) {
+          const int r = e / (DP / 4), c = (e % (DP / 4)) * 4;
+          const bool real = r < hd && c < C;
+          const bf16* src = qkvw + (long long)(part * C + h * hd + r) * C + c;
+          cp_async8(dst + r * WS + c, real ? src : qkvw, real);
+        }
+      } else {
+        const int o0 = (part - 3) * 128;
+        for (int e = tid; e < 128 * (S / 4); e += kMmaThreads) {
+          const int r = e / (S / 4), c = (e % (S / 4)) * 4;
+          const bool real = o0 + r < C && c < hd;
+          const bf16* src = projw + (long long)(o0 + r) * C + h * hd + c;
+          cp_async8(dst + r * RS + c, real ? src : projw, real);
+        }
+      }
+      return;
+    }
+    const int hc = (t - tiles_heads) / 6, part = (t - tiles_heads) % 6;
+    if (part < 2) {
+      const int h0 = hc * HC + part * 64;
+      for (int e = tid; e < 64 * (DP / 4); e += kMmaThreads) {
+        const int r = e / (DP / 4), c = (e % (DP / 4)) * 4;
+        const bool real = h0 + r < 4 * C && c < C;
+        const bf16* src = f1w + (long long)(h0 + r) * C + c;
+        cp_async8(dst + r * WS + c, real ? src : f1w, real);
+      }
+    } else {
+      const int o0 = (part - 2) * 64;
+      for (int e = tid; e < 64 * (HC / 4); e += kMmaThreads) {
+        const int r = e / (HC / 4), c = (e % (HC / 4)) * 4;
+        const bool real = o0 + r < C && hc * HC + c < 4 * C;
+        const bf16* src = f2w + (long long)(o0 + r) * 4 * C + hc * HC + c;
+        cp_async8(dst + r * FS + c, real ? src : f2w, real);
+      }
+    }
+  };
+
+  // the fp32 parameters: norms, proj and fc2 biases, fc1's over DP and 4 DP
+  // (zero past C and 4C); qkv's in the slot layout [3][heads][S]
+  for (int e = tid; e < DP; e += kMmaThreads) {
+    const bool real = e < C;
+    sP[L::N1W + e] = real ? to_f(n1w[e]) : 0.f;
+    sP[L::N1B + e] = real ? to_f(n1b[e]) : 0.f;
+    sP[L::N2W + e] = real ? to_f(n2w[e]) : 0.f;
+    sP[L::N2B + e] = real ? to_f(n2b[e]) : 0.f;
+    sP[L::PROJ_B + e] = real ? to_f(projb[e]) : 0.f;
+    sP[L::FC2_B + e] = real ? to_f(f2b[e]) : 0.f;
+  }
+  for (int e = tid; e < 4 * DP; e += kMmaThreads) sP[L::FC1_B + e] = e < 4 * C ? to_f(f1b[e]) : 0.f;
+  for (int e = tid; e < 3 * heads * S; e += kMmaThreads) {
+    const int part = e / (heads * S), h = (e / S) % heads, d = e % S;
+    sP[L::QKV_B + e] = d < hd ? to_f(qkvb[part * C + h * hd + d]) : 0.f;
+  }
+
+  const int nwx = (W + kWin - 1) / kWin, nwy = (H + kWin - 1) / kWin;
+  const long long n_windows = (long long)B * nwy * nwx;
+  if ((long long)blockIdx.x < n_windows) load_tile(0);
+  cp_async_commit();
+#pragma unroll 1
+  for (long long win = blockIdx.x; win < n_windows; win += gridDim.x) {
+    const int b = (int)(win / (nwy * nwx)), rem = (int)(win - (long long)b * nwy * nwx);
+    const int row0 = (rem / nwx) * kWin, col0 = (rem % nwx) * kWin;
+    const bool ragged = row0 + kWin > H || col0 + kWin > W;
+    auto valid = [&](int tok) { return row0 + tok / kWin < H && col0 + tok % kWin < W; };
+    auto offset = [&](int tok) {
+      return (((long long)b * H + row0 + tok / kWin) * W + col0 + tok % kWin) * C;
+    };
+    const bool more = win + gridDim.x < n_windows;
+    int t = 0;
+    auto next_tile = [&]() {
+      cp_async_wait<0>();
+      __syncthreads();   // tile t is in; every warp is done with tile t - 1
+      if (t + 1 < tiles) load_tile(t + 1);
+      else if (more) load_tile(0);
+      cp_async_commit();
+      return static_cast<const bf16*>(sW + (t++ & 1) * L::TILE);
+    };
+
+    __syncthreads();   // the previous window is done with LN2's output
+    // LN1 + FiLM over the C real channels, a warp a token, 8 channels a
+    // lane (two 8-byte loads: C % 4 == 0); tokens outside the grid and the
+    // pad channels as zeros; hi + lo to shared memory
+    for (int tok = warp; tok < kTok; tok += kMmaThreads / 32) {
+      float u[8] = {};
+      if (valid(tok)) {
+#pragma unroll
+        for (int q = 0; q < 2; ++q) {
+          const int c = lane * 8 + q * 4;
+          if (c >= C) continue;
+          const uint2 xv = __ldg(reinterpret_cast<const uint2*>(x + offset(tok) + c));
+          const uint2 sv = __ldg(reinterpret_cast<const uint2*>(st + offset(tok) + c));
+          const bf16* xp = reinterpret_cast<const bf16*>(&xv);
+          const bf16* sp = reinterpret_cast<const bf16*>(&sv);
+#pragma unroll
+          for (int i = 0; i < 4; ++i) u[q * 4 + i] = __bfloat162float(xp[i]) + __bfloat162float(sp[i]);
+        }
+      }
+      float sum = 0.f;
+#pragma unroll
+      for (int i = 0; i < 8; ++i) sum += u[i];
+      const float mean = warp_sum(sum) / C;
+      float var = 0.f;
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+        if (lane * 8 + i < C) var = fmaf(u[i] - mean, u[i] - mean, var);
+      const float rstd = 1.f / sqrtf(warp_sum(var) / C + eps);
+      uint4 hi = make_uint4(0u, 0u, 0u, 0u), lo = hi;
+      uint32_t* hp = reinterpret_cast<uint32_t*>(&hi);
+      uint32_t* lp = reinterpret_cast<uint32_t*>(&lo);
+#pragma unroll
+      for (int i = 0; i < 8; i += 2) {
+        float v[2];
+#pragma unroll
+        for (int j = 0; j < 2; ++j) {
+          const int c = lane * 8 + i + j;
+          v[j] = 0.f;
+          if (c < C) {
+            v[j] = (u[i + j] - mean) * rstd * sP[L::N1W + c] + sP[L::N1B + c];
+            v[j] = v[j] * (1.f + __ldg(gamma + (long long)b * C + c)) +
+                   __ldg(beta + (long long)b * C + c);
+          }
+        }
+        pack_bf16_split(v[0], v[1], hp[i / 2], lp[i / 2]);
+      }
+      *reinterpret_cast<uint4*>(sHH + tok * WS + lane * 8) = hi;
+      *reinterpret_cast<uint4*>(sHL + tok * WS + lane * 8) = lo;
+    }
+
+    // the residual stream: x + the proj bias at the warp's rows and columns
+    // (of 64-column block j, the 32 at 32 half + 8 n + 2 tq); zero past C
+    float xr[4][4][4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int n = 0; n < 4; ++n) {
+        const int c = j * 64 + half * 32 + n * 8 + 2 * tq;
+#pragma unroll
+        for (int hh = 0; hh < 2; ++hh) {
+          const int tok = r0 + g + 8 * hh;
+          float2 xv = make_float2(0.f, 0.f);
+          if (valid(tok) && c < C)
+            xv = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(x + offset(tok) + c));
+          xr[j][n][2 * hh] = xv.x + sP[L::PROJ_B + c];
+          xr[j][n][2 * hh + 1] = xv.y + sP[L::PROJ_B + c + 1];
+        }
+      }
+
+    // the heads, one at a time
+#pragma unroll 1
+    for (int h = 0; h < heads; ++h) {
+#pragma unroll
+      for (int part = 0; part < 3; ++part) {   // q, k, v: this warp's slot columns
+        const bf16* tile = next_tile();
+#pragma unroll
+        for (int i = 0; i < GW; ++i) {
+          if (i >= gn) break;
+          const int gc = (g0 + i) * 16;
+          float acc[2][4];
+#pragma unroll
+          for (int j = 0; j < 2; ++j) {
+            const float2 bb = *reinterpret_cast<const float2*>(
+                sP + L::QKV_B + (part * heads + h) * S + gc + j * 8 + 2 * tq);
+            acc[j][0] = acc[j][2] = bb.x;
+            acc[j][1] = acc[j][3] = bb.y;
+          }
+          rows_times_w16<true>(acc, sHH + r0 * WS, sHL + r0 * WS, WS, tile + gc * WS, WS, ks,
+                               lane);
+          store_frags<2>(tile_of(2 * part), tile_of(2 * part + 1), RS, r0, gc, acc, 1.f, lane);
+        }
+      }
+      __syncthreads();   // q, k and v of the head are in
+      {
+        uint32_t qh[G][4], ql[G][4];
+        mhsa::load_a<S>(qh, tile_of(0), r0, lane);
+        mhsa::load_a<S>(ql, tile_of(1), r0, lane);
+        float s[8][4];
+        mhsa::times_tile_t_split<S>(s, qh, ql, tile_of(2), tile_of(3), lane);
+        if (ragged) {   // keys outside the grid drop out of the softmax
+#pragma unroll
+          for (int j = 0; j < 8; ++j) {
+            if (!valid(j * 8 + 2 * tq)) s[j][0] = s[j][2] = -INFINITY;
+            if (!valid(j * 8 + 2 * tq + 1)) s[j][1] = s[j][3] = -INFINITY;
+          }
+        }
+        float l0, l1;   // token 0 of a window is always a valid key
+        mhsa::exp_rows<true>(s, scale, l0, l1);   // __expf: y is bf16
+        l0 = 1.f / l0;
+        l1 = 1.f / l1;
+#pragma unroll
+        for (int i = 0; i < GW; ++i) {
+          if (i >= gn) break;
+          const int gc = (g0 + i) * 16;
+          float o[2][4] = {};
+          probs_times_cols<true>(o, s, tile_of(4), RS, gc, lane);    // e (hi + lo) v hi
+          probs_times_cols<false>(o, s, tile_of(5), RS, gc, lane);   // e hi v lo
+#pragma unroll
+          for (int j = 0; j < 2; ++j) {
+            o[j][0] *= l0;
+            o[j][1] *= l0;
+            o[j][2] *= l1;
+            o[j][3] *= l1;
+          }
+          store_frags<2>(tile_of(6), tile_of(7), RS, r0, gc, o, 1.f, lane);
+        }
+      }
+      // the head's share of the proj: output rows 128 i.. of Wproj x the
+      // slot's S columns; the warp's 64-column blocks 2 i and 2 i + 1
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        const bf16* tile = next_tile();   // also: every warp's o is in
+#pragma unroll
+        for (int j = 0; j < 2; ++j) {
+          if ((2 * i + j) * 64 + half * 32 >= C) continue;   // 32 pad columns
+          rows_times_w<S / 16, true>(xr[2 * i + j], tile_of(6) + r0 * RS, tile_of(7) + r0 * RS, RS,
+                                     tile + (j * 64 + half * 32) * RS, RS, lane);
+        }
+      }
+    }
+
+    // LN2 over the stream's C real columns: the row sums of the warp's
+    // columns (the pads are zero), then the partner warp's (w ^ 4) through
+    // shared memory; the variance column by column
+    {
+      float* stat = sP + L::STAT;   // [sum, squares][half][64 rows]
+      float s0 = 0.f, s1 = 0.f;
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+#pragma unroll
+        for (int n = 0; n < 4; ++n) {
+          s0 += xr[j][n][0] + xr[j][n][1];
+          s1 += xr[j][n][2] + xr[j][n][3];
+        }
+      s0 = quad_sum(s0);
+      s1 = quad_sum(s1);
+      if (tq == 0) {
+        stat[half * kTok + r0 + g] = s0;
+        stat[half * kTok + r0 + g + 8] = s1;
+      }
+      __syncthreads();
+      const float m0 = (stat[r0 + g] + stat[kTok + r0 + g]) / C;
+      const float m1 = (stat[r0 + g + 8] + stat[kTok + r0 + g + 8]) / C;
+      float v0 = 0.f, v1 = 0.f;
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+#pragma unroll
+        for (int n = 0; n < 4; ++n) {
+          if (j * 64 + half * 32 + n * 8 + 2 * tq >= C) continue;   // C is even
+          v0 = fmaf(xr[j][n][0] - m0, xr[j][n][0] - m0, fmaf(xr[j][n][1] - m0, xr[j][n][1] - m0, v0));
+          v1 = fmaf(xr[j][n][2] - m1, xr[j][n][2] - m1, fmaf(xr[j][n][3] - m1, xr[j][n][3] - m1, v1));
+        }
+      v0 = quad_sum(v0);
+      v1 = quad_sum(v1);
+      if (tq == 0) {
+        stat[2 * kTok + half * kTok + r0 + g] = v0;
+        stat[2 * kTok + half * kTok + r0 + g + 8] = v1;
+      }
+      __syncthreads();
+      const float i0 = 1.f / sqrtf((stat[2 * kTok + r0 + g] + stat[3 * kTok + r0 + g]) / C + eps);
+      const float i1 =
+          1.f / sqrtf((stat[2 * kTok + r0 + g + 8] + stat[3 * kTok + r0 + g + 8]) / C + eps);
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        float hn[4][4];
+#pragma unroll
+        for (int n = 0; n < 4; ++n) {
+          const int c = j * 64 + half * 32 + n * 8 + 2 * tq;
+          const float w0 = sP[L::N2W + c], w1 = sP[L::N2W + c + 1];
+          const float b0 = sP[L::N2B + c], b1 = sP[L::N2B + c + 1];
+          hn[n][0] = (xr[j][n][0] - m0) * i0 * w0 + b0;   // zero past C (w, b zero)
+          hn[n][1] = (xr[j][n][1] - m0) * i0 * w1 + b1;
+          hn[n][2] = (xr[j][n][2] - m1) * i1 * w0 + b0;
+          hn[n][3] = (xr[j][n][3] - m1) * i1 * w1 + b1;
+          xr[j][n][0] += sP[L::FC2_B + c];   // the stream now collects fc2
+          xr[j][n][1] += sP[L::FC2_B + c + 1];
+          xr[j][n][2] += sP[L::FC2_B + c];
+          xr[j][n][3] += sP[L::FC2_B + c + 1];
+        }
+        store_frags<4>(sHH, sHL, WS, r0, j * 64 + half * 32, hn, 1.f, lane);
+      }
+    }
+
+    // the MLP, 128 hidden columns at a time
+#pragma unroll 1
+    for (int hc = 0; hc < chunks; ++hc) {
+#pragma unroll
+      for (int part = 0; part < 2; ++part) {   // fc1, GELU: hidden columns 64 part + 32 half..
+        const bf16* tile = next_tile();
+        float f[4][4];
+        bias_frags(f, sP + L::FC1_B + hc * HC + part * 64 + half * 32, lane);
+#pragma unroll
+        for (int nb = 0; nb < 2; ++nb) {
+          float acc[2][4];
+#pragma unroll
+          for (int q = 0; q < 4; ++q) {
+            acc[0][q] = f[2 * nb][q];
+            acc[1][q] = f[2 * nb + 1][q];
+          }
+          rows_times_w16<true>(acc, sHH + r0 * WS, sHL + r0 * WS, WS,
+                               tile + (half * 32 + nb * 16) * WS, WS, ks, lane);
+#pragma unroll
+          for (int q = 0; q < 4; ++q) {
+            f[2 * nb][q] = acc[0][q];
+            f[2 * nb + 1][q] = acc[1][q];
+          }
+        }
+#pragma unroll
+        for (int n = 0; n < 4; ++n)
+#pragma unroll
+          for (int i = 0; i < 4; ++i)
+            f[n][i] = 0.5f * f[n][i] * (1.f + erff(f[n][i] * 0.70710678118654752f));
+        store_frags<4>(sAH, sAL, FS, r0, part * 64 + half * 32, f, 1.f, lane);
+      }
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {   // fc2: output rows 64 j.., the chunk's columns
+        const bf16* tile = next_tile();
+        if (j * 64 + half * 32 >= C) continue;   // 32 pad columns
+        rows_times_w<HC / 16, true>(xr[j], sAH + r0 * FS, sAL + r0 * FS, FS,
+                                    tile + half * 32 * FS, FS, lane);
+      }
+    }
+
+    // y, where the token and the column exist
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      const int tok = r0 + g + 8 * hh;
+      if (!valid(tok)) continue;
+      bf16* row = y + offset(tok);
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+#pragma unroll
+        for (int n = 0; n < 4; ++n) {
+          const int c = j * 64 + half * 32 + n * 8 + 2 * tq;
+          if (c < C)
+            *reinterpret_cast<uint32_t*>(row + c) = pack_bf16(xr[j][n][2 * hh], xr[j][n][2 * hh + 1]);
+        }
+    }
+  }
+  cp_async_wait<0>();
+}
+
+// The slot of a head of hd channels: hd rounded up to 16.
+template <typename F>
+int with_block_slot(int hd, F f) {
+  if (hd <= 16) return f(std::integral_constant<int, 16>{});
+  if (hd <= 32) return f(std::integral_constant<int, 32>{});
+  if (hd <= 48) return f(std::integral_constant<int, 48>{});
+  return f(std::integral_constant<int, 64>{});
+}
+
+// bf16 at a dim C % 4 == 0 from 36 to 252 (not a multiple of 32) whose
+// heads have hd % 4 == 0 channels, hd <= 64, up to 8 heads: the slot
+// kernel. Below 32 the dim-256 frame cost more than the FMA bodies in a
+// probe at c4's dim 16 (numbers not kept), which keep those dims.
+bool slot_takes(int C, int heads) {
+  const int hd = C / heads;
+  return C > 32 && C <= 256 && C % 4 == 0 && heads <= kSlotMaxHeads && hd % 4 == 0 &&
+         hd <= 64;
+}
+
+int launch_slot(const void* x, const void* st, const void* gamma, const void* beta,
+                const void* const* w, void* y, int B, int H, int W, int C, int heads, float eps,
+                cudaStream_t stream) {
+  const int hd = C / heads;
+  const float scale = 1.f / sqrtf((float)hd);
+  return with_block_slot(hd, [&](auto slot) {
+    constexpr int S = decltype(slot)::value;
+    using L = SlotLayout<S>;
+    auto kernel = fused_structural_block_slot_kernel<S>;
+    cudaError_t err =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, L::BYTES);
+    if (err != cudaSuccess) return (int)err;
+    static int sms = 0, blocks_per_sm = 0;   // asked once per slot width
+    if (sms == 0) {
+      const int rc = residency(kernel, kMmaThreads, L::BYTES, &sms, &blocks_per_sm);
+      if (rc != 0) return rc;
+    }
+    const long long n_windows =
+        (long long)B * ((H + kWin - 1) / kWin) * ((W + kWin - 1) / kWin);
+    const int grid = persistent_grid(n_windows, sms, blocks_per_sm);
+    auto p = [&](int i) { return static_cast<const bf16*>(w[i]); };
+    kernel<<<(unsigned)grid, kMmaThreads, L::BYTES, stream>>>(
+        static_cast<const bf16*>(x), static_cast<const bf16*>(st),
+        static_cast<const float*>(gamma), static_cast<const float*>(beta), p(0), p(1), p(2), p(3),
+        p(4), p(5), p(6), p(7), p(8), p(9), p(10), p(11), static_cast<bf16*>(y), B, H, W, C, heads,
+        scale, eps);
+    return (int)cudaGetLastError();
+  });
+}
+
+// ---------------------------------------------------------------------------
+// Any other dim: FMA bodies, fp32 and bf16
+// ---------------------------------------------------------------------------
+//
+// The dims that are not multiples of 32 (4c for c = 1 .. 64 not a multiple
+// of 8: 4, 12, .., 252) have default_num_heads(C) heads of hd = 4 .. 62
+// channels, which the tensor-core designs above (heads of 32) do not take.
+// fused_structural_block_any_kernel takes them, in fp32 and in bf16, with C
+// and the head count at run time: the dim-256 fp32 design (a head at a
+// time, its share of the proj added onto the residual stream at once; the
+// MLP in chunks of hidden columns) on the CUDA cores, every sum in fp32
+// (the residual stream, the LayerNorms, the proj, the MLP) and a head's q,
+// k, scores and softmax in Acc: double for fp32 storage, as the plain
+// version carries them in float64, and float for bf16 storage, whose
+// output rounding is 2^-8. No operand is rounded to bf16 inside: bf16
+// inputs and weights are read as they are stored and the result is
+// rounded once. One block of 256 threads per 8x8 window; the scores of a
+// head are taken 16 query rows at a time, and a row's attention output is
+// written over its q (dead once the row's scores exist). Shared memory:
+// two 64 x (C + 1) fp32 rows (the residual stream; LN1's, then LN2's
+// output) and a union of one head (q | k in Acc, 64 x (2 hd + 1); 16 score
+// rows; v) and a 64-column hidden chunk: 212 KB at C = 244 (hd = 61), the
+// largest. Rows whose length and start are multiples of 4 values are read
+// 4 at a time (load4), others a value at a time. What bounds it: the FMA
+// rate, about 24 C^2 + 256 C flop per token at a few TFLOP/s, not the
+// bytes; it is the simple design of these widths, not a fast one.
+template <typename T>
+struct AnyAcc { using type = float; };
+template <>
+struct AnyAcc<float> { using type = double; };
+
+constexpr int kAnyQRows = 16;   // query rows a score tile holds
+constexpr int kAnyHC = 64;      // hidden columns a chunk
+
+// The dynamic shared memory of the kernel at dim C, hd channels a head.
+template <typename T>
+int any_smem_bytes(int C, int hd) {
+  using Acc = typename AnyAcc<T>::type;
+  const int xs = 2 * kTok * (C + 1) * (int)sizeof(float);
+  const int head = kTok * (2 * hd + 1) * (int)sizeof(Acc) +
+                   kAnyQRows * (kTok + 1) * (int)sizeof(Acc) + kTok * (hd + 1) * (int)sizeof(float);
+  const int chunk = kTok * (kAnyHC + 1) * (int)sizeof(float);
+  return (xs + 7) / 8 * 8 + (head > chunk ? head : chunk);
+}
+
+// out[t][o] = A[t] . row(o) + bias(o) for the 64 tokens and N outputs,
+// handed to epi(t, o, value): a 16 x 16 grid of threads over 64 tokens and
+// 64 outputs at a time (4 x 4 sums a thread, in Acc), K inputs, row(o) the
+// K weights of output o; `vec` when K, every row's start and A's rows allow
+// 4-wide weight loads.
+template <typename Acc, typename Row, typename Bias, typename Epi>
+__device__ __forceinline__ void linear_any(const float* A, int lda, int K, int N, bool vec,
+                                           Row row, Bias bias, Epi epi) {
+  const int tg = threadIdx.x % 16, og = threadIdx.x / 16;
+#pragma unroll 1
+  for (int n0 = 0; n0 < N; n0 += 64) {
+    Acc acc[4][4] = {};
+    bool live[4];
+#pragma unroll
+    for (int r = 0; r < 4; ++r) live[r] = n0 + og + 16 * r < N;
+    if (vec) {
+#pragma unroll 1
+      for (int i = 0; i < K; i += 4) {
+        float a[4][4];
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+#pragma unroll
+          for (int q = 0; q < 4; ++q) a[j][q] = A[(tg + 16 * j) * lda + i + q];
+#pragma unroll
+        for (int r = 0; r < 4; ++r) {
+          if (!live[r]) continue;
+          const float4 w = load4(row(n0 + og + 16 * r) + i);
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            acc[j][r] = fma_acc((Acc)a[j][0], (Acc)w.x, acc[j][r]);
+            acc[j][r] = fma_acc((Acc)a[j][1], (Acc)w.y, acc[j][r]);
+            acc[j][r] = fma_acc((Acc)a[j][2], (Acc)w.z, acc[j][r]);
+            acc[j][r] = fma_acc((Acc)a[j][3], (Acc)w.w, acc[j][r]);
+          }
+        }
+      }
+    } else {
+#pragma unroll 1
+      for (int i = 0; i < K; ++i) {
+        float a[4];
+#pragma unroll
+        for (int j = 0; j < 4; ++j) a[j] = A[(tg + 16 * j) * lda + i];
+#pragma unroll
+        for (int r = 0; r < 4; ++r) {
+          if (!live[r]) continue;
+          const float w = to_f(row(n0 + og + 16 * r)[i]);
+#pragma unroll
+          for (int j = 0; j < 4; ++j) acc[j][r] = fma_acc((Acc)a[j], (Acc)w, acc[j][r]);
+        }
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int r = 0; r < 4; ++r)
+        if (live[r]) {
+          const int o = n0 + og + 16 * r;
+          epi(tg + 16 * j, o, acc[j][r] + (Acc)bias(o));
+        }
+  }
+}
+
+// LayerNorm over the C channels of each token row (one warp per row), and
+// the FiLM (1 + gamma), beta when gamma is given; rows of stride ld.
+template <typename T>
+__device__ __forceinline__ void layer_norm_any(const float* in, float* out, int C, int ld,
+                                               const T* __restrict__ w, const T* __restrict__ b,
+                                               float eps, const float* gamma,
+                                               const float* beta) {
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  for (int t = warp; t < kTok; t += kWarps) {
+    const float* r = in + t * ld;
+    float s = 0.f;
+    for (int c = lane; c < C; c += 32) s += r[c];
+    const float mean = warp_sum(s) / C;
+    float v = 0.f;
+    for (int c = lane; c < C; c += 32) {
+      const float d = r[c] - mean;
+      v = fmaf(d, d, v);
+    }
+    const float rstd = 1.f / sqrtf(warp_sum(v) / C + eps);
+    for (int c = lane; c < C; c += 32) {
+      float o = (r[c] - mean) * rstd * to_f(w[c]) + to_f(b[c]);
+      if (gamma != nullptr) o = o * (1.f + gamma[c]) + beta[c];
+      out[t * ld + c] = o;
+    }
+  }
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+fused_structural_block_any_kernel(const T* __restrict__ x, const T* __restrict__ st,
+                                  const float* __restrict__ gamma,
+                                  const float* __restrict__ beta, const T* __restrict__ n1w,
+                                  const T* __restrict__ n1b, const T* __restrict__ qkvw,
+                                  const T* __restrict__ qkvb, const T* __restrict__ projw,
+                                  const T* __restrict__ projb, const T* __restrict__ n2w,
+                                  const T* __restrict__ n2b, const T* __restrict__ f1w,
+                                  const T* __restrict__ f1b, const T* __restrict__ f2w,
+                                  const T* __restrict__ f2b, T* __restrict__ y, int H, int W,
+                                  int C, int heads, float eps) {
+  using Acc = typename AnyAcc<T>::type;
+  const int hd = C / heads;
+  const int XS = C + 1, KS = 2 * hd + 1, SS = kTok + 1, VS = hd + 1, AS = kAnyHC + 1;
+  // a row's attention output over its q: rows of KS Acc values
+  const int OS = KS * (int)(sizeof(Acc) / sizeof(float));
+  extern __shared__ __align__(16) float smem_any[];
+  float* sX = smem_any;                     // [64][XS] residual stream
+  float* sH = sX + kTok * XS;               // [64][XS] LN1 out, then LN2 out
+  float* sU = sH + kTok * XS;
+  sU += (reinterpret_cast<uintptr_t>(sU) / sizeof(float)) % 2;   // 8-byte aligned
+  Acc* sQK = reinterpret_cast<Acc*>(sU);    // [64][KS] q | k, then o (float, stride OS)
+  Acc* sS = sQK + kTok * KS;                // [16][SS] a tile of scores
+  float* sV = reinterpret_cast<float*>(sS + kAnyQRows * SS);   // [64][VS]
+  float* sO = reinterpret_cast<float*>(sQK);
+  float* sA1 = sU;                          // [64][AS] a hidden chunk
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int b = blockIdx.z, row0 = blockIdx.y * kWin, col0 = blockIdx.x * kWin;
+  auto valid = [&](int t) { return row0 + t / kWin < H && col0 + t % kWin < W; };
+  auto offset = [&](int t) {
+    return (((long long)b * H + row0 + t / kWin) * W + col0 + t % kWin) * C;
+  };
+  // 4-wide weight loads: rows of C and hd values that start 4 apart
+  const bool vec_c = C % 4 == 0, vec_hd = vec_c && hd % 4 == 0;
+
+  // x (residual) and x + struct; tokens outside the grid load as zeros
+  for (int e = tid; e < kTok * C; e += kThreads) {
+    const int t = e / C, c = e % C;
+    float xv = 0.f, sv = 0.f;
+    if (valid(t)) {
+      xv = to_f(x[offset(t) + c]);
+      sv = to_f(st[offset(t) + c]);
+    }
+    sX[t * XS + c] = xv;
+    sH[t * XS + c] = xv + sv;
+  }
+  __syncthreads();
+  layer_norm_any(sH, sH, C, XS, n1w, n1b, eps, gamma + (long long)b * C,
+                 beta + (long long)b * C);
+  __syncthreads();
+
+  const Acc scale = (Acc)1 / sqrt((Acc)hd);
+#pragma unroll 1
+  for (int hh = 0; hh < heads; ++hh) {
+    // this head's q, k (Acc) and v: rows hh hd.. of each third of Wqkv
+    linear_any<Acc>(
+        sH, XS, C, 3 * hd, vec_c,
+        [&](int o) { return qkvw + (long long)((o / hd) * C + hh * hd + o % hd) * C; },
+        [&](int o) { return to_f(qkvb[(o / hd) * C + hh * hd + o % hd]); },
+        [&](int t, int o, Acc v) {
+          if (o < 2 * hd) sQK[t * KS + o] = v;
+          else sV[t * VS + o - 2 * hd] = (float)v;
+        });
+    __syncthreads();
+#pragma unroll 1
+    for (int q0 = 0; q0 < kTok; q0 += kAnyQRows) {
+      for (int e = tid; e < kAnyQRows * kTok; e += kThreads) {
+        const int s = e % kTok, tl = e / kTok;
+        Acc acc = -INFINITY;   // keys outside the grid drop out of the softmax
+        if (valid(s)) {
+          const Acc* q = sQK + (q0 + tl) * KS;
+          const Acc* k = sQK + s * KS + hd;
+          acc = 0;
+          for (int d = 0; d < hd; ++d) acc = fma_acc(q[d], k[d], acc);
+          acc *= scale;
+        }
+        sS[tl * SS + s] = acc;
+      }
+      __syncthreads();
+      for (int tl = warp; tl < kAnyQRows; tl += kWarps) {   // token 0 is always a valid key
+        Acc* r = sS + tl * SS;
+        Acc m = r[lane] > r[lane + 32] ? r[lane] : r[lane + 32];
+#pragma unroll
+        for (int o = 16; o > 0; o >>= 1) {
+          const Acc w = __shfl_xor_sync(0xffffffffu, m, o);
+          m = w > m ? w : m;
+        }
+        const Acc e0 = exp(r[lane] - m), e1 = exp(r[lane + 32] - m);
+        Acc sum = e0 + e1;
+#pragma unroll
+        for (int o = 16; o > 0; o >>= 1) sum += __shfl_xor_sync(0xffffffffu, sum, o);
+        r[lane] = e0 / sum;
+        r[lane + 32] = e1 / sum;
+      }
+      __syncthreads();
+      // o[t][d] = sum_s p[t][s] v[s][d] in fp32, over the row's own q
+      for (int e = tid; e < kAnyQRows * hd; e += kThreads) {
+        const int d = e % hd, tl = e / hd;
+        const Acc* p = sS + tl * SS;
+        float acc = 0.f;
+        for (int s = 0; s < kTok; ++s) acc = fmaf((float)p[s], sV[s * VS + d], acc);
+        sO[(q0 + tl) * OS + d] = acc;
+      }
+      __syncthreads();
+    }
+    // the head's share of the proj (and, once, its bias) onto the residual
+    linear_any<float>(
+        sO, OS, hd, C, vec_hd, [&](int o) { return projw + (long long)o * C + hh * hd; },
+        [&](int o) { return hh == 0 ? to_f(projb[o]) : 0.f; },
+        [&](int t, int o, float v) { sX[t * XS + o] += v; });
+    __syncthreads();
+  }
+
+  layer_norm_any(sX, sH, C, XS, n2w, n2b, eps, (const float*)nullptr, (const float*)nullptr);
+  __syncthreads();
+#pragma unroll 1
+  for (int h0 = 0; h0 < 4 * C; h0 += kAnyHC) {
+    const int n = 4 * C - h0 < kAnyHC ? 4 * C - h0 : kAnyHC;   // hidden columns of the chunk
+    linear_any<float>(
+        sH, XS, C, n, vec_c, [&](int o) { return f1w + (long long)(h0 + o) * C; },
+        [&](int o) { return to_f(f1b[h0 + o]); }, [&](int t, int o, float v) {
+          sA1[t * AS + o] = 0.5f * v * (1.f + erff(v * 0.70710678118654752f));
+        });
+    __syncthreads();
+    linear_any<float>(
+        sA1, AS, n, C, vec_c && n % 4 == 0,
+        [&](int o) { return f2w + (long long)o * 4 * C + h0; },
+        [&](int o) { return h0 == 0 ? to_f(f2b[o]) : 0.f; },
+        [&](int t, int o, float v) { sX[t * XS + o] += v; });
+    __syncthreads();
+  }
+
+  for (int e = tid; e < kTok * C; e += kThreads) {
+    const int t = e / C, c = e % C;
+    if (valid(t)) y[offset(t) + c] = from_f<T>(sX[t * XS + c]);
+  }
+}
+
+template <typename T>
+int launch_any(const void* x, const void* st, const void* gamma, const void* beta,
+               const void* const* w, void* y, int B, int H, int W, int C, float eps,
+               cudaStream_t stream) {
+  const int heads = default_num_heads(C);
+  if (C / heads > 64) return (int)cudaErrorInvalidValue;
+  const int smem = any_smem_bytes<T>(C, C / heads);
+  auto kernel = fused_structural_block_any_kernel<T>;
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid((W + kWin - 1) / kWin, (H + kWin - 1) / kWin, B);
+  if (grid.z > 65535) return (int)cudaErrorInvalidConfiguration;
+  auto p = [&](int i) { return static_cast<const T*>(w[i]); };
+  kernel<<<grid, kThreads, smem, stream>>>(
+      static_cast<const T*>(x), static_cast<const T*>(st), static_cast<const float*>(gamma),
+      static_cast<const float*>(beta), p(0), p(1), p(2), p(3), p(4), p(5), p(6), p(7), p(8),
+      p(9), p(10), p(11), static_cast<T*>(y), H, W, C, heads, eps);
+  return (int)cudaGetLastError();
+}
+
+// ---------------------------------------------------------------------------
 
 template <int C>
 int launch_f32(const void* x, const void* st, const void* gamma, const void* beta,
@@ -1589,9 +2432,10 @@ int launch_width(const void* x, const void* st, const void* gamma, const void* b
 // Plain C entry point (loaded with ctypes). x, struct and y are (B, H, W, C)
 // contiguous; gamma and beta (B, C) fp32; `weights` points to 12 pointers in
 // the order norm1 w/b, qkv w/b, proj w/b, norm2 w/b, fc1 w/b, fc2 w/b, of
-// the same type as x (dtype 0 = fp32, 1 = bf16). C % 32 == 0 from 32 to 256,
-// with C / 32 heads (the blocks of the c8 .. c64 generators). Launches on
-// `stream` and returns cudaGetLastError() (0 on success).
+// the same type as x (dtype 0 = fp32, 1 = bf16). Any C from 1 to 256 with
+// default_num_heads(C) heads (the blocks of the c1 .. c64 generators): C %
+// 32 == 0 in the designs of heads of 32, any other C in the FMA bodies.
+// Launches on `stream` and returns cudaGetLastError() (0 on success).
 extern "C" int fused_structural_block_launch(const void* x, const void* st, const void* gamma,
                                              const void* beta, const void* const* weights,
                                              void* y, int B, int H, int W, int C, int dtype,
@@ -1608,6 +2452,16 @@ extern "C" int fused_structural_block_launch(const void* x, const void* st, cons
     case 192: return mstgan::launch_width<192>(x, st, gamma, beta, weights, y, B, H, W, dtype, eps, s);
     case 224: return mstgan::launch_width<224>(x, st, gamma, beta, weights, y, B, H, W, dtype, eps, s);
     case 256: return mstgan::launch_width<256>(x, st, gamma, beta, weights, y, B, H, W, dtype, eps, s);
-    default: return (int)cudaErrorInvalidValue;
+    default:   // every other dim 4 .. 252 (heads of 4 .. 62): the FMA bodies
+      if (C < 1 || C > 256) return (int)cudaErrorInvalidValue;
+      if (dtype == mstgan::kF32)
+        return mstgan::launch_any<float>(x, st, gamma, beta, weights, y, B, H, W, C, eps, s);
+      if (dtype == mstgan::kBF16 && mstgan::slot_takes(C, mstgan::default_num_heads(C)))
+        return mstgan::launch_slot(x, st, gamma, beta, weights, y, B, H, W, C,
+                                   mstgan::default_num_heads(C), eps, s);
+      if (dtype == mstgan::kBF16)
+        return mstgan::launch_any<__nv_bfloat16>(x, st, gamma, beta, weights, y, B, H, W, C,
+                                                 eps, s);
+      return (int)cudaErrorInvalidValue;
   }
 }

@@ -1,5 +1,5 @@
 // Warp-level tensor-core helpers for Hopper (sm_90a) as inline PTX: the
-// bf16 m16n8k16 product with fp32 sums, ldmatrix, 16-byte cp.async, and
+// bf16 m16n8k16 product with fp32 sums, ldmatrix, 16- and 8-byte cp.async, and
 // packing fp32 values into bf16x2 operand registers; with them, the quad
 // reductions, the bf16 store of accumulator fragments, and the two steps
 // the channel-attention kernels (inference and training) share: a 16-row
@@ -75,6 +75,12 @@ __device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], const void* 
 __device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid = true) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
                :: "r"(smem_addr(dst)), "l"(src), "r"(valid ? 16 : 0));
+}
+// 8 bytes from global to shared memory (through L1); zeros when !valid.
+// Both addresses 8-byte aligned.
+__device__ __forceinline__ void cp_async8(void* dst, const void* src, bool valid = true) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n"
+               :: "r"(smem_addr(dst)), "l"(src), "r"(valid ? 8 : 0));
 }
 __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::);

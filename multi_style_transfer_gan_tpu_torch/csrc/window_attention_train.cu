@@ -58,14 +58,18 @@
 // single bf16 terms the backward misses the bf16 bound by 8.8-30x, with
 // only dL split by 6.2-13x, with the three split it stays at 0.65-0.84 of
 // it (devtools/train_kernel_rounding.py). S enters dv = dO S as one bf16
-// term, and out = v S^T as one term too but at C = 8, where a softmax over
-// 8 keys puts ~1/8 on each and one term takes the saturated input (qkv x 8)
-// to 1.08 of the bound at (8, 256, 256, 24) (emulated); there S enters as a
-// pair. v and dO are the bf16 inputs themselves.
+// term, and out = v S^T as one term too but at C = 8 (and 1, 2, 4), where a
+// softmax over 8 keys puts ~1/8 on each and one term takes the saturated
+// input (qkv x 8) to 1.08 of the bound at (8, 256, 256, 24) (emulated);
+// there S enters as a pair. v and dO are the bf16 inputs themselves.
 //
 // Widths. C = 16, 32, 64 (the c16 generator; c32's down1, up1, up2; c64's
-// up2) and 8 (the c8 generator's up2). In bf16, C = 8 runs padded to 16
-// channels inside (MmaLayout); the fp32 bodies take it as it is. C = 128
+// up2), 8 (the c8 generator's up2) and 1, 2, 4 (the c1 generator's three,
+// c2's up2 and down1, c4's up2). In bf16, C = 1 .. 8 run padded to 16
+// channels inside (MmaLayout); the fp32 bodies take them as they are. Rows of
+// 3C values of C = 1, 2, 4 are not 16-byte aligned, so those widths stage
+// and store a value at a time, and their pad keys are masked column by
+// column in the first n-tile of a Gram strip. C = 128
 // (c32's down2, c64's down1 and up1) and 256 (c64's down2) have no training
 // kernel here, as they have none in the JAX package (_group_geometry takes
 // C <= 64): their gradient goes the JAX package's way,
@@ -363,7 +367,7 @@ mid_bwd_kernel(const T* __restrict__ qkv, const T* __restrict__ dout, T* __restr
 
 using bf16 = __nv_bfloat16;
 
-// C = 8 runs padded to CP = 16 channels inside (m16n8k16 takes 16-deep
+// C = 1 .. 8 run padded to CP = 16 channels inside (m16n8k16 takes 16-deep
 // k-steps, and a Gram strip is 16 rows): the pad columns of q, k, v and dO
 // are staged as zeros, so qn, kn and the pad rows and columns of dS are 0;
 // the pad keys of the Gram are -inf before the softmax, so S is 0 there and
@@ -397,6 +401,18 @@ template <int C, int CP>
 __device__ __forceinline__ void stage_windows(const bf16* __restrict__ src, int parts, bf16* dst,
                                               int per_win, int ld, int nwr, long long win0,
                                               long long n_windows, int H, int W) {
+  if constexpr (C % 8 != 0) {   // C = 1, 2, 4: rows of 2C .. 8C bytes, a value at a time
+    for (int e = threadIdx.x; e < nwr * kP * parts; e += kThreads) {
+      const int wl = e / (kP * parts), p = (e / parts) % kP, part = e % parts;
+      const long long win = win0 + wl;
+      const bf16* row = win < n_windows ? src + pixel_offset(win, p, H, W) * parts * C + part * C
+                                        : nullptr;
+      bf16* out = dst + wl * per_win + p * ld + part * CP;
+#pragma unroll
+      for (int j = 0; j < CP; ++j) out[j] = row && j < C ? row[j] : __float2bfloat16(0.f);
+    }
+    return;
+  }
   constexpr int PC = CP / 8;                     // 16-byte chunks of a part inside
   const int chunks = parts * PC, per = kP * chunks;
   for (int e = threadIdx.x; e < nwr * per; e += kThreads) {
@@ -416,6 +432,18 @@ template <int C, int CP>
 __device__ __forceinline__ void store_windows(bf16* __restrict__ dst, int parts, const bf16* src,
                                               int per_win, int ld, int nwr, long long win0,
                                               long long n_windows, int H, int W) {
+  if constexpr (C % 8 != 0) {   // C = 1, 2, 4: a value at a time
+    for (int e = threadIdx.x; e < nwr * kP * parts; e += kThreads) {
+      const int wl = e / (kP * parts), p = (e / parts) % kP, part = e % parts;
+      const long long win = win0 + wl;
+      if (win >= n_windows) continue;
+      bf16* row = dst + pixel_offset(win, p, H, W) * parts * C + part * C;
+      const bf16* in = src + wl * per_win + p * ld + part * CP;
+#pragma unroll
+      for (int j = 0; j < C; ++j) row[j] = in[j];
+    }
+    return;
+  }
   constexpr int PC = C / 8;                      // real 16-byte chunks of a part
   const int chunks = parts * PC, per = kP * chunks;
   for (int e = threadIdx.x; e < nwr * per; e += kThreads) {
@@ -581,12 +609,18 @@ __device__ __forceinline__ void put_strip_f32(float* dst, int ld, int c0, const 
           make_float2(x[j][2 * h], x[j][2 * h + 1]);
 }
 
-// The pad keys (C = 8 inside CP = 16) drop out of the softmax: -inf on the
-// n-tiles past C of a Gram row strip.
+// The pad keys (C = 1, 2, 4, 8 inside CP = 16) drop out of the softmax: -inf
+// on the n-tiles past C of a Gram row strip, and below C = 8 on the pad
+// columns of the first n-tile (lane quad t holds columns 2t, 2t + 1).
 template <int C, int NT>
-__device__ __forceinline__ void mask_pad_keys(float (&s)[NT][4]) {
+__device__ __forceinline__ void mask_pad_keys(float (&s)[NT][4], int lane) {
 #pragma unroll
-  for (int j = C / 8; j < NT; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = -INFINITY;
+  for (int j = (C + 7) / 8; j < NT; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = -INFINITY;
+  if constexpr (C < 8) {
+    const int c0 = 2 * (lane & 3);
+    if (c0 >= C) s[0][0] = s[0][2] = -INFINITY;
+    if (c0 + 1 >= C) s[0][1] = s[0][3] = -INFINITY;
+  }
 }
 
 template <int C>
@@ -616,7 +650,7 @@ mid_fwd_mma_kernel(const bf16* __restrict__ qkv, bf16* __restrict__ out, int H, 
     __syncthreads();
     float s[L::NT][4];
     gram_strip<CP>(s, x, L::XS, lo, L::LS, mt, lane);
-    mask_pad_keys<C>(s);
+    mask_pad_keys<C>(s, lane);
     softmax_strip(s);
     // out[p][c1], c1 in 16 mt.. = sum_c2 v[p][c2] S[c1][c2]; S as hi + lo
     // at C = 8 (see the header)
@@ -673,7 +707,7 @@ mid_bwd_mma_kernel(const bf16* __restrict__ qkv, const bf16* __restrict__ dout,
     // the warp's rows 16 mt.. of S (recomputed), dS = dO^T v and dL
     float s[L::NT][4], d[L::NT][4];
     gram_strip<CP>(s, x, L::XS, lo, L::LS, mt, lane);
-    mask_pad_keys<C>(s);
+    mask_pad_keys<C>(s, lane);
     softmax_strip(s);
 #pragma unroll
     for (int j = 0; j < L::NT; ++j) d[j][0] = d[j][1] = d[j][2] = d[j][3] = 0.f;
@@ -830,6 +864,12 @@ int fwd_c(const void* qkv, void* out, int B, int H, int W, int C, int dtype, flo
   const bool f32 = dtype == kF32;
   if (!f32 && dtype != kBF16) return (int)cudaErrorInvalidValue;
   switch (C) {
+    case 1: return f32 ? launch_fwd_f32<1>(qkv, out, B, H, W, eps, s)
+                       : launch_fwd_bf16<1>(qkv, out, B, H, W, eps, s);
+    case 2: return f32 ? launch_fwd_f32<2>(qkv, out, B, H, W, eps, s)
+                       : launch_fwd_bf16<2>(qkv, out, B, H, W, eps, s);
+    case 4: return f32 ? launch_fwd_f32<4>(qkv, out, B, H, W, eps, s)
+                       : launch_fwd_bf16<4>(qkv, out, B, H, W, eps, s);
     case 8: return f32 ? launch_fwd_f32<8>(qkv, out, B, H, W, eps, s)
                        : launch_fwd_bf16<8>(qkv, out, B, H, W, eps, s);
     case 16: return f32 ? launch_fwd_f32<16>(qkv, out, B, H, W, eps, s)
@@ -847,6 +887,12 @@ int bwd_c(const void* qkv, const void* dout, void* dqkv, int B, int H, int W, in
   const bool f32 = dtype == kF32;
   if (!f32 && dtype != kBF16) return (int)cudaErrorInvalidValue;
   switch (C) {
+    case 1: return f32 ? launch_bwd_f32<1>(qkv, dout, dqkv, B, H, W, eps, s)
+                       : launch_bwd_bf16<1>(qkv, dout, dqkv, B, H, W, eps, s);
+    case 2: return f32 ? launch_bwd_f32<2>(qkv, dout, dqkv, B, H, W, eps, s)
+                       : launch_bwd_bf16<2>(qkv, dout, dqkv, B, H, W, eps, s);
+    case 4: return f32 ? launch_bwd_f32<4>(qkv, dout, dqkv, B, H, W, eps, s)
+                       : launch_bwd_bf16<4>(qkv, dout, dqkv, B, H, W, eps, s);
     case 8: return f32 ? launch_bwd_f32<8>(qkv, dout, dqkv, B, H, W, eps, s)
                        : launch_bwd_bf16<8>(qkv, dout, dqkv, B, H, W, eps, s);
     case 16: return f32 ? launch_bwd_f32<16>(qkv, dout, dqkv, B, H, W, eps, s)
@@ -864,8 +910,8 @@ int bwd_c(const void* qkv, const void* dout, void* dqkv, int B, int H, int W, in
 
 // Plain C entry points (loaded with ctypes). qkv and dqkv are (B, H, W, 3C),
 // out and dout (B, H, W, C), all contiguous and 16-byte aligned, of one type
-// (dtype 0 = fp32, 1 = bf16), with H % 4 == W % 4 == 0 and C in {8, 16,
-// 32, 64}. Each launches on `stream` and returns cudaGetLastError() (0 on
+// (dtype 0 = fp32, 1 = bf16), with H % 4 == W % 4 == 0 and C in {1, 2, 4,
+// 8, 16, 32, 64}. Each launches on `stream` and returns cudaGetLastError() (0 on
 // success).
 extern "C" int window_attention_train_fwd_launch(const void* qkv, void* out, int B, int H,
                                                  int W, int C, int dtype, float eps,

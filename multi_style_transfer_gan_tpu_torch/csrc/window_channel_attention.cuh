@@ -50,23 +50,29 @@
 // C = 64 on a 128^2 grid reaches 1.13 of the bound with one term each, the
 // 128-key softmax at C = 128 0.97; with the pairs both stay at 0.68).
 //
-// Widths. C is a runtime argument: any C % 8 == 0 from 8 to 256 (the
-// LocalAttention widths C, 2C and 4C of every generator width that is a
-// multiple of 8 up to 64). Each C runs inside a built layout of CP >= C
-// channels (a template parameter): bf16 CP = 16 (C <= 16), 32, 64, 128 and
-// 256; fp32 the next power of two from 8. x and y are read and written at
-// their real row stride C (16-byte moves, as C % 8 == 0) and the channels
+// Widths. C is a runtime argument: any C from 1 to 256 (the LocalAttention
+// widths C, 2C and 4C of every generator width from 1 to 64). Each C runs
+// inside a built layout of CP >= C channels (a template parameter): bf16 CP
+// = 16 (C <= 16), 32, 64, 128 and 256; fp32 the next power of two from 8.
+// x and y are read and written at their real row stride C and the channels
 // C..CP are zeros in shared memory or registers: zeros in the pad columns of
 // x, the weights and the biases, so q, k, v and y are zero there; the pad
 // keys of the Gram are set to -inf (bf16; the fp32 softmax and apply run
 // over the C real keys) before the softmax, and the pad rows of A meet zero
 // columns of Wproj, so neither reaches y. Gram strips made only of pad rows
-// are skipped. C = 8 runs in the C = 16 layout (m16n8k16 takes 16-deep
-// k-steps), C = 24 in C = 32's, 40-56 in 64's, 72-128 in the 128 layout with
+// are skipped. C = 1-15 run in the C = 16 layout (m16n8k16 takes 16-deep
+// k-steps), 17-31 in C = 32's, 33-63 in 64's, 65-127 in the 128 layout with
 // 3 warps a block (the 139 KB of resident weights leave room for no more),
-// and 136-256 in the C = 256 kernel (window_channel_attention_wide_kernel,
+// and 129-256 in the C = 256 kernel (window_channel_attention_wide_kernel,
 // below), whose weights (541 KB) stream through shared memory. Padding to
-// the next layout costs up to (256 / 160)^2 = 2.6x the Gram work at C = 160.
+// the next layout costs up to (256 / 129)^2 = 3.9x the Gram work at C = 129.
+// Rows of C % 8 == 0 values move 16 bytes at a time (cp.async and 16-byte
+// stores); at any other C a row's start is not 16-byte aligned, and the
+// runtime-C variant (kC = 0) moves x, y and the weights 8 bytes at a time
+// where C % 4 == 0 (every LocalAttention width of a generator) and a value
+// at a time otherwise, and masks the pad keys one by one (an n-tile of the
+// Gram then holds real and pad keys). The variants with C folded in are those of the widths
+// their layouts were built for and never take that path.
 //
 // fp32 stays exact fp32 (window_channel_attention_f32_kernel): FMAs on the
 // CUDA cores, no tensor cores, no TF32. One block of 256 threads walks
@@ -273,6 +279,17 @@ window_channel_attention_f32_kernel(const float* __restrict__ x, const float* __
 #pragma unroll
             for (int k = 0; k < 3; ++k) acc[j][k] = fmaf(a[j], w[k], acc[j][k]);
         }
+      } else if (og < C && C % 4) {   // rows of C % 4 != 0 values: scalar loads
+#pragma unroll 1
+        for (int i = 0; i < C; ++i) {
+          float w[3];
+#pragma unroll
+          for (int k = 0; k < 3; ++k) w[k] = wqkv[(long long)(og + C * k) * C + i];
+#pragma unroll
+          for (int j = 0; j < PJ; ++j)
+#pragma unroll
+            for (int k = 0; k < 3; ++k) acc[j][k] = fmaf(sX[(rg + RG * j) * CP + i], w[k], acc[j][k]);
+        }
       } else if (og < C) {   // Wqkv rows og + C k, 4 of the C inputs a load
 #pragma unroll 1
         for (int i = 0; i < C; i += 4) {
@@ -398,6 +415,13 @@ window_channel_attention_f32_kernel(const float* __restrict__ x, const float* __
 #pragma unroll 4
         for (int i = 0; i < CP; ++i) {
           const float w = sWp[i * L::GS + og];
+#pragma unroll
+          for (int j = 0; j < PJ; ++j) acc[j] = fmaf(sX[(rg + RG * j) * CP + i], w, acc[j]);
+        }
+      } else if (og < C && C % 4) {   // rows of C % 4 != 0 values: scalar loads
+#pragma unroll 1
+        for (int i = 0; i < C; ++i) {
+          const float w = wproj[(long long)og * C + i];
 #pragma unroll
           for (int j = 0; j < PJ; ++j) acc[j] = fmaf(sX[(rg + RG * j) * CP + i], w, acc[j]);
         }
@@ -531,6 +555,9 @@ window_channel_attention_mma_kernel(const bf16* __restrict__ x, const bf16* __re
   constexpr int WARPS = L::WARPS;
   const int C = kC ? kC : width;
   const int CH = C / 8;   // 16-byte chunks of a position in x and y
+  // rows of C % 8 != 0 values (kC = 0 only) are not 16-byte aligned: x, y
+  // and the weights move a value at a time there
+  const bool vec = kC != 0 || C % 8 == 0;
   extern __shared__ __align__(16) unsigned char smem_mma[];
   bf16* sW = reinterpret_cast<bf16*>(smem_mma);                   // [4CP][WS]
   bf16* sWarps = sW + L::W_ELEMS;
@@ -545,6 +572,23 @@ window_channel_attention_mma_kernel(const bf16* __restrict__ x, const bf16* __re
   // bytes a copy from rows of C; the pad columns as zeros
   auto stage = [&](long long base, bf16* dst) {
     const bf16* src = x + base * C;
+    if (!vec && C % 4 == 0) {   // rows of 8-byte multiples: 8-byte copies
+      for (int e = lane; e < kP * CP / 4; e += 32) {
+        const int p = e / (CP / 4), c = e % (CP / 4);
+        const bool real = c * 4 < C;
+        cp_async8(dst + p * L::XS + c * 4,
+                  src + position_offset<kPacked>(p, W) * C + (real ? c * 4 : 0), real);
+      }
+      return;
+    }
+    if (!vec) {
+      for (int e = lane; e < kP * CP; e += 32) {
+        const int p = e / CP, c = e % CP;
+        dst[p * L::XS + c] = c < C ? src[position_offset<kPacked>(p, W) * C + c]
+                                   : __float2bfloat16(0.f);
+      }
+      return;
+    }
 #pragma unroll
     for (int e = lane; e < kP * L::CHP; e += 32) {
       const int p = e / L::CHP, c = e % L::CHP;
@@ -560,6 +604,21 @@ window_channel_attention_mma_kernel(const bf16* __restrict__ x, const bf16* __re
       __syncwarp();
     }
     bf16* dst = y + base * C;
+    if (!vec && C % 4 == 0) {   // 8-byte stores
+      for (int e = lane; e < kP * C / 4; e += 32) {
+        const int p = e / (C / 4), c = e % (C / 4);
+        *reinterpret_cast<uint2*>(dst + position_offset<kPacked>(p, W) * C + c * 4) =
+            *reinterpret_cast<const uint2*>(buf + p * L::XS + c * 4);
+      }
+      return;
+    }
+    if (!vec) {
+      for (int e = lane; e < kP * C; e += 32) {
+        const int p = e / C, c = e % C;
+        dst[position_offset<kPacked>(p, W) * C + c] = buf[p * L::XS + c];
+      }
+      return;
+    }
     for (int e = lane; e < kP * CH; e += 32) {
       const int p = e / CH, c = e % CH;
       *reinterpret_cast<uint4*>(dst + position_offset<kPacked>(p, W) * C + c * 8) =
@@ -569,7 +628,14 @@ window_channel_attention_mma_kernel(const bf16* __restrict__ x, const bf16* __re
 
   // the weights: row i of each CP-row block (q, k, v, proj), column chunk
   // c; zeros in the pads
-  for (int e = tid; e < 4 * CP * L::CHP; e += L::THREADS) {
+  if (!vec) {
+    for (int e = tid; e < 4 * CP * CP; e += L::THREADS) {
+      const int r = e / CP, c = e % CP, blk = r / CP, i = r % CP;
+      const bf16* src = blk < 3 ? wqkv + (blk * C + i) * C : wproj + i * C;
+      sW[r * L::WS + c] = i < C && c < C ? src[c] : __float2bfloat16(0.f);
+    }
+  }
+  for (int e = tid; vec && e < 4 * CP * L::CHP; e += L::THREADS) {
     const int r = e / L::CHP, c = e % L::CHP, blk = r / CP, i = r % CP;
     const bool real = i < C && c < CH;
     const bf16* src = blk < 3 ? wqkv + (blk * C + i) * C : wproj + i * C;
@@ -648,10 +714,19 @@ window_channel_attention_mma_kernel(const bf16* __restrict__ x, const bf16* __re
       if (mt * 16 >= C) break;
       float a[L::NT][4];
       gram_strip<CP>(a, sQK, L::QS, sLO, L::QS, mt, lane);
-      if (CH < L::NT) {   // the pad keys drop out of the softmax
+      if constexpr (kC != 0) {
+        if (CH < L::NT) {   // the pad keys drop out of the softmax
 #pragma unroll
-        for (int j = 0; j < L::NT; ++j)
-          if (j >= CH) a[j][0] = a[j][1] = a[j][2] = a[j][3] = -INFINITY;
+          for (int j = 0; j < L::NT; ++j)
+            if (j >= CH) a[j][0] = a[j][1] = a[j][2] = a[j][3] = -INFINITY;
+        }
+      } else if (C < CP) {   // the same key by key: C need not fill an n-tile
+        const int c0 = 2 * (lane & 3);
+#pragma unroll
+        for (int j = 0; j < L::NT; ++j) {
+          if (j * 8 + c0 >= C) a[j][0] = a[j][2] = -INFINITY;
+          if (j * 8 + c0 + 1 >= C) a[j][1] = a[j][3] = -INFINITY;
+        }
       }
       if constexpr (kStage != kLogits) softmax_strip<L::NT, true>(a);   // __expf: y is bf16
       if constexpr (kStage != kFull) {   // every row's sum, to shared memory
@@ -795,6 +870,8 @@ window_channel_attention_wide_kernel(const bf16* __restrict__ x, const bf16* __r
   using L = WideLayout;
   constexpr int CP = L::CP, XS = L::XS, QS = L::QS;
   const int C = kC ? kC : width;
+  // rows of C % 8 != 0 values (kC = 0 only) move a value at a time
+  const bool vec = kC != 0 || C % 8 == 0;
   extern __shared__ __align__(16) unsigned char smem_mma[];
   bf16* sW = reinterpret_cast<bf16*>(smem_mma) + L::W;
   bf16* sX = reinterpret_cast<bf16*>(smem_mma) + L::X;    // x, then out hi
@@ -817,7 +894,18 @@ window_channel_attention_wide_kernel(const bf16* __restrict__ x, const bf16* __r
   auto load_tile = [&](int t) {
     const int blk = t / tpb, i0 = (t % tpb) * L::TILE_ROWS;
     bf16* dst = sW + (t & 1) * L::TILE;
-    for (int e = tid; e < L::TILE_ROWS * L::CH; e += kThreads) {
+    for (int e = tid; !vec && C % 4 == 0 && e < L::TILE_ROWS * CP / 4; e += kThreads) {
+      const int r = e / (CP / 4), c = e % (CP / 4), i = i0 + r;
+      const bool real = i < C && c * 4 < C;
+      const bf16* src = blk < 3 ? wqkv + (long long)(blk * C + i) * C : wproj + (long long)i * C;
+      cp_async8(dst + r * XS + c * 4, real ? src + c * 4 : wqkv, real);
+    }
+    for (int e = tid; !vec && C % 4 && e < L::TILE_ROWS * CP; e += kThreads) {
+      const int r = e / CP, c = e % CP, i = i0 + r;
+      const bf16* src = blk < 3 ? wqkv + (long long)(blk * C + i) * C : wproj + (long long)i * C;
+      dst[r * XS + c] = i < C && c < C ? src[c] : __float2bfloat16(0.f);
+    }
+    for (int e = tid; vec && e < L::TILE_ROWS * L::CH; e += kThreads) {
       const int r = e / L::CH, c = e % L::CH, i = i0 + r;
       const bool real = kC == CP || (i < C && c < CH);
       const bf16* src = blk < 3 ? wqkv + (long long)(blk * C + i) * C : wproj + (long long)i * C;
@@ -837,7 +925,21 @@ window_channel_attention_wide_kernel(const bf16* __restrict__ x, const bf16* __r
     __syncthreads();   // the previous pair is done with sX (its out hi)
     // the two windows' x, 16 bytes a copy from rows of C; pads and a window
     // past the end as zeros
-    for (int e = tid; e < L::ROWS * L::CH; e += kThreads) {
+    for (int e = tid; !vec && C % 4 == 0 && e < L::ROWS * CP / 4; e += kThreads) {
+      const int r = e / (CP / 4), c = e % (CP / 4);
+      const long long win = win0 + r / kP;
+      const bool ok = win < n_windows && c * 4 < C;
+      cp_async8(sX + r * XS + c * 4,
+                x + (ok ? pixel_offset<kPacked>(win, r % kP, H, W) * C + c * 4 : 0), ok);
+    }
+    for (int e = tid; !vec && C % 4 && e < L::ROWS * CP; e += kThreads) {
+      const int r = e / CP, c = e % CP;
+      const long long win = win0 + r / kP;
+      sX[r * XS + c] = win < n_windows && c < C
+                           ? x[pixel_offset<kPacked>(win, r % kP, H, W) * C + c]
+                           : __float2bfloat16(0.f);
+    }
+    for (int e = tid; vec && e < L::ROWS * L::CH; e += kThreads) {
       const int r = e / L::CH, c = e % L::CH;
       const long long win = win0 + r / kP;
       const bool ok = win < n_windows && c < CH;
@@ -889,10 +991,20 @@ window_channel_attention_wide_kernel(const bf16* __restrict__ x, const bf16* __r
           for (int hh = 0; hh < 2; ++hh) {
             bf16* row = y + pixel_offset<kPacked>(win, g + 8 * hh, H, W) * C + o0 + 2 * tq;
 #pragma unroll
-            for (int j = 0; j < 2; ++j)
-              if (o0 + j * 8 < C)
+            for (int j = 0; j < 2; ++j) {
+              const int c = o0 + j * 8 + 2 * tq;
+              if (!vec && C % 2 == 0) {   // pairs (4-byte aligned), the real columns
+                if (c < C)
+                  *reinterpret_cast<uint32_t*>(row + j * 8) =
+                      pack_bf16(acc[j][2 * hh], acc[j][2 * hh + 1]);
+              } else if (!vec) {   // value by value, the real columns only
+                if (c < C) row[j * 8] = __float2bfloat16(acc[j][2 * hh]);
+                if (c + 1 < C) row[j * 8 + 1] = __float2bfloat16(acc[j][2 * hh + 1]);
+              } else if (o0 + j * 8 < C) {
                 *reinterpret_cast<uint32_t*>(row + j * 8) =
                     pack_bf16(acc[j][2 * hh], acc[j][2 * hh + 1]);
+              }
+            }
           }
         }
         continue;
@@ -971,9 +1083,11 @@ window_channel_attention_wide_kernel(const bf16* __restrict__ x, const bf16* __r
           }
 #pragma unroll
           for (int j = 0; j < 8; ++j) {
-            const bool key = kc * 64 + j * 8 < C;   // a pad key's exponential is 0
+            // a pad key's exponential is 0 (key by key: C need not fill an n-tile)
+            const int key = kc * 64 + j * 8 + 2 * tq;
 #pragma unroll
-            for (int i = 0; i < 4; ++i) e[j][i] = key ? __expf(e[j][i] - 16.f) : 0.f;   // y is bf16
+            for (int i = 0; i < 4; ++i)
+              e[j][i] = key + (i & 1) < C ? __expf(e[j][i] - 16.f) : 0.f;   // y is bf16
             l0 += e[j][0] + e[j][1];
             l1 += e[j][2] + e[j][3];
           }
@@ -1021,9 +1135,9 @@ window_channel_attention_wide_kernel(const bf16* __restrict__ x, const bf16* __r
 // One launch in the layout of CP channels for a tensor of C <= CP. Each bf16
 // kernel is built twice per layout: with C folded in at compile time (kC =
 // C: the widths the layout was made for, as fast as before C was a runtime
-// value, and C = 8 in the CP = 16 layout, its only other width) and with the
-// runtime C (kC = 0) for the widths in between. fp32 (a checking path)
-// takes C at run time only.
+// value, and C = 8 in the CP = 16 layout) and with the runtime C (kC = 0)
+// for every other width, C % 8 != 0 included. fp32 (a checking path) takes
+// C at run time only.
 template <typename T, int CP, bool kPacked, int kStage, int kC>
 int launch(const void* x, const void* wqkv, const void* bqkv, const void* wproj,
            const void* bproj, void* y, int H, int W, long long n_windows, int C, float eps,
@@ -1066,8 +1180,8 @@ int launch(const void* x, const void* wqkv, const void* bqkv, const void* wproj,
   return (int)cudaGetLastError();
 }
 
-// With kAllWidths (the production entry points) any C % 8 == 0 from 8 to 256,
-// in the layout of the next power of two from 8 (fp32) or 16 (bf16);
+// With kAllWidths (the production entry points) any C from 1 to 256, in the
+// layout of the next power of two from 8 (fp32) or 16 (bf16);
 // without (the stage kernels) C = 16, 32 and 64, unpadded.
 template <bool kPacked, int kStage, bool kAllWidths, typename T>
 int launch_c(const void* x, const void* wqkv, const void* bqkv, const void* wproj,
@@ -1083,10 +1197,11 @@ int launch_c(const void* x, const void* wqkv, const void* bqkv, const void* wpro
     else if constexpr (!kAllWidths) return with(std::integral_constant<int, CP>{});
     else {
       if (C == CP) return with(std::integral_constant<int, CP>{});
-      // below CP: C = 8 in the CP = 16 layout, or a width between two
-      // layouts of 32 .. 256
-      if constexpr (CP > 16) return with(std::integral_constant<int, 0>{});
-      else return with(std::integral_constant<int, 8>{});
+      // below CP: C = 8 in the CP = 16 layout, or any other width in the
+      // layout above it (C at run time)
+      if constexpr (CP == 16)
+        if (C == 8) return with(std::integral_constant<int, 8>{});
+      return with(std::integral_constant<int, 0>{});
     }
   };
   using std::integral_constant;
@@ -1098,7 +1213,7 @@ int launch_c(const void* x, const void* wqkv, const void* bqkv, const void* wpro
       default: return (int)cudaErrorInvalidValue;
     }
   } else {
-    if (C < 8 || C > 256 || C % 8) return (int)cudaErrorInvalidValue;
+    if (C < 1 || C > 256) return (int)cudaErrorInvalidValue;
     if constexpr (sizeof(T) == sizeof(float))
       if (C <= 8) return go(integral_constant<int, 8>{});
     if (C <= 16) return go(integral_constant<int, 16>{});

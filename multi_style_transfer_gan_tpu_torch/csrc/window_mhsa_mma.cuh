@@ -5,6 +5,16 @@
 // FlashAttention-2 style. k and v (and q, in the training kernels) are
 // staged in shared memory as bf16 [token][channel] tiles whose rows are
 // padded to 80 bytes, so ldmatrix is free of bank conflicts.
+//
+// Head slots. A head of another width hd runs in a slot of S = hd rounded
+// up to 16 channels (the m16n8k16 k-step): S = 16, 32, 48 or 64 (hd = 4 ..
+// 64, the heads of every generator width from 1 to 64). Its q, k and v sit
+// at the start of the slot with zeros in the pad channels, so the scores and
+// the real channels of the output are those of the head; the scale is
+// 1/sqrt(hd), a runtime value. A slot tile's rows are S + 8 values: 48, 80,
+// 112 or 144 bytes, each an odd multiple of 16, so ldmatrix stays free of
+// bank conflicts. The steps below take S as a template parameter, 32 by
+// default (the heads of 32 the fused block uses).
 #pragma once
 
 #include <cmath>
@@ -21,24 +31,33 @@ constexpr int kHd = 32;
 constexpr int RS = kHd + 8;               // staged token row: 80 bytes
 constexpr int TILE = kTok * RS;           // one staged 64 x 32 tile
 
-// A fragments (two k-steps) of rows r0..r0+15 of a staged tile.
-__device__ __forceinline__ void load_a(uint32_t (&a)[2][4], const bf16* tile, int r0, int lane) {
+// The staged row and tile of a slot of S channels.
+template <int S>
+__host__ __device__ constexpr int slot_rs() { return S + 8; }
+template <int S>
+__host__ __device__ constexpr int slot_tile() { return kTok * slot_rs<S>(); }
+
+// A fragments (S / 16 k-steps) of rows r0..r0+15 of a staged tile.
+template <int S = kHd>
+__device__ __forceinline__ void load_a(uint32_t (&a)[S / 16][4], const bf16* tile, int r0,
+                                       int lane) {
 #pragma unroll
-  for (int kk = 0; kk < 2; ++kk)
-    ldmatrix_x4(a[kk], tile + (r0 + (lane & 15)) * RS + kk * 16 + (lane >> 4) * 8);
+  for (int kk = 0; kk < S / 16; ++kk)
+    ldmatrix_x4(a[kk], tile + (r0 + (lane & 15)) * slot_rs<S>() + kk * 16 + (lane >> 4) * 8);
 }
 
-// acc (16 x 64, 8 n-tiles) = a (16 x 32) y^T, y a staged [token][d] tile.
-__device__ __forceinline__ void times_tile_t(float (&acc)[8][4], const uint32_t (&a)[2][4],
+// acc (16 x 64, 8 n-tiles) = a (16 x S) y^T, y a staged [token][d] tile.
+template <int S = kHd>
+__device__ __forceinline__ void times_tile_t(float (&acc)[8][4], const uint32_t (&a)[S / 16][4],
                                              const bf16* y, int lane) {
 #pragma unroll
   for (int j = 0; j < 8; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
 #pragma unroll
-  for (int kk = 0; kk < 2; ++kk)
+  for (int kk = 0; kk < S / 16; ++kk)
 #pragma unroll
     for (int nb = 0; nb < 4; ++nb) {
       uint32_t b[4];
-      ldmatrix_x4(b, y + (nb * 16 + (lane & 7) + (lane >> 4) * 8) * RS + kk * 16 +
+      ldmatrix_x4(b, y + (nb * 16 + (lane & 7) + (lane >> 4) * 8) * slot_rs<S>() + kk * 16 +
                          ((lane >> 3) & 1) * 8);
       mma_bf16(acc[2 * nb], a[kk], b[0], b[1]);
       mma_bf16(acc[2 * nb + 1], a[kk], b[2], b[3]);
@@ -47,16 +66,18 @@ __device__ __forceinline__ void times_tile_t(float (&acc)[8][4], const uint32_t 
 
 // The same with a and y as hi + lo bf16 pairs (yl the tile of y's lo
 // parts): hi hi + hi lo + lo hi.
-__device__ __forceinline__ void times_tile_t_split(float (&acc)[8][4], const uint32_t (&ah)[2][4],
-                                                   const uint32_t (&al)[2][4], const bf16* yh,
+template <int S = kHd>
+__device__ __forceinline__ void times_tile_t_split(float (&acc)[8][4],
+                                                   const uint32_t (&ah)[S / 16][4],
+                                                   const uint32_t (&al)[S / 16][4], const bf16* yh,
                                                    const bf16* yl, int lane) {
 #pragma unroll
   for (int j = 0; j < 8; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
 #pragma unroll
-  for (int kk = 0; kk < 2; ++kk)
+  for (int kk = 0; kk < S / 16; ++kk)
 #pragma unroll
     for (int nb = 0; nb < 4; ++nb) {
-      const int off = (nb * 16 + (lane & 7) + (lane >> 4) * 8) * RS + kk * 16 +
+      const int off = (nb * 16 + (lane & 7) + (lane >> 4) * 8) * slot_rs<S>() + kk * 16 +
                       ((lane >> 3) & 1) * 8;
       uint32_t bh[4], bl[4];
       ldmatrix_x4(bh, yh + off);
@@ -70,11 +91,11 @@ __device__ __forceinline__ void times_tile_t_split(float (&acc)[8][4], const uin
     }
 }
 
-// acc (16 x 32, 4 n-tiles) += x (16 x 64, C fragments) y, y a staged
+// acc (16 x S, S / 8 n-tiles) += x (16 x 64, C fragments) y, y a staged
 // [token][d] tile read through ldmatrix.trans; x repacked as A fragments,
 // as hi + lo bf16 when kSplit.
-template <bool kSplit>
-__device__ __forceinline__ void strip_times_tile(float (&acc)[4][4], const float (&x)[8][4],
+template <bool kSplit, int S = kHd>
+__device__ __forceinline__ void strip_times_tile(float (&acc)[S / 8][4], const float (&x)[8][4],
                                                  const bf16* y, int lane) {
 #pragma unroll
   for (int kk = 0; kk < 4; ++kk) {
@@ -86,10 +107,10 @@ __device__ __forceinline__ void strip_times_tile(float (&acc)[4][4], const float
       else hi[r] = pack_bf16(c0, c1);
     }
 #pragma unroll
-    for (int dp = 0; dp < 2; ++dp) {
+    for (int dp = 0; dp < S / 16; ++dp) {
       uint32_t b[4];
-      ldmatrix_x4_trans(b, y + (kk * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * RS + dp * 16 +
-                               (lane >> 4) * 8);
+      ldmatrix_x4_trans(b, y + (kk * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * slot_rs<S>() +
+                               dp * 16 + (lane >> 4) * 8);
       mma_bf16(acc[2 * dp], hi, b[0], b[1]);
       mma_bf16(acc[2 * dp + 1], hi, b[2], b[3]);
       if (kSplit) {

@@ -3,9 +3,10 @@
 //
 // Replaces ops/pallas/window_mhsa_train.py::window_mhsa_train of the JAX
 // package (its _fwd_kernel and hand-written _bwd_kernel). On a (B, H, W, 3C)
-// qkv grid with C = 32 heads in `heads` heads of 32 (the blocks of every
-// generator width that is a multiple of 8 up to 64: C = 32, 64, .., 256 in
-// 1 .. 8 heads), per 8x8 window of 64 tokens and per head, scale = 32^-0.5:
+// qkv grid with C = heads x hd in `heads` heads of hd channels (the blocks
+// of every generator width from 1 to 64: C = 4, 8, .., 256 in
+// default_num_heads(C) = 1 .. 8 heads of 4 .. 62 channels), per 8x8 window
+// of 64 tokens and per head, scale = hd^-0.5:
 //   s  = q k^T scale, minus its row max ;  p = softmax(s) ;  o = p v
 // and, given dO = d(o):
 //   dv = p^T dO ;  dp = dO v^T ;  ds = p (.) (dp - rowsum(p (.) dp))
@@ -46,20 +47,41 @@
 // 0.49 (devtools/train_kernel_rounding.py). p in dv = p^T dO is one bf16
 // term. q, k, v and dO are the bf16 inputs themselves.
 //
-// fp32 stays exact fp32: the fp32 instantiation keeps the first design's FMA
-// bodies unchanged (no tensor cores, no TF32). Its blocks of 256 threads
-// stage fp32 rows of 32 with an odd stride and a 64 x 64 score tile with an
-// odd stride; each row softmax (and its backward row sum) is one warp.
+// fp32 keeps the first design's FMA bodies (no tensor cores, no TF32), with
+// every intermediate in double and one rounding at the store. Its blocks of
+// 256 threads stage rows of the slot with an odd stride and a 64 x 64 score
+// tile with an odd stride; each row softmax (and its backward row sum) is
+// one warp. Double because two fp32 evaluations of this mid cannot agree:
+// on the saturated input (qkv x 8, logits of magnitude ~10^2, a softmax on
+// a few keys) an fp32 evaluation lies 2e-4 .. 7e-4 from float64 in the
+// forward and 5e-4 .. 5.5e-3 in the backward at every head width (CPU, the
+// plain formulas in fp32 against float64), so kernel and plain version
+// met the fp32 tolerance only while their summation orders happened to
+// agree (they did not at 1 head of 6 channels); the plain version carries
+// float64 too, and the two agree to the last rounding.
 //
 // Heads. Both designs give a block one (window, head): it stages that
 // head's 32 channels of q, k, v (and dO) alone, so the shared memory of a
 // block does not grow with the width. At dim 256 a window's qkv and dO are
 // 64 x 1024 values, 256 KB in fp32, and a block still holds one head's 64 x
-// 128 of them. The head count is a runtime argument (1 to 8, C = 32
-// heads; head h of q, k and v at column 32 h of each third of the 3C row);
-// supported() refuses any other (C, heads).
+// 128 of them. The head count is a runtime argument (1 to 8; head h of q,
+// k and v at column hd h of each third of the 3C row); supported() refuses
+// any other (C, heads).
+//
+// Head widths. A head of hd channels runs in a slot of S = hd rounded up to
+// 16 (window_mhsa_mma.cuh: S = 16, 32, 48, 64, one instantiation of each
+// kernel per S): its channels are staged at the start of the slot, zeros
+// in the pad channels, so every product adds exact zeros there and the
+// scores and the real outputs are the head's; the scale is 1/sqrt(hd) of
+// the real width, and only the hd real channels are stored. A head
+// of hd % 8 == 0 channels (the heads of 32 of the c8 .. c64 generators
+// among them) is staged and stored 16 bytes at a time, hd % 4 == 0 8 bytes
+// at a time (every head of a generator's block is one or the other), any
+// other a value at a time. The fp32 bodies take the same slots, rows of S
+// + 1 floats.
 #include <climits>
 #include <cmath>
+#include <type_traits>
 
 #include "common.cuh"
 #include "mma.cuh"
@@ -68,16 +90,22 @@
 namespace mstgan {
 namespace {
 
-using namespace mhsa;   // kWin, kTok, kHd, RS, TILE and the forward's MMA steps
+using namespace mhsa;   // kWin, kTok, kHd, RS, TILE, slot_rs, slot_tile and the MMA steps
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
-constexpr int TS = kHd + 1;    // token row stride (q, k, v, dO)
 constexpr int PS = kTok + 1;   // score row stride
-constexpr int ROWS = kTok * TS;
 constexpr int SCORES = kTok * PS;
-constexpr int F_TOTAL = 3 * ROWS + SCORES;            // q, k, v, p
-constexpr int B_TOTAL = 4 * ROWS + 2 * SCORES;        // q, k, v, dO, p, dp
+
+// fp32 storage: rows of a slot of S channels, in double, at an odd stride of
+// S + 1 values.
+template <int S>
+struct F32Slot {
+  static constexpr int TS = S + 1;                       // token row stride (q, k, v, dO)
+  static constexpr int ROWS = kTok * TS;
+  static constexpr int F_TOTAL = 3 * ROWS + SCORES;      // q, k, v, p
+  static constexpr int B_TOTAL = 4 * ROWS + 2 * SCORES;  // q, k, v, dO, p, dp
+};
 
 // Element offset of token t (row-major in the window) of window `win`,
 // windows numbered (b, window row, window column) row-major.
@@ -94,119 +122,135 @@ __device__ __forceinline__ long long token_offset(long long win, int t, int H, i
 // fp32: the FMA bodies
 // ---------------------------------------------------------------------------
 
-// Stages rows of 32 channels starting at `first` of a (.., stride) tensor.
-template <typename T>
-__device__ void load_rows(const T* __restrict__ src, int stride, int first, float* dst,
+// Stages rows of hd channels starting at `first` of a (.., stride) tensor
+// into a slot of S, as double; zeros in the pad channels hd..S.
+template <int S, typename T>
+__device__ void load_rows(const T* __restrict__ src, int stride, int first, int hd, double* dst,
                           long long win, int H, int W) {
-  for (int e = threadIdx.x; e < kTok * kHd; e += kThreads) {
-    const int t = e / kHd, d = e % kHd;
-    dst[t * TS + d] = to_f(src[token_offset(win, t, H, W) * stride + first + d]);
+  for (int e = threadIdx.x; e < kTok * S; e += kThreads) {
+    const int t = e / S, d = e % S;
+    dst[t * F32Slot<S>::TS + d] =
+        d < hd ? (double)to_f(src[token_offset(win, t, H, W) * stride + first + d]) : 0.0;
   }
 }
 
 // a[t][s] = scale * sum_d x[t][d] y[s][d] over the 64 x 64 tile.
-__device__ void scores(const float* x, const float* y, float* a, float scale) {
+template <int S>
+__device__ void scores(const double* x, const double* y, double* a, double scale) {
+  constexpr int TS = F32Slot<S>::TS;
   for (int e = threadIdx.x; e < kTok * kTok; e += kThreads) {
     const int t = e / kTok, s = e % kTok;
-    float acc = 0.f;
+    double acc = 0.0;
 #pragma unroll 8
-    for (int d = 0; d < kHd; ++d) acc = fmaf(x[t * TS + d], y[s * TS + d], acc);
+    for (int d = 0; d < S; ++d) acc = fma(x[t * TS + d], y[s * TS + d], acc);
     a[t * PS + s] = acc * scale;
   }
 }
 
+__device__ __forceinline__ double warp_sum_d(double v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
+
 // Row softmax of the 64 x 64 tile in place, max-subtracted; a warp per row.
-__device__ void softmax_rows(float* p) {
+__device__ void softmax_rows(double* p) {
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   for (int t = warp; t < kTok; t += kWarps) {
-    float* r = p + t * PS;
-    const float m = warp_max(fmaxf(r[lane], r[lane + 32]));
-    const float e0 = expf(r[lane] - m), e1 = expf(r[lane + 32] - m);
-    const float sum = warp_sum(e0 + e1);
+    double* r = p + t * PS;
+    double m = fmax(r[lane], r[lane + 32]);
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) m = fmax(m, __shfl_xor_sync(0xffffffffu, m, o));
+    const double e0 = exp(r[lane] - m), e1 = exp(r[lane + 32] - m);
+    const double sum = warp_sum_d(e0 + e1);
     r[lane] = e0 / sum;
     r[lane + 32] = e1 / sum;
   }
 }
 
-template <typename T>
+// Every product, softmax and sum in double; one rounding at the store.
+template <typename T, int S>
 __global__ void __launch_bounds__(kThreads)
 mhsa_fwd_kernel(const T* __restrict__ qkv, T* __restrict__ out, int H, int W, int heads,
-                float scale) {
-  const int C = heads * kHd;
-  extern __shared__ float smem[];
-  float* sQ = smem;
-  float* sK = sQ + ROWS;
-  float* sV = sK + ROWS;
-  float* sP = sV + ROWS;
+                int hd) {
+  using L = F32Slot<S>;
+  const int C = heads * hd;
+  extern __shared__ double smem_d[];
+  double* sQ = smem_d;
+  double* sK = sQ + L::ROWS;
+  double* sV = sK + L::ROWS;
+  double* sP = sV + L::ROWS;
   const long long win = blockIdx.x / heads;
   const int head = blockIdx.x % heads;
-  load_rows(qkv, 3 * C, head * kHd, sQ, win, H, W);
-  load_rows(qkv, 3 * C, C + head * kHd, sK, win, H, W);
-  load_rows(qkv, 3 * C, 2 * C + head * kHd, sV, win, H, W);
+  load_rows<S>(qkv, 3 * C, head * hd, hd, sQ, win, H, W);
+  load_rows<S>(qkv, 3 * C, C + head * hd, hd, sK, win, H, W);
+  load_rows<S>(qkv, 3 * C, 2 * C + head * hd, hd, sV, win, H, W);
   __syncthreads();
-  scores(sQ, sK, sP, scale);
+  scores<S>(sQ, sK, sP, 1.0 / sqrt((double)hd));
   __syncthreads();
   softmax_rows(sP);
   __syncthreads();
-  // o[t][d] = sum_s p[t][s] v[s][d]
-  for (int e = threadIdx.x; e < kTok * kHd; e += kThreads) {
-    const int t = e / kHd, d = e % kHd;
-    float acc = 0.f;
+  // o[t][d] = sum_s p[t][s] v[s][d], the hd real channels
+  for (int e = threadIdx.x; e < kTok * hd; e += kThreads) {
+    const int t = e / hd, d = e % hd;
+    double acc = 0.0;
 #pragma unroll 8
-    for (int s = 0; s < kTok; ++s) acc = fmaf(sP[t * PS + s], sV[s * TS + d], acc);
-    out[token_offset(win, t, H, W) * C + head * kHd + d] = from_f<T>(acc);
+    for (int s = 0; s < kTok; ++s) acc = fma(sP[t * PS + s], sV[s * L::TS + d], acc);
+    out[token_offset(win, t, H, W) * C + head * hd + d] = from_f<T>((float)acc);
   }
 }
 
-template <typename T>
+template <typename T, int S>
 __global__ void __launch_bounds__(kThreads)
 mhsa_bwd_kernel(const T* __restrict__ qkv, const T* __restrict__ dout, T* __restrict__ dqkv,
-                int H, int W, int heads, float scale) {
-  const int C = heads * kHd;
-  extern __shared__ float smem[];
-  float* sQ = smem;
-  float* sK = sQ + ROWS;
-  float* sV = sK + ROWS;
-  float* sDO = sV + ROWS;
-  float* sP = sDO + ROWS;
-  float* sDP = sP + SCORES;
+                int H, int W, int heads, int hd) {
+  using L = F32Slot<S>;
+  const int C = heads * hd;
+  extern __shared__ double smem_d[];
+  double* sQ = smem_d;
+  double* sK = sQ + L::ROWS;
+  double* sV = sK + L::ROWS;
+  double* sDO = sV + L::ROWS;
+  double* sP = sDO + L::ROWS;
+  double* sDP = sP + SCORES;
   const long long win = blockIdx.x / heads;
   const int head = blockIdx.x % heads;
-  load_rows(qkv, 3 * C, head * kHd, sQ, win, H, W);
-  load_rows(qkv, 3 * C, C + head * kHd, sK, win, H, W);
-  load_rows(qkv, 3 * C, 2 * C + head * kHd, sV, win, H, W);
-  load_rows(dout, C, head * kHd, sDO, win, H, W);
+  const double sc = 1.0 / sqrt((double)hd);
+  load_rows<S>(qkv, 3 * C, head * hd, hd, sQ, win, H, W);
+  load_rows<S>(qkv, 3 * C, C + head * hd, hd, sK, win, H, W);
+  load_rows<S>(qkv, 3 * C, 2 * C + head * hd, hd, sV, win, H, W);
+  load_rows<S>(dout, C, head * hd, hd, sDO, win, H, W);
   __syncthreads();
-  scores(sQ, sK, sP, scale);    // the forward's p, recomputed
-  scores(sDO, sV, sDP, 1.f);    // dp[t][s] = sum_d dO[t][d] v[s][d]
+  scores<S>(sQ, sK, sP, sc);     // the forward's p, recomputed
+  scores<S>(sDO, sV, sDP, 1.0);  // dp[t][s] = sum_d dO[t][d] v[s][d]
   __syncthreads();
   softmax_rows(sP);
   __syncthreads();
   // ds = p (.) (dp - rowsum(p (.) dp)) into sDP, a warp per row
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   for (int t = warp; t < kTok; t += kWarps) {
-    const float* p = sP + t * PS;
-    float* g = sDP + t * PS;
-    const float rs = warp_sum(p[lane] * g[lane] + p[lane + 32] * g[lane + 32]);
+    const double* p = sP + t * PS;
+    double* g = sDP + t * PS;
+    const double rs = warp_sum_d(p[lane] * g[lane] + p[lane + 32] * g[lane + 32]);
     g[lane] = p[lane] * (g[lane] - rs);
     g[lane + 32] = p[lane + 32] * (g[lane + 32] - rs);
   }
   __syncthreads();
-  // row i of the outputs: dq[i] = scale sum_s ds[i][s] k[s];
-  // dk[i] = scale sum_t ds[t][i] q[t]; dv[i] = sum_t p[t][i] dO[t]
-  for (int e = threadIdx.x; e < kTok * kHd; e += kThreads) {
-    const int i = e / kHd, d = e % kHd;
-    float dq = 0.f, dk = 0.f, dv = 0.f;
+  // row i of the outputs, the hd real channels: dq[i] = scale sum_s
+  // ds[i][s] k[s]; dk[i] = scale sum_t ds[t][i] q[t]; dv[i] = sum_t p[t][i] dO[t]
+  for (int e = threadIdx.x; e < kTok * hd; e += kThreads) {
+    const int i = e / hd, d = e % hd;
+    double dq = 0.0, dk = 0.0, dv = 0.0;
 #pragma unroll 8
     for (int j = 0; j < kTok; ++j) {
-      dq = fmaf(sDP[i * PS + j], sK[j * TS + d], dq);
-      dk = fmaf(sDP[j * PS + i], sQ[j * TS + d], dk);
-      dv = fmaf(sP[j * PS + i], sDO[j * TS + d], dv);
+      dq = fma(sDP[i * PS + j], sK[j * L::TS + d], dq);
+      dk = fma(sDP[j * PS + i], sQ[j * L::TS + d], dk);
+      dv = fma(sP[j * PS + i], sDO[j * L::TS + d], dv);
     }
-    T* row = dqkv + token_offset(win, i, H, W) * 3 * C + head * kHd + d;
-    row[0] = from_f<T>(dq * scale);
-    row[C] = from_f<T>(dk * scale);
-    row[2 * C] = from_f<T>(dv);
+    T* row = dqkv + token_offset(win, i, H, W) * 3 * C + head * hd + d;
+    row[0] = from_f<T>((float)(dq * sc));
+    row[C] = from_f<T>((float)(dk * sc));
+    row[2 * C] = from_f<T>((float)dv);
   }
 }
 
@@ -217,37 +261,90 @@ mhsa_bwd_kernel(const T* __restrict__ qkv, const T* __restrict__ dout, T* __rest
 constexpr int kMmaThreads = 128;          // 4 warps x 16 query rows
 constexpr int QS = kTok + 8;              // 64-wide p / ds row: 144 bytes
 constexpr int SQUARE = kTok * QS;         // one 64 x 64 tile
-constexpr int MMA_F_BYTES = 3 * TILE * (int)sizeof(bf16);                 // q, k, v
-constexpr int MMA_B_BYTES = (4 * TILE + 3 * SQUARE) * (int)sizeof(bf16);  // + dO, p, ds hi, lo
+template <int S>
+constexpr int mma_f_bytes() { return 3 * slot_tile<S>() * (int)sizeof(bf16); }   // q, k, v
+template <int S>   // + dO, p, ds hi, lo
+constexpr int mma_b_bytes() { return (4 * slot_tile<S>() + 3 * SQUARE) * (int)sizeof(bf16); }
 
-// Stages n 64 x 32 tiles of the window with 16-byte cp.async: tile i holds
-// channels first + i * gap .. +31 of each token's row of `src` (row stride
-// `stride` values) and lands at dst + i * TILE.
+// Stages n 64 x S tiles of the window: tile i holds channels first + i *
+// gap .. + hd - 1 of each token's row of `src` (row stride `stride`
+// values) and lands at dst + i * slot_tile<S>(), zeros in the pad channels
+// hd..S. A head of hd % 8 == 0 channels (so C and every offset are
+// multiples of 8 too) moves with 16-byte cp.async, hd % 4 == 0 with 8-byte
+// cp.async (every head of a generator's block), any other a value at a
+// time; the pad channels are zero-filled copies.
+template <int S>
 __device__ void stage_tiles(const bf16* __restrict__ src, int stride, int first, int gap, int n,
-                            bf16* dst, long long win, int H, int W) {
-  for (int e = threadIdx.x; e < kTok * n * 4; e += kMmaThreads) {
-    const int t = e / (n * 4), i = (e / 4) % n, part = e % 4;
-    cp_async16(dst + i * TILE + t * RS + part * 8,
-               src + token_offset(win, t, H, W) * stride + first + i * gap + part * 8);
+                            int hd, bf16* dst, long long win, int H, int W) {
+  constexpr int RSS = slot_rs<S>(), TS = slot_tile<S>(), PARTS = S / 8;
+  if (hd % 8 && hd % 4 == 0) {
+    for (int e = threadIdx.x; e < kTok * n * (S / 4); e += kMmaThreads) {
+      const int t = e / (n * (S / 4)), i = (e / (S / 4)) % n, q = e % (S / 4);
+      const bool real = q * 4 < hd;
+      cp_async8(dst + i * TS + t * RSS + q * 4,
+                src + token_offset(win, t, H, W) * stride + first + i * gap + (real ? q * 4 : 0),
+                real);
+    }
+    return;
+  }
+  if (hd % 8) {   // a warp a row: its offset once, its values by the lanes
+    const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+    for (int r = warp; r < kTok * n; r += kMmaThreads / 32) {
+      const int t = r / n, i = r % n;
+      const bf16* row = src + token_offset(win, t, H, W) * stride + first + i * gap;
+      for (int d = lane; d < S; d += 32)
+        dst[i * TS + t * RSS + d] = d < hd ? row[d] : __float2bfloat16(0.f);
+    }
+    return;
+  }
+  for (int e = threadIdx.x; e < kTok * n * PARTS; e += kMmaThreads) {
+    const int t = e / (n * PARTS), i = (e / PARTS) % n, part = e % PARTS;
+    const bool real = hd == S || part * 8 < hd;
+    cp_async16(dst + i * TS + t * RSS + part * 8,
+               src + token_offset(win, t, H, W) * stride + first + i * gap +
+                   (real ? part * 8 : 0),
+               real);
   }
 }
 
-// The inverse for the 16 token rows t0.. of one warp: staged tile i goes to
-// channels first + i * gap of each token's row of `dst`.
+// The inverse for the 16 token rows t0.. of one warp: the hd real channels
+// of staged tile i go to channels first + i * gap of each token's row of
+// `dst` (16-, 8-byte or single-value stores as stage_tiles moves them).
+template <int S>
 __device__ void store_tiles(bf16* __restrict__ dst, int stride, int first, int gap, int n,
-                            const bf16* src, int t0, long long win, int H, int W, int lane) {
-  for (int e = lane; e < 16 * n * 4; e += 32) {
-    const int t = t0 + e / (n * 4), i = (e / 4) % n, part = e % 4;
+                            int hd, const bf16* src, int t0, long long win, int H, int W,
+                            int lane) {
+  constexpr int RSS = slot_rs<S>(), TS = slot_tile<S>(), PARTS = S / 8;
+  if (hd % 8 && hd % 4 == 0) {
+    for (int e = lane; e < 16 * n * (hd / 4); e += 32) {
+      const int t = t0 + e / (n * (hd / 4)), i = (e / (hd / 4)) % n, q = e % (hd / 4);
+      *reinterpret_cast<uint2*>(dst + token_offset(win, t, H, W) * stride + first + i * gap +
+                                q * 4) =
+          *reinterpret_cast<const uint2*>(src + i * TS + t * RSS + q * 4);
+    }
+    return;
+  }
+  if (hd % 8) {   // row by row: its offset once, its values by the lanes
+    for (int r = 0; r < 16 * n; ++r) {
+      const int t = t0 + r / n, i = r % n;
+      bf16* row = dst + token_offset(win, t, H, W) * stride + first + i * gap;
+      for (int d = lane; d < hd; d += 32) row[d] = src[i * TS + t * RSS + d];
+    }
+    return;
+  }
+  const int parts = hd == S ? PARTS : hd / 8;   // the real 16-byte chunks
+  for (int e = lane; e < 16 * n * parts; e += 32) {
+    const int t = t0 + e / (n * parts), i = (e / parts) % n, part = e % parts;
     *reinterpret_cast<uint4*>(dst + token_offset(win, t, H, W) * stride + first + i * gap +
                               part * 8) =
-        *reinterpret_cast<const uint4*>(src + i * TILE + t * RS + part * 8);
+        *reinterpret_cast<const uint4*>(src + i * TS + t * RSS + part * 8);
   }
 }
 
-// acc (16 x 32: key rows k0..k0+15) += x^T y, x a [query][key] 64 x 64 tile
+// acc (16 x S: key rows k0..k0+15) += x^T y, x a [query][key] 64 x 64 tile
 // in shared memory (hi, and lo when kSplit), y a staged [query][d] tile.
-template <bool kSplit>
-__device__ __forceinline__ void square_t_times_tile(float (&acc)[4][4], const bf16* xh,
+template <bool kSplit, int S>
+__device__ __forceinline__ void square_t_times_tile(float (&acc)[S / 8][4], const bf16* xh,
                                                     const bf16* xl, const bf16* y, int k0,
                                                     int lane) {
 #pragma unroll
@@ -257,10 +354,10 @@ __device__ __forceinline__ void square_t_times_tile(float (&acc)[4][4], const bf
     ldmatrix_x4_trans(hi, xh + off);
     if (kSplit) ldmatrix_x4_trans(lo, xl + off);
 #pragma unroll
-    for (int dp = 0; dp < 2; ++dp) {
+    for (int dp = 0; dp < S / 16; ++dp) {
       uint32_t b[4];
-      ldmatrix_x4_trans(b, y + (kk * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * RS + dp * 16 +
-                               (lane >> 4) * 8);
+      ldmatrix_x4_trans(b, y + (kk * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * slot_rs<S>() +
+                               dp * 16 + (lane >> 4) * 8);
       mma_bf16(acc[2 * dp], hi, b[0], b[1]);
       mma_bf16(acc[2 * dp + 1], hi, b[2], b[3]);
       if (kSplit) {
@@ -271,79 +368,83 @@ __device__ __forceinline__ void square_t_times_tile(float (&acc)[4][4], const bf
   }
 }
 
+template <int S>
 __global__ void __launch_bounds__(kMmaThreads)
 mhsa_fwd_mma_kernel(const bf16* __restrict__ qkv, bf16* __restrict__ out, int H, int W,
-                    int heads, float scale) {
-  const int C = heads * kHd;
+                    int heads, int hd, float scale) {
+  constexpr int NT = S / 8, TS = slot_tile<S>();
+  const int C = heads * hd;
   extern __shared__ __align__(16) unsigned char smem_mma[];
   bf16* sQ = reinterpret_cast<bf16*>(smem_mma);   // q, k, v tiles back to back
-  bf16* sK = sQ + TILE;
-  bf16* sV = sK + TILE;
+  bf16* sK = sQ + TS;
+  bf16* sV = sK + TS;
   const long long win = blockIdx.x / heads;
   const int head = blockIdx.x % heads;
   const int lane = threadIdx.x % 32, r0 = (threadIdx.x / 32) * 16;
-  stage_tiles(qkv, 3 * C, head * kHd, C, 3, sQ, win, H, W);
+  stage_tiles<S>(qkv, 3 * C, head * hd, C, 3, hd, sQ, win, H, W);
   cp_async_commit();
   cp_async_wait<0>();
   __syncthreads();
 
-  uint32_t qa[2][4];
-  load_a(qa, sQ, r0, lane);
+  uint32_t qa[S / 16][4];
+  load_a<S>(qa, sQ, r0, lane);
   float s[8][4];
-  times_tile_t(s, qa, sK, lane);
+  times_tile_t<S>(s, qa, sK, lane);
   float l0, l1;
   exp_rows(s, scale, l0, l1);
-  float o[4][4] = {};
-  strip_times_tile<true>(o, s, sV, lane);
+  float o[NT][4] = {};
+  strip_times_tile<true, S>(o, s, sV, lane);
   l0 = 1.f / l0;
   l1 = 1.f / l1;
 #pragma unroll
-  for (int j = 0; j < 4; ++j) {
+  for (int j = 0; j < NT; ++j) {
     o[j][0] *= l0;
     o[j][1] *= l0;
     o[j][2] *= l1;
     o[j][3] *= l1;
   }
-  // o through the warp's own q rows (read by no other warp) to 16-byte stores
+  // o through the warp's own q rows (read by no other warp) to the stores
   __syncwarp();
-  store_frags<4>(sQ, nullptr, RS, r0, 0, o, 1.f, lane);
+  store_frags<NT>(sQ, nullptr, slot_rs<S>(), r0, 0, o, 1.f, lane);
   __syncwarp();
-  store_tiles(out, C, head * kHd, C, 1, sQ, r0, win, H, W, lane);
+  store_tiles<S>(out, C, head * hd, C, 1, hd, sQ, r0, win, H, W, lane);
 }
 
+template <int S>
 __global__ void __launch_bounds__(kMmaThreads)
 mhsa_bwd_mma_kernel(const bf16* __restrict__ qkv, const bf16* __restrict__ dout,
-                    bf16* __restrict__ dqkv, int H, int W, int heads, float scale) {
-  const int C = heads * kHd;
+                    bf16* __restrict__ dqkv, int H, int W, int heads, int hd, float scale) {
+  constexpr int NT = S / 8, TS = slot_tile<S>(), RSS = slot_rs<S>();
+  const int C = heads * hd;
   extern __shared__ __align__(16) unsigned char smem_mma[];
   bf16* sQ = reinterpret_cast<bf16*>(smem_mma);   // q, k, v, dO tiles back to back
-  bf16* sK = sQ + TILE;
-  bf16* sV = sK + TILE;
-  bf16* sDO = sV + TILE;
-  bf16* sP = sDO + TILE;                          // [query][key]: p, ds hi, ds lo
+  bf16* sK = sQ + TS;
+  bf16* sV = sK + TS;
+  bf16* sDO = sV + TS;
+  bf16* sP = sDO + TS;                            // [query][key]: p, ds hi, ds lo
   bf16* sDH = sP + SQUARE;
   bf16* sDL = sDH + SQUARE;
   const long long win = blockIdx.x / heads;
   const int head = blockIdx.x % heads;
   const int lane = threadIdx.x % 32, r0 = (threadIdx.x / 32) * 16;
-  stage_tiles(qkv, 3 * C, head * kHd, C, 3, sQ, win, H, W);
-  stage_tiles(dout, C, head * kHd, C, 1, sDO, win, H, W);
+  stage_tiles<S>(qkv, 3 * C, head * hd, C, 3, hd, sQ, win, H, W);
+  stage_tiles<S>(dout, C, head * hd, C, 1, hd, sDO, win, H, W);
   cp_async_commit();
   cp_async_wait<0>();
   __syncthreads();
 
   // the warp's 16 query rows: p recomputed, dp = dO v^T, ds, dq = ds k
-  uint32_t a[2][4];
-  load_a(a, sQ, r0, lane);
+  uint32_t a[S / 16][4];
+  load_a<S>(a, sQ, r0, lane);
   float p[8][4];
-  times_tile_t(p, a, sK, lane);
+  times_tile_t<S>(p, a, sK, lane);
   float l0, l1;
   exp_rows(p, scale, l0, l1);
   l0 = 1.f / l0;
   l1 = 1.f / l1;
-  load_a(a, sDO, r0, lane);
+  load_a<S>(a, sDO, r0, lane);
   float ds[8][4];
-  times_tile_t(ds, a, sV, lane);
+  times_tile_t<S>(ds, a, sV, lane);
   float rs0 = 0.f, rs1 = 0.f;
 #pragma unroll
   for (int j = 0; j < 8; ++j) {
@@ -363,78 +464,96 @@ mhsa_bwd_mma_kernel(const bf16* __restrict__ qkv, const bf16* __restrict__ dout,
     ds[j][2] = p[j][2] * (ds[j][2] - rs1);
     ds[j][3] = p[j][3] * (ds[j][3] - rs1);
   }
-  float dq[4][4] = {};
-  strip_times_tile<true>(dq, ds, sK, lane);
+  float dq[NT][4] = {};
+  strip_times_tile<true, S>(dq, ds, sK, lane);
   store_frags<8>(sP, nullptr, QS, r0, 0, p, 1.f, lane);
   store_frags<8>(sDH, sDL, QS, r0, 0, ds, 1.f, lane);
   __syncthreads();
 
   // the warp's 16 key rows: dk = ds^T q, dv = p^T dO
-  float dk[4][4] = {}, dv[4][4] = {};
-  square_t_times_tile<true>(dk, sDH, sDL, sQ, r0, lane);
-  square_t_times_tile<false>(dv, sP, nullptr, sDO, r0, lane);
+  float dk[NT][4] = {}, dv[NT][4] = {};
+  square_t_times_tile<true, S>(dk, sDH, sDL, sQ, r0, lane);
+  square_t_times_tile<false, S>(dv, sP, nullptr, sDO, r0, lane);
   __syncthreads();
-  store_frags<4>(sQ, nullptr, RS, r0, 0, dq, scale, lane);
-  store_frags<4>(sK, nullptr, RS, r0, 0, dk, scale, lane);
-  store_frags<4>(sV, nullptr, RS, r0, 0, dv, 1.f, lane);
+  store_frags<NT>(sQ, nullptr, RSS, r0, 0, dq, scale, lane);
+  store_frags<NT>(sK, nullptr, RSS, r0, 0, dk, scale, lane);
+  store_frags<NT>(sV, nullptr, RSS, r0, 0, dv, 1.f, lane);
   __syncwarp();
-  store_tiles(dqkv, 3 * C, head * kHd, C, 3, sQ, r0, win, H, W, lane);
+  store_tiles<S>(dqkv, 3 * C, head * hd, C, 3, hd, sQ, r0, win, H, W, lane);
 }
 
 // ---------------------------------------------------------------------------
 
+// The slot of a head of hd channels: hd rounded up to the k-step of 16.
+template <typename F>
+int with_slot(int hd, F f) {
+  if (hd <= 16) return f(std::integral_constant<int, 16>{});
+  if (hd <= 32) return f(std::integral_constant<int, 32>{});
+  if (hd <= 48) return f(std::integral_constant<int, 48>{});
+  return f(std::integral_constant<int, 64>{});
+}
+
 // One block per (window, head); fp32 kernels on 256 threads, bf16 on 128.
-int fwd(const void* qkv, void* out, long long grid, int H, int W, int heads, int dtype,
+int fwd(const void* qkv, void* out, long long grid, int H, int W, int heads, int hd, int dtype,
         cudaStream_t s) {
-  const float scale = 1.f / sqrtf((float)kHd);
-  if (dtype == kF32) {
-    const int smem = F_TOTAL * (int)sizeof(float);
-    auto kernel = mhsa_fwd_kernel<float>;
-    cudaError_t err =
-        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (err != cudaSuccess) return (int)err;
-    kernel<<<(unsigned)grid, kThreads, smem, s>>>(static_cast<const float*>(qkv),
-                                                  static_cast<float*>(out), H, W, heads, scale);
-  } else if (dtype == kBF16) {
-    cudaError_t err = cudaFuncSetAttribute(
-        mhsa_fwd_mma_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, MMA_F_BYTES);
-    if (err != cudaSuccess) return (int)err;
-    mhsa_fwd_mma_kernel<<<(unsigned)grid, kMmaThreads, MMA_F_BYTES, s>>>(
-        static_cast<const bf16*>(qkv), static_cast<bf16*>(out), H, W, heads, scale);
-  } else {
-    return (int)cudaErrorInvalidValue;
-  }
-  return (int)cudaGetLastError();
+  const float scale = 1.f / sqrtf((float)hd);
+  return with_slot(hd, [&](auto slot) {
+    constexpr int S = decltype(slot)::value;
+    if (dtype == kF32) {
+      const int smem = F32Slot<S>::F_TOTAL * (int)sizeof(double);
+      auto kernel = mhsa_fwd_kernel<float, S>;
+      cudaError_t err =
+          cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      if (err != cudaSuccess) return (int)err;
+      kernel<<<(unsigned)grid, kThreads, smem, s>>>(static_cast<const float*>(qkv),
+                                                    static_cast<float*>(out), H, W, heads, hd);
+    } else if (dtype == kBF16) {
+      auto kernel = mhsa_fwd_mma_kernel<S>;
+      cudaError_t err = cudaFuncSetAttribute(
+          kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, mma_f_bytes<S>());
+      if (err != cudaSuccess) return (int)err;
+      kernel<<<(unsigned)grid, kMmaThreads, mma_f_bytes<S>(), s>>>(
+          static_cast<const bf16*>(qkv), static_cast<bf16*>(out), H, W, heads, hd, scale);
+    } else {
+      return (int)cudaErrorInvalidValue;
+    }
+    return (int)cudaGetLastError();
+  });
 }
 
 int bwd(const void* qkv, const void* dout, void* dqkv, long long grid, int H, int W, int heads,
-        int dtype, cudaStream_t s) {
-  const float scale = 1.f / sqrtf((float)kHd);
-  if (dtype == kF32) {
-    const int smem = B_TOTAL * (int)sizeof(float);
-    auto kernel = mhsa_bwd_kernel<float>;
-    cudaError_t err =
-        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (err != cudaSuccess) return (int)err;
-    kernel<<<(unsigned)grid, kThreads, smem, s>>>(
-        static_cast<const float*>(qkv), static_cast<const float*>(dout),
-        static_cast<float*>(dqkv), H, W, heads, scale);
-  } else if (dtype == kBF16) {
-    cudaError_t err = cudaFuncSetAttribute(
-        mhsa_bwd_mma_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, MMA_B_BYTES);
-    if (err != cudaSuccess) return (int)err;
-    mhsa_bwd_mma_kernel<<<(unsigned)grid, kMmaThreads, MMA_B_BYTES, s>>>(
-        static_cast<const bf16*>(qkv), static_cast<const bf16*>(dout), static_cast<bf16*>(dqkv),
-        H, W, heads, scale);
-  } else {
-    return (int)cudaErrorInvalidValue;
-  }
-  return (int)cudaGetLastError();
+        int hd, int dtype, cudaStream_t s) {
+  const float scale = 1.f / sqrtf((float)hd);
+  return with_slot(hd, [&](auto slot) {
+    constexpr int S = decltype(slot)::value;
+    if (dtype == kF32) {
+      const int smem = F32Slot<S>::B_TOTAL * (int)sizeof(double);
+      auto kernel = mhsa_bwd_kernel<float, S>;
+      cudaError_t err =
+          cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      if (err != cudaSuccess) return (int)err;
+      kernel<<<(unsigned)grid, kThreads, smem, s>>>(
+          static_cast<const float*>(qkv), static_cast<const float*>(dout),
+          static_cast<float*>(dqkv), H, W, heads, hd);
+    } else if (dtype == kBF16) {
+      auto kernel = mhsa_bwd_mma_kernel<S>;
+      cudaError_t err = cudaFuncSetAttribute(
+          kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, mma_b_bytes<S>());
+      if (err != cudaSuccess) return (int)err;
+      kernel<<<(unsigned)grid, kMmaThreads, mma_b_bytes<S>(), s>>>(
+          static_cast<const bf16*>(qkv), static_cast<const bf16*>(dout),
+          static_cast<bf16*>(dqkv), H, W, heads, hd, scale);
+    } else {
+      return (int)cudaErrorInvalidValue;
+    }
+    return (int)cudaGetLastError();
+  });
 }
 
-// The blocks of the c8 .. c64 generators: C = 32 heads, 1 to 8 heads of 32.
+// The blocks of the c1 .. c64 generators: 1 to 8 heads of 1 to 64 channels.
 bool supported(int H, int W, int C, int heads) {
-  return heads >= 1 && heads <= 8 && C == heads * kHd && H % kWin == 0 && W % kWin == 0;
+  return heads >= 1 && heads <= 8 && C > 0 && C % heads == 0 && C / heads <= 64 &&
+         H % kWin == 0 && W % kWin == 0;
 }
 
 // One block per (window, head).
@@ -447,8 +566,8 @@ long long grid_size(int B, int H, int W, int heads) {
 
 // Plain C entry points (loaded with ctypes). qkv and dqkv are (B, H, W, 3C),
 // out and dout (B, H, W, C), all contiguous and 16-byte aligned, of one type
-// (dtype 0 = fp32, 1 = bf16), with C = 32 heads in 1 to 8 heads and H % 8
-// == W % 8 == 0. Each launches on `stream` and returns cudaGetLastError()
+// (dtype 0 = fp32, 1 = bf16), with C in 1 to 8 heads of at most 64 channels
+// and H % 8 == W % 8 == 0. Each launches on `stream` and returns cudaGetLastError()
 // (0 on success); another (C, heads) returns cudaErrorInvalidValue.
 extern "C" int window_mhsa_train_fwd_launch(const void* qkv, void* out, int B, int H, int W,
                                             int C, int heads, int dtype, int device,
@@ -458,7 +577,8 @@ extern "C" int window_mhsa_train_fwd_launch(const void* qkv, void* out, int B, i
   if (err != cudaSuccess) return (int)err;
   const long long grid = mstgan::grid_size(B, H, W, heads);
   if (grid > INT_MAX) return (int)cudaErrorInvalidConfiguration;
-  return mstgan::fwd(qkv, out, grid, H, W, heads, dtype, static_cast<cudaStream_t>(stream));
+  return mstgan::fwd(qkv, out, grid, H, W, heads, C / heads, dtype,
+                     static_cast<cudaStream_t>(stream));
 }
 
 extern "C" int window_mhsa_train_bwd_launch(const void* qkv, const void* dout, void* dqkv,
@@ -469,6 +589,6 @@ extern "C" int window_mhsa_train_bwd_launch(const void* qkv, const void* dout, v
   if (err != cudaSuccess) return (int)err;
   const long long grid = mstgan::grid_size(B, H, W, heads);
   if (grid > INT_MAX) return (int)cudaErrorInvalidConfiguration;
-  return mstgan::bwd(qkv, dout, dqkv, grid, H, W, heads, dtype,
+  return mstgan::bwd(qkv, dout, dqkv, grid, H, W, heads, C / heads, dtype,
                      static_cast<cudaStream_t>(stream));
 }

@@ -21,8 +21,8 @@ compute and their gradients land in fp32.
 Routes: where autograd will need a gradient (grad mode on, and the input or
 a parameter requires grad) LocalAttention runs the 1x1 qkv conv, the
 training kernel of the mid and the 1x1 proj conv (on the card at the
-kernel's widths, ``window_attention_train.KERNEL_WIDTHS``, C = 8, 16, 32,
-64; at every other C % 8 == 0 up to 256 the JAX package's route instead,
+kernel's widths, ``window_attention_train.KERNEL_WIDTHS``, C = 1, 2, 4, 8,
+16, 32, 64; at every other C up to 256 the JAX package's route instead,
 ``window_channel_attention_fast_vjp``: the inference kernel forward, the
 backward recomputed through the XLA formulation; ``train_route`` chooses,
 and any other width raises), and the transformer block its
@@ -90,8 +90,8 @@ class LocalAttention(nn.Module):
                 nhwc, *weights).permute(0, 3, 1, 2)
         raise ValueError(
             f"LocalAttention at C={C} does not train on the card: the "
-            f"training kernel is built for C in (8, 16, 32, 64) and the "
-            f"inference-kernel route for the other C % 8 == 0 up to 256")
+            f"training kernel is built for C in (1, 2, 4, 8, 16, 32, 64) "
+            f"and the inference-kernel route for every other C up to 256")
 
 
 _MSB_BRANCHES = (  # (name, kernel, padding, dilation)

@@ -8,6 +8,15 @@ import torch
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 
+def width_range(widths) -> str:
+    """Generator widths as a message names them: "1 to 64" for a run of
+    consecutive widths, else the tuple."""
+    widths = tuple(widths)
+    if widths and widths == tuple(range(widths[0], widths[-1] + 1)):
+        return f"{widths[0]} to {widths[-1]}"
+    return str(widths)
+
+
 def dtype_code(x: torch.Tensor) -> int:
     """The element-type code the C entry points take (0 fp32, 1 bf16)."""
     return _DTYPE_CODES[x.dtype]

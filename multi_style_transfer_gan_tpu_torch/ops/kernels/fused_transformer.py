@@ -1,10 +1,17 @@
 """StructuralTransformerBlock body: CUDA kernel and plain version.
 
 ``fused_structural_block`` replaces ``ops/pallas/fused_transformer.py``;
-its kernel is ``csrc/fused_structural_block.cu``, which takes any dim % 32
-== 0 from 32 to 256 with dim / 32 heads (``kernel_takes``): the blocks of
-every generator width that is a multiple of 8 up to 64. In bf16 dim 96 runs
-padded in the dim-128 design and dims 160-224 in the dim-256 design.
+its kernel is ``csrc/fused_structural_block.cu``, which takes any dim up to
+256 whose ``default_num_heads`` heads are at most 64 wide
+(``kernel_takes``): the blocks of every generator width from 1 to 64 (dims
+4, 8, .., 256). Dims % 32 == 0 (heads of 32) run in the tensor-core
+designs: in bf16 dim 96 padded in the dim-128 design and dims 160-224 in
+the dim-256 design. Every other generator dim from 48 on (heads of 36 to
+56 channels) runs in bf16 in the head-slot kernel
+(``fused_structural_block_slot_kernel``: each head in a slot of its width
+rounded up to 16, ``slot_takes``), and in fp32 in the FMA bodies
+(``fused_structural_block_any_kernel``), which also take, in both types,
+c4's dim 16 and the dims no generator has (C % 4 != 0, odd heads).
 ``structural_block_plain`` is the port of ``_block_body_math`` /
 ``_window_attention``
 (models/structural_transformer.py:97-168), including the key mask of
@@ -24,13 +31,27 @@ from . import _build
 from ._checks import check_cuda_args, check_no_grad, dtype_code
 
 WINDOW = 8
-KERNEL_RULE = "C % 32 == 0 from 32 to 256 (C / 32 heads)"
+KERNEL_RULE = "C from 1 to 256 in default_num_heads(C) heads of at most 64"
 
 
 def kernel_takes(C: int) -> bool:
-    """The block kernel's widths: any C % 32 == 0 from 32 to 256, where
-    ``default_num_heads(C)`` is C / 32 heads of 32."""
-    return C % 32 == 0 and 32 <= C <= 256
+    """The block kernel's widths: any C from 1 to 256 whose
+    ``default_num_heads(C)`` heads are at most 64 channels wide (every
+    generator dim 4c, c = 1 .. 64; C % 32 == 0 in the designs of heads of
+    32, any other C in the head-slot kernel or the FMA bodies)."""
+    return 1 <= C <= 256 and C // default_num_heads(C) <= 64
+
+
+def slot_takes(C: int) -> bool:
+    """Whether the bf16 block at a dim C that is not a multiple of 32 runs
+    in the head-slot kernel (tensor cores): C % 4 == 0 from 36 on and heads
+    of hd % 4 == 0 channels (every generator dim 4c but c4's 16, where the
+    dim-256 frame cost more than the FMA bodies in a probe); any other such
+    C runs in the FMA bodies."""
+    heads = default_num_heads(C)
+    hd = C // heads
+    return 32 < C <= 256 and C % 4 == 0 and heads <= 8 and hd % 4 == 0 \
+        and hd <= 64
 
 
 def default_num_heads(dim: int) -> int:
@@ -56,7 +77,19 @@ WEIGHT_NAMES = tuple(weight_shapes(1))  # the order the C entry point takes
 def block_launch_shape(B: int, H: int, W: int, C: int = 64) -> tuple:
     """(units of work, dynamic shared memory in bytes) of one bf16 launch
     of the block kernel, as ``csrc/fused_structural_block.cu`` lays it out
-    (ragged edges count as whole windows). C = 32 and 64: a persistent block
+    (ragged edges count as whole windows). C % 32 != 0 with ``slot_takes``
+    (every generator dim from 48 on): the head-slot kernel, a persistent block a
+    window, the dim-256 frame's two weight tiles of 64 rows of 264 and
+    LN1's (then LN2's) output as hi and lo, then a union of one head's q, k,
+    v and output tiles (hi and lo, 64 rows of S + 8) and the hidden chunk
+    (hi and lo, rows of 136); the fp32 parameters (qkv's biases in the slot
+    layout of up to 8 heads of 64) and 256 row sums of LN2. Any other C %
+    32 != 0: the FMA bodies, one block of 256 threads per window (a grid of
+    every window, not a persistent one): the residual stream and LN1's
+    (then LN2's) output as two 64 x (C + 1) fp32 rows, and a union of one
+    head (q | k, 64 x (2 hd + 1), and 16 score rows in fp32; v, 64 x (hd +
+    1)) and a 64-column hidden chunk (64 x 65 fp32). C = 32 and 64: a
+    persistent block
     takes two 8x8 windows at a time; it holds the four weights as bf16 in
     rows padded by 8 values, per window x, struct and the k (hi, lo) and v
     tiles of every head (64 rows of 40), then the biases and LayerNorm
@@ -71,6 +104,15 @@ def block_launch_shape(B: int, H: int, W: int, C: int = 64) -> tuple:
     fp32 parameters and 256 row sums of LN2.
     The grid is ``persistent_grid(units, SMs, blocks per SM)``."""
     windows = B * -(-H // WINDOW) * -(-W // WINDOW)
+    if C % 32 and slot_takes(C):
+        slot = -(-(C // default_num_heads(C)) // 16) * 16
+        elems = 4 * 64 * 264 + max(8 * 64 * (slot + 8), 2 * 64 * 136)
+        return windows, 2 * elems + 4 * (4 * 256 + 3 * 8 * 64 + 256 + 1024
+                                         + 256 + 256)
+    if C % 32:
+        hd = C // default_num_heads(C)
+        head = 4 * (64 * (2 * hd + 1) + 16 * 65 + 64 * (hd + 1))
+        return windows, 2 * 64 * (C + 1) * 4 + max(head, 4 * 64 * 65)
     if C > 128:
         dp = 256
         heads = 2 * 4 * 64 * 40 + 2 * 64 * 72

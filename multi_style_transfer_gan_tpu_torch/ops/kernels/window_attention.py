@@ -5,10 +5,12 @@ Pallas layouts (v1, grouped, v3, dispatched by
 ``ops/pallas/attention_dispatch.py``) and three more forms of the same
 math (``window_attention_v4``, ``window_attention_v3_fused_io`` and the A/B
 script's ``window_attention_v6``); on Hopper one kernel,
-``csrc/window_channel_attention.cu``, takes any C % 8 == 0 from 8 to 256
+``csrc/window_channel_attention.cu``, takes any C from 1 to 256
 (``kernel_takes``): the LocalAttention widths C, 2C and 4C of every
-generator width that is a multiple of 8 up to 64, each run inside the
-built layout of the next power of two (``layout_width``).
+generator width from 1 to 64, each run inside the built layout of the next
+power of two (``layout_width``); a width whose rows are not 16-byte
+aligned (C % 8 != 0) moves them 8 bytes at a time (C % 4 == 0) or a value
+at a time.
 ``window_channel_attention_plain`` is the port of
 ``_attention_math`` / ``_attention_windows``
 (models/enhanced_generator.py:168-205).
@@ -32,13 +34,13 @@ from ._checks import check_cuda_args, check_no_grad, dtype_code
 WINDOW = 4
 STAGE_WIDTHS = (16, 32, 64)            # the stage ablation's (c16's)
 STAGES = ("copy", "qkv", "norm", "logits", "softmax", "full")
-KERNEL_RULE = "C % 8 == 0 from 8 to 256"
+KERNEL_RULE = "C from 1 to 256"
 
 
 def kernel_takes(C: int) -> bool:
-    """The attention kernel's widths: any C % 8 == 0 from 8 to 256, so
-    that a bf16 row keeps its 16-byte moves."""
-    return C % 8 == 0 and 8 <= C <= 256
+    """The attention kernel's widths: any C from 1 to 256 (C % 8 != 0 in
+    the runtime-C variant of its layout, with narrower moves)."""
+    return 1 <= C <= 256
 
 
 def layout_width(C: int, bf16: bool) -> int:

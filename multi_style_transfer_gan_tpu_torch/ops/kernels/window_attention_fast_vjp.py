@@ -3,17 +3,19 @@ package's ``_attention_fast_vjp`` (models/enhanced_generator.py:87-112).
 
 JAX trains the channel attention through its hand-written kernel pair
 (``window_channel_attention_train``) only where ``supports_train_kernel``
-holds (ops/pallas/window_attention_train.py:55-64, 274-277: 128 % C == 0
-and C <= 64). At any other width, the c24 .. c56 generators' LocalAttention
-(C = 24, 40, 48, 56 and their doubles and quadruples), c32's down2 at C =
-128 and c64's down1, up1 (C = 128) and down2 (C = 256) among them,
+holds (ops/pallas/window_attention_train.py:55-64, 274-277: 128 % C == 0,
+C <= 64 and a window count that the group size 128 / C divides). At any
+other width, every LocalAttention call of a generator whose width is not a
+power of two (c3's C = 3, 6, 12; c24's 24, 48, 96; c60's 60, 120, 240),
+c32's down2 at C = 128 and c64's down1, up1 (C = 128) and down2 (C = 256)
+among them,
 ``local_attention_apply(fast="train")`` takes ``_attention_fast_vjp``
 (:131-146): the forward is the inference kernel, and the backward is XLA's
 VJP of ``_attention_math`` (:168-205), recomputed from the saved inputs.
 The port does the same (``train_route`` is the choice, as a function of C):
 
 - the forward launches row 1's kernel, ``window_channel_attention``
-  (``csrc/window_channel_attention.cu``, any C % 8 == 0 up to 256);
+  (``csrc/window_channel_attention.cu``, any C up to 256);
 - the backward recomputes ``window_channel_attention_plain``, the port of
   ``_attention_math`` (the qkv 1x1 product, the window partition, the
   zero-safe L2 normalize, the Gram, its softmax, the apply and the proj,
@@ -37,9 +39,13 @@ from .window_attention_train import KERNEL_WIDTHS as TRAIN_KERNEL_WIDTHS
 
 def train_route(C: int) -> str | None:
     """How LocalAttention at width C trains on the card: "kernel" (the
-    hand-written pair, ``window_channel_attention_train``, where JAX's
-    ``supports_train_kernel`` holds: C = 8, 16, 32, 64), "fast_vjp" (this
-    route: any other C the inference kernel takes) or None (no route)."""
+    hand-written pair, ``window_channel_attention_train``, at the widths
+    where JAX's ``supports_train_kernel`` can hold: C = 1, 2, 4, 8, 16, 32,
+    64), "fast_vjp" (this route: any other C the inference kernel takes, 1
+    to 256) or None (no route). The choice is by C alone: JAX also asks
+    that the group size 128 / C divide the window count (C = 1 takes its
+    kernel only with 128 | windows), and takes this route where it does
+    not; both routes compute the same function and its exact gradient."""
     if C in TRAIN_KERNEL_WIDTHS:
         return "kernel"
     return "fast_vjp" if kernel_takes(C) else None

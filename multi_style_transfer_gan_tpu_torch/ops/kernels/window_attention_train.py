@@ -25,9 +25,10 @@ as the fp32 kernel's backward does: where |q| ~ 1e-3 the gradients reach
 ~4e3, past the reach of two fp32 evaluations in different orders
 (``csrc/window_attention_train.cu``).
 
-The kernels take C = 8, 16, 32 and 64 (``KERNEL_WIDTHS``), where JAX's
-``supports_train_kernel`` holds (128 % C == 0, C <= 64); every other
-LocalAttention width of a generator (C = 24, 40, 48, .., 256) has no
+The kernels take C = 1, 2, 4, 8, 16, 32 and 64 (``KERNEL_WIDTHS``), the
+widths where JAX's ``supports_train_kernel`` can hold (128 % C == 0, C <=
+64; C = 1 .. 8 run padded to 16 channels in bf16); every other
+LocalAttention width of a generator (C = 3, 5, 6, 7, 9, .., 256) has no
 training kernel in the JAX package either: ``window_attention_fast_vjp``
 is its route (``window_attention_fast_vjp.train_route``).
 """
@@ -40,7 +41,7 @@ from . import _build
 from ._checks import check_cuda_args, dtype_code
 
 WINDOW = 4
-KERNEL_WIDTHS = (8, 16, 32, 64)
+KERNEL_WIDTHS = (1, 2, 4, 8, 16, 32, 64)
 
 
 def window_partition(t: torch.Tensor, ws: int) -> torch.Tensor:

@@ -17,9 +17,12 @@ Per window and head (window_mhsa_train.py:21-28), scale = hd^-0.5:
 The plain backward writes these formulas out; it is not autograd of the
 plain forward.
 
-The kernels take the blocks of every generator width that is a multiple
-of 8 up to 64: any C % 32 == 0 from 32 to 256 (``kernel_takes``) in C / 32
-heads of 32 (``kernel_heads``), the head count a runtime argument.
+The kernels take the blocks of every generator width from 1 to 64: C =
+heads x hd in 1 to 8 heads of at most 64 channels (``kernel_takes``; the
+model asks for ``default_num_heads(C)`` heads, 4 to 62 channels each), the
+head count a runtime argument. A head of hd channels runs in a slot of hd
+rounded up to 16, zeros in the pad channels, at the scale hd^-0.5 of its
+real width.
 """
 
 from __future__ import annotations
@@ -31,28 +34,27 @@ from ._checks import check_cuda_args, dtype_code
 from .window_attention_train import window_merge, window_partition
 
 WINDOW = 8
+KERNEL_RULE = "C in 1 to 8 heads of at most 64 channels"
 
 
-def kernel_takes(C: int) -> bool:
-    """The kernels' widths: any C % 32 == 0 from 32 to 256."""
-    return C % 32 == 0 and 32 <= C <= 256
+def kernel_takes(C: int, heads: int) -> bool:
+    """The kernels take C channels in ``heads`` heads (the model asks for
+    ``default_num_heads(C)``): 1 to 8 heads that divide C, of at most 64
+    channels each."""
+    return 1 <= heads <= 8 and C > 0 and C % heads == 0 and C // heads <= 64
 
 
-def kernel_heads(C: int) -> int:
-    """The head count the kernels take at width C: heads of 32 channels."""
-    return C // 32
-
-
-def _split_heads(t: torch.Tensor, heads: int) -> torch.Tensor:
-    """(B, H, W, C) -> (windows, heads, 64, C / heads), fp32."""
-    w = window_partition(t.float(), WINDOW)
+def _split_heads(t: torch.Tensor, heads: int,
+                 dtype=torch.float32) -> torch.Tensor:
+    """(B, H, W, C) -> (windows, heads, 64, C / heads) in ``dtype``."""
+    w = window_partition(t.to(dtype), WINDOW)
     n, T, C = w.shape
     return w.reshape(n, T, heads, C // heads).transpose(1, 2)
 
 
-def _qkv_heads(qkv: torch.Tensor, heads: int):
+def _qkv_heads(qkv: torch.Tensor, heads: int, dtype=torch.float32):
     C = qkv.shape[-1] // 3
-    return [_split_heads(t, heads) for t in qkv.split(C, dim=-1)]
+    return [_split_heads(t, heads, dtype) for t in qkv.split(C, dim=-1)]
 
 
 def _softmax_p(q, k):
@@ -68,10 +70,12 @@ def _merge_heads(t: torch.Tensor, B: int, H: int, W: int):
 
 
 def window_mhsa_plain(qkv: torch.Tensor, heads: int) -> torch.Tensor:
-    """Plain forward: (B, H, W, 3C) -> (B, H, W, C), fp32 inside, one
-    rounding to qkv's type at the end, as the kernel does."""
+    """Plain forward: (B, H, W, 3C) -> (B, H, W, C), float64 inside, one
+    rounding to qkv's type at the end, as the fp32 kernel does: on a
+    saturated softmax two fp32 evaluations in different orders lie ~5e-4
+    apart, past the fp32 tolerance (``csrc/window_mhsa_train.cu``)."""
     B, H, W, _ = qkv.shape
-    q, k, v = _qkv_heads(qkv, heads)
+    q, k, v = _qkv_heads(qkv, heads, torch.float64)
     p, _ = _softmax_p(q, k)
     return _merge_heads(p @ v, B, H, W).to(qkv.dtype)
 
@@ -79,10 +83,11 @@ def window_mhsa_plain(qkv: torch.Tensor, heads: int) -> torch.Tensor:
 def window_mhsa_backward_plain(qkv: torch.Tensor, d_out: torch.Tensor,
                                heads: int) -> torch.Tensor:
     """Plain backward: d(qkv) (B, H, W, 3C) by the formulas in the module
-    docstring."""
+    docstring, float64 inside and one rounding to qkv's type at the end, as
+    the fp32 kernel does."""
     B, H, W, C3 = qkv.shape
-    q, k, v = _qkv_heads(qkv, heads)
-    do = _split_heads(d_out, heads)
+    q, k, v = _qkv_heads(qkv, heads, torch.float64)
+    do = _split_heads(d_out, heads, torch.float64)
     p, scale = _softmax_p(q, k)
     dv = p.transpose(-2, -1) @ do
     dp = do @ v.transpose(-2, -1)
@@ -102,17 +107,15 @@ def _check(qkv: torch.Tensor, heads: int):
         raise ValueError(f"window MHSA needs H and W divisible by {WINDOW}, "
                          f"got {H}x{W}")
     C = C3 // 3
-    if qkv.device.type != "cpu" and (not kernel_takes(C)
-                                     or heads != kernel_heads(C)):
-        raise ValueError(f"window_mhsa_train kernel is built for C % 32 == 0 "
-                         f"from 32 to 256 in C / 32 heads, got C={C} in "
-                         f"{heads}")
+    if qkv.device.type != "cpu" and not kernel_takes(C, heads):
+        raise ValueError(f"window_mhsa_train kernel is built for "
+                         f"{KERNEL_RULE}, got C={C} in {heads}")
 
 
 def window_mhsa_fwd(qkv: torch.Tensor, heads: int) -> torch.Tensor:
     """Forward of the mid. A CPU tensor takes the plain version; a CUDA
-    tensor (contiguous, 16-byte aligned, fp32 or bf16, ``kernel_takes(C)``
-    in C / 32 heads, H % 8 == W % 8 == 0) launches the kernel or raises."""
+    tensor (contiguous, 16-byte aligned, fp32 or bf16, ``kernel_takes(C,
+    heads)``, H % 8 == W % 8 == 0) launches the kernel or raises."""
     _check(qkv, heads)
     if qkv.device.type == "cpu":
         return window_mhsa_plain(qkv, heads)

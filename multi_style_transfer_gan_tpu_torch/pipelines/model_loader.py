@@ -20,6 +20,7 @@ from ..models import (
     EnhancedGenerator, PlainGenerator, channels_of, num_transformer_blocks_of,
 )
 from ..ops.kernels import fused_transformer, window_attention
+from ..ops.kernels._checks import width_range
 from ..weights import (
     detect_channels, detect_model_kind, extract_state_dict, load_pth,
 )
@@ -34,11 +35,10 @@ def _served(channels: int) -> bool:
     dim = 4 * channels
     return (all(window_attention.kernel_takes(c)
                 for c in (channels, 2 * channels, dim))
-            and fused_transformer.kernel_takes(dim)
-            and fused_transformer.default_num_heads(dim) == dim // 32)
+            and fused_transformer.kernel_takes(dim))
 
 
-# (8, 16, 24, 32, 40, 48, 56, 64)
+# 1 to 64
 SERVED_CHANNELS = tuple(c for c in range(1, 257) if _served(c))
 
 
@@ -51,8 +51,8 @@ def check_serving_width(channels: int) -> None:
             f"enhanced generator at channels={channels} is not served on the "
             f"card: the serving kernels are built for LocalAttention widths "
             f"{window_attention.KERNEL_RULE} and transformer blocks of "
-            f"{fused_transformer.KERNEL_RULE}, i.e. channels in "
-            f"{SERVED_CHANNELS}")
+            f"{fused_transformer.KERNEL_RULE}, i.e. channels "
+            f"{width_range(SERVED_CHANNELS)}")
 
 
 @dataclass

@@ -32,8 +32,9 @@ from torch import nn
 
 from ..models import EnhancedGenerator, PlainGenerator
 from ..ops.kernels import train_route
+from ..ops.kernels._checks import width_range
 from ..ops.kernels.fused_transformer import default_num_heads
-from ..ops.kernels.window_mhsa_train import kernel_heads, kernel_takes
+from ..ops.kernels.window_mhsa_train import KERNEL_RULE, kernel_takes
 from .losses import masked_l1
 
 LR = 2e-4             # pretrain.py:99
@@ -69,10 +70,10 @@ def learning_rate(step: int, num_epochs: int, steps_per_epoch: int,
 def _trains(channels: int) -> bool:
     dim = 4 * channels
     return (all(train_route(c) for c in (channels, 2 * channels, dim))
-            and kernel_takes(dim) and default_num_heads(dim) == kernel_heads(dim))
+            and kernel_takes(dim, default_num_heads(dim)))
 
 
-# (8, 16, 24, 32, 40, 48, 56, 64)
+# 1 to 64
 TRAINED_CHANNELS = tuple(c for c in range(1, 257) if _trains(c))
 
 
@@ -80,19 +81,19 @@ def check_kernel_width(channels: int,
                        what: str = "enhanced pretraining") -> None:
     """The EnhancedGenerator at ``channels`` trains on the card only where
     its widths are built: LocalAttention at C, 2C and 4C each on a training
-    route (``train_route``: the training kernel at C = 8, 16, 32, 64, the
-    inference-kernel route at the other C % 8 == 0 up to 256), and the
+    route (``train_route``: the training kernel at C = 1, 2, 4, 8, 16, 32,
+    64, the inference-kernel route at every other C up to 256), and the
     transformer block at 4C with ``default_num_heads(4C)`` heads in the
-    window-MHSA kernel's. So every width that is a multiple of 8 up to 64
-    trains. Raises otherwise: there is no plain fallback on the card.
-    ``what`` names the caller in the message. The widths are the training
-    routes' own, not the serving kernels'."""
+    window-MHSA kernel's (1 to 8 heads of at most 64 channels). So every
+    width from 1 to 64 trains. Raises otherwise: there is no plain fallback
+    on the card. ``what`` names the caller in the message. The widths are
+    the training routes' own, not the serving kernels'."""
     if not _trains(channels):
         raise ValueError(
             f"{what} at channels={channels} is not served on the card: "
-            f"LocalAttention trains at C % 8 == 0 from 8 to 256 and the "
-            f"block at dim % 32 == 0 from 32 to 256 (dim / 32 heads), i.e. "
-            f"channels in {TRAINED_CHANNELS}")
+            f"LocalAttention trains at C from 1 to 256 and the block's "
+            f"window MHSA at {KERNEL_RULE}, i.e. channels "
+            f"{width_range(TRAINED_CHANNELS)}")
 
 
 def pretrain_init_state(seed: int = 0, channels: int = 64, *,

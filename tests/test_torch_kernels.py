@@ -278,7 +278,7 @@ def test_block_kernel_matches_plain(rng, cuda, shape, dtype):
 
 @pytest.mark.gpu
 def test_kernel_wrappers_raise_on_what_they_do_not_take(rng, cuda):
-    args = _torch_attn_args(_attn_args(rng, (1, 8, 8, 20)), cuda)
+    args = _torch_attn_args(_attn_args(rng, (1, 8, 8, 264)), cuda)
     with pytest.raises(ValueError, match="built for C"):
         window_channel_attention(*args)
     x, wq, bq, wp, bp = _torch_attn_args(_attn_args(rng, (1, 8, 8, 16)), cuda)

@@ -23,6 +23,8 @@ against JAX, as ``test_torch_train_kernels.py``; the steps' losses at rtol
 pretrain loss at rtol 1e-5, as ``test_torch_pretrain.py``.
 """
 
+import functools
+
 import numpy as np
 import pytest
 import torch
@@ -250,11 +252,13 @@ def fakes(monkeypatch):
 
 @pytest.mark.parametrize("C,route", [(8, "train"), (16, "train"),
                                      (64, "train"), (128, "fast_vjp"),
-                                     (12, None), (256, "fast_vjp")])
+                                     (12, "fast_vjp"), (256, "fast_vjp"),
+                                     (1, "train"), (264, None)])
 def test_local_attention_routes_by_width_off_the_cpu(fakes, C, route):
     """Under grad on a tensor off the CPU (meta: the wrappers' own device
-    checks never run), C in row 11's widths takes its mid, C = 128 and 256
-    the fast-VJP Function, any other width raises before a launch."""
+    checks never run), C in row 11's widths (1, 2, 4, 8, 16, 32, 64) takes
+    its mid, every other C up to 256 the fast-VJP Function, a width past
+    256 raises before a launch."""
     m = LocalAttention(C).to("meta")
     x = torch.zeros(1, C, 8, 8, device="meta", requires_grad=True)
     if route is None:
@@ -308,18 +312,27 @@ def _jax_cyclegan_state(ts, g_tx, d_tx):
                             jnp.zeros((), jnp.int32))
 
 
+@functools.lru_cache(maxsize=None)
+def _jax_step():
+    """The optimizers and JAX's jitted fp32 step (fast_attention=False,
+    no remat), one for the module: steps at the same width share its
+    compilation (c4's here and in ``test_no_fast_attention_step_matches_jax``)."""
+    g_tx, d_tx = jax_make_optimizers()
+    return g_tx, d_tx, jax.jit(lambda s, a, b: jax_train_step(
+        s, a, b, g_tx, d_tx, compute_dtype=jnp.float32, remat=False,
+        fast_attention=False))
+
+
 def _step_against_jax(rng, channels, **port_kw):
     """One fp32 CycleGAN step, batch 1, 32^2, port (on the CPU) vs JAX
     (fast_attention=False, no remat) from the same init: the five losses
     and every D u after the step."""
-    g_tx, d_tx = jax_make_optimizers()
+    g_tx, d_tx, step = _jax_step()
     ts = cyclegan_init_state(0, channels, device="cpu")
     js = _jax_cyclegan_state(ts, g_tx, d_tx)
     xa, xb = (np.tanh(rng.standard_normal((1, 32, 32, 3))).astype(np.float32)
               for _ in range(2))
-    js, jl = jax.jit(lambda s, a, b: jax_train_step(
-        s, a, b, g_tx, d_tx, compute_dtype=jnp.float32, remat=False,
-        fast_attention=False))(js, jnp.asarray(xa), jnp.asarray(xb))
+    js, jl = step(js, jnp.asarray(xa), jnp.asarray(xb))
     ts, tl = cyclegan_train_step(ts, torch.from_numpy(xa),
                                  torch.from_numpy(xb), **port_kw)
     for k in KEYS:
@@ -333,9 +346,10 @@ def _step_against_jax(rng, channels, **port_kw):
                                        err_msg=f"{name} {conv}")
 
 
-@pytest.mark.parametrize("channels", smoke.WIDTH_CHANNELS)
+@pytest.mark.parametrize("channels", (4,) + smoke.WIDTH_CHANNELS)
 def test_cyclegan_step_at_the_width_matches_jax(rng, channels):
-    """c8 and c32 (C = 128 at c32's down2), the port's training route on the
+    """c4 (LocalAttention at C = 4, 8, 16; the block at dim 16, 1 head),
+    c8 and c32 (C = 128 at c32's down2), the port's training route on the
     CPU (the plain mids), without pair batching as JAX's fast=False step."""
     _step_against_jax(rng, channels, pair_batching=False)
 

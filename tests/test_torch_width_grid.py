@@ -187,7 +187,7 @@ def test_padded_block_is_the_block_only_with_layer_norm_over_the_real_dim(
     equals the unpadded block when both LayerNorms count the real dim only;
     over DP each pad channel adds (0 - mean)^2 to the variance and the
     result is another block."""
-    assert block_takes(dim) and not block_takes(dim + 8)
+    assert block_takes(dim) and dim % 32 == 0 and DP in (128, 256)
     x, st = (torch.from_numpy(rng.standard_normal((1, 8, 8, dim))
                               .astype(np.float32)) for _ in range(2))
     gamma, beta = (torch.from_numpy((rng.standard_normal((1, dim)) * 0.1)
@@ -355,12 +355,14 @@ def test_train_route_is_jax_supports_train_kernel():
     """For every C % 8 == 0 up to 256 the port trains LocalAttention through
     the hand-written pair exactly where JAX's ``supports_train_kernel`` holds
     (at a grid whose window count every group size divides), and through
-    the fast-VJP route everywhere else; widths off the rule have no route."""
+    the fast-VJP route everywhere else; C = 4 takes the pair, C = 12 and 20
+    the route (tests/test_torch_width_any.py holds every C from 1 to 256),
+    and widths past 256 have no route."""
     for C in ATTENTION_WIDTHS:
         want = "kernel" if supports_train_kernel(1, 32, 32, C) else "fast_vjp"
         assert K.train_route(C) == want, C
-    for C in (4, 12, 20, 264):
-        assert K.train_route(C) is None
+    assert [K.train_route(C) for C in (4, 12, 20, 264)] == [
+        "kernel", "fast_vjp", "fast_vjp", None]
 
 
 # ---------------------------------------------------------------------------
