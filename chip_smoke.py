@@ -15,10 +15,10 @@ loss in the train step, the c8, c32 and c64 EnhancedGenerators on the
 serving kernels' other widths and trained (CycleGAN and enhanced
 pretraining, c64 also through the pretrain CLI's defaults), the c24, c40,
 c48 and c56 ones, which run padded inside the kernels, the c4, c12, .., c60
-ones (the widths that are not multiples of 8), and checks every
-hand-written kernel on the way:
+ones (the widths that are not multiples of 8), the c68 .. c128 ones (the
+widths past 64), and checks every hand-written kernel on the way:
 
-1. build: all six CUDA sources compile from ``csrc/`` at once, one nvcc
+1. build: all seven CUDA sources compile from ``csrc/`` at once, one nvcc
    each;
 2. window channel attention, kernel vs plain PyTorch at every shape the
    generator gives it at canvas 256 and 512 (fp32 with TF32 off, and bf16),
@@ -114,8 +114,8 @@ hand-written kernel on the way:
     the fp32 program at 'highest' card vs CPU on both engines with 4 + 1
     launches a forward (and 5 relayouts packed), packed vs NHWC, the bf16
     program's img/s at canvas 256, batch 16 and 64, and ``batch_process``
-    on a small folder at c32; a c65, a c72 and a c128 checkpoint raise at
-    ``load_generator`` on the card, and the train CLI at ``--channels 72``
+    on a small folder at c32; a c67, a c129 and a c256 checkpoint raise at
+    ``load_generator`` on the card, and the train CLI at ``--channels 129``
     raises before its first step;
 17. width training (``phase_width_train_kernels`` and ``phase_fast_vjp``
     after step 5, the width training path after the training path): the
@@ -131,8 +131,8 @@ hand-written kernel on the way:
     ms/step, idle share) and two fp32 pretrain steps card vs CPU; a hooked
     c8 step; the train CLI at ``--channels 32`` and the pretrain CLI at
     ``--model enhanced --channels 8``; one ``fast_attention=False`` step
-    (``--no_fast_attention``) card vs CPU with no kernel launch; c4 and c12
-    refused;
+    (``--no_fast_attention``) card vs CPU with no kernel launch; c67, c129
+    and c256 refused;
 18. c64, the JAX pretrain CLI's default width (``phase_width_kernels`` and
     ``phase_width_train_kernels`` with ``C64_CHANNELS`` and ``phase_fast_vjp``
     at ``C64_FAST_VJP_SHAPES`` beside the other width phases, the c64
@@ -169,7 +169,7 @@ hand-written kernel on the way:
     server, ``direct_transform`` and ``train --channels 48``, c24 through
     ``pretrain --model enhanced``; c24, c40 and c56 small (the fp32
     program at 64^2 on both engines, one fp32 CycleGAN step and two fp32
-    pretrain steps at 128^2, card vs CPU); c65, c72 and c128 refused; the
+    pretrain steps at 128^2, card vs CPU); c67, c129 and c256 refused; the
     route's share of the c48 step;
 20. the widths that are not multiples of 8 (c4, c12, c20, c28, c36, c44,
     c52, c60: every generator width from 1 to 64 that is not a multiple of
@@ -190,10 +190,33 @@ hand-written kernel on the way:
     4`` and ``pretrain --model enhanced --channels 60``; c60's down2 under
     grad card vs CPU); c12, c20, c28 and c44 small (the fp32 program at
     64^2 on both engines, one fp32 CycleGAN step and two fp32 pretrain
-    steps at 64^2, card vs CPU).
+    steps at 64^2, card vs CPU);
+21. the widths past 64 (c65 .. c128, on their own rngs, the kernel phases
+    beside the others, the serving and training paths after the any-width
+    ones): every kernel against its plain version in fp32 and bf16 on the
+    stress inputs (``phase_any_kernels``: the attention, both layouts, at C
+    = 257, 272, 384, 500 and 512 in the C = 512 layout; the block, the pair
+    kernel in bf16 and the FMA bodies with a workspace in fp32, and row 12
+    at dims 260, 272, 288, 416, 464, 480 and 512 in 5 to 16 heads, a ragged
+    grid too; the bf16 block at dims 200, 220, 252, 416 and 480, whose
+    windows have an odd count of weight tiles, on 512 windows:
+    ``phase_block_many_windows``);
+    c128 (16 heads of 32) and c68 (8 heads of 34 in slots of 48) at full
+    width as c48 is (kernel phases at their canvas-256 shapes; served on
+    both engines with fp32 card vs CPU and bf16 img/s at batch 16 and 64,
+    c128 also through the batch CLI on both engines, the server and
+    ``direct_transform``; the bf16 CycleGAN step with its launches, every
+    LocalAttention call on the route, ms/step, idle share and peak memory,
+    the fp32 step card vs CPU, the enhanced pretrain step at batch 16 and
+    two fp32 pretrain steps at 128^2 card vs CPU; ``train --channels 68``,
+    ``train --channels 72 --no_fast_attention`` with no kernel launch and
+    ``pretrain --model enhanced --channels 128``; the route at C = 512 card
+    vs CPU and timed, at 272 timed); c72, c96 and c116 small (the fp32
+    program at 64^2 on both engines, one fp32 CycleGAN step and two fp32
+    pretrain steps at 64^2, card vs CPU).
 
 Every phase raises on failure. The last line is the result JSON; the line
-before it lists each kernel with its launches on the sixteen paths (launch
+before it lists each kernel with its launches on the eighteen paths (launch
 counts are reset just before each path and read just after), its largest
 fp32 deviation from the plain version, its time beside the plain
 version's (the serving and training rows also per generator width,
@@ -383,10 +406,37 @@ ANY_ODD_DIMS = (6, 244)
 ANY_ATTENTION_WIDTHS = tuple(sorted(
     {w for c in ANY_KERNEL_CHANNELS for w in (c, 2 * c, 4 * c)} | {5, 7}))
 ANY_KERNEL_GRID = (2, 32, 32)
-ENTRY_CHANNELS = (48, 60, 64)   # also through the batch CLI, server, direct_transform
-REFUSED_CHANNELS = (65, 72, 128)
+# the widths past 64 (c65 .. c128): the attention at 4C in the C = 512
+# layout (C = 257 .. 512), the block at dims 260 .. 512 in the pair kernel
+# (bf16: a cluster of two blocks a window) and the FMA bodies with a
+# workspace (fp32), row 12 at 8 .. 16 heads. c128 (16 heads of 32, the
+# attention at 128, 256, 512) and c68 (8 heads of 34 in slots of 48, the
+# attention at 68, 136, 272: the narrowest width past 256, with the most
+# padding) at full width; c72 (9 heads of 32), c96 (12 of 32) and c116 (8 of
+# 58 in slots of 64) at WIDE_SMALL_SIZE; every kernel against its plain
+# version at the attention widths WIDE_ATTENTION_WIDTHS and the block and
+# row 12 dims WIDE_BLOCK_DIMS on ANY_KERNEL_GRID
+WIDE_FULL_CHANNELS = (128, 68)
+WIDE_SMALL_CHANNELS = (72, 96, 116)
+WIDE_SMALL_SIZE = 64
+WIDE_ATTENTION_WIDTHS = (257, 272, 384, 500, 512)
+WIDE_BLOCK_DIMS = (260, 272, 288, 416, 464, 480, 512)
+# the bf16 block's weights pass through two shared-memory buffers, tile after
+# tile across the windows a block (or pair) takes in turn; at these dims a
+# window has an odd tile count and reads its last tile (fc2's output rows from
+# 192 or 384): held on a grid of more windows than the card holds blocks,
+# where the next window's first tile is copied while the last one is read
+MANY_WINDOW_BLOCK_DIMS = (200, 220, 252, 416, 480)
+MANY_WINDOW_GRID = (8, 64, 64)
+# the wide steps are long (c128's CycleGAN step is ~4x c64's): fewer timed
+# steps, and the fp32 CycleGAN step card vs CPU at WIDE_FP32_SIZE^2
+WIDE_TIMED_STEPS = 3
+WIDE_FP32_SIZE = 64
+ENTRY_CHANNELS = (48, 60, 64, 128)   # also through the batch CLI, server, direct_transform
+REFUSED_CHANNELS = (67, 129, 256)
 WIDTH_CPU_BATCH = {8: 2, 32: 2, 64: 1, 24: 2, 48: 1, 40: 2, 56: 2, 4: 2,
-                   60: 1, **{c: 2 for c in ANY_SMALL_CHANNELS}}
+                   60: 1, **{c: 2 for c in ANY_SMALL_CHANNELS},
+                   **{c: 1 for c in WIDE_FULL_CHANNELS + WIDE_SMALL_CHANNELS}}
 WIDTH_FOLDER_IMAGES = 6
 # the c8, c32 and c64 generators trained: launches per bf16 CycleGAN step (pair
 # batching, remat off; 4 generator forwards with grad, 2 under no_grad) and
@@ -415,6 +465,9 @@ for _c in GRID_CHANNELS:
 # does; c60 at C = 60, 120, 240, all through the route, as c24 .. c56 do
 WIDTH_TRAIN_LAUNCHES_PER_STEP[4] = TRAIN_LAUNCHES_PER_STEP
 WIDTH_TRAIN_LAUNCHES_PER_STEP[60] = WIDTH_TRAIN_LAUNCHES_PER_STEP[24]
+# c68 and c128 train every LocalAttention call through the route too
+for _c in WIDE_FULL_CHANNELS:
+    WIDTH_TRAIN_LAUNCHES_PER_STEP[_c] = WIDTH_TRAIN_LAUNCHES_PER_STEP[24]
 WIDTH_PRETRAIN_LAUNCHES_PER_STEP = {
     8: PRETRAIN_LAUNCHES_PER_STEP,
     32: {"window_attention_mid_fwd": 3, "window_attention_mid_bwd": 3,
@@ -430,6 +483,8 @@ for _c in GRID_CHANNELS:
         "window_channel_attention": 4, "fused_structural_block": 0}
 WIDTH_PRETRAIN_LAUNCHES_PER_STEP[4] = PRETRAIN_LAUNCHES_PER_STEP
 WIDTH_PRETRAIN_LAUNCHES_PER_STEP[60] = WIDTH_PRETRAIN_LAUNCHES_PER_STEP[24]
+for _c in WIDE_FULL_CHANNELS:
+    WIDTH_PRETRAIN_LAUNCHES_PER_STEP[_c] = WIDTH_PRETRAIN_LAUNCHES_PER_STEP[24]
 # c32's down2 under grad: the fast-VJP route at its 256^2, batch-8 shape;
 # c64's down2 (C = 256, checked card vs CPU and timed) and down1 and up1
 # (C = 128 on 128^2, timed); the fp32 backward of the channel-attention mid
@@ -444,6 +499,12 @@ GRID_FAST_VJP_SHAPES = {c: ((TRAIN_BATCH, 256, 256, c),
                         for c in GRID_FULL_CHANNELS}
 # c60's down2 under grad: the route at C = 240 (checked card vs CPU, timed)
 ANY_FAST_VJP_SHAPE = (TRAIN_BATCH, 64, 64, 240)
+# c128's down2 under grad, the route at C = 512: checked card vs CPU on a
+# small grid (the CPU half of the batch-8 shape would hold the run for
+# minutes), timed at the batch-8 shape; c68's at C = 272, timed
+WIDE_FAST_VJP_SHAPES = (((2, 32, 32, 512), True),
+                        ((TRAIN_BATCH, 64, 64, 512), False),
+                        ((TRAIN_BATCH, 64, 64, 272), False))
 SMALL_QK_DRAWS = 3
 WIDTH_TRAIN_SIZE = 256   # the bf16 steps' images
 
@@ -453,6 +514,14 @@ PROFILE_ATTEMPTS = 10    # torch.profiler sessions asked for one device time
 
 def log(*a):
     print(*a, flush=True)
+
+
+_STARTED = [time.perf_counter()]   # reset at the start of run()
+
+
+def clock(what):
+    """The run's clock at ``what``, a line of its own."""
+    log(f"[clock] {what}: {time.perf_counter() - _STARTED[0]:.1f} s")
 
 
 def card_line() -> str:
@@ -634,18 +703,41 @@ def compare(got, ref, dtype):
 # ---------------------------------------------------------------------------
 
 def phase_build():
-    """Every source at once, one nvcc each, then each entry point loads."""
+    """Every source at once, one nvcc each, in the background. Returns
+    ``ready(*sources)``, which waits for those sources (every one when none
+    is named), logs the seconds each took and loads its entry points: the
+    first phases run while the longest source still compiles. A failed
+    build raises there."""
+    from concurrent.futures import ThreadPoolExecutor
+
     from multi_style_transfer_gan_tpu_torch.ops.kernels import _build
 
     t0 = time.perf_counter()
-    seconds = _build.build_all()
-    for name, dt in seconds.items():
-        log(f"[build] {name}: {dt:.2f} s "
-            f"({os.path.relpath(_build.library_path(name), REPO)})")
-    for name in _build.SIGNATURES:
-        _build.kernel(name)
-    log(f"[build] {len(seconds)} sources in {time.perf_counter() - t0:.2f} s "
-        f"wall, {len(_build.SIGNATURES)} entry points loaded")
+    pool = ThreadPoolExecutor(max_workers=len(_build.SOURCES))
+
+    def timed(name):
+        _build.build(name)
+        return time.perf_counter() - t0
+
+    pending = {name: pool.submit(timed, name) for name in _build.SOURCES}
+    finished = []
+
+    def ready(*sources):
+        for name in sources or tuple(pending):
+            if name not in pending:
+                continue
+            log(f"[build] {name}: {pending.pop(name).result():.2f} s "
+                f"({os.path.relpath(_build.library_path(name), REPO)})")
+            for entry, (source, _, _) in _build.SIGNATURES.items():
+                if source == name:
+                    _build.kernel(entry)
+        if not pending and not finished:
+            pool.shutdown()
+            finished.append(True)
+            log(f"[build] {len(_build.SOURCES)} sources, "
+                f"{len(_build.SIGNATURES)} entry points loaded, "
+                f"{time.perf_counter() - t0:.2f} s after the builds started")
+    return ready
 
 
 def attention_shapes(canvas, channels=16):
@@ -1943,20 +2035,21 @@ def pretrain_steps(state, batches, masks, dtype):
     return step
 
 
-def time_pretrain(step, what, batch):
-    """3 warm-up and 10 timed steps on the host clock, then the profiled
-    device time of 5 steps: (ms/step, device ms/step, idle share)."""
+def time_pretrain(step, what, batch, steps=10):
+    """3 warm-up and ``steps`` timed steps on the host clock, then the
+    profiled device time of ``steps`` / 2 (at least 2): (ms/step, device
+    ms/step, idle share)."""
     import torch
 
     for _ in range(3):
         step()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    for _ in range(10):
+    for _ in range(steps):
         loss = step()
     torch.cuda.synchronize()
-    ms = (time.perf_counter() - t0) * 1000 / 10
-    dev_ms = device_ms(step, iters=5, warmup=0)
+    ms = (time.perf_counter() - t0) * 1000 / steps
+    dev_ms = device_ms(step, iters=max(2, steps // 2), warmup=0)
     idle = max(0.0, 1.0 - dev_ms / ms)
     log(f"[pretrain] {what}: {ms:.2f} ms/step, {batch * 1000 / ms:.1f} "
         f"images/s, device {dev_ms:.2f} ms/step (torch.profiler), device "
@@ -3048,17 +3141,17 @@ def phase_width_kernels(rng, dev, widths=WIDTH_CHANNELS):
     return out
 
 
-def program_card_vs_cpu(tag, gpu, cpu, batch, counts, dev):
+def program_card_vs_cpu(tag, gpu, cpu, batch, counts, dev, engines=None):
     """The fp32 uint8 program of the loaded generators ``gpu`` (on the card)
-    and ``cpu`` on ``batch`` with each engine: at most U8_MAX_DIFF levels
-    on U8_MAX_SHARE of the values, FORWARD_LAUNCHES per forward. Returns
-    {engine: the card's output}."""
+    and ``cpu`` on ``batch`` with each engine (of ``engines``, by default
+    ENGINES): at most U8_MAX_DIFF levels on U8_MAX_SHARE of the values,
+    FORWARD_LAUNCHES per forward. Returns {engine: the card's output}."""
     from multi_style_transfer_gan_tpu_torch.pipelines import make_batch_fn
 
     names = ("window_channel_attention", "fused_structural_block",
              "packed_window_channel_attention", "window_relayout")
     outs = {}
-    for engine in ENGINES:
+    for engine in engines or ENGINES:
         before = counts()
         got = outs[engine] = make_batch_fn(
             gpu, "cyclegan", engine=engine, device=dev)(batch).cpu().numpy()
@@ -3133,8 +3226,8 @@ def phase_width_serving(rng, dev, counts, work, widths=WIDTH_CHANNELS,
     JPEGs of mixed sizes, and at ``ENTRY_CHANNELS`` (c48, c60, c64) the batch
     CLI, the server and ``direct_transform`` too (``serve_entry_points``).
     Then, with ``refuse``, the widths the kernels are not built for
-    (``REFUSED_CHANNELS``: a c65, a c72 and a c128 checkpoint) raise at
-    ``load_generator`` on the card, and the train CLI at ``--channels 72``
+    (``REFUSED_CHANNELS``: a c67, a c129 and a c256 checkpoint) raise at
+    ``load_generator`` on the card, and the train CLI at ``--channels 129``
     raises before its first step.
     Returns {channels: {"parameters", "rates", "weights_gib", "launches"}}:
     weights_gib the device memory of each bf16 engine's weights, launches
@@ -3162,6 +3255,7 @@ def phase_width_serving(rng, dev, counts, work, widths=WIDTH_CHANNELS,
                                        (canvas, canvas)))
         outs = program_card_vs_cpu(f"[width serving] c{channels}", gpu, cpu,
                                    batch, counts, dev)
+        clock(f"[width serving] c{channels} card vs CPU")
         dmax, share = u8_diff(outs["packed"], outs["nhwc"])
         log(f"[width serving] c{channels} fp32 packed vs NHWC engine on the "
             f"card: max diff {dmax}, differing share {share:.3e}")
@@ -3183,8 +3277,9 @@ def phase_width_serving(rng, dev, counts, work, widths=WIDTH_CHANNELS,
             x = torch.from_numpy(np.stack(smooth_images(
                 rng, n, (canvas, canvas)))).to(dev)
             turns = {e: [] for e in ENGINES}
-            for e in ENGINES + ENGINES[::-1]:
-                turns[e].append(program_rate(bf16[e], x))
+            for e in ENGINES + ENGINES[::-1]:   # the widths past 64: fewer
+                turns[e].append(program_rate(bf16[e], x,
+                                             iters=5 if channels > 64 else 10))
             for e in ENGINES:
                 rates[(n, e)] = sum(turns[e]) / len(turns[e])
             log(f"[width serving] c{channels} bf16 program, batch {n} at "
@@ -3193,12 +3288,15 @@ def phase_width_serving(rng, dev, counts, work, widths=WIDTH_CHANNELS,
                 f"{rates[(n, 'packed')]:.1f} img/s; turns {turns['nhwc']}, "
                 f"{turns['packed']}")
 
+        clock(f"[width serving] c{channels} rates")
         if channels == max(widths):
             src, sizes = stylize_folder(rng, gpu, dev, work,
                                         f"widths_c{channels}",
                                         f"[width serving] c{channels}")
             if channels in ENTRY_CHANNELS:
-                serve_entry_points(rng, dev, path, src, sizes, work, channels)
+                serve_entry_points(
+                    rng, dev, path, src, sizes, work, channels,
+                    ENGINES if channels > 64 else ("auto",))
         end = counts()
         out[channels] = {"parameters": n_params, "rates": rates,
                          "weights_gib": held,
@@ -3223,23 +3321,25 @@ def phase_width_serving(rng, dev, counts, work, widths=WIDTH_CHANNELS,
     os.makedirs(os.path.join(data, "trainB"))
     before = counts()
     try:
-        train_cli.main(["--data_root", data, "--channels", "72",
+        train_cli.main(["--data_root", data, "--channels", "129",
                         "--save_dir", os.path.join(work, "widths_models")])
     except ValueError as e:
-        log(f"[width serving] train --channels 72 on the card: {e}")
+        log(f"[width serving] train --channels 129 on the card: {e}")
     else:
-        raise AssertionError("train --channels 72 did not raise")
+        raise AssertionError("train --channels 129 did not raise")
     if counts() != before:
-        raise AssertionError("train --channels 72 launched a kernel")
+        raise AssertionError("train --channels 129 launched a kernel")
     return out
 
 
-def serve_entry_points(rng, dev, path, src, sizes, work, channels):
+def serve_entry_points(rng, dev, path, src, sizes, work, channels,
+                       engines=("auto",)):
     """The generator at ``path`` through the user's serving entry points on
-    the card: the batch CLI (``--engine auto``, bf16, batch 4) on the folder
-    ``src`` (its images' ``sizes``), the HTTP server (NHWC engine) answering
-    four requests, and the ``direct_transform`` CLI on one photo (at its
-    default --size, 256); each writes images of the right size."""
+    the card: the batch CLI (``--engine`` each of ``engines``, bf16, batch
+    4) on the folder ``src`` (its images' ``sizes``), the HTTP server (NHWC
+    engine) answering four requests, and the ``direct_transform`` CLI on
+    one photo (at its default --size, 256); each writes images of the right
+    size."""
     import contextlib
 
     import torch
@@ -3255,25 +3355,26 @@ def serve_entry_points(rng, dev, path, src, sizes, work, channels):
     os.makedirs(models)
     torch.save({"G_AB_state_dict": sd, "G_BA_state_dict": sd},
                os.path.join(models, "cyclegan_epoch_200.pth"))
-    out = os.path.join(work, f"entry_out_c{channels}")
-    buf = io.StringIO()
-    with contextlib.redirect_stdout(buf):
-        rc = batch_process_images.main([
-            "--input_dir", src, "--output_dir", out, "--models_dir", models,
-            "--direction", "photo2monet", "--bf16", "--batch_size", "4",
-            "--engine", "auto"])
-    done = 0
-    for name, size in sizes.items():
-        target = os.path.join(out, "cyclegan_photo2monet", name)
-        if os.path.exists(target):
-            with Image.open(target) as img:
-                done += img.size == size
-    log(f"[entry points] c{channels} batch CLI: exit {rc}, {done}/{len(sizes)} "
-        f"outputs at their original sizes; "
-        + " | ".join(buf.getvalue().splitlines()))
-    if rc != 0 or done != len(sizes):
-        raise AssertionError(f"the batch CLI exited {rc} with {done}/"
-                             f"{len(sizes)} correct outputs")
+    for engine in engines:
+        out = os.path.join(work, f"entry_out_c{channels}_{engine}")
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            rc = batch_process_images.main([
+                "--input_dir", src, "--output_dir", out, "--models_dir",
+                models, "--direction", "photo2monet", "--bf16",
+                "--batch_size", "4", "--engine", engine])
+        done = 0
+        for name, size in sizes.items():
+            target = os.path.join(out, "cyclegan_photo2monet", name)
+            if os.path.exists(target):
+                with Image.open(target) as img:
+                    done += img.size == size
+        log(f"[entry points] c{channels} batch CLI --engine {engine}: exit "
+            f"{rc}, {done}/{len(sizes)} outputs at their original sizes; "
+            + " | ".join(buf.getvalue().splitlines()))
+        if rc != 0 or done != len(sizes):
+            raise AssertionError(f"the batch CLI exited {rc} with {done}/"
+                                 f"{len(sizes)} correct outputs")
     phase_server(rng, dev, "nhwc", model_path=path)
     photo = os.path.join(work, f"entry_photo_c{channels}.png")
     result = os.path.join(work, f"entry_direct_c{channels}.png")
@@ -3518,18 +3619,20 @@ def fp32_step_card_vs_cpu(dev, channels, what, host=None, size=128, **kw):
     return launched
 
 
-def train_width(rng, dev, counts, channels, gen, pretrain_batch=TRAIN_BATCH):
+def train_width(rng, dev, counts, channels, gen, pretrain_batch=TRAIN_BATCH,
+                steps=10, fp32_size=128):
     """The generator of width ``channels`` trained through the entry points:
     the bf16 CycleGAN step at 256^2, batch TRAIN_BATCH, pair batching, from
     a seeded fresh init (launches per step against
     WIDTH_TRAIN_LAUNCHES_PER_STEP, finite losses, G, D and u moved, ms/step
-    over 10 steps after 3 warm-up, the step's profiler device time over 5
-    more and the peak memory); at c8 and c64 one bf16 step with the VGG16
-    perceptual hook (launches equal to the hookless step's); one fp32 step
-    card vs CPU (128^2, batch 2); the enhanced bf16 pretrain step at 256^2,
-    batch ``pretrain_batch`` (launches per step against
-    WIDTH_PRETRAIN_LAUNCHES_PER_STEP, ms/step, device idle share) and two
-    fp32 pretrain steps card vs CPU (128^2, batch 2). Returns {"step_ms",
+    over ``steps`` steps after 3 warm-up, the step's profiler device time
+    over ``steps`` / 2 more and the peak memory); at c8 and c64 one bf16
+    step with the VGG16 perceptual hook (launches equal to the hookless
+    step's); one fp32 step card vs CPU (``fp32_size``^2, batch 2); the
+    enhanced bf16 pretrain step at 256^2, batch ``pretrain_batch``
+    (launches per step against WIDTH_PRETRAIN_LAUNCHES_PER_STEP, ms/step
+    over ``steps``, device idle share) and two fp32 pretrain steps card vs
+    CPU (128^2, batch 2). Returns {"step_ms",
     "step_device_ms", "step_idle", "step_peak_gib", "pretrain": (ms, device
     ms, idle), "launches"}."""
     import torch
@@ -3557,12 +3660,12 @@ def train_width(rng, dev, counts, channels, gen, pretrain_batch=TRAIN_BATCH):
         step()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    for _ in range(10):
+    for _ in range(steps):
         losses = step()
     torch.cuda.synchronize()
-    ms = (time.perf_counter() - t0) * 1000 / 10
+    ms = (time.perf_counter() - t0) * 1000 / steps
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
-    step_dev = device_ms(step, iters=5, warmup=0)
+    step_dev = device_ms(step, iters=max(2, steps // 2), warmup=0)
     idle = max(0.0, 1.0 - step_dev / ms)
     vals = {k: float(v) for k, v in losses.items()}
     log(f"{tag} bf16 {WIDTH_TRAIN_SIZE}^2 batch {TRAIN_BATCH}, pair "
@@ -3592,7 +3695,9 @@ def train_width(rng, dev, counts, channels, gen, pretrain_batch=TRAIN_BATCH):
             raise AssertionError(f"{tag}: non-finite hooked losses {vals}")
         del vgg, hooked
     del state, step
-    fp32_step_card_vs_cpu(dev, channels, f"{tag} train step")
+    clock(f"{tag} bf16 steps")
+    fp32_step_card_vs_cpu(dev, channels, f"{tag} train step", size=fp32_size)
+    clock(f"{tag} fp32 step card vs CPU")
 
     state = pretrain_init_state(SEED, channels, model="enhanced", device=dev)
     size = WIDTH_TRAIN_SIZE
@@ -3604,9 +3709,11 @@ def train_width(rng, dev, counts, channels, gen, pretrain_batch=TRAIN_BATCH):
     launches_of(pstep, counts, WIDTH_PRETRAIN_LAUNCHES_PER_STEP[channels],
                 f"{tag} enhanced pretrain bf16 step")
     pre = time_pretrain(pstep, f"c{channels} enhanced bf16 {size}^2 "
-                        f"batch {pretrain_batch}", pretrain_batch)
+                        f"batch {pretrain_batch}", pretrain_batch, steps)
     del state, pstep
+    clock(f"{tag} pretrain steps")
     fp32_pretrain_card_vs_cpu(rng, dev, channels, gen, tag)
+    clock(f"{tag} fp32 pretrain card vs CPU")
     end = counts()
     return {"step_ms": ms, "step_device_ms": step_dev, "step_idle": idle,
             "step_peak_gib": peak, "pretrain": pre,
@@ -3679,8 +3786,8 @@ def phase_width_train(rng, dev, counts, work):
     (``train_width`` for each); the train CLI at --channels 32 and the
     pretrain CLI at --model enhanced --channels 8, one epoch each on a small
     folder; one fp32 step with ``fast_attention=False`` (the CLI's
-    --no_fast_attention) card vs CPU at c8 with no kernel launch; c4, c12
-    and c72 refused before any work. Returns {channels: train_width's
+    --no_fast_attention) card vs CPU at c8 with no kernel launch; the
+    widths of REFUSED_CHANNELS refused before any work. Returns {channels: train_width's
     record}."""
     import torch
 
@@ -3875,7 +3982,50 @@ def phase_grid_train(rng, dev, counts, work):
     return out
 
 
-def phase_any_kernels(rng, dev):
+def phase_block_many_windows(rng, dev):
+    """The bf16 block kernel against its plain version at
+    ``MANY_WINDOW_BLOCK_DIMS`` on ``MANY_WINDOW_GRID`` (512 windows: every
+    block or pair takes several in turn) on ``block_stress_inputs``.
+    Returns {dim: bf16 max|d|}."""
+    import torch
+
+    from multi_style_transfer_gan_tpu_torch.ops import kernels as K
+    from multi_style_transfer_gan_tpu_torch.ops.kernels.fused_transformer import (
+        default_num_heads,
+    )
+
+    out = {}
+    for dim in MANY_WINDOW_BLOCK_DIMS:
+        heads = default_num_heads(dim)
+        worst = 0.0
+        for label, host, weights in block_stress_inputs(
+                rng, MANY_WINDOW_GRID + (dim,)):
+            t = lambda a, dt=torch.bfloat16: torch.from_numpy(
+                np.asarray(a, np.float32)).to(dev, dt)
+            args = (t(host[0]), t(host[1]), t(host[2], torch.float32),
+                    t(host[3], torch.float32))
+            kw = {n: t(a) for n, a in weights.items()}
+            n0 = K.fused_structural_block.launches
+            got = K.fused_structural_block(*args, **kw)
+            ref = K.structural_block_plain(*args, **kw)
+            torch.cuda.synchronize()
+            err, ok = compare(got, ref, torch.bfloat16)
+            if not (ok and K.fused_structural_block.launches == n0 + 1
+                    and bool(torch.isfinite(got).all())):
+                raise AssertionError(
+                    f"[many windows] fused_structural_block dim {dim} "
+                    f"{label} bf16: max|d| {err:.3e} outside tolerance, not "
+                    f"finite or not launched")
+            worst = max(worst, err)
+        out[dim] = worst
+        log(f"[many windows] fused_structural_block "
+            f"{MANY_WINDOW_GRID + (dim,)} ({heads} heads of {dim // heads}): "
+            f"bf16 max|d| {worst:.3e} (stress inputs)")
+    return out
+
+
+def phase_any_kernels(rng, dev, attention_widths=ANY_ATTENTION_WIDTHS,
+                      block_dims=None, mid_widths=(1, 2, 4), tag="[any widths]"):
     """The kernel variants of the widths that are not multiples of 8, each
     against its plain version in fp32 (TF32 off) and bf16, one launch a
     call: row 1 (NHWC and packed) at every C of ``ANY_ATTENTION_WIDTHS`` on
@@ -3901,7 +4051,9 @@ def phase_any_kernels(rng, dev):
                            "packed_window_channel_attention",
                            "fused_structural_block", "window_mhsa_train",
                            "window_attention_train")}
-    for C in ANY_ATTENTION_WIDTHS:
+    if block_dims is None:
+        block_dims = [4 * c for c in ANY_KERNEL_CHANNELS] + list(ANY_ODD_DIMS)
+    for C in attention_widths:
         shape = ANY_KERNEL_GRID + (C,)
         for name, fn, plain, packed in (
                 ("window_channel_attention", K.window_channel_attention,
@@ -3925,16 +4077,16 @@ def phase_any_kernels(rng, dev):
                           and bool(torch.isfinite(got).all()))
                     if not ok:
                         raise AssertionError(
-                            f"[any widths] {name} C = {C} {label} {dtype}: "
+                            f"{tag} {name} C = {C} {label} {dtype}: "
                             f"max|d| {err:.3e} outside tolerance, not finite "
                             f"or not launched")
                     worst[dtype] = max(worst[dtype], err)
             out[name][C] = tuple(worst[dt] for dt in dtypes)
-            log(f"[any widths] {name} {shape}: fp32 max|d| "
+            log(f"{tag} {name} {shape}: fp32 max|d| "
                 f"{worst[torch.float32]:.3e}, bf16 max|d| "
                 f"{worst[torch.bfloat16]:.3e} (stress inputs)")
 
-    for dim in [4 * c for c in ANY_KERNEL_CHANNELS] + list(ANY_ODD_DIMS):
+    for dim in block_dims:
         heads = default_num_heads(dim)
         worst = {dt: 0.0 for dt in dtypes}
         for grid in (ANY_KERNEL_GRID + (dim,), (1, 12, 20, dim)):
@@ -3956,12 +4108,12 @@ def phase_any_kernels(rng, dev):
                           and bool(torch.isfinite(got).all()))
                     if not ok:
                         raise AssertionError(
-                            f"[any widths] fused_structural_block {grid} "
+                            f"{tag} fused_structural_block {grid} "
                             f"{label} {dtype}: max|d| {err:.3e} outside "
                             f"tolerance, not finite or not launched")
                     worst[dtype] = max(worst[dtype], err)
         out["fused_structural_block"][dim] = tuple(worst[dt] for dt in dtypes)
-        log(f"[any widths] fused_structural_block dim {dim} ({heads} heads of "
+        log(f"{tag} fused_structural_block dim {dim} ({heads} heads of "
             f"{dim // heads}): fp32 max|d| {worst[torch.float32]:.3e}, bf16 "
             f"max|d| {worst[torch.bfloat16]:.3e} (stress inputs, a ragged "
             f"grid too)")
@@ -3971,36 +4123,40 @@ def phase_any_kernels(rng, dev):
         for label, host, g in train_kernel_inputs(rng, "mhsa", shape):
             for dtype in dtypes:
                 err, derr, _ = check_train_kernel(
-                    "[any widths]", "mhsa", "block", shape, heads, label, host,
+                    tag, "mhsa", "block", shape, heads, label, host,
                     g, dtype, dev, timed=False)
                 worst[dtype] = max(worst[dtype], err, derr)
         out["window_mhsa_train"][dim] = tuple(worst[dt] for dt in dtypes)
 
-    for C in (1, 2, 4):
+    for C in mid_widths:
         shape = ANY_KERNEL_GRID + (3 * C,)
         worst = {dt: 0.0 for dt in dtypes}
         for label, host, g in train_kernel_inputs(rng, "attention", shape):
             for dtype in dtypes:
                 err, derr, _ = check_train_kernel(
-                    "[any widths]", "attention", "mid", shape, None, label,
+                    tag, "attention", "mid", shape, None, label,
                     host, g, dtype, dev, timed=False)
                 worst[dtype] = max(worst[dtype], err, derr)
         out["window_attention_train"][C] = tuple(worst[dt] for dt in dtypes)
     return out
 
 
-def phase_any_small_serving(rng, dev, counts, work):
-    """The widths of ``ANY_SMALL_CHANNELS`` (c12, c20, c28, c36, c44, c52)
-    served at ANY_SMALL_SIZE^2 through ``load_generator`` on the card
-    and on the CPU at precision 'highest': the fp32 uint8 program card vs
-    CPU on both engines (``WIDTH_CPU_BATCH`` images; 4 attention calls and 1
-    block a forward, 5 relayouts on the packed engine). Returns {channels:
-    {"parameters", "launches"}}."""
+def phase_any_small_serving(rng, dev, counts, work, widths=ANY_SMALL_CHANNELS,
+                            size=ANY_SMALL_SIZE, tag="[any serving]",
+                            engines=None):
+    """The widths of ``widths`` (c12, c20, c28, c44; the widths past 64 pass
+    c72, c96, c116 and the NHWC engine alone, whose packed engine's fp32
+    weights, 3.1-7.6 GiB on the CPU, would cost the run more than the packed
+    kernels' check at c68 and c128 adds) served at ``size``^2 through
+    ``load_generator`` on the card and on the CPU at precision 'highest':
+    the fp32 uint8 program card vs CPU on both engines or ``engines``
+    (``WIDTH_CPU_BATCH`` images; 4 attention calls and 1 block a forward, 5
+    relayouts on the packed engine). Returns {channels: {"parameters",
+    "launches"}}."""
     from multi_style_transfer_gan_tpu_torch.pipelines import load_generator
 
-    size = ANY_SMALL_SIZE
     out = {}
-    for channels in ANY_SMALL_CHANNELS:
+    for channels in widths:
         start = counts()
         path = os.path.join(work, f"enhanced_c{channels}.pth")
         n_params = width_checkpoint(path, channels)
@@ -4008,8 +4164,9 @@ def phase_any_small_serving(rng, dev, counts, work):
         cpu = load_generator(path, precision="highest", device="cpu")
         batch = np.stack(smooth_images(rng, WIDTH_CPU_BATCH[channels],
                                        (size, size)))
-        program_card_vs_cpu(f"[any serving] c{channels}", gpu, cpu, batch,
-                            counts, dev)
+        program_card_vs_cpu(f"{tag} c{channels}", gpu, cpu, batch, counts,
+                            dev, engines)
+        clock(f"{tag} c{channels}")
         end = counts()
         out[channels] = {"parameters": n_params,
                          "launches": {n: end[n] - start[n] for n in end}}
@@ -4073,6 +4230,80 @@ def phase_any_train(rng, dev, counts, work):
     return out
 
 
+def phase_wide_train(rng, dev, counts, work):
+    """The widths past 64 trained through the entry points: c128 and c68
+    (``WIDE_FULL_CHANNELS``) at full width (``train_width`` over
+    WIDE_TIMED_STEPS timed steps: the bf16 CycleGAN step with its launches
+    per step, every LocalAttention call through the route (C = 68 .. 512)
+    and row 12 at 16 and 8 heads, the fp32 step card vs CPU at
+    WIDE_FP32_SIZE^2, the enhanced pretrain step at PRETRAIN_BATCH, the
+    pretrain CLI's batch, and two fp32 pretrain steps at 128^2 card vs CPU);
+    then ``train --channels 68`` for one epoch on a small folder, whose G_AB
+    stylizes through ``batch_process``, ``train --channels 72
+    --no_fast_attention`` for one epoch with no kernel launch, and
+    ``pretrain --model enhanced --channels 128`` for one epoch; the widths of
+    ``WIDE_SMALL_CHANNELS`` small: one fp32 CycleGAN step and two fp32
+    enhanced pretrain steps at WIDE_SMALL_SIZE^2, batch 2, card vs CPU.
+    Returns {channels: record}: train_width's for c128 and c68,
+    {"launches"} for the rest."""
+    import torch
+
+    from multi_style_transfer_gan_tpu_torch.cli import pretrain as pretrain_cli
+    from multi_style_transfer_gan_tpu_torch.cli import train as train_cli
+    from multi_style_transfer_gan_tpu_torch.pipelines import load_generator
+
+    gen = torch.Generator().manual_seed(SEED + 128)
+    out = {c: train_width(rng, dev, counts, c, gen,
+                          pretrain_batch=PRETRAIN_BATCH,
+                          steps=WIDE_TIMED_STEPS, fp32_size=WIDE_FP32_SIZE)
+           for c in WIDE_FULL_CHANNELS}
+
+    data = os.path.join(work, "wide_train_data")
+    train_folder(rng, data)
+    models = os.path.join(work, "wide_models")
+    one_epoch = ["--num_epochs", "1", "--batch_size", "4",
+                 "--checkpoint_every", "1", "--log_every", "1"]
+    low, high = min(WIDE_FULL_CHANNELS), max(WIDE_FULL_CHANNELS)
+    run_cli(train_cli.main, ["--data_root", data, "--save_dir", models,
+                             "--channels", str(low)] + one_epoch,
+            f"train --channels {low}")
+    model = load_generator(os.path.join(models, "G_AB_epoch_1.pth"),
+                           device=dev)
+    if model.channels != low:
+        raise AssertionError(f"the train CLI wrote a c{model.channels} G_AB")
+    stylize_folder(rng, model, dev, work, "wide",
+                   f"[wide train] the trained c{low} G_AB:")
+    plain_models = os.path.join(work, "wide_plain_models")
+    before = counts()
+    run_cli(train_cli.main, ["--data_root", data, "--save_dir", plain_models,
+                             "--channels", str(WIDE_SMALL_CHANNELS[0]),
+                             "--image_size", str(WIDE_SMALL_SIZE),
+                             "--no_fast_attention"] + one_epoch,
+            f"train --channels {WIDE_SMALL_CHANNELS[0]} --no_fast_attention")
+    if counts() != before:
+        raise AssertionError(f"--no_fast_attention launched kernels: "
+                             f"{before} -> {counts()}")
+    run_cli(pretrain_cli.main, ["--data_root", data, "--save_dir", models,
+                                "--model", "enhanced", "--channels", str(high)]
+            + one_epoch, f"pretrain --model enhanced --channels {high}")
+    pre = load_generator(os.path.join(models, "generator_pretrain_epoch_1.pth"),
+                         device="cpu")
+    if (pre.kind, pre.channels) != ("enhanced", high):
+        raise AssertionError(f"the pretrain CLI wrote {pre.kind} "
+                             f"c{pre.channels}")
+
+    for channels in WIDE_SMALL_CHANNELS:
+        start = counts()
+        tag = f"[wide train] c{channels}"
+        fp32_step_card_vs_cpu(dev, channels, f"{tag} train step",
+                              size=WIDE_SMALL_SIZE)
+        fp32_pretrain_card_vs_cpu(rng, dev, channels, gen, tag,
+                                  size=WIDE_SMALL_SIZE)
+        end = counts()
+        out[channels] = {"launches": {n: end[n] - start[n] for n in end}}
+    return out
+
+
 def main() -> int:
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as work:
         return run(work)
@@ -4087,10 +4318,8 @@ def run(work) -> int:
         print("error: no CUDA device; chip_smoke.py runs on the GPU",
               file=sys.stderr)
         return 1
-    t_start = time.perf_counter()
-
-    def mark(what):   # the run's clock at each phase boundary
-        log(f"[clock] {what}: {time.perf_counter() - t_start:.1f} s")
+    t_start = _STARTED[0] = time.perf_counter()
+    mark = clock   # the run's clock at each phase boundary
 
     card = card_line()
     log(card)  # name, power limit as nvidia-smi prints them
@@ -4104,10 +4333,14 @@ def run(work) -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
-    phase_build()
+    ready = phase_build()
+    ready("window_channel_attention", "window_relayout")
     attn_err, attn_times = phase_attention(rng, dev)
     packed_err, packed_times = phase_packed_attention(rng, dev)
     relayout_err, relayout_ms = phase_relayout(rng, dev)
+    mark("row 1, 5-7 and 9 phases")
+    ready()
+    mark("every source built")
     block_err, block_times = phase_block(rng, dev)
     photo_err = phase_photo_kernels(rng, dev)
     attn_err = max(attn_err, photo_err["attention"])
@@ -4126,6 +4359,14 @@ def run(work) -> int:
     any_rng = np.random.default_rng(SEED + 4)
     any_kernels = phase_any_kernels(any_rng, dev)
     width_kernels.update(phase_width_kernels(any_rng, dev, ANY_FULL_CHANNELS))
+    mark("serving kernels up to c64")
+    # and so do the widths past 64
+    wide_rng = np.random.default_rng(SEED + 128)
+    wide_kernels = phase_any_kernels(wide_rng, dev, WIDE_ATTENTION_WIDTHS,
+                                     WIDE_BLOCK_DIMS, (), "[wide widths]")
+    many_windows = phase_block_many_windows(
+        np.random.default_rng(SEED + 416), dev)
+    width_kernels.update(phase_width_kernels(wide_rng, dev, WIDE_FULL_CHANNELS))
     mark("serving kernels")
     train_err, train_times = phase_train_kernels(rng, dev)
     # the c8 and c32 training phases draw from their own generator too
@@ -4150,6 +4391,12 @@ def run(work) -> int:
         phase_width_train_kernels(any_train_rng, dev, ANY_FULL_CHANNELS))
     # c60's down2 under grad, the route at C = 240
     any_fast_vjp = phase_fast_vjp(any_train_rng, dev, ANY_FAST_VJP_SHAPE)
+    mark("training kernels up to c64")
+    wide_train_rng = np.random.default_rng(SEED + 129)
+    width_train_kernels.update(
+        phase_width_train_kernels(wide_train_rng, dev, WIDE_FULL_CHANNELS))
+    wide_fast_vjp = [phase_fast_vjp(wide_train_rng, dev, shape, check=check)
+                     for shape, check in WIDE_FAST_VJP_SHAPES]
     mark("training kernels")
     stages_err, stage_times = phase_stages(rng, dev)
     ablation_err = phase_ablation_inputs(dev)
@@ -4199,6 +4446,7 @@ def run(work) -> int:
                              f"expected every serving kernel, 4 attention "
                              f"calls per block call")
 
+    mark("before the c64 serving path")
     K.reset_launch_counts()   # the c64 serving path starts here
     width_serving.update(phase_width_serving(c64_rng, dev, counts, work,
                                              C64_CHANNELS, refuse=False))
@@ -4212,6 +4460,7 @@ def run(work) -> int:
                              f"expected every serving kernel, 4 attention "
                              f"calls per block call")
 
+    mark("before the grid serving path")
     K.reset_launch_counts()   # the grid serving path starts here
     width_serving.update(phase_width_serving(grid_rng, dev, counts, work,
                                              GRID_FULL_CHANNELS, refuse=False))
@@ -4226,6 +4475,7 @@ def run(work) -> int:
                              f"expected every serving kernel, 4 attention "
                              f"calls per block call")
 
+    mark("before the any-width serving path")
     K.reset_launch_counts()   # the any-width serving path starts here
     width_serving.update(phase_width_serving(any_rng, dev, counts, work,
                                              ANY_FULL_CHANNELS, refuse=False))
@@ -4239,6 +4489,23 @@ def run(work) -> int:
         raise AssertionError(f"any-width serving path launches "
                              f"{any_serving}: expected every serving kernel, "
                              f"4 attention calls per block call")
+
+    mark("serving paths up to c64")
+    K.reset_launch_counts()   # the wide serving path starts here
+    width_serving.update(phase_width_serving(wide_rng, dev, counts, work,
+                                             WIDE_FULL_CHANNELS, refuse=False))
+    width_serving.update(phase_any_small_serving(
+        wide_rng, dev, counts, work, WIDE_SMALL_CHANNELS, WIDE_SMALL_SIZE,
+        "[wide serving]", ("nhwc",)))
+    wide_serving = counts()   # ...and ends here
+    log(f"[wide serving path] launches: {wide_serving}")
+    attention_calls = (wide_serving["window_channel_attention"]
+                       + wide_serving["packed_window_channel_attention"])
+    if (min(wide_serving[n] for n in serving_kernels) == 0
+            or attention_calls != 4 * wide_serving["fused_structural_block"]):
+        raise AssertionError(f"wide serving path launches {wide_serving}: "
+                             f"expected every serving kernel, 4 attention "
+                             f"calls per block call")
     mark("serving paths")
 
     K.reset_launch_counts()   # the single-image path starts here
@@ -4268,6 +4535,7 @@ def run(work) -> int:
                              f"{width_training}: a kernel of the path never "
                              f"launched")
 
+    mark("before the c64 training path")
     K.reset_launch_counts()   # the c64 training path starts here
     width_train[C64_CHANNELS[0]] = phase_c64_train(c64_train_rng, dev, counts,
                                                    work)
@@ -4277,6 +4545,7 @@ def run(work) -> int:
         raise AssertionError(f"c64 training path launches {c64_training}: a "
                              f"kernel of the path never launched")
 
+    mark("before the grid training path")
     K.reset_launch_counts()   # the grid training path starts here
     width_train.update(phase_grid_train(grid_train_rng, dev, counts, work))
     grid_training = counts()  # ...and ends here
@@ -4288,6 +4557,7 @@ def run(work) -> int:
                              f"a kernel of the path never launched, or row "
                              f"11 took a width of the route")
 
+    mark("before the any-width training path")
     K.reset_launch_counts()   # the any-width training path starts here
     width_train.update(phase_any_train(any_train_rng, dev, counts, work))
     any_training = counts()   # ...and ends here
@@ -4296,6 +4566,18 @@ def run(work) -> int:
         raise AssertionError(f"any-width training path launches "
                              f"{any_training}: a kernel of the path never "
                              f"launched")
+
+    mark("training paths up to c64")
+    K.reset_launch_counts()   # the wide training path starts here
+    width_train.update(phase_wide_train(wide_train_rng, dev, counts, work))
+    wide_training = counts()  # ...and ends here
+    log(f"[wide training path] launches: {wide_training}")
+    wide_step = WIDTH_TRAIN_LAUNCHES_PER_STEP[WIDE_FULL_CHANNELS[0]]
+    if (min(wide_training[n] for n, k in wide_step.items() if k) == 0
+            or wide_training["window_attention_mid_fwd"]):
+        raise AssertionError(f"wide training path launches {wide_training}: "
+                             f"a kernel of the path never launched, or row "
+                             f"11 took a width of the route")
     mark("training paths")
 
     K.reset_launch_counts()   # the pretraining path starts here
@@ -4350,10 +4632,10 @@ def run(work) -> int:
         raise AssertionError(f"ablation path launches {ablation}: the stage "
                              f"kernel never launched")
     launches = {n: serving[n] + widths[n] + c64_serving[n] + grid_serving[n]
-                + any_serving[n] + single[n] + training[n]
+                + any_serving[n] + wide_serving[n] + single[n] + training[n]
                 + width_training[n] + c64_training[n] + grid_training[n]
-                + any_training[n] + pretraining[n] + evaluation[n] + gui[n]
-                + perceptual[n] + ablation[n]
+                + any_training[n] + wide_training[n] + pretraining[n]
+                + evaluation[n] + gui[n] + perceptual[n] + ablation[n]
                 for n in counted}
     mark("all paths")
 
@@ -4433,7 +4715,8 @@ def run(work) -> int:
          "plain_ms": relayout_ms[1], "device_ms": relayout_ms[3],
          "library_device_ms": relayout_ms[4]},
         {"name": "fused_structural_block", "route": "cuda",
-         "source": f"{pkg}/fused_structural_block.cu",
+         "source": f"{pkg}/fused_structural_block.cu; "
+                   f"{pkg}/fused_structural_block_pair.cu",
          "replaces": f"{tpu}/fused_transformer.py:169",
          "launches": launches["fused_structural_block"],
          "max_abs_err": block_err, "ms": blk_ms, "plain_ms": blk_plain,
@@ -4472,12 +4755,12 @@ def run(work) -> int:
     # (phase_width_train_kernels per generator forward and backward at
     # 256^2, launches of the width or c64 training path)
     width_paths = {n: widths[n] + c64_serving[n] + grid_serving[n]
-                   + any_serving[n] for n in counted}
+                   + any_serving[n] + wide_serving[n] for n in counted}
     width_train_paths = {n: width_training[n] + c64_training[n]
                          + grid_training[n] + any_training[n]
-                         for n in counted}
+                         + wide_training[n] for n in counted}
     all_widths = (WIDTH_CHANNELS + C64_CHANNELS + GRID_CHANNELS
-                  + ANY_FULL_CHANNELS)
+                  + ANY_FULL_CHANNELS + WIDE_FULL_CHANNELS)
     any_rows = {"window_channel_attention": "window_channel_attention",
                 "packed_window_channel_attention":
                     "packed_window_channel_attention",
@@ -4528,8 +4811,18 @@ def run(work) -> int:
             entry["any_widths"] = {
                 str(w): {"max_abs_err": e32, "max_abs_err_bf16": e16}
                 for w, (e32, e16) in any_kernels[any_rows[name]].items()}
+            # and those of the widths past 64 (C = 257 .. 512, dims 260 ..
+            # 512), with the launches of c72, c96 and c116 at
+            # WIDE_SMALL_SIZE
+            entry["wide_widths"] = {
+                str(w): {"max_abs_err": e32, "max_abs_err_bf16": e16}
+                for w, (e32, e16) in wide_kernels[any_rows[name]].items()}
+            if name == "fused_structural_block":
+                # bf16 on a grid of more windows than resident blocks
+                entry["many_windows_bf16"] = {
+                    str(d): e for d, e in many_windows.items()}
             ran = train_rows.get(name, (name,))
-            for c in ANY_SMALL_CHANNELS:
+            for c in ANY_SMALL_CHANNELS + WIDE_SMALL_CHANNELS:
                 entry["widths"][f"c{c}"] = {
                     "launches": sum(width_serving[c]["launches"][n]
                                     for n in ran),
@@ -4544,6 +4837,9 @@ def run(work) -> int:
             entry["fast_vjp_grid"] = {f"c{c}": recs
                                       for c, recs in grid_fast_vjp.items()}
             entry["fast_vjp_c60"] = any_fast_vjp
+            # c128's down2 (C = 512; checked on a small grid) and c68's
+            # (C = 272)
+            entry["fast_vjp_wide"] = wide_fast_vjp
         if sdpa_mid is not None:
             entry["sdpa_mid_ms"] = sdpa_mid
         dev_ms = entry.get("device_ms")
@@ -4593,7 +4889,7 @@ def run(work) -> int:
         f"{EVAL_IMAGES} images a direction, fp32: {fid_text}; whole run "
         f"{time.perf_counter() - t_start:.1f} s")
     for c in (WIDTH_CHANNELS + C64_CHANNELS + GRID_FULL_CHANNELS
-              + ANY_FULL_CHANNELS):
+              + ANY_FULL_CHANNELS + WIDE_FULL_CHANNELS):
         log(f"[summary] {card}; c{c} generator "
             f"({width_serving[c]['parameters']} parameters; bf16 weights "
             f"NHWC {width_serving[c]['weights_gib']['nhwc']:.3f} GiB, packed "
@@ -4608,7 +4904,7 @@ def run(work) -> int:
                         f"{r['bound_ms']:.6f} ms by {r['bound_by']})"
                         for n, r in width_kernels[c].items()))
     for c in (WIDTH_CHANNELS + C64_CHANNELS + GRID_FULL_CHANNELS
-              + ANY_FULL_CHANNELS):
+              + ANY_FULL_CHANNELS + WIDE_FULL_CHANNELS):
         t = width_train[c]
         rows = width_train_kernels[c]
         log(f"[summary] {card}; c{c} training: bf16 CycleGAN step 256^2 batch "
@@ -4617,7 +4913,7 @@ def run(work) -> int:
             f"{t['step_device_ms']:.2f} ms device, idle {t['step_idle']:.1%}, "
             f"peak memory {t['step_peak_gib']:.2f} GiB); enhanced "
             f"pretrain step bf16 256^2 batch "
-            f"{PRETRAIN_BATCH if c in C64_CHANNELS else TRAIN_BATCH} "
+            f"{PRETRAIN_BATCH if c in C64_CHANNELS + WIDE_FULL_CHANNELS else TRAIN_BATCH} "
             f"{t['pretrain'][0]:.2f} ms/step ({t['pretrain'][1]:.2f} ms device, "
             f"idle {t['pretrain'][2]:.1%}); training kernels fwd + bwd per "
             f"generator at batch {TRAIN_BATCH}, bf16: "

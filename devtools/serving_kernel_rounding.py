@@ -47,12 +47,23 @@ pair (the slots' pad rows and columns add exact zeros: emulated at the
 real head width and its scale); the dims up to 32 run in FMA bodies that
 round nothing inside.
 
+    PYTHONPATH=. python3 devtools/serving_kernel_rounding.py --wide
+
+runs the widths past 64 (``chip_smoke.WIDE_FULL_CHANNELS`` and
+``WIDE_SMALL_CHANNELS``: c128, c68, c72, c96, c116), the kernel plan only,
+at the shapes that run in the new layouts: the attention at each width's
+canvas-256 down2 (C = 4c = 272 .. 512 in the C = 512 layout, whose plan is
+the C = 256 kernel's: every operand a pair) and the block at its dim 4c on
+the canvas-256 grid and a ragged one (the pair kernel, every operand a
+pair, the heads at their real width and scale).
+
     PYTHONPATH=. python3 devtools/serving_kernel_rounding.py --fp32
 
-asks the fp32 question of the block instead (``fp32_block_question``, ~1
-minute): at dim 128 and 256 on the stress inputs, how far an fp32
+asks the fp32 question of the block instead (``fp32_block_question``, ~4
+minutes): at dims 128, 256 and 512 on the stress inputs, how far an fp32
 evaluation lies from a float64 one with the qkv product, the scores and
-the softmax in fp32 or in float64.
+the softmax in fp32 or in float64, and with LN1 and the FiLM in float64
+too.
 """
 
 from __future__ import annotations
@@ -254,19 +265,21 @@ def block_ratios(shapes=((smoke.BATCH, 64, 64, 64), (2, 12, 20, 64)),
     return out
 
 
-def block_exactness(x, struct, gamma, beta, dtype, scores, *, norm1_w,
-                    norm1_b, qkv_w, qkv_b, proj_w, proj_b, norm2_w, norm2_b,
-                    fc1_w, fc1_b, fc2_w, fc2_b, eps=1e-5):
+def block_exactness(x, struct, gamma, beta, dtype, scores, ln1=None, *,
+                    norm1_w, norm1_b, qkv_w, qkv_b, proj_w, proj_b, norm2_w,
+                    norm2_b, fc1_w, fc1_b, fc2_w, fc2_b, eps=1e-5):
     """The block body on an 8x8-multiple grid carried in ``dtype``, with
-    the qkv product, the scores and the softmax in ``scores`` (the fp32
-    question: where fp32 loses what float64 keeps); returns float64."""
+    the qkv product, the scores and the softmax in ``scores`` and LN1 with
+    the FiLM in ``ln1`` (``dtype`` by default; the fp32 question: where
+    fp32 loses what float64 keeps); returns float64."""
     B, H, W, C = x.shape
     heads = default_num_heads(C)
     hd = C // heads
     f = lambda a, dt=dtype: a.to(dt)
     xf = f(x)
-    h = F.layer_norm(xf + f(struct), (C,), f(norm1_w), f(norm1_b), eps)
-    h = h * (1.0 + f(gamma)[:, None, None, :]) + f(beta)[:, None, None, :]
+    g = lambda a: a.to(ln1 or dtype)
+    h = F.layer_norm(g(xf + f(struct)), (C,), g(norm1_w), g(norm1_b), eps)
+    h = h * (1.0 + g(gamma)[:, None, None, :]) + g(beta)[:, None, None, :]
     qkv = F.linear(f(h, scores), f(qkv_w, scores), f(qkv_b, scores))
     t = _windows(qkv).reshape(-1, WINDOW * WINDOW, 3, heads, hd)
     q, k, v = t.permute(2, 0, 3, 1, 4)
@@ -282,21 +295,26 @@ def block_exactness(x, struct, gamma, beta, dtype, scores, *, norm1_w,
 def fp32_block_question() -> int:
     """How far an fp32 evaluation of the block lies from a float64 one on
     ``chip_smoke.block_stress_inputs``, with the qkv product, scores and
-    softmax in fp32 and in float64 (as the plain version and the fp32
-    dim-256 kernel carry them), against the fp32 tolerance
-    ``BLOCK_FP32_TOL``."""
+    softmax in fp32 and in float64 (as the fp32 dim-256 kernel carries
+    them), and with LN1 and the FiLM in float64 too (as the plain version
+    and the fp32 kernel past dim 256 carry them), against the fp32
+    tolerance ``BLOCK_FP32_TOL``; at dims 128, 256 and 512 (batch 2 at
+    dim 512)."""
     rng = np.random.default_rng(smoke.SEED)
     f32, f64 = torch.float32, torch.float64
-    for shape in ((smoke.BATCH, 64, 64, 128), (smoke.BATCH, 64, 64, 256)):
+    for shape in ((smoke.BATCH, 64, 64, 128), (smoke.BATCH, 64, 64, 256),
+                  (2, 64, 64, 512)):
         for label, host, weights in smoke.block_stress_inputs(rng, shape):
             t = lambda a: torch.from_numpy(np.asarray(a, np.float64))
             args = [t(a) for a in host]
             kw = {n: t(a) for n, a in weights.items()}
             exact = block_exactness(*args, f64, f64, **kw)
-            for scores in (f32, f64):
-                d = (block_exactness(*args, f32, scores, **kw) - exact).abs()
+            for scores, ln1 in ((f32, None), (f64, None), (f64, f64)):
+                d = (block_exactness(*args, f32, scores, ln1, **kw)
+                     - exact).abs()
                 print(f"block fp32 {shape} {label}, qkv and scores in "
-                      f"{str(scores)[6:]}: max|d| from float64 "
+                      f"{str(scores)[6:]}, LN1 in {str(ln1 or f32)[6:]}: "
+                      f"max|d| from float64 "
                       f"{d.max().item():.3e} (x{d.max().item() / smoke.BLOCK_FP32_TOL:.2f}"
                       f" of the fp32 tolerance)", flush=True)
     return 0
@@ -327,6 +345,14 @@ def main(argv=None) -> int:
         plans = ["kernel"]
     if "--any" in args:   # dims up to 32 run in the FMA bodies: no pairs
         block = [b for b in block if b[-1] > 32]
+    if "--wide" in args:
+        widths = smoke.WIDE_FULL_CHANNELS + smoke.WIDE_SMALL_CHANNELS
+        attention = [dict(smoke.attention_shapes(canvas, c))["down2"]
+                     for c in widths]
+        block = [s for c in widths
+                 for s in ((smoke.BATCH, canvas // 4, canvas // 4, 4 * c),
+                           (2, 12, 20, 4 * c))]
+        plans = ["kernel"]
 
     for kernel, ratios in (("attention", attention_ratios(attention, plans)),
                            ("block", block_ratios(block, plans))):

@@ -31,7 +31,10 @@ def main(argv=None):
                         "generator checkpoint")
     p.add_argument("--num_epochs", type=int, default=200)
     p.add_argument("--batch_size", type=int, default=8)
-    p.add_argument("--channels", type=int, default=16)
+    p.add_argument("--channels", type=int, default=16,
+                   help="generator width; the card trains every width from 1 to 128 but 67, 71, "
+                        "73, 79, 83, 89, 97, 101, 103, 107, 109, 113 and 127, whose heads would be wider than 64 channels (the generator itself needs "
+                        "a multiple of 4)")
     p.add_argument("--num_transformer_blocks", type=int, default=1)
     p.add_argument("--seed", type=int, default=42)
     p.add_argument("--checkpoint_every", type=int, default=20)

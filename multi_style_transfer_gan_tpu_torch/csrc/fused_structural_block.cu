@@ -14,8 +14,12 @@
 // zero-pad-and-mask formulation (models/structural_transformer.py:113-150)
 // computes. So every grid shape runs here; none is sent elsewhere.
 //
-// Widths: any C from 1 to 256 with default_num_heads(C) heads of at most
-// 64 channels (the blocks of every generator width up to 64). Below, the
+// Widths: any C from 1 to 256, and any C % 4 == 0 from 260 to 512, with
+// default_num_heads(C) heads of at most 64 channels (the blocks of every
+// generator width up to 128 but c67, c71, .., c127, whose heads would be
+// wider; from 260 on the pair kernel in bf16, a source of its own,
+// fused_structural_block_pair.cu, and the FMA bodies with a workspace in
+// fp32 below). Below, the
 // designs of C % 32 == 0 with C / 32 heads of 32 (c8 .. c64 at multiples
 // of 8: dims 32, 64, .., 256); after them the head-slot kernel (bf16, the
 // other generator dims from 48 on) and the FMA bodies (fp32 at every
@@ -83,24 +87,13 @@
 #include <cmath>
 #include <type_traits>
 
-#include "common.cuh"
-#include "mma.cuh"
-#include "window_mhsa_mma.cuh"
+#include "fused_structural_block.cuh"
 
 namespace mstgan {
 namespace {
 
-constexpr int kWin = 8;
-constexpr int kTok = kWin * kWin;
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
-
-// models/structural_transformer.py::default_num_heads
-constexpr int default_num_heads(int dim) {
-  int h = dim / 32 > 1 ? dim / 32 : 1;
-  while (dim % h) --h;
-  return h;
-}
 
 template <int C>
 struct Layout {
@@ -467,11 +460,6 @@ fused_structural_block_f32_wide_kernel(const T* __restrict__ x, const T* __restr
 // ---------------------------------------------------------------------------
 // bf16: warp MMA
 // ---------------------------------------------------------------------------
-
-using bf16 = __nv_bfloat16;
-constexpr int kGroups = 2;                // windows in flight per block (C <= 64)
-constexpr int kGroupThreads = 128;        // 4 warps x 16 token rows
-constexpr int kMmaThreads = kGroups * kGroupThreads;
 
 // C = 32 and 64: every weight resident (bf16 as stored, (out, in) rows
 // padded by 16 bytes), two windows in flight.
@@ -1151,35 +1139,6 @@ struct WidestLayout {
   static constexpr int BYTES = ELEMS * (int)sizeof(bf16) + PARAMS * (int)sizeof(float);
 };
 
-// acc (16 rows x 32 outputs, 4 n-tiles) += a w^T: a 16 rows of KS k-steps
-// at ah (and lo at al when kSplit), row stride lda; w 32 rows [n][k] of
-// stride ldw.
-template <int KS, bool kSplit>
-__device__ __forceinline__ void rows_times_w(float (&acc)[4][4], const bf16* ah, const bf16* al,
-                                             int lda, const bf16* w, int ldw, int lane) {
-#pragma unroll 4
-  for (int kk = 0; kk < KS; ++kk) {
-    const int aoff = (lane & 15) * lda + kk * 16 + (lane >> 4) * 8;
-    uint32_t a[4], b[2][4];
-    ldmatrix_x4(a, ah + aoff);
-#pragma unroll
-    for (int nb = 0; nb < 2; ++nb) {
-      ldmatrix_x4(b[nb], w + (nb * 16 + (lane & 7) + (lane >> 4) * 8) * ldw + kk * 16 +
-                             ((lane >> 3) & 1) * 8);
-      mma_bf16(acc[2 * nb], a, b[nb][0], b[nb][1]);
-      mma_bf16(acc[2 * nb + 1], a, b[nb][2], b[nb][3]);
-    }
-    if constexpr (kSplit) {
-      ldmatrix_x4(a, al + aoff);
-#pragma unroll
-      for (int nb = 0; nb < 2; ++nb) {
-        mma_bf16(acc[2 * nb], a, b[nb][0], b[nb][1]);
-        mma_bf16(acc[2 * nb + 1], a, b[nb][2], b[nb][3]);
-      }
-    }
-  }
-}
-
 // acc (4 n-tiles) = the 32 biases at `bias` (fp32), columns of the lane.
 __device__ __forceinline__ void bias_frags(float (&acc)[4][4], const float* bias, int lane) {
 #pragma unroll
@@ -1221,12 +1180,12 @@ fused_structural_block_widest_kernel(const bf16* __restrict__ x, const bf16* __r
   constexpr int pairs = (C / mhsa::kHd + 1) / 2;   // head pairs, the last one half zeros when odd
   constexpr int tiles_heads = pairs * 5, tiles = tiles_heads + 4 * C / HC * 6;
 
-  // tile t into buffer t & 1, 16 bytes a copy by the whole block: per pair
+  // tile t into buffer `buf`, 16 bytes a copy by the whole block: per pair
   // of heads q, k, v (64 rows of Wqkv) and the two proj tiles (128 rows of
   // Wproj x the pair's 64 columns); per hidden chunk two fc1 tiles (64 rows)
   // and four fc2 tiles (64 rows x the chunk's 128 columns). Rows and columns
   // past the real ones are zero-filled.
-  auto load_tile = [&](int t) {
+  auto load_tile = [&](int t, int buf) {
     const bf16* src;
     int rows, chunks, ld, lds, rows_real, cols_real;
     if (t < tiles_heads) {
@@ -1252,7 +1211,7 @@ fused_structural_block_widest_kernel(const bf16* __restrict__ x, const bf16* __r
         rows_real = C - (part - 2) * 64, cols_real = HC;
       }
     }
-    bf16* dst = sW + (t & 1) * L::TILE;
+    bf16* dst = sW + buf * L::TILE;
     for (int e = tid; e < rows * chunks; e += kMmaThreads) {
       const int r = e / chunks, c = e % chunks;
       const bool real = C == DP || (r < rows_real && c * 8 < cols_real);
@@ -1264,8 +1223,11 @@ fused_structural_block_widest_kernel(const bf16* __restrict__ x, const bf16* __r
 
   const int nwx = (W + kWin - 1) / kWin, nwy = (H + kWin - 1) / kWin;
   const long long n_windows = (long long)B * nwy * nwx;
-  if ((long long)blockIdx.x < n_windows) load_tile(0);
+  if ((long long)blockIdx.x < n_windows) load_tile(0, 0);
   cp_async_commit();
+  // the tiles taken so far, over all windows: the next is in buffer seq & 1
+  // (a window's tile count may be odd, so not the buffer of its index)
+  int seq = 0;
 #pragma unroll 1
   for (long long win = blockIdx.x; win < n_windows; win += gridDim.x) {
     const int b = (int)(win / (nwy * nwx)), rem = (int)(win - (long long)b * nwy * nwx);
@@ -1281,10 +1243,11 @@ fused_structural_block_widest_kernel(const bf16* __restrict__ x, const bf16* __r
     auto next_tile = [&]() {
       cp_async_wait<0>();
       __syncthreads();   // tile t is in; every warp is done with tile t - 1
-      if (t + 1 < tiles) load_tile(t + 1);
-      else if (more) load_tile(0);
+      if (t + 1 < tiles) load_tile(t + 1, (seq + 1) & 1);
+      else if (more) load_tile(0, (seq + 1) & 1);
       cp_async_commit();
-      return static_cast<const bf16*>(sW + (t++ & 1) * L::TILE);
+      ++t;
+      return static_cast<const bf16*>(sW + (seq++ & 1) * L::TILE);
     };
 
     __syncthreads();   // the previous window is done with LN2's output
@@ -1607,33 +1570,6 @@ __device__ __forceinline__ void rows_times_w16(float (&acc)[2][4], const bf16* a
   }
 }
 
-// acc (16 x 16: columns c0.. of y) += x (16 x 64, C fragments) y, y a
-// [token][d] tile of stride ldy through ldmatrix.trans; x as A fragments,
-// hi + lo when kSplit.
-template <bool kSplit>
-__device__ __forceinline__ void probs_times_cols(float (&acc)[2][4], const float (&x)[8][4],
-                                                 const bf16* y, int ldy, int c0, int lane) {
-#pragma unroll
-  for (int kk = 0; kk < 4; ++kk) {
-    uint32_t hi[4], lo[4];
-#pragma unroll
-    for (int r = 0; r < 4; ++r) {
-      const float a0 = x[2 * kk + r / 2][(r % 2) * 2], a1 = x[2 * kk + r / 2][(r % 2) * 2 + 1];
-      if (kSplit) pack_bf16_split(a0, a1, hi[r], lo[r]);
-      else hi[r] = pack_bf16(a0, a1);
-    }
-    uint32_t b[4];
-    ldmatrix_x4_trans(b, y + (kk * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * ldy + c0 +
-                             (lane >> 4) * 8);
-    mma_bf16(acc[0], hi, b[0], b[1]);
-    mma_bf16(acc[1], hi, b[2], b[3]);
-    if (kSplit) {
-      mma_bf16(acc[0], lo, b[0], b[1]);
-      mma_bf16(acc[1], lo, b[2], b[3]);
-    }
-  }
-}
-
 template <int S>
 __global__ void __launch_bounds__(kMmaThreads, 1)
 fused_structural_block_slot_kernel(const bf16* __restrict__ x, const bf16* __restrict__ st,
@@ -1667,13 +1603,13 @@ fused_structural_block_slot_kernel(const bf16* __restrict__ x, const bf16* __res
   const int tiles_heads = 5 * heads, tiles = tiles_heads + 6 * chunks;
   auto tile_of = [&](int i) { return sQH + i * L::HEAD; };
 
-  // tile t into buffer t & 1, 8 bytes a copy by the whole block, zeros past
+  // tile t into buffer `buf`, 8 bytes a copy by the whole block, zeros past
   // the real rows and columns: per head q, k, v (S slot rows of Wqkv, the C
   // inputs) and two proj tiles (128 output rows x the head's S slot
   // columns); per hidden chunk two fc1 tiles (64 rows) and four fc2 tiles
   // (64 output rows x the chunk's 128 columns)
-  auto load_tile = [&](int t) {
-    bf16* dst = sW + (t & 1) * L::TILE;
+  auto load_tile = [&](int t, int buf) {
+    bf16* dst = sW + buf * L::TILE;
     if (t < tiles_heads) {
       const int h = t / 5, part = t % 5;
       if (part < 3) {
@@ -1733,8 +1669,11 @@ fused_structural_block_slot_kernel(const bf16* __restrict__ x, const bf16* __res
 
   const int nwx = (W + kWin - 1) / kWin, nwy = (H + kWin - 1) / kWin;
   const long long n_windows = (long long)B * nwy * nwx;
-  if ((long long)blockIdx.x < n_windows) load_tile(0);
+  if ((long long)blockIdx.x < n_windows) load_tile(0, 0);
   cp_async_commit();
+  // the tiles taken so far, over all windows: the next is in buffer seq & 1
+  // (a window's tile count may be odd, so not the buffer of its index)
+  int seq = 0;
 #pragma unroll 1
   for (long long win = blockIdx.x; win < n_windows; win += gridDim.x) {
     const int b = (int)(win / (nwy * nwx)), rem = (int)(win - (long long)b * nwy * nwx);
@@ -1749,10 +1688,11 @@ fused_structural_block_slot_kernel(const bf16* __restrict__ x, const bf16* __res
     auto next_tile = [&]() {
       cp_async_wait<0>();
       __syncthreads();   // tile t is in; every warp is done with tile t - 1
-      if (t + 1 < tiles) load_tile(t + 1);
-      else if (more) load_tile(0);
+      if (t + 1 < tiles) load_tile(t + 1, (seq + 1) & 1);
+      else if (more) load_tile(0, (seq + 1) & 1);
       cp_async_commit();
-      return static_cast<const bf16*>(sW + (t++ & 1) * L::TILE);
+      ++t;
+      return static_cast<const bf16*>(sW + (seq++ & 1) * L::TILE);
     };
 
     __syncthreads();   // the previous window is done with LN2's output
@@ -2100,11 +2040,13 @@ struct AnyAcc<float> { using type = double; };
 constexpr int kAnyQRows = 16;   // query rows a score tile holds
 constexpr int kAnyHC = 64;      // hidden columns a chunk
 
-// The dynamic shared memory of the kernel at dim C, hd channels a head.
+// The dynamic shared memory of the kernel at dim C, hd channels a head
+// (kWs: without the residual stream and the LN output, which are in the
+// workspace).
 template <typename T>
-int any_smem_bytes(int C, int hd) {
+int any_smem_bytes(int C, int hd, bool ws) {
   using Acc = typename AnyAcc<T>::type;
-  const int xs = 2 * kTok * (C + 1) * (int)sizeof(float);
+  const int xs = ws ? 0 : 2 * kTok * (C + 1) * (int)sizeof(float);
   const int head = kTok * (2 * hd + 1) * (int)sizeof(Acc) +
                    kAnyQRows * (kTok + 1) * (int)sizeof(Acc) + kTok * (hd + 1) * (int)sizeof(float);
   const int chunk = kTok * (kAnyHC + 1) * (int)sizeof(float);
@@ -2115,9 +2057,10 @@ int any_smem_bytes(int C, int hd) {
 // handed to epi(t, o, value): a 16 x 16 grid of threads over 64 tokens and
 // 64 outputs at a time (4 x 4 sums a thread, in Acc), K inputs, row(o) the
 // K weights of output o; `vec` when K, every row's start and A's rows allow
-// 4-wide weight loads.
-template <typename Acc, typename Row, typename Bias, typename Epi>
-__device__ __forceinline__ void linear_any(const float* A, int lda, int K, int N, bool vec,
+// 4-wide weight loads. A holds fp32 or (past dim 256, fp32 storage) float64
+// rows, converted to Acc.
+template <typename Acc, typename AT, typename Row, typename Bias, typename Epi>
+__device__ __forceinline__ void linear_any(const AT* A, int lda, int K, int N, bool vec,
                                            Row row, Bias bias, Epi epi) {
   const int tg = threadIdx.x % 16, og = threadIdx.x / 16;
 #pragma unroll 1
@@ -2129,7 +2072,7 @@ __device__ __forceinline__ void linear_any(const float* A, int lda, int K, int N
     if (vec) {
 #pragma unroll 1
       for (int i = 0; i < K; i += 4) {
-        float a[4][4];
+        AT a[4][4];
 #pragma unroll
         for (int j = 0; j < 4; ++j)
 #pragma unroll
@@ -2150,7 +2093,7 @@ __device__ __forceinline__ void linear_any(const float* A, int lda, int K, int N
     } else {
 #pragma unroll 1
       for (int i = 0; i < K; ++i) {
-        float a[4];
+        AT a[4];
 #pragma unroll
         for (int j = 0; j < 4; ++j) a[j] = A[(tg + 16 * j) * lda + i];
 #pragma unroll
@@ -2174,33 +2117,60 @@ __device__ __forceinline__ void linear_any(const float* A, int lda, int K, int N
 }
 
 // LayerNorm over the C channels of each token row (one warp per row), and
-// the FiLM (1 + gamma), beta when gamma is given; rows of stride ld.
-template <typename T>
-__device__ __forceinline__ void layer_norm_any(const float* in, float* out, int C, int ld,
+// the FiLM (1 + gamma), beta when gamma is given; rows of stride ld. Out is
+// float, or double (past dim 256 in fp32: mean, variance, LN and FiLM in
+// float64).
+template <typename T, typename In, typename Out>
+__device__ __forceinline__ void layer_norm_any(const In* in, Out* out, int C, int ld,
                                                const T* __restrict__ w, const T* __restrict__ b,
                                                float eps, const float* gamma,
                                                const float* beta) {
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  for (int t = warp; t < kTok; t += kWarps) {
-    const float* r = in + t * ld;
-    float s = 0.f;
-    for (int c = lane; c < C; c += 32) s += r[c];
-    const float mean = warp_sum(s) / C;
-    float v = 0.f;
-    for (int c = lane; c < C; c += 32) {
-      const float d = r[c] - mean;
-      v = fmaf(d, d, v);
+  if constexpr (std::is_same_v<Out, double>) {
+    auto sum = [](double v) {
+#pragma unroll
+      for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+      return v;
+    };
+    for (int t = warp; t < kTok; t += kWarps) {
+      const In* r = in + t * ld;
+      double s = 0.0;
+      for (int c = lane; c < C; c += 32) s += r[c];
+      const double mean = sum(s) / C;
+      double v = 0.0;
+      for (int c = lane; c < C; c += 32) {
+        const double d = r[c] - mean;
+        v = fma(d, d, v);
+      }
+      const double rstd = 1.0 / sqrt(sum(v) / C + eps);
+      for (int c = lane; c < C; c += 32) {
+        double o = (r[c] - mean) * rstd * to_f(w[c]) + to_f(b[c]);
+        if (gamma != nullptr) o = o * (1.0 + gamma[c]) + beta[c];
+        out[t * ld + c] = o;
+      }
     }
-    const float rstd = 1.f / sqrtf(warp_sum(v) / C + eps);
-    for (int c = lane; c < C; c += 32) {
-      float o = (r[c] - mean) * rstd * to_f(w[c]) + to_f(b[c]);
-      if (gamma != nullptr) o = o * (1.f + gamma[c]) + beta[c];
-      out[t * ld + c] = o;
+  } else {
+    for (int t = warp; t < kTok; t += kWarps) {
+      const float* r = in + t * ld;
+      float s = 0.f;
+      for (int c = lane; c < C; c += 32) s += r[c];
+      const float mean = warp_sum(s) / C;
+      float v = 0.f;
+      for (int c = lane; c < C; c += 32) {
+        const float d = r[c] - mean;
+        v = fmaf(d, d, v);
+      }
+      const float rstd = 1.f / sqrtf(warp_sum(v) / C + eps);
+      for (int c = lane; c < C; c += 32) {
+        float o = (r[c] - mean) * rstd * to_f(w[c]) + to_f(b[c]);
+        if (gamma != nullptr) o = o * (1.f + gamma[c]) + beta[c];
+        out[t * ld + c] = o;
+      }
     }
   }
 }
 
-template <typename T>
+template <typename T, bool kWs>
 __global__ void __launch_bounds__(kThreads)
 fused_structural_block_any_kernel(const T* __restrict__ x, const T* __restrict__ st,
                                   const float* __restrict__ gamma,
@@ -2211,16 +2181,28 @@ fused_structural_block_any_kernel(const T* __restrict__ x, const T* __restrict__
                                   const T* __restrict__ n2b, const T* __restrict__ f1w,
                                   const T* __restrict__ f1b, const T* __restrict__ f2w,
                                   const T* __restrict__ f2b, T* __restrict__ y, int H, int W,
-                                  int C, int heads, float eps) {
+                                  int C, int heads, float eps, float* __restrict__ ws) {
   using Acc = typename AnyAcc<T>::type;
   const int hd = C / heads;
   const int XS = C + 1, KS = 2 * hd + 1, SS = kTok + 1, VS = hd + 1, AS = kAnyHC + 1;
   // a row's attention output over its q: rows of KS Acc values
   const int OS = KS * (int)(sizeof(Acc) / sizeof(float));
   extern __shared__ __align__(16) float smem_any[];
-  float* sX = smem_any;                     // [64][XS] residual stream
-  float* sH = sX + kTok * XS;               // [64][XS] LN1 out, then LN2 out
-  float* sU = sH + kTok * XS;
+  // [64][XS] residual stream and [64][XS] LN1's (then LN2's) output, in
+  // shared memory, or (kWs) in the block's share of the workspace with the
+  // LN output in float64, as the plain version carries it past dim 256: on
+  // a block whose scores are 16 times larger (chip_smoke.py's saturated
+  // input) an fp32 LN1 output leaves the block at dim 512 1.6e-4 from a
+  // float64 evaluation, a float64 one 6.8e-5, and two fp32 evaluations
+  // (this kernel's and the plain version's) were 2.3e-4 apart, past the
+  // fp32 tolerance (devtools/serving_kernel_rounding.py --fp32)
+  using HT = std::conditional_t<kWs, double, float>;
+  float* sX = smem_any;
+  if constexpr (kWs)
+    sX = ws + ((long long)(blockIdx.z * gridDim.y + blockIdx.y) * gridDim.x + blockIdx.x) * 3 *
+                  kTok * XS;
+  HT* sH = reinterpret_cast<HT*>(sX + kTok * XS);
+  float* sU = kWs ? smem_any : sX + 2 * kTok * XS;
   sU += (reinterpret_cast<uintptr_t>(sU) / sizeof(float)) % 2;   // 8-byte aligned
   Acc* sQK = reinterpret_cast<Acc*>(sU);    // [64][KS] q | k, then o (float, stride OS)
   Acc* sS = sQK + kTok * KS;                // [16][SS] a tile of scores
@@ -2341,22 +2323,54 @@ fused_structural_block_any_kernel(const T* __restrict__ x, const T* __restrict__
 
 template <typename T>
 int launch_any(const void* x, const void* st, const void* gamma, const void* beta,
-               const void* const* w, void* y, int B, int H, int W, int C, float eps,
-               cudaStream_t stream) {
+               const void* const* w, void* y, int B, int H, int W, int C, float eps, void* ws,
+               int ws_windows, cudaStream_t stream) {
   const int heads = default_num_heads(C);
   if (C / heads > 64) return (int)cudaErrorInvalidValue;
-  const int smem = any_smem_bytes<T>(C, C / heads);
-  auto kernel = fused_structural_block_any_kernel<T>;
-  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return (int)err;
-  const dim3 grid((W + kWin - 1) / kWin, (H + kWin - 1) / kWin, B);
-  if (grid.z > 65535) return (int)cudaErrorInvalidConfiguration;
   auto p = [&](int i) { return static_cast<const T*>(w[i]); };
-  kernel<<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(x), static_cast<const T*>(st), static_cast<const float*>(gamma),
-      static_cast<const float*>(beta), p(0), p(1), p(2), p(3), p(4), p(5), p(6), p(7), p(8),
-      p(9), p(10), p(11), static_cast<T*>(y), H, W, C, heads, eps);
-  return (int)cudaGetLastError();
+  const int nwx = (W + kWin - 1) / kWin, nwy = (H + kWin - 1) / kWin;
+  if (C <= kFrameDim) {
+    const int smem = any_smem_bytes<T>(C, C / heads, false);
+    auto kernel = fused_structural_block_any_kernel<T, false>;
+    cudaError_t err =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return (int)err;
+    const dim3 grid(nwx, nwy, B);
+    if (grid.z > 65535) return (int)cudaErrorInvalidConfiguration;
+    kernel<<<grid, kThreads, smem, stream>>>(
+        static_cast<const T*>(x), static_cast<const T*>(st), static_cast<const float*>(gamma),
+        static_cast<const float*>(beta), p(0), p(1), p(2), p(3), p(4), p(5), p(6), p(7), p(8),
+        p(9), p(10), p(11), static_cast<T*>(y), H, W, C, heads, eps, nullptr);
+    return (int)cudaGetLastError();
+  }
+  // C = 257 .. 512 (fp32; bf16 runs in the pair kernel): the residual
+  // stream and the LN output of a window (64 x (C + 1) fp32 and float64
+  // rows, 394 KB at C = 512) outgrow shared memory and live in the caller's
+  // workspace, ws_windows windows of it; the images pass in slices of as
+  // many windows, one launch each
+  if constexpr (!std::is_same_v<T, float>) {
+    return (int)cudaErrorInvalidValue;
+  } else {
+    const int smem = any_smem_bytes<T>(C, C / heads, true);
+    auto kernel = fused_structural_block_any_kernel<T, true>;
+    cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return (int)err;
+    const int per_image = nwx * nwy, nb = ws == nullptr ? 0 : ws_windows / per_image;
+    if (nb < 1) return (int)cudaErrorInvalidValue;
+    for (int b0 = 0; b0 < B; b0 += nb) {
+      const int n = B - b0 < nb ? B - b0 : nb;
+      const long long pix = (long long)b0 * H * W * C;
+      kernel<<<dim3(nwx, nwy, n), kThreads, smem, stream>>>(
+          static_cast<const T*>(x) + pix, static_cast<const T*>(st) + pix,
+          static_cast<const float*>(gamma) + (long long)b0 * C,
+          static_cast<const float*>(beta) + (long long)b0 * C, p(0), p(1), p(2), p(3), p(4), p(5),
+          p(6), p(7), p(8), p(9), p(10), p(11), static_cast<T*>(y) + pix, H, W, C, heads, eps,
+          static_cast<float*>(ws));
+      err = cudaGetLastError();
+      if (err != cudaSuccess) return (int)err;
+    }
+    return 0;
+  }
 }
 
 // ---------------------------------------------------------------------------
@@ -2432,14 +2446,21 @@ int launch_width(const void* x, const void* st, const void* gamma, const void* b
 // Plain C entry point (loaded with ctypes). x, struct and y are (B, H, W, C)
 // contiguous; gamma and beta (B, C) fp32; `weights` points to 12 pointers in
 // the order norm1 w/b, qkv w/b, proj w/b, norm2 w/b, fc1 w/b, fc2 w/b, of
-// the same type as x (dtype 0 = fp32, 1 = bf16). Any C from 1 to 256 with
-// default_num_heads(C) heads (the blocks of the c1 .. c64 generators): C %
-// 32 == 0 in the designs of heads of 32, any other C in the FMA bodies.
-// Launches on `stream` and returns cudaGetLastError() (0 on success).
+// the same type as x (dtype 0 = fp32, 1 = bf16). Any C from 1 to 256, and
+// any C % 4 == 0 from 260 to 512, with default_num_heads(C) heads of at most
+// 64 channels (the blocks of the c1 .. c128 generators): C % 32 == 0 up to
+// 256 in the designs of heads of 32, any other C up to 256 in the slot
+// kernel or the FMA bodies, C > 256 in fp32 in the FMA bodies (in bf16 the
+// pair kernel's own entry point, fused_structural_block_pair.cu takes
+// them) with the residual stream in `ws`, an fp32 workspace of ws_windows
+// windows of 3 x 64 x (C + 1) floats (fp32: the residual stream, then the
+// LN output in float64; unused otherwise). Launches on
+// `stream` and returns cudaGetLastError() (0 on success).
 extern "C" int fused_structural_block_launch(const void* x, const void* st, const void* gamma,
                                              const void* beta, const void* const* weights,
                                              void* y, int B, int H, int W, int C, int dtype,
-                                             float eps, int device, void* stream) {
+                                             float eps, void* ws, int ws_windows, int device,
+                                             void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -2452,16 +2473,18 @@ extern "C" int fused_structural_block_launch(const void* x, const void* st, cons
     case 192: return mstgan::launch_width<192>(x, st, gamma, beta, weights, y, B, H, W, dtype, eps, s);
     case 224: return mstgan::launch_width<224>(x, st, gamma, beta, weights, y, B, H, W, dtype, eps, s);
     case 256: return mstgan::launch_width<256>(x, st, gamma, beta, weights, y, B, H, W, dtype, eps, s);
-    default:   // every other dim 4 .. 252 (heads of 4 .. 62): the FMA bodies
-      if (C < 1 || C > 256) return (int)cudaErrorInvalidValue;
+    default: {   // every other dim 4 .. 252 (heads of 4 .. 62), and 260 .. 512
+      if (C < 1 || C > 512 || (C > 256 && C % 4)) return (int)cudaErrorInvalidValue;
+      const int heads = mstgan::default_num_heads(C);
       if (dtype == mstgan::kF32)
-        return mstgan::launch_any<float>(x, st, gamma, beta, weights, y, B, H, W, C, eps, s);
-      if (dtype == mstgan::kBF16 && mstgan::slot_takes(C, mstgan::default_num_heads(C)))
-        return mstgan::launch_slot(x, st, gamma, beta, weights, y, B, H, W, C,
-                                   mstgan::default_num_heads(C), eps, s);
-      if (dtype == mstgan::kBF16)
+        return mstgan::launch_any<float>(x, st, gamma, beta, weights, y, B, H, W, C, eps, ws,
+                                         ws_windows, s);
+      if (dtype == mstgan::kBF16 && mstgan::slot_takes(C, heads))
+        return mstgan::launch_slot(x, st, gamma, beta, weights, y, B, H, W, C, heads, eps, s);
+      if (dtype == mstgan::kBF16 && C <= mstgan::kFrameDim)
         return mstgan::launch_any<__nv_bfloat16>(x, st, gamma, beta, weights, y, B, H, W, C,
-                                                 eps, s);
+                                                 eps, nullptr, 0, s);
       return (int)cudaErrorInvalidValue;
+    }
   }
 }

@@ -20,13 +20,13 @@
 //
 // The kernel body (the op, what bounds it, the design) is in
 // window_channel_attention.cuh; this source instantiates its kFull stage
-// only, in every layout (CP = 8 .. 256), so that it takes any C from 1 to
-// 256: the LocalAttention widths of every generator width from 1 to 64.
+// only, in every layout (CP = 8 .. 512), so that it takes any C from 1 to
+// 512: the LocalAttention widths of every generator width from 1 to 128.
 #include "window_channel_attention.cuh"
 
 // Plain C entry points (loaded with ctypes). Weights: wqkv (3C, C), bqkv
 // (3C), wproj (C, C), bproj (C), in the input's type: dtype 0 = fp32,
-// 1 = bf16; 1 <= C <= 256. Each launches on `stream` and returns
+// 1 = bf16; 1 <= C <= 512. Each launches on `stream` and returns
 // cudaGetLastError() (0 on success).
 //
 // x and y (B, H, W, C) contiguous, H % 4 == W % 4 == 0.

@@ -50,10 +50,11 @@
 // C = 64 on a 128^2 grid reaches 1.13 of the bound with one term each, the
 // 128-key softmax at C = 128 0.97; with the pairs both stay at 0.68).
 //
-// Widths. C is a runtime argument: any C from 1 to 256 (the LocalAttention
-// widths C, 2C and 4C of every generator width from 1 to 64). Each C runs
+// Widths. C is a runtime argument: any C from 1 to 512 (the LocalAttention
+// widths C, 2C and 4C of every generator width from 1 to 128). Each C runs
 // inside a built layout of CP >= C channels (a template parameter): bf16 CP
-// = 16 (C <= 16), 32, 64, 128 and 256; fp32 the next power of two from 8.
+// = 16 (C <= 16), 32, 64, 128, 256 and 512; fp32 the next power of two from
+// 8.
 // x and y are read and written at their real row stride C and the channels
 // C..CP are zeros in shared memory or registers: zeros in the pad columns of
 // x, the weights and the biases, so q, k, v and y are zero there; the pad
@@ -63,9 +64,10 @@
 // are skipped. C = 1-15 run in the C = 16 layout (m16n8k16 takes 16-deep
 // k-steps), 17-31 in C = 32's, 33-63 in 64's, 65-127 in the 128 layout with
 // 3 warps a block (the 139 KB of resident weights leave room for no more),
-// and 129-256 in the C = 256 kernel (window_channel_attention_wide_kernel,
-// below), whose weights (541 KB) stream through shared memory. Padding to
-// the next layout costs up to (256 / 129)^2 = 3.9x the Gram work at C = 129.
+// 129-256 in the C = 256 kernel (window_channel_attention_wide_kernel,
+// below), whose weights (541 KB) stream through shared memory, and 257-512
+// in the same kernel's C = 512 layout (one window a block). Padding to the
+// next layout costs up to (256 / 129)^2 = 3.9x the Gram work at C = 129.
 // Rows of C % 8 == 0 values move 16 bytes at a time (cp.async and 16-byte
 // stores); at any other C a row's start is not 16-byte aligned, and the
 // runtime-C variant (kC = 0) moves x, y and the weights 8 bytes at a time
@@ -75,7 +77,8 @@
 // their layouts were built for and never take that path.
 //
 // fp32 stays exact fp32 (window_channel_attention_f32_kernel): FMAs on the
-// CUDA cores, no tensor cores, no TF32. One block of 256 threads walks
+// CUDA cores, no tensor cores, no TF32. One block of 256 threads (512 at
+// CP = 512, one output channel of the layout a thread) walks
 // tiles of NW = 64 / CP windows (one at CP >= 128) over the same persistent
 // grid; Wqkv^T, Wproj^T and the biases are staged once per block in fp32,
 // with row strides of 3CP + 1 and CP + 1 floats so that the transposing
@@ -84,10 +87,10 @@
 // 128) stay in device memory and are read through L2 and the read-only
 // cache, 16 bytes a load, over the C real inputs. Every intermediate lives
 // in shared memory; each thread owns one output channel of the layout at PJ
-// positions (4; 8 at CP = 128, 16 at CP = 256) in the qkv and proj
+// positions (4; 8 at CP = 128, 16 at CP = 256 and 512) in the qkv and proj
 // products. The Gram, its softmax and the apply run on SR rows of the Gram
 // at a time: all CP up to CP = 128, strips of 64 at CP = 256, whose whole
-// Gram (263 KB) would outgrow shared memory. Windows past the end of the
+// Gram (263 KB) would outgrow shared memory, and of 32 at CP = 512. Windows past the end of the
 // last tile compute on zeros and are not stored.
 //
 // Stages. kStage < kFull ends each window early and stores a result folded
@@ -161,10 +164,14 @@ struct Layout {
   // transposed fp32 weights alone (~263 KB) outgrow it, and the products read
   // them through L2 and the read-only cache, 16 bytes a load
   static constexpr bool RESIDENT = CP <= 64;
+  // 256 threads, one output channel of the layout each; 512 at CP = 512
+  static constexpr int THREADS = CP > kThreads ? CP : kThreads;
   static constexpr int NW = CP <= 64 ? 64 / CP : 1;   // windows per tile
-  static constexpr int SR = CP > 128 ? 64 : CP;       // Gram rows at a time
+  // Gram rows at a time: 64 at CP = 256, 32 at CP = 512 (whose strip of 64
+  // rows would take the block past 227 KB)
+  static constexpr int SR = CP > 256 ? 32 : CP > 128 ? 64 : CP;
   static constexpr int ROWS = NW * kP;   // positions per tile
-  static constexpr int RG = kThreads / CP;            // thread rows of the products
+  static constexpr int RG = THREADS / CP;             // thread rows of the products
   static constexpr int PJ = ROWS / RG;                // positions per thread
   static constexpr int QS = 3 * CP + 1;  // padded qkv row stride; also Wqkv^T's
   static constexpr int GS = CP + 1;      // padded Gram row stride; also Wproj^T's
@@ -196,7 +203,7 @@ __device__ __forceinline__ void store_stage(float* __restrict__ y, long long win
 
 // The layout's channels are CP; the tensors' are C <= CP (C % 8 == 0).
 template <int CP, bool kPacked, int kStage>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(Layout<CP>::THREADS)
 window_channel_attention_f32_kernel(const float* __restrict__ x, const float* __restrict__ wqkv,
                                     const float* __restrict__ bqkv,
                                     const float* __restrict__ wproj,
@@ -216,7 +223,7 @@ window_channel_attention_f32_kernel(const float* __restrict__ x, const float* __
   // qkv, apply and proj: thread (og, rg) owns output channel og at PJ
   // positions (4, and 8 at CP = 128), so one shared-memory load feeds 3-4
   // FMAs
-  constexpr int RG = L::RG, PJ = L::PJ;
+  constexpr int RG = L::RG, PJ = L::PJ, THREADS = L::THREADS;
   static_assert(L::ROWS == PJ * RG && kP % PJ == 0, "PJ positions of one window per thread");
   const int og = tid % CP, rg = tid / CP;
   // the qkv and norm stages' fold: q + k + v (normalized or not) at (r, og)
@@ -229,27 +236,27 @@ window_channel_attention_f32_kernel(const float* __restrict__ x, const float* __
   // consecutive `in` and store QS (GS) floats apart, an odd stride; zeros
   // in the pad rows and columns
   if constexpr (L::RESIDENT) {
-    for (int e = tid; e < 3 * CP * CP; e += kThreads) {
+    for (int e = tid; e < 3 * CP * CP; e += THREADS) {
       const int o = e / CP, i = e % CP, blk = o / CP, oi = o % CP;
       sWq[i * L::QS + o] = i < C && oi < C ? wqkv[(blk * C + oi) * C + i] : 0.f;
     }
-    for (int e = tid; e < CP * CP; e += kThreads) {
+    for (int e = tid; e < CP * CP; e += THREADS) {
       const int o = e / CP, i = e % CP;
       sWp[i * L::GS + o] = i < C && o < C ? wproj[o * C + i] : 0.f;
     }
   }
-  for (int e = tid; e < 3 * CP; e += kThreads) {
+  for (int e = tid; e < 3 * CP; e += THREADS) {
     const int blk = e / CP, i = e % CP;
     sBq[e] = i < C ? bqkv[blk * C + i] : 0.f;
   }
-  for (int e = tid; e < CP; e += kThreads) sBp[e] = e < C ? bproj[e] : 0.f;
+  for (int e = tid; e < CP; e += THREADS) sBp[e] = e < C ? bproj[e] : 0.f;
 
   const long long n_tiles = (n_windows + L::NW - 1) / L::NW;
   for (long long tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
     const long long win0 = tile * L::NW;
     __syncthreads();  // weights staged; the previous tile is done with sX
 
-    for (int e = tid; e < L::ROWS * CP; e += kThreads) {
+    for (int e = tid; e < L::ROWS * CP; e += THREADS) {
       const int r = e / CP, c = e % CP;
       const long long win = win0 + r / kP;
       sX[e] = win < n_windows && c < C ? x[pixel_offset<kPacked>(win, r % kP, H, W) * C + c]
@@ -319,7 +326,7 @@ window_channel_attention_f32_kernel(const float* __restrict__ x, const float* __
     }
 
     // zero-safe L2 normalize of q and k at each position
-    for (int e = tid; e < 2 * L::ROWS; e += kThreads) {
+    for (int e = tid; e < 2 * L::ROWS; e += THREADS) {
       const int s = e / L::ROWS, r = e % L::ROWS;
       const float* u = sQKV + r * L::QS + s * CP;
       float ss = 0.f;
@@ -328,7 +335,7 @@ window_channel_attention_f32_kernel(const float* __restrict__ x, const float* __
       sDen[e] = fmaxf(ss == 0.f ? 0.f : sqrtf(ss), eps);
     }
     __syncthreads();
-    for (int e = tid; e < L::ROWS * 2 * CP; e += kThreads) {
+    for (int e = tid; e < L::ROWS * 2 * CP; e += THREADS) {
       const int r = e / (2 * CP), c = e % (2 * CP);
       sQKV[r * L::QS + c] /= sDen[(c / CP) * L::ROWS + r];
     }
@@ -344,11 +351,11 @@ window_channel_attention_f32_kernel(const float* __restrict__ x, const float* __
     // of those c1, into sX; each thread takes channel oc at PJS consecutive
     // positions of one window. A strip of pad rows only is skipped: its
     // columns of sX keep x's zeros, and Wproj is zero there.
-    constexpr int SR = L::SR, PJS = L::ROWS * SR / kThreads;
+    constexpr int SR = L::SR, PJS = L::ROWS * SR / THREADS;
     static_assert(SR == CP || (kStage == kFull && CP % SR == 0), "strips only in the op");
     const int oc = tid % SR, rgs = tid / SR;
     for (int s0 = 0; s0 < C; s0 += SR) {
-      for (int e = tid; e < L::NW * SR * CP; e += kThreads) {
+      for (int e = tid; e < L::NW * SR * CP; e += THREADS) {
         const int n = e / (SR * CP), c1 = (e / CP) % SR, c2 = e % CP;
         const float* base = sQKV + n * kP * L::QS;
         float acc = 0.f;
@@ -359,7 +366,7 @@ window_channel_attention_f32_kernel(const float* __restrict__ x, const float* __
       }
       __syncthreads();
 
-      for (int row = tid; row < L::NW * SR; row += kThreads) {
+      for (int row = tid; row < L::NW * SR; row += THREADS) {
         float* g = sG + row * L::GS;
         if constexpr (kStage == kLogits) {  // the raw row's sum, into its pad slot
           float rs = 0.f;
@@ -800,75 +807,92 @@ window_channel_attention_mma_kernel(const bf16* __restrict__ x, const bf16* __re
 }
 
 // ---------------------------------------------------------------------------
-// bf16 at C = 136 .. 256: the weights streamed
+// bf16 at C = 129 .. 512: the weights streamed
 // ---------------------------------------------------------------------------
 //
-// The layout of CP = 256 channels (the c64 generator's down2; C = 160, 192
-// and 224 of the c40, c48 and c56 generators run in it, padded). Wqkv and
-// Wproj as bf16 rows are 4CP x (CP + 8) = 541 KB, past the 227 KB a block may
-// hold, and a warp that owned a window's 16 x CP strips (q, k, v, the proj's
-// sums, a Gram strip) would hold 128 fp32 values a thread in each. So a block
-// of 8 warps takes two windows at a time (32 positions, two m-tiles) through
-// three phases, every intermediate in shared memory, and the weights pass
-// through it in tiles of 64 rows (double-buffered 16-byte cp.async, one
-// block barrier a tile, each tile used by both windows; the first tile of
-// the next pair is copied while the last is used). Of each of q, k, v and
-// proj only the ceil(C / 64) tiles that hold a real row pass (zero-filled
+// The layouts of CP = 256 channels (the c64 generator's down2; C = 160, 192
+// and 224 of the c40, c48 and c56 generators run in it, padded) and CP =
+// 512 (the down2 of the c65 .. c128 generators, C = 260 .. 512). Wqkv and
+// Wproj as bf16 rows are 4CP x (CP + 8) = 541 KB at CP = 256, past the 227
+// KB a block may hold, and a warp that owned a window's 16 x CP strips (q,
+// k, v, the proj's sums, a Gram strip) would hold 128 fp32 values a thread
+// in each. So a block of 8 warps takes WINDOWS windows at a time (two at CP
+// = 256: 32 positions, two m-tiles; one at CP = 512, whose two windows'
+// buffers would need ~406 KB) through three phases, every intermediate in
+// shared memory, and the weights pass through it in tiles of 64 rows
+// (double-buffered 16-byte cp.async, one block barrier a tile, each tile
+// used by every window of the block; the first tile of the next unit is
+// copied while the last is used). A tile holds the whole width of its rows
+// at CP = 256 and half of it at CP = 512 (KSPLIT = 2 tiles a 64-row block,
+// the sums kept in registers between them). Of each of q, k, v and proj
+// only the ceil(C / 64) row blocks that hold a real row pass (zero-filled
 // past C), and the products take ceil(C / 16) k-steps:
-//   qkv   3 ceil(C / 64) tiles of Wqkv (12 at C = 256). Warp w computes 16
-//         positions (window w / 4) x 16 outputs (16 (w % 4)..) of a tile,
-//         k-steps from the staged x. q and k go to shared memory raw as hi
-//         + lo pairs and are normalized from those pairs afterwards (a warp
-//         a row: 1 / max(|u|, eps), so a zero vector stays zero) and split
-//         again; v is a pair too.
-//   Gram  each window's ceil(C / 16) strips of 16 query channels, 4 a warp,
-//         keys in chunks of 64: the scores (hi hi + hi lo + lo hi), their
-//         exponentials and at once the apply out[p][c1] += sum_c2 v[p][c2]
-//         e[c1][c2] (v and e both as pairs: three products). The
-//         exponentials are taken at the fixed shift 16 instead of the row
-//         max: qn and kn are unit vectors (or zero) at each of 16 positions,
-//         so every logit lies in [-16, 16], exp(g - 16) >= exp(-32) stays a
-//         normal fp32 value, and no running max or rescale is needed; a pad
-//         key's exponential is 0 (its logit -inf). The row sums (quad sums)
-//         divide the strip of out at the end (a shuffle brings row c1's sum
-//         to the lanes that hold column c1), and it goes to shared memory as
-//         hi + lo.
-//   proj  ceil(C / 64) tiles of Wproj on out (hi + lo); y + bias leaves as
-//         bf16 pairs at the C real columns.
+//   qkv   3 ceil(C / 64) row blocks of Wqkv (12 at C = 256). Each warp
+//         computes 16 positions (window w / (8 / WINDOWS)) x OPW outputs
+//         (16 at CP = 256, 8 at CP = 512) of a row block, k-steps from the
+//         staged x. q and k go to shared memory raw as hi + lo pairs and
+//         are normalized from those pairs afterwards (a warp a row: 1 /
+//         max(|u|, eps), so a zero vector stays zero) and split again; v is
+//         a pair too.
+//   Gram  each window's ceil(C / 16) strips of 16 query channels, shared
+//         out over the window's warps, keys in chunks of 64: the scores (hi
+//         hi + hi lo + lo hi), their exponentials and at once the apply
+//         out[p][c1] += sum_c2 v[p][c2] e[c1][c2] (v and e both as pairs:
+//         three products). The exponentials are taken at the fixed shift 16
+//         instead of the row max: qn and kn are unit vectors (or zero) at
+//         each of 16 positions, so every logit lies in [-16, 16], exp(g -
+//         16) >= exp(-32) stays a normal fp32 value, and no running max or
+//         rescale is needed over any number of key chunks; a pad key's
+//         exponential is 0 (its logit -inf). The row sums (quad sums) divide
+//         the strip of out at the end (a shuffle brings row c1's sum to the
+//         lanes that hold column c1), and it goes to shared memory as hi +
+//         lo.
+//   proj  ceil(C / 64) row blocks of Wproj on out (hi + lo); y + bias leaves
+//         as bf16 pairs at the C real columns.
 // Operands rounded to bf16 inside: every one the kernel forms is a hi + lo
 // pair (q, k, qn, kn, v, the exponentials, out). With v as one term a
 // saturated window on the 64^2 grid reaches 0.83 of the bf16 bound, with the
 // pair 0.67 (devtools/serving_kernel_rounding.py).
+template <int CP_>
 struct WideLayout {
-  static constexpr int CP = 256;
-  static constexpr int WINDOWS = 2;             // windows a block takes at a time
-  static constexpr int ROWS = WINDOWS * kP;     // positions: two m-tiles
+  static constexpr int CP = CP_;
+  static_assert(CP == 256 || CP == 512, "the streamed layouts");
+  static constexpr int WINDOWS = CP > 256 ? 1 : 2;   // windows a block takes at a time
+  static constexpr int KSPLIT = CP > 256 ? 2 : 1;    // tiles a 64-row block of weights
+  static constexpr int ROWS = WINDOWS * kP;     // positions: one m-tile a window
   static constexpr int TILE_ROWS = 64;          // weight rows a tile
-  static constexpr int XS = CP + 8;             // rows of CP values: 528 bytes
-  static constexpr int QS = 2 * CP + 8;         // q | k rows: 1040 bytes
+  static constexpr int TK = CP / KSPLIT;        // weight columns a tile
+  static constexpr int TS = TK + 8;             // tile rows: 528 bytes
+  static constexpr int XS = CP + 8;             // rows of CP values: 528 or 1040 bytes
+  static constexpr int QS = 2 * CP + 8;         // q | k rows: 1040 or 2064 bytes
   static constexpr int CH = CP / 8;             // 16-byte chunks of a row
-  static constexpr int TILE = TILE_ROWS * XS;
-  static constexpr int W = 0;                   // [2][64][XS] weight tiles
-  static constexpr int X = W + 2 * TILE;        // [32][XS] x; later out hi
-  static constexpr int OL = X + ROWS * XS;      // [32][XS] out lo
-  static constexpr int QH = OL + ROWS * XS;     // [32][QS] q | k hi
-  static constexpr int QL = QH + ROWS * QS;     // [32][QS] q | k lo
-  static constexpr int VH = QL + ROWS * QS;     // [32][XS] v hi
-  static constexpr int VL = VH + ROWS * XS;     // [32][XS] v lo
+  static constexpr int TCH = TK / 8;            // 16-byte chunks of a tile row
+  static constexpr int WPW = kWarps / WINDOWS;  // warps a window
+  static constexpr int OPW = TILE_ROWS / WPW;   // outputs of a tile a warp: 16 or 8
+  static constexpr int NJ = OPW / 8;            // their n-tiles
+  static constexpr int TILE = TILE_ROWS * TS;
+  static constexpr int W = 0;                   // [2][64][TS] weight tiles
+  static constexpr int X = W + 2 * TILE;        // [ROWS][XS] x; later out hi
+  static constexpr int OL = X + ROWS * XS;      // [ROWS][XS] out lo
+  static constexpr int QH = OL + ROWS * XS;     // [ROWS][QS] q | k hi
+  static constexpr int QL = QH + ROWS * QS;     // [ROWS][QS] q | k lo
+  static constexpr int VH = QL + ROWS * QS;     // [ROWS][XS] v hi
+  static constexpr int VL = VH + ROWS * XS;     // [ROWS][XS] v lo
   static constexpr int ELEMS = VL + ROWS * XS;
   static constexpr int BYTES = ELEMS * (int)sizeof(bf16) + 4 * CP * (int)sizeof(float);
 };
 
 // The tensors' C: kC at compile time, or `width` at run time where kC is 0.
-template <bool kPacked, int kC>
+template <int CP, bool kPacked, int kC>
 __global__ void __launch_bounds__(kThreads, 1)
 window_channel_attention_wide_kernel(const bf16* __restrict__ x, const bf16* __restrict__ wqkv,
                                      const bf16* __restrict__ bqkv,
                                      const bf16* __restrict__ wproj,
                                      const bf16* __restrict__ bproj, bf16* __restrict__ y, int H,
                                      int W, long long n_windows, int width, float eps) {
-  using L = WideLayout;
-  constexpr int CP = L::CP, XS = L::XS, QS = L::QS;
+  using L = WideLayout<CP>;
+  constexpr int XS = L::XS, QS = L::QS, TS = L::TS, NJ = L::NJ, KS = L::KSPLIT;
+  constexpr int KT_TILE = L::TK / 16;   // k-steps of a tile
   const int C = kC ? kC : width;
   // rows of C % 8 != 0 values (kC = 0 only) move a value at a time
   const bool vec = kC != 0 || C % 8 == 0;
@@ -883,33 +907,36 @@ window_channel_attention_wide_kernel(const bf16* __restrict__ x, const bf16* __r
   float* sBias = reinterpret_cast<float*>(reinterpret_cast<bf16*>(smem_mma) + L::ELEMS);
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const int g = lane >> 2, tq = lane & 3;
-  const int mt = warp >> 2, np = warp & 3;   // the products: m-tile, 16 outputs of a tile
+  // the products: the warp's window (m-tile) and its OPW outputs of a tile
+  const int mt = warp / L::WPW, np = warp % L::WPW;
   const int CH = C / 8;                                   // real 16-byte chunks of a row
-  const int tpb = (C + L::TILE_ROWS - 1) / L::TILE_ROWS;  // tiles of q, k, v or proj
-  const int tiles_qkv = 3 * tpb, tiles = 4 * tpb;
+  const int tpb = (C + L::TILE_ROWS - 1) / L::TILE_ROWS;  // row blocks of q, k, v or proj
+  const int tiles_qkv = 3 * tpb * KS, tiles = 4 * tpb * KS;
   const int kt = (C + 15) / 16;                           // k-steps; query strips
 
-  // weight tile t into buffer t & 1: rows 64 (t % tpb).. of block t / tpb
-  // (q, k, v of Wqkv, then Wproj); zeros past C
+  // weight tile t into buffer t & 1: rows 64 (u % tpb).. of block u / tpb
+  // (q, k, v of Wqkv, then Wproj), u = t / KSPLIT, the columns of its part
+  // t % KSPLIT; zeros past C
   auto load_tile = [&](int t) {
-    const int blk = t / tpb, i0 = (t % tpb) * L::TILE_ROWS;
+    const int u = t / KS, c0 = (t % KS) * L::TK;
+    const int blk = u / tpb, i0 = (u % tpb) * L::TILE_ROWS;
     bf16* dst = sW + (t & 1) * L::TILE;
-    for (int e = tid; !vec && C % 4 == 0 && e < L::TILE_ROWS * CP / 4; e += kThreads) {
-      const int r = e / (CP / 4), c = e % (CP / 4), i = i0 + r;
-      const bool real = i < C && c * 4 < C;
+    for (int e = tid; !vec && C % 4 == 0 && e < L::TILE_ROWS * L::TK / 4; e += kThreads) {
+      const int r = e / (L::TK / 4), c = c0 + (e % (L::TK / 4)) * 4, i = i0 + r;
+      const bool real = i < C && c < C;
       const bf16* src = blk < 3 ? wqkv + (long long)(blk * C + i) * C : wproj + (long long)i * C;
-      cp_async8(dst + r * XS + c * 4, real ? src + c * 4 : wqkv, real);
+      cp_async8(dst + r * TS + c - c0, real ? src + c : wqkv, real);
     }
-    for (int e = tid; !vec && C % 4 && e < L::TILE_ROWS * CP; e += kThreads) {
-      const int r = e / CP, c = e % CP, i = i0 + r;
+    for (int e = tid; !vec && C % 4 && e < L::TILE_ROWS * L::TK; e += kThreads) {
+      const int r = e / L::TK, c = c0 + e % L::TK, i = i0 + r;
       const bf16* src = blk < 3 ? wqkv + (long long)(blk * C + i) * C : wproj + (long long)i * C;
-      dst[r * XS + c] = i < C && c < C ? src[c] : __float2bfloat16(0.f);
+      dst[r * TS + c - c0] = i < C && c < C ? src[c] : __float2bfloat16(0.f);
     }
-    for (int e = tid; vec && e < L::TILE_ROWS * L::CH; e += kThreads) {
-      const int r = e / L::CH, c = e % L::CH, i = i0 + r;
-      const bool real = kC == CP || (i < C && c < CH);
+    for (int e = tid; vec && e < L::TILE_ROWS * L::TCH; e += kThreads) {
+      const int r = e / L::TCH, c = c0 + (e % L::TCH) * 8, i = i0 + r;
+      const bool real = kC == CP || (i < C && c < C);
       const bf16* src = blk < 3 ? wqkv + (long long)(blk * C + i) * C : wproj + (long long)i * C;
-      cp_async16(dst + r * XS + c * 8, real ? src + c * 8 : wqkv, real);
+      cp_async16(dst + r * TS + c - c0, real ? src + c : wqkv, real);
     }
   };
   for (int e = tid; e < 4 * CP; e += kThreads) {
@@ -917,14 +944,14 @@ window_channel_attention_wide_kernel(const bf16* __restrict__ x, const bf16* __r
     sBias[e] = i < C ? to_f(blk < 3 ? bqkv[blk * C + i] : bproj[i]) : 0.f;
   }
 
-  const long long n_pairs = (n_windows + L::WINDOWS - 1) / L::WINDOWS;
-  if ((long long)blockIdx.x < n_pairs) load_tile(0);
+  const long long n_units = (n_windows + L::WINDOWS - 1) / L::WINDOWS;
+  if ((long long)blockIdx.x < n_units) load_tile(0);
   cp_async_commit();
-  for (long long pair = blockIdx.x; pair < n_pairs; pair += gridDim.x) {
-    const long long win0 = pair * L::WINDOWS;
-    __syncthreads();   // the previous pair is done with sX (its out hi)
-    // the two windows' x, 16 bytes a copy from rows of C; pads and a window
-    // past the end as zeros
+  for (long long unit = blockIdx.x; unit < n_units; unit += gridDim.x) {
+    const long long win0 = unit * L::WINDOWS;
+    __syncthreads();   // the previous unit is done with sX (its out hi)
+    // the windows' x, 16 bytes a copy from rows of C; pads and a window past
+    // the end as zeros
     for (int e = tid; !vec && C % 4 == 0 && e < L::ROWS * CP / 4; e += kThreads) {
       const int r = e / (CP / 4), c = e % (CP / 4);
       const long long win = win0 + r / kP;
@@ -948,41 +975,54 @@ window_channel_attention_wide_kernel(const bf16* __restrict__ x, const bf16* __r
     }
     cp_async_commit();
 
+    float acc[NJ][4];   // 16 positions x OPW outputs, over the KSPLIT tiles of a row block
 #pragma unroll 1
     for (int t = 0; t < tiles; ++t) {
       cp_async_wait<0>();
       __syncthreads();   // tile t (and x) are in; every warp is done with tile t - 1
       if (t + 1 < tiles) load_tile(t + 1);
-      else if (pair + gridDim.x < n_pairs) load_tile(0);
+      else if (unit + gridDim.x < n_units) load_tile(0);
       cp_async_commit();
       const bf16* tile = sW + (t & 1) * L::TILE;
-      const int blk = t / tpb;   // 0 q, 1 k, 2 v, 3 proj
+      const int u = t / KS, part = t % KS;
+      const int blk = u / tpb;   // 0 q, 1 k, 2 v, 3 proj
       const bool proj = blk == 3;
-      // 16 positions x 16 outputs of this tile: bias, then the k-steps
-      const int o0 = (t % tpb) * L::TILE_ROWS + np * 16;
-      const float* bias = sBias + blk * CP + o0;
-      float acc[2][4];
+      // 16 positions x OPW outputs of this row block: bias, then the k-steps
+      const int o0 = (u % tpb) * L::TILE_ROWS + np * L::OPW;
+      if (part == 0) {
+        const float* bias = sBias + blk * CP + o0;
 #pragma unroll
-      for (int j = 0; j < 2; ++j) {
-        const float2 b = *reinterpret_cast<const float2*>(bias + j * 8 + 2 * tq);
-        acc[j][0] = acc[j][2] = b.x;
-        acc[j][1] = acc[j][3] = b.y;
-      }
-#pragma unroll 4
-      for (int kk = 0; kk < kt; ++kk) {
-        uint32_t b[4], a[4];
-        ldmatrix_x4(b, tile + (np * 16 + (lane & 7) + (lane >> 4) * 8) * XS + kk * 16 +
-                           ((lane >> 3) & 1) * 8);
-        const int aoff = (mt * 16 + (lane & 15)) * XS + kk * 16 + (lane >> 4) * 8;
-        ldmatrix_x4(a, sX + aoff);
-        mma_bf16(acc[0], a, b[0], b[1]);
-        mma_bf16(acc[1], a, b[2], b[3]);
-        if (proj) {   // out's lo part
-          ldmatrix_x4(a, sOL + aoff);
-          mma_bf16(acc[0], a, b[0], b[1]);
-          mma_bf16(acc[1], a, b[2], b[3]);
+        for (int j = 0; j < NJ; ++j) {
+          const float2 b = *reinterpret_cast<const float2*>(bias + j * 8 + 2 * tq);
+          acc[j][0] = acc[j][2] = b.x;
+          acc[j][1] = acc[j][3] = b.y;
         }
       }
+      const int k0 = part * KT_TILE, k1 = kt < k0 + KT_TILE ? kt : k0 + KT_TILE;
+#pragma unroll 4
+      for (int kk = k0; kk < k1; ++kk) {
+        uint32_t b[4], a[4];
+        const int kl = kk - k0;   // the k-step within the tile
+        if constexpr (NJ == 2) {
+          ldmatrix_x4(b, tile + (np * 16 + (lane & 7) + (lane >> 4) * 8) * TS + kl * 16 +
+                             ((lane >> 3) & 1) * 8);
+        } else {
+          uint32_t b2[2];
+          ldmatrix_x2(b2, tile + (np * 8 + (lane & 7)) * TS + kl * 16 + ((lane >> 3) & 1) * 8);
+          b[0] = b2[0];
+          b[1] = b2[1];
+        }
+        const int aoff = (mt * 16 + (lane & 15)) * XS + kk * 16 + (lane >> 4) * 8;
+        ldmatrix_x4(a, sX + aoff);
+#pragma unroll
+        for (int j = 0; j < NJ; ++j) mma_bf16(acc[j], a, b[2 * j], b[2 * j + 1]);
+        if (proj) {   // out's lo part
+          ldmatrix_x4(a, sOL + aoff);
+#pragma unroll
+          for (int j = 0; j < NJ; ++j) mma_bf16(acc[j], a, b[2 * j], b[2 * j + 1]);
+        }
+      }
+      if (part + 1 < KS) continue;   // the row block's sums go on in the next tile
 
       if (proj) {   // y, where the window and the column exist
         const long long win = win0 + mt;
@@ -991,7 +1031,7 @@ window_channel_attention_wide_kernel(const bf16* __restrict__ x, const bf16* __r
           for (int hh = 0; hh < 2; ++hh) {
             bf16* row = y + pixel_offset<kPacked>(win, g + 8 * hh, H, W) * C + o0 + 2 * tq;
 #pragma unroll
-            for (int j = 0; j < 2; ++j) {
+            for (int j = 0; j < NJ; ++j) {
               const int c = o0 + j * 8 + 2 * tq;
               if (!vec && C % 2 == 0) {   // pairs (4-byte aligned), the real columns
                 if (c < C)
@@ -1011,39 +1051,49 @@ window_channel_attention_wide_kernel(const bf16* __restrict__ x, const bf16* __r
       }
       // q and k raw into q | k, v into v, all as hi + lo
       if (blk < 2)
-        store_frags<2>(sQH, sQL, QS, mt * 16, blk * CP + o0, acc, 1.f, lane);
+        store_frags<NJ>(sQH, sQL, QS, mt * 16, blk * CP + o0, acc, 1.f, lane);
       else
-        store_frags<2>(sVH, sVL, XS, mt * 16, o0, acc, 1.f, lane);
+        store_frags<NJ>(sVH, sVL, XS, mt * 16, o0, acc, 1.f, lane);
       if (t + 1 < tiles_qkv) continue;
 
       // the last qkv tile: normalize every q and k row from its pair, a
-      // warp a row, 8 channels a lane (the real ones; the tiles wrote the
-      // rest of the first 64 ceil(C / 64) as zeros), and split it again
+      // warp a row, 8 channels a lane in each 256-channel part of the row
+      // (the real ones; the tiles wrote the rest of the first 64
+      // ceil(C / 64) as zeros), and split it again
       __syncthreads();
-      const bool live = lane * 8 < C;
+      constexpr int NP = CP / 256;   // 256-channel parts of a row
       for (int v = warp; v < 2 * L::ROWS; v += kWarps) {
-        const int off = (v >> 1) * QS + (v & 1) * CP + lane * 8;
-        uint4 hu = make_uint4(0u, 0u, 0u, 0u), lu = hu;
-        if (live) {
-          hu = *reinterpret_cast<const uint4*>(sQH + off);
-          lu = *reinterpret_cast<const uint4*>(sQL + off);
-        }
-        const bf16* hp = reinterpret_cast<const bf16*>(&hu);
-        const bf16* lp = reinterpret_cast<const bf16*>(&lu);
-        float u[8], ss = 0.f;
+        uint4 hu[NP], lu[NP];
+        float u[NP][8], ss = 0.f;
 #pragma unroll
-        for (int i = 0; i < 8; ++i) {
-          u[i] = __bfloat162float(hp[i]) + __bfloat162float(lp[i]);
-          ss = fmaf(u[i], u[i], ss);
+        for (int p = 0; p < NP; ++p) {
+          const int off = (v >> 1) * QS + (v & 1) * CP + p * 256 + lane * 8;
+          hu[p] = lu[p] = make_uint4(0u, 0u, 0u, 0u);
+          if (p * 256 + lane * 8 < C) {
+            hu[p] = *reinterpret_cast<const uint4*>(sQH + off);
+            lu[p] = *reinterpret_cast<const uint4*>(sQL + off);
+          }
+          const bf16* hp = reinterpret_cast<const bf16*>(&hu[p]);
+          const bf16* lp = reinterpret_cast<const bf16*>(&lu[p]);
+#pragma unroll
+          for (int i = 0; i < 8; ++i) {
+            u[p][i] = __bfloat162float(hp[i]) + __bfloat162float(lp[i]);
+            ss = fmaf(u[p][i], u[p][i], ss);
+          }
         }
         const float inv = 1.f / fmaxf(sqrtf(warp_sum(ss)), eps);
-        uint32_t* ho = reinterpret_cast<uint32_t*>(&hu);
-        uint32_t* lo = reinterpret_cast<uint32_t*>(&lu);
 #pragma unroll
-        for (int i = 0; i < 4; ++i) pack_bf16_split(u[2 * i] * inv, u[2 * i + 1] * inv, ho[i], lo[i]);
-        if (live) {
-          *reinterpret_cast<uint4*>(sQH + off) = hu;
-          *reinterpret_cast<uint4*>(sQL + off) = lu;
+        for (int p = 0; p < NP; ++p) {
+          uint32_t* ho = reinterpret_cast<uint32_t*>(&hu[p]);
+          uint32_t* lo = reinterpret_cast<uint32_t*>(&lu[p]);
+#pragma unroll
+          for (int i = 0; i < 4; ++i)
+            pack_bf16_split(u[p][2 * i] * inv, u[p][2 * i + 1] * inv, ho[i], lo[i]);
+          if (p * 256 + lane * 8 < C) {
+            const int off = (v >> 1) * QS + (v & 1) * CP + p * 256 + lane * 8;
+            *reinterpret_cast<uint4*>(sQH + off) = hu[p];
+            *reinterpret_cast<uint4*>(sQL + off) = lu[p];
+          }
         }
       }
       __syncthreads();
@@ -1054,7 +1104,7 @@ window_channel_attention_wide_kernel(const bf16* __restrict__ x, const bf16* __r
       const bf16* vh = sVH + mt * kP * XS;
       const bf16* vl = sVL + mt * kP * XS;
 #pragma unroll 1
-      for (int s = np; s < kt; s += 4) {
+      for (int s = np; s < kt; s += L::WPW) {
         // A[c1][p] = qn[p][c1] through ldmatrix.trans
         uint32_t ah[4], al[4];
         const int aoff = ((lane & 7) + (lane >> 4) * 8) * QS + s * 16 + ((lane >> 3) & 1) * 8;
@@ -1145,19 +1195,21 @@ int launch(const void* x, const void* wqkv, const void* bqkv, const void* wproj,
   constexpr bool kFloat = sizeof(T) == sizeof(float);
   constexpr bool kWide = !kFloat && CP > 128;
   static_assert(kFloat || CP >= 16, "bf16 layouts start at 16 channels");
-  static_assert(!kWide || (CP == WideLayout::CP && kStage == kFull), "CP = 256: the op only");
+  static_assert(!kWide || kStage == kFull, "CP = 256 and 512: the op only");
+  using WL = WideLayout<kWide ? CP : 256>;
   auto kernel = [] {
     if constexpr (kFloat) return window_channel_attention_f32_kernel<CP, kPacked, kStage>;
-    else if constexpr (kWide) return window_channel_attention_wide_kernel<kPacked, kC>;
+    else if constexpr (kWide) return window_channel_attention_wide_kernel<CP, kPacked, kC>;
     else return window_channel_attention_mma_kernel<CP, kPacked, kStage, kC>;
   }();
   // units of work a block strides over: tiles of NW windows (fp32), rounds
-  // of one window per warp (bf16), pairs of windows (bf16, CP = 256)
+  // of one window per warp (bf16), pairs of windows (bf16, CP = 256), one
+  // window (bf16, CP = 512)
   constexpr int smem = kFloat  ? Layout<CP>::TOTAL * (int)sizeof(float)
-                       : kWide ? WideLayout::BYTES
+                       : kWide ? WL::BYTES
                                : MmaLayout<CP>::BYTES;
-  constexpr int per_unit = kFloat ? Layout<CP>::NW : kWide ? WideLayout::WINDOWS : MmaLayout<CP>::WARPS;
-  constexpr int threads = kFloat || kWide ? kThreads : MmaLayout<CP>::THREADS;
+  constexpr int per_unit = kFloat ? Layout<CP>::NW : kWide ? WL::WINDOWS : MmaLayout<CP>::WARPS;
+  constexpr int threads = kFloat ? Layout<CP>::THREADS : kWide ? kThreads : MmaLayout<CP>::THREADS;
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
   if (!kFloat && n_windows > INT_MAX - (1 << 20)) return (int)cudaErrorInvalidValue;
@@ -1180,7 +1232,7 @@ int launch(const void* x, const void* wqkv, const void* bqkv, const void* wproj,
   return (int)cudaGetLastError();
 }
 
-// With kAllWidths (the production entry points) any C from 1 to 256, in the
+// With kAllWidths (the production entry points) any C from 1 to 512, in the
 // layout of the next power of two from 8 (fp32) or 16 (bf16);
 // without (the stage kernels) C = 16, 32 and 64, unpadded.
 template <bool kPacked, int kStage, bool kAllWidths, typename T>
@@ -1213,14 +1265,15 @@ int launch_c(const void* x, const void* wqkv, const void* bqkv, const void* wpro
       default: return (int)cudaErrorInvalidValue;
     }
   } else {
-    if (C < 1 || C > 256) return (int)cudaErrorInvalidValue;
+    if (C < 1 || C > 512) return (int)cudaErrorInvalidValue;
     if constexpr (sizeof(T) == sizeof(float))
       if (C <= 8) return go(integral_constant<int, 8>{});
     if (C <= 16) return go(integral_constant<int, 16>{});
     if (C <= 32) return go(integral_constant<int, 32>{});
     if (C <= 64) return go(integral_constant<int, 64>{});
     if (C <= 128) return go(integral_constant<int, 128>{});
-    return go(integral_constant<int, 256>{});
+    if (C <= 256) return go(integral_constant<int, 256>{});
+    return go(integral_constant<int, 512>{});
   }
 }
 

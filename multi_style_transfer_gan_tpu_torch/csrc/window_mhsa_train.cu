@@ -4,8 +4,8 @@
 // Replaces ops/pallas/window_mhsa_train.py::window_mhsa_train of the JAX
 // package (its _fwd_kernel and hand-written _bwd_kernel). On a (B, H, W, 3C)
 // qkv grid with C = heads x hd in `heads` heads of hd channels (the blocks
-// of every generator width from 1 to 64: C = 4, 8, .., 256 in
-// default_num_heads(C) = 1 .. 8 heads of 4 .. 62 channels), per 8x8 window
+// of every generator width from 1 to 128: C = 4, 8, .., 512 in
+// default_num_heads(C) = 1 .. 16 heads of 4 .. 64 channels), per 8x8 window
 // of 64 tokens and per head, scale = hd^-0.5:
 //   s  = q k^T scale, minus its row max ;  p = softmax(s) ;  o = p v
 // and, given dO = d(o):
@@ -65,8 +65,9 @@
 // block does not grow with the width. At dim 256 a window's qkv and dO are
 // 64 x 1024 values, 256 KB in fp32, and a block still holds one head's 64 x
 // 128 of them. The head count is a runtime argument (1 to 8; head h of q,
-// k and v at column hd h of each third of the 3C row); supported() refuses
-// any other (C, heads).
+// k and v at column hd h of each third of the 3C row), 1 to 16; supported()
+// refuses any other (C, heads). Nothing in a block grows with the count:
+// the grid does.
 //
 // Head widths. A head of hd channels runs in a slot of S = hd rounded up to
 // 16 (window_mhsa_mma.cuh: S = 16, 32, 48, 64, one instantiation of each
@@ -550,9 +551,9 @@ int bwd(const void* qkv, const void* dout, void* dqkv, long long grid, int H, in
   });
 }
 
-// The blocks of the c1 .. c64 generators: 1 to 8 heads of 1 to 64 channels.
+// The blocks of the c1 .. c128 generators: 1 to 16 heads of 1 to 64 channels.
 bool supported(int H, int W, int C, int heads) {
-  return heads >= 1 && heads <= 8 && C > 0 && C % heads == 0 && C / heads <= 64 &&
+  return heads >= 1 && heads <= 16 && C > 0 && C % heads == 0 && C / heads <= 64 &&
          H % kWin == 0 && W % kWin == 0;
 }
 
@@ -566,7 +567,7 @@ long long grid_size(int B, int H, int W, int heads) {
 
 // Plain C entry points (loaded with ctypes). qkv and dqkv are (B, H, W, 3C),
 // out and dout (B, H, W, C), all contiguous and 16-byte aligned, of one type
-// (dtype 0 = fp32, 1 = bf16), with C in 1 to 8 heads of at most 64 channels
+// (dtype 0 = fp32, 1 = bf16), with C in 1 to 16 heads of at most 64 channels
 // and H % 8 == W % 8 == 0. Each launches on `stream` and returns cudaGetLastError()
 // (0 on success); another (C, heads) returns cudaErrorInvalidValue.
 extern "C" int window_mhsa_train_fwd_launch(const void* qkv, void* out, int B, int H, int W,

@@ -22,7 +22,7 @@ Routes: where autograd will need a gradient (grad mode on, and the input or
 a parameter requires grad) LocalAttention runs the 1x1 qkv conv, the
 training kernel of the mid and the 1x1 proj conv (on the card at the
 kernel's widths, ``window_attention_train.KERNEL_WIDTHS``, C = 1, 2, 4, 8,
-16, 32, 64; at every other C up to 256 the JAX package's route instead,
+16, 32, 64; at every other C up to 512 the JAX package's route instead,
 ``window_channel_attention_fast_vjp``: the inference kernel forward, the
 backward recomputed through the XLA formulation; ``train_route`` chooses,
 and any other width raises), and the transformer block its
@@ -91,7 +91,7 @@ class LocalAttention(nn.Module):
         raise ValueError(
             f"LocalAttention at C={C} does not train on the card: the "
             f"training kernel is built for C in (1, 2, 4, 8, 16, 32, 64) "
-            f"and the inference-kernel route for every other C up to 256")
+            f"and the inference-kernel route for every other C up to 512")
 
 
 _MSB_BRANCHES = (  # (name, kernel, padding, dilation)

@@ -44,6 +44,9 @@ SIGNATURES = {
         [_P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P]),
     "fused_structural_block": (
         "fused_structural_block", "fused_structural_block_launch",
+        [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P, _I, _I, _P]),
+    "fused_structural_block_pair": (
+        "fused_structural_block_pair", "fused_structural_block_pair_launch",
         [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I, _P]),
     "window_attention_train_fwd": (
         "window_attention_train", "window_attention_train_fwd_launch",

@@ -10,10 +10,17 @@ _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 def width_range(widths) -> str:
     """Generator widths as a message names them: "1 to 64" for a run of
-    consecutive widths, else the tuple."""
+    consecutive widths, "1 to 128 except 67, 71" for a run with fewer
+    holes than widths, else the tuple."""
     widths = tuple(widths)
-    if widths and widths == tuple(range(widths[0], widths[-1] + 1)):
+    if not widths:
+        return str(widths)
+    missing = sorted(set(range(widths[0], widths[-1] + 1)) - set(widths))
+    if not missing:
         return f"{widths[0]} to {widths[-1]}"
+    if len(missing) < len(widths):
+        return (f"{widths[0]} to {widths[-1]} except "
+                + ", ".join(map(str, missing)))
     return str(widths)
 
 

@@ -1,17 +1,25 @@
 """StructuralTransformerBlock body: CUDA kernel and plain version.
 
 ``fused_structural_block`` replaces ``ops/pallas/fused_transformer.py``;
-its kernel is ``csrc/fused_structural_block.cu``, which takes any dim up to
-256 whose ``default_num_heads`` heads are at most 64 wide
-(``kernel_takes``): the blocks of every generator width from 1 to 64 (dims
-4, 8, .., 256). Dims % 32 == 0 (heads of 32) run in the tensor-core
+its kernels are ``csrc/fused_structural_block.cu`` (and, for bf16 past dim
+256, ``csrc/fused_structural_block_pair.cu``), which take any dim up to
+256, and any dim % 4 == 0 from 260 to 512, whose ``default_num_heads`` heads
+are at most 64 wide (``kernel_takes``): the blocks of every generator width
+from 1 to 128 (dims 4, 8, .., 512) but those of c67, c71, .., c127, whose
+heads would be wider. Dims % 32 == 0 (heads of 32) run in the tensor-core
 designs: in bf16 dim 96 padded in the dim-128 design and dims 160-224 in
 the dim-256 design. Every other generator dim from 48 on (heads of 36 to
 56 channels) runs in bf16 in the head-slot kernel
 (``fused_structural_block_slot_kernel``: each head in a slot of its width
 rounded up to 16, ``slot_takes``), and in fp32 in the FMA bodies
 (``fused_structural_block_any_kernel``), which also take, in both types,
-c4's dim 16 and the dims no generator has (C % 4 != 0, odd heads).
+c4's dim 16 and the dims no generator has (C % 4 != 0, odd heads). The
+dims from 260 on run in bf16 in the pair kernel
+(``fused_structural_block_pair_kernel``: a cluster of two blocks a window,
+each on 32 tokens, exchanging each head's k and v through distributed
+shared memory, heads in slots as in the slot kernel), and in fp32 in the
+FMA bodies with the window's residual stream and LN output in a workspace
+the wrapper allocates (``block_workspace_windows``).
 ``structural_block_plain`` is the port of ``_block_body_math`` /
 ``_window_attention``
 (models/structural_transformer.py:97-168), including the key mask of
@@ -31,15 +39,50 @@ from . import _build
 from ._checks import check_cuda_args, check_no_grad, dtype_code
 
 WINDOW = 8
-KERNEL_RULE = "C from 1 to 256 in default_num_heads(C) heads of at most 64"
+KERNEL_RULE = ("C from 1 to 256, or C % 4 == 0 from 260 to 512, in "
+               "default_num_heads(C) heads of at most 64")
+# the widest dim whose window one block of the kernel holds: past it bf16
+# runs in the pair kernel, fp32 keeps a window's residual stream and LN
+# output in a workspace, and the plain version carries LN1 and the FiLM in
+# float64 as that fp32 path does (csrc/fused_structural_block.cuh's
+# kFrameDim)
+FRAME_DIM = 256
+# fp32 at C > FRAME_DIM: the windows a launch's workspace holds at most
+# (~202 MB at C = 512; more only where one image has more windows)
+WORKSPACE_WINDOWS = 512
 
 
 def kernel_takes(C: int) -> bool:
-    """The block kernel's widths: any C from 1 to 256 whose
-    ``default_num_heads(C)`` heads are at most 64 channels wide (every
-    generator dim 4c, c = 1 .. 64; C % 32 == 0 in the designs of heads of
-    32, any other C in the head-slot kernel or the FMA bodies)."""
-    return 1 <= C <= 256 and C // default_num_heads(C) <= 64
+    """The block kernel's widths: any C from 1 to 256, and any C % 4 == 0
+    from 260 to 512, whose ``default_num_heads(C)`` heads are at most 64
+    channels wide (every generator dim 4c, c = 1 .. 128, but those of c67,
+    c71, c73, c79, c83, c89, c97, c101, c103, c107, c109, c113 and c127;
+    C % 32 == 0 up to 256 in the designs of heads of 32, any other C up to
+    256 in the head-slot kernel or the FMA bodies, C > 256 in the pair
+    kernel or the FMA bodies)."""
+    return ((1 <= C <= FRAME_DIM
+             or (FRAME_DIM < C <= 2 * FRAME_DIM and C % 4 == 0))
+            and C // default_num_heads(C) <= 64)
+
+
+def pair_takes(C: int) -> bool:
+    """Whether the bf16 block at dim C runs in the pair kernel: every
+    ``kernel_takes`` dim past 256."""
+    return C > FRAME_DIM and kernel_takes(C)
+
+
+def block_workspace_windows(B: int, H: int, W: int, C: int,
+                            fp32: bool) -> int:
+    """The windows of fp32 workspace (3 x 64 x (C + 1) floats each: the
+    residual stream in fp32, the LN output in float64) a call needs: none
+    but for fp32 at C > FRAME_DIM, whose launches pass the images in slices
+    of whole images of at most WORKSPACE_WINDOWS windows (at least one
+    image), one launch a slice."""
+    if not fp32 or C <= FRAME_DIM:
+        return 0
+    per_image = -(-H // WINDOW) * -(-W // WINDOW)
+    images = max(1, min(B, WORKSPACE_WINDOWS // per_image))
+    return images * per_image
 
 
 def slot_takes(C: int) -> bool:
@@ -101,9 +144,22 @@ def block_launch_shape(B: int, H: int, W: int, C: int = 64) -> tuple:
     64 rows of DP + 8; LN1's (then LN2's) output as hi and lo, then either
     the k and v tiles (hi and lo) of two heads beside the pair's output (hi
     and lo, rows of 72) or the hidden chunk (hi and lo, rows of 136); the
-    fp32 parameters and 256 row sums of LN2.
-    The grid is ``persistent_grid(units, SMs, blocks per SM)``."""
+    fp32 parameters and 256 row sums of LN2. C from 260 on (``pair_takes``):
+    the pair kernel, a unit a window and a cluster of two blocks, each
+    holding two weight tiles of 32 rows of 520, its 32 tokens' LN output as
+    hi and lo (rows of 520), then a union of the head's q and o (its 32
+    tokens) and k and v (the window's 64), hi and lo in rows of S + 8, or the
+    hidden chunk (hi and lo, rows of 72); the fp32 parameters (qkv's biases
+    in the slot layout of up to 16 heads of 64) and the LN2 row sums of 4
+    warps a row. The grid is ``persistent_grid(units, SMs, blocks per SM)``
+    (in clusters of two for the pair kernel)."""
     windows = B * -(-H // WINDOW) * -(-W // WINDOW)
+    if pair_takes(C):
+        slot = -(-(C // default_num_heads(C)) // 16) * 16
+        elems = (2 * 32 * 520 + 2 * 32 * 520
+                 + max(384 * (slot + 8), 2 * 32 * 72))
+        return windows, 2 * elems + 4 * (4 * 512 + 3 * 16 * 64 + 512 + 2048
+                                         + 512 + 256)
     if C % 32 and slot_takes(C):
         slot = -(-(C // default_num_heads(C)) // 16) * 16
         elems = 4 * 64 * 264 + max(8 * 64 * (slot + 8), 2 * 64 * 136)
@@ -129,11 +185,12 @@ def block_launch_shape(B: int, H: int, W: int, C: int = 64) -> tuple:
 
 
 def _window_mhsa(h, qkv_w, qkv_b):
-    """Windowed multi-head self-attention of (B, H, W, C) fp32 tokens,
-    before the output projection. The grid is zero-padded to window
-    multiples after the qkv product; padded keys are masked out of every
-    softmax and padded queries cropped. q, k, their scores and the softmax
-    are carried in float64 from the fp32 tokens and weights, and the
+    """Windowed multi-head self-attention of (B, H, W, C) tokens (LN1's
+    output: fp32, float64 past dim 256), before the output projection. The
+    grid is zero-padded to window multiples after the qkv product; padded
+    keys are masked out of every softmax and padded queries cropped. q, k,
+    their scores and the softmax are carried in float64 from the tokens and
+    the fp32 weights, and the
     softmax meets v in fp32: on a block whose scores are 16 times larger
     (``chip_smoke.block_stress_inputs``) fp32 scores at dim 256 leave the
     block 2.6e-4 from a float64 evaluation, past the fp32 tolerance the
@@ -176,8 +233,15 @@ def structural_block_plain(x, struct, gamma, beta, *, norm1_w, norm1_b,
     C = x.shape[-1]
     f = lambda t: t.float()
     xf = x.float()
-    h = F.layer_norm(xf + f(struct), (C,), f(norm1_w), f(norm1_b), eps)
-    h = h * (1.0 + f(gamma)[:, None, None, :]) + f(beta)[:, None, None, :]
+    # past FRAME_DIM, LN1 and the FiLM in float64, as the fp32 kernel carries
+    # them there: on a block whose scores are 16 times larger
+    # (chip_smoke.block_stress_inputs) an fp32 LN1 output leaves the block
+    # at dim 512 1.6e-4 from a float64 evaluation, and two fp32 evaluations
+    # 2.3e-4 apart, past the fp32 tolerance; a float64 one 6.8e-5
+    # (devtools/serving_kernel_rounding.py --fp32)
+    d = (lambda t: t.double()) if C > FRAME_DIM else f
+    h = F.layer_norm(d(xf + f(struct)), (C,), d(norm1_w), d(norm1_b), eps)
+    h = h * (1.0 + d(gamma)[:, None, None, :]) + d(beta)[:, None, None, :]
     xf = xf + F.linear(_window_mhsa(h, f(qkv_w), f(qkv_b)),
                        f(proj_w), f(proj_b))
     h = F.layer_norm(xf, (C,), f(norm2_w), f(norm2_b), eps)
@@ -218,15 +282,26 @@ def fused_structural_block(x, struct, gamma, beta, *, eps: float = 1e-5,
     ptrs = (ctypes.c_void_p * len(WEIGHT_NAMES))(
         *[weights[n].data_ptr() for n in WEIGHT_NAMES])
     y = torch.empty_like(x, memory_format=torch.contiguous_format)
+    fp32 = x.dtype == torch.float32
+    ws_windows = block_workspace_windows(B, H, W, C, fp32)
+    ws = (torch.empty(ws_windows * 3 * 64 * (C + 1), device=x.device)
+          if ws_windows else None)
+    # bf16 past dim 256: the pair kernel's own source and entry point
+    entry, extra = (("fused_structural_block_pair", ()) if pair_takes(C)
+                    and not fp32 else ("fused_structural_block", (
+                        None if ws is None else ws.data_ptr(), ws_windows)))
     if x.numel():
-        rc = _build.kernel("fused_structural_block")(
+        rc = _build.kernel(entry)(
             x.data_ptr(), struct.data_ptr(), gamma.data_ptr(), beta.data_ptr(),
-            ptrs, y.data_ptr(), B, H, W, C, dtype_code(x), eps,
+            ptrs, y.data_ptr(), B, H, W, C, dtype_code(x), eps, *extra,
             x.device.index, torch.cuda.current_stream(x.device).cuda_stream)
         if rc:
             raise RuntimeError(f"fused_structural_block launch failed: "
                                f"CUDA error {rc}")
-        fused_structural_block.launches += 1
+        # one launch, or one a slice of the images the workspace holds
+        per_image = -(-H // WINDOW) * -(-W // WINDOW)
+        fused_structural_block.launches += (
+            -(-B // (ws_windows // per_image)) if ws_windows else 1)
     return y
 
 

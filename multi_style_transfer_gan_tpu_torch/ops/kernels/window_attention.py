@@ -5,9 +5,9 @@ Pallas layouts (v1, grouped, v3, dispatched by
 ``ops/pallas/attention_dispatch.py``) and three more forms of the same
 math (``window_attention_v4``, ``window_attention_v3_fused_io`` and the A/B
 script's ``window_attention_v6``); on Hopper one kernel,
-``csrc/window_channel_attention.cu``, takes any C from 1 to 256
+``csrc/window_channel_attention.cu``, takes any C from 1 to 512
 (``kernel_takes``): the LocalAttention widths C, 2C and 4C of every
-generator width from 1 to 64, each run inside the built layout of the next
+generator width from 1 to 128, each run inside the built layout of the next
 power of two (``layout_width``); a width whose rows are not 16-byte
 aligned (C % 8 != 0) moves them 8 bytes at a time (C % 4 == 0) or a value
 at a time.
@@ -34,13 +34,13 @@ from ._checks import check_cuda_args, check_no_grad, dtype_code
 WINDOW = 4
 STAGE_WIDTHS = (16, 32, 64)            # the stage ablation's (c16's)
 STAGES = ("copy", "qkv", "norm", "logits", "softmax", "full")
-KERNEL_RULE = "C from 1 to 256"
+KERNEL_RULE = "C from 1 to 512"
 
 
 def kernel_takes(C: int) -> bool:
-    """The attention kernel's widths: any C from 1 to 256 (C % 8 != 0 in
+    """The attention kernel's widths: any C from 1 to 512 (C % 8 != 0 in
     the runtime-C variant of its layout, with narrower moves)."""
-    return 1 <= C <= 256
+    return 1 <= C <= 512
 
 
 def layout_width(C: int, bf16: bool) -> int:
@@ -71,15 +71,18 @@ def attention_launch_shape(n_windows: int, C: int, bf16: bool) -> tuple:
     each), then 4CP fp32 biases and CP fp32 row sums a warp. CP = 256
     (bf16): a unit is two windows; the block holds two weight tiles of 64
     rows of CP + 8, the two windows' x (later out hi), out lo, q | k hi and
-    lo (rows of 2CP + 8) and v hi and lo, then 4CP fp32 biases. fp32 (FMA):
-    a unit is a tile of 64 / CP windows (one at CP >= 128); everything is
-    fp32, the weights are staged too up to CP = 64, and the Gram is held 64
-    rows at a time at CP = 256."""
+    lo (rows of 2CP + 8) and v hi and lo, then 4CP fp32 biases. CP = 512
+    (bf16): the same with one window a unit and weight tiles of 64 rows of
+    half the width (CP / 2 + 8). fp32 (FMA): a unit is a tile of 64 / CP
+    windows (one at CP >= 128); everything is fp32, the weights are staged
+    too up to CP = 64, and the Gram is held 64 rows at a time at CP = 256,
+    32 at CP = 512 (512 threads)."""
     cp = layout_width(C, bf16)
     if bf16 and cp > 128:
-        rows, xs = 32, cp + 8
-        elems = 2 * 64 * xs + 4 * rows * xs + 2 * rows * (2 * cp + 8)
-        return -(-n_windows // 2), 2 * elems + 4 * 4 * cp
+        windows = 1 if cp > 256 else 2
+        rows, xs, ts = 16 * windows, cp + 8, (cp if cp <= 256 else cp // 2) + 8
+        elems = 2 * 64 * ts + 4 * rows * xs + 2 * rows * (2 * cp + 8)
+        return -(-n_windows // windows), 2 * elems + 4 * 4 * cp
     if bf16:
         warps = 3 if cp > 64 else 8
         warp = 2 * 16 * (cp + 8) + 2 * 16 * (2 * cp + 8)
@@ -88,7 +91,7 @@ def attention_launch_shape(n_windows: int, C: int, bf16: bool) -> tuple:
     nw = max(1, 64 // cp)
     rows, qs, gs = nw * 16, 3 * cp + 1, cp + 1
     weights = cp * qs + cp * gs if cp <= 64 else 0
-    strip = 64 if cp > 128 else cp
+    strip = 32 if cp > 256 else 64 if cp > 128 else cp
     floats = (weights + 3 * cp + cp + rows * cp + rows * qs + 2 * rows
               + nw * strip * gs)
     return -(-n_windows // nw), 4 * floats

@@ -15,7 +15,7 @@ VJP of ``_attention_math`` (:168-205), recomputed from the saved inputs.
 The port does the same (``train_route`` is the choice, as a function of C):
 
 - the forward launches row 1's kernel, ``window_channel_attention``
-  (``csrc/window_channel_attention.cu``, any C up to 256);
+  (``csrc/window_channel_attention.cu``, any C up to 512);
 - the backward recomputes ``window_channel_attention_plain``, the port of
   ``_attention_math`` (the qkv 1x1 product, the window partition, the
   zero-safe L2 normalize, the Gram, its softmax, the apply and the proj,
@@ -42,7 +42,7 @@ def train_route(C: int) -> str | None:
     hand-written pair, ``window_channel_attention_train``, at the widths
     where JAX's ``supports_train_kernel`` can hold: C = 1, 2, 4, 8, 16, 32,
     64), "fast_vjp" (this route: any other C the inference kernel takes, 1
-    to 256) or None (no route). The choice is by C alone: JAX also asks
+    to 512) or None (no route). The choice is by C alone: JAX also asks
     that the group size 128 / C divide the window count (C = 1 takes its
     kernel only with 128 | windows), and takes this route where it does
     not; both routes compute the same function and its exact gradient."""

@@ -38,7 +38,7 @@ def _served(channels: int) -> bool:
             and fused_transformer.kernel_takes(dim))
 
 
-# 1 to 64
+# 1 to 128 but 67, 71, 73, 79, 83, 89, 97, 101, 103, 107, 109, 113, 127
 SERVED_CHANNELS = tuple(c for c in range(1, 257) if _served(c))
 
 

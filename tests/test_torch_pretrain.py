@@ -316,14 +316,16 @@ def test_clip_matches_optax(rng, scale):
 def test_init_needs_a_device_and_a_served_width():
     with pytest.raises(TypeError, match="device"):
         pretrain_init_state()
-    for c in range(1, 65):
-        check_kernel_width(c)
-    for c in (65, 72, 128):
-        with pytest.raises(ValueError, match=r"channels 1 to 64"):
+    for c in range(1, 129):
+        if c not in (67, 71, 73, 79, 83, 89, 97, 101, 103, 107, 109, 113,
+                     127):
+            check_kernel_width(c)
+    for c in (67, 129, 256):
+        with pytest.raises(ValueError, match=r"channels 1 to 128 except 67, "):
             check_kernel_width(c)
     # the check comes before anything touches the card
     with pytest.raises(ValueError, match="not served on the card"):
-        pretrain_init_state(0, 72, model="enhanced", device="cuda")
+        pretrain_init_state(0, 129, model="enhanced", device="cuda")
     with pytest.raises(ValueError, match="model must be"):
         pretrain_init_state(0, 8, model="int8", device="cpu")
 

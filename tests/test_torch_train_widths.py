@@ -253,12 +253,13 @@ def fakes(monkeypatch):
 @pytest.mark.parametrize("C,route", [(8, "train"), (16, "train"),
                                      (64, "train"), (128, "fast_vjp"),
                                      (12, "fast_vjp"), (256, "fast_vjp"),
-                                     (1, "train"), (264, None)])
+                                     (1, "train"), (264, "fast_vjp"),
+                                     (512, "fast_vjp"), (520, None)])
 def test_local_attention_routes_by_width_off_the_cpu(fakes, C, route):
     """Under grad on a tensor off the CPU (meta: the wrappers' own device
     checks never run), C in row 11's widths (1, 2, 4, 8, 16, 32, 64) takes
-    its mid, every other C up to 256 the fast-VJP Function, a width past
-    256 raises before a launch."""
+    its mid, every other C up to 512 the fast-VJP Function, a width past
+    512 raises before a launch."""
     m = LocalAttention(C).to("meta")
     x = torch.zeros(1, C, 8, 8, device="meta", requires_grad=True)
     if route is None:

@@ -114,7 +114,9 @@ PRETRAIN_RTOL = 1e-5
 SMEM_LIMIT = 227 * 1024
 MIRROR_ATTENTION_WIDTHS = (1, 3, 12, 60, 63, 126, 252)
 MIRROR_BLOCK_CHANNELS = (1, 3, 12, 28, 44, 60, 63)
-REFUSED = (65, 72, 128)
+REFUSED = (67, 129, 256)
+# the widths up to 128 whose block heads would be wider than 64 channels
+UNBUILT = (67, 71, 73, 79, 83, 89, 97, 101, 103, 107, 109, 113, 127)
 
 
 def _t(a):
@@ -126,32 +128,39 @@ def _t(a):
 # ---------------------------------------------------------------------------
 
 def test_gates_take_every_width_from_1_to_64():
-    """Serving and training take c = 1 .. 64 and nothing past it; every
-    width's LocalAttention (C, 2C, 4C), block and window-MHSA mid are in
-    the kernels' rules."""
-    assert SERVED_CHANNELS == TRAINED_CHANNELS == tuple(range(1, 65))
-    for c in range(1, 65):
+    """Serving and training take c = 1 .. 128 but the 13 widths whose block
+    heads would be wider than 64 channels (``UNBUILT``), and nothing past
+    128; every taken width's LocalAttention (C, 2C, 4C), block and
+    window-MHSA mid are in the kernels' rules, every refused one's block is
+    not."""
+    assert SERVED_CHANNELS == TRAINED_CHANNELS == tuple(
+        c for c in range(1, 129) if c not in UNBUILT)
+    for c in range(1, 129):
+        dim = 4 * c
+        if c in UNBUILT:
+            assert dim // default_num_heads(dim) > 64
+            assert not fused_transformer.kernel_takes(dim)
+            continue
         check_serving_width(c)
         check_kernel_width(c, "CycleGAN training")
-        dim = 4 * c
         assert all(window_attention.kernel_takes(w) for w in (c, 2 * c, dim))
         assert fused_transformer.kernel_takes(dim)
         assert WM.kernel_takes(dim, default_num_heads(dim))
         assert K.train_route(c) and K.train_route(2 * c) and K.train_route(dim)
-        assert dim // default_num_heads(dim) <= 62
+        assert dim // default_num_heads(dim) <= 64
 
 
 @pytest.mark.parametrize("channels", REFUSED)
 def test_gates_refuse_past_64_before_any_work(tmp_path, monkeypatch,
                                               channels):
-    """c65, c72 and c128 raise ValueError naming the range 1 to 64: at
-    ``load_generator``, ``cyclegan_init_state``, enhanced pretraining and
-    the train CLI on the card, before a checkpoint's weights or any data
-    are read or a kernel launched ("cuda" as a device name needs no
-    card: the checks come first)."""
+    """c67 (4 heads of 67), c129 and c256 raise ValueError naming the range
+    1 to 128 and its holes: at ``load_generator``, ``cyclegan_init_state``,
+    enhanced pretraining and the train CLI on the card, before a
+    checkpoint's weights or any data are read or a kernel launched ("cuda"
+    as a device name needs no card: the checks come first)."""
     from multi_style_transfer_gan_tpu_torch.cli import train as cli
 
-    rng_range = r"channels 1 to 64"
+    rng_range = r"channels 1 to 128 except 67, 71, .*, 113, 127"
     path = tmp_path / f"enhanced_c{channels}.pth"
     torch.save({"G_AB_state_dict": EnhancedGenerator(channels, 1)
                 .state_dict()}, path)
@@ -545,7 +554,7 @@ def test_enhanced_pretrain_step_at_c12_matches_jax(rng):
 # ---------------------------------------------------------------------------
 
 def test_train_route_by_width_against_jax():
-    """Every C from 1 to 256 has a training route. The port chooses by C
+    """Every C from 1 to 512 has a training route. The port chooses by C
     alone: the hand-written pair at C = 1, 2, 4, 8, 16, 32, 64, where JAX's
     ``supports_train_kernel`` holds on a grid whose window count every
     group size divides (128 windows), the fast-VJP route elsewhere. JAX
@@ -556,7 +565,9 @@ def test_train_route_by_width_against_jax():
         want = ("kernel" if supports_train_kernel(2, 32, 32, C)
                 else "fast_vjp")
         assert K.train_route(C) == want, C
-    assert K.train_route(257) is None
+    # past 256 (the LocalAttention widths of c65 .. c128) the route too
+    assert all(K.train_route(C) == "fast_vjp" for C in range(257, 513))
+    assert K.train_route(513) is None
     assert not supports_train_kernel(1, 32, 32, 1)   # 64 windows
     assert K.train_route(1) == "kernel"
 

@@ -439,42 +439,48 @@ def test_block_emulation_at_dim_128_needs_the_wider_pairs():
 # (CPU; "cuda" as a device name needs no card: the checks come first)
 # ---------------------------------------------------------------------------
 
+# the widths up to 128 whose block heads would be wider than 64 channels
+UNBUILT = (67, 71, 73, 79, 83, 89, 97, 101, 103, 107, 109, 113, 127)
+
+
 def test_served_channels_are_those_of_the_built_kernels():
-    assert SERVED_CHANNELS == tuple(range(1, 65))
+    assert SERVED_CHANNELS == tuple(c for c in range(1, 129)
+                                    if c not in UNBUILT)
     for c in SERVED_CHANNELS:
         check_serving_width(c)
 
 
-@pytest.mark.parametrize("channels", [65, 72, 128])
+@pytest.mark.parametrize("channels", [67, 129, 132])
 def test_loader_refuses_widths_not_built_on_the_card(tmp_path, channels):
     path = tmp_path / f"enhanced_c{channels}.pth"
     torch.save({"G_BA_state_dict": EnhancedGenerator(channels, 1)
                 .state_dict()}, path)
     with pytest.raises(ValueError, match=r"channels=%d is not served on the "
-                                         r"card.*channels 1 to 64" % channels):
+                                         r"card.*channels 1 to 128 except "
+                                         r"67, " % channels):
         load_generator(path, device="cuda")
     # every width the generator has still runs on the CPU, through the plain
     # versions (c % 4 == 0: its multi-scale block splits c into four
-    # branches, so a c65 generator runs nowhere, in JAX neither)
+    # branches, so a c67 generator runs nowhere, in JAX neither)
     if channels % 4 == 0:
         model = load_generator(path, device="cpu")
         assert model.apply(torch.zeros(1, 32, 32, 3)).shape == (1, 32, 32, 3)
 
 
-@pytest.mark.parametrize("channels", [65, 72, 128])
+@pytest.mark.parametrize("channels", [67, 129, 256])
 def test_training_checks_read_the_training_kernels(channels):
-    """Every width from 1 to 64 trains on the card, as it serves; a width
-    whose LocalAttention or block the training routes do not take (c65,
-    whose down2 would be 260 wide; c72 and c128, whose blocks would be 288
-    and 512 wide) is refused, and CycleGAN training says so before it
-    builds anything."""
-    for built in range(1, 65):
+    """Every width from 1 to 128 but ``UNBUILT`` trains on the card, as it
+    serves; a width whose LocalAttention or block the training routes do
+    not take (c67, whose block would have 4 heads of 67; c129 and c256,
+    whose down2 would be 516 and 1024 wide) is refused, and CycleGAN
+    training says so before it builds anything."""
+    for built in SERVED_CHANNELS:
         check_serving_width(built)
         check_kernel_width(built, "CycleGAN training")
     with pytest.raises(ValueError, match="CycleGAN training at channels="
                                          f"{channels} is not served"):
         check_kernel_width(channels, "CycleGAN training")
-    with pytest.raises(ValueError, match=r"channels 1 to 64"):
+    with pytest.raises(ValueError, match=r"channels 1 to 128 except 67, "):
         cyclegan_init_state(0, channels, device="cuda")
 
 
@@ -490,9 +496,9 @@ def test_train_cli_refuses_a_width_before_its_first_step(monkeypatch,
     monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
     assert cli.DEVICE == "cuda"
     K.reset_launch_counts()
-    with pytest.raises(ValueError, match="channels=72 is not served"):
+    with pytest.raises(ValueError, match="channels=129 is not served"):
         cli.main(["--data_root", str(tmp_path / "no_data"), "--channels",
-                  "72", "--save_dir", str(tmp_path / "models")])
+                  "129", "--save_dir", str(tmp_path / "models")])
     assert not (tmp_path / "models").exists()
     assert all(k.launches == 0 for k in K.KERNELS)
 
@@ -600,7 +606,7 @@ def test_relayout_kernel_at_the_new_widths(cuda, C, dtype):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("channels", [65, 72])
+@pytest.mark.parametrize("channels", [67, 129])
 def test_loader_refuses_unbuilt_widths_on_the_card(cuda, tmp_path, channels):
     path = tmp_path / f"enhanced_c{channels}.pth"
     torch.save({"G_AB_state_dict": EnhancedGenerator(channels, 1)
