@@ -11,9 +11,10 @@ training at the reference configuration, the plain generator and
 masked-inpainting pretraining at the reference's width, the evaluation
 path (metrics, folder comparisons, FID on a full-width InceptionV3), the
 GUI's tab workers and the checkpoint tools, the VGG16 perceptual + Gram
-loss in the train step, the c8, c32 and c64 EnhancedGenerators on the
-serving kernels' other widths and trained (CycleGAN and enhanced
-pretraining, c64 also through the pretrain CLI's defaults), the c24, c40,
+loss in the train step, the trained-model study's scripts, the c8, c32
+and c64 EnhancedGenerators on the serving kernels' other widths and
+trained (CycleGAN and enhanced pretraining, c64 also through the pretrain
+CLI's defaults), the c24, c40,
 c48 and c56 ones, which run padded inside the kernels, the c4, c12, .., c60
 ones (the widths that are not multiples of 8), the c68 .. c128 ones (the
 widths past 64), and checks every hand-written kernel on the way:
@@ -213,12 +214,28 @@ widths past 64), and checks every hand-written kernel on the way:
     ``pretrain --model enhanced --channels 128``; the route at C = 512 card
     vs CPU and timed, at 272 timed); c72, c96 and c116 small (the fp32
     program at 64^2 on both engines, one fp32 CycleGAN step and two fp32
-    pretrain steps at 64^2, card vs CPU).
+    pretrain steps at 64^2, card vs CPU);
+22. the trained-model study (``phase_study``, after the evaluation path):
+    the recipe of ``docs/TRAINED_STUDY.md`` through
+    ``multi_style_transfer_gan_tpu_torch.scripts``: the synthetic domains,
+    the train CLI for 2 epochs at c16, the shipped trained pair staged as
+    epoch 3, ``select_checkpoints`` (every forward 4 + 1 launches, timed in
+    img/s; the shipped pair's fp32 ``forward_u8`` card vs CPU; the exported
+    soup bit-equal to a host recomputation), ``make_sample_grids``,
+    ``run_trained_surface`` with no stage skipped (each stage's seconds,
+    the server's p50 / p95 and img/s) and ``reproduce_quality_study
+    --synthetic``.
 
-Every phase raises on failure. The last line is the result JSON; the line
-before it lists each kernel with its launches on the eighteen paths (launch
-counts are reset just before each path and read just after), its largest
-fp32 deviation from the plain version, its time beside the plain
+The CPU halves of the card-vs-CPU checks (the fp32 programs of the width
+paths, the fp32 train and pretrain steps, the fast-VJP route, FID) run in a
+pool of CPU_WORKERS spawned processes beside the card's work, and the
+evaluation path's test tree is written there meanwhile; each half is
+compared when it arrives (FID's when its path starts), and every one before
+the report. Every phase
+raises on failure, a CPU half too. The last line is the result JSON; the
+line before it lists each kernel with its launches on the nineteen paths
+(launch counts are reset just before each path and read just after), its
+largest fp32 deviation from the plain version, its time beside the plain
 version's (the serving and training rows also per generator width,
 ``widths``; the channel-attention row also the C = 128 training route,
 ``fast_vjp_c128``, and c64's at C = 256 and 128, ``fast_vjp_c64``), its
@@ -432,6 +449,9 @@ MANY_WINDOW_GRID = (8, 64, 64)
 # steps, and the fp32 CycleGAN step card vs CPU at WIDE_FP32_SIZE^2
 WIDE_TIMED_STEPS = 3
 WIDE_FP32_SIZE = 64
+# the width paths read a step's device time from this many profiled steps
+# (a profiler session of a whole step takes seconds to read back)
+WIDTH_PROFILED_STEPS = 2
 ENTRY_CHANNELS = (48, 60, 64, 128)   # also through the batch CLI, server, direct_transform
 REFUSED_CHANNELS = (67, 129, 256)
 WIDTH_CPU_BATCH = {8: 2, 32: 2, 64: 1, 24: 2, 48: 1, 40: 2, 56: 2, 4: 2,
@@ -510,10 +530,82 @@ WIDTH_TRAIN_SIZE = 256   # the bf16 steps' images
 
 
 PROFILE_ATTEMPTS = 10    # torch.profiler sessions asked for one device time
+# the CPU halves of the card-vs-CPU checks run in worker processes beside the
+# card's work (``CpuHalves``): of the card machine's 8 cores, each worker
+# takes CPU_THREADS intra-op threads and the driving process the rest
+CPU_WORKERS, CPU_THREADS = 2, 3
 
 
 def log(*a):
     print(*a, flush=True)
+
+
+def _cpu_worker_init(threads):
+    import torch
+
+    torch.set_num_threads(threads)
+
+
+class CpuHalves:
+    """The CPU halves of the card-vs-CPU checks, computed in worker
+    processes (spawned: no CUDA there) while the card works on.
+    ``check(fn, args, finish)`` submits ``fn(*args)`` (a function of this
+    module, numpy in and out) and keeps ``finish``, which takes the CPU
+    result, compares it with the card's and raises on a disagreement;
+    ``settle()`` waits for every pending half in the order submitted and
+    runs its ``finish``, re-raising a worker's exception: nothing is
+    dropped."""
+
+    def __init__(self, workers, threads):
+        import concurrent.futures
+        import multiprocessing
+
+        self.pool = concurrent.futures.ProcessPoolExecutor(
+            workers, mp_context=multiprocessing.get_context("spawn"),
+            initializer=_cpu_worker_init, initargs=(threads,))
+        self.pending = []
+
+    def check(self, fn, args, finish):
+        self.pending.append((self.pool.submit(fn, *args), finish))
+
+    def submit(self, fn, args):
+        return self.pool.submit(fn, *args)
+
+    def settle(self):
+        pending, self.pending = self.pending, []
+        for future, finish in pending:
+            finish(future.result())
+
+    def close(self):
+        self.pool.shutdown(wait=True, cancel_futures=True)
+
+
+CPU_HALVES = [None]   # the run's CpuHalves, set in run()
+
+
+def cpu_check(fn, args, finish):
+    """``finish(fn(*args))``: at once without the run's pool (a rehearsal
+    on the CPU), else when the pool has computed it."""
+    if CPU_HALVES[0] is None:
+        finish(fn(*args))
+    else:
+        CPU_HALVES[0].check(fn, args, finish)
+
+
+def cpu_result(fn, args):
+    """A callable that returns ``fn(*args)``: computed in the run's pool
+    from now on (host work done ahead of the path that needs it), or at
+    once without a pool."""
+    if CPU_HALVES[0] is None:
+        out = fn(*args)
+        return lambda: out
+    return CPU_HALVES[0].submit(fn, args).result
+
+
+def settle_cpu_halves():
+    """Every pending CPU half compared: raises on the first that fails."""
+    if CPU_HALVES[0] is not None:
+        CPU_HALVES[0].settle()
 
 
 _STARTED = [time.perf_counter()]   # reset at the start of run()
@@ -1695,10 +1787,11 @@ def phase_single_image(rng, dev):
     through ``render_variants``, the module function that
     ``generate_with_different_settings`` calls before it draws its grid
     (the post chain's limits). The
-    card's machine has no matplotlib, so the paths that draw a figure (the
-    size sweep, the skip blends, the advanced CLI, the local-style figure,
-    ``compare_models``) are held against the JAX package by the CPU tests
-    only, and not driven here."""
+    card's machine has no matplotlib: the size sweep and the skip blends,
+    which draw with it alone, are held against the JAX package by the CPU
+    tests only; the advanced CLI, the local-style figure and
+    ``compare_models`` draw with PIL there and run in the study path
+    (``phase_study``)."""
     import contextlib
 
     from PIL import Image
@@ -2035,10 +2128,10 @@ def pretrain_steps(state, batches, masks, dtype):
     return step
 
 
-def time_pretrain(step, what, batch, steps=10):
+def time_pretrain(step, what, batch, steps=10, profiled=None):
     """3 warm-up and ``steps`` timed steps on the host clock, then the
-    profiled device time of ``steps`` / 2 (at least 2): (ms/step, device
-    ms/step, idle share)."""
+    profiled device time of ``profiled`` steps (by default ``steps`` / 2,
+    at least 2): (ms/step, device ms/step, idle share)."""
     import torch
 
     for _ in range(3):
@@ -2049,7 +2142,7 @@ def time_pretrain(step, what, batch, steps=10):
         loss = step()
     torch.cuda.synchronize()
     ms = (time.perf_counter() - t0) * 1000 / steps
-    dev_ms = device_ms(step, iters=max(2, steps // 2), warmup=0)
+    dev_ms = device_ms(step, iters=profiled or max(2, steps // 2), warmup=0)
     idle = max(0.0, 1.0 - dev_ms / ms)
     log(f"[pretrain] {what}: {ms:.2f} ms/step, {batch * 1000 / ms:.1f} "
         f"images/s, device {dev_ms:.2f} ms/step (torch.profiler), device "
@@ -2317,7 +2410,50 @@ def random_inception_pth(path):
     torch.save(sd, path)
 
 
-def phase_fid(dev, counts, tmp):
+def fid_generators(device):
+    """The trained G_AB and G_BA at precision 'highest' on ``device``."""
+    from multi_style_transfer_gan_tpu_torch.pipelines import load_generator
+
+    return [load_generator(os.path.join(REPO, "trained",
+                                        f"G_{d}_selected.pth"),
+                           precision="highest", device=device)
+            for d in ("AB", "BA")]
+
+
+def fid_reference(tmp, n, batch):
+    """m_test's inputs and the CPU half of :func:`phase_fid`'s check, for
+    the CPU pool: a test tree of EVAL_IMAGES images a domain
+    (``write_domains``) and a seeded random InceptionV3 ``.pth`` under
+    ``tmp``, then ``run_fid_eval`` on the CPU at ``n`` images a direction
+    with each kind of features. Returns (tree, weights, seconds the files
+    took, {kind: the CPU's FIDs})."""
+    import contextlib
+
+    from multi_style_transfer_gan_tpu_torch.data import write_domains
+    from multi_style_transfer_gan_tpu_torch.metrics import fid_harness
+    from multi_style_transfer_gan_tpu_torch.metrics.inception import (
+        make_inception_feature_fn,
+    )
+
+    t0 = time.perf_counter()
+    data = os.path.join(tmp, "fid_data")
+    write_domains(data, n_train=0, n_test=EVAL_IMAGES, size=256, seed=SEED)
+    weights = os.path.join(tmp, "inception_v3.pth")
+    random_inception_pth(weights)
+    seconds = time.perf_counter() - t0
+    fids = {}
+    for kind, feature_fn in (
+            ("inception", make_inception_feature_fn(weights, device="cpu")),
+            ("fallback", None)):
+        with contextlib.redirect_stdout(io.StringIO()):
+            fids[kind] = fid_harness.run_fid_eval(
+                *fid_generators("cpu"), data,
+                os.path.join(tmp, f"fid_cpu_{kind}"), max_images=n,
+                feature_fn=feature_fn, batch=batch, save_panels=False)
+    return data, weights, seconds, fids
+
+
+def phase_fid(dev, counts, tmp, reference):
     """m_test's path: a ``write_domains`` test tree of EVAL_IMAGES images a
     domain, the trained G_AB and G_BA at precision 'highest', and features
     from a seeded random full-width InceptionV3 ``.pth``
@@ -2328,39 +2464,31 @@ def phase_fid(dev, counts, tmp):
     kinds (FID relative FID_RTOL); then each kind timed on the card at
     EVAL_IMAGES, its host-clock split (decode, generator with a
     synchronize, features, the statistic, the rest) and, from one more run
-    under ``torch.profiler``, its device time. Returns the numbers."""
+    under ``torch.profiler`` with the host statistic skipped, its device
+    time. ``reference()`` gives the test tree, the weights and the CPU's
+    FIDs (:func:`fid_reference`). Returns the numbers."""
     import contextlib
     import dataclasses
     import math
 
     import torch
 
-    from multi_style_transfer_gan_tpu_torch.data import (
-        ImageFolderDataset, write_domains,
-    )
+    from multi_style_transfer_gan_tpu_torch.data import ImageFolderDataset
     from multi_style_transfer_gan_tpu_torch.metrics import fid_harness
     from multi_style_transfer_gan_tpu_torch.metrics.inception import (
         make_inception_feature_fn,
     )
-    from multi_style_transfer_gan_tpu_torch.pipelines import load_generator
-
-    data = os.path.join(tmp, "fid_data")
     t0 = time.perf_counter()
-    write_domains(data, n_train=0, n_test=EVAL_IMAGES, size=256, seed=SEED)
-    weights = os.path.join(tmp, "inception_v3.pth")
-    random_inception_pth(weights)
+    data, weights, seconds, cpu_fids = reference()
     log(f"[fid] test tree of {EVAL_IMAGES} images a domain and a random "
-        f"InceptionV3 .pth ({os.path.getsize(weights) / 2 ** 20:.1f} MiB) "
-        f"written in {time.perf_counter() - t0:.1f} s")
-    devices = {"card": dev, "cpu": torch.device("cpu")}
-    gens = {w: [load_generator(os.path.join(REPO, "trained",
-                                            f"G_{d}_selected.pth"),
-                               precision="highest", device=devices[w])
-                for d in ("AB", "BA")] for w in devices}
-    features = {(w, "inception"): make_inception_feature_fn(weights,
-                                                            device=d)
-                for w, d in devices.items()}
-    features.update({(w, "fallback"): None for w in devices})
+        f"InceptionV3 .pth ({os.path.getsize(weights) / 2 ** 20:.1f} MiB), "
+        f"written in {seconds:.1f} s, and the CPU's FIDs, computed in the "
+        f"CPU pool beside the earlier paths; waited "
+        f"{time.perf_counter() - t0:.1f} s for them")
+    gens = {"card": fid_generators(dev)}
+    features = {("card", "inception"): make_inception_feature_fn(weights,
+                                                                 device=dev),
+                ("card", "fallback"): None}
 
     def run(where, kind, n, generators=None):
         before = counts()
@@ -2388,14 +2516,14 @@ def phase_fid(dev, counts, tmp):
 
     fids, worst = {}, 0.0
     for kind in ("inception", "fallback"):
-        got, want = (run(w, kind, EVAL_CPU_IMAGES) for w in ("card", "cpu"))
+        got = fids[kind] = run("card", kind, EVAL_CPU_IMAGES)
+        want = cpu_fids[kind]
         rel = {k: abs(got[k] - want[k]) / abs(want[k]) for k in want}
         worst = max(worst, *rel.values())
-        fids[kind] = got
         log(f"[fid] {kind} features, {EVAL_CPU_IMAGES} images a direction: "
             f"card {got}, CPU {want}; relative |d| "
             + ", ".join(f"{k} {v:.3e}" for k, v in rel.items()))
-        if max(rel.values()) > FID_RTOL:
+        if not max(rel.values()) <= FID_RTOL:   # NaN fails too
             raise AssertionError(f"FID with {kind} features: card and CPU "
                                  f"differ by {rel}")
 
@@ -2437,8 +2565,14 @@ def phase_fid(dev, counts, tmp):
             fid_harness.fid_from_features = statistic
             features[("card", kind)] = feature_fn
         split = dict(spent, other=wall - sum(spent.values()))
-        dev_ms = device_ms(lambda: run("card", kind, EVAL_IMAGES), iters=1,
-                           warmup=0)
+        # the device time of one more run, whose Frechet statistic (numpy on
+        # the host, no launch) is skipped
+        fid_harness.fid_from_features = lambda *a, **k: 1.0
+        try:
+            dev_ms = device_ms(lambda: run("card", kind, EVAL_IMAGES),
+                               iters=1, warmup=0)
+        finally:
+            fid_harness.fid_from_features = statistic
         images = 4 * EVAL_IMAGES   # generated and real, both directions
         timing[kind] = (images / wall, wall, split, dev_ms / 1e3 / wall, out)
         log(f"[fid] {kind} features on the card, {EVAL_IMAGES} images a "
@@ -2460,9 +2594,9 @@ def phase_folders(dev, work):
     through ``main(argv)``. The entry points that draw a figure
     (``compare_image_quality``, ``complete_comparison`` and
     ``image_quality_comparison`` always draw bar charts, and m_test's
-    panels) need matplotlib, which the card's machine does not have: the
-    CPU tests hold them against the JAX package, and they are not driven
-    here."""
+    panels) draw with PIL on the card's machine, which has no matplotlib;
+    the CPU tests hold them against the JAX package, and all but
+    ``image_quality_comparison`` run in the study path."""
     import contextlib
 
     from multi_style_transfer_gan_tpu_torch.cli import (
@@ -2603,8 +2737,9 @@ def phase_gui(rng, dev, counts):
 
     log("[gui] not driven on the card (no display, no matplotlib there; "
         "the CPU tests hold them against the JAX package): the Tk shell, "
-        "the compare tab and the enhanced_segmentation mode (both draw a "
-        "figure), debug_model --image and generate_new_image's plot")
+        "the enhanced_segmentation mode, debug_model --image and "
+        "generate_new_image's plot; the compare tab's worker runs in the "
+        "study path")
     tmp = tempfile.mkdtemp(prefix="gui_")
     try:
         photos = gui_photos(tmp)
@@ -3141,10 +3276,23 @@ def phase_width_kernels(rng, dev, widths=WIDTH_CHANNELS):
     return out
 
 
-def program_card_vs_cpu(tag, gpu, cpu, batch, counts, dev, engines=None):
-    """The fp32 uint8 program of the loaded generators ``gpu`` (on the card)
-    and ``cpu`` on ``batch`` with each engine (of ``engines``, by default
-    ENGINES): at most U8_MAX_DIFF levels on U8_MAX_SHARE of the values,
+def cpu_program(path, batch, engine):
+    """The CPU half of :func:`program_card_vs_cpu`: the fp32 uint8 program
+    of the generator at ``path`` (precision 'highest') on ``batch``."""
+    from multi_style_transfer_gan_tpu_torch.pipelines import (
+        load_generator, make_batch_fn,
+    )
+
+    cpu = load_generator(path, precision="highest", device="cpu")
+    return make_batch_fn(cpu, "cyclegan", engine=engine,
+                         device="cpu")(batch).numpy()
+
+
+def program_card_vs_cpu(tag, gpu, path, batch, counts, dev, engines=None):
+    """The fp32 uint8 program of the loaded generator ``gpu`` (on the card)
+    and of its checkpoint ``path`` on the CPU on ``batch`` with each engine
+    (of ``engines``, by default ENGINES): at most U8_MAX_DIFF levels on
+    U8_MAX_SHARE of the values (the CPU half through ``cpu_check``),
     FORWARD_LAUNCHES per forward. Returns {engine: the card's output}."""
     from multi_style_transfer_gan_tpu_torch.pipelines import make_batch_fn
 
@@ -3156,19 +3304,23 @@ def program_card_vs_cpu(tag, gpu, cpu, batch, counts, dev, engines=None):
         got = outs[engine] = make_batch_fn(
             gpu, "cyclegan", engine=engine, device=dev)(batch).cpu().numpy()
         launched = [counts()[n] - before[n] for n in names]
-        ref = make_batch_fn(cpu, "cyclegan", engine=engine,
-                            device="cpu")(batch).numpy()
-        dmax, share = u8_diff(got, ref)
-        log(f"{tag} {engine} fp32 card vs CPU, {batch.shape} uint8: max diff "
-            f"{dmax}, differing share {share:.3e}; launches per forward (NHWC "
-            f"attention, block, packed attention, relayout): {launched}")
+        log(f"{tag} {engine} fp32 on the card, {batch.shape} uint8: launches "
+            f"per forward (NHWC attention, block, packed attention, "
+            f"relayout): {launched}")
         if launched != FORWARD_LAUNCHES[engine]:
             raise AssertionError(f"{tag} {engine}: expected launches "
                                  f"{FORWARD_LAUNCHES[engine]}, got {launched}")
-        if (got.shape != batch.shape or dmax > U8_MAX_DIFF
-                or share > U8_MAX_SHARE):
-            raise AssertionError(f"{tag} {engine} fp32 program on the card "
-                                 f"disagrees with the CPU")
+
+        def finish(ref, got=got, engine=engine):
+            dmax, share = u8_diff(got, ref)
+            log(f"{tag} {engine} fp32 card vs CPU, {batch.shape} uint8: max "
+                f"diff {dmax}, differing share {share:.3e}")
+            if (got.shape != batch.shape or dmax > U8_MAX_DIFF
+                    or share > U8_MAX_SHARE):
+                raise AssertionError(f"{tag} {engine} fp32 program on the "
+                                     f"card disagrees with the CPU")
+
+        cpu_check(cpu_program, (path, batch, engine), finish)
     return outs
 
 
@@ -3248,13 +3400,12 @@ def phase_width_serving(rng, dev, counts, work, widths=WIDTH_CHANNELS,
         path = os.path.join(work, f"enhanced_c{channels}.pth")
         n_params = width_checkpoint(path, channels)
         gpu = load_generator(path, precision="highest", device=dev)
-        cpu = load_generator(path, precision="highest", device="cpu")
         log(f"[width serving] c{channels}: {gpu.kind} c{gpu.channels}, "
             f"{n_params} parameters, {path}")
         batch = np.stack(smooth_images(rng, WIDTH_CPU_BATCH[channels],
                                        (canvas, canvas)))
-        outs = program_card_vs_cpu(f"[width serving] c{channels}", gpu, cpu,
-                                   batch, counts, dev)
+        outs = program_card_vs_cpu(f"[width serving] c{channels}", gpu,
+                                   path, batch, counts, dev)
         clock(f"[width serving] c{channels} card vs CPU")
         dmax, share = u8_diff(outs["packed"], outs["nhwc"])
         log(f"[width serving] c{channels} fp32 packed vs NHWC engine on the "
@@ -3301,7 +3452,7 @@ def phase_width_serving(rng, dev, counts, work, widths=WIDTH_CHANNELS,
         out[channels] = {"parameters": n_params, "rates": rates,
                          "weights_gib": held,
                          "launches": {n: end[n] - start[n] for n in end}}
-        del gpu, cpu, bf16
+        del gpu, bf16
     if not refuse:
         return out
 
@@ -3466,6 +3617,23 @@ def phase_width_train_kernels(rng, dev, widths=WIDTH_CHANNELS):
     return out
 
 
+def fast_vjp_outputs(x, ws, g, dtype, device="cpu"):
+    """``window_channel_attention_fast_vjp`` on ``device`` in ``dtype``: y
+    and the five gradients of <y, g>, as fp32 numpy. The CPU half of
+    :func:`phase_fast_vjp`'s card-vs-CPU check."""
+    import torch
+
+    from multi_style_transfer_gan_tpu_torch.ops.kernels import (
+        window_channel_attention_fast_vjp,
+    )
+
+    args = [torch.from_numpy(np.asarray(a, np.float32)).to(
+        device, dtype).requires_grad_(True) for a in [x] + list(ws)]
+    y = window_channel_attention_fast_vjp(*args)
+    grads = torch.autograd.grad(y, args, torch.from_numpy(g).to(device, dtype))
+    return [t.detach().float().cpu().numpy() for t in (y, *grads)]
+
+
 def phase_fast_vjp(rng, dev, shape=FAST_VJP_SHAPE, check=True):
     """LocalAttention under grad where no training kernel is built (C = 128:
     c32's down2, c64's down1 and up1; C = 256: c64's down2):
@@ -3495,35 +3663,36 @@ def phase_fast_vjp(rng, dev, shape=FAST_VJP_SHAPE, check=True):
     for label, x, ws in attention_stress_inputs(rng, shape) if check else ():
         g = rng.standard_normal(shape).astype(np.float32)
         for dtype in (torch.float32, torch.bfloat16):
-            outs = {}
-            for key, device in (("card", dev), ("cpu", torch.device("cpu"))):
-                args = [torch.from_numpy(np.asarray(a, np.float32)).to(
-                    device, dtype).requires_grad_(True) for a in [x] + ws]
-                y = window_channel_attention_fast_vjp(*args)
-                grads = torch.autograd.grad(
-                    y, args, torch.from_numpy(g).to(device, dtype))
-                outs[key] = [t.detach().float().cpu() for t in (y, *grads)]
-            card, cpu = outs["card"], outs["cpu"]
-            err, bf16_ok = compare(card[0], cpu[0], dtype)
-            fp32 = dtype == torch.float32
-            ok = err <= FP32_TOL if fp32 else bf16_ok
-            rel = [((a - b).abs().max() / max(1.0, b.abs().max().item())).item()
-                   for a, b in zip(card[1:], cpu[1:])]
-            ok = ok and max(rel) <= (TRAIN_GRAD_FP32_TOL if fp32 else BF16_RTOL)
-            ok = ok and all(bool(torch.isfinite(t).all()) for t in card)
-            log(f"[fast vjp] C = {C} route {shape} {label} {str(dtype)[6:]}, "
-                f"card vs CPU: y max|d| {err:.3e}; gradients max|d| relative "
-                f"to their largest " + ", ".join(
-                    f"{n} {r:.3e}" for n, r in zip(names[1:], rel)))
-            if not ok:
-                raise AssertionError(f"fast-VJP route {label} {dtype}: card "
-                                     f"and CPU disagree")
-            if fp32:
-                rec["max_abs_err"] = max(rec["max_abs_err"], err)
-                rec["max_rel_grad_err"] = max(rec["max_rel_grad_err"], max(rel))
-            else:
-                rec["max_rel_grad_err_bf16"] = max(
-                    rec["max_rel_grad_err_bf16"], max(rel))
+            card = [torch.from_numpy(t) for t in fast_vjp_outputs(
+                x, ws, g, dtype, dev)]
+
+            def finish(cpu, card=card, label=label, dtype=dtype):
+                cpu = [torch.from_numpy(t) for t in cpu]
+                err, bf16_ok = compare(card[0], cpu[0], dtype)
+                fp32 = dtype == torch.float32
+                ok = err <= FP32_TOL if fp32 else bf16_ok
+                rel = [((a - b).abs().max()
+                        / max(1.0, b.abs().max().item())).item()
+                       for a, b in zip(card[1:], cpu[1:])]
+                ok = ok and max(rel) <= (TRAIN_GRAD_FP32_TOL if fp32
+                                         else BF16_RTOL)
+                ok = ok and all(bool(torch.isfinite(t).all()) for t in card)
+                log(f"[fast vjp] C = {C} route {shape} {label} "
+                    f"{str(dtype)[6:]}, card vs CPU: y max|d| {err:.3e}; "
+                    f"gradients max|d| relative to their largest " + ", ".join(
+                        f"{n} {r:.3e}" for n, r in zip(names[1:], rel)))
+                if not ok:
+                    raise AssertionError(f"fast-VJP route {label} {dtype}: "
+                                         f"card and CPU disagree")
+                if fp32:
+                    rec["max_abs_err"] = max(rec["max_abs_err"], err)
+                    rec["max_rel_grad_err"] = max(rec["max_rel_grad_err"],
+                                                  max(rel))
+                else:
+                    rec["max_rel_grad_err_bf16"] = max(
+                        rec["max_rel_grad_err_bf16"], max(rel))
+
+            cpu_check(fast_vjp_outputs, (x, ws, g, dtype), finish)
 
     x, ws = attention_stress_inputs(rng, shape)[0][1:]
     args = [torch.from_numpy(np.asarray(a, np.float32)).to(
@@ -3580,12 +3749,28 @@ def launches_of(step, counts, expected, what):
     return out
 
 
+def cpu_train_losses(channels, host, kw):
+    """The CPU half of :func:`fp32_step_card_vs_cpu`: one fp32 CycleGAN step
+    from the same init on the uint8 images ``host`` (numpy), its losses."""
+    import torch
+
+    from multi_style_transfer_gan_tpu_torch.ops import to_model_range
+    from multi_style_transfer_gan_tpu_torch.train import (
+        cyclegan_init_state, cyclegan_train_step,
+    )
+
+    st = cyclegan_init_state(SEED + 1, channels, 1, device="cpu")
+    a, b = (to_model_range(torch.from_numpy(t)) for t in host)
+    return {k: float(v) for k, v in cyclegan_train_step(
+        st, a, b, compute_dtype=torch.float32, **kw)[1].items()}
+
+
 def fp32_step_card_vs_cpu(dev, channels, what, host=None, size=128, **kw):
     """One fp32 CycleGAN step at ``channels`` (``size``^2, batch 2) on the
     card and on the CPU from the same init and uint8 images (``host``, an
     (A, B) pair on the CPU; by default drawn from a generator of this
-    width's own): the five losses, relative, at TRAIN_FP32_RTOL. Returns the
-    card's launches."""
+    width's own): the five losses, relative, at TRAIN_FP32_RTOL (the CPU
+    half through ``cpu_check``). Returns the card's launches."""
     import torch
 
     from multi_style_transfer_gan_tpu_torch.ops import kernels as K
@@ -3598,24 +3783,25 @@ def fp32_step_card_vs_cpu(dev, channels, what, host=None, size=128, **kw):
         rng = np.random.default_rng(SEED + channels)
         host = [torch.from_numpy(np.stack(smooth_images(rng, 2, (size, size))))
                 for _ in range(2)]
-    out, launched = {}, None
-    for key, device in (("card", dev), ("cpu", torch.device("cpu"))):
-        st = cyclegan_init_state(SEED + 1, channels, 1, device=device)
-        a, b = (to_model_range(t.to(device)) for t in host)
-        n0 = sum(k.launches for k in K.KERNELS)
-        out[key] = {k: float(v) for k, v in cyclegan_train_step(
-            st, a, b, compute_dtype=torch.float32, **kw)[1].items()}
-        if key == "card":
-            launched = sum(k.launches for k in K.KERNELS) - n0
-    rel = {k: abs(out["card"][k] - out["cpu"][k]) / abs(out["cpu"][k])
-           for k in out["cpu"]}
-    log(f"{what} fp32 c{channels} {host[0].shape[1]}^2 batch 2, card vs CPU: "
-        f"{out['card']} "
-        f"vs {out['cpu']}; max relative difference {max(rel.values()):.2e}; "
-        f"{launched} kernel launches on the card")
-    if max(rel.values()) > TRAIN_FP32_RTOL:
-        raise AssertionError(f"{what}: fp32 step on the card disagrees with "
-                             f"the CPU: {rel}")
+    st = cyclegan_init_state(SEED + 1, channels, 1, device=dev)
+    a, b = (to_model_range(t.to(dev)) for t in host)
+    n0 = sum(k.launches for k in K.KERNELS)
+    card = {k: float(v) for k, v in cyclegan_train_step(
+        st, a, b, compute_dtype=torch.float32, **kw)[1].items()}
+    launched = sum(k.launches for k in K.KERNELS) - n0
+
+    def finish(cpu):
+        rel = {k: abs(card[k] - cpu[k]) / abs(cpu[k]) for k in cpu}
+        log(f"{what} fp32 c{channels} {host[0].shape[1]}^2 batch 2, card vs "
+            f"CPU: {card} vs {cpu}; max relative difference "
+            f"{max(rel.values()):.2e}; {launched} kernel launches on the "
+            f"card")
+        if not max(rel.values()) <= TRAIN_FP32_RTOL:   # NaN fails too
+            raise AssertionError(f"{what}: fp32 step on the card disagrees "
+                                 f"with the CPU: {rel}")
+
+    cpu_check(cpu_train_losses, (channels, [t.numpy() for t in host], kw),
+              finish)
     return launched
 
 
@@ -3626,12 +3812,13 @@ def train_width(rng, dev, counts, channels, gen, pretrain_batch=TRAIN_BATCH,
     a seeded fresh init (launches per step against
     WIDTH_TRAIN_LAUNCHES_PER_STEP, finite losses, G, D and u moved, ms/step
     over ``steps`` steps after 3 warm-up, the step's profiler device time
-    over ``steps`` / 2 more and the peak memory); at c8 and c64 one bf16
+    over WIDTH_PROFILED_STEPS more and the peak memory); at c8 and c64 one bf16
     step with the VGG16 perceptual hook (launches equal to the hookless
     step's); one fp32 step card vs CPU (``fp32_size``^2, batch 2); the
     enhanced bf16 pretrain step at 256^2, batch ``pretrain_batch``
     (launches per step against WIDTH_PRETRAIN_LAUNCHES_PER_STEP, ms/step
-    over ``steps``, device idle share) and two fp32 pretrain steps card vs
+    over ``steps``, device idle share from WIDTH_PROFILED_STEPS) and two
+    fp32 pretrain steps card vs
     CPU (128^2, batch 2). Returns {"step_ms",
     "step_device_ms", "step_idle", "step_peak_gib", "pretrain": (ms, device
     ms, idle), "launches"}."""
@@ -3665,7 +3852,7 @@ def train_width(rng, dev, counts, channels, gen, pretrain_batch=TRAIN_BATCH,
     torch.cuda.synchronize()
     ms = (time.perf_counter() - t0) * 1000 / steps
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
-    step_dev = device_ms(step, iters=max(2, steps // 2), warmup=0)
+    step_dev = device_ms(step, iters=WIDTH_PROFILED_STEPS, warmup=0)
     idle = max(0.0, 1.0 - step_dev / ms)
     vals = {k: float(v) for k, v in losses.items()}
     log(f"{tag} bf16 {WIDTH_TRAIN_SIZE}^2 batch {TRAIN_BATCH}, pair "
@@ -3709,7 +3896,8 @@ def train_width(rng, dev, counts, channels, gen, pretrain_batch=TRAIN_BATCH,
     launches_of(pstep, counts, WIDTH_PRETRAIN_LAUNCHES_PER_STEP[channels],
                 f"{tag} enhanced pretrain bf16 step")
     pre = time_pretrain(pstep, f"c{channels} enhanced bf16 {size}^2 "
-                        f"batch {pretrain_batch}", pretrain_batch, steps)
+                        f"batch {pretrain_batch}", pretrain_batch, steps,
+                        WIDTH_PROFILED_STEPS)
     del state, pstep
     clock(f"{tag} pretrain steps")
     fp32_pretrain_card_vs_cpu(rng, dev, channels, gen, tag)
@@ -3720,47 +3908,58 @@ def train_width(rng, dev, counts, channels, gen, pretrain_batch=TRAIN_BATCH,
             "launches": {n: end[n] - start[n] for n in end}}
 
 
-def fp32_pretrain_card_vs_cpu(rng, dev, channels, gen, tag, size=128):
-    """Two fp32 enhanced pretrain steps at ``channels`` (``size``^2, batch
-    2) on the card and on the CPU from the same init, images and masks: the
-    losses, relative, at PRETRAIN_FP32_RTOL."""
+def pretrain_losses(channels, host, masks, device="cpu"):
+    """Two fp32 enhanced pretrain steps at ``channels`` from SEED + 1 on
+    ``device``, on the uint8 images ``host`` and the ``masks`` (numpy): the
+    losses. The CPU half of :func:`fp32_pretrain_card_vs_cpu`."""
     import torch
 
-    from multi_style_transfer_gan_tpu_torch.data import random_patch_mask
     from multi_style_transfer_gan_tpu_torch.ops import to_model_range
     from multi_style_transfer_gan_tpu_torch.train import (
         pretrain_init_state, pretrain_train_step,
     )
 
-    host = [torch.from_numpy(np.stack(smooth_images(rng, 2, (size, size))))
-            for _ in range(2)]
-    hmasks = [random_patch_mask(2, size, generator=gen, device="cpu")
-              for _ in range(2)]
-    losses = []
-    for device in (dev, torch.device("cpu")):
-        st = pretrain_init_state(SEED + 1, channels, model="enhanced",
-                                 device=device)
-        losses.append([float(pretrain_train_step(
-            st, to_model_range(x.to(device)), m.to(device))[1])
-            for x, m in zip(host, hmasks)])
-    rel = max(abs(a - b) / abs(b) for a, b in zip(*losses))
-    log(f"{tag} enhanced pretrain fp32 {size}^2 batch 2, two steps card vs "
-        f"CPU: {losses[0]} vs {losses[1]}; max relative difference "
-        f"{rel:.2e} (limit {PRETRAIN_FP32_RTOL})")
-    if rel > PRETRAIN_FP32_RTOL:
-        raise AssertionError(f"{tag}: fp32 pretrain steps, card and CPU "
-                             f"disagree")
+    st = pretrain_init_state(SEED + 1, channels, model="enhanced",
+                             device=device)
+    return [float(pretrain_train_step(
+        st, to_model_range(torch.from_numpy(x).to(device)),
+        torch.from_numpy(m).to(device))[1]) for x, m in zip(host, masks)]
 
 
-def run_cli(fn, argv, what):
-    """One CLI's main(argv), its output logged; raises unless it exits 0."""
+def fp32_pretrain_card_vs_cpu(rng, dev, channels, gen, tag, size=128):
+    """Two fp32 enhanced pretrain steps at ``channels`` (``size``^2, batch
+    2) on the card and on the CPU from the same init, images and masks: the
+    losses, relative, at PRETRAIN_FP32_RTOL (the CPU half through
+    ``cpu_check``)."""
+    from multi_style_transfer_gan_tpu_torch.data import random_patch_mask
+
+    host = [np.stack(smooth_images(rng, 2, (size, size))) for _ in range(2)]
+    masks = [random_patch_mask(2, size, generator=gen, device="cpu").numpy()
+             for _ in range(2)]
+    card = pretrain_losses(channels, host, masks, dev)
+
+    def finish(cpu):
+        rel = max(abs(a - b) / abs(b) for a, b in zip(card, cpu))
+        log(f"{tag} enhanced pretrain fp32 {size}^2 batch 2, two steps card "
+            f"vs CPU: {card} vs {cpu}; max relative difference {rel:.2e} "
+            f"(limit {PRETRAIN_FP32_RTOL})")
+        if not rel <= PRETRAIN_FP32_RTOL:   # NaN fails too
+            raise AssertionError(f"{tag}: fp32 pretrain steps, card and CPU "
+                                 f"disagree")
+
+    cpu_check(pretrain_losses, (channels, host, masks), finish)
+
+
+def run_cli(fn, argv, what, tag="[width train]"):
+    """One CLI's main(argv), its output logged; raises unless it exits 0
+    (None counts as 0, for the scripts whose main returns nothing)."""
     import contextlib
 
     buf = io.StringIO()
     t0 = time.perf_counter()
     with contextlib.redirect_stdout(buf):
-        rc = fn(argv)
-    log(f"[width train] {what}: exit {rc}, {time.perf_counter() - t0:.2f} "
+        rc = fn(argv) or 0
+    log(f"{tag} {what}: exit {rc}, {time.perf_counter() - t0:.2f} "
         f"s wall; its output:")
     for line in buf.getvalue().splitlines():
         log(f"    {line}")
@@ -3917,10 +4116,9 @@ def phase_grid_small_serving(rng, dev, counts, work):
         path = os.path.join(work, f"enhanced_c{channels}.pth")
         n_params = width_checkpoint(path, channels)
         gpu = load_generator(path, precision="highest", device=dev)
-        cpu = load_generator(path, precision="highest", device="cpu")
         batch = np.stack(smooth_images(rng, WIDTH_CPU_BATCH[channels],
                                        (size, size)))
-        program_card_vs_cpu(f"[grid serving] c{channels}", gpu, cpu, batch,
+        program_card_vs_cpu(f"[grid serving] c{channels}", gpu, path, batch,
                             counts, dev)
         end = counts()
         out[channels] = {"parameters": n_params,
@@ -4161,10 +4359,9 @@ def phase_any_small_serving(rng, dev, counts, work, widths=ANY_SMALL_CHANNELS,
         path = os.path.join(work, f"enhanced_c{channels}.pth")
         n_params = width_checkpoint(path, channels)
         gpu = load_generator(path, precision="highest", device=dev)
-        cpu = load_generator(path, precision="highest", device="cpu")
         batch = np.stack(smooth_images(rng, WIDTH_CPU_BATCH[channels],
                                        (size, size)))
-        program_card_vs_cpu(f"{tag} c{channels}", gpu, cpu, batch, counts,
+        program_card_vs_cpu(f"{tag} c{channels}", gpu, path, batch, counts,
                             dev, engines)
         clock(f"{tag} c{channels}")
         end = counts()
@@ -4304,6 +4501,163 @@ def phase_wide_train(rng, dev, counts, work):
     return out
 
 
+# ---------------------------------------------------------------------------
+# the trained-model study: docs/TRAINED_STUDY.md's recipe through the port's
+# scripts (multi_style_transfer_gan_tpu_torch.scripts)
+
+STUDY_DOMAINS = ["--n_train", "16", "--n_test", "8", "--size", "256",
+                 "--seed", "0"]
+STUDY_TRAIN = ["--num_epochs", "2", "--channels", "16", "--image_size", "256",
+               "--batch_size", "8", "--checkpoint_every", "1"]
+STUDY_SELECT = ["--n_val", "4", "--soup_max", "3"]
+STUDY_BATCH_RUNS, STUDY_REQUESTS = 6, 24
+STUDY_GRID = (1024, 768)   # 4 rows of 256^2 panels, 3 across
+
+
+def phase_study(dev, counts, work):
+    """The study recipe on the card: the synthetic domains (16 training and
+    8 test images a domain at 256^2) through ``make_synthetic_domains``,
+    the train CLI for 2 epochs at c16 (bf16, a checkpoint an epoch), the
+    shipped trained pair staged as epoch 3, ``select_checkpoints`` (every
+    forward EVAL_LAUNCHES_PER_FORWARD, timed), its fp32 ``forward_u8`` card
+    vs CPU on the shipped pair, the exported soup bit-equal to a host
+    recomputation, ``make_sample_grids`` (two 768 x 1024 JPEGs),
+    ``run_trained_surface`` with no stage skipped (convert max |d| 0, six
+    batch runs with every output written, 24/24 server replies) and
+    ``reproduce_quality_study --synthetic``. Returns the select forwards'
+    img/s, each surface stage's seconds and the server's numbers."""
+    import torch
+    from PIL import Image
+
+    from multi_style_transfer_gan_tpu_torch.cli import train as train_cli
+    from multi_style_transfer_gan_tpu_torch.pipelines import load_generator
+    from multi_style_transfer_gan_tpu_torch.scripts import (
+        make_sample_grids, make_synthetic_domains, reproduce_quality_study,
+        run_trained_surface, select_checkpoints as sc,
+    )
+    from multi_style_transfer_gan_tpu_torch.weights import load_pth
+
+    tag = "[study]"
+    root = os.path.join(work, "study")
+    data, models, selected, surface = (os.path.join(root, n) for n in (
+        "domains", "models", "selected", "surface"))
+    run_cli(make_synthetic_domains.main, ["--root", data] + STUDY_DOMAINS,
+            "make_synthetic_domains", tag)
+    run_cli(train_cli.main, ["--data_root", data, "--save_dir", models]
+            + STUDY_TRAIN, "train CLI", tag)
+    for key in ("AB", "BA"):
+        shutil.copy(os.path.join(REPO, "trained", f"G_{key}_selected.pth"),
+                    os.path.join(models, f"G_{key}_epoch_3.pth"))
+
+    # select_checkpoints, each forward_u8 call timed and its launches read
+    forwards = []
+    real = sc.forward_u8
+
+    def timed(model, x, batch=8, **kw):
+        before = counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = real(model, x, batch, **kw)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        chunks = -(-len(x) // batch)
+        launched = {n: k - before[n] for n, k in counts().items()}
+        want = {n: EVAL_LAUNCHES_PER_FORWARD.get(n, 0) * chunks
+                for n in launched}
+        if launched != want:
+            raise AssertionError(f"{tag} forward_u8 launched {launched} for "
+                                 f"{chunks} forwards, expected {want}")
+        forwards.append((len(x), seconds))
+        return out
+
+    sc.forward_u8 = timed
+    try:
+        run_cli(sc.main, ["--models_dir", models, "--data_root", data,
+                          "--selected_dir", selected] + STUDY_SELECT,
+                "select_checkpoints", tag)
+    finally:
+        sc.forward_u8 = real
+    select_rate = sum(n for n, _ in forwards) / sum(t for _, t in forwards)
+    log(f"{tag} select_checkpoints: {len(forwards)} forward_u8 calls of 4 + "
+        f"1 launches a forward, {select_rate:.1f} img/s (bf16, 256^2)")
+
+    # the shipped pair's fp32 forward_u8, card vs CPU (TF32 off)
+    for key in ("BA", "AB"):
+        inputs, _ = sc.make_eval(key, data, 4)
+        path = os.path.join(REPO, "trained", f"G_{key}_selected.pth")
+        got, want = (sc.forward_u8(load_generator(path, device=d), inputs,
+                                   compute_dtype=torch.float32)
+                     for d in (dev, "cpu"))
+        dmax, share = u8_diff(got, want)
+        log(f"{tag} forward_u8 G_{key} fp32 card vs CPU, {inputs.shape}: max "
+            f"diff {dmax}, differing share {share:.3e}")
+        if got.shape != inputs.shape or dmax > U8_MAX_DIFF \
+                or share > U8_MAX_SHARE:
+            raise AssertionError(f"{tag} forward_u8 G_{key}: card and CPU "
+                                 f"disagree")
+
+    # the export: the soup recomputed on the host from the same files (or the
+    # picked epoch's tensors), bit for bit; the shipped pair's val SSIM
+    report = json.load(open(os.path.join(selected, "selection_report.json")))
+    shipped = json.load(open(os.path.join(REPO, "trained",
+                                          "selection_report.json")))
+    for key, rec in report["per_direction"].items():
+        name = f"G_{key}_state_dict"
+        paths = [os.path.join(models, f"G_{key}_epoch_{e}.pth")
+                 for e in rec["soup"]["epochs"]]
+        want = (sc.soup_state_dict(paths, name) if rec["selected"] == "soup"
+                else load_pth(paths[-1])[name])
+        got = load_pth(os.path.join(selected, f"G_{key}_epoch_0.pth"))[name]
+        if list(got) != list(want) or not all(
+                torch.equal(got[k], v) for k, v in want.items()):
+            raise AssertionError(f"{tag} G_{key}_epoch_0.pth is not the "
+                                 f"host's {rec['selected']}")
+        ssim = {r["epoch"]: r["ssim"] for r in rec["curve"]}[3]
+        ref = shipped["per_direction"][key]
+        log(f"{tag} G_{key}: selected {rec['selected']} (curve "
+            f"{rec['curve']}, soup {rec['soup']}), export bit-equal to the "
+            f"host's; the shipped pair's val SSIM on the card {ssim} on the "
+            f"last 4 of 8 test images, trained/selection_report.json: "
+            f"best single {ref['best_single']}, soup {ref['soup']['ssim']}, "
+            f"selected {ref['selected']} (another split: for reading)")
+
+    grids = os.path.join(root, "grids")
+    run_cli(make_sample_grids.main, ["--selected_dir", selected,
+                                     "--data_root", data,
+                                     "--output_dir", grids],
+            "make_sample_grids", tag)
+    for label in ("photo2monet", "monet2photo"):
+        with Image.open(os.path.join(
+                grids, f"{label}_input_output_truth.jpg")) as img:
+            if img.size != STUDY_GRID[::-1] or img.format != "JPEG":
+                raise AssertionError(f"{tag} the {label} grid is {img.size} "
+                                     f"{img.format}")
+
+    run_cli(run_trained_surface.main, ["--models_dir", selected, "--epoch",
+                                       "0", "--data_root", data,
+                                       "--output_dir", surface],
+            "run_trained_surface", tag)
+    summary = json.load(open(os.path.join(surface, "surface_summary.json")))
+    n_test = len(os.listdir(os.path.join(data, "testB")))
+    serving = summary["serving"]
+    if (summary["convert"]["max_delta"] != 0.0
+            or len(summary["batch"]) != STUDY_BATCH_RUNS
+            or any(r["written"] != n_test for r in summary["batch"])
+            or serving["replies"] != STUDY_REQUESTS):
+        raise AssertionError(f"{tag} run_trained_surface: {summary}")
+
+    # the smoke writes under a fresh temporary folder: keep it in ``work``
+    saved, tempfile.tempdir = tempfile.tempdir, root
+    try:
+        run_cli(reproduce_quality_study.main, ["--synthetic"],
+                "reproduce_quality_study --synthetic", tag)
+    finally:
+        tempfile.tempdir = saved
+    return {"select_img_s": select_rate, "seconds": summary["seconds"],
+            "serving": {k: serving[k] for k in (
+                "img_s", "latency_p50_s", "latency_p95_s")}}
+
+
 def main() -> int:
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as work:
         return run(work)
@@ -4311,14 +4665,29 @@ def main() -> int:
 
 def run(work) -> int:
     """Every path and check, in order; ``work`` holds the files the paths
-    share (the batch CLI's folders, which the evaluation path compares)."""
+    share (the batch CLI's folders, which the evaluation path compares).
+    The CPU halves of the card-vs-CPU checks run in a pool of CPU_WORKERS
+    processes started here and stopped on the way out."""
     import torch
 
     if not torch.cuda.is_available():
         print("error: no CUDA device; chip_smoke.py runs on the GPU",
               file=sys.stderr)
         return 1
-    t_start = _STARTED[0] = time.perf_counter()
+    _STARTED[0] = time.perf_counter()
+    CPU_HALVES[0] = CpuHalves(CPU_WORKERS, CPU_THREADS)
+    try:
+        return run_paths(work)
+    finally:
+        CPU_HALVES[0].close()
+        CPU_HALVES[0] = None
+
+
+def run_paths(work) -> int:
+    """The body of :func:`run`."""
+    import torch
+
+    t_start = _STARTED[0]
     mark = clock   # the run's clock at each phase boundary
 
     card = card_line()
@@ -4341,6 +4710,10 @@ def run(work) -> int:
     mark("row 1, 5-7 and 9 phases")
     ready()
     mark("every source built")
+    # the evaluation path's files and its FID check's CPU half, computed by
+    # the CPU pool meanwhile
+    fid_reference_of = cpu_result(fid_reference, (work, EVAL_CPU_IMAGES,
+                                                  EVAL_BATCH))
     block_err, block_times = phase_block(rng, dev)
     photo_err = phase_photo_kernels(rng, dev)
     attn_err = max(attn_err, photo_err["attention"])
@@ -4593,7 +4966,8 @@ def run(work) -> int:
 
     K.reset_launch_counts()   # the evaluation path starts here
     metric_err, pair_rates = phase_metrics(rng, dev)
-    fid_err, fids, fid_timing = phase_fid(dev, counts, work)
+    fid_err, fids, fid_timing = phase_fid(dev, counts, work,
+                                          fid_reference_of)
     folder_err = phase_folders(dev, work)
     evaluation = counts()     # ...and ends here
     log(f"[evaluation path] launches: {evaluation}")
@@ -4603,6 +4977,16 @@ def run(work) -> int:
         raise AssertionError(f"evaluation path launches {evaluation}: "
                              f"expected 4 NHWC attention calls per block "
                              f"call and no other kernel")
+
+    K.reset_launch_counts()   # the study path starts here
+    study = phase_study(dev, counts, work)
+    studied = counts()        # ...and ends here
+    log(f"[study path] launches: {studied}")
+    if min(studied[n] for n in list(TRAIN_LAUNCHES_PER_STEP)
+           + serving_kernels) == 0:
+        raise AssertionError(f"study path launches {studied}: a kernel of "
+                             f"the path never launched")
+    mark("study path")
 
     K.reset_launch_counts()   # the GUI and tools path starts here
     gui_walls, gui_split = phase_gui(rng, dev, counts)
@@ -4631,12 +5015,13 @@ def run(work) -> int:
     if ablation["window_channel_attention_stage"] == 0:
         raise AssertionError(f"ablation path launches {ablation}: the stage "
                              f"kernel never launched")
+    settle_cpu_halves()   # every CPU half compared before the report
     launches = {n: serving[n] + widths[n] + c64_serving[n] + grid_serving[n]
                 + any_serving[n] + wide_serving[n] + single[n] + training[n]
                 + width_training[n] + c64_training[n] + grid_training[n]
                 + any_training[n] + wide_training[n] + pretraining[n]
-                + evaluation[n] + gui[n] + perceptual[n] + ablation[n]
-                for n in counted}
+                + evaluation[n] + studied[n] + gui[n] + perceptual[n]
+                + ablation[n] for n in counted}
     mark("all paths")
 
     # inference kernels: per forward at canvas 256, batch 8, bf16 (the four
@@ -4964,6 +5349,14 @@ def run(work) -> int:
             f"the pretrain step's one batch-8 forward "
             f"~{fwd_ms / t['pretrain'][0]:.1%} and "
             f"~{fwd_dev / t['pretrain'][1]:.1%}")
+    log(f"[summary] {card}; study path: select_checkpoints forwards "
+        f"{study['select_img_s']:.1f} img/s (bf16, 256^2, batch 8); "
+        f"run_trained_surface stages "
+        + ", ".join(f"{k} {v:.2f} s" for k, v in study["seconds"].items())
+        + f"; its server {study['serving']['img_s']:.2f} img/s, p50 "
+        f"{study['serving']['latency_p50_s']:.3f} s, p95 "
+        f"{study['serving']['latency_p95_s']:.3f} s ({STUDY_REQUESTS} "
+        f"requests, concurrency 8)")
     p_with, p_without, vgg_share = perceptual_ms
     log(f"[summary] {card}; GUI tab wall per image on the card (decode, "
         f"generator, post chain, restore and save; 3 photos after a warm-up): "

@@ -110,11 +110,20 @@ def run_fid_eval(g_ab, g_ba, data_root, output_dir, *, max_images: int = 100,
 
 
 def _save_panels(inputs_u8, outputs01, direction, output_dir, max_panels=4):
+    from ..utils.figures import have_matplotlib, panel_grid
+
+    shown = display_process(outputs01[:max_panels]).cpu().numpy()
+    if not have_matplotlib():
+        n = min(max_panels, len(inputs_u8))
+        titles = ["input"] + [""] * (n - 1)
+        titles += ["generated (display-processed)"] + [""] * (n - 1)
+        panel_grid(zip(list(inputs_u8[:n]) + list(shown[:n]), titles), n,
+                   os.path.join(output_dir, f"panels_{direction}.png"))
+        return
     import matplotlib
     matplotlib.use("Agg")
     import matplotlib.pyplot as plt
 
-    shown = display_process(outputs01[:max_panels]).cpu().numpy()
     fig, axes = plt.subplots(2, max_panels, figsize=(4 * max_panels, 8))
     for i in range(min(max_panels, len(inputs_u8))):
         axes[0, i].imshow(inputs_u8[i]); axes[0, i].axis("off")

@@ -119,7 +119,13 @@ def write_xlsx(path, sheets: Mapping[str, Sequence[Sequence]]):
 def comparison_bar_chart(path, labels, series: Mapping[str, Sequence[float]],
                          title: str, ylabel: str):
     """Grouped bar chart PNG like create_comparison_charts
-    (compare_image_quality.py:394-467). Host-side matplotlib."""
+    (compare_image_quality.py:394-467). Host-side matplotlib, or PIL where
+    matplotlib is not installed (``utils.figures``)."""
+    from ..utils.figures import bar_chart, have_matplotlib
+
+    if not have_matplotlib():
+        bar_chart(path, labels, series, title, ylabel)
+        return
     import matplotlib
     matplotlib.use("Agg")
     import matplotlib.pyplot as plt

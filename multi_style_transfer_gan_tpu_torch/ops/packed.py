@@ -127,11 +127,23 @@ def pack_conv2d_spec(K, *, f_in: int, f_out: int, stride=1, padding=0,
 
 
 def _repack(w, Mi, Mj, pattern, shape):
-    """Contract the 0/1 tap maps with ``w`` in float64 on the CPU: every
-    packed entry is one original weight or zero, so the result is exact."""
-    w_p = torch.einsum(pattern, torch.from_numpy(Mi), torch.from_numpy(Mj),
-                       w.detach().to("cpu", torch.float64))
-    return w_p.reshape(shape).to(w.dtype)
+    """The packed kernel of ``pattern`` (``kadb,lceg,<w>-><out>``: the sum
+    over k, l of the 0/1 tap maps times ``w``), on the CPU. At most one k
+    maps to each (a, d, b) and one l to each (c, e, g), so every packed
+    entry is one original weight or zero: each (k, l) tap pair copies its
+    weight slice into a zeroed kernel, exactly."""
+    ins, out = pattern.split("->")
+    m_i, m_j, w_labels = ins.split(",")
+    assert out.index(w_labels[0]) < out.index(w_labels[1])
+    sizes = dict(zip(m_i, Mi.shape)) | dict(zip(m_j, Mj.shape))
+    sizes |= dict(zip(w_labels, w.shape))
+    w = w.detach().cpu()
+    w_p = torch.zeros([sizes[c] for c in out], dtype=w.dtype)
+    for k, *ti in np.argwhere(Mi):
+        for l, *tj in np.argwhere(Mj):
+            at = dict(zip(m_i[1:], ti)) | dict(zip(m_j[1:], tj))
+            w_p[tuple(at.get(c, slice(None)) for c in out)] = w[:, :, k, l]
+    return w_p.reshape(shape)
 
 
 def _tile_bias(b, f):

@@ -10,8 +10,8 @@
 
 from .batch import batch_process, make_batch_fn, select_engine
 from .direct import test_different_sizes, transform_image, try_skip_connections
-from .model_loader import LoadedModel, load_generator
+from .model_loader import LoadedModel, load_generator, model_from_state_dict
 
 __all__ = ["LoadedModel", "batch_process", "load_generator", "make_batch_fn",
-           "select_engine", "test_different_sizes", "transform_image",
-           "try_skip_connections"]
+           "model_from_state_dict", "select_engine", "test_different_sizes",
+           "transform_image", "try_skip_connections"]

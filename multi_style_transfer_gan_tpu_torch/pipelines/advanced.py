@@ -171,6 +171,14 @@ def generate_with_different_settings(model: LoadedModel, image_path,
 
 
 def _comparison_grid(orig, results, output_dir, model_kind):
+    from ..utils.figures import have_matplotlib, panel_grid
+
+    grid_path = os.path.join(output_dir, f"{model_kind}_comparison.jpg")
+    if not have_matplotlib():
+        panel_grid([(orig, "original")] + [(Image.open(p), name)
+                                           for name, p in results.items()],
+                   3, grid_path)
+        return
     import matplotlib
     matplotlib.use("Agg")
     import matplotlib.pyplot as plt
@@ -188,6 +196,5 @@ def _comparison_grid(orig, results, output_dir, model_kind):
     for ax in axes[n:]:
         ax.axis("off")
     fig.tight_layout()
-    fig.savefig(os.path.join(output_dir, f"{model_kind}_comparison.jpg"),
-                dpi=110)
+    fig.savefig(grid_path, dpi=110)
     plt.close(fig)

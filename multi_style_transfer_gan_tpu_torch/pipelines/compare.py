@@ -49,19 +49,24 @@ def compare_models(enhanced: LoadedModel, cyclegan: LoadedModel, img_path,
     p_enh, img_enh = finish(enh_out, "enhanced")
     p_cyc, img_cyc = finish(cyc_out, "cyclegan")
 
+    from ..utils.figures import have_matplotlib, panel_grid
+
+    orig = Image.open(img_path).convert("RGB")
+    panels = [(orig, "original"), (img_enh, "enhanced local-style"),
+              (img_cyc, "cyclegan")]
+    figure_path = os.path.join(output_dir, "compare_side_by_side.png")
+    if not have_matplotlib():
+        panel_grid(panels, 3, figure_path)
+        return {"enhanced": p_enh, "cyclegan": p_cyc, "figure": figure_path}
     import matplotlib
     matplotlib.use("Agg")
     import matplotlib.pyplot as plt
 
-    orig = Image.open(img_path).convert("RGB")
     fig, axes = plt.subplots(1, 3, figsize=(15, 5))
-    for ax, (im, title) in zip(axes, [(orig, "original"),
-                                      (img_enh, "enhanced local-style"),
-                                      (img_cyc, "cyclegan")]):
+    for ax, (im, title) in zip(axes, panels):
         ax.imshow(np.asarray(im))
         ax.set_title(title)
         ax.axis("off")
-    figure_path = os.path.join(output_dir, "compare_side_by_side.png")
     fig.tight_layout()
     fig.savefig(figure_path, dpi=110)
     plt.close(fig)

@@ -187,7 +187,14 @@ def enhanced_local_style_transfer(model: LoadedModel, img_path, output_path,
 
 
 def _comparison(original, stylized, blend_map, final, path):
-    """4-panel figure (:294-321)."""
+    """4-panel figure (:294-321); the blend map in grey where matplotlib is
+    not installed."""
+    from ..utils.figures import have_matplotlib, panel_grid
+
+    if not have_matplotlib():
+        panel_grid([(original, "original"), (stylized, "stylized"),
+                    (blend_map, "blend map"), (final, "final")], 2, path)
+        return
     import matplotlib
     matplotlib.use("Agg")
     import matplotlib.pyplot as plt

@@ -101,8 +101,17 @@ def load_generator(path, prefer: str | None = None,
         raise ValueError(f"precision must be one of {PRECISIONS}, "
                          f"got {precision!r}")
     ckpt = load_pth(path)
-    direction = _sniff_direction(ckpt, prefer)
     sd = extract_state_dict(ckpt, prefer=prefer)
+    return model_from_state_dict(sd, precision=precision,
+                                 direction=_sniff_direction(ckpt, prefer),
+                                 device=device)
+
+
+def model_from_state_dict(sd, precision: str = "default",
+                          direction: str | None = None, *,
+                          device) -> LoadedModel:
+    """A generator state dict (plain or enhanced) -> ``LoadedModel`` on
+    ``device``, as :func:`load_generator` builds it from a file."""
     kind = detect_model_kind(sd)
     if kind == "plain":
         module = PlainGenerator(detect_channels(sd))
@@ -112,13 +121,18 @@ def load_generator(path, prefer: str | None = None,
         module = EnhancedGenerator(channels_of(sd),
                                    num_transformer_blocks_of(sd))
     else:
-        raise ValueError(f"checkpoint at {path} is a {kind}, not a generator")
+        raise ValueError(f"the checkpoint is a {kind}, not a generator")
     module.load_state_dict(sd, strict=True)
     module = module.to(device=device, memory_format=torch.channels_last).eval()
 
     def apply(x):
-        with torch.inference_mode(), torch.backends.cudnn.flags(
-                enabled=True, allow_tf32=precision != "highest"):
+        # TF32 by ``precision``; cuDNN's other switches as the caller set
+        # them (``deterministic`` makes two forwards bit-equal on the card)
+        cudnn = torch.backends.cudnn
+        with torch.inference_mode(), cudnn.flags(
+                enabled=True, benchmark=cudnn.benchmark,
+                deterministic=cudnn.deterministic,
+                allow_tf32=precision != "highest"):
             y = module(x.permute(0, 3, 1, 2))
         return y.permute(0, 2, 3, 1)
 

@@ -304,7 +304,8 @@ def test_c64_generator_matches_jax_fast_path(interpret_pallas, tmp_path):
     torch.save({"G_AB_state_dict": module.state_dict()}, path)
     model = load_generator(str(path), device="cpu")
     assert (model.kind, model.channels) == ("enhanced", C64)
-    sd = {k: v.numpy() for k, v in module.state_dict().items()}
+    sd = {k: v.detach().numpy().copy()
+          for k, v in module.state_dict().items()}
     params = {k: jnp.asarray(v) for k, v in
               enhanced_generator_from_sd(sd).items()}
     x = np.tanh(np.random.default_rng(64).standard_normal(
@@ -324,7 +325,8 @@ def test_enhanced_pretrain_step_at_c64_matches_jax(rng):
     on JAX's mask: the loss at rtol 1e-5."""
     port = pretrain_init_state(3, C64, model="enhanced", num_epochs=2,
                                steps_per_epoch=1, device="cpu")
-    sd = {k: v.numpy() for k, v in port.model.state_dict().items()}
+    sd = {k: v.detach().numpy().copy()
+          for k, v in port.model.state_dict().items()}
     params = {k: jnp.asarray(v) for k, v in
               enhanced_generator_from_sd(sd).items()}
     tx = jpretrain.make_pretrain_optimizer(2, 1)
@@ -333,8 +335,11 @@ def test_enhanced_pretrain_step_at_c64_matches_jax(rng):
     key = jax.random.PRNGKey(5)
     x = np.tanh(rng.standard_normal((2, 32, 32, 3))).astype(np.float32)
     mask = np.array(jax_random_patch_mask(key, 2, 32, width=32))
-    _, jloss = jax.jit(lambda s, x_, k: jpretrain.pretrain_train_step(
-        s, tx, x_, k))(jstate, jnp.asarray(x), key)
+    # wait for JAX before the port's step updates the tensors it was
+    # built from
+    _, jloss = jax.block_until_ready(jax.jit(
+        lambda s, x_, k: jpretrain.pretrain_train_step(s, tx, x_, k))(
+        jstate, jnp.asarray(x), key))
     _, ploss = pretrain_train_step(port, torch.from_numpy(x),
                                    torch.from_numpy(mask))
     np.testing.assert_allclose(float(ploss), float(jloss), rtol=PRETRAIN_RTOL)

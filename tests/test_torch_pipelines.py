@@ -316,16 +316,22 @@ def test_batch_cli_data_parallel_is_not_ported(capsys):
 
 
 def test_port_never_imports_jax():
-    """Importing the port and every submodule leaves jax and the JAX
-    package out of sys.modules (a fresh interpreter, since the tests
+    """Importing the port and every submodule, the study scripts of
+    ``scripts/`` among them, leaves jax, the JAX package and the JAX repo's
+    ``scripts`` out of sys.modules (a fresh interpreter, since the tests
     themselves use JAX)."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import multi_style_transfer_gan_tpu_torch as pkg\n"
         "for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + '.'):\n"
         "    importlib.import_module(m.name)\n"
+        "study = {pkg.__name__ + '.scripts.' + n for n in (\n"
+        "    'make_synthetic_domains', 'select_checkpoints',\n"
+        "    'make_sample_grids', 'reproduce_quality_study',\n"
+        "    'run_trained_surface')}\n"
+        "assert study <= set(sys.modules), study - set(sys.modules)\n"
         "bad = sorted(k for k in sys.modules if k.split('.')[0] in\n"
-        "             ('jax', 'multi_style_transfer_gan_tpu'))\n"
+        "             ('jax', 'multi_style_transfer_gan_tpu', 'scripts'))\n"
         "assert not bad, bad\n"
         "print('ok', len([k for k in sys.modules if k.startswith(pkg.__name__)]))\n")
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
@@ -351,14 +357,16 @@ def _imported_roots(path):
 
 
 def test_port_and_chip_smoke_import_nothing_of_jax():
-    """No import statement in the package or in chip_smoke.py names jax or
-    the JAX package, wherever it stands (inside functions too)."""
+    """No import statement in the package (its study scripts too) or in
+    chip_smoke.py names jax, the JAX package or the JAX repo's
+    ``scripts``, wherever it stands (inside functions too)."""
     pkg = os.path.join(REPO, "multi_style_transfer_gan_tpu_torch")
     paths = [os.path.join(REPO, "chip_smoke.py")]
     for root, _, files in os.walk(pkg):
         paths += [os.path.join(root, f) for f in files if f.endswith(".py")]
     assert len(paths) > 40
+    assert os.path.join(pkg, "scripts", "run_trained_surface.py") in paths
     bad = {os.path.relpath(p, REPO): sorted(r) for p in paths
-           if (r := _imported_roots(p) & {"jax", "jaxlib",
+           if (r := _imported_roots(p) & {"jax", "jaxlib", "scripts",
                                           "multi_style_transfer_gan_tpu"})}
     assert not bad, bad

@@ -302,7 +302,8 @@ def test_cpu_routes_every_width_through_the_plain_mid(monkeypatch):
 
 def _jax_cyclegan_state(ts, g_tx, d_tx):
     """The JAX state holding the port state's G and D (and sn buffers)."""
-    sd = lambda n: {k: v.numpy() for k, v in getattr(ts, n).state_dict().items()}
+    sd = lambda n: {k: v.detach().numpy().copy()
+                    for k, v in getattr(ts, n).state_dict().items()}
     g = {n: {k: jnp.asarray(v) for k, v in enhanced_generator_from_sd(sd(n)).items()}
          for n in ("G_AB", "G_BA")}
     d, sn = {}, {}
@@ -333,7 +334,10 @@ def _step_against_jax(rng, channels, **port_kw):
     js = _jax_cyclegan_state(ts, g_tx, d_tx)
     xa, xb = (np.tanh(rng.standard_normal((1, 32, 32, 3))).astype(np.float32)
               for _ in range(2))
-    js, jl = step(js, jnp.asarray(xa), jnp.asarray(xb))
+    # JAX runs its step asynchronously: wait for it before the port's step
+    # updates the tensors JAX's state was built from
+    js, jl = jax.block_until_ready(step(js, jnp.asarray(xa),
+                                        jnp.asarray(xb)))
     ts, tl = cyclegan_train_step(ts, torch.from_numpy(xa),
                                  torch.from_numpy(xb), **port_kw)
     for k in KEYS:
@@ -406,7 +410,8 @@ def test_enhanced_pretrain_step_at_c8_matches_jax(rng):
     a fresh Adam, the port on JAX's mask: the loss at rtol 1e-5."""
     port = pretrain_init_state(3, 8, model="enhanced", num_epochs=2,
                                steps_per_epoch=1, device="cpu")
-    sd = {k: v.numpy() for k, v in port.model.state_dict().items()}
+    sd = {k: v.detach().numpy().copy()
+          for k, v in port.model.state_dict().items()}
     params = {k: jnp.asarray(v) for k, v in enhanced_generator_from_sd(sd).items()}
     tx = jpretrain.make_pretrain_optimizer(2, 1)
     jstate = jpretrain.PretrainState(params, tx.init(params),
@@ -414,8 +419,11 @@ def test_enhanced_pretrain_step_at_c8_matches_jax(rng):
     key = jax.random.PRNGKey(5)
     x = np.tanh(rng.standard_normal((2, 32, 32, 3))).astype(np.float32)
     mask = np.array(jax_random_patch_mask(key, 2, 32, width=32))
-    _, jloss = jax.jit(lambda s, x_, k: jpretrain.pretrain_train_step(
-        s, tx, x_, k))(jstate, jnp.asarray(x), key)
+    # wait for JAX before the port's step updates the tensors it was
+    # built from
+    _, jloss = jax.block_until_ready(jax.jit(
+        lambda s, x_, k: jpretrain.pretrain_train_step(s, tx, x_, k))(
+        jstate, jnp.asarray(x), key))
     _, ploss = pretrain_train_step(port, torch.from_numpy(x),
                                    torch.from_numpy(mask))
     np.testing.assert_allclose(float(ploss), float(jloss), rtol=PRETRAIN_RTOL)

@@ -500,7 +500,8 @@ def test_generator_matches_jax_on_both_engines(tmp_path, channels):
     block), batch 1 at 32^2; no kernel launches on the CPU."""
     module = EnhancedGenerator(channels, 1, generator=torch.Generator()
                                .manual_seed(channels))
-    sd = {k: v.numpy() for k, v in module.state_dict().items()}
+    sd = {k: v.detach().numpy().copy()
+          for k, v in module.state_dict().items()}
     params = {k: jnp.asarray(v) for k, v in
               enhanced_generator_from_sd(sd).items()}
     x = np.tanh(np.random.default_rng(channels).standard_normal(
@@ -534,7 +535,8 @@ def test_enhanced_pretrain_step_at_c12_matches_jax(rng):
     and a fresh Adam, the port on JAX's mask: the loss at rtol 1e-5."""
     port = pretrain_init_state(3, 12, model="enhanced", num_epochs=2,
                                steps_per_epoch=1, device="cpu")
-    sd = {k: v.numpy() for k, v in port.model.state_dict().items()}
+    sd = {k: v.detach().numpy().copy()
+          for k, v in port.model.state_dict().items()}
     params = {k: jnp.asarray(v) for k, v in
               enhanced_generator_from_sd(sd).items()}
     tx = jpretrain.make_pretrain_optimizer(2, 1)
@@ -543,8 +545,11 @@ def test_enhanced_pretrain_step_at_c12_matches_jax(rng):
     key = jax.random.PRNGKey(5)
     x = np.tanh(rng.standard_normal((2, 32, 32, 3))).astype(np.float32)
     mask = np.array(jax_random_patch_mask(key, 2, 32, width=32))
-    _, jloss = jax.jit(lambda s, x_, k: jpretrain.pretrain_train_step(
-        s, tx, x_, k))(jstate, jnp.asarray(x), key)
+    # wait for JAX before the port's step updates the tensors it was
+    # built from
+    _, jloss = jax.block_until_ready(jax.jit(
+        lambda s, x_, k: jpretrain.pretrain_train_step(s, tx, x_, k))(
+        jstate, jnp.asarray(x), key))
     _, ploss = pretrain_train_step(port, _t(x), _t(mask))
     np.testing.assert_allclose(float(ploss), float(jloss), rtol=PRETRAIN_RTOL)
 

@@ -219,7 +219,8 @@ def grid_generators():
         for c in GRID_CHANNELS:
             module = EnhancedGenerator(c, 1, generator=torch.Generator()
                                        .manual_seed(c))
-            sd = {k: v.numpy() for k, v in module.state_dict().items()}
+            sd = {k: v.detach().numpy().copy()
+          for k, v in module.state_dict().items()}
             params = {k: jnp.asarray(v) for k, v in
                       enhanced_generator_from_sd(sd).items()}
             x = np.tanh(np.random.default_rng(c).standard_normal(
@@ -288,7 +289,8 @@ def test_c24_generator_gradients_match_jax_fast_attention_train(
                         lambda *a, **kw: orig(*a, **{**kw, "interpret": True}))
     module = EnhancedGenerator(24, 1, generator=torch.Generator()
                                .manual_seed(24))
-    sd = {k: v.detach().numpy().copy() for k, v in module.state_dict().items()}
+    sd = {k: v.detach().numpy().copy()
+          for k, v in module.state_dict().items()}
     params = {k: jnp.asarray(v) for k, v in
               enhanced_generator_from_sd(sd).items()}
     rng = np.random.default_rng(24)
