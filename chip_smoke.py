@@ -17,9 +17,10 @@ trained (CycleGAN and enhanced pretraining, c64 also through the pretrain
 CLI's defaults), the c24, c40,
 c48 and c56 ones, which run padded inside the kernels, the c4, c12, .., c60
 ones (the widths that are not multiples of 8), the c68 .. c128 ones (the
-widths past 64), and checks every hand-written kernel on the way:
+widths past 64), the c132, c192 and c256 ones (the widths past 128), and
+checks every hand-written kernel on the way:
 
-1. build: all seven CUDA sources compile from ``csrc/`` at once, one nvcc
+1. build: all eight CUDA sources compile from ``csrc/`` at once, one nvcc
    each;
 2. window channel attention, kernel vs plain PyTorch at every shape the
    generator gives it at canvas 256 and 512 (fp32 with TF32 off, and bf16),
@@ -115,9 +116,7 @@ widths past 64), and checks every hand-written kernel on the way:
     the fp32 program at 'highest' card vs CPU on both engines with 4 + 1
     launches a forward (and 5 relayouts packed), packed vs NHWC, the bf16
     program's img/s at canvas 256, batch 16 and 64, and ``batch_process``
-    on a small folder at c32; a c67, a c129 and a c256 checkpoint raise at
-    ``load_generator`` on the card, and the train CLI at ``--channels 129``
-    raises before its first step;
+    on a small folder at c32;
 17. width training (``phase_width_train_kernels`` and ``phase_fast_vjp``
     after step 5, the width training path after the training path): the
     training kernels at the shapes of a bf16 train step of the c8 and c32
@@ -132,8 +131,7 @@ widths past 64), and checks every hand-written kernel on the way:
     ms/step, idle share) and two fp32 pretrain steps card vs CPU; a hooked
     c8 step; the train CLI at ``--channels 32`` and the pretrain CLI at
     ``--model enhanced --channels 8``; one ``fast_attention=False`` step
-    (``--no_fast_attention``) card vs CPU with no kernel launch; c67, c129
-    and c256 refused;
+    (``--no_fast_attention``) card vs CPU with no kernel launch;
 18. c64, the JAX pretrain CLI's default width (``phase_width_kernels`` and
     ``phase_width_train_kernels`` with ``C64_CHANNELS`` and ``phase_fast_vjp``
     at ``C64_FAST_VJP_SHAPES`` beside the other width phases, the c64
@@ -170,8 +168,8 @@ widths past 64), and checks every hand-written kernel on the way:
     server, ``direct_transform`` and ``train --channels 48``, c24 through
     ``pretrain --model enhanced``; c24, c40 and c56 small (the fp32
     program at 64^2 on both engines, one fp32 CycleGAN step and two fp32
-    pretrain steps at 128^2, card vs CPU); c67, c129 and c256 refused; the
-    route's share of the c48 step;
+    pretrain steps at 128^2, card vs CPU); the route's share of the c48
+    step;
 20. the widths that are not multiples of 8 (c4, c12, c20, c28, c36, c44,
     c52, c60: every generator width from 1 to 64 that is not a multiple of
     8, as the EnhancedGenerator exists at c % 4 == 0 only; on
@@ -202,20 +200,38 @@ widths past 64), and checks every hand-written kernel on the way:
     grid too; the bf16 block at dims 200, 220, 252, 416 and 480, whose
     windows have an odd count of weight tiles, on 512 windows:
     ``phase_block_many_windows``);
-    c128 (16 heads of 32) and c68 (8 heads of 34 in slots of 48) at full
-    width as c48 is (kernel phases at their canvas-256 shapes; served on
-    both engines with fp32 card vs CPU and bf16 img/s at batch 16 and 64,
-    c128 also through the batch CLI on both engines, the server and
-    ``direct_transform``; the bf16 CycleGAN step with its launches, every
-    LocalAttention call on the route, ms/step, idle share and peak memory,
-    the fp32 step card vs CPU, the enhanced pretrain step at batch 16 and
-    two fp32 pretrain steps at 128^2 card vs CPU; ``train --channels 68``,
-    ``train --channels 72 --no_fast_attention`` with no kernel launch and
-    ``pretrain --model enhanced --channels 128``; the route at C = 512 card
-    vs CPU and timed, at 272 timed); c72, c96 and c116 small (the fp32
-    program at 64^2 on both engines, one fp32 CycleGAN step and two fp32
-    pretrain steps at 64^2, card vs CPU);
-22. the trained-model study (``phase_study``, after the evaluation path):
+    the route at C = 512 card vs CPU; c68 (8 heads of 34 in slots of 48)
+    at full width as c48 is, through the pair kernel in bf16 (kernel
+    phases at its canvas-256 shapes, served on both engines with fp32 card
+    vs CPU and bf16 img/s, ``batch_process``; the bf16 CycleGAN step with
+    its launches, the fp32 step card vs CPU at 64^2, the enhanced pretrain
+    step, ``train --channels 68`` whose G_AB stylizes a folder); c72, c96,
+    c116 and c128 small (the fp32 program at 64^2 on the NHWC engine, one
+    fp32 CycleGAN step and two fp32 pretrain steps at 64^2, card vs CPU;
+    ``train --channels 72 --no_fast_attention`` with no kernel launch);
+22. the widths past 128 (c132, c192 and c256, on their own rngs, the
+    kernel phases beside the others, the serving and training paths after
+    the wide ones): every kernel against its plain version in fp32 and bf16
+    on the stress inputs (``phase_any_kernels``: the attention, both
+    layouts, at C = 516, 528, 768, 1024 and 2048, streamed through a
+    workspace; the block, the bf16 chain and the fp32 FMA bodies with the
+    residual stream in float64, and row 12 at dims 528, 768, 1024, 1072,
+    2032 and 2048 in 16 to 64 heads of 32 to 127 channels, a ragged grid
+    too; ``phase_past_many_windows``: bf16 on grids of several workspace
+    chunks); c256 at full width (kernel phases at its canvas-256 shapes;
+    served with the fp32 program at 64^2 card vs CPU, bf16 img/s of both
+    engines at batch 16, ``batch_process``, the batch CLI with ``--engine
+    nhwc`` and ``auto``, the server and ``direct_transform``; the bf16
+    CycleGAN step with its launches, every LocalAttention call on the route
+    up to C = 1024, ms/step, idle share and peak memory, the fp32 step and
+    two fp32 pretrain steps at 64^2 card vs CPU, the enhanced pretrain step
+    with its peak memory; ``train --channels 256`` and ``pretrain --model
+    enhanced --channels 256`` at the CLIs' other defaults; the route at C =
+    1024 card vs CPU and timed with its peak memory); c132 and c192 served
+    (the fp32 program at 64^2 card vs CPU, the fp32 packed engine vs the
+    NHWC one on the card, bf16 img/s of both engines at canvas 256, batch
+    16);
+23. the trained-model study (``phase_study``, after the evaluation path):
     the recipe of ``docs/TRAINED_STUDY.md`` through
     ``multi_style_transfer_gan_tpu_torch.scripts``: the synthetic domains,
     the train CLI for 2 epochs at c16, the shipped trained pair staged as
@@ -226,6 +242,13 @@ widths past 64), and checks every hand-written kernel on the way:
     the server's p50 / p95 and img/s) and ``reproduce_quality_study
     --synthetic``.
 
+Every fp32 pretrain check holds the losses of two steps and the first
+step's gradient norms, and reruns the card's half under each of
+PLANTED_FAULTS (a doubled backward of row 12 or of LocalAttention), which
+must fail it; the fp32 CycleGAN step check holds the step's losses, which
+read the generators' forward and the discriminators' backward. Both start
+from warm Adams (``warm_adam``).
+
 The CPU halves of the card-vs-CPU checks (the fp32 programs of the width
 paths, the fp32 train and pretrain steps, the fast-VJP route, FID) run in a
 pool of CPU_WORKERS spawned processes beside the card's work, and the
@@ -233,7 +256,7 @@ evaluation path's test tree is written there meanwhile; each half is
 compared when it arrives (FID's when its path starts), and every one before
 the report. Every phase
 raises on failure, a CPU half too. The last line is the result JSON; the
-line before it lists each kernel with its launches on the nineteen paths
+line before it lists each kernel with its launches on the twenty-one paths
 (launch counts are reset just before each path and read just after), its
 largest fp32 deviation from the plain version, its time beside the plain
 version's (the serving and training rows also per generator width,
@@ -255,6 +278,7 @@ carry their own ``device_ms`` too. Exits nonzero without a CUDA device.
 
 from __future__ import annotations
 
+import contextlib
 import io
 import json
 import os
@@ -332,7 +356,7 @@ PRETRAIN_BATCH = 16
 # fp32 plain forward card vs CPU (TF32 off): cuDNN and the CPU sum the
 # convs in other orders, and the eight layers and four BatchNorms carry it
 PLAIN_FP32_ATOL = 1e-3
-# two fp32 pretrain steps card vs CPU: the loss, relative
+# two fp32 pretrain steps card vs CPU: the losses, relative
 PRETRAIN_FP32_RTOL = 1e-3
 # launches per enhanced bf16 pretrain step: one generator forward and
 # backward with grad (4 LocalAttention mids and 1 block), nothing under
@@ -426,15 +450,16 @@ ANY_KERNEL_GRID = (2, 32, 32)
 # the widths past 64 (c65 .. c128): the attention at 4C in the C = 512
 # layout (C = 257 .. 512), the block at dims 260 .. 512 in the pair kernel
 # (bf16: a cluster of two blocks a window) and the FMA bodies with a
-# workspace (fp32), row 12 at 8 .. 16 heads. c128 (16 heads of 32, the
-# attention at 128, 256, 512) and c68 (8 heads of 34 in slots of 48, the
-# attention at 68, 136, 272: the narrowest width past 256, with the most
-# padding) at full width; c72 (9 heads of 32), c96 (12 of 32) and c116 (8 of
-# 58 in slots of 64) at WIDE_SMALL_SIZE; every kernel against its plain
-# version at the attention widths WIDE_ATTENTION_WIDTHS and the block and
-# row 12 dims WIDE_BLOCK_DIMS on ANY_KERNEL_GRID
-WIDE_FULL_CHANNELS = (128, 68)
-WIDE_SMALL_CHANNELS = (72, 96, 116)
+# workspace (fp32), row 12 at 8 .. 16 heads. c68 (8 heads of 34 in slots of
+# 48, the attention at 68, 136, 272: the narrowest width past 256, with the
+# most padding) at full width, served and trained in bf16 through the pair
+# kernel; c72 (9 heads of 32), c96 (12 of 32), c116 (8 of 58 in slots of
+# 64) and, since the paths past 128 came, c128 (16 of 32) at
+# WIDE_SMALL_SIZE; every kernel against its plain version at the attention
+# widths WIDE_ATTENTION_WIDTHS and the block and row 12 dims
+# WIDE_BLOCK_DIMS on ANY_KERNEL_GRID
+WIDE_FULL_CHANNELS = (68,)
+WIDE_SMALL_CHANNELS = (72, 96, 116, 128)
 WIDE_SMALL_SIZE = 64
 WIDE_ATTENTION_WIDTHS = (257, 272, 384, 500, 512)
 WIDE_BLOCK_DIMS = (260, 272, 288, 416, 464, 480, 512)
@@ -445,18 +470,72 @@ WIDE_BLOCK_DIMS = (260, 272, 288, 416, 464, 480, 512)
 # where the next window's first tile is copied while the last one is read
 MANY_WINDOW_BLOCK_DIMS = (200, 220, 252, 416, 480)
 MANY_WINDOW_GRID = (8, 64, 64)
-# the wide steps are long (c128's CycleGAN step is ~4x c64's): fewer timed
-# steps, and the fp32 CycleGAN step card vs CPU at WIDE_FP32_SIZE^2
+# the widths past 128 (c129 .. c512): the attention past C = 512 streamed
+# through a workspace, the bf16 block past dim 512 (and at heads wider than
+# 64) as the streamed chain, the fp32 block in the FMA bodies with its
+# residual stream in float64, row 12 at 16 .. 64 heads and at heads wider
+# than 64 in chunks of 64. Every new kernel shape against its plain version
+# on ANY_KERNEL_GRID (PAST_ATTENTION_WIDTHS: the down2 of c129, c132, c192,
+# c256 and c512; PAST_BLOCK_DIMS: the blocks of c132 (16 heads of 33), c192,
+# c256, c268 (16 of 67), c508 (16 of 127) and c512 (64 of 32)) and, in
+# bf16, on grids of more windows than one workspace chunk holds
+# (PAST_MANY_ATTENTION; PAST_MANY_BLOCK_DIMS on MANY_WINDOW_GRID); c256 (32
+# heads of 32, the attention at 256, 512 and 1024) at full width, served
+# and trained; c132 and c192 served on both engines at canvas 256, batch
+# PAST_RATE_BATCH. c128 runs small since then (WIDE_SMALL_CHANNELS), which
+# keeps the run near its time with these paths
+PAST_FULL_CHANNELS = (256,)
+PAST_SERVED_CHANNELS = (132, 192) + PAST_FULL_CHANNELS
+PAST_ATTENTION_WIDTHS = (516, 528, 768, 1024, 2048)
+PAST_BLOCK_DIMS = (528, 768, 1024, 1072, 2032, 2048)
+PAST_MANY_ATTENTION = ((8, 64, 64, 1024), (4, 48, 48, 2048))
+PAST_MANY_BLOCK_DIMS = (528, 1072, 2048)
+PAST_RATE_BATCH = 16
+# c256's fp32 programs and steps card vs CPU: at 64^2, as c68 .. c128's
+PAST_FP32_SIZE = 64
+# the fp32 CycleGAN and pretrain steps card vs CPU run from warm Adams
+# (``warm_adam``): a fresh Adam's first update is lr times the gradient's
+# sign, and from fresh ones the second losses read 1.05e-3 .. 1.18e-3 card
+# vs CPU at c72, c128 and c256 against rtol 1e-3 (PERF.md, which holds
+# both against float64: devtools/fp32_step_spread.py). The pretrain
+# check also holds the first step's gradient norms, and its negative
+# control reruns the card's half under each of PLANTED_FAULTS
+# (``planted_fault``), each of which must fail it
+WARM_ADAM_NU = 1e-6
+PLANTED_FAULTS = ("row 12 dqkv x2", "LocalAttention dx x2")
+# the pretrain check's gradient norms, card vs CPU (``grad_rel``): each
+# tensor's norm against itself, or against GRAD_NORM_FLOOR of the largest
+# where it is smaller, at GRAD_NORM_RTOL. Card vs CPU they read 2.2e-4 ..
+# 5.9e-2 at c4 .. c256 (the gradients at init pass through zero-safe L2
+# norms of near-zero q and k); each planted fault 0.88 or more
+# (PERF.md)
+GRAD_NORM_FLOOR = 1e-2
+GRAD_NORM_RTOL = 0.2
+# c256's bf16 steps and the CLIs' batch: at TRAIN_BATCH (the train CLI's
+# default) the route's plain VJP at the down2 holds 8 GiB tensors and the
+# CycleGAN step outgrows the card (73.44 GiB in use when one more did not
+# fit), so batch 4 (the pretrain CLI's default 16 alike)
+PAST_TRAIN_BATCH = 4
+# the width whose fp32 packed engine is held against the NHWC one on the
+# card (c192's repacked fp32 weights are ~20 GiB, c256's would be ~35)
+PAST_PACKED_FP32_CHANNELS = (132,)
+# c256's steps are long (its CycleGAN step ~1.8 s at batch 4): fewer timed
 WIDE_TIMED_STEPS = 3
-WIDE_FP32_SIZE = 64
 # the width paths read a step's device time from this many profiled steps
-# (a profiler session of a whole step takes seconds to read back)
+# (a profiler session of a whole step takes seconds to read back), time
+# WIDTH_TIMED_STEPS steps after the warm-up and each engine's img/s over
+# WIDTH_RATE_ITERS forwards a turn (fewer since the paths past 128 came, to
+# keep the run near its time)
 WIDTH_PROFILED_STEPS = 2
-ENTRY_CHANNELS = (48, 60, 64, 128)   # also through the batch CLI, server, direct_transform
-REFUSED_CHANNELS = (67, 129, 256)
+WIDTH_TIMED_STEPS = 5
+WIDTH_RATE_ITERS = 5
+# also through the batch CLI, server, direct_transform (c256 on the past-128
+# path)
+ENTRY_CHANNELS = (48, 60, 64)
 WIDTH_CPU_BATCH = {8: 2, 32: 2, 64: 1, 24: 2, 48: 1, 40: 2, 56: 2, 4: 2,
                    60: 1, **{c: 2 for c in ANY_SMALL_CHANNELS},
-                   **{c: 1 for c in WIDE_FULL_CHANNELS + WIDE_SMALL_CHANNELS}}
+                   **{c: 1 for c in WIDE_FULL_CHANNELS + WIDE_SMALL_CHANNELS
+                      + PAST_SERVED_CHANNELS}}
 WIDTH_FOLDER_IMAGES = 6
 # the c8, c32 and c64 generators trained: launches per bf16 CycleGAN step (pair
 # batching, remat off; 4 generator forwards with grad, 2 under no_grad) and
@@ -485,8 +564,8 @@ for _c in GRID_CHANNELS:
 # does; c60 at C = 60, 120, 240, all through the route, as c24 .. c56 do
 WIDTH_TRAIN_LAUNCHES_PER_STEP[4] = TRAIN_LAUNCHES_PER_STEP
 WIDTH_TRAIN_LAUNCHES_PER_STEP[60] = WIDTH_TRAIN_LAUNCHES_PER_STEP[24]
-# c68 and c128 train every LocalAttention call through the route too
-for _c in WIDE_FULL_CHANNELS:
+# c68 and c256 train every LocalAttention call through the route too
+for _c in WIDE_FULL_CHANNELS + PAST_FULL_CHANNELS:
     WIDTH_TRAIN_LAUNCHES_PER_STEP[_c] = WIDTH_TRAIN_LAUNCHES_PER_STEP[24]
 WIDTH_PRETRAIN_LAUNCHES_PER_STEP = {
     8: PRETRAIN_LAUNCHES_PER_STEP,
@@ -503,7 +582,7 @@ for _c in GRID_CHANNELS:
         "window_channel_attention": 4, "fused_structural_block": 0}
 WIDTH_PRETRAIN_LAUNCHES_PER_STEP[4] = PRETRAIN_LAUNCHES_PER_STEP
 WIDTH_PRETRAIN_LAUNCHES_PER_STEP[60] = WIDTH_PRETRAIN_LAUNCHES_PER_STEP[24]
-for _c in WIDE_FULL_CHANNELS:
+for _c in WIDE_FULL_CHANNELS + PAST_FULL_CHANNELS:
     WIDTH_PRETRAIN_LAUNCHES_PER_STEP[_c] = WIDTH_PRETRAIN_LAUNCHES_PER_STEP[24]
 # c32's down2 under grad: the fast-VJP route at its 256^2, batch-8 shape;
 # c64's down2 (C = 256, checked card vs CPU and timed) and down1 and up1
@@ -521,10 +600,13 @@ GRID_FAST_VJP_SHAPES = {c: ((TRAIN_BATCH, 256, 256, c),
 ANY_FAST_VJP_SHAPE = (TRAIN_BATCH, 64, 64, 240)
 # c128's down2 under grad, the route at C = 512: checked card vs CPU on a
 # small grid (the CPU half of the batch-8 shape would hold the run for
-# minutes), timed at the batch-8 shape; c68's at C = 272, timed
-WIDE_FAST_VJP_SHAPES = (((2, 32, 32, 512), True),
-                        ((TRAIN_BATCH, 64, 64, 512), False),
-                        ((TRAIN_BATCH, 64, 64, 272), False))
+# minutes)
+WIDE_FAST_VJP_SHAPES = (((2, 32, 32, 512), True),)
+# c256's down2 under grad, the route at C = 1024 over the streamed kernel:
+# card vs CPU on a small grid, timed (with its peak memory) at the train
+# step's shape
+PAST_FAST_VJP_SHAPES = (((2, 32, 32, 1024), True),
+                        ((TRAIN_BATCH, 64, 64, 1024), False))
 SMALL_QK_DRAWS = 3
 WIDTH_TRAIN_SIZE = 256   # the bf16 steps' images
 
@@ -543,6 +625,9 @@ def log(*a):
 def _cpu_worker_init(threads):
     import torch
 
+    # behind the driving process, whose host work paces the card: a CPU
+    # half takes the cores the card's work leaves
+    os.nice(10)
     torch.set_num_threads(threads)
 
 
@@ -3142,7 +3227,7 @@ def width_checkpoint(path, channels):
     return sum(p.numel() for p in module.parameters())
 
 
-def phase_width_kernels(rng, dev, widths=WIDTH_CHANNELS):
+def phase_width_kernels(rng, dev, widths=WIDTH_CHANNELS, stress=True):
     """Rows 1-7 (the attention, NHWC and packed), 9 (the relayout) and 4 (the
     block) at the shapes of one canvas-256 forward of each generator of
     ``widths`` (c8 and c32; c64 and the padded ``GRID_CHANNELS`` on their
@@ -3152,7 +3237,11 @@ def phase_width_kernels(rng, dev, widths=WIDTH_CHANNELS):
     ``block_stress_inputs`` (one all-zero window each; the block also on a
     ragged 12 x 20 grid); on the random input, bf16 kernel and plain in
     CUDA-event time in turns and the kernel in profiler device time; the
-    relayout as ``phase_relayout`` does at the width's bottleneck. Returns
+    relayout as ``phase_relayout`` does at the width's bottleneck. Without
+    ``stress`` (c256, whose stress inputs run in ``phase_any_kernels`` and
+    ``phase_past_many_windows``) the random input alone in bf16, and the
+    block on the canvas-256 grid alone (the fp32 max|d| then None).
+    Returns
     {channels: {kernel: record}}, a record per forward at batch BATCH: ms,
     device_ms, plain_ms (bf16), max_abs_err (fp32), max_abs_err_bf16,
     bound_ms, bound_by and the shapes."""
@@ -3165,6 +3254,7 @@ def phase_width_kernels(rng, dev, widths=WIDTH_CHANNELS):
     )
 
     canvas = CANVASES[0]
+    dtypes = ((torch.float32,) if stress else ()) + (torch.bfloat16,)
     out = {}
     for channels in widths:
         rec = out[channels] = {}
@@ -3179,11 +3269,12 @@ def phase_width_kernels(rng, dev, widths=WIDTH_CHANNELS):
                 ("packed_window_channel_attention",
                  packed_window_channel_attention,
                  packed_window_channel_attention_plain, True)):
-            times, worst = {}, {torch.float32: 0.0, torch.bfloat16: 0.0}
+            times, worst = {}, {torch.float32: None if not stress else 0.0,
+                                 torch.bfloat16: 0.0}
             for shape in dict.fromkeys(checked):
-                for label, x, ws in attention_stress_inputs(rng, shape,
-                                                            packed=packed):
-                    for dtype in (torch.float32, torch.bfloat16):
+                for label, x, ws in attention_stress_inputs(
+                        rng, shape, packed=packed)[:None if stress else 1]:
+                    for dtype in dtypes:
                         args = [torch.from_numpy(np.asarray(a, np.float32))
                                 .to(dev, dtype) for a in [x] + ws]
                         got = fn(*args)
@@ -3211,7 +3302,7 @@ def phase_width_kernels(rng, dev, widths=WIDTH_CHANNELS):
                             raise AssertionError(
                                 f"{name} c{channels} {shape} {label} {dtype}:"
                                 f" max|d| {err:.3e} outside tolerance")
-                        worst[dtype] = max(worst[dtype], err)
+                        worst[dtype] = max(worst[dtype] or 0.0, err)
             k_ms, p_ms, d_ms = (sum(times[s][i] for s in shapes)
                                 for i in range(3))
             b_ms, b_by = bound(*attention_work(shapes))
@@ -3221,10 +3312,13 @@ def phase_width_kernels(rng, dev, widths=WIDTH_CHANNELS):
                              bound_ms=b_ms, bound_by=b_by, shapes=shapes)
 
         blk_shape = (BATCH, canvas // 4, canvas // 4, 4 * channels)
-        worst = {torch.float32: 0.0, torch.bfloat16: 0.0}
-        for grid in (blk_shape, (2, 12, 20, 4 * channels)):
-            for label, host, weights in block_stress_inputs(rng, grid):
-                for dtype in (torch.float32, torch.bfloat16):
+        worst = {torch.float32: None if not stress else 0.0,
+                 torch.bfloat16: 0.0}
+        for grid in (blk_shape, (2, 12, 20, 4 * channels))[:2 if stress
+                                                            else 1]:
+            for label, host, weights in block_stress_inputs(
+                    rng, grid)[:None if stress else 1]:
+                for dtype in dtypes:
                     t = lambda a, dt=dtype: torch.from_numpy(
                         np.asarray(a, np.float32)).to(dev, dt)
                     args = (t(host[0]), t(host[1]), t(host[2], torch.float32),
@@ -3258,7 +3352,7 @@ def phase_width_kernels(rng, dev, widths=WIDTH_CHANNELS):
                             f"fused_structural_block c{channels} {grid} "
                             f"{label} {dtype}: max|d| {err:.3e} outside "
                             f"tolerance")
-                    worst[dtype] = max(worst[dtype], err)
+                    worst[dtype] = max(worst[dtype] or 0.0, err)
         rec["fused_structural_block"].update(
             max_abs_err=worst[torch.float32],
             max_abs_err_bf16=worst[torch.bfloat16])
@@ -3364,8 +3458,7 @@ def stylize_folder(rng, model, dev, work, name, tag):
     return src, sizes
 
 
-def phase_width_serving(rng, dev, counts, work, widths=WIDTH_CHANNELS,
-                        refuse=True):
+def phase_width_serving(rng, dev, counts, work, widths=WIDTH_CHANNELS):
     """The generators of ``widths`` (c8 and c32; c64 on its own path)
     through the entry points: each written to a ``.pth``
     (``width_checkpoint``) and loaded by ``load_generator`` on the card and
@@ -3377,22 +3470,15 @@ def phase_width_serving(rng, dev, counts, work, widths=WIDTH_CHANNELS,
     ``batch_process`` at the widest on a folder of ``WIDTH_FOLDER_IMAGES``
     JPEGs of mixed sizes, and at ``ENTRY_CHANNELS`` (c48, c60, c64) the batch
     CLI, the server and ``direct_transform`` too (``serve_entry_points``).
-    Then, with ``refuse``, the widths the kernels are not built for
-    (``REFUSED_CHANNELS``: a c67, a c129 and a c256 checkpoint) raise at
-    ``load_generator`` on the card, and the train CLI at ``--channels 129``
-    raises before its first step.
     Returns {channels: {"parameters", "rates", "weights_gib", "launches"}}:
     weights_gib the device memory of each bf16 engine's weights, launches
     the counts this generator's part of the path made."""
     import torch
 
-    from multi_style_transfer_gan_tpu_torch.cli import train as train_cli
     from multi_style_transfer_gan_tpu_torch.pipelines import (
         load_generator, make_batch_fn,
     )
 
-    names = ("window_channel_attention", "fused_structural_block",
-             "packed_window_channel_attention", "window_relayout")
     canvas = CANVASES[0]
     out = {}
     for channels in widths:
@@ -3428,9 +3514,8 @@ def phase_width_serving(rng, dev, counts, work, widths=WIDTH_CHANNELS,
             x = torch.from_numpy(np.stack(smooth_images(
                 rng, n, (canvas, canvas)))).to(dev)
             turns = {e: [] for e in ENGINES}
-            for e in ENGINES + ENGINES[::-1]:   # the widths past 64: fewer
-                turns[e].append(program_rate(bf16[e], x,
-                                             iters=5 if channels > 64 else 10))
+            for e in ENGINES + ENGINES[::-1]:
+                turns[e].append(program_rate(bf16[e], x, iters=WIDTH_RATE_ITERS))
             for e in ENGINES:
                 rates[(n, e)] = sum(turns[e]) / len(turns[e])
             log(f"[width serving] c{channels} bf16 program, batch {n} at "
@@ -3453,33 +3538,6 @@ def phase_width_serving(rng, dev, counts, work, widths=WIDTH_CHANNELS,
                          "weights_gib": held,
                          "launches": {n: end[n] - start[n] for n in end}}
         del gpu, bf16
-    if not refuse:
-        return out
-
-    # no fallback: what the kernels are not built for raises up front
-    for channels in REFUSED_CHANNELS:
-        path = os.path.join(work, f"enhanced_c{channels}.pth")
-        width_checkpoint(path, channels)
-        try:
-            load_generator(path, device=dev)
-        except ValueError as e:
-            log(f"[width serving] c{channels} on the card: {e}")
-        else:
-            raise AssertionError(f"a c{channels} checkpoint loaded on the "
-                                 f"card")
-    data = os.path.join(work, "widths_train_data")
-    os.makedirs(os.path.join(data, "trainA"))
-    os.makedirs(os.path.join(data, "trainB"))
-    before = counts()
-    try:
-        train_cli.main(["--data_root", data, "--channels", "129",
-                        "--save_dir", os.path.join(work, "widths_models")])
-    except ValueError as e:
-        log(f"[width serving] train --channels 129 on the card: {e}")
-    else:
-        raise AssertionError("train --channels 129 did not raise")
-    if counts() != before:
-        raise AssertionError("train --channels 129 launched a kernel")
     return out
 
 
@@ -3749,9 +3807,97 @@ def launches_of(step, counts, expected, what):
     return out
 
 
+def warm_adam(opt):
+    """Adam ``opt`` as after one step taken with zero first moments and
+    second moments of WARM_ADAM_NU: its next update is linear in the
+    gradient. A fresh Adam's first update is lr times the gradient's sign,
+    which an element whose gradient is rounding noise turns either way, and
+    a loss after it then measures that noise (the CPU tests against JAX
+    resume such an Adam for the same reason,
+    tests/test_torch_pretrain.py::_write_checkpoint)."""
+    import torch
+
+    for group in opt.param_groups:
+        for p in group["params"]:
+            opt.state[p] = {"step": torch.tensor(1.0),
+                            "exp_avg": torch.zeros_like(p),
+                            "exp_avg_sq": torch.full_like(p, WARM_ADAM_NU)}
+
+
+@contextlib.contextmanager
+def planted_fault(name):
+    """One of PLANTED_FAULTS put into the training path's backward for the
+    span of the block: the negative control of the fp32 pretrain check,
+    which each must fail. "row 12 dqkv x2" doubles row 12's d(qkv);
+    "LocalAttention dx x2" doubles the input gradient of every
+    LocalAttention call under grad (row 11's d(qkv) and the fast-VJP
+    route's dx)."""
+    import importlib
+
+    mods = {m: importlib.import_module(
+        f"multi_style_transfer_gan_tpu_torch.ops.kernels.{m}")
+        for m in ("window_mhsa_train", "window_attention_train",
+                  "window_attention_fast_vjp")}
+
+    def doubled(fn):
+        """``fn``, an autograd Function's backward, with its first
+        gradient doubled."""
+        def backward(ctx, *grads):
+            d, *rest = fn(ctx, *grads)
+            return (2 * d, *rest)
+        return staticmethod(backward)
+
+    if name == "row 12 dqkv x2":
+        fns = [mods["window_mhsa_train"]._WindowMHSA]
+    elif name == "LocalAttention dx x2":
+        fns = [mods["window_attention_train"]._WindowAttentionMid,
+               mods["window_attention_fast_vjp"]._FastVJP]
+    else:
+        raise ValueError(f"no planted fault {name!r}")
+    saved = [(fn, fn.backward) for fn in fns]
+    for fn in fns:
+        fn.backward = doubled(fn.backward)
+    try:
+        yield
+    finally:
+        for fn, backward in saved:
+            fn.backward = staticmethod(backward)
+
+
+def sees_fault(what, fault, faulty_rel, rtol):
+    """The negative control of the fp32 pretrain check: the card's gradient
+    norms under the planted ``fault`` must lie past ``rtol`` from the
+    CPU's (``faulty_rel``, ``grad_rel``)."""
+    log(f"{what}: under the planted fault {fault!r} the gradient norms lie "
+        f"{faulty_rel:.2e} from the CPU's (limit {rtol})")
+    if not faulty_rel > rtol:
+        raise AssertionError(f"{what}: the check does not see the planted "
+                             f"fault {fault!r} ({faulty_rel:.2e} <= {rtol})")
+
+
+def grad_norms(*modules):
+    """The norm of each parameter tensor's gradient in ``modules``, in
+    order (0 where it has none), as floats."""
+    import torch
+
+    return torch.stack([
+        torch.zeros((), dtype=torch.float64) if p.grad is None
+        else p.grad.detach().double().norm().cpu()
+        for m in modules for p in m.parameters()]).tolist()
+
+
+def grad_rel(norms, ref):
+    """How far the gradient norms ``norms`` lie from ``ref``: the largest
+    change of a tensor's norm, relative to its norm in ``ref`` (to
+    GRAD_NORM_FLOOR of the largest norm of ``ref`` where it is smaller)."""
+    floor = GRAD_NORM_FLOOR * max(ref)
+    return max(abs(a - b) / max(b, floor) for a, b in zip(norms, ref))
+
+
 def cpu_train_losses(channels, host, kw):
     """The CPU half of :func:`fp32_step_card_vs_cpu`: one fp32 CycleGAN step
-    from the same init on the uint8 images ``host`` (numpy), its losses."""
+    from the same init and warm Adams on the uint8 images ``host`` (numpy),
+    its losses."""
     import torch
 
     from multi_style_transfer_gan_tpu_torch.ops import to_model_range
@@ -3760,17 +3906,30 @@ def cpu_train_losses(channels, host, kw):
     )
 
     st = cyclegan_init_state(SEED + 1, channels, 1, device="cpu")
+    warm_adam(st.g_opt)
+    warm_adam(st.d_opt)
     a, b = (to_model_range(torch.from_numpy(t)) for t in host)
     return {k: float(v) for k, v in cyclegan_train_step(
         st, a, b, compute_dtype=torch.float32, **kw)[1].items()}
 
 
+def fp32_step_host(channels, size):
+    """The uint8 (A, B) pair of :func:`fp32_step_card_vs_cpu` at ``channels``
+    and ``size``^2, batch 2, drawn from a generator of the width's own."""
+    rng = np.random.default_rng(SEED + channels)
+    return [np.stack(smooth_images(rng, 2, (size, size))) for _ in range(2)]
+
+
 def fp32_step_card_vs_cpu(dev, channels, what, host=None, size=128, **kw):
     """One fp32 CycleGAN step at ``channels`` (``size``^2, batch 2) on the
-    card and on the CPU from the same init and uint8 images (``host``, an
-    (A, B) pair on the CPU; by default drawn from a generator of this
-    width's own): the five losses, relative, at TRAIN_FP32_RTOL (the CPU
-    half through ``cpu_check``). Returns the card's launches."""
+    card and on the CPU from the same init, warm Adams (``warm_adam``: the
+    G losses follow the D phase's update) and uint8 images (``host``, an
+    (A, B) pair on the CPU; by default ``fp32_step_host``'s): the five
+    losses, relative, at TRAIN_FP32_RTOL (the CPU half through
+    ``cpu_check``). The losses read the generators' forward and the D
+    phase's backward and update; the generators' backward reaches no loss
+    of the step, and the pretrain check holds it
+    (``fp32_pretrain_card_vs_cpu``). Returns the card's launches."""
     import torch
 
     from multi_style_transfer_gan_tpu_torch.ops import kernels as K
@@ -3780,10 +3939,10 @@ def fp32_step_card_vs_cpu(dev, channels, what, host=None, size=128, **kw):
     )
 
     if host is None:
-        rng = np.random.default_rng(SEED + channels)
-        host = [torch.from_numpy(np.stack(smooth_images(rng, 2, (size, size))))
-                for _ in range(2)]
+        host = [torch.from_numpy(a) for a in fp32_step_host(channels, size)]
     st = cyclegan_init_state(SEED + 1, channels, 1, device=dev)
+    warm_adam(st.g_opt)
+    warm_adam(st.d_opt)
     a, b = (to_model_range(t.to(dev)) for t in host)
     n0 = sum(k.launches for k in K.KERNELS)
     card = {k: float(v) for k, v in cyclegan_train_step(
@@ -3806,9 +3965,10 @@ def fp32_step_card_vs_cpu(dev, channels, what, host=None, size=128, **kw):
 
 
 def train_width(rng, dev, counts, channels, gen, pretrain_batch=TRAIN_BATCH,
-                steps=10, fp32_size=128):
+                steps=WIDTH_TIMED_STEPS, fp32_size=128, fp32_pretrain_size=128,
+                batch=TRAIN_BATCH):
     """The generator of width ``channels`` trained through the entry points:
-    the bf16 CycleGAN step at 256^2, batch TRAIN_BATCH, pair batching, from
+    the bf16 CycleGAN step at 256^2, batch ``batch``, pair batching, from
     a seeded fresh init (launches per step against
     WIDTH_TRAIN_LAUNCHES_PER_STEP, finite losses, G, D and u moved, ms/step
     over ``steps`` steps after 3 warm-up, the step's profiler device time
@@ -3817,9 +3977,9 @@ def train_width(rng, dev, counts, channels, gen, pretrain_batch=TRAIN_BATCH,
     step's); one fp32 step card vs CPU (``fp32_size``^2, batch 2); the
     enhanced bf16 pretrain step at 256^2, batch ``pretrain_batch``
     (launches per step against WIDTH_PRETRAIN_LAUNCHES_PER_STEP, ms/step
-    over ``steps``, device idle share from WIDTH_PROFILED_STEPS) and two
-    fp32 pretrain steps card vs
-    CPU (128^2, batch 2). Returns {"step_ms",
+    over ``steps``, device idle share from WIDTH_PROFILED_STEPS, peak
+    memory) and two fp32 pretrain steps card vs CPU
+    (``fp32_pretrain_size``^2, batch 2). Returns {"step_ms",
     "step_device_ms", "step_idle", "step_peak_gib", "pretrain": (ms, device
     ms, idle), "launches"}."""
     import torch
@@ -3839,7 +3999,7 @@ def train_width(rng, dev, counts, channels, gen, pretrain_batch=TRAIN_BATCH,
                   .state_dict().items()}
               for n in ("G_AB", "G_BA", "D_A", "D_B")}
     step = train_step_runner(state, uint8_pairs(
-        rng, 2, TRAIN_BATCH, WIDTH_TRAIN_SIZE, dev))
+        rng, 2, batch, WIDTH_TRAIN_SIZE, dev))
     torch.cuda.reset_peak_memory_stats()
     launches_of(step, counts, WIDTH_TRAIN_LAUNCHES_PER_STEP[channels],
                 f"{tag} bf16 step")
@@ -3855,8 +4015,8 @@ def train_width(rng, dev, counts, channels, gen, pretrain_batch=TRAIN_BATCH,
     step_dev = device_ms(step, iters=WIDTH_PROFILED_STEPS, warmup=0)
     idle = max(0.0, 1.0 - step_dev / ms)
     vals = {k: float(v) for k, v in losses.items()}
-    log(f"{tag} bf16 {WIDTH_TRAIN_SIZE}^2 batch {TRAIN_BATCH}, pair "
-        f"batching: {ms:.2f} ms/step, {TRAIN_BATCH * 1000 / ms:.1f} image "
+    log(f"{tag} bf16 {WIDTH_TRAIN_SIZE}^2 batch {batch}, pair "
+        f"batching: {ms:.2f} ms/step, {batch * 1000 / ms:.1f} image "
         f"pairs/s, device {step_dev:.2f} ms/step (torch.profiler), device "
         f"idle share {idle:.1%} ({card_line()}); losses after "
         f"{state.step} steps {vals}; peak memory {peak:.2f} GiB")
@@ -3873,7 +4033,7 @@ def train_width(rng, dev, counts, channels, gen, pretrain_batch=TRAIN_BATCH,
     if channels in (min(WIDTH_CHANNELS),) + C64_CHANNELS:
         vgg = vgg16_from_torchvision_sd(random_vgg16_sd(), device=dev)
         hooked = train_step_runner(
-            state, uint8_pairs(rng, 1, TRAIN_BATCH, WIDTH_TRAIN_SIZE, dev),
+            state, uint8_pairs(rng, 1, batch, WIDTH_TRAIN_SIZE, dev),
             extra_g_loss=make_extra_g_loss(vgg))
         vals = {k: float(v) for k, v in launches_of(
             hooked, counts, WIDTH_TRAIN_LAUNCHES_PER_STEP[channels],
@@ -3893,25 +4053,34 @@ def train_width(rng, dev, counts, channels, gen, pretrain_batch=TRAIN_BATCH,
     masks = [random_patch_mask(pretrain_batch, size, generator=gen,
                                device=dev) for _ in range(2)]
     pstep = pretrain_steps(state, imgs, masks, torch.bfloat16)
+    torch.cuda.reset_peak_memory_stats()
     launches_of(pstep, counts, WIDTH_PRETRAIN_LAUNCHES_PER_STEP[channels],
                 f"{tag} enhanced pretrain bf16 step")
     pre = time_pretrain(pstep, f"c{channels} enhanced bf16 {size}^2 "
                         f"batch {pretrain_batch}", pretrain_batch, steps,
                         WIDTH_PROFILED_STEPS)
+    pre_peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    log(f"{tag} enhanced pretrain bf16 step peak memory {pre_peak:.2f} GiB")
     del state, pstep
     clock(f"{tag} pretrain steps")
-    fp32_pretrain_card_vs_cpu(rng, dev, channels, gen, tag)
+    fp32_pretrain_card_vs_cpu(rng, dev, channels, gen, tag,
+                              size=fp32_pretrain_size)
     clock(f"{tag} fp32 pretrain card vs CPU")
     end = counts()
     return {"step_ms": ms, "step_device_ms": step_dev, "step_idle": idle,
-            "step_peak_gib": peak, "pretrain": pre,
+            "step_peak_gib": peak, "pretrain": pre, "batch": batch,
+            "pretrain_batch": pretrain_batch,
+            "pretrain_peak_gib": pre_peak,
             "launches": {n: end[n] - start[n] for n in end}}
 
 
-def pretrain_losses(channels, host, masks, device="cpu"):
-    """Two fp32 enhanced pretrain steps at ``channels`` from SEED + 1 on
-    ``device``, on the uint8 images ``host`` and the ``masks`` (numpy): the
-    losses. The CPU half of :func:`fp32_pretrain_card_vs_cpu`."""
+def pretrain_losses(channels, host, masks, device="cpu", fault=None):
+    """Two fp32 enhanced pretrain steps at ``channels`` from SEED + 1 and a
+    warm Adam (``warm_adam``) on ``device``, on the uint8 images ``host``
+    and the ``masks`` (numpy), under the planted ``fault`` (or none): the
+    losses and the first step's gradient norms (``grad_norms``; clipped as
+    the step clips them). The CPU half of
+    :func:`fp32_pretrain_card_vs_cpu`."""
     import torch
 
     from multi_style_transfer_gan_tpu_torch.ops import to_model_range
@@ -3921,31 +4090,49 @@ def pretrain_losses(channels, host, masks, device="cpu"):
 
     st = pretrain_init_state(SEED + 1, channels, model="enhanced",
                              device=device)
-    return [float(pretrain_train_step(
-        st, to_model_range(torch.from_numpy(x).to(device)),
-        torch.from_numpy(m).to(device))[1]) for x, m in zip(host, masks)]
+    warm_adam(st.opt)
+    out, norms = [], None
+    with planted_fault(fault) if fault else contextlib.nullcontext():
+        for x, m in zip(host, masks):
+            out.append(float(pretrain_train_step(
+                st, to_model_range(torch.from_numpy(x).to(device)),
+                torch.from_numpy(m).to(device))[1]))
+            norms = norms or grad_norms(st.model)
+    return out, norms
 
 
 def fp32_pretrain_card_vs_cpu(rng, dev, channels, gen, tag, size=128):
     """Two fp32 enhanced pretrain steps at ``channels`` (``size``^2, batch
-    2) on the card and on the CPU from the same init, images and masks: the
-    losses, relative, at PRETRAIN_FP32_RTOL (the CPU half through
-    ``cpu_check``)."""
+    2) on the card and on the CPU from the same init, images, masks and
+    warm Adam (``pretrain_losses``): the losses, relative, at
+    PRETRAIN_FP32_RTOL and the first step's gradient norms (``grad_rel``)
+    at GRAD_NORM_RTOL (the CPU half through ``cpu_check``). The card's
+    half again under each of PLANTED_FAULTS, a wrong backward of a kernel
+    the step runs, must land past that limit (``sees_fault``)."""
     from multi_style_transfer_gan_tpu_torch.data import random_patch_mask
 
     host = [np.stack(smooth_images(rng, 2, (size, size))) for _ in range(2)]
     masks = [random_patch_mask(2, size, generator=gen, device="cpu").numpy()
              for _ in range(2)]
-    card = pretrain_losses(channels, host, masks, dev)
+    card, norms = pretrain_losses(channels, host, masks, dev)
+    faulty = {f: pretrain_losses(channels, host, masks, dev, f)[1]
+              for f in PLANTED_FAULTS}
 
-    def finish(cpu):
+    def finish(cpu_out):
+        cpu, cpu_norms = cpu_out
         rel = max(abs(a - b) / abs(b) for a, b in zip(card, cpu))
+        grel = grad_rel(norms, cpu_norms)
         log(f"{tag} enhanced pretrain fp32 {size}^2 batch 2, two steps card "
             f"vs CPU: {card} vs {cpu}; max relative difference {rel:.2e} "
-            f"(limit {PRETRAIN_FP32_RTOL})")
-        if not rel <= PRETRAIN_FP32_RTOL:   # NaN fails too
+            f"(limit {PRETRAIN_FP32_RTOL}), first step's gradient norms "
+            f"{grel:.2e} (limit {GRAD_NORM_RTOL})")
+        if not (rel <= PRETRAIN_FP32_RTOL
+                and grel <= GRAD_NORM_RTOL):   # NaN fails too
             raise AssertionError(f"{tag}: fp32 pretrain steps, card and CPU "
                                  f"disagree")
+        for fault, fn in faulty.items():
+            sees_fault(f"{tag} enhanced pretrain", fault,
+                       grad_rel(fn, cpu_norms), GRAD_NORM_RTOL)
 
     cpu_check(pretrain_losses, (channels, host, masks), finish)
 
@@ -3985,16 +4172,12 @@ def phase_width_train(rng, dev, counts, work):
     (``train_width`` for each); the train CLI at --channels 32 and the
     pretrain CLI at --model enhanced --channels 8, one epoch each on a small
     folder; one fp32 step with ``fast_attention=False`` (the CLI's
-    --no_fast_attention) card vs CPU at c8 with no kernel launch; the
-    widths of REFUSED_CHANNELS refused before any work. Returns {channels: train_width's
-    record}."""
+    --no_fast_attention) card vs CPU at c8 with no kernel launch. Returns
+    {channels: train_width's record}."""
     import torch
 
     from multi_style_transfer_gan_tpu_torch.cli import pretrain as pretrain_cli
     from multi_style_transfer_gan_tpu_torch.cli import train as train_cli
-    from multi_style_transfer_gan_tpu_torch.train import (
-        check_kernel_width, cyclegan_init_state,
-    )
 
     gen = torch.Generator().manual_seed(SEED + 3)
     out = {channels: train_width(rng, dev, counts, channels, gen)
@@ -4025,17 +4208,6 @@ def phase_width_train(rng, dev, counts, work):
     if launched:
         raise AssertionError(f"the fast_attention=False step launched "
                              f"{launched} kernels")
-    for channels in REFUSED_CHANNELS:
-        before = counts()
-        try:
-            check_kernel_width(channels, "CycleGAN training")
-            cyclegan_init_state(SEED, channels, 1, device=dev)
-        except ValueError as e:
-            log(f"[width train] c{channels} on the card: {e}")
-        else:
-            raise AssertionError(f"c{channels} training was not refused")
-        if counts() != before:
-            raise AssertionError(f"the c{channels} refusal launched a kernel")
     return out
 
 
@@ -4180,11 +4352,13 @@ def phase_grid_train(rng, dev, counts, work):
     return out
 
 
-def phase_block_many_windows(rng, dev):
-    """The bf16 block kernel against its plain version at
-    ``MANY_WINDOW_BLOCK_DIMS`` on ``MANY_WINDOW_GRID`` (512 windows: every
-    block or pair takes several in turn) on ``block_stress_inputs``.
-    Returns {dim: bf16 max|d|}."""
+def phase_block_many_windows(rng, dev, dims=MANY_WINDOW_BLOCK_DIMS,
+                             tag="[many windows]"):
+    """The bf16 block kernel against its plain version at ``dims``
+    (``MANY_WINDOW_BLOCK_DIMS``) on ``MANY_WINDOW_GRID`` (512 windows: every
+    block or pair takes several in turn; past dim 512 several chunks of the
+    chain's workspace) on ``block_stress_inputs``. Returns {dim: bf16
+    max|d|}."""
     import torch
 
     from multi_style_transfer_gan_tpu_torch.ops import kernels as K
@@ -4193,7 +4367,7 @@ def phase_block_many_windows(rng, dev):
     )
 
     out = {}
-    for dim in MANY_WINDOW_BLOCK_DIMS:
+    for dim in dims:
         heads = default_num_heads(dim)
         worst = 0.0
         for label, host, weights in block_stress_inputs(
@@ -4211,12 +4385,12 @@ def phase_block_many_windows(rng, dev):
             if not (ok and K.fused_structural_block.launches == n0 + 1
                     and bool(torch.isfinite(got).all())):
                 raise AssertionError(
-                    f"[many windows] fused_structural_block dim {dim} "
+                    f"{tag} fused_structural_block dim {dim} "
                     f"{label} bf16: max|d| {err:.3e} outside tolerance, not "
                     f"finite or not launched")
             worst = max(worst, err)
         out[dim] = worst
-        log(f"[many windows] fused_structural_block "
+        log(f"{tag} fused_structural_block "
             f"{MANY_WINDOW_GRID + (dim,)} ({heads} heads of {dim // heads}): "
             f"bf16 max|d| {worst:.3e} (stress inputs)")
     return out
@@ -4428,31 +4602,30 @@ def phase_any_train(rng, dev, counts, work):
 
 
 def phase_wide_train(rng, dev, counts, work):
-    """The widths past 64 trained through the entry points: c128 and c68
+    """The widths past 64 trained through the entry points: c68
     (``WIDE_FULL_CHANNELS``) at full width (``train_width`` over
     WIDE_TIMED_STEPS timed steps: the bf16 CycleGAN step with its launches
-    per step, every LocalAttention call through the route (C = 68 .. 512)
-    and row 12 at 16 and 8 heads, the fp32 step card vs CPU at
-    WIDE_FP32_SIZE^2, the enhanced pretrain step at PRETRAIN_BATCH, the
+    per step, every LocalAttention call through the route (C = 68, 136,
+    272) and row 12 at 8 heads of 34, the fp32 step card vs CPU at
+    WIDE_SMALL_SIZE^2, the enhanced pretrain step at PRETRAIN_BATCH, the
     pretrain CLI's batch, and two fp32 pretrain steps at 128^2 card vs CPU);
     then ``train --channels 68`` for one epoch on a small folder, whose G_AB
-    stylizes through ``batch_process``, ``train --channels 72
-    --no_fast_attention`` for one epoch with no kernel launch, and
-    ``pretrain --model enhanced --channels 128`` for one epoch; the widths of
-    ``WIDE_SMALL_CHANNELS`` small: one fp32 CycleGAN step and two fp32
-    enhanced pretrain steps at WIDE_SMALL_SIZE^2, batch 2, card vs CPU.
-    Returns {channels: record}: train_width's for c128 and c68,
-    {"launches"} for the rest."""
+    stylizes through ``batch_process``, and ``train --channels 72
+    --no_fast_attention`` for one epoch at WIDE_SMALL_SIZE^2 with no kernel
+    launch; the widths of ``WIDE_SMALL_CHANNELS`` small: one fp32 CycleGAN
+    step and two fp32 enhanced pretrain steps at WIDE_SMALL_SIZE^2, batch 2,
+    card vs CPU (the route at C = 72 .. 512; row 12 at 9 .. 16 heads).
+    Returns {channels: record}: train_width's for c68, {"launches"} for the
+    rest."""
     import torch
 
-    from multi_style_transfer_gan_tpu_torch.cli import pretrain as pretrain_cli
     from multi_style_transfer_gan_tpu_torch.cli import train as train_cli
     from multi_style_transfer_gan_tpu_torch.pipelines import load_generator
 
     gen = torch.Generator().manual_seed(SEED + 128)
     out = {c: train_width(rng, dev, counts, c, gen,
                           pretrain_batch=PRETRAIN_BATCH,
-                          steps=WIDE_TIMED_STEPS, fp32_size=WIDE_FP32_SIZE)
+                          steps=WIDE_TIMED_STEPS, fp32_size=WIDE_SMALL_SIZE)
            for c in WIDE_FULL_CHANNELS}
 
     data = os.path.join(work, "wide_train_data")
@@ -4460,7 +4633,7 @@ def phase_wide_train(rng, dev, counts, work):
     models = os.path.join(work, "wide_models")
     one_epoch = ["--num_epochs", "1", "--batch_size", "4",
                  "--checkpoint_every", "1", "--log_every", "1"]
-    low, high = min(WIDE_FULL_CHANNELS), max(WIDE_FULL_CHANNELS)
+    low = min(WIDE_FULL_CHANNELS)
     run_cli(train_cli.main, ["--data_root", data, "--save_dir", models,
                              "--channels", str(low)] + one_epoch,
             f"train --channels {low}")
@@ -4470,6 +4643,7 @@ def phase_wide_train(rng, dev, counts, work):
         raise AssertionError(f"the train CLI wrote a c{model.channels} G_AB")
     stylize_folder(rng, model, dev, work, "wide",
                    f"[wide train] the trained c{low} G_AB:")
+    del model
     plain_models = os.path.join(work, "wide_plain_models")
     before = counts()
     run_cli(train_cli.main, ["--data_root", data, "--save_dir", plain_models,
@@ -4480,14 +4654,6 @@ def phase_wide_train(rng, dev, counts, work):
     if counts() != before:
         raise AssertionError(f"--no_fast_attention launched kernels: "
                              f"{before} -> {counts()}")
-    run_cli(pretrain_cli.main, ["--data_root", data, "--save_dir", models,
-                                "--model", "enhanced", "--channels", str(high)]
-            + one_epoch, f"pretrain --model enhanced --channels {high}")
-    pre = load_generator(os.path.join(models, "generator_pretrain_epoch_1.pth"),
-                         device="cpu")
-    if (pre.kind, pre.channels) != ("enhanced", high):
-        raise AssertionError(f"the pretrain CLI wrote {pre.kind} "
-                             f"c{pre.channels}")
 
     for channels in WIDE_SMALL_CHANNELS:
         start = counts()
@@ -4498,6 +4664,203 @@ def phase_wide_train(rng, dev, counts, work):
                                   size=WIDE_SMALL_SIZE)
         end = counts()
         out[channels] = {"launches": {n: end[n] - start[n] for n in end}}
+    return out
+
+
+# ---------------------------------------------------------------------------
+# the widths past 128
+# ---------------------------------------------------------------------------
+
+def phase_past_many_windows(rng, dev):
+    """The streamed attention, NHWC at ``PAST_MANY_ATTENTION[0]`` and packed
+    at ``[1]`` (2048 windows at C = 1024, 576 at C = 2048: two workspace
+    chunks each), and the bf16 block chain at ``PAST_MANY_BLOCK_DIMS`` on
+    ``MANY_WINDOW_GRID`` (512 windows: 2 to 7 chunks), against their plain
+    versions in bf16 on the stress inputs. Returns {"attention": {C: bf16
+    max|d|}, "block": {dim: bf16 max|d|}}."""
+    import torch
+
+    from multi_style_transfer_gan_tpu_torch.ops import kernels as K
+
+    out = {"attention": {}}
+    for shape, packed in zip(PAST_MANY_ATTENTION, (False, True)):
+        fn, plain = ((K.packed_window_channel_attention,
+                      K.packed_window_channel_attention_plain) if packed
+                     else (K.window_channel_attention,
+                           K.window_channel_attention_plain))
+        worst = 0.0
+        for label, x, ws in attention_stress_inputs(rng, shape,
+                                                    packed=packed):
+            args = [torch.from_numpy(np.asarray(a, np.float32)).to(
+                dev, torch.bfloat16) for a in [x] + ws]
+            n0 = fn.launches
+            got = fn(*args)
+            ref = plain(*args)
+            torch.cuda.synchronize()
+            err, ok = compare(got, ref, torch.bfloat16)
+            if not (ok and fn.launches == n0 + 1
+                    and bool(torch.isfinite(got).all())):
+                raise AssertionError(
+                    f"[past 128 many windows] {fn.__name__} {shape} {label} "
+                    f"bf16: max|d| {err:.3e} outside tolerance, not finite "
+                    f"or not launched")
+            worst = max(worst, err)
+            del got, ref, args
+        out["attention"][shape[-1]] = worst
+        log(f"[past 128 many windows] {fn.__name__} {shape}: bf16 max|d| "
+            f"{worst:.3e} (stress inputs)")
+    out["block"] = phase_block_many_windows(rng, dev, PAST_MANY_BLOCK_DIMS,
+                                            "[past 128 many windows]")
+    return out
+
+
+def phase_past_serving(rng, dev, counts, work):
+    """The widths past 128 served (``PAST_SERVED_CHANNELS``: c132, c192,
+    c256), each written to a ``.pth`` and loaded by ``load_generator`` on
+    the card and on the CPU at precision 'highest': the fp32 uint8 program
+    card vs CPU on the NHWC engine at PAST_FP32_SIZE^2 (one image; the CPU
+    half in the pool) with 4 + 1 launches a forward; at
+    ``PAST_PACKED_FP32_CHANNELS`` the fp32 packed engine on the card vs the
+    NHWC one (5 relayouts and 4 packed attention calls a forward: c132); the bf16
+    program's img/s at canvas 256, batch PAST_RATE_BATCH, in turns, and the
+    device memory of each bf16 engine's weights, both engines at c132 and
+    c192, the NHWC one at c256 (whose packed engine, 17.6 GiB of bf16
+    weights repacked, runs in the batch CLI's ``auto``); c256
+    also through ``batch_process`` on a folder of mixed sizes and
+    ``serve_entry_points`` (the batch CLI with ``--engine nhwc`` and
+    ``auto``, which builds the packed engine at batch 4, the server and
+    ``direct_transform``). Returns {channels: {"parameters", "rates",
+    "weights_gib", "launches"}}."""
+    import torch
+
+    from multi_style_transfer_gan_tpu_torch.pipelines import (
+        load_generator, make_batch_fn,
+    )
+
+    names = ("window_channel_attention", "fused_structural_block",
+             "packed_window_channel_attention", "window_relayout")
+    canvas = CANVASES[0]
+    out = {}
+    for channels in PAST_SERVED_CHANNELS:
+        start = counts()
+        tag = f"[past 128 serving] c{channels}"
+        path = os.path.join(work, f"enhanced_c{channels}.pth")
+        n_params = width_checkpoint(path, channels)
+        gpu = load_generator(path, precision="highest", device=dev)
+        log(f"{tag}: {gpu.kind} c{gpu.channels}, {n_params} parameters")
+        batch = np.stack(smooth_images(rng, WIDTH_CPU_BATCH[channels],
+                                       (PAST_FP32_SIZE, PAST_FP32_SIZE)))
+        nhwc = program_card_vs_cpu(tag, gpu, path, batch, counts, dev,
+                                   ("nhwc",))["nhwc"]
+        if channels in PAST_PACKED_FP32_CHANNELS:
+            before = counts()
+            packed = make_batch_fn(gpu, "cyclegan", engine="packed",
+                                   device=dev)(batch).cpu().numpy()
+            launched = [counts()[n] - before[n] for n in names]
+            dmax, share = u8_diff(packed, nhwc)
+            log(f"{tag} fp32 packed vs NHWC engine on the card, "
+                f"{batch.shape}: launches {launched}, max diff {dmax}, "
+                f"differing share {share:.3e}")
+            if (launched != FORWARD_LAUNCHES["packed"]
+                    or dmax > U8_MAX_DIFF or share > U8_MAX_SHARE):
+                raise AssertionError(f"{tag}: packed and NHWC engines "
+                                     f"disagree on the card")
+            torch.cuda.empty_cache()
+        clock(f"{tag} card vs CPU")
+
+        x = torch.from_numpy(np.stack(smooth_images(
+            rng, PAST_RATE_BATCH, (canvas, canvas)))).to(dev)
+        engines = ENGINES if channels not in PAST_FULL_CHANNELS else ("nhwc",)
+        held, turns = {}, {e: [] for e in engines}
+        for e in engines:   # one engine on the card at a time
+            m0 = torch.cuda.memory_allocated()
+            fn = make_batch_fn(gpu, "cyclegan", engine=e,
+                               compute_dtype=torch.bfloat16, device=dev)
+            held[e] = (torch.cuda.memory_allocated() - m0) / 2 ** 30
+            turns[e].append(program_rate(fn, x, iters=3, warmup=1))
+            turns[e].append(program_rate(fn, x, iters=3, warmup=0))
+            del fn
+            torch.cuda.empty_cache()
+        rates = {(PAST_RATE_BATCH, e): sum(t) / len(t)
+                 for e, t in turns.items()}
+        log(f"{tag} bf16 program, batch {PAST_RATE_BATCH} at canvas "
+            f"{canvas} (device-resident uint8 in and out): "
+            + ", ".join(f"{e} {rates[(PAST_RATE_BATCH, e)]:.2f} img/s (turns "
+                        f"{turns[e]}; bf16 weights {held[e]:.3f} GiB)"
+                        for e in engines) + f" ({card_line()})")
+        del x
+        clock(f"{tag} rates")
+        if channels in PAST_FULL_CHANNELS:
+            src, sizes = stylize_folder(rng, gpu, dev, work,
+                                        f"past_c{channels}", tag)
+            serve_entry_points(rng, dev, path, src, sizes, work, channels,
+                               ("nhwc", "auto"))
+            clock(f"{tag} entry points")
+        end = counts()
+        out[channels] = {"parameters": n_params, "rates": rates,
+                         "weights_gib": held,
+                         "launches": {n: end[n] - start[n] for n in end}}
+        del gpu
+        torch.cuda.empty_cache()
+    return out
+
+
+def phase_past_train(rng, dev, counts, work):
+    """c256 (``PAST_FULL_CHANNELS``) trained through the entry points:
+    ``train_width`` (the bf16 CycleGAN step at 256^2, batch
+    PAST_TRAIN_BATCH, every LocalAttention call on the route up to C =
+    1024 over the streamed kernel and row 12 at 32 heads, over
+    WIDE_TIMED_STEPS timed steps with its launches, device idle share and
+    peak memory; the fp32 step card vs CPU at PAST_FP32_SIZE^2; the
+    enhanced bf16 pretrain step at batch PAST_TRAIN_BATCH with its peak
+    memory, and two fp32 pretrain steps at PAST_FP32_SIZE^2 card vs CPU);
+    then ``train --channels 256`` and ``pretrain --model enhanced
+    --channels 256`` for one epoch each on a folder of 8 images a domain at
+    256^2 and batch PAST_TRAIN_BATCH, every other flag the CLIs' default,
+    each checkpoint loaded back at its width. Returns {channels:
+    train_width's record}."""
+    import torch
+
+    from multi_style_transfer_gan_tpu_torch.cli import pretrain as pretrain_cli
+    from multi_style_transfer_gan_tpu_torch.cli import train as train_cli
+    from multi_style_transfer_gan_tpu_torch.pipelines import load_generator
+
+    gen = torch.Generator().manual_seed(SEED + 256)
+    out = {c: train_width(rng, dev, counts, c, gen,
+                          pretrain_batch=PAST_TRAIN_BATCH,
+                          steps=WIDE_TIMED_STEPS, fp32_size=PAST_FP32_SIZE,
+                          fp32_pretrain_size=PAST_FP32_SIZE,
+                          batch=PAST_TRAIN_BATCH)
+           for c in PAST_FULL_CHANNELS}
+    data = os.path.join(work, "past_train_data")
+    train_folder(rng, data)
+    models = os.path.join(work, "past_models")
+    one_epoch = ["--num_epochs", "1", "--checkpoint_every", "1",
+                 "--log_every", "1", "--batch_size", str(PAST_TRAIN_BATCH)]
+    for c in PAST_FULL_CHANNELS:
+        tag = f"[past 128 train] c{c}"
+        torch.cuda.reset_peak_memory_stats()
+        run_cli(train_cli.main, ["--data_root", data, "--save_dir", models,
+                                 "--channels", str(c)] + one_epoch,
+                f"train --channels {c}", tag)
+        model = load_generator(os.path.join(models, "G_AB_epoch_1.pth"),
+                               device="cpu")
+        if model.channels != c:
+            raise AssertionError(f"the train CLI wrote a c{model.channels} "
+                                 f"G_AB")
+        del model
+        run_cli(pretrain_cli.main, ["--data_root", data, "--save_dir",
+                                    models, "--model", "enhanced",
+                                    "--channels", str(c)] + one_epoch,
+                f"pretrain --model enhanced --channels {c}", tag)
+        pre = load_generator(os.path.join(
+            models, "generator_pretrain_epoch_1.pth"), device="cpu")
+        if (pre.kind, pre.channels) != ("enhanced", c):
+            raise AssertionError(f"the pretrain CLI wrote {pre.kind} "
+                                 f"c{pre.channels}")
+        log(f"{tag} the CLIs' peak memory "
+            f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB")
+        torch.cuda.empty_cache()
     return out
 
 
@@ -4740,6 +5103,16 @@ def run_paths(work) -> int:
     many_windows = phase_block_many_windows(
         np.random.default_rng(SEED + 416), dev)
     width_kernels.update(phase_width_kernels(wide_rng, dev, WIDE_FULL_CHANNELS))
+    mark("serving kernels up to c128")
+    # and so do the widths past 128
+    past_rng = np.random.default_rng(SEED + 256)
+    past_kernels = phase_any_kernels(past_rng, dev, PAST_ATTENTION_WIDTHS,
+                                     PAST_BLOCK_DIMS, (), "[past 128]")
+    past_many = phase_past_many_windows(np.random.default_rng(SEED + 512),
+                                        dev)
+    width_kernels.update(phase_width_kernels(past_rng, dev,
+                                             PAST_FULL_CHANNELS,
+                                             stress=False))
     mark("serving kernels")
     train_err, train_times = phase_train_kernels(rng, dev)
     # the c8 and c32 training phases draw from their own generator too
@@ -4770,6 +5143,12 @@ def run_paths(work) -> int:
         phase_width_train_kernels(wide_train_rng, dev, WIDE_FULL_CHANNELS))
     wide_fast_vjp = [phase_fast_vjp(wide_train_rng, dev, shape, check=check)
                      for shape, check in WIDE_FAST_VJP_SHAPES]
+    past_train_rng = np.random.default_rng(SEED + 257)
+    width_train_kernels.update(
+        phase_width_train_kernels(past_train_rng, dev, PAST_FULL_CHANNELS))
+    # c256's down2 under grad, the route at C = 1024
+    past_fast_vjp = [phase_fast_vjp(past_train_rng, dev, shape, check=check)
+                     for shape, check in PAST_FAST_VJP_SHAPES]
     mark("training kernels")
     stages_err, stage_times = phase_stages(rng, dev)
     ablation_err = phase_ablation_inputs(dev)
@@ -4822,7 +5201,7 @@ def run_paths(work) -> int:
     mark("before the c64 serving path")
     K.reset_launch_counts()   # the c64 serving path starts here
     width_serving.update(phase_width_serving(c64_rng, dev, counts, work,
-                                             C64_CHANNELS, refuse=False))
+                                             C64_CHANNELS))
     c64_serving = counts()    # ...and ends here
     log(f"[c64 serving path] launches: {c64_serving}")
     attention_calls = (c64_serving["window_channel_attention"]
@@ -4836,7 +5215,7 @@ def run_paths(work) -> int:
     mark("before the grid serving path")
     K.reset_launch_counts()   # the grid serving path starts here
     width_serving.update(phase_width_serving(grid_rng, dev, counts, work,
-                                             GRID_FULL_CHANNELS, refuse=False))
+                                             GRID_FULL_CHANNELS))
     width_serving.update(phase_grid_small_serving(grid_rng, dev, counts, work))
     grid_serving = counts()   # ...and ends here
     log(f"[grid serving path] launches: {grid_serving}")
@@ -4851,7 +5230,7 @@ def run_paths(work) -> int:
     mark("before the any-width serving path")
     K.reset_launch_counts()   # the any-width serving path starts here
     width_serving.update(phase_width_serving(any_rng, dev, counts, work,
-                                             ANY_FULL_CHANNELS, refuse=False))
+                                             ANY_FULL_CHANNELS))
     width_serving.update(phase_any_small_serving(any_rng, dev, counts, work))
     any_serving = counts()    # ...and ends here
     log(f"[any-width serving path] launches: {any_serving}")
@@ -4866,7 +5245,7 @@ def run_paths(work) -> int:
     mark("serving paths up to c64")
     K.reset_launch_counts()   # the wide serving path starts here
     width_serving.update(phase_width_serving(wide_rng, dev, counts, work,
-                                             WIDE_FULL_CHANNELS, refuse=False))
+                                             WIDE_FULL_CHANNELS))
     width_serving.update(phase_any_small_serving(
         wide_rng, dev, counts, work, WIDE_SMALL_CHANNELS, WIDE_SMALL_SIZE,
         "[wide serving]", ("nhwc",)))
@@ -4878,6 +5257,19 @@ def run_paths(work) -> int:
             or attention_calls != 4 * wide_serving["fused_structural_block"]):
         raise AssertionError(f"wide serving path launches {wide_serving}: "
                              f"expected every serving kernel, 4 attention "
+                             f"calls per block call")
+
+    mark("serving paths up to c128")
+    K.reset_launch_counts()   # the past-128 serving path starts here
+    width_serving.update(phase_past_serving(past_rng, dev, counts, work))
+    past_serving = counts()   # ...and ends here
+    log(f"[past-128 serving path] launches: {past_serving}")
+    attention_calls = (past_serving["window_channel_attention"]
+                       + past_serving["packed_window_channel_attention"])
+    if (min(past_serving[n] for n in serving_kernels) == 0
+            or attention_calls != 4 * past_serving["fused_structural_block"]):
+        raise AssertionError(f"past-128 serving path launches {past_serving}"
+                             f": expected every serving kernel, 4 attention "
                              f"calls per block call")
     mark("serving paths")
 
@@ -4899,9 +5291,23 @@ def run_paths(work) -> int:
         raise AssertionError(f"training path launches {training}: a kernel "
                              f"of the path never launched")
 
+    # the widths past 128 first among the width paths: c256's fp32 steps
+    # card vs CPU at 128^2 are the pool's longest CPU halves
+    K.reset_launch_counts()   # the past-128 training path starts here
+    past_train = phase_past_train(past_train_rng, dev, counts, work)
+    past_training = counts()  # ...and ends here
+    log(f"[past-128 training path] launches: {past_training}")
+    past_step = WIDTH_TRAIN_LAUNCHES_PER_STEP[PAST_FULL_CHANNELS[0]]
+    if (min(past_training[n] for n, k in past_step.items() if k) == 0
+            or past_training["window_attention_mid_fwd"]):
+        raise AssertionError(f"past-128 training path launches "
+                             f"{past_training}: a kernel of the path never "
+                             f"launched, or row 11 took a width of the route")
+
     K.reset_launch_counts()   # the c8 and c32 training path starts here
     width_train = phase_width_train(width_train_rng, dev, counts, work)
     width_training = counts()  # ...and ends here
+    width_train.update(past_train)
     log(f"[width training path] launches: {width_training}")
     if min(width_training[n] for n in TRAIN_LAUNCHES_PER_STEP) == 0:
         raise AssertionError(f"width training path launches "
@@ -4945,12 +5351,13 @@ def run_paths(work) -> int:
     width_train.update(phase_wide_train(wide_train_rng, dev, counts, work))
     wide_training = counts()  # ...and ends here
     log(f"[wide training path] launches: {wide_training}")
-    wide_step = WIDTH_TRAIN_LAUNCHES_PER_STEP[WIDE_FULL_CHANNELS[0]]
+    wide_step = WIDTH_TRAIN_LAUNCHES_PER_STEP[GRID_CHANNELS[0]]   # the route
     if (min(wide_training[n] for n, k in wide_step.items() if k) == 0
             or wide_training["window_attention_mid_fwd"]):
         raise AssertionError(f"wide training path launches {wide_training}: "
                              f"a kernel of the path never launched, or row "
                              f"11 took a width of the route")
+
     mark("training paths")
 
     K.reset_launch_counts()   # the pretraining path starts here
@@ -5017,9 +5424,11 @@ def run_paths(work) -> int:
                              f"kernel never launched")
     settle_cpu_halves()   # every CPU half compared before the report
     launches = {n: serving[n] + widths[n] + c64_serving[n] + grid_serving[n]
-                + any_serving[n] + wide_serving[n] + single[n] + training[n]
+                + any_serving[n] + wide_serving[n] + past_serving[n]
+                + single[n] + training[n]
                 + width_training[n] + c64_training[n] + grid_training[n]
-                + any_training[n] + wide_training[n] + pretraining[n]
+                + any_training[n] + wide_training[n] + past_training[n]
+                + pretraining[n]
                 + evaluation[n] + studied[n] + gui[n] + perceptual[n]
                 + ablation[n] for n in counted}
     mark("all paths")
@@ -5101,7 +5510,8 @@ def run_paths(work) -> int:
          "library_device_ms": relayout_ms[4]},
         {"name": "fused_structural_block", "route": "cuda",
          "source": f"{pkg}/fused_structural_block.cu; "
-                   f"{pkg}/fused_structural_block_pair.cu",
+                   f"{pkg}/fused_structural_block_pair.cu; "
+                   f"{pkg}/fused_structural_block_stream.cu",
          "replaces": f"{tpu}/fused_transformer.py:169",
          "launches": launches["fused_structural_block"],
          "max_abs_err": block_err, "ms": blk_ms, "plain_ms": blk_plain,
@@ -5140,12 +5550,15 @@ def run_paths(work) -> int:
     # (phase_width_train_kernels per generator forward and backward at
     # 256^2, launches of the width or c64 training path)
     width_paths = {n: widths[n] + c64_serving[n] + grid_serving[n]
-                   + any_serving[n] + wide_serving[n] for n in counted}
+                   + any_serving[n] + wide_serving[n] + past_serving[n]
+                   for n in counted}
     width_train_paths = {n: width_training[n] + c64_training[n]
                          + grid_training[n] + any_training[n]
-                         + wide_training[n] for n in counted}
+                         + wide_training[n] + past_training[n]
+                         for n in counted}
     all_widths = (WIDTH_CHANNELS + C64_CHANNELS + GRID_CHANNELS
-                  + ANY_FULL_CHANNELS + WIDE_FULL_CHANNELS)
+                  + ANY_FULL_CHANNELS + WIDE_FULL_CHANNELS
+              + PAST_FULL_CHANNELS)
     any_rows = {"window_channel_attention": "window_channel_attention",
                 "packed_window_channel_attention":
                     "packed_window_channel_attention",
@@ -5202,17 +5615,31 @@ def run_paths(work) -> int:
             entry["wide_widths"] = {
                 str(w): {"max_abs_err": e32, "max_abs_err_bf16": e16}
                 for w, (e32, e16) in wide_kernels[any_rows[name]].items()}
+            # and those of the widths past 128 (C = 516 .. 2048, dims 528 ..
+            # 2048, heads of 33 .. 127), with the launches of c132 and c192
+            entry["past_widths"] = {
+                str(w): {"max_abs_err": e32, "max_abs_err_bf16": e16}
+                for w, (e32, e16) in past_kernels[any_rows[name]].items()}
             if name == "fused_structural_block":
-                # bf16 on a grid of more windows than resident blocks
+                # bf16 on a grid of more windows than resident blocks, and
+                # past dim 512 than one chunk of the chain's workspace
                 entry["many_windows_bf16"] = {
                     str(d): e for d, e in many_windows.items()}
+                entry["past_many_windows_bf16"] = {
+                    str(d): e for d, e in past_many["block"].items()}
+            if name in ("window_channel_attention",
+                        "packed_window_channel_attention"):
+                entry["past_many_windows_bf16"] = {
+                    str(c): e for c, e in past_many["attention"].items()}
             ran = train_rows.get(name, (name,))
-            for c in ANY_SMALL_CHANNELS + WIDE_SMALL_CHANNELS:
+            for c in (ANY_SMALL_CHANNELS + WIDE_SMALL_CHANNELS
+                      + PAST_SERVED_CHANNELS[:-1]):
                 entry["widths"][f"c{c}"] = {
                     "launches": sum(width_serving[c]["launches"][n]
                                     for n in ran),
-                    "training_launches": sum(width_train[c]["launches"][n]
-                                             for n in ran)}
+                    "training_launches": sum(
+                        width_train[c]["launches"][n] for n in ran)
+                    if c in width_train else 0}
         if name == "window_channel_attention":
             # c32's down2 under grad: this kernel forward, the backward
             # recomputed through the plain version (fwd + bwd at batch 8);
@@ -5225,6 +5652,8 @@ def run_paths(work) -> int:
             # c128's down2 (C = 512; checked on a small grid) and c68's
             # (C = 272)
             entry["fast_vjp_wide"] = wide_fast_vjp
+            # c256's down2 (C = 1024; checked on a small grid)
+            entry["fast_vjp_past"] = past_fast_vjp
         if sdpa_mid is not None:
             entry["sdpa_mid_ms"] = sdpa_mid
         dev_ms = entry.get("device_ms")
@@ -5274,12 +5703,13 @@ def run_paths(work) -> int:
         f"{EVAL_IMAGES} images a direction, fp32: {fid_text}; whole run "
         f"{time.perf_counter() - t_start:.1f} s")
     for c in (WIDTH_CHANNELS + C64_CHANNELS + GRID_FULL_CHANNELS
-              + ANY_FULL_CHANNELS + WIDE_FULL_CHANNELS):
+              + ANY_FULL_CHANNELS + WIDE_FULL_CHANNELS
+              + PAST_FULL_CHANNELS):
         log(f"[summary] {card}; c{c} generator "
             f"({width_serving[c]['parameters']} parameters; bf16 weights "
-            f"NHWC {width_serving[c]['weights_gib']['nhwc']:.3f} GiB, packed "
-            f"{width_serving[c]['weights_gib']['packed']:.3f} GiB) bf16 "
-            f"program img/s at canvas 256: "
+            + ", ".join(f"{e} {g:.3f} GiB" for e, g in
+                        width_serving[c]['weights_gib'].items())
+            + ") bf16 program img/s at canvas 256: "
             + ", ".join(f"batch {n} {e} {r:.1f}"
                         for (n, e), r in width_serving[c]["rates"].items())
             + "; kernels per forward at canvas 256, batch "
@@ -5288,17 +5718,26 @@ def run_paths(work) -> int:
                         f"device, plain {r['plain_ms']:.4f} ms, bound "
                         f"{r['bound_ms']:.6f} ms by {r['bound_by']})"
                         for n, r in width_kernels[c].items()))
+    for c in PAST_SERVED_CHANNELS[:-1]:
+        log(f"[summary] {card}; c{c} generator "
+            f"({width_serving[c]['parameters']} parameters; bf16 weights "
+            + ", ".join(f"{e} {g:.3f} GiB" for e, g in
+                        width_serving[c]['weights_gib'].items())
+            + ") bf16 program img/s at canvas 256: "
+            + ", ".join(f"batch {n} {e} {r:.2f}"
+                        for (n, e), r in width_serving[c]["rates"].items()))
     for c in (WIDTH_CHANNELS + C64_CHANNELS + GRID_FULL_CHANNELS
-              + ANY_FULL_CHANNELS + WIDE_FULL_CHANNELS):
+              + ANY_FULL_CHANNELS + WIDE_FULL_CHANNELS
+              + PAST_FULL_CHANNELS):
         t = width_train[c]
         rows = width_train_kernels[c]
         log(f"[summary] {card}; c{c} training: bf16 CycleGAN step 256^2 batch "
-            f"{TRAIN_BATCH} {t['step_ms']:.2f} ms/step "
-            f"({TRAIN_BATCH * 1000 / t['step_ms']:.1f} image pairs/s; "
+            f"{t['batch']} {t['step_ms']:.2f} ms/step "
+            f"({t['batch'] * 1000 / t['step_ms']:.1f} image pairs/s; "
             f"{t['step_device_ms']:.2f} ms device, idle {t['step_idle']:.1%}, "
-            f"peak memory {t['step_peak_gib']:.2f} GiB); enhanced "
-            f"pretrain step bf16 256^2 batch "
-            f"{PRETRAIN_BATCH if c in C64_CHANNELS + WIDE_FULL_CHANNELS else TRAIN_BATCH} "
+            f"peak memory {t['step_peak_gib']:.2f} GiB; pretrain peak "
+            f"{t['pretrain_peak_gib']:.2f} GiB); enhanced "
+            f"pretrain step bf16 256^2 batch {t['pretrain_batch']} "
             f"{t['pretrain'][0]:.2f} ms/step ({t['pretrain'][1]:.2f} ms device, "
             f"idle {t['pretrain'][2]:.1%}); training kernels fwd + bwd per "
             f"generator at batch {TRAIN_BATCH}, bf16: "
@@ -5349,6 +5788,12 @@ def run_paths(work) -> int:
             f"the pretrain step's one batch-8 forward "
             f"~{fwd_ms / t['pretrain'][0]:.1%} and "
             f"~{fwd_dev / t['pretrain'][1]:.1%}")
+    for r in past_fast_vjp:
+        log(f"[summary] {card}; the route under grad at {r['shape']} (c256's "
+            f"down2 over the streamed kernel), fwd + bwd, bf16: "
+            f"{r['ms']:.4f} ms ({r['device_ms']:.4f} ms device, plain "
+            f"formulation {r['plain_ms']:.4f} ms, peak {r['peak_gib']:.2f} "
+            f"GiB)")
     log(f"[summary] {card}; study path: select_checkpoints forwards "
         f"{study['select_img_s']:.1f} img/s (bf16, 256^2, batch 8); "
         f"run_trained_surface stages "

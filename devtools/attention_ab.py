@@ -50,6 +50,7 @@ import chip_smoke as smoke
 SOURCES = {"window_channel_attention": ("window_channel_attention",
                                         "packed_window_channel_attention"),
            "fused_structural_block": ("fused_structural_block",),
+           "fused_structural_block_pair": ("fused_structural_block_pair",),
            # not redesigned, but they share headers with the two above:
            # their old and new builds must give the same bits
            "window_attention_train": ("window_attention_train_fwd",
@@ -63,8 +64,11 @@ BLOCK_SHAPES = ((smoke.BATCH, 64, 64, 64), (smoke.BATCH, 128, 128, 64),
 # the generators' canvas-256 grids; C = 8 runs in the CP = 16 layout
 B = smoke.BATCH
 LAYOUT_SHAPES = ((B, 256, 256, 8), (B, 256, 256, 16), (B, 256, 256, 32),
-                 (B, 128, 128, 64), (B, 64, 64, 128), (B, 64, 64, 256))
-BLOCK_DIM_SHAPES = tuple((B, 64, 64, d) for d in (32, 64, 128, 256)) + (
+                 (B, 128, 128, 64), (B, 64, 64, 128), (B, 64, 64, 256),
+                 (B, 64, 64, 512))
+# the pair kernel's (bf16 dims 260 .. 512) at c128's and c68's dims too
+BLOCK_DIM_SHAPES = tuple((B, 64, 64, d) for d in (32, 64, 128, 256, 512,
+                                                  272)) + (
     (2, 12, 20, 128), (2, 12, 20, 256),
     # the head-slot kernel: c12's dim 48 (an odd tile count a window, the
     # last tile unread) and c60's 240
@@ -132,9 +136,12 @@ def build(csrc: str, out_dir: str, tag: str):
             _, symbol, argtypes = _build.SIGNATURES[entry]
             fn = entries[entry] = getattr(lib, symbol)
             fn.argtypes, fn.restype = argtypes, ctypes.c_int
-            if entry == "fused_structural_block" and "ws_windows" not in text:
-                # a source from before the dims past 256 takes no workspace
-                # (ws, ws_windows): called through an adapter that drops them
+            if (entry in ("fused_structural_block", "window_channel_attention",
+                          "packed_window_channel_attention")
+                    and "ws_windows" not in text):
+                # a source from before the workspaces (the block's past dim
+                # 256, the attention's past C = 512) takes no (ws,
+                # ws_windows): called through an adapter that drops them
                 fn.argtypes = argtypes[:12] + argtypes[14:]
                 entries[entry] = (lambda f: lambda *a: f(*a[:12], *a[14:]))(fn)
     return entries, usage
@@ -191,9 +198,11 @@ def main(argv=None) -> int:
               f"{block_launch_shape(1, 8, 8, C)[1]} B a block", flush=True)
 
     def run(tag, wrapper, *args, **kw):
-        """A no-argument call of ``wrapper`` through build ``tag``."""
+        """A no-argument call of ``wrapper`` through build ``tag`` (every
+        entry point of the build swapped in: the block's dims past 256 run
+        in the pair kernel's)."""
         def call():
-            _build._loaded[wrapper.__name__] = builds[tag][0][wrapper.__name__]
+            _build._loaded.update(builds[tag][0])
             return wrapper(*args, **kw)
         return call
 

@@ -57,6 +57,19 @@ the C = 256 kernel's: every operand a pair) and the block at its dim 4c on
 the canvas-256 grid and a ragged one (the pair kernel, every operand a
 pair, the heads at their real width and scale).
 
+    PYTHONPATH=. python3 devtools/serving_kernel_rounding.py --past128
+
+runs the streamed designs past 128 (``chip_smoke.PAST_SERVED_CHANNELS``:
+c132, c192, c256), the kernel plan only, at the largest shape each width
+runs: the attention at its canvas-256 down2 on batch 8 (C = 528, 768, 1024
+past C = 512: q, k and v stay fp32 in the workspace, qn, kn, v, the
+exponentials and the output are pairs) and the block chain at its dim 4c on
+the canvas-256 grid and a ragged one, and at dims 1072, 2032 and 2048 (16
+heads of 67 and 127, 64 of 32) on a 32 x 32 grid (LN1's output in three
+terms, the MHSA in fp32, the other operands pairs, the heads at their real
+width and scale; beside it the plan of every operand a pair), ~20 minutes
+on 4 threads.
+
     PYTHONPATH=. python3 devtools/serving_kernel_rounding.py --fp32
 
 asks the fp32 question of the block instead (``fp32_block_question``, ~4
@@ -76,6 +89,7 @@ import torch.nn.functional as F
 
 import chip_smoke as smoke
 from devtools.train_kernel_rounding import BF16, _parts, mm, ratio
+from multi_style_transfer_gan_tpu_torch.ops.kernels import fused_transformer
 from multi_style_transfer_gan_tpu_torch.ops.kernels.fused_transformer import (
     WINDOW, default_num_heads, structural_block_plain,
 )
@@ -96,7 +110,10 @@ def attention_kernel_plan(C: int) -> dict:
     saturated window on the 64^2 grid at 0.83 of the bound, the pair 0.67)."""
     cp = layout_width(C, bf16=True)
     wide = cp > 128
-    return dict(qk=True, v=wide, S=cp >= 64, out=cp >= 64, wide=wide)
+    # past C = 512 (the streamed design) q and k stay fp32 in the workspace:
+    # no pair of their raw values
+    return dict(qk=True, v=wide, S=cp >= 64, out=cp >= 64, wide=wide,
+                raw=wide and C <= 512)
 
 
 def block_kernel_plan(C: int) -> dict:
@@ -109,7 +126,14 @@ def block_kernel_plan(C: int) -> dict:
     with o, p and v as pairs it stays at 0.68 (saturated 0.81, a one-ulp
     flip of the output rounding). A dim that is not a multiple of 32 runs in
     the head-slot kernel (bf16), which takes the dim-256 design's plan:
-    every operand a pair."""
+    every operand a pair. The streamed chain (past dim 512, or heads wider
+    than 64) enters LN1's output into the qkv product in three terms and
+    runs the MHSA in fp32: with every operand a pair a saturated block at
+    dim 2032 reaches 2.49 of the bound (``--past128``)."""
+    if fused_transformer.stream_takes(C):
+        # the streamed chain: LN1's output in three terms, the MHSA in fp32
+        return dict(h_qk=3, h_v=3, qk="fp32", p="fp32", v="fp32", o=True,
+                    h2=True, a=True)
     slot = C % 32 != 0
     wide, widest = C > 64 or slot, C > 128 or slot
     return dict(h_qk=True, h_v=wide, qk=True, p=widest, v=widest, o=widest,
@@ -134,6 +158,7 @@ BLOCK_PLANS = {
                        o=False, h2=False, a=False),
     "h, q, k pairs only": block_kernel_plan(64),
     "dim-128 pairs": block_kernel_plan(128),
+    "every operand a pair": block_kernel_plan(256),
     "kernel": None,
 }
 
@@ -147,7 +172,7 @@ def attention_chain(t, wqkv, bqkv, wproj, bproj, plan, eps=1e-12):
     qkv = F.linear(f(t), f(wqkv).reshape(3 * C, C), f(bqkv))
     q, k, v = qkv.split(C, dim=-1)
     wide = plan.get("wide", False)
-    if wide:   # raw q and k through shared memory as hi + lo
+    if wide and plan.get("raw", True):   # raw q and k as hi + lo pairs
         q, k = (sum(_parts(u, True)) for u in (q, k))
     inv = lambda u: 1.0 / torch.clamp_min(
         u.square().sum(-1, keepdim=True).sqrt(), eps)
@@ -234,8 +259,9 @@ def attention_ratios(shapes=None, plans=None):
                                                              packed=True):
             rows = torch.from_numpy(x).to(BF16).reshape(-1, 16, C)
             ws = [torch.from_numpy(w.astype(np.float32)).to(BF16) for w in ws]
-            for i in range(0, rows.shape[0], ROWS_CHUNK):
-                t = rows[i:i + ROWS_CHUNK]
+            chunk = max(1, ROWS_CHUNK * 256 // max(C, 256))   # ~1 GB a tensor
+            for i in range(0, rows.shape[0], chunk):
+                t = rows[i:i + chunk]
                 ref = window_rows_attention_plain(t, *ws).to(BF16)
                 for name in plans or ATTENTION_PLANS:
                     plan = ATTENTION_PLANS[name] or attention_kernel_plan(C)
@@ -345,6 +371,19 @@ def main(argv=None) -> int:
         plans = ["kernel"]
     if "--any" in args:   # dims up to 32 run in the FMA bodies: no pairs
         block = [b for b in block if b[-1] > 32]
+    block_plans = None
+    if "--past128" in args:
+        widths = smoke.PAST_SERVED_CHANNELS
+        attention = [dict(smoke.attention_shapes(canvas, c))["down2"]
+                     for c in widths]
+        # and the chain's widest heads and dims (c268, c508, c512) on a
+        # small grid, with the pairs' plan beside the kernel's
+        block = [s for c in widths
+                 for s in ((smoke.BATCH, canvas // 4, canvas // 4, 4 * c),
+                           (2, 12, 20, 4 * c))] + [
+            (2, 32, 32, d) for d in (1072, 2032, 2048)]
+        plans = ["kernel"]
+        block_plans = ["kernel", "every operand a pair"]
     if "--wide" in args:
         widths = smoke.WIDE_FULL_CHANNELS + smoke.WIDE_SMALL_CHANNELS
         attention = [dict(smoke.attention_shapes(canvas, c))["down2"]
@@ -355,7 +394,8 @@ def main(argv=None) -> int:
         plans = ["kernel"]
 
     for kernel, ratios in (("attention", attention_ratios(attention, plans)),
-                           ("block", block_ratios(block, plans))):
+                           ("block", block_ratios(block,
+                                                  block_plans or plans))):
         for (shape, label, plan), (d, r) in ratios.items():
             print(f"{kernel} {shape} {label}, {plan}: max|d| {d:.3e} "
                   f"(x{r:.3f} of the bound)", flush=True)

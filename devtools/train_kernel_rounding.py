@@ -68,7 +68,15 @@ PLANS = {
 
 
 def _parts(x, split):
+    """x as bf16 terms: (hi, lo) for a pair (``split`` True), (hi, None) for
+    one term; ``"fp32"`` keeps x as it is (an operand the kernel keeps in
+    fp32), 3 three terms (hi + mid, exact in fp32, and lo)."""
+    if split == "fp32":
+        return x, None
     hi = x.to(BF16).float()
+    if split == 3:
+        mid = (x - hi).to(BF16).float()
+        return hi + mid, (x - hi - mid).to(BF16).float()
     return hi, ((x - hi).to(BF16).float() if split else None)
 
 

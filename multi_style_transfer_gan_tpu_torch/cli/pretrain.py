@@ -40,8 +40,7 @@ def main(argv=None):
                         "so cli.train's --pretrained warm start actually "
                         "transfers (the reference's plain->enhanced "
                         "non-strict load shares zero keys); on the card it "
-                        "trains --channels every width from 1 to 128 but 67, 71, 73, 79"
-                        ", 83, 89, 97, 101, 103, 107, 109, 113 and 127, whose heads would be wider than 64 channels")
+                        "trains --channels at any width")
     p.add_argument("--num_transformer_blocks", type=int, default=1,
                    help="enhanced model only")
     p.add_argument("--seed", type=int, default=42)

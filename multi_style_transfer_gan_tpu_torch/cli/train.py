@@ -32,9 +32,9 @@ def main(argv=None):
     p.add_argument("--num_epochs", type=int, default=200)
     p.add_argument("--batch_size", type=int, default=8)
     p.add_argument("--channels", type=int, default=16,
-                   help="generator width; the card trains every width from 1 to 128 but 67, 71, "
-                        "73, 79, 83, 89, 97, 101, 103, 107, 109, 113 and 127, whose heads would be wider than 64 channels (the generator itself needs "
-                        "a multiple of 4)")
+                   help="generator width, any multiple of 4 (the generator "
+                        "needs one); the card trains every such width, as far "
+                        "as its memory holds the model")
     p.add_argument("--num_transformer_blocks", type=int, default=1)
     p.add_argument("--seed", type=int, default=42)
     p.add_argument("--checkpoint_every", type=int, default=20)
@@ -95,7 +95,7 @@ def main(argv=None):
     from ..data import ImageFolderDataset, prefetch_to_device
     from ..ops import to_model_range
     from ..train import (
-        check_kernel_width, cyclegan_init_state, cyclegan_train_step,
+        cyclegan_init_state, cyclegan_train_step,
         latest_step, pool_init, restore_train_state, save_models,
         save_train_state,
     )
@@ -103,8 +103,6 @@ def main(argv=None):
     from ..weights import extract_state_dict, load_pth
 
     device = torch.device(DEVICE)
-    if device.type == "cuda":   # before any data is read
-        check_kernel_width(args.channels, "CycleGAN training")
     pre = None
     if args.pretrained:
         print(f"warm-starting generators from {args.pretrained}")

@@ -14,12 +14,13 @@
 // zero-pad-and-mask formulation (models/structural_transformer.py:113-150)
 // computes. So every grid shape runs here; none is sent elsewhere.
 //
-// Widths: any C from 1 to 256, and any C % 4 == 0 from 260 to 512, with
-// default_num_heads(C) heads of at most 64 channels (the blocks of every
-// generator width up to 128 but c67, c71, .., c127, whose heads would be
-// wider; from 260 on the pair kernel in bf16, a source of its own,
-// fused_structural_block_pair.cu, and the FMA bodies with a workspace in
-// fp32 below). Below, the
+// Widths: any C from 1 to 256 with default_num_heads(C) heads of at most 64
+// channels here; in bf16 the dims from 260 to 512 (C % 4 == 0, heads of at
+// most 64) in the pair kernel, a source of its own,
+// fused_structural_block_pair.cu, and every other dim (past 512, or heads
+// wider than 64) in the streamed chain, fused_structural_block_stream.cu; in
+// fp32 every dim past 256 or with wider heads in the FMA bodies with a
+// workspace below (heads of up to 174 channels). Below, the
 // designs of C % 32 == 0 with C / 32 heads of 32 (c8 .. c64 at multiples
 // of 8: dims 32, 64, .., 256); after them the head-slot kernel (bf16, the
 // other generator dims from 48 on) and the FMA bodies (fp32 at every
@@ -2170,7 +2171,13 @@ __device__ __forceinline__ void layer_norm_any(const In* in, Out* out, int C, in
   }
 }
 
-template <typename T, bool kWs>
+// kRes64 (fp32 past dim 512, in the workspace): the residual stream in
+// float64 and the proj's and the MLP's sums in float64, as the plain version
+// carries them there: at dim 1024 .. 2048 the fp32 residual takes 64 heads'
+// proj shares and 64 .. 128 hidden chunks of fc2 one rounding each, and an
+// fp32 evaluation of those lay 2.1e-4 .. 5.9e-4 from the plain version's,
+// past the fp32 tolerance (devtools/serving_kernel_rounding.py --fp32)
+template <typename T, bool kWs, bool kRes64 = false>
 __global__ void __launch_bounds__(kThreads)
 fused_structural_block_any_kernel(const T* __restrict__ x, const T* __restrict__ st,
                                   const float* __restrict__ gamma,
@@ -2197,12 +2204,15 @@ fused_structural_block_any_kernel(const T* __restrict__ x, const T* __restrict__
   // (this kernel's and the plain version's) were 2.3e-4 apart, past the
   // fp32 tolerance (devtools/serving_kernel_rounding.py --fp32)
   using HT = std::conditional_t<kWs, double, float>;
-  float* sX = smem_any;
+  using RT = std::conditional_t<kRes64, double, float>;   // the residual stream
+  using MT = std::conditional_t<kRes64, double, float>;   // the proj's and the MLP's sums
+  RT* sX = reinterpret_cast<RT*>(smem_any);
   if constexpr (kWs)
-    sX = ws + ((long long)(blockIdx.z * gridDim.y + blockIdx.y) * gridDim.x + blockIdx.x) * 3 *
-                  kTok * XS;
+    sX = reinterpret_cast<RT*>(
+        ws + ((long long)(blockIdx.z * gridDim.y + blockIdx.y) * gridDim.x + blockIdx.x) *
+                 (kRes64 ? 4 : 3) * kTok * XS);
   HT* sH = reinterpret_cast<HT*>(sX + kTok * XS);
-  float* sU = kWs ? smem_any : sX + 2 * kTok * XS;
+  float* sU = kWs ? smem_any : reinterpret_cast<float*>(sX) + 2 * kTok * XS;
   sU += (reinterpret_cast<uintptr_t>(sU) / sizeof(float)) % 2;   // 8-byte aligned
   Acc* sQK = reinterpret_cast<Acc*>(sU);    // [64][KS] q | k, then o (float, stride OS)
   Acc* sS = sQK + kTok * KS;                // [16][SS] a tile of scores
@@ -2289,10 +2299,10 @@ fused_structural_block_any_kernel(const T* __restrict__ x, const T* __restrict__
       __syncthreads();
     }
     // the head's share of the proj (and, once, its bias) onto the residual
-    linear_any<float>(
+    linear_any<MT>(
         sO, OS, hd, C, vec_hd, [&](int o) { return projw + (long long)o * C + hh * hd; },
         [&](int o) { return hh == 0 ? to_f(projb[o]) : 0.f; },
-        [&](int t, int o, float v) { sX[t * XS + o] += v; });
+        [&](int t, int o, MT v) { sX[t * XS + o] += v; });
     __syncthreads();
   }
 
@@ -2301,23 +2311,26 @@ fused_structural_block_any_kernel(const T* __restrict__ x, const T* __restrict__
 #pragma unroll 1
   for (int h0 = 0; h0 < 4 * C; h0 += kAnyHC) {
     const int n = 4 * C - h0 < kAnyHC ? 4 * C - h0 : kAnyHC;   // hidden columns of the chunk
-    linear_any<float>(
+    linear_any<MT>(
         sH, XS, C, n, vec_c, [&](int o) { return f1w + (long long)(h0 + o) * C; },
-        [&](int o) { return to_f(f1b[h0 + o]); }, [&](int t, int o, float v) {
-          sA1[t * AS + o] = 0.5f * v * (1.f + erff(v * 0.70710678118654752f));
+        [&](int o) { return to_f(f1b[h0 + o]); }, [&](int t, int o, MT v) {
+          if constexpr (kRes64)
+            sA1[t * AS + o] = (float)(0.5 * v * (1.0 + erf(v * 0.70710678118654752440)));
+          else
+            sA1[t * AS + o] = 0.5f * v * (1.f + erff(v * 0.70710678118654752f));
         });
     __syncthreads();
-    linear_any<float>(
+    linear_any<MT>(
         sA1, AS, n, C, vec_c && n % 4 == 0,
         [&](int o) { return f2w + (long long)o * 4 * C + h0; },
         [&](int o) { return h0 == 0 ? to_f(f2b[o]) : 0.f; },
-        [&](int t, int o, float v) { sX[t * XS + o] += v; });
+        [&](int t, int o, MT v) { sX[t * XS + o] += v; });
     __syncthreads();
   }
 
   for (int e = tid; e < kTok * C; e += kThreads) {
     const int t = e / C, c = e % C;
-    if (valid(t)) y[offset(t) + c] = from_f<T>(sX[t * XS + c]);
+    if (valid(t)) y[offset(t) + c] = from_f<T>((float)sX[t * XS + c]);
   }
 }
 
@@ -2326,10 +2339,9 @@ int launch_any(const void* x, const void* st, const void* gamma, const void* bet
                const void* const* w, void* y, int B, int H, int W, int C, float eps, void* ws,
                int ws_windows, cudaStream_t stream) {
   const int heads = default_num_heads(C);
-  if (C / heads > 64) return (int)cudaErrorInvalidValue;
   auto p = [&](int i) { return static_cast<const T*>(w[i]); };
   const int nwx = (W + kWin - 1) / kWin, nwy = (H + kWin - 1) / kWin;
-  if (C <= kFrameDim) {
+  if (C <= kFrameDim && C / heads <= 64) {
     const int smem = any_smem_bytes<T>(C, C / heads, false);
     auto kernel = fused_structural_block_any_kernel<T, false>;
     cudaError_t err =
@@ -2343,16 +2355,20 @@ int launch_any(const void* x, const void* st, const void* gamma, const void* bet
         p(9), p(10), p(11), static_cast<T*>(y), H, W, C, heads, eps, nullptr);
     return (int)cudaGetLastError();
   }
-  // C = 257 .. 512 (fp32; bf16 runs in the pair kernel): the residual
-  // stream and the LN output of a window (64 x (C + 1) fp32 and float64
-  // rows, 394 KB at C = 512) outgrow shared memory and live in the caller's
-  // workspace, ws_windows windows of it; the images pass in slices of as
-  // many windows, one launch each
+  // C > 256, or heads wider than 64 (fp32; bf16 runs in the pair kernel or
+  // fused_structural_block_stream.cu): the residual stream and the LN output
+  // of a window (64 x (C + 1) fp32 and float64 rows, 394 KB at C = 512)
+  // outgrow shared memory and live in the caller's workspace, ws_windows
+  // windows of it; the images pass in slices of as many windows, one launch
+  // each. Shared memory holds one head (q | k in float64, v, a score tile):
+  // heads of up to 174 channels (227 KB)
   if constexpr (!std::is_same_v<T, float>) {
     return (int)cudaErrorInvalidValue;
   } else {
     const int smem = any_smem_bytes<T>(C, C / heads, true);
-    auto kernel = fused_structural_block_any_kernel<T, true>;
+    if (smem > 227 * 1024) return (int)cudaErrorInvalidValue;
+    auto kernel = C > 2 * kFrameDim ? fused_structural_block_any_kernel<T, true, true>
+                                    : fused_structural_block_any_kernel<T, true>;
     cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (err != cudaSuccess) return (int)err;
     const int per_image = nwx * nwy, nb = ws == nullptr ? 0 : ws_windows / per_image;
@@ -2446,15 +2462,17 @@ int launch_width(const void* x, const void* st, const void* gamma, const void* b
 // Plain C entry point (loaded with ctypes). x, struct and y are (B, H, W, C)
 // contiguous; gamma and beta (B, C) fp32; `weights` points to 12 pointers in
 // the order norm1 w/b, qkv w/b, proj w/b, norm2 w/b, fc1 w/b, fc2 w/b, of
-// the same type as x (dtype 0 = fp32, 1 = bf16). Any C from 1 to 256, and
-// any C % 4 == 0 from 260 to 512, with default_num_heads(C) heads of at most
-// 64 channels (the blocks of the c1 .. c128 generators): C % 32 == 0 up to
-// 256 in the designs of heads of 32, any other C up to 256 in the slot
-// kernel or the FMA bodies, C > 256 in fp32 in the FMA bodies (in bf16 the
-// pair kernel's own entry point, fused_structural_block_pair.cu takes
-// them) with the residual stream in `ws`, an fp32 workspace of ws_windows
+// the same type as x (dtype 0 = fp32, 1 = bf16). Any C up to 256 whose
+// default_num_heads(C) heads are at most 64 channels wide: C % 32 == 0 in
+// the designs of heads of 32, any other C in the slot kernel or the FMA
+// bodies; in fp32 also every C past 256 and every C with wider heads (up to
+// 174 channels) in the FMA bodies (in bf16 the pair kernel's own entry
+// point, fused_structural_block_pair.cu, and the streamed chain,
+// fused_structural_block_stream.cu, take them) with the residual stream in
+// `ws`, an fp32 workspace of ws_windows
 // windows of 3 x 64 x (C + 1) floats (fp32: the residual stream, then the
-// LN output in float64; unused otherwise). Launches on
+// LN output in float64; 4 x 64 x (C + 1) past dim 512, whose residual
+// stream is float64 too; unused otherwise). Launches on
 // `stream` and returns cudaGetLastError() (0 on success).
 extern "C" int fused_structural_block_launch(const void* x, const void* st, const void* gamma,
                                              const void* beta, const void* const* weights,
@@ -2473,15 +2491,15 @@ extern "C" int fused_structural_block_launch(const void* x, const void* st, cons
     case 192: return mstgan::launch_width<192>(x, st, gamma, beta, weights, y, B, H, W, dtype, eps, s);
     case 224: return mstgan::launch_width<224>(x, st, gamma, beta, weights, y, B, H, W, dtype, eps, s);
     case 256: return mstgan::launch_width<256>(x, st, gamma, beta, weights, y, B, H, W, dtype, eps, s);
-    default: {   // every other dim 4 .. 252 (heads of 4 .. 62), and 260 .. 512
-      if (C < 1 || C > 512 || (C > 256 && C % 4)) return (int)cudaErrorInvalidValue;
+    default: {   // every other dim: 4 .. 252 (heads of 4 .. 62), and from 260 on in fp32
+      if (C < 1) return (int)cudaErrorInvalidValue;
       const int heads = mstgan::default_num_heads(C);
       if (dtype == mstgan::kF32)
         return mstgan::launch_any<float>(x, st, gamma, beta, weights, y, B, H, W, C, eps, ws,
                                          ws_windows, s);
       if (dtype == mstgan::kBF16 && mstgan::slot_takes(C, heads))
         return mstgan::launch_slot(x, st, gamma, beta, weights, y, B, H, W, C, heads, eps, s);
-      if (dtype == mstgan::kBF16 && C <= mstgan::kFrameDim)
+      if (dtype == mstgan::kBF16 && C <= mstgan::kFrameDim && C / heads <= 64)
         return mstgan::launch_any<__nv_bfloat16>(x, st, gamma, beta, weights, y, B, H, W, C,
                                                  eps, nullptr, 0, s);
       return (int)cudaErrorInvalidValue;

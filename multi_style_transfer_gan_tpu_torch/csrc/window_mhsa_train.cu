@@ -4,8 +4,9 @@
 // Replaces ops/pallas/window_mhsa_train.py::window_mhsa_train of the JAX
 // package (its _fwd_kernel and hand-written _bwd_kernel). On a (B, H, W, 3C)
 // qkv grid with C = heads x hd in `heads` heads of hd channels (the blocks
-// of every generator width from 1 to 128: C = 4, 8, .., 512 in
-// default_num_heads(C) = 1 .. 16 heads of 4 .. 64 channels), per 8x8 window
+// of every generator width: C = 4, 8, .. in default_num_heads(C) heads, 4
+// to 64 channels each up to c128, 16 heads of 67 at c268, 64 of 32 at
+// c512), per 8x8 window
 // of 64 tokens and per head, scale = hd^-0.5:
 //   s  = q k^T scale, minus its row max ;  p = softmax(s) ;  o = p v
 // and, given dO = d(o):
@@ -64,10 +65,10 @@
 // head's 32 channels of q, k, v (and dO) alone, so the shared memory of a
 // block does not grow with the width. At dim 256 a window's qkv and dO are
 // 64 x 1024 values, 256 KB in fp32, and a block still holds one head's 64 x
-// 128 of them. The head count is a runtime argument (1 to 8; head h of q,
-// k and v at column hd h of each third of the 3C row), 1 to 16; supported()
-// refuses any other (C, heads). Nothing in a block grows with the count:
-// the grid does.
+// 128 of them. The head count is a runtime argument (head h of q, k and v
+// at column hd h of each third of the 3C row), any count that divides C
+// (64 heads of 32 at c512's dim 2048). Nothing in a block grows with the
+// count: the grid does.
 //
 // Head widths. A head of hd channels runs in a slot of S = hd rounded up to
 // 16 (window_mhsa_mma.cuh: S = 16, 32, 48, 64, one instantiation of each
@@ -80,6 +81,15 @@
 // at a time (every head of a generator's block is one or the other), any
 // other a value at a time. The fp32 bodies take the same slots, rows of S
 // + 1 floats.
+//
+// Heads wider than 64 (hd = 67 at c268's dim 1072, 127 at c508's 2032, any
+// hd past them): the head passes in chunks of 64 channels, the k-steps of
+// the widest slot (mhsa_wide_fwd_mma_kernel, mhsa_wide_bwd_mma_kernel; in
+// fp32 mhsa_wide_*_f64_kernel): the scores
+// (and in the backward dp = dO v^T) summed over the chunks, then the outputs
+// a chunk at a time (o = p v; dq = ds k, dk = ds^T q, dv = p^T dO), so a
+// block holds 64 x 64 tiles whatever hd is. Every value is staged one at a
+// time there (a chunk's start need not be aligned).
 #include <climits>
 #include <cmath>
 #include <type_traits>
@@ -484,6 +494,350 @@ mhsa_bwd_mma_kernel(const bf16* __restrict__ qkv, const bf16* __restrict__ dout,
 }
 
 // ---------------------------------------------------------------------------
+// Heads wider than 64: chunks of 64 channels
+// ---------------------------------------------------------------------------
+
+constexpr int kChunk = 64;                 // head channels a pass
+constexpr int CRS = slot_rs<kChunk>();     // staged chunk row: 144 bytes
+constexpr int CTILE = slot_tile<kChunk>(); // one staged 64 x 64 chunk
+
+// Stages channels col0 .. col0 + n - 1 (n <= 64) of each of the window's 64
+// token rows of `src` (row stride `stride`) as a [token][d] chunk, zeros
+// from n on, a value at a time (a chunk's start need not be aligned).
+__device__ __forceinline__ void stage_chunk(const bf16* __restrict__ src, int stride, int col0,
+                                            int n, bf16* tile, long long win, int H, int W) {
+  for (int e = threadIdx.x; e < kTok * kChunk; e += blockDim.x) {
+    const int t = e / kChunk, d = e % kChunk;
+    tile[t * CRS + d] =
+        d < n ? src[token_offset(win, t, H, W) * stride + col0 + d] : __float2bfloat16(0.f);
+  }
+}
+
+// s (16 x 64) += x y^T over one chunk: x rows r0.. of a staged chunk, y a
+// staged chunk.
+__device__ __forceinline__ void add_scores(float (&s)[8][4], const bf16* x, const bf16* y, int r0,
+                                           int lane) {
+  uint32_t a[kChunk / 16][4];
+  load_a<kChunk>(a, x, r0, lane);
+  float t[8][4];
+  times_tile_t<kChunk>(t, a, y, lane);
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) s[j][i] += t[j][i];
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+mhsa_wide_fwd_f64_kernel(const T* __restrict__ qkv, T* __restrict__ out, int H, int W, int heads,
+                         int hd) {
+  using L = F32Slot<kChunk>;
+  const int C = heads * hd;
+  extern __shared__ double smem_d[];
+  double* sA = smem_d;
+  double* sB = sA + L::ROWS;
+  double* sP = sB + L::ROWS;
+  const long long win = blockIdx.x / heads;
+  const int head = blockIdx.x % heads;
+  for (int e = threadIdx.x; e < SCORES; e += kThreads) sP[e] = 0.0;
+#pragma unroll 1
+  for (int c0 = 0; c0 < hd; c0 += kChunk) {
+    const int n = hd - c0 < kChunk ? hd - c0 : kChunk;
+    __syncthreads();
+    load_rows<kChunk>(qkv, 3 * C, head * hd + c0, n, sA, win, H, W);
+    load_rows<kChunk>(qkv, 3 * C, C + head * hd + c0, n, sB, win, H, W);
+    __syncthreads();
+    for (int e = threadIdx.x; e < kTok * kTok; e += kThreads) {
+      const int t = e / kTok, u = e % kTok;
+      double acc = 0.0;
+#pragma unroll 8
+      for (int d = 0; d < kChunk; ++d) acc = fma(sA[t * L::TS + d], sB[u * L::TS + d], acc);
+      sP[t * PS + u] += acc;
+    }
+  }
+  __syncthreads();
+  const double sc = 1.0 / sqrt((double)hd);
+  for (int e = threadIdx.x; e < kTok * kTok; e += kThreads) sP[(e / kTok) * PS + e % kTok] *= sc;
+  __syncthreads();
+  softmax_rows(sP);
+#pragma unroll 1
+  for (int c0 = 0; c0 < hd; c0 += kChunk) {
+    const int n = hd - c0 < kChunk ? hd - c0 : kChunk;
+    __syncthreads();
+    load_rows<kChunk>(qkv, 3 * C, 2 * C + head * hd + c0, n, sA, win, H, W);
+    __syncthreads();
+    for (int e = threadIdx.x; e < kTok * n; e += kThreads) {
+      const int t = e / n, d = e % n;
+      double acc = 0.0;
+#pragma unroll 8
+      for (int u = 0; u < kTok; ++u) acc = fma(sP[t * PS + u], sA[u * L::TS + d], acc);
+      out[token_offset(win, t, H, W) * C + head * hd + c0 + d] = from_f<T>((float)acc);
+    }
+  }
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+mhsa_wide_bwd_f64_kernel(const T* __restrict__ qkv, const T* __restrict__ dout,
+                         T* __restrict__ dqkv, int H, int W, int heads, int hd) {
+  using L = F32Slot<kChunk>;
+  const int C = heads * hd;
+  extern __shared__ double smem_d[];
+  double* sA = smem_d;
+  double* sB = sA + L::ROWS;
+  double* sC = sB + L::ROWS;
+  double* sP = sC + L::ROWS;
+  double* sDP = sP + SCORES;
+  const long long win = blockIdx.x / heads;
+  const int head = blockIdx.x % heads;
+  for (int e = threadIdx.x; e < SCORES; e += kThreads) sP[e] = sDP[e] = 0.0;
+  // s = q k^T and dp = dO v^T, summed over the chunks
+#pragma unroll 1
+  for (int c0 = 0; c0 < hd; c0 += kChunk) {
+    const int n = hd - c0 < kChunk ? hd - c0 : kChunk;
+#pragma unroll 1
+    for (int pass = 0; pass < 2; ++pass) {
+      __syncthreads();
+      if (pass == 0) {
+        load_rows<kChunk>(qkv, 3 * C, head * hd + c0, n, sA, win, H, W);
+        load_rows<kChunk>(qkv, 3 * C, C + head * hd + c0, n, sB, win, H, W);
+      } else {
+        load_rows<kChunk>(dout, C, head * hd + c0, n, sA, win, H, W);
+        load_rows<kChunk>(qkv, 3 * C, 2 * C + head * hd + c0, n, sB, win, H, W);
+      }
+      __syncthreads();
+      double* dst = pass == 0 ? sP : sDP;
+      for (int e = threadIdx.x; e < kTok * kTok; e += kThreads) {
+        const int t = e / kTok, u = e % kTok;
+        double acc = 0.0;
+#pragma unroll 8
+        for (int d = 0; d < kChunk; ++d) acc = fma(sA[t * L::TS + d], sB[u * L::TS + d], acc);
+        dst[t * PS + u] += acc;
+      }
+    }
+  }
+  __syncthreads();
+  const double sc = 1.0 / sqrt((double)hd);
+  for (int e = threadIdx.x; e < kTok * kTok; e += kThreads) sP[(e / kTok) * PS + e % kTok] *= sc;
+  __syncthreads();
+  softmax_rows(sP);
+  __syncthreads();
+  // ds = p (.) (dp - rowsum(p (.) dp)) into sDP, a warp per row
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  for (int t = warp; t < kTok; t += kWarps) {
+    const double* p = sP + t * PS;
+    double* g = sDP + t * PS;
+    const double rs = warp_sum_d(p[lane] * g[lane] + p[lane + 32] * g[lane + 32]);
+    g[lane] = p[lane] * (g[lane] - rs);
+    g[lane + 32] = p[lane + 32] * (g[lane + 32] - rs);
+  }
+#pragma unroll 1
+  for (int c0 = 0; c0 < hd; c0 += kChunk) {
+    const int n = hd - c0 < kChunk ? hd - c0 : kChunk;
+    __syncthreads();
+    load_rows<kChunk>(qkv, 3 * C, head * hd + c0, n, sA, win, H, W);
+    load_rows<kChunk>(qkv, 3 * C, C + head * hd + c0, n, sB, win, H, W);
+    load_rows<kChunk>(dout, C, head * hd + c0, n, sC, win, H, W);
+    __syncthreads();
+    for (int e = threadIdx.x; e < kTok * n; e += kThreads) {
+      const int i = e / n, d = e % n;
+      double dq = 0.0, dk = 0.0, dv = 0.0;
+#pragma unroll 8
+      for (int j = 0; j < kTok; ++j) {
+        dq = fma(sDP[i * PS + j], sB[j * L::TS + d], dq);
+        dk = fma(sDP[j * PS + i], sA[j * L::TS + d], dk);
+        dv = fma(sP[j * PS + i], sC[j * L::TS + d], dv);
+      }
+      T* row = dqkv + token_offset(win, i, H, W) * 3 * C + head * hd + c0 + d;
+      row[0] = from_f<T>((float)(dq * sc));
+      row[C] = from_f<T>((float)(dk * sc));
+      row[2 * C] = from_f<T>((float)dv);
+    }
+  }
+}
+
+// bf16 forward of a head of hd > 64, a block of 4 warps (16 query rows each)
+// per (window, head): the scores summed over the chunks of q and k, the
+// softmax's exponentials, then o = p v a chunk of v at a time, the
+// exponentials as hi + lo pairs as in the slots up to 64.
+__global__ void __launch_bounds__(kMmaThreads)
+mhsa_wide_fwd_mma_kernel(const bf16* __restrict__ qkv, bf16* __restrict__ out, int H, int W,
+                         int heads, int hd, float scale) {
+  __shared__ __align__(16) bf16 sX[CTILE], sY[CTILE];
+  const long long win = blockIdx.x / heads;
+  const int head = blockIdx.x % heads, C = heads * hd;
+  const int lane = threadIdx.x % 32, r0 = (threadIdx.x / 32) * 16;
+  const int g = lane >> 2, tq = lane & 3;
+  float s[8][4] = {};
+#pragma unroll 1
+  for (int c0 = 0; c0 < hd; c0 += kChunk) {
+    const int n = hd - c0 < kChunk ? hd - c0 : kChunk;
+    __syncthreads();
+    stage_chunk(qkv, 3 * C, head * hd + c0, n, sX, win, H, W);
+    stage_chunk(qkv, 3 * C, C + head * hd + c0, n, sY, win, H, W);
+    __syncthreads();
+    add_scores(s, sX, sY, r0, lane);
+  }
+  float l0, l1;
+  exp_rows(s, scale, l0, l1);
+  l0 = 1.f / l0;
+  l1 = 1.f / l1;
+#pragma unroll 1
+  for (int c0 = 0; c0 < hd; c0 += kChunk) {
+    const int n = hd - c0 < kChunk ? hd - c0 : kChunk;
+    __syncthreads();
+    stage_chunk(qkv, 3 * C, 2 * C + head * hd + c0, n, sY, win, H, W);
+    __syncthreads();
+    float o[8][4] = {};
+    strip_times_tile<true, kChunk>(o, s, sY, lane);
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          const int t = r0 + g + 8 * h, d = j * 8 + 2 * tq + i;
+          if (d < n)
+            out[token_offset(win, t, H, W) * C + head * hd + c0 + d] =
+                __float2bfloat16(o[j][2 * h + i] * (h ? l1 : l0));
+        }
+  }
+}
+
+// bf16 backward of a head of hd > 64: s and dp summed over the chunks, p
+// and ds as in mhsa_bwd_mma_kernel (p one term, ds a pair in shared memory;
+// ds in registers for dq), then dq, dk and dv a chunk at a time.
+__global__ void __launch_bounds__(kMmaThreads)
+mhsa_wide_bwd_mma_kernel(const bf16* __restrict__ qkv, const bf16* __restrict__ dout,
+                         bf16* __restrict__ dqkv, int H, int W, int heads, int hd,
+                         float scale) {
+  const int C = heads * hd;
+  extern __shared__ __align__(16) unsigned char smem_mma[];
+  bf16* sA = reinterpret_cast<bf16*>(smem_mma);   // three chunks, then p, ds hi, ds lo
+  bf16* sB = sA + CTILE;
+  bf16* sC = sB + CTILE;
+  bf16* sP = sC + CTILE;
+  bf16* sDH = sP + SQUARE;
+  bf16* sDL = sDH + SQUARE;
+  const long long win = blockIdx.x / heads;
+  const int head = blockIdx.x % heads;
+  const int lane = threadIdx.x % 32, r0 = (threadIdx.x / 32) * 16;
+  const int g = lane >> 2, tq = lane & 3;
+  float p[8][4] = {}, ds[8][4] = {};
+#pragma unroll 1
+  for (int c0 = 0; c0 < hd; c0 += kChunk) {
+    const int n = hd - c0 < kChunk ? hd - c0 : kChunk;
+    __syncthreads();
+    stage_chunk(qkv, 3 * C, head * hd + c0, n, sA, win, H, W);
+    stage_chunk(qkv, 3 * C, C + head * hd + c0, n, sB, win, H, W);
+    stage_chunk(dout, C, head * hd + c0, n, sC, win, H, W);
+    __syncthreads();
+    add_scores(p, sA, sB, r0, lane);
+    __syncthreads();
+    stage_chunk(qkv, 3 * C, 2 * C + head * hd + c0, n, sB, win, H, W);
+    __syncthreads();
+    add_scores(ds, sC, sB, r0, lane);   // dp = dO v^T
+  }
+  float l0, l1;
+  exp_rows(p, scale, l0, l1);
+  l0 = 1.f / l0;
+  l1 = 1.f / l1;
+  float rs0 = 0.f, rs1 = 0.f;
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    p[j][0] *= l0;
+    p[j][1] *= l0;
+    p[j][2] *= l1;
+    p[j][3] *= l1;
+    rs0 += p[j][0] * ds[j][0] + p[j][1] * ds[j][1];
+    rs1 += p[j][2] * ds[j][2] + p[j][3] * ds[j][3];
+  }
+  rs0 = quad_sum(rs0);
+  rs1 = quad_sum(rs1);
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    ds[j][0] = p[j][0] * (ds[j][0] - rs0);
+    ds[j][1] = p[j][1] * (ds[j][1] - rs0);
+    ds[j][2] = p[j][2] * (ds[j][2] - rs1);
+    ds[j][3] = p[j][3] * (ds[j][3] - rs1);
+  }
+  store_frags<8>(sP, nullptr, QS, r0, 0, p, 1.f, lane);
+  store_frags<8>(sDH, sDL, QS, r0, 0, ds, 1.f, lane);
+#pragma unroll 1
+  for (int c0 = 0; c0 < hd; c0 += kChunk) {
+    const int n = hd - c0 < kChunk ? hd - c0 : kChunk;
+    __syncthreads();
+    stage_chunk(qkv, 3 * C, head * hd + c0, n, sA, win, H, W);
+    stage_chunk(qkv, 3 * C, C + head * hd + c0, n, sB, win, H, W);
+    stage_chunk(dout, C, head * hd + c0, n, sC, win, H, W);
+    __syncthreads();
+    float dq[8][4] = {}, dk[8][4] = {}, dv[8][4] = {};
+    strip_times_tile<true, kChunk>(dq, ds, sB, lane);
+    square_t_times_tile<true, kChunk>(dk, sDH, sDL, sA, r0, lane);
+    square_t_times_tile<false, kChunk>(dv, sP, nullptr, sC, r0, lane);
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          const int t = r0 + g + 8 * h, d = j * 8 + 2 * tq + i;
+          if (d >= n) continue;
+          bf16* row = dqkv + token_offset(win, t, H, W) * 3 * C + head * hd + c0 + d;
+          row[0] = __float2bfloat16(dq[j][2 * h + i] * scale);
+          row[C] = __float2bfloat16(dk[j][2 * h + i] * scale);
+          row[2 * C] = __float2bfloat16(dv[j][2 * h + i]);
+        }
+  }
+}
+
+constexpr int wide_f_bytes() { return (2 * F32Slot<kChunk>::ROWS + SCORES) * (int)sizeof(double); }
+constexpr int wide_b_bytes() { return (3 * F32Slot<kChunk>::ROWS + 2 * SCORES) * (int)sizeof(double); }
+constexpr int wide_mma_b_bytes() { return (3 * CTILE + 3 * SQUARE) * (int)sizeof(bf16); }
+
+int wide_fwd(const void* qkv, void* out, long long grid, int H, int W, int heads, int hd,
+             int dtype, cudaStream_t s) {
+  if (dtype == kF32) {
+    auto kernel = mhsa_wide_fwd_f64_kernel<float>;
+    cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                           wide_f_bytes());
+    if (err != cudaSuccess) return (int)err;
+    kernel<<<(unsigned)grid, kThreads, wide_f_bytes(), s>>>(
+        static_cast<const float*>(qkv), static_cast<float*>(out), H, W, heads, hd);
+  } else if (dtype == kBF16) {
+    mhsa_wide_fwd_mma_kernel<<<(unsigned)grid, kMmaThreads, 0, s>>>(
+        static_cast<const bf16*>(qkv), static_cast<bf16*>(out), H, W, heads, hd,
+        1.f / sqrtf((float)hd));
+  } else {
+    return (int)cudaErrorInvalidValue;
+  }
+  return (int)cudaGetLastError();
+}
+
+int wide_bwd(const void* qkv, const void* dout, void* dqkv, long long grid, int H, int W,
+             int heads, int hd, int dtype, cudaStream_t s) {
+  if (dtype == kF32) {
+    auto kernel = mhsa_wide_bwd_f64_kernel<float>;
+    cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                           wide_b_bytes());
+    if (err != cudaSuccess) return (int)err;
+    kernel<<<(unsigned)grid, kThreads, wide_b_bytes(), s>>>(
+        static_cast<const float*>(qkv), static_cast<const float*>(dout),
+        static_cast<float*>(dqkv), H, W, heads, hd);
+  } else if (dtype == kBF16) {
+    cudaError_t err = cudaFuncSetAttribute(
+        mhsa_wide_bwd_mma_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, wide_mma_b_bytes());
+    if (err != cudaSuccess) return (int)err;
+    mhsa_wide_bwd_mma_kernel<<<(unsigned)grid, kMmaThreads, wide_mma_b_bytes(), s>>>(
+        static_cast<const bf16*>(qkv), static_cast<const bf16*>(dout), static_cast<bf16*>(dqkv),
+        H, W, heads, hd, 1.f / sqrtf((float)hd));
+  } else {
+    return (int)cudaErrorInvalidValue;
+  }
+  return (int)cudaGetLastError();
+}
+
+// ---------------------------------------------------------------------------
 
 // The slot of a head of hd channels: hd rounded up to the k-step of 16.
 template <typename F>
@@ -497,6 +851,7 @@ int with_slot(int hd, F f) {
 // One block per (window, head); fp32 kernels on 256 threads, bf16 on 128.
 int fwd(const void* qkv, void* out, long long grid, int H, int W, int heads, int hd, int dtype,
         cudaStream_t s) {
+  if (hd > 64) return wide_fwd(qkv, out, grid, H, W, heads, hd, dtype, s);
   const float scale = 1.f / sqrtf((float)hd);
   return with_slot(hd, [&](auto slot) {
     constexpr int S = decltype(slot)::value;
@@ -524,6 +879,7 @@ int fwd(const void* qkv, void* out, long long grid, int H, int W, int heads, int
 
 int bwd(const void* qkv, const void* dout, void* dqkv, long long grid, int H, int W, int heads,
         int hd, int dtype, cudaStream_t s) {
+  if (hd > 64) return wide_bwd(qkv, dout, dqkv, grid, H, W, heads, hd, dtype, s);
   const float scale = 1.f / sqrtf((float)hd);
   return with_slot(hd, [&](auto slot) {
     constexpr int S = decltype(slot)::value;
@@ -551,10 +907,10 @@ int bwd(const void* qkv, const void* dout, void* dqkv, long long grid, int H, in
   });
 }
 
-// The blocks of the c1 .. c128 generators: 1 to 16 heads of 1 to 64 channels.
+// Any C in any head count that divides it (slots up to 64 channels, wider
+// heads in chunks of 64).
 bool supported(int H, int W, int C, int heads) {
-  return heads >= 1 && heads <= 16 && C > 0 && C % heads == 0 && C / heads <= 64 &&
-         H % kWin == 0 && W % kWin == 0;
+  return heads >= 1 && C > 0 && C % heads == 0 && H % kWin == 0 && W % kWin == 0;
 }
 
 // One block per (window, head).
@@ -567,7 +923,7 @@ long long grid_size(int B, int H, int W, int heads) {
 
 // Plain C entry points (loaded with ctypes). qkv and dqkv are (B, H, W, 3C),
 // out and dout (B, H, W, C), all contiguous and 16-byte aligned, of one type
-// (dtype 0 = fp32, 1 = bf16), with C in 1 to 16 heads of at most 64 channels
+// (dtype 0 = fp32, 1 = bf16), with C in any number of heads that divides it
 // and H % 8 == W % 8 == 0. Each launches on `stream` and returns cudaGetLastError()
 // (0 on success); another (C, heads) returns cudaErrorInvalidValue.
 extern "C" int window_mhsa_train_fwd_launch(const void* qkv, void* out, int B, int H, int W,

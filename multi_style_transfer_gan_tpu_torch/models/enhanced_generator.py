@@ -84,14 +84,9 @@ class LocalAttention(nn.Module):
             qkv = conv(self.qkv, x).permute(0, 2, 3, 1)
             mid = window_channel_attention_train(qkv)
             return conv(self.proj, mid.permute(0, 3, 1, 2))
-        if route == "fast_vjp":
-            # no training kernel at this width, in JAX either
-            return window_channel_attention_fast_vjp(
-                nhwc, *weights).permute(0, 3, 1, 2)
-        raise ValueError(
-            f"LocalAttention at C={C} does not train on the card: the "
-            f"training kernel is built for C in (1, 2, 4, 8, 16, 32, 64) "
-            f"and the inference-kernel route for every other C up to 512")
+        # no training kernel at this width, in JAX either
+        return window_channel_attention_fast_vjp(
+            nhwc, *weights).permute(0, 3, 1, 2)
 
 
 _MSB_BRANCHES = (  # (name, kernel, padding, dilation)

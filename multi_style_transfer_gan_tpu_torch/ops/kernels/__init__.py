@@ -7,8 +7,8 @@ kernel launch and nowhere else. The inference kernels are forward-only and
 raise on a CUDA call that autograd would record; the training kernels come
 in forward/backward pairs behind one ``torch.autograd.Function`` each.
 ``window_channel_attention_fast_vjp`` is the JAX package's route for the
-LocalAttention widths no training kernel takes (every C up to 512 but 1,
-2, 4, 8, 16, 32, 64; ``train_route``): the inference kernel forward, the
+LocalAttention widths no training kernel takes (every C but 1, 2, 4, 8,
+16, 32, 64; ``train_route``): the inference kernel forward, the
 backward recomputed through the plain version.
 """
 

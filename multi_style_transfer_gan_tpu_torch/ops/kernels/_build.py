@@ -32,10 +32,10 @@ _F = ctypes.c_float
 SIGNATURES = {
     "window_channel_attention": (
         "window_channel_attention", "window_channel_attention_launch",
-        [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I, _P]),
+        [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P, _I, _I, _P]),
     "packed_window_channel_attention": (
         "window_channel_attention", "packed_window_channel_attention_launch",
-        [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I, _P]),
+        [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P, _I, _I, _P]),
     "window_channel_attention_stage": (
         "window_attention_stages", "window_channel_attention_stage_launch",
         [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _I, _P]),
@@ -48,6 +48,9 @@ SIGNATURES = {
     "fused_structural_block_pair": (
         "fused_structural_block_pair", "fused_structural_block_pair_launch",
         [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I, _P]),
+    "fused_structural_block_stream": (
+        "fused_structural_block_stream", "fused_structural_block_stream_launch",
+        [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P, _I, _I, _P]),
     "window_attention_train_fwd": (
         "window_attention_train", "window_attention_train_fwd_launch",
         [_P, _P, _I, _I, _I, _I, _I, _F, _I, _P]),

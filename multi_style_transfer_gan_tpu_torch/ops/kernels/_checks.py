@@ -8,22 +8,6 @@ import torch
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 
-def width_range(widths) -> str:
-    """Generator widths as a message names them: "1 to 64" for a run of
-    consecutive widths, "1 to 128 except 67, 71" for a run with fewer
-    holes than widths, else the tuple."""
-    widths = tuple(widths)
-    if not widths:
-        return str(widths)
-    missing = sorted(set(range(widths[0], widths[-1] + 1)) - set(widths))
-    if not missing:
-        return f"{widths[0]} to {widths[-1]}"
-    if len(missing) < len(widths):
-        return (f"{widths[0]} to {widths[-1]} except "
-                + ", ".join(map(str, missing)))
-    return str(widths)
-
-
 def dtype_code(x: torch.Tensor) -> int:
     """The element-type code the C entry points take (0 fp32, 1 bf16)."""
     return _DTYPE_CODES[x.dtype]

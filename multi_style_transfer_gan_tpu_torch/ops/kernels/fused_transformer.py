@@ -2,11 +2,12 @@
 
 ``fused_structural_block`` replaces ``ops/pallas/fused_transformer.py``;
 its kernels are ``csrc/fused_structural_block.cu`` (and, for bf16 past dim
-256, ``csrc/fused_structural_block_pair.cu``), which take any dim up to
-256, and any dim % 4 == 0 from 260 to 512, whose ``default_num_heads`` heads
-are at most 64 wide (``kernel_takes``): the blocks of every generator width
-from 1 to 128 (dims 4, 8, .., 512) but those of c67, c71, .., c127, whose
-heads would be wider. Dims % 32 == 0 (heads of 32) run in the tensor-core
+256, ``csrc/fused_structural_block_pair.cu`` and
+``csrc/fused_structural_block_stream.cu``), which take any dim in bf16
+and in fp32 any dim whose ``default_num_heads`` heads are at most
+``FP32_MAX_HEAD`` channels wide (``kernel_takes``): the blocks of every
+generator width up to c712. Dims %
+32 == 0 (heads of 32) up to 256 run in the tensor-core
 designs: in bf16 dim 96 padded in the dim-128 design and dims 160-224 in
 the dim-256 design. Every other generator dim from 48 on (heads of 36 to
 56 channels) runs in bf16 in the head-slot kernel
@@ -19,7 +20,14 @@ dims from 260 on run in bf16 in the pair kernel
 each on 32 tokens, exchanging each head's k and v through distributed
 shared memory, heads in slots as in the slot kernel), and in fp32 in the
 FMA bodies with the window's residual stream and LN output in a workspace
-the wrapper allocates (``block_workspace_windows``).
+the wrapper allocates (``block_workspace_windows``). The bf16 dims the
+one-window designs do not hold (past 512, or heads wider than 64:
+``stream_takes``) run as a chain of launches through an fp32 workspace
+(``stream_workspace_windows``): LN1 with the FiLM, the qkv product (LN1's
+output in three bf16 terms), the MHSA a (window, head) at a time in fp32
+with the head in chunks of 32 channels, the proj, LN2, fc1 with the GELU
+and fc2, each weight product in warp MMA; the fp32 FMA bodies take those
+dims with their workspace.
 ``structural_block_plain`` is the port of ``_block_body_math`` /
 ``_window_attention``
 (models/structural_transformer.py:97-168), including the key mask of
@@ -39,50 +47,92 @@ from . import _build
 from ._checks import check_cuda_args, check_no_grad, dtype_code
 
 WINDOW = 8
-KERNEL_RULE = ("C from 1 to 256, or C % 4 == 0 from 260 to 512, in "
-               "default_num_heads(C) heads of at most 64")
 # the widest dim whose window one block of the kernel holds: past it bf16
 # runs in the pair kernel, fp32 keeps a window's residual stream and LN
 # output in a workspace, and the plain version carries LN1 and the FiLM in
 # float64 as that fp32 path does (csrc/fused_structural_block.cuh's
 # kFrameDim)
 FRAME_DIM = 256
-# fp32 at C > FRAME_DIM: the windows a launch's workspace holds at most
-# (~202 MB at C = 512; more only where one image has more windows)
+# fp32 in the workspace: the windows a launch's workspace holds at most at
+# dims up to 512 (~202 MB at C = 512; fewer past it, in proportion; more
+# only where one image has more windows)
 WORKSPACE_WINDOWS = 512
+# past this dim the plain version and the fp32 FMA bodies carry the
+# residual stream, the proj and the MLP in float64 too (their workspace
+# holds 4 x 64 x (C + 1) floats a window): at dims 1024 .. 2048 two fp32
+# evaluations of those lay 2.1e-4 .. 5.9e-4 apart on
+# chip_smoke.block_stress_inputs, past the fp32 tolerance
+RESIDUAL64_DIM = 2 * FRAME_DIM
+# the widest head the fp32 FMA bodies hold in shared memory (q | k in
+# float64, v and a score tile: 1280 hd + 9088 bytes, at most 227 KB)
+FP32_MAX_HEAD = 174
+# the bf16 chain's workspace, at most (at least one window)
+STREAM_WORKSPACE_BYTES = 256 * 2 ** 20
 
 
-def kernel_takes(C: int) -> bool:
-    """The block kernel's widths: any C from 1 to 256, and any C % 4 == 0
-    from 260 to 512, whose ``default_num_heads(C)`` heads are at most 64
-    channels wide (every generator dim 4c, c = 1 .. 128, but those of c67,
-    c71, c73, c79, c83, c89, c97, c101, c103, c107, c109, c113 and c127;
-    C % 32 == 0 up to 256 in the designs of heads of 32, any other C up to
-    256 in the head-slot kernel or the FMA bodies, C > 256 in the pair
-    kernel or the FMA bodies)."""
-    return ((1 <= C <= FRAME_DIM
-             or (FRAME_DIM < C <= 2 * FRAME_DIM and C % 4 == 0))
-            and C // default_num_heads(C) <= 64)
+def head_width(C: int) -> int:
+    """hd, the channels of each of ``default_num_heads(C)`` heads."""
+    return C // default_num_heads(C)
+
+
+def kernel_takes(C: int, fp32: bool = False) -> bool:
+    """The block kernel's widths: in bf16 any C >= 1 (C % 32 == 0 up to 256
+    in the designs of heads of 32, any other C up to 256 with heads of up to
+    64 in the head-slot kernel or the FMA bodies, C from 260 to 512 in the
+    pair kernel, every other C in the chain: ``stream_takes``); in fp32
+    (the FMA bodies past the designs of heads of 32) any C >= 1 whose
+    ``default_num_heads(C)`` heads are at most ``FP32_MAX_HEAD`` channels
+    wide, every generator dim 4c up to c712 (c716 is the first with wider
+    heads: 16 of 179)."""
+    return C >= 1 and (not fp32 or head_width(C) <= FP32_MAX_HEAD)
 
 
 def pair_takes(C: int) -> bool:
-    """Whether the bf16 block at dim C runs in the pair kernel: every
-    ``kernel_takes`` dim past 256."""
-    return C > FRAME_DIM and kernel_takes(C)
+    """Whether the bf16 block at dim C runs in the pair kernel: C % 4 == 0
+    from 260 to 512 with heads of at most 64 channels."""
+    return (FRAME_DIM < C <= 2 * FRAME_DIM and C % 4 == 0
+            and head_width(C) <= 64)
+
+
+def stream_takes(C: int) -> bool:
+    """Whether the bf16 block at dim C runs as the streamed chain
+    (``csrc/fused_structural_block_stream.cu``): every dim no one-window
+    design holds, past 512 or with heads wider than 64 (or, from 260 to
+    512, C % 4 != 0)."""
+    return C >= 1 and not ((C <= FRAME_DIM and head_width(C) <= 64)
+                           or pair_takes(C))
 
 
 def block_workspace_windows(B: int, H: int, W: int, C: int,
                             fp32: bool) -> int:
-    """The windows of fp32 workspace (3 x 64 x (C + 1) floats each: the
-    residual stream in fp32, the LN output in float64) a call needs: none
-    but for fp32 at C > FRAME_DIM, whose launches pass the images in slices
-    of whole images of at most WORKSPACE_WINDOWS windows (at least one
-    image), one launch a slice."""
-    if not fp32 or C <= FRAME_DIM:
+    """The windows of fp32 workspace (``workspace_floats(C)`` floats each:
+    the residual stream in fp32, float64 past RESIDUAL64_DIM, the LN output
+    in float64) a call needs: none
+    but for fp32 at C > FRAME_DIM or heads wider than 64, whose launches
+    pass the images in slices of whole images of at most WORKSPACE_WINDOWS
+    windows (512 / C of it past dim 512; at least one image), one launch a
+    slice."""
+    if not fp32 or (C <= FRAME_DIM and head_width(C) <= 64):
         return 0
     per_image = -(-H // WINDOW) * -(-W // WINDOW)
-    images = max(1, min(B, WORKSPACE_WINDOWS // per_image))
+    budget = WORKSPACE_WINDOWS * 512 // max(C, 512)
+    images = max(1, min(B, budget // per_image))
     return images * per_image
+
+
+def workspace_floats(C: int) -> int:
+    """The fp32 workspace of a window of the FMA bodies: 3 x 64 x (C + 1)
+    floats, 4 x 64 x (C + 1) past RESIDUAL64_DIM."""
+    return (4 if C > RESIDUAL64_DIM else 3) * 64 * (C + 1)
+
+
+def stream_workspace_windows(B: int, H: int, W: int, C: int) -> int:
+    """The windows of the bf16 chain's workspace (64 x 6C floats each: the
+    residual stream, the LN output, then qkv or the MLP's hidden rows):
+    at most ``STREAM_WORKSPACE_BYTES``, at least one window, no more than
+    the call has."""
+    windows = B * -(-H // WINDOW) * -(-W // WINDOW)
+    return max(1, min(windows, STREAM_WORKSPACE_BYTES // (64 * 6 * C * 4)))
 
 
 def slot_takes(C: int) -> bool:
@@ -120,7 +170,9 @@ WEIGHT_NAMES = tuple(weight_shapes(1))  # the order the C entry point takes
 def block_launch_shape(B: int, H: int, W: int, C: int = 64) -> tuple:
     """(units of work, dynamic shared memory in bytes) of one bf16 launch
     of the block kernel, as ``csrc/fused_structural_block.cu`` lays it out
-    (ragged edges count as whole windows). C % 32 != 0 with ``slot_takes``
+    (ragged edges count as whole windows). The streamed chain
+    (``stream_takes``): its MHSA launch, a block a (window, head) with
+    static shared memory only. C % 32 != 0 with ``slot_takes``
     (every generator dim from 48 on): the head-slot kernel, a persistent block a
     window, the dim-256 frame's two weight tiles of 64 rows of 264 and
     LN1's (then LN2's) output as hi and lo, then a union of one head's q, k,
@@ -154,6 +206,8 @@ def block_launch_shape(B: int, H: int, W: int, C: int = 64) -> tuple:
     warps a row. The grid is ``persistent_grid(units, SMs, blocks per SM)``
     (in clusters of two for the pair kernel)."""
     windows = B * -(-H // WINDOW) * -(-W // WINDOW)
+    if stream_takes(C):
+        return windows * default_num_heads(C), 0
     if pair_takes(C):
         slot = -(-(C // default_num_heads(C)) // 16) * 16
         elems = (2 * 32 * 520 + 2 * 32 * 520
@@ -242,10 +296,13 @@ def structural_block_plain(x, struct, gamma, beta, *, norm1_w, norm1_b,
     d = (lambda t: t.double()) if C > FRAME_DIM else f
     h = F.layer_norm(d(xf + f(struct)), (C,), d(norm1_w), d(norm1_b), eps)
     h = h * (1.0 + d(gamma)[:, None, None, :]) + d(beta)[:, None, None, :]
-    xf = xf + F.linear(_window_mhsa(h, f(qkv_w), f(qkv_b)),
-                       f(proj_w), f(proj_b))
-    h = F.layer_norm(xf, (C,), f(norm2_w), f(norm2_b), eps)
-    h = F.linear(gelu(F.linear(h, f(fc1_w), f(fc1_b))), f(fc2_w), f(fc2_b))
+    # past RESIDUAL64_DIM the residual stream, the proj and the MLP in
+    # float64 too, as the fp32 kernel carries them there
+    r = (lambda t: t.double()) if C > RESIDUAL64_DIM else f
+    xf = r(xf) + F.linear(r(_window_mhsa(h, f(qkv_w), f(qkv_b))),
+                          r(proj_w), r(proj_b))
+    h = F.layer_norm(xf, (C,), r(norm2_w), r(norm2_b), eps)
+    h = F.linear(gelu(F.linear(h, r(fc1_w), r(fc1_b))), r(fc2_w), r(fc2_b))
     return (xf + h).to(x.dtype)
 
 
@@ -256,7 +313,7 @@ def fused_structural_block(x, struct, gamma, beta, *, eps: float = 1e-5,
 
     A CPU tensor takes the plain version. A CUDA tensor launches the kernel
     (contiguous fp32 or bf16 x and struct, weights of the same type,
-    ``kernel_takes(C)``, any H and W; 8x8 windows) or raises. The kernel is
+    ``kernel_takes(C, fp32)``, any H and W; 8x8 windows) or raises. The kernel is
     forward-only: a CUDA call that autograd would record raises (the
     training route is the block body in autograd around
     ``window_mhsa_train``).
@@ -270,9 +327,12 @@ def fused_structural_block(x, struct, gamma, beta, *, eps: float = 1e-5,
     check_no_grad("fused_structural_block", x, struct, gamma, beta,
                   *weights.values())
     B, H, W, C = x.shape
-    if not kernel_takes(C):
-        raise ValueError(f"fused_structural_block kernel is built for "
-                         f"{KERNEL_RULE}, got C={C}")
+    fp32 = x.dtype == torch.float32
+    if not kernel_takes(C, fp32):
+        raise ValueError(f"fused_structural_block kernel is built in fp32 "
+                         f"for dims whose heads are at most {FP32_MAX_HEAD} "
+                         f"channels wide, got C={C} in heads of "
+                         f"{head_width(C)}")
     shapes = weight_shapes(C)
     check_cuda_args("fused_structural_block", x,
                     {"struct": (struct, x.shape),
@@ -282,14 +342,21 @@ def fused_structural_block(x, struct, gamma, beta, *, eps: float = 1e-5,
     ptrs = (ctypes.c_void_p * len(WEIGHT_NAMES))(
         *[weights[n].data_ptr() for n in WEIGHT_NAMES])
     y = torch.empty_like(x, memory_format=torch.contiguous_format)
-    fp32 = x.dtype == torch.float32
-    ws_windows = block_workspace_windows(B, H, W, C, fp32)
-    ws = (torch.empty(ws_windows * 3 * 64 * (C + 1), device=x.device)
-          if ws_windows else None)
-    # bf16 past dim 256: the pair kernel's own source and entry point
-    entry, extra = (("fused_structural_block_pair", ()) if pair_takes(C)
-                    and not fp32 else ("fused_structural_block", (
-                        None if ws is None else ws.data_ptr(), ws_windows)))
+    chain = not fp32 and stream_takes(C)
+    if chain:   # bf16 past the one-window designs: the streamed chain
+        ws_windows = stream_workspace_windows(B, H, W, C)
+        ws = torch.empty(ws_windows * 64 * 6 * C, device=x.device)
+    else:
+        ws_windows = block_workspace_windows(B, H, W, C, fp32)
+        ws = (torch.empty(ws_windows * workspace_floats(C), device=x.device)
+              if ws_windows else None)
+    # bf16 past dim 256: the pair kernel's own source and entry point, or
+    # the chain's
+    ws_args = (None if ws is None else ws.data_ptr(), ws_windows)
+    entry, extra = (("fused_structural_block_stream", ws_args) if chain
+                    else ("fused_structural_block_pair", ())
+                    if pair_takes(C) and not fp32
+                    else ("fused_structural_block", ws_args))
     if x.numel():
         rc = _build.kernel(entry)(
             x.data_ptr(), struct.data_ptr(), gamma.data_ptr(), beta.data_ptr(),
@@ -298,10 +365,12 @@ def fused_structural_block(x, struct, gamma, beta, *, eps: float = 1e-5,
         if rc:
             raise RuntimeError(f"fused_structural_block launch failed: "
                                f"CUDA error {rc}")
-        # one launch, or one a slice of the images the workspace holds
+        # one launch, or one a slice of the images the fp32 workspace
+        # holds; the chain's call counts as one launch of the block
         per_image = -(-H // WINDOW) * -(-W // WINDOW)
         fused_structural_block.launches += (
-            -(-B // (ws_windows // per_image)) if ws_windows else 1)
+            -(-B // (ws_windows // per_image)) if ws_windows and not chain
+            else 1)
     return y
 
 

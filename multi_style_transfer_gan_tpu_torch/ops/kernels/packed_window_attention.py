@@ -6,8 +6,9 @@ one packed pixel: (B, Hp, Wp, 16 * C), position major (lane ``p * C + c``,
 kernels (``packed_grouped_window_attention``, ``packed_window_attention_v3``,
 ``packed_window_attention_pallas``); on Hopper
 ``packed_window_channel_attention`` launches one kernel, the packed-row
-entry point of ``csrc/window_channel_attention.cu``, at any C from 1 to 512
-(16 to 8192 lanes; ``window_attention.kernel_takes``).
+entry point of ``csrc/window_channel_attention.cu``, at any C (16 C lanes;
+``window_attention.kernel_takes``; past C = 512 streamed through a
+workspace, as the NHWC entry point is).
 ``packed_window_channel_attention_plain`` is the port of ``ops/packed.py::packed_window_channel_attention``.
 """
 

@@ -4,13 +4,16 @@
 Pallas layouts (v1, grouped, v3, dispatched by
 ``ops/pallas/attention_dispatch.py``) and three more forms of the same
 math (``window_attention_v4``, ``window_attention_v3_fused_io`` and the A/B
-script's ``window_attention_v6``); on Hopper one kernel,
-``csrc/window_channel_attention.cu``, takes any C from 1 to 512
-(``kernel_takes``): the LocalAttention widths C, 2C and 4C of every
-generator width from 1 to 128, each run inside the built layout of the next
-power of two (``layout_width``); a width whose rows are not 16-byte
-aligned (C % 8 != 0) moves them 8 bytes at a time (C % 4 == 0) or a value
-at a time.
+script's ``window_attention_v6``); on Hopper one source,
+``csrc/window_channel_attention.cu``, takes any C (``kernel_takes``): up to
+512 (the LocalAttention widths C, 2C and 4C of every generator width from 1
+to 128) one kernel, each C run inside the built layout of the next power of
+two (``layout_width``), a width whose rows are not 16-byte aligned (C % 8 !=
+0) moved 8 bytes at a time (C % 4 == 0) or a value at a time; past 512 (2C
+and 4C of every generator from c129 on) the op streams over channels
+through an fp32 workspace the wrapper allocates (``attention_workspace``):
+the qkv product, the norms with the Gram, softmax and apply, and the proj,
+in chunks of ``stream_windows`` windows.
 ``window_channel_attention_plain`` is the port of
 ``_attention_math`` / ``_attention_windows``
 (models/enhanced_generator.py:168-205).
@@ -24,6 +27,8 @@ model.
 
 from __future__ import annotations
 
+import ctypes
+
 import torch
 import torch.nn.functional as F
 
@@ -34,13 +39,35 @@ from ._checks import check_cuda_args, check_no_grad, dtype_code
 WINDOW = 4
 STAGE_WIDTHS = (16, 32, 64)            # the stage ablation's (c16's)
 STAGES = ("copy", "qkv", "norm", "logits", "softmax", "full")
-KERNEL_RULE = "C from 1 to 512"
+# the widest C one block's layout holds; past it the op streams
+STREAM_FROM = 512
+# the bytes of fp32 workspace a streamed call holds at most (q, k, v and
+# the output of 16 positions a window: 256 C bytes a window), at least one
+# window
+WORKSPACE_BYTES = 256 * 2 ** 20
 
 
 def kernel_takes(C: int) -> bool:
-    """The attention kernel's widths: any C from 1 to 512 (C % 8 != 0 in
-    the runtime-C variant of its layout, with narrower moves)."""
-    return 1 <= C <= 512
+    """The attention kernel's widths: any C >= 1 (C % 8 != 0 in the
+    runtime-C variant of its layout, with narrower moves; C > 512 streamed
+    through a workspace)."""
+    return C >= 1
+
+
+def stream_windows(n_windows: int, C: int) -> int:
+    """The windows a streamed call's workspace holds (0 at C <= 512, which
+    takes none): at most ``WORKSPACE_BYTES`` of it, at least one window,
+    no more than the call has."""
+    if C <= STREAM_FROM:
+        return 0
+    return max(1, min(n_windows, WORKSPACE_BYTES // (256 * C)))
+
+
+def attention_workspace(n_windows: int, C: int, device) -> tuple:
+    """(workspace tensor or None, its windows) of one call on ``n_windows``
+    windows at width C: 64 C fp32 values a window past C = 512."""
+    n = stream_windows(n_windows, C)
+    return (torch.empty(n * 64 * C, device=device) if n else None), n
 
 
 def layout_width(C: int, bf16: bool) -> int:
@@ -76,7 +103,13 @@ def attention_launch_shape(n_windows: int, C: int, bf16: bool) -> tuple:
     half the width (CP / 2 + 8). fp32 (FMA): a unit is a tile of 64 / CP
     windows (one at CP >= 128); everything is fp32, the weights are staged
     too up to CP = 64, and the Gram is held 64 rows at a time at CP = 256,
-    32 at CP = 512 (512 threads)."""
+    32 at CP = 512 (512 threads). Past C = 512 the op streams: this is the
+    mid's launch (``csrc/window_channel_attention_stream.cuh``), a block a
+    window and strip of query channels (128 in bf16, 64 in fp32) with
+    static shared memory only."""
+    if C > STREAM_FROM:
+        strip = 128 if bf16 else 64
+        return n_windows * -(-C // strip), 0
     cp = layout_width(C, bf16)
     if bf16 and cp > 128:
         windows = 1 if cp > 256 else 2
@@ -182,13 +215,16 @@ def window_channel_attention_stage_plain(x, wqkv, bqkv, wproj, bproj, *,
 
 
 def launch_attention(wrapper, x, wqkv, bqkv, wproj, bproj, C, dims, eps,
-                     extra=(), takes=kernel_takes, built=KERNEL_RULE):
+                     extra=(), takes=kernel_takes, built="any C >= 1"):
     """The CUDA path of the attention wrappers at width C: checks (C taken
     by ``takes``, described by ``built``), the launch of entry point
     ``wrapper.__name__`` with its grid ``dims`` (B, H, W of the NHWC tensor
-    or of the packed one) and the ``extra`` ints that follow C, and
-    ``wrapper.launches``."""
+    or of the packed one), the ``extra`` ints that follow C and, where the
+    entry point takes one (a pointer after eps in ``_build.SIGNATURES``),
+    the workspace of a streamed width, and ``wrapper.launches``."""
     entry = wrapper.__name__
+    argtypes = _build.SIGNATURES[entry][2]
+    streamed = argtypes[argtypes.index(ctypes.c_float) + 1] is ctypes.c_void_p
     check_no_grad(entry, x, wqkv, bqkv, wproj, bproj)
     if not takes(C):
         raise ValueError(f"{entry} kernel is built for {built}, got C={C}")
@@ -199,10 +235,16 @@ def launch_attention(wrapper, x, wqkv, bqkv, wproj, bproj, C, dims, eps,
                      "wproj": (wproj, (C, C)), "bproj": (bproj, (C,))})
     y = torch.empty_like(x, memory_format=torch.contiguous_format)
     if x.numel():
+        tail = ()
+        if streamed:
+            n_windows = x.numel() // (C * WINDOW * WINDOW)
+            ws, n = attention_workspace(n_windows, C, x.device)
+            tail = (None if ws is None else ws.data_ptr(), n)
         rc = _build.kernel(entry)(
             x.data_ptr(), wqkv.data_ptr(), bqkv.data_ptr(), wproj.data_ptr(),
             bproj.data_ptr(), y.data_ptr(), *dims, C, *extra, dtype_code(x),
-            eps, x.device.index, torch.cuda.current_stream(x.device).cuda_stream)
+            eps, *tail, x.device.index,
+            torch.cuda.current_stream(x.device).cuda_stream)
         if rc:
             raise RuntimeError(f"{entry} launch failed: CUDA error {rc}")
         wrapper.launches += 1

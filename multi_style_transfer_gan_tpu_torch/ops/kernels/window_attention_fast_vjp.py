@@ -15,7 +15,7 @@ VJP of ``_attention_math`` (:168-205), recomputed from the saved inputs.
 The port does the same (``train_route`` is the choice, as a function of C):
 
 - the forward launches row 1's kernel, ``window_channel_attention``
-  (``csrc/window_channel_attention.cu``, any C up to 512);
+  (``csrc/window_channel_attention.cu``, any C);
 - the backward recomputes ``window_channel_attention_plain``, the port of
   ``_attention_math`` (the qkv 1x1 product, the window partition, the
   zero-safe L2 normalize, the Gram, its softmax, the apply and the proj,
@@ -32,23 +32,21 @@ from __future__ import annotations
 import torch
 
 from .window_attention import (
-    kernel_takes, window_channel_attention, window_channel_attention_plain,
+    window_channel_attention, window_channel_attention_plain,
 )
 from .window_attention_train import KERNEL_WIDTHS as TRAIN_KERNEL_WIDTHS
 
 
-def train_route(C: int) -> str | None:
+def train_route(C: int) -> str:
     """How LocalAttention at width C trains on the card: "kernel" (the
     hand-written pair, ``window_channel_attention_train``, at the widths
     where JAX's ``supports_train_kernel`` can hold: C = 1, 2, 4, 8, 16, 32,
-    64), "fast_vjp" (this route: any other C the inference kernel takes, 1
-    to 512) or None (no route). The choice is by C alone: JAX also asks
-    that the group size 128 / C divide the window count (C = 1 takes its
-    kernel only with 128 | windows), and takes this route where it does
-    not; both routes compute the same function and its exact gradient."""
-    if C in TRAIN_KERNEL_WIDTHS:
-        return "kernel"
-    return "fast_vjp" if kernel_takes(C) else None
+    64) or "fast_vjp" (this route: every other C, all of which the
+    inference kernel takes). The choice is by C alone: JAX also asks that
+    the group size 128 / C divide the window count (C = 1 takes its kernel
+    only with 128 | windows), and takes this route where it does not; both
+    routes compute the same function and its exact gradient."""
+    return "kernel" if C in TRAIN_KERNEL_WIDTHS else "fast_vjp"
 
 
 class _FastVJP(torch.autograd.Function):

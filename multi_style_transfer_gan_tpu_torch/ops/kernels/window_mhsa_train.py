@@ -17,13 +17,15 @@ Per window and head (window_mhsa_train.py:21-28), scale = hd^-0.5:
 The plain backward writes these formulas out; it is not autograd of the
 plain forward.
 
-The kernels take the blocks of every generator width from 1 to 128: C =
-heads x hd in 1 to 16 heads of at most 64 channels (``kernel_takes``; the
-model asks for ``default_num_heads(C)`` heads, 4 to 64 channels each), the
-head count a runtime argument (a block takes one window and head, so the
-head count grows only the grid). A head of hd channels runs in a slot of hd
-rounded up to 16, zeros in the pad channels, at the scale hd^-0.5 of its
-real width.
+The kernels take the blocks of every generator width: C = heads x hd in
+any number of heads that divides C (``kernel_takes``; the model asks for
+``default_num_heads(C)`` heads: 4 to 64 channels each up to c128, 16 heads
+of 67 at c268, 64 heads of 32 at c512), the head count a runtime argument
+(a block takes one window and head, so the head count grows only the grid).
+A head of up to 64 channels runs in a slot of hd rounded up to 16, zeros in
+the pad channels, at the scale hd^-0.5 of its real width; a wider head in
+chunks of 64 channels (the scores summed over the chunks, the outputs a
+chunk at a time).
 """
 
 from __future__ import annotations
@@ -35,14 +37,14 @@ from ._checks import check_cuda_args, dtype_code
 from .window_attention_train import window_merge, window_partition
 
 WINDOW = 8
-KERNEL_RULE = "C in 1 to 16 heads of at most 64 channels"
+KERNEL_RULE = "C in any number of heads that divides it"
 
 
 def kernel_takes(C: int, heads: int) -> bool:
     """The kernels take C channels in ``heads`` heads (the model asks for
-    ``default_num_heads(C)``): 1 to 16 heads that divide C, of at most 64
-    channels each."""
-    return 1 <= heads <= 16 and C > 0 and C % heads == 0 and C // heads <= 64
+    ``default_num_heads(C)``): any head count that divides C, heads of any
+    width (past 64 channels in chunks of 64)."""
+    return heads >= 1 and C > 0 and C % heads == 0
 
 
 def _split_heads(t: torch.Tensor, heads: int,

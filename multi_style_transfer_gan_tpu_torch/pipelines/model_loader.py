@@ -4,8 +4,9 @@
 Sniffs the checkpoint flavor (G_AB, G_BA or raw), the model family and the
 channel width, builds the ``nn.Module`` and loads the weights with
 ``strict=True``: the module's keys are the checkpoint's, so nothing is
-converted. An enhanced checkpoint bound for the card is held to the serving
-kernels' widths first (``check_serving_width``).
+converted. The serving kernels take every EnhancedGenerator width, so no
+width is refused here; a model that outgrows the card's memory raises
+PyTorch's own out-of-memory error.
 """
 
 from __future__ import annotations
@@ -19,40 +20,11 @@ from torch import nn
 from ..models import (
     EnhancedGenerator, PlainGenerator, channels_of, num_transformer_blocks_of,
 )
-from ..ops.kernels import fused_transformer, window_attention
-from ..ops.kernels._checks import width_range
 from ..weights import (
     detect_channels, detect_model_kind, extract_state_dict, load_pth,
 )
 
 PRECISIONS = ("default", "high", "highest")
-
-
-def _served(channels: int) -> bool:
-    """The serving kernels take an EnhancedGenerator of ``channels``: the
-    LocalAttention kernel at C, 2C and 4C (both engines run it at those
-    widths), and the block kernel at 4C with its default_num_heads."""
-    dim = 4 * channels
-    return (all(window_attention.kernel_takes(c)
-                for c in (channels, 2 * channels, dim))
-            and fused_transformer.kernel_takes(dim))
-
-
-# 1 to 128 but 67, 71, 73, 79, 83, 89, 97, 101, 103, 107, 109, 113, 127
-SERVED_CHANNELS = tuple(c for c in range(1, 257) if _served(c))
-
-
-def check_serving_width(channels: int) -> None:
-    """Raises ValueError when an EnhancedGenerator of ``channels`` has a
-    width the serving kernels are not built for: on the card its first
-    forward would raise, and there is no plain fallback there."""
-    if not _served(channels):
-        raise ValueError(
-            f"enhanced generator at channels={channels} is not served on the "
-            f"card: the serving kernels are built for LocalAttention widths "
-            f"{window_attention.KERNEL_RULE} and transformer blocks of "
-            f"{fused_transformer.KERNEL_RULE}, i.e. channels "
-            f"{width_range(SERVED_CHANNELS)}")
 
 
 @dataclass
@@ -90,8 +62,6 @@ def load_generator(path, prefer: str | None = None,
     precision: "default" and "high" run fp32 convolutions as PyTorch's
     settings allow (cuDNN may use TF32 on the card); "highest" turns TF32
     off inside ``apply``, the counterpart of JAX's precision='highest'.
-    An enhanced checkpoint on a CUDA device raises ValueError before the
-    module is built when its width is not served (``check_serving_width``).
     """
     if precision == "int8":
         raise NotImplementedError(
@@ -116,8 +86,6 @@ def model_from_state_dict(sd, precision: str = "default",
     if kind == "plain":
         module = PlainGenerator(detect_channels(sd))
     elif kind == "enhanced":
-        if torch.device(device).type == "cuda":
-            check_serving_width(channels_of(sd))
         module = EnhancedGenerator(channels_of(sd),
                                    num_transformer_blocks_of(sd))
     else:

@@ -11,12 +11,12 @@ from .cyclegan import (
 from .losses import l1_loss, lsgan_loss, masked_l1, mse_loss
 from .pool import ImagePool, pool_init, pool_sample
 from .pretrain import (
-    PretrainState, check_kernel_width, learning_rate, pretrain_init_state,
+    PretrainState, learning_rate, pretrain_init_state,
     pretrain_train_step, restore_pretrain_state, save_pretrain_checkpoint,
 )
 
 __all__ = [
-    "CycleGANState", "ImagePool", "PretrainState", "check_kernel_width",
+    "CycleGANState", "ImagePool", "PretrainState",
     "cyclegan_init_state", "cyclegan_train_step", "l1_loss", "latest_step",
     "learning_rate", "lsgan_loss", "make_optimizers", "masked_l1",
     "mse_loss", "pool_init", "pool_sample", "pretrain_init_state",

@@ -29,7 +29,6 @@ from torch.optim.lr_scheduler import LambdaLR
 from ..models import EnhancedDiscriminator, EnhancedGenerator
 from .losses import l1_loss, lsgan_loss
 from .pool import pool_sample
-from .pretrain import check_kernel_width
 
 LAMBDA_CYCLE = 10.0     # enhanced_train.py:55
 LAMBDA_IDENTITY = 2.0   # enhanced_train.py:56
@@ -114,11 +113,7 @@ def cyclegan_init_state(seed: int = 0, channels: int = 16,
     """Fresh G/D on ``device`` (drawn from a ``torch.Generator`` seeded
     with ``seed``), optionally warm-starting both generators non-strictly
     from ``pretrained_params`` (a state dict): only keys present in the
-    generator with matching shapes are copied, and the count is printed.
-    On a CUDA device the width is checked first against the training
-    kernels (``check_kernel_width``)."""
-    if torch.device(device).type == "cuda":
-        check_kernel_width(channels, "CycleGAN training")
+    generator with matching shapes are copied, and the count is printed."""
     gen = torch.Generator().manual_seed(seed)
     g_ab = EnhancedGenerator(channels, num_transformer_blocks, generator=gen)
     g_ba = EnhancedGenerator(channels, num_transformer_blocks, generator=gen)

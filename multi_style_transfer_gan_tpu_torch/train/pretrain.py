@@ -11,9 +11,8 @@ reference's plain -> enhanced warm start matches no key). Under autograd
 the EnhancedGenerator runs the hand-written training kernels on the card
 (``ops.kernels.window_channel_attention_train``, ``window_mhsa_train``;
 at every other LocalAttention width the JAX package's route,
-``window_channel_attention_fast_vjp``), which take every width from 1 to
-128 whose block heads are at most 64 channels wide (``check_kernel_width``):
-c64 is the pretrain CLI's default.
+``window_channel_attention_fast_vjp``), which take every width: c64 is the
+pretrain CLI's default.
 
 Precision follows the JAX dtype policy: parameters and Adam stay fp32, the
 generator runs in ``compute_dtype`` with its weights cast at use, BatchNorm
@@ -31,10 +30,6 @@ import torch
 from torch import nn
 
 from ..models import EnhancedGenerator, PlainGenerator
-from ..ops.kernels import train_route
-from ..ops.kernels._checks import width_range
-from ..ops.kernels.fused_transformer import default_num_heads
-from ..ops.kernels.window_mhsa_train import KERNEL_RULE, kernel_takes
 from .losses import masked_l1
 
 LR = 2e-4             # pretrain.py:99
@@ -67,36 +62,6 @@ def learning_rate(step: int, num_epochs: int, steps_per_epoch: int,
     return ETA_MIN + (lr - ETA_MIN) * cos
 
 
-def _trains(channels: int) -> bool:
-    dim = 4 * channels
-    return (all(train_route(c) for c in (channels, 2 * channels, dim))
-            and kernel_takes(dim, default_num_heads(dim)))
-
-
-# 1 to 128 but 67, 71, 73, 79, 83, 89, 97, 101, 103, 107, 109, 113, 127
-TRAINED_CHANNELS = tuple(c for c in range(1, 257) if _trains(c))
-
-
-def check_kernel_width(channels: int,
-                       what: str = "enhanced pretraining") -> None:
-    """The EnhancedGenerator at ``channels`` trains on the card only where
-    its widths are built: LocalAttention at C, 2C and 4C each on a training
-    route (``train_route``: the training kernel at C = 1, 2, 4, 8, 16, 32,
-    64, the inference-kernel route at every other C up to 512), and the
-    transformer block at 4C with ``default_num_heads(4C)`` heads in the
-    window-MHSA kernel's (1 to 16 heads of at most 64 channels). So every
-    width from 1 to 128 trains but the 13 whose block heads would be wider
-    than 64 channels (c67, c71, .., c127). Raises otherwise: there is no
-    plain fallback on the card. ``what`` names the caller in the message. The widths are
-    the training routes' own, not the serving kernels'."""
-    if not _trains(channels):
-        raise ValueError(
-            f"{what} at channels={channels} is not served on the card: "
-            f"LocalAttention trains at C from 1 to 512 and the block's "
-            f"window MHSA at {KERNEL_RULE}, i.e. channels "
-            f"{width_range(TRAINED_CHANNELS)}")
-
-
 def pretrain_init_state(seed: int = 0, channels: int = 64, *,
                         num_epochs: int = 200, steps_per_epoch: int = 1000,
                         lr: float = LR, model: str = "plain",
@@ -111,8 +76,6 @@ def pretrain_init_state(seed: int = 0, channels: int = 64, *,
     device = torch.device(device)
     gen = torch.Generator().manual_seed(seed)
     if model == "enhanced":
-        if device.type == "cuda":
-            check_kernel_width(channels)
         module = EnhancedGenerator(channels, num_transformer_blocks,
                                    generator=gen)
     else:

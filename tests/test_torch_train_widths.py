@@ -254,19 +254,15 @@ def fakes(monkeypatch):
                                      (64, "train"), (128, "fast_vjp"),
                                      (12, "fast_vjp"), (256, "fast_vjp"),
                                      (1, "train"), (264, "fast_vjp"),
-                                     (512, "fast_vjp"), (520, None)])
+                                     (512, "fast_vjp"), (520, "fast_vjp")])
 def test_local_attention_routes_by_width_off_the_cpu(fakes, C, route):
     """Under grad on a tensor off the CPU (meta: the wrappers' own device
     checks never run), C in row 11's widths (1, 2, 4, 8, 16, 32, 64) takes
-    its mid, every other C up to 512 the fast-VJP Function, a width past
-    512 raises before a launch."""
+    its mid, every other C the fast-VJP Function (past 512 over the
+    streamed inference kernel)."""
     m = LocalAttention(C).to("meta")
     x = torch.zeros(1, C, 8, 8, device="meta", requires_grad=True)
-    if route is None:
-        with pytest.raises(ValueError, match=f"C={C} does not train"):
-            m(x)
-    else:
-        assert m(x).shape == x.shape
+    assert m(x).shape == x.shape
     assert fakes["train"].calls == (route == "train")
     assert fakes["fast_vjp"].calls == (route == "fast_vjp")
 

@@ -90,14 +90,9 @@ from multi_style_transfer_gan_tpu_torch.ops.kernels.window_attention_train impor
     window_merge, window_partition,
 )
 from multi_style_transfer_gan_tpu_torch.pipelines import load_generator
-from multi_style_transfer_gan_tpu_torch.pipelines.model_loader import (
-    SERVED_CHANNELS, check_serving_width,
-)
 from multi_style_transfer_gan_tpu_torch.train import (
-    check_kernel_width, cyclegan_init_state, pretrain_init_state,
-    pretrain_train_step,
+    cyclegan_init_state, pretrain_init_state, pretrain_train_step,
 )
-from multi_style_transfer_gan_tpu_torch.train.pretrain import TRAINED_CHANNELS
 from multi_style_transfer_gan_tpu_torch.weights import (
     state_dict_from_jax_params,
 )
@@ -114,9 +109,10 @@ PRETRAIN_RTOL = 1e-5
 SMEM_LIMIT = 227 * 1024
 MIRROR_ATTENTION_WIDTHS = (1, 3, 12, 60, 63, 126, 252)
 MIRROR_BLOCK_CHANNELS = (1, 3, 12, 28, 44, 60, 63)
-REFUSED = (67, 129, 256)
-# the widths up to 128 whose block heads would be wider than 64 channels
-UNBUILT = (67, 71, 73, 79, 83, 89, 97, 101, 103, 107, 109, 113, 127)
+# generator widths past 128 the entry points take
+PAST_128 = (132, 192, 256)
+# the widths up to 128 whose block heads are wider than 64 channels
+WIDE_HEADED = (67, 71, 73, 79, 83, 89, 97, 101, 103, 107, 109, 113, 127)
 
 
 def _t(a):
@@ -128,56 +124,44 @@ def _t(a):
 # ---------------------------------------------------------------------------
 
 def test_gates_take_every_width_from_1_to_64():
-    """Serving and training take c = 1 .. 128 but the 13 widths whose block
-    heads would be wider than 64 channels (``UNBUILT``), and nothing past
-    128; every taken width's LocalAttention (C, 2C, 4C), block and
-    window-MHSA mid are in the kernels' rules, every refused one's block is
-    not."""
-    assert SERVED_CHANNELS == TRAINED_CHANNELS == tuple(
-        c for c in range(1, 129) if c not in UNBUILT)
+    """Serving and training take every c from 1 to 128: every width's
+    LocalAttention (C, 2C, 4C), block and window-MHSA mid are in the
+    kernels' rules, the 13 whose block heads are wider than 64 channels
+    (``WIDE_HEADED``) in the bf16 block chain and row 12's chunks of 64, the
+    rest in the one-window designs and row 12's slots."""
     for c in range(1, 129):
         dim = 4 * c
-        if c in UNBUILT:
-            assert dim // default_num_heads(dim) > 64
-            assert not fused_transformer.kernel_takes(dim)
-            continue
-        check_serving_width(c)
-        check_kernel_width(c, "CycleGAN training")
         assert all(window_attention.kernel_takes(w) for w in (c, 2 * c, dim))
         assert fused_transformer.kernel_takes(dim)
         assert WM.kernel_takes(dim, default_num_heads(dim))
         assert K.train_route(c) and K.train_route(2 * c) and K.train_route(dim)
-        assert dim // default_num_heads(dim) <= 64
+        wide = dim // default_num_heads(dim) > 64
+        assert wide == (c in WIDE_HEADED)
+        assert fused_transformer.stream_takes(dim) == wide
 
 
-@pytest.mark.parametrize("channels", REFUSED)
-def test_gates_refuse_past_64_before_any_work(tmp_path, monkeypatch,
-                                              channels):
-    """c67 (4 heads of 67), c129 and c256 raise ValueError naming the range
-    1 to 128 and its holes: at ``load_generator``, ``cyclegan_init_state``,
-    enhanced pretraining and the train CLI on the card, before a
-    checkpoint's weights or any data are read or a kernel launched ("cuda"
-    as a device name needs no card: the checks come first)."""
-    from multi_style_transfer_gan_tpu_torch.cli import train as cli
-
-    rng_range = r"channels 1 to 128 except 67, 71, .*, 113, 127"
+@pytest.mark.parametrize("channels", PAST_128)
+def test_gates_take_widths_past_128(tmp_path, channels):
+    """c132, c192 and c256 build at every entry point that refused a width
+    before: ``load_generator``, ``cyclegan_init_state`` and enhanced
+    pretraining (on the CPU here; the card takes the same widths, and a
+    model that outgrows its memory raises PyTorch's own out-of-memory
+    error). Their kernel shapes are in the rules: LocalAttention at C, 2C and
+    4C (2C and 4C past 512 streamed), the block at 4C in its heads."""
+    dim = 4 * channels
+    assert all(window_attention.kernel_takes(w) and K.train_route(w)
+               for w in (channels, 2 * channels, dim))
+    assert fused_transformer.kernel_takes(dim)
+    assert WM.kernel_takes(dim, default_num_heads(dim))
     path = tmp_path / f"enhanced_c{channels}.pth"
     torch.save({"G_AB_state_dict": EnhancedGenerator(channels, 1)
                 .state_dict()}, path)
-    with pytest.raises(ValueError, match=rf"channels={channels} is not "
-                                         rf"served on the card.*{rng_range}"):
-        load_generator(path, device="cuda")
-    with pytest.raises(ValueError, match=rng_range):
-        cyclegan_init_state(0, channels, device="cuda")
-    with pytest.raises(ValueError, match=rng_range):
-        pretrain_init_state(0, channels, model="enhanced", device="cuda")
-    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
-    K.reset_launch_counts()
-    with pytest.raises(ValueError, match=f"channels={channels} is not served"):
-        cli.main(["--data_root", str(tmp_path / "no_data"), "--channels",
-                  str(channels), "--save_dir", str(tmp_path / "models")])
-    assert not (tmp_path / "models").exists()
-    assert all(k.launches == 0 for k in K.KERNELS)
+    assert load_generator(path, device="cpu").channels == channels
+    width = lambda g: g.initial[0].weight.shape[0]
+    assert width(cyclegan_init_state(0, channels, device="cpu").G_AB) \
+        == channels
+    state = pretrain_init_state(0, channels, model="enhanced", device="cpu")
+    assert width(state.model) == channels
 
 
 # ---------------------------------------------------------------------------
@@ -559,7 +543,7 @@ def test_enhanced_pretrain_step_at_c12_matches_jax(rng):
 # ---------------------------------------------------------------------------
 
 def test_train_route_by_width_against_jax():
-    """Every C from 1 to 512 has a training route. The port chooses by C
+    """Every C has a training route. The port chooses by C
     alone: the hand-written pair at C = 1, 2, 4, 8, 16, 32, 64, where JAX's
     ``supports_train_kernel`` holds on a grid whose window count every
     group size divides (128 windows), the fast-VJP route elsewhere. JAX
@@ -570,9 +554,10 @@ def test_train_route_by_width_against_jax():
         want = ("kernel" if supports_train_kernel(2, 32, 32, C)
                 else "fast_vjp")
         assert K.train_route(C) == want, C
-    # past 256 (the LocalAttention widths of c65 .. c128) the route too
+    # past 256 (the LocalAttention widths of c65 .. c128) the route too, and
+    # past 512 (c129 on) the route over the streamed kernel
     assert all(K.train_route(C) == "fast_vjp" for C in range(257, 513))
-    assert K.train_route(513) is None
+    assert K.train_route(513) == K.train_route(2048) == "fast_vjp"
     assert not supports_train_kernel(1, 32, 32, 1)   # 64 windows
     assert K.train_route(1) == "kernel"
 
@@ -592,15 +577,15 @@ def test_block_launch_shape_of_the_slot_kernel_and_the_fma_bodies():
     .., c60: the EnhancedGenerator has widths c % 4 == 0 only) takes the
     slot kernel in bf16, one window a unit, inside the 227 KB a block may hold
     (the largest with slots of 64: c28's and c52's heads of 56 and 52);
-    the other dims the kernel takes (heads of at most 64) the FMA bodies,
-    one window a block, within the limit too (the largest: dim 248, 4
-    heads of 62)."""
+    the other dims up to 256 with heads of at most 64 the FMA bodies, one
+    window a block, within the limit too (the largest: dim 248, 4 heads of
+    62); those with wider heads run in the streamed chain in bf16."""
     from multi_style_transfer_gan_tpu_torch.ops.kernels.fused_transformer \
         import slot_takes
 
     slot, fma = {}, {}
     for dim in range(1, 257):
-        if dim % 32 == 0 or not fused_transformer.kernel_takes(dim):
+        if dim % 32 == 0 or fused_transformer.stream_takes(dim):
             continue
         units, smem = block_launch_shape(8, 64, 64, dim)
         assert units == 8 * 8 * 8 and smem <= SMEM_LIMIT

@@ -359,12 +359,12 @@ def test_train_route_is_jax_supports_train_kernel():
     (at a grid whose window count every group size divides), and through
     the fast-VJP route everywhere else; C = 4 takes the pair, C = 12, 20
     and 264 the route (tests/test_torch_width_any.py holds every C from 1
-    to 512), and widths past 512 have no route."""
+    to 512), and so do the widths past 512, over the streamed kernel."""
     for C in ATTENTION_WIDTHS:
         want = "kernel" if supports_train_kernel(1, 32, 32, C) else "fast_vjp"
         assert K.train_route(C) == want, C
     assert [K.train_route(C) for C in (4, 12, 20, 264, 520)] == [
-        "kernel", "fast_vjp", "fast_vjp", "fast_vjp", None]
+        "kernel", "fast_vjp", "fast_vjp", "fast_vjp", "fast_vjp"]
 
 
 # ---------------------------------------------------------------------------

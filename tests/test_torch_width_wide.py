@@ -390,25 +390,33 @@ def test_enhanced_pretrain_step_at_c72_matches_jax(rng):
 @pytest.mark.parametrize("bf16", [True, False])
 def test_attention_launch_shape_past_256(bf16):
     """Every C from 257 to 512 runs in the layout of 512 channels, one
-    window a unit, inside the 227 KB a block may hold; past 512 nothing
-    does."""
+    window a unit, inside the 227 KB a block may hold; past 512 no layout
+    holds a window, and the op streams through a workspace (its mid a block
+    a window and strip of query channels, static shared memory only)."""
     for C in range(257, 513):
         units, smem = attention_launch_shape(1000, C, bf16)
         assert layout_width(C, bf16) == CP and units == 1000
         assert smem <= SMEM_LIMIT
     assert attention_launch_shape(1, 512, True)[1] == 208384
     assert window_attention.kernel_takes(512)
-    assert not window_attention.kernel_takes(513)
+    assert window_attention.stream_windows(1000, 512) == 0
+    assert window_attention.kernel_takes(513)
+    assert window_attention.stream_windows(1000, 513) == 1000
+    assert attention_launch_shape(1000, 513, bf16) == (
+        1000 * (5 if bf16 else 9), 0)
 
 
 def test_pair_block_launch_shape_and_widths():
-    """The block takes every dim % 4 == 0 from 260 to 512 whose heads are
-    at most 64 channels wide, in the pair kernel in bf16 (a cluster of two
-    blocks a window, each inside the limit: the largest at slots of 64,
-    the dims whose heads are 49 .. 64 wide), and no dim past 512."""
-    taken = [d for d in range(257, 600) if fused_transformer.kernel_takes(d)]
+    """The pair kernel takes every dim % 4 == 0 from 260 to 512 whose heads
+    are at most 64 channels wide in bf16 (a cluster of two blocks a window,
+    each inside the limit: the largest at slots of 64, the dims whose heads
+    are 49 .. 64 wide), and no dim past 512: the streamed chain takes those
+    (and the dims between with wider heads)."""
+    taken = [d for d in range(257, 600) if pair_takes(d)]
     assert taken == [d for d in range(260, 513, 4)
                      if d // default_num_heads(d) <= 64]
+    assert all(fused_transformer.stream_takes(d) != pair_takes(d)
+               for d in range(257, 600))
     smem = {}
     for dim in taken:
         units, smem[dim] = block_launch_shape(8, 64, 64, dim)

@@ -56,13 +56,15 @@ from multi_style_transfer_gan_tpu_torch.ops.kernels.fused_transformer import (
 from multi_style_transfer_gan_tpu_torch.ops.kernels.window_attention import (
     attention_launch_shape,
 )
-from multi_style_transfer_gan_tpu_torch.pipelines import load_generator
-from multi_style_transfer_gan_tpu_torch.pipelines.model_loader import (
-    SERVED_CHANNELS, check_serving_width,
+from multi_style_transfer_gan_tpu_torch.ops.kernels import (
+    fused_transformer, window_attention,
 )
+from multi_style_transfer_gan_tpu_torch.ops.kernels.window_mhsa_train import (
+    kernel_takes as mhsa_takes,
+)
+from multi_style_transfer_gan_tpu_torch.pipelines import load_generator
 from multi_style_transfer_gan_tpu_torch.train import (
-    check_kernel_width, cyclegan_init_state, pool_init, restore_train_state,
-    save_train_state,
+    cyclegan_init_state, pool_init, restore_train_state, save_train_state,
 )
 from multi_style_transfer_gan_tpu_torch.weights import (
     state_dict_from_jax_params,
@@ -435,53 +437,80 @@ def test_block_emulation_at_dim_128_needs_the_wider_pairs():
 
 
 # ---------------------------------------------------------------------------
-# width checks where the model is loaded or built, and the pooled resume
-# (CPU; "cuda" as a device name needs no card: the checks come first)
+# every width is taken where the model is loaded or built, and the pooled
+# resume (CPU)
 # ---------------------------------------------------------------------------
 
-# the widths up to 128 whose block heads would be wider than 64 channels
-UNBUILT = (67, 71, 73, 79, 83, 89, 97, 101, 103, 107, 109, 113, 127)
+def _model_shapes(c):
+    """What an EnhancedGenerator of width c sends the kernels: the
+    LocalAttention widths C, 2C, 4C and the block's dim 4c in its heads."""
+    dim = 4 * c
+    return (c, 2 * c, dim), dim, fused_transformer.default_num_heads(dim)
 
 
-def test_served_channels_are_those_of_the_built_kernels():
-    assert SERVED_CHANNELS == tuple(c for c in range(1, 129)
-                                    if c not in UNBUILT)
-    for c in SERVED_CHANNELS:
-        check_serving_width(c)
+def test_kernels_take_every_model_width():
+    """Rows 1, 4 and 12 (and the training route of LocalAttention) take
+    every shape of every EnhancedGenerator width c % 4 == 0 up to 512, and
+    the extremes past 128: attention at C = 2048, the block and row 12 at
+    dim 2048 in 64 heads of 32, dim 1072 in 16 heads of 67 (c268) and dim
+    2032 in 16 heads of 127 (c508, the widest head up to c512)."""
+    for c in range(4, 513, 4):
+        widths, dim, heads = _model_shapes(c)
+        assert all(window_attention.kernel_takes(w) for w in widths)
+        assert all(K.train_route(w) for w in widths)
+        assert fused_transformer.kernel_takes(dim)
+        assert fused_transformer.kernel_takes(dim, fp32=True)
+        assert mhsa_takes(dim, heads)
+    for dim, heads, hd in ((2048, 64, 32), (1072, 16, 67), (2032, 16, 127)):
+        assert fused_transformer.default_num_heads(dim) == heads
+        assert dim // heads == hd and mhsa_takes(dim, heads)
+        assert fused_transformer.kernel_takes(dim)
+        assert fused_transformer.kernel_takes(dim, fp32=True)
+        assert fused_transformer.stream_takes(dim)
+    # bf16 takes any head; the fp32 FMA bodies stop at heads of
+    # FP32_MAX_HEAD, first passed at c716 (16 heads of 179)
+    assert fused_transformer.head_width(4 * 716) == 179
+    assert fused_transformer.kernel_takes(4 * 716)
+    assert fused_transformer.stream_takes(4 * 716)
+    assert not fused_transformer.kernel_takes(4 * 716, fp32=True)
+    assert max(fused_transformer.head_width(4 * c)
+               for c in range(4, 513, 4)) == 127
+    assert window_attention.kernel_takes(2048)
+    assert window_attention.stream_windows(10 ** 6, 2048) == 512
+    assert window_attention.stream_windows(8, 2048) == 8
+    assert window_attention.stream_windows(10 ** 6, 512) == 0
 
 
-@pytest.mark.parametrize("channels", [67, 129, 132])
-def test_loader_refuses_widths_not_built_on_the_card(tmp_path, channels):
+@pytest.mark.parametrize("channels", [132, 256, 268])
+def test_loader_takes_widths_past_128(tmp_path, channels):
+    """A checkpoint of a width past 128 loads and runs: no width check is
+    left in the loader (on the card as on the CPU)."""
+    from multi_style_transfer_gan_tpu_torch.pipelines import model_loader
+
+    assert not hasattr(model_loader, "check_serving_width")
     path = tmp_path / f"enhanced_c{channels}.pth"
     torch.save({"G_BA_state_dict": EnhancedGenerator(channels, 1)
                 .state_dict()}, path)
-    with pytest.raises(ValueError, match=r"channels=%d is not served on the "
-                                         r"card.*channels 1 to 128 except "
-                                         r"67, " % channels):
-        load_generator(path, device="cuda")
-    # every width the generator has still runs on the CPU, through the plain
-    # versions (c % 4 == 0: its multi-scale block splits c into four
-    # branches, so a c67 generator runs nowhere, in JAX neither)
-    if channels % 4 == 0:
-        model = load_generator(path, device="cpu")
-        assert model.apply(torch.zeros(1, 32, 32, 3)).shape == (1, 32, 32, 3)
+    model = load_generator(path, device="cpu")
+    assert (model.kind, model.channels) == ("enhanced", channels)
+    y = model.apply(torch.zeros(1, 32, 32, 3))
+    assert y.shape == (1, 32, 32, 3) and bool(torch.isfinite(y).all())
 
 
-@pytest.mark.parametrize("channels", [67, 129, 256])
-def test_training_checks_read_the_training_kernels(channels):
-    """Every width from 1 to 128 but ``UNBUILT`` trains on the card, as it
-    serves; a width whose LocalAttention or block the training routes do
-    not take (c67, whose block would have 4 heads of 67; c129 and c256,
-    whose down2 would be 516 and 1024 wide) is refused, and CycleGAN
-    training says so before it builds anything."""
-    for built in SERVED_CHANNELS:
-        check_serving_width(built)
-        check_kernel_width(built, "CycleGAN training")
-    with pytest.raises(ValueError, match="CycleGAN training at channels="
-                                         f"{channels} is not served"):
-        check_kernel_width(channels, "CycleGAN training")
-    with pytest.raises(ValueError, match=r"channels 1 to 128 except 67, "):
-        cyclegan_init_state(0, channels, device="cuda")
+@pytest.mark.parametrize("channels", [132, 256, 268])
+def test_training_takes_widths_past_128(channels):
+    """CycleGAN training builds its state at widths past 128 (c256's down2
+    at C = 1024 on the route, c268's block in 16 heads of 67) with no width
+    check in front."""
+    from multi_style_transfer_gan_tpu_torch.train import cyclegan, pretrain
+
+    assert not hasattr(pretrain, "check_kernel_width")
+    assert not hasattr(cyclegan, "check_kernel_width")
+    widths, dim, heads = _model_shapes(channels)
+    assert [K.train_route(w) for w in widths][-1] == "fast_vjp"
+    assert mhsa_takes(dim, heads)
+    state = cyclegan_init_state(0, channels, device="cpu")
+    assert state.G_AB.initial[0].weight.shape[0] == channels
 
 
 def test_cyclegan_init_takes_any_width_on_the_cpu():
@@ -489,18 +518,28 @@ def test_cyclegan_init_takes_any_width_on_the_cpu():
     assert state.G_AB.initial[0].weight.shape[0] == 8
 
 
-def test_train_cli_refuses_a_width_before_its_first_step(monkeypatch,
-                                                         tmp_path):
+def test_train_cli_takes_a_width_past_128(monkeypatch, tmp_path, capsys):
+    """The train CLI at --channels 132 runs its step (on the CPU here, with
+    the plain versions) and writes a checkpoint of that width."""
     from multi_style_transfer_gan_tpu_torch.cli import train as cli
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
-    assert cli.DEVICE == "cuda"
-    K.reset_launch_counts()
-    with pytest.raises(ValueError, match="channels=129 is not served"):
-        cli.main(["--data_root", str(tmp_path / "no_data"), "--channels",
-                  "129", "--save_dir", str(tmp_path / "models")])
-    assert not (tmp_path / "models").exists()
-    assert all(k.launches == 0 for k in K.KERNELS)
+    monkeypatch.setattr(cli, "DEVICE", "cpu")
+    rng = np.random.default_rng(3)
+    from PIL import Image
+    for domain in ("A", "B"):
+        folder = tmp_path / "data" / f"train{domain}"
+        folder.mkdir(parents=True)
+        Image.fromarray(rng.integers(0, 256, (32, 32, 3), dtype=np.uint8)
+                        ).save(folder / "0.png")
+    assert cli.main(["--data_root", str(tmp_path / "data"), "--save_dir",
+                     str(tmp_path / "models"), "--channels", "132",
+                     "--image_size", "32", "--batch_size", "1",
+                     "--num_epochs", "1", "--checkpoint_every", "1",
+                     "--fp32"]) == 0
+    assert "epoch 1/1 done" in capsys.readouterr().out
+    g = load_generator(tmp_path / "models" / "G_AB_epoch_1.pth", device="cpu")
+    assert g.channels == 132
 
 
 def test_pooled_resume_without_pools_raises(tmp_path):
@@ -606,13 +645,23 @@ def test_relayout_kernel_at_the_new_widths(cuda, C, dtype):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("channels", [67, 129])
-def test_loader_refuses_unbuilt_widths_on_the_card(cuda, tmp_path, channels):
+@pytest.mark.parametrize("channels", [132, 256])
+def test_loader_serves_widths_past_128_on_the_card(cuda, tmp_path, channels):
+    """A c132 and a c256 checkpoint load on the card and their fp32 forward
+    launches rows 1 and 4 (4 attention calls, 1 block) and agrees with the
+    CPU's."""
     path = tmp_path / f"enhanced_c{channels}.pth"
-    torch.save({"G_AB_state_dict": EnhancedGenerator(channels, 1)
-                .state_dict()}, path)
-    with pytest.raises(ValueError, match="not served on the card"):
-        load_generator(path, device=cuda)
+    smoke.width_checkpoint(path, channels)
+    x = torch.from_numpy(np.random.default_rng(7).uniform(
+        -1, 1, (1, 64, 64, 3)).astype(np.float32))
+    gpu = load_generator(path, precision="highest", device=cuda)
+    K.reset_launch_counts()
+    with torch.no_grad():
+        got = gpu.apply(x.to(cuda)).cpu()
+    assert (K.window_channel_attention.launches,
+            K.fused_structural_block.launches) == (4, 1)
+    ref = load_generator(path, precision="highest", device="cpu").apply(x)
+    assert float((got - ref).abs().max()) <= GENERATOR_ATOL
 
 
 @pytest.mark.gpu
