@@ -241,6 +241,21 @@ checks every hand-written kernel on the way:
     ``run_trained_surface`` with no stage skipped (each stage's seconds,
     the server's p50 / p95 and img/s) and ``reproduce_quality_study
     --synthetic``.
+24. data parallelism (``phase_data_parallel``, after the perceptual path;
+    its processes start once every source is built, ``dp_start``, and
+    wait for its release): ``torchrun --standalone --nproc_per_node=1``
+    running this script as its rank (``--data-parallel-rank``; NCCL at
+    world 1): the train CLI at its defaults for 3 steps and the pretrain
+    CLI at its plain default for 2, rank 0 writing, then the bf16 c16
+    step timed in turns with its gradient all-reduces and without them,
+    and the all-reduces alone; two gloo ranks sharing the card against
+    one rank on the same global batch (a CycleGAN step with pools, a plain
+    pretrain step with global BatchNorm; fp32, TF32 off, deterministic
+    cuDNN, warm Adams): the losses, the averaged gradients' norms, the
+    ranks' gradients bit-equal, and again under the planted all-sum fault,
+    which must fail; ``batch_process`` over two replicas of the program on
+    the card against one device at a replica's batch, and the batch CLI
+    with ``--data_parallel``. The ranks' launches count with the path's.
 
 Every fp32 pretrain check holds the losses of two steps and the first
 step's gradient norms, and reruns the card's half under each of
@@ -256,7 +271,7 @@ evaluation path's test tree is written there meanwhile; each half is
 compared when it arrives (FID's when its path starts), and every one before
 the report. Every phase
 raises on failure, a CPU half too. The last line is the result JSON; the
-line before it lists each kernel with its launches on the twenty-one paths
+line before it lists each kernel with its launches on the twenty-two paths
 (launch counts are reset just before each path and read just after), its
 largest fp32 deviation from the plain version, its time beside the plain
 version's (the serving and training rows also per generator width,
@@ -524,11 +539,11 @@ WIDE_TIMED_STEPS = 3
 # the width paths read a step's device time from this many profiled steps
 # (a profiler session of a whole step takes seconds to read back), time
 # WIDTH_TIMED_STEPS steps after the warm-up and each engine's img/s over
-# WIDTH_RATE_ITERS forwards a turn (fewer since the paths past 128 came, to
-# keep the run near its time)
+# WIDTH_RATE_ITERS forwards a turn (fewer since the paths past 128 and the
+# data-parallel path came, to keep the run near its time)
 WIDTH_PROFILED_STEPS = 2
-WIDTH_TIMED_STEPS = 5
-WIDTH_RATE_ITERS = 5
+WIDTH_TIMED_STEPS = 3
+WIDTH_RATE_ITERS = 3
 # also through the batch CLI, server, direct_transform (c256 on the past-128
 # path)
 ENTRY_CHANNELS = (48, 60, 64)
@@ -607,7 +622,7 @@ WIDE_FAST_VJP_SHAPES = (((2, 32, 32, 512), True),)
 # step's shape
 PAST_FAST_VJP_SHAPES = (((2, 32, 32, 1024), True),
                         ((TRAIN_BATCH, 64, 64, 1024), False))
-SMALL_QK_DRAWS = 3
+SMALL_QK_DRAWS = 2
 WIDTH_TRAIN_SIZE = 256   # the bf16 steps' images
 
 
@@ -4725,10 +4740,10 @@ def phase_past_serving(rng, dev, counts, work):
     program's img/s at canvas 256, batch PAST_RATE_BATCH, in turns, and the
     device memory of each bf16 engine's weights, both engines at c132 and
     c192, the NHWC one at c256 (whose packed engine, 17.6 GiB of bf16
-    weights repacked, runs in the batch CLI's ``auto``); c256
-    also through ``batch_process`` on a folder of mixed sizes and
-    ``serve_entry_points`` (the batch CLI with ``--engine nhwc`` and
-    ``auto``, which builds the packed engine at batch 4, the server and
+    weights repacked, runs in ``batch_process``'s ``auto``); c256
+    also through ``batch_process`` on a folder of mixed sizes (``auto``,
+    which builds the packed engine at batch 4) and ``serve_entry_points``
+    (the batch CLI with ``--engine nhwc``, the server and
     ``direct_transform``). Returns {channels: {"parameters", "rates",
     "weights_gib", "launches"}}."""
     import torch
@@ -4793,8 +4808,10 @@ def phase_past_serving(rng, dev, counts, work):
         if channels in PAST_FULL_CHANNELS:
             src, sizes = stylize_folder(rng, gpu, dev, work,
                                         f"past_c{channels}", tag)
+            # the batch CLI on the NHWC engine: stylize_folder's
+            # batch_process ran the packed one (auto at batch 4)
             serve_entry_points(rng, dev, path, src, sizes, work, channels,
-                               ("nhwc", "auto"))
+                               ("nhwc",))
             clock(f"{tag} entry points")
         end = counts()
         out[channels] = {"parameters": n_params, "rates": rates,
@@ -4862,6 +4879,583 @@ def phase_past_train(rng, dev, counts, work):
             f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB")
         torch.cuda.empty_cache()
     return out
+
+
+# ---------------------------------------------------------------------------
+# the data-parallel path: the train and pretrain CLIs under torchrun (NCCL,
+# world 1), two gloo ranks sharing the card held against one rank, and the
+# batch CLI's --data_parallel over two replicas of the program on the card
+
+DP_RANK_FLAG = "--data-parallel-rank"   # the torchrun child's mode
+DP_TRAIN_IMAGES = 24      # a domain: 3 steps of the train CLI's batch of 8
+DP_PRETRAIN_IMAGES = 16   # a domain: 1 step a domain at the pretrain CLI's 16
+DP_TIMED_STEPS = 10       # a turn of the world-1 step timing
+DP_GLOO_SIZE = 128
+DP_GLOO_BATCH = 4         # global: 2 a rank
+DP_GLOO_POOL = 2          # full within the first step: the pool law samples
+DP_LOSS_RTOL = 1e-3       # two ranks vs one, fp32, TF32 off
+DP_FOLDER_IMAGES = 16
+DP_REPLICA_BATCH = 8      # the batch a replica of the program takes
+DP_TIMEOUT = 600          # a stage of the path, once released
+DP_WAIT = 3600            # its processes wait at most this for the release
+DP_JOBS = [None]          # the path's processes, started by dp_start
+
+
+@contextlib.contextmanager
+def without_process_group():
+    """The port's steps run their single-process code for the block (the
+    collectives skipped: ``parallel.mesh.active`` false), in the process
+    group's process: the plain turns of the world-1 timing."""
+    from multi_style_transfer_gan_tpu_torch.parallel import mesh
+
+    active = mesh.active
+    mesh.active = lambda: False
+    try:
+        yield
+    finally:
+        mesh.active = active
+
+
+def data_parallel_rank(out_path, work, device="cuda", go=None):
+    """The rank of the torchrun job :func:`dp_start` starts (NCCL at world
+    1 on the card). Once the process group is up it waits for the file
+    ``go`` (phase_data_parallel's signal; at once when None), then runs the
+    train CLI at its defaults for one epoch of 3 steps and the pretrain CLI
+    at its plain default for 2 steps, rank 0 writing their files under
+    ``work``; then the bf16 c16 step (256^2, batch 8, pair batching) timed
+    in turns with the process group's collectives and without them, and
+    the two phases' gradient all-reduces alone. Writes what it saw to
+    ``out_path`` (JSON)."""
+    import torch
+    import torch.distributed as dist
+
+    from multi_style_transfer_gan_tpu_torch.cli import pretrain as pcli
+    from multi_style_transfer_gan_tpu_torch.cli import train as tcli
+    from multi_style_transfer_gan_tpu_torch.ops import kernels as K
+    from multi_style_transfer_gan_tpu_torch.parallel import mesh
+    from multi_style_transfer_gan_tpu_torch.train import cyclegan_init_state
+
+    tcli.DEVICE = pcli.DEVICE = device
+    if device == "cpu":   # a rehearsal on the CPU: the CLIs ask for CUDA
+        torch.cuda.is_available = lambda: True
+    dev = mesh.init_data_parallel(device)
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+
+    try:
+        torch.zeros(1, device=dev)   # the context, before the wait
+        wait_for(lambda: go is None or os.path.exists(go), "the go file")
+        got = {"world": mesh.world_size(), "rank": mesh.rank(),
+               "backend": dist.get_backend(), "device": str(dev)}
+        K.reset_launch_counts()
+        for name, cli, argv in (
+                ("train", tcli, ["--data_root", os.path.join(work, "dp_train"),
+                                 "--save_dir", os.path.join(work, "dp_models"),
+                                 "--num_epochs", "1", "--checkpoint_every", "1",
+                                 "--log_every", "1", "--seed", "0"]),
+                ("pretrain", pcli, ["--data_root",
+                                    os.path.join(work, "dp_pretrain"),
+                                    "--save_dir",
+                                    os.path.join(work, "dp_models"),
+                                    "--num_epochs", "1",
+                                    "--checkpoint_every", "1",
+                                    "--log_every", "1", "--seed", "0"])):
+            buf = io.StringIO()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(buf):
+                got[f"{name}_rc"] = cli.main(argv)
+            got[f"{name}_s"] = time.perf_counter() - t0
+            got[f"{name}_out"] = buf.getvalue()
+        got["launches"] = {k.__name__: k.launches for k in K.KERNELS}
+
+        state = cyclegan_init_state(SEED, 16, 1, device=dev)
+        step = train_step_runner(
+            state, uint8_pairs(np.random.default_rng(SEED + 31), 2,
+                               TRAIN_BATCH, 256, dev), pair_batching=True)
+
+        def turn(collectives):
+            with (contextlib.nullcontext() if collectives
+                  else without_process_group()):
+                for _ in range(2):
+                    step()
+                sync()
+                t0 = time.perf_counter()
+                for _ in range(DP_TIMED_STEPS):
+                    step()
+                sync()
+            return (time.perf_counter() - t0) * 1000 / DP_TIMED_STEPS
+
+        plain_a, dp_a, dp_b, plain_b = (turn(c) for c in
+                                        (False, True, True, False))
+        got["step_ms"] = {"data_parallel": (dp_a + dp_b) / 2,
+                          "plain": (plain_a + plain_b) / 2,
+                          "turns": [plain_a, dp_a, dp_b, plain_b]}
+        grads = [[p.grad for m in pair for p in getattr(state, m).parameters()
+                  if p.grad is not None]
+                 for pair in (("G_AB", "G_BA"), ("D_A", "D_B"))]
+        got["allreduce_elements"] = [sum(g.numel() for g in gs)
+                                     for gs in grads]
+
+        def reduce_both():
+            for gs in grads:
+                mesh.all_reduce_mean_(gs)
+
+        if dev.type == "cuda":
+            got["allreduce_ms"] = time_ms(reduce_both)
+        with open(out_path, "w") as f:
+            json.dump(got, f)
+    finally:
+        mesh.close_data_parallel()
+
+
+def off_zero_biases_(*modules, scale=0.01):
+    """Every bias of ``modules`` moved off its zero init by N(0, scale)
+    draws from a seeded CPU generator. At a zero q/k bias a window of zero
+    inputs has q = 0, which the zero-safe L2 normalize keeps at 0 and any
+    perturbation turns into a unit vector: there a step's gradients
+    follow the convolutions' rounding (as tests/test_torch_parallel_train.py
+    finds on the CPU)."""
+    import torch
+
+    gen = torch.Generator().manual_seed(SEED + 5)
+    with torch.no_grad():
+        for m in modules:
+            for k, p in m.named_parameters():
+                if k.endswith("bias"):
+                    p.add_((scale * torch.randn(p.shape, generator=gen))
+                           .to(p.device))
+
+
+def dp_state(dev, gen_seed):
+    """The two-rank check's CycleGAN state (fp32, c16, biases off zero,
+    warm Adams) and its pools of DP_GLOO_POOL."""
+    import torch
+
+    from multi_style_transfer_gan_tpu_torch.train import (
+        cyclegan_init_state, pool_init,
+    )
+
+    st = cyclegan_init_state(SEED + 3, 16, 1, device=dev)
+    off_zero_biases_(st.G_AB, st.G_BA, st.D_A, st.D_B)
+    warm_adam(st.g_opt)
+    warm_adam(st.d_opt)
+    pools = (tuple(pool_init(DP_GLOO_POOL, DP_GLOO_SIZE, device=dev)
+                   for _ in range(2)),
+             torch.Generator().manual_seed(gen_seed))
+    return st, pools
+
+
+def dp_steps(dev, spec, block):
+    """One fp32 CycleGAN step and one plain c64 pretrain step on ``block``
+    (a function that takes this rank's block of a global batch; the
+    identity for one rank): their losses and gradients (as the ranks
+    averaged them), on the CPU. Run with cuDNN's deterministic
+    algorithms, so that each side repeats bit for bit: with the default
+    ones the generators' gradients at this init differ from run to run by
+    2.4e-2 .. 3.6e-2 of a tensor's norm (the same step twice on one
+    H100)."""
+    import torch
+
+    from multi_style_transfer_gan_tpu_torch.ops import to_model_range
+    from multi_style_transfer_gan_tpu_torch.train import (
+        cyclegan_train_step, pretrain_init_state, pretrain_train_step,
+    )
+
+    def grads_of(*mods):
+        return {f"{i}.{k}": p.grad.detach().cpu().clone()
+                for i, m in enumerate(mods)
+                for k, p in m.named_parameters() if p.grad is not None}
+
+    st, pools = dp_state(dev, SEED + 7)
+    a, b = (to_model_range(block(torch.as_tensor(x)).to(dev))
+            for x in spec["cyclegan"])
+    _, losses, _ = cyclegan_train_step(st, a, b, compute_dtype=torch.float32,
+                                       pools=pools)
+    out = {"cyclegan": {"losses": {k: float(v) for k, v in losses.items()},
+                        "grads": grads_of(st.G_AB, st.G_BA, st.D_A, st.D_B)}}
+    pre = pretrain_init_state(SEED + 4, PLAIN_CHANNELS, num_epochs=2,
+                              steps_per_epoch=1, device=dev)
+    warm_adam(pre.opt)
+    x, m = (block(torch.as_tensor(t)).to(dev) for t in spec["pretrain"])
+    _, loss = pretrain_train_step(pre, to_model_range(x), m)
+    out["pretrain"] = {"losses": {"loss": float(loss)},
+                       "grads": grads_of(pre.model),
+                       "running": {k: v.detach().cpu().clone() for k, v in
+                                   pre.model.state_dict().items()
+                                   if k.endswith(("running_mean",
+                                                  "running_var"))}}
+    return out
+
+
+def wait_for(ready, what):
+    """Poll ``ready()`` until it is true; raise after DP_WAIT seconds."""
+    t0 = time.perf_counter()
+    while not ready():
+        if time.perf_counter() - t0 > DP_WAIT:
+            raise TimeoutError(f"no {what} after {DP_WAIT} s")
+        time.sleep(0.1)
+
+
+def dp_gloo_rank(rank, port, spec_path, out_dir, device, go):
+    """One of the two gloo ranks of :func:`dp_start`, on ``device`` (both
+    on the one card). Once its process group is up it waits for the event
+    ``go``, then runs :func:`dp_steps` on its block of the global batches,
+    and again with the all-reduce summing instead of averaging (the planted
+    fault); writes both and its launches."""
+    import torch
+    import torch.distributed as dist
+
+    from multi_style_transfer_gan_tpu_torch.ops import kernels as K
+    from multi_style_transfer_gan_tpu_torch.parallel import mesh
+
+    os.environ.update(MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port))
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        dev = torch.device("cuda", dev.index or 0)
+        torch.cuda.set_device(dev)
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cudnn.deterministic = True   # see dp_steps
+    dist.init_process_group("gloo", rank=rank, world_size=2)
+    try:
+        spec = torch.load(spec_path, weights_only=True)
+        torch.zeros(1, device=dev)   # the context, before the wait
+        wait_for(go.is_set, "go event")
+        K.reset_launch_counts()
+        got = {"steps": dp_steps(dev, spec, mesh.rank_block)}
+        got["launches"] = {k.__name__: k.launches for k in K.KERNELS}
+        mean = mesh.all_reduce_mean_
+
+        @torch.no_grad()
+        def summed(tensors):
+            mesh._flat_collective_(list(tensors), dist.all_reduce)
+
+        mesh.all_reduce_mean_ = summed
+        try:
+            got["summed"] = dp_steps(dev, spec, mesh.rank_block)
+        finally:
+            mesh.all_reduce_mean_ = mean
+        torch.save(got, os.path.join(out_dir, f"rank{rank}.pt"))
+    finally:
+        dist.destroy_process_group()
+
+
+def dp_check(what, got, ref):
+    """Two ranks' losses (DP_LOSS_RTOL) and averaged gradients' norms,
+    tensor by tensor (``grad_rel``: GRAD_NORM_RTOL), against one rank's;
+    returns the worst loss and norm gaps and the farthest gradient
+    (the difference's norm, relative as ``grad_rel``), and raises past a
+    limit. The norms, not the differences: the generators' gradients at
+    this init follow the convolutions' rounding, and one rank's batch of
+    4 against two of 2 (other cuDNN algorithms) put single tensors up to
+    0.15 apart (deterministic algorithms, one H100), their norms 2.2e-2;
+    a summed all-reduce doubles every one."""
+    loss = max(abs(got["losses"][k] - v) / abs(v)
+               for k, v in ref["losses"].items())
+    keys = list(ref["grads"])
+    norms = grad_rel([got["grads"][k].double().norm().item() for k in keys],
+                     [ref["grads"][k].double().norm().item() for k in keys])
+    floor = GRAD_NORM_FLOOR * max(ref["grads"][k].norm().item() for k in keys)
+    far = max(((got["grads"][k] - ref["grads"][k]).norm().item()
+               / max(ref["grads"][k].norm().item(), floor), k) for k in keys)
+    if not (loss <= DP_LOSS_RTOL and norms <= GRAD_NORM_RTOL):  # NaN fails
+        raise AssertionError(f"{what}: two ranks vs one, losses {loss:.2e} "
+                             f"(limit {DP_LOSS_RTOL}), gradient norms "
+                             f"{norms:.2e} (limit {GRAD_NORM_RTOL}); the "
+                             f"farthest gradient {far[1]} {far[0]:.2e}")
+    return loss, norms, far
+
+
+def free_port():
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def write_dp_spec(path):
+    """The two-rank check's global batches, seeded, to ``path``: two uint8
+    (A, B) batches for the CycleGAN step, a uint8 batch and its patch mask
+    for the pretrain step."""
+    import torch
+
+    rng = np.random.default_rng(SEED + 19)
+    shape = (DP_GLOO_BATCH, DP_GLOO_SIZE, DP_GLOO_SIZE)
+    keep = (rng.random(shape[:1] + (8, 8)) >= 0.4).astype(np.float32)
+    spec = {"cyclegan": [np.stack(smooth_images(rng, DP_GLOO_BATCH,
+                                                shape[1:])) for _ in range(2)],
+            "pretrain": [np.stack(smooth_images(rng, DP_GLOO_BATCH,
+                                                shape[1:])),
+                         keep.repeat(DP_GLOO_SIZE // 8, 1)
+                         .repeat(DP_GLOO_SIZE // 8, 2)[..., None]]}
+    torch.save({k: [torch.from_numpy(np.ascontiguousarray(x)) for x in v]
+                for k, v in spec.items()}, path)
+
+
+def dp_start(dev, work):
+    """Start the data-parallel path's processes ahead of it, so that their
+    start-up (interpreters, imports, CUDA contexts, process groups) runs
+    beside the other paths: ``torchrun --standalone --nproc_per_node=1``
+    with this script as its rank (:func:`data_parallel_rank`), and two gloo
+    ranks (:func:`dp_gloo_rank`) on the global batches of the two-rank
+    check. Each waits for :func:`phase_data_parallel`'s release before it
+    touches the card's compute; :func:`dp_stop` ends whatever is left."""
+    import multiprocessing
+
+    from multi_style_transfer_gan_tpu_torch.data import write_domains
+
+    rng = np.random.default_rng(SEED + 30)
+    train_folder(rng, os.path.join(work, "dp_train"), n=DP_TRAIN_IMAGES)
+    write_domains(os.path.join(work, "dp_pretrain"),
+                  n_train=DP_PRETRAIN_IMAGES, n_test=1, size=256, seed=SEED)
+    jobs = {"go_file": os.path.join(work, "dp_go"),
+            "rank_json": os.path.join(work, "dp_rank.json"),
+            "spec": os.path.join(work, "dp_spec.pt"),
+            "ranks_dir": os.path.join(work, "dp_ranks")}
+    write_dp_spec(jobs["spec"])
+    os.makedirs(jobs["ranks_dir"], exist_ok=True)
+    jobs["torchrun"] = subprocess.Popen(
+        [sys.executable, "-m", "torch.distributed.run", "--standalone",
+         "--nproc_per_node=1", os.path.abspath(__file__), DP_RANK_FLAG,
+         jobs["rank_json"], work, dev.type, jobs["go_file"]],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+        start_new_session=True)
+    ctx = multiprocessing.get_context("spawn")
+    jobs["go"] = ctx.Event()
+    port = free_port()
+    jobs["gloo"] = [ctx.Process(target=dp_gloo_rank,
+                                args=(r, port, jobs["spec"],
+                                      jobs["ranks_dir"], str(dev),
+                                      jobs["go"]))
+                    for r in range(2)]
+    for p in jobs["gloo"]:
+        p.start()
+    jobs["started"] = time.perf_counter()
+    DP_JOBS[0] = jobs
+
+
+def dp_stop():
+    """End the data-parallel path's processes that are still running (a
+    run that stopped before the path): the torchrun job's whole process
+    group, and the gloo ranks."""
+    import signal
+
+    jobs, DP_JOBS[0] = DP_JOBS[0], None
+    if jobs is None:
+        return
+    proc = jobs["torchrun"]
+    if proc.poll() is None:
+        # SIGTERM first: torchrun's agent then stops its worker, which
+        # runs in a process group of its own
+        os.killpg(proc.pid, signal.SIGTERM)
+        try:
+            proc.communicate(timeout=30)
+        except subprocess.TimeoutExpired:
+            os.killpg(proc.pid, signal.SIGKILL)
+    proc.communicate()
+    for p in jobs["gloo"]:
+        if p.is_alive():
+            p.kill()
+        p.join()
+
+
+def phase_data_parallel(rng, dev, work):
+    """The data-parallel path, its processes started by :func:`dp_start`
+    (started here when they are not): (1) the torchrun job, released
+    first and alone on the card (:func:`data_parallel_rank`: the train and
+    pretrain CLIs over NCCL at world 1, rank 0 writing, then the world-1
+    step timing); (2) the two gloo ranks on the card, released after it,
+    against one rank on the same global batch, fp32, TF32 off, warm
+    Adams, and again under the planted all-sum fault, which must fail the
+    check; (3) ``batch_process`` over two replicas of the program on the
+    card against one device, bf16, and the batch CLI with
+    ``--data_parallel``. Returns the readings and the launches of the
+    processes it started."""
+    if DP_JOBS[0] is None:
+        dp_start(dev, work)
+    jobs = DP_JOBS[0]
+    head_start = time.perf_counter() - jobs["started"]
+    try:
+        return dp_released(rng, dev, work, jobs, head_start)
+    finally:
+        dp_stop()
+
+
+def dp_released(rng, dev, work, jobs, head_start):
+    """The body of :func:`phase_data_parallel`, its processes released."""
+    import signal
+
+    import torch
+    from PIL import Image
+
+    from multi_style_transfer_gan_tpu_torch.cli.batch_process_images import (
+        main as batch_main,
+    )
+    from multi_style_transfer_gan_tpu_torch.pipelines import (
+        batch_process, load_generator,
+    )
+
+    # (1) the CLIs under torchrun, NCCL at world 1
+    t0 = time.perf_counter()
+    with open(jobs["go_file"], "w"):
+        pass
+    proc = jobs["torchrun"]
+    try:
+        out, _ = proc.communicate(timeout=DP_TIMEOUT)
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, signal.SIGKILL)
+        proc.communicate()
+        raise AssertionError(f"[data_parallel] torchrun ran past "
+                             f"{DP_TIMEOUT} s after its release")
+    for line in out.splitlines()[-40:]:
+        log(f"    {line}")
+    if proc.returncode != 0:
+        raise AssertionError(f"[data_parallel] torchrun exited "
+                             f"{proc.returncode}")
+    torchrun_s = time.perf_counter() - t0
+    with open(jobs["rank_json"]) as f:
+        rank = json.load(f)
+    written = [f"{n}_epoch_1.pth" for n in ("G_AB", "G_BA", "discriminators")]
+    written.append("generator_pretrain_epoch_1.pth")
+    missing = [n for n in written if not os.path.exists(
+        os.path.join(work, "dp_models", n))]
+    backend = "nccl" if dev.type == "cuda" else "gloo"
+    if (rank["world"], rank["backend"], rank["train_rc"],
+            rank["pretrain_rc"]) != (1, backend, 0, 0) or missing:
+        raise AssertionError(f"[data_parallel] torchrun run {rank}: missing "
+                             f"{missing}")
+    if "epoch 1 step 3:" not in rank["train_out"] or \
+            "epoch 1 [photo]: mean loss" not in rank["pretrain_out"]:
+        raise AssertionError("[data_parallel] the CLIs did not take their "
+                             "steps:\n" + rank["train_out"]
+                             + rank["pretrain_out"])
+    ms = rank["step_ms"]
+    share = rank.get("allreduce_ms", float("nan")) / ms["data_parallel"]
+    mib = 4 * sum(rank["allreduce_elements"]) / 2**20
+    log(f"[data_parallel] torchrun --nproc_per_node=1 ({rank['backend']}, "
+        f"world {rank['world']}, {rank['device']}; started {head_start:.1f} "
+        f"s ahead, {torchrun_s:.1f} s after its release): train CLI at its "
+        f"defaults 3 steps {rank['train_s']:.2f} s, "
+        f"pretrain CLI plain c{PLAIN_CHANNELS} 2 steps "
+        f"{rank['pretrain_s']:.2f} s (rank 0 wrote {', '.join(written)}); "
+        f"launches {rank['launches']}")
+    log(f"[data_parallel] {card_line()}; bf16 c16 256^2 batch {TRAIN_BATCH} "
+        f"step under torchrun (world 1): {ms['data_parallel']:.2f} ms/step "
+        f"with the collectives, {ms['plain']:.2f} ms/step without (turns "
+        f"plain, DP, DP, plain: "
+        + ", ".join(f"{t:.2f}" for t in ms["turns"])
+        + f"; {ms['data_parallel'] / ms['plain'] - 1:+.1%}); the two "
+        f"gradient all-reduces alone {rank.get('allreduce_ms', float('nan')):.3f}"
+        f" ms ({rank['allreduce_elements'][0]} + "
+        f"{rank['allreduce_elements'][1]} fp32 values, {mib:.2f} MiB), "
+        f"{share:.2%} of the step")
+
+    # (2) two gloo ranks sharing the card against one rank
+    t0 = time.perf_counter()
+    jobs["go"].set()
+    deterministic = torch.backends.cudnn.deterministic
+    try:
+        torch.backends.cudnn.deterministic = True   # see dp_steps
+        one = dp_steps(dev, torch.load(jobs["spec"], weights_only=True),
+                       lambda x: x)
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    # (3) while the ranks run: --data_parallel, two replicas of the
+    # program on the card (nothing here is timed)
+    src = os.path.join(work, "dp_in")
+    os.makedirs(src)
+    for i, img in enumerate(smooth_images(rng, DP_FOLDER_IMAGES, (256, 256))):
+        Image.fromarray(img).save(os.path.join(src, f"dp_{i:02d}.png"))
+    model = load_generator(TRAINED, device=dev)
+    outs = []
+    # one device at a replica's batch: the bf16 program is not the same
+    # function at every batch size on the card (devtools/batch_invariance.py)
+    for where, batch in (({"device": dev}, DP_REPLICA_BATCH),
+                         ({"devices": [dev, dev]}, 2 * DP_REPLICA_BATCH)):
+        out = os.path.join(work, f"dp_out_{len(outs)}")
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            stats = batch_process(model, src, out, batch_size=batch,
+                                  compute_dtype=torch.bfloat16, **where)
+        if stats["processed"] != DP_FOLDER_IMAGES or \
+                "engine=auto -> packed (batch " not in buf.getvalue():
+            raise AssertionError(f"[data_parallel] batch_process {where}: "
+                                 f"{stats}; {buf.getvalue()}")
+        outs.append((stats, os.path.join(out, "cyclegan_photo2monet")))
+    d = [np.abs(np.asarray(Image.open(os.path.join(outs[0][1], n)), np.int16)
+                - np.asarray(Image.open(os.path.join(outs[1][1], n)),
+                             np.int16))
+         for n in sorted(os.listdir(outs[0][1]))]
+    levels = (max(x.max() for x in d),
+              float(np.mean([(x > 0).mean() for x in d])))
+    if levels[0] > 1:
+        raise AssertionError(f"[data_parallel] two replicas {levels[0]} "
+                             f"levels from one device")
+    serve = os.path.join(work, "dp_serve")
+    os.makedirs(serve)
+    shutil.copy(TRAINED, os.path.join(serve, "cyclegan_epoch_200.pth"))
+    text = run_cli(batch_main, ["--input_dir", src, "--output_dir",
+                                os.path.join(work, "dp_cli_out"),
+                                "--models_dir", serve, "--bf16",
+                                "--batch_size", "8", "--data_parallel"],
+                   "batch CLI --data_parallel", "[data_parallel]")
+    if f"data-parallel over {torch.cuda.device_count()} devices" not in text:
+        raise AssertionError("the batch CLI did not run data parallel")
+    for p in jobs["gloo"]:
+        p.join(DP_TIMEOUT)
+    if any(p.exitcode != 0 for p in jobs["gloo"]):
+        raise AssertionError(f"[data_parallel] gloo ranks exited "
+                             f"{[p.exitcode for p in jobs['gloo']]}")
+    gloo_s = time.perf_counter() - t0
+    ranks = [torch.load(os.path.join(jobs["ranks_dir"], f"rank{r}.pt"),
+                        weights_only=True) for r in range(2)]
+    gloo = {}
+    for part in ("cyclegan", "pretrain"):
+        gloo[part] = dp_check(f"[data_parallel] gloo {part}",
+                              ranks[0]["steps"][part], one[part])
+        for k, v in ranks[0]["steps"][part]["grads"].items():
+            if not torch.equal(v, ranks[1]["steps"][part]["grads"][k]):
+                raise AssertionError(f"[data_parallel] gloo {part}: the "
+                                     f"ranks' averaged gradient {k} differs")
+        try:
+            dp_check(f"[data_parallel] gloo {part} all-sum",
+                     ranks[0]["summed"][part], one[part])
+        except AssertionError as e:
+            log(f"[data_parallel] planted all-sum fault caught: {e}")
+        else:
+            raise AssertionError(f"[data_parallel] gloo {part}: the check "
+                                 f"does not see the planted all-sum fault")
+    running = max((ranks[0]["steps"]["pretrain"]["running"][k] - v).abs()
+                  .max().item()
+                  for k, v in one["pretrain"]["running"].items())
+    if not running <= 1e-5:
+        raise AssertionError(f"[data_parallel] gloo BatchNorm running "
+                             f"statistics {running:.2e} from one rank's")
+    gloo_launches = {n: sum(r["launches"][n] for r in ranks)
+                     for n in ranks[0]["launches"]}
+    log(f"[data_parallel] two gloo ranks on {dev} vs one rank, global batch "
+        f"{DP_GLOO_BATCH} at {DP_GLOO_SIZE}^2, fp32, TF32 off, cuDNN "
+        f"deterministic, warm Adams: "
+        + "; ".join(f"{part} losses {r[0]:.2e}, gradient norms {r[1]:.2e} "
+                    f"(farthest gradient {r[2][1]} {r[2][0]:.2e})"
+                    for part, r in gloo.items())
+        + f" (CycleGAN c16 with pools of {DP_GLOO_POOL}, plain "
+        f"c{PLAIN_CHANNELS} pretrain with global BatchNorm, running "
+        f"statistics {running:.2e}); the ranks' gradients bit-equal; "
+        f"{gloo_s:.1f} s with the replicas' check beside them; launches in "
+        f"the ranks {gloo_launches}")
+
+    log(f"[data_parallel] batch_process over two replicas on {dev} (batch "
+        f"{2 * DP_REPLICA_BATCH}) vs one device (batch {DP_REPLICA_BATCH}), "
+        f"--engine auto (packed), bf16, canvas 256: max {levels[0]} "
+        f"level(s), {levels[1]:.2%} of values differ")
+    return {"step_ms": ms, "allreduce_ms": rank.get("allreduce_ms"),
+            "allreduce_share": share, "gloo": gloo, "levels": levels,
+            "launches": {n: rank["launches"][n] + gloo_launches[n]
+                         for n in gloo_launches}}
 
 
 # ---------------------------------------------------------------------------
@@ -5022,6 +5616,9 @@ def phase_study(dev, counts, work):
 
 
 def main() -> int:
+    if sys.argv[1:2] == [DP_RANK_FLAG]:   # torchrun's rank of the DP path
+        data_parallel_rank(*sys.argv[2:])
+        return 0
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as work:
         return run(work)
 
@@ -5030,7 +5627,8 @@ def run(work) -> int:
     """Every path and check, in order; ``work`` holds the files the paths
     share (the batch CLI's folders, which the evaluation path compares).
     The CPU halves of the card-vs-CPU checks run in a pool of CPU_WORKERS
-    processes started here and stopped on the way out."""
+    processes started here and stopped on the way out, as are the
+    data-parallel path's processes (``dp_start``)."""
     import torch
 
     if not torch.cuda.is_available():
@@ -5042,6 +5640,7 @@ def run(work) -> int:
     try:
         return run_paths(work)
     finally:
+        dp_stop()
         CPU_HALVES[0].close()
         CPU_HALVES[0] = None
 
@@ -5073,6 +5672,9 @@ def run_paths(work) -> int:
     mark("row 1, 5-7 and 9 phases")
     ready()
     mark("every source built")
+    # the data-parallel path's processes start up beside the other paths
+    # and wait for its release
+    dp_start(dev, work)
     # the evaluation path's files and its FID check's CPU half, computed by
     # the CPU pool meanwhile
     fid_reference_of = cpu_result(fid_reference, (work, EVAL_CPU_IMAGES,
@@ -5415,6 +6017,19 @@ def run_paths(work) -> int:
                              f"{perceptual}: a kernel of the path never "
                              f"launched")
 
+    K.reset_launch_counts()   # the data-parallel path starts here
+    data_parallel = phase_data_parallel(np.random.default_rng(SEED + 31),
+                                        dev, work)
+    dp_here = counts()        # ...and ends here, with its ranks' launches
+    dp_path = {n: dp_here[n] + data_parallel["launches"][n] for n in counted}
+    log(f"[data-parallel path] launches (this process and its ranks): "
+        f"{dp_path}")
+    if min(dp_path[n] for n in list(TRAIN_LAUNCHES_PER_STEP)
+           + serving_kernels) == 0:
+        raise AssertionError(f"data-parallel path launches {dp_path}: a "
+                             f"kernel of the path never launched")
+    mark("data-parallel path")
+
     K.reset_launch_counts()   # the ablation path starts here
     phase_ablation()
     ablation = counts()       # ...and ends here
@@ -5430,7 +6045,7 @@ def run_paths(work) -> int:
                 + any_training[n] + wide_training[n] + past_training[n]
                 + pretraining[n]
                 + evaluation[n] + studied[n] + gui[n] + perceptual[n]
-                + ablation[n] for n in counted}
+                + dp_path[n] + ablation[n] for n in counted}
     mark("all paths")
 
     # inference kernels: per forward at canvas 256, batch 8, bf16 (the four
@@ -5802,6 +6417,19 @@ def run_paths(work) -> int:
         f"{study['serving']['latency_p50_s']:.3f} s, p95 "
         f"{study['serving']['latency_p95_s']:.3f} s ({STUDY_REQUESTS} "
         f"requests, concurrency 8)")
+    dp_ms = data_parallel["step_ms"]
+    log(f"[summary] {card}; data parallel: bf16 c16 256^2 batch "
+        f"{TRAIN_BATCH} step under torchrun --nproc_per_node=1 (NCCL) "
+        f"{dp_ms['data_parallel']:.2f} ms/step with the gradient "
+        f"all-reduces, {dp_ms['plain']:.2f} without (in turns), the "
+        f"all-reduces alone {data_parallel['allreduce_ms']:.3f} ms "
+        f"({data_parallel['allreduce_share']:.2%} of the step); two gloo "
+        f"ranks vs one on the card (fp32) CycleGAN losses "
+        f"{data_parallel['gloo']['cyclegan'][0]:.2e}, gradient norms "
+        f"{data_parallel['gloo']['cyclegan'][1]:.2e}, plain pretrain "
+        f"{data_parallel['gloo']['pretrain'][0]:.2e} and "
+        f"{data_parallel['gloo']['pretrain'][1]:.2e}; --data_parallel two "
+        f"replicas vs one device max {data_parallel['levels'][0]} level(s)")
     p_with, p_without, vgg_share = perceptual_ms
     log(f"[summary] {card}; GUI tab wall per image on the card (decode, "
         f"generator, post chain, restore and save; 3 photos after a warm-up): "

@@ -24,10 +24,13 @@ the same path:
                   pretraining, and the VGG16 perceptual + Gram loss.
 - ``data``      — image listing, the training folder dataset and prefetch.
 - ``utils``     — the training metrics log.
+- ``parallel``  — data parallelism: one process per GPU under torchrun
+                  (NCCL; gloo on the CPU), the gradient all-reduces, and the
+                  batch CLI's local device list (``--data_parallel``).
 - ``gui``       — the desktop GUI: login, the four tabs and their model
                   manager.
-- ``cli``       — every command-line entry point of the JAX package but
-                  the multi-device ones.
+- ``cli``       — every command-line entry point of the JAX package;
+                  height-sharded inference (``--spatial``) is not ported.
 
 Nothing here imports ``jax``. Activations are logical NCHW tensors in
 ``torch.channels_last`` memory, so the kernels read (B, H, W, C) rows

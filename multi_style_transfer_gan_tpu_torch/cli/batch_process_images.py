@@ -50,14 +50,14 @@ def main(argv=None):
                    help="working resolution (multiple of 32; the reference"
                         " fixes 256)")
     p.add_argument("--data_parallel", action="store_true",
-                   help="not ported yet")
+                   help="one process over every local CUDA device: a "
+                        "replica of the program on each, every batch "
+                        "rounded up to a multiple of the device count and "
+                        "split among them")
     args = p.parse_args(argv)
 
     import torch
 
-    if args.data_parallel:
-        print("error: --data_parallel is not ported yet", file=sys.stderr)
-        return 2
     if not torch.cuda.is_available():
         print("error: no CUDA device; the port runs on the GPU",
               file=sys.stderr)
@@ -82,14 +82,19 @@ def main(argv=None):
         model = load_generator(path, device="cuda")
     print(f"loaded {model.kind} generator (channels={model.channels})")
 
+    where = {"device": "cuda"}
+    if args.data_parallel:
+        from ..parallel import local_devices
+
+        where = {"devices": local_devices()}
+        print(f"data-parallel over {len(where['devices'])} devices")
     batch_process(model, args.input_dir, args.output_dir, mode=args.mode,
                   local_style_mode=args.local_style_mode,
                   direction=args.direction, strength=args.strength,
                   detail=args.detail, enhance_colors=args.enhance_colors,
                   smooth=args.smooth, batch_size=args.batch_size,
                   compute_dtype=torch.bfloat16 if args.bf16 else None,
-                  engine=args.engine,
-                  canvas=args.canvas, device="cuda")
+                  engine=args.engine, canvas=args.canvas, **where)
     return 0
 
 

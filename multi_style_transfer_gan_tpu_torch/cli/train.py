@@ -1,12 +1,22 @@
-"""CLI: enhanced CycleGAN training on one CUDA device (the flags of the JAX
-package's ``cli/train.py``).
+"""CLI: enhanced CycleGAN training on CUDA (the flags of the JAX package's
+``cli/train.py``).
 
   python -m multi_style_transfer_gan_tpu_torch.cli.train \\
       --data_root data/monet2photo --save_dir models --resume_dir runs/ckpt
 
+  torchrun --nproc_per_node=N -m multi_style_transfer_gan_tpu_torch.cli.train \\
+      --data_root data/monet2photo --batch_size 8
+
 Reads ``{data_root}/trainA`` (Monet) and ``trainB`` (photos); writes the
 reference's three ``.pth`` files every ``--checkpoint_every`` epochs, and the
 full train state under ``--resume_dir``, from which a rerun resumes.
+
+Under torchrun each of the N processes trains on ``cuda:LOCAL_RANK`` over
+NCCL, on its slice of every global batch of ``--batch_size`` images (which
+N must divide); the gradients are averaged over the ranks each phase, so
+the run takes the steps one device would take on the global batch. Every
+rank reads the same ``--pretrained`` and ``--resume_dir`` files and takes
+rank 0's weights; only rank 0 writes checkpoints and metrics.
 """
 
 import argparse
@@ -21,16 +31,18 @@ DEVICE = "cuda"
 
 def main(argv=None):
     p = argparse.ArgumentParser(
-        description="enhanced CycleGAN training on one CUDA device. The JAX "
-                    "CLI's data-parallel mesh is not ported: one card trains "
-                    "(multi-GPU DDP is open work).")
+        description="enhanced CycleGAN training on CUDA: one card, or N "
+                    "under torchrun --nproc_per_node=N, the global "
+                    "--batch_size split among them")
     p.add_argument("--data_root", type=str, required=True)
     p.add_argument("--save_dir", type=str, default="models")
     p.add_argument("--pretrained", type=str, default=None,
                    help="warm-start both generators non-strictly from this "
                         "generator checkpoint")
     p.add_argument("--num_epochs", type=int, default=200)
-    p.add_argument("--batch_size", type=int, default=8)
+    p.add_argument("--batch_size", type=int, default=8,
+                   help="the global batch; under torchrun a multiple of the "
+                        "process count")
     p.add_argument("--channels", type=int, default=16,
                    help="generator width, any multiple of 4 (the generator "
                         "needs one); the card trains every such width, as far "
@@ -94,6 +106,10 @@ def main(argv=None):
 
     from ..data import ImageFolderDataset, prefetch_to_device
     from ..ops import to_model_range
+    from ..parallel import (
+        broadcast_module_, init_data_parallel, is_writer, local_batch_size,
+        rank, world_size,
+    )
     from ..train import (
         cyclegan_init_state, cyclegan_train_step,
         latest_step, pool_init, restore_train_state, save_models,
@@ -102,7 +118,12 @@ def main(argv=None):
     from ..utils import MetricsLogger
     from ..weights import extract_state_dict, load_pth
 
-    device = torch.device(DEVICE)
+    device = init_data_parallel(DEVICE)
+    try:
+        local_batch_size(args.batch_size, world_size())
+    except ValueError as e:
+        print(f"error: --batch_size: {e}", file=sys.stderr)
+        return 2
     pre = None
     if args.pretrained:
         print(f"warm-starting generators from {args.pretrained}")
@@ -144,15 +165,23 @@ def main(argv=None):
             print(f"resumed from {args.resume_dir} at epoch {start_epoch}")
         else:
             print(f"no checkpoints under {args.resume_dir}; starting fresh")
+    for m in (state.G_AB, state.G_BA, state.D_A, state.D_B):
+        broadcast_module_(m)
+    if world_size() > 1:
+        print(f"data parallel: rank {rank()} of {world_size()}, "
+              f"{args.batch_size // world_size()} images of each global "
+              f"batch of {args.batch_size}")
 
-    metrics = MetricsLogger(args.metrics_log)
+    metrics = MetricsLogger(args.metrics_log if is_writer() else None)
     try:
         for epoch in range(start_epoch, args.num_epochs):
             t0 = time.time()
             it_a = monet.batches(args.batch_size, seed=args.seed + epoch,
-                                 epochs=1)
+                                 epochs=1, process_index=rank(),
+                                 process_count=world_size())
             it_b = photo.batches(args.batch_size, seed=args.seed * 7 + epoch,
-                                 epochs=1)
+                                 epochs=1, process_index=rank(),
+                                 process_count=world_size())
             steps = 0
             for i, (a, b) in enumerate(prefetch_to_device(zip(it_a, it_b),
                                                           device)):
@@ -170,7 +199,7 @@ def main(argv=None):
                     msg = " ".join(f"{k}={v:.4f}" for k, v in vals.items())
                     print(f"epoch {epoch + 1} step {i + 1}: {msg}")
                     metrics.log(epoch=epoch + 1, step=i + 1, **vals)
-            if (epoch + 1) % args.checkpoint_every == 0:
+            if (epoch + 1) % args.checkpoint_every == 0 and is_writer():
                 save_models(state, args.save_dir, epoch + 1)
                 if args.resume_dir:
                     save_train_state(state, args.resume_dir, epoch + 1, pools)
@@ -188,4 +217,10 @@ def main(argv=None):
 
 
 if __name__ == "__main__":
-    raise SystemExit(main())
+    from ..parallel import close_data_parallel
+
+    try:
+        rc = main()
+    finally:
+        close_data_parallel()
+    raise SystemExit(rc)

@@ -9,6 +9,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..parallel import mesh
+
 
 def instance_norm(x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
     """``InstanceNorm2d`` with PyTorch defaults (affine=False, biased
@@ -102,10 +104,45 @@ def batch_norm(x: torch.Tensor, running_mean: torch.Tensor,
     Eval mode normalizes with the running statistics. Training mode
     normalizes with the biased batch variance and updates the fp32 running
     buffers IN PLACE (the JAX function returns them), the variance's with
-    the unbiased estimate, as PyTorch does.
+    the unbiased estimate, as PyTorch does. Under data parallelism the
+    batch is the GLOBAL batch (:func:`_batch_norm_global`), as under the
+    JAX package's sharded batch axis.
     """
+    if training and mesh.active():
+        return _batch_norm_global(x, running_mean, running_var, weight, bias,
+                                  momentum, eps)
     return F.batch_norm(x.float(), running_mean, running_var, weight.float(),
                         bias.float(), training, momentum, eps).to(x.dtype)
+
+
+def _batch_norm_global(x, running_mean, running_var, weight, bias, momentum,
+                       eps):
+    """Training-mode :func:`batch_norm` over the global batch of every rank.
+
+    Each rank's sum and sum of squares per channel (float64, so the one-pass
+    variance keeps fp32's accuracy) cross in one all-reduce; the output is
+    normalized with the global mean and biased variance in fp32 and rounded
+    back to x's type once, and the running variance takes the unbiased
+    estimate over the global count. The all-reduce is differentiable: its
+    backward all-reduces the gradients of the sums (SyncBatchNorm's rule),
+    so with the parameter gradients averaged over the ranks the step takes
+    the gradient of the global mean loss."""
+    xf = x.float()
+    xd = xf.double()
+    sums = mesh.all_reduce_sum(torch.cat([xd.sum(dim=(0, 2, 3)),
+                                          xd.square().sum(dim=(0, 2, 3))]))
+    n = x.shape[0] * x.shape[2] * x.shape[3] * mesh.world_size()
+    mean, meansq = (sums / n).chunk(2)
+    var = torch.clamp_min(meansq - mean.square(), 0.0).float()
+    mean = mean.float()
+    with torch.no_grad():
+        running_mean.mul_(1 - momentum).add_(momentum * mean)
+        running_var.mul_(1 - momentum).add_(
+            momentum * (var * (n / max(n - 1, 1))))
+    scale = torch.rsqrt(var + eps)[:, None, None]
+    out = (xf - mean[:, None, None]) * scale
+    out = out * weight.float()[:, None, None] + bias.float()[:, None, None]
+    return out.to(x.dtype)
 
 
 def l2_normalize(u: torch.Tensor, eps: float = 1e-12) -> torch.Tensor:

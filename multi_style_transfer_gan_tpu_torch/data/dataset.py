@@ -63,10 +63,20 @@ class ImageFolderDataset:
 
     def batches(self, batch_size: int, *, shuffle: bool = True,
                 seed: int = 42, drop_last: bool = True,
-                epochs: int | None = None) -> Iterator[np.ndarray]:
-        """Stacked (batch, img_size, img_size, 3) uint8 batches, shuffled
+                epochs: int | None = None, process_index: int = 0,
+                process_count: int = 1) -> Iterator[np.ndarray]:
+        """Stacked uint8 batches of (img_size, img_size, 3) images, shuffled
         per epoch by a numpy generator seeded with ``seed`` (the JAX
-        package's order, single host)."""
+        package's order).
+
+        ``batch_size`` is the GLOBAL batch. Under data parallelism each
+        rank passes its ``process_index`` and the ``process_count``: every
+        rank shuffles alike, and each decodes only its strided slice
+        ``idxs[process_index::process_count]`` of every global batch, as
+        the JAX package's hosts do (data/dataset.py:84-110)."""
+        if batch_size % max(process_count, 1):
+            raise ValueError(f"global batch {batch_size} not divisible by "
+                             f"process count {process_count}")
         rng = np.random.default_rng(seed)
         epoch = 0
         while epochs is None or epoch < epochs:
@@ -77,7 +87,8 @@ class ImageFolderDataset:
                 idxs = order[i:i + batch_size]
                 if drop_last and len(idxs) < batch_size:
                     continue
-                yield np.stack([self._square(self.load(j)) for j in idxs])
+                yield np.stack([self._square(self.load(j)) for j in
+                                idxs[process_index::process_count]])
             epoch += 1
 
     def _square(self, img: np.ndarray) -> np.ndarray:

@@ -13,6 +13,12 @@
 - A bounded prefetch thread decodes and copies the next batches to the
   device while the current one runs; a one-worker fetch pool copies
   results back in order and a save pool encodes them.
+- Data parallel (``devices=[...]``, the batch CLI's ``--data_parallel``;
+  the JAX package's ``mesh``): one process, a replica of the program on
+  each device, the batch rounded up to a multiple of the device count and
+  split into one block a replica; the blocks are queued on their devices
+  one after another (CUDA runs them concurrently) and gathered back to the
+  host for the save.
 
 Every mode of the JAX pipeline is ported: ``cyclegan``, and
 ``local_style`` with the ``simple`` blend or the ``enhanced`` and
@@ -271,18 +277,29 @@ def batch_process(model: LoadedModel, input_dir, output_dir, *,
                   smooth: bool = True, batch_size: int = 64,
                   decode_workers: int = 8, compute_dtype=None,
                   engine: str = "auto", canvas: int = CANVAS,
-                  device) -> dict:
-    """Process every image in ``input_dir`` on ``device``; returns a stats
-    dict.
+                  device=None, devices=None) -> dict:
+    """Process every image in ``input_dir`` on ``device``, or data parallel
+    over the list ``devices``; returns a stats dict.
 
     Outputs go to ``{output_dir}/cyclegan_{direction}/name`` or
     ``{output_dir}/local_style_{mode}_{direction}/name``, as the reference
     lays them out. canvas: working resolution, a multiple of 32. engine:
     'auto' (the default, as in the JAX package) resolves through
     :func:`select_engine` on the final batch size, after the small-folder
-    shrink; 'nhwc' or 'packed' force one (see make_batch_fn). A build or
-    launch failure of either raises: there is no fallback engine.
+    shrink and the rounding to the device count; 'nhwc' or 'packed' force
+    one (see make_batch_fn). A build or launch failure of either raises:
+    there is no fallback engine.
+
+    devices: each device (a device may repeat) holds a replica of the
+    program and takes one block of every batch, whose size is rounded up
+    to a multiple of their count (JAX's pipelines/batch.py:286-294).
     """
+    if (device is None) == (devices is None):
+        raise TypeError("batch_process takes one of device= and devices=")
+    devices = [torch.device(d) for d in
+               (devices if devices is not None else [device])]
+    if not devices:
+        raise ValueError("devices is empty")
     if canvas % 32:
         raise ValueError(f"canvas must be a multiple of 32, got {canvas}")
     files = list_images(input_dir)
@@ -302,14 +319,20 @@ def batch_process(model: LoadedModel, input_dir, output_dir, *,
     while pow2 < min(batch_size, len(files)):
         pow2 *= 2
     batch_size = min(batch_size, pow2)
+    n_dev = len(devices)
+    if n_dev > 1:
+        # the shrunk batch must still divide over the devices
+        batch_size = ((max(batch_size, n_dev) + n_dev - 1) // n_dev) * n_dev
+        print(f"data-parallel: {n_dev} replicas, "
+              f"{batch_size // n_dev} images each of a batch of {batch_size}")
     if engine == "auto":
         engine = select_engine(batch_size, canvas, model.kind)
         print(f"engine=auto -> {engine} (batch {batch_size}, "
               f"canvas {canvas})")
-    run_fn = make_batch_fn(model, mode, local_style_mode, strength, detail,
-                           enhance_colors, smooth, compute_dtype=compute_dtype,
-                           engine=engine, device=device)
-    device = torch.device(device)
+    run_fns = [make_batch_fn(model, mode, local_style_mode, strength, detail,
+                             enhance_colors, smooth,
+                             compute_dtype=compute_dtype, engine=engine,
+                             device=d) for d in devices]
     use_native = _native.available()
     n_failed = 0
 
@@ -329,7 +352,8 @@ def batch_process(model: LoadedModel, input_dir, output_dir, *,
             if arr.shape[0] < batch_size:
                 pad = batch_size - arr.shape[0]
                 arr = np.concatenate([arr, np.repeat(arr[-1:], pad, 0)])
-            yield chunk, sizes, torch.from_numpy(arr).to(device)
+            yield chunk, sizes, [torch.from_numpy(block).to(d) for block, d
+                                 in zip(np.split(arr, n_dev), devices)]
 
     def prefetched(gen):
         """Run ``gen`` (decode + host-to-device copy) on its own thread,
@@ -375,16 +399,19 @@ def batch_process(model: LoadedModel, input_dir, output_dir, *,
             done += 1
         return done
 
-    def drain(chunk, sizes, dev_out):  # fetch_pool: one worker, in order
-        host = dev_out.cpu().numpy()   # device-to-host; waits for the batch
+    def drain(chunk, sizes, dev_outs):  # fetch_pool: one worker, in order
+        # device-to-host; waits for the batch (every replica's block)
+        host = (dev_outs[0].cpu().numpy() if n_dev == 1 else
+                np.concatenate([o.cpu().numpy() for o in dev_outs]))
         saves.append(save_pool.submit(save_batch, host, chunk, sizes))
 
     t0 = time.perf_counter()
     try:
         drains = []
-        for chunk, sizes, dev_batch in prefetched(batches()):
-            dev_out = run_fn(dev_batch)  # queued on the device
-            drains.append(fetch_pool.submit(drain, chunk, sizes, dev_out))
+        for chunk, sizes, dev_blocks in prefetched(batches()):
+            # queued on each replica's device
+            dev_outs = [fn(x) for fn, x in zip(run_fns, dev_blocks)]
+            drains.append(fetch_pool.submit(drain, chunk, sizes, dev_outs))
             if len(drains) > 2:  # bound the outputs in flight
                 drains.pop(0).result()
         for d in drains:

@@ -9,7 +9,7 @@ from .cyclegan import (
     save_models,
 )
 from .losses import l1_loss, lsgan_loss, masked_l1, mse_loss
-from .pool import ImagePool, pool_init, pool_sample
+from .pool import ImagePool, pool_init, pool_sample, pool_sample_global
 from .pretrain import (
     PretrainState, learning_rate, pretrain_init_state,
     pretrain_train_step, restore_pretrain_state, save_pretrain_checkpoint,
@@ -19,7 +19,8 @@ __all__ = [
     "CycleGANState", "ImagePool", "PretrainState",
     "cyclegan_init_state", "cyclegan_train_step", "l1_loss", "latest_step",
     "learning_rate", "lsgan_loss", "make_optimizers", "masked_l1",
-    "mse_loss", "pool_init", "pool_sample", "pretrain_init_state",
+    "mse_loss", "pool_init", "pool_sample", "pool_sample_global",
+    "pretrain_init_state",
     "pretrain_train_step", "restore_pretrain_state", "restore_train_state",
     "save_models", "save_pretrain_checkpoint", "save_train_state",
 ]

@@ -15,6 +15,17 @@ as the JAX step does.
 
 Unlike the functional JAX step, the port updates the state in place (its
 modules, optimizers and step count) and returns it.
+
+Under data parallelism (torchrun; ``parallel.mesh``) each rank runs the
+step on its block of the global batch; after each phase's backward one
+all-reduce averages the gradients (and the phase's losses) over the ranks
+before Adam steps, so every rank takes the same update, the gradient of
+the global mean loss. Explicit all-reduces rather than
+``DistributedDataParallel``: each generator runs twice a phase with pair
+batching, the G phase freezes D, and spectral norm updates its ``u``
+inside the forward, three things DDP's hooks and per-forward buffer
+broadcast sit badly with. The pools see the global batch
+(``pool_sample_global``).
 """
 
 from __future__ import annotations
@@ -27,8 +38,9 @@ import torch
 from torch.optim.lr_scheduler import LambdaLR
 
 from ..models import EnhancedDiscriminator, EnhancedGenerator
+from ..parallel import mesh
 from .losses import l1_loss, lsgan_loss
-from .pool import pool_sample
+from .pool import pool_sample_global
 
 LAMBDA_CYCLE = 10.0     # enhanced_train.py:55
 LAMBDA_IDENTITY = 2.0   # enhanced_train.py:56
@@ -158,6 +170,19 @@ def _frozen(*modules):
             p.requires_grad_(f)
 
 
+def _mean_over_ranks(modules, *losses):
+    """Under data parallelism: the gradients of ``modules``' parameters and
+    the scalar ``losses`` averaged over the ranks in one all-reduce; returns
+    the losses as global means. Without a process group: nothing, the
+    losses as they are."""
+    if not mesh.active():
+        return losses
+    losses = [loss.detach().clone() for loss in losses]
+    mesh.all_reduce_mean_([p.grad for m in modules for p in m.parameters()
+                           if p.grad is not None] + losses)
+    return losses
+
+
 def _nchw(x):
     return x.permute(0, 3, 1, 2).contiguous(memory_format=CHANNELS_LAST)
 
@@ -187,6 +212,9 @@ def cyclegan_train_step(state: CycleGANState, real_A, real_B, *,
     the G loss. pools: optional ``((pool_A, pool_B), generator)`` replay
     buffers; the D phase then scores pool-sampled fakes and the return is
     ``(state, losses, pools)``.
+
+    Under data parallelism real_A and real_B are this rank's blocks of the
+    global batch, and the losses are global means.
     """
     xa = _nchw(real_A.to(compute_dtype))
     xb = _nchw(real_B.to(compute_dtype))
@@ -218,8 +246,8 @@ def cyclegan_train_step(state: CycleGANState, real_A, real_B, *,
         fake_A0 = state.G_BA(xb)
     if pools is not None:
         (pool_a, pool_b), pgen = pools
-        pool_a, fa = pool_sample(pool_a, _nhwc(fake_A0), pgen)
-        pool_b, fb = pool_sample(pool_b, _nhwc(fake_B0), pgen)
+        pool_a, fa = pool_sample_global(pool_a, _nhwc(fake_A0), pgen)
+        pool_b, fb = pool_sample_global(pool_b, _nhwc(fake_B0), pgen)
         fake_A0 = _nchw(fa.to(compute_dtype))
         fake_B0 = _nchw(fb.to(compute_dtype))
         pools = ((pool_a, pool_b), pgen)
@@ -232,6 +260,7 @@ def cyclegan_train_step(state: CycleGANState, real_A, real_B, *,
     d_fake = (lsgan_loss(fa, 0.0) + lsgan_loss(fb, 0.0)) * 0.5
     d_loss = d_real + d_fake
     d_loss.backward()
+    d_loss, = _mean_over_ranks((state.D_A, state.D_B), d_loss)
     state.d_opt.step()
     if state.d_sched is not None:
         state.d_sched.step()
@@ -255,6 +284,8 @@ def cyclegan_train_step(state: CycleGANState, real_A, real_B, *,
             total = total + extra_g_loss(_nhwc(fake_A), _nhwc(fake_B),
                                          _nhwc(xa), _nhwc(xb))
         total.backward()
+    gan, cycle, identity, structure = _mean_over_ranks(
+        (state.G_AB, state.G_BA), gan, cycle, identity, structure)
     state.g_opt.step()
     if state.g_sched is not None:
         state.g_sched.step()

@@ -9,6 +9,12 @@ fake takes its place. The images live on the device; the two draws per
 image come from an explicit CPU ``torch.Generator``, so sampling needs no
 device round trip. Unlike the JAX function, which returns a new pool, the
 port writes the pool in place (and returns it).
+
+Under data parallelism the law runs over the GLOBAL batch in order, as the
+JAX step's replicated pool does (train/pool.py:50-56): every rank gathers
+the fakes, runs the same draws from a generator in the same state and
+keeps the same pool, and takes its own block of the result
+(:func:`pool_sample_global`).
 """
 
 from __future__ import annotations
@@ -16,6 +22,8 @@ from __future__ import annotations
 from dataclasses import dataclass
 
 import torch
+
+from ..parallel import mesh
 
 
 @dataclass
@@ -53,3 +61,17 @@ def pool_sample(pool: ImagePool, fakes: torch.Tensor,
         else:
             out.append(img)
     return pool, torch.stack(out)
+
+
+def pool_sample_global(pool: ImagePool, fakes: torch.Tensor,
+                       generator: torch.Generator):
+    """:func:`pool_sample` over the global batch: ``fakes`` is this rank's
+    block; the blocks of every rank are gathered in rank order, the law
+    runs on the whole global batch (``generator`` in the same state on
+    every rank, so the pools stay identical), and this rank's block of the
+    result is returned beside the pool. Without a process group it is
+    ``pool_sample`` itself."""
+    if not mesh.active():
+        return pool_sample(pool, fakes, generator)
+    pool, out = pool_sample(pool, mesh.all_gather_batch(fakes), generator)
+    return pool, mesh.rank_block(out)

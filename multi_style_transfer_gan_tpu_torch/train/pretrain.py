@@ -19,6 +19,13 @@ generator runs in ``compute_dtype`` with its weights cast at use, BatchNorm
 and the loss in fp32. Unlike the functional JAX step, the port updates the
 state in place (the module, its running statistics, Adam and the step) and
 returns it.
+
+Under data parallelism (torchrun; ``parallel.mesh``) each rank steps on its
+block of the global batch and of the global batch's mask: one all-reduce
+averages the gradients and the loss over the ranks before the clip, so the
+clip sees the global norm, and the plain model's BatchNorms normalize with
+the global batch's statistics (``core.norm``), as the JAX step's sharded
+batch axis does.
 """
 
 from __future__ import annotations
@@ -30,6 +37,7 @@ import torch
 from torch import nn
 
 from ..models import EnhancedGenerator, PlainGenerator
+from ..parallel import mesh
 from .losses import masked_l1
 
 LR = 2e-4             # pretrain.py:99
@@ -105,7 +113,8 @@ def pretrain_train_step(state: PretrainState, images: torch.Tensor,
     model's BatchNorms run in train mode and update their running
     statistics. The learning rate is set from :func:`learning_rate` at the
     step count before the update. Returns (state, loss), the loss a
-    detached fp32 scalar tensor.
+    detached fp32 scalar tensor. Under data parallelism images and mask are
+    this rank's blocks and the loss is the global mean.
     """
     x = (images * mask).to(compute_dtype).permute(0, 3, 1, 2)
     for group in state.opt.param_groups:
@@ -116,11 +125,15 @@ def pretrain_train_step(state: PretrainState, images: torch.Tensor,
     gen = state.model(x.contiguous(memory_format=torch.channels_last))
     loss = masked_l1(gen.permute(0, 2, 3, 1), images, mask)
     loss.backward()
-    clip_by_global_norm_([p.grad for p in state.model.parameters()
-                          if p.grad is not None])
+    grads = [p.grad for p in state.model.parameters() if p.grad is not None]
+    loss = loss.detach()
+    if mesh.active():
+        loss = loss.clone()
+        mesh.all_reduce_mean_(grads + [loss])
+    clip_by_global_norm_(grads)
     state.opt.step()
     state.step += 1
-    return state, loss.detach()
+    return state, loss
 
 
 def _cpu(obj):

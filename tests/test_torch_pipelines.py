@@ -308,11 +308,16 @@ def test_clis_exit_nonzero_without_cuda(monkeypatch, capsys, cli, argv):
     assert "no CUDA device" in capsys.readouterr().err
 
 
-def test_batch_cli_data_parallel_is_not_ported(capsys):
+def test_batch_cli_data_parallel_is_not_ported(monkeypatch, capsys):
+    """The flag was refused (exit 2) until it was ported: now it parses,
+    and without a CUDA device the run stops at the device check like any
+    other (tests/test_torch_parallel.py holds ``devices=`` against JAX)."""
     from multi_style_transfer_gan_tpu_torch.cli.batch_process_images import main
 
-    assert main(["--data_parallel"]) != 0
-    assert "not ported" in capsys.readouterr().err
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    assert main(["--data_parallel"]) == 1
+    err = capsys.readouterr().err
+    assert "no CUDA device" in err and "not ported" not in err
 
 
 def test_port_never_imports_jax():
