@@ -6,7 +6,8 @@ Drives the port's main paths (``multi_style_transfer_gan_tpu_torch``) on the
 card, serving at the full width of the trained c16 EnhancedGenerator shipped
 in ``trained/`` with both engines (NHWC and packed space-to-depth) and every
 mode of the uint8 program (``cyclegan``, and ``local_style`` with the
-enhanced and advanced post chains), the single-image pipelines, CycleGAN
+enhanced and advanced post chains), the single-image pipelines (also
+with one image's rows sharded over several devices), CycleGAN
 training at the reference configuration, the plain generator and
 masked-inpainting pretraining at the reference's width, the evaluation
 path (metrics, folder comparisons, FID on a full-width InceptionV3), the
@@ -256,6 +257,21 @@ checks every hand-written kernel on the way:
     which must fail; ``batch_process`` over two replicas of the program on
     the card against one device at a replica's batch, and the batch CLI
     with ``--data_parallel``. The ranks' launches count with the path's.
+25. height-sharded inference (``phase_spatial``, after the single-image
+    path; its kernel checks ``phase_spatial_kernels`` beside step 4): the
+    trained c16 generator's rows over ``[the card] * shards`` against its
+    unsharded forward at 1024^2 over 2 and 4 shards, 960^2 over 4, 992^2
+    over 2 and 1008^2 over 3 (windows across shard boundaries, a padded
+    last window), fp32 with deterministic cuDNN, at precision 'highest'
+    (within 1 level) and 'default'; each sharded forward's 4 x shards
+    attention launches and one block launch a window-aligned piece, no
+    plain version run; two planted faults (each shard's own InstanceNorm
+    statistics, zero halos), each of which must fail the check; the seeded
+    plain c64 generator at 1024^2 over 4; the unsharded forward and 2 and
+    4 shards at 2048^2 in turns (ms, peak memory); ``direct_transform
+    --spatial 2`` (exit 1 with "need 2 devices, have 1" on one card);
+    rows 1 and 4 against their plain versions at every shard and piece
+    shape.
 
 Every fp32 pretrain check holds the losses of two steps and the first
 step's gradient norms, and reruns the card's half under each of
@@ -271,7 +287,7 @@ evaluation path's test tree is written there meanwhile; each half is
 compared when it arrives (FID's when its path starts), and every one before
 the report. Every phase
 raises on failure, a CPU half too. The last line is the result JSON; the
-line before it lists each kernel with its launches on the twenty-two paths
+line before it lists each kernel with its launches on the twenty-three paths
 (launch counts are reset just before each path and read just after), its
 largest fp32 deviation from the plain version, its time beside the plain
 version's (the serving and training rows also per generator width,
@@ -5459,6 +5475,308 @@ def dp_released(rng, dev, work, jobs, head_start):
 
 
 # ---------------------------------------------------------------------------
+# height-sharded inference (parallel/spatial.py): one image's rows over a
+# list of devices, here [the card] * shards
+
+SPATIAL_CASES = ((1024, 2), (1024, 4), (960, 4), (992, 2), (1008, 3))
+SPATIAL_FAULT_CASE = (1024, 4)    # the planted faults must fail its check
+SPATIAL_PLAIN_CASE = (1024, 4)    # the seeded plain c64 generator
+SPATIAL_PLAIN_CHANNELS = 64
+SPATIAL_TIMED_SIZE = 2048
+SPATIAL_TIMED_SHARDS = (1, 2, 4)  # 1: the unsharded forward
+SPATIAL_TIMED_ITERS = 3
+
+
+def spatial_shapes(size, shards):
+    """(the four LocalAttention shard shapes, the block's piece shapes) of
+    the trained c16 generator on a size^2 image over ``shards`` row
+    shards: down1 / up1 (1, S/2sp, S/2, 32), down2 (1, S/4sp, S/4, 64), up2
+    (1, S/sp, S, 16); a piece per shard in which an 8-row window of the
+    (S/4)^2 token grid starts (``window_pieces``), at dim 64."""
+    from multi_style_transfer_gan_tpu_torch.parallel.spatial import (
+        window_pieces,
+    )
+
+    s = size // shards
+    attention = [(1, s // 2, size // 2, 32), (1, s // 4, size // 4, 64),
+                 (1, s // 2, size // 2, 32), (1, s, size, 16)]
+    rows = size // 4
+    starts = window_pieces([i * rows // shards for i in range(shards + 1)],
+                           rows)
+    pieces = [(1, hi - lo, size // 4, 64)
+              for lo, hi in zip(starts, starts[1:]) if hi > lo]
+    return attention, pieces
+
+
+def phase_spatial_kernels(rng, dev):
+    """Rows 1 and 4 vs their plain versions at every shape the sharded
+    path gives them (``spatial_shapes`` of SPATIAL_CASES), fp32 with TF32
+    off as the path runs: the random stress input at each shape, every
+    stress input at the (1008, 3) shapes (a padded last window, 252 token
+    columns). Returns the largest |d| of each."""
+    import torch
+
+    from multi_style_transfer_gan_tpu_torch.ops.kernels import (
+        fused_structural_block, structural_block_plain,
+        window_channel_attention, window_channel_attention_plain,
+    )
+
+    worst = {"attention": 0.0, "block": 0.0}
+    t = lambda a: torch.from_numpy(np.asarray(a, np.float32)).to(dev)
+    seen = set()
+    for size, shards in SPATIAL_CASES:
+        attention, pieces = spatial_shapes(size, shards)
+        every = (size, shards) == SPATIAL_CASES[-1]
+        for shape in dict.fromkeys(attention):
+            if shape in seen:
+                continue
+            seen.add(shape)
+            for label, x, ws in attention_stress_inputs(rng, shape)[
+                    :None if every else 1]:
+                args = [t(a) for a in [x] + ws]
+                err = compare(window_channel_attention(*args),
+                              window_channel_attention_plain(*args),
+                              torch.float32)[0]
+                log(f"[spatial kernels] attention {shape} {label}: max|d| "
+                    f"{err:.3e}")
+                if not err <= FP32_TOL:
+                    raise AssertionError(f"window_channel_attention {shape} "
+                                         f"{label}: outside tolerance")
+                worst["attention"] = max(worst["attention"], err)
+        for shape in dict.fromkeys(pieces):
+            if shape in seen:
+                continue
+            seen.add(shape)
+            for label, host, weights in block_stress_inputs(rng, shape)[
+                    :None if every else 1]:
+                args = (t(host[0]), t(host[1]), t(host[2]), t(host[3]))
+                kw = {n: t(a) for n, a in weights.items()}
+                got = fused_structural_block(*args, **kw)
+                err = compare(got, structural_block_plain(*args, **kw),
+                              torch.float32)[0]
+                log(f"[spatial kernels] block {shape} {label}: max|d| "
+                    f"{err:.3e}")
+                if not (err <= BLOCK_FP32_TOL
+                        and bool(torch.isfinite(got).all())):
+                    raise AssertionError(f"fused_structural_block {shape} "
+                                         f"{label}: outside tolerance")
+                worst["block"] = max(worst["block"], err)
+    return worst
+
+
+def spatial_local_stats(xs, eps=1e-5):
+    """Planted fault: each shard's own InstanceNorm statistics."""
+    import torch
+
+    out = []
+    for x in xs:
+        var, mean = torch.var_mean(x.float(), dim=(2, 3), correction=0,
+                                   keepdim=True)
+        out.append((mean, torch.rsqrt(var + eps)))
+    return out
+
+
+def spatial_zero_halos(xs, top, bottom):
+    """Planted fault: zero rows where the neighbours' rows belong."""
+    from multi_style_transfer_gan_tpu_torch.parallel.spatial import take_rows
+
+    return [take_rows([x], -top, x.shape[2] + bottom, x.device) for x in xs]
+
+
+SPATIAL_FAULTS = {"local statistics": ("instance_norm_stats",
+                                       spatial_local_stats),
+                  "zero halos": ("halo_rows", spatial_zero_halos)}
+
+
+def phase_spatial(rng, dev, counts, work):
+    """The height-sharded path on the card, its shards on ``[dev] * sp``
+    (the one-card stand-in for sp cards), with deterministic cuDNN: the
+    trained c16 generator sharded against its unsharded forward at each of
+    SPATIAL_CASES, at precision 'highest' (at most 1 uint8 level on at most
+    1% of values; the float max |d| printed) and 'default' (max |d|
+    printed), with 4 x sp attention launches and one block launch a
+    non-empty piece per sharded forward and no plain version run; the two
+    planted faults, each of which must fail the check at
+    SPATIAL_FAULT_CASE; the seeded plain c64 generator sharded against
+    unsharded; the unsharded forward and 2 and 4 shards at 2048^2 in
+    turns (ms, peak memory); and ``direct_transform --spatial 2``, which on
+    one card exits 1 with "need 2 devices, have 1" and on two or more
+    matches the unsharded CLI within 1 level. Returns the readings."""
+    import contextlib
+
+    import torch
+    from PIL import Image
+
+    from multi_style_transfer_gan_tpu_torch.cli import direct_transform
+    from multi_style_transfer_gan_tpu_torch.models import (
+        enhanced_generator, structural_transformer,
+    )
+    from multi_style_transfer_gan_tpu_torch.parallel import spatial
+    from multi_style_transfer_gan_tpu_torch.pipelines import load_generator
+
+    def u8(y):
+        return torch.clamp(torch.round((y.float() + 1) * 127.5), 0, 255) \
+            .to(torch.uint8).cpu().numpy()
+
+    def image(size):
+        """A photo-like size^2 image in [-1, 1] on the card."""
+        u = np.array(smooth_images(rng, 1, (size, size))[0], np.float32)
+        return torch.from_numpy(u).to(dev)[None] / 127.5 - 1
+
+    def sharded(model, x, shards):
+        return spatial.gather_rows(
+            spatial.spatial_apply(model, devices=[dev] * shards)(x), dev)
+
+    def check(what, got, ref, strict=True):
+        dmax, share = u8_diff(u8(got), u8(ref))
+        dfloat = (got.float() - ref.float()).abs().max().item()
+        ok = bool(torch.isfinite(got).all()) and got.shape == ref.shape
+        within = dmax <= U8_MAX_DIFF and share <= U8_MAX_SHARE
+        log(f"[spatial] {what}: float max|d| {dfloat:.3e}, uint8 max "
+            f"{dmax}, differing share {share:.3e}")
+        if not ok or (strict and not within):
+            raise AssertionError(f"{what}: sharded and unsharded disagree")
+        return dfloat, dmax, share, within
+
+    # the plain versions the kernels stand in for: none may run on the path
+    plain_calls = {"attention": 0, "block": 0}
+    patched = ((enhanced_generator, "window_channel_attention_plain",
+                "attention"),
+               (structural_transformer, "structural_block_plain", "block"))
+    saved = [getattr(mod, name) for mod, name, _ in patched]
+
+    def counted(fn, key):
+        def call(*a, **kw):
+            plain_calls[key] += 1
+            return fn(*a, **kw)
+        return call
+
+    cudnn = torch.backends.cudnn
+    det = cudnn.deterministic
+    cudnn.deterministic = True
+    for mod, name, key in patched:
+        setattr(mod, name, counted(getattr(mod, name), key))
+    try:
+        models = {p: load_generator(TRAINED, precision=p, device=dev)
+                  for p in ("highest", "default")}
+        cases = {}
+        for size, shards in SPATIAL_CASES:
+            x = image(size)
+            _, pieces = spatial_shapes(size, shards)
+            rec = {}
+            for precision, model in models.items():
+                ref = model.apply(x)
+                before = counts()
+                got = sharded(model, x, shards)
+                after = counts()
+                launched = {n: after[n] - before[n] for n in after}
+                want = {"window_channel_attention": 4 * shards,
+                        "fused_structural_block": len(pieces)}
+                if any(launched[n] != want.get(n, 0) for n in launched):
+                    raise AssertionError(f"sharded forward at {size}^2 over "
+                                         f"{shards} launched {launched}, "
+                                         f"expected {want}")
+                rec[precision] = check(
+                    f"c16 {size}^2 over {shards} shards, {precision}", got,
+                    ref, strict=precision == "highest")
+                if (size, shards) == SPATIAL_FAULT_CASE \
+                        and precision == "highest":
+                    for fault, (name, fn) in SPATIAL_FAULTS.items():
+                        keep = getattr(spatial, name)
+                        setattr(spatial, name, fn)
+                        try:
+                            bad = sharded(model, x, shards)
+                        finally:
+                            setattr(spatial, name, keep)
+                        if check(f"planted fault ({fault})", bad, ref,
+                                 strict=False)[3]:
+                            raise AssertionError(f"the check missed the "
+                                                 f"planted fault {fault}")
+            cases[size, shards] = rec
+        if any(plain_calls.values()):
+            raise AssertionError(f"the sharded path ran a plain version: "
+                                 f"{plain_calls}")
+
+        size, shards = SPATIAL_PLAIN_CASE
+        path = os.path.join(work, "spatial_plain.pth")
+        plain_checkpoint(path, SPATIAL_PLAIN_CHANNELS)
+        plain = load_generator(path, precision="highest", device=dev)
+        x = image(size)
+        plain_err = check(f"plain c{SPATIAL_PLAIN_CHANNELS} {size}^2 over "
+                          f"{shards} shards, highest", sharded(plain, x, shards),
+                          plain.apply(x))
+        del plain
+    finally:
+        for (mod, name, _), fn in zip(patched, saved):
+            setattr(mod, name, fn)
+        cudnn.deterministic = det
+
+    # cost on one card: unsharded against 2 and 4 shards, in turns (the
+    # default precision, cuDNN's default algorithms)
+    size = SPATIAL_TIMED_SIZE
+    model = models["default"]
+    x = image(size)
+    runs = {sp: (model.apply if sp == 1 else spatial.spatial_apply(
+        model, devices=[dev] * sp)) for sp in SPATIAL_TIMED_SHARDS}
+    ms = dict(zip(runs, time_turns(
+        *[lambda f=f: f(x) for f in runs.values()],
+        timer=lambda fn: time_ms(fn, iters=SPATIAL_TIMED_ITERS, warmup=1))))
+    peak = {}
+    for sp, f in runs.items():
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        f(x)
+        torch.cuda.synchronize()
+        peak[sp] = (torch.cuda.max_memory_allocated() - base) / 2**30
+    log(f"[spatial] {card_line()}; c16 fp32 (TF32 allowed) {size}^2: "
+        + ", ".join(f"{'unsharded' if sp == 1 else f'{sp} shards'} "
+                    f"{ms[sp]:.2f} ms, peak {peak[sp]:.3f} GiB over the "
+                    f"resident" for sp in runs))
+
+    # the CLI: --spatial 2 needs two cards
+    photo = os.path.join(work, "spatial_photo.png")
+    Image.fromarray(smooth_images(rng, 1, (400, 300))[0]).save(photo)
+    cards = torch.cuda.device_count()
+    outs = {}
+    for n in (2, 0) if cards >= 2 else (2,):
+        out = os.path.join(work, f"spatial_cli_{n}.png")
+        buf, err = io.StringIO(), io.StringIO()
+        saved_dev, direct_transform.DEVICE = direct_transform.DEVICE, dev.type
+        try:
+            with contextlib.redirect_stdout(buf), \
+                    contextlib.redirect_stderr(err):
+                rc = direct_transform.main([
+                    "--image", photo, "--model", TRAINED, "--size", "512",
+                    "--precision", "highest", "--spatial", str(n),
+                    "--output", out])
+        finally:
+            direct_transform.DEVICE = saved_dev
+        log(f"[spatial] direct_transform --spatial {n}: exit {rc}; "
+            + " | ".join((buf.getvalue() + err.getvalue()).splitlines()))
+        outs[n] = (rc, out, err.getvalue())
+    rc, out, err = outs[2]
+    if cards < 2:
+        if rc != 1 or f"need 2 devices, have {cards}" not in err \
+                or os.path.exists(out):
+            raise AssertionError("direct_transform --spatial 2 on one card "
+                                 "did not refuse")
+        cli = f"exit 1 on {cards} card(s)"
+    else:
+        if rc != 0 or outs[0][0] != 0:
+            raise AssertionError("direct_transform --spatial 2 failed")
+        with Image.open(out) as a, Image.open(outs[0][1]) as b:
+            dmax, share = u8_diff(np.asarray(a.convert("RGB")),
+                                  np.asarray(b.convert("RGB")))
+        if dmax > U8_MAX_DIFF or share > U8_MAX_SHARE:
+            raise AssertionError("direct_transform --spatial 2 and unsharded "
+                                 "disagree")
+        cli = f"max {dmax} level(s) from unsharded on {cards} cards"
+    return {"cases": cases, "plain": plain_err, "ms": ms, "peak_gib": peak,
+            "cli": cli}
+
+
+# ---------------------------------------------------------------------------
 # the trained-model study: docs/TRAINED_STUDY.md's recipe through the port's
 # scripts (multi_style_transfer_gan_tpu_torch.scripts)
 
@@ -5683,6 +6001,10 @@ def run_paths(work) -> int:
     photo_err = phase_photo_kernels(rng, dev)
     attn_err = max(attn_err, photo_err["attention"])
     block_err = max(block_err, photo_err["block"])
+    # the height-sharded path's shard and piece shapes, on their own rng
+    spatial_err = phase_spatial_kernels(np.random.default_rng(SEED + 20), dev)
+    attn_err = max(attn_err, spatial_err["attention"])
+    block_err = max(block_err, spatial_err["block"])
     # the width phases draw from their own generator, so that every other
     # phase keeps the inputs it had before them
     width_rng = np.random.default_rng(SEED)
@@ -5884,6 +6206,17 @@ def run_paths(work) -> int:
         raise AssertionError(f"single-image path launches {single}: the "
                              f"NHWC attention or the block never launched")
 
+    K.reset_launch_counts()   # the height-sharded path starts here
+    sharded = phase_spatial(np.random.default_rng(SEED + 21), dev, counts,
+                            work)
+    spatial_path = counts()   # ...and ends here
+    log(f"[spatial path] launches: {spatial_path}")
+    if min(spatial_path[n] for n in ("window_channel_attention",
+                                     "fused_structural_block")) == 0:
+        raise AssertionError(f"spatial path launches {spatial_path}: the "
+                             f"NHWC attention or the block never launched")
+    mark("spatial path")
+
     K.reset_launch_counts()   # the training path starts here
     step_ms = phase_train_step(rng, dev)
     phase_train_cli(rng, dev)
@@ -6040,7 +6373,7 @@ def run_paths(work) -> int:
     settle_cpu_halves()   # every CPU half compared before the report
     launches = {n: serving[n] + widths[n] + c64_serving[n] + grid_serving[n]
                 + any_serving[n] + wide_serving[n] + past_serving[n]
-                + single[n] + training[n]
+                + single[n] + spatial_path[n] + training[n]
                 + width_training[n] + c64_training[n] + grid_training[n]
                 + any_training[n] + wide_training[n] + past_training[n]
                 + pretraining[n]
@@ -6430,6 +6763,17 @@ def run_paths(work) -> int:
         f"{data_parallel['gloo']['pretrain'][0]:.2e} and "
         f"{data_parallel['gloo']['pretrain'][1]:.2e}; --data_parallel two "
         f"replicas vs one device max {data_parallel['levels'][0]} level(s)")
+    log(f"[summary] {card}; height-sharded c16 fp32 on [the card] x shards "
+        f"against unsharded, float max|d| at 'highest' / 'default': "
+        + ", ".join(f"{s}^2 over {n} {r['highest'][0]:.3e} / "
+                    f"{r['default'][0]:.3e}"
+                    for (s, n), r in sharded["cases"].items())
+        + f"; plain c{SPATIAL_PLAIN_CHANNELS} {sharded['plain'][0]:.3e}; at "
+        f"{SPATIAL_TIMED_SIZE}^2 (TF32 allowed) "
+        + ", ".join(f"{'unsharded' if n == 1 else f'{n} shards'} "
+                    f"{sharded['ms'][n]:.2f} ms, peak "
+                    f"{sharded['peak_gib'][n]:.3f} GiB" for n in sharded["ms"])
+        + f"; direct_transform --spatial 2: {sharded['cli']}")
     p_with, p_without, vgg_share = perceptual_ms
     log(f"[summary] {card}; GUI tab wall per image on the card (decode, "
         f"generator, post chain, restore and save; 3 photos after a warm-up): "

@@ -26,11 +26,12 @@ the same path:
 - ``utils``     — the training metrics log.
 - ``parallel``  — data parallelism: one process per GPU under torchrun
                   (NCCL; gloo on the CPU), the gradient all-reduces, and the
-                  batch CLI's local device list (``--data_parallel``).
+                  batch CLI's local device list (``--data_parallel``); and
+                  height-sharded inference of one image over a list of
+                  devices (``spatial``, ``direct_transform --spatial N``).
 - ``gui``       — the desktop GUI: login, the four tabs and their model
                   manager.
-- ``cli``       — every command-line entry point of the JAX package;
-                  height-sharded inference (``--spatial``) is not ported.
+- ``cli``       — every command-line entry point of the JAX package.
 
 Nothing here imports ``jax``. Activations are logical NCHW tensors in
 ``torch.channels_last`` memory, so the kernels read (B, H, W, C) rows

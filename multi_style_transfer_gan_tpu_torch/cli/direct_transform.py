@@ -3,6 +3,10 @@ package's ``cli/direct_transform.py``).
 
   python -m multi_style_transfer_gan_tpu_torch.cli.direct_transform \\
       --image photo.jpg --model models/G_BA_epoch_200.pth --output monet.png
+
+``--spatial N`` splits the image's rows over the first N CUDA cards
+(``parallel.spatial``); the size must be divisible by 16 * N, and a host
+with fewer cards exits 1.
 """
 
 import argparse
@@ -32,15 +36,13 @@ def main(argv=None):
                    help="accepted for script compatibility: on a CUDA "
                         "device the hand-written kernels always run")
     p.add_argument("--spatial", type=int, default=0,
-                   help="not ported yet (height-sharded multi-device "
-                        "forward)")
+                   help="shard the image height over N CUDA cards (for "
+                        "sizes whose activations outgrow one card; size "
+                        "must be divisible by 16*N)")
     args = p.parse_args(argv)
 
     import torch
 
-    if args.spatial > 1:
-        print("error: --spatial is not ported yet", file=sys.stderr)
-        return 2
     if args.precision == "int8":
         print("error: --precision int8 is not ported", file=sys.stderr)
         return 2
@@ -48,6 +50,14 @@ def main(argv=None):
         print("error: no CUDA device; the port runs on the GPU",
               file=sys.stderr)
         return 1
+    if args.spatial > 1 and torch.device(DEVICE).type == "cuda":
+        from ..parallel import spatial_mesh
+
+        try:   # never quietly unsharded on too few cards
+            spatial_mesh(args.spatial)
+        except ValueError as e:
+            print(f"error: --spatial {args.spatial}: {e}", file=sys.stderr)
+            return 1
     from ..pipelines import (
         load_generator, test_different_sizes, transform_image,
         try_skip_connections,
@@ -59,11 +69,16 @@ def main(argv=None):
           f"direction={model.direction})")
     out_dir = os.path.dirname(os.path.abspath(args.output)) or "."
     if args.test_sizes:
-        print(test_different_sizes(model, args.image, out_dir))
+        print(test_different_sizes(model, args.image, out_dir,
+                                   spatial=args.spatial,
+                                   fast_attention=args.fast_attention))
     elif args.test_skip:
-        print(try_skip_connections(model, args.image, out_dir))
+        print(try_skip_connections(model, args.image, out_dir,
+                                   spatial=args.spatial))
     else:
-        transform_image(model, args.image, args.output, size=args.size)
+        transform_image(model, args.image, args.output, size=args.size,
+                        spatial=args.spatial,
+                        fast_attention=args.fast_attention)
         print(f"saved: {args.output}")
     return 0
 

@@ -76,7 +76,16 @@ class StructuralTransformerBlock(nn.Module):
                 orig: torch.Tensor) -> torch.Tensor:
         """tokens: (B, H, W, C) grid; style: (B, C); orig: the network
         input, (B, 3, 4H, 4W) in [-1, 1]. Returns (B, H, W, C), contiguous."""
-        B, H, W, C = tokens.shape
+        struct = self.structure(orig, tokens)
+        gamma, beta = self.film(style)
+        return self.body(tokens, struct, gamma, beta)
+
+    def structure(self, orig: torch.Tensor,
+                  tokens: torch.Tensor) -> torch.Tensor:
+        """The structure tokens, (B, H, W, C) in tokens' type: two 3x3
+        stride-2 convs over the network input (``struct_embed``), then
+        ``struct_proj`` (:230-241)."""
+        H, W = tokens.shape[1:3]
         s = torch.relu(conv(self.struct_embed[0], orig.to(tokens.dtype)))
         s = torch.relu(conv(self.struct_embed[2], s))
         s = s.permute(0, 2, 3, 1)
@@ -84,9 +93,22 @@ class StructuralTransformerBlock(nn.Module):
             # antialiased bilinear, as jax.image.resize (:237-238); an input
             # whose sides divide by 4 never reaches it
             s = resize(s, (H, W), method="bilinear").to(tokens.dtype)
-        struct = linear(self.struct_proj, s)
-        gamma, beta = linear(self.style_mod, style).chunk(2, dim=-1)
-        if self.fast and grad_needed(tokens, style, orig, *self.parameters()):
+        return linear(self.struct_proj, s)
+
+    def film(self, style: torch.Tensor):
+        """(gamma, beta), each (B, C): the style FiLM (``style_mod``,
+        :243-245)."""
+        return linear(self.style_mod, style).chunk(2, dim=-1)
+
+    def body(self, tokens: torch.Tensor, struct: torch.Tensor,
+             gamma: torch.Tensor, beta: torch.Tensor) -> torch.Tensor:
+        """The block body on (B, H, W, C) tokens with their structure tokens
+        and FiLM: the training body where autograd will need a gradient,
+        else the inference kernel (its plain version with ``fast`` off).
+        The height-sharded forward calls it on window-aligned pieces of the
+        token grid (``parallel.spatial``)."""
+        if self.fast and grad_needed(tokens, struct, gamma, beta,
+                                     *self.parameters()):
             return self._train_body(tokens, struct, gamma, beta)
         c = lambda t: t.to(tokens.dtype)
         body = fused_structural_block if self.fast else structural_block_plain

@@ -4,7 +4,10 @@ reference's direct_transform.py).
 Preprocess: a square Lanczos resize to (size, size) and Normalize(0.5); the
 direct pipeline stretches to a square rather than pasting on a canvas
 (direct_transform.py:52-59). Postprocess: (x + 1) / 2, clamp, save
-(:66-75). Everything runs on the model's device.
+(:66-75). Everything runs on the model's device; with ``spatial`` > 1
+the generator runs height-sharded over that many devices of the model's
+device type (``parallel.spatial``), and the output rows meet on the
+model's device.
 """
 
 from __future__ import annotations
@@ -32,11 +35,18 @@ def _save_rgb(arr01, path):
     Image.fromarray(img).save(path)
 
 
-def _check_spatial(spatial: int):
-    if spatial and spatial > 1:
-        raise NotImplementedError(
-            "spatial > 1 (the height-sharded multi-device forward) is not "
-            "ported yet (ROADMAP.md, queue 1)")
+def _apply(model: LoadedModel, spatial: int, fast_attention: bool):
+    """The generator as ``model.apply``; with ``spatial`` > 1 its
+    height-sharded run over that many devices (the local CUDA cards for a
+    model on the card, copies of the CPU for one on the CPU), whose output
+    shards are joined on the model's device. Too few cards raise."""
+    if not (spatial and spatial > 1):
+        return model.apply
+    from ..parallel.spatial import gather_rows, spatial_apply
+
+    sharded = spatial_apply(model, n_devices=spatial, fast_attention=(
+        fast_attention and model.kind == "enhanced"))
+    return lambda x: gather_rows(sharded(x), model.device)
 
 
 def _resized01(model: LoadedModel, image_path, size: int) -> torch.Tensor:
@@ -54,11 +64,13 @@ def transform_image(model: LoadedModel, image_path, output_path=None,
 
     ``size`` must be a multiple of 16. ``fast_attention`` is accepted for
     the JAX signature: on a CUDA device the hand-written kernels always
-    run. ``spatial`` > 1 (height-sharded over several devices) is not
-    ported and raises."""
-    _check_spatial(spatial)
+    run. ``spatial`` > 1 runs the generator height-sharded over that many
+    devices (``parallel.spatial``), the high-resolution mode for sizes
+    whose activations outgrow one card; ``size`` must then be divisible
+    by 16 * spatial."""
+    apply = _apply(model, spatial, fast_attention)
     x = to_model_range(_resized01(model, image_path, size))[None]
-    y = from_model_range(model.apply(x))[0].float().cpu().numpy()
+    y = from_model_range(apply(x))[0].float().cpu().numpy()
     if output_path:
         _save_rgb(y, output_path)
     return y
@@ -73,12 +85,12 @@ def test_different_sizes(model: LoadedModel, image_path, output_dir,
     matplotlib.use("Agg")
     import matplotlib.pyplot as plt
 
-    _check_spatial(spatial)
     os.makedirs(output_dir, exist_ok=True)
     outs = {}
     for s in sizes:
         out_path = os.path.join(output_dir, f"size_{s}.png")
         outs[s] = transform_image(model, image_path, out_path, size=s,
+                                  spatial=spatial,
                                   fast_attention=fast_attention)
 
     fig, axes = plt.subplots(1, len(sizes) + 1,
@@ -108,10 +120,10 @@ def try_skip_connections(model: LoadedModel, image_path, output_dir,
     matplotlib.use("Agg")
     import matplotlib.pyplot as plt
 
-    _check_spatial(spatial)
     os.makedirs(output_dir, exist_ok=True)
+    apply = _apply(model, spatial, fast_attention)
     x01_t = _resized01(model, image_path, size)
-    y01 = from_model_range(model.apply(to_model_range(x01_t)[None]))[0]
+    y01 = from_model_range(apply(to_model_range(x01_t)[None]))[0]
     x01 = x01_t.cpu().numpy()
     y01 = y01.float().cpu().numpy()
 

@@ -114,10 +114,6 @@ def test_try_skip_connections_matches_jax(models, photo, tmp_path):
     _assert_same_files(ref, got)
 
 
-def test_spatial_is_not_ported(models, photo):
-    with pytest.raises(NotImplementedError, match="not ported"):
-        tdirect.transform_image(models[1], photo, size=64, spatial=2)
-
 
 # ---------------------------------------------------------------------------
 # advanced
@@ -283,8 +279,7 @@ def test_direct_transform_cli_matches_jax(on_cpu, photo, tmp_path):
     _assert_levels(_read(tmp_path / "jax.png"), _read(tmp_path / "port.png"))
 
 
-@pytest.mark.parametrize("flags,match", [(["--spatial", "2"], "--spatial"),
-                                         (["--precision", "int8"], "int8")])
+@pytest.mark.parametrize("flags,match", [(["--precision", "int8"], "int8")])
 def test_direct_transform_cli_refuses_what_is_not_ported(capsys, photo, flags,
                                                          match):
     assert direct_transform.main(["--image", photo, "--model", TRAINED]
