@@ -55,7 +55,9 @@ checks every hand-written kernel on the way:
 8. serving path: the uint8 -> uint8 stylize program on the trained weights
    with each engine (fp32 on the card vs the plain path on the CPU, packed
    vs NHWC on the card, launch counts per forward, the enhanced and
-   advanced programs card vs CPU, bf16 img/s of both engines at canvas 256
+   advanced programs card vs CPU, the bf16 program against fp32 at every
+   canvas and at batches 1, 4, 8, 16 and 64 held relative to JAX's own
+   bf16 distance (``bf16_gate``), bf16 img/s of both engines at canvas 256
    and 512, batch 16 and 64, and of the enhanced and advanced programs at
    ``MODE_CELLS``), the batch CLI on 24 JPEGs of mixed sizes with
    ``--engine packed``, ``auto`` and ``nhwc`` and with ``--mode
@@ -63,15 +65,17 @@ checks every hand-written kernel on the way:
    with each engine and one in ``local_style`` ``enhanced``;
 9. single-image path: the ``direct_transform``, ``enhanced_local_style``
    and ``improved_smooth`` CLIs and the five advanced variants, each card
-   vs CPU (``phase_single_image`` says which paths draw figures and are not
-   driven here);
+   vs CPU (the two CLIs that run the generator at 'default', TF32 on the
+   card, under the bf16 gate; ``phase_single_image`` says which paths draw
+   figures and are not driven here);
 10. training path: the bf16 train step at c16, 256^2, batch 8 (launches
     per step, finite losses, moved G, D and u, ms/step), one fp32 step on
     the card vs the CPU, and the train CLI writing, resuming and producing
     a generator that stylizes;
 11. pretraining path: the plain generator at the reference's width (c64)
     from a legacy checkpoint (fp32 forward and uint8 program card vs CPU,
-    bf16 img/s at canvas 256, batch 16 and 64), masked-inpainting
+    the bf16 gate at batches 1-64, bf16 img/s at canvas 256, batch 16 and
+    64), masked-inpainting
     pretraining (the plain bf16 step at c64, 256^2, batch 16 with ms/step
     and the device idle share; two fp32 steps card vs CPU; the enhanced
     bf16 step at c16, 256^2, batch 8 with its launches per step), and the
@@ -268,7 +272,10 @@ checks every hand-written kernel on the way:
     plain version run; two planted faults (each shard's own InstanceNorm
     statistics, zero halos), each of which must fail the check; the seeded
     plain c64 generator at 1024^2 over 4; the unsharded forward and 2 and
-    4 shards at 2048^2 in turns (ms, peak memory); ``direct_transform
+    4 shards at 2048^2 in turns (ms, peak memory), and 2 and 4 shards
+    there at 'default' held to 1.25 x the unsharded image alone against
+    first in a batch of two, which differ only in cuDNN's algorithms
+    (``spatial_tf32``); ``direct_transform
     --spatial 2`` (exit 1 with "need 2 devices, have 1" on one card);
     rows 1 and 4 against their plain versions at every shard and piece
     shape.
@@ -368,9 +375,39 @@ BF16_ATOL, BF16_RTOL = 3e-2, 2 ** -7
 # values by ~1e-5, which flips a rounding on a small share of pixels by one
 # level.
 U8_MAX_DIFF, U8_MAX_SHARE = 1, 0.01
-# bf16 vs fp32 program on the card, mean |d| in uint8 levels (a sanity
-# bound: a broken kernel lands far above it).
-BF16_MEAN_LSB = 4.0
+# The bf16 gate (``bf16_gate``): the bf16 uint8 program on the card against
+# the fp32 one (TF32 off) on the same images, held relative to the JAX
+# package's own bf16 program's distance from its fp32 one: mean |d| and
+# the share of values more than BF16_GATE_LEVELS apart, each at most
+# BF16_GATE_FACTOR times JAX's. bf16 alone moves single pixels of the
+# trained c16 program by up to ~190 levels through its 13 InstanceNorms,
+# so an absolute bound cannot tell a broken kernel from bf16's
+# conditioning. The gate images: ``gate_images``, BF16_GATE_IMAGES of
+# ``smooth_images`` from default_rng(BF16_GATE_SEED) a canvas; a batch past
+# their count runs them tiled. JAX_BF16_DISTANCE holds JAX's figures
+# (mean |d| in levels, share past BF16_GATE_LEVELS), computed on the CPU
+# on those images (JAX's ``make_batch_fn`` with compute_dtype bf16 against
+# None, its NHWC or packed engine) and recomputed by
+# tests/test_torch_bf16_gate.py: "trained", the trained c16 generator;
+# "plain", ``plain_checkpoint``'s seeded c64 generator; "direct" and
+# "local style", JAX's ``transform_image`` and
+# ``enhanced_local_style_transfer`` with the generator applied in bf16 on
+# ``gate_photo`` (the single-image CLIs at their 'default' precision, TF32
+# on the card, are held to the same gate against the CPU's fp32).
+BF16_GATE_SEED = 3
+BF16_GATE_IMAGES = {256: 16, 512: 4}
+BF16_GATE_BATCHES = (1, 4, 8) + RATE_BATCHES
+BF16_GATE_FACTOR = 1.25
+BF16_GATE_LEVELS = 2
+JAX_BF16_DISTANCE = {
+    ("trained", "nhwc", 256): (0.5043, 0.01685),
+    ("trained", "packed", 256): (0.5128, 0.01745),
+    ("trained", "nhwc", 512): (0.4581, 0.01209),
+    ("trained", "packed", 512): (0.4693, 0.01289),
+    ("plain", 256): (0.1230, 0.0),
+    ("direct", 256): (0.4858, 0.01457),
+    ("local style", 256): (2.464, 0.3357),
+}
 # published H100 SXM peaks (NVIDIA's data sheet): device memory rate and the
 # dense bf16 tensor-core rate. A kernel's bound is the larger of its bytes
 # (each input read once, each output written once) over the first and its
@@ -537,9 +574,15 @@ PLANTED_FAULTS = ("row 12 dqkv x2", "LocalAttention dx x2")
 # the pretrain check's gradient norms, card vs CPU (``grad_rel``): each
 # tensor's norm against itself, or against GRAD_NORM_FLOOR of the largest
 # where it is smaller, at GRAD_NORM_RTOL. Card vs CPU they read 2.2e-4 ..
-# 5.9e-2 at c4 .. c256 (the gradients at init pass through zero-safe L2
-# norms of near-zero q and k); each planted fault 0.88 or more
-# (PERF.md)
+# 5.9e-2 at c4 .. c256 (the largest at c28); each planted fault 0.88 or
+# more (PERF.md). The check logs its farthest tensor. At c28 on
+# devtools/fp32_step_spread.py's images (NVIDIA H100 80GB HBM3, 700.00 W)
+# the farthest are down2.3.qkv.bias at 64^2, card vs CPU 3.49e-4 with the
+# CPU's own fp32 7.33e-4 from float64, and down2.4.branch1.0.weight at
+# 128^2, card vs CPU 4.49e-3 with the card 4.99e-3 from float64 and float64
+# under an fp32-sized rounding after every operation up to 3.51e-3
+# (``--noise``): conditioning, the norm of a gradient whose exact sum
+# cancels, not a fault
 GRAD_NORM_FLOOR = 1e-2
 GRAD_NORM_RTOL = 0.2
 # c256's bf16 steps and the CLIs' batch: at TRAIN_BATCH (the train CLI's
@@ -1582,6 +1625,59 @@ def u8_diff(got, ref):
     return int(d.max()), float((d > 0).mean())
 
 
+def gate_images(canvas):
+    """The bf16 gate's images at ``canvas`` (``JAX_BF16_DISTANCE``)."""
+    return np.stack(smooth_images(np.random.default_rng(BF16_GATE_SEED),
+                                  BF16_GATE_IMAGES[canvas], (canvas, canvas)))
+
+
+def gate_photo():
+    """The single-image gate's 400 x 300 photo (``JAX_BF16_DISTANCE``)."""
+    return smooth_images(np.random.default_rng(BF16_GATE_SEED), 1,
+                         (400, 300))[0]
+
+
+def bf16_distance(got, ref):
+    """(mean |d| in uint8 levels, share of values more than
+    BF16_GATE_LEVELS apart) of ``got`` from ``ref``."""
+    d = np.abs(np.asarray(got, np.int32) - np.asarray(ref, np.int32))
+    return float(d.mean()), float((d > BF16_GATE_LEVELS).mean())
+
+
+def bf16_gate(what, got, ref, key):
+    """Holds ``got`` (the bf16 program's uint8 output, or a TF32 run's) to
+    ``ref`` (the fp32 one on the same images) at BF16_GATE_FACTOR times
+    JAX's bf16 distance ``JAX_BF16_DISTANCE[key]``; raises past it."""
+    mean, share = bf16_distance(got, ref)
+    jmean, jshare = JAX_BF16_DISTANCE[key]
+    log(f"    {what}: mean |d| {mean:.4f} levels (limit "
+        f"{BF16_GATE_FACTOR * jmean:.4f}), past {BF16_GATE_LEVELS} levels "
+        f"{share:.4%} (limit {BF16_GATE_FACTOR * jshare:.4%})")
+    if not (mean <= BF16_GATE_FACTOR * jmean
+            and share <= BF16_GATE_FACTOR * jshare):   # NaN fails too
+        raise AssertionError(f"{what}: the bf16 program lies {mean:.4f} "
+                             f"levels (mean), {share:.4%} past "
+                             f"{BF16_GATE_LEVELS} from fp32, past "
+                             f"{BF16_GATE_FACTOR} x JAX's {jmean} / {jshare}")
+
+
+def bf16_batch_sweep(tag, bf16, fp32, canvas, key, dev):
+    """The bf16 gate at every batch of BF16_GATE_BATCHES: the gate images at
+    ``canvas`` (tiled up to the batch where it is past their count) through
+    the bf16 program ``bf16`` in chunks of that batch, against the fp32
+    program ``fp32`` (TF32 off) on them at their own count."""
+    import torch
+
+    x = gate_images(canvas)
+    ref = fp32(x).cpu().numpy()
+    for n in BF16_GATE_BATCHES:
+        reps = max(n, len(x)) // len(x)
+        xs = torch.from_numpy(np.tile(x, (reps, 1, 1, 1))).to(dev)
+        got = torch.cat([bf16(xs[i:i + n]) for i in range(0, len(xs), n)])
+        bf16_gate(f"{tag} bf16 batch {n} vs fp32, canvas {canvas}",
+                  got.cpu().numpy(), np.tile(ref, (reps, 1, 1, 1)), key)
+
+
 def chain_images(rng, n, size):
     """n uint8 (size, size, 3) images for the post chains: photo-like colour
     fields, then a pale overcast sky (it trips the has-sky gate) and seeded
@@ -1669,7 +1765,9 @@ def phase_post_chain(rng, dev):
 def phase_generator(rng, dev, counts):
     """The uint8 program with each engine: fp32 on the card vs the CPU plain
     path and packed vs NHWC on the card (launches per forward checked), the
-    enhanced and advanced post chains in the program card vs CPU, then bf16
+    enhanced and advanced post chains in the program card vs CPU, the bf16
+    program against fp32 at every canvas and every batch of
+    BF16_GATE_BATCHES (``bf16_batch_sweep``: the bf16 gate), then bf16
     img/s of both engines in turns at every canvas and batch, with the two
     post-chain modes beside ``cyclegan`` at ``MODE_CELLS``."""
     import torch
@@ -1729,6 +1827,13 @@ def phase_generator(rng, dev, counts):
             check_levels(f"[generator] {engine} fp32 program, local_style "
                          f"{mode}, card vs CPU", got, ref)
 
+    # the bf16 program at every batch against fp32, relative to JAX's
+    for canvas in CANVASES:
+        for engine in ENGINES:
+            bf16_batch_sweep(f"[generator] {engine}", bf16[engine],
+                             fp32[engine], canvas, ("trained", engine, canvas),
+                             dev)
+
     programs = {("cyclegan", e): bf16[e] for e in ENGINES}
     for mode in POST_MODES:
         for engine in ENGINES:
@@ -1740,15 +1845,6 @@ def phase_generator(rng, dev, counts):
         for n in RATE_BATCHES:
             x = torch.from_numpy(np.stack(smooth_images(
                 rng, n, (canvas, canvas)))).to(dev)
-            if n == GEN_BATCH:
-                for engine in ENGINES:
-                    mean_lsb = (bf16[engine](x).float()
-                                - fp32[engine](x).float()).abs().mean().item()
-                    log(f"[generator] {engine} bf16 vs fp32 at canvas "
-                        f"{canvas}: mean |d| {mean_lsb:.3f} levels")
-                    if mean_lsb > BF16_MEAN_LSB:
-                        raise AssertionError(f"{engine} bf16 program drifts "
-                                             f"{mean_lsb:.2f} levels from fp32")
             modes = ("cyclegan",) + (POST_MODES if (canvas, n) in MODE_CELLS
                                      else ())
             keys = [(m, e) for m in modes for e in ENGINES]
@@ -1947,7 +2043,7 @@ def phase_single_image(rng, dev):
 
     with tempfile.TemporaryDirectory() as tmp:
         photo = os.path.join(tmp, "photo.png")
-        Image.fromarray(smooth_images(rng, 1, (400, 300))[0]).save(photo)
+        Image.fromarray(gate_photo()).save(photo)
         outs = {}
         for where, device in (("card", dev.type), ("cpu", "cpu")):
             d = os.path.join(tmp, where)
@@ -1972,20 +2068,18 @@ def phase_single_image(rng, dev):
             if os.path.exists(os.path.join(d, "comparison.jpg")):
                 raise AssertionError("--no_comparison drew the figure")
         # the CLIs run the generator at load_generator's default precision,
-        # where cuDNN may take TF32 on the card: a sanity bound on the two
-        # that run it (a broken path lands far above), the post chain's
-        # limits on the repair, which runs no generator
+        # where cuDNN may take TF32 on the card: the bf16 gate on the two
+        # that run it (TF32 rounds finer than bf16), the post chain's limits
+        # on the repair, which runs no generator
         got, ref = outs["card"], outs["cpu"]
         for name in got:
             if got[name].shape != ref[name].shape:
                 raise AssertionError(f"{name}: {got[name].shape} vs "
                                      f"{ref[name].shape}")
-        for name in ("direct_transform", "enhanced_local_style"):
-            mean = level_stats(got[name], ref[name])[1]
-            log(f"    {name} CLI {got[name].shape}, TF32 allowed: mean |d| "
-                f"{mean:.4f} levels")
-            if mean > BF16_MEAN_LSB:
-                raise AssertionError(f"{name} CLI drifts {mean:.2f} levels")
+        for name, key in (("direct_transform", ("direct", 256)),
+                          ("enhanced_local_style", ("local style", 256))):
+            bf16_gate(f"{name} CLI {got[name].shape}, TF32 allowed, card vs "
+                      f"CPU", got[name], ref[name], key)
         check_levels(f"improved_smooth CLI {got['improved_smooth'].shape}",
                      got["improved_smooth"], ref["improved_smooth"])
 
@@ -2165,8 +2259,8 @@ def phase_plain_serving(rng, dev):
     """The plain generator at the reference's width (c64) from a legacy
     checkpoint: the fp32 forward on the card against the CPU (TF32 off),
     the uint8 program fp32 card vs CPU under both engine flags, bf16 vs
-    fp32, and its bf16 img/s at canvas 256, batches 16 and 64. Returns
-    {batch: img/s}."""
+    fp32 at every batch of BF16_GATE_BATCHES (the bf16 gate), and its bf16
+    img/s at canvas 256, batches 16 and 64. Returns {batch: img/s}."""
     import torch
 
     from multi_style_transfer_gan_tpu_torch.ops import to_model_range
@@ -2211,16 +2305,10 @@ def phase_plain_serving(rng, dev):
           for t in (m.weight, m.bias, m.running_mean, m.running_var)}
     if bn != {torch.float32}:
         raise AssertionError(f"bf16 program's BatchNorms are {bn}, not fp32")
+    bf16_batch_sweep("[plain]", bf16, fp32, 256, ("plain", 256), dev)
     rates = {}
     for n in RATE_BATCHES:
         xb = torch.from_numpy(np.stack(smooth_images(rng, n, (256, 256)))).to(dev)
-        if n == RATE_BATCHES[0]:
-            mean_lsb = (bf16(xb).float() - fp32(xb).float()).abs().mean().item()
-            log(f"[plain] bf16 vs fp32 program at canvas 256: mean |d| "
-                f"{mean_lsb:.3f} levels")
-            if mean_lsb > BF16_MEAN_LSB:
-                raise AssertionError(f"plain bf16 program drifts "
-                                     f"{mean_lsb:.2f} levels")
         turns = [program_rate(bf16, xb) for _ in range(2)]
         rates[n] = sum(turns) / len(turns)
         log(f"[plain] bf16 program, batch {n} at canvas 256 "
@@ -3917,12 +4005,18 @@ def grad_norms(*modules):
         for m in modules for p in m.parameters()]).tolist()
 
 
+def grad_terms(norms, ref):
+    """Each tensor's change of gradient norm from ``ref`` to ``norms``,
+    relative to its norm in ``ref`` (to GRAD_NORM_FLOOR of the largest norm
+    of ``ref`` where it is smaller)."""
+    floor = GRAD_NORM_FLOOR * max(ref)
+    return [abs(a - b) / max(b, floor) for a, b in zip(norms, ref)]
+
+
 def grad_rel(norms, ref):
     """How far the gradient norms ``norms`` lie from ``ref``: the largest
-    change of a tensor's norm, relative to its norm in ``ref`` (to
-    GRAD_NORM_FLOOR of the largest norm of ``ref`` where it is smaller)."""
-    floor = GRAD_NORM_FLOOR * max(ref)
-    return max(abs(a - b) / max(b, floor) for a, b in zip(norms, ref))
+    of ``grad_terms``."""
+    return max(grad_terms(norms, ref))
 
 
 def cpu_train_losses(channels, host, kw):
@@ -4109,8 +4203,8 @@ def pretrain_losses(channels, host, masks, device="cpu", fault=None):
     """Two fp32 enhanced pretrain steps at ``channels`` from SEED + 1 and a
     warm Adam (``warm_adam``) on ``device``, on the uint8 images ``host``
     and the ``masks`` (numpy), under the planted ``fault`` (or none): the
-    losses and the first step's gradient norms (``grad_norms``; clipped as
-    the step clips them). The CPU half of
+    losses, the first step's gradient norms (``grad_norms``; clipped as
+    the step clips them) and their tensors' names. The CPU half of
     :func:`fp32_pretrain_card_vs_cpu`."""
     import torch
 
@@ -4129,7 +4223,7 @@ def pretrain_losses(channels, host, masks, device="cpu", fault=None):
                 st, to_model_range(torch.from_numpy(x).to(device)),
                 torch.from_numpy(m).to(device))[1]))
             norms = norms or grad_norms(st.model)
-    return out, norms
+    return out, norms, [n for n, _ in st.model.named_parameters()]
 
 
 def fp32_pretrain_card_vs_cpu(rng, dev, channels, gen, tag, size=128):
@@ -4145,18 +4239,20 @@ def fp32_pretrain_card_vs_cpu(rng, dev, channels, gen, tag, size=128):
     host = [np.stack(smooth_images(rng, 2, (size, size))) for _ in range(2)]
     masks = [random_patch_mask(2, size, generator=gen, device="cpu").numpy()
              for _ in range(2)]
-    card, norms = pretrain_losses(channels, host, masks, dev)
+    card, norms, names = pretrain_losses(channels, host, masks, dev)
     faulty = {f: pretrain_losses(channels, host, masks, dev, f)[1]
               for f in PLANTED_FAULTS}
 
     def finish(cpu_out):
-        cpu, cpu_norms = cpu_out
+        cpu, cpu_norms, _ = cpu_out
         rel = max(abs(a - b) / abs(b) for a, b in zip(card, cpu))
-        grel = grad_rel(norms, cpu_norms)
+        terms = grad_terms(norms, cpu_norms)
+        grel = max(terms)
         log(f"{tag} enhanced pretrain fp32 {size}^2 batch 2, two steps card "
             f"vs CPU: {card} vs {cpu}; max relative difference {rel:.2e} "
             f"(limit {PRETRAIN_FP32_RTOL}), first step's gradient norms "
-            f"{grel:.2e} (limit {GRAD_NORM_RTOL})")
+            f"{grel:.2e} (limit {GRAD_NORM_RTOL}), farthest "
+            f"{names[terms.index(grel)]}")
         if not (rel <= PRETRAIN_FP32_RTOL
                 and grel <= GRAD_NORM_RTOL):   # NaN fails too
             raise AssertionError(f"{tag}: fp32 pretrain steps, card and CPU "
@@ -5388,7 +5484,14 @@ def dp_released(rng, dev, work, jobs, head_start):
     model = load_generator(TRAINED, device=dev)
     outs = []
     # one device at a replica's batch: the bf16 program is not the same
-    # function at every batch size on the card (devtools/batch_invariance.py)
+    # function at every batch size on the card. The first site that
+    # depends on the batch is the first InstanceNorm (``core.norm.in_relu``;
+    # packed: ``packed_instance_norm``, then two packed convolutions):
+    # its bf16 reductions split by the whole tensor's shape, and 13
+    # InstanceNorms carry that last-bit change to up to ~100 levels on a
+    # few pixels. That is bf16's conditioning on these weights, not a
+    # fault: the bf16 gate holds at every batch (``bf16_batch_sweep``;
+    # devtools/batch_invariance.py --bisect)
     for where, batch in (({"device": dev}, DP_REPLICA_BATCH),
                          ({"devices": [dev, dev]}, 2 * DP_REPLICA_BATCH)):
         out = os.path.join(work, f"dp_out_{len(outs)}")
@@ -5485,6 +5588,14 @@ SPATIAL_PLAIN_CHANNELS = 64
 SPATIAL_TIMED_SIZE = 2048
 SPATIAL_TIMED_SHARDS = (1, 2, 4)  # 1: the unsharded forward
 SPATIAL_TIMED_ITERS = 3
+# the sharded forward at precision 'default' (TF32) against the unsharded
+# one at SPATIAL_TIMED_SIZE, held to SPATIAL_TF32_FACTOR times the distance
+# between two unsharded 'default' forwards that differ only in cuDNN's
+# algorithms (``spatial_tf32``): TF32 rounds each product to a 10-bit
+# mantissa, and 13 InstanceNorms carry a rounding at other shapes to whole
+# levels on a few pixels. At 2048^2 (NVIDIA H100 80GB HBM3, 700.00 W) 2 and
+# 4 shards read 1.00x the pair's mean |d| and share differing
+SPATIAL_TF32_FACTOR = 1.25
 
 
 def spatial_shapes(size, shards):
@@ -5588,18 +5699,87 @@ SPATIAL_FAULTS = {"local statistics": ("instance_norm_stats",
                   "zero halos": ("halo_rows", spatial_zero_halos)}
 
 
+def spatial_u8(y):
+    """A generator's [-1, 1] output as uint8 levels on the host."""
+    import torch
+
+    return torch.clamp(torch.round((y.float() + 1) * 127.5), 0, 255) \
+        .to(torch.uint8).cpu().numpy()
+
+
+def spatial_distance(got, ref):
+    """(mean |d| in uint8 levels, share past BF16_GATE_LEVELS, max levels,
+    share of values that differ, float max |d|) of the generator output
+    ``got`` from ``ref``."""
+    a, b = spatial_u8(got), spatial_u8(ref)
+    return (*bf16_distance(a, b), *u8_diff(a, b),
+            (got.float() - ref.float()).abs().max().item())
+
+
+def spatial_tf32(model, x, dev, shards):
+    """The sharded forward at precision 'default' (TF32; ``model`` loaded
+    so) against the unsharded one on the image ``x``, at each of ``shards``,
+    held to SPATIAL_TF32_FACTOR times the distance between two unsharded
+    'default' forwards that differ only in cuDNN's algorithms: the image
+    alone and first in a batch of two (``cudnn.benchmark`` on picks the
+    algorithms it runs with off at 2048^2, 0 levels apart). The distance
+    is the mean |d| and the share of values that differ, each alone (the
+    share past a few levels counts too few values at this size to compare
+    two draws); a sharded forward within the fp32 program's limit
+    (U8_MAX_DIFF, U8_MAX_SHARE) passes whatever the pair reads. Also
+    prints each forward's distance from the unsharded one at 'highest'
+    (TF32 off). Raises past the gate; returns {name: distance} with the
+    unsharded pair's under "pair" and each sharded one's under its
+    shard count."""
+    import torch
+
+    from multi_style_transfer_gan_tpu_torch.parallel import spatial
+    from multi_style_transfer_gan_tpu_torch.pipelines import load_generator
+
+    ref = model.apply(x)
+    outs = {"pair": model.apply(torch.cat([x, torch.flip(x, [2])]))[:1]}
+    for n in shards:
+        outs[n] = spatial.gather_rows(
+            spatial.spatial_apply(model, devices=[dev] * n)(x), dev)
+    fp32 = load_generator(TRAINED, precision="highest", device=dev).apply(x)
+    log(f"[spatial] c16 {x.shape[1]}^2 'default' (TF32), unsharded from "
+        f"'highest': {spatial_distance(ref, fp32)}")
+    dist = {}
+    for what, y in outs.items():
+        dist[what] = spatial_distance(y, ref)
+        name = "first in a batch of 2" if what == "pair" else f"{what} shards"
+        log(f"[spatial] c16 {x.shape[1]}^2 'default' (TF32), {name}, from "
+            f"unsharded (mean |d| levels, share past {BF16_GATE_LEVELS}, max "
+            f"levels, share differing, float max|d|): {dist[what]}; from "
+            f"unsharded 'highest': {spatial_distance(y, fp32)}")
+    limit = [SPATIAL_TF32_FACTOR * dist["pair"][i] for i in (0, 3)]
+    for n in shards:
+        d = dist[n]
+        if not ((d[0] <= limit[0] and d[3] <= limit[1])   # NaN fails too
+                or (d[2] <= U8_MAX_DIFF and d[3] <= U8_MAX_SHARE)):
+            raise AssertionError(
+                f"{n} shards at 'default' lie {d[0]:.4f} levels (mean), "
+                f"{d[3]:.4%} of values differing from unsharded, past "
+                f"{SPATIAL_TF32_FACTOR} x the unsharded pair's ({limit})")
+    return dist
+
+
 def phase_spatial(rng, dev, counts, work):
     """The height-sharded path on the card, its shards on ``[dev] * sp``
     (the one-card stand-in for sp cards), with deterministic cuDNN: the
     trained c16 generator sharded against its unsharded forward at each of
     SPATIAL_CASES, at precision 'highest' (at most 1 uint8 level on at most
     1% of values; the float max |d| printed) and 'default' (max |d|
-    printed), with 4 x sp attention launches and one block launch a
+    printed; ``spatial_tf32`` holds it at SPATIAL_TIMED_SIZE), with 4 x sp
+    attention launches and one block launch a
     non-empty piece per sharded forward and no plain version run; the two
     planted faults, each of which must fail the check at
     SPATIAL_FAULT_CASE; the seeded plain c64 generator sharded against
     unsharded; the unsharded forward and 2 and 4 shards at 2048^2 in
-    turns (ms, peak memory); and ``direct_transform --spatial 2``, which on
+    turns (ms, peak memory); 2 and 4 shards at 'default' there against
+    the unsharded forward, held to SPATIAL_TF32_FACTOR times the image
+    alone against first in a batch of two (``spatial_tf32``); and
+    ``direct_transform --spatial 2``, which on
     one card exits 1 with "need 2 devices, have 1" and on two or more
     matches the unsharded CLI within 1 level. Returns the readings."""
     import contextlib
@@ -5614,9 +5794,7 @@ def phase_spatial(rng, dev, counts, work):
     from multi_style_transfer_gan_tpu_torch.parallel import spatial
     from multi_style_transfer_gan_tpu_torch.pipelines import load_generator
 
-    def u8(y):
-        return torch.clamp(torch.round((y.float() + 1) * 127.5), 0, 255) \
-            .to(torch.uint8).cpu().numpy()
+    u8 = spatial_u8
 
     def image(size):
         """A photo-like size^2 image in [-1, 1] on the card."""
@@ -5733,6 +5911,7 @@ def phase_spatial(rng, dev, counts, work):
         + ", ".join(f"{'unsharded' if sp == 1 else f'{sp} shards'} "
                     f"{ms[sp]:.2f} ms, peak {peak[sp]:.3f} GiB over the "
                     f"resident" for sp in runs))
+    tf32 = spatial_tf32(model, x, dev, SPATIAL_TIMED_SHARDS[1:])
 
     # the CLI: --spatial 2 needs two cards
     photo = os.path.join(work, "spatial_photo.png")
@@ -5773,7 +5952,7 @@ def phase_spatial(rng, dev, counts, work):
                                  "disagree")
         cli = f"max {dmax} level(s) from unsharded on {cards} cards"
     return {"cases": cases, "plain": plain_err, "ms": ms, "peak_gib": peak,
-            "cli": cli}
+            "tf32": tf32, "cli": cli}
 
 
 # ---------------------------------------------------------------------------
@@ -6773,6 +6952,10 @@ def run_paths(work) -> int:
         + ", ".join(f"{'unsharded' if n == 1 else f'{n} shards'} "
                     f"{sharded['ms'][n]:.2f} ms, peak "
                     f"{sharded['peak_gib'][n]:.3f} GiB" for n in sharded["ms"])
+        + "; at 'default' mean |d| / share differing from unsharded: "
+        + ", ".join(f"{'in a batch of 2' if k == 'pair' else f'{k} shards'} "
+                    f"{d[0]:.4f} / {d[3]:.4%}"
+                    for k, d in sharded["tf32"].items())
         + f"; direct_transform --spatial 2: {sharded['cli']}")
     p_with, p_without, vgg_share = perceptual_ms
     log(f"[summary] {card}; GUI tab wall per image on the card (decode, "

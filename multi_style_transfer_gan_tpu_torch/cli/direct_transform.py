@@ -30,15 +30,23 @@ def main(argv=None):
     p.add_argument("--precision",
                    choices=["default", "high", "highest", "int8"],
                    default="default",
-                   help="'highest' turns TF32 off in the generator; 'int8' "
-                        "is not ported")
+                   help="'default' lets cuDNN round the generator's "
+                        "products to TF32, whose rounding 13 InstanceNorms "
+                        "carry to several levels on a few pixels, as far "
+                        "as any change of cuDNN's algorithms moves them "
+                        "(another batch, --spatial); 'highest' turns TF32 "
+                        "off in the generator; 'int8' is not ported")
     p.add_argument("--fast_attention", action="store_true",
                    help="accepted for script compatibility: on a CUDA "
                         "device the hand-written kernels always run")
     p.add_argument("--spatial", type=int, default=0,
                    help="shard the image height over N CUDA cards (for "
                         "sizes whose activations outgrow one card; size "
-                        "must be divisible by 16*N)")
+                        "must be divisible by 16*N). At --precision "
+                        "'default' the sharded output lies as far from the "
+                        "unsharded one as TF32 moves the unsharded output "
+                        "between cuDNN's algorithms; 'highest' keeps it "
+                        "within 1 level")
     args = p.parse_args(argv)
 
     import torch

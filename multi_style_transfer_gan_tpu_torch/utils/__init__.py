@@ -1,5 +1,5 @@
 """Runtime helpers the CLIs need."""
 
-from .runtime import MetricsLogger
+from .runtime import MetricsLogger, throughput_meter
 
-__all__ = ["MetricsLogger"]
+__all__ = ["MetricsLogger", "throughput_meter"]
