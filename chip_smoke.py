@@ -21,7 +21,7 @@ ones (the widths that are not multiples of 8), the c68 .. c128 ones (the
 widths past 64), the c132, c192 and c256 ones (the widths past 128), and
 checks every hand-written kernel on the way:
 
-1. build: all eight CUDA sources compile from ``csrc/`` at once, one nvcc
+1. build: all nine CUDA sources compile from ``csrc/`` at once, one nvcc
    each;
 2. window channel attention, kernel vs plain PyTorch at every shape the
    generator gives it at canvas 256 and 512 (fp32 with TF32 off, and bf16),
@@ -278,7 +278,26 @@ checks every hand-written kernel on the way:
     (``spatial_tf32``); ``direct_transform
     --spatial 2`` (exit 1 with "need 2 devices, have 1" on one card);
     rows 1 and 4 against their plain versions at every shard and piece
-    shape.
+    shape;
+26. the int8 engine (``phase_int8``, after the serving path; its kernel
+    checks ``phase_int8_kernels`` beside step 4): the int8 convolution
+    against its float64 plain version, max |d| = 0 on the int32 sums and
+    on the bf16 epilogue, at every site of a c16 forward at canvas 256 and
+    512 (batch 8) and on +-127 stress inputs at every c16 site and at
+    c64's down2 (K = 2048, sums past 2^24), each c16 site timed at canvas
+    256 beside the bf16 cuDNN convolution and ``_int_mm`` on the im2col
+    shape; the trained c16's ``engine='int8'`` program calibrated on the
+    gate images' first 8 (26 int8, 4 attention and 1 block launches a
+    forward) held to the fp32 program at 1.25x JAX's own int8 mean |d|
+    (``int8_gate``, ``JAX_INT8_DISTANCE``) and step by step to the same
+    module's forward on the CPU (``int8_forced``: each step fed the CPU's
+    input, the convolutions and every step's input bit-equal), four
+    planted wiring faults (``INT8_FAULTS``) each failing the step-by-step
+    check and the branch swap the gate, its SSIM / PSNR against bf16
+    and fp32, img/s of int8 and bf16 NHWC in turns at INT8_RATE_CELLS;
+    the batch CLI with ``--engine int8``, ``direct_transform --precision
+    int8`` and the server with the int8 engine; the packed engine against
+    the NHWC one at 48 x 80 (an odd packed token grid), fp32.
 
 Every fp32 pretrain check holds the losses of two steps and the first
 step's gradient norms, and reruns the card's half under each of
@@ -294,7 +313,7 @@ evaluation path's test tree is written there meanwhile; each half is
 compared when it arrives (FID's when its path starts), and every one before
 the report. Every phase
 raises on failure, a CPU half too. The last line is the result JSON; the
-line before it lists each kernel with its launches on the twenty-three paths
+line before it lists each kernel with its launches on the twenty-four paths
 (launch counts are reset just before each path and read just after), its
 largest fp32 deviation from the plain version, its time beside the plain
 version's (the serving and training rows also per generator width,
@@ -408,6 +427,39 @@ JAX_BF16_DISTANCE = {
     ("direct", 256): (0.4858, 0.01457),
     ("local style", 256): (2.464, 0.3357),
 }
+# The int8 engine (phase_int8_kernels, phase_int8). Its convolution is held
+# to its float64 plain version exactly at every c16 site of a forward at
+# each canvas of CANVASES (batch BATCH), and on +-127 stress inputs at every
+# c16 site and at INT8_STRESS_SITE of the c{INT8_STRESS_CHANNELS} generator
+# (K = 2048: sums up to 3.3e7, past 2^24, where the int32 -> bf16 cast
+# rounds twice). The program on the trained c16 is held to the fp32 one
+# (TF32 off) on gate_images(256), calibrated on their first
+# INT8_CALIB_IMAGES, at BF16_GATE_FACTOR times JAX_INT8_DISTANCE: JAX's own
+# int8 program's distance on the same images and calibration batch (mean
+# |d| in levels, share past BF16_GATE_LEVELS), computed on the CPU and
+# recomputed by tests/test_torch_int8.py. img/s of int8 against bf16 NHWC
+# at INT8_RATE_CELLS (canvas, batch). PACKED_ODD_SIZE: (H, W) of the packed
+# engine's check at sides that are multiples of 16 and not of 32.
+INT8_STRESS_CHANNELS = 64
+INT8_STRESS_SITE = "down2.0"
+INT8_CALIB_IMAGES = 8
+INT8_RATE_CELLS = ((256, 64), (512, 16))
+JAX_INT8_DISTANCE = (30.03, 0.9382)
+INT8_LAUNCHES_PER_FORWARD = 26
+INT8_OPS_PER_S = 1979e12   # dense int8 tensor-core rate, H100 SXM
+# The int8 program step by step (int8_trace, int8_forced): each step fed
+# the reference's input, its output held to the reference's. An
+# InstanceNorm's fp32 sums of int32-sized values differ between two
+# summation orders in the last place, which moves a few of its values by
+# one bf16 step.
+INT8_IN_NEQ_SHARE = 1e-3
+# planted wiring faults (int8_fault): each fails int8_forced. On the gate
+# images at 256^2 only 'branches' moves the program past the int8 gate
+# (phase_int8 logs each fault's reading); at 64^2 (tests/test_torch_int8.py)
+# the first three do.
+INT8_FAULTS = ("residual", "branches", "convT phases", "welford")
+INT8_FORCED_IMAGES = 2   # phase_int8's step-by-step check, gate images
+PACKED_ODD_SIZE = (48, 80)
 # published H100 SXM peaks (NVIDIA's data sheet): device memory rate and the
 # dense bf16 tensor-core rate. A kernel's bound is the larger of its bytes
 # (each input read once, each output written once) over the first and its
@@ -1987,6 +2039,673 @@ def phase_server(rng, dev, engine, local_style_mode=None, model_path=TRAINED):
         server.server_close()
         service.close()
         thread.join(10)
+
+
+# ---------------------------------------------------------------------------
+# the int8 engine
+# ---------------------------------------------------------------------------
+
+def int8_sites(channels, canvas, batch=BATCH):
+    """[(site, Int8ConvSpec, input shape (B, H, W, Cin), epilogue mode)] of
+    every quantized convolution of one forward of the width-``channels``
+    EnhancedGenerator at ``canvas``, in forward order (the int8 engine's 26
+    launches at any width)."""
+    from multi_style_transfer_gan_tpu_torch.models import EnhancedGenerator
+    from multi_style_transfer_gan_tpu_torch.models.enhanced_generator import (
+        _MSB_BRANCHES,
+    )
+    from multi_style_transfer_gan_tpu_torch.models.quantized_generator import (
+        _needs_dequant, _site_of, _spec_of,
+    )
+
+    gen = EnhancedGenerator(channels, 1)
+    # the input side of each site: canvas over this
+    first = {"initial.0": 1, "down1.0": 1, "down2.0": 2, "up1.0": 4,
+             "up2.0": 2, "output.0": 1}
+    msb = {"down1": 2, "down2": 4, "up1": 2, "up2": 1}
+    sites = ["initial.0"]
+    for stage in msb:
+        sites += [f"{stage}.0"] + [f"{stage}.4.{name}.0" for name, *_ in
+                                   _MSB_BRANCHES] + [f"{stage}.4.fusion.0"]
+    sites.append("output.0")
+    assert sorted(sites) == sorted(filter(None, map(_site_of, gen.state_dict())))
+    out = []
+    for site in sites:
+        spec = _spec_of(gen.get_submodule(site))
+        side = canvas // (first[site] if site in first
+                          else msb[site.split(".")[0]])
+        out.append((site, spec, (batch, side, side, spec.cin),
+                    "dequant" if _needs_dequant(site) else "bf16"))
+    return out
+
+
+def int8_inputs(rng, spec, shape, dev, stress=False):
+    """x (bf16), s_in, the kernel-layout weight, s_w and bias (fp32) of one
+    site on the card. Random: x ~ N(0, 1), scales that clip its tails, int8
+    weights across the range. ``stress``: every value at +-127 after
+    quantization (s_in = 2^-7, x = +-127 s_in: all positive in the first
+    half of the batch, all negative in the second) and every weight at
+    +127, so that the sums reach K * 127^2 (past 2^24 at K = 2048)."""
+    import torch
+
+    from multi_style_transfer_gan_tpu_torch.ops.kernels.int8_conv import (
+        pack_weight,
+    )
+
+    B = shape[0]
+    wshape = ((spec.cin, spec.cout, 4, 4) if spec.transposed
+              else (spec.cout, spec.cin, spec.kernel, spec.kernel))
+    if stress:
+        s_in = np.full(spec.cin, 2.0 ** -7, np.float32)
+        x = np.full(shape, 127 * 2.0 ** -7, np.float32)
+        x[B // 2:] *= -1
+        wq = np.full(wshape, 127, np.int8)
+    else:
+        s_in = rng.uniform(0.008, 0.03, spec.cin).astype(np.float32)
+        x = rng.standard_normal(shape).astype(np.float32)
+        wq = rng.integers(-127, 128, wshape).astype(np.int8)
+    s_w = rng.uniform(1e-6, 1e-4, spec.cout).astype(np.float32)
+    bias = rng.standard_normal(spec.cout).astype(np.float32)
+    t = lambda a: torch.from_numpy(a).to(dev)
+    return (t(x).to(torch.bfloat16), t(s_in),
+            pack_weight(torch.from_numpy(wq), spec).to(dev), t(s_w), t(bias))
+
+
+def int8_work(spec, shape, mode):
+    """(bytes, int8 ops) of one site: the bf16 input read once, the int8
+    weight and the fp32 scales read once, the output (bf16, or int32) written
+    once; 2 M N K operations (the transposed conv's four phases of 2x2
+    taps)."""
+    B, H, W, _ = shape
+    Ho, Wo = spec.out_hw(H, W)
+    phases = 4 if spec.transposed else 1
+    out_bytes = 4 if mode == "int32" else BF16_BYTES
+    moved = (BF16_BYTES * B * H * W * spec.cin + phases * spec.cout * spec.k
+             + 4 * (spec.cin + 2 * spec.cout) + out_bytes * B * Ho * Wo
+             * spec.cout)
+    return moved, 2 * B * Ho * Wo * spec.cout * spec.k
+
+
+def int8_bound(moved, ops):
+    """(bound_ms, bound_by) against the int8 tensor-core rate."""
+    t_bytes, t_ops = moved / HBM_BYTES_PER_S, ops / INT8_OPS_PER_S
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
+                                       else "operations")
+
+
+def int8_library_calls(x, w, spec, dev):
+    """The yardsticks of one site, timed and never called by the port: the
+    bf16 cuDNN convolution at the same shape (NCHW in channels_last memory),
+    and ``torch._int_mm`` of a random int8 matrix of the im2col shape (M,
+    Kpad) by the (Kpad, Npad) weight (the im2col itself not counted)."""
+    import torch
+    import torch.nn.functional as F
+
+    B, H, W, C = x.shape
+    xc = x.permute(0, 3, 1, 2)
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    if spec.transposed:
+        wb = torch.randn(spec.cin, spec.cout, 4, 4, generator=gen,
+                         device=dev).to(torch.bfloat16)
+        conv_call = lambda: F.conv_transpose2d(xc, wb, stride=2, padding=1)
+    else:
+        wb = torch.randn(spec.cout, spec.cin, spec.kernel, spec.kernel,
+                         generator=gen, device=dev).to(torch.bfloat16)
+        wb = wb.contiguous(memory_format=torch.channels_last)
+        conv_call = lambda: F.conv2d(xc, wb, stride=spec.stride,
+                                     padding=spec.padding,
+                                     dilation=spec.dilation)
+    Ho, Wo = spec.out_hw(H, W)
+    M = B * Ho * Wo
+    a = torch.randint(-127, 128, (M, w.shape[2]), generator=gen, device=dev,
+                      dtype=torch.int8)
+    wt = w.reshape(-1, w.shape[2])   # every phase's rows: N = phases * Npad
+    int_mm_call = lambda: torch._int_mm(a, wt.t())
+    return conv_call, int_mm_call
+
+
+def phase_int8_kernels(rng, dev):
+    """The int8 convolution against its float64 plain version on the card,
+    exactly (max |d| = 0 on the int32 sums and on the site's own bf16
+    epilogue): at every c16 site's shape at canvas 256 and 512 (batch 8) on
+    random inputs, and on the +-127 stress inputs at every c16 site at
+    canvas 256 and at c64's down2 (K = 2048, sums past 2^24). Times each
+    c16 site at canvas 256 in turns with its yardsticks (cuDNN bf16,
+    ``_int_mm``); the plain version after them. Returns the report's
+    numbers."""
+    import torch
+
+    from multi_style_transfer_gan_tpu_torch.ops.kernels import (
+        int8_conv, int8_conv_plain,
+    )
+
+    err = 0
+    cases = [(16, canvas, False) for canvas in CANVASES]
+    cases += [(16, CANVASES[0], True), (INT8_STRESS_CHANNELS, CANVASES[0], True)]
+    timed = {}
+    for channels, canvas, stress in cases:
+        seen = set()
+        for site, spec, shape, mode in int8_sites(channels, canvas):
+            if stress and channels != 16 and site != INT8_STRESS_SITE:
+                continue
+            if (spec, shape) in seen:
+                continue
+            seen.add((spec, shape))
+            x, s_in, w, s_w, bias = int8_inputs(rng, spec, shape, dev, stress)
+            kw = dict(s_w=s_w, bias=bias) if mode == "dequant" else {}
+            peak = 0
+            for m in ("int32", mode):
+                got = int8_conv(x, s_in, w, spec, m, **kw)
+                ref = int8_conv_plain(x, s_in, w, spec, m, **kw)
+                torch.cuda.synchronize()
+                if m == "int32":
+                    peak = int(ref.abs().max().item())
+                d = (got.double() - ref.double()).abs().max().item()
+                err = max(err, d)
+                if not d == 0:   # NaN fails too
+                    raise AssertionError(
+                        f"int8_conv c{channels} {site} {shape} mode {m}"
+                        f"{' stress' if stress else ''}: kernel vs plain "
+                        f"max |d| {d}")
+            log(f"[int8 kernel] c{channels} canvas {canvas} {site} {shape} -> "
+                f"{spec.cout} ({'stress' if stress else 'random'}): int32 and "
+                f"{mode} bit-equal to the plain version, largest |sum| "
+                f"{peak}{' (past 2^24)' if peak > 2 ** 24 else ''}")
+            if (channels == INT8_STRESS_CHANNELS and site == INT8_STRESS_SITE
+                    and peak <= 2 ** 24):
+                raise AssertionError(f"the stress input at {site} kept its "
+                                     f"sums at {peak}, not past 2^24")
+            if channels == 16 and canvas == CANVASES[0] and not stress:
+                kernel = lambda: int8_conv(x, s_in, w, spec, mode, **kw)
+                conv_call, int_mm_call = int8_library_calls(x, w, spec, dev)
+                k_ms, c_ms, i_ms = time_turns(kernel, conv_call, int_mm_call)
+                p_ms = time_ms(lambda: int8_conv_plain(x, s_in, w, spec, mode,
+                                                       **kw), iters=2,
+                               warmup=1)
+                timed[(spec, shape, mode)] = (k_ms, p_ms, c_ms, i_ms)
+    rows = {}
+    for site, spec, shape, mode in int8_sites(16, CANVASES[0]):
+        k_ms, p_ms, c_ms, i_ms = timed[(spec, shape, mode)]
+        b_ms, b_by = int8_bound(*int8_work(spec, shape, mode))
+        rows[site] = dict(shape=list(shape), cout=spec.cout, ms=k_ms,
+                          plain_ms=p_ms, cudnn_bf16_ms=c_ms, int_mm_ms=i_ms,
+                          bound_ms=b_ms, bound_by=b_by)
+        log(f"[int8 kernel] c16 canvas {CANVASES[0]} batch {BATCH} {site} "
+            f"{tuple(shape)} -> {spec.cout}: kernel {k_ms:.4f} ms, plain "
+            f"{p_ms:.3f} ms, cuDNN bf16 {c_ms:.4f} ms, _int_mm (im2col "
+            f"excluded) {i_ms:.4f} ms, bound {b_ms:.6f} ms by {b_by} "
+            f"({b_ms / k_ms:.1%} of the kernel's time)")
+    return err, rows
+
+
+def int8_gate(what, got, ref):
+    """Holds the int8 program's uint8 output ``got`` to the fp32 program's
+    ``ref`` (TF32 off) on the gate images at BF16_GATE_FACTOR times JAX's
+    own int8 mean |d|, ``JAX_INT8_DISTANCE[0]``; raises past it. The share
+    past BF16_GATE_LEVELS is logged and not held: JAX's own reads 93.82%,
+    so 1.25 times it cannot bind. The gate sees gross faults only
+    (branches in each other's channels; see INT8_FAULTS): ``int8_forced``
+    holds the program step by step."""
+    mean, share = bf16_distance(got, ref)
+    jmean, jshare = JAX_INT8_DISTANCE
+    log(f"    {what}: mean |d| {mean:.4f} levels (limit "
+        f"{BF16_GATE_FACTOR * jmean:.4f}), past {BF16_GATE_LEVELS} levels "
+        f"{share:.4%} (JAX's {jshare:.4%}, not held)")
+    if not mean <= BF16_GATE_FACTOR * jmean:   # NaN fails too
+        raise AssertionError(f"{what}: the int8 program lies {mean:.4f} "
+                             f"levels (mean) from fp32, past "
+                             f"{BF16_GATE_FACTOR} x JAX's {jmean}")
+    return mean, share
+
+
+def int8_in_probe():
+    """A near-flat (2, 16, 16, 24) bf16 NHWC input of the InstanceNorm, as
+    the int8 engine's absorbed sites hand it: sums of ~1e6 within one binade
+    (every sum and square sum exact in fp32, whatever the order), the first
+    8 channels flat but for a few values one bf16 step off, where one-pass
+    statistics cancel to (or below) 0 and are clamped and Welford's do
+    not."""
+    import torch
+
+    rng = np.random.default_rng(7)
+    base = rng.uniform(2 ** 20, 2 ** 20 * 1.5, (2, 1, 1, 24))
+    steps = rng.integers(-40, 40, (2, 16, 16, 24))
+    steps[..., :8] = 0
+    steps[..., :8][rng.random((2, 16, 16, 8)) < 0.02] = 1
+    return torch.from_numpy(base + steps * 2.0 ** 13).to(torch.bfloat16)
+
+
+@contextlib.contextmanager
+def int8_hooks(wrap):
+    """Within the block, QuantizedEnhancedGenerator's forward hands its
+    steps (``_forward``'s conv_fn, attention, style linear, blocks, input
+    and in_act) through ``wrap``, which returns their replacements."""
+    from multi_style_transfer_gan_tpu_torch.models import (
+        quantized_generator as tq,
+    )
+
+    forward = tq._forward
+    tq._forward = lambda *steps: forward(*wrap(*steps))
+    try:
+        yield
+    finally:
+        tq._forward = forward
+
+
+def int8_trace(q, x):
+    """Each step of one int8 forward of ``q`` on ``x`` ((B, 3, H, W) bf16),
+    on the CPU: {'conv': {site: (input, output)}, 'in': [(input, output)],
+    'attention': [(input, output)], 'block': [(input, style, output)],
+    'probe': the InstanceNorm of int8_in_probe(), 'out': the output}, NHWC
+    (the form ``int8_forced`` takes; tests/test_torch_int8.py builds one
+    from the JAX package's forward)."""
+    trace = {"conv": {}, "in": [], "attention": [], "block": []}
+    cpu = lambda t: t.detach().to("cpu", copy=True)
+
+    def wrap(conv_fn, attention, style_linear, blocks, xin, in_act):
+        def conv_step(site, h, out, off):
+            y = conv_fn(site, h, out, off)
+            cout = q.site(site).spec.cout
+            trace["conv"][site] = (cpu(h), cpu(y[..., off:off + cout]))
+            return y
+
+        def in_step(h):
+            if "probe" not in trace:
+                trace["probe"] = cpu(in_act(int8_in_probe().to(h.device)))
+            y = in_act(h)
+            trace["in"].append((cpu(h), cpu(y)))
+            return y
+
+        def attention_step(module):
+            def step(h):
+                y = module(h)
+                trace["attention"].append((cpu(h.permute(0, 2, 3, 1)),
+                                           cpu(y.permute(0, 2, 3, 1))))
+                return y
+            return step
+
+        def block_step(block):
+            def step(h, style, orig):
+                y = block(h, style, orig)
+                trace["block"].append((cpu(h), cpu(style), cpu(y)))
+                return y
+            return step
+
+        return (conv_step, {k: attention_step(m) for k, m in
+                            attention.items()}, style_linear,
+                [block_step(b) for b in blocks], xin, in_step)
+
+    with int8_hooks(wrap):
+        y = q(x)
+    trace["out"] = cpu(y.permute(0, 2, 3, 1))
+    return trace
+
+
+def _bf16_steps(got, ref):
+    """|got - ref| in units of one bf16 step at ref's magnitude."""
+    import torch
+
+    got, ref = got.float().cpu(), ref.float().cpu()
+    step = torch.exp2(torch.floor(torch.log2(ref.abs().clamp_min(1e-30)))
+                      - 7)
+    return (got - ref).abs() / step
+
+
+def int8_forced(q, x, trace):
+    """One int8 forward of ``q`` on ``x`` with each step's input replaced by
+    ``trace``'s (teacher forcing; see ``int8_trace``), each step's output
+    held to the trace's: every step's own input bit-equal to the trace's
+    (the wiring between steps: the branches' channel slices, the
+    residuals), the convolutions bit-equal, each InstanceNorm within one
+    bf16 step and at most INT8_IN_NEQ_SHARE of its values not bit-equal,
+    and on int8_in_probe() within one bf16 step, the attention, the style
+    vector and the block (bf16 computations on the int8 program's large
+    activations, where bf16's own error passes BF16_ATOL) within twice the
+    reference's own distance from the same step in fp32 on the CPU, or
+    BF16_ATOL if that is larger, past BF16_RTOL |ref|, the output within
+    one bf16 step.
+    Raises at the first step that disagrees; returns the worst reading of
+    each kind (the bf16 steps' as a share of their limit)."""
+    import copy
+
+    import torch
+
+    worst = {"in_steps": 0.0, "in_neq": 0.0, "probe_steps": 0.0,
+             "attention": 0.0, "style": 0.0, "block": 0.0, "out_steps": 0.0}
+    n_in = iter(range(len(trace["in"])))
+    n_att = iter(range(len(trace["attention"])))
+    n_block = iter(range(len(trace["block"])))
+
+    def same(what, got, ref):
+        if got.shape != ref.shape or not torch.equal(
+                got.to(torch.bfloat16).cpu(), ref.to(torch.bfloat16)):
+            raise AssertionError(f"int8 forced: {what} differs from the "
+                                 f"reference's")
+
+    def past_rtol(got, ref):
+        d = (got.float().cpu() - ref.float()).abs()
+        return (d - BF16_RTOL * ref.float().abs()).max().item()
+
+    def close(what, got, ref, ref32):
+        """``got`` against ``ref``, the reference's bf16 output, whose
+        distance from ``ref32`` (the step in fp32) sets the limit."""
+        limit = max(BF16_ATOL, 2 * past_rtol(ref, ref32))
+        excess = past_rtol(got, ref)
+        if got.shape != ref.shape or not excess <= limit:
+            raise AssertionError(f"int8 forced: {what} off by {excess} past "
+                                 f"{BF16_RTOL} |ref| (limit {limit})")
+        return excess / limit
+
+    def fp32(module):
+        return copy.deepcopy(module).float().cpu()
+
+    def steps_within(what, got, ref, key):
+        s = _bf16_steps(got, ref)
+        worst[key] = max(worst[key], s.max().item())
+        if not s.max().item() <= 1:
+            raise AssertionError(f"int8 forced: {what} {s.max().item()} bf16 "
+                                 f"steps from the reference's")
+        return s
+
+    def wrap(conv_fn, attention, style_linear, blocks, xin, in_act):
+        dev = xin.device
+        on = lambda t: t.to(dev).contiguous()
+
+        def conv_step(site, h, out, off):
+            h_ref, y_ref = trace["conv"][site]
+            same(f"{site}'s input", h, h_ref)
+            y = conv_fn(site, on(h_ref), out, off)
+            cout = q.site(site).spec.cout
+            same(f"{site}'s output", y[..., off:off + cout], y_ref)
+            return y
+
+        def in_step(h):
+            i = next(n_in)
+            h_ref, y_ref = trace["in"][i]
+            same(f"InstanceNorm {i}'s input", h, h_ref)
+            if i == 0:
+                steps_within("the InstanceNorm of the near-flat probe",
+                             in_act(int8_in_probe().to(dev)), trace["probe"],
+                             "probe_steps")
+            y = in_act(on(h_ref))
+            s = steps_within(f"InstanceNorm {i}", y, y_ref, "in_steps")
+            neq = (s > 0).float().mean().item()
+            worst["in_neq"] = max(worst["in_neq"], neq)
+            if not neq <= INT8_IN_NEQ_SHARE:
+                raise AssertionError(f"int8 forced: InstanceNorm {i} differs "
+                                     f"on {neq:.3%} of its values")
+            return on(y_ref)
+
+        def attention_step(module):
+            module32 = fp32(module)
+
+            def step(h):
+                i = next(n_att)
+                h_ref, y_ref = trace["attention"][i]
+                same(f"attention {i}'s input", h.permute(0, 2, 3, 1), h_ref)
+                y = module(on(h_ref).permute(0, 3, 1, 2))
+                y32 = module32(h_ref.float().permute(0, 3, 1, 2))
+                worst["attention"] = max(worst["attention"], close(
+                    f"attention {i}", y.permute(0, 2, 3, 1), y_ref,
+                    y32.permute(0, 2, 3, 1)))
+                return on(y_ref).permute(0, 3, 1, 2)
+            return step
+
+        linear32 = fp32(style_linear)
+
+        def block_step(block):
+            block32 = fp32(block)
+
+            def step(h, style, orig):
+                i = next(n_block)
+                h_ref, style_ref, y_ref = trace["block"][i]
+                same(f"block {i}'s input", h, h_ref)
+                style32 = torch.relu(linear32(h_ref.float().mean(dim=(1, 2))))
+                worst["style"] = max(worst["style"], close(
+                    f"block {i}'s style", style, style_ref, style32))
+                y = block(on(h_ref), on(style_ref), orig)
+                y32 = block32(h_ref.float(), style_ref.float(),
+                              orig.float().cpu())
+                worst["block"] = max(worst["block"], close(
+                    f"block {i}", y, y_ref, y32))
+                return on(y_ref)
+            return step
+
+        return (conv_step, {k: attention_step(m) for k, m in
+                            attention.items()}, style_linear,
+                [block_step(b) for b in blocks], xin, in_step)
+
+    with int8_hooks(wrap):
+        y = q(x)
+    steps_within("the output", y.permute(0, 2, 3, 1), trace["out"],
+                 "out_steps")
+    for what, left in (("InstanceNorm", n_in), ("attention", n_att),
+                       ("block", n_block)):
+        if next(left, None) is not None:
+            raise AssertionError(f"int8 forced: the forward skipped an "
+                                 f"{what} step of the reference's")
+    return worst
+
+
+@contextlib.contextmanager
+def int8_fault(name):
+    """One planted wiring fault of the int8 program (INT8_FAULTS) for the
+    block's duration: 'residual' drops each MultiScaleBlock's residual,
+    'branches' writes the four branches into each other's channels,
+    'convT phases' swaps the transposed convolutions' even and odd output
+    rows (as a kernel with its phases in the wrong order would), 'welford'
+    takes Welford statistics in place of one-pass ones at the absorbed
+    sites."""
+    import torch
+
+    from multi_style_transfer_gan_tpu_torch.core.norm import in_relu
+    from multi_style_transfer_gan_tpu_torch.models import (
+        quantized_generator as tq,
+    )
+
+    conv = tq.int8_conv
+
+    def convt_swapped(x, s_in, w, spec, *args, **kw):
+        y = conv(x, s_in, w, spec, *args, **kw)
+        if spec.transposed:
+            y = torch.stack([y[:, 1::2], y[:, 0::2]], 2).flatten(1, 2)
+        return y
+
+    def msb_without_residual(conv_fn, h, prefix, in_act):
+        cat = torch.empty_like(h)
+        for i, (branch, *_) in enumerate(tq._MSB_BRANCHES):
+            conv_fn(f"{prefix}{branch}.0", h, cat, i * (h.shape[-1] // 4))
+        return in_act(conv_fn(f"{prefix}fusion.0", in_act(cat), None, 0))
+
+    patch = {"residual": ("_msb", msb_without_residual),
+             "branches": ("_MSB_BRANCHES", tq._MSB_BRANCHES[::-1]),
+             "convT phases": ("int8_conv", convt_swapped),
+             "welford": ("in_relu_onepass", lambda h: in_relu(
+                 h.permute(0, 3, 1, 2)).permute(0, 2, 3, 1))}[name]
+    saved = getattr(tq, patch[0])
+    setattr(tq, *patch)
+    try:
+        yield
+    finally:
+        setattr(tq, patch[0], saved)
+
+
+def int8_calibration(images):
+    """The int8 engine's calibration batch from uint8 images: the first
+    INT8_CALIB_IMAGES in [-1, 1], as the batch CLI takes a folder's."""
+    import torch
+
+    from multi_style_transfer_gan_tpu_torch.ops import to_model_range
+
+    return [to_model_range(torch.from_numpy(
+        np.asarray(images[:INT8_CALIB_IMAGES]))).numpy()]
+
+
+def phase_int8(rng, dev, counts, work):
+    """The int8 engine's path: the uint8 program on the trained c16 with
+    ``engine='int8'`` calibrated on the gate images' first 8 (26 int8
+    launches, 4 attention and 1 block launch a forward), held to the int8
+    gate against fp32, and step by step (``int8_forced``) to the same
+    module's forward on the CPU on INT8_FORCED_IMAGES of the images; each
+    planted fault of INT8_FAULTS fails the step-by-step check, and
+    'branches' the gate too; SSIM / PSNR of its output against bf16 and
+    fp32;
+    img/s of int8 and bf16 NHWC in turns at INT8_RATE_CELLS; the batch CLI
+    with ``--engine int8`` on the serving path's folder,
+    ``direct_transform --precision int8`` and the server with the int8
+    engine; and the packed engine at a side that is a multiple of 16 and
+    not of 32 (PACKED_ODD_SIZE) against the NHWC engine, fp32."""
+    import copy
+
+    import torch
+
+    from multi_style_transfer_gan_tpu_torch.cli import direct_transform
+    from multi_style_transfer_gan_tpu_torch.cli.batch_process_images import (
+        main as batch_main,
+    )
+    from multi_style_transfer_gan_tpu_torch.metrics.quality import psnr, ssim
+    from multi_style_transfer_gan_tpu_torch.ops import to_model_range
+    from multi_style_transfer_gan_tpu_torch.pipelines import (
+        load_generator, make_batch_fn,
+    )
+
+    from PIL import Image
+
+    model = load_generator(TRAINED, device=dev)
+    gate = gate_images(256)
+    int8 = make_batch_fn(model, "cyclegan", engine="int8",
+                         calib_batches=int8_calibration(gate), device=dev)
+    fp32 = make_batch_fn(model, "cyclegan", device=dev)
+    bf16 = make_batch_fn(model, "cyclegan", compute_dtype=torch.bfloat16,
+                         device=dev)
+    x = torch.from_numpy(gate).to(dev)
+    before = counts()
+    got = int8(x).cpu().numpy()
+    launched = {n: counts()[n] - before[n] for n in before}
+    want = {"int8_conv": INT8_LAUNCHES_PER_FORWARD,
+            "window_channel_attention": 4,
+            "fused_structural_block": 1}
+    log(f"[int8] launches per forward: {launched}")
+    if any(launched[n] != want.get(n, 0) for n in launched):
+        raise AssertionError(f"int8 forward launches {launched}, expected "
+                             f"{want}")
+    ref = fp32(x).cpu().numpy()
+    half = bf16(x).cpu().numpy()
+    gate_mean, gate_share = int8_gate(
+        f"[int8] trained c16 int8 program vs fp32, {gate.shape}", got, ref)
+    # the program step by step: the card's forward fed, at each step, the
+    # input of the same module's forward on the CPU (the plain versions)
+    # and held to its output; then each planted fault against the gate and
+    # the step-by-step check
+    from multi_style_transfer_gan_tpu_torch.ops import to_model_range
+
+    q = int8.module
+    xq = to_model_range(torch.from_numpy(gate[:INT8_FORCED_IMAGES])).to(
+        torch.bfloat16).permute(0, 3, 1, 2)
+    trace = int8_trace(copy.deepcopy(q).to("cpu"), xq)
+    forced = int8_forced(q, xq.to(dev), trace)
+    log(f"[int8] step by step, card vs CPU on {INT8_FORCED_IMAGES} gate "
+        f"images: 26 convolutions and every step's input bit-equal; worst "
+        + ", ".join(f"{k} {v:.4g}" for k, v in forced.items()))
+    faults = {}
+    for fault in INT8_FAULTS:
+        with int8_fault(fault):
+            bad = int8(x).cpu().numpy()
+            try:
+                int8_gate(f"[int8] planted fault '{fault}'", bad, ref)
+                seen = "inside the gate"
+            except AssertionError:
+                seen = "past the gate"
+            try:
+                int8_forced(q, xq.to(dev), trace)
+                step = None
+            except AssertionError as e:
+                step = str(e)
+        log(f"[int8] planted fault '{fault}': {seen}; step by step: {step}")
+        faults[fault] = seen
+        if step is None or (fault == "branches"
+                            and seen != "past the gate"):
+            raise AssertionError(f"the int8 checks miss the planted fault "
+                                 f"'{fault}'")
+    on_card = lambda u8: torch.from_numpy(u8).to(dev).float() / 255.0
+    quality = {name: (ssim(on_card(got), on_card(other)).mean().item(),
+                      psnr(on_card(got), on_card(other)).mean().item())
+               for name, other in (("bf16", half), ("fp32", ref))}
+    bf_ssim = ssim(on_card(half), on_card(ref)).mean().item()
+    log(f"[int8] {card_line()}; on the {len(gate)} gate images at 256^2 "
+        f"(uint8 outputs over 255, mean of the per-image values): int8 vs "
+        f"bf16 SSIM {quality['bf16'][0]:.4f} PSNR {quality['bf16'][1]:.2f} "
+        f"dB; int8 vs fp32 SSIM {quality['fp32'][0]:.4f} PSNR "
+        f"{quality['fp32'][1]:.2f} dB; the bf16 floor (bf16 vs fp32) SSIM "
+        f"{bf_ssim:.4f}")
+
+    rates = {}
+    for canvas, n in INT8_RATE_CELLS:
+        xs = torch.from_numpy(np.stack(smooth_images(
+            rng, n, (canvas, canvas)))).to(dev)
+        calib = int8_calibration(xs.cpu().numpy())
+        programs = {"bf16 nhwc": make_batch_fn(
+            model, "cyclegan", compute_dtype=torch.bfloat16, device=dev),
+            "int8": make_batch_fn(model, "cyclegan", engine="int8",
+                                  calib_batches=calib, device=dev)}
+        turns = {k: [] for k in programs}
+        for k in list(programs) + list(programs)[::-1]:
+            turns[k].append(program_rate(programs[k], xs, iters=5))
+        rate = rates[(canvas, n)] = {k: sum(r) / len(r)
+                                     for k, r in turns.items()}
+        log(f"[int8] {card_line()}; batch {n} at canvas {canvas} "
+            f"(device-resident uint8 in and out): bf16 NHWC "
+            f"{rate['bf16 nhwc']:.1f} img/s, int8 {rate['int8']:.1f} img/s "
+            f"(int8 / bf16 {rate['int8'] / rate['bf16 nhwc']:.3f}); turns "
+            f"{turns}")
+
+    # the entry points: the batch CLI on the serving path's folder, the
+    # single-image CLI, the server
+    models = os.path.join(work, "models")
+    out = os.path.join(work, "out_int8")
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = batch_main(["--input_dir", os.path.join(work, "in"),
+                         "--output_dir", out, "--models_dir", models,
+                         "--mode", "local_style", "--local_style_mode",
+                         "simple", "--batch_size", "8", "--engine", "int8"])
+    written = len(os.listdir(os.path.join(
+        out, "local_style_simple_photo2monet")))
+    log(f"[int8] batch CLI --engine int8 (local_style simple): exit {rc}, "
+        f"{written} outputs; " + " | ".join(
+            line for line in buf.getvalue().splitlines()
+            if "WARNING" in line or "done:" in line))
+    if rc != 0 or written != 24 or "EXPERIMENTAL" not in buf.getvalue():
+        raise AssertionError("batch CLI --engine int8 failed")
+    photo = os.path.join(work, "int8_photo.png")
+    Image.fromarray(gate_photo()).save(photo)
+    dst = os.path.join(work, "int8_direct.png")
+    rc, _ = run_quiet(direct_transform.main, ["--image", photo, "--model",
+                                              TRAINED, "--output", dst,
+                                              "--precision", "int8"])
+    with Image.open(dst) as img:
+        ok = rc == 0 and img.size == (256, 256)
+    log(f"[int8] direct_transform --precision int8: exit {rc}, "
+        f"{'a 256^2 PNG' if ok else 'no output'}")
+    if not ok:
+        raise AssertionError("direct_transform --precision int8 failed")
+    phase_server(rng, dev, "int8")
+
+    # the packed engine at sides that are multiples of 16 and not of 32
+    xs = np.stack(smooth_images(rng, 2, PACKED_ODD_SIZE[::-1]))
+    packed, nhwc = (make_batch_fn(model, "cyclegan", engine=e,
+                                  device=dev)(xs).cpu().numpy()
+                    for e in ("packed", "nhwc"))
+    dmax, share = u8_diff(packed, nhwc)
+    log(f"[int8] packed vs NHWC engine, fp32 at {PACKED_ODD_SIZE[0]} x "
+        f"{PACKED_ODD_SIZE[1]} (odd packed token grid): max diff {dmax}, "
+        f"differing share {share:.3e}")
+    if packed.shape != xs.shape or dmax > U8_MAX_DIFF or share > U8_MAX_SHARE:
+        raise AssertionError("packed and NHWC engines disagree at "
+                             f"{PACKED_ODD_SIZE}")
+    return {"gate": (gate_mean, gate_share), "forced": forced,
+            "faults": faults, "quality": quality, "bf16_ssim": bf_ssim,
+            "rates": rates}
 
 
 def phase_single_image(rng, dev):
@@ -6177,6 +6896,9 @@ def run_paths(work) -> int:
     fid_reference_of = cpu_result(fid_reference, (work, EVAL_CPU_IMAGES,
                                                   EVAL_BATCH))
     block_err, block_times = phase_block(rng, dev)
+    # the int8 convolution, on its own rng
+    int8_err, int8_rows = phase_int8_kernels(np.random.default_rng(SEED + 8),
+                                             dev)
     photo_err = phase_photo_kernels(rng, dev)
     attn_err = max(attn_err, photo_err["attention"])
     block_err = max(block_err, photo_err["block"])
@@ -6266,7 +6988,8 @@ def run_paths(work) -> int:
                "window_mhsa_fwd": K.window_mhsa_fwd,
                "window_mhsa_bwd": K.window_mhsa_bwd,
                "window_channel_attention_stage":
-                   K.window_channel_attention_stage}
+                   K.window_channel_attention_stage,
+               "int8_conv": K.int8_conv}
     counts = lambda: {n: k.launches for n, k in counted.items()}
     serving_kernels = list(counted)[:4]   # the order of FORWARD_LAUNCHES
 
@@ -6375,6 +7098,17 @@ def run_paths(work) -> int:
                              f": expected every serving kernel, 4 attention "
                              f"calls per block call")
     mark("serving paths")
+
+    K.reset_launch_counts()   # the int8 path starts here
+    int8_out = phase_int8(np.random.default_rng(SEED + 9), dev, counts, work)
+    int8_path = counts()      # ...and ends here
+    log(f"[int8 path] launches: {int8_path}")
+    if min(int8_path[n] for n in ("int8_conv", "window_channel_attention",
+                                  "fused_structural_block")) == 0:
+        raise AssertionError(f"int8 path launches {int8_path}: the int8 "
+                             f"convolution, the NHWC attention or the block "
+                             f"never launched")
+    mark("int8 path")
 
     K.reset_launch_counts()   # the single-image path starts here
     phase_single_image(rng, dev)
@@ -6552,7 +7286,7 @@ def run_paths(work) -> int:
     settle_cpu_halves()   # every CPU half compared before the report
     launches = {n: serving[n] + widths[n] + c64_serving[n] + grid_serving[n]
                 + any_serving[n] + wide_serving[n] + past_serving[n]
-                + single[n] + spatial_path[n] + training[n]
+                + int8_path[n] + single[n] + spatial_path[n] + training[n]
                 + width_training[n] + c64_training[n] + grid_training[n]
                 + any_training[n] + wide_training[n] + past_training[n]
                 + pretraining[n]
@@ -6601,6 +7335,12 @@ def run_paths(work) -> int:
                                    tr_ms[2]),
         "window_mhsa_train": (bound(*mhsa_work(mh_qkv)), mh_ms[2], None),
         "window_channel_attention_stages": (attn_bound, None, sdpa_fwd),
+        # no PyTorch call computes an int8 convolution: the bf16 cuDNN
+        # convolution and _int_mm stand beside it in the entry
+        "int8_conv": (int8_bound(*[sum(w) for w in zip(*(
+            int8_work(spec, shape, mode)
+            for _, spec, shape, mode in int8_sites(16, canvas)))]),
+            None, None),
     }
 
     pkg = "multi_style_transfer_gan_tpu_torch/csrc"
@@ -6668,6 +7408,18 @@ def run_paths(work) -> int:
          "launches": launches["window_channel_attention_stage"],
          "max_abs_err": stages_err, "ms": st_ms, "plain_ms": st_plain,
          "max_abs_err_ablation_bf16": ablation_err},
+        {"name": "int8_conv", "route": "cuda",
+         "source": f"{pkg}/int8_conv.cu",
+         "replaces": "XLA int8 convolutions (no Pallas kernel): "
+                     "multi_style_transfer_gan_tpu/models/"
+                     "quantized_generator.py:86-106",
+         "launches": launches["int8_conv"],
+         "max_abs_err": int8_err,
+         "ms": sum(r["ms"] for r in int8_rows.values()),
+         "plain_ms": sum(r["plain_ms"] for r in int8_rows.values()),
+         "cudnn_bf16_ms": sum(r["cudnn_bf16_ms"] for r in int8_rows.values()),
+         "int_mm_ms": sum(r["int_mm_ms"] for r in int8_rows.values()),
+         "sites": int8_rows},
     ]}
     # per generator width: the serving kernels at c16 (this entry's own
     # numbers, launches of every path but the four width paths) and at c8,
@@ -6957,6 +7709,26 @@ def run_paths(work) -> int:
                     f"{d[0]:.4f} / {d[3]:.4%}"
                     for k, d in sharded["tf32"].items())
         + f"; direct_transform --spatial 2: {sharded['cli']}")
+    log(f"[summary] {card}; int8 engine (EXPERIMENTAL), trained c16: "
+        f"{INT8_LAUNCHES_PER_FORWARD} int8 convolutions a forward, "
+        f"{sum(r['ms'] for r in int8_rows.values()):.4f} ms at canvas "
+        f"{canvas}, batch {BATCH}; int8 gate vs fp32 mean |d| "
+        f"{int8_out['gate'][0]:.4f} levels, past {BF16_GATE_LEVELS} "
+        f"{int8_out['gate'][1]:.4%}; step by step vs the CPU: InstanceNorm "
+        f"{int8_out['forced']['in_steps']:.0f} bf16 step on "
+        f"{int8_out['forced']['in_neq']:.3e} of values, the rest bit-equal "
+        f"but attention / block; planted faults caught step by step "
+        f"{len(int8_out['faults'])} of {len(INT8_FAULTS)} ("
+        + ", ".join(f"{k} {v}" for k, v in int8_out["faults"].items())
+        + "); SSIM / PSNR int8 vs bf16 "
+        f"{int8_out['quality']['bf16'][0]:.4f} / "
+        f"{int8_out['quality']['bf16'][1]:.2f} dB, vs fp32 "
+        f"{int8_out['quality']['fp32'][0]:.4f} / "
+        f"{int8_out['quality']['fp32'][1]:.2f} dB (bf16 vs fp32 SSIM "
+        f"{int8_out['bf16_ssim']:.4f}); img/s "
+        + ", ".join(f"canvas {c} batch {n} int8 {r['int8']:.1f} bf16 NHWC "
+                    f"{r['bf16 nhwc']:.1f}"
+                    for (c, n), r in int8_out["rates"].items()))
     p_with, p_without, vgg_share = perceptual_ms
     log(f"[summary] {card}; GUI tab wall per image on the card (decode, "
         f"generator, post chain, restore and save; 3 photos after a warm-up): "

@@ -13,6 +13,8 @@ import argparse
 import os
 import sys
 
+DEVICE = "cuda"   # tests run the CLI on the CPU by replacing this
+
 
 def main(argv=None):
     p = argparse.ArgumentParser(description="batch style-transfer processing")
@@ -45,7 +47,9 @@ def main(argv=None):
                         "space-to-depth engine, same math, canvas a multiple "
                         "of 32); auto takes packed at a batch of 32 or less "
                         "(after the small-folder shrink) and nhwc above; "
-                        "int8 is not ported")
+                        "int8 is the EXPERIMENTAL post-training-quantized "
+                        "engine, calibrated on the folder's first 8 images "
+                        "(a plain checkpoint runs nhwc)")
     p.add_argument("--canvas", type=int, default=256,
                    help="working resolution (multiple of 32; the reference"
                         " fixes 256)")
@@ -71,7 +75,7 @@ def main(argv=None):
         if not os.path.exists(path):
             print(f"error: missing CycleGAN model at {path}")
             return 1
-        model = load_generator(path, prefer=prefer, device="cuda")
+        model = load_generator(path, prefer=prefer, device=DEVICE)
     else:
         name = ("G_AB_epoch_200.pth" if args.direction == "monet2photo"
                 else "G_BA_epoch_200.pth")
@@ -79,10 +83,10 @@ def main(argv=None):
         if not os.path.exists(path):
             print(f"error: missing enhanced model at {path}")
             return 1
-        model = load_generator(path, device="cuda")
+        model = load_generator(path, device=DEVICE)
     print(f"loaded {model.kind} generator (channels={model.channels})")
 
-    where = {"device": "cuda"}
+    where = {"device": DEVICE}
     if args.data_parallel:
         from ..parallel import local_devices
 

@@ -6,7 +6,9 @@ package's ``cli/direct_transform.py``).
 
 ``--spatial N`` splits the image's rows over the first N CUDA cards
 (``parallel.spatial``); the size must be divisible by 16 * N, and a host
-with fewer cards exits 1.
+with fewer cards exits 1. ``--precision int8`` runs the EXPERIMENTAL int8
+engine, calibrated on the image itself at ``--size``; it runs its own
+program, unsharded, whatever ``--spatial`` says.
 """
 
 import argparse
@@ -35,7 +37,10 @@ def main(argv=None):
                         "carry to several levels on a few pixels, as far "
                         "as any change of cuDNN's algorithms moves them "
                         "(another batch, --spatial); 'highest' turns TF32 "
-                        "off in the generator; 'int8' is not ported")
+                        "off in the generator; 'int8' runs the EXPERIMENTAL "
+                        "post-training-quantized engine (enhanced models "
+                        "only), calibrated on this image at --size, and "
+                        "ignores --spatial")
     p.add_argument("--fast_attention", action="store_true",
                    help="accepted for script compatibility: on a CUDA "
                         "device the hand-written kernels always run")
@@ -46,19 +51,18 @@ def main(argv=None):
                         "'default' the sharded output lies as far from the "
                         "unsharded one as TF32 moves the unsharded output "
                         "between cuDNN's algorithms; 'highest' keeps it "
-                        "within 1 level")
+                        "within 1 level. Not applied at --precision int8, "
+                        "which runs its own program on one device")
     args = p.parse_args(argv)
 
     import torch
 
-    if args.precision == "int8":
-        print("error: --precision int8 is not ported", file=sys.stderr)
-        return 2
     if not torch.cuda.is_available():
         print("error: no CUDA device; the port runs on the GPU",
               file=sys.stderr)
         return 1
-    if args.spatial > 1 and torch.device(DEVICE).type == "cuda":
+    if (args.spatial > 1 and torch.device(DEVICE).type == "cuda"
+            and args.precision != "int8"):
         from ..parallel import spatial_mesh
 
         try:   # never quietly unsharded on too few cards
@@ -71,8 +75,21 @@ def main(argv=None):
         try_skip_connections,
     )
 
+    calib = None
+    if args.precision == "int8":
+        # calibration on this image at the size the run executes at:
+        # scales measured at another size would misquantize
+        import numpy as np
+        from PIL import Image
+
+        from ..ops import resize, to_model_range
+
+        img = np.array(Image.open(args.image).convert("RGB"), np.uint8)
+        x01 = resize(torch.from_numpy(img).float() / 255.0,
+                     (args.size, args.size))
+        calib = [to_model_range(x01)[None].numpy()]
     model = load_generator(args.model, precision=args.precision,
-                           device=DEVICE)
+                           calib_batches=calib, device=DEVICE)
     print(f"loaded {model.kind} generator (channels={model.channels}, "
           f"direction={model.direction})")
     out_dir = os.path.dirname(os.path.abspath(args.output)) or "."

@@ -45,7 +45,9 @@ def main(argv=None):
                    default="nhwc",
                    help="generator engine: nhwc, or packed (the "
                         "space-to-depth engine, same math, canvas a multiple "
-                        "of 32); int8 is not ported")
+                        "of 32), or int8 (the EXPERIMENTAL post-training-"
+                        "quantized engine, calibrated on a seeded synthetic "
+                        "batch; a plain checkpoint runs nhwc)")
     p.add_argument("--precision", choices=["default", "high", "highest"],
                    default="default")
     args = p.parse_args(argv)

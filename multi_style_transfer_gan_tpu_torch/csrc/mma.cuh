@@ -1,5 +1,6 @@
 // Warp-level tensor-core helpers for Hopper (sm_90a) as inline PTX: the
-// bf16 m16n8k16 product with fp32 sums, ldmatrix, 16- and 8-byte cp.async, and
+// bf16 m16n8k16 product with fp32 sums, the int8 m16n8k32 product with
+// int32 sums, ldmatrix, 16- and 8-byte cp.async, and
 // packing fp32 values into bf16x2 operand registers; with them, the quad
 // reductions, the bf16 store of accumulator fragments, and the two steps
 // the channel-attention kernels (inference and training) share: a 16-row
@@ -42,6 +43,21 @@ __device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4], 
       "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
       "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// d += a b on int8 operands, int32 sums (m16n8k32; lane = 4 g + t). Each
+// register four int8, the lowest column (A) or k (B) in the low byte:
+//   A (16 x 32, row-major): a0 (row g, cols 4t .. 4t+3), a1 (row g+8, same),
+//                           a2 (row g, cols 4t+16 .. 4t+19), a3 (row g+8, same)
+//   B (32 x 8, k x n):      b0 (k 4t .. 4t+3, col n g), b1 (k 4t+16 .. 4t+19)
+//   C (16 x 8, int32):      as the bf16 product's C
+__device__ __forceinline__ void mma_s8(int (&d)[4], const uint32_t (&a)[4], uint32_t b0,
+                                       uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 

@@ -26,7 +26,9 @@ run on the model's device, and the post chains in fp32 there.
 
 Run: ``python -m multi_style_transfer_gan_tpu_torch.gui.app`` (needs a
 display and a CUDA device; ``MSTGAN_GUI_PRECISION`` = default | high |
-highest picks the generators' precision).
+highest | int8 picks the generators' precision; int8, the EXPERIMENTAL
+post-training-quantized engine, serves the enhanced models, and the plain
+CycleGAN pair loads at the default precision).
 """
 
 from __future__ import annotations
@@ -53,12 +55,11 @@ class ModelManager:
     def __init__(self, models_dir=MODELS_DIR, precision="default", *,
                  device):
         # precision: 'default' and 'high' let cuDNN take TF32 on the card;
-        # 'highest' turns it off (the JAX package's torch-parity setting).
-        # 'int8' (the JAX package's int8 engine) is not ported.
+        # 'highest' turns it off (the JAX package's torch-parity setting);
+        # 'int8' serves the enhanced models through the int8 engine, and
+        # the plain CycleGAN pair at 'default'
         from ..pipelines.model_loader import PRECISIONS
 
-        if precision == "int8":
-            raise NotImplementedError("precision int8 is not ported")
         if precision not in PRECISIONS:
             raise ValueError(f"precision must be one of {PRECISIONS}, "
                              f"got {precision!r}")
@@ -72,6 +73,7 @@ class ModelManager:
 
     def load(self, log=print):
         from ..pipelines import load_generator
+        from ..weights import detect_model_kind, extract_state_dict, load_pth
 
         paths = {
             "enhanced_ab": ("G_AB_epoch_200.pth", None),
@@ -85,8 +87,14 @@ class ModelManager:
                 log(f"model missing: {path}")
                 continue
             try:
-                m = load_generator(path, prefer=prefer,
-                                   precision=self.precision,
+                precision = self.precision
+                if precision == "int8" and detect_model_kind(
+                        extract_state_dict(load_pth(path),
+                                           prefer=prefer)) != "enhanced":
+                    # int8 takes enhanced models only: a plain checkpoint
+                    # loads at 'default' (JAX's gui/app.py:73)
+                    precision = "default"
+                m = load_generator(path, prefer=prefer, precision=precision,
                                    device=self.device)
                 setattr(self, attr, m)
                 log(f"loaded {attr} from {name} (precision={m.precision})")
@@ -255,13 +263,15 @@ def model_info_text(manager) -> str:
 
 
 def main():
-    """Start the GUI on the CUDA device. Returns an exit code: 2 for a
-    precision that is not ported, 1 without a CUDA device (each before Tk
-    is imported and a window opens)."""
+    """Start the GUI on the CUDA device. Returns an exit code: 2 for an
+    unknown precision, 1 without a CUDA device (each before Tk is imported
+    and a window opens)."""
+    from ..pipelines.model_loader import PRECISIONS
+
     precision = os.environ.get("MSTGAN_GUI_PRECISION", "default")
-    if precision == "int8":
-        print("error: MSTGAN_GUI_PRECISION=int8 is not ported",
-              file=sys.stderr)
+    if precision not in PRECISIONS:
+        print(f"error: MSTGAN_GUI_PRECISION={precision} is not one of "
+              f"{PRECISIONS}", file=sys.stderr)
         return 2
     if not torch.cuda.is_available():
         print("error: no CUDA device; the port runs on the GPU",

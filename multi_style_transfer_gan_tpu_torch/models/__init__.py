@@ -13,15 +13,20 @@ from .packed_generator import (
     PackedEnhancedGenerator, pack_enhanced_generator_params,
     packed_enhanced_generator_apply,
 )
+from .quantized_generator import (
+    QuantizedEnhancedGenerator, prepare_int8_model,
+)
 from .structural_transformer import (
     StructuralTransformerBlock, default_num_heads,
 )
 
 __all__ = [
     "EnhancedDiscriminator", "EnhancedGenerator", "LocalAttention",
-    "MultiScaleBlock", "PackedEnhancedGenerator", "PlainGenerator", "SNConv2d",
+    "MultiScaleBlock", "PackedEnhancedGenerator", "PlainGenerator",
+    "QuantizedEnhancedGenerator", "SNConv2d",
     "StructuralTransformerBlock", "channels_of", "default_num_heads",
     "kaiming_conv", "num_transformer_blocks_of", "pack_enhanced_generator_params",
-    "packed_enhanced_generator_apply", "torch_default_conv",
+    "packed_enhanced_generator_apply", "prepare_int8_model",
+    "torch_default_conv",
     "torch_default_linear",
 ]

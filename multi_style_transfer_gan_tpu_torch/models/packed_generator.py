@@ -12,10 +12,17 @@ output; d2s of the result) and the block kernel once.
     packed = PackedEnhancedGenerator(generator)   # repacks once per load
     y = packed(x)                                  # (B, 3, H, W) -> same
 
-H and W must be multiples of 32: the packed bottleneck grid is then even,
-so the block's window-8 grid route always applies (the JAX non-fast route
-``_packed_window8_mhsa`` is not needed), and the struct embed lands on the
-token grid without the resize branch.
+H and W must be multiples of 16, the NHWC generator's own rule: the
+packed convs then meet the NHWC grid at every stage, and the struct embed
+lands on the token grid (JAX's resize branch, :253-256, is reached only
+off that rule, where the packed engine's stages no longer match the NHWC
+generator's). The block runs on the unpacked bottleneck grid, whose side
+at a multiple of 16 but not of 32 is 4 mod 8: a ragged window-8 grid,
+padded with the padded keys masked out of the softmax as in the NHWC
+block. The JAX package's packed route for that grid
+(``_packed_window8_mhsa``, :198-239) zero-pads qkv without the mask and so
+computes another function than its own NHWC generator (up to 1.96 apart
+at c4, 48 x 80); this engine keeps the NHWC generator's.
 """
 
 from __future__ import annotations
@@ -36,7 +43,7 @@ from .enhanced_generator import _MSB_BRANCHES, num_transformer_blocks_of
 
 PACK = 4   # packing factor == LocalAttention window size
 P = PACK * PACK
-MULTIPLE = 32
+MULTIPLE = 16
 _BLOCK_WEIGHTS = {"norm1_w": "norm1.weight", "norm1_b": "norm1.bias",
                   "qkv_w": "attn.qkv.weight", "qkv_b": "attn.qkv.bias",
                   "proj_w": "attn.proj.weight", "proj_b": "attn.proj.bias",
@@ -146,7 +153,8 @@ def _packed_transformer_block(p, tokens_p, style, xp_input, prefix):
     """StructuralTransformerBlock on packed tensors, the grid route (JAX
     :241-281): the struct embed as two packed stride-2 convs on the packed
     input, FiLM from the style vector, then the fused block kernel on the
-    unpacked bottleneck grid between two d2s and one s2d."""
+    unpacked bottleneck grid (ragged where the packed grid is odd) between
+    two d2s and one s2d."""
     g = lambda n: p[f"{prefix}{n}"]
     B, Hp, Wp, _ = tokens_p.shape
     spec = pack_conv2d_spec(3, f_in=PACK, f_out=PACK, stride=2, padding=1)
@@ -154,16 +162,6 @@ def _packed_transformer_block(p, tokens_p, style, xp_input, prefix):
                                  g("struct_embed.0.bias"), spec))
     s = torch.relu(packed_conv2d(s, g("struct_embed.2.weight"),
                                  g("struct_embed.2.bias"), spec))
-    if s.shape[1:3] != (Hp, Wp):
-        raise NotImplementedError(
-            f"struct-embed resize from {tuple(s.shape[1:3])} to {(Hp, Wp)} "
-            f"is not ported (the packed engine needs sides that are "
-            f"multiples of {MULTIPLE})")
-    if Hp % 2 or Wp % 2:
-        raise NotImplementedError(
-            f"odd packed token grid {(Hp, Wp)}: the window-8 route on it "
-            f"is not ported (the packed engine needs sides that are "
-            f"multiples of {MULTIPLE})")
     struct = packed_per_channel_linear(s, g("struct_proj.weight"),
                                        g("struct_proj.bias"), PACK)
     mod = F.linear(style, g("style_mod.weight").to(style.dtype),
@@ -180,7 +178,7 @@ def packed_enhanced_generator_apply(p, x: torch.Tensor) -> torch.Tensor:
     """EnhancedGenerator forward on s2d(4) tensors (JAX :305-354).
 
     p: the packed weights (:func:`pack_enhanced_generator_params`), in x's
-    type; x: (B, H, W, 3) in [-1, 1], H and W multiples of 32. Returns
+    type; x: (B, H, W, 3) in [-1, 1], H and W multiples of 16. Returns
     (B, H, W, 3), contiguous.
     """
     B, H, W, _ = x.shape
@@ -239,7 +237,7 @@ class PackedEnhancedGenerator(nn.Module):
         return {k: getattr(self, k.replace(".", "__")) for k in self._keys}
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        """x: (B, 3, H, W) in [-1, 1], H and W multiples of 32 -> same."""
+        """x: (B, 3, H, W) in [-1, 1], H and W multiples of 16 -> same."""
         y = packed_enhanced_generator_apply(self.packed_weights(),
                                             x.permute(0, 2, 3, 1))
         return y.permute(0, 3, 1, 2)

@@ -9,10 +9,12 @@ in forward/backward pairs behind one ``torch.autograd.Function`` each.
 ``window_channel_attention_fast_vjp`` is the JAX package's route for the
 LocalAttention widths no training kernel takes (every C but 1, 2, 4, 8,
 16, 32, 64; ``train_route``): the inference kernel forward, the
-backward recomputed through the plain version.
+backward recomputed through the plain version. ``int8_conv`` is the int8
+serving engine's convolution (``models/quantized_generator.py``).
 """
 
 from .fused_transformer import fused_structural_block, structural_block_plain
+from .int8_conv import int8_conv, int8_conv_plain
 from .packed_window_attention import (
     packed_window_channel_attention, packed_window_channel_attention_plain,
 )
@@ -39,7 +41,8 @@ from .window_relayout import (
 KERNELS = (window_channel_attention, fused_structural_block,
            packed_window_channel_attention, window_relayout,
            window_attention_mid_fwd, window_attention_mid_bwd,
-           window_mhsa_fwd, window_mhsa_bwd, window_channel_attention_stage)
+           window_mhsa_fwd, window_mhsa_bwd, window_channel_attention_stage,
+           int8_conv)
 
 
 def reset_launch_counts() -> None:
@@ -49,7 +52,7 @@ def reset_launch_counts() -> None:
 
 __all__ = [
     "KERNELS", "STAGES", "depth_to_space_plain",
-    "fused_structural_block",
+    "fused_structural_block", "int8_conv", "int8_conv_plain",
     "packed_window_channel_attention", "packed_window_channel_attention_plain",
     "reset_launch_counts", "space_to_depth_plain", "structural_block_plain",
     "train_route", "window_attention_mid_backward_plain",

@@ -63,6 +63,9 @@ SIGNATURES = {
     "window_mhsa_train_bwd": (
         "window_mhsa_train", "window_mhsa_train_bwd_launch",
         [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P]),
+    "int8_conv": (
+        "int8_conv", "int8_conv_launch",
+        [_P, _P, _P, _P, _P, _P] + [_I] * 19 + [_P]),
 }
 SOURCES = tuple(dict.fromkeys(src for src, _, _ in SIGNATURES.values()))
 

@@ -8,8 +8,11 @@
   generator -> ``from_model_range`` -> round and clip on the device, with
   one of two engines of the same math: the NHWC ``EnhancedGenerator`` or
   the packed (space-to-depth) ``PackedEnhancedGenerator``; ``auto`` picks
-  one by ``select_engine``, as the JAX package does. A plain generator
-  checkpoint runs its own forward (``PlainGenerator``) under either.
+  one by ``select_engine``, as the JAX package does. ``int8`` is the
+  EXPERIMENTAL post-training-quantized engine
+  (``QuantizedEnhancedGenerator``), an approximation of the same network
+  calibrated on the folder's first images. A plain generator checkpoint
+  runs its own forward (``PlainGenerator``) under any of them.
 - A bounded prefetch thread decodes and copies the next batches to the
   device while the current one runs; a one-worker fetch pool copies
   results back in order and a save pool encodes them.
@@ -53,7 +56,8 @@ from ..ops.filters import (
     canny, convert_scale_abs, dilate, equalize_hist, erode, gaussian_blur,
     gaussian_filter, guided_filter,
 )
-from ..models import PackedEnhancedGenerator
+from ..models import PackedEnhancedGenerator, prepare_int8_model
+from ..models.quantized_generator import EXPERIMENTAL_WARNING
 from .model_loader import LoadedModel
 
 CANVAS = 256
@@ -183,14 +187,15 @@ def _postprocess(canvas_u8f, styled_u8f, mode, strength, detail,
 # device side: the uint8 -> uint8 program
 # ---------------------------------------------------------------------------
 
-ENGINES = ("nhwc", "packed")
+ENGINES = ("nhwc", "packed", "int8")
+CALIBRATION_IMAGES = 8   # the int8 engine's calibration: the folder's first
 
 
 def make_batch_fn(model: LoadedModel, mode: str = "cyclegan",
                   local_style_mode: str = "enhanced", strength: float = 0.8,
                   detail: float = 0.7, enhance_colors: bool = True,
                   smooth: bool = True, *, compute_dtype=None,
-                  engine: str = "nhwc", device):
+                  engine: str = "nhwc", calib_batches=None, device):
     """The uint8 (B, H, W, 3) -> uint8 (B, H, W, 3) program on ``device``.
 
     The returned function takes a numpy array or a tensor and returns a
@@ -201,17 +206,18 @@ def make_batch_fn(model: LoadedModel, mode: str = "cyclegan",
     None = fp32). The program runs its own copy of the module in that
     dtype. engine: 'nhwc' runs the ``EnhancedGenerator`` as it is; 'packed'
     the space-to-depth engine (``PackedEnhancedGenerator``, the same math,
-    H and W multiples of 32), repacked from the model's weights here. A
-    plain model has one engine, its own forward, whichever is asked for.
+    H and W multiples of 16), repacked from the model's weights here;
+    'int8' the post-training-quantized engine
+    (``QuantizedEnhancedGenerator``, bf16 compute whatever
+    ``compute_dtype`` says), calibrated here on ``calib_batches``
+    ((B, H, W, 3) arrays in [-1, 1]; None: ``prepare_int8_model``'s seeded
+    synthetic batch). A plain model has one engine, its own forward,
+    whichever is asked for.
     local_style_mode: 'simple', 'enhanced' or 'advanced' (mode
     'local_style' only); ``strength``, ``detail``, ``enhance_colors`` and
     ``smooth`` as in the JAX package. The post chain runs in fp32 on
     ``device`` in the same call as the generator.
     """
-    if engine == "int8":
-        raise NotImplementedError(
-            "engine='int8' (the int8 engine) is not ported and not to be "
-            "ported (ROADMAP.md, queue 1)")
     if engine not in ENGINES:
         raise ValueError(f"engine must be one of {ENGINES}, got {engine!r} "
                          f"(batch_process resolves 'auto' with select_engine)")
@@ -229,6 +235,9 @@ def make_batch_fn(model: LoadedModel, mode: str = "cyclegan",
     elif engine == "packed":
         module = PackedEnhancedGenerator(model.module).to(device=device,
                                                           dtype=dtype)
+    elif engine == "int8":
+        module = prepare_int8_model(copy.deepcopy(model.module).to(device),
+                                    calib_batches)
     else:
         module = copy.deepcopy(model.module).to(device=device, dtype=dtype)
 
@@ -286,9 +295,14 @@ def batch_process(model: LoadedModel, input_dir, output_dir, *,
     lays them out. canvas: working resolution, a multiple of 32. engine:
     'auto' (the default, as in the JAX package) resolves through
     :func:`select_engine` on the final batch size, after the small-folder
-    shrink and the rounding to the device count; 'nhwc' or 'packed' force
-    one (see make_batch_fn). A build or launch failure of either raises:
-    there is no fallback engine.
+    shrink and the rounding to the device count; 'nhwc', 'packed' or
+    'int8' force one (see make_batch_fn). 'int8' prints its EXPERIMENTAL
+    warning and calibrates an enhanced model on the folder's first
+    CALIBRATION_IMAGES images decoded at the run's canvas; a plain model
+    runs its own forward under any engine (make_batch_fn). A build,
+    calibration or launch failure raises: there is no fallback engine and
+    no fallback calibration batch (the JAX package degrades to nhwc and to
+    its synthetic batch).
 
     devices: each device (a device may repeat) holds a replica of the
     program and takes one block of every batch, whose size is rounded up
@@ -329,10 +343,19 @@ def batch_process(model: LoadedModel, input_dir, output_dir, *,
         engine = select_engine(batch_size, canvas, model.kind)
         print(f"engine=auto -> {engine} (batch {batch_size}, "
               f"canvas {canvas})")
+    elif engine == "int8":
+        print(EXPERIMENTAL_WARNING)
+    calib = None
+    if engine == "int8" and model.kind == "enhanced":
+        # activation scales from the folder's own first images at the run's
+        # canvas, not a synthetic batch (a plain model runs its own forward)
+        head = np.stack([_decode_canvas(f, canvas)[0]
+                         for f in files[:CALIBRATION_IMAGES]])
+        calib = [to_model_range(torch.from_numpy(head)).numpy()]
     run_fns = [make_batch_fn(model, mode, local_style_mode, strength, detail,
                              enhance_colors, smooth,
                              compute_dtype=compute_dtype, engine=engine,
-                             device=d) for d in devices]
+                             calib_batches=calib, device=d) for d in devices]
     use_native = _native.available()
     n_failed = 0
 

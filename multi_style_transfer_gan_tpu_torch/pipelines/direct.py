@@ -7,7 +7,8 @@ direct pipeline stretches to a square rather than pasting on a canvas
 (:66-75). Everything runs on the model's device; with ``spatial`` > 1
 the generator runs height-sharded over that many devices of the model's
 device type (``parallel.spatial``), and the output rows meet on the
-model's device.
+model's device. An int8 model (``precision='int8'``) runs its own program,
+unsharded: ``spatial`` is not applied to it, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -39,8 +40,9 @@ def _apply(model: LoadedModel, spatial: int, fast_attention: bool):
     """The generator as ``model.apply``; with ``spatial`` > 1 its
     height-sharded run over that many devices (the local CUDA cards for a
     model on the card, copies of the CPU for one on the CPU), whose output
-    shards are joined on the model's device. Too few cards raise."""
-    if not (spatial and spatial > 1):
+    shards are joined on the model's device. Too few cards raise. An int8
+    model keeps its own program (JAX's pipelines/direct.py:51-55)."""
+    if not (spatial and spatial > 1) or model.precision == "int8":
         return model.apply
     from ..parallel.spatial import gather_rows, spatial_apply
 

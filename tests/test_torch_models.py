@@ -117,7 +117,7 @@ def test_extract_state_dict_flavors(flavor):
 
 def test_loader_raises_for_what_is_not_ported(tmp_path):
     """A plain-generator checkpoint loads strictly and runs; the int8
-    engine, which is not to be ported, raises."""
+    engine, ported since, takes enhanced models only and raises for it."""
     from torch_oracle import make_plain_sd
 
     path = tmp_path / "plain.pth"
@@ -129,8 +129,8 @@ def test_loader_raises_for_what_is_not_ported(tmp_path):
         assert torch.equal(v, sd[k]), k
     y = m.apply(torch.zeros(1, 32, 32, 3))
     assert y.shape == (1, 32, 32, 3) and torch.isfinite(y).all()
-    with pytest.raises(NotImplementedError, match="int8"):
-        load_generator(TRAINED, precision="int8", device="cpu")
+    with pytest.raises(ValueError, match="int8"):
+        load_generator(path, precision="int8", device="cpu")
 
 
 # ---------------------------------------------------------------------------

@@ -298,9 +298,79 @@ def test_packed_forward_matches_jax_and_the_nhwc_forward(c4_params):
 
 
 def test_packed_engine_rejects_sides_off_multiples_of_32(c4_params):
+    """Sides that are multiples of 16 run since (the NHWC generator's own
+    rule; ``test_packed_forward_at_odd_packed_grids``); others raise."""
     packed = PackedEnhancedGenerator(_port_generator(c4_params))
-    with torch.inference_mode(), pytest.raises(ValueError, match="32"):
-        packed(torch.zeros(1, 3, 48, 64))
+    with torch.inference_mode(), pytest.raises(ValueError, match="16"):
+        packed(torch.zeros(1, 3, 40, 64))
+
+
+def _masked_packed_window8_mhsa(tokens_p, qkv_w, qkv_b, proj_w, proj_b, dim):
+    """JAX's ``_packed_window8_mhsa`` (packed_generator.py:198-239) with
+    the padded keys of an odd packed grid masked out of the softmax, as
+    its NHWC block masks them (structural_transformer.py:132-141)."""
+    from multi_style_transfer_gan_tpu.models import packed_generator as jpg
+    from multi_style_transfer_gan_tpu.models.structural_transformer import (
+        default_num_heads,
+    )
+
+    B, Hp, Wp, _ = tokens_p.shape
+    P = 16
+    heads = default_num_heads(dim)
+    hd = dim // heads
+    qkv = jpg.packed_per_channel_linear(tokens_p, qkv_w.T, qkv_b, 4)
+    ph, pw = Hp % 2, Wp % 2
+    pad = ((0, 0), (0, ph), (0, pw), (0, 0))
+    qkv = jnp.pad(qkv, pad)
+    valid = jnp.pad(jnp.ones((B, Hp, Wp, P)), pad)
+    Hq, Wq = Hp + ph, Wp + pw
+    win = lambda t, c: t.reshape(B, Hq // 2, 2, Wq // 2, 2, P, c).transpose(
+        0, 1, 3, 2, 4, 5, 6).reshape(-1, 4 * P, c)
+    q, k, v = jnp.split(win(qkv, 3 * dim), 3, axis=-1)
+    keys = win(valid[..., None], 1)[..., 0]
+    heads_of = lambda u: u.reshape(u.shape[0], 4 * P, heads, hd).transpose(
+        0, 2, 1, 3)
+    q, k, v = heads_of(q), heads_of(k), heads_of(v)
+    attn = jnp.einsum("bhtd,bhsd->bhts", q, k,
+                      preferred_element_type=jnp.float32) / np.sqrt(hd)
+    attn = jnp.where(keys[:, None, None, :] > 0, attn, -jnp.inf)
+    attn = jax.nn.softmax(attn, axis=-1).astype(v.dtype)
+    out = jnp.einsum("bhts,bhsd->bhtd", attn, v,
+                     preferred_element_type=jnp.float32).astype(tokens_p.dtype)
+    out = out.transpose(0, 2, 1, 3).reshape(B, Hq // 2, Wq // 2, 2, 2, P, dim)
+    out = out.transpose(0, 1, 3, 2, 4, 5, 6).reshape(B, Hq, Wq, P * dim)
+    return jpg.packed_per_channel_linear(out[:, :Hp, :Wp], proj_w.T, proj_b,
+                                         4)
+
+
+def test_packed_forward_at_odd_packed_grids(c4_params, monkeypatch):
+    """At 48 x 80 the packed token grid is 3 x 5 (odd) and the block's
+    window-8 grid 12 x 20 (ragged). The port's packed engine equals its
+    NHWC generator and JAX's packed engine with the padded keys masked; JAX's
+    packed engine as it stands zero-pads qkv without the mask and computes
+    another function than its own NHWC generator there."""
+    from multi_style_transfer_gan_tpu.models import enhanced_generator_apply
+    from multi_style_transfer_gan_tpu.models import packed_generator as jpg
+
+    x = np.tanh(np.random.default_rng(3).standard_normal(
+        (2, 48, 80, 3))).astype(np.float32)
+    packed_p = jax_pack_params(c4_params)
+    unmasked = np.asarray(jax.jit(jax_packed_apply)(packed_p, jnp.asarray(x)))
+    jax_nhwc = np.asarray(jax.jit(enhanced_generator_apply)(c4_params,
+                                                            jnp.asarray(x)))
+    monkeypatch.setattr(jpg, "_packed_window8_mhsa",
+                        _masked_packed_window8_mhsa)
+    jax.clear_caches()
+    masked = np.asarray(jax.jit(jax_packed_apply)(packed_p, jnp.asarray(x)))
+    jax.clear_caches()
+    g = _port_generator(c4_params)
+    with torch.inference_mode():
+        got = _nhwc(PackedEnhancedGenerator(g).eval()(_nchw(_t(x))))
+        nhwc = _nhwc(g.to(memory_format=torch.channels_last)(_nchw(_t(x))))
+    assert got.shape == (2, 48, 80, 3)
+    for ref in (masked, jax_nhwc, nhwc.numpy()):
+        np.testing.assert_allclose(got.numpy(), ref, atol=2e-4, rtol=2e-4)
+    assert np.abs(unmasked - jax_nhwc).max() > 0.5
 
 
 # ---------------------------------------------------------------------------

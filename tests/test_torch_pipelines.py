@@ -115,10 +115,12 @@ def test_post_chain_program_matches_jax(model, chain_batch, jax_chain_outputs,
 
 
 @pytest.mark.parametrize("kwargs,match", [
-    (dict(engine="int8"), "not ported"),
+    (dict(engine="int4"), "engine must be one of"),
 ])
 def test_batch_fn_raises_for_what_is_not_ported(model, kwargs, match):
-    with pytest.raises(NotImplementedError, match=match):
+    """An engine that does not exist raises (int8 was the one not ported:
+    tests/test_torch_int8.py holds it against JAX since)."""
+    with pytest.raises(ValueError, match=match):
         make_batch_fn(model, device="cpu", **kwargs)
 
 

@@ -227,9 +227,16 @@ def test_native_build_moves_the_library_into_place(tmp_path, monkeypatch):
 @pytest.mark.parametrize("call", ["loader int8", "loader plain",
                                   "program int8", "program post chain"])
 def test_not_ported_messages_name_the_work(call, tmp_path):
+    calib = [np.zeros((1, 32, 32, 3), np.float32)]
     if call == "loader int8":
-        fn = lambda: load_generator(TRAINED, precision="int8", device="cpu")
-        words = "int8 engine"
+        # ported since: the int8 engine loads and runs, so there is no
+        # message left to check
+        model = load_generator(TRAINED, precision="int8",
+                               calib_batches=calib, device="cpu")
+        out = model.apply(torch.zeros(1, 32, 32, 3))
+        assert model.precision == "int8" and out.shape == (1, 32, 32, 3)
+        assert out.dtype == torch.bfloat16
+        return
     elif call == "loader plain":
         from torch_oracle import make_plain_sd
 
@@ -244,14 +251,16 @@ def test_not_ported_messages_name_the_work(call, tmp_path):
         return
     else:
         model = load_generator(TRAINED, device="cpu")
-        kw = (dict(engine="int8") if call == "program int8"
+        kw = (dict(engine="int8", calib_batches=calib)
+              if call == "program int8"
               else dict(local_style_mode="advanced"))
         mode = "cyclegan" if call == "program int8" else "local_style"
         fn = lambda: make_batch_fn(model, mode, device="cpu", **kw)
         words = "int8 engine"
-        if call == "program post chain":
-            # ported since: the program with the advanced chain builds and
-            # runs, so there is no message left to check
+        if call in ("program post chain", "program int8"):
+            # ported since: the program with the advanced chain, and the
+            # int8 program, build and run, so there is no message left to
+            # check
             out = fn()(np.zeros((1, 32, 32, 3), np.uint8))
             assert out.shape == (1, 32, 32, 3) and out.dtype == torch.uint8
             return
